@@ -1,0 +1,127 @@
+"""The batched scheduler on the main path: sync → encode → one device call →
+one device-to-host read → bind.
+
+The device half of ``kubernetes_tpu/backend/tpu_scheduler.py``'s
+``schedule_batch_cycle`` and ``_commit_inflight``, without the queue, the
+framework runtime, the store or the commit plane. ``BatchScheduler`` keeps
+the given NodeInfos as its cache (it binds placed pods into them) and a
+``DeviceState`` mirror of them; each
+``schedule`` call places pods in batches of ``caps.pods`` in the given
+order. Only the features this path implements are accepted: a pod with
+topology spread, inter-pod (anti-)affinity, DRA claims, volumes or a gang
+label raises NotImplementedError rather than being placed by a path that
+would ignore those terms.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Iterable, Optional, Sequence
+
+from ..api.types import POD_GROUP_LABEL, Pod
+from ..cache.snapshot import Snapshot
+from ..framework.types import NodeInfo
+from ..ops.schema import Capacities
+from ..utils.device import DeviceLike
+from .batch import DEFAULT_WEIGHTS, schedule_batch, unpack_result_block
+from .device_state import DeviceState, caps_for_cluster
+
+
+STAGES = ("sync", "encode", "dispatch", "read", "bind")
+
+
+def unsupported_reason(pod: Pod) -> Optional[str]:
+    """Why the main path cannot place ``pod`` (the later slice that will),
+    or None when it can."""
+    spec = pod.spec
+    if spec.topology_spread_constraints:
+        return "topology spread constraints (topology slice)"
+    a = spec.affinity
+    if a is not None and (a.pod_affinity is not None or a.pod_anti_affinity is not None):
+        return "inter-pod affinity (topology slice)"
+    if spec.resource_claims:
+        return "resource claims (DRA and volumes slice)"
+    if spec.volumes or spec.ephemeral_claims:
+        return "volumes (DRA and volumes slice)"
+    if POD_GROUP_LABEL in pod.meta.labels:
+        return "gang membership (gangs and slices slice)"
+    return None
+
+
+class BatchScheduler:
+    def __init__(self, node_infos: Iterable[NodeInfo], caps: Optional[Capacities] = None,
+                 device: DeviceLike = None):
+        infos = list(node_infos)
+        for ni in infos:
+            self._check_node(ni)
+        self.caps = caps or caps_for_cluster(len(infos))
+        self.state = DeviceState(self.caps, device)
+        self.device = self.state.device
+        self.snapshot = Snapshot(infos)
+        self.batches = 0
+        # host seconds per stage of a batch, summed over batches: sync,
+        # encode, dispatch (static phase and kernel enqueued), read (the
+        # blocking device-to-host read, which waits for the device) and bind
+        self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+
+    @staticmethod
+    def _check_node(ni: NodeInfo) -> None:
+        if ni.pods_with_affinity:
+            raise NotImplementedError(
+                f"node {ni.node.meta.name} holds pods with inter-pod affinity "
+                "(topology slice)")
+
+    def add_node(self, ni: NodeInfo) -> None:
+        """Add or replace a node (its pods come with its NodeInfo)."""
+        self._check_node(ni)
+        self.snapshot.set(ni)
+
+    def remove_node(self, name: str) -> None:
+        self.snapshot.remove(name)
+
+    def schedule(self, pods: Sequence[Pod]) -> Dict[str, Optional[str]]:
+        """Place ``pods`` in order, in batches; returns pod key -> node name,
+        or None when no node fits."""
+        for pod in pods:
+            reason = unsupported_reason(pod)
+            if reason is not None:
+                raise NotImplementedError(f"pod {pod.key()}: {reason}")
+        out: Dict[str, Optional[str]] = {}
+        step = self.caps.pods
+        for i in range(0, len(pods), step):
+            out.update(self._schedule_batch(pods[i:i + step]))
+        return out
+
+    def _schedule_batch(self, pods: Sequence[Pod]) -> Dict[str, Optional[str]]:
+        state = self.state
+        t = [time.perf_counter()]
+        state.sync(self.snapshot)
+        t.append(time.perf_counter())
+        pb, et = state.encoder.encode_pods(pods)
+        host_pb = state.encoder.last_host_pb
+        t.append(time.perf_counter())
+        res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device)
+        t.append(time.perf_counter())
+        # the ONE device-to-host read of the batch
+        node_idx, _first_fail = unpack_result_block(res.packed, self.caps.nodes)
+        t.append(time.perf_counter())
+        slot_names = state.slot_to_name()
+        placed: Dict[str, Optional[str]] = {}
+        for i, pod in enumerate(pods):
+            slot = int(node_idx[i])
+            if slot < 0:
+                placed[pod.key()] = None
+                continue
+            name = slot_names[slot]
+            bound_pod = pod.clone()
+            bound_pod.spec.node_name = name
+            self.snapshot.node_info_map[name].add_pod(bound_pod)  # bumps the generation
+            self.snapshot.changed_names.add(name)
+            placed[pod.key()] = name
+        state.adopt_device(res)
+        state.adopt_commits(res, host_pb, node_idx)
+        t.append(time.perf_counter())
+        for stage, a, b in zip(STAGES, t, t[1:]):
+            self.stage_seconds[stage] += b - a
+        self.batches += 1
+        return placed

@@ -1,0 +1,224 @@
+"""Device-resident cluster mirror with generation-keyed delta uploads.
+
+PyTorch counterpart of ``kubernetes_tpu/backend/device_state.py`` for the
+main path: the host tracks the last-uploaded generation per node, ``sync``
+encodes only dirty NodeInfos, skips rows whose content already matches the
+device (a host mirror of every row), and writes the rest with one
+``index_copy_`` per field over a power-of-two bucket of slots. Removed nodes
+are tombstoned (row zeroed, slot to the encoder's free-list for reuse).
+``adopt_device`` / ``adopt_commits`` take a batch's evolved carry as the new
+device truth and advance the mirror by the same commits, so the next sync
+uploads nothing for commit-only changes.
+
+Capacity growth: the encoder raises CapacityError when a vocab or axis
+overflows; the caller rebuilds with grown Capacities and resyncs.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..cache.snapshot import Snapshot
+from ..framework.types import NodeInfo
+from ..ops.encode import ClusterEncoder
+from ..ops.schema import Capacities, NodeTensors, round_node_capacity, tensor_from_numpy
+from ..utils.device import DeviceLike, resolve_device
+
+_ROW_FIELDS = (
+    ("valid", bool), ("unschedulable", bool),
+    ("allocatable", np.int32), ("requested", np.int32), ("nonzero_requested", np.int32),
+    ("label_val", np.int32), ("label_num", np.int32),
+    ("taint_key", np.int32), ("taint_val", np.int32), ("taint_effect", np.int32),
+    ("port_bits", np.uint32), ("image_bits", np.uint32), ("class_req", np.int32),
+    ("name_hash", np.uint32), ("topo_sp", np.int32), ("topo_pos", np.int32),
+)
+
+
+def _bucket(n: int, floor: int = 8) -> int:
+    """Next power of two ≥ n (≥ floor): the scatter sizes stay few."""
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+class DeviceState:
+    def __init__(self, caps: Capacities, device: DeviceLike = None):
+        self.caps = caps
+        self.device = resolve_device(device)
+        self.encoder = ClusterEncoder(caps, self.device)
+        self._uploaded_gen: Dict[str, int] = {}   # node name -> generation on device
+        self._image_counts: Dict[str, int] = {}   # image -> num nodes (host truth)
+        self._image_sizes: Dict[str, int] = {}
+        self._node_images: Dict[str, frozenset] = {}
+        self._n_prio = len(self.encoder.prio_vocab)
+        self.rows_uploaded = 0
+        self.rows_elided = 0
+        self.nodes_removed = 0
+        # host mirror of the device row content, initialized to the empty-row
+        # encoding (label_num is INT_NONE-filled, topo fields -1)
+        empty_row = self.encoder.encode_node_row(NodeInfo())
+        self._mirror: Dict[str, np.ndarray] = {
+            field: np.broadcast_to(
+                np.asarray(empty_row[field], dtype),
+                (caps.nodes,) + np.shape(empty_row[field])).copy()
+            for field, dtype in _ROW_FIELDS
+        }
+        d = {field: self._mirror[field] for field, _ in _ROW_FIELDS}
+        d["image_sizes"] = np.zeros(caps.images, np.int32)
+        d["image_num_nodes"] = np.zeros(caps.images, np.int32)
+        d["class_prio"] = self.encoder.class_prio_array()
+        self.nt = NodeTensors.from_numpy(d, self.device)
+
+    def _refresh_class_prio(self) -> None:
+        """Upload the priority-class vocab whenever it grew."""
+        if self._n_prio != len(self.encoder.prio_vocab):
+            self._n_prio = len(self.encoder.prio_vocab)
+            self.nt.class_prio = tensor_from_numpy(
+                "class_prio", self.encoder.class_prio_array(), self.device)
+
+    def sync(self, snapshot: Snapshot) -> int:
+        """Upload rows for nodes whose generation advanced (removed nodes
+        first, as tombstones); returns the number of rows uploaded. Raises
+        CapacityError when the cluster outgrows the capacities."""
+        dirty: List[Tuple[int, NodeInfo]] = []
+        images_changed = False
+        current = snapshot.node_info_map
+        # removed nodes FIRST, so a node added in the same sync reuses the
+        # freed slot instead of growing the axis
+        removed = [n for n in self.encoder.node_slots if n not in current]
+        for name in removed:
+            self._uploaded_gen.pop(name, None)
+            slot = self.encoder.release_node_slot(name)
+            self.nodes_removed += 1
+            if slot is not None:
+                dirty.append((slot, NodeInfo()))  # empty row: valid=False
+            images_changed |= self._track_images(name, None)
+        for name, ni in current.items():
+            if self._uploaded_gen.get(name) == ni.generation:
+                continue
+            slot = self.encoder.node_slot(name)
+            dirty.append((slot, ni))
+            self._uploaded_gen[name] = ni.generation
+            images_changed |= self._track_images(name, ni)
+            self.encoder.retain_node_values(name, ni.node)
+        if removed and dirty:
+            # a slot tombstoned and re-assigned in this sync appears twice:
+            # keep only the last write per slot
+            dirty = list({slot: (slot, ni) for slot, ni in dirty}.values())
+        getattr(snapshot, "changed_names", set()).clear()
+        if not dirty:
+            self._refresh_class_prio()
+            return 0
+        changed: List[Tuple[int, dict]] = []
+        for slot, ni in dirty:
+            row = self.encoder.encode_node_row(ni)
+            if all(np.array_equal(np.asarray(row[f], dtype), self._mirror[f][slot])
+                   for f, dtype in _ROW_FIELDS):
+                self.rows_elided += 1
+                continue
+            for f, dtype in _ROW_FIELDS:
+                self._mirror[f][slot] = np.asarray(row[f], dtype)
+            changed.append((slot, row))
+        self._refresh_class_prio()  # encoded rows may have grown the vocab
+        if images_changed:
+            self._upload_images()
+        if not changed:
+            return 0
+        # bucket-pad the row count to a power of two; padding repeats the
+        # first row (the same content to the same slot)
+        n = len(changed)
+        b = _bucket(n)
+        slots = np.empty(b, np.int64)
+        slots[:n] = [s for s, _ in changed]
+        slots[n:] = slots[0]
+        idx = torch.from_numpy(slots).to(self.device)
+        for field, dtype in _ROW_FIELDS:
+            stacked = np.empty((b,) + self._mirror[field].shape[1:], dtype)
+            stacked[:n] = np.stack([r[field] for _, r in changed]).astype(dtype)
+            stacked[n:] = stacked[0]
+            getattr(self.nt, field).index_copy_(
+                0, idx, tensor_from_numpy(field, stacked, self.device))
+        self.rows_uploaded += n
+        return n
+
+    def _upload_images(self) -> None:
+        sizes = np.zeros(self.caps.images, np.int32)
+        counts = np.zeros(self.caps.images, np.int32)
+        for img, cnt in self._image_counts.items():
+            iid = self.encoder.image_id(img)
+            counts[iid] = cnt
+            sizes[iid] = min(self._image_sizes.get(img, 0), 2**31 - 1)
+        self.nt.image_sizes = tensor_from_numpy("image_sizes", sizes, self.device)
+        self.nt.image_num_nodes = tensor_from_numpy("image_num_nodes", counts, self.device)
+
+    def adopt_device(self, result) -> None:
+        """Take the batch's evolved dynamic state as the new device truth.
+        The mirror owns those tensors from here on: a later ``sync`` writes
+        rows into them in place."""
+        self.nt.requested = result.final_requested
+        self.nt.nonzero_requested = result.final_nonzero
+        self.nt.port_bits = result.final_ports
+        self.nt.class_req = result.final_class_req
+
+    def adopt_commits(self, result, host_pb: dict, node_idx: np.ndarray) -> None:
+        """Advance the host mirror by the batch's per-slot adds, so the next
+        sync's content diff elides every row whose only change was this
+        batch's commits. ``host_pb`` is the encoder's host copy of the batch
+        (ClusterEncoder.last_host_pb)."""
+        req = host_pb["req"]
+        nz = host_pb["nonzero_req"]
+        port_ids = host_pb["port_ids"]
+        prio_class = host_pb["prio_class"]
+        for i, slot in enumerate(node_idx):
+            if slot < 0:
+                continue
+            self._mirror["requested"][slot] += req[i]
+            self._mirror["nonzero_requested"][slot] += nz[i]
+            self._mirror["class_req"][slot, prio_class[i]] += req[i]
+            for pid in port_ids[i]:
+                if pid > 0:
+                    self._mirror["port_bits"][slot, pid >> 5] |= np.uint32(1) << np.uint32(pid & 31)
+
+    def _track_images(self, name: str, ni) -> bool:
+        """Maintain global image num-node counts (first-seen size wins,
+        mirroring cache.addNodeImageStates). Returns True if they changed."""
+        old = self._node_images.get(name, frozenset())
+        new = frozenset(ni.image_states) if ni is not None else frozenset()
+        if old == new:
+            return False
+        for img in new - old:
+            self._image_counts[img] = self._image_counts.get(img, 0) + 1
+            if img not in self._image_sizes and ni is not None:
+                self._image_sizes[img] = ni.image_states[img]
+        for img in old - new:
+            c = self._image_counts.get(img, 0) - 1
+            if c <= 0:
+                self._image_counts.pop(img, None)
+                self._image_sizes.pop(img, None)
+                self.encoder.release_image(img)
+            else:
+                self._image_counts[img] = c
+        if new:
+            self._node_images[name] = new
+        else:
+            self._node_images.pop(name, None)
+        return True
+
+    def slot_to_name(self) -> Dict[int, str]:
+        """LIVE reverse map (maintained by the encoder); callers read only."""
+        return self.encoder.slot_names
+
+
+def caps_for_cluster(n_nodes: int, batch: int = 128) -> Capacities:
+    """Static capacities for a cluster size (the hostname value vocab must
+    cover every node; the synthetic torus fallback needs a superpod per 16
+    slots)."""
+    nodes = round_node_capacity(n_nodes)
+    value_words = max(32, (nodes + 2 + 31) // 32)
+    superpods = max(16, (nodes + 15) // 16)
+    return Capacities(nodes=nodes, pods=batch, value_words=value_words,
+                      superpods=superpods)

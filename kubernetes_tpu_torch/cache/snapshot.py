@@ -1,0 +1,34 @@
+"""Cache snapshot as the device mirror reads it (internal/cache/snapshot.go:29).
+
+The subset of ``kubernetes_tpu/cache/snapshot.py`` that ``DeviceState.sync``
+consumes: NodeInfos keyed by name, a version that bumps on membership
+changes, and the names changed since the device last consumed them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional, Set
+
+from ..framework.types import NodeInfo
+
+
+class Snapshot:
+    def __init__(self, node_infos: Optional[Iterable[NodeInfo]] = None):
+        self.node_info_map: Dict[str, NodeInfo] = {}
+        self.changed_names: Set[str] = set()
+        self.structure_version: int = 0
+        for ni in node_infos or ():
+            self.set(ni)
+
+    def set(self, ni: NodeInfo) -> None:
+        """Add or replace a node's NodeInfo."""
+        name = ni.node.meta.name
+        if name not in self.node_info_map:
+            self.structure_version += 1
+        self.node_info_map[name] = ni
+        self.changed_names.add(name)
+
+    def remove(self, name: str) -> None:
+        if self.node_info_map.pop(name, None) is not None:
+            self.structure_version += 1
+            self.changed_names.add(name)

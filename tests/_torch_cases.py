@@ -1,0 +1,206 @@
+"""Shared builders for the port's parity tests (tests/test_torch_*.py).
+
+One seeded description of a cluster and a pod batch (plain data made with
+numpy) is built twice: once with the JAX package's API objects and once with
+the port's, so both packages see the same inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+ZONES = 3
+
+
+def cluster_spec(n_nodes: int, seed: int) -> list:
+    """Heterogeneous nodes: capacities that land on floor boundaries,
+    zones, taints of every effect, one unschedulable node, images, and
+    existing pods (requests and host ports)."""
+    rng = np.random.RandomState(seed)
+    caps = [("3", "7Gi", 20), ("7", "1000Mi", 10), ("16", "64Gi", 110),
+            ("4", "3Gi", 30), ("32", "128Gi", 110)]
+    nodes = []
+    for i in range(n_nodes):
+        cpu, mem, pods = caps[rng.randint(len(caps))]
+        taints = []
+        if i % 7 == 1:
+            taints.append(("dedicated", "infra", "PreferNoSchedule"))
+        if i % 11 == 2:
+            taints.append(("gpu", "yes", "NoSchedule"))
+        if i % 13 == 3:
+            taints.append(("flaky", "", "PreferNoSchedule"))
+        existing = []
+        for j in range(rng.randint(0, 3)):
+            existing.append({
+                "name": f"old-{i}-{j}",
+                "cpu": f"{int(rng.choice([0, 100, 250, 500]))}m",
+                "mem": f"{int(rng.choice([0, 128, 512]))}Mi",
+                "port": int(rng.choice([0, 0, 8080, 9090])),
+                "priority": int(rng.choice([0, 10])),
+            })
+        nodes.append({
+            "name": f"node-{i}",
+            "cpu": cpu, "mem": mem, "pods": pods,
+            "labels": {"topology.kubernetes.io/zone": f"zone-{i % ZONES}",
+                       "tier": str(i % 4)},
+            "taints": taints,
+            "unschedulable": i == 5,
+            "images": [("registry/web:1.0", 300 * 1024 * 1024)] if i % 3 == 0 else [],
+            "existing": existing,
+        })
+    return nodes
+
+
+def pods_spec(n_pods: int, seed: int, nominate: str = "", node_name: str = "") -> list:
+    """Pods that exercise every static filter and score of the main path."""
+    rng = np.random.RandomState(seed)
+    pods = []
+    for i in range(n_pods):
+        d = {"name": f"pod-{seed}-{i}",
+             "cpu": f"{int(rng.choice([0, 100, 500, 900, 2000, 3000]))}m",
+             "mem": f"{int(rng.choice([0, 256, 1024, 2048, 7168]))}Mi",
+             "priority": int(rng.choice([0, 10, 100])),
+             "selector": {}, "affinity_in": None, "preferred": [],
+             "tolerations": [], "port": 0, "image": "", "nominated": "",
+             "node_name": ""}
+        k = i % 8
+        if k == 1:
+            d["selector"] = {"topology.kubernetes.io/zone": f"zone-{i % ZONES}"}
+        elif k == 2:
+            d["affinity_in"] = ("tier", ["1", "2"])
+        elif k == 3:
+            d["preferred"] = [(5, "tier", ["3"]), (2, "topology.kubernetes.io/zone", ["zone-0"])]
+        elif k == 4:
+            d["tolerations"] = [("dedicated", "Equal", "infra", "PreferNoSchedule"),
+                                ("gpu", "Exists", "", "")]
+        elif k == 5:
+            d["port"] = int(rng.choice([8080, 9090, 7000]))
+        elif k == 6:
+            d["image"] = "registry/web:1.0"
+        pods.append(d)
+    if nominate:
+        pods[1]["nominated"] = nominate
+    if node_name:
+        pods[2]["node_name"] = node_name
+    return pods
+
+
+def build_nodes(api, spec: list) -> list:
+    """NodeInfos from ``spec`` with the given package's API namespace
+    (``api.make_node``, ``api.make_pod``, ``api.NodeInfo``)."""
+    infos = []
+    for d in spec:
+        nw = api.make_node(d["name"]).capacity(
+            {"cpu": d["cpu"], "memory": d["mem"], "pods": d["pods"]})
+        for k, v in d["labels"].items():
+            nw.label(k, v)
+        for key, value, effect in d["taints"]:
+            nw.taint(key, value, effect)
+        if d["unschedulable"]:
+            nw.unschedulable()
+        for name, size in d["images"]:
+            nw.image(name, size)
+        ni = api.NodeInfo(nw.obj())
+        for e in d["existing"]:
+            pw = api.make_pod(e["name"]).req({"cpu": e["cpu"], "memory": e["mem"]})
+            pw.priority(e["priority"])
+            if e["port"]:
+                pw.host_port(e["port"])
+            pod = pw.obj()
+            pod.spec.node_name = d["name"]
+            ni.add_pod(pod)
+        infos.append(ni)
+    return infos
+
+
+def build_pods(api, spec: list) -> list:
+    pods = []
+    for d in spec:
+        pw = api.make_pod(d["name"]).req({"cpu": d["cpu"], "memory": d["mem"]})
+        pw.priority(d["priority"])
+        if d["selector"]:
+            pw.node_selector(d["selector"])
+        if d["affinity_in"]:
+            pw.node_affinity_in(*d["affinity_in"])
+        for w, key, values in d["preferred"]:
+            pw.preferred_node_affinity(w, key, values)
+        for key, op, value, effect in d["tolerations"]:
+            pw.toleration(key, op, value, effect)
+        if d["port"]:
+            pw.host_port(d["port"])
+        if d["image"]:
+            pw.container(d["image"], {"cpu": "10m"})
+        pod = pw.obj()
+        pod.status.nominated_node_name = d["nominated"]
+        pod.spec.node_name = d["node_name"]
+        pods.append(pod)
+    return pods
+
+
+@dataclasses.dataclass
+class Api:
+    make_node: object
+    make_pod: object
+    NodeInfo: object
+
+
+def jax_api() -> Api:
+    from kubernetes_tpu.api.wrappers import make_node, make_pod
+    from kubernetes_tpu.framework.types import NodeInfo
+
+    return Api(make_node, make_pod, NodeInfo)
+
+
+def torch_api() -> Api:
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.framework.types import NodeInfo
+
+    return Api(make_node, make_pod, NodeInfo)
+
+
+class SnapshotShim:
+    """The part of a cache snapshot the JAX DeviceState.sync reads."""
+
+    def __init__(self, infos):
+        self.node_info_map = {ni.node.meta.name: ni for ni in infos}
+
+
+def jax_encoded(n_nodes: int, n_pods: int, seed: int, capacity_nodes: int = 256,
+                pods_cap: int = 64, **pod_kw):
+    """(JAX DeviceState, pods, PodBatch, ExprTable) for a seeded case."""
+    from kubernetes_tpu.backend.device_state import DeviceState
+    from kubernetes_tpu.ops.schema import Capacities
+
+    caps = Capacities(nodes=capacity_nodes, pods=pods_cap)
+    ds = DeviceState(caps)
+    ds.sync(SnapshotShim(build_nodes(jax_api(), cluster_spec(n_nodes, seed))))
+    pods = build_pods(jax_api(), pods_spec(n_pods, seed + 1, **pod_kw))
+    pb, et = ds.encoder.encode_pods(pods)
+    return ds, pods, pb, et
+
+
+def numpy_fields(obj) -> dict:
+    """A JAX dataclass as a dict of numpy arrays (np.asarray per field)."""
+    return {f.name: np.asarray(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+
+
+def to_port(ds, pb, et):
+    """The JAX-encoded state carried into the port on the CPU."""
+    from kubernetes_tpu_torch import interop
+
+    return (interop.node_tensors_from_numpy(numpy_fields(ds.nt), "cpu"),
+            interop.pod_batch_from_numpy(numpy_fields(pb), "cpu"),
+            interop.expr_table_from_numpy(numpy_fields(et), "cpu"))
+
+
+def u32(t) -> np.ndarray:
+    """uint32 view of a port tensor holding uint32 bits in int32."""
+    return t.cpu().numpy().view(np.uint32)
+
+
+def f32_bits(a) -> np.ndarray:
+    """Bit pattern of a float32 array (for bit-exact comparison)."""
+    a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
