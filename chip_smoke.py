@@ -6,13 +6,16 @@
 1. Build: compiles the fused-step kernel (kubernetes_tpu_torch/csrc/
    fused_step.cu) from the checkout with nvcc and prints its resource report.
 2. Kernel phase: the CUDA kernel against its plain PyTorch version on the
-   card at the main-path sizes (N=5120 node slots, R=6, W=16, P=128): three
+   card at the main-path sizes (N=5120 node slots, R=6, W=16, P=128): four
    seeded batches (random; floor boundaries; ties, host ports, padded pods
-   and nodes, a nominated pod) plus a real SchedulingBasic batch. Every
-   output and the evolved carry must be exactly equal. Times the kernel
-   (median of CUDA-event timings over 30 launches) and the plain version on
-   the SchedulingBasic batch, and works out the least time the card could
-   take for the same work.
+   and nodes, a nominated pod; slices: exact ties at every boundary of the
+   kernel's 8-block node split, winners in all 8 slices, a pod with no
+   feasible node and a nominated node in the last slice) plus a real
+   SchedulingBasic batch. Every output and the evolved carry must be exactly
+   equal, and the slices batch must pick the winners it was built for. Times
+   the kernel (median of CUDA-event timings over 30 launches) and the plain
+   version on the SchedulingBasic batch, and works out the least time the
+   card could take for the same work.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
    110 pods with zone and hostname labels; pods asking 900m / 2Gi) through
    BatchScheduler on the card: 1000 init-* pods, then 1000 measured-* pods.
@@ -36,11 +39,9 @@ import time
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.backend.batch import _pod_port_bits, static_phase
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
-from kubernetes_tpu_torch.backend.device_state import DeviceState, caps_for_cluster
-from kubernetes_tpu_torch.cache.snapshot import Snapshot
 from kubernetes_tpu_torch.ops import fused_step
+from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
 from kubernetes_tpu_torch.perf.workloads import scheduling_basic_nodes, scheduling_basic_pods
 
 N_NODES = 5000
@@ -52,11 +53,6 @@ TIMED_LAUNCHES = 30
 
 
 # ---------------------------------------------------------------- kernel phase
-
-KERNEL_ARGS = ("alloc", "requested", "nonzero", "ports", "p_req", "p_nz", "p_bits",
-               "static_ok", "static_ff", "taint", "aff", "img", "jitter",
-               "nominated", "p_valid")
-
 
 def _seeded_batch(kind: str, seed: int, n: int = 5120, n_real: int = 5000) -> dict:
     rng = np.random.RandomState(seed)
@@ -102,18 +98,58 @@ def _seeded_batch(kind: str, seed: int, n: int = 5120, n_real: int = 5000) -> di
     }
 
 
-def _scheduling_basic_batch(device) -> dict:
-    """The kernel's inputs for the first SchedulingBasic batch, built by the
-    port's own main path (sync, encode, static phase)."""
-    ds = DeviceState(caps_for_cluster(N_NODES), device)
-    ds.sync(Snapshot(scheduling_basic_nodes(N_NODES)))
-    pb, et = ds.encoder.encode_pods(scheduling_basic_pods("init", P))
-    _m, static_ok, static_ff, taint, aff, img, jitter = static_phase(pb, et, ds.nt)
-    nt = ds.nt
-    vals = (nt.allocatable, nt.requested, nt.nonzero_requested, nt.port_bits,
-            pb.req, pb.nonzero_req, _pod_port_bits(pb, nt.port_bits.shape[1]),
-            static_ok, static_ff, taint, aff, img, jitter, pb.nominated, pb.valid)
-    return {k: v.contiguous() for k, v in zip(KERNEL_ARGS, vals)}
+def _slices_batch(seed: int, n: int = 5120, n_real: int = 5000):
+    """A batch aimed at the kernel's split of the node axis into CLUSTER
+    slices of m = ceil(n / CLUSTER) slots. Every real node has the same
+    state in the two scored columns, and each commit adds 1 to both, so
+    LeastAllocated stays 99 and BalancedAllocation 100 on every node: totals
+    differ only by the taint, affinity and image rows. Each pod gives its
+    tie nodes the best raw scores and a jitter of 0.5 and every other node a
+    jitter below 0.25, so the first tie node wins:
+      * pods p % 3 == 0: a tie across the boundary (k*m - 1, k*m);
+      * pods p % 3 == 1: a tie between k*m and a node of the last slice;
+      * pods p % 3 == 2: one tie node in each slice from s = p % 8 on;
+    with k = 1 + p % 7. Pod 5 has no feasible node, pod 9 is nominated to a
+    node of the last slice, and the last two pods are padding. Returns the
+    kernel's inputs and the winner each pod must get."""
+    rng = np.random.RandomState(seed)
+    m = -(-n // fused_step.CLUSTER)
+    real = np.arange(n) < n_real
+    alloc = np.where(real[:, None], np.full((n, R), 32000), 0).astype(np.int32)
+    nz = np.where(real[:, None], np.full((n, R), 160), 0).astype(np.int32)
+    p_req = rng.choice([0, 1, 2], size=(P, R)).astype(np.int32)
+    p_nz = np.maximum(p_req, 1)
+    p_nz[:, :2] = 1
+    valid = np.ones(P, bool)
+    valid[-2:] = False
+    static_ok = (rng.uniform(size=(P, n)) < 0.97) & real[None, :] & valid[:, None]
+    taint = rng.randint(0, 3, size=(P, n)).astype(np.float32)
+    aff = rng.choice([0, 2, 5], size=(P, n)).astype(np.float32)
+    img = rng.choice([0, 17], size=(P, n)).astype(np.float32)
+    jitter = rng.randint(0, 1 << 24, size=(P, n)) * (0.25 / (1 << 24))
+    nominated = np.full(P, -1, np.int32)
+    want = np.full(P, -1, np.int32)
+    last = (fused_step.CLUSTER - 1) * m
+    for p in range(P - 2):
+        k, s = 1 + p % 7, p % 8
+        ties = ([k * m - 1, k * m] if p % 3 == 0 else
+                [k * m, last + 5] if p % 3 == 1 else
+                [r * m + k for r in range(s, fused_step.CLUSTER)])
+        static_ok[p, ties] = True
+        taint[p, ties], aff[p, ties], img[p, ties], jitter[p, ties] = 0.0, 5.0, 17.0, 0.5
+        want[p] = min(ties)
+    static_ok[5] = False
+    want[5] = -1
+    nominated[9] = want[9] = n_real - 10
+    static_ok[9, n_real - 10] = True
+    ff = np.where(static_ok, 0, rng.randint(1, 5, size=(P, n)))
+    return {
+        "alloc": alloc, "requested": nz.copy(), "nonzero": nz,
+        "ports": np.zeros((n, W), np.int32), "p_req": p_req, "p_nz": p_nz.astype(np.int32),
+        "p_bits": np.zeros((P, W), np.int32), "static_ok": static_ok,
+        "static_ff": ff.astype(np.int8), "taint": taint, "aff": aff, "img": img,
+        "jitter": jitter.astype(np.float32), "nominated": nominated, "p_valid": valid,
+    }, want
 
 
 def _to_device(d: dict, device) -> dict:
@@ -151,17 +187,29 @@ def kernel_phase(device) -> dict:
     weights = (1.0, 1.0, 3.0, 2.0, 1.0)
     cases = [(k, _to_device(_seeded_batch(k, s), device))
              for k, s in (("random", 1), ("boundary", 2), ("ties", 3))]
-    basic = _scheduling_basic_batch(device)
+    slices, slices_want = _slices_batch(4)
+    cases.append(("slices", _to_device(slices, device)))
+    basic = scheduling_basic_args(device)
     cases.append(("scheduling-basic", basic))
-    err = 0.0
+    print(f"launch: {fused_step.CLUSTER} blocks x {fused_step._THREADS} threads, 1 cluster")
+    err, winners = 0.0, {}
     for label, args in cases:
         got = fused_step.fused_step_batch(*args.values(), weights)
         torch.cuda.synchronize()
+        winners[label] = got.node_idx.cpu().numpy()
         want = fused_step.fused_step_batch_ref(*args.values(), weights)
         err = max(err, _compare(got, want, label))
         placed = int((got.node_idx >= 0).sum())
         print(f"kernel == plain on {label}: {placed}/{P} placed, "
               f"first_fail ids {sorted(torch.unique(got.first_fail).tolist())}")
+    if not np.array_equal(winners["slices"], slices_want):
+        raise AssertionError("slices batch: winners differ from the ones it was built for")
+    m = -(-slices["alloc"].shape[0] // fused_step.CLUSTER)
+    won = sorted({int(i) // m for i in winners["slices"] if i >= 0})
+    if won != list(range(fused_step.CLUSTER)):
+        raise AssertionError(f"slices batch: winners only in slices {won}")
+    print(f"slices batch: winners in slices {won}, ties at every boundary k*{m}-1 / k*{m} "
+          f"went to the smaller index")
 
     args = list(basic.values())
     times = []
@@ -262,7 +310,8 @@ def main() -> int:
         "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": None, "status": "ported, exact against the plain version"}]}))
+        "library_ms": None,
+        "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

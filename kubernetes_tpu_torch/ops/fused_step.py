@@ -19,6 +19,10 @@ Two forms of one function:
 * ``fused_step_batch`` — the wrapper. On CPU tensors it runs the plain
   version; on CUDA tensors it launches ``csrc/fused_step.cu`` (one launch per
   batch, the counterpart of ``lax.scan`` over ``pallas_call``) or raises.
+  The kernel is one cluster of ``CLUSTER`` thread blocks of ``_THREADS``
+  threads, each block owning a contiguous slice of the node axis; the pods
+  run in order, with two cluster barriers per pod. In each block warp 0
+  leads the reductions and the other warps own the nodes.
 
 Semantics follow the XLA scan ``step`` where the two JAX paths differ:
 the nominated node gets ``+1e7`` (the Pallas kernel has no nominated input),
@@ -180,7 +184,9 @@ _SOURCE = _PKG / "csrc" / "fused_step.cu"
 _BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_THREADS = 1024  # one block; the commit uses R + W of its threads
+CLUSTER = 8      # thread blocks of the one cluster, each owning ceil(N / 8) nodes
+_THREADS = 1024  # threads per block; R + W <= _THREADS keeps the kernel's three
+                 # shared [2R + W] pod rows within its dynamic shared memory
 
 
 def _nvcc() -> str:
@@ -193,12 +199,15 @@ def _nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME)")
 
 
-def build_library() -> Path:
+def build_library(defines: Sequence[str] = ()) -> Path:
     """Compile ``csrc/fused_step.cu`` into ``_build/`` unless a library for
     this exact source and flag set is there already. Returns its path; the
-    compiler's resource report lands beside it (``.ptxas.txt``)."""
+    compiler's resource report lands beside it (``.ptxas.txt``). ``defines``
+    are extra ``-D`` flags (``perf/kernel_phases.py`` builds the stamped
+    kernel with ``-DKTPU_PHASE_STAMPS``)."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     out = _BUILD_DIR / f"fused_step-{tag}.so"
     if out.exists():
         return out
@@ -206,7 +215,7 @@ def build_library() -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(_SOURCE)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
@@ -218,9 +227,9 @@ def build_library() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=1)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
+def load_library(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C signatures."""
+    lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ktpu_fused_step_batch.argtypes = (
         [p] * 15 + [f] * 5 + [p] * 6 + [i] * 4 + [p])
@@ -228,6 +237,11 @@ def _library() -> ctypes.CDLL:
     lib.ktpu_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ktpu_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    return load_library(build_library())
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -46,23 +46,89 @@ def _batch(rng, p, n, r=6, w=16):
         jitter=jitter.astype(np.float32), nominated=nominated, p_valid=valid)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [128, 1000, 5120])
-def test_kernel_matches_plain_version(cuda, n):
-    rng = np.random.RandomState(n)
-    d = _batch(rng, 32, n)
-    args = [torch.from_numpy(np.ascontiguousarray(d[k])).to(cuda) for k in (
+def _slice_ties_batch(rng, p, n, r=6, w=16):
+    """Uniform node state (commits of 1 keep LeastAllocated at 99 and
+    BalancedAllocation at 100), so totals differ only by the score rows. Pod
+    i ties the two nodes across slice boundary k*m (k = 1 + i % 7, m the
+    kernel's slice width) with the best scores and jitter 0.5, every other
+    node below; pod 3 has no feasible node."""
+    m = -(-n // fused_step.CLUSTER)
+    d = _batch(rng, p, n, r, w)
+    d["alloc"] = np.full((n, r), 32000, np.int32)
+    d["requested"] = d["nonzero"] = np.full((n, r), 160, np.int32)
+    d["ports"] = np.zeros((n, w), np.int32)
+    d["p_nz"][:, :2] = 1
+    d["nominated"][:] = -1
+    d["jitter"] = (d["jitter"] * 0.5).astype(np.float32)  # below 0.25
+    d["p_valid"][:] = True
+    want = np.empty(p, np.int32)
+    for i in range(p):
+        k = 1 + i % 7
+        ties = [k * m - 1, k * m]
+        d["static_ok"][i, ties] = True
+        d["taint"][i, ties], d["aff"][i, ties], d["img"][i, ties] = 0.0, 5.0, 42.0
+        d["jitter"][i, ties] = 0.5
+        want[i] = k * m - 1
+    d["static_ok"][3] = False
+    want[3] = -1
+    d["static_ff"] = np.where(d["static_ok"], 0, 1).astype(np.int8)
+    return d, want
+
+
+def _args(cuda, d):
+    return [torch.from_numpy(np.ascontiguousarray(d[k])).to(cuda) for k in (
         "alloc", "requested", "nonzero", "ports", "p_req", "p_nz", "p_bits",
         "static_ok", "static_ff", "taint", "aff", "img", "jitter", "nominated",
         "p_valid")]
-    weights = (1.0, 1.0, 3.0, 2.0, 1.0)
-    before = fused_step.LAUNCHES
-    got = fused_step.fused_step_batch(*args, weights)
-    torch.cuda.synchronize()
-    assert fused_step.LAUNCHES == before + 1
-    want = fused_step.fused_step_batch_ref(*args, weights)
+
+
+def _assert_equal(got, want):
+    """Every output equal, floats by bit pattern."""
     for name, a, b in zip(got._fields, got, want):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b), name
+
+
+def _run(cuda, d, weights=(1.0, 1.0, 3.0, 2.0, 1.0)):
+    """Kernel and plain version on the card: equal outputs and exactly one
+    launch. Returns the kernel's outputs."""
+    args = _args(cuda, d)
+    before = fused_step.LAUNCHES
+    got = fused_step.fused_step_batch(*args, weights)
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before + 1
+    _assert_equal(got, fused_step.fused_step_batch_ref(*args, weights))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 128, 1000, 5003, 5120, 8193])
+def test_kernel_matches_plain_version(cuda, n):
+    # fewer nodes than blocks (1, 7), a short last slice (5003, 8193), and
+    # more than one node per thread (8193: 1025 slots per block over the
+    # 992 threads of warps 1-31)
+    got = _run(cuda, _batch(np.random.RandomState(n), 32, n))
     assert int(got.node_idx[-1]) == -1  # a padded pod commits nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5003, 5120, 8193])
+def test_kernel_ties_across_slice_boundaries(cuda, n):
+    # at 8193 the tied winner k*m - 1 is the second node of its owner thread
+    d, want = _slice_ties_batch(np.random.RandomState(n + 1), 32, n)
+    got = _run(cuda, d)
+    np.testing.assert_array_equal(got.node_idx.cpu().numpy(), want)
+    assert not bool(got.any_feasible[3])  # no feasible node: best is node 0's total
+
+
+@pytest.mark.cuda
+def test_phase_stamps_leave_the_kernel_exact(cuda):
+    # the -DKTPU_PHASE_STAMPS build that perf/kernel_phases.py reads
+    from kubernetes_tpu_torch.perf import kernel_phases
+
+    args = _args(cuda, _batch(np.random.RandomState(11), 32, 5120))
+    got, stamps, _ms = kernel_phases.run_stamped(args)
+    _assert_equal(got, fused_step.fused_step_batch_ref(*args, kernel_phases.WEIGHTS))
+    assert stamps.shape == (fused_step.CLUSTER, 32, kernel_phases.STAMPS)
+    assert (np.diff(stamps, axis=2) >= 0).all()  # each pod's phases in order
