@@ -21,7 +21,20 @@
    BatchScheduler on the card: 1000 init-* pods, then 1000 measured-* pods.
    Every pod must be placed, the kernel must have launched once per batch,
    and the placements must equal the same run on the CPU (plain versions).
-4. Prints the card's name and power limit, one JSON line of per-kernel
+4. Topology phase: the topology-size log table on the card must equal the
+   CPU's for every size 0..8194. Then SchedulingPodAntiAffinity/5000Nodes
+   (1000 init + 1000 measured pods, each anti-affine to the others on the
+   hostname key) and TopologySpreading/5000Nodes (5000 plain init pods, then
+   2000 pods with a maxSkew 1 DoNotSchedule zone constraint) through
+   BatchScheduler on the card, then on the CPU. Every pod must be placed;
+   the anti-affine pods on 2000 distinct nodes; the spread pods' per-zone
+   counts within 1 of each other; every topology batch in the expected mode
+   ("host", "general"); the fused kernel launched by no topology batch; no
+   host read inside a topology batch's device call (it runs under
+   ``torch.cuda.set_sync_debug_mode("error")``); and the placements equal
+   to the CPU run. Prints pods/s, ms per batch, host ms per stage, and the
+   CUDA kernels one topology batch launches (torch.profiler).
+5. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and, as the last line, the device summary.
 
 Exits non-zero, with no result line, when any phase fails or when no CUDA
@@ -39,8 +52,10 @@ import time
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.backend import batch_scheduler
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
-from kubernetes_tpu_torch.ops import fused_step
+from kubernetes_tpu_torch.ops import fused_step, topology
+from kubernetes_tpu_torch.perf import workloads
 from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
 from kubernetes_tpu_torch.perf.workloads import scheduling_basic_nodes, scheduling_basic_pods
 
@@ -284,6 +299,173 @@ def slice_phase() -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------- topology phase
+
+
+class _TopologyWatch:
+    """Stands in for ``batch_scheduler.schedule_batch`` during a run: a
+    topology batch on the card runs under ``set_sync_debug_mode("error")``
+    (any host read inside it raises), the fused kernel's launches are
+    counted per mode, and one chosen topology batch runs under
+    torch.profiler instead (the profiler itself synchronises)."""
+
+    def __init__(self, profile_at: int = -1):
+        self.inner = batch_scheduler.schedule_batch
+        self.calls = 0
+        self.fused_launches = {"off": 0, "host": 0, "general": 0}
+        self.profile_at = profile_at
+        self.profile = None
+
+    def __call__(self, *args, **kw):
+        mode = kw.get("topo_mode", "off")
+        on_card = torch.device(kw["device"]).type == "cuda"
+        before = fused_step.LAUNCHES
+        if mode != "off" and on_card and self.calls == self.profile_at:
+            self.profile = _profiled(self.inner, args, kw)
+            res = self.profile.pop("result")
+        elif mode != "off" and on_card:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = self.inner(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            res = self.inner(*args, **kw)
+        self.fused_launches[mode] += fused_step.LAUNCHES - before
+        self.calls += 1
+        return res
+
+
+def _profiled(fn, args, kw) -> dict:
+    """One batch under torch.profiler: its CUDA kernels, their device time
+    and the wall time (synchronised before and after)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = busy_us = launches = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels += 1
+            busy_us += getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launches += 1
+    return {"result": res, "kernels": kernels, "launch_calls": launches,
+            "device_ms": busy_us / 1e3, "wall_ms": wall_ms}
+
+
+def _topo_run(w, device, profile_at: int = -1) -> dict:
+    """One workload through BatchScheduler: init pods, then the measured
+    pods in batches of P, each timed on the host clock. The profiled batch
+    is left out of the timings."""
+    watch = _TopologyWatch(profile_at)
+    batch_scheduler.schedule_batch = watch
+    try:
+        sched = BatchScheduler(w.node_infos(), device=device)
+        placed = sched.schedule(w.init_pod_list())
+        init_batches = sched.batches
+        measured = w.measured_pod_list()
+        per_batch, stage_ms = [], dict.fromkeys(sched.stage_seconds, 0.0)
+        for i in range(0, len(measured), P):
+            profiled = watch.calls == profile_at
+            stages0 = dict(sched.stage_seconds)
+            t0 = time.perf_counter()
+            placed.update(sched.schedule(measured[i:i + P]))  # ends in the host read
+            if not profiled:
+                per_batch.append(((time.perf_counter() - t0) * 1e3, len(measured[i:i + P])))
+                for k, v in sched.stage_seconds.items():
+                    stage_ms[k] += (v - stages0[k]) * 1e3
+    finally:
+        batch_scheduler.schedule_batch = watch.inner
+    return {"placed": placed, "sched": sched, "per_batch": per_batch, "watch": watch,
+            "modes": sched.batch_modes, "init_batches": init_batches,
+            "stage_ms": {k: v / len(per_batch) for k, v in stage_ms.items()}}
+
+
+def _check_topo(name: str, w, gpu: dict, cpu: dict, init_mode: str, meas_mode: str) -> None:
+    placed = gpu["placed"]
+    unplaced = [k for k, v in placed.items() if v is None]
+    if len(placed) != w.init_pods + w.measured_pods or unplaced:
+        raise AssertionError(f"{name}: {len(unplaced)} pods unplaced of {len(placed)}")
+    modes, k = gpu["modes"], gpu["init_batches"]
+    if set(modes[:k]) != {init_mode} or set(modes[k:]) != {meas_mode}:
+        raise AssertionError(f"{name}: batch modes {modes}")
+    watch = gpu["watch"]
+    if watch.fused_launches["host"] or watch.fused_launches["general"]:
+        raise AssertionError(f"{name}: the fused kernel launched in topology batches: "
+                             f"{watch.fused_launches}")
+    if watch.profile is None:
+        raise AssertionError(f"{name}: no topology batch was profiled")
+    if cpu["placed"] != placed:
+        diff = sum(cpu["placed"][key] != v for key, v in placed.items())
+        raise AssertionError(f"{name}: {diff} placements differ between cuda and cpu")
+    if cpu["modes"] != modes:
+        raise AssertionError(f"{name}: cpu modes {cpu['modes']} != cuda modes {modes}")
+
+
+def _report_topo(name: str, gpu: dict) -> None:
+    ms = [t for t, _ in gpu["per_batch"]]
+    pods = sum(n for _, n in gpu["per_batch"])
+    prof = gpu["watch"].profile
+    print(f"{name} on cuda: {len(gpu['placed'])} pods placed in {len(gpu['modes'])} batches "
+          f"(modes: init {gpu['modes'][0]}, measured {gpu['modes'][-1]}), fused-kernel launches "
+          f"by mode {gpu['watch'].fused_launches}, placements == cpu run, no host sync in the "
+          f"topology batches' device calls; measured phase {pods / (sum(ms) / 1e3):.1f} pods/s, "
+          f"median {statistics.median(ms):.2f} ms per batch (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}; {len(ms)} batches of up to {P}, the profiled one left out); host ms "
+          f"per measured batch by stage: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in gpu["stage_ms"].items()))
+    print(f"{name} topology batch under torch.profiler: {prof['kernels']} CUDA kernels "
+          f"({prof['kernels'] / P:.1f} per pod), {prof['launch_calls']} kernel-launch calls, "
+          f"device busy {prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall")
+
+
+def topology_phase() -> dict:
+    sizes = 8195
+    on_card = topology.size_log_table(sizes, "cuda").cpu()
+    on_host = topology.size_log_table(sizes, "cpu")
+    if not torch.equal(on_card.view(torch.int32), on_host.view(torch.int32)):
+        raise AssertionError("size_log_table differs between cuda and cpu")
+    x = torch.arange(sizes, dtype=torch.float32) + 2.0
+    plain_card = torch.log(x.cuda()).cpu()
+    print(f"size_log_table over sizes 0..{sizes - 1}: cuda == cpu bit for bit; torch.log: "
+          f"cuda differs from cpu at {int((plain_card != torch.log(x)).sum())} sizes and from "
+          f"the table at {int((plain_card != on_card).sum())}")
+
+    out = {}
+    anti = workloads.scheduling_pod_anti_affinity()
+    gpu = _topo_run(anti, "cuda", profile_at=10)
+    cpu = _topo_run(anti, "cpu")
+    _check_topo(anti.name, anti, gpu, cpu, "host", "host")
+    nodes = [v for v in gpu["placed"].values()]
+    if len(set(nodes)) != len(nodes):
+        raise AssertionError(f"{anti.name}: {len(nodes) - len(set(nodes))} pods share a node")
+    _report_topo(anti.name, gpu)
+    out[anti.name] = gpu
+
+    spread = workloads.topology_spreading()
+    gpu = _topo_run(spread, "cuda", profile_at=spread.init_pods // P + 2)
+    cpu = _topo_run(spread, "cpu")
+    _check_topo(spread.name, spread, gpu, cpu, "off", "general")
+    zone_of = {ni.node.meta.name: ni.node.meta.labels["topology.kubernetes.io/zone"]
+               for ni in gpu["sched"].snapshot.node_info_map.values()}
+    per_zone = {}
+    for key, node in gpu["placed"].items():
+        if key.startswith("default/spread-"):
+            per_zone[zone_of[node]] = per_zone.get(zone_of[node], 0) + 1
+    if len(per_zone) != 10 or max(per_zone.values()) - min(per_zone.values()) > 1:
+        raise AssertionError(f"{spread.name}: spread pods per zone {per_zone}")
+    print(f"{spread.name}: measured pods per zone {sorted(per_zone.values())}")
+    _report_topo(spread.name, gpu)
+    out[spread.name] = gpu
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -299,6 +481,7 @@ def main() -> int:
     device = torch.device("cuda")
     kern = kernel_phase(device)
     sl = slice_phase()
+    topology_phase()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)

@@ -7,19 +7,23 @@ framework runtime, the store or the commit plane. ``BatchScheduler`` keeps
 the given NodeInfos as its cache (it binds placed pods into them) and a
 ``DeviceState`` mirror of them; each
 ``schedule`` call places pods in batches of ``caps.pods`` in the given
-order. Only the features this path implements are accepted: a pod with
-topology spread, inter-pod (anti-)affinity, DRA claims, volumes or a gang
-label raises NotImplementedError rather than being placed by a path that
-would ignore those terms.
+order. Pods with topology spread constraints or inter-pod (anti-)affinity
+run the topology scan in one of two modes (``_topo_mode_info``); the rest
+run the fused kernel. Only the features this path implements are accepted:
+a pod with DRA claims, volumes or a gang label raises NotImplementedError
+rather than being placed by a path that would ignore those terms.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from ..api.types import POD_GROUP_LABEL, Pod
 from ..cache.snapshot import Snapshot
+from ..framework.plugins.interpodaffinity import HOSTNAME_KEY, NsLabelsFn
 from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
 from ..utils.device import DeviceLike
@@ -34,11 +38,6 @@ def unsupported_reason(pod: Pod) -> Optional[str]:
     """Why the main path cannot place ``pod`` (the later slice that will),
     or None when it can."""
     spec = pod.spec
-    if spec.topology_spread_constraints:
-        return "topology spread constraints (topology slice)"
-    a = spec.affinity
-    if a is not None and (a.pod_affinity is not None or a.pod_anti_affinity is not None):
-        return "inter-pod affinity (topology slice)"
     if spec.resource_claims:
         return "resource claims (DRA and volumes slice)"
     if spec.volumes or spec.ephemeral_claims:
@@ -50,30 +49,22 @@ def unsupported_reason(pod: Pod) -> Optional[str]:
 
 class BatchScheduler:
     def __init__(self, node_infos: Iterable[NodeInfo], caps: Optional[Capacities] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, ns_labels_fn: Optional[NsLabelsFn] = None):
         infos = list(node_infos)
-        for ni in infos:
-            self._check_node(ni)
         self.caps = caps or caps_for_cluster(len(infos))
-        self.state = DeviceState(self.caps, device)
+        self.state = DeviceState(self.caps, device, ns_labels_fn)
         self.device = self.state.device
         self.snapshot = Snapshot(infos)
         self.batches = 0
+        self.batch_modes: List[str] = []  # topology mode of each batch, in order
         # host seconds per stage of a batch, summed over batches: sync,
-        # encode, dispatch (static phase and kernel enqueued), read (the
+        # encode (pods and topology programs), dispatch (count tables
+        # uploaded, static phase and the kernel or the scan enqueued), read (the
         # blocking device-to-host read, which waits for the device) and bind
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
 
-    @staticmethod
-    def _check_node(ni: NodeInfo) -> None:
-        if ni.pods_with_affinity:
-            raise NotImplementedError(
-                f"node {ni.node.meta.name} holds pods with inter-pod affinity "
-                "(topology slice)")
-
     def add_node(self, ni: NodeInfo) -> None:
         """Add or replace a node (its pods come with its NodeInfo)."""
-        self._check_node(ni)
         self.snapshot.set(ni)
 
     def remove_node(self, name: str) -> None:
@@ -92,6 +83,28 @@ class BatchScheduler:
             out.update(self._schedule_batch(pods[i:i + step]))
         return out
 
+    def _topo_mode_info(self) -> Tuple[str, Optional[int], int]:
+        """(topo_mode, vd_bucket, host_key) for the sig table as the last
+        ``encode_topo`` left it: "off" with no registered signature or term;
+        "host" when every involved key is the hostname and every valid node
+        has a hostname value of its own (a duplicate falls back, as the
+        per-node fast path would count two nodes apart); else "general",
+        over a domain axis of the smallest power of two >= 64 that covers
+        every value id of the involved keys."""
+        state = self.state
+        if not state.topo_enabled:
+            return ("off", None, 0)
+        summary = state.sig_table.last_topo_summary
+        if summary["hostname_only"]:
+            host_slot = state.encoder.key_slot(HOSTNAME_KEY)
+            vals = state._mirror["label_val"][state._mirror["valid"], host_slot]
+            if len(np.unique(vals)) == len(vals):
+                return ("host", None, host_slot)
+        vd = 64
+        while vd < summary["vd_needed"]:
+            vd *= 2
+        return ("general", vd, 0)
+
     def _schedule_batch(self, pods: Sequence[Pod]) -> Dict[str, Optional[str]]:
         state = self.state
         t = [time.perf_counter()]
@@ -99,8 +112,13 @@ class BatchScheduler:
         t.append(time.perf_counter())
         pb, et = state.encoder.encode_pods(pods)
         host_pb = state.encoder.last_host_pb
+        # registers the batch's signatures and terms: tc is read after it
+        tb = state.sig_table.encode_topo(pods)
+        mode, vd, host_key = self._topo_mode_info()
         t.append(time.perf_counter())
-        res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device)
+        topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
+                                              vd_override=vd, host_key=host_key)
+        res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device, **topo)
         t.append(time.perf_counter())
         # the ONE device-to-host read of the batch
         node_idx, _first_fail = unpack_result_block(res.packed, self.caps.nodes)
@@ -124,4 +142,5 @@ class BatchScheduler:
         for stage, a, b in zip(STAGES, t, t[1:]):
             self.stage_seconds[stage] += b - a
         self.batches += 1
+        self.batch_modes.append(mode)
         return placed

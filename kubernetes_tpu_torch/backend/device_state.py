@@ -10,13 +10,18 @@ are tombstoned (row zeroed, slot to the encoder's free-list for reuse).
 device truth and advance the mirror by the same commits, so the next sync
 uploads nothing for commit-only changes.
 
+Topology counts live in a ``SigTable`` (host truth, numpy): ``sync``
+recounts every removed or dirty node slot there, and ``tc`` uploads the
+tables again only when the table's version moved. A batch's evolved topology
+carry is not adopted: the next sync recounts the nodes it bound pods to.
+
 Capacity growth: the encoder raises CapacityError when a vocab or axis
 overflows; the caller rebuilds with grown Capacities and resyncs.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,8 +29,10 @@ import torch
 from ..cache.snapshot import Snapshot
 from ..framework.types import NodeInfo
 from ..ops.encode import ClusterEncoder
-from ..ops.schema import Capacities, NodeTensors, round_node_capacity, tensor_from_numpy
+from ..framework.plugins.interpodaffinity import NsLabelsFn
+from ..ops.schema import Capacities, NodeTensors, TopoCounts, round_node_capacity, tensor_from_numpy
 from ..utils.device import DeviceLike, resolve_device
+from .sig_table import SigTable
 
 _ROW_FIELDS = (
     ("valid", bool), ("unschedulable", bool),
@@ -46,10 +53,14 @@ def _bucket(n: int, floor: int = 8) -> int:
 
 
 class DeviceState:
-    def __init__(self, caps: Capacities, device: DeviceLike = None):
+    def __init__(self, caps: Capacities, device: DeviceLike = None,
+                 ns_labels_fn: Optional[NsLabelsFn] = None):
         self.caps = caps
         self.device = resolve_device(device)
         self.encoder = ClusterEncoder(caps, self.device)
+        self.sig_table = SigTable(self.encoder, ns_labels_fn)
+        self._tc: Optional[TopoCounts] = None   # device copy of the count tables
+        self._tc_version = -1                    # sig_table.version it was taken at
         self._uploaded_gen: Dict[str, int] = {}   # node name -> generation on device
         self._image_counts: Dict[str, int] = {}   # image -> num nodes (host truth)
         self._image_sizes: Dict[str, int] = {}
@@ -72,6 +83,18 @@ class DeviceState:
         d["image_num_nodes"] = np.zeros(caps.images, np.int32)
         d["class_prio"] = self.encoder.class_prio_array()
         self.nt = NodeTensors.from_numpy(d, self.device)
+
+    @property
+    def tc(self) -> TopoCounts:
+        """Device TopoCounts, uploaded again only when the host truth moved."""
+        if self._tc is None or self._tc_version != self.sig_table.version:
+            self._tc = self.sig_table.topo_counts()
+            self._tc_version = self.sig_table.version
+        return self._tc
+
+    @property
+    def topo_enabled(self) -> bool:
+        return self.sig_table.n_sigs > 1 or self.sig_table.n_terms > 1
 
     def _refresh_class_prio(self) -> None:
         """Upload the priority-class vocab whenever it grew."""
@@ -96,6 +119,7 @@ class DeviceState:
             self.nodes_removed += 1
             if slot is not None:
                 dirty.append((slot, NodeInfo()))  # empty row: valid=False
+                self.sig_table.recount_node(slot, None)
             images_changed |= self._track_images(name, None)
         for name, ni in current.items():
             if self._uploaded_gen.get(name) == ni.generation:
@@ -105,6 +129,7 @@ class DeviceState:
             self._uploaded_gen[name] = ni.generation
             images_changed |= self._track_images(name, ni)
             self.encoder.retain_node_values(name, ni.node)
+            self.sig_table.recount_node(slot, ni)
         if removed and dirty:
             # a slot tombstoned and re-assigned in this sync appears twice:
             # keep only the last write per slot

@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from .backend.batch import DEFAULT_WEIGHTS, weight_vector
-from .ops.schema import ExprTable, NodeTensors, PodBatch
+from .ops.schema import ExprTable, NodeTensors, PodBatch, TopoBatch, TopoCounts
 from .utils.device import DeviceLike, resolve_device
 
 
@@ -26,6 +26,14 @@ def pod_batch_from_numpy(d: dict, device: DeviceLike = None) -> PodBatch:
 
 def expr_table_from_numpy(d: dict, device: DeviceLike = None) -> ExprTable:
     return ExprTable.from_numpy(d, resolve_device(device))
+
+
+def topo_counts_from_numpy(d: dict, device: DeviceLike = None) -> TopoCounts:
+    return TopoCounts.from_numpy(d, resolve_device(device))
+
+
+def topo_batch_from_numpy(d: dict, device: DeviceLike = None) -> TopoBatch:
+    return TopoBatch.from_numpy(d, resolve_device(device))
 
 
 def weights_from_dict(d: Dict[str, float]) -> Tuple[float, ...]:

@@ -1,7 +1,8 @@
 """Dense tensor schemas for the device-resident cluster mirror (PyTorch).
 
 The same fields, shapes and layouts as ``kubernetes_tpu/ops/schema.py``
-(NodeTensors, ExprTable, PodBatch), as plain dataclasses of torch tensors.
+(NodeTensors, ExprTable, PodBatch, TopoCounts, TopoBatch), as plain
+dataclasses of torch tensors.
 
 * Nodes live in fixed **slots** (stable indices into the N axis) with an
   explicit ``valid`` mask; every array is padded to static capacities.
@@ -163,6 +164,62 @@ class PodBatch(_Tensors):
         return self.valid.shape[0]
 
 
+@dataclasses.dataclass
+class TopoCounts(_Tensors):
+    """Device-resident pod-set count tables (backend/sig_table.py keeps the
+    host truth). ``sel_counts[s, n]``: pods on node n that match registered
+    signature s, a (namespaces, label selector) pair, the unit both topology
+    plugins count by. ``term_counts[t, n]``: pods on node n that carry
+    registered (anti-)affinity term t (the symmetric direction). Row 0 of
+    both is reserved and stays zero."""
+
+    sel_counts: torch.Tensor   # [S, N] int32
+    term_counts: torch.Tensor  # [T, N] int32
+    term_key: torch.Tensor     # [T] int32 topology-key slot of term t (0 = unused row)
+
+
+@dataclasses.dataclass
+class TopoBatch(_Tensors):
+    """A batch's compiled topology programs, pointing into TopoCounts rows.
+    Index fields are 0 where invalid (row 0 of each table is a zero row and
+    key slot 0 is never a label key, so its domain id is always 0)."""
+
+    # PodTopologySpread DoNotSchedule constraints (filter), [P, C]
+    sf_valid: torch.Tensor        # bool
+    sf_sig: torch.Tensor          # int32 signature row
+    sf_key: torch.Tensor          # int32 topology-key slot
+    sf_skew: torch.Tensor         # int32 maxSkew
+    sf_self: torch.Tensor         # bool: the pod matches its own constraint selector
+    sf_min_domains: torch.Tensor  # int32, -1 = unset
+    # PodTopologySpread ScheduleAnyway constraints (score), [P, C]
+    ss_valid: torch.Tensor
+    ss_sig: torch.Tensor
+    ss_key: torch.Tensor
+    ss_skew: torch.Tensor
+    ss_hostname: torch.Tensor     # bool: topologyKey == kubernetes.io/hostname
+    ss_require_all: torch.Tensor  # [P] bool: pod-specified constraints
+    # the pod's required pod-affinity terms, [P, A]
+    ia_valid: torch.Tensor
+    ia_sig: torch.Tensor
+    ia_key: torch.Tensor
+    ia_self_all: torch.Tensor     # [P] bool: the pod matches all its own affinity terms
+    # the pod's required pod-anti-affinity terms, [P, A]
+    ianti_valid: torch.Tensor
+    ianti_sig: torch.Tensor
+    ianti_key: torch.Tensor
+    # the pod's preferred (anti-)affinity terms, [P, PT]
+    ip_valid: torch.Tensor
+    ip_sig: torch.Tensor
+    ip_key: torch.Tensor
+    ip_w: torch.Tensor            # int32 signed weight (negative = anti)
+    # existing pods' terms against the incoming pod, [P, T]
+    term_filter_match: torch.Tensor  # bool: required anti-affinity term t matches pod p
+    term_score_w: torch.Tensor       # float32 symmetric score weight of term t for pod p
+    # what a committing pod adds to the node it lands on
+    pod_sig_mask: torch.Tensor    # [P, S] bool
+    pod_term_mask: torch.Tensor   # [P, T] bool
+
+
 def round_node_capacity(n: int, floor: int = 128) -> int:
     """Node-axis padding bucket: powers of two up to 1024, then multiples of
     1024 (5000 nodes pad to 5120, not 8192: every per-step tensor of the
@@ -197,11 +254,11 @@ class Capacities:
     image_words: int = 16     # Wimg
     images: int = 1 + 16 * 32  # Vimg (vocab capacity = image_words*32, +0 slot)
     containers: int = 4       # C per pod
-    sigs: int = 8             # registered pod-set signatures (topology; later slice)
-    ex_terms: int = 8         # registered existing-pod terms (topology; later slice)
-    spread_cons: int = 2      # spread constraints per pod per kind (later slice)
-    ipa_terms: int = 2        # required (anti-)affinity terms per pod (later slice)
-    ipa_pref: int = 2         # preferred pod-affinity terms per pod (later slice)
+    sigs: int = 8             # registered pod-set signatures (topology)
+    ex_terms: int = 8         # registered existing-pod terms (topology)
+    spread_cons: int = 2      # spread constraints per pod per kind
+    ipa_terms: int = 2        # required (anti-)affinity terms per pod
+    ipa_pref: int = 2         # preferred pod-affinity terms per pod
     prio_classes: int = 32    # distinct pod priority values (+ reserved row 0)
     superpods: int = 16       # torus superpods (slice packing; later slice)
     sp_slots: int = 16        # node positions per superpod torus

@@ -1,0 +1,340 @@
+"""PodTopologySpread and InterPodAffinity inside the commit scan (PyTorch).
+
+Counterpart of ``kubernetes_tpu/ops/topology.py``, without the sharded
+(``axis_name``) form. Topology domains are label value ids: a constraint's
+or term's per-domain pod counts are one segment sum of TopoCounts rows over
+``label_val[:, key]``, and a node's count is one gather back. Every function
+here runs once per pod inside the scan of ``backend/batch.py``, against the
+counts as the batch's earlier pods left them.
+
+How the JAX semantics carry over:
+
+* Index ranges. A JAX gather clamps an out-of-range index and a JAX scatter
+  drops it; torch raises (CPU) or asserts on the device (CUDA). No index
+  here is ever out of range: domain ids are value ids of a key the batch
+  involves, and the domain axis ``vd`` covers every value id of every such
+  key (``SigTable.encode_topo``'s ``vd_needed``, or the full value vocab);
+  invalid program slots use key slot 0, which is never a label key, so its
+  domain id is 0; signature and term ids are rows below ``caps.sigs`` and
+  ``caps.ex_terms``.
+* Segment sums are an int32 ``scatter_add_`` for every ``vd``. JAX's
+  one-hot float32 contraction (``vd <= 256``) gives the same integers: the
+  counts stay far below 2**24.
+* Integer contractions (``einsum("t,tn->n")``) are an elementwise product
+  and a sum, never a matmul; their float32 forms hold whole numbers, so
+  the sum is exact in any order.
+* ``log(float32(size) + 2)`` is read from ``size_log_table``: XLA's float32
+  ``log`` on the CPU is not the correctly rounded one that ``torch.log``
+  computes, and CUDA's may differ from both.
+* Nothing here reads a device value on the host: no ``.item()``, no
+  data-dependent shape, no Python branch on a tensor.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+INT_MAX = 2**31 - 1
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+
+class TopoStatic(NamedTuple):
+    """Per-batch static context (node labels cannot change inside a batch)."""
+
+    dom_t: torch.Tensor       # [T, N] domain id of node n under term t's topology key
+    seg_exist0: torch.Tensor  # [T, Vd] per-domain counts of pods carrying term t
+
+
+# Cephes' single-precision log, in the operation order of XLA's CPU code
+# generator: frexp into [0.5, 1) (shifted to [sqrt(1/2), sqrt(2)) - 1), a
+# degree-8 polynomial, and the exponent times ln 2 split in two parts
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+_SQRTHF = 0.707106781186547524
+
+
+def size_log_table(n: int, device) -> torch.Tensor:
+    """[n] float32: ``log(float32(k) + 2)`` for k = 0..n-1, with the bits of
+    ``jnp.log`` on the JAX package's CPU backend (PodTopologySpread's
+    topology-size weight, scoring.go:257). Every step is one float32
+    operation of its own, so the CPU and CUDA tables are the same bits.
+    Built on ``device`` in about 40 elementwise launches, once per batch."""
+    x = torch.arange(n, dtype=_F32, device=device) + 2.0
+    bits = torch.clamp_min(x, 2.0 ** -126).view(_I32)     # positive: the sign bit is 0
+    e = (bits >> 23).to(_F32) - 127.0 + 1.0                # exponent + 1, exact
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(_F32)      # mantissa in [0.5, 1)
+    low = m < _SQRTHF
+    e = e - low.to(_F32)
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = p[1] + t * p[0]
+    y1 = p[4] + t * p[3]
+    y2 = p[7] + t * p[6]
+    y = p[2] + y * t
+    y1 = p[5] + y1 * t
+    y2 = p[8] + y2 * t
+    y = y1 + y * x3
+    y = y2 + y * x3
+    y = y * x3
+    y = y + _LOG_Q1 * e
+    t = t - 0.5 * x2
+    t = t + y
+    return t + _LOG_Q2 * e
+
+
+def _domains(label_val: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """[C, N] int64 domain (value) ids of every node under each key slot."""
+    return label_val.index_select(1, key.long()).t().long()
+
+
+def _seg_sum(values: torch.Tensor, dom: torch.Tensor, vd: int) -> torch.Tensor:
+    """[C, N] int values summed by domain id (int64 [C, N]) -> [C, Vd] int32."""
+    seg = torch.zeros((dom.shape[0], vd), dtype=_I32, device=dom.device)
+    return seg.scatter_add_(1, dom, values.to(_I32))
+
+
+def _seg_counts(sig, key, sel_counts, label_val, elig, vd: int):
+    """Per-domain sums of ``sel_counts[sig]`` over eligible nodes that carry
+    the key. sig/key [C]; elig [C, N] or [N]. Returns (dom [C, N] int64,
+    has_key [C, N], seg [C, Vd], cnt_at [C, N])."""
+    dom = _domains(label_val, key)
+    has_key = dom > 0
+    if elig.dim() == 1:
+        elig = elig[None, :]
+    cnts = sel_counts.index_select(0, sig.long())
+    # nodes lacking the key are never counted (the reference skips them), so
+    # segment column 0 stays empty and whole-table sums match the oracle
+    seg = _seg_sum(torch.where(elig & has_key, cnts, 0), dom, vd)
+    return dom, has_key, seg, torch.gather(seg, 1, dom)
+
+
+def _fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0, left to right: XLA's order for a float reduction."""
+    out = x[0]
+    for i in range(1, x.shape[0]):
+        out = out + x[i]
+    return out
+
+
+def make_static(term_counts, term_key, label_val, valid, vd: int) -> TopoStatic:
+    dom_t = _domains(label_val, term_key)                                 # [T, N]
+    add = torch.where(valid[None, :] & (dom_t > 0), term_counts, 0)
+    return TopoStatic(dom_t=dom_t, seg_exist0=_seg_sum(add, dom_t, vd))
+
+
+# ----------------------------------------------------------------- filters
+
+
+def spread_filter(xs, sel_counts, label_val, valid, affinity_ok, vd: int):
+    """PodTopologySpread Filter (filtering.go:335): per DoNotSchedule
+    constraint, matchNum + selfMatch - minMatchNum <= maxSkew over the
+    domains of eligible nodes (matching the pod's node affinity and carrying
+    every constraint's key). Returns [N] bool."""
+    sf_valid = xs["sf_valid"]
+    dom = _domains(label_val, xs["sf_key"])
+    has_key = dom > 0
+    has_all = torch.all(torch.where(sf_valid[:, None], has_key, True), dim=0)
+    elig = valid & affinity_ok & has_all
+    _, _, seg, cnt_at = _seg_counts(xs["sf_sig"], xs["sf_key"], sel_counts, label_val,
+                                    elig, vd)
+    pres = _seg_sum(elig[None, :].expand(dom.shape[0], -1), dom, vd) > 0   # [C, Vd]
+    minm = torch.amin(torch.where(pres, seg, INT_MAX), dim=1)
+    minm = torch.where(torch.any(pres, dim=1), minm, 0)
+    ndom = torch.sum(pres, dim=1, dtype=_I32)
+    min_dom = xs["sf_min_domains"]
+    minm = torch.where((min_dom >= 0) & (ndom < min_dom), 0, minm)
+    ok_c = has_key & (cnt_at + xs["sf_self"][:, None].to(_I32) - minm[:, None]
+                      <= xs["sf_skew"][:, None])
+    return torch.all(torch.where(sf_valid[:, None], ok_c, True), dim=0)
+
+
+def ipa_filter(xs, sel_counts, seg_exist, dom_t, label_val, valid, vd: int):
+    """InterPodAffinity Filter's three checks (filtering.go:377-387).
+    Returns (aff_ok, anti_ok, exist_ok, exist_at); exist_at [T, N] is the
+    per-node existing-term domain count, reused by the score."""
+    # 1. the pod's required affinity (and the first-pod-in-cluster case)
+    ia_valid = xs["ia_valid"]
+    _, has_key, seg, cnt_at = _seg_counts(xs["ia_sig"], xs["ia_key"], sel_counts,
+                                          label_val, valid, vd)
+    pods_exist = torch.all(torch.where(ia_valid[:, None], cnt_at > 0, True), dim=0)
+    all_keys = torch.all(torch.where(ia_valid[:, None], has_key, True), dim=0)
+    total = torch.sum(torch.where(ia_valid[:, None], seg, 0))
+    first_ok = (total == 0) & xs["ia_self_all"]
+    aff_ok = ~torch.any(ia_valid) | (all_keys & (pods_exist | first_ok))
+
+    # 2. the pod's required anti-affinity
+    _, an_has_key, _, an_cnt = _seg_counts(xs["ianti_sig"], xs["ianti_key"], sel_counts,
+                                           label_val, valid, vd)
+    anti_ok = ~torch.any(xs["ianti_valid"][:, None] & an_has_key & (an_cnt > 0), dim=0)
+
+    # 3. existing pods' required anti-affinity against the pod
+    exist_at = torch.where(dom_t > 0, torch.gather(seg_exist, 1, dom_t), 0)   # [T, N]
+    viol = torch.sum(xs["term_filter_match"].to(_I32)[:, None] * exist_at, dim=0, dtype=_I32)
+    return aff_ok, anti_ok, viol == 0, exist_at
+
+
+# ----------------------------------------------------------------- scores
+
+
+def _spread_normalize(raw, base, ignored, has_cons):
+    mx = torch.amax(torch.where(base, raw, float("-inf")))
+    mn = torch.amin(torch.where(base, raw, float("inf")))
+    norm = torch.where(mx == 0, 100.0,
+                       torch.floor(100.0 * (mx + mn - raw) / torch.clamp_min(mx, 1.0)))
+    norm = torch.where(ignored | ~torch.any(base), 0.0, norm)
+    return torch.where(has_cons, norm, 0.0)
+
+
+def spread_score(xs, sel_counts, label_val, valid, affinity_ok, feasible, vd: int, log_tbl):
+    """PodTopologySpread Score and Normalize (scoring.go:196-271). Returns
+    [N] float32 scores, 0 for ignored and infeasible nodes. ``log_tbl`` is
+    ``size_log_table`` over at least max(N, vd) + 1 sizes."""
+    ss_valid, ss_host = xs["ss_valid"], xs["ss_hostname"]
+    require_all = xs["ss_require_all"]
+    dom = _domains(label_val, xs["ss_key"])
+    has_key = dom > 0
+    has_all = torch.all(torch.where(ss_valid[:, None], has_key, True), dim=0)
+    ignored = require_all & ~has_all                                      # [N]
+    base = feasible & ~ignored
+
+    # domain sizes over filtered non-ignored nodes; hostname counts nodes
+    pres = _seg_sum(base[None, :].expand(dom.shape[0], -1), dom, vd) > 0
+    sz = torch.where(ss_host, torch.sum(base, dtype=_I32), torch.sum(pres, dim=1, dtype=_I32))
+    w = log_tbl.index_select(0, sz.long())                                # [C]
+
+    # counts over eligible nodes (affinity match and the require-all key rule)
+    elig = valid & affinity_ok & torch.where(require_all, has_all, True)
+    _, _, _, cnt_at = _seg_counts(xs["ss_sig"], xs["ss_key"], sel_counts, label_val, elig, vd)
+    cnt = torch.where(ss_host[:, None], sel_counts.index_select(0, xs["ss_sig"].long()),
+                      cnt_at).to(_F32)
+    contrib = torch.where(ss_valid[:, None] & has_key,
+                          cnt * w[:, None] + (xs["ss_skew"][:, None].to(_F32) - 1.0), 0.0)
+    raw = torch.floor(_fold_sum(contrib) + 0.5)                            # math.Round, >= 0
+    return _spread_normalize(raw, base, ignored, torch.any(ss_valid))
+
+
+def _ipa_normalize(raw, feasible):
+    mx = torch.clamp_min(torch.amax(torch.where(feasible, raw, float("-inf"))), 0.0)
+    mn = torch.clamp_max(torch.amin(torch.where(feasible, raw, float("inf"))), 0.0)
+    diff = mx - mn
+    return torch.where(diff > 0, torch.floor(100.0 * (raw - mn) / torch.clamp_min(diff, 1.0)), 0.0)
+
+
+def ipa_score(xs, sel_counts, exist_at, label_val, valid, feasible, vd: int):
+    """InterPodAffinity Score and Normalize (scoring.go): the pod's preferred
+    terms against existing pods plus the existing terms' symmetric weights,
+    normalized over the feasible set with min and max clamped at 0.
+    Returns [N] float32."""
+    ip_valid = xs["ip_valid"]
+    _, has_key, _, cnt_at = _seg_counts(xs["ip_sig"], xs["ip_key"], sel_counts, label_val,
+                                        valid, vd)
+    pref = torch.sum(torch.where(ip_valid[:, None] & has_key,
+                                 xs["ip_w"][:, None].to(_F32) * cnt_at, 0.0), dim=0)
+    sym = torch.sum(xs["term_score_w"][:, None] * exist_at.to(_F32), dim=0)
+    return _ipa_normalize(pref + sym, feasible)
+
+
+# ------------------------------------------------------- hostname fast path
+#
+# When every involved key is kubernetes.io/hostname (and hostname values are
+# node-unique) every node is its own domain: the [C, Vd] segment sums become
+# direct per-node count reads, and the existing-term carry is the per-node
+# [T, N] term-count table itself.
+
+
+def spread_filter_host(xs, sel_counts, hostkey_ok, valid, affinity_ok):
+    """Spread filter with hostname domains: matchNum at node n is
+    sel_counts[sig, n]; minMatchNum is the minimum over eligible nodes."""
+    min_dom = xs["sf_min_domains"]
+    elig = valid & affinity_ok & hostkey_ok
+    cnt = sel_counts.index_select(0, xs["sf_sig"].long())                 # [C, N]
+    minm = torch.amin(torch.where(elig[None, :], cnt, INT_MAX), dim=1)
+    ndom = torch.sum(elig, dtype=_I32)
+    minm = torch.where(ndom > 0, minm, 0)
+    minm = torch.where((min_dom >= 0) & (ndom < min_dom), 0, minm)
+    ok_c = hostkey_ok[None, :] & (cnt + xs["sf_self"][:, None].to(_I32) - minm[:, None]
+                                  <= xs["sf_skew"][:, None])
+    return torch.all(torch.where(xs["sf_valid"][:, None], ok_c, True), dim=0)
+
+
+def ipa_filter_host(xs, sel_counts, term_cnt, hostkey_ok, valid):
+    """InterPodAffinity filter with hostname domains: a node's count is its
+    own sel_counts column; exist_at is the carried per-node term count."""
+    ia_valid = xs["ia_valid"]
+    cnt_at = sel_counts.index_select(0, xs["ia_sig"].long())               # [A, N]
+    exist = hostkey_ok[None, :] & (cnt_at > 0)
+    pods_exist = torch.all(torch.where(ia_valid[:, None], exist, True), dim=0)
+    all_keys = torch.all(torch.where(ia_valid[:, None], hostkey_ok[None, :], True), dim=0)
+    total = torch.sum(torch.where(ia_valid[:, None] & valid[None, :] & hostkey_ok[None, :],
+                                  cnt_at, 0))
+    first_ok = (total == 0) & xs["ia_self_all"]
+    aff_ok = ~torch.any(ia_valid) | (all_keys & (pods_exist | first_ok))
+
+    an_cnt = sel_counts.index_select(0, xs["ianti_sig"].long())             # [A, N]
+    anti_ok = ~torch.any(xs["ianti_valid"][:, None] & hostkey_ok[None, :] & (an_cnt > 0), dim=0)
+
+    exist_at = torch.where(hostkey_ok[None, :], term_cnt, 0)                # [T, N]
+    viol = torch.sum(xs["term_filter_match"].to(_I32)[:, None] * exist_at, dim=0, dtype=_I32)
+    return aff_ok, anti_ok, viol == 0, exist_at
+
+
+def spread_score_host(xs, sel_counts, hostkey_ok, valid, affinity_ok, feasible, log_tbl):
+    """Spread score with hostname domains (scoring.go:196-271): the size is
+    the count of non-ignored feasible nodes, counts are read per node."""
+    ss_valid = xs["ss_valid"]
+    ignored = xs["ss_require_all"] & ~hostkey_ok
+    base = feasible & ~ignored
+    w = log_tbl.index_select(0, torch.sum(base, dtype=torch.int64).view(1))  # [1]
+    cnt = sel_counts.index_select(0, xs["ss_sig"].long()).to(_F32)          # [C, N]
+    contrib = torch.where(ss_valid[:, None] & hostkey_ok[None, :],
+                          cnt * w + (xs["ss_skew"][:, None].to(_F32) - 1.0), 0.0)
+    raw = torch.floor(_fold_sum(contrib) + 0.5)
+    return _spread_normalize(raw, base, ignored, torch.any(ss_valid))
+
+
+def ipa_score_host(xs, sel_counts, exist_at, hostkey_ok, feasible):
+    ip_valid = xs["ip_valid"]
+    cnt_at = sel_counts.index_select(0, xs["ip_sig"].long())                # [PT, N]
+    pref = torch.sum(torch.where(ip_valid[:, None] & hostkey_ok[None, :],
+                                 xs["ip_w"][:, None].to(_F32) * cnt_at.to(_F32), 0.0), dim=0)
+    sym = torch.sum(xs["term_score_w"][:, None] * exist_at.to(_F32), dim=0)
+    return _ipa_normalize(pref + sym, feasible)
+
+
+# ----------------------------------------------------------------- commit
+
+
+def _commit_column(n: int, local_idx, commit, device) -> torch.Tensor:
+    """[N] int32 one-hot of the winning node, all zero when nothing commits."""
+    return ((torch.arange(n, dtype=_I32, device=device) == local_idx) & commit).to(_I32)
+
+
+def commit_update_host(sel_counts, term_cnt, local_idx, commit, pod_sig_mask, pod_term_mask):
+    """Hostname-mode commit: both tables are [*, N] and take a one-column
+    add at the winning node (elementwise, no scatter)."""
+    col = _commit_column(sel_counts.shape[1], local_idx, commit, sel_counts.device)
+    sel_counts = sel_counts + pod_sig_mask.to(_I32)[:, None] * col[None, :]
+    term_cnt = term_cnt + pod_term_mask.to(_I32)[:, None] * col[None, :]
+    return sel_counts, term_cnt
+
+
+def commit_update(sel_counts, seg_exist, dom_t, local_idx, commit, pod_sig_mask,
+                  pod_term_mask):
+    """Add a committed pod's memberships to the evolving tables:
+    sel_counts[:, node] += pod_sig_mask, and the pod's carried terms to
+    seg_exist at the winning node's domains."""
+    col = _commit_column(sel_counts.shape[1], local_idx, commit, sel_counts.device)
+    sel_counts = sel_counts + pod_sig_mask.to(_I32)[:, None] * col[None, :]
+    dom_col = dom_t.index_select(1, local_idx.long().view(1))               # [T, 1]
+    add = torch.where(commit & (dom_col > 0), pod_term_mask.to(_I32)[:, None], 0)
+    vd = seg_exist.shape[1]
+    onehot = torch.arange(vd, dtype=dom_col.dtype, device=dom_col.device)[None, :] == dom_col
+    return sel_counts, seg_exist + add * onehot.to(_I32)

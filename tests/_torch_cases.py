@@ -144,20 +144,128 @@ class Api:
     make_node: object
     make_pod: object
     NodeInfo: object
+    LabelSelector: object
 
 
 def jax_api() -> Api:
+    from kubernetes_tpu.api.types import LabelSelector
     from kubernetes_tpu.api.wrappers import make_node, make_pod
     from kubernetes_tpu.framework.types import NodeInfo
 
-    return Api(make_node, make_pod, NodeInfo)
+    return Api(make_node, make_pod, NodeInfo, LabelSelector)
 
 
 def torch_api() -> Api:
+    from kubernetes_tpu_torch.api.types import LabelSelector
     from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
     from kubernetes_tpu_torch.framework.types import NodeInfo
 
-    return Api(make_node, make_pod, NodeInfo)
+    return Api(make_node, make_pod, NodeInfo, LabelSelector)
+
+
+# ----------------------------------------------------------------- topology
+
+HOST = "kubernetes.io/hostname"
+ZONE = "topology.kubernetes.io/zone"
+TOPO_LABELS = ({"app": "web"}, {"color": "green"}, {"app": "db", "color": "green"}, {})
+
+
+def _topo_pod(rng, name: str, keys) -> dict:
+    """A pod with seeded labels, spread constraints and (anti-)affinity
+    terms on the topology keys ``keys``."""
+    d = {"name": name, "cpu": f"{int(rng.choice([100, 250, 500]))}m",
+         "mem": f"{int(rng.choice([128, 256]))}Mi",
+         "labels": dict(TOPO_LABELS[rng.randint(len(TOPO_LABELS))]),
+         "spread": [], "affinity": [], "preferred": [], "port": 0, "nominated": ""}
+    k = rng.randint(8)
+    key = keys[rng.randint(len(keys))]
+    if k in (0, 1):
+        when = "DoNotSchedule" if k == 0 else "ScheduleAnyway"
+        d["spread"].append((int(rng.randint(1, 3)), key, when, {"app": "web"},
+                            int(rng.choice([0, 0, 3])) or None))
+        d["labels"]["app"] = "web"
+    elif k == 2:
+        d["affinity"].append((key, {"color": "green"}, True))
+        d["labels"]["color"] = "green"
+    elif k == 3:
+        d["affinity"].append((key, {"app": "web"}, False))
+    elif k == 4:
+        d["preferred"].append((int(rng.choice([1, 5])), key, {"app": "db"}, False))
+        d["preferred"].append((int(rng.choice([2, 7])), keys[0], {"color": "green"}, True))
+    elif k == 5:
+        d["spread"].append((1, key, "DoNotSchedule", {"app": "web"}, None))
+        d["affinity"].append((keys[-1], {"app": "db"}, True))
+    elif k == 6:
+        d["port"] = int(rng.choice([8080, 9090]))
+    return d
+
+
+def topo_cluster_spec(n_nodes: int, seed: int, keys=(ZONE, HOST), zones: int = 4) -> list:
+    """Nodes with zone and hostname labels (a few without a zone), holding
+    existing pods that carry labels and (anti-)affinity terms on ``keys``."""
+    rng = np.random.RandomState(seed)
+    nodes = []
+    for i in range(n_nodes):
+        labels = {HOST: f"node-{i}"}
+        if i % 9 != 4:
+            labels[ZONE] = f"zone-{i % zones}"
+        existing = [_topo_pod(rng, f"old-{i}-{j}", keys) for j in range(rng.randint(0, 3))]
+        for e in existing:
+            e["spread"] = []  # placed pods' constraints play no part
+        nodes.append({"name": f"node-{i}", "labels": labels, "existing": existing,
+                      "cpu": str(int(rng.choice([4, 8]))), "mem": "16Gi", "pods": 20})
+    return nodes
+
+
+def topo_pods_spec(n_pods: int, seed: int, keys=(ZONE, HOST), nominate: str = "") -> list:
+    rng = np.random.RandomState(seed)
+    pods = [_topo_pod(rng, f"pod-{seed}-{i}", keys) for i in range(n_pods)]
+    if nominate:
+        pods[1]["nominated"] = nominate
+    return pods
+
+
+def _topo_wrapper(api, d: dict):
+    pw = api.make_pod(d["name"]).req({"cpu": d["cpu"], "memory": d["mem"]})
+    for k, v in d["labels"].items():
+        pw.label(k, v)
+    for skew, key, when, sel, min_domains in d["spread"]:
+        pw.spread_constraint(skew, key, when_unsatisfiable=when,
+                             selector=api.LabelSelector(match_labels=dict(sel)),
+                             min_domains=min_domains)
+    for key, sel, anti in d["affinity"]:
+        pw.pod_affinity(key, api.LabelSelector(match_labels=dict(sel)), anti=anti)
+    for weight, key, sel, anti in d["preferred"]:
+        pw.preferred_pod_affinity(weight, key, api.LabelSelector(match_labels=dict(sel)),
+                                  anti=anti)
+    if d["port"]:
+        pw.host_port(d["port"])
+    return pw
+
+
+def build_topo_nodes(api, spec: list) -> list:
+    infos = []
+    for d in spec:
+        nw = api.make_node(d["name"]).capacity(
+            {"cpu": d["cpu"], "memory": d["mem"], "pods": d["pods"]})
+        for k, v in d["labels"].items():
+            nw.label(k, v)
+        ni = api.NodeInfo(nw.obj())
+        for e in d["existing"]:
+            pod = _topo_wrapper(api, e).obj()
+            pod.spec.node_name = d["name"]
+            ni.add_pod(pod)
+        infos.append(ni)
+    return infos
+
+
+def build_topo_pods(api, spec: list) -> list:
+    pods = []
+    for d in spec:
+        pod = _topo_wrapper(api, d).obj()
+        pod.status.nominated_node_name = d["nominated"]
+        pods.append(pod)
+    return pods
 
 
 class SnapshotShim:

@@ -132,3 +132,55 @@ def test_phase_stamps_leave_the_kernel_exact(cuda):
     _assert_equal(got, fused_step.fused_step_batch_ref(*args, kernel_phases.WEIGHTS))
     assert stamps.shape == (fused_step.CLUSTER, 32, kernel_phases.STAMPS)
     assert (np.diff(stamps, axis=2) >= 0).all()  # each pod's phases in order
+
+
+def _topo_state(keys, seed, device):
+    """A seeded topology batch encoded on the CPU (port API only), its mode,
+    and its inputs moved to ``device``."""
+    import dataclasses
+
+    from _torch_cases import (SnapshotShim, build_topo_nodes, build_topo_pods,
+                              topo_cluster_spec, topo_pods_spec, torch_api)
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.backend.device_state import caps_for_cluster
+
+    caps = dataclasses.replace(caps_for_cluster(1000, batch=64), sigs=16, ex_terms=32)
+    sched = BatchScheduler([], caps=caps, device="cpu")
+    ds = sched.state
+    ds.sync(SnapshotShim(build_topo_nodes(torch_api(), topo_cluster_spec(1000, seed, keys))))
+    pods = build_topo_pods(torch_api(), topo_pods_spec(64, seed + 1, keys, nominate="node-9"))
+    pb, et = ds.encoder.encode_pods(pods)
+    tb = ds.sig_table.encode_topo(pods)
+    mode, vd, host_key = sched._topo_mode_info()
+
+    def to(obj):
+        return type(obj)(**{f.name: getattr(obj, f.name).to(device)
+                            for f in dataclasses.fields(obj)})
+
+    return (to(pb), to(et), to(ds.nt)), dict(tc=to(ds.tc), tb=to(tb), topo_mode=mode,
+                                             vd_override=vd, host_key=host_key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys,mode", [(("kubernetes.io/hostname",), "host"),
+                                       (("topology.kubernetes.io/zone",
+                                         "kubernetes.io/hostname"), "general")])
+def test_topology_scan_matches_cpu(cuda, keys, mode):
+    from kubernetes_tpu_torch.backend.batch import schedule_batch
+
+    args, kw = _topo_state(keys, 3, cuda)
+    assert kw["topo_mode"] == mode
+    before = fused_step.LAUNCHES
+    got = schedule_batch(*args, device=cuda, **kw)
+    torch.cuda.synchronize()
+    assert fused_step.LAUNCHES == before  # the scan, not the fused kernel
+    args, kw = _topo_state(keys, 3, "cpu")
+    want = schedule_batch(*args, device="cpu", **kw)
+    for name in ("node_idx", "best_score", "any_feasible", "fit_ok", "ports_ok", "spread_ok",
+                 "ipa_ok", "first_fail", "final_requested", "final_nonzero", "final_ports",
+                 "final_class_req", "final_sel_counts", "final_seg_exist", "packed"):
+        a, b = getattr(got, name).cpu(), getattr(want, name)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+    assert int((want.node_idx >= 0).sum()) > 32

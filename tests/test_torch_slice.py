@@ -117,15 +117,20 @@ def test_unsupported_pod_raises():
 
     api = torch_api()
     sched = BatchScheduler(_nodes(api, ["a", "b"]), device="cpu")
-    spread = api.make_pod("s").spread_constraint(1, "topology.kubernetes.io/zone").obj()
-    anti = api.make_pod("x").pod_affinity("kubernetes.io/hostname",
-                                          LabelSelector({"app": "x"}), anti=True).obj()
     gang = api.make_pod("g").pod_group("team").obj()
     vol = api.make_pod("v").pvc("data").obj()
-    for pod in (spread, anti, gang, vol):
+    claim = api.make_pod("c").resource_claim("accel", claim_name="tpu-claim").obj()
+    for pod in (gang, vol, claim):
         with pytest.raises(NotImplementedError):
             sched.schedule([pod])
     assert sched.batches == 0
+    # spread constraints and inter-pod affinity are placed since the topology slice
+    spread = api.make_pod("s").spread_constraint(1, "topology.kubernetes.io/zone").obj()
+    anti = api.make_pod("x").pod_affinity("kubernetes.io/hostname",
+                                          LabelSelector({"app": "x"}), anti=True).obj()
+    placed = sched.schedule([spread, anti])
+    assert all(v is not None for v in placed.values())
+    assert sched.batch_modes == ["general"]
 
 
 def test_entry_points_without_device_need_cuda():
