@@ -18,24 +18,42 @@
    card could take for the same work.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
    110 pods with zone and hostname labels; pods asking 900m / 2Gi) through
-   BatchScheduler on the card: 1000 init-* pods, then 1000 measured-* pods.
-   Every pod must be placed, the kernel must have launched once per batch,
-   and the placements must equal the same run on the CPU (plain versions).
+   BatchScheduler on the card with the default ``KTPU_SPEC=auto``: 1000
+   init-* pods, then 1000 measured-* pods. Every pod must be placed, every
+   batch must take the fused kernel, which must have launched once per
+   batch, and the placements must equal the same run on the CPU (plain
+   versions).
 4. Topology phase: the topology-size log table on the card must equal the
-   CPU's for every size 0..8194. Then SchedulingPodAntiAffinity/5000Nodes
-   (1000 init + 1000 measured pods, each anti-affine to the others on the
-   hostname key) and TopologySpreading/5000Nodes (5000 plain init pods, then
-   2000 pods with a maxSkew 1 DoNotSchedule zone constraint) through
-   BatchScheduler on the card, then on the CPU. Every pod must be placed;
-   the anti-affine pods on 2000 distinct nodes; the spread pods' per-zone
-   counts within 1 of each other; every topology batch in the expected mode
-   ("host", "general"); the fused kernel launched by no topology batch; no
-   host read inside a topology batch's device call (it runs under
+   CPU's for every size 0..8194. Then, with the scan forced
+   (``KTPU_SPEC=0``), SchedulingPodAntiAffinity/5000Nodes (1000 init + 1000
+   measured pods, each anti-affine to the others on the hostname key) and
+   TopologySpreading/5000Nodes (5000 plain init pods, then 2000 pods with a
+   maxSkew 1 DoNotSchedule zone constraint) through BatchScheduler on the
+   card, then on the CPU. Every pod must be placed; the anti-affine pods on
+   2000 distinct nodes; the spread pods' per-zone counts within 1 of each
+   other; every topology batch in the expected mode ("host", "general");
+   the fused kernel launched by no topology batch; no host read inside a
+   scan batch's device call (it runs under
    ``torch.cuda.set_sync_debug_mode("error")``); and the placements equal
-   to the CPU run. Prints pods/s, ms per batch, host ms per stage, and the
-   CUDA kernels one topology batch launches (torch.profiler).
-5. Prints the card's name and power limit, one JSON line of per-kernel
-   numbers, and, as the last line, the device summary.
+   to the CPU run.
+5. Spec phase: the three workloads again on the card with every batch
+   forced to the speculative rounds (``KTPU_SPEC=1``). The placements and
+   modes must equal the CPU run and the card's run of the fused kernel or
+   the scan; in every batch (but the profiled one) the host reads, counted
+   as the synchronising-operation warnings of
+   ``set_sync_debug_mode("warn")``, must equal the rounds
+   (``batch.ROUNDS``); and one measured batch's spec BatchResult on the
+   card must equal, field by field and bit for bit, the rounds on the CPU
+   from the same inputs. Prints rounds per batch, kernels per round, device
+   busy ms, ms per batch and pods/s beside the path the rounds replace.
+   Then times the two paths in turns (other, spec, spec, other) on that
+   batch's inputs and prints which is faster per mode beside
+   ``batch.SPEC_AUTO_CUDA`` (the path ``auto`` takes on the card); fails if
+   the table takes a path this run measured more than 1.5 times slower.
+6. Each workload run prints pods/s, ms per batch, host ms per stage, and
+   the CUDA kernels and device busy time of one measured batch
+   (torch.profiler). Then the card's name and power limit, one JSON line of
+   per-kernel numbers, and, as the last line, the device summary.
 
 Exits non-zero, with no result line, when any phase fails or when no CUDA
 device is present.
@@ -43,21 +61,24 @@ device is present.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.backend import batch_scheduler
+from kubernetes_tpu_torch.backend import batch, batch_scheduler
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
 from kubernetes_tpu_torch.ops import fused_step, topology
 from kubernetes_tpu_torch.perf import workloads
 from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
-from kubernetes_tpu_torch.perf.workloads import scheduling_basic_nodes, scheduling_basic_pods
 
 N_NODES = 5000
 N_PODS = 1000
@@ -256,74 +277,78 @@ def kernel_phase(device) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-# ---------------------------------------------------------------- slice phase
+# ---------------------------------------------------------------- the runner
 
 
-def _run_slice(device, per_batch_ms=None) -> dict:
-    sched = BatchScheduler(scheduling_basic_nodes(N_NODES), device=device)
-    placed = sched.schedule(scheduling_basic_pods("init", N_PODS))
-    measured = scheduling_basic_pods("measured", N_PODS)
-    for i in range(0, N_PODS, P):
-        t0 = time.perf_counter()
-        placed.update(sched.schedule(measured[i:i + P]))  # ends in the host read
-        if per_batch_ms is not None:
-            per_batch_ms.append((time.perf_counter() - t0) * 1e3)
-    return {"placed": placed, "batches": sched.batches, "stages": sched.stage_seconds}
+@contextlib.contextmanager
+def _spec_flag(value: str):
+    """``KTPU_SPEC`` for the runs inside: "0" the fused kernel and the scan,
+    "1" the speculative rounds in every mode, "auto" the port's default."""
+    old = os.environ.get("KTPU_SPEC")
+    os.environ["KTPU_SPEC"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("KTPU_SPEC", None)
+        else:
+            os.environ["KTPU_SPEC"] = old
 
 
-def slice_phase() -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    per_batch = []
-    fused_step.LAUNCHES = 0
-    gpu = _run_slice("cuda", per_batch)
-    launches = fused_step.LAUNCHES
-    placed = gpu["placed"]
-    unplaced = [k for k, v in placed.items() if v is None]
-    if len(placed) != 2 * N_PODS or unplaced:
-        raise AssertionError(f"{len(unplaced)} pods unplaced of {len(placed)}")
-    if launches != gpu["batches"]:
-        raise AssertionError(f"{launches} kernel launches for {gpu['batches']} batches")
-    cpu = _run_slice("cpu")
-    if cpu["placed"] != placed:
-        diff = sum(cpu["placed"][k] != v for k, v in placed.items())
-        raise AssertionError(f"{diff} placements differ between cuda and cpu")
-    total_s = sum(per_batch) / 1e3
-    print(f"SchedulingBasic/{N_NODES}Nodes on cuda: {len(placed)} pods placed in "
-          f"{gpu['batches']} batches, kernel launches {launches}, placements == cpu run; "
-          f"measured phase {N_PODS / total_s:.1f} pods/s, median "
-          f"{statistics.median(per_batch):.2f} ms per batch "
-          f"({len(per_batch)} batches of up to {P}); host ms per batch by stage over all "
-          f"{gpu['batches']} batches: "
-          + ", ".join(f"{k} {v * 1e3 / gpu['batches']:.2f}" for k, v in gpu["stages"].items()))
-    return {"launches": launches}
+def _host_copy(obj, device="cpu"):
+    """A copy on ``device`` of a schema dataclass, a BatchResult, or a list or
+    dict of them (a copy on the host too: a later sync writes rows into the
+    mirror)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device, copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_host_copy(v, device) for v in obj]
+    if dataclasses.is_dataclass(obj):
+        return type(obj)(**{f.name: _host_copy(getattr(obj, f.name), device)
+                            for f in dataclasses.fields(obj)})
+    return obj
 
 
-# ---------------------------------------------------------------- topology phase
+class _Watch:
+    """Stands in for ``batch_scheduler.schedule_batch`` during a run. On the
+    card, a scan batch runs under ``set_sync_debug_mode("error")`` (any host
+    read inside it raises) and a spec batch under "warn", its host reads
+    counted against its rounds (``batch.ROUNDS``); the fused kernel's
+    launches are counted per mode; batch ``profile_at`` runs under
+    torch.profiler instead (the profiler itself synchronises); and the
+    inputs and the result of batch ``capture_at`` are copied to the host."""
 
-
-class _TopologyWatch:
-    """Stands in for ``batch_scheduler.schedule_batch`` during a run: a
-    topology batch on the card runs under ``set_sync_debug_mode("error")``
-    (any host read inside it raises), the fused kernel's launches are
-    counted per mode, and one chosen topology batch runs under
-    torch.profiler instead (the profiler itself synchronises)."""
-
-    def __init__(self, profile_at: int = -1):
+    def __init__(self, profile_at: int = -1, capture_at: int = -1):
         self.inner = batch_scheduler.schedule_batch
         self.calls = 0
         self.fused_launches = {"off": 0, "host": 0, "general": 0}
-        self.profile_at = profile_at
-        self.profile = None
+        self.spec = []  # (call, rounds, host reads) of each counted spec batch
+        self.profile_at, self.capture_at = profile_at, capture_at
+        self.profile = self.captured = None
 
     def __call__(self, *args, **kw):
-        mode = kw.get("topo_mode", "off")
+        mode, spec = kw.get("topo_mode", "off"), kw.get("spec_decode", False)
         on_card = torch.device(kw["device"]).type == "cuda"
-        before = fused_step.LAUNCHES
-        if mode != "off" and on_card and self.calls == self.profile_at:
+        before, rounds0 = fused_step.LAUNCHES, batch.ROUNDS
+        if self.calls == self.capture_at:
+            self.captured = {"args": _host_copy(args), "kw": _host_copy(kw)}
+        if on_card and self.calls == self.profile_at:
             self.profile = _profiled(self.inner, args, kw)
+            self.profile["rounds"] = batch.ROUNDS - rounds0
             res = self.profile.pop("result")
-        elif mode != "off" and on_card:
+        elif on_card and spec:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = self.inner(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            reads = sum("synchronizing" in str(w.message) for w in caught)
+            self.spec.append((self.calls, batch.ROUNDS - rounds0, reads))
+        elif on_card and mode != "off":
             torch.cuda.set_sync_debug_mode("error")
             try:
                 res = self.inner(*args, **kw)
@@ -331,6 +356,8 @@ class _TopologyWatch:
                 torch.cuda.set_sync_debug_mode(0)
         else:
             res = self.inner(*args, **kw)
+        if self.calls == self.capture_at:
+            self.captured["result"] = _host_copy(res)  # before a later sync writes into it
         self.fused_launches[mode] += fused_step.LAUNCHES - before
         self.calls += 1
         return res
@@ -359,11 +386,11 @@ def _profiled(fn, args, kw) -> dict:
             "device_ms": busy_us / 1e3, "wall_ms": wall_ms}
 
 
-def _topo_run(w, device, profile_at: int = -1) -> dict:
+def _run(w, device, profile_at: int = -1, capture_at: int = -1) -> dict:
     """One workload through BatchScheduler: init pods, then the measured
     pods in batches of P, each timed on the host clock. The profiled batch
     is left out of the timings."""
-    watch = _TopologyWatch(profile_at)
+    watch = _Watch(profile_at, capture_at)
     batch_scheduler.schedule_batch = watch
     try:
         sched = BatchScheduler(w.node_infos(), device=device)
@@ -382,16 +409,73 @@ def _topo_run(w, device, profile_at: int = -1) -> dict:
                     stage_ms[k] += (v - stages0[k]) * 1e3
     finally:
         batch_scheduler.schedule_batch = watch.inner
+    ms = [t for t, _ in per_batch]
     return {"placed": placed, "sched": sched, "per_batch": per_batch, "watch": watch,
-            "modes": sched.batch_modes, "init_batches": init_batches,
+            "modes": sched.batch_modes, "paths": sched.batch_paths,
+            "init_batches": init_batches, "median_ms": statistics.median(ms),
+            "pods_per_s": sum(n for _, n in per_batch) / (sum(ms) / 1e3),
             "stage_ms": {k: v / len(per_batch) for k, v in stage_ms.items()}}
 
 
-def _check_topo(name: str, w, gpu: dict, cpu: dict, init_mode: str, meas_mode: str) -> None:
+def _check_placed(name: str, w, gpu: dict) -> None:
     placed = gpu["placed"]
     unplaced = [k for k, v in placed.items() if v is None]
     if len(placed) != w.init_pods + w.measured_pods or unplaced:
         raise AssertionError(f"{name}: {len(unplaced)} pods unplaced of {len(placed)}")
+
+
+def _check_same(name: str, got: dict, want: dict, what: str) -> None:
+    if got["placed"] != want["placed"]:
+        diff = sum(want["placed"][key] != v for key, v in got["placed"].items())
+        raise AssertionError(f"{name}: {diff} placements differ from {what}")
+    if got["modes"] != want["modes"]:
+        raise AssertionError(f"{name}: modes {got['modes']} != {what}'s {want['modes']}")
+
+
+def _report(name: str, gpu: dict) -> None:
+    ms = [t for t, _ in gpu["per_batch"]]
+    paths = sorted(set(gpu["paths"]))
+    print(f"{name} on cuda: {len(gpu['placed'])} pods placed in {len(gpu['modes'])} batches "
+          f"(modes: init {gpu['modes'][0]}, measured {gpu['modes'][-1]}; paths {paths}), "
+          f"fused-kernel launches by mode {gpu['watch'].fused_launches}; measured phase "
+          f"{gpu['pods_per_s']:.1f} pods/s, median {gpu['median_ms']:.2f} ms per batch (min "
+          f"{min(ms):.2f}, max {max(ms):.2f}; {len(ms)} batches of up to {P}, the profiled one "
+          f"left out); host ms per measured batch by stage: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in gpu["stage_ms"].items()))
+    prof = gpu["watch"].profile
+    if prof is not None:
+        print(f"{name} one measured batch under torch.profiler: {prof['kernels']} CUDA kernels "
+              f"({prof['kernels'] / P:.1f} per pod), {prof['launch_calls']} kernel-launch "
+              f"calls, device busy {prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall")
+
+
+# ---------------------------------------------------------------- slice phase
+
+
+def slice_phase() -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    fused_step.LAUNCHES = 0
+    gpu = _run(basic, "cuda", profile_at=basic.init_pods // P + 2)
+    launches = fused_step.LAUNCHES
+    _check_placed(basic.name, basic, gpu)
+    if set(gpu["paths"]) != {"fused"}:
+        raise AssertionError(f"{basic.name}: paths {gpu['paths']} under KTPU_SPEC=auto")
+    if launches != gpu["sched"].batches:
+        raise AssertionError(f"{launches} kernel launches for {gpu['sched'].batches} batches")
+    cpu = _run(basic, "cpu")
+    _check_same(basic.name, gpu, cpu, "the cpu run")
+    print(f"{basic.name}: kernel launches {launches} (one per batch), placements == cpu run")
+    _report(basic.name, gpu)
+    return {"launches": launches, "workload": basic, "gpu": gpu, "cpu": cpu}
+
+
+# ---------------------------------------------------------------- topology phase
+
+
+def _check_topo(name: str, w, gpu: dict, cpu: dict, init_mode: str, meas_mode: str) -> None:
+    _check_placed(name, w, gpu)
     modes, k = gpu["modes"], gpu["init_batches"]
     if set(modes[:k]) != {init_mode} or set(modes[k:]) != {meas_mode}:
         raise AssertionError(f"{name}: batch modes {modes}")
@@ -401,28 +485,7 @@ def _check_topo(name: str, w, gpu: dict, cpu: dict, init_mode: str, meas_mode: s
                              f"{watch.fused_launches}")
     if watch.profile is None:
         raise AssertionError(f"{name}: no topology batch was profiled")
-    if cpu["placed"] != placed:
-        diff = sum(cpu["placed"][key] != v for key, v in placed.items())
-        raise AssertionError(f"{name}: {diff} placements differ between cuda and cpu")
-    if cpu["modes"] != modes:
-        raise AssertionError(f"{name}: cpu modes {cpu['modes']} != cuda modes {modes}")
-
-
-def _report_topo(name: str, gpu: dict) -> None:
-    ms = [t for t, _ in gpu["per_batch"]]
-    pods = sum(n for _, n in gpu["per_batch"])
-    prof = gpu["watch"].profile
-    print(f"{name} on cuda: {len(gpu['placed'])} pods placed in {len(gpu['modes'])} batches "
-          f"(modes: init {gpu['modes'][0]}, measured {gpu['modes'][-1]}), fused-kernel launches "
-          f"by mode {gpu['watch'].fused_launches}, placements == cpu run, no host sync in the "
-          f"topology batches' device calls; measured phase {pods / (sum(ms) / 1e3):.1f} pods/s, "
-          f"median {statistics.median(ms):.2f} ms per batch (min {min(ms):.2f}, max "
-          f"{max(ms):.2f}; {len(ms)} batches of up to {P}, the profiled one left out); host ms "
-          f"per measured batch by stage: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in gpu["stage_ms"].items()))
-    print(f"{name} topology batch under torch.profiler: {prof['kernels']} CUDA kernels "
-          f"({prof['kernels'] / P:.1f} per pod), {prof['launch_calls']} kernel-launch calls, "
-          f"device busy {prof['device_ms']:.2f} ms of {prof['wall_ms']:.2f} ms wall")
+    _check_same(name, gpu, cpu, "the cpu run")
 
 
 def topology_phase() -> dict:
@@ -438,32 +501,134 @@ def topology_phase() -> dict:
           f"the table at {int((plain_card != on_card).sum())}")
 
     out = {}
-    anti = workloads.scheduling_pod_anti_affinity()
-    gpu = _topo_run(anti, "cuda", profile_at=10)
-    cpu = _topo_run(anti, "cpu")
-    _check_topo(anti.name, anti, gpu, cpu, "host", "host")
-    nodes = [v for v in gpu["placed"].values()]
-    if len(set(nodes)) != len(nodes):
-        raise AssertionError(f"{anti.name}: {len(nodes) - len(set(nodes))} pods share a node")
-    _report_topo(anti.name, gpu)
-    out[anti.name] = gpu
+    with _spec_flag("0"):  # the scan; the spec phase runs the rounds
+        anti = workloads.scheduling_pod_anti_affinity()
+        gpu = _run(anti, "cuda", profile_at=10)
+        cpu = _run(anti, "cpu")
+        _check_topo(anti.name, anti, gpu, cpu, "host", "host")
+        nodes = [v for v in gpu["placed"].values()]
+        if len(set(nodes)) != len(nodes):
+            raise AssertionError(f"{anti.name}: {len(nodes) - len(set(nodes))} pods share a node")
+        print(f"{anti.name}: placements == cpu run, no host sync in the scan batches' "
+              f"device calls")
+        _report(anti.name, gpu)
+        out[anti.name] = {"workload": anti, "gpu": gpu, "cpu": cpu}
 
-    spread = workloads.topology_spreading()
-    gpu = _topo_run(spread, "cuda", profile_at=spread.init_pods // P + 2)
-    cpu = _topo_run(spread, "cpu")
-    _check_topo(spread.name, spread, gpu, cpu, "off", "general")
-    zone_of = {ni.node.meta.name: ni.node.meta.labels["topology.kubernetes.io/zone"]
-               for ni in gpu["sched"].snapshot.node_info_map.values()}
-    per_zone = {}
-    for key, node in gpu["placed"].items():
-        if key.startswith("default/spread-"):
-            per_zone[zone_of[node]] = per_zone.get(zone_of[node], 0) + 1
-    if len(per_zone) != 10 or max(per_zone.values()) - min(per_zone.values()) > 1:
-        raise AssertionError(f"{spread.name}: spread pods per zone {per_zone}")
-    print(f"{spread.name}: measured pods per zone {sorted(per_zone.values())}")
-    _report_topo(spread.name, gpu)
-    out[spread.name] = gpu
+        spread = workloads.topology_spreading()
+        gpu = _run(spread, "cuda", profile_at=spread.init_pods // P + 2)
+        cpu = _run(spread, "cpu")
+        _check_topo(spread.name, spread, gpu, cpu, "off", "general")
+        zone_of = {ni.node.meta.name: ni.node.meta.labels["topology.kubernetes.io/zone"]
+                   for ni in gpu["sched"].snapshot.node_info_map.values()}
+        per_zone = {}
+        for key, node in gpu["placed"].items():
+            if key.startswith("default/spread-"):
+                per_zone[zone_of[node]] = per_zone.get(zone_of[node], 0) + 1
+        if len(per_zone) != 10 or max(per_zone.values()) - min(per_zone.values()) > 1:
+            raise AssertionError(f"{spread.name}: spread pods per zone {per_zone}")
+        print(f"{spread.name}: measured pods per zone {sorted(per_zone.values())}; "
+              f"placements == cpu run, no host sync in the scan batches' device calls")
+        _report(spread.name, gpu)
+        out[spread.name] = {"workload": spread, "gpu": gpu, "cpu": cpu}
     return out
+
+
+# ---------------------------------------------------------------- spec phase
+
+
+def _compare_results(name: str, got, want) -> None:
+    """Every field of two BatchResults equal, floats by bit pattern."""
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        pairs = ([(f"{f.name}.{k}", a[k], b[k]) for k in sorted(a)] if isinstance(a, dict)
+                 else [(f.name, a, b)])
+        for label, x, y in pairs:
+            if (x is None) != (y is None):
+                raise AssertionError(f"{name}: {label} is None on one device only")
+            if x is None:
+                continue
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"{name}: spec {label} differs between cuda and cpu")
+
+
+def _ab(cap: dict, reps: int) -> dict:
+    """The rounds and the path they replace on one captured batch's inputs,
+    on the card, in turns (other, spec, spec, other) ``reps`` times: median
+    ms from the call to the end of the packed block's host read."""
+    args = _host_copy(cap["args"], "cuda")
+    kw = {**_host_copy(cap["kw"], "cuda"), "device": "cuda"}
+    times = {True: [], False: []}
+    for _ in range(reps):
+        for spec in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = batch.schedule_batch(*args, **{**kw, "spec_decode": spec})
+            res.packed.cpu()
+            times[spec].append((time.perf_counter() - t0) * 1e3)
+    return {"spec": statistics.median(times[True]), "other": statistics.median(times[False])}
+
+
+def spec_phase(basic: dict, topo: dict) -> dict:
+    """Every batch of the three workloads forced to the speculative rounds
+    on the card, against the earlier phases' runs of the fused kernel and
+    the scan (cuda) and of the plain versions (cpu)."""
+    rows = {}
+    with _spec_flag("1"):
+        for prev in (basic, *topo.values()):
+            w = prev["workload"]
+            profile_at = w.init_pods // P + 2
+            gpu = _run(w, "cuda", profile_at=profile_at, capture_at=profile_at + 1)
+            _check_placed(w.name, w, gpu)
+            if set(gpu["paths"]) != {"spec"} or any(gpu["watch"].fused_launches.values()):
+                raise AssertionError(f"{w.name}: paths {set(gpu['paths'])}, fused launches "
+                                     f"{gpu['watch'].fused_launches} with the rounds forced")
+            _check_same(w.name, gpu, prev["cpu"], "the cpu run")
+            _check_same(w.name, gpu, prev["gpu"], "the cuda run of the kernel or the scan")
+            counted = gpu["watch"].spec
+            bad = [(c, r, n) for c, r, n in counted if n != r or r < 1]
+            if bad or len(counted) != len(gpu["modes"]) - 1:
+                raise AssertionError(f"{w.name}: host reads != rounds in (call, rounds, reads) "
+                                     f"{bad[:5]} of {len(counted)} counted batches")
+            cap = gpu["watch"].captured
+            want = batch.schedule_batch(*cap["args"], **{**cap["kw"], "device": "cpu"})
+            _compare_results(w.name, cap["result"], want)
+            rounds = [r for c, r, _ in counted if c >= gpu["init_batches"]]
+            prof = gpu["watch"].profile
+            old = prev["gpu"]
+            print(f"{w.name} spec rounds on cuda: placements == cpu run and == the cuda run of "
+                  f"{sorted(set(old['paths']))}; host reads == rounds in all {len(counted)} "
+                  f"counted batches; batch {profile_at + 1} ({gpu['modes'][profile_at + 1]}): "
+                  f"spec BatchResult cuda == cpu on every field")
+            _report(w.name, gpu)
+            print(f"{w.name} measured batches: rounds per batch median "
+                  f"{statistics.median(rounds)} (min {min(rounds)}, max {max(rounds)}, mean "
+                  f"{statistics.mean(rounds):.2f}); host reads per batch = rounds; profiled batch: "
+                  f"{prof['rounds']} rounds, {prof['kernels']} CUDA kernels, "
+                  f"{prof['kernels'] / max(prof['rounds'], 1):.1f} per round, device busy "
+                  f"{prof['device_ms']:.2f} ms. Replaced path {sorted(set(old['paths'][-1:]))}: "
+                  f"{old['pods_per_s']:.1f} pods/s, median {old['median_ms']:.2f} ms per batch, "
+                  f"{old['watch'].profile['kernels']} CUDA kernels and device busy "
+                  f"{old['watch'].profile['device_ms']:.2f} ms in its profiled batch")
+            ab = _ab(cap, 3 if gpu["modes"][-1] == "off" else 1)
+            rows[w.name] = {"mode": gpu["modes"][-1], "other": old["paths"][-1], "ab": ab,
+                            "e2e": {"spec": gpu["median_ms"], "other": old["median_ms"]}}
+    print("KTPU_SPEC=auto on cuda against this run: the commit paths in turns on one measured "
+          "batch (ms from the call to the packed block on the host), and the median ms per "
+          "measured batch end to end:")
+    for name, r in rows.items():
+        ab, e2e, other = r["ab"], r["e2e"], r["other"]
+        faster = ab["spec"] < ab["other"]
+        table = batch.SPEC_AUTO_CUDA[r["mode"]]
+        ratio = max(ab.values()) / min(ab.values())
+        print(f"  mode {r['mode']} ({name}): in turns spec {ab['spec']:.2f} ms, {other} "
+              f"{ab['other']:.2f} ms, faster: {'spec' if faster else other} by {ratio:.2f}x; "
+              f"end to end spec {e2e['spec']:.2f} ms, {other} {e2e['other']:.2f} ms; "
+              f"SPEC_AUTO_CUDA takes {'spec' if table else other}")
+        if table != faster and ratio > 1.5:
+            raise AssertionError(f"SPEC_AUTO_CUDA[{r['mode']!r}] takes the slower path")
+    return rows
 
 
 def main() -> int:
@@ -479,9 +644,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("ptxas:", line.strip())
     device = torch.device("cuda")
-    kern = kernel_phase(device)
-    sl = slice_phase()
-    topology_phase()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    kern = timed("kernel", kernel_phase, device)
+    sl = timed("slice", slice_phase)
+    topo = timed("topology", topology_phase)
+    timed("spec", spec_phase, sl, topo)
+    print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)

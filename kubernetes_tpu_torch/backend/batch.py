@@ -1,21 +1,24 @@
 """The batched scheduling step: one call schedules a pod batch against the
 node mirror (PyTorch counterpart of ``kubernetes_tpu/backend/batch.py``,
-without sampling, speculative decode, sharding or DRA/volume/slice/quota
-inputs).
+without sampling, sharding or DRA/volume/slice/quota inputs).
 
   1. STATIC phase (once per batch): the selector VM, the static filter masks
      and the raw scores that no intra-batch commit can change (labels,
      taints, affinity, images), the static first-fail table and the seeded
      tie-break jitter.
-  2. COMMIT phase, in queue order, by topology mode:
-     * ``off`` (no spread constraint, no inter-pod term, no registered
-       count row): the fused per-pod step (ops/fused_step.py), one launch of
-       the hand-written kernel per batch on CUDA tensors;
-     * ``host`` and ``general``: the per-pod scan ``_topology_scan``, the
-       XLA scan ``step`` written as a Python loop over pods on device
+  2. COMMIT phase, with the scan's sequential semantics, on one of three
+     paths (``spec_decode_eligible`` picks one per batch):
+     * topology mode ``off`` (no spread constraint, no inter-pod term, no
+       registered count row): the fused per-pod step (ops/fused_step.py),
+       one launch of the hand-written kernel per batch on CUDA tensors;
+     * modes ``host`` and ``general``: the per-pod scan ``_topology_scan``,
+       the XLA scan ``step`` written as a Python loop over pods on device
        tensors. It adds PodTopologySpread and InterPodAffinity
        (ops/topology.py) to the fit, ports, scores, winner and commit, and
-       carries the topology count tables.
+       carries the topology count tables;
+     * any mode: the speculative rounds ``_speculative_core``, a few
+       vectorized decide/repair rounds over all the batch's pods, each
+       ending in one host read of the loop's condition.
   3. The priority-class table (and, after the scan, the full nonzero
      request table) is advanced by the batch's commits in one post-scan
      scatter, and the winners plus the first-fail table are packed into one
@@ -25,6 +28,7 @@ inputs).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -278,22 +282,451 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
         final_sel_counts=sel, final_seg_exist=seg_exist)
 
 
+def _whole_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for operands that hold whole numbers, in float64: exact in
+    any summation order while the partial sums stay below 2**53 (counts
+    and weights here are far below). cuBLAS has no int32 GEMM, and a float32
+    GEMM would depend on the process-wide TF32 setting. The caller casts
+    the result back to the JAX program's dtype."""
+    return a.to(torch.float64) @ b.to(torch.float64)
+
+
+def _by_node(n: int, choice: torch.Tensor, rows: torch.Tensor,
+             take: torch.Tensor) -> torch.Tensor:
+    """[N, K]: row p of ``rows`` ([P, K]) at node ``choice[p]`` for every pod
+    with ``take[p]``, zero elsewhere. The taken pods' picks are distinct
+    nodes, so each node receives at most one row: the JAX code's one-hot
+    sum, and for uint32 port bits (held in int32) their bitwise or. An int
+    ``index_add_``, so the same on every device and in any order."""
+    out = torch.zeros((n, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    return out.index_add_(0, choice, torch.where(take[:, None], rows, 0))
+
+
+# rounds of the speculative decode run on any device; each reads one flag on
+# the host. Counted like fused_step.LAUNCHES, for chip_smoke.py and the tests.
+ROUNDS = 0
+
+
+def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], static,
+                      pod_bits: torch.Tensor, sel0=None, seg0=None, host=None, gen=None,
+                      ports_enabled: bool = True) -> BatchResult:
+    """Speculative decode, single device (the JAX package's
+    ``backend/batch.py:_speculative_core``): a few vectorized decide/repair
+    rounds over all the batch's pods in place of the P dependent steps, with
+    the scan's sequential semantics exactly.
+
+    Each round every unplaced pod scores every node against the current
+    state and picks its argmax; the lowest pod index per chosen node wins
+    it. A winner is stable when its argmax is unmoved in its SEQUENTIAL
+    view: the round-start state with the commits of lower-index winners
+    mixed in on their nodes (the "rival" nodes; picks are distinct, so each
+    carries one delta), normalized again per pod. The round finalizes only
+    the prefix of pods before the first active pod that is neither a stable
+    winner nor a failing pod before the round's first winner, so every
+    finalized pod saw exactly the commits of the pods before it.
+
+    ``host`` (the hostname topology mode) mixes the node-local [S, N] and
+    [T, N] count tables the same way: keys tb (the TopoBatch field dict),
+    hostkey_ok [N], affinity_ok [P, N]. ``gen`` (the general mode) mixes
+    the [S, N] table and re-sums each pod's domains from it; its [T, Vd]
+    per-domain term table cannot be mixed, so a winner that an earlier
+    winner's term commit could touch waits for the next round: keys tb,
+    affinity_ok, vd, dom_t [T, N]. Without either the batch is mode
+    ``off``. ``ports_enabled`` False skips the [P, N, W] port conflict (no
+    pod of the batch wants a host port).
+
+    The loop's condition is a device value: the host reads it once per
+    round (``ROUNDS`` counts the rounds), and the batch reads the device
+    nowhere else. The first round runs before the first read; on a batch
+    with no valid pod it changes nothing and is not counted, so such a
+    batch runs zero rounds, as the JAX ``while_loop`` does. The loop stops
+    after a round that finalizes no pod, as there."""
+    global ROUNDS
+    (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
+     jitter) = static
+    P, N = pb.capacity, nt.capacity
+    device = nt.valid.device
+    alloc2 = nt.allocatable[:, :2].to(torch.float32)
+    iota_p = torch.arange(P, dtype=torch.int64, device=device)
+    iota_n = torch.arange(N, dtype=torch.int32, device=device)
+    is_nom = (iota_n[None, :] == pb.nominated[:, None]).to(torch.float32)   # [P, N]
+    w = {k: float(np.float32(v)) for k, v in weights.items()}
+    req_gate = torch.where(pb.req == 0, -(2 ** 30), pb.req)  # `req == 0 always fits`
+    valid_n = nt.valid
+    topo_on = host is not None or gen is not None
+    # Everything a round reads that no commit can change (node labels, the
+    # pods' programs) is built once here; each round then gathers the count
+    # rows once and shares them, and the existing-term contractions, between
+    # its round-start and its mixed view.
+    if topo_on:
+        spec = host if host is not None else gen
+        tbx, affinity_ok = spec["tb"], spec["affinity_ok"]
+        sig_mask = tbx["pod_sig_mask"].to(torch.int32)                     # [P, S]
+        term_mask = tbx["pod_term_mask"].to(torch.int32)                   # [P, T]
+        m_filter = tbx["term_filter_match"]                                # [P, T]
+        tsw = tbx["term_score_w"]                                          # [P, T] f32
+        vd = gen["vd"] if gen is not None else 0
+        log_tbl = topology.size_log_table(max(N, vd) + 1, device)
+        kinds = ("sf", "ia", "ianti", "ss", "ip")
+        rows = {k: tbx[f"{k}_sig"].reshape(-1).long() for k in kinds}
+
+        def v3(name):
+            return tbx[name][:, :, None]
+
+        def gather_rows(table):
+            """{kind: [P, C, N] rows of an [S, N] count table}."""
+            return {k: table.index_select(0, r).view(P, -1, N) for k, r in rows.items()}
+
+        sf_valid, sf_self, sf_skew = v3("sf_valid"), v3("sf_self").to(torch.int32), v3("sf_skew")
+        min_dom = tbx["sf_min_domains"]
+        ia_valid = v3("ia_valid")
+        no_ia = ~torch.any(tbx["ia_valid"], dim=1)[:, None]
+        ss_skew1 = v3("ss_skew").to(torch.float32) - 1.0
+        ss_has_cons = torch.any(tbx["ss_valid"], dim=1)[:, None]
+        ip_w = v3("ip_w").to(torch.float32)
+    if host is not None:
+        hostkey_ok = host["hostkey_ok"]
+        hk_i = hostkey_ok.to(torch.int32)[None, :]
+        hk3 = hostkey_ok[None, None, :]
+        elig_sf = valid_n[None, :] & affinity_ok & hostkey_ok[None, :]   # & active
+        all_keys = torch.all(torch.where(ia_valid, hk3, True), dim=1)
+        ia_total_mask = ia_valid & valid_n[None, None, :] & hk3
+        anti_mask = v3("ianti_valid") & hk3
+        ignored = tbx["ss_require_all"][:, None] & ~hostkey_ok[None, :]   # [P, N]
+        ss_mask = v3("ss_valid") & hk3
+        ip_mask = v3("ip_valid") & hk3
+    if gen is not None:
+        dom_t = gen["dom_t"]                                               # [T, N] int64
+        label_val_t = nt.label_val.t().contiguous()                        # [L, N]
+        # [P, C, N] int64 domain id of every node under each program's key
+        dom = {k: label_val_t.index_select(0, tbx[f"{k}_key"].reshape(-1).long()).view(
+            P, -1, N).long() for k in kinds}
+        has = {k: d > 0 for k, d in dom.items()}
+        has_all_sf = torch.all(torch.where(sf_valid, has["sf"], True), dim=1)
+        elig_sf = valid_n[None, :] & affinity_ok & has_all_sf               # & active
+        all_keys = torch.all(torch.where(ia_valid, has["ia"], True), dim=1)
+        valid3 = valid_n[None, None, :]
+        ia_add, an_add, ip_add = (valid3 & has[k] for k in ("ia", "ianti", "ip"))
+        anti_mask = v3("ianti_valid") & has["ianti"]
+        has_all_ss = torch.all(torch.where(v3("ss_valid"), has["ss"], True), dim=1)
+        require_all = tbx["ss_require_all"][:, None]
+        ignored = require_all & ~has_all_ss                                  # [P, N]
+        ss_add = (valid_n[None, :] & affinity_ok
+                  & torch.where(require_all, has_all_ss, True))[:, None, :] & has["ss"]
+        ss_mask = v3("ss_valid") & has["ss"]
+        ss_host = v3("ss_hostname")
+        ip_mask = v3("ip_valid") & has["ip"]
+        abs_tsw = torch.abs(tsw)
+        j_lt_i = iota_p[None, :] < iota_p[:, None]
+
+        def seg_at(values, k):
+            """Per-pod domain sums [P, C, Vd] of ``values`` under kind k's keys,
+            and each node's own domain's sum [P, C, N]."""
+            seg = topology._seg_sum(values, dom[k], vd)
+            return seg, torch.gather(seg, 2, dom[k])
+
+    def spread_score(cnt, w_log, mask, base_mask):
+        """The rounded raw spread score [P, N] from float counts [P, C, N],
+        normalized per pod (the constraint axis summed in XLA's order)."""
+        contrib = torch.where(mask, cnt * w_log + ss_skew1, 0.0)
+        raw = torch.floor(topology._fold_sum(contrib, dim=1) + 0.5)
+        return topology._spread_normalize(raw, base_mask, ignored, ss_has_cons, dim=1)
+
+    def eval_host(cnt, viol, active):
+        """Host mode: spread and inter-pod affinity filters [P, N] from a view's
+        counts ({kind: [P, C, N]}) and existing-term violations ``viol``."""
+        elig = elig_sf & active[:, None]   # `active` only masks finalized pods
+        minm = torch.amin(torch.where(elig[:, None, :], cnt["sf"], topology.INT_MAX), dim=2)
+        ndom = torch.sum(elig, dim=1, dtype=torch.int32)                         # [P]
+        minm = torch.where((ndom > 0)[:, None], minm, 0)
+        minm = torch.where((min_dom >= 0) & (ndom[:, None] < min_dom), 0, minm)
+        ok_c = hk3 & (cnt["sf"] + sf_self - minm[:, :, None] <= sf_skew)
+        spread_ok = torch.all(torch.where(sf_valid, ok_c, True), dim=1)
+        pods_exist = torch.all(torch.where(ia_valid, hk3 & (cnt["ia"] > 0), True), dim=1)
+        total = torch.sum(torch.where(ia_total_mask, cnt["ia"], 0), dim=(1, 2),
+                          dtype=torch.int32)                                     # [P]
+        first_ok = (total == 0) & tbx["ia_self_all"]
+        aff_ok = no_ia | (all_keys & (pods_exist | first_ok[:, None]))
+        anti_ok = ~torch.any(anti_mask & (cnt["ianti"] > 0), dim=1)
+        return spread_ok, aff_ok & anti_ok & (viol == 0)
+
+    def scores_host(cnt, sym, feasible):
+        """Host mode: spread and inter-pod affinity scores [P, N], normalized
+        per pod over its feasible set."""
+        base_mask = feasible & ~ignored
+        w_log = log_tbl.index_select(0, torch.sum(base_mask, dim=1))[:, None, None]
+        spread = spread_score(cnt["ss"].to(torch.float32), w_log, ss_mask, base_mask)
+        pref = torch.sum(torch.where(ip_mask, ip_w * cnt["ip"].to(torch.float32), 0.0), dim=1)
+        return spread, topology._ipa_normalize(pref + sym, feasible, dim=1)
+
+    def eval_gen(cnt, viol, active):
+        """General mode: the filters [P, N], every count-derived quantity
+        summed again per pod over its domains from the view's counts."""
+        elig = elig_sf & active[:, None]
+        seg, cnt_at = seg_at(torch.where(elig[:, None, :] & has["sf"], cnt["sf"], 0), "sf")
+        pres = topology._seg_sum(elig[:, None, :].expand(dom["sf"].shape), dom["sf"], vd) > 0
+        minm = torch.amin(torch.where(pres, seg, topology.INT_MAX), dim=2)        # [P, C]
+        minm = torch.where(torch.any(pres, dim=2), minm, 0)
+        ndom = torch.sum(pres, dim=2, dtype=torch.int32)
+        minm = torch.where((min_dom >= 0) & (ndom < min_dom), 0, minm)
+        ok_c = has["sf"] & (cnt_at + sf_self - minm[:, :, None] <= sf_skew)
+        spread_ok = torch.all(torch.where(sf_valid, ok_c, True), dim=1)
+        seg_ia, at_ia = seg_at(torch.where(ia_add, cnt["ia"], 0), "ia")
+        pods_exist = torch.all(torch.where(ia_valid, at_ia > 0, True), dim=1)
+        total = torch.sum(torch.where(ia_valid, seg_ia, 0), dim=(1, 2), dtype=torch.int32)
+        first_ok = (total == 0) & tbx["ia_self_all"]
+        aff_ok = no_ia | (all_keys & (pods_exist | first_ok[:, None]))
+        _, at_an = seg_at(torch.where(an_add, cnt["ianti"], 0), "ianti")
+        anti_ok = ~torch.any(anti_mask & (at_an > 0), dim=1)
+        return spread_ok, aff_ok & anti_ok & (viol == 0)
+
+    def scores_gen(cnt, sym, feasible):
+        """General mode: the scores [P, N]."""
+        base_mask = feasible & ~ignored
+        pres = topology._seg_sum(base_mask[:, None, :].expand(dom["ss"].shape), dom["ss"], vd) > 0
+        sz = torch.where(tbx["ss_hostname"], torch.sum(base_mask, dim=1)[:, None],
+                         torch.sum(pres, dim=2))                                  # [P, C]
+        w_log = log_tbl.index_select(0, sz.reshape(-1)).view(sz.shape)[:, :, None]
+        _, at_ss = seg_at(torch.where(ss_add, cnt["ss"], 0), "ss")
+        spread = spread_score(torch.where(ss_host, cnt["ss"], at_ss).to(torch.float32), w_log,
+                              ss_mask, base_mask)
+        _, at_ip = seg_at(torch.where(ip_add, cnt["ip"], 0), "ip")
+        pref = torch.sum(torch.where(ip_mask, ip_w * at_ip.to(torch.float32), 0.0), dim=1)
+        return spread, topology._ipa_normalize(pref + sym, feasible, dim=1)
+
+    if host is not None:
+        t_eval, t_scores = eval_host, scores_host
+    elif gen is not None:
+        t_eval, t_scores = eval_gen, scores_gen
+
+    def components(req_dyn, nz_dyn, port_dyn):
+        """State-dependent per-(pod, node) pieces: fit, ports, LeastAllocated
+        and BalancedAllocation, [P, N] each."""
+        free = nt.allocatable - req_dyn                                          # [N, R]
+        fit = torch.all(free[None, :, :] >= req_gate[:, None, :], dim=2)
+        if ports_enabled:
+            ports = ~torch.any((port_dyn[None, :, :] & pod_bits[:, None, :]) != 0, dim=2)
+        else:
+            ports = torch.ones_like(fit)
+        nz = (nz_dyn[None, :, :2].to(torch.float32)
+              + pb.nonzero_req[:, None, :2].to(torch.float32))                   # [P, N, 2]
+        least_alloc, balanced = _resource_scores(alloc2[None, :, :], nz)
+        return fit, ports, least_alloc, balanced
+
+    def assemble(fit, ports, least_alloc, balanced, active, view=None):
+        """(eff with jitter and the nominated bonus, feasible, total,
+        spread_ok, ipa_ok), each [P, N]: the scores normalized per pod over
+        its feasible set, in the scan step's order. ``view`` (topology
+        modes): (counts {kind: [P, C, N]}, existing-term violations [P, N],
+        symmetric existing-term score [P, N]) as one view sees them."""
+        feasible = static_ok & fit & ports & active[:, None]
+        spread_ok = ipa_ok = None
+        if topo_on:
+            cnt, viol, sym = view
+            spread_ok, ipa_ok = t_eval(cnt, viol, active)
+            feasible = feasible & spread_ok & ipa_ok
+        total = (w["NodeResourcesFit"] * least_alloc
+                 + w["NodeResourcesBalancedAllocation"] * balanced
+                 + w["TaintToleration"] * _normalize(taint_raw, feasible, True, dim=1)
+                 + w["NodeAffinity"] * _normalize(affinity_raw, feasible, False, dim=1)
+                 + w["ImageLocality"] * image_score)
+        if topo_on:
+            spread, ipa = t_scores(cnt, sym, feasible)
+            total = total + w["PodTopologySpread"] * spread + w["InterPodAffinity"] * ipa
+        eff = torch.where(feasible, total + jitter + is_nom * NOMINATED_BONUS, NEG_INF)
+        return eff, feasible, total, spread_ok, ipa_ok
+
+    def pick(rows, col):
+        """rows[p, col[p]] for every pod."""
+        return torch.gather(rows, 1, col[:, None])[:, 0]
+
+    req_dyn, nz_dyn, port_dyn = nt.requested, nt.nonzero_requested, nt.port_bits
+    sel_dyn, term_dyn = sel0, seg0
+    done = ~pb.valid
+    out_idx = torch.full((P,), -1, dtype=torch.int32, device=device)
+    best = torch.zeros((P,), dtype=torch.float32, device=device)
+    anyf_out = torch.zeros((P,), dtype=torch.bool, device=device)
+    fit_out = ports_out = spread_out = ipa_out = torch.ones((P, N), dtype=torch.bool,
+                                                            device=device)
+    ff_out = static_ff
+    any_valid = torch.any(pb.valid)
+    first = True
+    while True:
+        active = ~done & pb.valid
+        fit, ports, la, bal = components(req_dyn, nz_dyn, port_dyn)
+        view = None
+        if host is not None:
+            cnt0 = gather_rows(sel_dyn)
+            term_hk = term_dyn * hk_i
+            view = (cnt0, _whole_matmul(m_filter, term_hk),
+                    _whole_matmul(tsw, term_hk).to(torch.float32))
+        elif gen is not None:
+            # the existing-term checks read the round-start [T, Vd] table in
+            # both views (the deferral below covers what they cannot see)
+            cnt0 = gather_rows(sel_dyn)
+            exist_at = torch.where(dom_t > 0, torch.gather(term_dyn, 1, dom_t), 0)  # [T, N]
+            view = (cnt0, _whole_matmul(m_filter, exist_at),
+                    _whole_matmul(tsw, exist_at).to(torch.float32))
+        eff, feasible, _total, _sp, _ip = assemble(fit, ports, la, bal, active, view)
+        any_f = torch.any(feasible, dim=1)
+        choice = torch.argmax(eff, dim=1)            # first maximum; 0 on an all-NEG_INF row
+        failing = active & ~any_f
+
+        # tentative winners: the lowest pod index per chosen node
+        contender = active & any_f
+        win = torch.full((N,), P, dtype=torch.int64, device=device).scatter_reduce_(
+            0, choice, torch.where(contender, iota_p, P), "amin", include_self=True)
+        accepted = contender & (torch.gather(win, 0, choice) == iota_p)
+
+        # each winner's sequential view: the commits of lower-index winners
+        # on their nodes (rivals), round-start state elsewhere
+        d_req = _by_node(N, choice, pb.req, accepted)
+        d_nz = _by_node(N, choice, pb.nonzero_req, accepted)
+        port_mixed = port_dyn
+        if ports_enabled:
+            port_mixed = port_dyn | _by_node(N, choice, pod_bits, accepted)
+        fit2, ports2, la2, bal2 = components(req_dyn + d_req, nz_dyn + d_nz, port_mixed)
+        # node n is a rival of pod p when a winner j < p committed there
+        # (win[n] < P exactly on the nodes some winner took)
+        rival = win[None, :] < iota_p[:, None]                                   # [P, N]
+        view_mix = None
+        if topo_on:
+            # the winners' count columns on their nodes, on each pod's rivals
+            rival_i = rival.to(torch.int32)
+            d_cnt = gather_rows(_by_node(N, choice, sig_mask, accepted).t())     # [S, N] rows
+            cnt_mix = {k: cnt0[k] + d_cnt[k] * rival_i[:, None, :] for k in kinds}
+            _, viol, sym = view
+            if host is not None:
+                cterm_hk = _by_node(N, choice, term_mask, accepted).t() * hk_i   # [T, N]
+                viol = viol + _whole_matmul(m_filter, cterm_hk) * rival_i
+                sym = sym + _whole_matmul(tsw, cterm_hk).to(torch.float32) * rival_i
+            view_mix = (cnt_mix, viol, sym)
+        fit_mix = torch.where(rival, fit2, fit)
+        ports_mix = torch.where(rival, ports2, ports)
+        eff_mix, feas_mix, tot_mix, sp_mix, ip_mix = assemble(
+            fit_mix, ports_mix, torch.where(rival, la2, la), torch.where(rival, bal2, bal),
+            active, view_mix)
+        choice_mix = torch.argmax(eff_mix, dim=1)
+        # an infeasible-in-mix winner defers: argmax over an all-NEG_INF row
+        # is 0, which would read as stable for a pod whose choice was slot 0
+        unstable = accepted & ((choice_mix != choice) | ~pick(feas_mix, choice))
+        if gen is not None:
+            # a winner whose view an earlier winner's term commit could touch
+            # waits a round: add_term[t, j] = accepted j adds term t at a keyed
+            # domain; interaction = pod i's anti match or symmetric weight on t
+            dcol = torch.gather(dom_t, 1, choice[None, :].expand(dom_t.shape[0], P))  # [T, P]
+            add_term = term_mask.t() * (dcol > 0) * accepted[None, :]            # [T, P]
+            interacts = (_whole_matmul(m_filter, add_term) > 0) | (
+                _whole_matmul(abs_tsw, add_term) > 0)                             # [P(i), P(j)]
+            unstable = unstable | (accepted & torch.any(interacts & j_lt_i, dim=1))
+        # decision-time rows: the mixed values are each pod's sequential view
+        ff_mix = static_ff
+        for fid, ok in ((5, ports_mix), (6, fit_mix), (SPREAD_FAIL_ID, sp_mix),
+                        (IPA_FAIL_ID, ip_mix)):
+            if ok is not None:
+                ff_mix = torch.where((ff_mix == 0) & ~ok, fid, ff_mix)
+
+        # strict prefix: a failing pod finalizes only before the round's
+        # first winner, and the cut lands at the first active pod that
+        # cannot finalize
+        a_min = torch.amin(torch.where(accepted, iota_p, P))
+        failing = failing & (iota_p < a_min)
+        blocked = active & ~(failing | (accepted & ~unstable))
+        in_prefix = iota_p < torch.amin(torch.where(blocked, iota_p, P))
+        failing = failing & in_prefix
+        accepted = accepted & ~unstable & in_prefix
+
+        # apply the finalized prefix
+        req_dyn = req_dyn + _by_node(N, choice, pb.req, accepted)
+        nz_dyn = nz_dyn + _by_node(N, choice, pb.nonzero_req, accepted)
+        if ports_enabled:
+            port_dyn = port_dyn | _by_node(N, choice, pod_bits, accepted)
+        if topo_on:
+            sel_dyn = sel_dyn + _by_node(N, choice, sig_mask, accepted).t()
+        if host is not None:
+            term_dyn = term_dyn + _by_node(N, choice, term_mask, accepted).t()
+        elif gen is not None:
+            # each finalized pod's terms land at its node's domains (the
+            # deferral block's dcol: the same picks)
+            t_rows = torch.arange(dom_t.shape[0], device=device)[:, None] * vd
+            add_f = term_mask.t() * (dcol > 0) * accepted[None, :]               # [T, P]
+            term_dyn = term_dyn.flatten().scatter_add(
+                0, (t_rows + dcol).flatten(), add_f.flatten()).view(term_dyn.shape)
+        final = accepted | failing
+        out_idx = torch.where(accepted, choice.to(torch.int32), out_idx)
+        best = torch.where(final, pick(tot_mix, choice), best)
+        anyf_out = torch.where(final, accepted, anyf_out)
+        fit_out = torch.where(final[:, None], fit_mix, fit_out)
+        ports_out = torch.where(final[:, None], ports_mix, ports_out)
+        if topo_on:
+            spread_out = torch.where(final[:, None], sp_mix, spread_out)
+            ipa_out = torch.where(final[:, None], ip_mix, ipa_out)
+        ff_out = torch.where(final[:, None], ff_mix, ff_out)
+        done = done | final
+        more = torch.any(~done & pb.valid) & torch.any(final)
+        if first:
+            # the one host read of the round; the first also says whether
+            # the batch had a valid pod (else this round changed nothing)
+            flags = int((any_valid.to(torch.int32) * 2 + more.to(torch.int32)).item())
+            first = False
+            if flags < 2:
+                break
+            more_h = bool(flags & 1)
+        else:
+            more_h = bool(more.item())
+        ROUNDS += 1
+        if not more_h:
+            break
+
+    f_class, _ = _commit_scatters(nt, pb, out_idx, nonzero=False)
+    return BatchResult(
+        node_idx=out_idx, best_score=best, any_feasible=anyf_out, static_masks=static_masks,
+        fit_ok=fit_out, ports_ok=ports_out, spread_ok=spread_out, ipa_ok=ipa_out,
+        first_fail=ff_out, final_requested=req_dyn, final_nonzero=nz_dyn, final_ports=port_dyn,
+        final_class_req=f_class, final_sel_counts=sel_dyn if topo_on else None,
+        final_seg_exist=term_dyn if topo_on else None)
+
+
 def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                         weights: Dict[str, float], tc: Optional[TopoCounts] = None,
                         tb: Optional[TopoBatch] = None, topo_mode: str = "off",
-                        vd_override: Optional[int] = None, host_key: int = 0) -> BatchResult:
+                        vd_override: Optional[int] = None, host_key: int = 0,
+                        spec_decode: bool = False, ports_enabled: bool = True) -> BatchResult:
     """Static phase, the commit phase of ``topo_mode`` and the post-scan
     scatters. ``weights`` are the plugin weights by name (every key of
     DEFAULT_WEIGHTS). Modes ``host`` and ``general`` need ``tc`` and ``tb``;
     ``host_key`` is the hostname key slot (mode ``host``) and
     ``vd_override`` the domain-axis size (mode ``general``; default: the
-    full value vocab)."""
+    full value vocab). ``spec_decode`` runs the speculative rounds
+    (``_speculative_core``) in place of the fused kernel or the scan;
+    ``ports_enabled`` False tells them that no pod of the batch wants a host
+    port (the JAX names and meanings)."""
     if topo_mode not in TOPO_MODES:
         raise ValueError(f"topo_mode must be one of {TOPO_MODES}, not {topo_mode!r}")
     static = static_phase(pb, et, nt)
+    if topo_mode != "off" and (tc is None or tb is None):
+        raise ValueError(f"topo_mode {topo_mode!r} needs tc and tb")
+    if spec_decode:
+        pod_bits = _pod_port_bits(pb, nt.port_bits.shape[1])
+        tb_fields = None if tb is None else {
+            f.name: getattr(tb, f.name) for f in dataclasses.fields(tb)}
+        affinity_ok = static[0]["NodeAffinity"]
+        if topo_mode == "host":
+            return _speculative_core(
+                pb, nt, weights, static, pod_bits, tc.sel_counts, tc.term_counts,
+                host=dict(tb=tb_fields, hostkey_ok=nt.label_val[:, host_key] > 0,
+                          affinity_ok=affinity_ok), ports_enabled=ports_enabled)
+        if topo_mode == "general":
+            vd = vd_override if vd_override else int(et.bits.shape[1]) * 32
+            static_topo = topology.make_static(tc.term_counts, tc.term_key, nt.label_val,
+                                               nt.valid, vd)
+            return _speculative_core(
+                pb, nt, weights, static, pod_bits, tc.sel_counts, static_topo.seg_exist0,
+                gen=dict(tb=tb_fields, affinity_ok=affinity_ok, vd=vd,
+                         dom_t=static_topo.dom_t), ports_enabled=ports_enabled)
+        return _speculative_core(pb, nt, weights, static, pod_bits,
+                                 ports_enabled=ports_enabled)
     if topo_mode != "off":
-        if tc is None or tb is None:
-            raise ValueError(f"topo_mode {topo_mode!r} needs tc and tb")
         return _topology_scan(pb, et, nt, weights, tc, tb, topo_mode, vd_override,
                               host_key, static)
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
@@ -320,17 +753,41 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                    weights: Optional[Dict[str, float]] = None,
                    device: DeviceLike = None, tc: Optional[TopoCounts] = None,
                    tb: Optional[TopoBatch] = None, topo_mode: str = "off",
-                   vd_override: Optional[int] = None, host_key: int = 0) -> BatchResult:
+                   vd_override: Optional[int] = None, host_key: int = 0,
+                   spec_decode: bool = False, ports_enabled: bool = True) -> BatchResult:
     """Schedule one encoded batch on ``device`` (default: the CUDA card;
     ``device="cpu"`` runs the plain versions). Every input must already lie
-    there. The topology arguments are those of ``schedule_batch_core``.
-    Returns the BatchResult with the packed block filled in."""
+    there. The topology, ``spec_decode`` and ``ports_enabled`` arguments are
+    those of ``schedule_batch_core``. Returns the BatchResult with the packed
+    block filled in."""
     device = resolve_device(device)
     check_on(device, valid=nt.valid, allocatable=nt.allocatable,
              pod_valid=pb.valid, pod_req=pb.req, expr_op=et.op,
              sel_counts=tc.sel_counts if tc is not None else None,
              tb_sf_valid=tb.sf_valid if tb is not None else None)
     res = schedule_batch_core(pb, et, nt, {**DEFAULT_WEIGHTS, **(weights or {})}, tc, tb,
-                              topo_mode, vd_override, host_key)
+                              topo_mode, vd_override, host_key, spec_decode, ports_enabled)
     res.packed = pack_result_block(res.node_idx, res.first_fail)
     return res
+
+
+# The path "auto" takes on CUDA tensors, per topology mode: True = the
+# speculative rounds, False = the fused kernel (mode "off") or the scan.
+# Chosen from the H100 run of chip_smoke.py recorded in PERF.md §6, which
+# times the three paths per workload in one call.
+SPEC_AUTO_CUDA = {"off": False, "host": True, "general": True}
+
+
+def spec_decode_eligible(topo_mode: str, device: DeviceLike) -> bool:
+    """Whether a batch runs the speculative rounds (the JAX package's
+    ``spec_decode_eligible`` for an unsampled batch). ``KTPU_SPEC=0`` forces
+    the fused kernel or the scan, any other value but ``auto`` forces the
+    rounds in every mode. Under ``auto`` (the default) the CPU takes the
+    fused kernel's plain version or the scan, as in the JAX package, and
+    CUDA takes ``SPEC_AUTO_CUDA[topo_mode]``."""
+    flag = os.environ.get("KTPU_SPEC", "auto")
+    if flag == "0":
+        return False
+    if flag == "auto":
+        return torch.device(device).type == "cuda" and SPEC_AUTO_CUDA[topo_mode]
+    return True

@@ -8,8 +8,10 @@ the given NodeInfos as its cache (it binds placed pods into them) and a
 ``DeviceState`` mirror of them; each
 ``schedule`` call places pods in batches of ``caps.pods`` in the given
 order. Pods with topology spread constraints or inter-pod (anti-)affinity
-run the topology scan in one of two modes (``_topo_mode_info``); the rest
-run the fused kernel. Only the features this path implements are accepted:
+run in one of two topology modes (``_topo_mode_info``), the rest in mode
+``off``. Each batch takes one commit path (``batch.spec_decode_eligible``):
+the fused kernel (mode ``off``) or the topology scan, or the speculative
+rounds. Only the features this path implements are accepted:
 a pod with DRA claims, volumes or a gang label raises NotImplementedError
 rather than being placed by a path that would ignore those terms.
 """
@@ -27,7 +29,8 @@ from ..framework.plugins.interpodaffinity import HOSTNAME_KEY, NsLabelsFn
 from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
 from ..utils.device import DeviceLike
-from .batch import DEFAULT_WEIGHTS, schedule_batch, unpack_result_block
+from .batch import (DEFAULT_WEIGHTS, schedule_batch, spec_decode_eligible,
+                    unpack_result_block)
 from .device_state import DeviceState, caps_for_cluster
 
 
@@ -57,6 +60,9 @@ class BatchScheduler:
         self.snapshot = Snapshot(infos)
         self.batches = 0
         self.batch_modes: List[str] = []  # topology mode of each batch, in order
+        # commit path of each batch: "fused" (the kernel), "scan" or "spec"
+        # (the speculative rounds), as ``spec_decode_eligible`` chose it
+        self.batch_paths: List[str] = []
         # host seconds per stage of a batch, summed over batches: sync,
         # encode (pods and topology programs), dispatch (count tables
         # uploaded, static phase and the kernel or the scan enqueued), read (the
@@ -118,7 +124,10 @@ class BatchScheduler:
         t.append(time.perf_counter())
         topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
                                               vd_override=vd, host_key=host_key)
-        res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device, **topo)
+        spec = spec_decode_eligible(mode, self.device)
+        res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device,
+                             spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
+                             **topo)
         t.append(time.perf_counter())
         # the ONE device-to-host read of the batch
         node_idx, _first_fail = unpack_result_block(res.packed, self.caps.nodes)
@@ -143,4 +152,5 @@ class BatchScheduler:
             self.stage_seconds[stage] += b - a
         self.batches += 1
         self.batch_modes.append(mode)
+        self.batch_paths.append("spec" if spec else "fused" if mode == "off" else "scan")
         return placed

@@ -88,9 +88,14 @@ def _resource_scores(alloc2: torch.Tensor, nz_total: torch.Tensor):
     return least_alloc, balanced
 
 
-def _normalize(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """DefaultNormalizeScore of one pod's [N] raw scores over its feasible set."""
-    mx = torch.amax(torch.where(feasible, raw, torch.zeros_like(raw)))
+def _normalize(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool,
+               dim=None) -> torch.Tensor:
+    """DefaultNormalizeScore over the feasible set: of one pod's [N] raw
+    scores, or with ``dim`` of every row of a [P, N] batch (the per-row max
+    of the speculative rounds). One form for the scan and the rounds, whose
+    outputs must match bit for bit."""
+    masked = torch.where(feasible, raw, torch.zeros_like(raw))
+    mx = torch.amax(masked) if dim is None else torch.amax(masked, dim=dim, keepdim=True)
     scaled = torch.floor(raw * 100.0 / torch.clamp_min(mx, 1.0))
     if reverse:
         return torch.where(mx == 0, torch.full_like(scaled, 100.0), 100.0 - scaled)

@@ -5,7 +5,9 @@ Counterpart of ``kubernetes_tpu/ops/topology.py``, without the sharded
 or term's per-domain pod counts are one segment sum of TopoCounts rows over
 ``label_val[:, key]``, and a node's count is one gather back. Every function
 here runs once per pod inside the scan of ``backend/batch.py``, against the
-counts as the batch's earlier pods left them.
+counts as the batch's earlier pods left them; the speculative rounds there
+share ``_seg_sum``, ``_fold_sum`` and the two normalizations in their
+per-pod batched ([P, ...]) form.
 
 How the JAX semantics carry over:
 
@@ -96,9 +98,11 @@ def _domains(label_val: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
 
 
 def _seg_sum(values: torch.Tensor, dom: torch.Tensor, vd: int) -> torch.Tensor:
-    """[C, N] int values summed by domain id (int64 [C, N]) -> [C, Vd] int32."""
-    seg = torch.zeros((dom.shape[0], vd), dtype=_I32, device=dom.device)
-    return seg.scatter_add_(1, dom, values.to(_I32))
+    """Int values summed by domain id over the last axis: [C, N] (or the
+    speculative rounds' per-pod [P, C, N]) with int64 ids of the same shape
+    -> [C, Vd] (or [P, C, Vd]) int32."""
+    seg = torch.zeros((*dom.shape[:-1], vd), dtype=_I32, device=dom.device)
+    return seg.scatter_add_(-1, dom, values.to(_I32))
 
 
 def _seg_counts(sig, key, sel_counts, label_val, elig, vd: int):
@@ -116,11 +120,12 @@ def _seg_counts(sig, key, sel_counts, label_val, elig, vd: int):
     return dom, has_key, seg, torch.gather(seg, 1, dom)
 
 
-def _fold_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over dim 0, left to right: XLA's order for a float reduction."""
-    out = x[0]
-    for i in range(1, x.shape[0]):
-        out = out + x[i]
+def _fold_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum over ``dim``, left to right: XLA's order for a float reduction
+    over the constraint axis ([C, N] in the scan, [P, C, N] in the rounds)."""
+    out = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        out = out + x.select(dim, i)
     return out
 
 
@@ -184,12 +189,20 @@ def ipa_filter(xs, sel_counts, seg_exist, dom_t, label_val, valid, vd: int):
 # ----------------------------------------------------------------- scores
 
 
-def _spread_normalize(raw, base, ignored, has_cons):
-    mx = torch.amax(torch.where(base, raw, float("-inf")))
-    mn = torch.amin(torch.where(base, raw, float("inf")))
+def _row_reduce(fn, x, dim):
+    """``fn`` (torch.amax, amin or any) over the whole tensor, or per row
+    along ``dim`` with the axis kept (the speculative rounds' [P, N] form)."""
+    return fn(x) if dim is None else fn(x, dim=dim, keepdim=True)
+
+
+def _spread_normalize(raw, base, ignored, has_cons, dim=None):
+    """Spread score normalization (scoring.go:232-271) of one pod's [N]
+    scores, or with ``dim`` of every row of a [P, N] batch."""
+    mx = _row_reduce(torch.amax, torch.where(base, raw, float("-inf")), dim)
+    mn = _row_reduce(torch.amin, torch.where(base, raw, float("inf")), dim)
     norm = torch.where(mx == 0, 100.0,
                        torch.floor(100.0 * (mx + mn - raw) / torch.clamp_min(mx, 1.0)))
-    norm = torch.where(ignored | ~torch.any(base), 0.0, norm)
+    norm = torch.where(ignored | ~_row_reduce(torch.any, base, dim), 0.0, norm)
     return torch.where(has_cons, norm, 0.0)
 
 
@@ -221,9 +234,12 @@ def spread_score(xs, sel_counts, label_val, valid, affinity_ok, feasible, vd: in
     return _spread_normalize(raw, base, ignored, torch.any(ss_valid))
 
 
-def _ipa_normalize(raw, feasible):
-    mx = torch.clamp_min(torch.amax(torch.where(feasible, raw, float("-inf"))), 0.0)
-    mn = torch.clamp_max(torch.amin(torch.where(feasible, raw, float("inf"))), 0.0)
+def _ipa_normalize(raw, feasible, dim=None):
+    """IPA score normalization, min and max clamped at 0; ``dim`` as above."""
+    mx = torch.clamp_min(_row_reduce(torch.amax, torch.where(feasible, raw, float("-inf")),
+                                     dim), 0.0)
+    mn = torch.clamp_max(_row_reduce(torch.amin, torch.where(feasible, raw, float("inf")),
+                                     dim), 0.0)
     diff = mx - mn
     return torch.where(diff > 0, torch.floor(100.0 * (raw - mn) / torch.clamp_min(diff, 1.0)), 0.0)
 

@@ -2,23 +2,29 @@
 
     python -m kubernetes_tpu_torch.perf.slice_profile
 
-Runs 1000 init pods, then 1000 measured pods (host time per stage of
-BatchScheduler), then 1000 more under torch.profiler (device time by kernel
-name and the device's busy share of the wall time; the profiler slows the
-host, so that share is a lower bound). Prints one JSON object per part.
+For each commit path of a topology-free batch, the fused kernel
+(``KTPU_SPEC=0``) and the speculative rounds (``KTPU_SPEC=1``): runs 1000
+init pods, then 1000 measured pods (host time per stage of BatchScheduler,
+and for the rounds the rounds per batch), then 1000 more under
+torch.profiler (device time by kernel name and the device's busy share of
+the wall time; the profiler slows the host, so that share is a lower
+bound). Prints one JSON object per part, each naming its path.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 
 import torch
 
+from ..backend import batch
 from ..backend.batch_scheduler import BatchScheduler
 from .workloads import scheduling_basic_nodes, scheduling_basic_pods
 
 NODES, PODS, BATCH = 5000, 1000, 128
+PATHS = (("fused", "0"), ("spec", "1"))  # (name, KTPU_SPEC)
 
 
 def _device_us(evt) -> float:
@@ -28,18 +34,19 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("slice_profile needs a CUDA device")
+def profile_path(path: str) -> None:
     sched = BatchScheduler(scheduling_basic_nodes(NODES), device="cuda")
     sched.schedule(scheduling_basic_pods("init", PODS))
     sched.stage_seconds = dict.fromkeys(sched.stage_seconds, 0.0)
-    before = sched.batches
+    before, rounds0 = sched.batches, batch.ROUNDS
     t0 = time.perf_counter()
     sched.schedule(scheduling_basic_pods("measured", PODS))
     wall = time.perf_counter() - t0
     n = sched.batches - before
-    print(json.dumps({"part": "host stages", "batches": n, "wall_ms_per_batch": wall * 1e3 / n,
+    print(json.dumps({"part": "host stages", "path": path, "batches": n,
+                      "paths": sorted(set(sched.batch_paths[before:])),
+                      "rounds_per_batch": (batch.ROUNDS - rounds0) / n,
+                      "wall_ms_per_batch": wall * 1e3 / n,
                       "stage_ms_per_batch": {k: v * 1e3 / n
                                              for k, v in sched.stage_seconds.items()}}))
 
@@ -56,9 +63,18 @@ def main() -> None:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
     busy_us = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    print(json.dumps({"part": "device", "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+    print(json.dumps({"part": "device", "path": path, "wall_ms": wall * 1e3,
+                      "device_busy_ms": busy_us / 1e3,
                       "busy_share": busy_us / 1e3 / (wall * 1e3),
                       "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top}}))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("slice_profile needs a CUDA device")
+    for path, flag in PATHS:
+        os.environ["KTPU_SPEC"] = flag
+        profile_path(path)
 
 
 if __name__ == "__main__":

@@ -107,6 +107,12 @@ class Workload:
         return self.measured.pods(self.measured_pods)
 
 
+def scheduling_basic(nodes: int = 5000, init_pods: int = 1000,
+                     measured: int = 1000) -> Workload:
+    return Workload(f"SchedulingBasic/{nodes}Nodes", nodes, PodShape("init"), init_pods,
+                    PodShape("measured"), measured)
+
+
 def scheduling_pod_anti_affinity(nodes: int = 5000, init_pods: int = 1000,
                                  measured: int = 1000) -> Workload:
     shape = dict(req=_SMALL_REQ, affinity_key=LABEL_HOSTNAME,

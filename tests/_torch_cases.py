@@ -275,6 +275,135 @@ class SnapshotShim:
         self.node_info_map = {ni.node.meta.name: ni for ni in infos}
 
 
+TOPO_CAPS = dict(nodes=128, pods=32, value_words=32, sigs=16, ex_terms=32)
+
+# the topology modes of a seeded batch: its keys, the mode the JAX scheduler
+# picks for them, and the domain axis of mode general (None: the full value
+# vocab; bucket: the scheduler's; exact: vd_needed)
+TOPO_MODES = {
+    "host": dict(keys=(HOST,), mode="host"),
+    "general-full": dict(keys=(ZONE, HOST), mode="general", vd=None),
+    "general-bucket": dict(keys=(ZONE, HOST), mode="general", vd="bucket"),
+    "general-exact": dict(keys=(ZONE, HOST), mode="general", vd="exact"),
+}
+
+
+def jax_topo_mode_info(ds):
+    """The JAX scheduler's own mode choice, on a bare DeviceState."""
+    import types
+
+    from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler
+
+    return TPUScheduler._topo_mode_info(types.SimpleNamespace(device=ds))
+
+
+def topo_encoded(seed, keys):
+    """The JAX-encoded state of a seeded topology batch: (DeviceState, pb,
+    et, tb)."""
+    from kubernetes_tpu.backend.device_state import DeviceState
+    from kubernetes_tpu.ops.schema import Capacities
+
+    jds = DeviceState(Capacities(**TOPO_CAPS))
+    jds.sync(SnapshotShim(build_topo_nodes(jax_api(), topo_cluster_spec(48, seed, keys))))
+    pods = build_topo_pods(jax_api(), topo_pods_spec(32, seed + 11, keys, nominate="node-7"))
+    pb, et = jds.encoder.encode_pods(pods)
+    tb = jds.sig_table.encode_topo(pods)
+    return jds, pb, et, tb
+
+
+def jax_loop(ds, fn, infos, pods, batch):
+    """The JAX DeviceState + build_schedule_batch_fn loop, the mode chosen
+    by the JAX scheduler's own rule. Returns (placements, modes)."""
+    import jax
+
+    from kubernetes_tpu.backend import batch as jbatch
+
+    out, modes = {}, []
+    for s in range(0, len(pods), batch):
+        chunk = pods[s:s + batch]
+        ds.sync(SnapshotShim(infos.values()))
+        pb, et = ds.encoder.encode_pods(chunk)
+        tb = ds.sig_table.encode_topo(chunk)
+        mode, vd, host_key = jax_topo_mode_info(ds)
+        modes.append(mode)
+        res = fn(pb, et, ds.nt, ds.tc, tb, jax.random.PRNGKey(0),
+                 topo_enabled=ds.topo_enabled, topo_mode=mode, vd_override=vd,
+                 host_key=host_key, ports_enabled=ds.encoder.last_has_ports)
+        node_idx = jbatch.unpack_result_block(res.packed, ds.caps.nodes)[0]
+        names = ds.slot_to_name()
+        for i, pod in enumerate(chunk):
+            if node_idx[i] < 0:
+                out[pod.key()] = None
+                continue
+            name = names[int(node_idx[i])]
+            bound = pod.clone()
+            bound.spec.node_name = name
+            infos[name].add_pod(bound)
+            out[pod.key()] = name
+        ds.adopt_device(res)
+        ds.adopt_commits(res, ds.encoder.last_host_pb, node_idx)
+    return out, modes
+
+
+# small versions of the scheduler_perf workloads: (node count, init pods,
+# measured pods, batch)
+TOPO_WORKLOADS = {
+    "scheduling_pod_anti_affinity": (64, 40, 40, 16),
+    "scheduling_pod_affinity": (64, 48, 32, 16),
+    "topology_spreading": (64, 60, 50, 16),
+}
+WORKLOADS = {**TOPO_WORKLOADS, "scheduling_basic": (64, 40, 50, 16)}
+
+
+def run_workload_both(name: str):
+    """A small workload of WORKLOADS through the JAX DeviceState +
+    build_schedule_batch_fn loop and through the port's BatchScheduler on
+    the CPU, both under the current KTPU_SPEC. Returns (JAX placements, JAX
+    modes, port placements, the port's BatchScheduler)."""
+    from kubernetes_tpu.backend import batch as jbatch
+    from kubernetes_tpu.backend.device_state import DeviceState as JDeviceState
+    from kubernetes_tpu.ops.schema import Capacities as JCaps
+    from kubernetes_tpu.perf import workloads as jworkloads
+    from kubernetes_tpu.perf.harness import _node_wrapper, _pod_wrapper
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.ops.schema import Capacities
+    from kubernetes_tpu_torch.perf import workloads
+
+    n, n_init, n_meas, batch = WORKLOADS[name]
+    w = getattr(workloads, name)(nodes=n, init_pods=n_init, measured=n_meas)
+    jops = getattr(jworkloads, name)(nodes=n, init_pods=n_init, measured=n_meas)["ops"]
+    caps = dict(nodes=128, pods=batch, value_words=32)
+    jinfos = {}
+    for i in range(n):
+        ni = jax_api().NodeInfo(_node_wrapper(i, jops[0]).obj())
+        jinfos[ni.node.meta.name] = ni
+    ds = JDeviceState(JCaps(**caps))
+    fn = jbatch.build_schedule_batch_fn()
+    placed_j, modes_j = {}, []
+    for op, count in ((jops[1], n_init), (jops[3], n_meas)):
+        pods = [_pod_wrapper(i, op["prefix"], op).obj() for i in range(count)]
+        out, modes = jax_loop(ds, fn, jinfos, pods, batch)
+        placed_j.update(out)
+        modes_j += modes
+    sched = BatchScheduler(w.node_infos(), caps=Capacities(**caps), device="cpu")
+    placed_t = sched.schedule(w.init_pod_list())
+    placed_t.update(sched.schedule(w.measured_pod_list()))
+    return placed_j, modes_j, placed_t, sched
+
+
+def topo_case_args(case: str, seed: int):
+    """A TOPO_MODES case: (JAX DeviceState, pb, et, tb, the keyword
+    arguments of both packages' schedule_batch: topo_mode, vd_override,
+    host_key)."""
+    c = TOPO_MODES[case]
+    jds, pb, et, tb = topo_encoded(seed, c["keys"])
+    mode, vd_bucket, host_key = jax_topo_mode_info(jds)
+    assert mode == c["mode"]
+    vd = {None: None, "bucket": vd_bucket,
+          "exact": jds.sig_table.last_topo_summary["vd_needed"]}.get(c.get("vd"))
+    return jds, pb, et, tb, dict(topo_mode=mode, vd_override=vd, host_key=host_key)
+
+
 def jax_encoded(n_nodes: int, n_pods: int, seed: int, capacity_nodes: int = 256,
                 pods_cap: int = 64, **pod_kw):
     """(JAX DeviceState, pods, PodBatch, ExprTable) for a seeded case."""

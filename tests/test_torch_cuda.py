@@ -1,4 +1,5 @@
-"""The CUDA fused-step kernel against its plain PyTorch version, on the card.
+"""The CUDA fused-step kernel against its plain PyTorch version, and the
+topology scan and the speculative rounds against their CPU runs, on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -183,4 +184,63 @@ def test_topology_scan_matches_cpu(cuda, keys, mode):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b), name
+    assert int((want.node_idx >= 0).sum()) > 32
+
+
+def _off_state(seed, device):
+    """A seeded batch of mode off (every static filter and score, host
+    ports, a nominated pod) encoded on the CPU, moved to ``device``."""
+    import dataclasses
+
+    from _torch_cases import SnapshotShim, build_nodes, build_pods, cluster_spec, pods_spec, torch_api
+    from kubernetes_tpu_torch.backend.device_state import DeviceState, caps_for_cluster
+
+    ds = DeviceState(caps_for_cluster(1000, batch=64), device="cpu")
+    ds.sync(SnapshotShim(build_nodes(torch_api(), cluster_spec(1000, seed))))
+    pb, et = ds.encoder.encode_pods(build_pods(torch_api(), pods_spec(64, seed + 1,
+                                                                      nominate="node-9")))
+
+    def to(obj):
+        return type(obj)(**{f.name: getattr(obj, f.name).to(device)
+                            for f in dataclasses.fields(obj)})
+
+    return (to(pb), to(et), to(ds.nt)), dict(ports_enabled=ds.encoder.last_has_ports)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["off", "host", "general"])
+def test_spec_rounds_match_cpu(cuda, mode):
+    """The speculative rounds on the card against the rounds on the CPU:
+    every BatchResult field, floats by bit pattern, and the same rounds."""
+    from kubernetes_tpu_torch.backend import batch
+
+    def state(device):
+        if mode == "off":
+            return _off_state(4, device)
+        keys = {"host": ("kubernetes.io/hostname",),
+                "general": ("topology.kubernetes.io/zone", "kubernetes.io/hostname")}[mode]
+        args, kw = _topo_state(keys, 5, device)
+        assert kw["topo_mode"] == mode
+        return args, kw
+
+    args, kw = state(cuda)
+    before, rounds0 = fused_step.LAUNCHES, batch.ROUNDS
+    got = batch.schedule_batch(*args, device=cuda, spec_decode=True, **kw)
+    torch.cuda.synchronize()
+    rounds = batch.ROUNDS - rounds0
+    assert fused_step.LAUNCHES == before and rounds >= 1
+    args, kw = state("cpu")
+    want = batch.schedule_batch(*args, device="cpu", spec_decode=True, **kw)
+    assert batch.ROUNDS - rounds0 == 2 * rounds
+    for f in ("node_idx", "best_score", "any_feasible", "fit_ok", "ports_ok", "spread_ok",
+              "ipa_ok", "first_fail", "final_requested", "final_nonzero", "final_ports",
+              "final_class_req", "final_sel_counts", "final_seg_exist", "packed"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a is None or b is None:
+            assert a is None and b is None and mode == "off", f
+            continue
+        a = a.cpu()
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
     assert int((want.node_idx >= 0).sum()) > 32

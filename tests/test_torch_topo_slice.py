@@ -6,19 +6,18 @@ versions of SchedulingPodAntiAffinity, SchedulingPodAffinity and
 TopologySpreading against the JAX DeviceState plus build_schedule_batch_fn
 loop, and the mode cases of tests/test_topo_modes.py."""
 
-import types
-
 import jax
 import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (HOST, ZONE, SnapshotShim, build_topo_nodes, build_topo_pods,
-                          f32_bits, jax_api, numpy_fields, topo_cluster_spec, topo_pods_spec,
-                          torch_api, u32)
+from _torch_cases import (HOST, TOPO_CAPS as CAPS, TOPO_MODES as MODES, TOPO_WORKLOADS, ZONE,
+                          SnapshotShim, build_topo_nodes, build_topo_pods, f32_bits, jax_api,
+                          jax_loop as _jax_loop, jax_topo_mode_info as _jax_mode_info,
+                          numpy_fields, run_workload_both, topo_cluster_spec,
+                          topo_encoded as _encoded, topo_pods_spec, torch_api, u32)
 from kubernetes_tpu.backend import batch as jbatch
 from kubernetes_tpu.backend.device_state import DeviceState as JDeviceState
-from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler
 from kubernetes_tpu.ops.schema import Capacities as JCaps
 from kubernetes_tpu_torch import interop
 from kubernetes_tpu_torch.backend import batch as tbatch
@@ -26,13 +25,6 @@ from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
 from kubernetes_tpu_torch.backend.device_state import DeviceState
 from kubernetes_tpu_torch.ops.schema import Capacities
 from kubernetes_tpu_torch.perf import workloads
-
-CAPS = dict(nodes=128, pods=32, value_words=32, sigs=16, ex_terms=32)
-
-
-def _jax_mode_info(ds):
-    """The JAX scheduler's own mode choice, on a bare DeviceState."""
-    return TPUScheduler._topo_mode_info(types.SimpleNamespace(device=ds))
 
 
 # ------------------------------------------------------------------ SigTable
@@ -101,24 +93,6 @@ def test_topology_free_batch_reuses_the_zero_programs():
 # ------------------------------------------------------------ schedule_batch
 
 
-def _encoded(seed, keys):
-    """The JAX-encoded state of a seeded topology batch, and the JAX mode."""
-    jds = JDeviceState(JCaps(**CAPS))
-    jds.sync(SnapshotShim(build_topo_nodes(jax_api(), topo_cluster_spec(48, seed, keys))))
-    pods = build_topo_pods(jax_api(), topo_pods_spec(32, seed + 11, keys, nominate="node-7"))
-    pb, et = jds.encoder.encode_pods(pods)
-    tb = jds.sig_table.encode_topo(pods)
-    return jds, pb, et, tb
-
-
-MODES = {
-    "host": dict(keys=(HOST,), mode="host"),
-    "general-full": dict(keys=(ZONE, HOST), mode="general", vd=None),
-    "general-bucket": dict(keys=(ZONE, HOST), mode="general", vd="bucket"),
-    "general-exact": dict(keys=(ZONE, HOST), mode="general", vd="exact"),
-}
-
-
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("case", sorted(MODES))
 def test_schedule_batch_matches_jax_scan(case, seed):
@@ -175,75 +149,12 @@ def test_vd_override_below_the_involved_keys_is_exact_at_the_boundary():
 # ------------------------------------------------------------ BatchScheduler
 
 
-def _jax_loop(ds, fn, infos, pods, batch):
-    """The JAX DeviceState + build_schedule_batch_fn loop, the mode chosen
-    by the JAX scheduler's own rule. Returns (placements, modes)."""
-    out, modes = {}, []
-    for s in range(0, len(pods), batch):
-        chunk = pods[s:s + batch]
-        ds.sync(SnapshotShim(infos.values()))
-        pb, et = ds.encoder.encode_pods(chunk)
-        tb = ds.sig_table.encode_topo(chunk)
-        mode, vd, host_key = _jax_mode_info(ds)
-        modes.append(mode)
-        res = fn(pb, et, ds.nt, ds.tc, tb, jax.random.PRNGKey(0),
-                 topo_enabled=ds.topo_enabled, topo_mode=mode, vd_override=vd,
-                 host_key=host_key, ports_enabled=ds.encoder.last_has_ports)
-        node_idx = jbatch.unpack_result_block(res.packed, ds.caps.nodes)[0]
-        names = ds.slot_to_name()
-        for i, pod in enumerate(chunk):
-            if node_idx[i] < 0:
-                out[pod.key()] = None
-                continue
-            name = names[int(node_idx[i])]
-            bound = pod.clone()
-            bound.spec.node_name = name
-            infos[name].add_pod(bound)
-            out[pod.key()] = name
-        ds.adopt_device(res)
-        ds.adopt_commits(res, ds.encoder.last_host_pb, node_idx)
-    return out, modes
-
-
-def _jax_workload(op: dict, count: int) -> list:
-    """The JAX harness's pods of one createPods or measurePods op."""
-    from kubernetes_tpu.perf.harness import _pod_wrapper
-
-    return [_pod_wrapper(i, op["prefix"], op).obj() for i in range(count)]
-
-
-# small versions: (node count, init pods, measured pods, batch)
-WORKLOADS = {
-    "scheduling_pod_anti_affinity": (64, 40, 40, 16),
-    "scheduling_pod_affinity": (64, 48, 32, 16),
-    "topology_spreading": (64, 60, 50, 16),
-}
-
-
-@pytest.mark.parametrize("name", sorted(WORKLOADS))
+@pytest.mark.parametrize("name", sorted(TOPO_WORKLOADS))
 def test_batch_scheduler_matches_jax_on_topology_workloads(name, monkeypatch):
-    from kubernetes_tpu.perf import workloads as jworkloads
-    from kubernetes_tpu.perf.harness import _node_wrapper
-
     monkeypatch.setenv("KTPU_SPEC", "0")
-    n, n_init, n_meas, batch = WORKLOADS[name]
-    w = getattr(workloads, name)(nodes=n, init_pods=n_init, measured=n_meas)
-    jops = getattr(jworkloads, name)(nodes=n, init_pods=n_init, measured=n_meas)["ops"]
-    caps = dict(nodes=128, pods=batch, value_words=32)
-    jinfos = {}
-    for i in range(n):
-        ni = jax_api().NodeInfo(_node_wrapper(i, jops[0]).obj())
-        jinfos[ni.node.meta.name] = ni
-    ds = JDeviceState(JCaps(**caps))
-    fn = jbatch.build_schedule_batch_fn()
-    sched = BatchScheduler(w.node_infos(), caps=Capacities(**caps), device="cpu")
-
-    placed_j, modes_j = _jax_loop(ds, fn, jinfos, _jax_workload(jops[1], n_init), batch)
-    out, modes = _jax_loop(ds, fn, jinfos, _jax_workload(jops[3], n_meas), batch)
-    placed_j.update(out)
-    modes_j += modes
-    placed_t = sched.schedule(w.init_pod_list())
-    placed_t.update(sched.schedule(w.measured_pod_list()))
+    n, n_init, n_meas, _batch = TOPO_WORKLOADS[name]
+    placed_j, modes_j, placed_t, sched = run_workload_both(name)
+    assert sched.batch_paths == ["scan" if m != "off" else "fused" for m in modes_j]
     assert placed_t == placed_j
     assert sched.batch_modes == modes_j
     assert set(modes_j) == {"scheduling_pod_anti_affinity": {"host"},
