@@ -6,16 +6,19 @@
 1. Build: compiles the fused-step kernel (kubernetes_tpu_torch/csrc/
    fused_step.cu) from the checkout with nvcc and prints its resource report.
 2. Kernel phase: the CUDA kernel against its plain PyTorch version on the
-   card at the main-path sizes (N=5120 node slots, R=6, W=16, P=128): four
+   card at the main-path sizes (N=5120 node slots, R=6, W=16, P=128): five
    seeded batches (random; floor boundaries; ties, host ports, padded pods
    and nodes, a nominated pod; slices: exact ties at every boundary of the
    kernel's 8-block node split, winners in all 8 slices, a pod with no
-   feasible node and a nominated node in the last slice) plus a real
-   SchedulingBasic batch. Every output and the evolved carry must be exactly
-   equal, and the slices batch must pick the winners it was built for. Times
-   the kernel (median of CUDA-event timings over 30 launches) and the plain
-   version on the SchedulingBasic batch, and works out the least time the
-   card could take for the same work.
+   feasible node and a nominated node in the last slice; masked: a volume
+   screen and a claim mask on about a third of the cells, first-fail ids 9
+   and 10 under the static ids 1-4, and three pods with every node masked)
+   plus a real SchedulingBasic batch. Every output and the evolved carry
+   must be exactly equal, and the slices batch must pick the winners it was
+   built for. Times the kernel (median of CUDA-event timings over 30
+   launches) and the plain version on the SchedulingBasic batch, the kernel
+   on the masked batch, and works out the least time the card could take
+   for the same work.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
    110 pods with zone and hostname labels; pods asking 900m / 2Gi) through
    BatchScheduler on the card with the default ``KTPU_SPEC=auto``: 1000
@@ -50,7 +53,20 @@
    batch's inputs and prints which is faster per mode beside
    ``batch.SPEC_AUTO_CUDA`` (the path ``auto`` takes on the card); fails if
    the table takes a path this run measured more than 1.5 times slower.
-6. Each workload run prints pods/s, ms per batch, host ms per stage, and
+6. DRA phase: SchedulingDRA/5000Nodes (nodes publishing tpu.dev/cores and
+   tpu.dev/gen; 1000 init + 1000 measured pods with one claim each, class
+   gen == v5, claim cores >= 8) and SchedulingInTreePVs/5000Nodes (5000
+   init + 1000 measured pods, each with its own pre-bound EBS PV and PVC)
+   through BatchScheduler with their object stores, on the card under
+   ``KTPU_SPEC=auto`` (every batch on the fused kernel, one launch per
+   batch), on the CPU, and on the card with the rounds forced. Every pod
+   must be placed with nothing in ``retry`` or ``fallback``; placements and
+   claim allocations equal across the three runs; every DRA pod on a gen v5
+   node with its claim allocated there; one measured batch's claim mask
+   (and volume screen) from the card equal to the CPU's bit for bit. Prints
+   the claim mask's device ms (CUDA events) and the host ms per batch of the
+   volume screen, the claim mask's build and the commit checks.
+7. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -74,7 +90,7 @@ import warnings
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.backend import batch, batch_scheduler
+from kubernetes_tpu_torch.backend import batch, batch_scheduler, claim_mask
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
 from kubernetes_tpu_torch.ops import fused_step, topology
 from kubernetes_tpu_torch.perf import workloads
@@ -121,6 +137,16 @@ def _seeded_batch(kind: str, seed: int, n: int = 5120, n_real: int = 5000) -> di
         nz[: n // 2] = nz[0]
     static_ok = (rng.uniform(size=(P, n)) < 0.95) & real[None, :] & valid[:, None]
     ff = np.where(static_ok, 0, rng.randint(1, 5, size=(P, n)))
+    if kind == "masked":
+        # the volume screen (id 9) and the claim mask (id 10) under the
+        # static ids, as static_phase assigns them; pods 0, 7 and 77 have
+        # every node masked by claims
+        extra = rng.uniform(size=(P, n)) > 1 / 6
+        dra = rng.uniform(size=(P, n)) > 1 / 6
+        dra[[0, 7, 77]] = False
+        ff = np.where(ff > 0, ff, np.where(~extra, 9, np.where(~dra, 10, 0)))
+        static_ok &= extra & dra
+        ff = np.where(static_ok, 0, np.where(ff > 0, ff, 1))
     as_i32 = lambda a: (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32)  # noqa: E731
     return {
         "alloc": alloc, "requested": (nz * 0.8).astype(np.int32), "nonzero": nz,
@@ -222,7 +248,7 @@ def _bound(args: dict, out) -> tuple:
 def kernel_phase(device) -> dict:
     weights = (1.0, 1.0, 3.0, 2.0, 1.0)
     cases = [(k, _to_device(_seeded_batch(k, s), device))
-             for k, s in (("random", 1), ("boundary", 2), ("ties", 3))]
+             for k, s in (("random", 1), ("boundary", 2), ("ties", 3), ("masked", 5))]
     slices, slices_want = _slices_batch(4)
     cases.append(("slices", _to_device(slices, device)))
     basic = scheduling_basic_args(device)
@@ -238,6 +264,8 @@ def kernel_phase(device) -> dict:
         placed = int((got.node_idx >= 0).sum())
         print(f"kernel == plain on {label}: {placed}/{P} placed, "
               f"first_fail ids {sorted(torch.unique(got.first_fail).tolist())}")
+    if not (winners["masked"][[0, 7, 77]] == -1).all():
+        raise AssertionError("masked batch: a pod with every node masked was placed")
     if not np.array_equal(winners["slices"], slices_want):
         raise AssertionError("slices batch: winners differ from the ones it was built for")
     m = -(-slices["alloc"].shape[0] // fused_step.CLUSTER)
@@ -248,17 +276,9 @@ def kernel_phase(device) -> dict:
           f"went to the smaller index")
 
     args = list(basic.values())
-    times = []
-    for _ in range(3):  # warm-up
-        fused_step.fused_step_batch(*args, weights)
-    for _ in range(TIMED_LAUNCHES):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fused_step.fused_step_batch(*args, weights)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    times, out = _event_ms(lambda: fused_step.fused_step_batch(*args, weights))
+    masked = dict(cases)["masked"]
+    masked_times, _ = _event_ms(lambda: fused_step.fused_step_batch(*masked.values(), weights))
     plain = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -273,8 +293,28 @@ def kernel_phase(device) -> dict:
           f"(min {min(times):.4f}, max {max(times):.4f}); plain PyTorch "
           f"{statistics.median(plain):.2f} ms; bound {bound_ms:.5f} ms "
           f"({nbytes} bytes, {bound_by})")
+    masked_ms = statistics.median(masked_times)
+    print(f"fused_step_batch on the masked batch: kernel median {masked_ms:.4f} ms over "
+          f"{TIMED_LAUNCHES} launches (min {min(masked_times):.4f}, max {max(masked_times):.4f})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": statistics.median(plain),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "masked_ms": masked_ms}
+
+
+def _event_ms(fn, warmup: int = 3) -> tuple:
+    """CUDA-event ms of each of TIMED_LAUNCHES calls of ``fn`` after a
+    warm-up, and the last call's result."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(TIMED_LAUNCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times, out
 
 
 # ---------------------------------------------------------------- the runner
@@ -393,28 +433,34 @@ def _run(w, device, profile_at: int = -1, capture_at: int = -1) -> dict:
     watch = _Watch(profile_at, capture_at)
     batch_scheduler.schedule_batch = watch
     try:
-        sched = BatchScheduler(w.node_infos(), device=device)
+        store = w.store()  # the claims and volumes, where the workload has them
+        sched = BatchScheduler(w.node_infos(), device=device, client=store)
         placed = sched.schedule(w.init_pod_list())
         init_batches = sched.batches
         measured = w.measured_pod_list()
-        per_batch, stage_ms = [], dict.fromkeys(sched.stage_seconds, 0.0)
+        per_batch = []
+        stage_ms = dict.fromkeys(sched.stage_seconds, 0.0)
+        screen_ms = dict.fromkeys(sched.screen_seconds, 0.0)
         for i in range(0, len(measured), P):
             profiled = watch.calls == profile_at
-            stages0 = dict(sched.stage_seconds)
+            stages0, screens0 = dict(sched.stage_seconds), dict(sched.screen_seconds)
             t0 = time.perf_counter()
             placed.update(sched.schedule(measured[i:i + P]))  # ends in the host read
             if not profiled:
                 per_batch.append(((time.perf_counter() - t0) * 1e3, len(measured[i:i + P])))
                 for k, v in sched.stage_seconds.items():
                     stage_ms[k] += (v - stages0[k]) * 1e3
+                for k, v in sched.screen_seconds.items():
+                    screen_ms[k] += (v - screens0[k]) * 1e3
     finally:
         batch_scheduler.schedule_batch = watch.inner
     ms = [t for t, _ in per_batch]
     return {"placed": placed, "sched": sched, "per_batch": per_batch, "watch": watch,
-            "modes": sched.batch_modes, "paths": sched.batch_paths,
+            "modes": sched.batch_modes, "paths": sched.batch_paths, "store": store,
             "init_batches": init_batches, "median_ms": statistics.median(ms),
             "pods_per_s": sum(n for _, n in per_batch) / (sum(ms) / 1e3),
-            "stage_ms": {k: v / len(per_batch) for k, v in stage_ms.items()}}
+            "stage_ms": {k: v / len(per_batch) for k, v in stage_ms.items()},
+            "screen_ms": {k: v / len(per_batch) for k, v in screen_ms.items()}}
 
 
 def _check_placed(name: str, w, gpu: dict) -> None:
@@ -631,6 +677,112 @@ def spec_phase(basic: dict, topo: dict) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------- DRA phase
+
+
+def _allocations(run: dict) -> dict:
+    store = run["store"]
+    return {k: (c.allocated_node, c.reserved_for) for k, c in store.resource_claims.items()}
+
+
+def _check_masked(name: str, w, run: dict, what: str) -> None:
+    _check_placed(name, w, run)
+    sched = run["sched"]
+    if sched.retry or sched.fallback:
+        raise AssertionError(f"{name} ({what}): retry {dict(list(sched.retry.items())[:3])}, "
+                             f"fallback {dict(list(sched.fallback.items())[:3])}")
+
+
+class _MaskWatch:
+    """Stands in for ``claim_mask.claim_feasibility_mask`` during a run:
+    copies call ``capture_at``'s inputs and result to the host."""
+
+    def __init__(self, capture_at: int):
+        self.inner = claim_mask.claim_feasibility_mask
+        self.calls, self.capture_at, self.captured = 0, capture_at, None
+
+    def __call__(self, *args):
+        out = self.inner(*args)
+        if self.calls == self.capture_at:
+            self.captured = (_host_copy(list(args)), _host_copy(out))
+        self.calls += 1
+        return out
+
+
+def dra_phase() -> dict:
+    """SchedulingDRA and SchedulingInTreePVs on the card (auto: the fused
+    kernel), on the CPU and on the card with the rounds forced."""
+    out = {}
+    for w in (workloads.scheduling_dra(), workloads.scheduling_intree_pvs()):
+        k = w.init_pods // P + 1  # the first measured batch but one is profiled
+        mask_watch = _MaskWatch(capture_at=k if w.measured.claim else -1)
+        claim_mask.claim_feasibility_mask = mask_watch
+        try:
+            fused_step.LAUNCHES = 0
+            gpu = _run(w, "cuda", profile_at=k + 1, capture_at=k)
+            launches = fused_step.LAUNCHES
+        finally:
+            claim_mask.claim_feasibility_mask = mask_watch.inner
+        _check_masked(w.name, w, gpu, "cuda")
+        if set(gpu["paths"]) != {"fused"} or launches != gpu["sched"].batches:
+            raise AssertionError(f"{w.name}: paths {set(gpu['paths'])}, {launches} kernel "
+                                 f"launches for {gpu['sched'].batches} batches")
+        cpu = _run(w, "cpu", capture_at=k)
+        _check_masked(w.name, w, cpu, "cpu")
+        _check_same(w.name, gpu, cpu, "the cpu run")
+        if _allocations(gpu) != _allocations(cpu):
+            raise AssertionError(f"{w.name}: claim allocations differ from the cpu run")
+        masks = [m for m in ("extra_mask", "dra_mask") if gpu["watch"].captured["kw"].get(m)
+                 is not None]
+        for m in masks:
+            a, b = gpu["watch"].captured["kw"][m], cpu["watch"].captured["kw"][m]
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{w.name}: batch {k}'s {m} differs between cuda and cpu")
+        with _spec_flag("1"):
+            spec = _run(w, "cuda")
+        _check_masked(w.name, w, spec, "spec")
+        if set(spec["paths"]) != {"spec"}:
+            raise AssertionError(f"{w.name}: paths {set(spec['paths'])} with the rounds forced")
+        _check_same(w.name, spec, gpu, "the cuda run of the kernel")
+        if _allocations(spec) != _allocations(gpu):
+            raise AssertionError(f"{w.name}: claim allocations of the rounds differ")
+        row = {"workload": w, "gpu": gpu, "launches": launches}
+        line = (f"{w.name}: every pod placed, retry and fallback empty; {launches} kernel "
+                f"launches for {gpu['sched'].batches} batches; placements == cpu run == the "
+                f"rounds on cuda; batch {k}'s {' and '.join(masks)} cuda == cpu bit for bit")
+        if w.measured.claim:
+            gen = {ni.node.meta.name: ni.node.status.device_attributes.get("tpu.dev/gen")
+                   for ni in gpu["sched"].snapshot.node_info_map.values()}
+            allocs = _allocations(gpu)
+            for key, node in gpu["placed"].items():
+                claim = allocs[f"{key}-{w.measured.claim.name}"]
+                if gen[node] != "v5" or claim != (node, (key,)):
+                    raise AssertionError(f"{w.name}: {key} on {node} (gen {gen[node]}), "
+                                         f"claim {claim}")
+            args, want = mask_watch.captured
+            args = _host_copy(args, "cuda")
+            got = claim_mask.claim_feasibility_mask(*args).cpu()
+            if not torch.equal(got, want) or not torch.equal(
+                    claim_mask.claim_feasibility_mask(*_host_copy(args)), want):
+                raise AssertionError(f"{w.name}: the claim mask differs from its capture")
+            times, _ = _event_ms(lambda: claim_mask.claim_feasibility_mask(*args))
+            prof = _profiled(claim_mask.claim_feasibility_mask, args, {})
+            row["claim_mask_ms"] = statistics.median(times)
+            line += (f"; every claim pod on a gen v5 node with its claim allocated there; "
+                     f"claim_feasibility_mask [P={args[0].shape[0]}, S={args[0].shape[1]}, "
+                     f"N={args[4].shape[0]}, A={args[4].shape[1]}] on the card: median "
+                     f"{row['claim_mask_ms']:.4f} ms over {TIMED_LAUNCHES} (CUDA events; min "
+                     f"{min(times):.4f}, max {max(times):.4f}), {prof['kernels']} CUDA kernels, "
+                     f"device busy {prof['device_ms']:.4f} ms")
+        print(line)
+        _report(w.name, gpu)
+        print(f"{w.name} host ms per measured batch inside the stages: " + ", ".join(
+            f"{k2} {v:.3f}" for k2, v in gpu["screen_ms"].items()) + "; rounds forced: "
+            f"{spec['pods_per_s']:.1f} pods/s, median {spec['median_ms']:.2f} ms per batch")
+        out[w.name] = row
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -654,8 +806,10 @@ def main() -> int:
 
     kern = timed("kernel", kernel_phase, device)
     sl = timed("slice", slice_phase)
+    basic_name = sl["workload"].name
     topo = timed("topology", topology_phase)
     timed("spec", spec_phase, sl, topo)
+    dra = timed("dra", dra_phase)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -666,9 +820,11 @@ def main() -> int:
         "source": "kubernetes_tpu_torch/csrc/fused_step.cu",
         "replaces": "kubernetes_tpu/ops/pallas_step.py:62",
         "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
+        "ms": kern["ms"], "masked_ms": kern["masked_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": None,
+        "launches_by_workload": {basic_name: sl["launches"],
+                                 **{k: v["launches"] for k, v in dra.items()}},
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -509,3 +509,98 @@ def get_zone_key(node: "Node") -> str:
 
 # the pod label naming the PodGroup (gang) a pod belongs to
 POD_GROUP_LABEL = "scheduling.x-k8s.io/pod-group"
+
+
+# ---------------------------------------------------------------------------
+# storage (core/v1 PersistentVolume(Claim), storage/v1 StorageClass, CSINode)
+
+# volume binding modes (storage/v1 StorageClass.VolumeBindingMode)
+BINDING_IMMEDIATE = "Immediate"
+BINDING_WAIT_FOR_FIRST_CONSUMER = "WaitForFirstConsumer"
+
+# access modes
+ROX = "ReadOnlyMany"
+RWOP = "ReadWriteOncePod"
+
+
+@dataclass
+class PersistentVolumeClaim:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    storage_class: str = ""
+    bound_pv: str = ""
+    access_modes: Tuple[str, ...] = ()
+    requested_bytes: int = 0
+
+
+@dataclass
+class PersistentVolume:
+    """storage PV: capacity + node affinity via topology labels (the
+    reference keeps zone/region in PV labels; volumezone/volume_zone.go)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    capacity_bytes: int = 0
+    storage_class: str = ""
+    bound_pvc: str = ""  # claimRef as namespace/name
+    access_modes: Tuple[str, ...] = ()
+    # in-tree volume source kind (nodevolumelimits/non_csi.go):
+    # "ebs" | "gce-pd" | "azure-disk" | "cinder" | ""
+    volume_type: str = ""
+    # nodeAffinity reduced to required label matches (topology terms)
+    node_affinity: Dict[str, Tuple[str, ...]] = field(default_factory=dict)
+
+    def matches_node(self, node: "Node") -> bool:
+        for key, allowed in self.node_affinity.items():
+            if node.meta.labels.get(key) not in allowed:
+                return False
+        return True
+
+
+@dataclass
+class StorageClass:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    provisioner: str = ""
+    volume_binding_mode: str = BINDING_IMMEDIATE
+
+
+@dataclass
+class CSINode:
+    """storage/v1 CSINode: per-driver attachable volume limits
+    (nodevolumelimits/csi.go reads CSINode.Spec.Drivers[].Allocatable)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    drivers: Dict[str, int] = field(default_factory=dict)  # driver name -> max volumes
+
+
+# ---------------------------------------------------------------------------
+# resource.k8s.io (Dynamic Resource Allocation, structured parameters)
+#
+# Typed attribute selectors instead of opaque driver blobs: a selector map is
+# ``attribute key -> expression`` (e.g. {"tpu.dev/cores": ">=4"}; api/dra.py
+# parses and evaluates them against NodeStatus.device_attributes). Allocation
+# is node-level: a claim allocates to one node, and any number of pods on
+# that node may reserve it.
+
+
+@dataclass
+class ResourceClass:
+    """resource.k8s.io ResourceClass (cluster-scoped): driver identity plus
+    the class-level selectors every claim of this class inherits."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    driver_name: str = ""
+    selectors: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class ResourceClaim:
+    """resource.k8s.io ResourceClaim (namespaced): a request for devices
+    matching the class + claim selectors, plus the allocation status that
+    Reserve writes (``allocated_node``; the consuming pods in
+    ``reserved_for``)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    resource_class_name: str = ""
+    selectors: Dict[str, object] = field(default_factory=dict)
+    # status
+    allocated_node: str = ""            # "" = unallocated
+    reserved_for: Tuple[str, ...] = ()  # pod keys consuming the claim

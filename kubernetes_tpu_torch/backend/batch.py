@@ -1,11 +1,12 @@
 """The batched scheduling step: one call schedules a pod batch against the
 node mirror (PyTorch counterpart of ``kubernetes_tpu/backend/batch.py``,
-without sampling, sharding or DRA/volume/slice/quota inputs).
+without sampling, sharding or slice/quota inputs).
 
   1. STATIC phase (once per batch): the selector VM, the static filter masks
      and the raw scores that no intra-batch commit can change (labels,
-     taints, affinity, images), the static first-fail table and the seeded
-     tie-break jitter.
+     taints, affinity, images), the host's volume screen and the device's
+     claim-feasibility mask (``claim_feasibility_mask``) where the batch has
+     them, the static first-fail table and the seeded tie-break jitter.
   2. COMMIT phase, with the scan's sequential semantics, on one of three
      paths (``spec_decode_eligible`` picks one per batch):
      * topology mode ``off`` (no spread constraint, no inter-pod term, no
@@ -34,6 +35,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..api.dra import OP_EQ, OP_GE, OP_GT, OP_LE, OP_LT, OP_NE
 from ..ops import filters, scores, topology
 from ..ops.fused_step import (NEG_INF, NOMINATED_BONUS, WEIGHT_ORDER, _normalize,
                               _resource_scores, fused_step_batch)
@@ -57,6 +59,9 @@ STATIC_FILTER_IDS = ((4, "NodeAffinity"), (3, "TaintToleration"),
                      (2, "NodeName"), (1, "NodeUnschedulable"))
 # and of the dynamic ones, after ports (5) and fit (6)
 SPREAD_FAIL_ID, IPA_FAIL_ID = 7, 8
+# the volume screen (VolumeBinding and friends) and the claim mask
+# (DynamicResources): static, but after every plugin above in filter order
+VOLUME_FAIL_ID, DRA_FAIL_ID = 9, 10
 
 TOPO_MODES = ("off", "host", "general")
 
@@ -72,7 +77,8 @@ class BatchResult:
     spread_ok: torch.Tensor     # [P, N] PodTopologySpread filter at decision time
     ipa_ok: torch.Tensor        # [P, N] InterPodAffinity (all three checks)
     # [P, N] int8: 0 = feasible, else the 1-based filter id of the first
-    # failing plugin (static ids 1-4, ports 5, fit 6, spread 7, ipa 8)
+    # failing plugin (static ids 1-4, ports 5, fit 6, spread 7, ipa 8,
+    # volumes 9, claims 10)
     first_fail: torch.Tensor
     # the evolved carry: the post-batch dynamic node state
     final_requested: torch.Tensor   # [N, R] int32
@@ -126,10 +132,44 @@ def _pod_port_bits(pb: PodBatch, words: int) -> torch.Tensor:
     return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
 
 
-def static_phase(pb: PodBatch, et: ExprTable, nt: NodeTensors):
+def claim_feasibility_mask(sel_key: torch.Tensor, sel_op: torch.Tensor,
+                           sel_kind: torch.Tensor, sel_val: torch.Tensor,
+                           attr_kind: torch.Tensor, attr_val: torch.Tensor) -> torch.Tensor:
+    """[P, N] bool: the node's attribute row satisfies every selector of the
+    pod (``kubernetes_tpu/backend/batch.py:88-117``).
+
+    sel_* : [P, S] int32 selector rows, op -1 padding (always matches);
+    attr_kind / attr_val : [N, A] cells (kind 0 = absent, 1 = int, 2 =
+    interned string id). The predicate is api/dra.py's
+    ``DeviceSelector.matches``: an absent attribute never matches, ``==`` and
+    ``!=`` need the same kind, the ordering ops need int against int. One
+    [P, S, N] compare and an all-reduce over S."""
+    keys = sel_key.long()
+    ak = attr_kind.t()[keys]                 # [P, S, N]
+    av = attr_val.t()[keys]
+    op, okind, ov = sel_op[:, :, None], sel_kind[:, :, None], sel_val[:, :, None]
+    present = ak > 0
+    same = present & (ak == okind)
+    num = present & (ak == 1) & (okind == 1)
+    ok = torch.zeros_like(present)
+    ok = torch.where(op == OP_EQ, same & (av == ov), ok)
+    ok = torch.where(op == OP_NE, same & (av != ov), ok)
+    ok = torch.where(op == OP_GE, num & (av >= ov), ok)
+    ok = torch.where(op == OP_GT, num & (av > ov), ok)
+    ok = torch.where(op == OP_LE, num & (av <= ov), ok)
+    ok = torch.where(op == OP_LT, num & (av < ov), ok)
+    return torch.all(ok | (op < 0), dim=1)
+
+
+def static_phase(pb: PodBatch, et: ExprTable, nt: NodeTensors,
+                 extra_mask: Optional[torch.Tensor] = None,
+                 dra_mask: Optional[torch.Tensor] = None):
     """(static_masks, static_ok, static_ff, taint_raw, affinity_raw,
     image_score, jitter): everything about the batch that no intra-batch
-    commit can change (``schedule_batch_core`` lines 1042-1104)."""
+    commit can change (``schedule_batch_core`` lines 1042-1104).
+    ``extra_mask`` (the volume screen) and ``dra_mask`` (the claim mask) are
+    optional [P, N] bool masks ANDed into ``static_ok``; the first-fail id
+    of a cell is its earliest failing plugin: 1-4, then 9, then 10."""
     expr_match = filters.eval_exprs(et, nt)
     static_masks = {
         "NodeUnschedulable": filters.filter_unschedulable(pb, nt),
@@ -140,8 +180,15 @@ def static_phase(pb: PodBatch, et: ExprTable, nt: NodeTensors):
     static_ok = nt.valid[None, :] & pb.valid[:, None]
     for m in static_masks.values():
         static_ok = static_ok & m
+    for m in (extra_mask, dra_mask):
+        if m is not None:
+            static_ok = static_ok & m
     static_ff = torch.zeros(static_ok.shape, dtype=torch.int8, device=static_ok.device)
-    for sid, name in STATIC_FILTER_IDS:  # earliest failing plugin wins
+    # assigned latest plugin first, so the earliest failing plugin wins
+    for sid, m in ((DRA_FAIL_ID, dra_mask), (VOLUME_FAIL_ID, extra_mask)):
+        if m is not None:
+            static_ff = torch.where(~m, torch.full_like(static_ff, sid), static_ff)
+    for sid, name in STATIC_FILTER_IDS:
         static_ff = torch.where(~static_masks[name], torch.full_like(static_ff, sid), static_ff)
     taint_raw = scores.score_taint_toleration(pb, nt)
     affinity_raw = scores.score_node_affinity(pb, et, nt, expr_match)
@@ -691,7 +738,9 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                         weights: Dict[str, float], tc: Optional[TopoCounts] = None,
                         tb: Optional[TopoBatch] = None, topo_mode: str = "off",
                         vd_override: Optional[int] = None, host_key: int = 0,
-                        spec_decode: bool = False, ports_enabled: bool = True) -> BatchResult:
+                        spec_decode: bool = False, ports_enabled: bool = True,
+                        extra_mask: Optional[torch.Tensor] = None,
+                        dra_mask: Optional[torch.Tensor] = None) -> BatchResult:
     """Static phase, the commit phase of ``topo_mode`` and the post-scan
     scatters. ``weights`` are the plugin weights by name (every key of
     DEFAULT_WEIGHTS). Modes ``host`` and ``general`` need ``tc`` and ``tb``;
@@ -700,10 +749,11 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     full value vocab). ``spec_decode`` runs the speculative rounds
     (``_speculative_core``) in place of the fused kernel or the scan;
     ``ports_enabled`` False tells them that no pod of the batch wants a host
-    port (the JAX names and meanings)."""
+    port; ``extra_mask`` and ``dra_mask`` join the static phase on every
+    path (the JAX names and meanings)."""
     if topo_mode not in TOPO_MODES:
         raise ValueError(f"topo_mode must be one of {TOPO_MODES}, not {topo_mode!r}")
-    static = static_phase(pb, et, nt)
+    static = static_phase(pb, et, nt, extra_mask, dra_mask)
     if topo_mode != "off" and (tc is None or tb is None):
         raise ValueError(f"topo_mode {topo_mode!r} needs tc and tb")
     if spec_decode:
@@ -754,19 +804,24 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                    device: DeviceLike = None, tc: Optional[TopoCounts] = None,
                    tb: Optional[TopoBatch] = None, topo_mode: str = "off",
                    vd_override: Optional[int] = None, host_key: int = 0,
-                   spec_decode: bool = False, ports_enabled: bool = True) -> BatchResult:
+                   spec_decode: bool = False, ports_enabled: bool = True,
+                   extra_mask: Optional[torch.Tensor] = None,
+                   dra_mask: Optional[torch.Tensor] = None) -> BatchResult:
     """Schedule one encoded batch on ``device`` (default: the CUDA card;
     ``device="cpu"`` runs the plain versions). Every input must already lie
-    there. The topology, ``spec_decode`` and ``ports_enabled`` arguments are
-    those of ``schedule_batch_core``. Returns the BatchResult with the packed
-    block filled in."""
+    there, the masks included. The topology, ``spec_decode``,
+    ``ports_enabled`` and mask arguments are those of
+    ``schedule_batch_core``. Returns the BatchResult with the packed block
+    filled in."""
     device = resolve_device(device)
     check_on(device, valid=nt.valid, allocatable=nt.allocatable,
              pod_valid=pb.valid, pod_req=pb.req, expr_op=et.op,
              sel_counts=tc.sel_counts if tc is not None else None,
-             tb_sf_valid=tb.sf_valid if tb is not None else None)
+             tb_sf_valid=tb.sf_valid if tb is not None else None,
+             extra_mask=extra_mask, dra_mask=dra_mask)
     res = schedule_batch_core(pb, et, nt, {**DEFAULT_WEIGHTS, **(weights or {})}, tc, tb,
-                              topo_mode, vd_override, host_key, spec_decode, ports_enabled)
+                              topo_mode, vd_override, host_key, spec_decode, ports_enabled,
+                              extra_mask, dra_mask)
     res.packed = pack_result_block(res.node_idx, res.first_fail)
     return res
 

@@ -11,48 +11,82 @@ order. Pods with topology spread constraints or inter-pod (anti-)affinity
 run in one of two topology modes (``_topo_mode_info``), the rest in mode
 ``off``. Each batch takes one commit path (``batch.spec_decode_eligible``):
 the fused kernel (mode ``off``) or the topology scan, or the speculative
-rounds. Only the features this path implements are accepted:
-a pod with DRA claims, volumes or a gang label raises NotImplementedError
-rather than being placed by a path that would ignore those terms.
+rounds.
+
+DRA claims and bound PVCs need the object store (``client``,
+``apiserver/store.py``). The encode stage builds the host volume screen
+(``ops/volume_mask.py``) and the device claim mask (``backend/
+claim_mask.py``) for the batch, and both join the static phase. At bind, in
+batch order, a volume pod re-runs the exact volume filters on its chosen
+node and a claim pod resolves its claims again and allocates them there
+(Reserve). A pod that fails is not bound and ``schedule`` returns None for
+it: a Reserve conflict (a claim that an earlier pod of the batch allocated
+to another node) lands in ``retry`` (resubmitted, the pod is pinned to the
+allocated node), a failed volume check or a vanished claim in ``fallback``
+(the JAX package hands such a pod to its sequential path, which the port
+does not have yet). Only what this path implements is accepted: a claim or
+volume pod without a store, a missing claim, class or PVC, an unbound or
+delayed-binding PVC, ephemeral volumes and gang labels raise
+NotImplementedError rather than being placed by a path that would ignore
+them.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+import torch
 
 from ..api.types import POD_GROUP_LABEL, Pod
+from ..apiserver.store import Conflict
 from ..cache.snapshot import Snapshot
+from ..framework.plugins import dynamicresources, volume
 from ..framework.plugins.interpodaffinity import HOSTNAME_KEY, NsLabelsFn
 from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
+from ..ops.volume_mask import VolumeMaskBuilder
 from ..utils.device import DeviceLike
 from .batch import (DEFAULT_WEIGHTS, schedule_batch, spec_decode_eligible,
                     unpack_result_block)
+from .claim_mask import ClaimMaskBuilder
 from .device_state import DeviceState, caps_for_cluster
 
 
 STAGES = ("sync", "encode", "dispatch", "read", "bind")
+# host seconds inside the stages: the volume screen and the claim mask's
+# build and enqueue (both in encode), the commit checks (in bind)
+SCREENS = ("volume_mask", "claim_mask", "commit_checks")
 
 
-def unsupported_reason(pod: Pod) -> Optional[str]:
-    """Why the main path cannot place ``pod`` (the later slice that will),
-    or None when it can."""
+def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
+    """Why this path cannot place ``pod`` (and the slice that will), or
+    None when it can. ``client`` is the object store claims and PVCs
+    resolve in."""
     spec = pod.spec
-    if spec.resource_claims:
-        return "resource claims (DRA and volumes slice)"
-    if spec.volumes or spec.ephemeral_claims:
-        return "volumes (DRA and volumes slice)"
+    if spec.ephemeral_claims:
+        return "generic ephemeral volumes (scheduler loop slice)"
     if POD_GROUP_LABEL in pod.meta.labels:
         return "gang membership (gangs and slices slice)"
+    if (spec.resource_claims or spec.volumes) and client is None:
+        return "resource claims or volumes without an object store"
+    if spec.resource_claims and not ClaimMaskBuilder(client).batchable(pod):
+        return "a resource claim or its class does not resolve"
+    for name in spec.volumes:
+        pvc = client.get_pvc(f"{pod.meta.namespace}/{name}")
+        if pvc is None:
+            return f"persistentvolumeclaim {name!r} does not exist"
+        if not pvc.bound_pv:
+            return (f"persistentvolumeclaim {name!r} is unbound (delayed binding comes "
+                    "with the scheduler loop slice)")
     return None
 
 
 class BatchScheduler:
     def __init__(self, node_infos: Iterable[NodeInfo], caps: Optional[Capacities] = None,
-                 device: DeviceLike = None, ns_labels_fn: Optional[NsLabelsFn] = None):
+                 device: DeviceLike = None, ns_labels_fn: Optional[NsLabelsFn] = None,
+                 client=None):
         infos = list(node_infos)
         self.caps = caps or caps_for_cluster(len(infos))
         self.state = DeviceState(self.caps, device, ns_labels_fn)
@@ -68,6 +102,15 @@ class BatchScheduler:
         # uploaded, static phase and the kernel or the scan enqueued), read (the
         # blocking device-to-host read, which waits for the device) and bind
         self.stage_seconds = dict.fromkeys(STAGES, 0.0)
+        self.screen_seconds = dict.fromkeys(SCREENS, 0.0)
+        self.client = client  # the object store of claims and volumes, or None
+        self._volume_masks = VolumeMaskBuilder(client)
+        self._claim_masks = ClaimMaskBuilder(client)
+        # pod key -> reason, for pods the commit checks turned away: retry
+        # holds Reserve conflicts (resubmit them), fallback the pods whose
+        # volume check failed or whose claim vanished
+        self.retry: Dict[str, str] = {}
+        self.fallback: Dict[str, str] = {}
 
     def add_node(self, ni: NodeInfo) -> None:
         """Add or replace a node (its pods come with its NodeInfo)."""
@@ -80,7 +123,7 @@ class BatchScheduler:
         """Place ``pods`` in order, in batches; returns pod key -> node name,
         or None when no node fits."""
         for pod in pods:
-            reason = unsupported_reason(pod)
+            reason = unsupported_reason(pod, self.client)
             if reason is not None:
                 raise NotImplementedError(f"pod {pod.key()}: {reason}")
         out: Dict[str, Optional[str]] = {}
@@ -121,25 +164,37 @@ class BatchScheduler:
         # registers the batch's signatures and terms: tc is read after it
         tb = state.sig_table.encode_topo(pods)
         mode, vd, host_key = self._topo_mode_info()
+        masks = self._screens(pods, int(pb.valid.shape[0]))
         t.append(time.perf_counter())
         topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
                                               vd_override=vd, host_key=host_key)
         spec = spec_decode_eligible(mode, self.device)
         res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device,
                              spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
-                             **topo)
+                             **topo, **masks)
         t.append(time.perf_counter())
         # the ONE device-to-host read of the batch
         node_idx, _first_fail = unpack_result_block(res.packed, self.caps.nodes)
         t.append(time.perf_counter())
         slot_names = state.slot_to_name()
         placed: Dict[str, Optional[str]] = {}
+        rejected: Set[str] = set()
         for i, pod in enumerate(pods):
             slot = int(node_idx[i])
             if slot < 0:
                 placed[pod.key()] = None
                 continue
             name = slot_names[slot]
+            if pod.spec.volumes or pod.spec.resource_claims:
+                t0 = time.perf_counter()
+                turned_away = self._commit_checks(pod, name)
+                self.screen_seconds["commit_checks"] += time.perf_counter() - t0
+                if turned_away:
+                    placed[pod.key()] = None
+                    rejected.add(name)
+                    continue
+                self.retry.pop(pod.key(), None)  # placed on a resubmission
+                self.fallback.pop(pod.key(), None)
             bound_pod = pod.clone()
             bound_pod.spec.node_name = name
             self.snapshot.node_info_map[name].add_pod(bound_pod)  # bumps the generation
@@ -147,6 +202,10 @@ class BatchScheduler:
             placed[pod.key()] = name
         state.adopt_device(res)
         state.adopt_commits(res, host_pb, node_idx)
+        # the carry and the mirror hold the commits of the pods turned away:
+        # the next sync uploads those rows again from the snapshot
+        for name in rejected:
+            state.invalidate_row(name)
         t.append(time.perf_counter())
         for stage, a, b in zip(STAGES, t, t[1:]):
             self.stage_seconds[stage] += b - a
@@ -154,3 +213,53 @@ class BatchScheduler:
         self.batch_modes.append(mode)
         self.batch_paths.append("spec" if spec else "fused" if mode == "off" else "scan")
         return placed
+
+    def _screens(self, pods: Sequence[Pod], pad_to: int) -> Dict[str, torch.Tensor]:
+        """The batch's volume screen (built on the host, uploaded once) and
+        claim mask (built on the batch's device), as schedule_batch's
+        ``extra_mask`` and ``dra_mask``; only those the batch needs."""
+        if self.client is None:
+            return {}
+        state, out = self.state, {}
+        t0 = time.perf_counter()
+        vol = self._volume_masks.build(pods, self.snapshot, state.encoder,
+                                       self.caps.nodes, pad_to)
+        if vol is not None:
+            out["extra_mask"] = torch.tensor(vol, device=self.device)
+        t1 = time.perf_counter()
+        dra = self._claim_masks.build(pods, state, pad_to)
+        if dra is not None:
+            out["dra_mask"] = dra
+        self.screen_seconds["volume_mask"] += t1 - t0
+        self.screen_seconds["claim_mask"] += time.perf_counter() - t1
+        return out
+
+    def _commit_checks(self, pod: Pod, node_name: str) -> bool:
+        """The host checks of a volume or claim pod on its chosen node, as
+        the JAX commit path runs them: the PreFilters (a failure: fallback),
+        the exact volume filters on the node (fallback), then Reserve of the
+        claims (a conflict: retry; a vanished claim: fallback). The node's
+        NodeInfo holds the batch's earlier binds. Returns True when the pod
+        was turned away, and records why."""
+        client, key = self.client, pod.key()
+        ni = self.snapshot.node_info_map[node_name]
+        rwop, bound, reason = set(), [], None
+        if pod.spec.volumes:
+            rwop, reason = volume.volume_restrictions_pre_filter(
+                client, pod, self.snapshot.node_info_map.values())
+            if reason is None:
+                bound, reason = volume.volume_binding_pre_filter(client, pod)
+        claims = []
+        if reason is None and pod.spec.resource_claims:
+            claims, reason = dynamicresources.pre_filter(client, pod)
+        if reason is None and pod.spec.volumes:
+            reason = volume.verify_on_node(client, pod, ni, rwop, bound)
+        if reason is not None:
+            self.fallback[key] = reason
+            return True
+        failed = dynamicresources.reserve(client, pod, node_name, claims)
+        if failed is None:
+            return False
+        target = self.retry if isinstance(failed, Conflict) else self.fallback
+        target[key] = f"{dynamicresources.ERR_REASON_CANNOT_ALLOCATE}: {failed}"
+        return True

@@ -1,0 +1,111 @@
+"""The batched claim-feasibility screen for resource.k8s.io claims.
+
+Own copy of ``kubernetes_tpu/backend/claim_mask.py`` without the wire
+helpers. Claims allocate at node granularity, so a pod's claim feasibility
+is a static per-batch predicate: the merged class and claim selectors
+against the node-published attribute table that ``DeviceState`` keeps on
+the device. ``build_dra_mask`` encodes each pod's selectors into int32 rows
+and runs ``backend/batch.py:claim_feasibility_mask`` once on the batch's
+device; the result joins the static phase as ``dra_mask`` (first-fail id
+10, DynamicResources).
+
+Host-side: a claim already allocated pins the pod to its node (a
+restriction row built from the encoder's slot map), and the commit path's
+Reserve allocates exactly, so two pods of one batch that share an
+unallocated claim cannot both allocate it to different nodes: the second
+fails Reserve and is retried against the allocation.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..api import dra
+from .batch import claim_feasibility_mask
+from .device_state import _bucket
+
+
+def build_dra_mask(device_state, entries, pad_to: int) -> Optional[torch.Tensor]:
+    """``entries`` is [(pod index, [DeviceSelector...], [allocated node
+    names])]. Returns the [pad_to, nodes] bool mask on the device state's
+    device, or None without entries. Selector encoding registers attribute
+    keys and string operands in the table first (the table may grow here),
+    so the mask reads the grown table."""
+    if not entries:
+        return None
+    n_cap = device_state.caps.nodes
+    restrict: Optional[np.ndarray] = None
+    s_cap = _bucket(max((len(sels) for _p, sels, _a in entries), default=1), floor=4)
+    sel_key = np.zeros((pad_to, s_cap), np.int32)
+    sel_op = np.full((pad_to, s_cap), -1, np.int32)   # -1 = padding
+    sel_kind = np.zeros((pad_to, s_cap), np.int32)
+    sel_val = np.zeros((pad_to, s_cap), np.int32)
+    for p, sels, allocated in entries:
+        if p < 0 or p >= pad_to:
+            continue
+        for s, sel in enumerate(sels):
+            sel_key[p, s] = device_state.attr_slot(sel.key)
+            sel_op[p, s] = sel.op
+            sel_kind[p, s] = sel.operand_kind
+            sel_val[p, s] = (sel.operand if sel.operand_kind == dra.KIND_INT
+                             else device_state.attr_value_id(sel.operand))
+        for node in allocated:
+            if restrict is None:
+                restrict = np.ones((pad_to, n_cap), bool)
+            slot = device_state.encoder.node_slots.get(node)
+            row = np.zeros(n_cap, bool)
+            if slot is not None:
+                row[slot] = True
+            restrict[p] &= row
+    dev = device_state.device
+    mask = claim_feasibility_mask(
+        *(torch.tensor(a, device=dev) for a in (sel_key, sel_op, sel_kind, sel_val)),
+        device_state.attr_kind, device_state.attr_val)
+    if restrict is not None:
+        mask = mask & torch.tensor(restrict, device=dev)
+    return mask
+
+
+def claim_rows_for_pod(client, pod) -> Tuple[List[dra.DeviceSelector], List[str]]:
+    """(merged selectors, allocated nodes) across a pod's claims.
+    Unresolvable claims are skipped: the commit-time checks own them."""
+    sels: List[dra.DeviceSelector] = []
+    allocated: List[str] = []
+    for _name, claim_key in dra.claim_refs_for_pod(pod):
+        claim = client.get_object("ResourceClaim", claim_key)
+        if claim is None:
+            continue
+        merged, err = dra.selectors_for_claim(client, claim)
+        if err:
+            continue
+        sels.extend(merged)
+        if claim.allocated_node:
+            allocated.append(claim.allocated_node)
+    return sels, allocated
+
+
+class ClaimMaskBuilder:
+    def __init__(self, client):
+        self.client = client
+
+    def batchable(self, pod) -> bool:
+        """Every referenced ResourceClaim exists and its class resolves."""
+        for _name, claim_key in dra.claim_refs_for_pod(pod):
+            claim = self.client.get_object("ResourceClaim", claim_key)
+            if claim is None:
+                return False
+            _sels, err = dra.selectors_for_claim(self.client, claim)
+            if err:
+                return False
+        return True
+
+    def build(self, pods, device_state, pad_to: int) -> Optional[torch.Tensor]:
+        """[pad_to, nodes] bool on the device, or None when no pod of the
+        batch carries claims. Rows of claim-less and padding pods are
+        all-True."""
+        entries = [(p, *claim_rows_for_pod(self.client, pod))
+                   for p, pod in enumerate(pods) if pod.spec.resource_claims]
+        return build_dra_mask(device_state, entries, pad_to)

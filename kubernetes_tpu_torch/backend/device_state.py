@@ -10,6 +10,14 @@ are tombstoned (row zeroed, slot to the encoder's free-list for reuse).
 device truth and advance the mirror by the same commits, so the next sync
 uploads nothing for commit-only changes.
 
+Device attributes (resource.k8s.io DRA) live in a table of their own,
+``attr_kind`` / ``attr_val`` ([N, A] int32 on the device; kind 0 = absent,
+1 = int, 2 = interned string id), outside the row mirror: no batch commit
+touches them. ``sync`` records the published map of every dirty or removed
+node and uploads the whole table again when one changed. The attribute-key
+axis grows by doubling; string values are refcounted and their freed ids
+recycled, in the JAX package's order.
+
 Topology counts live in a ``SigTable`` (host truth, numpy): ``sync``
 recounts every removed or dirty node slot there, and ``tc`` uploads the
 tables again only when the table's version moved. A batch's evolved topology
@@ -26,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..api import dra
 from ..cache.snapshot import Snapshot
 from ..framework.types import NodeInfo
 from ..ops.encode import ClusterEncoder
@@ -83,6 +92,21 @@ class DeviceState:
         d["image_num_nodes"] = np.zeros(caps.images, np.int32)
         d["class_prio"] = self.encoder.class_prio_array()
         self.nt = NodeTensors.from_numpy(d, self.device)
+        # --- device-attribute table ---------------------------------------
+        self.attr_slots: Dict[str, int] = {}    # attribute key -> column
+        self.attr_val_ids: Dict[str, int] = {}  # string value vocab (ids from 1)
+        # per-value publishing-node counts; an id freed at refcount zero
+        # joins the free list and is recycled before the counter grows.
+        # Selector operands interned without a publishing node stay pinned.
+        self._attr_val_refs: Dict[str, int] = {}
+        self._attr_val_free: List[int] = []
+        self._attr_val_next = 1
+        self._node_attr_values: Dict[str, frozenset] = {}
+        self._node_attrs: Dict[str, dict] = {}  # name -> last-synced mapping
+        self._attr_cols = 8
+        self._attr_kind_m = np.zeros((caps.nodes, self._attr_cols), np.int32)
+        self._attr_val_m = np.zeros((caps.nodes, self._attr_cols), np.int32)
+        self._upload_attr_table()
 
     @property
     def tc(self) -> TopoCounts:
@@ -113,6 +137,7 @@ class DeviceState:
         # removed nodes FIRST, so a node added in the same sync reuses the
         # freed slot instead of growing the axis
         removed = [n for n in self.encoder.node_slots if n not in current]
+        attr_pending: Dict[int, dict] = {}
         for name in removed:
             self._uploaded_gen.pop(name, None)
             slot = self.encoder.release_node_slot(name)
@@ -120,6 +145,7 @@ class DeviceState:
             if slot is not None:
                 dirty.append((slot, NodeInfo()))  # empty row: valid=False
                 self.sig_table.recount_node(slot, None)
+                self._track_attrs(name, None, slot, attr_pending)
             images_changed |= self._track_images(name, None)
         for name, ni in current.items():
             if self._uploaded_gen.get(name) == ni.generation:
@@ -128,6 +154,7 @@ class DeviceState:
             dirty.append((slot, ni))
             self._uploaded_gen[name] = ni.generation
             images_changed |= self._track_images(name, ni)
+            self._track_attrs(name, ni, slot, attr_pending)
             self.encoder.retain_node_values(name, ni.node)
             self.sig_table.recount_node(slot, ni)
         if removed and dirty:
@@ -135,6 +162,8 @@ class DeviceState:
             # keep only the last write per slot
             dirty = list({slot: (slot, ni) for slot, ni in dirty}.values())
         getattr(snapshot, "changed_names", set()).clear()
+        # the attribute table uploads even when every row below is elided
+        self._upload_attrs(attr_pending)
         if not dirty:
             self._refresh_class_prio()
             return 0
@@ -180,6 +209,114 @@ class DeviceState:
         self.nt.image_sizes = tensor_from_numpy("image_sizes", sizes, self.device)
         self.nt.image_num_nodes = tensor_from_numpy("image_num_nodes", counts, self.device)
 
+    # ------------------------------------------------------- device attributes
+
+    def attr_slot(self, key: str) -> int:
+        """Column for an attribute key, registering it (and doubling the
+        axis) on first sight. Selector encoding registers keys too, so a
+        selector on a never-published key reads a real, all-absent column."""
+        slot = self.attr_slots.get(key)
+        if slot is None:
+            slot = len(self.attr_slots)
+            self.attr_slots[key] = slot
+            while slot >= self._attr_cols:
+                self._grow_attr_cols()
+        return slot
+
+    def _grow_attr_cols(self) -> None:
+        cols = self._attr_cols * 2
+        pad = ((0, 0), (0, cols - self._attr_cols))
+        self._attr_kind_m = np.pad(self._attr_kind_m, pad)
+        self._attr_val_m = np.pad(self._attr_val_m, pad)
+        self._attr_cols = cols
+        self._upload_attr_table()
+
+    def _upload_attr_table(self) -> None:
+        # a copy, never an alias: the host table keeps changing
+        self.attr_kind = torch.tensor(self._attr_kind_m, device=self.device)
+        self.attr_val = torch.tensor(self._attr_val_m, device=self.device)
+
+    def attr_value_id(self, value: str) -> int:
+        """Interned id of a string attribute value (shared by node rows and
+        selector operands: string equality becomes id equality). Freed ids
+        are recycled, last freed first, before the counter grows."""
+        vid = self.attr_val_ids.get(value)
+        if vid is None:
+            if self._attr_val_free:
+                vid = self._attr_val_free.pop()
+            else:
+                vid = self._attr_val_next
+                self._attr_val_next += 1
+            self.attr_val_ids[value] = vid
+        return vid
+
+    def _retain_attr_values(self, name: str, attrs: dict) -> None:
+        """Refcount the string values ``name`` publishes; a value no node
+        publishes any more frees its id."""
+        new = set()
+        for raw in attrs.values():
+            kind, val = dra.attr_kind_val(raw)
+            if kind == dra.KIND_STR:
+                new.add(val)
+        new = frozenset(new)  # built as the JAX package builds it: same set order
+        old = self._node_attr_values.get(name, frozenset())
+        if new == old:
+            return
+        for v in new - old:
+            self._attr_val_refs[v] = self._attr_val_refs.get(v, 0) + 1
+        for v in old - new:
+            left = self._attr_val_refs.get(v, 0) - 1
+            if left > 0:
+                self._attr_val_refs[v] = left
+                continue
+            self._attr_val_refs.pop(v, None)
+            vid = self.attr_val_ids.pop(v, None)
+            if vid is not None:
+                self._attr_val_free.append(vid)
+        if new:
+            self._node_attr_values[name] = new
+        else:
+            self._node_attr_values.pop(name, None)
+
+    def _track_attrs(self, name: str, ni: Optional[NodeInfo], slot: int,
+                     pending: Dict[int, dict]) -> None:
+        """Record a dirty or removed node's attribute map for upload when it
+        changed. Values are retained before any row encodes, so an id freed
+        here can be recycled by this sync's newcomers."""
+        node = ni.node if ni is not None else None
+        attrs = dict(node.status.device_attributes or {}) if node is not None else {}
+        if self._node_attrs.get(name, {}) == attrs:
+            return
+        self._retain_attr_values(name, attrs)
+        if attrs:
+            self._node_attrs[name] = attrs
+        else:
+            self._node_attrs.pop(name, None)
+        for key in attrs:
+            self.attr_slot(key)  # register first: rows encode after growth
+        pending[slot] = attrs
+
+    def _upload_attrs(self, pending: Dict[int, dict]) -> None:
+        """Encode the pending rows and upload the whole table: attribute
+        maps change only with node-object churn, and [N, A] int32 is small."""
+        if not pending:
+            return
+        for slot, attrs in pending.items():
+            krow = np.zeros(self._attr_cols, np.int32)
+            vrow = np.zeros(self._attr_cols, np.int32)
+            for key, raw in attrs.items():
+                kind, val = dra.attr_kind_val(raw)
+                if kind == dra.KIND_ABSENT:
+                    continue
+                col = self.attr_slot(key)
+                krow[col] = kind
+                vrow[col] = val if kind == dra.KIND_INT else self.attr_value_id(val)
+            self._attr_kind_m[slot] = krow
+            self._attr_val_m[slot] = vrow
+        self._upload_attr_table()
+
+    # ------------------------------------------------------- batch adoption
+
     def adopt_device(self, result) -> None:
         """Take the batch's evolved dynamic state as the new device truth.
         The mirror owns those tensors from here on: a later ``sync`` writes
@@ -207,6 +344,14 @@ class DeviceState:
             for pid in port_ids[i]:
                 if pid > 0:
                     self._mirror["port_bits"][slot, pid >> 5] |= np.uint32(1) << np.uint32(pid & 31)
+
+    def invalidate_row(self, name: str) -> None:
+        """Forget the generation uploaded for ``name``: the next ``sync``
+        re-encodes its row from the snapshot and, where the row differs
+        from the mirror (which the adopted carry has advanced), uploads it.
+        The one way to drop a row the host rejected after the device
+        committed to it."""
+        self._uploaded_gen.pop(name, None)
 
     def _track_images(self, name: str, ni) -> bool:
         """Maintain global image num-node counts (first-seen size wins,

@@ -2,7 +2,9 @@
 
 The subset of ``kubernetes_tpu/cache/snapshot.py`` that ``DeviceState.sync``
 consumes: NodeInfos keyed by name, a version that bumps on membership
-changes, and the names changed since the device last consumed them.
+changes, one that bumps whenever a node object is set or removed (the
+volume screen's label index keys on both), and the names changed since the
+device last consumed them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ class Snapshot:
         self.node_info_map: Dict[str, NodeInfo] = {}
         self.changed_names: Set[str] = set()
         self.structure_version: int = 0
+        self.node_object_version: int = 0
         for ni in node_infos or ():
             self.set(ni)
 
@@ -25,10 +28,12 @@ class Snapshot:
         name = ni.node.meta.name
         if name not in self.node_info_map:
             self.structure_version += 1
+        self.node_object_version += 1
         self.node_info_map[name] = ni
         self.changed_names.add(name)
 
     def remove(self, name: str) -> None:
         if self.node_info_map.pop(name, None) is not None:
             self.structure_version += 1
+            self.node_object_version += 1
             self.changed_names.add(name)

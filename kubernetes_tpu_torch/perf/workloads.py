@@ -15,6 +15,18 @@ op lists) and ``kubernetes_tpu/perf/harness.py`` (``_node_wrapper`` and
 * TopologySpreading (:283-308): plain init pods, then pods carrying
   spread-app=spread with a maxSkew 1 DoNotSchedule constraint on the zone
   key over spread-app=spread.
+* SchedulingInTreePVs (:74-97): pods of 100m / 500Mi, each with its own
+  pre-bound in-tree EBS PV and PVC (pv-aws.yaml, pvc.yaml; ReadOnlyMany,
+  1 GiB), as ``kubernetes_tpu/perf/harness.py:511-535`` creates them.
+* SchedulingDRA (``kubernetes_tpu/perf/workloads.py:230-258``): nodes
+  publishing tpu.dev/cores in [8, 16] and tpu.dev/gen in [v5, v5, v4, v5]
+  (value i % len), pods of 100m / 500Mi with one claim from template
+  tpu-claim of class tpu.example.com (class: gen == v5; claim: cores >= 8).
+  The store holds one ResourceClaim per pod, ``<pod>-accel``, as the JAX
+  resourceclaim controller leaves it.
+
+``Workload.store()`` builds a fresh object store for the workloads that
+need one (claims and volumes), with every pod's objects in it.
 """
 
 from __future__ import annotations
@@ -22,8 +34,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
-from ..api.types import LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE, LabelSelector, Pod
+from ..api.types import (LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE, ROX, LabelSelector, ObjectMeta,
+                         PersistentVolume, PersistentVolumeClaim, Pod, ResourceClaim,
+                         ResourceClass)
 from ..api.wrappers import make_node, make_pod
+from ..apiserver.store import Store
 from ..framework.types import NodeInfo
 
 _NODE_CAPACITY = {"cpu": "32", "memory": "128Gi", "pods": 110}
@@ -31,18 +46,37 @@ _DEFAULT_REQ = {"cpu": "900m", "memory": "2Gi"}
 _SMALL_REQ = {"cpu": "100m", "memory": "500Mi"}
 
 
-def scheduling_basic_nodes(count: int, zones: int = 10) -> List[NodeInfo]:
+def scheduling_basic_nodes(count: int, zones: int = 10,
+                           device_attributes: Optional[Dict[str, tuple]] = None
+                           ) -> List[NodeInfo]:
+    """``device_attributes``: per key, the values node i publishes value
+    ``i % len`` of (harness.py ``_node_wrapper``)."""
     infos = []
     for i in range(count):
         nw = make_node(f"node-{i}").capacity(_NODE_CAPACITY)
         nw.label(LABEL_TOPOLOGY_ZONE, f"zone-{i % zones}")
         nw.label(LABEL_HOSTNAME, f"node-{i}")
+        if device_attributes:
+            nw.device_attrs({k: v[i % len(v)] for k, v in device_attributes.items()})
         infos.append(NodeInfo(nw.obj()))
     return infos
 
 
 def scheduling_basic_pods(prefix: str, count: int) -> List[Pod]:
     return [make_pod(f"{prefix}-{i}").req(_DEFAULT_REQ).obj() for i in range(count)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ClaimShape:
+    """One claim-template entry of a pod (``kubernetes_tpu/perf/workloads.py``
+    ``scheduling_dra``): the pod's claim ``<pod>-<name>``, of ``klass``,
+    with the template's selectors."""
+
+    name: str
+    template: str
+    klass: str
+    class_selectors: Dict[str, object]
+    selectors: Dict[str, object]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,11 +92,19 @@ class PodShape:
     anti: bool = False
     # pod-with-topology-spreading.yaml: label spread-app=<prefix>, maxSkew 1
     spread_key: Optional[str] = None
+    # a resource.k8s.io claim from a template, one per pod
+    claim: Optional[ClaimShape] = None
+    # a pre-bound PV (of this in-tree volume type) and PVC per pod
+    pv_volume_type: Optional[str] = None
 
     def pods(self, count: int) -> List[Pod]:
         out = []
         for i in range(count):
             pw = make_pod(f"{self.prefix}-{i}").req(self.req)
+            if self.claim:
+                pw.resource_claim(self.claim.name, template_name=self.claim.template)
+            if self.pv_volume_type is not None:
+                pw.pvc(f"pvc-{self.prefix}-{i}")
             if self.affinity_key:
                 for k, v in self.affinity_labels.items():
                     pw.label(k, v)
@@ -76,6 +118,30 @@ class PodShape:
             out.append(pw.obj())
         return out
 
+    def populate(self, store: Store, count: int, namespace: str = "default") -> None:
+        """The objects of ``count`` pods of this shape: the claim class and
+        each pod's claim, or each pod's bound PV and PVC."""
+        c = self.claim
+        if c and store.get_object("ResourceClass", c.klass) is None:
+            store.create_object("ResourceClass", ResourceClass(
+                meta=ObjectMeta(name=c.klass, namespace=""), driver_name=c.klass,
+                selectors=dict(c.class_selectors)))
+        for i in range(count if c or self.pv_volume_type is not None else 0):
+            if c:
+                store.create_object("ResourceClaim", ResourceClaim(
+                    meta=ObjectMeta(name=f"{self.prefix}-{i}-{c.name}", namespace=namespace),
+                    resource_class_name=c.klass, selectors=dict(c.selectors)))
+            if self.pv_volume_type is not None:
+                pv_name, pvc_name = f"pv-{self.prefix}-{i}", f"pvc-{self.prefix}-{i}"
+                store.create_pv(PersistentVolume(
+                    meta=ObjectMeta(name=pv_name), capacity_bytes=1 << 30,
+                    bound_pvc=f"{namespace}/{pvc_name}", access_modes=(ROX,),
+                    volume_type=self.pv_volume_type))
+                store.create_pvc(PersistentVolumeClaim(
+                    meta=ObjectMeta(name=pvc_name, namespace=namespace,
+                                    annotations={"pv.kubernetes.io/bind-completed": "true"}),
+                    bound_pv=pv_name, access_modes=(ROX,), requested_bytes=1 << 30))
+
 
 @dataclasses.dataclass(frozen=True)
 class Workload:
@@ -88,10 +154,11 @@ class Workload:
     measured: PodShape
     measured_pods: int
     one_zone: bool = False  # every node in zone1, else 10 zones
+    device_attributes: Optional[Dict[str, tuple]] = None
 
     def node_infos(self) -> List[NodeInfo]:
         if not self.one_zone:
-            return scheduling_basic_nodes(self.nodes)
+            return scheduling_basic_nodes(self.nodes, device_attributes=self.device_attributes)
         infos = []
         for i in range(self.nodes):
             nw = make_node(f"node-{i}").capacity(_NODE_CAPACITY)
@@ -105,6 +172,17 @@ class Workload:
 
     def measured_pod_list(self) -> List[Pod]:
         return self.measured.pods(self.measured_pods)
+
+    def store(self) -> Optional[Store]:
+        """A fresh object store with every pod's claims or volumes, or None
+        when the workload needs none."""
+        shapes = ((self.init, self.init_pods), (self.measured, self.measured_pods))
+        if not any(s.claim or s.pv_volume_type is not None for s, _ in shapes):
+            return None
+        store = Store()
+        for shape, count in shapes:
+            shape.populate(store, count)
+        return store
 
 
 def scheduling_basic(nodes: int = 5000, init_pods: int = 1000,
@@ -134,3 +212,23 @@ def topology_spreading(nodes: int = 5000, init_pods: int = 5000,
                        measured: int = 2000) -> Workload:
     return Workload(f"TopologySpreading/{nodes}Nodes", nodes, PodShape("init"), init_pods,
                     PodShape("spread", spread_key=LABEL_TOPOLOGY_ZONE), measured)
+
+
+def scheduling_intree_pvs(nodes: int = 5000, init_pods: int = 5000,
+                          measured: int = 1000) -> Workload:
+    shape = dict(req=_SMALL_REQ, pv_volume_type="ebs")
+    return Workload(f"SchedulingInTreePVs/{nodes}Nodes", nodes, PodShape("init", **shape),
+                    init_pods, PodShape("pv", **shape), measured)
+
+
+TPU_CLAIM = ClaimShape("accel", "tpu-claim", "tpu.example.com",
+                       class_selectors={"tpu.dev/gen": "v5"},
+                       selectors={"tpu.dev/cores": ">=8"})
+
+
+def scheduling_dra(nodes: int = 5000, init_pods: int = 1000, measured: int = 1000) -> Workload:
+    shape = dict(req=_SMALL_REQ, claim=TPU_CLAIM)
+    return Workload(f"SchedulingDRA/{nodes}Nodes", nodes, PodShape("init", **shape), init_pods,
+                    PodShape("dra", **shape), measured,
+                    device_attributes={"tpu.dev/cores": (8, 16),
+                                       "tpu.dev/gen": ("v5", "v5", "v4", "v5")})

@@ -441,3 +441,213 @@ def f32_bits(a) -> np.ndarray:
     """Bit pattern of a float32 array (for bit-exact comparison)."""
     a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
     return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+
+
+# ----------------------------------------------------------------- DRA and volumes
+
+
+class JaxSnapshot:
+    """The part of the JAX cache snapshot its volume screen and
+    ``TPUScheduler._verify_volumes_on_node`` read, over a NodeInfo dict."""
+
+    def __init__(self, infos: dict):
+        self.infos = infos
+        self.structure_version = self.node_object_version = 0
+
+    @property
+    def node_info_list(self):
+        return list(self.infos.values())
+
+    def get(self, name):
+        return self.infos.get(name)
+
+
+def jax_commit_checks(store, infos: dict):
+    """fn(pod, node name) -> None, ("retry", reason) or ("fallback", reason):
+    the JAX package's commit path for a volume or claim pod
+    (``TPUScheduler._commit_batch``): the PreFilters in the default order
+    (a failure: the sequential fallback), ``_verify_volumes_on_node`` with
+    the default volume filters, then the DynamicResources Reserve (a failure
+    requeues the pod: retry)."""
+    import types
+
+    from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu.framework.interface import CycleState
+    from kubernetes_tpu.framework.plugins.dynamicresources import DynamicResources
+    from kubernetes_tpu.framework.plugins.volume import (NodeVolumeLimits, VolumeBinding,
+                                                         VolumeRestrictions, VolumeZone)
+
+    snap = JaxSnapshot(infos)
+    vr = VolumeRestrictions(client=store, snapshot_fn=lambda: list(infos.values()))
+    vb = VolumeBinding(client=store, volume_capacity_priority=False)
+    dr = DynamicResources(client=store)
+    fwk = types.SimpleNamespace(points={"filter": [
+        (p, 0) for p in (vr, NodeVolumeLimits(client=store), vb, VolumeZone(client=store))]})
+    shim = types.SimpleNamespace(snapshot=snap, _VOLUME_FILTERS=TPUScheduler._VOLUME_FILTERS)
+
+    def check(pod, node_name):
+        state = CycleState()
+        for plugin in ((vr, vb) if pod.spec.volumes else ()) + (dr,):
+            _, st = plugin.pre_filter(state, pod)
+            if not st.is_success():
+                return ("fallback", st.reasons)
+        if pod.spec.volumes:
+            st = TPUScheduler._verify_volumes_on_node(shim, fwk, state, pod, node_name)
+            if not st.is_success():
+                return ("fallback", st.reasons)
+        st = dr.reserve(state, pod, node_name)
+        if not st.is_success():
+            return ("retry", st.reasons)
+        return None
+
+    return check
+
+
+def jax_masked_loop(ds, fn, infos, store, pods, batch, turned_away: dict):
+    """The JAX batched path with the volume screen and the claim mask: per
+    batch ``VolumeMaskBuilder`` and ``ClaimMaskBuilder`` (as
+    ``tpu_scheduler.py:701-705`` builds them), the batch program with
+    ``extra_mask`` / ``dra_mask``, then in batch order the commit checks of
+    ``jax_commit_checks``; a pod turned away is recorded in ``turned_away``
+    (pod key -> "retry" or "fallback"), is not bound, and its node's row is
+    uploaded again by the next sync. Returns the placements."""
+    import jax
+
+    from kubernetes_tpu.backend import batch as jbatch
+    from kubernetes_tpu.backend.claim_mask import ClaimMaskBuilder
+    from kubernetes_tpu.ops.volume_mask import VolumeMaskBuilder
+
+    vmb, cmb = VolumeMaskBuilder(store), ClaimMaskBuilder(store)
+    check = jax_commit_checks(store, infos)
+    out = {}
+    for s in range(0, len(pods), batch):
+        chunk = pods[s:s + batch]
+        qps = [type("QP", (), {"pod": p})() for p in chunk]
+        ds.sync(SnapshotShim(infos.values()))
+        pb, et = ds.encoder.encode_pods(chunk)
+        tb = ds.sig_table.encode_topo(chunk)
+        extra = vmb.build(qps, JaxSnapshot(infos), ds.encoder, ds.caps.nodes, batch)
+        dra_mask = cmb.build(qps, ds, batch)
+        res = fn(pb, et, ds.nt, ds.tc, tb, jax.random.PRNGKey(0), topo_enabled=False,
+                 ports_enabled=ds.encoder.last_has_ports,
+                 extra_mask=None if extra is None else jax.numpy.asarray(extra),
+                 dra_mask=dra_mask)
+        node_idx = jbatch.unpack_result_block(res.packed, ds.caps.nodes)[0]
+        names = ds.slot_to_name()
+        rejected = set()
+        for i, pod in enumerate(chunk):
+            if node_idx[i] < 0:
+                out[pod.key()] = None
+                continue
+            name = names[int(node_idx[i])]
+            if pod.spec.volumes or pod.spec.resource_claims:
+                verdict = check(pod, name)
+                if verdict is not None:
+                    turned_away[pod.key()] = verdict[0]
+                    out[pod.key()] = None
+                    rejected.add(name)
+                    continue
+            turned_away.pop(pod.key(), None)
+            bound = pod.clone()
+            bound.spec.node_name = name
+            infos[name].add_pod(bound)
+            out[pod.key()] = name
+        ds.adopt_device(res)
+        ds.adopt_commits(res, ds.encoder.last_host_pb, node_idx)
+        for name in rejected:
+            ds._uploaded_gen.pop(name, None)  # TPUScheduler._invalidate_device_row
+    return out
+
+
+def populate_jax_store(store, op: dict) -> None:
+    """The objects the JAX harness and its resourceclaim controller leave
+    for one createPods / measurePods op: each pod's claim (``<pod>-<entry>``)
+    and its class, or each pod's pre-bound PV and PVC."""
+    from kubernetes_tpu.api.types import (ObjectMeta, PersistentVolume, PersistentVolumeClaim,
+                                          ResourceClaim, ResourceClass)
+
+    for cfg in op.get("claims") or ():
+        if store.get_object("ResourceClass", cfg["class"]) is None:
+            store.create_object("ResourceClass", ResourceClass(
+                meta=ObjectMeta(name=cfg["class"], namespace=""), driver_name=cfg["class"],
+                selectors=dict(cfg["class_selectors"])))
+    for i in range(op["count"]):
+        prefix = op["prefix"]
+        for cfg in op.get("claims") or ():
+            store.create_object("ResourceClaim", ResourceClaim(
+                meta=ObjectMeta(name=f"{prefix}-{i}-{cfg['name']}"),
+                resource_class_name=cfg["class"], selectors=dict(cfg["selectors"])))
+        if op.get("pvc"):
+            pv, pvc = f"pv-{prefix}-{i}", f"pvc-{prefix}-{i}"
+            store.create_pv(PersistentVolume(
+                meta=ObjectMeta(name=pv), capacity_bytes=1 << 30, bound_pvc=f"default/{pvc}",
+                access_modes=("ReadOnlyMany",), volume_type=op["pvc"]["volume_type"]))
+            store.create_pvc(PersistentVolumeClaim(
+                meta=ObjectMeta(name=pvc, annotations={"pv.kubernetes.io/bind-completed": "true"}),
+                bound_pv=pv, access_modes=("ReadOnlyMany",), requested_bytes=1 << 30))
+
+
+def jax_workload_pods(op: dict) -> list:
+    """The pods of one JAX op, named ``<prefix>-<i>`` from 0 as the port's
+    workloads name them, with the PVC the harness adds to each."""
+    from kubernetes_tpu.perf.harness import _pod_wrapper
+
+    pods = []
+    for i in range(op["count"]):
+        pw = _pod_wrapper(i, op["prefix"], op)
+        if op.get("pvc"):
+            pw.pvc(f"pvc-{op['prefix']}-{i}")
+        pods.append(pw.obj())
+    return pods
+
+
+# small versions of the claim and volume workloads: (node count, init pods,
+# measured pods, batch)
+MASKED_WORKLOADS = {
+    "scheduling_dra": (64, 40, 50, 16),
+    "scheduling_intree_pvs": (64, 60, 40, 16),
+}
+
+
+def run_masked_workload_both(name: str):
+    """A small MASKED_WORKLOADS workload through ``jax_masked_loop`` and the
+    port's BatchScheduler on the CPU. Returns (JAX placements, JAX store,
+    JAX turned-away, port placements, port store, the port's
+    BatchScheduler)."""
+    from kubernetes_tpu.apiserver.store import ClusterStore
+    from kubernetes_tpu.backend import batch as jbatch
+    from kubernetes_tpu.backend.device_state import DeviceState as JDeviceState
+    from kubernetes_tpu.ops.schema import Capacities as JCaps
+    from kubernetes_tpu.perf import workloads as jworkloads
+    from kubernetes_tpu.perf.harness import _node_wrapper
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.ops.schema import Capacities
+    from kubernetes_tpu_torch.perf import workloads
+
+    n, n_init, n_meas, batch = MASKED_WORKLOADS[name]
+    w = getattr(workloads, name)(nodes=n, init_pods=n_init, measured=n_meas)
+    jops = getattr(jworkloads, name)(nodes=n, init_pods=n_init, measured=n_meas)["ops"]
+    caps = dict(nodes=128, pods=batch, value_words=32)
+    jinfos = {}
+    for i in range(n):
+        ni = jax_api().NodeInfo(_node_wrapper(i, jops[0]).obj())
+        jinfos[ni.node.meta.name] = ni
+    jstore = ClusterStore()
+    for op in (jops[1], jops[3]):
+        populate_jax_store(jstore, op)
+    ds = JDeviceState(JCaps(**caps))
+    fn = jbatch.build_schedule_batch_fn()
+    placed_j, turned_j = {}, {}
+    for op in (jops[1], jops[3]):
+        placed_j.update(jax_masked_loop(ds, fn, jinfos, jstore, jax_workload_pods(op), batch,
+                                        turned_j))
+    tstore = w.store()
+    sched = BatchScheduler(w.node_infos(), caps=Capacities(**caps), device="cpu", client=tstore)
+    placed_t = sched.schedule(w.init_pod_list())
+    placed_t.update(sched.schedule(w.measured_pod_list()))
+    return placed_j, jstore, turned_j, placed_t, tstore, sched
+
+
+def claim_allocations(store) -> dict:
+    """claim key -> (allocated node, reserved-for pod keys)."""
+    return {k: (c.allocated_node, c.reserved_for) for k, c in store.resource_claims.items()}

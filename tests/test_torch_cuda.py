@@ -1,5 +1,7 @@
-"""The CUDA fused-step kernel against its plain PyTorch version, and the
-topology scan and the speculative rounds against their CPU runs, on the card.
+"""The CUDA fused-step kernel against its plain PyTorch version (masked
+batches among them), and the topology scan, the speculative rounds, the
+claim mask and the claim and volume workloads against their CPU runs, on the
+card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -244,3 +246,70 @@ def test_spec_rounds_match_cpu(cuda, mode):
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b), f
     assert int((want.node_idx >= 0).sum()) > 32
+
+
+def _masked_batch(rng, p, n):
+    """A batch whose static_ok carries a volume screen (first-fail id 9) and
+    a claim mask (id 10) on about a third of the cells, under the static
+    ids 1-4, and three pods with every node masked by claims."""
+    d = _batch(rng, p, n)
+    extra = rng.uniform(size=(p, n)) > 1 / 6
+    dra = rng.uniform(size=(p, n)) > 1 / 6
+    dra[[0, 5, 9]] = False
+    ff = d["static_ff"]
+    ff = np.where(ff > 0, ff, np.where(~extra, 9, np.where(~dra, 10, 0))).astype(np.int8)
+    d["static_ok"] = d["static_ok"] & extra & dra
+    d["static_ff"] = np.where(d["static_ok"], 0, np.where(ff > 0, ff, 1)).astype(np.int8)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 5120])
+def test_kernel_matches_plain_version_on_masked_batch(cuda, n):
+    got = _run(cuda, _masked_batch(np.random.RandomState(n + 7), 32, n))
+    ff = got.first_fail.cpu().numpy()
+    assert {9, 10}.issubset(set(np.unique(ff).tolist()))
+    assert (got.node_idx.cpu().numpy()[[0, 5, 9]] == -1).all()
+
+
+@pytest.mark.cuda
+def test_claim_mask_on_card_matches_cpu(cuda):
+    from kubernetes_tpu_torch.backend.batch import claim_feasibility_mask
+
+    rng = np.random.RandomState(3)
+    n, a, p, s = 5120, 8, 128, 4
+    pool = np.array([-(2 ** 31), -1, 0, 1, 8, 16, 2 ** 31 - 1])
+    kind = rng.choice([0, 1, 2], size=(n, a)).astype(np.int32)
+    val = np.where(kind == 2, rng.randint(1, 4, size=(n, a)), rng.choice(pool, size=(n, a)))
+    sel = [rng.randint(0, a, size=(p, s)), rng.choice([-1, 0, 1, 2, 3, 4, 5], size=(p, s)),
+           rng.choice([1, 2], size=(p, s)), rng.choice(pool, size=(p, s))]
+    arrays = [x.astype(np.int32) for x in sel] + [kind, np.where(kind == 0, 0, val).astype(np.int32)]
+    got = claim_feasibility_mask(*(torch.from_numpy(x).to(cuda) for x in arrays))
+    want = claim_feasibility_mask(*(torch.from_numpy(x) for x in arrays))
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < want.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scheduling_dra", "scheduling_intree_pvs"])
+def test_claim_and_volume_workloads_match_cpu(cuda, name):
+    """A small SchedulingDRA / SchedulingInTreePVs through BatchScheduler on
+    the card (every batch on the fused kernel) and on the CPU: the same
+    placements and claim allocations, nothing turned away."""
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.backend.device_state import caps_for_cluster
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = getattr(workloads, name)(nodes=300, init_pods=200, measured=100)
+    runs = []
+    for device in (cuda, "cpu"):
+        store = w.store()
+        sched = BatchScheduler(w.node_infos(), caps=caps_for_cluster(300, batch=64),
+                               device=device, client=store)
+        before = fused_step.LAUNCHES
+        placed = sched.schedule(w.init_pod_list() + w.measured_pod_list())
+        runs.append((placed, {k: (c.allocated_node, c.reserved_for)
+                              for k, c in store.resource_claims.items()}))
+        assert all(placed.values()) and not sched.retry and not sched.fallback
+        if device != "cpu":
+            assert fused_step.LAUNCHES - before == sched.batches
+    assert runs[0] == runs[1]
