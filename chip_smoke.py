@@ -66,7 +66,25 @@
    (and volume screen) from the card equal to the CPU's bit for bit. Prints
    the claim mask's device ms (CUDA events) and the host ms per batch of the
    volume screen, the claim mask's build and the commit checks.
-7. Each workload run prints pods/s, ms per batch, host ms per stage, and
+7. Preempt phase: PreemptionBasic/500Nodes (500 nodes of cpu 4 / 16Gi /
+   32 pods; 2000 victims of 900m / 2Gi at priority 1; 8 warm and 500
+   measured preemptors of 2 / 4Gi at priority 100) and PreemptionPVs/
+   500Nodes (the same, each preemptor with its own pre-bound EBS PV and
+   PVC) through BatchScheduler: the init, warm and measured pods, then the
+   nominated pods resubmitted until none is left (at most 8 rounds;
+   ``perf/workloads.py:run_with_preemption``), on the card under
+   ``KTPU_SPEC=auto`` (every batch on the fused kernel), on the CPU, and
+   on the card with the rounds forced. All 508 preemptors must be bound,
+   nothing left nominated, in ``retry`` or in ``fallback``; every node's
+   requests within its allocatable; placements, the nominations before
+   each round and the victims (victim -> preemptor) equal across the three
+   runs. On the failing batch with the most failed pods, the screen
+   (``ops/preempt.py``) on the card must equal the CPU's exactly and read
+   nothing to the host (``set_sync_debug_mode("error")``). Prints ms per batch by stage, ms per failing
+   batch of the screen (CUDA events) and of the host Evaluator, the
+   screen's CUDA kernels and device busy time (torch.profiler), rounds and
+   victims.
+8. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -92,7 +110,7 @@ import torch
 
 from kubernetes_tpu_torch.backend import batch, batch_scheduler, claim_mask
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
-from kubernetes_tpu_torch.ops import fused_step, topology
+from kubernetes_tpu_torch.ops import fused_step, preempt, topology
 from kubernetes_tpu_torch.perf import workloads
 from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
 
@@ -783,6 +801,174 @@ def dra_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- preempt phase
+
+
+class _ScreenWatch:
+    """Stands in for ``batch_scheduler.screen_prefix`` during a run: copies
+    to the host the inputs and result of the call with the most failed
+    pods (the first of them)."""
+
+    def __init__(self):
+        self.inner = batch_scheduler.screen_prefix
+        self.calls = 0
+        self.captured = None
+
+    def __call__(self, pb, nt, static_masks, failed_prefix):
+        out = self.inner(pb, nt, static_masks, failed_prefix)
+        rows = int(np.sum(failed_prefix))
+        if self.captured is None or rows > self.captured["rows"]:
+            self.captured = {"rows": rows, "failed": np.array(failed_prefix, bool),
+                             "args": _host_copy([pb, nt, static_masks]),
+                             "result": _host_copy(list(out))}
+        self.calls += 1
+        return out
+
+
+def _run_preempt(w, device) -> dict:
+    """One preemption workload through BatchScheduler and
+    ``run_with_preemption``, every batch timed on the host clock with its
+    stage and screen seconds."""
+    watch, screens = _Watch(), _ScreenWatch()
+    batch_scheduler.schedule_batch, batch_scheduler.screen_prefix = watch, screens
+    try:
+        sched = BatchScheduler(w.node_infos(), device=device, client=w.store())
+        records = []
+        inner = sched._schedule_batch
+
+        def timed(pods):
+            s0, c0 = dict(sched.stage_seconds), dict(sched.screen_seconds)
+            t0 = time.perf_counter()
+            out = inner(pods)
+            records.append({
+                "ms": (time.perf_counter() - t0) * 1e3, "pods": len(pods),
+                "failed": sum(v is None for v in out.values()),
+                "stages": {k: (v - s0[k]) * 1e3 for k, v in sched.stage_seconds.items()},
+                "screens": {k: (v - c0[k]) * 1e3 for k, v in sched.screen_seconds.items()}})
+            return out
+
+        sched._schedule_batch = timed
+        t0 = time.perf_counter()
+        placed, rounds = workloads.run_with_preemption(sched, w)
+        wall_s = time.perf_counter() - t0
+    finally:
+        batch_scheduler.schedule_batch, batch_scheduler.screen_prefix = (watch.inner,
+                                                                          screens.inner)
+    return {"placed": placed, "rounds": rounds, "preempted": dict(sched.preempted),
+            "sched": sched, "watch": watch, "screens": screens, "records": records,
+            "wall_s": wall_s, "paths": sched.batch_paths}
+
+
+def _check_preempt(name: str, w, run: dict, what: str) -> None:
+    sched, placed = run["sched"], run["placed"]
+    preemptors = [k for k in placed if k.startswith(("default/warm-", "default/preemptor-"))]
+    unbound = [k for k in preemptors if placed[k] is None]
+    if len(preemptors) != w.warm_pods + w.measured_pods or unbound or sched.nominated:
+        raise AssertionError(f"{name} ({what}): {len(unbound)} of {len(preemptors)} preemptors "
+                             f"unbound after {len(run['rounds'])} rounds, "
+                             f"{len(sched.nominated)} still nominated")
+    if sched.retry or sched.fallback:
+        raise AssertionError(f"{name} ({what}): retry {sched.retry}, fallback {sched.fallback}")
+    for ni in sched.snapshot.node_info_map.values():
+        if (ni.requested.milli_cpu > ni.allocatable.milli_cpu
+                or ni.requested.memory > ni.allocatable.memory
+                or len(ni.pods) > ni.allocatable.allowed_pod_number):
+            raise AssertionError(f"{name} ({what}): {ni.node.meta.name} over its allocatable")
+    evicted = set(run["preempted"])
+    if any(p.key() in evicted for ni in sched.snapshot.node_info_map.values() for p in ni.pods):
+        raise AssertionError(f"{name} ({what}): a victim is still on its node")
+
+
+def _check_preempt_same(name: str, got: dict, want: dict, what: str) -> None:
+    for key in ("placed", "rounds", "preempted"):
+        if got[key] != want[key]:
+            raise AssertionError(f"{name}: {key} differ from {what}")
+
+
+def _screen_on_card(name: str, cap: dict) -> dict:
+    """The captured failing batch's screen: the card's result against the
+    CPU's on the same inputs, one call under set_sync_debug_mode("error"),
+    CUDA-event ms and the profile."""
+    pb, nt, masks = cap["args"]
+    rows = np.flatnonzero(cap["failed"]).tolist()
+    want = preempt.screen_prefix(pb, nt, masks, cap["failed"])
+    for label, a, b in (("screen", cap["result"][0], want.screen),
+                        ("best", cap["result"][1], want.best)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: the screen's {label} differs between cuda and cpu")
+    args = _host_copy([pb, nt, masks], "cuda") + [rows]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = preempt.preempt_screen(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (torch.equal(got.screen.cpu(), want.screen) and torch.equal(got.best.cpu(), want.best)):
+        raise AssertionError(f"{name}: the screen on the card differs from its capture")
+    times, _ = _event_ms(lambda: preempt.preempt_screen(*args))
+    prof = _profiled(preempt.preempt_screen, args, {})
+    n, c, _r = nt.class_req.shape
+    return {"ms": statistics.median(times), "min": min(times), "max": max(times),
+            "kernels": prof["kernels"], "device_ms": prof["device_ms"],
+            "wall_ms": prof["wall_ms"], "launch_calls": prof["launch_calls"],
+            "shape": f"[P={pb.capacity}, N={n}, C={c}], {len(rows)} failed rows"}
+
+
+def preempt_phase() -> dict:
+    """PreemptionBasic and PreemptionPVs on the card (auto: the fused
+    kernel), on the CPU and on the card with the rounds forced."""
+    out = {}
+    for w in (workloads.preemption_basic(), workloads.preemption_pvs()):
+        fused_step.LAUNCHES = 0
+        gpu = _run_preempt(w, "cuda")
+        launches = fused_step.LAUNCHES
+        _check_preempt(w.name, w, gpu, "cuda")
+        if set(gpu["paths"]) != {"fused"} or launches != gpu["sched"].batches:
+            raise AssertionError(f"{w.name}: paths {set(gpu['paths'])}, {launches} kernel "
+                                 f"launches for {gpu['sched'].batches} batches")
+        cpu = _run_preempt(w, "cpu")
+        _check_preempt(w.name, w, cpu, "cpu")
+        _check_preempt_same(w.name, gpu, cpu, "the cpu run")
+        with _spec_flag("1"):
+            spec = _run_preempt(w, "cuda")
+        _check_preempt(w.name, w, spec, "spec")
+        if set(spec["paths"]) != {"spec"}:
+            raise AssertionError(f"{w.name}: paths {set(spec['paths'])} with the rounds forced")
+        _check_preempt_same(w.name, spec, gpu, "the cuda run of the kernel")
+        screen = _screen_on_card(w.name, gpu["screens"].captured)
+        init_batches = -(-w.init_pods // P)
+        recs = gpu["records"][init_batches:]  # warm, measured and resubmitted batches
+        failing = [r for r in recs if r["failed"]]
+        stages = {k: statistics.median(r["stages"][k] for r in recs) for k in recs[0]["stages"]}
+        med = lambda rs, key: statistics.median(r["screens"][key] for r in rs)  # noqa: E731
+        per_pod = [r["screens"]["preempt_host"] / r["failed"] for r in failing]
+        print(f"{w.name}: all {w.warm_pods + w.measured_pods} preemptors bound in "
+              f"{len(gpu['rounds'])} resubmission rounds (nominated before each: "
+              f"{[len(r) for r in gpu['rounds']]}), {len(gpu['preempted'])} victims; placements, "
+              f"nominations and victims == cpu run == the rounds on cuda; {launches} kernel "
+              f"launches for {gpu['sched'].batches} batches; every node within its allocatable")
+        print(f"{w.name} on cuda: {len(recs)} batches after the init pods, median "
+              f"{statistics.median(r['ms'] for r in recs):.2f} ms (min "
+              f"{min(r['ms'] for r in recs):.2f}, max {max(r['ms'] for r in recs):.2f}); "
+              f"median host ms by stage: " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+              + f"; {len(failing)} failing batches: median {statistics.median(r['ms'] for r in failing):.2f} "
+              f"ms, failed pods {[r['failed'] for r in failing]}, screen with its read "
+              f"{med(failing, 'preempt_screen'):.2f} ms, host Evaluator "
+              f"{med(failing, 'preempt_host'):.2f} ms (per failed pod median "
+              f"{statistics.median(per_pod):.3f}, max {max(per_pod):.3f}; per batch "
+              f"{[round(r['screens']['preempt_host'], 1) for r in failing]}); whole run "
+              f"{gpu['wall_s']:.2f} s, cpu {cpu['wall_s']:.2f} s, rounds forced "
+              f"{spec['wall_s']:.2f} s")
+        print(f"{w.name} preempt_screen on the failing batch {screen['shape']}: cuda == cpu "
+              f"exactly, no host read under set_sync_debug_mode(\"error\"); median "
+              f"{screen['ms']:.4f} ms over {TIMED_LAUNCHES} (CUDA events; min {screen['min']:.4f}, "
+              f"max {screen['max']:.4f}); {screen['kernels']} CUDA kernels, "
+              f"{screen['launch_calls']} kernel-launch calls, device busy "
+              f"{screen['device_ms']:.4f} ms of {screen['wall_ms']:.2f} ms wall")
+        out[w.name] = {"launches": launches, "screen": screen}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -810,6 +996,7 @@ def main() -> int:
     topo = timed("topology", topology_phase)
     timed("spec", spec_phase, sl, topo)
     dra = timed("dra", dra_phase)
+    pre = timed("preempt", preempt_phase)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -824,7 +1011,8 @@ def main() -> int:
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": None,
         "launches_by_workload": {basic_name: sl["launches"],
-                                 **{k: v["launches"] for k, v in dra.items()}},
+                                 **{k: v["launches"] for k, v in dra.items()},
+                                 **{k: v["launches"] for k, v in pre.items()}},
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -604,3 +604,19 @@ class ResourceClaim:
     # status
     allocated_node: str = ""            # "" = unallocated
     reserved_for: Tuple[str, ...] = ()  # pod keys consuming the claim
+
+
+# ---------------------------------------------------------------------------
+# policy/v1
+
+
+@dataclass
+class PodDisruptionBudget:
+    """policy/v1 PodDisruptionBudget, trimmed to what preemption reads
+    (``framework/preemption.py``): the selector over pods of its namespace
+    and the status's ``disruptionsAllowed``, which the disruption
+    controller maintains and the victim selection consumes."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+    disruptions_allowed: int = 0

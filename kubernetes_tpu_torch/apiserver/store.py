@@ -3,8 +3,9 @@
 The part of ``kubernetes_tpu/apiserver/store.py``'s ``ClusterStore`` that
 the claim and volume screens and their commit-time checks read and write:
 ResourceClass and ResourceClaim through ``create_object`` /
-``get_object``, the storage kinds through their own accessors, and the
-claim allocation writes of the DynamicResources Reserve. Every write bumps
+``get_object``, the storage kinds through their own accessors, the
+claim allocation writes of the DynamicResources Reserve, and the
+PodDisruptionBudgets that preemption reads. Every write bumps
 the object's ``resource_version`` from one store-wide counter, as the JAX
 store does (the volume screen caches by it). No WAL, watches, informers,
 admission or locking: one scheduler thread owns it.
@@ -15,8 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
-from ..api.types import (CSINode, PersistentVolume, PersistentVolumeClaim, ResourceClaim,
-                         StorageClass)
+from ..api.types import (CSINode, PersistentVolume, PersistentVolumeClaim,
+                         PodDisruptionBudget, ResourceClaim, StorageClass)
 
 
 class Conflict(Exception):
@@ -39,6 +40,7 @@ class Store:
         self.csinodes: Dict[str, CSINode] = {}
         self.resource_classes: Dict[str, object] = {}           # by name
         self.resource_claims: Dict[str, ResourceClaim] = {}     # by namespace/name
+        self.pdbs: Dict[str, PodDisruptionBudget] = {}          # by namespace/name
 
     def _bump(self, obj) -> None:
         self._rv += 1
@@ -93,6 +95,15 @@ class Store:
 
     def get_csinode(self, name: str) -> Optional[CSINode]:
         return self.csinodes.get(name)
+
+    # ------------------------------------------------------------- policy/v1
+
+    def create_pdb(self, pdb: PodDisruptionBudget) -> None:
+        self._bump(pdb)
+        self.pdbs[pdb.meta.key()] = pdb
+
+    def list_pdbs(self) -> List[PodDisruptionBudget]:
+        return list(self.pdbs.values())
 
     # ------------------------------------------------------------- resource.k8s.io
 

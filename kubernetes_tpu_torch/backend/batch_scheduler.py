@@ -29,6 +29,23 @@ volume pod without a store, a missing claim, class or PVC, an unbound or
 delayed-binding PVC, ephemeral volumes and gang labels raise
 NotImplementedError rather than being placed by a path that would ignore
 them.
+
+Preemption follows the JAX package's batched failure path
+(``tpu_scheduler.py:1320-1382``, ``scheduler.py:880-903``): after the
+batch's carry is adopted, one device screen (``ops/preempt.py``) runs over
+every pod the batch could not place, and one read brings its screen rows
+and top-ranked nodes back; when no failed pod outranks any bound pod, an
+all-False screen is made on the host instead. Each failed pod, in batch
+order, then runs DefaultPreemption's PostFilter
+(``framework/plugins/defaultpreemption.py``) against the cluster as it
+stood before the batch's binds, with its row as hints. A pod it nominates
+lands in ``nominated`` (pod key -> node, ``status.nominated_node_name``
+set): the caller resubmits it, and the kernel's nominated bonus steers it
+to that node. Its victims land in ``preempted`` (victim key -> preemptor
+key) and leave the cluster after the batch's binds; the next ``sync``
+uploads their nodes. A failed pod of a topology batch or with claims is
+not preempted for yet: when a lower-priority pod exists it lands in
+``fallback``.
 """
 
 from __future__ import annotations
@@ -43,12 +60,15 @@ from ..api.types import POD_GROUP_LABEL, Pod
 from ..apiserver.store import Conflict
 from ..cache.snapshot import Snapshot
 from ..framework.plugins import dynamicresources, volume
+from ..framework.plugins.defaultpreemption import DefaultPreemption
 from ..framework.plugins.interpodaffinity import HOSTNAME_KEY, NsLabelsFn
+from ..framework.runtime import FilterRunner, PodNominator
 from ..framework.types import NodeInfo
+from ..ops.preempt import screen_prefix
 from ..ops.schema import Capacities
 from ..ops.volume_mask import VolumeMaskBuilder
 from ..utils.device import DeviceLike
-from .batch import (DEFAULT_WEIGHTS, schedule_batch, spec_decode_eligible,
+from .batch import (DEFAULT_WEIGHTS, pack_result_block, schedule_batch, spec_decode_eligible,
                     unpack_result_block)
 from .claim_mask import ClaimMaskBuilder
 from .device_state import DeviceState, caps_for_cluster
@@ -56,8 +76,12 @@ from .device_state import DeviceState, caps_for_cluster
 
 STAGES = ("sync", "encode", "dispatch", "read", "bind")
 # host seconds inside the stages: the volume screen and the claim mask's
-# build and enqueue (both in encode), the commit checks (in bind)
-SCREENS = ("volume_mask", "claim_mask", "commit_checks")
+# build and enqueue (both in encode), the commit checks, the preemption
+# screen (its device call and read, or the host shortcut) and the
+# PostFilters of the failed pods (all three in bind)
+SCREENS = ("volume_mask", "claim_mask", "commit_checks", "preempt_screen", "preempt_host")
+UNPORTED_PREEMPTION = ("preemption of a pod with topology terms or resource claims "
+                       "(topology and claim preemption slice)")
 
 
 def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
@@ -111,6 +135,17 @@ class BatchScheduler:
         # volume check failed or whose claim vanished
         self.retry: Dict[str, str] = {}
         self.fallback: Dict[str, str] = {}
+        # preemption: the nominations (pod key -> node; resubmit those pods)
+        # and the evicted pods (victim key -> preemptor key)
+        self.nominated: Dict[str, str] = {}
+        self.preempted: Dict[str, str] = {}
+        self.nominator = PodNominator()
+        self._evicted: List[Pod] = []  # this batch's victims, removed after its binds
+        filters = FilterRunner(client, lambda: self.snapshot.node_info_map.values(),
+                               self.nominator)
+        self._preemption = DefaultPreemption(
+            filters, self._evict, self._clear_nomination,
+            client.list_pdbs if client is not None else None)
 
     def add_node(self, ni: NodeInfo) -> None:
         """Add or replace a node (its pods come with its NodeInfo)."""
@@ -176,7 +211,11 @@ class BatchScheduler:
         # the ONE device-to-host read of the batch
         node_idx, _first_fail = unpack_result_block(res.packed, self.caps.nodes)
         t.append(time.perf_counter())
+        state.adopt_device(res)
+        state.adopt_commits(res, host_pb, node_idx)
         slot_names = state.slot_to_name()
+        if (node_idx[:len(pods)] < 0).any():
+            self._preempt(pods, pb, res, node_idx, mode, slot_names)
         placed: Dict[str, Optional[str]] = {}
         rejected: Set[str] = set()
         for i, pod in enumerate(pods):
@@ -193,19 +232,20 @@ class BatchScheduler:
                     placed[pod.key()] = None
                     rejected.add(name)
                     continue
-                self.retry.pop(pod.key(), None)  # placed on a resubmission
-                self.fallback.pop(pod.key(), None)
+            self.retry.pop(pod.key(), None)  # placed on a resubmission
+            self.fallback.pop(pod.key(), None)
             bound_pod = pod.clone()
             bound_pod.spec.node_name = name
             self.snapshot.node_info_map[name].add_pod(bound_pod)  # bumps the generation
             self.snapshot.changed_names.add(name)
             placed[pod.key()] = name
-        state.adopt_device(res)
-        state.adopt_commits(res, host_pb, node_idx)
+            self.nominator.delete_nominated_pod_if_exists(pod)
+            self.nominated.pop(pod.key(), None)
         # the carry and the mirror hold the commits of the pods turned away:
         # the next sync uploads those rows again from the snapshot
         for name in rejected:
             state.invalidate_row(name)
+        self._remove_evicted()
         t.append(time.perf_counter())
         for stage, a, b in zip(STAGES, t, t[1:]):
             self.stage_seconds[stage] += b - a
@@ -213,6 +253,64 @@ class BatchScheduler:
         self.batch_modes.append(mode)
         self.batch_paths.append("spec" if spec else "fused" if mode == "off" else "scan")
         return placed
+
+    def _preempt(self, pods: Sequence[Pod], pb, res, node_idx: np.ndarray, mode: str,
+                 slot_names: Dict[int, str]) -> None:
+        """The failure path of one batch, in the JAX package's order: the
+        screen on the adopted carry (or the host shortcut), its one read,
+        then each failed pod's PostFilter in batch order, the nominator
+        updated per pod. Victims stay in the snapshot until the batch's
+        binds are done."""
+        t0 = time.perf_counter()
+        failed = node_idx[:len(pods)] < 0
+        rows = np.flatnonzero(failed)
+        min_prio = self.snapshot.min_pod_priority()
+        hopeless = min_prio is None or all(pods[i].spec.priority <= min_prio for i in rows)
+        screen = best = None
+        if hopeless:
+            # no failed pod outranks any bound pod: eviction cannot help
+            screen = np.zeros((len(pods), self.caps.nodes), bool)
+            best = np.full(len(pods), -1, np.int32)
+        elif mode == "off":
+            pres = screen_prefix(pb, self.state.preempt_inputs(), res.static_masks, failed)
+            best, screen = unpack_result_block(
+                pack_result_block(pres.best, pres.screen.to(torch.int8)), self.caps.nodes)
+            screen = screen.astype(bool)
+        t1 = time.perf_counter()
+        slot_of = dict(self.state.encoder.node_slots)
+        for i in rows:
+            pod = pods[i]
+            if mode != "off" or pod.spec.resource_claims:
+                if not hopeless and pod.spec.priority > min_prio:
+                    self.fallback[pod.key()] = UNPORTED_PREEMPTION
+                continue
+            b = int(best[i])
+            node, _reason = self._preemption.post_filter(
+                pod, (screen[i], slot_of, slot_names.get(b) if b >= 0 else None))
+            if node is not None:
+                self.nominator.add_nominated_pod(pod, node)
+                pod.status.nominated_node_name = node
+                self.nominated[pod.key()] = node
+        self.screen_seconds["preempt_screen"] += t1 - t0
+        self.screen_seconds["preempt_host"] += time.perf_counter() - t1
+
+    def _evict(self, victim: Pod, preemptor: Pod) -> None:
+        self.preempted.setdefault(victim.key(), preemptor.key())
+        self._evicted.append(victim)
+
+    def _clear_nomination(self, pod: Pod) -> None:
+        """A higher-priority preemptor took the node ``pod`` was nominated
+        to: it must be evaluated again."""
+        pod.status.nominated_node_name = ""
+        self.nominated.pop(pod.key(), None)
+
+    def _remove_evicted(self) -> None:
+        """Take the batch's victims off their nodes, each once."""
+        for victim in self._evicted:
+            ni = self.snapshot.node_info_map.get(victim.spec.node_name)
+            if ni is not None and ni.remove_pod(victim):
+                self.snapshot.changed_names.add(victim.spec.node_name)
+        self._evicted.clear()
 
     def _screens(self, pods: Sequence[Pod], pad_to: int) -> Dict[str, torch.Tensor]:
         """The batch's volume screen (built on the host, uploaded once) and

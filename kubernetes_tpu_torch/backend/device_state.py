@@ -127,6 +127,13 @@ class DeviceState:
             self.nt.class_prio = tensor_from_numpy(
                 "class_prio", self.encoder.class_prio_array(), self.device)
 
+    def preempt_inputs(self) -> NodeTensors:
+        """The node tensors for the preemption screen, ``class_prio``
+        refreshed first: a priority first seen in this batch is still
+        INT_MAX on the device."""
+        self._refresh_class_prio()
+        return self.nt
+
     def sync(self, snapshot: Snapshot) -> int:
         """Upload rows for nodes whose generation advanced (removed nodes
         first, as tombstones); returns the number of rows uploaded. Raises

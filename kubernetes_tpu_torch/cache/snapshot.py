@@ -3,8 +3,9 @@
 The subset of ``kubernetes_tpu/cache/snapshot.py`` that ``DeviceState.sync``
 consumes: NodeInfos keyed by name, a version that bumps on membership
 changes, one that bumps whenever a node object is set or removed (the
-volume screen's label index keys on both), and the names changed since the
-device last consumed them.
+volume screen's label index keys on both), the names changed since the
+device last consumed them, and the lowest priority of a bound pod (the
+preemption shortcut's test).
 """
 
 from __future__ import annotations
@@ -37,3 +38,12 @@ class Snapshot:
             self.structure_version += 1
             self.node_object_version += 1
             self.changed_names.add(name)
+
+    def min_pod_priority(self) -> Optional[int]:
+        """The lowest priority among the pods on the nodes, or None when no
+        pod is bound: a pod at or below it has no preemption victim
+        anywhere. Read from each NodeInfo's priority buckets, which
+        ``add_pod`` and ``remove_pod`` both maintain (the JAX cache's
+        histogram is decremented only while the node entry exists)."""
+        return min((p for ni in self.node_info_map.values() for p in ni.prio_requested),
+                   default=None)

@@ -1,0 +1,71 @@
+"""The simple per-node filters as plain functions on NodeInfo.
+
+An own copy of the Filters of
+``kubernetes_tpu/framework/plugins/basic.py``: NodeUnschedulable,
+NodeName, TaintToleration and NodePorts, without the plugin runtime. Each
+filter returns None when the node passes, else the plugin's reason. The
+preemption dry run (``framework/preemption.py``) runs them through
+``framework/runtime.py``; the batched path computes the same predicates on
+the device (``ops/filters.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional, Tuple
+
+from ...api.types import (TAINT_NO_EXECUTE, TAINT_NO_SCHEDULE, ContainerPort, Pod, Taint,
+                          Toleration)
+from ..types import NodeInfo, ports_conflict
+
+ERR_REASON_UNSCHEDULABLE = "node(s) were unschedulable"
+ERR_REASON_NODE_NAME = "node(s) didn't match the requested node name"
+ERR_REASON_PORTS = "node(s) didn't have free ports for the requested pod ports"
+_UNSCHEDULABLE_TAINT = Taint(key="node.kubernetes.io/unschedulable", effect=TAINT_NO_SCHEDULE)
+
+
+def node_unschedulable_filter(pod: Pod, ni: NodeInfo) -> Optional[str]:
+    """nodeunschedulable/node_unschedulable.go: a spec.unschedulable node
+    admits only pods that tolerate the unschedulable taint."""
+    node = ni.node
+    if node is None:
+        return "node(s) had unknown conditions"
+    if node.spec.unschedulable and not any(
+            t.tolerates(_UNSCHEDULABLE_TAINT) for t in pod.spec.tolerations):
+        return ERR_REASON_UNSCHEDULABLE
+    return None
+
+
+def node_name_filter(pod: Pod, ni: NodeInfo) -> Optional[str]:
+    """nodename/node_name.go: pod.spec.nodeName must match, if set."""
+    if pod.spec.node_name and ni.node and pod.spec.node_name != ni.node.meta.name:
+        return ERR_REASON_NODE_NAME
+    return None
+
+
+def find_matching_untolerated_taint(taints: Iterable[Taint], tolerations: Iterable[Toleration],
+                                    effects) -> Optional[Taint]:
+    """v1helper.FindMatchingUntoleratedTaint over the given effects."""
+    tolerations = tuple(tolerations)
+    for t in taints:
+        if t.effect in effects and not any(tol.tolerates(t) for tol in tolerations):
+            return t
+    return None
+
+
+def taint_toleration_filter(pod: Pod, ni: NodeInfo) -> Optional[str]:
+    """tainttoleration/taint_toleration.go: every NoSchedule / NoExecute
+    taint must be tolerated."""
+    taint = find_matching_untolerated_taint(
+        ni.node.spec.taints if ni.node else (), pod.spec.tolerations,
+        (TAINT_NO_SCHEDULE, TAINT_NO_EXECUTE))
+    if taint is None:
+        return None
+    return f"node(s) had untolerated taint {{{taint.key}: {taint.value}}}"
+
+
+def node_ports_filter(wanted: Tuple[ContainerPort, ...], ni: NodeInfo) -> Optional[str]:
+    """nodeports/node_ports.go: the wanted host ports (``pod.host_ports()``,
+    the PreFilter's state) must not conflict with the node's used ones."""
+    if ports_conflict(ni.used_ports, wanted):
+        return ERR_REASON_PORTS
+    return None

@@ -11,7 +11,7 @@ import itertools
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..api import resource as resource_api
-from ..api.types import Node, Pod
+from ..api.types import ContainerPort, Node, Pod
 
 # ---------------------------------------------------------------------------
 # Resource (framework/types.go:414 Resource)
@@ -93,6 +93,18 @@ def nonzero_request(req: Dict[str, int]) -> Dict[str, int]:
     if out.get(resource_api.MEMORY, 0) == 0:
         out[resource_api.MEMORY] = resource_api.DEFAULT_MEMORY_REQUEST_KIB
     return out
+
+
+def ports_conflict(used: Set[Tuple[str, str, int]], wanted: Tuple[ContainerPort, ...]) -> bool:
+    """HostPortInfo conflict semantics (framework/types.go HostPortInfo):
+    0.0.0.0 conflicts with every IP on the same (proto, port)."""
+    for w in wanted:
+        wip = w.host_ip or "0.0.0.0"
+        for (ip, proto, port) in used:
+            if proto == w.protocol and port == w.host_port:
+                if wip == "0.0.0.0" or ip == "0.0.0.0" or ip == wip:
+                    return True
+    return False
 
 
 # ---------------------------------------------------------------------------

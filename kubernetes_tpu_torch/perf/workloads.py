@@ -25,14 +25,25 @@ op lists) and ``kubernetes_tpu/perf/harness.py`` (``_node_wrapper`` and
   The store holds one ResourceClaim per pod, ``<pod>-accel``, as the JAX
   resourceclaim controller leaves it.
 
+* PreemptionBasic (``kubernetes_tpu/perf/workloads.py:326-344``;
+  performance-config.yaml): 500 unlabelled nodes of cpu 4 / 16Gi / 32
+  pods; 2000 init pods of 900m / 2Gi at priority 1 (four per node, 3.6 of
+  4 CPUs used); 8 warm pods, then 500 measured preemptors of 2 / 4Gi at
+  priority 100, each of which must evict victims to fit.
+* PreemptionPVs (``kubernetes_tpu/perf/workloads.py:412-431``;
+  performance-config.yaml:409-435): the same, with a pre-bound EBS PV and
+  PVC per warm pod and preemptor.
+
 ``Workload.store()`` builds a fresh object store for the workloads that
 need one (claims and volumes), with every pod's objects in it.
+``run_with_preemption`` drives a workload through a BatchScheduler and
+resubmits the pods it nominated.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ..api.types import (LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE, ROX, LabelSelector, ObjectMeta,
                          PersistentVolume, PersistentVolumeClaim, Pod, ResourceClaim,
@@ -47,15 +58,17 @@ _SMALL_REQ = {"cpu": "100m", "memory": "500Mi"}
 
 
 def scheduling_basic_nodes(count: int, zones: int = 10,
-                           device_attributes: Optional[Dict[str, tuple]] = None
-                           ) -> List[NodeInfo]:
+                           device_attributes: Optional[Dict[str, tuple]] = None,
+                           capacity: Optional[Dict[str, object]] = None) -> List[NodeInfo]:
     """``device_attributes``: per key, the values node i publishes value
-    ``i % len`` of (harness.py ``_node_wrapper``)."""
+    ``i % len`` of (harness.py ``_node_wrapper``). ``zones`` 0: no zone or
+    hostname label, as the harness makes nodes without a zone count."""
     infos = []
     for i in range(count):
-        nw = make_node(f"node-{i}").capacity(_NODE_CAPACITY)
-        nw.label(LABEL_TOPOLOGY_ZONE, f"zone-{i % zones}")
-        nw.label(LABEL_HOSTNAME, f"node-{i}")
+        nw = make_node(f"node-{i}").capacity(capacity or _NODE_CAPACITY)
+        if zones:
+            nw.label(LABEL_TOPOLOGY_ZONE, f"zone-{i % zones}")
+            nw.label(LABEL_HOSTNAME, f"node-{i}")
         if device_attributes:
             nw.device_attrs({k: v[i % len(v)] for k, v in device_attributes.items()})
         infos.append(NodeInfo(nw.obj()))
@@ -96,11 +109,14 @@ class PodShape:
     claim: Optional[ClaimShape] = None
     # a pre-bound PV (of this in-tree volume type) and PVC per pod
     pv_volume_type: Optional[str] = None
+    priority: int = 0
 
     def pods(self, count: int) -> List[Pod]:
         out = []
         for i in range(count):
             pw = make_pod(f"{self.prefix}-{i}").req(self.req)
+            if self.priority:
+                pw.priority(self.priority)
             if self.claim:
                 pw.resource_claim(self.claim.name, template_name=self.claim.template)
             if self.pv_volume_type is not None:
@@ -145,7 +161,8 @@ class PodShape:
 
 @dataclasses.dataclass(frozen=True)
 class Workload:
-    """createNodes, createPods (init), barrier, measurePods (measured)."""
+    """createNodes, createPods (init, then warm), barrier, measurePods
+    (measured)."""
 
     name: str
     nodes: int
@@ -153,12 +170,17 @@ class Workload:
     init_pods: int
     measured: PodShape
     measured_pods: int
-    one_zone: bool = False  # every node in zone1, else 10 zones
+    one_zone: bool = False  # every node in zone1, else ``zones`` zones
     device_attributes: Optional[Dict[str, tuple]] = None
+    zones: int = 10  # 0: nodes without zone or hostname labels
+    node_capacity: Optional[Dict[str, object]] = None  # default cpu 32 / 128Gi / 110 pods
+    warm: Optional[PodShape] = None
+    warm_pods: int = 0
 
     def node_infos(self) -> List[NodeInfo]:
         if not self.one_zone:
-            return scheduling_basic_nodes(self.nodes, device_attributes=self.device_attributes)
+            return scheduling_basic_nodes(self.nodes, self.zones, self.device_attributes,
+                                          self.node_capacity)
         infos = []
         for i in range(self.nodes):
             nw = make_node(f"node-{i}").capacity(_NODE_CAPACITY)
@@ -170,6 +192,9 @@ class Workload:
     def init_pod_list(self) -> List[Pod]:
         return self.init.pods(self.init_pods)
 
+    def warm_pod_list(self) -> List[Pod]:
+        return self.warm.pods(self.warm_pods) if self.warm else []
+
     def measured_pod_list(self) -> List[Pod]:
         return self.measured.pods(self.measured_pods)
 
@@ -177,6 +202,8 @@ class Workload:
         """A fresh object store with every pod's claims or volumes, or None
         when the workload needs none."""
         shapes = ((self.init, self.init_pods), (self.measured, self.measured_pods))
+        if self.warm:
+            shapes += ((self.warm, self.warm_pods),)
         if not any(s.claim or s.pv_volume_type is not None for s, _ in shapes):
             return None
         store = Store()
@@ -232,3 +259,43 @@ def scheduling_dra(nodes: int = 5000, init_pods: int = 1000, measured: int = 100
                     PodShape("dra", **shape), measured,
                     device_attributes={"tpu.dev/cores": (8, 16),
                                        "tpu.dev/gen": ("v5", "v5", "v4", "v5")})
+
+
+_PREEMPTION_NODE = {"cpu": "4", "memory": "16Gi", "pods": 32}
+_VICTIM = dict(req={"cpu": "900m", "memory": "2Gi"}, priority=1)
+_PREEMPTOR = dict(req={"cpu": "2", "memory": "4Gi"}, priority=100)
+_WARM_PREEMPTORS = 8
+MAX_PREEMPTION_ROUNDS = 8
+
+
+def preemption_basic(nodes: int = 500, init_pods: int = 2000, measured: int = 500) -> Workload:
+    return Workload(f"PreemptionBasic/{nodes}Nodes", nodes, PodShape("victim", **_VICTIM),
+                    init_pods, PodShape("preemptor", **_PREEMPTOR), measured, zones=0,
+                    node_capacity=_PREEMPTION_NODE, warm=PodShape("warm", **_PREEMPTOR),
+                    warm_pods=_WARM_PREEMPTORS)
+
+
+def preemption_pvs(nodes: int = 500, init_pods: int = 2000, measured: int = 500) -> Workload:
+    shape = dict(_PREEMPTOR, pv_volume_type="ebs")
+    return Workload(f"PreemptionPVs/{nodes}Nodes", nodes, PodShape("victim", **_VICTIM),
+                    init_pods, PodShape("preemptor", **shape), measured, zones=0,
+                    node_capacity=_PREEMPTION_NODE, warm=PodShape("warm", **shape),
+                    warm_pods=_WARM_PREEMPTORS)
+
+
+def run_with_preemption(sched, w: Workload
+                        ) -> Tuple[Dict[str, Optional[str]], List[Dict[str, str]]]:
+    """Schedule the init, warm and measured pods in that order, then
+    resubmit the pods ``sched`` nominated, in that order, until none is
+    left or ``MAX_PREEMPTION_ROUNDS`` rounds ran. Returns (pod key -> node or None,
+    the nominations before each round)."""
+    ops = (w.init_pod_list(), w.warm_pod_list(), w.measured_pod_list())
+    placed: Dict[str, Optional[str]] = {}
+    for op in ops:
+        placed.update(sched.schedule(op))
+    pods = [p for op in ops for p in op]
+    rounds: List[Dict[str, str]] = []
+    while sched.nominated and len(rounds) < MAX_PREEMPTION_ROUNDS:
+        rounds.append(dict(sched.nominated))
+        placed.update(sched.schedule([p for p in pods if p.key() in sched.nominated]))
+    return placed, rounds

@@ -108,8 +108,12 @@ def build_nodes(api, spec: list) -> list:
             pw.priority(e["priority"])
             if e["port"]:
                 pw.host_port(e["port"])
+            for k, v in e.get("labels", {}).items():
+                pw.label(k, v)
             pod = pw.obj()
             pod.spec.node_name = d["name"]
+            pod.status.start_time = e.get("start", 0.0)
+            pod.meta.deletion_timestamp = 1.0 if e.get("terminating") else 0.0
             ni.add_pod(pod)
         infos.append(ni)
     return infos
@@ -651,3 +655,270 @@ def run_masked_workload_both(name: str):
 def claim_allocations(store) -> dict:
     """claim key -> (allocated node, reserved-for pod keys)."""
     return {k: (c.allocated_node, c.reserved_for) for k, c in store.resource_claims.items()}
+
+
+# ----------------------------------------------------------------- preemption
+
+
+def preempt_cluster_spec(n_nodes: int, seed: int, prios, max_pods: int = 5) -> list:
+    """cluster_spec's nodes (taints, an unschedulable node, images), each
+    holding 1 to ``max_pods`` pods with app=a|b|c labels, priorities drawn
+    from ``prios``, start times, host ports, and one in nine terminating."""
+    rng = np.random.RandomState(seed)
+    nodes = cluster_spec(n_nodes, seed)
+    for i, d in enumerate(nodes):
+        d["existing"] = [{
+            "name": f"old-{i}-{j}",
+            "cpu": f"{int(rng.choice([250, 500, 900, 1500]))}m",
+            "mem": f"{int(rng.choice([128, 512, 1024]))}Mi",
+            "port": int(rng.choice([0, 0, 0, 8080, 9090])),
+            "priority": int(prios[rng.randint(len(prios))]),
+            "labels": {"app": "abc"[rng.randint(3)]},
+            "start": float(rng.randint(0, 4)),
+            "terminating": rng.randint(9) == 0,
+        } for j in range(rng.randint(1, max_pods + 1))]
+    return nodes
+
+
+def preemptor_spec(n_pods: int, seed: int, prios) -> list:
+    """pods_spec's pods (selectors, affinity, tolerations, ports, images)
+    at priorities drawn from ``prios``, every fifth with PreemptionPolicy
+    Never."""
+    rng = np.random.RandomState(seed)
+    pods = pods_spec(n_pods, seed)
+    for i, d in enumerate(pods):
+        d["priority"] = int(prios[rng.randint(len(prios))])
+        d["never"] = i % 5 == 4
+    return pods
+
+
+def build_preemptors(api, spec: list) -> list:
+    pods = build_pods(api, spec)
+    for pod, d in zip(pods, spec):
+        if d.get("never"):
+            pod.spec.preemption_policy = "Never"
+    return pods
+
+
+def pdbs(api_types, spec) -> list:
+    """PodDisruptionBudgets over app=<a> in namespace default, from
+    (name, app, disruptions allowed) triples, in either package's types."""
+    return [api_types.PodDisruptionBudget(
+        meta=api_types.ObjectMeta(name=name, namespace="default"),
+        selector=api_types.LabelSelector(match_labels={"app": app}),
+        disruptions_allowed=allowed) for name, app, allowed in spec]
+
+
+class JaxPreemptClient:
+    """The client of a bare JAX Framework for preemption: reads go to a JAX
+    ClusterStore; pod deletions (victim key -> the preemptor being
+    evaluated, first one kept), nominations and cleared nominations are
+    recorded, the nominations also written into the pods' status."""
+
+    def __init__(self, store, pods_by_key: dict, pdb_list=()):
+        self.store = store
+        self.pods = pods_by_key
+        self.pdbs = list(pdb_list)
+        self.preemptor = None
+        self.deleted = []
+        self.preempted = {}
+        self.nominations = {}
+        self.cleared = []  # pod keys whose nomination was cleared, in order
+
+    def __getattr__(self, name):
+        return getattr(self.store, name)
+
+    def list_pdbs(self):
+        return list(self.pdbs)
+
+    def delete_pod(self, key):
+        self.deleted.append(key)
+        self.preempted.setdefault(key, self.preemptor)
+
+    def update_pod_nominated_node(self, key, node):
+        pod = self.pods.get(key)
+        if pod is not None:
+            pod.status.nominated_node_name = node
+        if node:
+            self.nominations[key] = node
+        else:
+            self.nominations.pop(key, None)
+            self.cleared.append(key)
+
+
+def jax_framework(infos_fn, client):
+    """A bare JAX Framework over the NodeInfos ``infos_fn`` lists, and its
+    DefaultPreemption plugin."""
+    from kubernetes_tpu.framework.runtime import Framework
+
+    fwk = Framework({"snapshot_fn": infos_fn, "client": client,
+                     "ns_labels_fn": lambda ns: {}})
+    return fwk, fwk.plugin("DefaultPreemption")
+
+
+def jax_preempt_loop(ds, fn, infos: dict, client, fwk, plugin, pods, batch,
+                     turned_away: dict) -> dict:
+    """The JAX batched path with preemption, in the order of
+    ``TPUScheduler._commit_batch`` and ``_handle_scheduling_failure``: per
+    batch the program (with the volume screen and the claim mask), the
+    packed read, the carry adopted; if a pod failed, the host shortcut
+    (no failed pod outranks a bound pod) or ``_refresh_class_prio`` and
+    ``screen_prefix`` on the adopted carry; then, in batch order, each
+    failed pod's ``DefaultPreemption.post_filter`` with its hints against
+    the NodeInfos as they stood before the batch (a nomination enters the
+    nominator and the pod's status at once); the commit checks and binds
+    of ``jax_masked_loop`` (a bound pod's nomination cleared, as
+    ``commit_plane.py:187``); and last the victims taken off their nodes,
+    each once. Returns the placements."""
+    import jax
+
+    from kubernetes_tpu.backend import batch as jbatch
+    from kubernetes_tpu.backend.claim_mask import ClaimMaskBuilder
+    from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu.framework.interface import CycleState
+    from kubernetes_tpu.ops.preempt import screen_prefix
+    from kubernetes_tpu.ops.volume_mask import VolumeMaskBuilder
+    import types
+
+    vmb, cmb = VolumeMaskBuilder(client.store), ClaimMaskBuilder(client.store)
+    check = jax_commit_checks(client.store, infos)
+    diag = types.SimpleNamespace(_SHARED_STATUSES=TPUScheduler._SHARED_STATUSES)
+    out = {}
+    for s in range(0, len(pods), batch):
+        chunk = pods[s:s + batch]
+        qps = [type("QP", (), {"pod": p})() for p in chunk]
+        ds.sync(SnapshotShim(infos.values()))
+        pb, et = ds.encoder.encode_pods(chunk)
+        tb = ds.sig_table.encode_topo(chunk)
+        mode, vd, host_key = jax_topo_mode_info(ds)
+        extra = vmb.build(qps, JaxSnapshot(infos), ds.encoder, ds.caps.nodes, batch)
+        dra_mask = cmb.build(qps, ds, batch)
+        res = fn(pb, et, ds.nt, ds.tc, tb, jax.random.PRNGKey(0),
+                 topo_enabled=ds.topo_enabled, topo_mode=mode, vd_override=vd,
+                 host_key=host_key, ports_enabled=ds.encoder.last_has_ports,
+                 extra_mask=None if extra is None else jax.numpy.asarray(extra),
+                 dra_mask=dra_mask)
+        node_idx, ff = jbatch.unpack_result_block(res.packed, ds.caps.nodes)[:2]
+        ds.adopt_device(res)
+        ds.adopt_commits(res, ds.encoder.last_host_pb, node_idx)
+        names = ds.slot_to_name()
+        failed = node_idx[:len(chunk)] < 0
+        if failed.any():
+            bound = [p.spec.priority for ni in infos.values() for p in ni.pods]
+            min_prio = min(bound) if bound else None
+            if min_prio is None or all(chunk[i].spec.priority <= min_prio
+                                       for i in np.flatnonzero(failed)):
+                screen = np.zeros((len(chunk), ds.caps.nodes), bool)
+                best = np.full(len(chunk), -1, np.int32)
+            else:
+                ds._refresh_class_prio()
+                pres = screen_prefix(pb, ds.nt, res.static_masks, failed)
+                screen, best = np.asarray(pres.screen), np.asarray(pres.best)
+            slot_of = dict(ds.encoder.node_slots)
+            for i in np.flatnonzero(failed):
+                pod = chunk[i]
+                d = TPUScheduler._diagnose(diag, ff[i], names)
+                if not d.node_to_status:
+                    continue
+                state = CycleState()
+                best_name = names.get(int(best[i])) if best[i] >= 0 else None
+                state.write(plugin.HINTS_KEY, (screen[i], slot_of, best_name))
+                client.preemptor = pod.key()
+                node, st = plugin.post_filter(state, pod, d.node_to_status)
+                if st.is_success() and node:
+                    fwk.nominator.add_nominated_pod(pod, node)
+                    client.update_pod_nominated_node(pod.key(), node)
+        rejected = set()
+        for i, pod in enumerate(chunk):
+            if node_idx[i] < 0:
+                out[pod.key()] = None
+                continue
+            name = names[int(node_idx[i])]
+            if pod.spec.volumes or pod.spec.resource_claims:
+                verdict = check(pod, name)
+                if verdict is not None:
+                    turned_away[pod.key()] = verdict[0]
+                    out[pod.key()] = None
+                    rejected.add(name)
+                    continue
+            turned_away.pop(pod.key(), None)
+            bound_pod = pod.clone()
+            bound_pod.spec.node_name = name
+            infos[name].add_pod(bound_pod)
+            out[pod.key()] = name
+            fwk.nominator.delete_nominated_pod_if_exists(pod)
+            client.nominations.pop(pod.key(), None)
+        for name in rejected:
+            ds._uploaded_gen.pop(name, None)  # TPUScheduler._invalidate_device_row
+        if client.deleted:
+            where = {p.key(): ni for ni in infos.values() for p in ni.pods}
+            for key in client.deleted:
+                ni = where.pop(key, None)
+                if ni is not None:
+                    ni.remove_pod(next(p for p in ni.pods if p.key() == key))
+            client.deleted.clear()
+    return out
+
+
+# small versions of the preemption workloads: (node count, victims, measured
+# preemptors, batch); each also has its 8 warm preemptors
+PREEMPT_WORKLOADS = {
+    "preemption_basic": (48, 192, 48, 16),
+    "preemption_pvs": (48, 192, 48, 16),
+}
+
+
+def run_preempt_workload_both(name: str):
+    """A small PREEMPT_WORKLOADS workload through ``jax_preempt_loop`` and
+    through the port's BatchScheduler on the CPU (``run_with_preemption``):
+    the ops in order, then the nominated pods resubmitted in order until
+    none is left. Returns two dicts, JAX's and the port's, of: placed,
+    rounds (the nominations before each round), preempted (victim key ->
+    preemptor key), fallback (pod keys), and the port's BatchScheduler."""
+    from kubernetes_tpu.apiserver.store import ClusterStore
+    from kubernetes_tpu.backend import batch as jbatch
+    from kubernetes_tpu.backend.device_state import DeviceState as JDeviceState
+    from kubernetes_tpu.ops.schema import Capacities as JCaps
+    from kubernetes_tpu.perf import workloads as jworkloads
+    from kubernetes_tpu.perf.harness import _node_wrapper
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.ops.schema import Capacities
+    from kubernetes_tpu_torch.perf import workloads
+
+    n, n_init, n_meas, batch = PREEMPT_WORKLOADS[name]
+    w = getattr(workloads, name)(nodes=n, init_pods=n_init, measured=n_meas)
+    all_ops = getattr(jworkloads, name)(nodes=n, init_pods=n_init, measured=n_meas)["ops"]
+    jops = [op for op in all_ops if op["opcode"] in ("createPods", "measurePods")]
+    caps = dict(nodes=128, pods=batch, value_words=32)
+    jinfos = {}
+    for i in range(n):
+        ni = jax_api().NodeInfo(_node_wrapper(i, all_ops[0]).obj())
+        jinfos[ni.node.meta.name] = ni
+    jstore = ClusterStore()
+    ops = []
+    for op in jops:
+        populate_jax_store(jstore, op)
+        ops.append(jax_workload_pods(op))
+    all_pods = [p for op in ops for p in op]
+    client = JaxPreemptClient(jstore, {p.key(): p for p in all_pods})
+    fwk, plugin = jax_framework(lambda: list(jinfos.values()), client)
+    ds = JDeviceState(JCaps(**caps))
+    fn = jbatch.build_schedule_batch_fn()
+    placed_j, turned_j, rounds_j = {}, {}, []
+    for op in ops:
+        placed_j.update(jax_preempt_loop(ds, fn, jinfos, client, fwk, plugin, op, batch,
+                                         turned_j))
+    while client.nominations and len(rounds_j) < workloads.MAX_PREEMPTION_ROUNDS:
+        rounds_j.append(dict(client.nominations))
+        again = [p for p in all_pods if p.key() in client.nominations]
+        placed_j.update(jax_preempt_loop(ds, fn, jinfos, client, fwk, plugin, again, batch,
+                                         turned_j))
+    jax_out = {"placed": placed_j, "rounds": rounds_j, "preempted": client.preempted,
+               "fallback": sorted(k for k, v in turned_j.items() if v == "fallback")}
+
+    sched = BatchScheduler(w.node_infos(), caps=Capacities(**caps), device="cpu",
+                           client=w.store())
+    placed_t, rounds_t = workloads.run_with_preemption(sched, w)
+    port_out = {"placed": placed_t, "rounds": rounds_t, "preempted": sched.preempted,
+                "fallback": sorted(sched.fallback)}
+    return jax_out, port_out, sched

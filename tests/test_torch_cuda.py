@@ -1,7 +1,7 @@
 """The CUDA fused-step kernel against its plain PyTorch version (masked
-batches among them), and the topology scan, the speculative rounds, the
-claim mask and the claim and volume workloads against their CPU runs, on the
-card.
+and nominated batches among them), and the topology scan, the speculative
+rounds, the claim mask, the preemption screen and the claim, volume and
+preemption workloads against their CPU runs, on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -310,6 +310,97 @@ def test_claim_and_volume_workloads_match_cpu(cuda, name):
         runs.append((placed, {k: (c.allocated_node, c.reserved_for)
                               for k, c in store.resource_claims.items()}))
         assert all(placed.values()) and not sched.retry and not sched.fallback
+        if device != "cpu":
+            assert fused_step.LAUNCHES - before == sched.batches
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 5120])
+def test_kernel_matches_plain_version_on_nominated_batch(cuda, n):
+    """Half the pods nominated (resubmitted preemptors): to feasible nodes,
+    to infeasible ones and to padded slots."""
+    rng = np.random.RandomState(n + 11)
+    d = _batch(rng, 128, n)
+    d["alloc"][:] = 32000  # room for every pod, so most nominated nodes are feasible
+    d["requested"] = d["nonzero"] = np.full_like(d["alloc"], 8000)
+    d["nominated"][::2] = rng.choice(n, size=64, replace=False)
+    d["nominated"][2] = n - 1
+    d["static_ok"][4, d["nominated"][4]] = False
+    got = _run(cuda, d)
+    idx, nom = got.node_idx.cpu().numpy(), d["nominated"]
+    ok = d["static_ok"][np.arange(128), np.maximum(nom, 0)] & (nom >= 0)
+    assert (idx[ok] == nom[ok]).mean() > 0.5  # the bonus steers them to their node
+    assert idx[4] != nom[4]
+
+
+def _preempt_cluster(device, n=500, classes=(1, 5, 20, 2000000000)):
+    """PreemptionBasic's nodes with its victims bound four per node, at a
+    few priorities, synced into a DeviceState, and an encoded batch of 128
+    preemptors."""
+    from kubernetes_tpu_torch.backend.device_state import DeviceState, caps_for_cluster
+    from kubernetes_tpu_torch.cache.snapshot import Snapshot
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.preemption_basic(nodes=n, init_pods=4 * n, measured=128)
+    infos = w.node_infos()
+    for i, pod in enumerate(w.init_pod_list()):
+        pod.spec.priority = classes[i % len(classes)]
+        pod.spec.node_name = infos[i % n].node.meta.name
+        infos[i % n].add_pod(pod)
+    ds = DeviceState(caps_for_cluster(n), device)
+    ds.sync(Snapshot(infos))
+    pods = w.measured_pod_list()
+    for i, pod in enumerate(pods):
+        pod.spec.priority = (100, 2000000001, 2**30)[i % 3]
+    pb, et = ds.encoder.encode_pods(pods)
+    ds.preempt_inputs()  # class_prio refreshed for the batch's new priorities
+    return ds, pb, et
+
+
+@pytest.mark.cuda
+def test_preempt_screen_on_card_matches_cpu(cuda):
+    from kubernetes_tpu_torch.backend.batch import static_phase
+    from kubernetes_tpu_torch.ops import preempt
+
+    failed = np.random.RandomState(5).uniform(size=128) < 0.8
+    results = []
+    for device in (cuda, "cpu"):
+        ds, pb, et = _preempt_cluster(device)
+        masks = static_phase(pb, et, ds.nt)[0]
+        rows = np.flatnonzero(failed).tolist()
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")  # no host read inside the screen
+        try:
+            res = preempt.preempt_screen(pb, ds.nt, masks, rows)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        results.append((res.screen.cpu(), res.best.cpu()))
+    assert torch.equal(results[0][0], results[1][0])
+    assert torch.equal(results[0][1], results[1][1])
+    assert int((results[1][1] >= 0).sum()) > 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["preemption_basic", "preemption_pvs"])
+def test_preemption_workload_matches_cpu(cuda, name):
+    """A small PreemptionBasic / PreemptionPVs on the card (every batch on
+    the fused kernel) and on the CPU: the same placements, nominations and
+    victims, every preemptor bound."""
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.backend.device_state import caps_for_cluster
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = getattr(workloads, name)(nodes=100, init_pods=400, measured=100)
+    runs = []
+    for device in (cuda, "cpu"):
+        sched = BatchScheduler(w.node_infos(), caps=caps_for_cluster(100, batch=32),
+                               device=device, client=w.store())
+        before = fused_step.LAUNCHES
+        placed, rounds = workloads.run_with_preemption(sched, w)
+        runs.append((placed, rounds, dict(sched.preempted)))
+        assert all(placed.values()) and not sched.nominated and not sched.fallback
         if device != "cpu":
             assert fused_step.LAUNCHES - before == sched.batches
     assert runs[0] == runs[1]
