@@ -84,7 +84,31 @@
    batch of the screen (CUDA events) and of the host Evaluator, the
    screen's CUDA kernels and device busy time (torch.profiler), rounds and
    victims.
-8. Each workload run prints pods/s, ms per batch, host ms per stage, and
+8. Gang phase: SchedulingGangs/5000Nodes (5000 nodes in 10 zones; gangs
+   of 8 and 32, each member anti-affine to its own PodGroup on the
+   hostname key: 160 init + 320 measured pods) and SchedulingSlices/
+   512Nodes (512 hosts of cpu 4 / 16Gi labelled superpod i // 64, slot
+   i % 64; slice gangs of 2, 8 and 64 hosts: 4 init + 88 measured pods)
+   through BatchScheduler with their object stores (PodGroups), on the card
+   under ``KTPU_SPEC=auto`` (Gangs: the rounds; Slices: the fused kernel
+   with the slice mask), on the CPU, and on the card with the other path
+   forced (Gangs: the scan; Slices: the rounds). Every gang must be bound
+   whole, with ``gang_rejected``, ``retry`` and ``fallback`` empty; each
+   SchedulingGangs gang on distinct hosts; each slice gang on consecutive
+   slots of one superpod, one member per host (0 contiguity violations);
+   placements equal across the three runs; every SchedulingSlices batch on
+   the fused kernel. On one measured batch of each, the slice plan (mask
+   and words) and ``gang_verdicts`` (from the card's batch result) on the
+   card equal the CPU's bit for bit, and run under
+   ``set_sync_debug_mode("error")``. A reject case follows on a 128-host
+   torus, on the card and on the CPU: a gang of 8 anti-affine members
+   confined to 6 hosts and a slice gang of 65 hosts (wider than a
+   superpod) are rejected whole, and after the next sync the device's
+   requested equals a fresh encode of the cluster. Prints ms per batch by
+   stage, the plan's and the verdicts' CUDA-event ms and CUDA kernels, and
+   the fused kernel's ms on the slice-masked batch against the same batch
+   without the mask.
+9. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -110,6 +134,7 @@ import torch
 
 from kubernetes_tpu_torch.backend import batch, batch_scheduler, claim_mask
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+from kubernetes_tpu_torch.backend.device_state import DeviceState
 from kubernetes_tpu_torch.ops import fused_step, preempt, topology
 from kubernetes_tpu_torch.perf import workloads
 from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
@@ -451,8 +476,8 @@ def _run(w, device, profile_at: int = -1, capture_at: int = -1) -> dict:
     watch = _Watch(profile_at, capture_at)
     batch_scheduler.schedule_batch = watch
     try:
-        store = w.store()  # the claims and volumes, where the workload has them
-        sched = BatchScheduler(w.node_infos(), device=device, client=store)
+        store = w.store()  # claims, volumes and PodGroups, where the workload has them
+        sched = BatchScheduler(w.node_infos(), caps=w.caps(), device=device, client=store)
         placed = sched.schedule(w.init_pod_list())
         init_batches = sched.batches
         measured = w.measured_pod_list()
@@ -484,7 +509,7 @@ def _run(w, device, profile_at: int = -1, capture_at: int = -1) -> dict:
 def _check_placed(name: str, w, gpu: dict) -> None:
     placed = gpu["placed"]
     unplaced = [k for k, v in placed.items() if v is None]
-    if len(placed) != w.init_pods + w.measured_pods or unplaced:
+    if len(placed) != w.n_init + w.n_measured or unplaced:
         raise AssertionError(f"{name}: {len(unplaced)} pods unplaced of {len(placed)}")
 
 
@@ -969,6 +994,231 @@ def preempt_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- gang phase
+
+
+class _VerdictWatch:
+    """Stands in for ``batch_scheduler.gang_verdicts`` during a run: copies
+    call ``capture_at``'s inputs and outputs to the host."""
+
+    def __init__(self, capture_at: int):
+        self.inner = batch_scheduler.gang_verdicts
+        self.calls, self.capture_at, self.captured = 0, capture_at, None
+
+    def __call__(self, *args):
+        out = self.inner(*args)
+        if self.calls == self.capture_at:
+            self.captured = (_host_copy(list(args)), _host_copy(list(out)))
+        self.calls += 1
+        return out
+
+
+def _no_host_read(fn, *args):
+    """``fn(*args)`` on the card under set_sync_debug_mode("error")."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _check_gangs(name: str, w, run: dict, what: str) -> None:
+    """Every pod placed, nothing rejected or turned away; each gang whole
+    (flat gangs on distinct hosts, slice gangs contiguous)."""
+    _check_placed(name, w, run)
+    sched = run["sched"]
+    if sched.gang_rejected or sched.retry or sched.fallback:
+        raise AssertionError(f"{name} ({what}): gang_rejected {dict(list(sched.gang_rejected.items())[:3])}, "
+                             f"retry {sched.retry}, fallback {sched.fallback}")
+    hosts = {}
+    for ni in sched.snapshot.node_info_map.values():
+        for p in ni.pods:
+            hosts.setdefault(p.meta.labels["scheduling.x-k8s.io/pod-group"], []).append(
+                ni.node.meta.name)
+    if any(len(set(v)) != len(v) for v in hosts.values()):
+        raise AssertionError(f"{name} ({what}): a gang has two members on one host")
+    if w.tpu_slots:
+        stats = workloads.slice_stats(sched.snapshot.node_info_map.values())
+        if stats["ContiguityViolations"] or stats["BoundSliceGangs"] != len(hosts):
+            raise AssertionError(f"{name} ({what}): slice stats {stats}")
+        run["slice_stats"] = stats
+
+
+def _reject_case(device) -> dict:
+    """A 128-host torus (2 superpods of 64, hostname and zone labels): a
+    gang of 8 anti-affine members whose node selector leaves 6 hosts, then
+    a slice gang of 65 hosts, then 3 plain pods. Both gangs must be
+    rejected whole ("infeasible"), the plain pods placed, and after the
+    next sync the device's requested must equal a fresh encode."""
+    from kubernetes_tpu_torch.api.types import LabelSelector, ObjectMeta, PodGroup
+    from kubernetes_tpu_torch.api.wrappers import make_pod
+    from kubernetes_tpu_torch.apiserver.store import Store
+
+    infos = workloads.scheduling_basic_nodes(128, 10, capacity={"cpu": "4", "memory": "16Gi",
+                                                                "pods": 8}, tpu_slots=64)
+    for ni in infos[10:16]:
+        ni.node.meta.labels["rack"] = "r0"
+    store = Store()
+    for name, k in (("flat", 8), ("wide", 65)):
+        store.create_object("PodGroup", PodGroup(meta=ObjectMeta(name=name, namespace="default"),
+                                                 min_member=k))
+    flat = [make_pod(f"flat-{j}").req({"cpu": "500m", "memory": "1Gi"}).pod_group("flat")
+            .node_selector({"rack": "r0"}).pod_affinity(
+                "kubernetes.io/hostname",
+                LabelSelector(match_labels={"scheduling.x-k8s.io/pod-group": "flat"}),
+                anti=True).obj() for j in range(8)]
+    wide = [make_pod(f"wide-{j}").req({"cpu": "3500m", "memory": "12Gi"}).pod_group("wide")
+            .label("ktpu.dev/slice", "1").obj() for j in range(65)]
+    plain = [make_pod(f"plain-{j}").req({"cpu": "250m", "memory": "1Gi"}).obj() for j in range(3)]
+    sched = BatchScheduler(infos, caps=workloads.scheduling_slices(128).caps(), device=device,
+                           client=store)
+    placed = {}
+    for pods in (flat, wide, plain):
+        placed.update(sched.schedule(pods))
+    want = dict.fromkeys((p.key() for p in flat + wide), "infeasible")
+    if sched.gang_rejected != want or any(placed[p.key()] for p in flat + wide) or not all(
+            placed[p.key()] for p in plain):
+        raise AssertionError(f"reject case on {device}: gang_rejected "
+                             f"{sorted(set(sched.gang_rejected.values()))}, placed {placed}")
+    sched.state.sync(sched.snapshot)
+    fresh = DeviceState(sched.caps, "cpu")
+    fresh.sync(sched.snapshot)
+    if not torch.equal(sched.state.nt.requested.cpu(), fresh.nt.requested):
+        raise AssertionError(f"reject case on {device}: requested after the sync != a fresh encode")
+    status = {k: (g.phase, g.scheduled) for k, g in store.pod_groups.items()}
+    return {"placed": placed, "status": status, "modes": sched.batch_modes,
+            "rejections": dict(sched.coscheduling.rejections)}
+
+
+def _fused_inputs(args, kw, slice_mask):
+    """The fused kernel's inputs for a captured batch, as
+    ``schedule_batch_core`` builds them, with or without its slice mask."""
+    pb, et, nt = args[:3]
+    (_m, static_ok, static_ff, taint_raw, affinity_raw, image_score,
+     jitter) = batch.static_phase(pb, et, nt, slice_mask=slice_mask)
+    pod_bits = batch._pod_port_bits(pb, nt.port_bits.shape[1])
+    return [nt.allocatable, nt.requested, nt.nonzero_requested, nt.port_bits, pb.req,
+            pb.nonzero_req, pod_bits, static_ok.contiguous(), static_ff.contiguous(),
+            taint_raw.contiguous(), affinity_raw.contiguous(), image_score.contiguous(),
+            jitter.contiguous(), pb.nominated, pb.valid,
+            batch.weight_vector({**batch.DEFAULT_WEIGHTS, **(args[3] or {})})]
+
+
+def gang_phase() -> dict:
+    """SchedulingGangs and SchedulingSlices on the card (auto), on the CPU
+    and on the card with the other path forced; the plan and the verdicts
+    on the card against the CPU; the reject case."""
+    out = {}
+    for w, other in ((workloads.scheduling_gangs(), "0"), (workloads.scheduling_slices(), "1")):
+        k = -(-w.n_init // P)  # the first measured batch is captured
+        slices = bool(w.tpu_slots)
+        verdicts = _VerdictWatch(capture_at=-1 if slices else k)
+        batch_scheduler.gang_verdicts = verdicts
+        try:
+            fused_step.LAUNCHES = 0
+            gpu = _run(w, "cuda", profile_at=-1 if slices else k + 1, capture_at=k)
+            launches = fused_step.LAUNCHES
+        finally:
+            batch_scheduler.gang_verdicts = verdicts.inner
+        _check_gangs(w.name, w, gpu, "cuda")
+        want_paths = {"fused"} if slices else {"spec"}
+        if set(gpu["paths"]) != want_paths or launches != (gpu["sched"].batches if slices else 0):
+            raise AssertionError(f"{w.name}: paths {set(gpu['paths'])}, {launches} kernel "
+                                 f"launches for {gpu['sched'].batches} batches")
+        cpu = _run(w, "cpu")
+        _check_gangs(w.name, w, cpu, "cpu")
+        _check_same(w.name, gpu, cpu, "the cpu run")
+        with _spec_flag(other):
+            forced = _run(w, "cuda")
+        _check_gangs(w.name, w, forced, "forced")
+        _check_same(w.name, forced, gpu, "the cuda run under auto")
+        row = {"launches": launches, "gpu": gpu, "workload": w}
+        cap = gpu["watch"].captured
+        if slices:
+            pb, nt = cap["args"][0], cap["args"][2]
+            members, grid = cap["kw"]["slice_members"], cap["kw"]["slice_grid"]
+            want = batch._slice_plan(pb, nt, members, grid)
+            dev = _host_copy([pb, nt, members], "cuda")
+            plan_args = (dev[0], dev[1], tuple(dev[2]), grid)
+            got = _no_host_read(batch._slice_plan, *plan_args)
+            words = batch.unpack_result_block(cap["result"].packed, w.caps().nodes)[2]
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)) or not np.array_equal(
+                    words, want[1].numpy()):
+                raise AssertionError(f"{w.name}: the slice plan differs between cuda and cpu")
+            times, _ = _event_ms(lambda: batch._slice_plan(*plan_args))
+            prof = _profiled(batch._slice_plan, plan_args, {})
+            fargs = _host_copy(cap["args"], "cuda")
+            fkw = _host_copy(cap["kw"], "cuda")
+            masked = _fused_inputs(fargs, fkw, got[0])
+            plain = _fused_inputs(fargs, fkw, None)
+            kernel = {}
+            for label in ("plain", "masked", "masked", "plain"):
+                t, _ = _event_ms(lambda: fused_step.fused_step_batch(
+                    *(masked if label == "masked" else plain)))
+                kernel.setdefault(label, []).extend(t)
+            row.update(plan_ms=statistics.median(times), plan_kernels=prof["kernels"],
+                       plan_device_ms=prof["device_ms"],
+                       masked_ms=statistics.median(kernel["masked"]),
+                       plain_ms=statistics.median(kernel["plain"]))
+            detail = (f"batch {k}'s slice plan [G={members[0].shape[0]}, M={members[0].shape[1]}, "
+                      f"grid {grid[0]}x{grid[1]}, N={nt.capacity}] cuda == cpu bit for bit (mask, "
+                      f"words, and the packed block's slice column), no host read; "
+                      f"_slice_plan on the card: median {row['plan_ms']:.4f} ms over "
+                      f"{TIMED_LAUNCHES} (CUDA events; min {min(times):.4f}, max {max(times):.4f}), "
+                      f"{prof['kernels']} CUDA kernels, device busy {prof['device_ms']:.4f} ms; "
+                      f"the fused kernel on this batch (N={nt.capacity}, P={P}) in turns: "
+                      f"slice-masked {row['masked_ms']:.4f} ms, unmasked {row['plain_ms']:.4f} ms "
+                      f"(median of {2 * TIMED_LAUNCHES} each); slice stats {gpu['slice_stats']}")
+        else:
+            args, outs = verdicts.captured
+            want = batch.gang_verdicts(*args)
+            dev = _host_copy(args, "cuda")
+            got = _no_host_read(batch.gang_verdicts, *dev)
+            if not all(torch.equal(a.cpu(), b) and torch.equal(b, c)
+                       for a, b, c in zip(got, want, outs)):
+                raise AssertionError(f"{w.name}: gang_verdicts differ between cuda and cpu")
+            times, _ = _event_ms(lambda: batch.gang_verdicts(*dev))
+            prof = _profiled(batch.gang_verdicts, dev, {})
+            row.update(verdicts_ms=statistics.median(times), verdicts_kernels=prof["kernels"],
+                       verdicts_device_ms=prof["device_ms"])
+            detail = (f"batch {k}'s gang_verdicts [G={args[2].shape[0]}, M={args[2].shape[1]}, "
+                      f"N={args[1].shape[1]}] from the card's batch result: cuda == cpu == the "
+                      f"run's own, no host read; on the card: median {row['verdicts_ms']:.4f} ms "
+                      f"over {TIMED_LAUNCHES} (CUDA events; min {min(times):.4f}, max "
+                      f"{max(times):.4f}), {prof['kernels']} CUDA kernels, device busy "
+                      f"{prof['device_ms']:.4f} ms")
+        # the path auto takes against the other, in turns on the captured batch
+        ab = _ab(cap, 1)
+        mode = gpu["modes"][k]
+        table = "spec" if batch.SPEC_AUTO_CUDA[mode] else "other"
+        ratio = ab[table] / ab["other" if table == "spec" else "spec"]
+        if ratio > 1.5:
+            raise AssertionError(f"{w.name}: SPEC_AUTO_CUDA[{mode!r}] takes the path measured "
+                                 f"{ratio:.2f}x slower in turns ({ab})")
+        row["ab"] = ab
+        print(f"{w.name}: every gang bound whole, gang_rejected, retry and fallback empty, "
+              f"placements == cpu run == cuda with KTPU_SPEC={other}; paths {sorted(want_paths)}, "
+              f"{launches} kernel launches for {gpu['sched'].batches} batches; {detail}; in turns "
+              f"on batch {k} (mode {mode}): rounds {ab['spec']:.2f} ms, "
+              f"{'fused kernel' if mode == 'off' else 'scan'} {ab['other']:.2f} ms, auto takes "
+              f"{'the rounds' if table == 'spec' else 'the other'}")
+        _report(w.name, gpu)
+        print(f"{w.name} host ms per measured batch inside the stages: " + ", ".join(
+            f"{k2} {v:.3f}" for k2, v in gpu["screen_ms"].items()) + f"; forced path: "
+            f"{forced['pods_per_s']:.1f} pods/s, median {forced['median_ms']:.2f} ms per batch; "
+            f"cpu {cpu['median_ms']:.2f} ms per batch")
+        out[w.name] = row
+    on_card, on_cpu = _reject_case("cuda"), _reject_case("cpu")
+    if on_card != on_cpu:
+        raise AssertionError("reject case: the card's run differs from the cpu's")
+    print(f"reject case: a gang of 8 anti-affine members on 6 hosts and a slice gang of 65 "
+          f"hosts rejected whole (infeasible) on cuda and cpu alike, the plain pods placed; "
+          f"PodGroups {on_card['status']}; rejections {on_card['rejections']}; modes "
+          f"{on_card['modes']}; requested after the next sync == a fresh encode")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -997,6 +1247,8 @@ def main() -> int:
     timed("spec", spec_phase, sl, topo)
     dra = timed("dra", dra_phase)
     pre = timed("preempt", preempt_phase)
+    gangs = timed("gang", gang_phase)
+    slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1012,7 +1264,10 @@ def main() -> int:
         "library_ms": None,
         "launches_by_workload": {basic_name: sl["launches"],
                                  **{k: v["launches"] for k, v in dra.items()},
-                                 **{k: v["launches"] for k, v in pre.items()}},
+                                 **{k: v["launches"] for k, v in pre.items()},
+                                 **{k: v["launches"] for k, v in gangs.items()}},
+        "slice_masked_ms": gangs[slices_name]["masked_ms"],
+        "slice_unmasked_ms": gangs[slices_name]["plain_ms"],
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

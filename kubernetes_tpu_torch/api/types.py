@@ -510,6 +510,27 @@ def get_zone_key(node: "Node") -> str:
 # the pod label naming the PodGroup (gang) a pod belongs to
 POD_GROUP_LABEL = "scheduling.x-k8s.io/pod-group"
 
+# PodGroup status phases
+POD_GROUP_PENDING = "Pending"
+POD_GROUP_SCHEDULING = "Scheduling"
+POD_GROUP_RUNNING = "Running"
+
+
+@dataclass
+class PodGroup:
+    """scheduling.x-k8s.io PodGroup (namespaced): the gang contract for
+    all-or-nothing placement. Pods join via the POD_GROUP_LABEL label, and
+    the Coscheduling plugin admits a gang only when ``min_member`` of its
+    pods exist and places it whole or not at all."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    min_member: int = 1
+    # 0 = the Coscheduling plugin's default permit timeout applies
+    schedule_timeout_seconds: int = 0
+    # status (maintained by the Coscheduling plugin's PostBind and reject)
+    phase: str = POD_GROUP_PENDING
+    scheduled: int = 0  # members currently bound
+
 
 # ---------------------------------------------------------------------------
 # storage (core/v1 PersistentVolume(Claim), storage/v1 StorageClass, CSINode)

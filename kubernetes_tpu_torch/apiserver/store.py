@@ -1,9 +1,10 @@
-"""A small in-memory object store for the DRA and volume path.
+"""A small in-memory object store for the DRA, volume and gang paths.
 
 The part of ``kubernetes_tpu/apiserver/store.py``'s ``ClusterStore`` that
 the claim and volume screens and their commit-time checks read and write:
-ResourceClass and ResourceClaim through ``create_object`` /
-``get_object``, the storage kinds through their own accessors, the
+ResourceClass, ResourceClaim and PodGroup through ``create_object`` /
+``get_object`` / ``update_object`` (the Coscheduling plugin's status
+writes), the storage kinds through their own accessors, the
 claim allocation writes of the DynamicResources Reserve, and the
 PodDisruptionBudgets that preemption reads. Every write bumps
 the object's ``resource_version`` from one store-wide counter, as the JAX
@@ -17,7 +18,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from ..api.types import (CSINode, PersistentVolume, PersistentVolumeClaim,
-                         PodDisruptionBudget, ResourceClaim, StorageClass)
+                         PodDisruptionBudget, PodGroup, ResourceClaim, StorageClass)
 
 
 class Conflict(Exception):
@@ -41,13 +42,15 @@ class Store:
         self.resource_classes: Dict[str, object] = {}           # by name
         self.resource_claims: Dict[str, ResourceClaim] = {}     # by namespace/name
         self.pdbs: Dict[str, PodDisruptionBudget] = {}          # by namespace/name
+        self.pod_groups: Dict[str, PodGroup] = {}               # by namespace/name
 
     def _bump(self, obj) -> None:
         self._rv += 1
         obj.meta.resource_version = self._rv
 
     def _kind_map(self, kind: str) -> Dict[str, object]:
-        maps = {"ResourceClass": self.resource_classes, "ResourceClaim": self.resource_claims}
+        maps = {"ResourceClass": self.resource_classes, "ResourceClaim": self.resource_claims,
+                "PodGroup": self.pod_groups}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]
@@ -64,6 +67,15 @@ class Store:
 
     def get_object(self, kind: str, key: str):
         return self._kind_map(kind).get(key)
+
+    def update_object(self, kind: str, obj) -> None:
+        """Replace an existing object; NotFound when there is none."""
+        m = self._kind_map(kind)
+        key = obj.meta.name if kind in _CLUSTER_SCOPED else obj.meta.key()
+        if key not in m:
+            raise NotFound(f"{kind} {key}")
+        self._bump(obj)
+        m[key] = obj
 
     # ------------------------------------------------------------- storage kinds
 

@@ -1,12 +1,16 @@
 """The batched scheduling step: one call schedules a pod batch against the
 node mirror (PyTorch counterpart of ``kubernetes_tpu/backend/batch.py``,
-without sampling, sharding or slice/quota inputs).
+without sampling, sharding or quota inputs).
 
+  0. SLICE plan (batches with slice gangs): the torus planner
+     (``ops/slice.py``) picks each slice gang's window and ``_slice_plan``
+     lowers it to a per-pod mask and per-pod verdict words.
   1. STATIC phase (once per batch): the selector VM, the static filter masks
      and the raw scores that no intra-batch commit can change (labels,
-     taints, affinity, images), the host's volume screen and the device's
-     claim-feasibility mask (``claim_feasibility_mask``) where the batch has
-     them, the static first-fail table and the seeded tie-break jitter.
+     taints, affinity, images), the host's volume screen, the device's
+     claim-feasibility mask (``claim_feasibility_mask``) and the slice mask
+     where the batch has them, the static first-fail table and the seeded
+     tie-break jitter.
   2. COMMIT phase, with the scan's sequential semantics, on one of three
      paths (``spec_decode_eligible`` picks one per batch):
      * topology mode ``off`` (no spread constraint, no inter-pod term, no
@@ -22,8 +26,11 @@ without sampling, sharding or slice/quota inputs).
        ending in one host read of the loop's condition.
   3. The priority-class table (and, after the scan, the full nonzero
      request table) is advanced by the batch's commits in one post-scan
-     scatter, and the winners plus the first-fail table are packed into one
-     int32 block the host reads once.
+     scatter, and the winners plus the first-fail table (and the slice
+     words) are packed into one int32 block the host reads once.
+
+``gang_verdicts`` judges a batch's flat gangs after that read: one device
+call over the batch's ``node_idx`` and ``first_fail`` (``ops/gang.py``).
 """
 
 from __future__ import annotations
@@ -39,9 +46,12 @@ from ..api.dra import OP_EQ, OP_GE, OP_GT, OP_LE, OP_LT, OP_NE
 from ..ops import filters, scores, topology
 from ..ops.fused_step import (NEG_INF, NOMINATED_BONUS, WEIGHT_ORDER, _normalize,
                               _resource_scores, fused_step_batch)
+from ..ops.gang import assign_gangs
+from ..ops.slice import plan_slices
 from ..ops.schema import ExprTable, NodeTensors, PodBatch, TopoBatch, TopoCounts
 from ..ops.tiebreak import jitter_table
 from ..utils.device import DeviceLike, check_on, resolve_device
+from .device_state import _bucket
 
 # default plugin weights on the batched path (default_plugins.go:32-51)
 DEFAULT_WEIGHTS = {
@@ -59,9 +69,19 @@ STATIC_FILTER_IDS = ((4, "NodeAffinity"), (3, "TaintToleration"),
                      (2, "NodeName"), (1, "NodeUnschedulable"))
 # and of the dynamic ones, after ports (5) and fit (6)
 SPREAD_FAIL_ID, IPA_FAIL_ID = 7, 8
-# the volume screen (VolumeBinding and friends) and the claim mask
-# (DynamicResources): static, but after every plugin above in filter order
-VOLUME_FAIL_ID, DRA_FAIL_ID = 9, 10
+# the volume screen (VolumeBinding and friends), the claim mask
+# (DynamicResources) and the slice mask: static, but after every plugin
+# above in filter order
+VOLUME_FAIL_ID, DRA_FAIL_ID, SLICE_FAIL_ID = 9, 10, 11
+
+# per-pod slice verdict word (the packed block's column after the
+# first-fail words): bit 0 = the pod is a slice-gang member, bit 1 = its
+# gang's torus plan was feasible, bits 2+ = the planned node slot + 1 (0 =
+# none). The mask pins members to their planned cells, so "every member
+# landed" is the contiguity verdict.
+SLICE_MEMBER_BIT = 1
+SLICE_PLAN_OK_BIT = 2
+SLICE_TARGET_SHIFT = 2
 
 TOPO_MODES = ("off", "host", "general")
 
@@ -78,7 +98,7 @@ class BatchResult:
     ipa_ok: torch.Tensor        # [P, N] InterPodAffinity (all three checks)
     # [P, N] int8: 0 = feasible, else the 1-based filter id of the first
     # failing plugin (static ids 1-4, ports 5, fit 6, spread 7, ipa 8,
-    # volumes 9, claims 10)
+    # volumes 9, claims 10, slices 11)
     first_fail: torch.Tensor
     # the evolved carry: the post-batch dynamic node state
     final_requested: torch.Tensor   # [N, R] int32
@@ -90,7 +110,8 @@ class BatchResult:
     # [T, Vd] int32 per-domain term counts in mode "general", [T, N] per-node
     # term counts in mode "host"
     final_seg_exist: Optional[torch.Tensor] = None
-    # [P, 1 + ceil(N/4)] int32: node_idx, then first_fail bitcast to words
+    # [P, 1 + ceil(N/4) (+ 1)] int32: node_idx, first_fail bitcast to
+    # words, then the slice words when the batch had slice gangs
     packed: Optional[torch.Tensor] = None
 
 
@@ -99,26 +120,37 @@ def weight_vector(weights: Dict[str, float]) -> Tuple[float, ...]:
     return tuple(float(np.float32(weights[k])) for k in WEIGHT_ORDER)
 
 
-def pack_result_block(node_idx: torch.Tensor, first_fail: torch.Tensor) -> torch.Tensor:
-    """[P, 1 + ceil(N/4)] int32: node_idx in column 0, then the int8
+def pack_result_block(node_idx: torch.Tensor, first_fail: torch.Tensor,
+                      slice_words: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[P, 1 + ceil(N/4) (+ 1)] int32: node_idx in column 0, then the int8
     first_fail rows reinterpreted as int32 words after padding N to a
-    multiple of 4 (little-endian, the bytes of ``lax.bitcast_convert_type``)."""
+    multiple of 4 (little-endian, the bytes of ``lax.bitcast_convert_type``),
+    then the slice words where given. The JAX block's quota column, when
+    ported, follows the slice column (``kubernetes_tpu/backend/batch.py``
+    ``pack_result_block``)."""
     p, n = first_fail.shape
     pad = (-n) % 4
     if pad:
         first_fail = torch.cat(
             [first_fail, first_fail.new_zeros((p, pad))], dim=1)
     words = first_fail.contiguous().view(torch.int32)
-    return torch.cat([node_idx.to(torch.int32)[:, None], words], dim=1)
+    cols = [node_idx.to(torch.int32)[:, None], words]
+    if slice_words is not None:
+        cols.append(slice_words.to(torch.int32)[:, None])
+    return torch.cat(cols, dim=1)
 
 
-def unpack_result_block(packed, n_nodes: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(node_idx [P] int32, first_fail [P, N] int8) from the packed block.
-    Reading a device tensor here is THE blocking device read of a batch."""
+def unpack_result_block(packed, n_nodes: int
+                        ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """(node_idx [P] int32, first_fail [P, N] int8, slice_words [P] int32 or
+    None) from the packed block; the slice column is there when the block
+    is one column wider than node_idx and the first-fail words. Reading a
+    device tensor here is THE blocking device read of a batch."""
     arr = packed.cpu().numpy() if isinstance(packed, torch.Tensor) else np.asarray(packed)
     ff_words = (n_nodes + 3) // 4
     ff = np.ascontiguousarray(arr[:, 1:1 + ff_words]).view(np.int8)
-    return arr[:, 0].copy(), ff.reshape(arr.shape[0], -1)[:, :n_nodes]
+    slice_words = arr[:, 1 + ff_words].copy() if arr.shape[1] > 1 + ff_words else None
+    return arr[:, 0].copy(), ff.reshape(arr.shape[0], -1)[:, :n_nodes], slice_words
 
 
 def _pod_port_bits(pb: PodBatch, words: int) -> torch.Tensor:
@@ -163,13 +195,15 @@ def claim_feasibility_mask(sel_key: torch.Tensor, sel_op: torch.Tensor,
 
 def static_phase(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                  extra_mask: Optional[torch.Tensor] = None,
-                 dra_mask: Optional[torch.Tensor] = None):
+                 dra_mask: Optional[torch.Tensor] = None,
+                 slice_mask: Optional[torch.Tensor] = None):
     """(static_masks, static_ok, static_ff, taint_raw, affinity_raw,
     image_score, jitter): everything about the batch that no intra-batch
     commit can change (``schedule_batch_core`` lines 1042-1104).
-    ``extra_mask`` (the volume screen) and ``dra_mask`` (the claim mask) are
-    optional [P, N] bool masks ANDed into ``static_ok``; the first-fail id
-    of a cell is its earliest failing plugin: 1-4, then 9, then 10."""
+    ``extra_mask`` (the volume screen), ``dra_mask`` (the claim mask) and
+    ``slice_mask`` (``_slice_plan``) are optional [P, N] bool masks ANDed
+    into ``static_ok``; the first-fail id of a cell is its earliest failing
+    plugin: 1-4, then 9, then 10, then 11."""
     expr_match = filters.eval_exprs(et, nt)
     static_masks = {
         "NodeUnschedulable": filters.filter_unschedulable(pb, nt),
@@ -180,12 +214,13 @@ def static_phase(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     static_ok = nt.valid[None, :] & pb.valid[:, None]
     for m in static_masks.values():
         static_ok = static_ok & m
-    for m in (extra_mask, dra_mask):
+    for m in (extra_mask, dra_mask, slice_mask):
         if m is not None:
             static_ok = static_ok & m
     static_ff = torch.zeros(static_ok.shape, dtype=torch.int8, device=static_ok.device)
     # assigned latest plugin first, so the earliest failing plugin wins
-    for sid, m in ((DRA_FAIL_ID, dra_mask), (VOLUME_FAIL_ID, extra_mask)):
+    for sid, m in ((SLICE_FAIL_ID, slice_mask), (DRA_FAIL_ID, dra_mask),
+                   (VOLUME_FAIL_ID, extra_mask)):
         if m is not None:
             static_ff = torch.where(~m, torch.full_like(static_ff, sid), static_ff)
     for sid, name in STATIC_FILTER_IDS:
@@ -740,7 +775,8 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                         vd_override: Optional[int] = None, host_key: int = 0,
                         spec_decode: bool = False, ports_enabled: bool = True,
                         extra_mask: Optional[torch.Tensor] = None,
-                        dra_mask: Optional[torch.Tensor] = None) -> BatchResult:
+                        dra_mask: Optional[torch.Tensor] = None,
+                        slice_mask: Optional[torch.Tensor] = None) -> BatchResult:
     """Static phase, the commit phase of ``topo_mode`` and the post-scan
     scatters. ``weights`` are the plugin weights by name (every key of
     DEFAULT_WEIGHTS). Modes ``host`` and ``general`` need ``tc`` and ``tb``;
@@ -749,11 +785,11 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     full value vocab). ``spec_decode`` runs the speculative rounds
     (``_speculative_core``) in place of the fused kernel or the scan;
     ``ports_enabled`` False tells them that no pod of the batch wants a host
-    port; ``extra_mask`` and ``dra_mask`` join the static phase on every
-    path (the JAX names and meanings)."""
+    port; ``extra_mask``, ``dra_mask`` and ``slice_mask`` join the static
+    phase on every path (the JAX names and meanings)."""
     if topo_mode not in TOPO_MODES:
         raise ValueError(f"topo_mode must be one of {TOPO_MODES}, not {topo_mode!r}")
-    static = static_phase(pb, et, nt, extra_mask, dra_mask)
+    static = static_phase(pb, et, nt, extra_mask, dra_mask, slice_mask)
     if topo_mode != "off" and (tc is None or tb is None):
         raise ValueError(f"topo_mode {topo_mode!r} needs tc and tb")
     if spec_decode:
@@ -806,24 +842,97 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                    vd_override: Optional[int] = None, host_key: int = 0,
                    spec_decode: bool = False, ports_enabled: bool = True,
                    extra_mask: Optional[torch.Tensor] = None,
-                   dra_mask: Optional[torch.Tensor] = None) -> BatchResult:
+                   dra_mask: Optional[torch.Tensor] = None,
+                   slice_members: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   slice_grid: Optional[Tuple[int, int]] = None) -> BatchResult:
     """Schedule one encoded batch on ``device`` (default: the CUDA card;
     ``device="cpu"`` runs the plain versions). Every input must already lie
     there, the masks included. The topology, ``spec_decode``,
     ``ports_enabled`` and mask arguments are those of
-    ``schedule_batch_core``. Returns the BatchResult with the packed block
-    filled in."""
+    ``schedule_batch_core``. ``slice_members`` ([G, M] member rows, [G, M]
+    valid) and ``slice_grid`` (superpods, slots) run the slice plan ahead
+    of the core, as the JAX ``schedule_batch`` does: its mask joins the
+    static phase and its words the packed block. Returns the BatchResult
+    with the packed block filled in."""
     device = resolve_device(device)
+    member_idx, member_valid = slice_members if slice_members is not None else (None, None)
     check_on(device, valid=nt.valid, allocatable=nt.allocatable,
              pod_valid=pb.valid, pod_req=pb.req, expr_op=et.op,
              sel_counts=tc.sel_counts if tc is not None else None,
              tb_sf_valid=tb.sf_valid if tb is not None else None,
-             extra_mask=extra_mask, dra_mask=dra_mask)
+             extra_mask=extra_mask, dra_mask=dra_mask, slice_member_idx=member_idx,
+             slice_member_valid=member_valid)
+    slice_mask = slice_words = None
+    if slice_members is not None and slice_grid is not None:
+        slice_mask, slice_words = _slice_plan(pb, nt, slice_members, slice_grid)
     res = schedule_batch_core(pb, et, nt, {**DEFAULT_WEIGHTS, **(weights or {})}, tc, tb,
                               topo_mode, vd_override, host_key, spec_decode, ports_enabled,
-                              extra_mask, dra_mask)
-    res.packed = pack_result_block(res.node_idx, res.first_fail)
+                              extra_mask, dra_mask, slice_mask)
+    res.packed = pack_result_block(res.node_idx, res.first_fail, slice_words)
     return res
+
+
+def _slice_plan(pb: PodBatch, nt: NodeTensors,
+                slice_members: Tuple[torch.Tensor, torch.Tensor],
+                slice_grid: Tuple[int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(slice_mask [P, N] bool, slice_words [P] int32): the torus plan
+    (``ops/slice.py``) lowered to the per-pod form the core and the packed
+    block take (``kubernetes_tpu/backend/batch.py:1425-1452``). A non-member
+    gets an all-True mask row and word 0; a member of a rejected gang an
+    all-False row. Padding members write to a spill row past the batch,
+    which is dropped; each member row is written once."""
+    member_idx, member_valid = slice_members
+    targets, ok = plan_slices(nt, pb.req, member_idx, member_valid, slice_grid)
+    p, n = pb.capacity, nt.capacity
+    act = member_valid.reshape(-1)
+    tgt = targets.reshape(-1)
+    okf = ok[:, None].expand(member_idx.shape).reshape(-1)
+    rows = torch.where(act, member_idx.reshape(-1), p).long()
+    iota = torch.arange(n, dtype=torch.int32, device=tgt.device)
+    row_mask = (okf & (tgt >= 0))[:, None] & (iota[None, :] == tgt[:, None])
+    mask = torch.ones((p + 1, n), dtype=torch.bool, device=tgt.device)
+    mask = mask.index_put_((rows,), row_mask)[:p]
+    word = (SLICE_MEMBER_BIT | torch.where(okf, SLICE_PLAN_OK_BIT, 0)
+            | ((tgt + 1) << SLICE_TARGET_SHIFT)).to(torch.int32)
+    words = torch.zeros(p + 1, dtype=torch.int32, device=tgt.device)
+    words = words.index_put_((rows,), torch.where(act, word, 0))[:p]
+    return mask, words
+
+
+def gang_member_index(groups, device: DeviceLike = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(member_idx [G, M] int32, member_valid [G, M] bool) on ``device`` for
+    ``groups``, each a list of batch rows in batch order, with G and M
+    bucketed to powers of two (floor 2) as the JAX scheduler's
+    ``_judge_gangs`` and ``_slice_batch_args`` bucket them; -1 pads."""
+    g_cap = _bucket(len(groups), floor=2)
+    m_cap = _bucket(max(len(rows) for rows in groups), floor=2)
+    member_idx = np.full((g_cap, m_cap), -1, np.int32)
+    for g, rows in enumerate(groups):
+        member_idx[g, :len(rows)] = rows
+    idx = torch.from_numpy(member_idx).to(resolve_device(device))
+    return idx, idx >= 0
+
+
+def gang_verdicts(node_idx: torch.Tensor, first_fail: torch.Tensor, member_idx: torch.Tensor,
+                  member_valid: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The batch's flat-gang verdicts from its device results
+    (``kubernetes_tpu/backend/batch.py:127-145``). ``member_idx`` [G, M]
+    int32 rows into the pod axis (-1 padding), ``member_valid`` [G, M]
+    bool. Returns (placed_all [G] bool: the batch placed every member, the
+    commit verdict; kernel_ok [G] bool: a distinct-node cover exists on the
+    decision-time masks, ``first_fail == 0``; assign [G, M] int32: the
+    greedy cover, equal to the batch's choices where they are distinct and
+    feasible). Nothing here reads a value on the host."""
+    p = node_idx.shape[0]
+    safe = member_idx.clamp(0, p - 1).long()
+    feasible = (first_fail[safe] == 0) & member_valid[..., None]
+    chosen = node_idx[safe]
+    prefer = torch.where(member_valid, chosen, -1)
+    assign, kernel_ok = assign_gangs(feasible, prefer, member_valid)
+    placed_all = torch.all((chosen >= 0) | ~member_valid, dim=1)
+    return placed_all, kernel_ok, assign
 
 
 # The path "auto" takes on CUDA tensors, per topology mode: True = the

@@ -26,9 +26,29 @@ allocated node), a failed volume check or a vanished claim in ``fallback``
 (the JAX package hands such a pod to its sequential path, which the port
 does not have yet). Only what this path implements is accepted: a claim or
 volume pod without a store, a missing claim, class or PVC, an unbound or
-delayed-binding PVC, ephemeral volumes and gang labels raise
-NotImplementedError rather than being placed by a path that would ignore
-them.
+delayed-binding PVC and ephemeral volumes raise NotImplementedError rather
+than being placed by a path that would ignore them.
+
+Gangs (pods with the ``scheduling.x-k8s.io/pod-group`` label) follow
+``tpu_scheduler.py``: before encode, Coscheduling's PreFilter
+(``framework/plugins/coscheduling.py``) drops a member whose group is in
+rejection backoff, missing from the store or short of ``min_member``
+members; it takes no batch row and lands in ``gang_rejected`` (pod key ->
+reason). A slice gang (its pods also carry ``ktpu.dev/slice``) goes into
+the batch program as a member index, and the program's slice plan pins its
+members to one contiguous torus window (``ops/slice.py``). After the one
+read, slice gangs are judged from the packed block's slice words and
+``node_idx``; flat gangs through one ``gang_verdicts`` device call and one
+read of its verdicts. A gang with a member the batch did not place is
+rejected whole: every member returns None with the reason "incomplete" (a
+cover or window existed at decision time) or "infeasible", ``reject_gang``
+arms its backoff, and each member the device placed is surrendered through
+``DeviceState.invalidate_row`` (the next sync repairs the row from the
+snapshot). A gang that places gets its bound count and phase (PostBind).
+This slice leaves out, raising NotImplementedError: a gang that straddles
+a batch boundary within one ``schedule`` call (Permit across batches), gang
+pods with claims or volumes (their commit checks against Unreserve), both
+for the scheduler loop slice, and gang pods without an object store.
 
 Preemption follows the JAX package's batched failure path
 (``tpu_scheduler.py:1320-1382``, ``scheduler.py:880-903``): after the
@@ -44,8 +64,8 @@ set): the caller resubmits it, and the kernel's nominated bonus steers it
 to that node. Its victims land in ``preempted`` (victim key -> preemptor
 key) and leave the cluster after the batch's binds; the next ``sync``
 uploads their nodes. A failed pod of a topology batch or with claims is
-not preempted for yet: when a lower-priority pod exists it lands in
-``fallback``.
+not preempted for yet, nor is a member of a gang the batch rejected: when
+a lower-priority pod exists it lands in ``fallback``.
 """
 
 from __future__ import annotations
@@ -56,32 +76,38 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from ..api.types import POD_GROUP_LABEL, Pod
+from ..api.types import Pod
 from ..apiserver.store import Conflict
 from ..cache.snapshot import Snapshot
 from ..framework.plugins import dynamicresources, volume
+from ..framework.plugins.coscheduling import Coscheduling, pod_group_key
 from ..framework.plugins.defaultpreemption import DefaultPreemption
 from ..framework.plugins.interpodaffinity import HOSTNAME_KEY, NsLabelsFn
 from ..framework.runtime import FilterRunner, PodNominator
 from ..framework.types import NodeInfo
 from ..ops.preempt import screen_prefix
 from ..ops.schema import Capacities
+from ..ops.slice import is_slice_pod
 from ..ops.volume_mask import VolumeMaskBuilder
 from ..utils.device import DeviceLike
-from .batch import (DEFAULT_WEIGHTS, pack_result_block, schedule_batch, spec_decode_eligible,
+from .batch import (DEFAULT_WEIGHTS, SLICE_PLAN_OK_BIT, gang_member_index, gang_verdicts,
+                    pack_result_block, schedule_batch, spec_decode_eligible,
                     unpack_result_block)
 from .claim_mask import ClaimMaskBuilder
 from .device_state import DeviceState, caps_for_cluster
 
 
 STAGES = ("sync", "encode", "dispatch", "read", "bind")
-# host seconds inside the stages: the volume screen and the claim mask's
-# build and enqueue (both in encode), the commit checks, the preemption
-# screen (its device call and read, or the host shortcut) and the
-# PostFilters of the failed pods (all three in bind)
-SCREENS = ("volume_mask", "claim_mask", "commit_checks", "preempt_screen", "preempt_host")
-UNPORTED_PREEMPTION = ("preemption of a pod with topology terms or resource claims "
-                       "(topology and claim preemption slice)")
+# host seconds inside the stages: Coscheduling's PreFilter, the volume
+# screen and the claim mask's build and enqueue (all three in encode), the
+# gang verdicts (the flat gangs' device call and read, the slice gangs' host
+# check), the commit checks, the preemption screen (its device call and
+# read, or the host shortcut) and the PostFilters of the failed pods (all
+# four in bind)
+SCREENS = ("gang_prefilter", "volume_mask", "claim_mask", "gang_verdicts", "commit_checks",
+           "preempt_screen", "preempt_host")
+UNPORTED_PREEMPTION = ("preemption of a pod with topology terms or resource claims, or of a "
+                       "gang member (topology and claim preemption slice)")
 
 
 def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
@@ -91,8 +117,12 @@ def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
     spec = pod.spec
     if spec.ephemeral_claims:
         return "generic ephemeral volumes (scheduler loop slice)"
-    if POD_GROUP_LABEL in pod.meta.labels:
-        return "gang membership (gangs and slices slice)"
+    if pod_group_key(pod) is not None:
+        if client is None:
+            return "gang membership without an object store to hold its PodGroup"
+        if spec.resource_claims or spec.volumes:
+            return ("a gang pod with resource claims or volumes (their commit checks against "
+                    "the gang's Unreserve come with the scheduler loop slice)")
     if (spec.resource_claims or spec.volumes) and client is None:
         return "resource claims or volumes without an object store"
     if spec.resource_claims and not ClaimMaskBuilder(client).batchable(pod):
@@ -105,6 +135,18 @@ def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
             return (f"persistentvolumeclaim {name!r} is unbound (delayed binding comes "
                     "with the scheduler loop slice)")
     return None
+
+
+def _gang_rows(pods: Sequence[Pod]) -> Tuple[Dict[str, List[int]], Dict[str, List[int]]]:
+    """The batch's flat gangs and slice gangs: group key -> batch rows, in
+    batch order (``tpu_scheduler.py:1282-1293``, ``_slice_batch_args``)."""
+    flat: Dict[str, List[int]] = {}
+    slices: Dict[str, List[int]] = {}
+    for i, pod in enumerate(pods):
+        gkey = pod_group_key(pod)
+        if gkey is not None:
+            (slices if is_slice_pod(pod) else flat).setdefault(gkey, []).append(i)
+    return flat, slices
 
 
 class BatchScheduler:
@@ -141,6 +183,13 @@ class BatchScheduler:
         self.preempted: Dict[str, str] = {}
         self.nominator = PodNominator()
         self._evicted: List[Pod] = []  # this batch's victims, removed after its binds
+        # gangs: pod key -> why its gang took no row or was rejected whole
+        self.gang_rejected: Dict[str, str] = {}
+        self.coscheduling = (Coscheduling(client, self._gang_members)
+                             if client is not None else None)
+        self._call_members: Dict[str, Set[str]] = {}  # gkey -> this call's member keys
+        # gkey -> keys of its pods bound in the snapshot; built on first use
+        self._bound_members: Optional[Dict[str, Set[str]]] = None
         filters = FilterRunner(client, lambda: self.snapshot.node_info_map.values(),
                                self.nominator)
         self._preemption = DefaultPreemption(
@@ -150,22 +199,60 @@ class BatchScheduler:
     def add_node(self, ni: NodeInfo) -> None:
         """Add or replace a node (its pods come with its NodeInfo)."""
         self.snapshot.set(ni)
+        self._bound_members = None
 
     def remove_node(self, name: str) -> None:
         self.snapshot.remove(name)
+        self._bound_members = None
 
     def schedule(self, pods: Sequence[Pod]) -> Dict[str, Optional[str]]:
         """Place ``pods`` in order, in batches; returns pod key -> node name,
-        or None when no node fits."""
+        or None when no node fits (or the pod's gang was not placed whole)."""
         for pod in pods:
             reason = unsupported_reason(pod, self.client)
             if reason is not None:
                 raise NotImplementedError(f"pod {pod.key()}: {reason}")
-        out: Dict[str, Optional[str]] = {}
         step = self.caps.pods
-        for i in range(0, len(pods), step):
-            out.update(self._schedule_batch(pods[i:i + step]))
+        chunks = [pods[i:i + step] for i in range(0, len(pods), step)]
+        batch_of: Dict[str, int] = {}
+        members: Dict[str, Set[str]] = {}
+        for b, chunk in enumerate(chunks):
+            for pod in chunk:
+                gkey = pod_group_key(pod)
+                if gkey is None:
+                    continue
+                if batch_of.setdefault(gkey, b) != b:
+                    raise NotImplementedError(
+                        f"gang {gkey} straddles a batch boundary (Permit across batches "
+                        "comes with the scheduler loop slice)")
+                members.setdefault(gkey, set()).add(pod.key())
+        self._call_members = members
+        out: Dict[str, Optional[str]] = {}
+        try:
+            for chunk in chunks:
+                out.update(self._schedule_batch(chunk))
+        finally:
+            self._call_members = {}
         return out
+
+    def _bound_gang_pods(self) -> Dict[str, Set[str]]:
+        """gkey -> the keys of its pods bound in the snapshot."""
+        if self._bound_members is None:
+            self._bound_members = {}
+            for ni in self.snapshot.node_info_map.values():
+                for p in ni.pods:
+                    gkey = pod_group_key(p)
+                    if gkey is not None:
+                        self._bound_members.setdefault(gkey, set()).add(p.key())
+        return self._bound_members
+
+    def _gang_members(self, gkey: str, bound_only: bool) -> int:
+        """Coscheduling's member count: the group's pods bound in the
+        snapshot, plus (``bound_only`` False) this call's pods of the group."""
+        bound = self._bound_gang_pods().get(gkey, set())
+        if bound_only:
+            return len(bound)
+        return len(bound | self._call_members.get(gkey, set()))
 
     def _topo_mode_info(self) -> Tuple[str, Optional[int], int]:
         """(topo_mode, vd_bucket, host_key) for the sig table as the last
@@ -191,9 +278,13 @@ class BatchScheduler:
 
     def _schedule_batch(self, pods: Sequence[Pod]) -> Dict[str, Optional[str]]:
         state = self.state
+        placed: Dict[str, Optional[str]] = {}
         t = [time.perf_counter()]
         state.sync(self.snapshot)
         t.append(time.perf_counter())
+        pods = self._gang_prefilter(pods, placed)
+        if not pods:
+            return placed  # every pod failed the PreFilter: no batch
         pb, et = state.encoder.encode_pods(pods)
         host_pb = state.encoder.last_host_pb
         # registers the batch's signatures and terms: tc is read after it
@@ -204,22 +295,33 @@ class BatchScheduler:
         topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
                                               vd_override=vd, host_key=host_key)
         spec = spec_decode_eligible(mode, self.device)
+        flat, slices = _gang_rows(pods)
+        if slices:
+            masks.update(slice_members=gang_member_index(list(slices.values()), self.device),
+                         slice_grid=(self.caps.superpods, self.caps.sp_slots))
         res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device,
                              spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
                              **topo, **masks)
         t.append(time.perf_counter())
         # the ONE device-to-host read of the batch
-        node_idx, _first_fail = unpack_result_block(res.packed, self.caps.nodes)
+        node_idx, _first_fail, slice_words = unpack_result_block(res.packed, self.caps.nodes)
         t.append(time.perf_counter())
         state.adopt_device(res)
         state.adopt_commits(res, host_pb, node_idx)
         slot_names = state.slot_to_name()
-        if (node_idx[:len(pods)] < 0).any():
-            self._preempt(pods, pb, res, node_idx, mode, slot_names)
-        placed: Dict[str, Optional[str]] = {}
+        gang_rows = self._judge_gangs(flat, slices, res, node_idx, slice_words)
+        if (node_idx[:len(pods)] < 0).any() or gang_rows:
+            self._preempt(pods, pb, res, node_idx, mode, slot_names, gang_rows)
         rejected: Set[str] = set()
+        gang_bound: Dict[str, int] = {}
         for i, pod in enumerate(pods):
             slot = int(node_idx[i])
+            if i in gang_rows:
+                placed[pod.key()] = None
+                self.gang_rejected[pod.key()] = gang_rows[i]
+                if slot >= 0:
+                    rejected.add(slot_names[slot])  # the device placed it: surrender
+                continue
             if slot < 0:
                 placed[pod.key()] = None
                 continue
@@ -241,10 +343,18 @@ class BatchScheduler:
             placed[pod.key()] = name
             self.nominator.delete_nominated_pod_if_exists(pod)
             self.nominated.pop(pod.key(), None)
-        # the carry and the mirror hold the commits of the pods turned away:
-        # the next sync uploads those rows again from the snapshot
+            gkey = pod_group_key(pod)
+            if gkey is not None:
+                self.gang_rejected.pop(pod.key(), None)
+                self._bound_gang_pods().setdefault(gkey, set()).add(pod.key())
+                gang_bound[gkey] = gang_bound.get(gkey, 0) + 1
+        # the carry and the mirror hold the commits of the pods turned away
+        # and of the surrendered gang members: the next sync uploads those
+        # rows again from the snapshot
         for name in rejected:
             state.invalidate_row(name)
+        if gang_bound:
+            self.coscheduling.post_bind_batch(gang_bound)
         self._remove_evicted()
         t.append(time.perf_counter())
         for stage, a, b in zip(STAGES, t, t[1:]):
@@ -255,15 +365,16 @@ class BatchScheduler:
         return placed
 
     def _preempt(self, pods: Sequence[Pod], pb, res, node_idx: np.ndarray, mode: str,
-                 slot_names: Dict[int, str]) -> None:
+                 slot_names: Dict[int, str], gang_rows: Dict[int, str]) -> None:
         """The failure path of one batch, in the JAX package's order: the
         screen on the adopted carry (or the host shortcut), its one read,
         then each failed pod's PostFilter in batch order, the nominator
         updated per pod. Victims stay in the snapshot until the batch's
-        binds are done."""
+        binds are done. The members of rejected gangs (``gang_rows``) fail
+        too, placed or not, and are not preempted for."""
         t0 = time.perf_counter()
         failed = node_idx[:len(pods)] < 0
-        rows = np.flatnonzero(failed)
+        rows = sorted(set(np.flatnonzero(failed).tolist()) | set(gang_rows))
         min_prio = self.snapshot.min_pod_priority()
         hopeless = min_prio is None or all(pods[i].spec.priority <= min_prio for i in rows)
         screen = best = None
@@ -271,16 +382,16 @@ class BatchScheduler:
             # no failed pod outranks any bound pod: eviction cannot help
             screen = np.zeros((len(pods), self.caps.nodes), bool)
             best = np.full(len(pods), -1, np.int32)
-        elif mode == "off":
+        elif mode == "off" and failed.any():
             pres = screen_prefix(pb, self.state.preempt_inputs(), res.static_masks, failed)
-            best, screen = unpack_result_block(
+            best, screen, _ = unpack_result_block(
                 pack_result_block(pres.best, pres.screen.to(torch.int8)), self.caps.nodes)
             screen = screen.astype(bool)
         t1 = time.perf_counter()
         slot_of = dict(self.state.encoder.node_slots)
         for i in rows:
             pod = pods[i]
-            if mode != "off" or pod.spec.resource_claims:
+            if mode != "off" or pod.spec.resource_claims or i in gang_rows:
                 if not hopeless and pod.spec.priority > min_prio:
                     self.fallback[pod.key()] = UNPORTED_PREEMPTION
                 continue
@@ -293,6 +404,62 @@ class BatchScheduler:
                 self.nominated[pod.key()] = node
         self.screen_seconds["preempt_screen"] += t1 - t0
         self.screen_seconds["preempt_host"] += time.perf_counter() - t1
+
+    def _gang_prefilter(self, pods: Sequence[Pod],
+                        placed: Dict[str, Optional[str]]) -> List[Pod]:
+        """Coscheduling's PreFilter over the batch's gang members: a member
+        that fails it takes no batch row, returns None and lands in
+        ``gang_rejected``. Returns the pods that stay in the batch."""
+        if self.coscheduling is None:
+            return list(pods)
+        t0 = time.perf_counter()
+        kept = []
+        for pod in pods:
+            reason = self.coscheduling.pre_filter(pod)
+            if reason is None:
+                kept.append(pod)
+            else:
+                placed[pod.key()] = None
+                self.gang_rejected[pod.key()] = reason
+        self.screen_seconds["gang_prefilter"] += time.perf_counter() - t0
+        return kept
+
+    def _judge_gangs(self, flat: Dict[str, List[int]], slices: Dict[str, List[int]], res,
+                     node_idx: np.ndarray, slice_words: Optional[np.ndarray]) -> Dict[int, str]:
+        """Whole-gang verdicts of one batch (``tpu_scheduler.py:1276-1318``,
+        ``_judge_gangs``, ``_judge_slice_gangs``): {batch row -> reason} for
+        every member of a gang the batch did not place whole, with
+        ``reject_gang`` called once per such gang. Slice gangs are judged
+        on the host from their words; flat gangs by ``gang_verdicts`` on
+        the batch's device results, read once."""
+        if not flat and not slices:
+            return {}
+        t0 = time.perf_counter()
+        reasons: Dict[str, str] = {}
+        if flat:
+            member_idx, member_valid = gang_member_index(list(flat.values()), self.device)
+            placed_all, kernel_ok, _assign = gang_verdicts(res.node_idx, res.first_fail,
+                                                           member_idx, member_valid)
+            verdicts = torch.stack([placed_all, kernel_ok]).cpu().numpy()  # one read
+            for g, gkey in enumerate(flat):
+                if not verdicts[0, g]:
+                    # "incomplete": a distinct-node cover existed on the
+                    # decision-time masks, but the batch's commits broke it
+                    reasons[gkey] = "incomplete" if verdicts[1, g] else "infeasible"
+        for gkey, rows in slices.items():
+            if all(node_idx[i] >= 0 for i in rows):
+                continue
+            # "infeasible": the plan found no window; "incomplete": a member
+            # lost its planned cell to the batch's commits
+            plan_ok = all(int(slice_words[i]) & SLICE_PLAN_OK_BIT for i in rows)
+            reasons[gkey] = "incomplete" if plan_ok else "infeasible"
+        out: Dict[int, str] = {}
+        for gkey, reason in reasons.items():
+            self.coscheduling.reject_gang(gkey, reason)
+            for i in flat.get(gkey) or slices[gkey]:
+                out[i] = reason
+        self.screen_seconds["gang_verdicts"] += time.perf_counter() - t0
+        return out
 
     def _evict(self, victim: Pod, preemptor: Pod) -> None:
         self.preempted.setdefault(victim.key(), preemptor.key())
@@ -310,6 +477,9 @@ class BatchScheduler:
             ni = self.snapshot.node_info_map.get(victim.spec.node_name)
             if ni is not None and ni.remove_pod(victim):
                 self.snapshot.changed_names.add(victim.spec.node_name)
+                gkey = pod_group_key(victim)
+                if gkey is not None and self._bound_members is not None:
+                    self._bound_members.get(gkey, set()).discard(victim.key())
         self._evicted.clear()
 
     def _screens(self, pods: Sequence[Pod], pad_to: int) -> Dict[str, torch.Tensor]:

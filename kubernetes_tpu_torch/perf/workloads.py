@@ -33,11 +33,29 @@ op lists) and ``kubernetes_tpu/perf/harness.py`` (``_node_wrapper`` and
 * PreemptionPVs (``kubernetes_tpu/perf/workloads.py:412-431``;
   performance-config.yaml:409-435): the same, with a pre-bound EBS PV and
   PVC per warm pod and preemptor.
+* SchedulingGangs (``kubernetes_tpu/perf/workloads.py:261-287``): 5000
+  nodes in 10 zones; gangs of 8 and of 32 (init 4 of each, measured 8 of
+  each), pods of 100m / 500Mi, each with its PodGroup (minMember = the gang
+  size) and a required anti-affinity to its own group on the hostname key
+  (one worker per host; ``kubernetes_tpu/perf/harness.py:193-217``).
+* SchedulingSlices (``kubernetes_tpu/perf/workloads.py:290-323``): 512
+  nodes of cpu 4 / 16Gi / 8 pods labelled superpod ``i // 64`` and slot
+  ``i % 64`` (``harness.py:177-185``); slice gangs (the ``ktpu.dev/slice``
+  marker, no anti-affinity) of 2 (init 2; measured 4), 8 (measured 2) and
+  64 (measured 1) hosts, pods of 3500m / 12Gi, so each fills its host.
 
+A workload's pods follow its op list: the ``init`` shape, then each of
+``init_extra``, then ``measured`` and each of ``measured_extra``; a gang's
+members are consecutive pods of one op (group ``<prefix>-pg<j // size>``
+for the op's j-th pod, as the JAX harness's ``_gang_ordinal``).
 ``Workload.store()`` builds a fresh object store for the workloads that
-need one (claims and volumes), with every pod's objects in it.
-``run_with_preemption`` drives a workload through a BatchScheduler and
-resubmits the pods it nominated.
+need one (claims, volumes and PodGroups), with every pod's objects in it,
+and ``Workload.caps()`` the Capacities to run it with (the port raises on
+CapacityError where the JAX scheduler grows the axis: the gang workloads
+need more topology signatures and a wider torus than
+``caps_for_cluster`` gives). ``run_with_preemption`` drives a workload
+through a BatchScheduler and resubmits the pods it nominated;
+``slice_stats`` reports contiguity and fragmentation after a run.
 """
 
 from __future__ import annotations
@@ -45,12 +63,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
-from ..api.types import (LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE, ROX, LabelSelector, ObjectMeta,
-                         PersistentVolume, PersistentVolumeClaim, Pod, ResourceClaim,
-                         ResourceClass)
+from ..api.types import (LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE, POD_GROUP_LABEL, ROX,
+                         LabelSelector, ObjectMeta, PersistentVolume, PersistentVolumeClaim, Pod,
+                         PodGroup, ResourceClaim, ResourceClass)
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.store import Store
+from ..backend.device_state import _bucket, caps_for_cluster
+from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.types import NodeInfo
+from ..ops.schema import Capacities
+from ..ops.slice import SLICE_LABEL, TOPO_SLOT_LABEL, TOPO_SUPERPOD_LABEL, fragmentation_host
 
 _NODE_CAPACITY = {"cpu": "32", "memory": "128Gi", "pods": 110}
 _DEFAULT_REQ = {"cpu": "900m", "memory": "2Gi"}
@@ -59,10 +81,12 @@ _SMALL_REQ = {"cpu": "100m", "memory": "500Mi"}
 
 def scheduling_basic_nodes(count: int, zones: int = 10,
                            device_attributes: Optional[Dict[str, tuple]] = None,
-                           capacity: Optional[Dict[str, object]] = None) -> List[NodeInfo]:
+                           capacity: Optional[Dict[str, object]] = None,
+                           tpu_slots: int = 0) -> List[NodeInfo]:
     """``device_attributes``: per key, the values node i publishes value
     ``i % len`` of (harness.py ``_node_wrapper``). ``zones`` 0: no zone or
-    hostname label, as the harness makes nodes without a zone count."""
+    hostname label, as the harness makes nodes without a zone count.
+    ``tpu_slots``: node i is torus host (i // tpu_slots, i % tpu_slots)."""
     infos = []
     for i in range(count):
         nw = make_node(f"node-{i}").capacity(capacity or _NODE_CAPACITY)
@@ -71,6 +95,9 @@ def scheduling_basic_nodes(count: int, zones: int = 10,
             nw.label(LABEL_HOSTNAME, f"node-{i}")
         if device_attributes:
             nw.device_attrs({k: v[i % len(v)] for k, v in device_attributes.items()})
+        if tpu_slots:
+            nw.label(TOPO_SUPERPOD_LABEL, str(i // tpu_slots))
+            nw.label(TOPO_SLOT_LABEL, str(i % tpu_slots))
         infos.append(NodeInfo(nw.obj()))
     return infos
 
@@ -110,11 +137,26 @@ class PodShape:
     # a pre-bound PV (of this in-tree volume type) and PVC per pod
     pv_volume_type: Optional[str] = None
     priority: int = 0
+    # gang membership: pods i // gang_size share the PodGroup
+    # <prefix>-pg<i // gang_size>. A flat gang's members are anti-affine to
+    # their own group on the hostname key; a slice gang's (``slice``) carry
+    # the slice marker instead
+    gang_size: int = 0
+    slice: bool = False
 
     def pods(self, count: int) -> List[Pod]:
         out = []
         for i in range(count):
             pw = make_pod(f"{self.prefix}-{i}").req(self.req)
+            if self.gang_size:
+                group = f"{self.prefix}-pg{i // self.gang_size}"
+                pw.pod_group(group)
+                if self.slice:
+                    pw.label(SLICE_LABEL, "1")
+                else:
+                    pw.pod_affinity(LABEL_HOSTNAME,
+                                    LabelSelector(match_labels={POD_GROUP_LABEL: group}),
+                                    anti=True)
             if self.priority:
                 pw.priority(self.priority)
             if self.claim:
@@ -134,9 +176,18 @@ class PodShape:
             out.append(pw.obj())
         return out
 
+    @property
+    def needs_store(self) -> bool:
+        return bool(self.claim or self.pv_volume_type is not None or self.gang_size)
+
     def populate(self, store: Store, count: int, namespace: str = "default") -> None:
         """The objects of ``count`` pods of this shape: the claim class and
-        each pod's claim, or each pod's bound PV and PVC."""
+        each pod's claim, or each pod's bound PV and PVC, and each gang's
+        PodGroup (minMember = the gang size)."""
+        for g in range(-(-count // self.gang_size) if self.gang_size else 0):
+            store.create_object("PodGroup", PodGroup(
+                meta=ObjectMeta(name=f"{self.prefix}-pg{g}", namespace=namespace),
+                min_member=self.gang_size))
         c = self.claim
         if c and store.get_object("ResourceClass", c.klass) is None:
             store.create_object("ResourceClass", ResourceClass(
@@ -161,8 +212,8 @@ class PodShape:
 
 @dataclasses.dataclass(frozen=True)
 class Workload:
-    """createNodes, createPods (init, then warm), barrier, measurePods
-    (measured)."""
+    """createNodes, createPods (init and init_extra, then warm), barrier,
+    measurePods (measured and measured_extra)."""
 
     name: str
     nodes: int
@@ -176,11 +227,33 @@ class Workload:
     node_capacity: Optional[Dict[str, object]] = None  # default cpu 32 / 128Gi / 110 pods
     warm: Optional[PodShape] = None
     warm_pods: int = 0
+    # further createPods / measurePods ops, in order: (shape, count)
+    init_extra: Tuple[Tuple[PodShape, int], ...] = ()
+    measured_extra: Tuple[Tuple[PodShape, int], ...] = ()
+    tpu_slots: int = 0  # torus coordinate labels (scheduling_basic_nodes)
+    cap_overrides: Optional[Dict[str, int]] = None  # Capacities fields over caps_for_cluster
+
+    @property
+    def n_init(self) -> int:
+        return self.init_pods + sum(c for _, c in self.init_extra)
+
+    @property
+    def n_measured(self) -> int:
+        return self.measured_pods + sum(c for _, c in self.measured_extra)
+
+    def caps(self) -> Capacities:
+        return dataclasses.replace(caps_for_cluster(self.nodes), **(self.cap_overrides or {}))
+
+    def _ops(self) -> Tuple[Tuple[PodShape, int], ...]:
+        ops = ((self.init, self.init_pods),) + self.init_extra
+        if self.warm:
+            ops += ((self.warm, self.warm_pods),)
+        return ops + ((self.measured, self.measured_pods),) + self.measured_extra
 
     def node_infos(self) -> List[NodeInfo]:
         if not self.one_zone:
             return scheduling_basic_nodes(self.nodes, self.zones, self.device_attributes,
-                                          self.node_capacity)
+                                          self.node_capacity, self.tpu_slots)
         infos = []
         for i in range(self.nodes):
             nw = make_node(f"node-{i}").capacity(_NODE_CAPACITY)
@@ -190,21 +263,21 @@ class Workload:
         return infos
 
     def init_pod_list(self) -> List[Pod]:
-        return self.init.pods(self.init_pods)
+        return [p for shape, count in ((self.init, self.init_pods),) + self.init_extra
+                for p in shape.pods(count)]
 
     def warm_pod_list(self) -> List[Pod]:
         return self.warm.pods(self.warm_pods) if self.warm else []
 
     def measured_pod_list(self) -> List[Pod]:
-        return self.measured.pods(self.measured_pods)
+        return [p for shape, count in ((self.measured, self.measured_pods),) + self.measured_extra
+                for p in shape.pods(count)]
 
     def store(self) -> Optional[Store]:
-        """A fresh object store with every pod's claims or volumes, or None
-        when the workload needs none."""
-        shapes = ((self.init, self.init_pods), (self.measured, self.measured_pods))
-        if self.warm:
-            shapes += ((self.warm, self.warm_pods),)
-        if not any(s.claim or s.pv_volume_type is not None for s, _ in shapes):
+        """A fresh object store with every pod's claims, volumes and
+        PodGroups, or None when the workload needs none."""
+        shapes = self._ops()
+        if not any(s.needs_store for s, _ in shapes):
             return None
         store = Store()
         for shape, count in shapes:
@@ -281,6 +354,73 @@ def preemption_pvs(nodes: int = 500, init_pods: int = 2000, measured: int = 500)
                     init_pods, PodShape("preemptor", **shape), measured, zones=0,
                     node_capacity=_PREEMPTION_NODE, warm=PodShape("warm", **shape),
                     warm_pods=_WARM_PREEMPTORS)
+
+
+def scheduling_gangs(nodes: int = 5000, init_gangs: int = 4, measured_gangs: int = 8) -> Workload:
+    g8 = dict(req=_SMALL_REQ, gang_size=8)
+    g32 = dict(req=_SMALL_REQ, gang_size=32)
+    # every group's anti-affinity selector is a signature of its own, and
+    # every group's term an existing-pod term (one row each is reserved)
+    rows = _bucket(2 * (init_gangs + measured_gangs) + 1)
+    return Workload(f"SchedulingGangs/{nodes}Nodes", nodes, PodShape("initg8", **g8),
+                    init_gangs * 8, PodShape("g8", **g8), measured_gangs * 8,
+                    init_extra=((PodShape("initg32", **g32), init_gangs * 32),),
+                    measured_extra=((PodShape("g32", **g32), measured_gangs * 32),),
+                    cap_overrides={"sigs": rows, "ex_terms": rows})
+
+
+def scheduling_slices(nodes: int = 512, slots: int = 64, init_gangs: int = 2,
+                      measured_small: int = 4, measured_medium: int = 2,
+                      measured_large: int = 1) -> Workload:
+    """``measured_large`` gangs of 64 hosts need ``slots`` >= 64."""
+    host = dict(req={"cpu": "3500m", "memory": "12Gi"}, slice=True)
+    extra = ((PodShape("s32c", gang_size=8, **host), measured_medium * 8),)
+    if measured_large:
+        extra += ((PodShape("s256c", gang_size=64, **host), measured_large * 64),)
+    return Workload(f"SchedulingSlices/{nodes}Nodes", nodes,
+                    PodShape("init8c", gang_size=2, **host), init_gangs * 2,
+                    PodShape("s8c", gang_size=2, **host), measured_small * 2,
+                    zones=0, node_capacity={"cpu": "4", "memory": "16Gi", "pods": 8},
+                    measured_extra=extra, tpu_slots=slots,
+                    cap_overrides={"sp_slots": max(slots, caps_for_cluster(nodes).sp_slots)})
+
+
+def slice_stats(node_infos) -> Dict[str, float]:
+    """Slice-packing evidence from the cluster after a run (the JAX
+    harness's ``collect_slice_stats``): per-superpod fragmentation over the
+    pod-less labelled hosts, the bound slice gangs, and the contiguity
+    violations among them (members not on consecutive slots of one
+    superpod, one per host)."""
+    coords: Dict[str, Tuple[int, int]] = {}
+    occupied: Dict[str, int] = {}
+    gangs: Dict[str, List[str]] = {}
+    for ni in node_infos:
+        name = ni.node.meta.name
+        sp_s = ni.node.meta.labels.get(TOPO_SUPERPOD_LABEL)
+        pos_s = ni.node.meta.labels.get(TOPO_SLOT_LABEL)
+        if sp_s is not None and pos_s is not None:
+            coords[name] = (int(sp_s), int(pos_s))
+        occupied[name] = len(ni.pods)
+        for p in ni.pods:
+            gkey = pod_group_key(p)
+            if gkey is not None and p.meta.labels.get(SLICE_LABEL):
+                gangs.setdefault(gkey, []).append(name)
+    frag = [0.0]
+    if coords:
+        names = sorted(coords)
+        grid = (max(c[0] for c in coords.values()) + 1, max(c[1] for c in coords.values()) + 1)
+        rows = fragmentation_host([coords[n][0] for n in names], [coords[n][1] for n in names],
+                                  [True] * len(names), [occupied[n] == 0 for n in names], grid)
+        frag = [r["frag"] for r in rows] or frag
+    violations = 0
+    for members in gangs.values():
+        cells = sorted(coords.get(n, (-1, -1)) for n in members)
+        pos = [c[1] for c in cells]
+        if (cells[0][0] < 0 or len({c[0] for c in cells}) != 1 or len(set(pos)) != len(pos)
+                or pos[-1] - pos[0] != len(pos) - 1):
+            violations += 1
+    return {"FragmentationMax": max(frag), "FragmentationMean": sum(frag) / len(frag),
+            "ContiguityViolations": float(violations), "BoundSliceGangs": float(len(gangs))}
 
 
 def run_with_preemption(sched, w: Workload

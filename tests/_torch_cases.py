@@ -922,3 +922,230 @@ def run_preempt_workload_both(name: str):
     port_out = {"placed": placed_t, "rounds": rounds_t, "preempted": sched.preempted,
                 "fallback": sorted(sched.fallback)}
     return jax_out, port_out, sched
+
+
+# ----------------------------------------------------------------- gangs and slices
+
+
+class Counts:
+    """Stands in for a metrics counter: ``inc(label)`` counts per label."""
+
+    def __init__(self):
+        self.by_label = {}
+
+    def inc(self, label):
+        self.by_label[label] = self.by_label.get(label, 0) + 1
+
+
+def jax_coscheduling(store, now_fn=None):
+    """The JAX Coscheduling plugin over a JAX ClusterStore, its rejections
+    counted in ``plugin.metrics.gangs_rejected.by_label``."""
+    import types
+
+    from kubernetes_tpu.framework.plugins.coscheduling import Coscheduling
+
+    return Coscheduling(client=store, now_fn=now_fn,
+                        metrics=types.SimpleNamespace(gangs_rejected=Counts()))
+
+
+def _gang_index(groups: list):
+    """The JAX scheduler's bucketed member index (``_judge_gangs``)."""
+    from kubernetes_tpu.backend.claim_mask import _bucket
+
+    member_idx = np.full((_bucket(len(groups), floor=2),
+                          _bucket(max(len(g) for g in groups), floor=2)), -1, np.int32)
+    for g, rows in enumerate(groups):
+        member_idx[g, :len(rows)] = rows
+    return member_idx, member_idx >= 0
+
+
+def jax_gang_loop(ds, fn, infos: dict, store, plugin, pods, batch, gang_rejected: dict,
+                  trace=None) -> dict:
+    """The JAX batched path with gangs, in ``TPUScheduler``'s order: per
+    batch Coscheduling's PreFilter (a member that fails takes no row and
+    lands in ``gang_rejected`` with its reason), the slice member index
+    (``_slice_batch_args``), the batch program, the packed read and the
+    adopted carry; slice gangs judged from the slice words and node_idx
+    (``_judge_slice_gangs``), flat gangs through ``gang_verdicts``
+    (``_judge_gangs``), ``reject_gang`` per rejected gang; then the binds in
+    batch order (written to the store, so the plugin counts them), the
+    placed members of rejected gangs surrendered
+    (``_invalidate_device_row``), and ``post_bind_batch``. ``trace``, a
+    list, gets per batch the device's requested and sel_counts as the
+    program read them and the flat gangs' verdicts. Returns the
+    placements."""
+    import jax
+
+    from kubernetes_tpu.backend import batch as jbatch
+    from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu.framework.interface import CycleState
+    from kubernetes_tpu.framework.plugins.coscheduling import pod_group_key
+    from kubernetes_tpu.ops.slice import is_slice_pod
+
+    out = {}
+    for s in range(0, len(pods), batch):
+        chunk = []
+        for pod in pods[s:s + batch]:
+            _, st = plugin.pre_filter(CycleState(), pod)
+            if st.is_success():
+                chunk.append(pod)
+            else:
+                out[pod.key()] = None
+                gang_rejected[pod.key()] = st.reasons[0]
+        if not chunk:
+            continue
+        qps = [type("QP", (), {"pod": p})() for p in chunk]
+        ds.sync(SnapshotShim(infos.values()))
+        pb, et = ds.encoder.encode_pods(chunk)
+        tb = ds.sig_table.encode_topo(chunk)
+        mode, vd, host_key = jax_topo_mode_info(ds)
+        slice_members, slice_grid = TPUScheduler._slice_batch_args(None, qps, ds)
+        # copies: on the CPU np.asarray may view a buffer the program donates
+        step = {"requested": np.array(ds.nt.requested, copy=True),
+                "sel_counts": np.array(ds.tc.sel_counts, copy=True), "mode": mode,
+                "verdicts": None}
+        res = fn(pb, et, ds.nt, ds.tc, tb, jax.random.PRNGKey(0),
+                 topo_enabled=ds.topo_enabled, topo_mode=mode, vd_override=vd,
+                 host_key=host_key, ports_enabled=ds.encoder.last_has_ports,
+                 slice_members=slice_members, slice_grid=slice_grid)
+        node_idx, _ff, slice_words, _ = jbatch.unpack_result_block(res.packed, ds.caps.nodes)
+        ds.adopt_device(res)
+        ds.adopt_commits(res, ds.encoder.last_host_pb, node_idx)
+        names = ds.slot_to_name()
+        flat, slices = {}, {}
+        for i, pod in enumerate(chunk):
+            gkey = pod_group_key(pod)
+            if gkey is not None:
+                (slices if is_slice_pod(pod) else flat).setdefault(gkey, []).append(i)
+        rejected = {}
+        if flat:
+            member_idx, member_valid = _gang_index(list(flat.values()))
+            verdicts = [np.asarray(a) for a in jbatch.gang_verdicts(
+                res.node_idx, res.first_fail, member_idx, member_valid)]
+            step["verdicts"] = verdicts
+            for g, gkey in enumerate(flat):
+                if verdicts[0][g]:
+                    continue
+                reason = "incomplete" if verdicts[1][g] else "infeasible"
+                rejected.update(dict.fromkeys(flat[gkey], reason))
+                plugin.reject_gang(gkey, reason)
+        for gkey, idxs in slices.items():
+            if all(node_idx[i] >= 0 for i in idxs):
+                continue
+            plan_ok = all(int(slice_words[i]) & jbatch.SLICE_PLAN_OK_BIT for i in idxs)
+            reason = "incomplete" if plan_ok else "infeasible"
+            rejected.update(dict.fromkeys(idxs, reason))
+            plugin.reject_gang(gkey, reason)
+        surrendered, items = set(), []
+        for i, pod in enumerate(chunk):
+            slot = int(node_idx[i])
+            if i in rejected:
+                out[pod.key()] = None
+                gang_rejected[pod.key()] = rejected[i]
+                if slot >= 0:
+                    surrendered.add(names[slot])
+                continue
+            if slot < 0:
+                out[pod.key()] = None
+                continue
+            name = names[slot]
+            bound = pod.clone()
+            bound.spec.node_name = name
+            infos[name].add_pod(bound)
+            if pod.key() in store.pods:
+                store.pods[pod.key()] = bound
+            out[pod.key()] = name
+            gang_rejected.pop(pod.key(), None)
+            items.append((None, pod, name))
+        for name in surrendered:
+            ds._uploaded_gen.pop(name, None)  # TPUScheduler._invalidate_device_row
+        plugin.post_bind_batch(items)
+        if trace is not None:
+            trace.append(step)
+    return out
+
+
+# small versions of the gang workloads: (node count, kwargs, batch)
+GANG_WORKLOADS = {
+    "scheduling_gangs": (48, dict(init_gangs=1, measured_gangs=2), 80),
+    "scheduling_slices": (32, dict(slots=8, init_gangs=1, measured_small=2, measured_medium=1,
+                                   measured_large=0), 16),
+}
+
+
+def gang_caps(w, n_nodes: int, batch: int) -> dict:
+    """The Capacities fields both packages run a small gang workload with:
+    the workload's own, at 128 node slots and ``batch`` pods."""
+    caps = dataclasses.asdict(w.caps())
+    caps.update(nodes=128, pods=batch, value_words=32,
+                superpods=max(caps["superpods"], -(-128 // caps["sp_slots"])))
+    return caps
+
+
+def jax_gang_pods(op: dict) -> list:
+    """One gang op's pods, named ``<prefix>-<j>`` and grouped by the op's
+    own ordinal, as the JAX harness groups them."""
+    from kubernetes_tpu.perf.harness import _pod_wrapper
+
+    return [_pod_wrapper(j, op["prefix"], dict(op, _gang_ordinal=j)).obj()
+            for j in range(op["count"])]
+
+
+def run_gang_workload_both(name: str):
+    """A small GANG_WORKLOADS workload through ``jax_gang_loop`` and the
+    port's BatchScheduler on the CPU, both under the current KTPU_SPEC:
+    the init ops' pods in one call, then the measured ops' pods. Returns
+    (JAX placements, JAX gang_rejected, JAX store, JAX trace, port
+    placements, port store, the port's BatchScheduler)."""
+    from kubernetes_tpu.api.types import ObjectMeta as JMeta, PodGroup as JPodGroup
+    from kubernetes_tpu.apiserver.store import ClusterStore
+    from kubernetes_tpu.backend import batch as jbatch
+    from kubernetes_tpu.backend.device_state import DeviceState as JDeviceState
+    from kubernetes_tpu.ops.schema import Capacities as JCaps
+    from kubernetes_tpu.perf import workloads as jworkloads
+    from kubernetes_tpu.perf.harness import _node_wrapper
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.ops.schema import Capacities
+    from kubernetes_tpu_torch.perf import workloads
+
+    n, kw, batch = GANG_WORKLOADS[name]
+    w = getattr(workloads, name)(nodes=n, **kw)
+    all_ops = getattr(jworkloads, name)(nodes=n, **kw)["ops"]
+    caps = gang_caps(w, n, batch)
+    jinfos = {}
+    for i in range(n):
+        ni = jax_api().NodeInfo(_node_wrapper(i, all_ops[0]).obj())
+        jinfos[ni.node.meta.name] = ni
+    jstore = ClusterStore()
+    phases = ([], [])  # init pods, measured pods
+    for op in all_ops:
+        if op["opcode"] not in ("createPods", "measurePods"):
+            continue
+        pods = jax_gang_pods(op)
+        for pod in pods:
+            jstore.create_pod(pod)
+        for g in range(-(-op["count"] // op["gang_size"])):
+            jstore.create_object("PodGroup", JPodGroup(
+                meta=JMeta(name=f"{op['prefix']}-pg{g}", namespace="default"),
+                min_member=op["gang_size"]))
+        phases[op["opcode"] == "measurePods"].extend(pods)
+    plugin = jax_coscheduling(jstore)
+    ds = JDeviceState(JCaps(**caps))
+    fn = jbatch.build_schedule_batch_fn()
+    placed_j, rejected_j, trace = {}, {}, []
+    for pods in phases:
+        placed_j.update(jax_gang_loop(ds, fn, jinfos, jstore, plugin, pods, batch, rejected_j,
+                                      trace))
+    tstore = w.store()
+    sched = BatchScheduler(w.node_infos(), caps=Capacities(**caps), device="cpu", client=tstore)
+    placed_t = sched.schedule(w.init_pod_list())
+    placed_t.update(sched.schedule(w.measured_pod_list()))
+    return placed_j, rejected_j, jstore, trace, placed_t, tstore, sched
+
+
+def pod_group_status(store) -> dict:
+    """PodGroup key -> (phase, scheduled) in either package's store."""
+    groups = getattr(store, "pod_groups", None)
+    if groups is None:
+        groups = {g.meta.key(): g for g in store.list_objects("PodGroup")[0]}
+    return {k: (g.phase, g.scheduled) for k, g in groups.items()}

@@ -1,7 +1,8 @@
-"""The CUDA fused-step kernel against its plain PyTorch version (masked
-and nominated batches among them), and the topology scan, the speculative
-rounds, the claim mask, the preemption screen and the claim, volume and
-preemption workloads against their CPU runs, on the card.
+"""The CUDA fused-step kernel against its plain PyTorch version (masked,
+nominated and slice-masked batches among them), and the topology scan, the
+speculative rounds, the claim mask, the preemption screen, the slice
+planner, the gang assigner and the claim, volume, preemption and gang
+workloads against their CPU runs, on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -404,3 +405,107 @@ def test_preemption_workload_matches_cpu(cuda, name):
         if device != "cpu":
             assert fused_step.LAUNCHES - before == sched.batches
     assert runs[0] == runs[1]
+
+
+# ---------------------------------------------------------------- gangs and slices
+
+
+@pytest.mark.cuda
+def test_plan_slices_and_assign_gangs_match_cpu(cuda):
+    """The torus planner at SchedulingSlices' grid (8 superpods of 64 slots,
+    duplicate and missing coordinates, blocked cells) and the gang assigner
+    at 8 gangs of 32 on 5120 nodes: the card's result equals the CPU's, and
+    neither reads a value on the host."""
+    import types
+
+    from kubernetes_tpu_torch.ops.gang import assign_gangs
+    from kubernetes_tpu_torch.ops.slice import plan_slices
+
+    rng = np.random.RandomState(11)
+    n, sp, slots = 600, 8, 64
+    cell = rng.randint(0, sp * slots + 20, size=n)
+    nodes = {"valid": rng.uniform(size=n) > 0.03, "unschedulable": rng.uniform(size=n) < 0.03,
+             "allocatable": np.full((n, 2), 4000, np.int32),
+             "requested": np.where(rng.uniform(size=(n, 2)) < 0.2, 3000, 0).astype(np.int32),
+             "topo_sp": (cell // slots).astype(np.int32), "topo_pos": (cell % slots).astype(np.int32)}
+    req = np.full((128, 2), 1000, np.int32)
+    member_idx = np.full((8, 64), -1, np.int32)
+    for g, k in enumerate([2, 2, 8, 8, 64, 3, 1, 65]):
+        member_idx[g, :min(k, 64)] = np.arange(16 * g, 16 * g + min(k, 64)) % 128
+    args = [req, member_idx, member_idx >= 0]
+
+    def upload(device):
+        return (types.SimpleNamespace(**{k: torch.from_numpy(v).to(device)
+                                         for k, v in nodes.items()}),
+                *(torch.from_numpy(a).to(device) for a in args))
+
+    want = plan_slices(*upload("cpu"), (sp, slots))
+    plan_args = upload(cuda)
+    feasible = rng.uniform(size=(8, 32, 5120)) < 0.01
+    prefer = rng.randint(-1, 5120, size=(8, 32)).astype(np.int32)
+    active = np.arange(32)[None, :] < rng.randint(1, 33, size=(8, 1))
+    feasible[1, 0] = False                       # a member with no feasible node
+    active[5, :6] = True
+    feasible[5] = False
+    feasible[5, :, :3] = True                    # 6 members, 3 nodes: no cover
+    gang_args = [feasible, prefer, active]
+    want_gangs = assign_gangs(*map(torch.from_numpy, gang_args))
+    on_card = [torch.from_numpy(a).to(cuda) for a in gang_args]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = plan_slices(*plan_args, (sp, slots))
+        got_gangs = assign_gangs(*on_card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got + got_gangs, want + want_gangs):
+        assert torch.equal(a.cpu(), b)
+    assert 0 < int(want[1].sum()) < 8 and 0 < int(want_gangs[1].sum()) < 8
+
+
+def _slice_masked_batch(rng, p, n):
+    """A batch whose static_ok carries a slice mask: pods 0-7 pinned to one
+    node each (first-fail id 11 elsewhere), pods 8-9 to no node, under the
+    static ids 1-4."""
+    d = _batch(rng, p, n)
+    pin = np.ones((p, n), bool)
+    pin[:10] = False
+    pin[np.arange(8), rng.choice(n, size=8, replace=False)] = True
+    ff = np.where(d["static_ff"] > 0, d["static_ff"], np.where(~pin, 11, 0)).astype(np.int8)
+    d["static_ok"] = d["static_ok"] & pin
+    d["static_ff"] = np.where(d["static_ok"], 0, np.where(ff > 0, ff, 1)).astype(np.int8)
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [512, 5120])
+def test_kernel_matches_plain_version_on_slice_masked_batch(cuda, n):
+    got = _run(cuda, _slice_masked_batch(np.random.RandomState(n + 9), 32, n))
+    assert 11 in np.unique(got.first_fail.cpu().numpy())
+    assert (got.node_idx.cpu().numpy()[[8, 9]] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scheduling_gangs", "scheduling_slices"])
+def test_gang_workloads_match_cpu(cuda, name):
+    """A small SchedulingGangs / SchedulingSlices through BatchScheduler on
+    the card and on the CPU: the same placements, every gang whole."""
+    import dataclasses
+
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = (workloads.scheduling_gangs(nodes=300, init_gangs=1, measured_gangs=2)
+         if name == "scheduling_gangs" else workloads.scheduling_slices())
+    runs = []
+    for device in (cuda, "cpu"):
+        sched = BatchScheduler(w.node_infos(), caps=dataclasses.replace(w.caps()),
+                               device=device, client=w.store())
+        placed = sched.schedule(w.init_pod_list())
+        placed.update(sched.schedule(w.measured_pod_list()))
+        assert all(placed.values()) and not sched.gang_rejected
+        runs.append(placed)
+    assert runs[0] == runs[1]
+    if name == "scheduling_slices":
+        stats = workloads.slice_stats(sched.snapshot.node_info_map.values())
+        assert stats["ContiguityViolations"] == 0.0 and stats["BoundSliceGangs"] == 9.0
