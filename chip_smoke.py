@@ -71,7 +71,7 @@
    measured preemptors of 2 / 4Gi at priority 100) and PreemptionPVs/
    500Nodes (the same, each preemptor with its own pre-bound EBS PV and
    PVC) through BatchScheduler: the init, warm and measured pods, then the
-   nominated pods resubmitted until none is left (at most 8 rounds;
+   nominated pods resubmitted until none is left (at most 16 rounds;
    ``perf/workloads.py:run_with_preemption``), on the card under
    ``KTPU_SPEC=auto`` (every batch on the fused kernel), on the CPU, and
    on the card with the rounds forced. All 508 preemptors must be bound,
@@ -108,7 +108,42 @@
    stage, the plan's and the verdicts' CUDA-event ms and CUDA kernels, and
    the fused kernel's ms on the slice-masked batch against the same batch
    without the mask.
-9. Each workload run prints pods/s, ms per batch, host ms per stage, and
+9. Quota phase: SchedulingSoak/1000Nodes, SchedulingSoak/1000Nodes/
+   Cohort and SchedulingSoak/1000Nodes/NoGangs (1000 nodes of cpu 4 / 16Gi
+   / 32 pods in 10 zones publishing SchedulingDRA's device attributes;
+   tenants soak-a / soak-b / soak-c with SchedulingQuotas of weights 4 / 2
+   / 1 at scale 24, in one cohort in the second; 8 rounds of plain pods,
+   soak-a's gangs of 8 (not in the third), soak-b's claim pods and
+   soak-c's priority-100 preemptors, a quarter of each tenant's bound pods
+   deleted after each round) through ``perf/workloads.py:run_soak`` on the
+   card under ``KTPU_SPEC=auto``, on the CPU, and on the card with the
+   rounds forced. Zero oversubscription at every pass; placements, the
+   pods left pending, per-round ledgers and nominations, the quota, gang
+   and screen rejections equal across the three runs; the fused kernel
+   launched once per mode-off batch (the gangs' anti-affinity puts the
+   first two in mode host throughout; every /NoGangs batch is mode off);
+   in the rounds, host reads equal to rounds; at least one winner flagged
+   by the device screen in a batch whose tenant the gate had let through
+   whole (for /NoGangs, in a batch of the fused kernel); the screen on the
+   batch with the most screened rows on the card equal to the CPU's and
+   free of host reads (``set_sync_debug_mode("error")``). Prints ms per batch by
+   stage, the gate's and the screen's counts per tenant, and the screen's
+   CUDA-event ms, CUDA kernels and device busy time.
+10. PreemptionAll phase: PreemptionBasic's 500 nodes and 2000 priority-1
+   victims, with zone and hostname labels and SchedulingDRA's device
+   attributes, then 128 priority-100 preemptors of 2 / 4Gi with a claim
+   (mode off, the fused kernel), 128 anti-affine on the hostname key (mode
+   host) and 128 with a zone spread constraint (mode general), each kind
+   in its own batch, through ``run_with_preemption`` (at most 16 rounds)
+   on the card (auto), on the CPU and on the card with the rounds forced:
+   every preemptor bound, nothing nominated, in ``retry`` or in
+   ``fallback``, every node within its allocatable, placements,
+   nominations and victims equal across the three runs; per mode, the
+   screen on its failing batch with the most failed pods equal on card and
+   CPU and free of host reads. Prints the first failing batch of each mode
+   (ms, screen, host Evaluator) and the screen's ms, kernels and busy time
+   per mode.
+11. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -410,9 +445,11 @@ class _Watch:
         self.spec = []  # (call, rounds, host reads) of each counted spec batch
         self.profile_at, self.capture_at = profile_at, capture_at
         self.profile = self.captured = None
+        self.last_mode = None
 
     def __call__(self, *args, **kw):
         mode, spec = kw.get("topo_mode", "off"), kw.get("spec_decode", False)
+        self.last_mode = mode
         on_card = torch.device(kw["device"]).type == "cuda"
         before, rounds0 = fused_step.LAUNCHES, batch.ROUNDS
         if self.calls == self.capture_at:
@@ -1219,6 +1256,285 @@ def gang_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- quota phase
+
+
+class _QuotaWatch:
+    """Stands in for ``batch.quota_screen`` during a run: counts its calls
+    and keeps (on the device, copied after the run) the inputs and result
+    of the call with the most screened rows."""
+
+    def __init__(self):
+        self.inner = batch.quota_screen
+        self.calls = 0
+        self.captured = None
+
+    def __call__(self, node_idx, ns_idx, req, used, limit):
+        out = self.inner(node_idx, ns_idx, req, used, limit)
+        rows = int((np.asarray(ns_idx) >= 0).sum())
+        if self.captured is None or rows > self.captured["rows"]:
+            self.captured = {"rows": rows, "ns": np.array(ns_idx),
+                             "args": [node_idx, req, used, limit], "result": out}
+        self.calls += 1
+        return out
+
+
+def _timed_batches(sched) -> list:
+    """Wraps ``sched._schedule_batch``: each batch's host ms, pods, stage
+    and screen ms, and the pods the quota gate turned away and the
+    winners the screen flagged, per namespace. Returns the records (of
+    the calls that ran a batch: a call whose pods all fail the gates runs
+    none)."""
+    records = []
+    inner = sched._schedule_batch
+
+    def timed(pods):
+        s0, c0 = dict(sched.stage_seconds), dict(sched.screen_seconds)
+        g0, f0 = dict(sched.quota_gated), dict(sched.quota_flagged)
+        b0 = sched.batches
+        t0 = time.perf_counter()
+        out = inner(pods)
+        if sched.batches == b0:
+            return out  # every pod failed a PreFilter: no batch ran
+        records.append({
+            "ms": (time.perf_counter() - t0) * 1e3, "pods": len(pods),
+            "failed": sum(v is None for v in out.values()),
+            "gated": {k: v - g0.get(k, 0) for k, v in sched.quota_gated.items()
+                      if v != g0.get(k, 0)},
+            "flagged": {k: v - f0.get(k, 0) for k, v in sched.quota_flagged.items()
+                        if v != f0.get(k, 0)},
+            "namespaces": {p.meta.namespace for p in pods},
+            "path": sched.batch_paths[-1],
+            "stages": {k: (v - s0[k]) * 1e3 for k, v in sched.stage_seconds.items()},
+            "screens": {k: (v - c0[k]) * 1e3 for k, v in sched.screen_seconds.items()}})
+        return out
+
+    sched._schedule_batch = timed
+    return records
+
+
+def _run_soak(w, device) -> dict:
+    watch, qwatch = _Watch(), _QuotaWatch()
+    batch_scheduler.schedule_batch, batch.quota_screen = watch, qwatch
+    try:
+        sched = BatchScheduler(w.node_infos(), caps=w.caps(), device=device, client=w.store())
+        records = _timed_batches(sched)
+        t0 = time.perf_counter()
+        out = workloads.run_soak(sched, w)
+        wall_s = time.perf_counter() - t0
+    finally:
+        batch_scheduler.schedule_batch, batch.quota_screen = watch.inner, qwatch.inner
+    return {**out, "sched": sched, "watch": watch, "qwatch": qwatch, "records": records,
+            "wall_s": wall_s, "quota_rejected": dict(sched.quota_rejected),
+            "nominated": dict(sched.nominated), "gang_rejected": dict(sched.gang_rejected),
+            "flagged": dict(sched.quota_flagged), "gated": dict(sched.quota_gated),
+            "modes": sched.batch_modes, "paths": sched.batch_paths}
+
+
+SOAK_KEYS = ("placed", "bound", "passes", "rounds", "pending", "quota_rejected", "nominated",
+             "gang_rejected", "flagged", "gated", "modes")
+
+
+def _quota_screen_on_card(name: str, cap: dict) -> dict:
+    """The captured batch's screen: the card's result against the CPU's on
+    the same inputs, one call under set_sync_debug_mode("error"), CUDA-event
+    ms and the profile."""
+    args = [a.cpu() for a in cap["args"]]
+    want = batch.quota_screen(args[0], cap["ns"], *args[1:])
+    if not torch.equal(cap["result"].cpu(), want):
+        raise AssertionError(f"{name}: the quota screen differs between cuda and cpu")
+    dev = [a.to("cuda") for a in args]
+    call = (dev[0], cap["ns"], *dev[1:])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = batch.quota_screen(*call)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"{name}: the quota screen on the card differs from its capture")
+    times, _ = _event_ms(lambda: batch.quota_screen(*call))
+    prof = _profiled(batch.quota_screen, call, {})
+    return {"ms": statistics.median(times), "min": min(times), "max": max(times),
+            "kernels": prof["kernels"], "device_ms": prof["device_ms"],
+            "wall_ms": prof["wall_ms"], "launch_calls": prof["launch_calls"],
+            "rows": cap["rows"], "shape": f"[P={args[0].shape[0]}, NS={args[2].shape[0]}, "
+                                          f"Q={args[2].shape[1]}], {cap['rows']} screened rows"}
+
+
+def quota_phase() -> dict:
+    """SchedulingSoak, SchedulingSoak/Cohort and SchedulingSoak/NoGangs
+    through ``run_soak`` on the card (auto), on the CPU and on the card with
+    the rounds forced. The first two are in mode ``host`` (the rounds) in
+    every batch; /NoGangs is in mode ``off``: the fused kernel, then the
+    screen, in every batch."""
+    out = {}
+    for w in (workloads.scheduling_soak(), workloads.scheduling_soak(cohort="soak"),
+              workloads.scheduling_soak(gangs=False)):
+        fused_step.LAUNCHES = 0
+        gpu = _run_soak(w, "cuda")
+        launches = fused_step.LAUNCHES
+        cpu = _run_soak(w, "cpu")
+        with _spec_flag("1"):
+            spec = _run_soak(w, "cuda")
+        for run, what in ((gpu, "cuda"), (cpu, "cpu"), (spec, "spec")):
+            if run["oversubscription"]:
+                raise AssertionError(f"{w.name} ({what}): {run['oversubscription']} "
+                                     "oversubscribed quota dimensions")
+            if run["sched"].fallback:
+                raise AssertionError(f"{w.name} ({what}): fallback {run['sched'].fallback}")
+        for key in SOAK_KEYS:
+            if gpu[key] != cpu[key] or spec[key] != gpu[key]:
+                raise AssertionError(f"{w.name}: {key} differ across cuda, cpu and spec")
+        off = sum(m == "off" for m in gpu["modes"])
+        fused = [p for m, p in zip(gpu["modes"], gpu["paths"]) if m == "off"]
+        if launches != off or set(fused) - {"fused"} or gpu["watch"].fused_launches["off"] != off:
+            raise AssertionError(f"{w.name}: {launches} kernel launches for {off} mode-off "
+                                 "batches")
+        bad = [(c, r, n) for c, r, n in spec["watch"].spec if r != n]
+        if bad:
+            raise AssertionError(f"{w.name}: host reads differ from rounds in {bad[:3]}")
+        if "NoGangs" in w.name and (off != len(gpu["modes"]) or off == 0):
+            raise AssertionError(f"{w.name}: batches in modes {gpu['modes']}, not all off")
+        # a winner flagged in a batch whose tenant the gate let through whole
+        clean = [(i, ns, r["path"]) for i, r in enumerate(gpu["records"]) for ns in r["flagged"]
+                 if ns not in r["gated"]]
+        if not clean:
+            raise AssertionError(f"{w.name}: no winner flagged in a batch the gate let through")
+        if "NoGangs" in w.name and not any(path == "fused" for _i, _ns, path in clean):
+            raise AssertionError(f"{w.name}: no winner flagged after the fused kernel")
+        screen = _quota_screen_on_card(w.name, gpu["qwatch"].captured)
+        recs = gpu["records"]
+        stages = {k: statistics.median(r["stages"][k] for r in recs) for k in recs[0]["stages"]}
+        screens = {k: statistics.median(r["screens"][k] for r in recs)
+                   for k in ("quota_gate", "quota_table", "quota_reserve", "preempt_host")}
+        print(f"{w.name}: {sum(gpu['bound'].values())} pods bound over {w.rounds} rounds "
+              f"(per tenant {gpu['bound']}), {len(gpu['pending'])} pending at the end, "
+              f"{gpu['passes']} passes in {len(recs)} batches (modes "
+              f"{dict((m, gpu['modes'].count(m)) for m in sorted(set(gpu['modes'])))}, paths "
+              f"{sorted(set(gpu['paths']))}); gate turned away {gpu['gated']}, screen flagged "
+              f"{gpu['flagged']} (first clean batch {clean[0]}); 0 oversubscription at every "
+              f"pass; placements, rejections, nominations and ledgers == cpu run == the rounds "
+              f"forced; {launches} kernel launches for {off} mode-off batches")
+        print(f"{w.name} on cuda: median {statistics.median(r['ms'] for r in recs):.2f} ms per "
+              f"batch (min {min(r['ms'] for r in recs):.2f}, max "
+              f"{max(r['ms'] for r in recs):.2f}); median host ms by stage: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+              + "; of which " + ", ".join(f"{k} {v:.2f}" for k, v in screens.items())
+              + f"; whole run {gpu['wall_s']:.2f} s, cpu {cpu['wall_s']:.2f} s, rounds forced "
+              f"{spec['wall_s']:.2f} s; {gpu['qwatch'].calls} screened batches")
+        print(f"{w.name} quota_screen on the batch {screen['shape']}: cuda == cpu exactly, no "
+              f"host read under set_sync_debug_mode(\"error\"); median {screen['ms']:.4f} ms "
+              f"over {TIMED_LAUNCHES} (CUDA events; min {screen['min']:.4f}, max "
+              f"{screen['max']:.4f}); {screen['kernels']} CUDA kernels, "
+              f"{screen['launch_calls']} kernel-launch calls, device busy "
+              f"{screen['device_ms']:.4f} ms of {screen['wall_ms']:.2f} ms wall")
+        out[w.name] = {"launches": launches, "screen": screen}
+    return out
+
+
+# ---------------------------------------------------------------- preempt_all phase
+
+
+class _ModeScreenWatch(_ScreenWatch):
+    """``_ScreenWatch`` keeping one capture per topology mode (the mode of
+    the batch ``watch`` saw last)."""
+
+    def __init__(self, watch: "_Watch"):
+        super().__init__()
+        self.watch = watch
+        self.by_mode = {}
+
+    def __call__(self, pb, nt, static_masks, failed_prefix):
+        self.captured = self.by_mode.get(self.watch.last_mode)
+        out = super().__call__(pb, nt, static_masks, failed_prefix)
+        self.by_mode[self.watch.last_mode] = self.captured
+        return out
+
+
+def _run_preempt_all(w, device) -> dict:
+    watch = _Watch()
+    screens = _ModeScreenWatch(watch)
+    batch_scheduler.schedule_batch, batch_scheduler.screen_prefix = watch, screens
+    try:
+        sched = BatchScheduler(w.node_infos(), caps=w.caps(), device=device, client=w.store())
+        records = _timed_batches(sched)
+        t0 = time.perf_counter()
+        placed, rounds = workloads.run_with_preemption(sched, w)
+        wall_s = time.perf_counter() - t0
+    finally:
+        batch_scheduler.schedule_batch, batch_scheduler.screen_prefix = (watch.inner,
+                                                                          screens.inner)
+    return {"placed": placed, "rounds": rounds, "preempted": dict(sched.preempted),
+            "sched": sched, "watch": watch, "screens": screens, "records": records,
+            "wall_s": wall_s, "modes": sched.batch_modes, "paths": sched.batch_paths}
+
+
+
+def _check_preempt_all(name: str, w, run: dict, what: str) -> None:
+    sched, placed = run["sched"], run["placed"]
+    preemptors = [p.key() for p in w.measured_pod_list()]
+    unbound = [k for k in preemptors if placed.get(k) is None]
+    if unbound or sched.nominated or sched.fallback or sched.retry:
+        raise AssertionError(f"{name} ({what}): {len(unbound)} of {len(preemptors)} preemptors "
+                             f"unbound after {len(run['rounds'])} rounds, "
+                             f"{len(sched.nominated)} nominated, fallback {sched.fallback}, "
+                             f"retry {sched.retry}")
+    for ni in sched.snapshot.node_info_map.values():
+        if (ni.requested.milli_cpu > ni.allocatable.milli_cpu
+                or ni.requested.memory > ni.allocatable.memory
+                or len(ni.pods) > ni.allocatable.allowed_pod_number):
+            raise AssertionError(f"{name} ({what}): {ni.node.meta.name} over its allocatable")
+    init = -(-w.init_pods // P)
+    if run["modes"][init:init + 3] != ["off", "host", "general"]:
+        raise AssertionError(f"{name} ({what}): preemptor batches in modes "
+                             f"{run['modes'][init:init + 3]}")
+
+
+def preempt_all_phase() -> dict:
+    """PreemptionAll on the card (auto), on the CPU and on the card with the
+    rounds forced."""
+    w = workloads.preemption_all()
+    fused_step.LAUNCHES = 0
+    gpu = _run_preempt_all(w, "cuda")
+    launches = fused_step.LAUNCHES
+    cpu = _run_preempt_all(w, "cpu")
+    with _spec_flag("1"):
+        spec = _run_preempt_all(w, "cuda")
+    for run, what in ((gpu, "cuda"), (cpu, "cpu"), (spec, "spec")):
+        _check_preempt_all(w.name, w, run, what)
+    for key in ("placed", "rounds", "preempted", "modes"):
+        if gpu[key] != cpu[key] or spec[key] != gpu[key]:
+            raise AssertionError(f"{w.name}: {key} differ across cuda, cpu and spec")
+    off = sum(m == "off" for m in gpu["modes"])
+    if launches != off:
+        raise AssertionError(f"{w.name}: {launches} kernel launches for {off} mode-off batches")
+    init = -(-w.init_pods // P)
+    by_mode = {}
+    for mode, cap in sorted(gpu["screens"].by_mode.items()):
+        by_mode[mode] = _screen_on_card(f"{w.name} ({mode})", cap)
+    recs = gpu["records"][init:]
+    print(f"{w.name}: all {len(w.measured_pod_list())} preemptors (claim, anti-affine, spread; "
+          f"first batches in modes off, host, general) bound in {len(gpu['rounds'])} "
+          f"resubmission rounds (nominated before each: {[len(r) for r in gpu['rounds']]}), "
+          f"{len(gpu['preempted'])} victims, fallback empty; placements, nominations and "
+          f"victims == cpu run == the rounds forced; {launches} kernel launches for {off} "
+          f"mode-off batches; every node within its allocatable; whole run "
+          f"{gpu['wall_s']:.2f} s, cpu {cpu['wall_s']:.2f} s, rounds forced {spec['wall_s']:.2f} s")
+    for i, (rec, mode) in enumerate(zip(recs[:3], ("off", "host", "general"))):
+        print(f"{w.name} first {mode} batch on cuda: {rec['ms']:.2f} ms, {rec['failed']} failed "
+              f"pods, screen with its read {rec['screens']['preempt_screen']:.2f} ms, host "
+              f"Evaluator {rec['screens']['preempt_host']:.2f} ms; host ms by stage: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rec["stages"].items()))
+    for mode, screen in by_mode.items():
+        print(f"{w.name} preempt_screen, mode {mode}, on the failing batch {screen['shape']}: "
+              f"cuda == cpu exactly, no host read under set_sync_debug_mode(\"error\"); median "
+              f"{screen['ms']:.4f} ms (CUDA events; min {screen['min']:.4f}, max "
+              f"{screen['max']:.4f}); {screen['kernels']} CUDA kernels, device busy "
+              f"{screen['device_ms']:.4f} ms of {screen['wall_ms']:.2f} ms wall")
+    return {w.name: {"launches": launches, "screens": by_mode}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1248,6 +1564,8 @@ def main() -> int:
     dra = timed("dra", dra_phase)
     pre = timed("preempt", preempt_phase)
     gangs = timed("gang", gang_phase)
+    quota = timed("quota", quota_phase)
+    pre_all = timed("preempt_all", preempt_all_phase)
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1265,7 +1583,9 @@ def main() -> int:
         "launches_by_workload": {basic_name: sl["launches"],
                                  **{k: v["launches"] for k, v in dra.items()},
                                  **{k: v["launches"] for k, v in pre.items()},
-                                 **{k: v["launches"] for k, v in gangs.items()}},
+                                 **{k: v["launches"] for k, v in gangs.items()},
+                                 **{k: v["launches"] for k, v in quota.items()},
+                                 **{k: v["launches"] for k, v in pre_all.items()}},
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))

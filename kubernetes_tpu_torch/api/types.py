@@ -532,6 +532,34 @@ class PodGroup:
     scheduled: int = 0  # members currently bound
 
 
+# canonical SchedulingQuota dimension names: pod slots, milli-cpu, memory in
+# KiB (api/resource.py canonical) and resource.k8s.io claim entries
+QUOTA_PODS = "pods"
+QUOTA_CPU = "requests.cpu"
+QUOTA_MEMORY = "requests.memory"
+QUOTA_CLAIMS = "claims"
+
+# the dimension order of every [*, Q] quota row: the ledger's device table
+# (framework/plugins/quota.py) and the device screen (ops/quota.py)
+QUOTA_DIM_ORDER = (QUOTA_PODS, QUOTA_CPU, QUOTA_MEMORY, QUOTA_CLAIMS)
+
+
+@dataclass
+class SchedulingQuota:
+    """scheduling.x-k8s.io SchedulingQuota (namespaced): per-namespace hard
+    caps on what the scheduler admits (assumed and bound pods), keyed by the
+    QUOTA_* names in canonical ints (an absent key is unlimited), the
+    tenant's fair-share ``weight``, and ``cohort``, a lending pool whose
+    members may borrow each other's unused guaranteed headroom past their
+    own caps ("" = none)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    hard: Dict[str, int] = field(default_factory=dict)
+    weight: int = 1
+    cohort: str = ""
+    used: Dict[str, int] = field(default_factory=dict)  # advisory status
+
+
 # ---------------------------------------------------------------------------
 # storage (core/v1 PersistentVolume(Claim), storage/v1 StorageClass, CSINode)
 

@@ -2,14 +2,17 @@
 
 The part of ``kubernetes_tpu/apiserver/store.py``'s ``ClusterStore`` that
 the claim and volume screens and their commit-time checks read and write:
-ResourceClass, ResourceClaim and PodGroup through ``create_object`` /
-``get_object`` / ``update_object`` (the Coscheduling plugin's status
-writes), the storage kinds through their own accessors, the
+ResourceClass, ResourceClaim, PodGroup and SchedulingQuota through
+``create_object`` / ``get_object`` / ``update_object`` (the Coscheduling
+plugin's status writes), the storage kinds through their own accessors, the
 claim allocation writes of the DynamicResources Reserve, and the
 PodDisruptionBudgets that preemption reads. Every write bumps
 the object's ``resource_version`` from one store-wide counter, as the JAX
-store does (the volume screen caches by it). No WAL, watches, informers,
-admission or locking: one scheduler thread owns it.
+store does (the volume screen caches by it), and ``kind_version`` gives
+the counter of a generic kind's last write: where the JAX store sends a
+watch event, a reader of the port's store compares versions (the quota
+ledger rebuilds its index when SchedulingQuota's moves). No WAL, watches,
+informers, admission or locking: one scheduler thread owns it.
 """
 
 from __future__ import annotations
@@ -18,7 +21,8 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from ..api.types import (CSINode, PersistentVolume, PersistentVolumeClaim,
-                         PodDisruptionBudget, PodGroup, ResourceClaim, StorageClass)
+                         PodDisruptionBudget, PodGroup, ResourceClaim, SchedulingQuota,
+                         StorageClass)
 
 
 class Conflict(Exception):
@@ -35,6 +39,7 @@ _CLUSTER_SCOPED = frozenset(("ResourceClass",))
 class Store:
     def __init__(self):
         self._rv = 0
+        self._kind_rv: Dict[str, int] = {}
         self.pvs: Dict[str, PersistentVolume] = {}              # by name
         self.pvcs: Dict[str, PersistentVolumeClaim] = {}        # by namespace/name
         self.storage_classes: Dict[str, StorageClass] = {}
@@ -43,14 +48,20 @@ class Store:
         self.resource_claims: Dict[str, ResourceClaim] = {}     # by namespace/name
         self.pdbs: Dict[str, PodDisruptionBudget] = {}          # by namespace/name
         self.pod_groups: Dict[str, PodGroup] = {}               # by namespace/name
+        self.scheduling_quotas: Dict[str, SchedulingQuota] = {}  # by namespace/name
 
     def _bump(self, obj) -> None:
         self._rv += 1
         obj.meta.resource_version = self._rv
 
+    def kind_version(self, kind: str) -> int:
+        """The store counter at the last create or update of ``kind`` (0
+        before the first)."""
+        return self._kind_rv.get(kind, 0)
+
     def _kind_map(self, kind: str) -> Dict[str, object]:
         maps = {"ResourceClass": self.resource_classes, "ResourceClaim": self.resource_claims,
-                "PodGroup": self.pod_groups}
+                "PodGroup": self.pod_groups, "SchedulingQuota": self.scheduling_quotas}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]
@@ -63,6 +74,7 @@ class Store:
         if key in m:
             raise Conflict(f"{kind} {key} exists")
         self._bump(obj)
+        self._kind_rv[kind] = self._rv
         m[key] = obj
 
     def get_object(self, kind: str, key: str):
@@ -75,6 +87,7 @@ class Store:
         if key not in m:
             raise NotFound(f"{kind} {key}")
         self._bump(obj)
+        self._kind_rv[kind] = self._rv
         m[key] = obj
 
     # ------------------------------------------------------------- storage kinds

@@ -1,6 +1,6 @@
 """The batched scheduling step: one call schedules a pod batch against the
 node mirror (PyTorch counterpart of ``kubernetes_tpu/backend/batch.py``,
-without sampling, sharding or quota inputs).
+without sampling or sharding).
 
   0. SLICE plan (batches with slice gangs): the torus planner
      (``ops/slice.py``) picks each slice gang's window and ``_slice_plan``
@@ -26,8 +26,12 @@ without sampling, sharding or quota inputs).
        ending in one host read of the loop's condition.
   3. The priority-class table (and, after the scan, the full nonzero
      request table) is advanced by the batch's commits in one post-scan
-     scatter, and the winners plus the first-fail table (and the slice
-     words) are packed into one int32 block the host reads once.
+     scatter.
+  4. QUOTA screen (batches with screened namespaces, on every path): the
+     winners replayed in batch order against the namespace quota rows
+     (``ops/quota.py``).
+  5. The winners plus the first-fail table (and the slice and quota words)
+     are packed into one int32 block the host reads once.
 
 ``gang_verdicts`` judges a batch's flat gangs after that read: one device
 call over the batch's ``node_idx`` and ``first_fail`` (``ops/gang.py``).
@@ -47,6 +51,7 @@ from ..ops import filters, scores, topology
 from ..ops.fused_step import (NEG_INF, NOMINATED_BONUS, WEIGHT_ORDER, _normalize,
                               _resource_scores, fused_step_batch)
 from ..ops.gang import assign_gangs
+from ..ops.quota import quota_screen
 from ..ops.slice import plan_slices
 from ..ops.schema import ExprTable, NodeTensors, PodBatch, TopoBatch, TopoCounts
 from ..ops.tiebreak import jitter_table
@@ -110,8 +115,9 @@ class BatchResult:
     # [T, Vd] int32 per-domain term counts in mode "general", [T, N] per-node
     # term counts in mode "host"
     final_seg_exist: Optional[torch.Tensor] = None
-    # [P, 1 + ceil(N/4) (+ 1)] int32: node_idx, first_fail bitcast to
-    # words, then the slice words when the batch had slice gangs
+    # [P, 1 + ceil(N/4) (+ 1 or 2)] int32: node_idx, first_fail bitcast to
+    # words, then the slice words when the batch had slice gangs and the
+    # quota words when it had screened namespaces
     packed: Optional[torch.Tensor] = None
 
 
@@ -121,13 +127,13 @@ def weight_vector(weights: Dict[str, float]) -> Tuple[float, ...]:
 
 
 def pack_result_block(node_idx: torch.Tensor, first_fail: torch.Tensor,
-                      slice_words: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[P, 1 + ceil(N/4) (+ 1)] int32: node_idx in column 0, then the int8
-    first_fail rows reinterpreted as int32 words after padding N to a
+                      slice_words: Optional[torch.Tensor] = None,
+                      quota_words: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[P, 1 + ceil(N/4) (+ extras)] int32: node_idx in column 0, then the
+    int8 first_fail rows reinterpreted as int32 words after padding N to a
     multiple of 4 (little-endian, the bytes of ``lax.bitcast_convert_type``),
-    then the slice words where given. The JAX block's quota column, when
-    ported, follows the slice column (``kubernetes_tpu/backend/batch.py``
-    ``pack_result_block``)."""
+    then the trailing verdict columns in fixed order: the slice words, then
+    the quota words, each where given."""
     p, n = first_fail.shape
     pad = (-n) % 4
     if pad:
@@ -135,22 +141,36 @@ def pack_result_block(node_idx: torch.Tensor, first_fail: torch.Tensor,
             [first_fail, first_fail.new_zeros((p, pad))], dim=1)
     words = first_fail.contiguous().view(torch.int32)
     cols = [node_idx.to(torch.int32)[:, None], words]
-    if slice_words is not None:
-        cols.append(slice_words.to(torch.int32)[:, None])
+    for extra in (slice_words, quota_words):
+        if extra is not None:
+            cols.append(extra.to(torch.int32)[:, None])
     return torch.cat(cols, dim=1)
 
 
-def unpack_result_block(packed, n_nodes: int
-                        ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+def unpack_result_block(packed, n_nodes: int, quota_col: bool = False
+                        ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray],
+                                   Optional[np.ndarray]]:
     """(node_idx [P] int32, first_fail [P, N] int8, slice_words [P] int32 or
-    None) from the packed block; the slice column is there when the block
-    is one column wider than node_idx and the first-fail words. Reading a
-    device tensor here is THE blocking device read of a batch."""
+    None, quota_words [P] int32 or None) from the packed block. Two columns
+    past the first-fail words are the slice then the quota words; one is
+    the quota column when the batch ran the quota screen (``quota_col``,
+    known where it was dispatched), else the slice column. Reading a device
+    tensor here is THE blocking device read of a batch."""
     arr = packed.cpu().numpy() if isinstance(packed, torch.Tensor) else np.asarray(packed)
     ff_words = (n_nodes + 3) // 4
+    extras = arr.shape[1] - 1 - ff_words
+    slice_words = quota_words = None
+    if extras >= 2:
+        slice_words = arr[:, 1 + ff_words].copy()
+        quota_words = arr[:, 2 + ff_words].copy()
+    elif extras == 1:
+        if quota_col:
+            quota_words = arr[:, 1 + ff_words].copy()
+        else:
+            slice_words = arr[:, 1 + ff_words].copy()
     ff = np.ascontiguousarray(arr[:, 1:1 + ff_words]).view(np.int8)
-    slice_words = arr[:, 1 + ff_words].copy() if arr.shape[1] > 1 + ff_words else None
-    return arr[:, 0].copy(), ff.reshape(arr.shape[0], -1)[:, :n_nodes], slice_words
+    return (arr[:, 0].copy(), ff.reshape(arr.shape[0], -1)[:, :n_nodes], slice_words,
+            quota_words)
 
 
 def _pod_port_bits(pb: PodBatch, words: int) -> torch.Tensor:
@@ -844,16 +864,24 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                    extra_mask: Optional[torch.Tensor] = None,
                    dra_mask: Optional[torch.Tensor] = None,
                    slice_members: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                   slice_grid: Optional[Tuple[int, int]] = None) -> BatchResult:
+                   slice_grid: Optional[Tuple[int, int]] = None,
+                   quota_ns: Optional[np.ndarray] = None,
+                   quota_req: Optional[torch.Tensor] = None,
+                   quota_used: Optional[torch.Tensor] = None,
+                   quota_limit: Optional[torch.Tensor] = None) -> BatchResult:
     """Schedule one encoded batch on ``device`` (default: the CUDA card;
-    ``device="cpu"`` runs the plain versions). Every input must already lie
-    there, the masks included. The topology, ``spec_decode``,
+    ``device="cpu"`` runs the plain versions). Every tensor input must
+    already lie there, the masks included. The topology, ``spec_decode``,
     ``ports_enabled`` and mask arguments are those of
     ``schedule_batch_core``. ``slice_members`` ([G, M] member rows, [G, M]
     valid) and ``slice_grid`` (superpods, slots) run the slice plan ahead
     of the core, as the JAX ``schedule_batch`` does: its mask joins the
-    static phase and its words the packed block. Returns the BatchResult
-    with the packed block filled in."""
+    static phase and its words the packed block. ``quota_ns`` ([P] int32
+    namespace rows, on the host; ``ops/quota.build_quota_batch_args``),
+    ``quota_req`` ([P, Q]) and the namespace rows ``quota_used`` /
+    ``quota_limit`` ([NS, Q]) run the quota screen after the core, on
+    every path: its words join the packed block after the slice words.
+    Returns the BatchResult with the packed block filled in."""
     device = resolve_device(device)
     member_idx, member_valid = slice_members if slice_members is not None else (None, None)
     check_on(device, valid=nt.valid, allocatable=nt.allocatable,
@@ -861,14 +889,18 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
              sel_counts=tc.sel_counts if tc is not None else None,
              tb_sf_valid=tb.sf_valid if tb is not None else None,
              extra_mask=extra_mask, dra_mask=dra_mask, slice_member_idx=member_idx,
-             slice_member_valid=member_valid)
+             slice_member_valid=member_valid, quota_req=quota_req, quota_used=quota_used,
+             quota_limit=quota_limit)
     slice_mask = slice_words = None
     if slice_members is not None and slice_grid is not None:
         slice_mask, slice_words = _slice_plan(pb, nt, slice_members, slice_grid)
     res = schedule_batch_core(pb, et, nt, {**DEFAULT_WEIGHTS, **(weights or {})}, tc, tb,
                               topo_mode, vd_override, host_key, spec_decode, ports_enabled,
                               extra_mask, dra_mask, slice_mask)
-    res.packed = pack_result_block(res.node_idx, res.first_fail, slice_words)
+    quota_words = None
+    if quota_ns is not None and quota_used is not None:
+        quota_words = quota_screen(res.node_idx, quota_ns, quota_req, quota_used, quota_limit)
+    res.packed = pack_result_block(res.node_idx, res.first_fail, slice_words, quota_words)
     return res
 
 

@@ -50,22 +50,45 @@ a batch boundary within one ``schedule`` call (Permit across batches), gang
 pods with claims or volumes (their commit checks against Unreserve), both
 for the scheduler loop slice, and gang pods without an object store.
 
+Namespace quota (SchedulingQuota objects in the store) follows
+``tpu_scheduler.py``: before encode, QuotaAdmission's PreFilter
+(``framework/plugins/quota.py``) is the host gate; an over-quota pod takes
+no batch row, returns None and lands in ``quota_rejected`` (pod key ->
+reason). The ledger's rows are synced into ``DeviceState`` and the batch
+program screens its winners against them in batch order (``ops/
+quota.py``); the words ride the packed block. A screened winner without
+the ok bit surrenders its row (``invalidate_row``) and lands in
+``quota_rejected``; a gang with such a member is rejected whole
+("incomplete"). At bind, Reserve charges each winner in batch order, the
+authoritative check: a refused pod (two namespaces of one cohort both
+borrowing the same headroom in one batch) lands in ``retry`` and its row is
+surrendered; a refused gang member turns its whole gang away into
+``retry`` (the scheduler loop's Permit would hold and time it out). A pod
+whose claims then fail Reserve keeps its charge until the batch's reserves
+are done, as the JAX commit plane unreserves after them. ``delete_pod``
+takes a bound pod off its node and releases its charge.
+
 Preemption follows the JAX package's batched failure path
-(``tpu_scheduler.py:1320-1382``, ``scheduler.py:880-903``): after the
-batch's carry is adopted, one device screen (``ops/preempt.py``) runs over
-every pod the batch could not place, and one read brings its screen rows
-and top-ranked nodes back; when no failed pod outranks any bound pod, an
-all-False screen is made on the host instead. Each failed pod, in batch
-order, then runs DefaultPreemption's PostFilter
-(``framework/plugins/defaultpreemption.py``) against the cluster as it
-stood before the batch's binds, with its row as hints. A pod it nominates
-lands in ``nominated`` (pod key -> node, ``status.nominated_node_name``
-set): the caller resubmits it, and the kernel's nominated bonus steers it
-to that node. Its victims land in ``preempted`` (victim key -> preemptor
-key) and leave the cluster after the batch's binds; the next ``sync``
-uploads their nodes. A failed pod of a topology batch or with claims is
-not preempted for yet, nor is a member of a gang the batch rejected: when
-a lower-priority pod exists it lands in ``fallback``.
+(``tpu_scheduler.py:1320-1414``, ``scheduler.py:880-903``) in every
+topology mode: after the batch's carry is adopted, one device screen
+(``ops/preempt.py``) runs over every pod the batch could not place, on the
+batch's static masks, and one read brings its screen rows and top-ranked
+nodes back; when no failed pod outranks any bound pod, an all-False screen
+is made on the host instead. Each failed pod, in batch order, then runs
+DefaultPreemption's PostFilter (``framework/plugins/defaultpreemption.py``)
+against the cluster as it stood before the batch's binds, with its row as
+hints: the dry run's filter chain (``framework/runtime.py``) holds the
+topology, claim, quota and gang PreFilters and Filters. A member of a
+gang the batch rejected takes the JAX ``_fail`` path: one the device left
+unplaced runs its PostFilter without hints (Coscheduling's PreFilter fails
+it while the rejection's backoff lasts); one the device placed has only
+Coscheduling in its diagnosis and preempts nothing. A quota-rejected pod
+never preempts. A pod the PostFilter nominates lands in ``nominated`` (pod
+key -> node, ``status.nominated_node_name`` set): the caller resubmits it,
+and the nominated bonus steers it to that node. Its victims land in
+``preempted`` (victim key -> preemptor key), release their quota at once,
+and leave the cluster after the batch's binds; the next ``sync`` uploads
+their nodes.
 """
 
 from __future__ import annotations
@@ -83,9 +106,11 @@ from ..framework.plugins import dynamicresources, volume
 from ..framework.plugins.coscheduling import Coscheduling, pod_group_key
 from ..framework.plugins.defaultpreemption import DefaultPreemption
 from ..framework.plugins.interpodaffinity import HOSTNAME_KEY, NsLabelsFn
+from ..framework.plugins.quota import ERR_REASON_QUOTA_EXCEEDED, QuotaAdmission
 from ..framework.runtime import FilterRunner, PodNominator
 from ..framework.types import NodeInfo
 from ..ops.preempt import screen_prefix
+from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT, build_quota_batch_args
 from ..ops.schema import Capacities
 from ..ops.slice import is_slice_pod
 from ..ops.volume_mask import VolumeMaskBuilder
@@ -98,16 +123,19 @@ from .device_state import DeviceState, caps_for_cluster
 
 
 STAGES = ("sync", "encode", "dispatch", "read", "bind")
-# host seconds inside the stages: Coscheduling's PreFilter, the volume
-# screen and the claim mask's build and enqueue (all three in encode), the
-# gang verdicts (the flat gangs' device call and read, the slice gangs' host
-# check), the commit checks, the preemption screen (its device call and
-# read, or the host shortcut) and the PostFilters of the failed pods (all
-# four in bind)
-SCREENS = ("gang_prefilter", "volume_mask", "claim_mask", "gang_verdicts", "commit_checks",
-           "preempt_screen", "preempt_host")
-UNPORTED_PREEMPTION = ("preemption of a pod with topology terms or resource claims, or of a "
-                       "gang member (topology and claim preemption slice)")
+# host seconds inside the stages: the quota gate, Coscheduling's
+# PreFilter, the volume screen and the claim mask's build and enqueue, the
+# quota table sync and batch columns (all five in encode), the gang
+# verdicts (the flat gangs' device call and read, the slice gangs' host
+# check), the preemption screen (its device call and read, or the host
+# shortcut), the PostFilters of the failed pods, the quota Reserves and the
+# commit checks (all five in bind)
+SCREENS = ("quota_gate", "gang_prefilter", "volume_mask", "claim_mask", "quota_table",
+           "gang_verdicts", "preempt_screen", "preempt_host", "quota_reserve",
+           "commit_checks")
+QUOTA_SCREEN_REASON = ('{err}: namespace "{ns}" over quota at decision time '
+                       '(device screen)')
+GANG_REFUSED_REASON = 'gang "{gkey}": a member was refused its quota at Reserve'
 
 
 def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
@@ -190,8 +218,16 @@ class BatchScheduler:
         self._call_members: Dict[str, Set[str]] = {}  # gkey -> this call's member keys
         # gkey -> keys of its pods bound in the snapshot; built on first use
         self._bound_members: Optional[Dict[str, Set[str]]] = None
+        # namespace quota: the ledger, and pod key -> why the gate or the
+        # device screen turned the pod away
+        self.quota = QuotaAdmission(client, self._bound_pods) if client is not None else None
+        self.quota_rejected: Dict[str, str] = {}
+        # namespace -> pods the gate turned away and winners the device
+        # screen flagged, over all batches
+        self.quota_gated: Dict[str, int] = {}
+        self.quota_flagged: Dict[str, int] = {}
         filters = FilterRunner(client, lambda: self.snapshot.node_info_map.values(),
-                               self.nominator)
+                               self.nominator, ns_labels_fn, self.quota, self.coscheduling)
         self._preemption = DefaultPreemption(
             filters, self._evict, self._clear_nomination,
             client.list_pdbs if client is not None else None)
@@ -204,6 +240,32 @@ class BatchScheduler:
     def remove_node(self, name: str) -> None:
         self.snapshot.remove(name)
         self._bound_members = None
+
+    def _bound_pods(self) -> Iterable[Pod]:
+        """The pods bound in the cluster, this batch's victims excepted."""
+        gone = {p.key() for p in self._evicted}
+        for ni in self.snapshot.node_info_map.values():
+            for p in ni.pods:
+                if p.key() not in gone:
+                    yield p
+
+    def delete_pod(self, key: str) -> bool:
+        """Take a bound pod off its node (the next ``sync`` uploads the
+        node) and release its quota charge, as a pod deletion in the store
+        does; returns whether the pod was found."""
+        for name, ni in self.snapshot.node_info_map.items():
+            pod = next((p for p in ni.pods if p.key() == key), None)
+            if pod is None:
+                continue
+            ni.remove_pod(pod)
+            self.snapshot.changed_names.add(name)
+            gkey = pod_group_key(pod)
+            if gkey is not None and self._bound_members is not None:
+                self._bound_members.get(gkey, set()).discard(key)
+            if self.quota is not None:
+                self.quota.pod_deleted(pod)
+            return True
+        return False
 
     def schedule(self, pods: Sequence[Pod]) -> Dict[str, Optional[str]]:
         """Place ``pods`` in order, in batches; returns pod key -> node name,
@@ -282,15 +344,17 @@ class BatchScheduler:
         t = [time.perf_counter()]
         state.sync(self.snapshot)
         t.append(time.perf_counter())
-        pods = self._gang_prefilter(pods, placed)
+        pods = self._gang_prefilter(self._quota_gate(pods, placed), placed)
         if not pods:
-            return placed  # every pod failed the PreFilter: no batch
+            return placed  # every pod failed a PreFilter: no batch
         pb, et = state.encoder.encode_pods(pods)
         host_pb = state.encoder.last_host_pb
         # registers the batch's signatures and terms: tc is read after it
         tb = state.sig_table.encode_topo(pods)
         mode, vd, host_key = self._topo_mode_info()
-        masks = self._screens(pods, int(pb.valid.shape[0]))
+        pad_to = int(pb.valid.shape[0])
+        masks = self._screens(pods, pad_to)
+        quota = self._quota_batch_args(pods, pad_to)
         t.append(time.perf_counter())
         topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
                                               vd_override=vd, host_key=host_key)
@@ -301,60 +365,75 @@ class BatchScheduler:
                          slice_grid=(self.caps.superpods, self.caps.sp_slots))
         res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device,
                              spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
-                             **topo, **masks)
+                             **topo, **masks, **quota)
         t.append(time.perf_counter())
         # the ONE device-to-host read of the batch
-        node_idx, _first_fail, slice_words = unpack_result_block(res.packed, self.caps.nodes)
+        node_idx, _first_fail, slice_words, quota_words = unpack_result_block(
+            res.packed, self.caps.nodes, quota_col=bool(quota))
         t.append(time.perf_counter())
         state.adopt_device(res)
         state.adopt_commits(res, host_pb, node_idx)
         slot_names = state.slot_to_name()
-        gang_rows = self._judge_gangs(flat, slices, res, node_idx, slice_words)
+        flagged = self._quota_flagged(pods, node_idx, quota_words)
+        gang_rows = self._judge_gangs(flat, slices, res, node_idx, slice_words, flagged)
         if (node_idx[:len(pods)] < 0).any() or gang_rows:
-            self._preempt(pods, pb, res, node_idx, mode, slot_names, gang_rows)
-        rejected: Set[str] = set()
-        gang_bound: Dict[str, int] = {}
+            self._preempt(pods, pb, res, node_idx, slot_names, gang_rows)
+        rejected: Set[str] = set()  # nodes whose device commit is surrendered
+        held: List[Pod] = []  # charged pods whose claims failed Reserve
+        refused: Dict[str, Set[str]] = {}  # gang -> its members the quota refused
+        gang_bound: Dict[str, List[Pod]] = {}
         for i, pod in enumerate(pods):
             slot = int(node_idx[i])
+            key = pod.key()
+            placed[key] = None
             if i in gang_rows:
-                placed[pod.key()] = None
-                self.gang_rejected[pod.key()] = gang_rows[i]
+                self.gang_rejected[key] = gang_rows[i]
                 if slot >= 0:
                     rejected.add(slot_names[slot])  # the device placed it: surrender
                 continue
             if slot < 0:
-                placed[pod.key()] = None
                 continue
             name = slot_names[slot]
-            if pod.spec.volumes or pod.spec.resource_claims:
-                t0 = time.perf_counter()
-                turned_away = self._commit_checks(pod, name)
-                self.screen_seconds["commit_checks"] += time.perf_counter() - t0
-                if turned_away:
-                    placed[pod.key()] = None
-                    rejected.add(name)
-                    continue
-            self.retry.pop(pod.key(), None)  # placed on a resubmission
-            self.fallback.pop(pod.key(), None)
+            if i in flagged:
+                self.quota_rejected[key] = QUOTA_SCREEN_REASON.format(
+                    err=ERR_REASON_QUOTA_EXCEEDED, ns=pod.meta.namespace)
+                rejected.add(name)
+                continue
+            gkey = pod_group_key(pod)
+            if not self._commit(pod, name, held):
+                rejected.add(name)
+                if gkey is not None:
+                    refused.setdefault(gkey, set()).add(key)
+                continue
+            self.retry.pop(key, None)  # placed on a resubmission
+            self.fallback.pop(key, None)
+            self.quota_rejected.pop(key, None)
             bound_pod = pod.clone()
             bound_pod.spec.node_name = name
             self.snapshot.node_info_map[name].add_pod(bound_pod)  # bumps the generation
             self.snapshot.changed_names.add(name)
-            placed[pod.key()] = name
+            placed[key] = name
             self.nominator.delete_nominated_pod_if_exists(pod)
-            self.nominated.pop(pod.key(), None)
-            gkey = pod_group_key(pod)
+            self.nominated.pop(key, None)
             if gkey is not None:
-                self.gang_rejected.pop(pod.key(), None)
-                self._bound_gang_pods().setdefault(gkey, set()).add(pod.key())
-                gang_bound[gkey] = gang_bound.get(gkey, 0) + 1
+                gang_bound.setdefault(gkey, []).append(bound_pod)
+        # the commit plane unreserves after every winner has reserved
+        for pod in held:
+            self.quota.unreserve(pod)
+        for gkey, keys in refused.items():
+            rejected.update(self._turn_gang_away(gkey, keys, pods, placed,
+                                                 gang_bound.pop(gkey, [])))
+        for gkey, members in gang_bound.items():
+            for bound_pod in members:
+                self.gang_rejected.pop(bound_pod.key(), None)
+                self._bound_gang_pods().setdefault(gkey, set()).add(bound_pod.key())
         # the carry and the mirror hold the commits of the pods turned away
         # and of the surrendered gang members: the next sync uploads those
         # rows again from the snapshot
         for name in rejected:
             state.invalidate_row(name)
         if gang_bound:
-            self.coscheduling.post_bind_batch(gang_bound)
+            self.coscheduling.post_bind_batch({g: len(m) for g, m in gang_bound.items()})
         self._remove_evicted()
         t.append(time.perf_counter())
         for stage, a, b in zip(STAGES, t, t[1:]):
@@ -364,40 +443,151 @@ class BatchScheduler:
         self.batch_paths.append("spec" if spec else "fused" if mode == "off" else "scan")
         return placed
 
-    def _preempt(self, pods: Sequence[Pod], pb, res, node_idx: np.ndarray, mode: str,
+    def _quota_gate(self, pods: Sequence[Pod], placed: Dict[str, Optional[str]]) -> List[Pod]:
+        """QuotaAdmission's PreFilter over the batch: an over-quota pod
+        takes no batch row, returns None and lands in ``quota_rejected``.
+        Returns the pods that stay in the batch."""
+        if self.quota is None:
+            return list(pods)
+        t0 = time.perf_counter()
+        kept = []
+        for pod in pods:
+            reason = self.quota.pre_filter(pod)
+            if reason is None:
+                kept.append(pod)
+            else:
+                placed[pod.key()] = None
+                self.quota_rejected[pod.key()] = reason
+                ns = pod.meta.namespace
+                self.quota_gated[ns] = self.quota_gated.get(ns, 0) + 1
+        self.screen_seconds["quota_gate"] += time.perf_counter() - t0
+        return kept
+
+    def _quota_batch_args(self, pods: Sequence[Pod], pad_to: int) -> Dict[str, object]:
+        """The quota screen's arguments of ``schedule_batch`` after the
+        ledger's rows are synced into the device (``tpu_scheduler.py:
+        1647-1664``), or {} when no pod of the batch is screened."""
+        if self.quota is None:
+            return {}
+        t0 = time.perf_counter()
+        state, out = self.state, {}
+        table = self.quota.device_quota_table()
+        if table or state.nsq_slots:
+            ns_idx, req = build_quota_batch_args(pods, state, table, pad_to)
+            if ns_idx is not None:
+                out = dict(quota_ns=ns_idx, quota_req=torch.from_numpy(req).to(self.device),
+                           quota_used=state.nsq_used, quota_limit=state.nsq_limit)
+        self.screen_seconds["quota_table"] += time.perf_counter() - t0
+        return out
+
+    def _quota_flagged(self, pods: Sequence[Pod], node_idx: np.ndarray,
+                       quota_words: Optional[np.ndarray]) -> Set[int]:
+        """The batch rows the device screen flagged: screened winners
+        without the ok bit (``tpu_scheduler.py:1262-1274``)."""
+        if quota_words is None:
+            return set()
+        n = len(pods)
+        w = quota_words[:n]
+        rows = (node_idx[:n] >= 0) & ((w & QUOTA_SCREEN_BIT) != 0) & ((w & QUOTA_OK_BIT) == 0)
+        flagged = set(np.flatnonzero(rows).tolist())
+        for i in flagged:
+            ns = pods[i].meta.namespace
+            self.quota_flagged[ns] = self.quota_flagged.get(ns, 0) + 1
+        return flagged
+
+    def _commit(self, pod: Pod, name: str, held: List[Pod]) -> bool:
+        """The commit of one winner on its node, in batch order: the volume
+        and claim pod's checks before Reserve, QuotaAdmission's Reserve,
+        then its claims' Reserve. Returns False when the pod was turned
+        away, and records why: ``fallback`` for a failed check, ``retry``
+        for a refused Reserve. A pod whose claims fail Reserve keeps its
+        quota charge (it joins ``held``) until the batch's winners have all
+        reserved."""
+        key = pod.key()
+        t0 = time.perf_counter()
+        claims: dynamicresources.Claims = []
+        try:
+            if pod.spec.volumes or pod.spec.resource_claims:
+                claims, reason = self._commit_prechecks(pod, name)
+                if reason is not None:
+                    self.fallback[key] = reason
+                    return False
+            if self.quota is not None:
+                tq = time.perf_counter()
+                reason = self.quota.reserve(pod)
+                self.screen_seconds["quota_reserve"] += time.perf_counter() - tq
+                t0 += time.perf_counter() - tq
+                if reason is not None:
+                    self.retry[key] = reason
+                    return False
+            if pod.spec.resource_claims:
+                failed = dynamicresources.reserve(self.client, pod, name, claims)
+                if failed is not None:
+                    target = self.retry if isinstance(failed, Conflict) else self.fallback
+                    target[key] = f"{dynamicresources.ERR_REASON_CANNOT_ALLOCATE}: {failed}"
+                    if self.quota is not None:
+                        held.append(pod)
+                    return False
+            return True
+        finally:
+            self.screen_seconds["commit_checks"] += time.perf_counter() - t0
+
+    def _turn_gang_away(self, gkey: str, refused: Set[str], pods: Sequence[Pod],
+                        placed: Dict[str, Optional[str]], bound: List[Pod]) -> Set[str]:
+        """A gang with members the quota refused at Reserve (``refused``)
+        leaves whole: the members this batch bound give their charges back
+        and leave their nodes again, and every member lands in ``retry``.
+        Returns the nodes whose device commit is surrendered."""
+        nodes = set()
+        for bound_pod in bound:
+            self.quota.unreserve(bound_pod)
+            name = bound_pod.spec.node_name
+            self.snapshot.node_info_map[name].remove_pod(bound_pod)
+            self.snapshot.changed_names.add(name)
+            nodes.add(name)
+        for pod in pods:
+            if pod_group_key(pod) == gkey and pod.key() not in refused:
+                placed[pod.key()] = None
+                self.retry[pod.key()] = GANG_REFUSED_REASON.format(gkey=gkey)
+        return nodes
+
+    def _preempt(self, pods: Sequence[Pod], pb, res, node_idx: np.ndarray,
                  slot_names: Dict[int, str], gang_rows: Dict[int, str]) -> None:
         """The failure path of one batch, in the JAX package's order: the
-        screen on the adopted carry (or the host shortcut), its one read,
-        then each failed pod's PostFilter in batch order, the nominator
-        updated per pod. Victims stay in the snapshot until the batch's
-        binds are done. The members of rejected gangs (``gang_rows``) fail
-        too, placed or not, and are not preempted for."""
+        screen on the adopted carry and the batch's static masks (or the
+        host shortcut), its one read, then each failed pod's PostFilter in
+        batch order, the nominator updated per pod. Victims stay in the
+        snapshot until the batch's binds are done. A member of a rejected
+        gang (``gang_rows``) that the device left unplaced runs its
+        PostFilter without hints; one it placed preempts nothing."""
         t0 = time.perf_counter()
         failed = node_idx[:len(pods)] < 0
-        rows = sorted(set(np.flatnonzero(failed).tolist()) | set(gang_rows))
         min_prio = self.snapshot.min_pod_priority()
-        hopeless = min_prio is None or all(pods[i].spec.priority <= min_prio for i in rows)
         screen = best = None
-        if hopeless:
-            # no failed pod outranks any bound pod: eviction cannot help
-            screen = np.zeros((len(pods), self.caps.nodes), bool)
-            best = np.full(len(pods), -1, np.int32)
-        elif mode == "off" and failed.any():
-            pres = screen_prefix(pb, self.state.preempt_inputs(), res.static_masks, failed)
-            best, screen, _ = unpack_result_block(
-                pack_result_block(pres.best, pres.screen.to(torch.int8)), self.caps.nodes)
-            screen = screen.astype(bool)
+        if failed.any():
+            if min_prio is None or all(pods[i].spec.priority <= min_prio
+                                       for i in np.flatnonzero(failed)):
+                # no failed pod outranks any bound pod: eviction cannot help
+                screen = np.zeros((len(pods), self.caps.nodes), bool)
+                best = np.full(len(pods), -1, np.int32)
+            else:
+                pres = screen_prefix(pb, self.state.preempt_inputs(), res.static_masks, failed)
+                best, screen, _, _ = unpack_result_block(
+                    pack_result_block(pres.best, pres.screen.to(torch.int8)), self.caps.nodes)
+                screen = screen.astype(bool)
         t1 = time.perf_counter()
         slot_of = dict(self.state.encoder.node_slots)
+        rows = sorted(set(np.flatnonzero(failed).tolist()) | set(gang_rows))
         for i in rows:
             pod = pods[i]
-            if mode != "off" or pod.spec.resource_claims or i in gang_rows:
-                if not hopeless and pod.spec.priority > min_prio:
-                    self.fallback[pod.key()] = UNPORTED_PREEMPTION
-                continue
-            b = int(best[i])
-            node, _reason = self._preemption.post_filter(
-                pod, (screen[i], slot_of, slot_names.get(b) if b >= 0 else None))
+            if i in gang_rows:
+                if not failed[i]:
+                    continue  # placed, a sibling missed: only Coscheduling failed
+                hints = None
+            else:
+                b = int(best[i])
+                hints = (screen[i], slot_of, slot_names.get(b) if b >= 0 else None)
+            node, _reason = self._preemption.post_filter(pod, hints)
             if node is not None:
                 self.nominator.add_nominated_pod(pod, node)
                 pod.status.nominated_node_name = node
@@ -425,13 +615,16 @@ class BatchScheduler:
         return kept
 
     def _judge_gangs(self, flat: Dict[str, List[int]], slices: Dict[str, List[int]], res,
-                     node_idx: np.ndarray, slice_words: Optional[np.ndarray]) -> Dict[int, str]:
+                     node_idx: np.ndarray, slice_words: Optional[np.ndarray],
+                     flagged: Set[int]) -> Dict[int, str]:
         """Whole-gang verdicts of one batch (``tpu_scheduler.py:1276-1318``,
         ``_judge_gangs``, ``_judge_slice_gangs``): {batch row -> reason} for
         every member of a gang the batch did not place whole, with
         ``reject_gang`` called once per such gang. Slice gangs are judged
         on the host from their words; flat gangs by ``gang_verdicts`` on
-        the batch's device results, read once."""
+        the batch's device results, read once. A gang placed whole with a
+        member the quota screen flagged (``flagged``) is rejected too,
+        "incomplete"."""
         if not flat and not slices:
             return {}
         t0 = time.perf_counter()
@@ -453,6 +646,9 @@ class BatchScheduler:
             # lost its planned cell to the batch's commits
             plan_ok = all(int(slice_words[i]) & SLICE_PLAN_OK_BIT for i in rows)
             reasons[gkey] = "incomplete" if plan_ok else "infeasible"
+        for gkey, rows in {**flat, **slices}.items():
+            if gkey not in reasons and any(i in flagged for i in rows):
+                reasons[gkey] = "incomplete"  # a PodGroup never half-admits past quota
         out: Dict[int, str] = {}
         for gkey, reason in reasons.items():
             self.coscheduling.reject_gang(gkey, reason)
@@ -462,8 +658,12 @@ class BatchScheduler:
         return out
 
     def _evict(self, victim: Pod, preemptor: Pod) -> None:
+        """A victim leaves the ledger at once, as a deletion in the store
+        does; it leaves its node after the batch's binds."""
         self.preempted.setdefault(victim.key(), preemptor.key())
         self._evicted.append(victim)
+        if self.quota is not None:
+            self.quota.pod_deleted(victim)
 
     def _clear_nomination(self, pod: Pod) -> None:
         """A higher-priority preemptor took the node ``pod`` was nominated
@@ -502,14 +702,14 @@ class BatchScheduler:
         self.screen_seconds["claim_mask"] += time.perf_counter() - t1
         return out
 
-    def _commit_checks(self, pod: Pod, node_name: str) -> bool:
-        """The host checks of a volume or claim pod on its chosen node, as
-        the JAX commit path runs them: the PreFilters (a failure: fallback),
-        the exact volume filters on the node (fallback), then Reserve of the
-        claims (a conflict: retry; a vanished claim: fallback). The node's
-        NodeInfo holds the batch's earlier binds. Returns True when the pod
-        was turned away, and records why."""
-        client, key = self.client, pod.key()
+    def _commit_prechecks(self, pod: Pod, node_name: str
+                          ) -> Tuple[dynamicresources.Claims, Optional[str]]:
+        """The host checks of a volume or claim pod on its chosen node
+        before Reserve, as the JAX commit path runs them: the volume and
+        claim PreFilters, then the exact volume filters on the node, whose
+        NodeInfo holds the batch's earlier binds. Returns (the pod's
+        resolved claims, None), or ([], why the pod goes to ``fallback``)."""
+        client = self.client
         ni = self.snapshot.node_info_map[node_name]
         rwop, bound, reason = set(), [], None
         if pod.spec.volumes:
@@ -522,12 +722,4 @@ class BatchScheduler:
             claims, reason = dynamicresources.pre_filter(client, pod)
         if reason is None and pod.spec.volumes:
             reason = volume.verify_on_node(client, pod, ni, rwop, bound)
-        if reason is not None:
-            self.fallback[key] = reason
-            return True
-        failed = dynamicresources.reserve(client, pod, node_name, claims)
-        if failed is None:
-            return False
-        target = self.retry if isinstance(failed, Conflict) else self.fallback
-        target[key] = f"{dynamicresources.ERR_REASON_CANNOT_ALLOCATE}: {failed}"
-        return True
+        return claims, reason

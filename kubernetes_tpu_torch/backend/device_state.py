@@ -18,6 +18,11 @@ node and uploads the whole table again when one changed. The attribute-key
 axis grows by doubling; string values are refcounted and their freed ids
 recycled, in the JAX package's order.
 
+Namespace quota rows live in a pair of their own, ``nsq_used`` /
+``nsq_limit`` ([NS, Q] int32; ``set_ns_quota``): the ledger's view the
+device screen (``ops/quota.py``) judges winners against. No batch commit
+touches them; the namespace axis starts at 8 rows and doubles.
+
 Topology counts live in a ``SigTable`` (host truth, numpy): ``sync``
 recounts every removed or dirty node slot there, and ``tc`` uploads the
 tables again only when the table's version moved. A batch's evolved topology
@@ -38,6 +43,7 @@ from ..api import dra
 from ..cache.snapshot import Snapshot
 from ..framework.types import NodeInfo
 from ..ops.encode import ClusterEncoder
+from ..ops.quota import QUOTA_DIMS, QUOTA_NO_LIMIT
 from ..framework.plugins.interpodaffinity import NsLabelsFn
 from ..ops.schema import Capacities, NodeTensors, TopoCounts, round_node_capacity, tensor_from_numpy
 from ..utils.device import DeviceLike, resolve_device
@@ -107,6 +113,13 @@ class DeviceState:
         self._attr_kind_m = np.zeros((caps.nodes, self._attr_cols), np.int32)
         self._attr_val_m = np.zeros((caps.nodes, self._attr_cols), np.int32)
         self._upload_attr_table()
+        # --- namespace quota rows -----------------------------------------
+        self.nsq_slots: Dict[str, int] = {}  # namespace -> row
+        self._nsq_rows = 8
+        self._nsq_used_m = np.zeros((self._nsq_rows, QUOTA_DIMS), np.int32)
+        self._nsq_limit_m = np.full((self._nsq_rows, QUOTA_DIMS), QUOTA_NO_LIMIT, np.int32)
+        self.nsq_uploads = 0  # content-diffed uploads of the pair
+        self._upload_nsq()
 
     @property
     def tc(self) -> TopoCounts:
@@ -321,6 +334,51 @@ class DeviceState:
             self._attr_kind_m[slot] = krow
             self._attr_val_m[slot] = vrow
         self._upload_attr_table()
+
+    # ------------------------------------------------ namespace quota rows
+
+    def _upload_nsq(self) -> None:
+        self.nsq_used = torch.from_numpy(self._nsq_used_m.copy()).to(self.device)
+        self.nsq_limit = torch.from_numpy(self._nsq_limit_m.copy()).to(self.device)
+
+    def _grow_nsq_rows(self) -> None:
+        grow = self._nsq_rows
+        self._nsq_used_m = np.concatenate(
+            [self._nsq_used_m, np.zeros((grow, QUOTA_DIMS), np.int32)])
+        self._nsq_limit_m = np.concatenate(
+            [self._nsq_limit_m, np.full((grow, QUOTA_DIMS), QUOTA_NO_LIMIT, np.int32)])
+        self._nsq_rows += grow
+
+    def set_ns_quota(self, table: Dict[str, Tuple]) -> bool:
+        """Sync the quota rows from the ledger's view (ns -> (used row,
+        limit row) in QUOTA_DIM_ORDER ints, values clipped to [0, int32
+        max]). ``table`` is the whole desired state: a namespace that left
+        it resets to a row that never flags. Content-diffed against the
+        host copy; returns whether the pair was uploaded again."""
+        cap = int(QUOTA_NO_LIMIT)
+        dirty = False
+        for ns, slot in self.nsq_slots.items():
+            if ns not in table and (self._nsq_used_m[slot].any()
+                                    or (self._nsq_limit_m[slot] != cap).any()):
+                self._nsq_used_m[slot] = 0
+                self._nsq_limit_m[slot] = cap
+                dirty = True
+        for ns, (used_row, limit_row) in table.items():
+            slot = self.nsq_slots.get(ns)
+            if slot is None:
+                slot = self.nsq_slots[ns] = len(self.nsq_slots)
+                while slot >= self._nsq_rows:
+                    self._grow_nsq_rows()
+                dirty = True
+            for mirror, row in ((self._nsq_used_m, used_row), (self._nsq_limit_m, limit_row)):
+                v = np.clip(np.asarray(row, np.int64), 0, cap).astype(np.int32)
+                if not np.array_equal(mirror[slot], v):
+                    mirror[slot] = v
+                    dirty = True
+        if dirty:
+            self._upload_nsq()  # [NS, Q] is tiny: the whole pair, no scatter
+            self.nsq_uploads += 1
+        return dirty
 
     # ------------------------------------------------------- batch adoption
 

@@ -13,7 +13,7 @@ offsets.
 from __future__ import annotations
 
 import random
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from typing import Callable, Collection, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -36,9 +36,11 @@ class DefaultPreemption:
         self.pdb_lister = pdb_lister or (lambda: [])
         self.rng = random.Random(0)
 
-    def post_filter(self, pod: Pod, hints: Optional[Hints] = None
-                    ) -> Tuple[Optional[str], Optional[str]]:
-        """(the node the pod is nominated to, or None and the reason)."""
+    def post_filter(self, pod: Pod, hints: Optional[Hints] = None,
+                    unresolvable: Collection[str] = ()) -> Tuple[Optional[str], Optional[str]]:
+        """(the node the pod is nominated to, or None and the reason).
+        ``unresolvable``: the nodes whose filter status was
+        UnschedulableAndUnresolvable (none on the batched path)."""
         state, reason = self.filters.pre_filter(pod)
         if reason is not None:
             return None, reason
@@ -63,4 +65,4 @@ class DefaultPreemption:
                 preferred = best_name
         ev = Evaluator(self.filters, state, pdbs, self.evict, self.clear_nomination, self.rng,
                        screen_fn=screen_fn, preferred_node=preferred)
-        return ev.preempt(pod, node_infos)
+        return ev.preempt(pod, node_infos, unresolvable)

@@ -1,17 +1,26 @@
-"""Inter-pod affinity terms as the batched path counts them.
+"""Inter-pod affinity: the terms, and the PreFilter and Filter the
+preemption dry run runs.
 
 An own copy of the term parsing of ``kubernetes_tpu/framework/plugins/
-interpodaffinity.py`` (``AffinityTerm`` and the four term extractors),
-without the plugin classes: the batched path evaluates the terms through
-``backend/sig_table.py`` and ``ops/topology.py`` instead.
+interpodaffinity.py`` (``AffinityTerm`` and the four term extractors) and
+of its PreFilter state, AddPod / RemovePod extensions and Filter
+(``:117-250``, interpodaffinity/filtering.go), as plain functions without
+the scores: the batched path evaluates the terms through
+``backend/sig_table.py`` and ``ops/topology.py``; only the host dry run
+(``framework/runtime.py:FilterRunner``) reads these.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Callable, Dict, FrozenSet, List, Optional
+from dataclasses import dataclass, field
+from typing import Callable, Dict, FrozenSet, Iterable, List, Optional, Tuple
 
-from ...api.types import LABEL_HOSTNAME, MATCH_NOTHING, LabelSelector, Pod, PodAffinityTerm
+from ...api.types import LABEL_HOSTNAME, MATCH_NOTHING, LabelSelector, Node, Pod, PodAffinityTerm
+from ..types import NodeInfo
+
+ERR_EXISTING_ANTI = "node(s) didn't satisfy existing pods anti-affinity rules"
+ERR_AFFINITY = "node(s) didn't match pod affinity rules"
+ERR_ANTI_AFFINITY = "node(s) didn't match pod anti-affinity rules"
 
 # the topology key whose domains are single nodes (podtopologyspread.go)
 HOSTNAME_KEY = LABEL_HOSTNAME
@@ -86,3 +95,103 @@ def preferred_affinity_terms(pod: Pod) -> List[AffinityTerm]:
 
 def preferred_anti_affinity_terms(pod: Pod) -> List[AffinityTerm]:
     return _parsed_terms(pod)[3]
+
+
+TopoPair = Tuple[str, str]
+
+
+@dataclass
+class PreFilterState:
+    """The pod's required terms and three topology-pair counts
+    (filtering.go:86-135): existing pods' anti-affinity terms that match
+    the pod, and the existing pods the pod's affinity and anti-affinity
+    terms match, each by the domain of the node they are on."""
+
+    affinity_terms: List[AffinityTerm] = field(default_factory=list)
+    anti_affinity_terms: List[AffinityTerm] = field(default_factory=list)
+    existing_anti: Dict[TopoPair, int] = field(default_factory=dict)
+    affinity: Dict[TopoPair, int] = field(default_factory=dict)
+    anti_affinity: Dict[TopoPair, int] = field(default_factory=dict)
+
+    def clone(self) -> "PreFilterState":
+        return PreFilterState(list(self.affinity_terms), list(self.anti_affinity_terms),
+                              dict(self.existing_anti), dict(self.affinity),
+                              dict(self.anti_affinity))
+
+
+def _bump(m: Dict[TopoPair, int], pair: TopoPair, delta: int) -> None:
+    v = m.get(pair, 0) + delta
+    if v <= 0:
+        m.pop(pair, None)
+    else:
+        m[pair] = v
+
+
+def pre_filter(pod: Pod, node_infos: Iterable[NodeInfo], ns_labels_fn: NsLabelsFn
+               ) -> PreFilterState:
+    s = PreFilterState(required_affinity_terms(pod), required_anti_affinity_terms(pod))
+    need_scan = s.affinity_terms or s.anti_affinity_terms
+    for ni in node_infos:
+        node = ni.node
+        if node is None:
+            continue
+        labels = node.meta.labels
+        for ep in ni.pods_with_required_anti_affinity:
+            for term in required_anti_affinity_terms(ep):
+                if term.topology_key in labels and term.matches(pod, ns_labels_fn):
+                    _bump(s.existing_anti, (term.topology_key, labels[term.topology_key]), 1)
+        if not need_scan:
+            continue
+        for ep in ni.pods:
+            for term in s.affinity_terms:
+                if term.topology_key in labels and term.matches(ep, ns_labels_fn):
+                    _bump(s.affinity, (term.topology_key, labels[term.topology_key]), 1)
+            for term in s.anti_affinity_terms:
+                if term.topology_key in labels and term.matches(ep, ns_labels_fn):
+                    _bump(s.anti_affinity, (term.topology_key, labels[term.topology_key]), 1)
+    return s
+
+
+def update_for_pod(s: PreFilterState, pod: Pod, other: Pod, node: Optional[Node], delta: int,
+                   ns_labels_fn: NsLabelsFn) -> None:
+    """The AddPod (``delta`` 1) and RemovePod (-1) extensions: ``other``
+    joins or leaves ``node`` in the dry run."""
+    if node is None:
+        return
+    labels = node.meta.labels
+    for term in required_anti_affinity_terms(other):
+        if term.topology_key in labels and term.matches(pod, ns_labels_fn):
+            _bump(s.existing_anti, (term.topology_key, labels[term.topology_key]), delta)
+    for term in s.affinity_terms:
+        if term.topology_key in labels and term.matches(other, ns_labels_fn):
+            _bump(s.affinity, (term.topology_key, labels[term.topology_key]), delta)
+    for term in s.anti_affinity_terms:
+        if term.topology_key in labels and term.matches(other, ns_labels_fn):
+            _bump(s.anti_affinity, (term.topology_key, labels[term.topology_key]), delta)
+
+
+def filter_node(s: PreFilterState, pod: Pod, ni: NodeInfo, ns_labels_fn: NsLabelsFn
+                ) -> Optional[str]:
+    """The Filter's three checks in filtering.go:377-387 order: the pod's
+    affinity (with the first-pod-in-cluster case), its anti-affinity, the
+    existing pods' anti-affinity. None when the node passes."""
+    labels = ni.node.meta.labels
+    if s.affinity_terms:
+        pods_exist = True
+        for term in s.affinity_terms:
+            tv = labels.get(term.topology_key)
+            if tv is None:
+                return ERR_AFFINITY
+            if s.affinity.get((term.topology_key, tv), 0) <= 0:
+                pods_exist = False
+        if not pods_exist and (s.affinity or not all(
+                t.matches(pod, ns_labels_fn) for t in s.affinity_terms)):
+            return ERR_AFFINITY
+    for term in s.anti_affinity_terms:
+        tv = labels.get(term.topology_key)
+        if tv is not None and s.anti_affinity.get((term.topology_key, tv), 0) > 0:
+            return ERR_ANTI_AFFINITY
+    for (tk, tv), cnt in s.existing_anti.items():
+        if cnt > 0 and labels.get(tk) == tv:
+            return ERR_EXISTING_ANTI
+    return None

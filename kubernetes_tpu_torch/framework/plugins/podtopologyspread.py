@@ -1,0 +1,114 @@
+"""PodTopologySpread's PreFilter and Filter, for the preemption dry run.
+
+An own copy of the filtering half of ``kubernetes_tpu/framework/plugins/
+podtopologyspread.py`` (``:50-197``, podtopologyspread/filtering.go) as
+plain functions: the PreFilter counts, over the nodes that match the pod's
+required node affinity and carry every DoNotSchedule constraint's key, the
+pods of the pod's namespace each constraint selects, per topology pair;
+AddPod / RemovePod move those counts as the dry run adds and removes pods;
+the Filter admits a node when ``matchNum + selfMatch - minMatchNum <=
+maxSkew`` for every constraint. The batched path counts spread through
+``ops/topology.py``; only the host dry run reads these. There are no
+default constraints (the JAX plugin's default arguments) and no scores.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, List, Optional, Tuple
+
+from ...api.types import (DO_NOT_SCHEDULE, MATCH_NOTHING, LabelSelector, Node, Pod,
+                          TopologySpreadConstraint)
+from ..types import NodeInfo
+
+ERR_REASON_CONSTRAINTS = "node(s) didn't match pod topology spread constraints"
+ERR_REASON_LABEL = ERR_REASON_CONSTRAINTS + " (missing required label)"
+
+
+def _selector_of(c: TopologySpreadConstraint) -> LabelSelector:
+    return c.label_selector if c.label_selector is not None else MATCH_NOTHING
+
+
+def _matches_node_affinity(pod: Pod, node: Node) -> bool:
+    """GetRequiredNodeAffinity.Match: the nodeSelector and the required
+    terms."""
+    if any(node.meta.labels.get(k) != v for k, v in pod.spec.node_selector.items()):
+        return False
+    a = pod.spec.affinity
+    if a and a.node_affinity and a.node_affinity.required:
+        return a.node_affinity.required.matches(node)
+    return True
+
+
+@dataclass
+class PreFilterState:
+    constraints: List[TopologySpreadConstraint] = field(default_factory=list)
+    tp_pair_to_match_num: Dict[Tuple[str, str], int] = field(default_factory=dict)
+    tp_key_to_domains_num: Dict[str, int] = field(default_factory=dict)
+
+    def clone(self) -> "PreFilterState":
+        return PreFilterState(list(self.constraints), dict(self.tp_pair_to_match_num),
+                              dict(self.tp_key_to_domains_num))
+
+    def min_match_num(self, tp_key: str, min_domains: Optional[int]) -> int:
+        """The smallest count over the key's domains; 0 when fewer domains
+        than ``min_domains`` are eligible."""
+        vals = [n for (k, _v), n in self.tp_pair_to_match_num.items() if k == tp_key]
+        if min_domains is not None and self.tp_key_to_domains_num.get(tp_key, 0) < min_domains:
+            return 0
+        return min(vals) if vals else 0
+
+
+def pre_filter(pod: Pod, node_infos: Iterable[NodeInfo]) -> PreFilterState:
+    constraints = [c for c in pod.spec.topology_spread_constraints
+                   if c.when_unsatisfiable == DO_NOT_SCHEDULE]
+    s = PreFilterState(constraints=constraints)
+    if not constraints:
+        return s
+    ns = pod.meta.namespace
+    for ni in node_infos:
+        node = ni.node
+        if node is None or not _matches_node_affinity(pod, node):
+            continue
+        labels = node.meta.labels
+        if any(c.topology_key not in labels for c in constraints):
+            continue
+        for c in constraints:
+            pair = (c.topology_key, labels[c.topology_key])
+            sel = _selector_of(c)
+            cnt = sum(1 for p in ni.pods if p.meta.namespace == ns and sel.matches(p.meta.labels))
+            s.tp_pair_to_match_num[pair] = s.tp_pair_to_match_num.get(pair, 0) + cnt
+    for k, _v in s.tp_pair_to_match_num:
+        s.tp_key_to_domains_num[k] = s.tp_key_to_domains_num.get(k, 0) + 1
+    return s
+
+
+def update_for_pod(s: PreFilterState, pod: Pod, other: Pod, node: Optional[Node],
+                   delta: int) -> None:
+    """The AddPod (``delta`` 1) and RemovePod (-1) extensions
+    (filtering.go:166,177): only a node counted at PreFilter is updated."""
+    if not s.constraints or node is None or not _matches_node_affinity(pod, node):
+        return
+    if other.meta.namespace != pod.meta.namespace:
+        return
+    labels = node.meta.labels
+    if any(c.topology_key not in labels for c in s.constraints):
+        return
+    for c in s.constraints:
+        if _selector_of(c).matches(other.meta.labels):
+            pair = (c.topology_key, labels[c.topology_key])
+            s.tp_pair_to_match_num[pair] = s.tp_pair_to_match_num.get(pair, 0) + delta
+
+
+def filter_node(s: PreFilterState, pod: Pod, ni: NodeInfo) -> Optional[str]:
+    """(filtering.go:335) None when the node passes every constraint."""
+    labels = ni.node.meta.labels
+    for c in s.constraints:
+        if c.topology_key not in labels:
+            return ERR_REASON_LABEL
+        min_match = s.min_match_num(c.topology_key, c.min_domains)
+        self_match = 1 if _selector_of(c).matches(pod.meta.labels) else 0
+        match_num = s.tp_pair_to_match_num.get((c.topology_key, labels[c.topology_key]), 0)
+        if match_num + self_match - min_match > c.max_skew:
+            return ERR_REASON_CONSTRAINTS
+    return None

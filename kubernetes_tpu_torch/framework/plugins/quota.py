@@ -1,0 +1,353 @@
+"""QuotaAdmission, the scheduler-side namespace quota over SchedulingQuota.
+
+The port's own copy of ``kubernetes_tpu/framework/plugins/quota.py``,
+trimmed to what the batch path reads. A namespace's SchedulingQuota caps
+what the scheduler admits (assumed and bound pods), per dimension of
+``QUOTA_DIM_ORDER``:
+
+  * PreFilter (``pre_filter``): the host gate before encode. An over-quota
+    pod is UnschedulableAndUnresolvable: evicting pods from nodes cannot
+    raise a namespace's quota, so it takes no batch row and never preempts;
+  * Reserve (``reserve``): the authoritative charge, in batch order at
+    bind; ``unreserve`` and ``pod_deleted`` release it;
+  * ``device_quota_table``: the ledger as the [NS, Q] used / limit rows the
+    device screen (``ops/quota.py``) judges a batch's winners against.
+
+Gangs are priced whole: a member's fits check prices the gang's members
+not yet charged (``min_member`` less the charged count), so a PodGroup
+whose tail cannot fit never charges its head. Quotas that share a
+``cohort`` lend their unused guaranteed headroom: a namespace over its own
+caps may still admit by borrowing from the pool (a loan), unless a lender
+of the pool, blocked only by loans, has recorded reclaim demand. The pool's
+cap per dimension is the sum of its members' caps, and its usage sums the
+same members, loans included.
+
+The ledger is seeded per namespace on first touch from the pods bound in
+the caller's cluster (``bound_pods_fn``; the JAX plugin reads its store's
+pods), in pod-key order, each charge classified own-quota first.
+
+Left out, for the scheduler loop: PreEnqueue gating and the targeted
+release moves, the release wave's shadow admitter, ``run_reclaim`` (the
+eviction of loans for a lender's demand), fair-share weights and metrics.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
+
+from ...api import resource as resource_api
+from ...api.types import (QUOTA_CLAIMS, QUOTA_CPU, QUOTA_DIM_ORDER, QUOTA_MEMORY, QUOTA_PODS,
+                          Pod, SchedulingQuota)
+from .coscheduling import pod_group_key
+
+ERR_REASON_QUOTA_EXCEEDED = "QuotaExceeded"
+
+# int32 ceiling of the device table's rows (ops/quota.py QUOTA_NO_LIMIT)
+_NO_LIMIT = 2**31 - 1
+
+Request = Dict[str, int]
+
+
+def pod_quota_request(pod: Pod) -> Request:
+    """The SchedulingQuota dimensions one pod consumes: its cpu and memory
+    request (canonical ints), one pod slot and its claim count."""
+    req = pod.resource_request()
+    return {
+        QUOTA_PODS: 1,
+        QUOTA_CPU: req.get(resource_api.CPU, 0),
+        QUOTA_MEMORY: req.get(resource_api.MEMORY, 0),
+        QUOTA_CLAIMS: len(pod.spec.resource_claims),
+    }
+
+
+class QuotaAdmission:
+    """``client`` is the object store the SchedulingQuotas and PodGroups
+    live in; ``bound_pods_fn`` lists the pods bound in the cluster."""
+
+    def __init__(self, client, bound_pods_fn: Callable[[], Iterable[Pod]]):
+        self.client = client
+        self.bound_pods_fn = bound_pods_fn
+        self._usage: Dict[str, Request] = {}     # ns -> charged usage, loans included
+        self._charged: Dict[str, Tuple[str, Request]] = {}  # pod key -> (ns, charge)
+        self._seeded: Set[str] = set()
+        self._borrowed: Dict[str, Request] = {}  # ns -> the loan part of _usage
+        self._loans: Dict[str, Tuple[str, Request, int]] = {}  # pod key -> (ns, charge, seq)
+        self._loan_seq = 0
+        self._gang_counts: Dict[str, int] = {}   # gang key -> charged members
+        self._gang_charged: Dict[str, str] = {}  # pod key -> gang key
+        # cohort -> pod key -> priced request: a lender's demand, blocked
+        # only by loans, that freezes new loans in the pool
+        self._reclaim_demand: Dict[str, Dict[str, Request]] = {}
+        self._demand_pods: Dict[str, str] = {}   # pod key -> cohort
+        self._quota_index: Optional[Dict[str, List[SchedulingQuota]]] = None
+        self._cohort_index: Dict[str, List[str]] = {}
+        self._index_version = -1
+        self._derived: Dict[str, Tuple[Optional[Request], Optional[str]]] = {}
+
+    # ------------------------------------------------------------- quota view
+
+    def _quota_map(self) -> Dict[str, SchedulingQuota]:
+        return self.client.scheduling_quotas if self.client is not None else {}
+
+    def _index(self) -> Dict[str, List[SchedulingQuota]]:
+        """The namespace and cohort index over the store's quotas, rebuilt
+        whenever a SchedulingQuota was created or updated since (the JAX
+        plugin rebuilds on the store's SchedulingQuota events)."""
+        m = self._quota_map()
+        version = self.client.kind_version("SchedulingQuota") if self.client is not None else 0
+        if self._quota_index is None or version != self._index_version:
+            idx: Dict[str, List[SchedulingQuota]] = {}
+            cidx: Dict[str, List[str]] = {}
+            for q in m.values():
+                idx.setdefault(q.meta.namespace, []).append(q)
+            for ns, quotas in idx.items():
+                for q in quotas:
+                    if q.cohort:
+                        members = cidx.setdefault(q.cohort, [])
+                        if ns not in members:
+                            members.append(ns)
+                        break
+            self._quota_index = idx
+            self._cohort_index = cidx
+            self._index_version = version
+            self._derived.clear()
+        return self._quota_index
+
+    def _derived_for(self, ns: str) -> Tuple[Optional[Request], Optional[str]]:
+        self._index()
+        d = self._derived.get(ns)
+        if d is None:
+            quotas = self._index().get(ns, [])
+            hard: Optional[Request] = None
+            cohort: Optional[str] = None
+            if quotas:
+                hard = {}
+                for q in quotas:
+                    for dim, cap in q.hard.items():
+                        hard[dim] = min(hard[dim], cap) if dim in hard else cap
+                    if cohort is None and q.cohort:
+                        cohort = q.cohort
+            d = (hard, cohort)
+            self._derived[ns] = d
+        return d
+
+    def effective_hard(self, ns: str) -> Optional[Request]:
+        """Per-dimension caps (the minimum over the namespace's quotas), or
+        None when it has no SchedulingQuota: unlimited."""
+        return self._derived_for(ns)[0]
+
+    def cohort_for(self, ns: str) -> Optional[str]:
+        return self._derived_for(ns)[1]
+
+    def cohort_members(self, cohort: str) -> List[str]:
+        self._index()
+        return list(self._cohort_index.get(cohort, []))
+
+    # ---------------------------------------------------------------- ledger
+
+    def _ensure_seeded(self, ns: str) -> None:
+        """First touch of a namespace: charge its bound pods, in key order."""
+        if ns in self._seeded:
+            return
+        self._seeded.add(ns)
+        bound = [p for p in self.bound_pods_fn() if p.meta.namespace == ns]
+        for pod in sorted(bound, key=lambda p: p.key()):
+            self._charge(pod)
+
+    def usage(self, ns: str) -> Request:
+        self._ensure_seeded(ns)
+        return dict(self._usage.get(ns, {}))
+
+    def borrowed(self, ns: str) -> Request:
+        """The part of ``usage(ns)`` charged against cohort headroom."""
+        self._ensure_seeded(ns)
+        return dict(self._borrowed.get(ns, {}))
+
+    @staticmethod
+    def _violated(hard: Request, used: Request, req: Request) -> Optional[str]:
+        for dim, cap in hard.items():
+            if used.get(dim, 0) + req.get(dim, 0) > cap:
+                return dim
+        return None
+
+    def cohort_state(self, cohort: str) -> Tuple[Request, Request]:
+        """(caps, used) of a pool per dimension, over the members that
+        declare the dimension."""
+        caps: Request = {}
+        used: Request = {}
+        for ns in self.cohort_members(cohort):
+            hard = self.effective_hard(ns)
+            if hard is None:
+                continue
+            self._ensure_seeded(ns)
+            ns_used = self._usage.get(ns, {})
+            for dim, cap in hard.items():
+                caps[dim] = caps.get(dim, 0) + cap
+                used[dim] = used.get(dim, 0) + ns_used.get(dim, 0)
+        return caps, used
+
+    def _cohort_violated(self, cohort: str, req: Request) -> Optional[str]:
+        caps, used = self.cohort_state(cohort)
+        return self._violated(caps, used, req)
+
+    def cohort_headroom(self, cohort: str) -> Request:
+        caps, used = self.cohort_state(cohort)
+        return {dim: max(cap - used.get(dim, 0), 0) for dim, cap in caps.items()}
+
+    def _gang_remaining(self, pod: Pod) -> int:
+        """How many members the fits check prices: a gang's members not
+        yet charged (at least 1); 1 for a pod outside a gang."""
+        gkey = pod_group_key(pod)
+        if gkey is None or self.client is None:
+            return 1
+        pg = self.client.get_object("PodGroup", gkey)
+        if pg is None:
+            return 1
+        return max(int(pg.min_member) - self._gang_counts.get(gkey, 0), 1)
+
+    def _fits(self, pod: Pod) -> Optional[str]:
+        """None when the pod fits its namespace's headroom (or is charged
+        already, or its namespace has no quota), else the reason. A lender
+        that fits its own caps but finds its pool exhausted records reclaim
+        demand; a borrower is refused while such demand is outstanding."""
+        ns = pod.meta.namespace
+        hard = self.effective_hard(ns)
+        if hard is None or pod.key() in self._charged:
+            return None
+        self._ensure_seeded(ns)
+        mult = self._gang_remaining(pod)
+        req = pod_quota_request(pod)
+        if mult != 1:
+            req = {d: v * mult for d, v in req.items()}
+        used = self._usage.get(ns, {})
+        cohort = self.cohort_for(ns)
+        dim = self._violated(hard, used, req)
+        if dim is None:
+            if cohort is not None:
+                cdim = self._cohort_violated(cohort, req)
+                if cdim is not None:
+                    self._note_reclaim_demand(cohort, pod, req)
+                    return _reason(ns, "cohort exhausted by loans", cdim)
+            self._drop_demand(pod.key())
+            return None
+        if (cohort is not None and not self._reclaim_demand.get(cohort)
+                and self._cohort_violated(cohort, req) is None):
+            self._drop_demand(pod.key())
+            return None
+        return _reason(ns, "over quota", dim)
+
+    def _charge(self, pod: Pod) -> bool:
+        """Charge one pod: a loan when it does not fit its namespace's own
+        caps and the namespace is in a cohort, else own quota."""
+        key = pod.key()
+        if key in self._charged:
+            return False
+        ns = pod.meta.namespace
+        req = pod_quota_request(pod)
+        hard = self.effective_hard(ns)
+        loan = (hard is not None and self.cohort_for(ns) is not None
+                and self._violated(hard, self._usage.get(ns, {}), req) is not None)
+        used = self._usage.setdefault(ns, {})
+        for dim, v in req.items():
+            used[dim] = used.get(dim, 0) + v
+        self._charged[key] = (ns, req)
+        gkey = pod_group_key(pod)
+        if gkey is not None:
+            self._gang_charged[key] = gkey
+            self._gang_counts[gkey] = self._gang_counts.get(gkey, 0) + 1
+        if loan:
+            b = self._borrowed.setdefault(ns, {})
+            for dim, v in req.items():
+                b[dim] = b.get(dim, 0) + v
+            self._loan_seq += 1
+            self._loans[key] = (ns, req, self._loan_seq)
+        self._drop_demand(key)
+        return True
+
+    def _release(self, pod_key: str) -> None:
+        entry = self._charged.pop(pod_key, None)
+        if entry is None:
+            return
+        ns, req = entry
+        used = self._usage.setdefault(ns, {})
+        for dim, v in req.items():
+            used[dim] = max(used.get(dim, 0) - v, 0)
+        gkey = self._gang_charged.pop(pod_key, None)
+        if gkey is not None:
+            n = self._gang_counts.get(gkey, 0) - 1
+            if n > 0:
+                self._gang_counts[gkey] = n
+            else:
+                self._gang_counts.pop(gkey, None)
+        if self._loans.pop(pod_key, None) is not None:
+            b = self._borrowed.setdefault(ns, {})
+            for dim, v in req.items():
+                b[dim] = max(b.get(dim, 0) - v, 0)
+
+    def _note_reclaim_demand(self, cohort: str, pod: Pod, req: Request) -> None:
+        self._reclaim_demand.setdefault(cohort, {})[pod.key()] = dict(req)
+        self._demand_pods[pod.key()] = cohort
+
+    def _drop_demand(self, pod_key: str) -> None:
+        cohort = self._demand_pods.pop(pod_key, None)
+        if cohort is not None:
+            demands = self._reclaim_demand.get(cohort)
+            if demands is not None:
+                demands.pop(pod_key, None)
+                if not demands:
+                    self._reclaim_demand.pop(cohort, None)
+
+    # ------------------------------------------------------- extension points
+
+    def pre_filter(self, pod: Pod) -> Optional[str]:
+        """None when the pod may take a batch row, else the unresolvable
+        reason."""
+        return self._fits(pod)
+
+    def reserve(self, pod: Pod) -> Optional[str]:
+        """The authoritative charge: None when charged (or unquota'd), else
+        the reason it was refused."""
+        if self.effective_hard(pod.meta.namespace) is None:
+            return None
+        reason = self._fits(pod)
+        if reason is None:
+            self._charge(pod)
+        return reason
+
+    def unreserve(self, pod: Pod) -> None:
+        self._release(pod.key())
+
+    def pod_deleted(self, pod: Pod) -> None:
+        self._drop_demand(pod.key())
+        self._release(pod.key())
+
+    # ----------------------------------------------------------- device view
+
+    def device_quota_table(self) -> Dict[str, Tuple[List[int], List[int]]]:
+        """ns -> (used, limit) int rows in QUOTA_DIM_ORDER for the device
+        screen. ``limit`` is the namespace's own cap plus its pool's current
+        headroom (every member of a pool sees the whole headroom), capped at
+        the int32 ceiling; an undeclared dimension never limits."""
+        table: Dict[str, Tuple[List[int], List[int]]] = {}
+        headroom: Dict[str, Request] = {}
+        for ns in list(self._index()):
+            hard = self.effective_hard(ns)
+            if hard is None:
+                continue
+            self._ensure_seeded(ns)
+            used = self._usage.get(ns, {})
+            cohort = self.cohort_for(ns)
+            free: Request = {}
+            if cohort is not None:
+                if cohort not in headroom:
+                    headroom[cohort] = self.cohort_headroom(cohort)
+                free = headroom[cohort]
+            used_row = [min(int(used.get(dim, 0)), _NO_LIMIT) for dim in QUOTA_DIM_ORDER]
+            limit_row = [min(int(hard[dim]) + int(free.get(dim, 0)), _NO_LIMIT)
+                         if dim in hard else _NO_LIMIT for dim in QUOTA_DIM_ORDER]
+            table[ns] = (used_row, limit_row)
+        return table
+
+
+def _reason(ns: str, what: str, dim: str) -> str:
+    return f'{ERR_REASON_QUOTA_EXCEEDED}: namespace "{ns}" {what} on {dim}'

@@ -5,12 +5,16 @@ An own copy of ``kubernetes_tpu/framework/preemption.py``
 metrics:
 
 * ``preempt`` (:138): the eligibility check, the device-proposed node
-  verified exactly first, else the candidate walk, one node picked, the
-  victims evicted and lower nominations on it cleared;
+  verified exactly first, else the candidate walk over the nodes where
+  preemption might help (not those whose filter status was
+  UnschedulableAndUnresolvable, :363), one node picked, the victims
+  evicted and lower nominations on it cleared;
 * ``select_victims_on_node`` (default_preemption.go:226): on a copy of the
-  node remove every lower-priority pod, check the pod fits, then reprieve
-  victims highest priority first, the pods whose eviction keeps every
-  matching PDB within budget after those that would violate one;
+  node and of the PreFilter state remove every lower-priority pod (the
+  RemovePod extensions move the state's counts), check the pod fits, then
+  reprieve victims highest priority first (AddPod, or RemovePod again when
+  one stays a victim), the pods whose eviction keeps every matching PDB
+  within budget after those that would violate one;
 * ``select_candidate`` (pickOneNodeForPreemption, :397): fewest PDB
   violations, lowest highest victim priority, smallest priority sum,
   fewest victims, latest start of the highest-priority victims, first in
@@ -27,7 +31,7 @@ caller's (``backend/batch_scheduler.py``).
 from __future__ import annotations
 
 import random
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Collection, Dict, List, Optional, Sequence, Tuple
 
 from ..api import resource as resource_api
 from ..api.types import Pod, PodDisruptionBudget
@@ -76,8 +80,11 @@ class Evaluator:
         self.screen_fn = screen_fn
         self.preferred_node = preferred_node
 
-    def preempt(self, pod: Pod, node_infos: List[NodeInfo]) -> Tuple[Optional[str], Optional[str]]:
-        """(:138) (the nominated node, or None and the reason)."""
+    def preempt(self, pod: Pod, node_infos: List[NodeInfo], unresolvable: Collection[str] = ()
+                ) -> Tuple[Optional[str], Optional[str]]:
+        """(:138) (the nominated node, or None and the reason).
+        ``unresolvable``: the nodes whose filter status was
+        UnschedulableAndUnresolvable, which the walk skips."""
         by_name = {ni.node.meta.name: ni for ni in node_infos if ni.node is not None}
         if not self._pod_eligible_to_preempt_others(pod, by_name):
             return None, "preemption is not helpful for scheduling"
@@ -86,7 +93,7 @@ class Evaluator:
             if ok:
                 self.prepare_candidate(Candidate(self.preferred_node, victims, n_viol), pod)
                 return self.preferred_node, None
-        candidates = self.find_candidates(pod, node_infos)
+        candidates = self.find_candidates(pod, node_infos, unresolvable)
         if not candidates:
             return None, f"preemption: 0/{len(node_infos)} nodes are available"
         best = self.select_candidate(candidates)
@@ -142,12 +149,15 @@ class Evaluator:
                        and pods_free >= 1)
         return out
 
-    def find_candidates(self, pod: Pod, node_infos: List[NodeInfo]) -> List[Candidate]:
+    def find_candidates(self, pod: Pod, node_infos: List[NodeInfo],
+                        unresolvable: Collection[str] = ()) -> List[Candidate]:
         """Dry runs from a random offset over the nodes the screen admits,
-        until ``num`` candidates are found. Every node is a potential one:
-        the batched path reports each failing node as unschedulable, never
-        as unresolvable (``nodesWherePreemptionMightHelp``, :363)."""
-        potential = [ni for ni in node_infos if ni.node is not None]
+        until ``num`` candidates are found, among the nodes where
+        preemption might help (``nodesWherePreemptionMightHelp``, :363).
+        The batched path reports each failing node as unschedulable, so
+        there it leaves none out."""
+        potential = [ni for ni in node_infos
+                     if ni.node is not None and ni.node.meta.name not in unresolvable]
         if not potential:
             return []
         offset, num = self._offset_and_num_candidates(len(potential))
@@ -170,16 +180,17 @@ class Evaluator:
 
     def select_victims_on_node(self, pod: Pod, node_info: NodeInfo) -> Tuple[List[Pod], int, bool]:
         """(victims most important first, PDB violations, whether the pod
-        fits). The PreFilter extensions of the default plugins do nothing
-        here (``framework/runtime.py``), so the pod's PreFilter state is
-        shared, not cloned."""
+        fits), on copies of the node and of the PreFilter state."""
         ni = node_info.clone()
+        state = self.state.clone()
+        filters = self.filters
         remove = [p for p in ni.pods if p.spec.priority < pod.spec.priority]
-        if not remove and not self._fits(pod, ni):
+        if not remove and not self._fits(state, pod, ni):
             return [], 0, False
         for victim in remove:
             ni.remove_pod(victim)
-        if not self._fits(pod, ni):
+            filters.remove_pod(state, pod, victim, ni)
+        if not self._fits(state, pod, ni):
             return [], 0, False
         # a pod violates when any matching PDB has no budget left; budgets
         # are consumed by the earlier non-violating victims
@@ -203,9 +214,11 @@ class Evaluator:
 
         def reprieve(p: Pod) -> bool:
             ni.add_pod(p)
-            if self._fits(pod, ni):
+            filters.add_pod(state, pod, p, ni)
+            if self._fits(state, pod, ni):
                 return True
             ni.remove_pod(p)
+            filters.remove_pod(state, pod, p, ni)
             victims.append(p)
             return False
 
@@ -215,8 +228,8 @@ class Evaluator:
         victims.sort(key=lambda p: (-p.spec.priority, p.status.start_time))
         return victims, num_violating, True
 
-    def _fits(self, pod: Pod, ni: NodeInfo) -> bool:
-        return self.filters.filter_with_nominated_pods(self.state, pod, ni) is None
+    def _fits(self, state: PreFilterState, pod: Pod, ni: NodeInfo) -> bool:
+        return self.filters.filter_with_nominated_pods(state, pod, ni) is None
 
     @staticmethod
     def select_candidate(candidates: List[Candidate]) -> Candidate:

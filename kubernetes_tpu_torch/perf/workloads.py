@@ -53,7 +53,17 @@ need one (claims, volumes and PodGroups), with every pod's objects in it,
 and ``Workload.caps()`` the Capacities to run it with (the port raises on
 CapacityError where the JAX scheduler grows the axis: the gang workloads
 need more topology signatures and a wider torus than
-``caps_for_cluster`` gives). ``run_with_preemption`` drives a workload
+``caps_for_cluster`` gives). * PreemptionAll (a seeded case, not a published workload):
+  PreemptionBasic's 500 nodes and 2000 priority-1 victims, with
+  SchedulingBasic's zone and hostname labels and SchedulingDRA's device
+  attributes on the nodes, then 128 priority-100 preemptors of 2 / 4Gi of
+  each of three kinds, in this order: with SchedulingDRA's claim (mode
+  ``off``), SchedulingPodAntiAffinity's term (mode ``host``) and
+  TopologySpreading's zone constraint (mode ``general``).
+* SchedulingSoak (``kubernetes_tpu/perf/workloads.py:469-525``, ``Soak``):
+  the multi-tenant mix. See ``scheduling_soak`` and ``run_soak``.
+
+``run_with_preemption`` drives a workload
 through a BatchScheduler and resubmits the pods it nominated;
 ``slice_stats`` reports contiguity and fragmentation after a run.
 """
@@ -61,11 +71,11 @@ through a BatchScheduler and resubmits the pods it nominated;
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from ..api.types import (LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE, POD_GROUP_LABEL, ROX,
                          LabelSelector, ObjectMeta, PersistentVolume, PersistentVolumeClaim, Pod,
-                         PodGroup, ResourceClaim, ResourceClass)
+                         PodGroup, ResourceClaim, ResourceClass, SchedulingQuota)
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.store import Store
 from ..backend.device_state import _bucket, caps_for_cluster
@@ -338,7 +348,7 @@ _PREEMPTION_NODE = {"cpu": "4", "memory": "16Gi", "pods": 32}
 _VICTIM = dict(req={"cpu": "900m", "memory": "2Gi"}, priority=1)
 _PREEMPTOR = dict(req={"cpu": "2", "memory": "4Gi"}, priority=100)
 _WARM_PREEMPTORS = 8
-MAX_PREEMPTION_ROUNDS = 8
+MAX_PREEMPTION_ROUNDS = 16
 
 
 def preemption_basic(nodes: int = 500, init_pods: int = 2000, measured: int = 500) -> Workload:
@@ -354,6 +364,20 @@ def preemption_pvs(nodes: int = 500, init_pods: int = 2000, measured: int = 500)
                     init_pods, PodShape("preemptor", **shape), measured, zones=0,
                     node_capacity=_PREEMPTION_NODE, warm=PodShape("warm", **shape),
                     warm_pods=_WARM_PREEMPTORS)
+
+
+def preemption_all(nodes: int = 500, init_pods: int = 2000, per_kind: int = 128) -> Workload:
+    """The three preemptor kinds in their own batches of ``per_kind`` (a
+    multiple of the batch size keeps them apart)."""
+    claim = PodShape("pre-claim", claim=TPU_CLAIM, **_PREEMPTOR)
+    anti = PodShape("pre-anti", affinity_key=LABEL_HOSTNAME,
+                    affinity_labels={"color": "green"}, anti=True, **_PREEMPTOR)
+    spread = PodShape("pre-spread", spread_key=LABEL_TOPOLOGY_ZONE, **_PREEMPTOR)
+    return Workload(f"PreemptionAll/{nodes}Nodes", nodes, PodShape("victim", **_VICTIM),
+                    init_pods, claim, per_kind, node_capacity=_PREEMPTION_NODE,
+                    measured_extra=((anti, per_kind), (spread, per_kind)),
+                    device_attributes={"tpu.dev/cores": (8, 16),
+                                       "tpu.dev/gen": ("v5", "v5", "v4", "v5")})
 
 
 def scheduling_gangs(nodes: int = 5000, init_gangs: int = 4, measured_gangs: int = 8) -> Workload:
@@ -427,8 +451,8 @@ def run_with_preemption(sched, w: Workload
                         ) -> Tuple[Dict[str, Optional[str]], List[Dict[str, str]]]:
     """Schedule the init, warm and measured pods in that order, then
     resubmit the pods ``sched`` nominated, in that order, until none is
-    left or ``MAX_PREEMPTION_ROUNDS`` rounds ran. Returns (pod key -> node or None,
-    the nominations before each round)."""
+    left or ``MAX_PREEMPTION_ROUNDS`` rounds ran. Returns (pod key -> node
+    or None, the nominations before each round)."""
     ops = (w.init_pod_list(), w.warm_pod_list(), w.measured_pod_list())
     placed: Dict[str, Optional[str]] = {}
     for op in ops:
@@ -439,3 +463,278 @@ def run_with_preemption(sched, w: Workload
         rounds.append(dict(sched.nominated))
         placed.update(sched.schedule([p for p in pods if p.key() in sched.nominated]))
     return placed, rounds
+
+
+# ----------------------------------------------------------------- SchedulingSoak
+
+# (tenant, weight): quota caps scale with the weight
+SOAK_TENANTS = (("soak-a", 4), ("soak-b", 2), ("soak-c", 1))
+SOAK_CLAIM = ClaimShape("accel", "soak-claim", "tpu.example.com",
+                        class_selectors={"tpu.dev/gen": "v5"},
+                        selectors={"tpu.dev/cores": ">=8"})
+# the JAX soak's defaults: after each round this share of each tenant's
+# soak-bound pods leaves, and Coscheduling's clock advances by
+# cycles x tick seconds
+SOAK_CHURN_FRAC = 0.25
+SOAK_CYCLES_PER_ROUND = 120
+SOAK_TICK_S = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class SoakArrival:
+    """One entry of the soak's per-round mix: ``count`` pods of
+    ``namespace`` every ``every`` rounds, named ``<prefix>-m<entry>r<round>-
+    <n>`` with ``n`` the soak's running pod count (the JAX harness's
+    ``_pod_counter``). A gang entry's pods share one PodGroup per
+    ``gang_size`` consecutive pods and are anti-affine to their own group on
+    the hostname key (``kubernetes_tpu/perf/harness.py:193-217``)."""
+
+    namespace: str
+    count: int
+    every: int = 1
+    prefix: str = ""
+    req: Dict[str, str] = dataclasses.field(default_factory=lambda: dict(_SMALL_REQ))
+    gang_size: int = 0
+    claim: Optional[ClaimShape] = None
+    priority: int = 0
+
+    def pods(self, entry: int, r: int, counter: int) -> List[Pod]:
+        prefix = f"{self.prefix or self.namespace}-m{entry}r{r}"
+        out = []
+        for j in range(self.count):
+            pw = make_pod(f"{prefix}-{counter + j}", namespace=self.namespace).req(self.req)
+            if self.gang_size:
+                group = f"{prefix}-pg{j // self.gang_size}"
+                pw.pod_group(group)
+                pw.pod_affinity(LABEL_HOSTNAME,
+                                LabelSelector(match_labels={POD_GROUP_LABEL: group}), anti=True)
+            if self.priority:
+                pw.priority(self.priority)
+            if self.claim:
+                pw.resource_claim(self.claim.name, template_name=self.claim.template)
+            out.append(pw.obj())
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Soak:
+    """SchedulingSoak (``kubernetes_tpu/perf/workloads.py:469-525``): 1000
+    nodes of cpu 4 / 16Gi / 32 pods in 10 zones publishing SchedulingDRA's
+    device attributes; three tenants with SchedulingQuotas of weights 4 / 2
+    / 1 whose caps are ``pods`` = ``requests.cpu`` / 1000 = ``claims`` =
+    weight x ``scale``; per round each tenant's weight x ``scale`` / 2
+    plain pods of 100m / 500Mi, a gang of 8 in soak-a every 2 rounds,
+    ``scale`` / 2 claim pods in soak-b and two preemptors of 2 / 4Gi at
+    priority 100 in soak-c every 2 rounds; after each round
+    ``SOAK_CHURN_FRAC`` of each tenant's soak-bound pods leave. ``cohort``
+    joins the three quotas into one lending pool (the ``/Cohort`` variant);
+    a soak without ``gangs`` (``/NoGangs``) registers no anti-affinity term,
+    so its batches stay in mode ``off``."""
+
+    name: str
+    nodes: int
+    rounds: int
+    scale: int
+    mix: Tuple[SoakArrival, ...]
+    cohort: str = ""
+    device_attributes: Optional[Dict[str, tuple]] = None
+
+    def node_infos(self) -> List[NodeInfo]:
+        return scheduling_basic_nodes(self.nodes, 10, self.device_attributes,
+                                      _PREEMPTION_NODE)
+
+    def caps(self) -> Capacities:
+        # every gang's anti-affinity selector is a signature of its own, and
+        # its term an existing-pod term
+        gangs = sum(-(-self.rounds // m.every) * (m.count // m.gang_size)
+                    for m in self.mix if m.gang_size)
+        rows = _bucket(2 * gangs + 1)
+        return dataclasses.replace(caps_for_cluster(self.nodes), sigs=rows, ex_terms=rows)
+
+    def quotas(self) -> List[SchedulingQuota]:
+        out = []
+        for ns, w in SOAK_TENANTS:
+            cap = w * self.scale
+            out.append(SchedulingQuota(
+                meta=ObjectMeta(name="quota", namespace=ns), weight=w, cohort=self.cohort,
+                hard={"pods": cap, "requests.cpu": cap * 1000, "claims": cap}))
+        return out
+
+    def store(self) -> Store:
+        """A fresh object store with the tenants' SchedulingQuotas."""
+        store = Store()
+        for q in self.quotas():
+            store.create_object("SchedulingQuota", q)
+        return store
+
+    def arrivals(self, r: int, counter: int) -> List[Pod]:
+        """Round ``r``'s pods, in mix order; ``counter`` pods came before."""
+        out: List[Pod] = []
+        for entry, m in enumerate(self.mix):
+            if r % m.every == 0:
+                out += m.pods(entry, r, counter + len(out))
+        return out
+
+    def populate(self, store: Store, pods: Iterable[Pod]) -> None:
+        """The objects the round's pods need: each gang's PodGroup and each
+        claim pod's ResourceClaim (and its class), as the JAX harness and
+        its resourceclaim controller make them."""
+        for pod in pods:
+            gkey = pod_group_key(pod)
+            if gkey is not None and store.get_object("PodGroup", gkey) is None:
+                size = next(m.gang_size for m in self.mix
+                            if m.gang_size and m.namespace == pod.meta.namespace)
+                store.create_object("PodGroup", PodGroup(
+                    meta=ObjectMeta(name=gkey.split("/", 1)[1], namespace=pod.meta.namespace),
+                    min_member=size))
+            for entry in pod.spec.resource_claims:
+                c = SOAK_CLAIM
+                if store.get_object("ResourceClass", c.klass) is None:
+                    store.create_object("ResourceClass", ResourceClass(
+                        meta=ObjectMeta(name=c.klass, namespace=""), driver_name=c.klass,
+                        selectors=dict(c.class_selectors)))
+                store.create_object("ResourceClaim", ResourceClaim(
+                    meta=ObjectMeta(name=f"{pod.meta.name}-{entry.name}",
+                                    namespace=pod.meta.namespace),
+                    resource_class_name=c.klass, selectors=dict(c.selectors)))
+
+
+def scheduling_soak(nodes: int = 1000, rounds: int = 8, scale: int = 24, gangs: bool = True,
+                    cohort: str = "") -> Soak:
+    """The JAX ``scheduling_soak`` at its published size; ``cohort`` names
+    the pool of the ``/Cohort`` variant (the JAX one passes it as is), and
+    ``gangs=False`` drops soak-a's gangs, as the JAX one's ``gangs`` does."""
+    mix = [SoakArrival(ns, max(w * scale // 2, 2)) for ns, w in SOAK_TENANTS]
+    if gangs:
+        mix.append(SoakArrival("soak-a", 8, every=2, prefix="gang", gang_size=8))
+    mix.append(SoakArrival("soak-b", max(scale // 2, 2), prefix="claim", claim=SOAK_CLAIM))
+    mix.append(SoakArrival("soak-c", 2, every=2, prefix="preemptor",
+                           req={"cpu": "2", "memory": "4Gi"}, priority=100))
+    attrs = {"tpu.dev/cores": (8, 16), "tpu.dev/gen": ("v5", "v5", "v4", "v5")}
+    suffix = ("/Cohort" if cohort else "") + ("" if gangs else "/NoGangs")
+    return Soak(f"SchedulingSoak/{nodes}Nodes{suffix}", nodes, rounds, scale, tuple(mix),
+                cohort, attrs)
+
+
+def soak_chunks(pods: Sequence[Pod], size: int) -> List[List[Pod]]:
+    """``pods`` in order, cut into batches of at most ``size`` so that no
+    gang (consecutive pods of one group) straddles a cut."""
+    units: List[List[Pod]] = []
+    for pod in pods:
+        gkey = pod_group_key(pod)
+        if units and gkey is not None and pod_group_key(units[-1][0]) == gkey:
+            units[-1].append(pod)
+        else:
+            units.append([pod])
+    chunks: List[List[Pod]] = [[]]
+    for unit in units:
+        if chunks[-1] and len(chunks[-1]) + len(unit) > size:
+            chunks.append([])
+        chunks[-1].extend(unit)
+    return [c for c in chunks if c]
+
+
+def quota_oversubscription(quota, namespaces: Sequence[str]) -> int:
+    """Dimensions over their cap in the ledger, the JAX harness's check
+    (``kubernetes_tpu/perf/harness.py:838-864``): a namespace's usage less
+    its loans against its own caps, and every pool's usage against the sum
+    of its members' caps."""
+    bad = 0
+    cohorts = set()
+    for ns in namespaces:
+        hard = quota.effective_hard(ns)
+        if not hard:
+            continue
+        used, loans = quota.usage(ns), quota.borrowed(ns)
+        bad += sum(1 for dim, cap in hard.items() if used.get(dim, 0) - loans.get(dim, 0) > cap)
+        if quota.cohort_for(ns):
+            cohorts.add(quota.cohort_for(ns))
+    for cohort in cohorts:
+        caps, used = quota.cohort_state(cohort)
+        bad += sum(1 for dim, cap in caps.items() if used.get(dim, 0) > cap)
+    return bad
+
+
+class FakeClock:
+    """A clock that moves only when told: Coscheduling's backoff clock."""
+
+    def __init__(self, t: float = 1000.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def run_soak(sched, w: Soak) -> dict:
+    """Drive ``w`` through ``sched`` (a BatchScheduler over ``w.node_infos()``
+    with ``client=w.store()`` and ``caps=w.caps()``). Each round: the
+    round's arrivals join the pods still pending (in arrival order); all of
+    them are submitted in gang-whole batches (``soak_chunks``); then the
+    pods in ``retry``, ``quota_rejected`` or ``nominated`` are resubmitted,
+    in arrival order, until a pass binds nothing; Coscheduling's clock
+    advances by ``SOAK_CYCLES_PER_ROUND * SOAK_TICK_S``; and
+    ``SOAK_CHURN_FRAC`` of each tenant's soak-bound pods are deleted,
+    oldest first. The ledger is checked for oversubscription after every
+    pass and every churn.
+
+    Cut from the JAX soak (``kubernetes_tpu/perf/harness.py:784-990``): no
+    device flap (the port has no relay); no DRR queue, tick-driven cycles
+    or release moves (the scheduler loop): pods go in arrival order, so
+    tenant wait percentiles are not comparable with the JAX harness's.
+
+    Returns a dict: ``placed`` (pod key -> node, each pod as it bound),
+    ``bound`` (tenant -> pods bound over the run), ``oversubscription``
+    (violations summed over the checks), ``passes``, ``rounds`` (per round:
+    the ledger's usage per tenant after the churn, and the round's
+    nominations) and ``pending`` (pod keys unbound at the end)."""
+    clock = FakeClock()
+    if sched.coscheduling is not None:
+        sched.coscheduling.now_fn = clock
+    tenants = [ns for ns, _w in SOAK_TENANTS]
+    counter = 0
+    pending: List[Pod] = []
+    soak_bound: Dict[str, List[str]] = {ns: [] for ns in tenants}
+    placed_all: Dict[str, str] = {}
+    bound = dict.fromkeys(tenants, 0)
+    oversub = passes = 0
+    rounds = []
+    for r in range(w.rounds):
+        arrivals = w.arrivals(r, counter)
+        counter += len(arrivals)
+        w.populate(sched.client, arrivals)
+        pending += arrivals
+        submit = list(pending)
+        nominations: Dict[str, str] = {}
+        while submit:
+            placed: Dict[str, Optional[str]] = {}
+            for chunk in soak_chunks(submit, sched.caps.pods):
+                placed.update(sched.schedule(chunk))
+            passes += 1
+            oversub += quota_oversubscription(sched.quota, tenants)
+            nominations.update(sched.nominated)
+            newly = [p for p in submit if placed.get(p.key())]
+            for p in newly:
+                placed_all[p.key()] = placed[p.key()]
+                if p.meta.namespace in soak_bound:
+                    soak_bound[p.meta.namespace].append(p.key())
+                    bound[p.meta.namespace] += 1
+            pending = [p for p in pending if not placed.get(p.key())]
+            if not newly:
+                break
+            again = set(sched.retry) | set(sched.quota_rejected) | set(sched.nominated)
+            submit = [p for p in pending if p.key() in again]
+        clock.advance(SOAK_CYCLES_PER_ROUND * SOAK_TICK_S)
+        for ns in tenants:
+            keys = soak_bound[ns]
+            n = int(len(keys) * SOAK_CHURN_FRAC)
+            for key in keys[:n]:
+                sched.delete_pod(key)
+            soak_bound[ns] = keys[n:]
+        oversub += quota_oversubscription(sched.quota, tenants)
+        rounds.append({"usage": {ns: sched.quota.usage(ns) for ns in tenants},
+                       "nominations": nominations})
+    return {"placed": placed_all, "bound": bound, "oversubscription": oversub,
+            "passes": passes, "rounds": rounds, "pending": [p.key() for p in pending]}

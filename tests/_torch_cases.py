@@ -1149,3 +1149,473 @@ def pod_group_status(store) -> dict:
     if groups is None:
         groups = {g.meta.key(): g for g in store.list_objects("PodGroup")[0]}
     return {k: (g.phase, g.scheduled) for k, g in groups.items()}
+
+
+# ----------------------------------------------------------------- quota and preemption of every batch
+
+
+def to_jax(obj):
+    """A port API object rebuilt as the JAX package's (dataclasses by class
+    name from ``kubernetes_tpu.api.types``, field by field; memoized caches
+    are not copied)."""
+    from kubernetes_tpu.api import types as jtypes
+
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = getattr(jtypes, type(obj).__name__)
+        return cls(**{f.name: to_jax(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    if isinstance(obj, list):
+        return [to_jax(v) for v in obj]
+    if isinstance(obj, tuple):
+        return tuple(to_jax(v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: to_jax(v) for k, v in obj.items()}
+    if isinstance(obj, (set, frozenset)):
+        return type(obj)(to_jax(v) for v in obj)
+    return obj
+
+
+class JaxEnv:
+    """The JAX side of ``BatchScheduler`` for the quota and preemption
+    paths: a JAX DeviceState and batch program, NodeInfos, a JAX
+    ClusterStore behind ``JaxPreemptClient`` (``pods``: every pod created
+    and not deleted, bound ones as bound), and one bare JAX Framework whose
+    QuotaAdmission is the ledger, whose Coscheduling gates gangs (on
+    ``clock``) and whose DefaultPreemption runs the PostFilters. The result
+    dicts have the port's names."""
+
+    def __init__(self, node_infos, caps: dict, clock=None, plugin_args=None):
+        from kubernetes_tpu.apiserver.store import ClusterStore
+        from kubernetes_tpu.backend import batch as jbatch
+        from kubernetes_tpu.backend.claim_mask import ClaimMaskBuilder
+        from kubernetes_tpu.backend.device_state import DeviceState as JDeviceState
+        from kubernetes_tpu.framework.runtime import Framework
+        from kubernetes_tpu.ops.schema import Capacities as JCaps
+        from kubernetes_tpu.ops.volume_mask import VolumeMaskBuilder
+
+        self.infos = {ni.node.meta.name: ni for ni in node_infos}
+        self.store = ClusterStore()
+        self.client = JaxPreemptClient(self.store, {})
+        for ni in self.infos.values():
+            for p in ni.pods:
+                self.client.pods[p.key()] = p
+        self.clock = clock
+        handle = {"snapshot_fn": lambda: list(self.infos.values()), "client": self.client,
+                  "ns_labels_fn": lambda ns: {}}
+        if clock is not None:
+            handle["now_fn"] = clock
+        self.fwk = Framework(handle, plugin_args=plugin_args)
+        self.plugin = self.fwk.plugin("DefaultPreemption")
+        self.quota = self.fwk.plugin("QuotaAdmission")
+        self.cos = self.fwk.plugin("Coscheduling")
+        self.batch = caps["pods"]
+        self.ds = JDeviceState(JCaps(**caps))
+        self.fn = jbatch.build_schedule_batch_fn()
+        self.vmb, self.cmb = VolumeMaskBuilder(self.store), ClaimMaskBuilder(self.store)
+        self.retry, self.fallback, self.quota_rejected, self.gang_rejected = {}, {}, {}, {}
+        self.flagged, self.gated = {}, {}  # namespace -> pods
+        self.modes = []
+
+    @property
+    def nominated(self):
+        return self.client.nominations
+
+    @property
+    def preempted(self):
+        return self.client.preempted
+
+    def add_node(self, ni) -> None:
+        self.infos[ni.node.meta.name] = ni
+
+    def add_pods(self, pods) -> None:
+        for p in pods:
+            self.client.pods[p.key()] = p
+
+    def delete_pod(self, key: str) -> None:
+        """``BatchScheduler.delete_pod``: off its node, out of the store,
+        its quota released."""
+        for ni in self.infos.values():
+            pod = next((p for p in ni.pods if p.key() == key), None)
+            if pod is not None:
+                ni.remove_pod(pod)
+                self.client.pods.pop(key, None)
+                self.quota.pod_deleted(pod)
+                return
+
+    def _precheck(self, pod, name):
+        """The commit checks before Reserve: (CycleState, None) or (None,
+        reasons) for the fallback."""
+        from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler
+        from kubernetes_tpu.framework.interface import CycleState
+        import types
+
+        state = CycleState()
+        plugins = [self.fwk.plugin(n) for n in (
+            ("VolumeRestrictions", "VolumeBinding") if pod.spec.volumes else ())]
+        plugins.append(self.fwk.plugin("DynamicResources"))
+        for plugin in plugins:
+            _, st = plugin.pre_filter(state, pod)
+            if not st.is_success():
+                return None, st.reasons
+        if pod.spec.volumes:
+            fwk = types.SimpleNamespace(points={"filter": [
+                (self.fwk.plugin(n), 0) for n in ("VolumeRestrictions", "NodeVolumeLimits",
+                                                  "VolumeBinding", "VolumeZone")]})
+            shim = types.SimpleNamespace(snapshot=JaxSnapshot(self.infos),
+                                         _VOLUME_FILTERS=TPUScheduler._VOLUME_FILTERS)
+            st = TPUScheduler._verify_volumes_on_node(shim, fwk, state, pod, name)
+            if not st.is_success():
+                return None, st.reasons
+        return state, None
+
+    def schedule(self, chunk) -> dict:
+        """One batch (``BatchScheduler._schedule_batch``'s order with the
+        JAX programs and plugins)."""
+        import types
+
+        import jax
+
+        from kubernetes_tpu.backend import batch as jbatch
+        from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler
+        from kubernetes_tpu.framework.interface import CycleState
+        from kubernetes_tpu.framework.plugins.coscheduling import pod_group_key
+        from kubernetes_tpu.framework.plugins.quota import ERR_REASON_QUOTA_EXCEEDED
+        from kubernetes_tpu.ops.preempt import screen_prefix
+        from kubernetes_tpu.ops.quota import (QUOTA_OK_BIT, QUOTA_SCREEN_BIT,
+                                              build_quota_batch_args)
+        from kubernetes_tpu.ops.slice import is_slice_pod
+
+        ds, infos, client = self.ds, self.infos, self.client
+        out = {}
+        ds.sync(SnapshotShim(infos.values()))
+        pods = []
+        for pod in chunk:
+            out[pod.key()] = None
+            _, st = self.quota.pre_filter(CycleState(), pod)
+            if not st.is_success():
+                self.quota_rejected[pod.key()] = st.reasons[0]
+                ns = pod.meta.namespace
+                self.gated[ns] = self.gated.get(ns, 0) + 1
+                continue
+            _, st = self.cos.pre_filter(CycleState(), pod)
+            if not st.is_success():
+                self.gang_rejected[pod.key()] = st.reasons[0]
+                continue
+            pods.append(pod)
+        if not pods:
+            return out
+        qps = [types.SimpleNamespace(pod=p) for p in pods]
+        pb, et = ds.encoder.encode_pods(pods)
+        tb = ds.sig_table.encode_topo(pods)
+        mode, vd, host_key = jax_topo_mode_info(ds)
+        extra = self.vmb.build(qps, JaxSnapshot(infos), ds.encoder, ds.caps.nodes, self.batch)
+        dra_mask = self.cmb.build(qps, ds, self.batch)
+        slice_members, slice_grid = TPUScheduler._slice_batch_args(None, qps, ds)
+        table = self.quota.device_quota_table()
+        ns_idx = req = None
+        if table or ds.nsq_slots:
+            ns_idx, req = build_quota_batch_args(pods, ds, table=table, pad_to=self.batch)
+        res = self.fn(pb, et, ds.nt, ds.tc, tb, jax.random.PRNGKey(0),
+                      topo_enabled=ds.topo_enabled, topo_mode=mode, vd_override=vd,
+                      host_key=host_key, ports_enabled=ds.encoder.last_has_ports,
+                      extra_mask=None if extra is None else jax.numpy.asarray(extra),
+                      dra_mask=dra_mask, slice_members=slice_members, slice_grid=slice_grid,
+                      quota_ns=ns_idx, quota_req=req,
+                      quota_used=ds.nsq_used if ns_idx is not None else None,
+                      quota_limit=ds.nsq_limit if ns_idx is not None else None)
+        self.modes.append(mode)
+        node_idx, ff, slice_words, quota_words = jbatch.unpack_result_block(
+            res.packed, ds.caps.nodes, quota_col=ns_idx is not None)
+        node_idx = np.array(node_idx[:len(pods)])
+        ds.adopt_device(res)
+        ds.adopt_commits(res, ds.encoder.last_host_pb, np.asarray(
+            jbatch.unpack_result_block(res.packed, ds.caps.nodes,
+                                       quota_col=ns_idx is not None)[0]))
+        names = ds.slot_to_name()
+        flagged = set()
+        if quota_words is not None:
+            for i in range(len(pods)):
+                w = int(quota_words[i])
+                if node_idx[i] >= 0 and w & QUOTA_SCREEN_BIT and not w & QUOTA_OK_BIT:
+                    flagged.add(i)
+                    ns = pods[i].meta.namespace
+                    self.flagged[ns] = self.flagged.get(ns, 0) + 1
+        flat, slices = {}, {}
+        for i, pod in enumerate(pods):
+            gkey = pod_group_key(pod)
+            if gkey is not None:
+                (slices if is_slice_pod(pod) else flat).setdefault(gkey, []).append(i)
+        reasons = {}
+        if flat:
+            member_idx, member_valid = _gang_index(list(flat.values()))
+            verdicts = [np.asarray(a) for a in jbatch.gang_verdicts(
+                res.node_idx, res.first_fail, member_idx, member_valid)]
+            for g, gkey in enumerate(flat):
+                if not verdicts[0][g]:
+                    reasons[gkey] = "incomplete" if verdicts[1][g] else "infeasible"
+        for gkey, idxs in slices.items():
+            if not all(node_idx[i] >= 0 for i in idxs):
+                plan_ok = all(int(slice_words[i]) & jbatch.SLICE_PLAN_OK_BIT for i in idxs)
+                reasons[gkey] = "incomplete" if plan_ok else "infeasible"
+        for gkey, idxs in {**flat, **slices}.items():
+            if gkey not in reasons and any(i in flagged for i in idxs):
+                reasons[gkey] = "incomplete"
+        gang_rows = {}
+        for gkey, reason in reasons.items():
+            self.cos.reject_gang(gkey, reason)
+            for i in flat.get(gkey) or slices[gkey]:
+                gang_rows[i] = reason
+        failed = node_idx < 0
+        evicted_before = len(client.deleted)
+        if failed.any() or gang_rows:
+            screen = best = None
+            if failed.any():
+                bound = [p.spec.priority for ni in infos.values() for p in ni.pods]
+                min_prio = min(bound) if bound else None
+                if min_prio is None or all(pods[i].spec.priority <= min_prio
+                                           for i in np.flatnonzero(failed)):
+                    screen = np.zeros((len(pods), ds.caps.nodes), bool)
+                    best = np.full(len(pods), -1, np.int32)
+                else:
+                    ds._refresh_class_prio()
+                    fpad = np.zeros(pb.capacity, bool)
+                    fpad[:len(pods)] = failed
+                    pres = screen_prefix(pb, ds.nt, res.static_masks, fpad)
+                    screen, best = np.asarray(pres.screen), np.asarray(pres.best)
+            slot_of = dict(ds.encoder.node_slots)
+            diag = types.SimpleNamespace(_SHARED_STATUSES=TPUScheduler._SHARED_STATUSES)
+            for i in sorted(set(np.flatnonzero(failed).tolist()) | set(gang_rows)):
+                pod = pods[i]
+                if i in gang_rows and not failed[i]:
+                    continue
+                d = TPUScheduler._diagnose(diag, ff[i], names)
+                if not d.node_to_status:
+                    continue
+                state = CycleState()
+                if i not in gang_rows:
+                    best_name = names.get(int(best[i])) if best[i] >= 0 else None
+                    state.write(self.plugin.HINTS_KEY, (screen[i], slot_of, best_name))
+                client.preemptor = pod.key()
+                node, st = self.plugin.post_filter(state, pod, d.node_to_status)
+                if st.is_success() and node:
+                    self.fwk.nominator.add_nominated_pod(pod, node)
+                    client.update_pod_nominated_node(pod.key(), node)
+        for key in client.deleted[evicted_before:]:
+            victim = client.pods.get(key)
+            if victim is not None:
+                self.quota.pod_deleted(victim)
+        # Reserve runs over the whole batch before any failed pod is
+        # unreserved, as the JAX commit plane's batched Reserve does
+        # (commit_plane.py ``_run_reserve_permit``): ``held`` keeps the
+        # quota charge of a pod DynamicResources refused until then
+        surrender, held, gang_bound = set(), [], {}
+        for i, pod in enumerate(pods):
+            key, slot = pod.key(), int(node_idx[i])
+            if i in gang_rows:
+                self.gang_rejected[key] = gang_rows[i]
+                if slot >= 0:
+                    surrender.add(names[slot])
+                continue
+            if slot < 0:
+                continue
+            name = names[slot]
+            if i in flagged:
+                self.quota_rejected[key] = (f'{ERR_REASON_QUOTA_EXCEEDED}: namespace '
+                                            f'"{pod.meta.namespace}" over quota at decision '
+                                            'time (device screen)')
+                surrender.add(name)
+                continue
+            gkey = pod_group_key(pod)
+            state = CycleState()
+            if pod.spec.volumes or pod.spec.resource_claims:
+                state, why = self._precheck(pod, name)
+                if why is not None:
+                    self.fallback[key] = why[0]
+                    surrender.add(name)
+                    continue
+            st = self.quota.reserve(state, pod, name)
+            if not st.is_success():
+                self.retry[key] = st.reasons[0]
+                surrender.add(name)
+                continue
+            if pod.spec.resource_claims:
+                st = self.fwk.plugin("DynamicResources").reserve(state, pod, name)
+                if not st.is_success():
+                    self.retry[key] = st.reasons[0]
+                    surrender.add(name)
+                    held.append(pod)
+                    continue
+            for d in (self.retry, self.fallback, self.quota_rejected):
+                d.pop(key, None)
+            bound_pod = pod.clone()
+            bound_pod.spec.node_name = name
+            infos[name].add_pod(bound_pod)
+            client.pods[key] = bound_pod
+            out[key] = name
+            self.fwk.nominator.delete_nominated_pod_if_exists(pod)
+            client.nominations.pop(key, None)
+            if gkey is not None:
+                gang_bound.setdefault(gkey, []).append(bound_pod)
+        for pod in held:
+            self.quota.unreserve(CycleState(), pod, "")
+        for gkey, members in gang_bound.items():
+            for p in members:
+                self.gang_rejected.pop(p.key(), None)
+        for name in surrender:
+            ds._uploaded_gen.pop(name, None)  # TPUScheduler._invalidate_device_row
+        if gang_bound:
+            self.cos.post_bind_batch([(None, p, p.spec.node_name)
+                                      for m in gang_bound.values() for p in m])
+        where = {p.key(): ni for ni in infos.values() for p in ni.pods}
+        for key in client.deleted[evicted_before:]:
+            ni = where.pop(key, None)
+            if ni is not None:
+                ni.remove_pod(next(p for p in ni.pods if p.key() == key))
+                client.pods.pop(key, None)
+        return out
+
+
+def jax_run_soak(env: "JaxEnv", w, jax_pods_of) -> dict:
+    """``workloads.run_soak`` over a ``JaxEnv``: the same rounds, batches,
+    resubmissions and churn, with the JAX pods ``jax_pods_of(port pods)``
+    gives and the JAX ledger's objects in the env's store."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    for q in w.quotas():
+        env.store.create_object("SchedulingQuota", to_jax(q))
+    tenants = [ns for ns, _w in workloads.SOAK_TENANTS]
+    counter = 0
+    pending = []
+    soak_bound = {ns: [] for ns in tenants}
+    placed_all, bound = {}, dict.fromkeys(tenants, 0)
+    oversub = passes = 0
+    rounds = []
+    for r in range(w.rounds):
+        tpods = w.arrivals(r, counter)
+        counter += len(tpods)
+        tstore = workloads.Store()
+        w.populate(tstore, tpods)
+        for kind, m in (("PodGroup", tstore.pod_groups), ("ResourceClaim", tstore.resource_claims),
+                        ("ResourceClass", tstore.resource_classes)):
+            for obj in m.values():
+                key = obj.meta.name if kind == "ResourceClass" else obj.meta.key()
+                if env.store.get_object(kind, key) is None:
+                    env.store.create_object(kind, to_jax(obj))
+        arrivals = jax_pods_of(tpods)
+        env.add_pods(arrivals)
+        pending += arrivals
+        submit = list(pending)
+        nominations = {}
+        while submit:
+            placed = {}
+            for chunk in workloads.soak_chunks(submit, env.batch):
+                placed.update(env.schedule(chunk))
+            passes += 1
+            oversub += workloads.quota_oversubscription(env.quota, tenants)
+            nominations.update(env.nominated)
+            newly = [p for p in submit if placed.get(p.key())]
+            for p in newly:
+                placed_all[p.key()] = placed[p.key()]
+                soak_bound[p.meta.namespace].append(p.key())
+                bound[p.meta.namespace] += 1
+            pending = [p for p in pending if not placed.get(p.key())]
+            if not newly:
+                break
+            again = set(env.retry) | set(env.quota_rejected) | set(env.nominated)
+            submit = [p for p in pending if p.key() in again]
+        env.clock.advance(workloads.SOAK_CYCLES_PER_ROUND * workloads.SOAK_TICK_S)
+        for ns in tenants:
+            keys = soak_bound[ns]
+            n = int(len(keys) * workloads.SOAK_CHURN_FRAC)
+            for key in keys[:n]:
+                env.delete_pod(key)
+            soak_bound[ns] = keys[n:]
+        oversub += workloads.quota_oversubscription(env.quota, tenants)
+        rounds.append({"usage": {ns: env.quota.usage(ns) for ns in tenants},
+                       "nominations": nominations})
+    return {"placed": placed_all, "bound": bound, "oversubscription": oversub,
+            "passes": passes, "rounds": rounds, "pending": [p.key() for p in pending]}
+
+
+def run_soak_both(nodes=60, scale=4, rounds=4, cohort="", gangs=True):
+    """A small SchedulingSoak through ``jax_run_soak`` and through the
+    port's ``run_soak`` on the CPU (under the current KTPU_SPEC). Returns
+    (JAX result, JAX env, port result, the port's BatchScheduler)."""
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_soak(nodes=nodes, scale=scale, rounds=rounds, cohort=cohort,
+                                  gangs=gangs)
+    caps = dataclasses.asdict(w.caps())
+    caps.update(pods=32)
+    sched = BatchScheduler(w.node_infos(), caps=workloads.Capacities(**caps), device="cpu",
+                           client=w.store())
+    port = workloads.run_soak(sched, w)
+    env = JaxEnv([to_jax_node_info(ni) for ni in w.node_infos()], caps,
+                 clock=workloads.FakeClock())
+    jax_out = jax_run_soak(env, w, lambda pods: [to_jax(p) for p in pods])
+    return jax_out, env, port, sched
+
+
+def to_jax_node_info(ni):
+    """A port NodeInfo rebuilt as a JAX one, its pods added in order."""
+    jni = jax_api().NodeInfo(to_jax(ni.node))
+    for p in ni.pods:
+        jni.add_pod(to_jax(p))
+    return jni
+
+
+def copy_store_objects(tstore, jstore) -> None:
+    """The port store's claim classes, claims, PodGroups, quotas and PDBs
+    created again in a JAX store."""
+    for kind, m in (("ResourceClass", tstore.resource_classes),
+                    ("ResourceClaim", tstore.resource_claims),
+                    ("PodGroup", tstore.pod_groups),
+                    ("SchedulingQuota", tstore.scheduling_quotas)):
+        for obj in m.values():
+            key = obj.meta.name if kind == "ResourceClass" else obj.meta.key()
+            if jstore.get_object(kind, key) is None:
+                jstore.create_object(kind, to_jax(obj))
+
+
+def jax_run_with_preemption(env: "JaxEnv", ops) -> tuple:
+    """``workloads.run_with_preemption`` over a ``JaxEnv``: each op's pods
+    in batches, then the nominated pods resubmitted in order until none is
+    left. Returns (placements, the nominations before each round)."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    placed = {}
+    for op in ops:
+        env.add_pods(op)
+        for s in range(0, len(op), env.batch):
+            placed.update(env.schedule(op[s:s + env.batch]))
+    pods = [p for op in ops for p in op]
+    rounds = []
+    while env.nominated and len(rounds) < workloads.MAX_PREEMPTION_ROUNDS:
+        rounds.append(dict(env.nominated))
+        again = [p for p in pods if p.key() in env.nominated]
+        for s in range(0, len(again), env.batch):
+            placed.update(env.schedule(again[s:s + env.batch]))
+    return placed, rounds
+
+
+def run_preempt_all_both(nodes=48, init_pods=192, per_kind=16, batch=16):
+    """A small PreemptionAll through ``jax_run_with_preemption`` and the
+    port's ``run_with_preemption`` on the CPU (under the current
+    KTPU_SPEC). Returns (JAX placements, JAX rounds, JAX env, port
+    placements, port rounds, the port's BatchScheduler)."""
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.preemption_all(nodes=nodes, init_pods=init_pods, per_kind=per_kind)
+    caps = dataclasses.asdict(w.caps())
+    caps.update(nodes=128, pods=batch, value_words=32)
+    tstore = w.store()
+    sched = BatchScheduler(w.node_infos(), caps=workloads.Capacities(**caps), device="cpu",
+                           client=tstore)
+    env = JaxEnv([to_jax_node_info(ni) for ni in w.node_infos()], caps)
+    copy_store_objects(w.store(), env.store)
+    ops = [[to_jax(p) for p in op] for op in
+           (w.init_pod_list(), w.warm_pod_list(), w.measured_pod_list())]
+    placed_j, rounds_j = jax_run_with_preemption(env, ops)
+    placed_t, rounds_t = workloads.run_with_preemption(sched, w)
+    return placed_j, rounds_j, env, placed_t, rounds_t, sched

@@ -1,8 +1,9 @@
 """The CUDA fused-step kernel against its plain PyTorch version (masked,
 nominated and slice-masked batches among them), and the topology scan, the
-speculative rounds, the claim mask, the preemption screen, the slice
-planner, the gang assigner and the claim, volume, preemption and gang
-workloads against their CPU runs, on the card.
+speculative rounds, the claim mask, the preemption screen, the quota
+screen, the slice planner, the gang assigner and the claim, volume,
+preemption, gang, quota and PreemptionAll workloads against their CPU runs,
+on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -509,3 +510,84 @@ def test_gang_workloads_match_cpu(cuda, name):
     if name == "scheduling_slices":
         stats = workloads.slice_stats(sched.snapshot.node_info_map.values())
         assert stats["ContiguityViolations"] == 0.0 and stats["BoundSliceGangs"] == 9.0
+
+
+# ---------------------------------------------------------------- quota and preemption of every batch
+
+
+@pytest.mark.cuda
+def test_quota_screen_on_card_matches_cpu(cuda):
+    """The screen on the card against the CPU on a seeded batch of 128
+    pods over 16 namespaces (losers, unscreened rows, a same-namespace run,
+    sums past 2**31 - 1), with no host read."""
+    from kubernetes_tpu_torch.ops import quota
+
+    rng = np.random.RandomState(5)
+    p, ns_n = 128, 16
+    node_idx = np.where(rng.uniform(size=p) < 0.2, -1, rng.randint(0, 512, p)).astype(np.int32)
+    ns_idx = rng.randint(-1, ns_n, p).astype(np.int32)
+    ns_idx[10:40] = 3
+    used = rng.randint(0, 40, (ns_n, 4)).astype(np.int32)
+    used[5] = 2**31 - 10
+    req = rng.randint(0, 5, (p, 4)).astype(np.int32)
+    limit = (used + rng.randint(0, 30, (ns_n, 4))).astype(np.int32)
+    limit[5] = 2**31 - 1
+    want = quota.quota_screen(torch.from_numpy(node_idx), ns_idx, torch.from_numpy(req),
+                              torch.from_numpy(used), torch.from_numpy(limit))
+    args = [torch.from_numpy(a).to(cuda) for a in (node_idx, req, used, limit)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = quota.quota_screen(args[0], ns_idx, *args[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got.cpu(), want)
+    assert int((want == quota.QUOTA_SCREEN_BIT).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cohort", ["", "soak"])
+def test_quota_screened_workload_matches_cpu(cuda, cohort):
+    """A small SchedulingSoak without gangs (every batch in mode off, on the
+    fused kernel with the screen after it) on the card and on the CPU: the
+    same placements, ledgers and rejections, flagged winners, no
+    oversubscription."""
+    import dataclasses
+
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_soak(nodes=60, scale=4, rounds=3, gangs=False, cohort=cohort)
+    caps = dataclasses.replace(w.caps(), pods=32)
+    runs = []
+    for device in (cuda, "cpu"):
+        sched = BatchScheduler(w.node_infos(), caps=caps, device=device, client=w.store())
+        before = fused_step.LAUNCHES
+        out = workloads.run_soak(sched, w)
+        runs.append((out, dict(sched.quota_rejected), sched.quota_flagged))
+        assert out["oversubscription"] == 0 and sched.quota_flagged
+        assert set(sched.batch_modes) == {"off"}
+        if device != "cpu":
+            assert fused_step.LAUNCHES - before == sched.batches
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_preempt_all_workload_matches_cpu(cuda):
+    """A small PreemptionAll (claim, anti-affine and spread preemptors) on
+    the card and on the CPU: the same placements, nominations and victims,
+    every preemptor bound, nothing in fallback."""
+    from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
+    from kubernetes_tpu_torch.backend.device_state import caps_for_cluster
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.preemption_all(nodes=100, init_pods=400, per_kind=32)
+    runs = []
+    for device in (cuda, "cpu"):
+        sched = BatchScheduler(w.node_infos(), caps=caps_for_cluster(100, batch=32),
+                               device=device, client=w.store())
+        placed, rounds = workloads.run_with_preemption(sched, w)
+        runs.append((placed, rounds, dict(sched.preempted), sched.batch_modes))
+        assert all(placed.values()) and not sched.nominated and not sched.fallback
+        assert {"off", "host", "general"} <= set(sched.batch_modes)
+    assert runs[0] == runs[1]

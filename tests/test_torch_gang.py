@@ -430,31 +430,48 @@ def test_unported_gang_cases_raise():
 
 
 def test_rejected_gang_member_that_outranks_lands_in_fallback():
-    """Members of a rejected gang are not preempted for (A5b): when they
-    outrank a bound pod, every member lands in ``fallback``; a gang that
-    places leaves nothing there."""
+    """Members of a rejected gang that outrank a bound pod no longer land in
+    ``fallback``: they take the JAX ``_fail`` path, where the rejection's
+    backoff fails Coscheduling's PreFilter inside the PostFilter, so no
+    member preempts, exactly as the JAX loop; a gang that places leaves
+    nothing anywhere."""
+    from kubernetes_tpu.api import types as jtypes
     from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup
     from kubernetes_tpu_torch.apiserver.store import Store
     from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
     from kubernetes_tpu_torch.ops.schema import Capacities
+    import _torch_cases as tc
+
+    def cluster(api):
+        infos = _gang_cluster(api)
+        for i, ni in enumerate(infos):
+            victim = api.make_pod(f"low-{i}").req({"cpu": "100m"}).priority(1).obj()
+            victim.spec.node_name = ni.node.meta.name
+            ni.add_pod(victim)
+        return infos
 
     api = torch_api()
-    infos = _gang_cluster(api)
-    for i, ni in enumerate(infos):
-        victim = api.make_pod(f"low-{i}").req({"cpu": "100m"}).priority(1).obj()
-        victim.spec.node_name = ni.node.meta.name
-        ni.add_pod(victim)
     store = Store()
     for name, k in (("big", 8), ("pair", 2)):
         store.create_object("PodGroup", PodGroup(meta=ObjectMeta(name=name, namespace="default"),
                                                  min_member=k))
-    sched = BatchScheduler(infos, caps=Capacities(nodes=128, pods=16, value_words=32),
-                           device="cpu", client=store)
+    caps = dict(nodes=128, pods=16, value_words=32)
+    sched = BatchScheduler(cluster(api), caps=Capacities(**caps), device="cpu", client=store)
+    clock = Clock()
+    sched.coscheduling.now_fn = clock
+    env = tc.JaxEnv(cluster(jax_api()), caps, clock=clock)
+    for name, k in (("big", 8), ("pair", 2)):
+        env.store.create_object("PodGroup", jtypes.PodGroup(
+            meta=jtypes.ObjectMeta(name=name, namespace="default"), min_member=k))
     pods = _gang_pods(api, "big", 8) + _gang_pods(api, "pair", 2)
     for pod in pods:
         pod.spec.priority = 100
+    jpods = [tc.to_jax(p) for p in pods]
+    env.add_pods(jpods)
     placed = sched.schedule(pods)
+    assert placed == env.schedule(jpods)
     big = [p.key() for p in pods[:8]]
-    assert sched.fallback == dict.fromkeys(big, batch_scheduler.UNPORTED_PREEMPTION)
-    assert sched.gang_rejected == dict.fromkeys(big, "infeasible")
-    assert all(placed[p.key()] for p in pods[8:]) and not sched.nominated
+    assert not sched.fallback
+    assert sched.gang_rejected == env.gang_rejected == dict.fromkeys(big, "infeasible")
+    assert sched.nominated == env.nominated == {} and sched.preempted == env.preempted == {}
+    assert all(placed[p.key()] for p in pods[8:])

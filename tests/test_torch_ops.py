@@ -117,8 +117,8 @@ def test_pack_unpack_block_match(n):
     tp = tbatch.pack_result_block(torch.from_numpy(idx), torch.from_numpy(ff))
     assert jp.tobytes() == tp.numpy().tobytes()
     j_idx, j_ff, _, _ = jbatch.unpack_result_block(jp, n)
-    t_idx, t_ff, t_slice = tbatch.unpack_result_block(tp, n)
-    assert t_slice is None
+    t_idx, t_ff, t_slice, t_quota = tbatch.unpack_result_block(tp, n)
+    assert t_slice is None and t_quota is None
     np.testing.assert_array_equal(j_idx, t_idx)
     np.testing.assert_array_equal(j_ff, t_ff)
     np.testing.assert_array_equal(t_ff, ff)

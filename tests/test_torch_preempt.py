@@ -464,56 +464,94 @@ def test_never_policy_does_not_preempt():
     assert not sched.nominated and not sched.preempted and not sched.fallback
 
 
+def _env_like(infos_fn, store=None):
+    """A JaxEnv over the JAX twin of the cluster ``infos_fn`` builds (port
+    API), with the port store's objects."""
+    env = tc.JaxEnv([tc.to_jax_node_info(ni) for ni in infos_fn()],
+                    dict(nodes=16, pods=8, value_words=32))
+    if store is not None:
+        tc.copy_store_objects(store, env.store)
+    return env
+
+
 def test_topology_and_claim_preemptors_land_in_fallback():
+    """A topology-batch preemptor and a claim preemptor outranking the bound
+    pods now preempt (they used to land in ``fallback``), as the JAX
+    package's PostFilter does: the same nomination and victims, nothing in
+    ``fallback``."""
     from kubernetes_tpu_torch.api.types import LabelSelector
     from kubernetes_tpu_torch.api.wrappers import make_pod
     from kubernetes_tpu_torch.apiserver.store import Store
-    from kubernetes_tpu_torch.backend import batch_scheduler
     from kubernetes_tpu_torch.perf import workloads
 
     sched = _sched(_full_cluster(prio=0))
+    env = _env_like(lambda: _full_cluster(prio=0))
     anti = make_pod("anti").req({"cpu": "2", "memory": "2Gi"}).priority(1000).label(
         "app", "x").pod_affinity("kubernetes.io/hostname",
                                  LabelSelector(match_labels={"app": "x"}), anti=True).obj()
-    assert sched.schedule([anti]) == {anti.key(): None}
-    assert sched.batch_modes == ["host"]
-    assert sched.fallback == {anti.key(): batch_scheduler.UNPORTED_PREEMPTION}
-    assert not sched.nominated and not sched.preempted
+    janti = tc.to_jax(anti)
+    env.add_pods([janti])
+    assert sched.schedule([anti]) == env.schedule([janti]) == {anti.key(): None}
+    assert sched.batch_modes == env.modes == ["host"]
+    assert sched.nominated == env.nominated and set(sched.nominated) == {anti.key()}
+    assert sched.preempted == env.preempted and len(sched.preempted) == 2
+    assert not sched.fallback
 
     # a claim pod, in a mode off batch, outranking the bound pods
     shape = workloads.PodShape("dra", req={"cpu": "2", "memory": "2Gi"},
                                claim=workloads.TPU_CLAIM, priority=1000)
     store = Store()
     shape.populate(store, 1)
-    infos = _full_cluster(prio=0)
-    for ni in infos:
-        ni.node.status.device_attributes = {"tpu.dev/cores": 8, "tpu.dev/gen": "v5"}
-    sched = _sched(infos, client=store)
+
+    def infos():
+        out = _full_cluster(prio=0)
+        for ni in out:
+            ni.node.status.device_attributes = {"tpu.dev/cores": 8, "tpu.dev/gen": "v5"}
+        return out
+
+    sched = _sched(infos(), client=store)
+    env = _env_like(infos, store)
     claim_pod = shape.pods(1)[0]
-    assert sched.schedule([claim_pod]) == {claim_pod.key(): None}
-    assert sched.batch_modes == ["off"]
-    assert sched.fallback == {claim_pod.key(): batch_scheduler.UNPORTED_PREEMPTION}
-    assert not sched.nominated and not sched.preempted
+    jclaim = tc.to_jax(claim_pod)
+    env.add_pods([jclaim])
+    assert sched.schedule([claim_pod]) == env.schedule([jclaim]) == {claim_pod.key(): None}
+    assert sched.batch_modes == env.modes == ["off"]
+    assert sched.nominated == env.nominated and set(sched.nominated) == {claim_pod.key()}
+    assert sched.preempted == env.preempted and len(sched.preempted) == 2
+    assert not sched.fallback
 
 
 def test_fallback_preemptor_binds_on_resubmission_and_leaves_fallback():
-    """A topology-batch preemptor in ``fallback`` that binds once room is
-    made is no longer in ``fallback`` (nor in ``retry``)."""
+    """A topology-batch preemptor is nominated (never put in ``fallback``)
+    and, resubmitted with an empty node added meanwhile, binds where the
+    JAX loop binds it: both runs nominate, evict and place alike, and
+    nothing is left in ``fallback``, ``retry`` or ``nominated``."""
     from kubernetes_tpu_torch.api.types import LabelSelector
     from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
     from kubernetes_tpu_torch.framework.types import NodeInfo
 
     sched = _sched(_full_cluster(prio=0))
+    env = _env_like(lambda: _full_cluster(prio=0))
     anti = make_pod("anti").req({"cpu": "2", "memory": "2Gi"}).priority(1000).label(
         "app", "x").pod_affinity("kubernetes.io/hostname",
                                  LabelSelector(match_labels={"app": "x"}), anti=True).obj()
-    assert sched.schedule([anti]) == {anti.key(): None}
-    assert set(sched.fallback) == {anti.key()}
-    sched.add_node(NodeInfo(make_node("room").capacity(
-        {"cpu": "2", "memory": "4Gi", "pods": 10}).label("kubernetes.io/hostname", "room").obj()))
-    assert sched.schedule([anti]) == {anti.key(): "room"}
-    assert sched.batch_modes == ["host", "host"]
+    janti = tc.to_jax(anti)
+    env.add_pods([janti])
+    assert sched.schedule([anti]) == env.schedule([janti]) == {anti.key(): None}
+    assert not sched.fallback and set(sched.nominated) == {anti.key()}
+    assert sched.nominated == env.nominated and sched.preempted == env.preempted
+    node = sched.nominated[anti.key()]
+
+    def room():
+        return NodeInfo(make_node("room").capacity({"cpu": "2", "memory": "4Gi", "pods": 10})
+                        .label("kubernetes.io/hostname", "room").obj())
+
+    sched.add_node(room())
+    env.add_node(tc.to_jax_node_info(room()))
+    assert sched.schedule([anti]) == env.schedule([janti]) == {anti.key(): node}
+    assert sched.batch_modes == env.modes == ["host", "host"]
     assert not sched.fallback and not sched.retry and not sched.nominated
+    assert not env.fallback and not env.retry and not env.nominated
 
 
 def test_min_pod_priority_follows_adds_and_removes():

@@ -200,7 +200,7 @@ def test_slice_batch_matches_jax(spec):
         np.testing.assert_array_equal(getattr(tres, name).numpy(),
                                       np.asarray(getattr(jres, name)), err_msg=name)
     assert 11 in np.unique(tres.first_fail.numpy())
-    _, _, words = tbatch.unpack_result_block(tres.packed, jds.caps.nodes)
+    _, _, words, _ = tbatch.unpack_result_block(tres.packed, jds.caps.nodes)
     assert words is not None and (words[[4, 9, 11]] & tbatch.SLICE_PLAN_OK_BIT).all()
 
 
@@ -249,7 +249,8 @@ def test_pack_unpack_with_slice_column(n):
                                   torch.from_numpy(words))
     assert jp.tobytes() == tp.numpy().tobytes()
     j_idx, j_ff, j_words, _ = jbatch.unpack_result_block(jp, n)
-    t_idx, t_ff, t_words = tbatch.unpack_result_block(tp, n)
+    t_idx, t_ff, t_words, t_quota = tbatch.unpack_result_block(tp, n)
+    assert t_quota is None
     for a, b in ((j_idx, t_idx), (j_ff, t_ff), (j_words, t_words), (t_words, words)):
         np.testing.assert_array_equal(a, b)
 
