@@ -143,7 +143,24 @@
    CPU and free of host reads. Prints the first failing batch of each mode
    (ms, screen, host Evaluator) and the screen's ms, kernels and busy time
    per mode.
-11. Each workload run prints pods/s, ms per batch, host ms per stage, and
+11. Loop phase: the scheduler loop (``perf/workloads.py:run_loop``: nodes
+   and pods created in the port's Store, ``TPUScheduler(store,
+   device).run_until_settled()``, every bind through the store).
+   SchedulingBasic/5000Nodes (1000 init, then 1000 measured pods) on the
+   card at the default percentageOfNodesToScore (a full batch on CUDA):
+   every pod bound, the settle not abandoned, every batch on the fused
+   kernel with launches (counted from 0 just before this run) equal to
+   batches, placements equal to the same loop on the CPU at percentage
+   100 (full batches, the plain fused step). Then the sampled loop: 1000
+   nodes, 256 pods at percentage 10, every batch on the scan with no
+   kernel launch, placements and the window's final start equal to the
+   CPU run. Then PreemptionBasic/500Nodes through the loop on the card
+   and on the CPU (percentage 100): every preemptor bound; victims,
+   nominations, placements and pods popped equal. Prints pods/s of the
+   measured phase, attempt p50/p90/p99 (pop to commit) and the loop's host
+   ms per batch by stage (pop, snapshot, sync, encode, dispatch, read,
+   bind).
+12. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -1535,6 +1552,82 @@ def preempt_all_phase() -> dict:
     return {w.name: {"launches": launches, "screens": by_mode}}
 
 
+# ---------------------------------------------------------------- loop phase
+
+
+def _loop_report(name: str, run: dict) -> None:
+    ms = run["measured_batch_ms"]
+    n = len(ms)
+    print(f"{name} through the loop: {run['metrics']['scheduled']} pods bound in "
+          f"{run['batches']} batches (paths {sorted(set(run['paths']))}), fused-kernel "
+          f"launches {run['launches']}; measured phase {run['pods_per_s']:.1f} pods/s over "
+          f"{run['measured_s']:.3f} s, {n} batches of median {statistics.median(ms):.2f} ms "
+          f"(min {min(ms):.2f}, max {max(ms):.2f}); attempt ms (pop to commit) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in run["attempt_ms"].items())
+          + "; host ms per measured batch by stage: "
+          + ", ".join(f"{k} {v / n:.2f}" for k, v in run["measured_stage_ms"].items())
+          + "; per batch over the whole run: "
+          + ", ".join(f"{k} {v / run['batches']:.2f}" for k, v in run["stage_ms"].items()))
+
+
+def _check_loop_same(name: str, got: dict, want: dict, keys) -> None:
+    for key in keys:
+        if got[key] != want[key]:
+            raise AssertionError(f"{name} through the loop: {key} differs from the cpu run")
+
+
+def loop_phase() -> dict:
+    basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    fused_step.LAUNCHES = 0
+    gpu = workloads.run_loop(basic, "cuda")
+    launches = fused_step.LAUNCHES
+    if gpu["settle_abandoned"] or not all(gpu["placed"].values()) \
+            or len(gpu["placed"]) != basic.n_init + basic.n_measured:
+        raise AssertionError(f"{basic.name} through the loop: not every pod bound")
+    if set(gpu["paths"]) != {"fused"} or launches != gpu["batches"] or not launches:
+        raise AssertionError(f"{basic.name} through the loop: paths {set(gpu['paths'])}, "
+                             f"{launches} launches for {gpu['batches']} batches")
+    cpu = workloads.run_loop(basic, "cpu", percentage=100)
+    _check_loop_same(basic.name, gpu, cpu, ("placed", "cycles", "paths"))
+    _loop_report(basic.name, gpu)
+    print(f"{basic.name} through the loop: kernel launches {launches} (one per batch), "
+          f"placements == the cpu loop at percentage 100")
+
+    sampled = workloads.scheduling_basic(1000, 0, 256)
+    fused_step.LAUNCHES = 0
+    s_gpu = workloads.run_loop(sampled, "cuda", percentage=10)
+    s_launches = fused_step.LAUNCHES
+    s_cpu = workloads.run_loop(sampled, "cpu", percentage=10)
+    if (set(s_gpu["paths"]) != {"scan"} or s_launches != 0 or s_gpu["settle_abandoned"]
+            or len(s_gpu["placed"]) != sampled.n_measured or not all(s_gpu["placed"].values())):
+        raise AssertionError(f"sampled loop: paths {set(s_gpu['paths'])}, {s_launches} "
+                             "kernel launches, or a pod unbound")
+    _check_loop_same("sampled loop", s_gpu, s_cpu, ("placed", "start", "cycles"))
+    _loop_report(f"{sampled.name} at percentage 10", s_gpu)
+    print(f"sampled loop: {s_gpu['batches']} batches on the scan, final window start "
+          f"{s_gpu['start']} == cpu, placements == cpu")
+
+    pre = workloads.preemption_basic()
+    fused_step.LAUNCHES = 0
+    p_gpu = workloads.run_loop(pre, "cuda")
+    p_launches = fused_step.LAUNCHES
+    p_cpu = workloads.run_loop(pre, "cpu", percentage=100)
+    preemptors = [k for k in p_gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
+    if not all(p_gpu["placed"][k] for k in preemptors) or p_gpu["settle_abandoned"]:
+        raise AssertionError(f"{pre.name} through the loop: a preemptor is unbound")
+    if p_launches != p_gpu["batches"]:
+        raise AssertionError(f"{pre.name}: {p_launches} launches for {p_gpu['batches']} batches")
+    _check_loop_same(pre.name, p_gpu, p_cpu,
+                     ("placed", "preempted", "nominations", "cycles", "metrics"))
+    _loop_report(pre.name, p_gpu)
+    print(f"{pre.name} through the loop: {len(preemptors)} preemptors bound, "
+          f"{len(p_gpu['preempted'])} victims, {len(p_gpu['nominations'])} nominations, "
+          f"pods popped per settle {p_gpu['cycles']}; all == cpu")
+    return {basic.name: {"launches": launches, "run": gpu},
+            pre.name: {"launches": p_launches, "run": p_gpu},
+            "sampled": {"launches": s_launches, "run": s_gpu}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1566,6 +1659,7 @@ def main() -> int:
     gangs = timed("gang", gang_phase)
     quota = timed("quota", quota_phase)
     pre_all = timed("preempt_all", preempt_all_phase)
+    loop = timed("loop", loop_phase)
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1585,7 +1679,8 @@ def main() -> int:
                                  **{k: v["launches"] for k, v in pre.items()},
                                  **{k: v["launches"] for k, v in gangs.items()},
                                  **{k: v["launches"] for k, v in quota.items()},
-                                 **{k: v["launches"] for k, v in pre_all.items()}},
+                                 **{k: v["launches"] for k, v in pre_all.items()},
+                                 **{f"loop:{k}": v["launches"] for k, v in loop.items()}},
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))

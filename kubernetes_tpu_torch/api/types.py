@@ -660,6 +660,11 @@ class ResourceClaim:
 
 
 @dataclass
+class Namespace:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+
+
+@dataclass
 class PodDisruptionBudget:
     """policy/v1 PodDisruptionBudget, trimmed to what preemption reads
     (``framework/preemption.py``): the selector over pods of its namespace

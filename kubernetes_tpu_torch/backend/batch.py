@@ -1,6 +1,6 @@
 """The batched scheduling step: one call schedules a pod batch against the
 node mirror (PyTorch counterpart of ``kubernetes_tpu/backend/batch.py``,
-without sampling or sharding).
+without sharding).
 
   0. SLICE plan (batches with slice gangs): the torus planner
      (``ops/slice.py``) picks each slice gang's window and ``_slice_plan``
@@ -16,11 +16,14 @@ without sampling or sharding).
      * topology mode ``off`` (no spread constraint, no inter-pod term, no
        registered count row): the fused per-pod step (ops/fused_step.py),
        one launch of the hand-written kernel per batch on CUDA tensors;
-     * modes ``host`` and ``general``: the per-pod scan ``_topology_scan``,
-       the XLA scan ``step`` written as a Python loop over pods on device
-       tensors. It adds PodTopologySpread and InterPodAffinity
-       (ops/topology.py) to the fit, ports, scores, winner and commit, and
-       carries the topology count tables;
+     * modes ``host`` and ``general``, and a sampled batch in any mode: the
+       per-pod scan ``_topology_scan``, the XLA scan ``step`` written as a
+       Python loop over pods on device tensors. It adds PodTopologySpread
+       and InterPodAffinity (ops/topology.py) to the fit, ports, scores,
+       winner and commit, and carries the topology count tables; with
+       ``sample_k`` it keeps only the first ``sample_k`` feasible nodes of a
+       rotating window (percentageOfNodesToScore) and carries the window's
+       start;
      * any mode: the speculative rounds ``_speculative_core``, a few
        vectorized decide/repair rounds over all the batch's pods, each
        ending in one host read of the loop's condition.
@@ -119,6 +122,9 @@ class BatchResult:
     # words, then the slice words when the batch had slice gangs and the
     # quota words when it had screened namespaces
     packed: Optional[torch.Tensor] = None
+    # the sampling window's start after the batch (0-d int32; None when
+    # the batch was not sampled)
+    final_sample_start: Optional[torch.Tensor] = None
 
 
 def weight_vector(weights: Dict[str, float]) -> Tuple[float, ...]:
@@ -272,16 +278,45 @@ def _commit_scatters(nt: NodeTensors, pb: PodBatch, node_idx: torch.Tensor,
     return f_class, f_nz
 
 
+def _sample_window(feasible: torch.Tensor, start: torch.Tensor, sample_k: int,
+                   valid: torch.Tensor, nominated: torch.Tensor, iota: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """percentageOfNodesToScore's rotating window (``kubernetes_tpu/backend/
+    batch.py:1245-1273``; schedule_one.go:475-545): only the first
+    ``sample_k`` feasible slots in the order rotated to ``start`` stay
+    eligible, and the start moves past every slot examined (all of them
+    when fewer than ``sample_k`` are feasible). A padding pod examines
+    nothing. The nominated slot is always eligible. Returns (feasible
+    within the window, the next start)."""
+    n = feasible.shape[0]
+    perm = ((start + iota) % n).long()                 # rotated order -> slot
+    f_rot = feasible[perm]
+    c = torch.cumsum(f_rot.to(torch.int32), 0, dtype=torch.int32)
+    elig_rot = f_rot & (c <= sample_k)
+    eligible = elig_rot[((iota - start) % n).long()]  # the inverse rotation
+    hit = c >= sample_k
+    kth = torch.argmax(hit.to(torch.int32)).to(torch.int32)  # the first reaching k
+    processed = torch.where(torch.any(hit), kth + 1, n)
+    start = torch.where(valid, (start + processed) % n, start)
+    eligible = eligible | (iota == nominated)
+    return feasible & eligible, start
+
+
 def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[str, float],
-                   tc: TopoCounts, tb: TopoBatch, topo_mode: str, vd_override: Optional[int],
-                   host_key: int, static) -> BatchResult:
+                   tc: Optional[TopoCounts], tb: Optional[TopoBatch], topo_mode: str,
+                   vd_override: Optional[int], host_key: int, static,
+                   sample_k: Optional[int] = None,
+                   sample_start: Optional[torch.Tensor] = None) -> BatchResult:
     """The XLA scan ``step`` (``kubernetes_tpu/backend/batch.py:1202-1392``)
-    as a loop over the batch's pods on device tensors, without sampling: the
-    fit against the carried free resources with the ``req == 0`` sentinel,
-    ports, spread and inter-pod affinity against the carried counts, the
-    scores normalized over the pod's feasible set, the nominated-node bonus,
-    the first-maximum argmax, and the commit of the winner to every carry.
-    Nothing in the loop reads a device value on the host."""
+    as a loop over the batch's pods on device tensors: the fit against the
+    carried free resources with the ``req == 0`` sentinel, ports, spread
+    and inter-pod affinity against the carried counts (modes ``host`` and
+    ``general``; mode ``off`` has neither), the sampling window when
+    ``sample_k`` is given (its start carried from ``sample_start``, a 0-d
+    int32 tensor, default 0, and returned as ``final_sample_start``), the
+    scores normalized over the pod's feasible set, the nominated-node
+    bonus, the first-maximum argmax, and the commit of the winner to every
+    carry. Nothing in the loop reads a device value on the host."""
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
      jitter) = static
     w = {k: float(np.float32(v)) for k, v in weights.items()}
@@ -291,43 +326,57 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
     affinity_ok = static_masks["NodeAffinity"]
     pod_bits = _pod_port_bits(pb, nt.port_bits.shape[1])
     alloc2 = nt.allocatable[:, :2].to(torch.float32)
+    topo_on = topo_mode != "off"
     host = topo_mode == "host"
     # the value-id domain axis: the involved keys' vocab bucket when the
     # caller computed it, else the full per-key vocab padding
     vd = vd_override if vd_override else int(et.bits.shape[1]) * 32
+    sel = seg_exist = None
     if host:
         hostkey_ok = nt.label_val[:, host_key] > 0          # [N] node has a hostname
         seg_exist = tc.term_counts                           # [T, N] per-node counts
-    else:
+    elif topo_on:
         static_topo = topology.make_static(tc.term_counts, tc.term_key, nt.label_val,
                                            nt.valid, vd)
         seg_exist = static_topo.seg_exist0                   # [T, Vd] domain counts
-    log_tbl = topology.size_log_table(max(n, vd) + 1, device)
+    if topo_on:
+        log_tbl = topology.size_log_table(max(n, vd) + 1, device)
+        sel = tc.sel_counts
+        tb_fields = {f.name: getattr(tb, f.name) for f in dataclasses.fields(tb)}
+    start = None
+    if sample_k is not None:
+        start = (sample_start.to(device=device, dtype=torch.int32) if sample_start is not None
+                 else torch.zeros((), dtype=torch.int32, device=device))
+    all_ok = torch.ones(n, dtype=torch.bool, device=device)
 
     # `req == 0 always fits` as a sentinel, so fit is one compare and reduce
     req_gate = torch.where(pb.req == 0, -(2 ** 30), pb.req)
     free = nt.allocatable - nt.requested
     nz2 = nt.nonzero_requested[:, :2]
     ports = nt.port_bits
-    sel = tc.sel_counts
-    tb_fields = {f.name: getattr(tb, f.name) for f in dataclasses.fields(tb)}
     outs = []
     for p in range(pb.capacity):
-        xs = {k: v[p] for k, v in tb_fields.items()}
         fit_ok = torch.all(free >= req_gate[p][None, :], dim=1)
         ports_ok = ~torch.any((ports & pod_bits[p][None, :]) != 0, dim=1)
+        spread_ok = ipa_ok = all_ok
         if host:
+            xs = {k: v[p] for k, v in tb_fields.items()}
             spread_ok = topology.spread_filter_host(xs, sel, hostkey_ok, nt.valid,
                                                     affinity_ok[p])
             aff_ok, anti_ok, exist_ok, exist_at = topology.ipa_filter_host(
                 xs, sel, seg_exist, hostkey_ok, nt.valid)
-        else:
+            ipa_ok = aff_ok & anti_ok & exist_ok
+        elif topo_on:
+            xs = {k: v[p] for k, v in tb_fields.items()}
             spread_ok = topology.spread_filter(xs, sel, nt.label_val, nt.valid,
                                                affinity_ok[p], vd)
             aff_ok, anti_ok, exist_ok, exist_at = topology.ipa_filter(
                 xs, sel, seg_exist, static_topo.dom_t, nt.label_val, nt.valid, vd)
-        ipa_ok = aff_ok & anti_ok & exist_ok
+            ipa_ok = aff_ok & anti_ok & exist_ok
         feasible = static_ok[p] & fit_ok & ports_ok & spread_ok & ipa_ok
+        if sample_k is not None:
+            feasible, start = _sample_window(feasible, start, sample_k, pb.valid[p],
+                                             pb.nominated[p], iota)
 
         # resource scores on the evolving nonzero request (int32 add first)
         least_alloc, balanced = _resource_scores(
@@ -341,12 +390,13 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
             spread = topology.spread_score_host(xs, sel, hostkey_ok, nt.valid,
                                                 affinity_ok[p], feasible, log_tbl)
             ipa = topology.ipa_score_host(xs, sel, exist_at, hostkey_ok, feasible)
-        else:
+        elif topo_on:
             spread = topology.spread_score(xs, sel, nt.label_val, nt.valid, affinity_ok[p],
                                            feasible, vd, log_tbl)
             ipa = topology.ipa_score(xs, sel, exist_at, nt.label_val, nt.valid, feasible, vd)
-        total = total + w["PodTopologySpread"] * spread
-        total = total + w["InterPodAffinity"] * ipa
+        if topo_on:
+            total = total + w["PodTopologySpread"] * spread
+            total = total + w["InterPodAffinity"] * ipa
 
         # the nominated node wins outright when feasible (schedule_one.go:394)
         is_nom = (iota == pb.nominated[p]).to(torch.float32)
@@ -362,7 +412,7 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
         if host:
             sel, seg_exist = topology.commit_update_host(
                 sel, seg_exist, idx, any_feasible, xs["pod_sig_mask"], xs["pod_term_mask"])
-        else:
+        elif topo_on:
             sel, seg_exist = topology.commit_update(
                 sel, seg_exist, static_topo.dom_t, idx, any_feasible, xs["pod_sig_mask"],
                 xs["pod_term_mask"])
@@ -381,7 +431,7 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
         static_masks=static_masks, fit_ok=fit_ok, ports_ok=ports_ok, spread_ok=spread_ok,
         ipa_ok=ipa_ok, first_fail=first_fail, final_requested=nt.allocatable - free,
         final_nonzero=f_nz, final_ports=ports, final_class_req=f_class,
-        final_sel_counts=sel, final_seg_exist=seg_exist)
+        final_sel_counts=sel, final_seg_exist=seg_exist, final_sample_start=start)
 
 
 def _whole_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -796,7 +846,9 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                         spec_decode: bool = False, ports_enabled: bool = True,
                         extra_mask: Optional[torch.Tensor] = None,
                         dra_mask: Optional[torch.Tensor] = None,
-                        slice_mask: Optional[torch.Tensor] = None) -> BatchResult:
+                        slice_mask: Optional[torch.Tensor] = None,
+                        sample_k: Optional[int] = None,
+                        sample_start: Optional[torch.Tensor] = None) -> BatchResult:
     """Static phase, the commit phase of ``topo_mode`` and the post-scan
     scatters. ``weights`` are the plugin weights by name (every key of
     DEFAULT_WEIGHTS). Modes ``host`` and ``general`` need ``tc`` and ``tb``;
@@ -806,9 +858,14 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     (``_speculative_core``) in place of the fused kernel or the scan;
     ``ports_enabled`` False tells them that no pod of the batch wants a host
     port; ``extra_mask``, ``dra_mask`` and ``slice_mask`` join the static
-    phase on every path (the JAX names and meanings)."""
+    phase on every path (the JAX names and meanings). ``sample_k`` (with the
+    window's ``sample_start``) samples the batch: it takes the scan in every
+    mode, as in the JAX package, never the kernel or the rounds."""
     if topo_mode not in TOPO_MODES:
         raise ValueError(f"topo_mode must be one of {TOPO_MODES}, not {topo_mode!r}")
+    if spec_decode and sample_k is not None:
+        raise ValueError("the speculative rounds have no sampling window: a sampled batch "
+                         "takes the scan")
     static = static_phase(pb, et, nt, extra_mask, dra_mask, slice_mask)
     if topo_mode != "off" and (tc is None or tb is None):
         raise ValueError(f"topo_mode {topo_mode!r} needs tc and tb")
@@ -832,9 +889,9 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                          dom_t=static_topo.dom_t), ports_enabled=ports_enabled)
         return _speculative_core(pb, nt, weights, static, pod_bits,
                                  ports_enabled=ports_enabled)
-    if topo_mode != "off":
+    if topo_mode != "off" or sample_k is not None:
         return _topology_scan(pb, et, nt, weights, tc, tb, topo_mode, vd_override,
-                              host_key, static)
+                              host_key, static, sample_k, sample_start)
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
      jitter) = static
     pod_bits = _pod_port_bits(pb, nt.port_bits.shape[1])
@@ -868,7 +925,9 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                    quota_ns: Optional[np.ndarray] = None,
                    quota_req: Optional[torch.Tensor] = None,
                    quota_used: Optional[torch.Tensor] = None,
-                   quota_limit: Optional[torch.Tensor] = None) -> BatchResult:
+                   quota_limit: Optional[torch.Tensor] = None,
+                   sample_k: Optional[int] = None,
+                   sample_start: Optional[torch.Tensor] = None) -> BatchResult:
     """Schedule one encoded batch on ``device`` (default: the CUDA card;
     ``device="cpu"`` runs the plain versions). Every tensor input must
     already lie there, the masks included. The topology, ``spec_decode``,
@@ -881,7 +940,9 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     ``quota_req`` ([P, Q]) and the namespace rows ``quota_used`` /
     ``quota_limit`` ([NS, Q]) run the quota screen after the core, on
     every path: its words join the packed block after the slice words.
-    Returns the BatchResult with the packed block filled in."""
+    ``sample_k`` and ``sample_start`` (a 0-d int32 tensor on ``device``,
+    the last batch's ``final_sample_start``) sample the batch. Returns the
+    BatchResult with the packed block filled in."""
     device = resolve_device(device)
     member_idx, member_valid = slice_members if slice_members is not None else (None, None)
     check_on(device, valid=nt.valid, allocatable=nt.allocatable,
@@ -890,13 +951,13 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
              tb_sf_valid=tb.sf_valid if tb is not None else None,
              extra_mask=extra_mask, dra_mask=dra_mask, slice_member_idx=member_idx,
              slice_member_valid=member_valid, quota_req=quota_req, quota_used=quota_used,
-             quota_limit=quota_limit)
+             quota_limit=quota_limit, sample_start=sample_start)
     slice_mask = slice_words = None
     if slice_members is not None and slice_grid is not None:
         slice_mask, slice_words = _slice_plan(pb, nt, slice_members, slice_grid)
     res = schedule_batch_core(pb, et, nt, {**DEFAULT_WEIGHTS, **(weights or {})}, tc, tb,
                               topo_mode, vd_override, host_key, spec_decode, ports_enabled,
-                              extra_mask, dra_mask, slice_mask)
+                              extra_mask, dra_mask, slice_mask, sample_k, sample_start)
     quota_words = None
     if quota_ns is not None and quota_used is not None:
         quota_words = quota_screen(res.node_idx, quota_ns, quota_req, quota_used, quota_limit)
@@ -974,15 +1035,15 @@ def gang_verdicts(node_idx: torch.Tensor, first_fail: torch.Tensor, member_idx: 
 SPEC_AUTO_CUDA = {"off": False, "host": True, "general": True}
 
 
-def spec_decode_eligible(topo_mode: str, device: DeviceLike) -> bool:
+def spec_decode_eligible(topo_mode: str, device: DeviceLike, sampled: bool = False) -> bool:
     """Whether a batch runs the speculative rounds (the JAX package's
-    ``spec_decode_eligible`` for an unsampled batch). ``KTPU_SPEC=0`` forces
-    the fused kernel or the scan, any other value but ``auto`` forces the
-    rounds in every mode. Under ``auto`` (the default) the CPU takes the
-    fused kernel's plain version or the scan, as in the JAX package, and
-    CUDA takes ``SPEC_AUTO_CUDA[topo_mode]``."""
+    ``spec_decode_eligible``). A ``sampled`` batch never does: it takes the
+    scan. ``KTPU_SPEC=0`` forces the fused kernel or the scan, any other
+    value but ``auto`` forces the rounds in every mode. Under ``auto`` (the
+    default) the CPU takes the fused kernel's plain version or the scan, as
+    in the JAX package, and CUDA takes ``SPEC_AUTO_CUDA[topo_mode]``."""
     flag = os.environ.get("KTPU_SPEC", "auto")
-    if flag == "0":
+    if flag == "0" or sampled:
         return False
     if flag == "auto":
         return torch.device(device).type == "cuda" and SPEC_AUTO_CUDA[topo_mode]

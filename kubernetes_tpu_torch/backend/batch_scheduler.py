@@ -2,8 +2,10 @@
 one device-to-host read → bind.
 
 The device half of ``kubernetes_tpu/backend/tpu_scheduler.py``'s
-``schedule_batch_cycle`` and ``_commit_inflight``, without the queue, the
-framework runtime, the store or the commit plane. ``BatchScheduler`` keeps
+``schedule_batch_cycle`` and ``_commit_inflight`` as a library: the caller
+hands it pods, without a queue or a store of nodes and pods (the scheduler
+loop, ``backend/tpu_scheduler.py``, drives the same device step,
+``run_device_batch``, from its queue and store). ``BatchScheduler`` keeps
 the given NodeInfos as its cache (it binds placed pods into them) and a
 ``DeviceState`` mirror of them; each
 ``schedule`` call places pods in batches of ``caps.pods`` in the given
@@ -93,8 +95,9 @@ their nodes.
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -111,12 +114,12 @@ from ..framework.runtime import FilterRunner, PodNominator
 from ..framework.types import NodeInfo
 from ..ops.preempt import screen_prefix
 from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT, build_quota_batch_args
-from ..ops.schema import Capacities
+from ..ops.schema import Capacities, PodBatch
 from ..ops.slice import is_slice_pod
 from ..ops.volume_mask import VolumeMaskBuilder
 from ..utils.device import DeviceLike
-from .batch import (DEFAULT_WEIGHTS, SLICE_PLAN_OK_BIT, gang_member_index, gang_verdicts,
-                    pack_result_block, schedule_batch, spec_decode_eligible,
+from .batch import (DEFAULT_WEIGHTS, SLICE_PLAN_OK_BIT, BatchResult, gang_member_index,
+                    gang_verdicts, pack_result_block, schedule_batch, spec_decode_eligible,
                     unpack_result_block)
 from .claim_mask import ClaimMaskBuilder
 from .device_state import DeviceState, caps_for_cluster
@@ -163,6 +166,101 @@ def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
             return (f"persistentvolumeclaim {name!r} is unbound (delayed binding comes "
                     "with the scheduler loop slice)")
     return None
+
+
+def topo_mode_info(state: DeviceState) -> Tuple[str, Optional[int], int]:
+    """(topo_mode, vd_bucket, host_key) for the sig table as the last
+    ``encode_topo`` left it: "off" with no registered signature or term;
+    "host" when every involved key is the hostname and every valid node
+    has a hostname value of its own (a duplicate falls back, as the
+    per-node fast path would count two nodes apart); else "general",
+    over a domain axis of the smallest power of two >= 64 that covers
+    every value id of the involved keys."""
+    if not state.topo_enabled:
+        return ("off", None, 0)
+    summary = state.sig_table.last_topo_summary
+    if summary["hostname_only"]:
+        host_slot = state.encoder.key_slot(HOSTNAME_KEY)
+        vals = state._mirror["label_val"][state._mirror["valid"], host_slot]
+        if len(np.unique(vals)) == len(vals):
+            return ("host", None, host_slot)
+    vd = 64
+    while vd < summary["vd_needed"]:
+        vd *= 2
+    return ("general", vd, 0)
+
+
+@dataclasses.dataclass
+class DeviceBatch:
+    """One batch after its device step: what the commit reads."""
+
+    pb: PodBatch
+    res: BatchResult
+    node_idx: np.ndarray           # [P] chosen slot, -1 = no node
+    first_fail: np.ndarray         # [P, N] int8 first failing filter id, 0 = feasible
+    slice_words: Optional[np.ndarray]
+    quota_words: Optional[np.ndarray]
+    mode: str                      # topology mode
+    path: str                      # "fused", "scan" or "spec"
+    slot_names: Dict[int, str]
+
+
+ExtrasFn = Callable[[Sequence[Pod], int], Dict[str, object]]
+
+
+def run_device_batch(state: DeviceState, pods: Sequence[Pod], stamps: List[float],
+                     tie_seeds: Optional[Sequence[int]] = None,
+                     extras: Optional[ExtrasFn] = None, sample_k: Optional[int] = None,
+                     sample_start: Optional[torch.Tensor] = None) -> DeviceBatch:
+    """The device half of one batch, shared by ``BatchScheduler`` and the
+    scheduler loop (``backend/tpu_scheduler.py``), after the caller's sync:
+    encode (the pods with ``tie_seeds``, default their attempt-0 seeds, and
+    their topology programs; ``extras(pods, pad_to)`` adds the caller's
+    masks and screens as ``schedule_batch`` arguments), one dispatch on the
+    path ``spec_decode_eligible`` picks (``sample_k`` / ``sample_start``
+    sample the batch, which takes the scan), the ONE device-to-host read of
+    the packed block, and the carry and the mirror adopted. Appends the end
+    of encode, dispatch and read to ``stamps`` (``time.perf_counter``)."""
+    pb, et = state.encoder.encode_pods(pods, tie_seeds=tie_seeds)
+    host_pb = state.encoder.last_host_pb
+    # registers the batch's signatures and terms: tc is read after it
+    tb = state.sig_table.encode_topo(pods)
+    mode, vd, host_key = topo_mode_info(state)
+    kw = extras(pods, int(pb.valid.shape[0])) if extras is not None else {}
+    stamps.append(time.perf_counter())
+    topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
+                                          vd_override=vd, host_key=host_key)
+    spec = spec_decode_eligible(mode, state.device, sampled=sample_k is not None)
+    res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=state.device,
+                         spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
+                         sample_k=sample_k, sample_start=sample_start, **topo, **kw)
+    stamps.append(time.perf_counter())
+    node_idx, first_fail, slice_words, quota_words = unpack_result_block(
+        res.packed, state.caps.nodes, quota_col="quota_ns" in kw)
+    stamps.append(time.perf_counter())
+    state.adopt_device(res)
+    state.adopt_commits(res, host_pb, node_idx)
+    path = "spec" if spec else "fused" if mode == "off" and sample_k is None else "scan"
+    return DeviceBatch(pb, res, node_idx, first_fail, slice_words, quota_words, mode, path,
+                       state.slot_to_name())
+
+
+def preempt_screen(state: DeviceState, pods: Sequence[Pod], batch: DeviceBatch,
+                   min_prio: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """(screen [P, N] bool, best [P] slot or -1) for the pods the batch left
+    unplaced (``tpu_scheduler.py:1320-1360``): the device screen on the
+    adopted carry and the batch's static masks, read once; or, when no
+    failed pod outranks ``min_prio`` (the lowest priority of a bound pod),
+    an all-False screen made on the host, as eviction cannot help."""
+    n = len(pods)
+    failed = batch.node_idx[:n] < 0
+    if min_prio is None or all(pods[i].spec.priority <= min_prio
+                               for i in np.flatnonzero(failed)):
+        return np.zeros((n, state.caps.nodes), bool), np.full(n, -1, np.int32)
+    pres = screen_prefix(batch.pb, state.preempt_inputs(), batch.res.static_masks, failed)
+    best, screen, _, _ = unpack_result_block(
+        pack_result_block(pres.best, pres.screen.to(torch.int8)), state.caps.nodes)
+    return screen.astype(bool), best
 
 
 def _gang_rows(pods: Sequence[Pod]) -> Tuple[Dict[str, List[int]], Dict[str, List[int]]]:
@@ -317,26 +415,7 @@ class BatchScheduler:
         return len(bound | self._call_members.get(gkey, set()))
 
     def _topo_mode_info(self) -> Tuple[str, Optional[int], int]:
-        """(topo_mode, vd_bucket, host_key) for the sig table as the last
-        ``encode_topo`` left it: "off" with no registered signature or term;
-        "host" when every involved key is the hostname and every valid node
-        has a hostname value of its own (a duplicate falls back, as the
-        per-node fast path would count two nodes apart); else "general",
-        over a domain axis of the smallest power of two >= 64 that covers
-        every value id of the involved keys."""
-        state = self.state
-        if not state.topo_enabled:
-            return ("off", None, 0)
-        summary = state.sig_table.last_topo_summary
-        if summary["hostname_only"]:
-            host_slot = state.encoder.key_slot(HOSTNAME_KEY)
-            vals = state._mirror["label_val"][state._mirror["valid"], host_slot]
-            if len(np.unique(vals)) == len(vals):
-                return ("host", None, host_slot)
-        vd = 64
-        while vd < summary["vd_needed"]:
-            vd *= 2
-        return ("general", vd, 0)
+        return topo_mode_info(self.state)
 
     def _schedule_batch(self, pods: Sequence[Pod]) -> Dict[str, Optional[str]]:
         state = self.state
@@ -347,37 +426,22 @@ class BatchScheduler:
         pods = self._gang_prefilter(self._quota_gate(pods, placed), placed)
         if not pods:
             return placed  # every pod failed a PreFilter: no batch
-        pb, et = state.encoder.encode_pods(pods)
-        host_pb = state.encoder.last_host_pb
-        # registers the batch's signatures and terms: tc is read after it
-        tb = state.sig_table.encode_topo(pods)
-        mode, vd, host_key = self._topo_mode_info()
-        pad_to = int(pb.valid.shape[0])
-        masks = self._screens(pods, pad_to)
-        quota = self._quota_batch_args(pods, pad_to)
-        t.append(time.perf_counter())
-        topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
-                                              vd_override=vd, host_key=host_key)
-        spec = spec_decode_eligible(mode, self.device)
         flat, slices = _gang_rows(pods)
-        if slices:
-            masks.update(slice_members=gang_member_index(list(slices.values()), self.device),
-                         slice_grid=(self.caps.superpods, self.caps.sp_slots))
-        res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=self.device,
-                             spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
-                             **topo, **masks, **quota)
-        t.append(time.perf_counter())
-        # the ONE device-to-host read of the batch
-        node_idx, _first_fail, slice_words, quota_words = unpack_result_block(
-            res.packed, self.caps.nodes, quota_col=bool(quota))
-        t.append(time.perf_counter())
-        state.adopt_device(res)
-        state.adopt_commits(res, host_pb, node_idx)
-        slot_names = state.slot_to_name()
+
+        def extras(pods: Sequence[Pod], pad_to: int) -> Dict[str, object]:
+            kw = {**self._screens(pods, pad_to), **self._quota_batch_args(pods, pad_to)}
+            if slices:
+                kw.update(slice_members=gang_member_index(list(slices.values()), self.device),
+                          slice_grid=(self.caps.superpods, self.caps.sp_slots))
+            return kw
+
+        batch = run_device_batch(state, pods, t, extras=extras)
+        res, node_idx, slot_names = batch.res, batch.node_idx, batch.slot_names
+        slice_words, quota_words, mode = batch.slice_words, batch.quota_words, batch.mode
         flagged = self._quota_flagged(pods, node_idx, quota_words)
         gang_rows = self._judge_gangs(flat, slices, res, node_idx, slice_words, flagged)
         if (node_idx[:len(pods)] < 0).any() or gang_rows:
-            self._preempt(pods, pb, res, node_idx, slot_names, gang_rows)
+            self._preempt(pods, batch, gang_rows)
         rejected: Set[str] = set()  # nodes whose device commit is surrendered
         held: List[Pod] = []  # charged pods whose claims failed Reserve
         refused: Dict[str, Set[str]] = {}  # gang -> its members the quota refused
@@ -440,7 +504,7 @@ class BatchScheduler:
             self.stage_seconds[stage] += b - a
         self.batches += 1
         self.batch_modes.append(mode)
-        self.batch_paths.append("spec" if spec else "fused" if mode == "off" else "scan")
+        self.batch_paths.append(batch.path)
         return placed
 
     def _quota_gate(self, pods: Sequence[Pod], placed: Dict[str, Optional[str]]) -> List[Pod]:
@@ -551,8 +615,8 @@ class BatchScheduler:
                 self.retry[pod.key()] = GANG_REFUSED_REASON.format(gkey=gkey)
         return nodes
 
-    def _preempt(self, pods: Sequence[Pod], pb, res, node_idx: np.ndarray,
-                 slot_names: Dict[int, str], gang_rows: Dict[int, str]) -> None:
+    def _preempt(self, pods: Sequence[Pod], batch: DeviceBatch,
+                 gang_rows: Dict[int, str]) -> None:
         """The failure path of one batch, in the JAX package's order: the
         screen on the adopted carry and the batch's static masks (or the
         host shortcut), its one read, then each failed pod's PostFilter in
@@ -561,20 +625,12 @@ class BatchScheduler:
         gang (``gang_rows``) that the device left unplaced runs its
         PostFilter without hints; one it placed preempts nothing."""
         t0 = time.perf_counter()
-        failed = node_idx[:len(pods)] < 0
-        min_prio = self.snapshot.min_pod_priority()
+        failed = batch.node_idx[:len(pods)] < 0
+        slot_names = batch.slot_names
         screen = best = None
         if failed.any():
-            if min_prio is None or all(pods[i].spec.priority <= min_prio
-                                       for i in np.flatnonzero(failed)):
-                # no failed pod outranks any bound pod: eviction cannot help
-                screen = np.zeros((len(pods), self.caps.nodes), bool)
-                best = np.full(len(pods), -1, np.int32)
-            else:
-                pres = screen_prefix(pb, self.state.preempt_inputs(), res.static_masks, failed)
-                best, screen, _, _ = unpack_result_block(
-                    pack_result_block(pres.best, pres.screen.to(torch.int8)), self.caps.nodes)
-                screen = screen.astype(bool)
+            screen, best = preempt_screen(self.state, pods, batch,
+                                          self.snapshot.min_pod_priority())
         t1 = time.perf_counter()
         slot_of = dict(self.state.encoder.node_slots)
         rows = sorted(set(np.flatnonzero(failed).tolist()) | set(gang_rows))

@@ -1,12 +1,15 @@
-"""Framework data types: Resource and NodeInfo.
+"""Framework data types: Resource, NodeInfo, and the queue's types
+(QueuedPodInfo, ClusterEvent, Diagnosis).
 
 Analog of pkg/scheduler/framework/types.go — the de-facto snapshot row schema
 the tensor encoder (ops/encode.py) flattens onto the device. Own copy of the
-subset of ``kubernetes_tpu/framework/types.py`` the batched path reads.
+subset of ``kubernetes_tpu/framework/types.py`` the batched path and the
+scheduler loop read.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Dict, List, Optional, Set, Tuple
 
@@ -235,3 +238,72 @@ class NodeInfo:
         ni.image_states = dict(self.image_states)
         ni.generation = self.generation
         return ni
+
+
+# ---------------------------------------------------------------------------
+# the scheduling queue's types (framework/types.go:42-85, :215; queue item)
+
+
+@dataclasses.dataclass
+class QueuedPodInfo:
+    """A pod in the scheduling queue: ``timestamp`` is when it last entered
+    a sub-queue (the PrioritySort tie-break and the backoff base),
+    ``attempts`` counts its pops, ``unschedulable_plugins`` the plugins it
+    failed (which cluster events wake it)."""
+
+    pod: Pod
+    timestamp: float = 0.0
+    attempts: int = 0
+    unschedulable_plugins: Set[str] = dataclasses.field(default_factory=set)
+
+
+# ActionType bitmask
+ADD = 1
+DELETE = 1 << 1
+UPDATE_NODE_ALLOCATABLE = 1 << 2
+UPDATE_NODE_LABEL = 1 << 3
+UPDATE_NODE_TAINT = 1 << 4
+UPDATE_NODE_CONDITION = 1 << 5
+UPDATE = UPDATE_NODE_ALLOCATABLE | UPDATE_NODE_LABEL | UPDATE_NODE_TAINT | UPDATE_NODE_CONDITION
+ALL = ADD | DELETE | UPDATE
+
+# resource kinds of cluster events
+POD = "Pod"
+NODE = "Node"
+PVC = "PersistentVolumeClaim"
+PV = "PersistentVolume"
+STORAGE_CLASS = "StorageClass"
+CSI_NODE = "CSINode"
+RESOURCE_CLAIM = "ResourceClaim"
+RESOURCE_CLASS = "ResourceClass"
+POD_GROUP = "PodGroup"
+SCHEDULING_QUOTA = "SchedulingQuota"
+WILDCARD = "*"
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterEvent:
+    resource: str
+    action_type: int
+    label: str = ""
+
+    def is_wildcard(self) -> bool:
+        return self.resource == WILDCARD and self.action_type == ALL
+
+    def match(self, other: "ClusterEvent") -> bool:
+        """Does a registered interest ``self`` cover a fired event ``other``."""
+        if self.is_wildcard():
+            return True
+        return self.resource == other.resource and (self.action_type & other.action_type) != 0
+
+
+WILDCARD_EVENT = ClusterEvent(WILDCARD, ALL, "UnschedulableTimeout")
+
+
+@dataclasses.dataclass
+class Diagnosis:
+    """Why a pod found no node: node name -> the first failing filter's
+    reason, and the plugins that failed (they gate the pod's requeue)."""
+
+    node_to_status: Dict[str, str] = dataclasses.field(default_factory=dict)
+    unschedulable_plugins: Set[str] = dataclasses.field(default_factory=set)

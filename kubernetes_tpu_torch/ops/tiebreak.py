@@ -106,3 +106,10 @@ def jitter_table(tie_seed, node_name_hash):
     x = _mul32(x, int(_M2))
     x = x ^ (x >> 16)
     return (x >> 8).to(torch.float32) * float(JITTER_SCALE)  # a power of two: exact
+
+
+def seeds_for(qps) -> np.ndarray:
+    """[len(qps)] uint32 tie-break seeds of queued pods: each pod's key and
+    its queue ``attempts`` (1 at the first pop), as the scheduler loop
+    encodes its batches (``kubernetes_tpu/ops/tiebreak.py:109``)."""
+    return np.asarray([pod_seed(qp.pod.key(), qp.attempts) for qp in qps], np.uint32)

@@ -63,7 +63,8 @@ need more topology signatures and a wider torus than
 * SchedulingSoak (``kubernetes_tpu/perf/workloads.py:469-525``, ``Soak``):
   the multi-tenant mix. See ``scheduling_soak`` and ``run_soak``.
 
-``run_with_preemption`` drives a workload
+``run_loop`` drives a workload through the scheduler loop (the store,
+``TPUScheduler.run_until_settled``); ``run_with_preemption`` drives one
 through a BatchScheduler and resubmits the pods it nominated;
 ``slice_stats`` reports contiguity and fragmentation after a run.
 """
@@ -83,6 +84,7 @@ from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
 from ..ops.slice import SLICE_LABEL, TOPO_SLOT_LABEL, TOPO_SUPERPOD_LABEL, fragmentation_host
+from ..utils.clock import FakeClock  # noqa: F401  (re-export: Coscheduling's backoff clock)
 
 _NODE_CAPACITY = {"cpu": "32", "memory": "128Gi", "pods": 110}
 _DEFAULT_REQ = {"cpu": "900m", "memory": "2Gi"}
@@ -465,6 +467,79 @@ def run_with_preemption(sched, w: Workload
     return placed, rounds
 
 
+def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
+             batch_deadline_ms: float = 0) -> dict:
+    """Drive ``w`` through the scheduler loop, as the JAX harness's Runner
+    does (``kubernetes_tpu/perf/harness.py:309-700``): a fresh ``Store``
+    and ``TPUScheduler(store, device, ...)``; the nodes created, then the
+    init pods (and warm pods) created and settled; then the measured pods
+    created and settled, the measured phase timed on the host's clock from
+    the first create to the settle. ``percentage`` is
+    percentageOfNodesToScore (0: the adaptive default).
+
+    Returns a dict: ``placed`` (pod key -> node, "" when unbound),
+    ``pods_per_s`` (measured pods over the measured phase's seconds),
+    ``measured_s``, ``attempt_ms`` (p50 / p90 / p99 of the measured phase's
+    scheduled attempts, pop to commit), ``batches``, ``paths`` and
+    ``modes`` (per batch), ``launches`` (fused-kernel launches over the
+    run), ``stage_ms`` (the loop's host stages summed over the run),
+    ``measured_stage_ms`` (summed over the measured phase) and
+    ``measured_batch_ms`` (each measured cycle's host ms, pop to commit),
+    ``cycles`` (pods popped, per settle), ``metrics``, ``pending``,
+    ``preempted`` (victim -> preemptor), ``nominations`` (in order),
+    ``start`` (the sampling window's final start, or None) and
+    ``settle_abandoned``."""
+    import gc
+    import time
+
+    from ..backend.tpu_scheduler import TPUScheduler
+    from ..ops import fused_step
+
+    if w.store() is not None:
+        raise NotImplementedError(f"{w.name}: claims, volumes or PodGroups need the loop's "
+                                  "gang and quota part")
+    store = Store()
+    sched = TPUScheduler(store, device=device, batch_size=batch_size,
+                         batch_deadline_ms=batch_deadline_ms,
+                         percentage_of_nodes_to_score=percentage)
+    launches = fused_step.LAUNCHES
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    cycles = []
+    for pods in (w.init_pod_list(), w.warm_pod_list()):
+        for pod in pods:
+            store.create_pod(pod)
+        cycles.append(sched.run_until_settled())
+    # collect the garbage of earlier runs in this process before the clock
+    # starts, so that its collection pauses do not land in the measured phase
+    gc.collect()
+    hist = sched.smetrics.scheduling_attempt_duration
+    n_before = hist.count("scheduled", sched.profile.name)
+    stages0, n_cycles = dict(sched.stage_seconds), len(sched.cycle_seconds)
+    t0 = time.perf_counter()
+    for pod in w.measured_pod_list():
+        store.create_pod(pod)
+    cycles.append(sched.run_until_settled())
+    measured_s = time.perf_counter() - t0
+    attempt_ms = {f"p{q}": hist.quantile(q / 100, "scheduled", sched.profile.name,
+                                          since=n_before) * 1e3 for q in (50, 90, 99)}
+    return {
+        "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+        "pods_per_s": w.n_measured / measured_s, "measured_s": measured_s,
+        "attempt_ms": attempt_ms, "batches": sched.batch_counter,
+        "paths": list(sched.batch_paths), "modes": list(sched.batch_modes),
+        "launches": fused_step.LAUNCHES - launches,
+        "stage_ms": {k: v * 1e3 for k, v in sched.stage_seconds.items()},
+        "measured_stage_ms": {k: (v - stages0[k]) * 1e3 for k, v in sched.stage_seconds.items()},
+        "measured_batch_ms": [t * 1e3 for t in sched.cycle_seconds[n_cycles:]],
+        "cycles": cycles, "metrics": dict(sched.metrics),
+        "pending": sched.queue.pending_pods(), "preempted": dict(sched.preempted),
+        "nominations": list(sched.nominations),
+        "start": None if sched._start_carry is None else int(sched._start_carry),
+        "settle_abandoned": sched.settle_abandoned,
+    }
+
+
 # ----------------------------------------------------------------- SchedulingSoak
 
 # (tenant, weight): quota caps scale with the weight
@@ -653,19 +728,6 @@ def quota_oversubscription(quota, namespaces: Sequence[str]) -> int:
         caps, used = quota.cohort_state(cohort)
         bad += sum(1 for dim, cap in caps.items() if used.get(dim, 0) > cap)
     return bad
-
-
-class FakeClock:
-    """A clock that moves only when told: Coscheduling's backoff clock."""
-
-    def __init__(self, t: float = 1000.0):
-        self.t = t
-
-    def __call__(self) -> float:
-        return self.t
-
-    def advance(self, dt: float) -> None:
-        self.t += dt
 
 
 def run_soak(sched, w: Soak) -> dict:

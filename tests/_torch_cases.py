@@ -1619,3 +1619,108 @@ def run_preempt_all_both(nodes=48, init_pods=192, per_kind=16, batch=16):
     placed_j, rounds_j = jax_run_with_preemption(env, ops)
     placed_t, rounds_t = workloads.run_with_preemption(sched, w)
     return placed_j, rounds_j, env, placed_t, rounds_t, sched
+
+
+# ----------------------------------------------------------------- the scheduler loop
+
+
+class LoopPair:
+    """The same cluster in a JAX ClusterStore under the real JAX
+    TPUScheduler and in the port's Store under the port's TPUScheduler
+    (``device="cpu"``), each on its own FakeClock, both clocks starting
+    equal; ``batch_deadline_ms=0`` on both. Objects are built from the
+    specs of this module through each package's wrappers and written to
+    both stores in the same order."""
+
+    def __init__(self, batch: int = 16, percentage: int = 0, start: bool = True):
+        from kubernetes_tpu.apiserver.store import ClusterStore
+        from kubernetes_tpu.utils.clock import FakeClock as JFakeClock
+        from kubernetes_tpu_torch.apiserver.store import Store
+        from kubernetes_tpu_torch.utils.clock import FakeClock
+
+        self.jclock, self.tclock = JFakeClock(), FakeClock()
+        assert self.jclock() == self.tclock()
+        self.jstore, self.tstore = ClusterStore(), Store(now_fn=self.tclock)
+        # the specs' objects as they are (the port's store validates nothing;
+        # topo_pods_spec sets minDomains on ScheduleAnyway constraints too)
+        self.jstore.validation_enabled = False
+        self.batch, self.percentage = batch, percentage
+        self.cycles = [0, 0]
+        if start:
+            self.start()
+
+    def start(self) -> None:
+        """Build both schedulers (``start=False`` defers this until the
+        stores are filled: the schedulers then replay the stores' LIST)."""
+        from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler as JTPUScheduler
+        from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+
+        self.jsched = JTPUScheduler(self.jstore, now_fn=self.jclock, batch_size=self.batch,
+                                    batch_deadline_ms=0,
+                                    percentage_of_nodes_to_score=self.percentage)
+        self.tsched = TPUScheduler(self.tstore, device="cpu", now_fn=self.tclock,
+                                   batch_size=self.batch, batch_deadline_ms=0,
+                                   percentage_of_nodes_to_score=self.percentage)
+
+    def add_nodes(self, infos_j, infos_t) -> None:
+        """Nodes (NodeInfos of ``build_nodes`` / ``build_topo_nodes``) and
+        their pods, bound."""
+        for nj, nt in zip(infos_j, infos_t):
+            self.jstore.create_node(nj.node)
+            self.tstore.create_node(nt.node)
+        for nj, nt in zip(infos_j, infos_t):
+            for pj, pt in zip(nj.pods, nt.pods):
+                self.jstore.create_pod(pj)
+                self.tstore.create_pod(pt)
+
+    def add_pods(self, pods_j, pods_t) -> None:
+        for pj, pt in zip(pods_j, pods_t):
+            self.jstore.create_pod(pj)
+            self.tstore.create_pod(pt)
+
+    def advance(self, dt: float) -> None:
+        self.jclock.advance(dt)
+        self.tclock.advance(dt)
+        self.jsched.queue.flush_backoff_completed()
+        self.tsched.queue.flush_backoff_completed()
+
+    def settle(self) -> None:
+        self.cycles[0] += self.jsched.run_until_settled()
+        self.cycles[1] += self.tsched.run_until_settled()
+
+    def state(self, which: int) -> dict:
+        """What the two runs must agree on."""
+        sched = (self.jsched, self.tsched)[which]
+        store = (self.jstore, self.tstore)[which]
+        queued = sorted((qp.pod.key(), qp.attempts, tuple(sorted(qp.unschedulable_plugins)))
+                        for qp in sched.queue.pending_pod_infos())
+        return {
+            "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+            "nominated": {k: p.status.nominated_node_name for k, p in store.pods.items()
+                          if p.status.nominated_node_name},
+            "metrics": {k: sched.metrics[k] for k in
+                        ("schedule_attempts", "scheduled", "unschedulable")},
+            "pending": dict(sched.queue.pending_pods()),
+            "queued": queued,
+            "cycles": self.cycles[which],
+            "batches": sched.batch_counter,
+            "settle_abandoned": sched.settle_abandoned,
+        }
+
+    def assert_equal(self, pipelined_split: bool = False) -> dict:
+        """Every key of ``state`` equal. ``pipelined_split``: the JAX loop
+        ran pipelined, so each pod that failed after an earlier batch of
+        the same settle committed binds parks in backoffQ where the
+        synchronous port parks it unschedulable (its failure raced those
+        binds' queue moves: ``move_request_cycle``); the queue is then
+        compared with the two sub-queues merged, and everything else
+        exactly."""
+        jax_state, port_state = self.state(0), self.state(1)
+        if pipelined_split:
+            for st in (jax_state, port_state):
+                pending = dict(st["pending"])
+                pending["parked"] = pending.pop("backoff") + pending.pop("unschedulable")
+                st["pending"] = pending
+        for key in jax_state:
+            assert port_state[key] == jax_state[key], key
+        return port_state

@@ -591,3 +591,37 @@ def test_preempt_all_workload_matches_cpu(cuda):
         assert all(placed.values()) and not sched.nominated and not sched.fallback
         assert {"off", "host", "general"} <= set(sched.batch_modes)
     assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scheduling_basic", "preemption_basic"])
+def test_scheduler_loop_matches_cpu(cuda, name):
+    """The scheduler loop (store, cache, queue, TPUScheduler) on the card
+    against its full-batch CPU run: the same placements, victims,
+    nominations and pods popped; on the card every batch is one fused-kernel
+    launch."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = (workloads.scheduling_basic(nodes=300, init_pods=200, measured=300)
+         if name == "scheduling_basic"
+         else workloads.preemption_basic(nodes=48, init_pods=192, measured=48))
+    gpu = workloads.run_loop(w, cuda, batch_size=64)
+    cpu = workloads.run_loop(w, "cpu", percentage=100, batch_size=64)
+    for key in ("placed", "preempted", "nominations", "cycles", "paths", "metrics"):
+        assert gpu[key] == cpu[key], key
+    assert all(gpu["placed"].values()) and not gpu["settle_abandoned"]
+    assert set(gpu["paths"]) == {"fused"} and gpu["launches"] == gpu["batches"]
+
+
+@pytest.mark.cuda
+def test_sampled_loop_matches_cpu(cuda):
+    """A sampled loop (percentageOfNodesToScore 10 on 500 nodes: k = 100)
+    on the card against the CPU: every batch on the scan, no kernel launch,
+    the same placements and the same final window start."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(nodes=500, init_pods=0, measured=192)
+    gpu = workloads.run_loop(w, cuda, percentage=10, batch_size=64)
+    cpu = workloads.run_loop(w, "cpu", percentage=10, batch_size=64)
+    assert gpu["placed"] == cpu["placed"] and gpu["start"] == cpu["start"] is not None
+    assert set(gpu["paths"]) == {"scan"} and gpu["launches"] == 0
