@@ -147,19 +147,31 @@
    and pods created in the port's Store, ``TPUScheduler(store,
    device).run_until_settled()``, every bind through the store).
    SchedulingBasic/5000Nodes (1000 init, then 1000 measured pods) on the
-   card at the default percentageOfNodesToScore (a full batch on CUDA):
-   every pod bound, the settle not abandoned, every batch on the fused
-   kernel with launches (counted from 0 just before this run) equal to
-   batches, placements equal to the same loop on the CPU at percentage
-   100 (full batches, the plain fused step). Then the sampled loop: 1000
-   nodes, 256 pods at percentage 10, every batch on the scan with no
+   card at the default percentageOfNodesToScore (a full batch on CUDA),
+   nine times in turns: the in-flight ring at its default (depth 2, its
+   commits inline), the synchronous loop (``KTPU_PIPELINE_DEPTH=0``) and
+   the ring with the commit worker (``KTPU_COMMIT_WORKER=1``).
+   Each run: every pod bound, every batch on the fused kernel with
+   launches (counted from 0 just before the run) equal to batches,
+   placements and pods popped equal to the loop on the CPU at percentage
+   100 (the inline ring, the plain fused step); each ring run with batches
+   encoded on the carry. Then one inline-ring dispatch on the carry (the
+   third) under ``set_sync_debug_mode("error")``; the ring once at the
+   default deadline (``KTPU_BATCH_DEADLINE_MS``, 500 ms: popped batch sizes
+   and program buckets); SchedulingPodAntiAffinity/5000Nodes and
+   TopologySpreading/5000Nodes through the ring (placements, pods popped,
+   modes and grown capacities equal to the CPU loop); the sampled loop
+   (1000 nodes, 256 pods at percentage 10: every batch on the scan, no
    kernel launch, placements and the window's final start equal to the
-   CPU run. Then PreemptionBasic/500Nodes through the loop on the card
-   and on the CPU (percentage 100): every preemptor bound; victims,
-   nominations, placements and pods popped equal. Prints pods/s of the
-   measured phase, attempt p50/p90/p99 (pop to commit) and the loop's host
-   ms per batch by stage (pop, snapshot, sync, encode, dispatch, read,
-   bind).
+   CPU run); PreemptionBasic/500Nodes through the inline ring (victims,
+   nominations, placements, pods popped and counters equal to the CPU)
+   and through the worker ring (every preemptor bound; nominations, victims
+   and pods popped printed beside the CPU's). Prints per run pods/s of the
+   measured phase, attempt p50/p90/p99 (pop to commit), the batches
+   encoded on the carry, host ms per batch on the scheduling thread by
+   stage (pop, snapshot, sync, encode, dispatch, commit), the commits' ms
+   (wait, bind, reconcile), and with the worker the overlap: the ms its
+   host commits ran beside the scheduling thread's encode and dispatch.
 12. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
@@ -756,7 +768,9 @@ def spec_phase(basic: dict, topo: dict) -> dict:
                   f"{old['watch'].profile['device_ms']:.2f} ms in its profiled batch")
             ab = _ab(cap, 3 if gpu["modes"][-1] == "off" else 1)
             rows[w.name] = {"mode": gpu["modes"][-1], "other": old["paths"][-1], "ab": ab,
-                            "e2e": {"spec": gpu["median_ms"], "other": old["median_ms"]}}
+                            "e2e": {"spec": gpu["median_ms"], "other": old["median_ms"]},
+                            "pods_per_s": {"spec": gpu["pods_per_s"],
+                                           "other": old["pods_per_s"]}}
     print("KTPU_SPEC=auto on cuda against this run: the commit paths in turns on one measured "
           "batch (ms from the call to the packed block on the host), and the median ms per "
           "measured batch end to end:")
@@ -1558,16 +1572,26 @@ def preempt_all_phase() -> dict:
 def _loop_report(name: str, run: dict) -> None:
     ms = run["measured_batch_ms"]
     n = len(ms)
-    print(f"{name} through the loop: {run['metrics']['scheduled']} pods bound in "
+    m = max(run["measured_batches"], 1)
+    ring = (f"ring depth {run['pipeline_depth']}, commit worker "
+            f"{'on' if run['commit_worker'] else 'off'}")
+    print(f"{name} through the loop ({ring}): {run['metrics']['scheduled']} pods bound in "
           f"{run['batches']} batches (paths {sorted(set(run['paths']))}), fused-kernel "
           f"launches {run['launches']}; measured phase {run['pods_per_s']:.1f} pods/s over "
-          f"{run['measured_s']:.3f} s, {n} batches of median {statistics.median(ms):.2f} ms "
-          f"(min {min(ms):.2f}, max {max(ms):.2f}); attempt ms (pop to commit) "
-          + ", ".join(f"{k} {v:.2f}" for k, v in run["attempt_ms"].items())
-          + "; host ms per measured batch by stage: "
-          + ", ".join(f"{k} {v / n:.2f}" for k, v in run["measured_stage_ms"].items())
+          f"{run['measured_s']:.3f} s, {n} cycles of median {statistics.median(ms):.2f} ms "
+          f"(min {min(ms):.2f}, max {max(ms):.2f}) on the scheduling thread, the settle "
+          f"loop's no-progress sleeps {run['measured_idle_ms']:.2f} ms; attempt ms (pop "
+          "to commit) " + ", ".join(f"{k} {v:.2f}" for k, v in run["attempt_ms"].items())
+          + f"; {run['measured_carry_batches']} of {run['measured_batches']} measured batches "
+          f"encoded on the carry; host ms per measured batch on the scheduling thread: "
+          + ", ".join(f"{k} {v / m:.2f}" for k, v in run["measured_stage_ms"].items())
+          + "; commit ms per measured batch: "
+          + ", ".join(f"{k} {v / m:.2f}" for k, v in run["measured_commit_ms"].items())
           + "; per batch over the whole run: "
-          + ", ".join(f"{k} {v / run['batches']:.2f}" for k, v in run["stage_ms"].items()))
+          + ", ".join(f"{k} {v / run['batches']:.2f}" for k, v in run["stage_ms"].items())
+          + f"; measured phase: encode+dispatch spans {run['measured_dispatch_ms']:.2f} ms, "
+          f"host commit spans {run['measured_commit_host_ms']:.2f} ms, both at once "
+          f"{run['measured_overlap_ms']:.2f} ms")
 
 
 def _check_loop_same(name: str, got: dict, want: dict, keys) -> None:
@@ -1576,56 +1600,196 @@ def _check_loop_same(name: str, got: dict, want: dict, keys) -> None:
             raise AssertionError(f"{name} through the loop: {key} differs from the cpu run")
 
 
-def loop_phase() -> dict:
+@contextlib.contextmanager
+def _env(**values):
+    """Set (a string) or clear (None) environment variables for a block."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the ring at its default (depth 2, commits inline), synchronous, and the
+# ring with the commit worker
+RING = dict(KTPU_PIPELINE_DEPTH=None, KTPU_COMMIT_WORKER=None)
+SYNC = dict(RING, KTPU_PIPELINE_DEPTH="0")
+WORKER = dict(RING, KTPU_COMMIT_WORKER="1")
+
+
+def _loop_run(w, label: str, env: dict, **kw) -> dict:
+    with _env(**env):
+        fused_step.LAUNCHES = 0
+        run = workloads.run_loop(w, "cuda", **kw)
+    if run["launches"] != fused_step.LAUNCHES:
+        raise AssertionError(f"{label}: launches counted twice")
+    _loop_report(label, run)
+    return run
+
+
+def _check_all_bound(name: str, w, run: dict) -> None:
+    if run["settle_abandoned"] or not all(run["placed"].values()) \
+            or len(run["placed"]) != w.n_init + w.n_measured:
+        raise AssertionError(f"{name} through the loop: not every pod bound")
+
+
+class _StrictDispatch:
+    """Runs the ``at``-th ring dispatch under ``set_sync_debug_mode("error")``."""
+
+    def __init__(self, inner, at: int):
+        self.inner, self.at, self.calls, self.checked = inner, at, 0, None
+
+    def __call__(self, state, enc, *args):
+        self.calls += 1
+        if self.calls != self.at:
+            return self.inner(state, enc, *args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self.inner(state, enc, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        self.checked = out.path
+        return out
+
+
+def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
+    """The scheduler loop on the card: the in-flight ring against the
+    synchronous loop in turns, the ring at the default deadline, topology
+    workloads through the ring (capacity growth), the sampled loop and
+    PreemptionBasic (inline ring exact, worker ring bound)."""
+    from kubernetes_tpu_torch.backend import tpu_scheduler
+
+    out = {}
     basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
-    fused_step.LAUNCHES = 0
-    gpu = workloads.run_loop(basic, "cuda")
-    launches = fused_step.LAUNCHES
-    if gpu["settle_abandoned"] or not all(gpu["placed"].values()) \
-            or len(gpu["placed"]) != basic.n_init + basic.n_measured:
-        raise AssertionError(f"{basic.name} through the loop: not every pod bound")
-    if set(gpu["paths"]) != {"fused"} or launches != gpu["batches"] or not launches:
-        raise AssertionError(f"{basic.name} through the loop: paths {set(gpu['paths'])}, "
-                             f"{launches} launches for {gpu['batches']} batches")
-    cpu = workloads.run_loop(basic, "cpu", percentage=100)
-    _check_loop_same(basic.name, gpu, cpu, ("placed", "cycles", "paths"))
-    _loop_report(basic.name, gpu)
-    print(f"{basic.name} through the loop: kernel launches {launches} (one per batch), "
-          f"placements == the cpu loop at percentage 100")
+    with _env(**RING):
+        cpu = workloads.run_loop(basic, "cpu", percentage=100)
+    turns = {"ring": [], "sync": [], "worker": []}
+    envs = {"ring": RING, "sync": SYNC, "worker": WORKER}
+    for i, kind in enumerate(("ring", "sync", "worker") * 3):
+        gpu = _loop_run(basic, f"{basic.name} [{kind} {i // 3 + 1}]", envs[kind])
+        _check_all_bound(basic.name, basic, gpu)
+        if set(gpu["paths"]) != {"fused"} or gpu["launches"] != gpu["batches"]:
+            raise AssertionError(f"{basic.name} [{kind}]: paths {set(gpu['paths'])}, "
+                                 f"{gpu['launches']} launches for {gpu['batches']} batches")
+        _check_loop_same(f"{basic.name} [{kind}]", gpu, cpu, ("placed", "cycles", "paths"))
+        if kind != "sync" and not (gpu["commit_worker"] == (kind == "worker")
+                                   and gpu["measured_carry_batches"]):
+            raise AssertionError(f"{basic.name} [{kind}]: worker or carry not as set")
+        turns[kind].append(gpu)
+    for kind, runs in turns.items():
+        print(f"{basic.name} {kind} in turns: pods/s "
+              + " / ".join(f"{r['pods_per_s']:.1f}" for r in runs) + "; attempt p50 "
+              + " / ".join(f"{r['attempt_ms']['p50']:.2f}" for r in runs) + ", p99 "
+              + " / ".join(f"{r['attempt_ms']['p99']:.2f}" for r in runs) + " ms; idle sleeps "
+              + " / ".join(f"{r['measured_idle_ms']:.2f}" for r in runs) + " ms; carry share "
+              + " / ".join(f"{r['measured_carry_batches']}/{r['measured_batches']}"
+                           for r in runs) + "; host commit beside encode+dispatch "
+              + " / ".join(f"{r['measured_overlap_ms']:.2f} of {r['measured_commit_host_ms']:.2f}"
+                           for r in runs) + " ms")
+    print(f"{basic.name}: every run's placements == the cpu loop at percentage 100 (inline "
+          f"ring), one kernel launch per batch; BatchScheduler in this call "
+          f"{basic_batch['pods_per_s']:.1f} pods/s")
+    out[f"{basic.name}/ring"] = {"launches": turns["ring"][0]["launches"], "run": turns["ring"]}
+    out[f"{basic.name}/sync"] = {"launches": turns["sync"][0]["launches"], "run": turns["sync"]}
+    out[f"{basic.name}/worker"] = {"launches": turns["worker"][0]["launches"],
+                                   "run": turns["worker"]}
+
+    # one ring dispatch on the carry (the third, inline: the mode is
+    # process-wide) under the strict mode
+    strict = _StrictDispatch(tpu_scheduler.dispatch_device_batch, at=3)
+    tpu_scheduler.dispatch_device_batch = strict
+    try:
+        small = workloads.scheduling_basic(N_NODES, 0, 4 * P)
+        run = _loop_run(small, f"{small.name}/512 pods [ring, strict dispatch 3]", RING)
+    finally:
+        tpu_scheduler.dispatch_device_batch = strict.inner
+    if strict.checked != "fused" or run["carry_batches"] < 1:
+        raise AssertionError(f"strict dispatch: {strict.checked}, carry {run['carry_batches']}")
+    print("one ring dispatch on the carry (fused kernel, carry adopted, packed block staged "
+          "to pinned memory) ran under set_sync_debug_mode('error'): no host read")
+
+    deadline = _loop_run(basic, f"{basic.name} [ring, default deadline]",
+                         dict(RING, KTPU_BATCH_DEADLINE_MS=None), batch_deadline_ms=None)
+    _check_all_bound(basic.name, basic, deadline)
+    sizes, buckets = {}, {}
+    for n, b in zip(deadline["batch_pods"], deadline["buckets"]):
+        sizes[n] = sizes.get(n, 0) + 1
+        buckets[b] = buckets.get(b, 0) + 1
+    print(f"{basic.name} at the default deadline (500 ms): popped batch sizes "
+          f"{dict(sorted(sizes.items()))}, program buckets {dict(sorted(buckets.items()))}, "
+          f"attempt p99 {deadline['attempt_ms']['p99']:.2f} ms")
+    out[f"{basic.name}/deadline"] = {"launches": deadline["launches"], "run": deadline}
+
+    for name, prev in topo.items():
+        w = prev["workload"]
+        gpu = _loop_run(w, f"{w.name} [ring]", RING)
+        with _env(**RING):
+            t_cpu = time.perf_counter()
+            cpu_run = workloads.run_loop(w, "cpu", percentage=100)
+            cpu_s = time.perf_counter() - t_cpu
+        _check_all_bound(w.name, w, gpu)
+        _check_loop_same(w.name, gpu, cpu_run, ("placed", "cycles", "modes"))
+        caps = {k: v for k, v in gpu["caps"].items() if v != cpu_run["caps"][k]}
+        if caps:
+            raise AssertionError(f"{w.name}: grown capacities differ from the cpu's: {caps}")
+        bs = spec[name]["pods_per_s"]
+        print(f"{w.name} through the ring: placements == the cpu loop ({cpu_s:.1f} s), "
+              f"capacities grown past caps_for_cluster: {gpu['grown'] or 'none'}; "
+              f"paths {sorted(set(gpu['paths']))}; "
+              f"{gpu['pods_per_s']:.1f} pods/s, attempt p99 {gpu['attempt_ms']['p99']:.2f} ms; "
+              f"BatchScheduler in this call: rounds {bs['spec']:.1f} pods/s, "
+              f"{bs_other(prev)} {bs['other']:.1f} pods/s")
+        out[f"{w.name}/ring"] = {"launches": gpu["launches"], "run": gpu}
 
     sampled = workloads.scheduling_basic(1000, 0, 256)
-    fused_step.LAUNCHES = 0
-    s_gpu = workloads.run_loop(sampled, "cuda", percentage=10)
-    s_launches = fused_step.LAUNCHES
-    s_cpu = workloads.run_loop(sampled, "cpu", percentage=10)
-    if (set(s_gpu["paths"]) != {"scan"} or s_launches != 0 or s_gpu["settle_abandoned"]
+    s_gpu = _loop_run(sampled, f"{sampled.name} at percentage 10 [ring]", RING, percentage=10)
+    with _env(**RING):
+        s_cpu = workloads.run_loop(sampled, "cpu", percentage=10)
+    if (set(s_gpu["paths"]) != {"scan"} or s_gpu["launches"] != 0 or s_gpu["settle_abandoned"]
             or len(s_gpu["placed"]) != sampled.n_measured or not all(s_gpu["placed"].values())):
-        raise AssertionError(f"sampled loop: paths {set(s_gpu['paths'])}, {s_launches} "
+        raise AssertionError(f"sampled loop: paths {set(s_gpu['paths'])}, {s_gpu['launches']} "
                              "kernel launches, or a pod unbound")
     _check_loop_same("sampled loop", s_gpu, s_cpu, ("placed", "start", "cycles"))
-    _loop_report(f"{sampled.name} at percentage 10", s_gpu)
     print(f"sampled loop: {s_gpu['batches']} batches on the scan, final window start "
           f"{s_gpu['start']} == cpu, placements == cpu")
+    out["sampled"] = {"launches": s_gpu["launches"], "run": s_gpu}
 
     pre = workloads.preemption_basic()
-    fused_step.LAUNCHES = 0
-    p_gpu = workloads.run_loop(pre, "cuda")
-    p_launches = fused_step.LAUNCHES
-    p_cpu = workloads.run_loop(pre, "cpu", percentage=100)
-    preemptors = [k for k in p_gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
-    if not all(p_gpu["placed"][k] for k in preemptors) or p_gpu["settle_abandoned"]:
-        raise AssertionError(f"{pre.name} through the loop: a preemptor is unbound")
-    if p_launches != p_gpu["batches"]:
-        raise AssertionError(f"{pre.name}: {p_launches} launches for {p_gpu['batches']} batches")
-    _check_loop_same(pre.name, p_gpu, p_cpu,
-                     ("placed", "preempted", "nominations", "cycles", "metrics"))
-    _loop_report(pre.name, p_gpu)
-    print(f"{pre.name} through the loop: {len(preemptors)} preemptors bound, "
-          f"{len(p_gpu['preempted'])} victims, {len(p_gpu['nominations'])} nominations, "
-          f"pods popped per settle {p_gpu['cycles']}; all == cpu")
-    return {basic.name: {"launches": launches, "run": gpu},
-            pre.name: {"launches": p_launches, "run": p_gpu},
-            "sampled": {"launches": s_launches, "run": s_gpu}}
+    with _env(**RING):
+        p_cpu = workloads.run_loop(pre, "cpu", percentage=100)
+    for label, env in (("inline ring", RING), ("worker ring", WORKER)):
+        p_gpu = _loop_run(pre, f"{pre.name} [{label}]", env)
+        preemptors = [k for k in p_gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
+        if not all(p_gpu["placed"][k] for k in preemptors) or p_gpu["settle_abandoned"]:
+            raise AssertionError(f"{pre.name} [{label}]: a preemptor is unbound")
+        if p_gpu["launches"] != p_gpu["batches"]:
+            raise AssertionError(f"{pre.name} [{label}]: {p_gpu['launches']} launches for "
+                                 f"{p_gpu['batches']} batches")
+        if label == "inline ring":
+            _check_loop_same(pre.name, p_gpu, p_cpu,
+                             ("placed", "preempted", "nominations", "cycles", "metrics"))
+        print(f"{pre.name} through the {label}: {len(preemptors)} preemptors bound, "
+              f"{len(p_gpu['preempted'])} victims, {len(p_gpu['nominations'])} nominations, "
+              f"pods popped per settle {p_gpu['cycles']}"
+              + ("; all == cpu" if label == "inline ring" else
+                 f" (the cpu's inline ring: {len(p_cpu['preempted'])} victims, "
+                 f"{len(p_cpu['nominations'])} nominations, {p_cpu['cycles']})"))
+        out[f"{pre.name}/{label.split()[0]}"] = {"launches": p_gpu["launches"], "run": p_gpu}
+    return out
+
+
+def bs_other(prev: dict) -> str:
+    return sorted(set(prev["gpu"]["paths"]))[-1]
 
 
 def main() -> int:
@@ -1653,13 +1817,13 @@ def main() -> int:
     sl = timed("slice", slice_phase)
     basic_name = sl["workload"].name
     topo = timed("topology", topology_phase)
-    timed("spec", spec_phase, sl, topo)
+    spec = timed("spec", spec_phase, sl, topo)
     dra = timed("dra", dra_phase)
     pre = timed("preempt", preempt_phase)
     gangs = timed("gang", gang_phase)
     quota = timed("quota", quota_phase)
     pre_all = timed("preempt_all", preempt_all_phase)
-    loop = timed("loop", loop_phase)
+    loop = timed("loop", loop_phase, topo, spec, sl["gpu"])
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

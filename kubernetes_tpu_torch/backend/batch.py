@@ -306,7 +306,9 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
                    tc: Optional[TopoCounts], tb: Optional[TopoBatch], topo_mode: str,
                    vd_override: Optional[int], host_key: int, static,
                    sample_k: Optional[int] = None,
-                   sample_start: Optional[torch.Tensor] = None) -> BatchResult:
+                   sample_start: Optional[torch.Tensor] = None,
+                   topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> BatchResult:
     """The XLA scan ``step`` (``kubernetes_tpu/backend/batch.py:1202-1392``)
     as a loop over the batch's pods on device tensors: the fit against the
     carried free resources with the ``req == 0`` sentinel, ports, spread
@@ -316,7 +318,9 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
     int32 tensor, default 0, and returned as ``final_sample_start``), the
     scores normalized over the pod's feasible set, the nominated-node
     bonus, the first-maximum argmax, and the commit of the winner to every
-    carry. Nothing in the loop reads a device value on the host."""
+    carry. ``topo_carry`` (sel_counts, seg_exist) starts the count carries
+    from an earlier batch's final ones in place of ``tc``'s. Nothing in
+    the loop reads a device value on the host."""
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
      jitter) = static
     w = {k: float(np.float32(v)) for k, v in weights.items()}
@@ -342,6 +346,8 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
     if topo_on:
         log_tbl = topology.size_log_table(max(n, vd) + 1, device)
         sel = tc.sel_counts
+        if topo_carry is not None:
+            sel, seg_exist = topo_carry
         tb_fields = {f.name: getattr(tb, f.name) for f in dataclasses.fields(tb)}
     start = None
     if sample_k is not None:
@@ -848,7 +854,9 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                         dra_mask: Optional[torch.Tensor] = None,
                         slice_mask: Optional[torch.Tensor] = None,
                         sample_k: Optional[int] = None,
-                        sample_start: Optional[torch.Tensor] = None) -> BatchResult:
+                        sample_start: Optional[torch.Tensor] = None,
+                        topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        ) -> BatchResult:
     """Static phase, the commit phase of ``topo_mode`` and the post-scan
     scatters. ``weights`` are the plugin weights by name (every key of
     DEFAULT_WEIGHTS). Modes ``host`` and ``general`` need ``tc`` and ``tb``;
@@ -860,7 +868,13 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     port; ``extra_mask``, ``dra_mask`` and ``slice_mask`` join the static
     phase on every path (the JAX names and meanings). ``sample_k`` (with the
     window's ``sample_start``) samples the batch: it takes the scan in every
-    mode, as in the JAX package, never the kernel or the rounds."""
+    mode, as in the JAX package, never the kernel or the rounds.
+    ``topo_carry`` is the cross-batch topology carry (``kubernetes_tpu/
+    backend/batch.py:1139``, ``:1367``): (final_sel_counts,
+    final_seg_exist) of the newest batch in flight, which replace ``tc``'s
+    sel_counts and the initial seg_exist (the per-node term counts in mode
+    ``host``, the per-domain ones in mode ``general``) on the scan and the
+    rounds."""
     if topo_mode not in TOPO_MODES:
         raise ValueError(f"topo_mode must be one of {TOPO_MODES}, not {topo_mode!r}")
     if spec_decode and sample_k is not None:
@@ -875,23 +889,25 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
             f.name: getattr(tb, f.name) for f in dataclasses.fields(tb)}
         affinity_ok = static[0]["NodeAffinity"]
         if topo_mode == "host":
+            sel0, seg0 = topo_carry or (tc.sel_counts, tc.term_counts)
             return _speculative_core(
-                pb, nt, weights, static, pod_bits, tc.sel_counts, tc.term_counts,
+                pb, nt, weights, static, pod_bits, sel0, seg0,
                 host=dict(tb=tb_fields, hostkey_ok=nt.label_val[:, host_key] > 0,
                           affinity_ok=affinity_ok), ports_enabled=ports_enabled)
         if topo_mode == "general":
             vd = vd_override if vd_override else int(et.bits.shape[1]) * 32
             static_topo = topology.make_static(tc.term_counts, tc.term_key, nt.label_val,
                                                nt.valid, vd)
+            sel0, seg0 = topo_carry or (tc.sel_counts, static_topo.seg_exist0)
             return _speculative_core(
-                pb, nt, weights, static, pod_bits, tc.sel_counts, static_topo.seg_exist0,
+                pb, nt, weights, static, pod_bits, sel0, seg0,
                 gen=dict(tb=tb_fields, affinity_ok=affinity_ok, vd=vd,
                          dom_t=static_topo.dom_t), ports_enabled=ports_enabled)
         return _speculative_core(pb, nt, weights, static, pod_bits,
                                  ports_enabled=ports_enabled)
     if topo_mode != "off" or sample_k is not None:
         return _topology_scan(pb, et, nt, weights, tc, tb, topo_mode, vd_override,
-                              host_key, static, sample_k, sample_start)
+                              host_key, static, sample_k, sample_start, topo_carry)
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
      jitter) = static
     pod_bits = _pod_port_bits(pb, nt.port_bits.shape[1])
@@ -927,7 +943,9 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                    quota_used: Optional[torch.Tensor] = None,
                    quota_limit: Optional[torch.Tensor] = None,
                    sample_k: Optional[int] = None,
-                   sample_start: Optional[torch.Tensor] = None) -> BatchResult:
+                   sample_start: Optional[torch.Tensor] = None,
+                   topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> BatchResult:
     """Schedule one encoded batch on ``device`` (default: the CUDA card;
     ``device="cpu"`` runs the plain versions). Every tensor input must
     already lie there, the masks included. The topology, ``spec_decode``,
@@ -941,8 +959,9 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     ``quota_limit`` ([NS, Q]) run the quota screen after the core, on
     every path: its words join the packed block after the slice words.
     ``sample_k`` and ``sample_start`` (a 0-d int32 tensor on ``device``,
-    the last batch's ``final_sample_start``) sample the batch. Returns the
-    BatchResult with the packed block filled in."""
+    the last batch's ``final_sample_start``) sample the batch.
+    ``topo_carry`` (on ``device``) is ``schedule_batch_core``'s. Returns
+    the BatchResult with the packed block filled in."""
     device = resolve_device(device)
     member_idx, member_valid = slice_members if slice_members is not None else (None, None)
     check_on(device, valid=nt.valid, allocatable=nt.allocatable,
@@ -951,13 +970,16 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
              tb_sf_valid=tb.sf_valid if tb is not None else None,
              extra_mask=extra_mask, dra_mask=dra_mask, slice_member_idx=member_idx,
              slice_member_valid=member_valid, quota_req=quota_req, quota_used=quota_used,
-             quota_limit=quota_limit, sample_start=sample_start)
+             quota_limit=quota_limit, sample_start=sample_start,
+             carry_sel=topo_carry[0] if topo_carry is not None else None,
+             carry_seg=topo_carry[1] if topo_carry is not None else None)
     slice_mask = slice_words = None
     if slice_members is not None and slice_grid is not None:
         slice_mask, slice_words = _slice_plan(pb, nt, slice_members, slice_grid)
     res = schedule_batch_core(pb, et, nt, {**DEFAULT_WEIGHTS, **(weights or {})}, tc, tb,
                               topo_mode, vd_override, host_key, spec_decode, ports_enabled,
-                              extra_mask, dra_mask, slice_mask, sample_k, sample_start)
+                              extra_mask, dra_mask, slice_mask, sample_k, sample_start,
+                              topo_carry)
     quota_words = None
     if quota_ns is not None and quota_used is not None:
         quota_words = quota_screen(res.node_idx, quota_ns, quota_req, quota_used, quota_limit)

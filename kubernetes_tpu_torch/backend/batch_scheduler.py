@@ -3,9 +3,13 @@ one device-to-host read → bind.
 
 The device half of ``kubernetes_tpu/backend/tpu_scheduler.py``'s
 ``schedule_batch_cycle`` and ``_commit_inflight`` as a library: the caller
-hands it pods, without a queue or a store of nodes and pods (the scheduler
-loop, ``backend/tpu_scheduler.py``, drives the same device step,
-``run_device_batch``, from its queue and store). ``BatchScheduler`` keeps
+hands it pods, without a queue or a store of nodes and pods. The device
+step comes in halves: ``encode_device_batch`` and ``dispatch_device_batch``
+(the batch program dispatched, its carry adopted, the packed block's copy
+to the host started), then ``materialize_device_batch`` (the one blocking
+read, the mirror advanced). ``BatchScheduler`` runs them back to back; the
+scheduler loop (``backend/tpu_scheduler.py``) keeps dispatched batches in
+its in-flight ring between the two. ``BatchScheduler`` keeps
 the given NodeInfos as its cache (it binds placed pods into them) and a
 ``DeviceState`` mirror of them; each
 ``schedule`` call places pods in batches of ``caps.pods`` in the given
@@ -95,7 +99,9 @@ their nodes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
@@ -114,7 +120,7 @@ from ..framework.runtime import FilterRunner, PodNominator
 from ..framework.types import NodeInfo
 from ..ops.preempt import screen_prefix
 from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT, build_quota_batch_args
-from ..ops.schema import Capacities, PodBatch
+from ..ops.schema import Capacities, ExprTable, PodBatch, TopoBatch
 from ..ops.slice import is_slice_pod
 from ..ops.volume_mask import VolumeMaskBuilder
 from ..utils.device import DeviceLike
@@ -122,6 +128,7 @@ from .batch import (DEFAULT_WEIGHTS, SLICE_PLAN_OK_BIT, BatchResult, gang_member
                     gang_verdicts, pack_result_block, schedule_batch, spec_decode_eligible,
                     unpack_result_block)
 from .claim_mask import ClaimMaskBuilder
+from .commit_plane import materialize_result
 from .device_state import DeviceState, caps_for_cluster
 
 
@@ -191,6 +198,38 @@ def topo_mode_info(state: DeviceState) -> Tuple[str, Optional[int], int]:
 
 
 @dataclasses.dataclass
+class EncodedBatch:
+    """One batch encoded for the device: what its dispatch reads."""
+
+    pb: PodBatch
+    et: ExprTable
+    tb: TopoBatch
+    host_pb: dict                  # the encoder's host copy of the batch
+    mode: str                      # topology mode
+    vd: Optional[int]
+    host_key: int
+    kw: Dict[str, object]          # the caller's masks and screens
+
+
+@dataclasses.dataclass
+class DispatchedBatch:
+    """One batch after its dispatch, before its read: the result's device
+    tensors, and the packed block's copy on its way to the host."""
+
+    enc: EncodedBatch
+    res: BatchResult
+    path: str                      # "fused", "scan" or "spec"
+    # the packed block on the host (pinned memory on CUDA): valid once
+    # ``ready`` has fired; ``ready`` is None when it already is
+    block: torch.Tensor
+    ready: Optional["torch.cuda.Event"]
+
+    @property
+    def quota_col(self) -> bool:
+        return "quota_ns" in self.enc.kw
+
+
+@dataclasses.dataclass
 class DeviceBatch:
     """One batch after its device step: what the commit reads."""
 
@@ -208,41 +247,96 @@ class DeviceBatch:
 ExtrasFn = Callable[[Sequence[Pod], int], Dict[str, object]]
 
 
+def encode_device_batch(state: DeviceState, pods: Sequence[Pod],
+                        tie_seeds: Optional[Sequence[int]] = None,
+                        extras: Optional[ExtrasFn] = None,
+                        capacity: Optional[int] = None) -> EncodedBatch:
+    """Encode the pods with ``tie_seeds`` (default: their attempt-0 seeds)
+    and their topology programs, the pod axis padded to ``capacity`` (the
+    loop's sizer bucket; default ``caps.pods``); ``extras(pods, pad_to)``
+    adds the caller's masks and screens as ``schedule_batch`` arguments.
+    Registers the batch's signatures and terms, so the topology mode is
+    read after them. Raises CapacityError when the batch outgrows the
+    capacities."""
+    pb, et = state.encoder.encode_pods(pods, capacity=capacity, tie_seeds=tie_seeds)
+    host_pb = state.encoder.last_host_pb
+    tb = state.sig_table.encode_topo(pods, capacity=capacity)
+    mode, vd, host_key = topo_mode_info(state)
+    kw = extras(pods, pb.capacity) if extras is not None else {}
+    return EncodedBatch(pb, et, tb, host_pb, mode, vd, host_key, kw)
+
+
+def stage_to_host(packed: torch.Tensor) -> Tuple[torch.Tensor, Optional["torch.cuda.Event"]]:
+    """Start the packed block's copy to the host, the counterpart of JAX's
+    ``copy_to_host_async`` (``tpu_scheduler.py:822-831``): on CUDA a
+    non-blocking copy into pinned memory on the current stream and an event
+    recorded after it; a CPU block is already there."""
+    if packed.device.type != "cuda":
+        return packed, None
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(packed.device))
+    return host, ready
+
+
+def dispatch_device_batch(state: DeviceState, enc: EncodedBatch,
+                          sample_k: Optional[int] = None,
+                          sample_start: Optional[torch.Tensor] = None,
+                          topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                          ) -> DispatchedBatch:
+    """The dispatch half of one batch (JAX's ``_run_batch_fn(adopt=True)``
+    and the staged copy): one dispatch on the path ``spec_decode_eligible``
+    picks (``sample_k`` / ``sample_start`` sample the batch, which takes
+    the scan; ``topo_carry`` starts the topology counts from the newest
+    batch in flight), the evolved carry adopted as the device truth, and
+    the packed block's copy to the host started. On the fused path nothing
+    here waits for the device."""
+    mode = enc.mode
+    topo = {} if mode == "off" else dict(tc=state.tc, tb=enc.tb, topo_mode=mode,
+                                          vd_override=enc.vd, host_key=enc.host_key,
+                                          topo_carry=topo_carry)
+    spec = spec_decode_eligible(mode, state.device, sampled=sample_k is not None)
+    res = schedule_batch(enc.pb, enc.et, state.nt, DEFAULT_WEIGHTS, device=state.device,
+                         spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
+                         sample_k=sample_k, sample_start=sample_start, **topo, **enc.kw)
+    state.adopt_device(res)
+    block, ready = stage_to_host(res.packed)
+    path = "spec" if spec else "fused" if mode == "off" and sample_k is None else "scan"
+    return DispatchedBatch(enc, res, path, block, ready)
+
+
+def adopt_device_batch(state: DeviceState, disp: DispatchedBatch, read: tuple,
+                       mutex: Optional[threading.RLock] = None) -> DeviceBatch:
+    """The host mirror advanced by a dispatched batch's commits, given its
+    ``read`` (``commit_plane.materialize_result``), under the loop's device
+    ``mutex`` when there is one: what the commit reads."""
+    node_idx, first_fail, slice_words, quota_words = read
+    with mutex if mutex is not None else contextlib.nullcontext():
+        state.adopt_commits(disp.res, disp.enc.host_pb, node_idx)
+        return DeviceBatch(disp.enc.pb, disp.res, node_idx, first_fail, slice_words,
+                           quota_words, disp.enc.mode, disp.path, state.slot_to_name())
+
+
+def materialize_device_batch(state: DeviceState, disp: DispatchedBatch) -> DeviceBatch:
+    """The materialize half: the one blocking read of the packed block,
+    then the host mirror advanced by the batch's commits."""
+    return adopt_device_batch(state, disp, materialize_result(disp, state.caps.nodes))
+
+
 def run_device_batch(state: DeviceState, pods: Sequence[Pod], stamps: List[float],
                      tie_seeds: Optional[Sequence[int]] = None,
-                     extras: Optional[ExtrasFn] = None, sample_k: Optional[int] = None,
-                     sample_start: Optional[torch.Tensor] = None) -> DeviceBatch:
-    """The device half of one batch, shared by ``BatchScheduler`` and the
-    scheduler loop (``backend/tpu_scheduler.py``), after the caller's sync:
-    encode (the pods with ``tie_seeds``, default their attempt-0 seeds, and
-    their topology programs; ``extras(pods, pad_to)`` adds the caller's
-    masks and screens as ``schedule_batch`` arguments), one dispatch on the
-    path ``spec_decode_eligible`` picks (``sample_k`` / ``sample_start``
-    sample the batch, which takes the scan), the ONE device-to-host read of
-    the packed block, and the carry and the mirror adopted. Appends the end
+                     extras: Optional[ExtrasFn] = None) -> DeviceBatch:
+    """``BatchScheduler``'s device half of one batch, after its sync: the
+    two halves back to back (encode, dispatch, the read). Appends the end
     of encode, dispatch and read to ``stamps`` (``time.perf_counter``)."""
-    pb, et = state.encoder.encode_pods(pods, tie_seeds=tie_seeds)
-    host_pb = state.encoder.last_host_pb
-    # registers the batch's signatures and terms: tc is read after it
-    tb = state.sig_table.encode_topo(pods)
-    mode, vd, host_key = topo_mode_info(state)
-    kw = extras(pods, int(pb.valid.shape[0])) if extras is not None else {}
+    enc = encode_device_batch(state, pods, tie_seeds, extras)
     stamps.append(time.perf_counter())
-    topo = {} if mode == "off" else dict(tc=state.tc, tb=tb, topo_mode=mode,
-                                          vd_override=vd, host_key=host_key)
-    spec = spec_decode_eligible(mode, state.device, sampled=sample_k is not None)
-    res = schedule_batch(pb, et, state.nt, DEFAULT_WEIGHTS, device=state.device,
-                         spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
-                         sample_k=sample_k, sample_start=sample_start, **topo, **kw)
+    disp = dispatch_device_batch(state, enc)
     stamps.append(time.perf_counter())
-    node_idx, first_fail, slice_words, quota_words = unpack_result_block(
-        res.packed, state.caps.nodes, quota_col="quota_ns" in kw)
+    batch = materialize_device_batch(state, disp)
     stamps.append(time.perf_counter())
-    state.adopt_device(res)
-    state.adopt_commits(res, host_pb, node_idx)
-    path = "spec" if spec else "fused" if mode == "off" and sample_k is None else "scan"
-    return DeviceBatch(pb, res, node_idx, first_fail, slice_words, quota_words, mode, path,
-                       state.slot_to_name())
+    return batch
 
 
 def preempt_screen(state: DeviceState, pods: Sequence[Pod], batch: DeviceBatch,

@@ -30,11 +30,23 @@ carry is not adopted: the next sync recounts the nodes it bound pods to.
 
 Capacity growth: the encoder raises CapacityError when a vocab or axis
 overflows; the caller rebuilds with grown Capacities and resyncs.
+
+The in-flight ring's two probes (``kubernetes_tpu/backend/device_state.py
+:519-618``): ``reconcile`` refreshes the uploaded generation of every row
+whose only change was an adopted batch commit (it re-encodes the four
+dynamic fields alone and compares them with the mirror) and leaves every
+other row dirty, uploading nothing; ``has_dirty`` says whether ``sync``
+would find work. While the snapshot's structure version is the one the
+last full walk saw, both visit only ``changed_names`` and the rows left
+pending. ``invalidate_row`` puts its row among the pending ones, so a row
+the host rejected after the device committed to it is seen again (the JAX
+package only drops its generation, and its probes never revisit it:
+ROADMAP C5a).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +54,7 @@ import torch
 from ..api import dra
 from ..cache.snapshot import Snapshot
 from ..framework.types import NodeInfo
-from ..ops.encode import ClusterEncoder
+from ..ops.encode import CapacityError, ClusterEncoder
 from ..ops.quota import QUOTA_DIMS, QUOTA_NO_LIMIT
 from ..framework.plugins.interpodaffinity import NsLabelsFn
 from ..ops.schema import Capacities, NodeTensors, TopoCounts, round_node_capacity, tensor_from_numpy
@@ -80,6 +92,15 @@ class DeviceState:
         self._image_counts: Dict[str, int] = {}   # image -> num nodes (host truth)
         self._image_sizes: Dict[str, int] = {}
         self._node_images: Dict[str, frozenset] = {}
+        # node name -> the Node object its row was last encoded from: labels
+        # and taints change only with the object, so a row dirtied by pod
+        # commits alone skips the value-vocab retention and reconciles
+        self._mirror_node: Dict[str, object] = {}
+        # the rows reconcile left dirty, and the snapshot structure version
+        # of the last full walk: while it holds, only changed_names and
+        # these rows can be stale
+        self._recon_pending: Set[str] = set()
+        self._seen_struct = -1
         self._n_prio = len(self.encoder.prio_vocab)
         self.rows_uploaded = 0
         self.rows_elided = 0
@@ -160,6 +181,7 @@ class DeviceState:
         attr_pending: Dict[int, dict] = {}
         for name in removed:
             self._uploaded_gen.pop(name, None)
+            self._mirror_node.pop(name, None)
             slot = self.encoder.release_node_slot(name)
             self.nodes_removed += 1
             if slot is not None:
@@ -175,12 +197,16 @@ class DeviceState:
             self._uploaded_gen[name] = ni.generation
             images_changed |= self._track_images(name, ni)
             self._track_attrs(name, ni, slot, attr_pending)
-            self.encoder.retain_node_values(name, ni.node)
+            if ni.node is not self._mirror_node.get(name):
+                self.encoder.retain_node_values(name, ni.node)
             self.sig_table.recount_node(slot, ni)
         if removed and dirty:
             # a slot tombstoned and re-assigned in this sync appears twice:
             # keep only the last write per slot
             dirty = list({slot: (slot, ni) for slot, ni in dirty}.values())
+        # the full walk leaves every generation aligned
+        self._seen_struct = getattr(snapshot, "structure_version", -1)
+        self._recon_pending.clear()
         getattr(snapshot, "changed_names", set()).clear()
         # the attribute table uploads even when every row below is elided
         self._upload_attrs(attr_pending)
@@ -190,6 +216,8 @@ class DeviceState:
         changed: List[Tuple[int, dict]] = []
         for slot, ni in dirty:
             row = self.encoder.encode_node_row(ni)
+            if ni.node is not None:
+                self._mirror_node[ni.node.meta.name] = ni.node
             if all(np.array_equal(np.asarray(row[f], dtype), self._mirror[f][slot])
                    for f, dtype in _ROW_FIELDS):
                 self.rows_elided += 1
@@ -218,6 +246,81 @@ class DeviceState:
                 0, idx, tensor_from_numpy(field, stacked, self.device))
         self.rows_uploaded += n
         return n
+
+    def reconcile(self, snapshot: Snapshot) -> int:
+        """The commit side's elide-only sync: refresh the uploaded
+        generation of each dirty row whose dynamic fields (requested,
+        nonzero requested, ports, class requests) equal the mirror, which
+        the adopted commits advanced. Every other row (a new, removed or
+        invalidated node, a new Node object or image set, or content that
+        differs) stays dirty and pending: the device may already hold the
+        next dispatched batch's adopted carry, and writing host rows into it
+        would erase those commits. Returns the rows left dirty."""
+        self._refresh_class_prio()
+        left = 0
+        mirror = self._mirror
+        req_m, nz_m = mirror["requested"], mirror["nonzero_requested"]
+        ports_m, creq_m = mirror["port_bits"], mirror["class_req"]
+        if getattr(snapshot, "structure_version", None) == self._seen_struct:
+            names = snapshot.changed_names | self._recon_pending
+            items = [(n, snapshot.node_info_map[n]) for n in names
+                     if n in snapshot.node_info_map]
+            check_removals = False
+        else:
+            items = list(snapshot.node_info_map.items())
+            check_removals = True
+        pending = set()
+        for name, ni in items:
+            if self._uploaded_gen.get(name) == ni.generation:
+                continue
+            slot = self.encoder.node_slots.get(name)
+            if (name not in self._uploaded_gen or slot is None
+                    or ni.node is not self._mirror_node.get(name)
+                    or self._node_images.get(name, frozenset()) != frozenset(ni.image_states)):
+                left += 1  # needs a real upload
+                pending.add(name)
+                continue
+            try:
+                row = self.encoder.encode_dynamic_fields(ni)
+            except CapacityError:
+                left += 1
+                pending.add(name)
+                continue
+            if (np.array_equal(row["requested"], req_m[slot])
+                    and np.array_equal(row["nonzero_requested"], nz_m[slot])
+                    and np.array_equal(row["port_bits"], ports_m[slot])
+                    and np.array_equal(row["class_req"], creq_m[slot])):
+                self._uploaded_gen[name] = ni.generation
+                self.rows_elided += 1
+                # with no signature or term registered both count tables
+                # are zero: only the backfill source needs the pods
+                st = self.sig_table
+                if st.n_sigs > 1 or st.n_terms > 1:
+                    st.recount_node(slot, ni)
+                else:
+                    st.track_slot_pods(slot, ni)
+            else:
+                left += 1
+                pending.add(name)
+        if check_removals:
+            removed = [n for n in self.encoder.node_slots if n not in snapshot.node_info_map]
+            left += len(removed)
+            pending.update(removed)
+            self._seen_struct = getattr(snapshot, "structure_version", -1)
+        self._recon_pending = pending
+        getattr(snapshot, "changed_names", set()).clear()
+        return left
+
+    def has_dirty(self, snapshot: Snapshot) -> bool:
+        """Would ``sync`` find a dirty or removed node? A structure change
+        reports dirty (the sync it triggers realigns the version)."""
+        if getattr(snapshot, "structure_version", None) != self._seen_struct:
+            return True
+        for name in snapshot.changed_names | self._recon_pending:
+            ni = snapshot.node_info_map.get(name)
+            if ni is None or self._uploaded_gen.get(name) != ni.generation:
+                return True
+        return False
 
     def _upload_images(self) -> None:
         sizes = np.zeros(self.caps.images, np.int32)
@@ -411,12 +514,14 @@ class DeviceState:
                     self._mirror["port_bits"][slot, pid >> 5] |= np.uint32(1) << np.uint32(pid & 31)
 
     def invalidate_row(self, name: str) -> None:
-        """Forget the generation uploaded for ``name``: the next ``sync``
-        re-encodes its row from the snapshot and, where the row differs
-        from the mirror (which the adopted carry has advanced), uploads it.
-        The one way to drop a row the host rejected after the device
-        committed to it."""
+        """Forget the generation uploaded for ``name`` and mark it pending:
+        ``has_dirty`` reports it, ``reconcile`` leaves it dirty, and the
+        next ``sync`` re-encodes its row from the snapshot and, where the
+        row differs from the mirror (which the adopted carry has advanced),
+        uploads it. The one way to drop a row the host rejected after the
+        device committed to it."""
         self._uploaded_gen.pop(name, None)
+        self._recon_pending.add(name)
 
     def _track_images(self, name: str, ni) -> bool:
         """Maintain global image num-node counts (first-seen size wins,

@@ -103,10 +103,10 @@ class SigTable:
         self.version = 0
         # node slot -> pods counted there (set by recount_node)
         self._slot_pods: Dict[int, List[Pod]] = {}
-        # the all-zero TopoBatch: a topology-free batch with no registered
-        # rows reuses one device copy instead of uploading 27 zero arrays
-        # per batch
-        self._zero_topo: Optional[TopoBatch] = None
+        # the all-zero TopoBatch per pod bucket: a topology-free batch with
+        # no registered rows reuses one device copy instead of uploading 27
+        # zero arrays per batch
+        self._zero_topo: Dict[int, TopoBatch] = {}
         self.last_topo_summary: Optional[dict] = None
 
     @property
@@ -244,13 +244,15 @@ class SigTable:
                 m[tid] = True
         return m
 
-    def term_match_rows(self, pod: Pod) -> Tuple[np.ndarray, np.ndarray]:
+    def term_match_rows(self, pod: Pod, hard_pod_affinity_weight: int = 1,
+                        ignore_preferred: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """For an incoming pod: ([T] bool, the required anti-affinity terms
         that match it, for the Filter check; [T] float32 symmetric score
         weights), each ``term.matches(pod)`` evaluated on the host
-        (interpodaffinity filtering.go:174, scoring.go:79), with the
-        plugin's default arguments: hardPodAffinityWeight 1, preferred
-        terms of existing pods counted."""
+        (interpodaffinity filtering.go:174, scoring.go:79). The plugin's
+        arguments: an existing pod's required affinity term scores at
+        ``hard_pod_affinity_weight``; ``ignore_preferred`` drops the
+        existing pods' preferred terms."""
         fmatch = np.zeros(self.caps.ex_terms, bool)
         w = np.zeros(self.caps.ex_terms, np.float32)
         for tid in range(1, self.n_terms):
@@ -260,10 +262,10 @@ class SigTable:
             if row.klass == ANTI_REQ:
                 fmatch[tid] = True
             if row.klass == AFF_REQ:
-                w[tid] = 1.0
-            elif row.klass == AFF_PREF:
+                w[tid] = float(hard_pod_affinity_weight)
+            elif row.klass == AFF_PREF and not ignore_preferred:
                 w[tid] = float(row.term.weight)
-            elif row.klass == ANTI_PREF:
+            elif row.klass == ANTI_PREF and not ignore_preferred:
                 w[tid] = -float(row.term.weight)
         return fmatch, w
 
@@ -297,24 +299,34 @@ class SigTable:
             "pod_sig_mask": z((P, S), bool), "pod_term_mask": z((P, T), bool),
         }
 
-    def encode_topo(self, pods: List[Pod]) -> TopoBatch:
+    def encode_topo(self, pods: List[Pod], hard_pod_affinity_weight: int = 1,
+                    ignore_preferred: bool = False,
+                    capacity: Optional[int] = None) -> TopoBatch:
         """Compile a pod batch's topology programs into a TopoBatch.
 
         Two passes: first register every signature and term the batch
         introduces (each backfilled over the nodes, which moves
         ``version``: read DeviceState.tc only after this call), so pod i's
         match rows see pod j's terms (intra-batch symmetric anti-affinity);
-        then fill the arrays. Sets ``last_topo_summary``."""
+        then fill the arrays. ``hard_pod_affinity_weight`` and
+        ``ignore_preferred`` are InterPodAffinity's arguments
+        (``term_match_rows``); ``capacity`` pads the pod axis to a bucket
+        below ``caps.pods``, as ``encode_pods`` does. Sets
+        ``last_topo_summary``."""
         caps = self.caps
-        P = caps.pods
+        P = caps.pods if capacity is None else min(int(capacity), caps.pods)
+        if len(pods) > caps.pods:
+            raise CapacityError("pods", len(pods), caps.pods)
         if len(pods) > P:
-            raise CapacityError("pods", len(pods), P)
+            raise ValueError(f"a batch of {len(pods)} pods does not fit a bucket of {P}")
 
         if self.n_sigs <= 1 and self.n_terms <= 1 and not any(map(_has_topology_terms, pods)):
-            if self._zero_topo is None:
-                self._zero_topo = TopoBatch.from_numpy(self._zero_arrays(P), self.device)
+            zero = self._zero_topo.get(P)
+            if zero is None:
+                zero = self._zero_topo[P] = TopoBatch.from_numpy(self._zero_arrays(P),
+                                                                 self.device)
             self.last_topo_summary = {"hostname_only": False, "vd_needed": 1}
-            return self._zero_topo
+            return zero
 
         # ---- pass 1: registration
         for pod in pods:
@@ -383,7 +395,8 @@ class SigTable:
                 out["ip_key"][p, i] = self.encoder.key_slot(t.topology_key)
                 out["ip_w"][p, i] = w
 
-            out["term_filter_match"][p], out["term_score_w"][p] = self.term_match_rows(pod)
+            out["term_filter_match"][p], out["term_score_w"][p] = self.term_match_rows(
+                pod, hard_pod_affinity_weight, ignore_preferred)
             out["pod_sig_mask"][p] = self.pod_sig_mask(pod)
             out["pod_term_mask"][p] = self.pod_term_mask(pod)
 

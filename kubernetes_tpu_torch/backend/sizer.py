@@ -4,29 +4,32 @@
 largest pod-axis bucket whose predicted pop-to-commit latency fits the
 deadline (``deadline_s`` 0 disables the cut, and every batch is
 ``max_batch``). The latency model ``a + b * bucket`` is fitted from each
-committed batch's span (``update``). The fit reads the loop's clock, so
-on a wall clock batch sizes vary from run to run unless the deadline is 0.
-
-Left out until the in-flight ring: the reference's second model, the
-commit-wait residual (``update_wait``, ``KTPU_STALL_TARGET_MS``), which its
-loop feeds from the blocking read of every batch and which caps the target
-where the predicted wait passes 15 ms. At a non-zero deadline the reference
-can therefore cut smaller batches than this sizer does.
+committed batch's span (``update``). A second model, of the commit wait
+(the time the ring's blocking read of a batch's packed block waited for the
+device; ``update_wait``), caps the target where the predicted wait passes
+``STALL_TARGET_S`` (15 ms, the reference's default). Both fits read the
+loop's clock, so on a wall clock batch sizes vary from run to run unless
+the deadline is 0.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+# the commit wait the stall model allows a batch (the reference's
+# ``KTPU_STALL_TARGET_MS`` default)
+STALL_TARGET_S = 0.015
+
 
 class _DecayedFit:
     """Exponentially-decayed least squares y(x) = a + b·x with compile-blip
     outlier rejection: the pop→commit latency model."""
 
-    def __init__(self, a: float, b: float, decay: float = 0.95):
+    def __init__(self, a: float, b: float, decay: float = 0.95, floor: float = 0.0):
         self.a = a
         self.b = b
         self.decay = decay
+        self.floor = floor  # the least prediction the outlier test compares with
         self.updates = 0
         self.outliers = 0  # consecutive rejected observations
         self._sw = self._sx = self._sy = self._sxx = self._sxy = 0.0
@@ -40,7 +43,7 @@ class _DecayedFit:
         # observations (first few) always fold in, and THREE consecutive
         # outliers mean the machine genuinely got slower — accept then.
         predicted = self.a + self.b * x
-        if (self.updates >= 3 and y > 4.0 * predicted
+        if (self.updates >= 3 and y > 4.0 * max(predicted, self.floor)
                 and self.outliers < 2):
             self.outliers += 1
             return
@@ -96,9 +99,21 @@ class BatchSizer:
         # b→0) and collapsed the target to min_batch. Seeds: one relay RTT
         # fixed + ~0.3 ms/pod encode+commit.
         self._fit = _DecayedFit(a=0.040, b=0.0003)
+        # the commit-wait residual: the time a batch's read blocked on the
+        # device after its copy was staged at dispatch. Where the wait grows
+        # with the bucket, capping its prediction at the stall target picks
+        # the bucket where device time meets the overlapped host work.
+        # Inactive until fed (b = 0).
+        # floor 1 ms: near-zero predictions would flag every first real
+        # wait as a 4x outlier
+        self._wfit = _DecayedFit(a=0.0, b=0.0, floor=1e-3)
 
     def update(self, batch_size: int, latency_s: float) -> None:
         self._fit.update(batch_size, latency_s)
+
+    def update_wait(self, batch_size: int, wait_s: float) -> None:
+        """Feed one commit-wait observation (the ring's blocking read)."""
+        self._wfit.update(batch_size, wait_s)
 
     # pod-axis buckets: the compiled program's step count is the PADDED pod
     # capacity, so the target quantizes to a small set of compile shapes;
@@ -132,6 +147,13 @@ class BatchSizer:
         if budget <= 0 or self._fit.b <= 0:
             return self.min_batch
         raw = max(self.min_batch, min(self.max_batch, int(budget / self._fit.b)))
+        # the stall cap: past the bucket whose predicted commit wait meets
+        # the target, a larger batch turns overlapped host work into blocked
+        # device wait one for one
+        if self._wfit.b > 0:
+            stall_budget = STALL_TARGET_S - self._wfit.a
+            raw_stall = int(stall_budget / self._wfit.b) if stall_budget > 0 else 0
+            raw = max(self.min_batch, min(raw, raw_stall))
         # sticky hysteresis: keep the current bucket while the model's raw
         # target stays in its neighborhood (a switch = a new compiled shape)
         cur = self._bucket

@@ -11,7 +11,9 @@ confirmed (cache.go:731, called by the loop's housekeeping). Every
 NodeInfo change bumps its generation, and ``update_snapshot`` clones only
 the nodes changed since the snapshot's generation (cache.go:198).
 
-One scheduler thread owns it (no lock). The histogram of bound pods'
+Every public method runs under the cache's RLock (``:45``): the ring's
+commit worker assumes, binds and reconciles on its own thread while the
+scheduling thread updates its snapshot. The histogram of bound pods'
 priorities is kept exact: a pod's count leaves with the pod even when its
 node entry is already gone (the JAX copy decrements only while the entry
 exists).
@@ -20,6 +22,8 @@ exists).
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
@@ -28,6 +32,18 @@ from ..framework.types import NodeInfo, next_generation
 from .snapshot import Snapshot
 
 DEFAULT_ASSUME_TTL = 30.0  # durationToExpireAssumedPod (scheduler.go:311)
+
+
+def _locked(fn):
+    """Run a public method under the cache's RLock (reentrant: the methods
+    call each other)."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+
+    return wrapper
 
 
 @dataclasses.dataclass
@@ -40,6 +56,7 @@ class _PodState:
 
 class Cache:
     def __init__(self, ttl: float = DEFAULT_ASSUME_TTL, now_fn=time.monotonic):
+        self._lock = threading.RLock()
         self.ttl = ttl
         self.now_fn = now_fn
         self.nodes: Dict[str, NodeInfo] = {}
@@ -54,6 +71,7 @@ class Cache:
 
     # ------------------------------------------------------------- pods
 
+    @_locked
     def assume_pod(self, pod: Pod, node_name: str) -> None:
         """Commit ``pod`` to ``node_name`` ahead of the bind. Takes the
         passed object (callers pass a clone) and sets its ``node_name``."""
@@ -65,12 +83,14 @@ class Cache:
         self.pod_states[key] = _PodState(pod=pod, assumed=True)
         self._assumed.add(key)
 
+    @_locked
     def finish_binding(self, pod: Pod) -> None:
         ps = self.pod_states.get(pod.key())
         if ps and ps.assumed:
             ps.binding_finished = True
             ps.deadline = self.now_fn() + self.ttl
 
+    @_locked
     def forget_pod(self, pod: Pod) -> None:
         """The bind failed: roll the assumption back (cache.go:416)."""
         ps = self.pod_states.pop(pod.key(), None)
@@ -78,6 +98,7 @@ class Cache:
         if ps is not None:
             self._remove_pod_from_node(ps.pod, ps.pod.spec.node_name)
 
+    @_locked
     def add_pod(self, pod: Pod) -> None:
         """The informer's confirmation of a bound pod (cache.go:497)."""
         key = pod.key()
@@ -94,6 +115,7 @@ class Cache:
         self._add_pod_to_node(pod, pod.spec.node_name)
         self.pod_states[key] = _PodState(pod=pod)
 
+    @_locked
     def update_pod(self, old: Pod, new: Pod) -> None:
         ps = self.pod_states.get(old.key())
         if ps is None:
@@ -103,16 +125,19 @@ class Cache:
         self._add_pod_to_node(new, new.spec.node_name)
         self.pod_states[old.key()] = _PodState(pod=new)
 
+    @_locked
     def remove_pod(self, pod: Pod) -> None:
         ps = self.pod_states.pop(pod.key(), None)
         self._assumed.discard(pod.key())
         if ps is not None:
             self._remove_pod_from_node(ps.pod, ps.pod.spec.node_name)
 
+    @_locked
     def is_assumed(self, pod_key: str) -> bool:
         ps = self.pod_states.get(pod_key)
         return bool(ps and ps.assumed)
 
+    @_locked
     def cleanup(self, now: Optional[float] = None) -> List[Pod]:
         """Expire assumed pods whose binding finished and was never
         confirmed; returns them (cleanupAssumedPods, cache.go:735)."""
@@ -129,6 +154,7 @@ class Cache:
 
     # ------------------------------------------------------------- nodes
 
+    @_locked
     def add_node(self, node: Node) -> None:
         ni = self.nodes.get(node.meta.name)
         if ni is None:
@@ -140,9 +166,11 @@ class Cache:
         self._dirty.add(node.meta.name)
         self._removed.discard(node.meta.name)
 
+    @_locked
     def update_node(self, node: Node) -> None:
         self.add_node(node)
 
+    @_locked
     def remove_node(self, node_name: str) -> None:
         ni = self.nodes.get(node_name)
         if ni is None:
@@ -192,6 +220,7 @@ class Cache:
 
     # ------------------------------------------------------------- snapshot
 
+    @_locked
     def update_snapshot(self, snapshot: Snapshot) -> Snapshot:
         """Clone into ``snapshot`` only the NodeInfos changed since its
         generation, O(changes); a snapshot older than the dirty set's
@@ -243,13 +272,16 @@ class Cache:
         snapshot.generation = max_gen
         return snapshot
 
+    @_locked
     def min_pod_priority(self) -> Optional[int]:
         """The lowest priority among the pods bound to nodes, or None."""
         return min(self._prio_counts) if self._prio_counts else None
 
+    @_locked
     def node_count(self) -> int:
         return self._real_nodes
 
+    @_locked
     def missing_real_nodes(self, names: Iterable[str]) -> Set[str]:
         """The names in ``names`` with no live Node object (ghost entries
         count as missing): the commit's check that a winner's node is
@@ -261,6 +293,7 @@ class Cache:
                 out.add(name)
         return out
 
+    @_locked
     def stats(self) -> Tuple[int, int, int]:
         """(nodes, pods, assumed pods)."""
         return self._real_nodes, len(self.pod_states), len(self._assumed)

@@ -6,11 +6,14 @@ batch's pop to each pod's commit, and the ``schedule_attempts`` and
 of a run's measured phase.
 
 The histogram keeps every observation, so its quantiles are exact (the JAX
-registry's are bucket estimates); one run's attempts are few enough.
+registry's are bucket estimates); one run's attempts are few enough. The
+ring's commit worker observes on its own thread: a counter's increment
+takes a lock, and a histogram's observation is one list append.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -49,9 +52,11 @@ class Histogram:
 class Counter:
     def __init__(self):
         self.by_labels: Dict[Tuple[str, ...], int] = {}
+        self._mu = threading.Lock()
 
     def inc(self, *labels: str, value: int = 1) -> None:
-        self.by_labels[labels] = self.by_labels.get(labels, 0) + value
+        with self._mu:
+            self.by_labels[labels] = self.by_labels.get(labels, 0) + value
 
 
 class SchedulerMetrics:

@@ -467,31 +467,63 @@ def run_with_preemption(sched, w: Workload
     return placed, rounds
 
 
+def span_overlap_s(a: Sequence[tuple], b: Sequence[tuple]) -> float:
+    """Seconds covered by a span of ``a`` and a span of ``b`` at once; each
+    list holds (start, end) spans in time order that do not overlap each
+    other."""
+    total, j = 0.0, 0
+    for start, end in a:
+        while j < len(b) and b[j][1] <= start:
+            j += 1
+        k = j
+        while k < len(b) and b[k][0] < end:
+            total += min(end, b[k][1]) - max(start, b[k][0])
+            k += 1
+    return total
+
+
 def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
-             batch_deadline_ms: float = 0) -> dict:
+             batch_deadline_ms: Optional[float] = 0) -> dict:
     """Drive ``w`` through the scheduler loop, as the JAX harness's Runner
     does (``kubernetes_tpu/perf/harness.py:309-700``): a fresh ``Store``
     and ``TPUScheduler(store, device, ...)``; the nodes created, then the
     init pods (and warm pods) created and settled; then the measured pods
     created and settled, the measured phase timed on the host's clock from
     the first create to the settle. ``percentage`` is
-    percentageOfNodesToScore (0: the adaptive default).
+    percentageOfNodesToScore (0: the adaptive default);
+    ``batch_deadline_ms`` None takes the loop's default
+    (``KTPU_BATCH_DEADLINE_MS``).
 
     Returns a dict: ``placed`` (pod key -> node, "" when unbound),
     ``pods_per_s`` (measured pods over the measured phase's seconds),
     ``measured_s``, ``attempt_ms`` (p50 / p90 / p99 of the measured phase's
-    scheduled attempts, pop to commit), ``batches``, ``paths`` and
-    ``modes`` (per batch), ``launches`` (fused-kernel launches over the
-    run), ``stage_ms`` (the loop's host stages summed over the run),
-    ``measured_stage_ms`` (summed over the measured phase) and
-    ``measured_batch_ms`` (each measured cycle's host ms, pop to commit),
-    ``cycles`` (pods popped, per settle), ``metrics``, ``pending``,
-    ``preempted`` (victim -> preemptor), ``nominations`` (in order),
-    ``start`` (the sampling window's final start, or None) and
-    ``settle_abandoned``."""
+    scheduled attempts, pop to commit), ``batches``, ``paths``, ``modes``
+    ``batch_pods`` and ``buckets`` (per batch: its pods, and the pod axis
+    its program ran at),
+    ``launches`` (fused-kernel launches over the run), ``stage_ms`` (the
+    scheduling thread's host stages summed over the run),
+    ``measured_stage_ms`` (summed over the measured phase),
+    ``measured_commit_ms`` (the commits' wait, bind and reconcile over the
+    measured phase, on whichever thread ran them), ``measured_batch_ms``
+    (each measured cycle's host ms on the scheduling thread),
+    ``measured_idle_ms`` (the settle loop's no-progress sleeps in the
+    measured phase), ``measured_dispatch_ms`` (the scheduling thread's
+    encode and dispatch spans in the measured phase), ``measured_commit_host_ms``
+    (the commits' spans after their read) and ``measured_overlap_ms`` (the
+    time in both at once: with the commit worker, its host commit running
+    beside the scheduling thread's encode and dispatch), ``measured_batches``, ``carry_batches`` (batches encoded on the ring's
+    carry) and ``measured_carry_batches``, ``caps`` (the mirror's final
+    capacities) and ``grown`` (those above ``caps_for_cluster``'s),
+    ``pipeline_depth``,
+    ``commit_worker``, ``cycles`` (pods popped, per settle), ``metrics``,
+    ``pending``, ``preempted`` (victim -> preemptor), ``nominations`` (in
+    order), ``start`` (the sampling window's final start, or None) and
+    ``settle_abandoned``. The loop's commit worker is stopped before it
+    returns."""
     import gc
     import time
 
+    from ..backend.device_state import caps_for_cluster
     from ..backend.tpu_scheduler import TPUScheduler
     from ..ops import fused_step
 
@@ -516,11 +548,18 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
     hist = sched.smetrics.scheduling_attempt_duration
     n_before = hist.count("scheduled", sched.profile.name)
     stages0, n_cycles = dict(sched.stage_seconds), len(sched.cycle_seconds)
+    commit0, batches0, carry0 = dict(sched.commit_seconds), sched.batch_counter, \
+        sched.carry_batches
+    idle0 = sched.idle_seconds
+    spans0 = (len(sched.dispatch_spans), len(sched.commit_spans))
     t0 = time.perf_counter()
     for pod in w.measured_pod_list():
         store.create_pod(pod)
     cycles.append(sched.run_until_settled())
     measured_s = time.perf_counter() - t0
+    sched.close()
+    dispatch_spans = sched.dispatch_spans[spans0[0]:]
+    commit_spans = [s for s in sched.commit_spans[spans0[1]:] if s[0] >= t0]
     attempt_ms = {f"p{q}": hist.quantile(q / 100, "scheduled", sched.profile.name,
                                           since=n_before) * 1e3 for q in (50, 90, 99)}
     return {
@@ -528,10 +567,25 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
         "pods_per_s": w.n_measured / measured_s, "measured_s": measured_s,
         "attempt_ms": attempt_ms, "batches": sched.batch_counter,
         "paths": list(sched.batch_paths), "modes": list(sched.batch_modes),
+        "buckets": list(sched.batch_buckets), "batch_pods": list(sched.batch_pods),
         "launches": fused_step.LAUNCHES - launches,
         "stage_ms": {k: v * 1e3 for k, v in sched.stage_seconds.items()},
         "measured_stage_ms": {k: (v - stages0[k]) * 1e3 for k, v in sched.stage_seconds.items()},
+        "measured_commit_ms": {k: (v - commit0[k]) * 1e3
+                               for k, v in sched.commit_seconds.items()},
         "measured_batch_ms": [t * 1e3 for t in sched.cycle_seconds[n_cycles:]],
+        "measured_batches": sched.batch_counter - batches0,
+        "measured_idle_ms": (sched.idle_seconds - idle0) * 1e3,
+        "measured_dispatch_ms": sum(b - a for a, b in dispatch_spans) * 1e3,
+        "measured_commit_host_ms": sum(b - a for a, b in commit_spans) * 1e3,
+        "measured_overlap_ms": span_overlap_s(dispatch_spans, commit_spans) * 1e3,
+        "carry_batches": sched.carry_batches,
+        "measured_carry_batches": sched.carry_batches - carry0,
+        "caps": dataclasses.asdict(sched.state.caps),
+        "grown": {k: v for k, v in dataclasses.asdict(sched.state.caps).items()
+                  if v != getattr(caps_for_cluster(len(store.nodes), batch=batch_size), k)},
+        "pipeline_depth": sched.pipeline_depth,
+        "commit_worker": sched.commit_worker is not None,
         "cycles": cycles, "metrics": dict(sched.metrics),
         "pending": sched.queue.pending_pods(), "preempted": dict(sched.preempted),
         "nominations": list(sched.nominations),

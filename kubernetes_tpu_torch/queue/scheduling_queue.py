@@ -19,12 +19,18 @@ PreEnqueue gate and its gated pods, deficit-round-robin fair share per
 namespace, and gang co-activation. ``pending_pods`` still reports the
 ``gated`` count (always 0). The event-match memo is keyed on the event map
 it was filled from: ``set_cluster_event_map`` drops it.
+
+Every public entry point runs under the queue's RLock (``:60-75``): the
+ring's commit worker requeues failed pods and fires the moves of its binds
+while the scheduling thread pops.
 """
 
 from __future__ import annotations
 
+import functools
 import heapq
 import itertools
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
@@ -39,6 +45,18 @@ UNSCHEDULABLE_TIMEOUT = 300.0  # flushUnschedulablePodsLeftover, 5 min
 SortKey = Callable[[QueuedPodInfo], object]
 
 
+def _locked(fn):
+    """Run a public method under the queue's RLock (reentrant: the methods
+    call each other)."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+
+    return wrapper
+
+
 def priority_sort_key(qp: QueuedPodInfo) -> Tuple:
     """PrioritySort (the default profile's QueueSort for pods without a
     PodGroup): higher priority first, then the earlier queue timestamp."""
@@ -49,6 +67,7 @@ class SchedulingQueue:
     def __init__(self, less_key: Optional[SortKey] = None,
                  cluster_event_map: Optional[Dict[ClusterEvent, Set[str]]] = None,
                  now_fn=time.monotonic):
+        self._lock = threading.RLock()
         self.less_key = less_key or priority_sort_key
         self.now_fn = now_fn
         self.set_cluster_event_map(cluster_event_map or {})
@@ -62,6 +81,7 @@ class SchedulingQueue:
         self.scheduling_cycle = 0
         self.move_request_cycle = -1
 
+    @_locked
     def set_cluster_event_map(self, event_map: Dict[ClusterEvent, Set[str]]) -> None:
         """Which plugins' failures each registered event wakes; the match
         memo belongs to one map and is dropped with it."""
@@ -96,10 +116,12 @@ class SchedulingQueue:
 
     # ------------------------------------------------------------- API
 
+    @_locked
     def add(self, pod: Pod) -> None:
         """A new unscheduled pod (informer add) enters activeQ (:300)."""
         self._push_active(QueuedPodInfo(pod=pod, timestamp=self.now_fn()))
 
+    @_locked
     def update(self, old: Optional[Pod], new: Pod) -> None:
         """A pod update may make an unschedulable pod schedulable (:525); a
         pod the queue does not hold falls through to ``add`` (the
@@ -115,6 +137,7 @@ class SchedulingQueue:
         else:
             self.add(new)
 
+    @_locked
     def delete(self, pod: Pod) -> None:
         key = pod.key()
         self._unschedulable.pop(key, None)
@@ -125,6 +148,7 @@ class SchedulingQueue:
             self._backoff = [e for e in self._backoff if e[2].pod.key() != key]
             heapq.heapify(self._backoff)
 
+    @_locked
     def pop(self) -> Optional[QueuedPodInfo]:
         """The next pod to schedule, or None (the reference blocks, :484;
         the loop idles instead). Bumps ``attempts`` and the cycle."""
@@ -137,6 +161,7 @@ class SchedulingQueue:
         self.scheduling_cycle += 1
         return qp
 
+    @_locked
     def pop_batch(self, k: int) -> List[QueuedPodInfo]:
         """Up to ``k`` pods in queue order: the batch of one loop cycle."""
         out = []
@@ -147,6 +172,7 @@ class SchedulingQueue:
             out.append(qp)
         return out
 
+    @_locked
     def add_unschedulable_if_not_present(self, qp: QueuedPodInfo, pod_scheduling_cycle: int,
                                          error: bool = False) -> None:
         """A failed pod joins the unschedulable map, or backoffQ when a move
@@ -163,6 +189,7 @@ class SchedulingQueue:
         else:
             self._unschedulable[key] = qp
 
+    @_locked
     def move_all_to_active_or_backoff_queue(self, event: ClusterEvent) -> int:
         """Wake the unschedulable pods whose failed plugins registered
         interest in ``event`` (:614). Inside a ``coalesce_moves`` window the
@@ -193,19 +220,25 @@ class SchedulingQueue:
 
         class _Window:
             def __enter__(self):
-                self._owner = queue._move_backlog is None
-                if self._owner:
-                    queue._move_backlog = []
+                with queue._lock:
+                    self._owner = queue._move_backlog is None
+                    if self._owner:
+                        queue._move_backlog = []
                 return self
 
             def __exit__(self, *exc):
                 if self._owner:
-                    backlog, queue._move_backlog = queue._move_backlog, None
-                    if backlog:
-                        queue._move_all(list(dict.fromkeys(backlog)))
+                    queue._flush_coalesced_moves()
                 return False
 
         return _Window()
+
+    @_locked
+    def _flush_coalesced_moves(self) -> None:
+        """Close the window: one union scan over its deduplicated events."""
+        backlog, self._move_backlog = self._move_backlog, None
+        if backlog:
+            self._move_all(list(dict.fromkeys(backlog)))
 
     def _pod_matches_event(self, qp: QueuedPodInfo, event: ClusterEvent) -> bool:
         if event.is_wildcard():
@@ -226,6 +259,7 @@ class SchedulingQueue:
         else:
             self._push_backoff(qp)
 
+    @_locked
     def flush_backoff_completed(self) -> None:
         """backoffQ -> activeQ for expired backoffs (:432)."""
         now = self.now_fn()
@@ -234,6 +268,7 @@ class SchedulingQueue:
             self._in_queue.discard(qp.pod.key())
             self._push_active(qp)
 
+    @_locked
     def flush_unschedulable_left_over(self) -> None:
         """Pods unschedulable longer than the timeout are retried (:463)."""
         now = self.now_fn()
@@ -243,6 +278,7 @@ class SchedulingQueue:
                 del self._unschedulable[key]
                 self._requeue(qp)
 
+    @_locked
     def assigned_pod_updated_or_added(self, pod: Pod) -> None:
         """An assigned pod changed: pods that failed on affinity or spread
         may fit now."""
@@ -250,10 +286,12 @@ class SchedulingQueue:
 
     # ------------------------------------------------------------- stats
 
+    @_locked
     def pending_pods(self) -> Dict[str, int]:
         return {"active": len(self._active), "backoff": len(self._backoff),
                 "unschedulable": len(self._unschedulable), "gated": 0}
 
+    @_locked
     def pending_pod_infos(self) -> List[QueuedPodInfo]:
         """Every queued pod, across the sub-queues (PendingPods, :530)."""
         return ([e[2] for e in self._active] + [e[2] for e in self._backoff]

@@ -14,6 +14,13 @@ the store, and returns to the queue unless it is gone or bound meanwhile.
 ``:936``, which its ``TPUScheduler.run_until_settled`` calls) drives the
 subclass's ``schedule_batch_cycle`` until the queue settles.
 
+The ring's commit worker lands batches on a second thread, so the outcome
+counters take an atomic ``inc`` (``:91-98``), and every store event that
+can change what the device mirrors bumps ``external_change_seq``
+(``:141-142``, ``:446-455``): a node event, and a bound pod's add, update
+or delete, except the confirmation of this scheduler's own assumed bind.
+The ring rides the device carry only while the sequence holds.
+
 Left out: the sequential per-pod cycle (``schedule_one``) and the
 extenders; Permit and its waiting pods, the PreEnqueue gate and quota
 release moves, which come with the gang and quota parts of the loop.
@@ -22,6 +29,7 @@ release moves, which come with the gang and quota parts of the loop.
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from typing import Dict, Optional
 
@@ -62,6 +70,20 @@ def num_feasible_nodes_to_find(num_all_nodes: int, percentage: int = 0) -> int:
     return num
 
 
+class SyncCounters(dict):
+    """The loop's outcome counters with an atomic ``inc``: the commit worker
+    and the scheduling thread both count, and ``d[k] += 1`` from two
+    threads can lose an update."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._mu = threading.Lock()
+
+    def inc(self, key: str, n: int = 1) -> None:
+        with self._mu:
+            self[key] = self.get(key, 0) + n
+
+
 class Scheduler:
     def __init__(self, store: Store, percentage_of_nodes_to_score: int = 0,
                  now_fn=time.monotonic):
@@ -71,16 +93,21 @@ class Scheduler:
         self.cache = Cache(now_fn=now_fn)
         self.snapshot = Snapshot()
         self.smetrics = SchedulerMetrics()
-        self.metrics: Dict[str, int] = dict(schedule_attempts=0, scheduled=0,
-                                            unschedulable=0, errors=0)
+        self.metrics = SyncCounters(schedule_attempts=0, scheduled=0, unschedulable=0,
+                                    errors=0)
+        # external node-truth changes, counted under _ext_mu (a lost bump
+        # would keep a stale device carry)
+        self._ext_mu = threading.Lock()
+        self._external_events = 0
         self.settle_abandoned = False
+        self.idle_seconds = 0.0  # slept by run_until_settled after no-progress cycles
         # victim key -> the preemptor that evicted it, and every nomination
         # made, in order: (pod key, node)
         self.preempted: Dict[str, str] = {}
         self.nominations = []
         self._last_cleanup = now_fn()
         self._last_unsched_flush = now_fn()
-        self.profile = Profile(store, lambda: self.snapshot.list(), store.ns_labels,
+        self.profile = Profile(store, lambda: self._failure_snapshot().list(), store.ns_labels,
                                self._evict, self._clear_nomination, store.list_pdbs)
         self.queue = SchedulingQueue(less_key=self.profile.sort_key,
                                      cluster_event_map=self.profile.event_map, now_fn=now_fn)
@@ -101,6 +128,7 @@ class Scheduler:
     def _on_pod_event(self, event: str, old: Optional[Pod], new: Optional[Pod]) -> None:
         if event == ADDED:
             if new.spec.node_name:
+                self._bump_external()  # a pod bound elsewhere
                 self.cache.add_pod(new)
                 self.queue.assigned_pod_updated_or_added(new)
             elif self._responsible_for(new):
@@ -108,20 +136,27 @@ class Scheduler:
         elif event == MODIFIED:
             if new.spec.node_name:
                 if old is not None and not old.spec.node_name:
+                    if not self.cache.is_assumed(new.key()):
+                        # another binder's pod; the confirmation of our own
+                        # assume is already in the device carry
+                        self._bump_external()
                     self.cache.add_pod(new)  # the binding's confirmation
                 else:
+                    self._bump_external()
                     self.cache.update_pod(old, new)
                 self.queue.assigned_pod_updated_or_added(new)
             elif self._responsible_for(new):
                 self.queue.update(old, new)
         elif event == DELETED and old is not None:
             if old.spec.node_name:
+                self._bump_external()
                 self.cache.remove_pod(old)
                 self.queue.move_all_to_active_or_backoff_queue(qevents.POD_DELETE)
             else:
                 self.queue.delete(old)
 
     def _on_node_event(self, event: str, old: Optional[Node], new: Optional[Node]) -> None:
+        self._bump_external()  # any node event invalidates the device carry
         if event == ADDED:
             self.cache.add_node(new)
             self.queue.move_all_to_active_or_backoff_queue(qevents.NODE_ADD)
@@ -152,6 +187,16 @@ class Scheduler:
     def _responsible_for(self, pod: Pod) -> bool:
         return pod.spec.scheduler_name == self.profile.name
 
+    def _bump_external(self) -> None:
+        with self._ext_mu:
+            self._external_events += 1
+
+    def external_change_seq(self) -> int:
+        """How many external node-truth changes have arrived: the ring's
+        carry gate compares it across a chain. A read racing a bump shows
+        the bump at the next check: a conservative break, never a miss."""
+        return self._external_events
+
     # ----------------------------------------------------------- preemption writes
 
     def _evict(self, victim: Pod, preemptor: Pod) -> None:
@@ -170,11 +215,12 @@ class Scheduler:
 
     # ----------------------------------------------------------- failures
 
-    def _periodic_housekeeping(self) -> None:
+    def _periodic_housekeeping(self, now: Optional[float] = None) -> None:
         """The reference's tickers, driven from the loop: the assume-expiry
         sweep (1 s, cache.go:731) and the unschedulable-timeout flush (30 s,
         scheduling_queue.go:463)."""
-        now = self.now_fn()
+        if now is None:
+            now = self.now_fn()
         if now - self._last_cleanup >= 1.0:
             self._last_cleanup = now
             for pod in self.cache.cleanup(now):
@@ -184,6 +230,10 @@ class Scheduler:
         if now - self._last_unsched_flush >= 30.0:
             self._last_unsched_flush = now
             self.queue.flush_unschedulable_left_over()
+
+    def _failure_snapshot(self) -> Snapshot:
+        """The snapshot the failure path's PostFilter reads."""
+        return self.snapshot
 
     def _handle_scheduling_failure(self, qp: QueuedPodInfo, unschedulable: bool,
                                    diagnosis: Diagnosis, pod_cycle: int, hints=None) -> None:
@@ -196,7 +246,7 @@ class Scheduler:
         pod = qp.pod
         nominated_node = ""
         if unschedulable:
-            self.metrics["unschedulable"] += 1
+            self.metrics.inc("unschedulable")
             if diagnosis.node_to_status:
                 self.smetrics.preemption_attempts.inc()
                 node, _reason = self.profile.preemption.post_filter(pod, hints)
@@ -228,8 +278,10 @@ class Scheduler:
         """Drive ``schedule_batch_cycle`` until the queue settles; returns
         the pods popped. A cycle that neither binds nor parks a pod counts
         toward ``SETTLE_MAX_NO_PROGRESS`` and sleeps ``IDLE_WAIT_S`` times
-        its count (at most ten times); past the bound the loop gives up and
-        sets ``settle_abandoned``. Pods whose backoff is over are flushed
+        its count (at most ten times; ``idle_seconds`` sums the sleeps): a
+        cycle whose batch is still in the in-flight ring counts so, as in
+        the JAX loop. Past the bound the loop gives up and sets
+        ``settle_abandoned``. Pods whose backoff is over are flushed
         to the active queue whenever a cycle pops nothing."""
         cycles = 0
         no_progress = 0
@@ -256,7 +308,9 @@ class Scheduler:
                 if no_progress > SETTLE_MAX_NO_PROGRESS:
                     self._abandon_settle()
                     break
+                t = time.perf_counter()
                 time.sleep(IDLE_WAIT_S * min(no_progress, 10))
+                self.idle_seconds += time.perf_counter() - t
         return cycles
 
     def _abandon_settle(self) -> None:

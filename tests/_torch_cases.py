@@ -1707,20 +1707,9 @@ class LoopPair:
             "settle_abandoned": sched.settle_abandoned,
         }
 
-    def assert_equal(self, pipelined_split: bool = False) -> dict:
-        """Every key of ``state`` equal. ``pipelined_split``: the JAX loop
-        ran pipelined, so each pod that failed after an earlier batch of
-        the same settle committed binds parks in backoffQ where the
-        synchronous port parks it unschedulable (its failure raced those
-        binds' queue moves: ``move_request_cycle``); the queue is then
-        compared with the two sub-queues merged, and everything else
-        exactly."""
+    def assert_equal(self) -> dict:
+        """Every key of ``state`` equal; returns the port's."""
         jax_state, port_state = self.state(0), self.state(1)
-        if pipelined_split:
-            for st in (jax_state, port_state):
-                pending = dict(st["pending"])
-                pending["parked"] = pending.pop("backoff") + pending.pop("unschedulable")
-                st["pending"] = pending
         for key in jax_state:
             assert port_state[key] == jax_state[key], key
         return port_state

@@ -595,16 +595,19 @@ def test_preempt_all_workload_matches_cpu(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["scheduling_basic", "preemption_basic"])
-def test_scheduler_loop_matches_cpu(cuda, name):
+def test_scheduler_loop_matches_cpu(cuda, name, monkeypatch):
     """The scheduler loop (store, cache, queue, TPUScheduler) on the card
     against its full-batch CPU run: the same placements, victims,
     nominations and pods popped; on the card every batch is one fused-kernel
-    launch."""
+    launch. PreemptionBasic's failures requeue in an order that follows the
+    commit worker's timing, so it runs the inline ring on the card."""
     from kubernetes_tpu_torch.perf import workloads
 
     w = (workloads.scheduling_basic(nodes=300, init_pods=200, measured=300)
          if name == "scheduling_basic"
          else workloads.preemption_basic(nodes=48, init_pods=192, measured=48))
+    if name == "preemption_basic":
+        monkeypatch.setenv("KTPU_COMMIT_WORKER", "0")
     gpu = workloads.run_loop(w, cuda, batch_size=64)
     cpu = workloads.run_loop(w, "cpu", percentage=100, batch_size=64)
     for key in ("placed", "preempted", "nominations", "cycles", "paths", "metrics"):
@@ -625,3 +628,167 @@ def test_sampled_loop_matches_cpu(cuda):
     cpu = workloads.run_loop(w, "cpu", percentage=10, batch_size=64)
     assert gpu["placed"] == cpu["placed"] and gpu["start"] == cpu["start"] is not None
     assert set(gpu["paths"]) == {"scan"} and gpu["launches"] == 0
+
+
+def _ring_env(monkeypatch, worker: str) -> None:
+    for key in ("KTPU_PIPELINE_DEPTH", "KTPU_SPEC", "KTPU_FULL_BATCH"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("KTPU_COMMIT_WORKER", worker)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("worker", ["0", "1"])
+def test_ring_matches_cpu_inline_ring(cuda, worker, monkeypatch):
+    """The in-flight ring on the card, with the commit worker and inline,
+    against the CPU's inline ring (percentage 100): the same placements,
+    pods popped and counters; one fused-kernel launch per batch, and later
+    batches encoded on the carry."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(nodes=300, init_pods=200, measured=300)
+    _ring_env(monkeypatch, worker)
+    gpu = workloads.run_loop(w, cuda, batch_size=64)
+    _ring_env(monkeypatch, "0")
+    cpu = workloads.run_loop(w, "cpu", percentage=100, batch_size=64)
+    for key in ("placed", "cycles", "paths", "metrics", "buckets"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["commit_worker"] == (worker == "1") and gpu["pipeline_depth"] == 2
+    assert gpu["launches"] == gpu["batches"] and gpu["carry_batches"] > 0
+
+
+@pytest.mark.cuda
+def test_worker_ring_binds_every_preemptor(cuda, monkeypatch):
+    """PreemptionBasic through the ring with the commit worker: every
+    preemptor binds, its victims are evicted, nothing is left nominated
+    in the queue, and every PostFilter call reads a node list that holds
+    every pod the store has bound (the worker's snapshot, refreshed before
+    the failure path)."""
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.preemption_basic(nodes=48, init_pods=192, measured=48)
+    _ring_env(monkeypatch, "1")
+    gpu = workloads.run_loop(w, cuda, batch_size=64)
+    preemptors = [k for k in gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
+    assert preemptors and all(gpu["placed"][k] for k in preemptors)
+    assert gpu["preempted"] and not gpu["settle_abandoned"]
+    assert gpu["commit_worker"] and gpu["launches"] == gpu["batches"]
+
+    store = Store()
+    sched = TPUScheduler(store, device=cuda, batch_size=16, batch_deadline_ms=0)
+    real, missing = sched.profile.preemption.post_filter, []
+
+    def post_filter(pod, hints=None, unresolvable=()):
+        seen = {p.key() for ni in sched.profile.filters.node_infos_fn() for p in ni.pods}
+        missing.append({k for k, p in list(store.pods.items()) if p.spec.node_name} - seen)
+        return real(pod, hints, unresolvable)
+
+    sched.profile.preemption.post_filter = post_filter
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    for pods in (w.init_pod_list(), w.measured_pod_list()):
+        for pod in pods:
+            store.create_pod(pod)
+        sched.run_until_settled()
+    sched.close()
+    assert missing and not any(missing) and sched.carry_batches > 0
+    assert all(p.spec.node_name for p in store.pods.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("worker", ["0", "1"])
+def test_growth_through_the_ring_matches_cpu(cuda, worker, monkeypatch):
+    """The anti-affinity, affinity and spread pods of ``topo_cluster_spec``
+    on the hostname and zone keys together (the existing pods' terms
+    overflow ``ex_terms``), through the ring on the card, with the commit
+    worker and inline; two batches in flight when 16 nodes join and the
+    node axis outgrows its 128 rows, so the ring drains (through the
+    worker) before the mirror is rebuilt. The grown capacities, pods
+    popped, counters and placements equal the CPU's inline ring."""
+    import dataclasses
+
+    from _torch_cases import (HOST, ZONE, build_topo_nodes, build_topo_pods,
+                              topo_cluster_spec, topo_pods_spec, torch_api)
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    def run(device, worker_env):
+        _ring_env(monkeypatch, worker_env)
+        api, clock = torch_api(), FakeClock()
+        store = Store(now_fn=clock)
+        sched = TPUScheduler(store, device=device, batch_size=16, batch_deadline_ms=0,
+                             percentage_of_nodes_to_score=100, now_fn=clock)
+        infos = build_topo_nodes(api, topo_cluster_spec(136, 3, keys=(HOST, ZONE)))
+        for ni in infos[:120]:
+            store.create_node(ni.node)
+        for pod in (p for ni in infos[:120] for p in ni.pods):
+            store.create_pod(pod)
+        for pod in build_topo_pods(api, topo_pods_spec(64, 4, keys=(HOST, ZONE))):
+            store.create_pod(pod)
+        popped = sched.schedule_batch_cycle() + sched.schedule_batch_cycle()
+        assert len(sched._inflight) == 2 and sched.state.caps.nodes == 128
+        for ni in infos[120:]:
+            store.create_node(ni.node)
+        popped += sched.run_until_settled()
+        sched.close()
+        return {"placed": {k: p.spec.node_name for k, p in store.pods.items()},
+                "caps": dataclasses.asdict(sched.state.caps), "popped": popped,
+                "metrics": dict(sched.metrics), "worker": sched.commit_worker is not None}
+
+    gpu, cpu = run(cuda, worker), run("cpu", "0")
+    assert gpu["worker"] == (worker == "1")
+    for key in ("caps", "popped", "metrics", "placed"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["caps"]["nodes"] == 256 and gpu["caps"]["ex_terms"] > 8
+    assert gpu["metrics"]["scheduled"] > 40
+
+
+@pytest.mark.cuda
+def test_ring_dispatch_reads_nothing_to_the_host(cuda, monkeypatch):
+    """Every dispatch of a full mode-off batch (the batch program, the
+    carry adopted, the packed block's staged copy) runs under
+    ``set_sync_debug_mode("error")``: no host read serializes the ring."""
+    from kubernetes_tpu_torch.backend import tpu_scheduler
+    from kubernetes_tpu_torch.perf import workloads
+
+    real, calls = tpu_scheduler.dispatch_device_batch, []
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            calls.append(1)
+
+    monkeypatch.setattr(tpu_scheduler, "dispatch_device_batch", strict)
+    _ring_env(monkeypatch, "0")  # the mode is process-wide: no worker reads meanwhile
+    gpu = workloads.run_loop(workloads.scheduling_basic(nodes=300, init_pods=0, measured=256),
+                             cuda, batch_size=64)
+    assert len(calls) == gpu["batches"] == 4 and set(gpu["paths"]) == {"fused"}
+
+
+@pytest.mark.cuda
+def test_pinned_block_equals_blocking_read(cuda):
+    """The packed block read through its pinned, event-fenced copy equals a
+    blocking ``.cpu()`` read of the device block."""
+    from kubernetes_tpu_torch.backend import batch_scheduler
+    from kubernetes_tpu_torch.backend.batch import unpack_result_block
+    from kubernetes_tpu_torch.backend.commit_plane import materialize_result
+    from kubernetes_tpu_torch.backend.device_state import DeviceState, caps_for_cluster
+    from kubernetes_tpu_torch.cache.snapshot import Snapshot
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(nodes=300, init_pods=0, measured=128)
+    state = DeviceState(caps_for_cluster(300), cuda)
+    state.sync(Snapshot(w.node_infos()))
+    enc = batch_scheduler.encode_device_batch(state, w.measured_pod_list())
+    disp = batch_scheduler.dispatch_device_batch(state, enc)
+    assert disp.block.is_pinned() and disp.ready is not None
+    got = materialize_result(disp, state.caps.nodes)
+    want = unpack_result_block(disp.res.packed.cpu(), state.caps.nodes)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or np.array_equal(a, b)
+    assert (got[0] >= 0).all()

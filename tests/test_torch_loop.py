@@ -6,11 +6,13 @@ wrappers, ``batch_deadline_ms=0`` and FakeClocks that start equal. Every
 pod's node in the store, the counters (attempts, scheduled,
 unschedulable), the queue (``pending_pods`` and each queued pod's attempts
 and failed plugins), the nominations, the evicted victims, the pods popped
-(``run_until_settled``'s count) and the batches must be equal. The JAX loop runs
-synchronously (``KTPU_PIPELINE=0``, the port's shape) and at its default
-(pipelined, two batches in flight). The deadline sizer is held against the
-JAX ``BatchSizer`` on fed observations, and run at its default in the
-port's loop."""
+(``run_until_settled``'s count) and the batches must be equal. Both loops
+run synchronously (``KTPU_PIPELINE_DEPTH=0``) and at their default (the in-flight
+ring, two batches in flight, committed inline on the CPU). The deadline
+sizer, with its commit-wait model, is held against the JAX ``BatchSizer``
+on fed observations, and run at its default in both loops."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,10 +26,11 @@ PIPELINES = ["0", "default"]
 
 @pytest.fixture(params=PIPELINES)
 def pipeline(request, monkeypatch):
+    monkeypatch.delenv("KTPU_PIPELINE", raising=False)
     if request.param == "0":
-        monkeypatch.setenv("KTPU_PIPELINE", "0")
+        monkeypatch.setenv("KTPU_PIPELINE_DEPTH", "0")
     else:
-        monkeypatch.delenv("KTPU_PIPELINE", raising=False)
+        monkeypatch.delenv("KTPU_PIPELINE_DEPTH", raising=False)
     monkeypatch.delenv("KTPU_FULL_BATCH", raising=False)
     monkeypatch.delenv("KTPU_SPEC", raising=False)
     return request.param
@@ -60,31 +63,25 @@ def test_unsampled_cluster(pipeline, replay):
 
 
 def test_failures_across_batches(pipeline):
-    """12 nodes, 150 pods in ten batches: 22 pods find no node. Run
-    synchronously, JAX parks them unschedulable as the port does; run
-    pipelined, JAX parks them in backoff (``LoopPair.assert_equal``);
-    everything else is equal either way. Past their backoff, the
-    synchronous loops leave them parked: no event woke them; past the
-    5-minute unschedulable timeout, the housekeeping flush retries them,
-    and they park again."""
+    """12 nodes, 150 pods in ten batches: 22 pods find no node.
+    Synchronous, both loops park them unschedulable: past their backoff no
+    event wakes them; past the 5-minute unschedulable timeout the
+    housekeeping flush retries them, and they park again. Pipelined, each
+    batch commits after the next two were popped, so its failures race the
+    queue moves of the binds committed meanwhile and park in backoffQ
+    (``move_request_cycle``); past their backoff they are retried and park
+    unschedulable. The two loops agree exactly at every step."""
     pair = _basic(12, 150, 0)
     pair.settle()
-    got = pair.assert_equal(pipelined_split=pipeline == "default")
+    got = pair.assert_equal()
     assert got["metrics"] == {"schedule_attempts": 150, "scheduled": 128,
                               "unschedulable": 22}
-    if pipeline == "default":
-        # C13: the pipelined JAX loop parks the 22 in backoffQ, the port in
-        # unschedulablePods
-        assert pair.jsched.queue.pending_pods()["backoff"] == 22
-        assert pair.jsched.queue.pending_pods()["unschedulable"] == 0
-        port_pending = pair.tsched.queue.pending_pods()
-        assert port_pending["unschedulable"] == 22 and port_pending["backoff"] == 0
-        return
-    assert got["pending"]["unschedulable"] == 22
+    assert got["pending"]["unschedulable" if pipeline == "0" else "backoff"] == 22
     pair.advance(11.0)
     pair.settle()
     got = pair.assert_equal()
-    assert got["pending"]["unschedulable"] == 22 and got["cycles"] == 150
+    assert got["pending"]["unschedulable"] == 22
+    assert got["cycles"] == (150 if pipeline == "0" else 172)
     pair.advance(300.0)
     pair.settle()
     got = pair.assert_equal()
@@ -112,22 +109,32 @@ def test_explicit_percentage(pipeline):
     assert int(pair.tsched._start_carry) == int(np.asarray(pair.jsched._start_carry))
 
 
-@pytest.mark.parametrize("key,mode", [(HOST, "host"), (ZONE, "general")])
-def test_topology_pods(pipeline, key, mode):
+@pytest.mark.parametrize("keys,mode", [((HOST,), "host"), ((ZONE,), "general"),
+                                       ((HOST, ZONE), "general")])
+def test_topology_pods(pipeline, keys, mode):
     """The anti-affinity, affinity and spread pods of ``topo_cluster_spec``
-    on one topology key, on 120 nodes, sampled (k = 58): the hostname key
-    in mode ``host``, the zone key in mode ``general``. (One key keeps the
-    count tables inside the default capacities: the port does not grow
-    them yet.)"""
+    on 120 nodes, sampled (k = 58): on the hostname key in mode ``host``,
+    on the zone key in mode ``general``, and on both keys, whose terms and
+    signatures overflow the default count tables: both loops grow exactly
+    those axes (``_resync_grown``) to the same capacities."""
     pair = LoopPair(batch=16)
-    spec = topo_cluster_spec(120, 3, keys=(key,))
+    spec = topo_cluster_spec(120, 3, keys=keys)
     pair.add_nodes(build_topo_nodes(jax_api(), spec), build_topo_nodes(torch_api(), spec))
-    pods = topo_pods_spec(40, 4, keys=(key,))
+    pods = topo_pods_spec(40, 4, keys=keys)
     pair.add_pods(build_topo_pods(jax_api(), pods), build_topo_pods(torch_api(), pods))
     pair.settle()
     got = pair.assert_equal()
     assert mode in pair.tsched.batch_modes and set(pair.tsched.batch_paths) == {"scan"}
     assert got["metrics"]["scheduled"] > 20
+    assert pair.tsched.state.caps == _jax_caps(pair.jsched.device.caps)
+    if len(keys) == 2:
+        assert pair.tsched.state.caps.ex_terms > 8 or pair.tsched.state.caps.sigs > 8
+
+
+def _jax_caps(caps):
+    from kubernetes_tpu_torch.ops.schema import Capacities
+
+    return Capacities(**dataclasses.asdict(caps))
 
 
 def _big_pods(api, n: int, cpu: str = "40"):
@@ -241,12 +248,10 @@ def test_preemption_through_deleted_events(pipeline):
 
 def test_preemption_across_batches(pipeline):
     """40 preemptors on 24 full nodes, in batches of 16: three waves fail,
-    preempt and are nominated, and come back in later batches. Synchronous,
-    everything is equal. Pipelined, the JAX loop commits each batch after
-    popping the next two, so its nominated pods re-enter the queue after
-    batches the port's already met (ROADMAP C13): the counters, the queue,
-    the pods popped, the batches and the victims evicted are equal; the
-    nodes the preemptors are nominated to and land on are not."""
+    preempt and are nominated, and come back in later batches. Pipelined,
+    each batch commits after the next two were popped, so the nominated
+    pods re-enter the queue after batches already in flight: both loops
+    place, nominate and evict exactly alike either way."""
     pair = LoopPair(batch=16)
     pair.add_nodes(_preemption_nodes(jax_api(), 24), _preemption_nodes(torch_api(), 24))
 
@@ -256,25 +261,9 @@ def test_preemption_across_batches(pipeline):
 
     pair.add_pods(preemptors(jax_api()), preemptors(torch_api()))
     pair.settle()
-    if pipeline == "default":
-        jax_state, port_state = pair.state(0), pair.state(1)
-        for key in ("metrics", "pending", "queued", "cycles", "batches", "settle_abandoned"):
-            assert port_state[key] == jax_state[key], key
-
-        def split(placed):
-            victims = {k: n for k, n in placed.items() if k.startswith("default/victim-")}
-            return victims, {k: n for k, n in placed.items() if k not in victims}
-
-        (jax_victims, jax_preemptors), (victims, preemptors) = (
-            split(jax_state["placed"]), split(port_state["placed"]))
-        assert victims == jax_victims and len(victims) == 96 - 80
-        assert all(preemptors.values()) and all(jax_preemptors.values())
-        # the divergence C13 describes
-        assert preemptors != jax_preemptors
-        assert port_state["nominated"] != jax_state["nominated"]
-        return
     got = pair.assert_equal()
     assert got["metrics"] == {"schedule_attempts": 80, "scheduled": 40, "unschedulable": 40}
+    assert all(got["placed"][f"default/preemptor-{i}"] for i in range(40))
     assert len(pair.tsched.preempted) == 80
     assert pair.tsched.batch_counter == pair.jsched.batch_counter > 5
 
@@ -414,14 +403,17 @@ def _sizer_trace(kind: str, seed: int):
         yield bucket, latency
 
 
+@pytest.mark.parametrize("waits", [False, True])
 @pytest.mark.parametrize("kind", ["linear", "spike", "slowdown", "flat"])
 @pytest.mark.parametrize("max_batch,deadline_s", [(128, 0.5), (1024, 0.3), (256, 0.0)])
-def test_batch_sizer_matches_jax(kind, max_batch, deadline_s, monkeypatch):
+def test_batch_sizer_matches_jax(kind, max_batch, deadline_s, waits, monkeypatch):
     """The deadline fit, the bucket ladder, the sticky hysteresis and the
     outlier rejection against the JAX ``BatchSizer`` fed the same pop-to-
-    commit observations (and no commit waits, which the port's sizer
-    leaves out): ``target()`` and ``bucket_for()`` equal after every
-    observation, and the fitted model equal to the bit."""
+    commit observations and, with ``waits``, the same commit waits (about
+    0.2 ms per pod of the bucket, from the same trace), whose stall model
+    caps the target at the 15 ms default: ``target()`` and ``bucket_for()``
+    equal after every observation, and both fitted models equal to the
+    bit."""
     from kubernetes_tpu.backend.sizer import BatchSizer as JSizer
     from kubernetes_tpu_torch.backend.sizer import BatchSizer
 
@@ -433,13 +425,20 @@ def test_batch_sizer_matches_jax(kind, max_batch, deadline_s, monkeypatch):
             assert sizer.bucket_for(n) == jsizer.bucket_for(n)
         jsizer.update(bucket, latency)
         sizer.update(bucket, latency)
+        if waits:
+            wait = 0.0002 * bucket * latency / (0.012 + 0.003 * bucket)
+            jsizer.update_wait(bucket, wait)
+            sizer.update_wait(bucket, wait)
         assert sizer.target() == jsizer.target()
         targets.add(sizer.target())
         assert (sizer._fit.a, sizer._fit.b) == (jsizer._a, jsizer._b)
+        assert (sizer._wfit.a, sizer._wfit.b) == (jsizer._wfit.a, jsizer._wfit.b)
     if deadline_s == 0:
         assert targets == {max_batch}
     elif kind != "flat":
         assert min(targets) < max_batch  # the deadline did cut batches
+    if waits and deadline_s and kind == "linear":
+        assert max(targets) <= 64  # the stall cap: 15 ms at 0.2 ms per pod
 
 
 class _StepClock:
@@ -453,21 +452,27 @@ class _StepClock:
         return self.t
 
 
-def test_default_deadline_cuts_batches(monkeypatch):
-    """``TPUScheduler(store, device="cpu")`` without a deadline argument
-    takes ``KTPU_BATCH_DEADLINE_MS`` (500 ms by default). On a clock where
-    every batch spans seconds, the sizer cuts the pops down to its
-    smallest bucket and every pod still binds through the store."""
-    from kubernetes_tpu_torch.apiserver.store import Store
-    from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
-
-    monkeypatch.delenv("KTPU_BATCH_DEADLINE_MS", raising=False)
-    monkeypatch.delenv("KTPU_FULL_BATCH", raising=False)
+def _deadline_run(jax_side: bool):
+    """The default-deadline loop on a ``_StepClock(0.25)``: 20 nodes, 200
+    pods, batches of 64. Returns (pops, placements, counters, queue,
+    scheduler)."""
     clock = _StepClock(0.25)
-    store = Store(now_fn=clock)
-    sched = TPUScheduler(store, device="cpu", batch_size=64, now_fn=clock)
+    if jax_side:
+        from kubernetes_tpu.apiserver.store import ClusterStore
+        from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler as JTPUScheduler
+
+        store = ClusterStore()
+        store.validation_enabled = False
+        sched = JTPUScheduler(store, batch_size=64, now_fn=clock)
+        api = jax_api()
+    else:
+        from kubernetes_tpu_torch.apiserver.store import Store
+        from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+
+        store = Store(now_fn=clock)
+        sched = TPUScheduler(store, device="cpu", batch_size=64, now_fn=clock)
+        api = torch_api()
     assert sched.sizer.deadline_s == 0.5 and sched.sizer.target() == 64
-    api = torch_api()
     for node in build_nodes(api, cluster_spec(20, 3)):
         store.create_node(node.node)
     for pod in build_pods(api, pods_spec(200, 4)):
@@ -482,8 +487,31 @@ def test_default_deadline_cuts_batches(monkeypatch):
 
     sched.queue.pop_batch = recording_pop
     sched.run_until_settled()
+    pods = store.list_objects("Pod")[0] if jax_side else store.pods.values()
+    placed = {p.key(): p.spec.node_name for p in pods}
+    return pops, placed, dict(sched.metrics), dict(sched.queue.pending_pods()), sched
+
+
+def test_default_deadline_cuts_batches(monkeypatch):
+    """``TPUScheduler(store, device="cpu")`` without a deadline argument
+    takes ``KTPU_BATCH_DEADLINE_MS`` (500 ms by default). On a clock where
+    every batch spans seconds, the sizer cuts the pops down to its
+    smallest bucket once the first commit fed it (the ring pops three
+    batches first), every pod still binds through the store or parks, and
+    each cut batch runs the program at the sizer's bucket of 16 pods, not
+    at ``caps.pods``. Pops, placements, counters and queue equal the JAX
+    loop's on the same clock."""
+    monkeypatch.delenv("KTPU_BATCH_DEADLINE_MS", raising=False)
+    monkeypatch.delenv("KTPU_FULL_BATCH", raising=False)
+    monkeypatch.delenv("KTPU_PIPELINE", raising=False)
+    monkeypatch.delenv("KTPU_STALL_TARGET_MS", raising=False)
+    pops, placed, metrics, pending, sched = _deadline_run(jax_side=False)
+    jax_run = _deadline_run(jax_side=True)
+    assert (pops, placed, metrics, pending) == jax_run[:4]
     assert sched.sizer.target() == sched.sizer.min_batch == 16
-    assert pops[0] == 64 and 0 < max(pops[1:]) <= 16
-    pending = sched.queue.pending_pods()
-    assert sched.metrics["scheduled"] + pending["unschedulable"] + pending["backoff"] == 200
-    assert sum(1 for p in store.pods.values() if p.spec.node_name) == sched.metrics["scheduled"]
+    depth = sched.pipeline_depth
+    assert pops[:depth + 1] == [64] * (depth + 1) and 0 < max(pops[depth + 1:]) <= 16
+    assert sched.batch_buckets[:depth + 1] == [64] * (depth + 1)
+    assert set(sched.batch_buckets[depth + 1:]) == {16}
+    assert metrics["scheduled"] + pending["unschedulable"] + pending["backoff"] == 200
+    assert sum(1 for n in placed.values() if n) == metrics["scheduled"]
