@@ -148,7 +148,7 @@
    device).run_until_settled()``, every bind through the store).
    SchedulingBasic/5000Nodes (1000 init, then 1000 measured pods) on the
    card at the default percentageOfNodesToScore (a full batch on CUDA),
-   nine times in turns: the in-flight ring at its default (depth 2, its
+   six times in turns: the in-flight ring at its default (depth 2, its
    commits inline), the synchronous loop (``KTPU_PIPELINE_DEPTH=0``) and
    the ring with the commit worker (``KTPU_COMMIT_WORKER=1``).
    Each run: every pod bound, every batch on the fused kernel with
@@ -172,7 +172,29 @@
    stage (pop, snapshot, sync, encode, dispatch, commit), the commits' ms
    (wait, bind, reconcile), and with the worker the overlap: the ms its
    host commits ran beside the scheduling thread's encode and dispatch.
-12. Each workload run prints pods/s, ms per batch, host ms per stage, and
+12. Loop_gang phase: gangs, torus slices and namespace quota through the
+   loop, each on the card (the inline ring) and on the CPU in this call.
+   SchedulingGangs/5000Nodes and SchedulingSlices/512Nodes through
+   ``run_loop`` (a gang's PodGroup created just before its first member):
+   every pod bound, every gang whole and Running, nothing waiting at
+   Permit, and placements, gang rejections, PodGroups, pods popped per
+   batch and modes equal to the CPU loop; every SchedulingSlices batch mode
+   ``off`` with one fused launch each and 0 contiguity violations.
+   SchedulingSoak/1000Nodes, /Cohort and /NoGangs without their claim pods
+   (``/NoClaims``: the loop's claim part is not ported) through
+   ``run_loop_soak`` (the JAX harness's soak phase: 8 rounds of arrivals,
+   up to 120 batch cycles each on a FakeClock advanced 50 ms per cycle, a
+   quarter of each tenant's bound pods deleted after each round):
+   placements, binds per tenant, ledgers per round, pods popped per batch,
+   the queue at the end, evictions of the reclaim pass, flagged winners,
+   rejections and PodGroups equal to the CPU loop; zero oversubscription
+   at every check; nothing waiting at Permit; one fused launch per mode-off
+   batch, every /NoGangs batch mode ``off`` with a winner flagged after
+   the kernel. Prints per run pods/s, attempt p50/p99, ms per measured
+   batch (or per cycle that ran a batch), host ms by stage and commit ms,
+   the gang verdicts' ms and reads, beside BatchScheduler's ms per batch
+   for the same workload from the gang and quota phases.
+13. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -1058,7 +1080,8 @@ def preempt_phase() -> dict:
               f"max {screen['max']:.4f}); {screen['kernels']} CUDA kernels, "
               f"{screen['launch_calls']} kernel-launch calls, device busy "
               f"{screen['device_ms']:.4f} ms of {screen['wall_ms']:.2f} ms wall")
-        out[w.name] = {"launches": launches, "screen": screen}
+        out[w.name] = {"launches": launches, "screen": screen,
+                       "median_ms": statistics.median(r["ms"] for r in recs)}
     return out
 
 
@@ -1460,7 +1483,8 @@ def quota_phase() -> dict:
               f"{screen['max']:.4f}); {screen['kernels']} CUDA kernels, "
               f"{screen['launch_calls']} kernel-launch calls, device busy "
               f"{screen['device_ms']:.4f} ms of {screen['wall_ms']:.2f} ms wall")
-        out[w.name] = {"launches": launches, "screen": screen}
+        out[w.name] = {"launches": launches, "screen": screen,
+                       "median_ms": statistics.median(r["ms"] for r in recs)}
     return out
 
 
@@ -1670,12 +1694,20 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
     from kubernetes_tpu_torch.backend import tpu_scheduler
 
     out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
     basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
     with _env(**RING):
         cpu = workloads.run_loop(basic, "cpu", percentage=100)
     turns = {"ring": [], "sync": [], "worker": []}
     envs = {"ring": RING, "sync": SYNC, "worker": WORKER}
-    for i, kind in enumerate(("ring", "sync", "worker") * 3):
+    # two turns each: the loop_gang phase after this one needs the time
+    for i, kind in enumerate(("ring", "sync", "worker") * 2):
         gpu = _loop_run(basic, f"{basic.name} [{kind} {i // 3 + 1}]", envs[kind])
         _check_all_bound(basic.name, basic, gpu)
         if set(gpu["paths"]) != {"fused"} or gpu["launches"] != gpu["batches"]:
@@ -1703,6 +1735,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
     out[f"{basic.name}/sync"] = {"launches": turns["sync"][0]["launches"], "run": turns["sync"]}
     out[f"{basic.name}/worker"] = {"launches": turns["worker"][0]["launches"],
                                    "run": turns["worker"]}
+    part("basic turns")
 
     # one ring dispatch on the carry (the third, inline: the mode is
     # process-wide) under the strict mode
@@ -1729,6 +1762,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
           f"{dict(sorted(sizes.items()))}, program buckets {dict(sorted(buckets.items()))}, "
           f"attempt p99 {deadline['attempt_ms']['p99']:.2f} ms")
     out[f"{basic.name}/deadline"] = {"launches": deadline["launches"], "run": deadline}
+    part("strict and deadline")
 
     for name, prev in topo.items():
         w = prev["workload"]
@@ -1750,6 +1784,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
               f"BatchScheduler in this call: rounds {bs['spec']:.1f} pods/s, "
               f"{bs_other(prev)} {bs['other']:.1f} pods/s")
         out[f"{w.name}/ring"] = {"launches": gpu["launches"], "run": gpu}
+    part("topology")
 
     sampled = workloads.scheduling_basic(1000, 0, 256)
     s_gpu = _loop_run(sampled, f"{sampled.name} at percentage 10 [ring]", RING, percentage=10)
@@ -1763,6 +1798,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
     print(f"sampled loop: {s_gpu['batches']} batches on the scan, final window start "
           f"{s_gpu['start']} == cpu, placements == cpu")
     out["sampled"] = {"launches": s_gpu["launches"], "run": s_gpu}
+    part("sampled")
 
     pre = workloads.preemption_basic()
     with _env(**RING):
@@ -1785,6 +1821,111 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
                  f" (the cpu's inline ring: {len(p_cpu['preempted'])} victims, "
                  f"{len(p_cpu['nominations'])} nominations, {p_cpu['cycles']})"))
         out[f"{pre.name}/{label.split()[0]}"] = {"launches": p_gpu["launches"], "run": p_gpu}
+    part("preemption")
+    print("loop phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return out
+
+
+# ---------------------------------------------------------------- loop_gang phase
+
+
+def _group_sizes(w) -> dict:
+    """Pod key -> (group key, gang size) of a workload's gang pods."""
+    return {p.key(): (workloads.pod_group_key(p), shape.gang_size)
+            for shape, count in w._ops() if shape.gang_size for p in shape.pods(count)}
+
+
+def _check_atomic(name: str, w, run: dict) -> None:
+    """Every gang bound whole, Running, and nothing left waiting."""
+    bound = {}
+    for key, (gkey, size) in _group_sizes(w).items():
+        bound.setdefault(gkey, [0, size])[0] += bool(run["placed"].get(key))
+    partial = {g: b for g, b in bound.items() if b[0] not in (0, b[1])}
+    if partial or run["waiting"] or run["settle_abandoned"]:
+        raise AssertionError(f"{name} through the loop: partial gangs {partial}, waiting "
+                             f"{run['waiting']}")
+    if any(ph != "Running" or n != bound[g][1] for g, (ph, n) in run["pod_groups"].items()):
+        raise AssertionError(f"{name} through the loop: PodGroups {run['pod_groups']}")
+
+
+LOOP_GANG_KEYS = ("placed", "gang_rejected", "pod_groups", "batch_pods", "cycles", "modes")
+SOAK_LOOP_KEYS = ("placed", "bound", "rounds", "batch_pods", "pending", "evicted", "reclaims",
+                  "flagged", "gang_rejected", "pod_groups", "modes", "oversubscription",
+                  "checks")
+
+
+def loop_gang_phase(gangs: dict, quota: dict) -> dict:
+    """SchedulingGangs and SchedulingSlices through ``run_loop`` (the
+    inline ring), and SchedulingSoak, /Cohort and /NoGangs (without their
+    claim pods) through ``run_loop_soak``, on the card and on the CPU in
+    this call."""
+    out = {}
+    for w in (workloads.scheduling_gangs(), workloads.scheduling_slices()):
+        slices = bool(w.tpu_slots)
+        gpu = _loop_run(w, f"{w.name} [ring]", RING)
+        with _env(**RING):
+            cpu = workloads.run_loop(w, "cpu", percentage=100)
+        _check_all_bound(w.name, w, gpu)
+        _check_atomic(w.name, w, gpu)
+        _check_loop_same(w.name, gpu, cpu, LOOP_GANG_KEYS)
+        if slices and (set(gpu["modes"]) != {"off"} or gpu["launches"] != gpu["batches"]
+                       or gpu["slice_stats"]["ContiguityViolations"]):
+            raise AssertionError(f"{w.name} through the loop: modes {set(gpu['modes'])}, "
+                                 f"{gpu['launches']} launches for {gpu['batches']} batches, "
+                                 f"slice stats {gpu['slice_stats']}")
+        ms = gpu["measured_batch_ms"]
+        print(f"{w.name} through the loop: every gang bound whole and Running, none waiting "
+              f"at Permit; placements, rejections, PodGroups, pods popped per batch "
+              f"{gpu['batch_pods']} and modes == the cpu loop; {gpu['pods_per_s']:.1f} pods/s, "
+              f"attempt p50 {gpu['attempt_ms']['p50']:.2f} ms, p99 "
+              f"{gpu['attempt_ms']['p99']:.2f} ms; median {statistics.median(ms):.2f} ms per "
+              f"measured batch; gang_verdicts {gpu['gang_ms']:.2f} ms over {gpu['gang_reads']} "
+              f"reads; {gpu['launches']} fused launches for {gpu['batches']} batches; "
+              f"capacities grown past caps_for_cluster: {gpu['grown'] or 'none'}"
+              + (f"; slice stats {gpu['slice_stats']}" if slices else "")
+              + f"; BatchScheduler in this call (gang phase) "
+              f"{gangs[w.name]['gpu']['median_ms']:.2f} ms per batch")
+        out[w.name] = {"launches": gpu["launches"], "run": gpu}
+    for w in (workloads.scheduling_soak(claims=False),
+              workloads.scheduling_soak(cohort="soak", claims=False),
+              workloads.scheduling_soak(gangs=False, claims=False)):
+        with _env(**RING):
+            fused_step.LAUNCHES = 0
+            gpu = workloads.run_loop_soak(w, "cuda")
+            if gpu["launches"] != fused_step.LAUNCHES:
+                raise AssertionError(f"{w.name}: launches counted twice")
+            cpu = workloads.run_loop_soak(w, "cpu", percentage=100)
+        _check_loop_same(w.name, gpu, cpu, SOAK_LOOP_KEYS)
+        if gpu["oversubscription"] or gpu["waiting"]:
+            raise AssertionError(f"{w.name} through the loop: {gpu['oversubscription']} "
+                                 f"oversubscribed dimensions, waiting {gpu['waiting']}")
+        off = sum(m == "off" for m in gpu["modes"])
+        if gpu["launches"] != off:
+            raise AssertionError(f"{w.name} through the loop: {gpu['launches']} launches for "
+                                 f"{off} mode-off batches")
+        if "NoGangs" in w.name and (off != len(gpu["modes"]) or not gpu["flagged"]):
+            raise AssertionError(f"{w.name} through the loop: modes {set(gpu['modes'])}, "
+                                 f"{gpu['flagged']} winners flagged")
+        busy = gpu["batch_ms"] or [0.0]
+        print(f"{w.name} through the loop: {sum(gpu['bound'].values())} pods bound over "
+              f"{w.rounds} rounds (per tenant {gpu['bound']}) in {len(gpu['batch_pods'])} "
+              f"batches over {gpu['cycles']} cycles; 0 oversubscription at {gpu['checks']} "
+              f"checks; pending at the end {gpu['pending']}; {gpu['flagged']} winners flagged "
+              f"by the device screen, {gpu['evicted']} pods evicted by {gpu['reclaims']} "
+              f"reclaim passes; gangs rejected {gpu['gang_rejected']}; all == the cpu loop; "
+              f"{gpu['pods_per_s']:.1f} pods/s over {gpu['soak_s']:.2f} s (cpu "
+              f"{cpu['soak_s']:.2f} s); attempt p50 {gpu['attempt_ms']['p50']:.2f} ms, p99 "
+              f"{gpu['attempt_ms']['p99']:.2f} ms on the soak's clock (50 ms per cycle); "
+              f"median {statistics.median(busy):.2f} ms per cycle that ran a batch "
+              f"(max {max(busy):.2f}); host ms per batch by stage: "
+              + ", ".join(f"{k} {v / max(len(busy), 1):.2f}" for k, v in gpu["stage_ms"].items())
+              + "; commit ms per batch: "
+              + ", ".join(f"{k} {v / max(len(busy), 1):.2f}" for k, v in gpu["commit_ms"].items())
+              + f"; gang_verdicts {gpu['gang_ms']:.2f} ms over {gpu['gang_reads']} reads; "
+              f"{gpu['launches']} fused launches for {off} mode-off batches; BatchScheduler's "
+              f"soak (with claims) in this call {quota[w.name.replace('/NoClaims', '')]['median_ms']:.2f} "
+              "ms per batch")
+        out[w.name] = {"launches": gpu["launches"], "run": gpu}
     return out
 
 
@@ -1824,6 +1965,7 @@ def main() -> int:
     quota = timed("quota", quota_phase)
     pre_all = timed("preempt_all", preempt_all_phase)
     loop = timed("loop", loop_phase, topo, spec, sl["gpu"])
+    loop_gang = timed("loop_gang", loop_gang_phase, gangs, quota)
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1844,7 +1986,8 @@ def main() -> int:
                                  **{k: v["launches"] for k, v in gangs.items()},
                                  **{k: v["launches"] for k, v in quota.items()},
                                  **{k: v["launches"] for k, v in pre_all.items()},
-                                 **{f"loop:{k}": v["launches"] for k, v in loop.items()}},
+                                 **{f"loop:{k}": v["launches"] for k, v in loop.items()},
+                                 **{f"loop:{k}": v["launches"] for k, v in loop_gang.items()}},
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))

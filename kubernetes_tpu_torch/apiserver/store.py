@@ -22,7 +22,8 @@ the counter of a generic kind's last write: where the JAX store sends a
 watch event, a reader of the port's store compares versions (the quota
 ledger rebuilds its index when SchedulingQuota's moves). No WAL, watches,
 informers, admission or locking: one scheduler thread owns it. The generic
-kinds fire no handler.
+kinds fire their handlers too (the scheduler loop's PodGroup and
+SchedulingQuota moves).
 """
 
 from __future__ import annotations
@@ -211,6 +212,7 @@ class Store:
         self._bump(obj)
         self._kind_rv[kind] = self._rv
         m[key] = obj
+        self._notify(kind, ADDED, None, obj)
 
     def get_object(self, kind: str, key: str):
         return self._kind_map(kind).get(key)
@@ -219,11 +221,13 @@ class Store:
         """Replace an existing object; NotFound when there is none."""
         m = self._kind_map(kind)
         key = obj.meta.name if kind in _CLUSTER_SCOPED else obj.meta.key()
-        if key not in m:
+        old = m.get(key)
+        if old is None:
             raise NotFound(f"{kind} {key}")
         self._bump(obj)
         self._kind_rv[kind] = self._rv
         m[key] = obj
+        self._notify(kind, MODIFIED, old, obj)
 
     # ------------------------------------------------------------- storage kinds
 

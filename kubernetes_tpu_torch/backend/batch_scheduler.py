@@ -51,10 +51,15 @@ cover or window existed at decision time) or "infeasible", ``reject_gang``
 arms its backoff, and each member the device placed is surrendered through
 ``DeviceState.invalidate_row`` (the next sync repairs the row from the
 snapshot). A gang that places gets its bound count and phase (PostBind).
-This slice leaves out, raising NotImplementedError: a gang that straddles
-a batch boundary within one ``schedule`` call (Permit across batches), gang
-pods with claims or volumes (their commit checks against Unreserve), both
-for the scheduler loop slice, and gang pods without an object store.
+``BatchScheduler`` has no Permit and no clock to time one out, so it
+raises NotImplementedError for a gang that straddles a batch boundary
+within one ``schedule`` call (the scheduler loop, ``backend/
+tpu_scheduler.py``, parks the earlier members at Permit), for gang pods
+with claims or volumes (their commit checks against Unreserve come with
+the loop's claim and volume part) and for gang pods without an object
+store. The verdicts (``judge_gangs``) and the program's slice and quota
+arguments (``slice_batch_kw``, ``quota_batch_kw``) are shared with the
+loop.
 
 Namespace quota (SchedulingQuota objects in the store) follows
 ``tpu_scheduler.py``: before encode, QuotaAdmission's PreFilter
@@ -69,7 +74,9 @@ the ok bit surrenders its row (``invalidate_row``) and lands in
 authoritative check: a refused pod (two namespaces of one cohort both
 borrowing the same headroom in one batch) lands in ``retry`` and its row is
 surrendered; a refused gang member turns its whole gang away into
-``retry`` (the scheduler loop's Permit would hold and time it out). A pod
+``retry``: the documented difference from the scheduler loop, which, as
+the JAX one, fails the member and parks its siblings at Permit until the
+PodGroup's timeout (ROADMAP C12). A pod
 whose claims then fail Reserve keeps its charge until the batch's reserves
 are done, as the JAX commit plane unreserves after them. ``delete_pod``
 takes a bound pod off its node and releases its charge.
@@ -154,13 +161,13 @@ def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
     resolve in."""
     spec = pod.spec
     if spec.ephemeral_claims:
-        return "generic ephemeral volumes (scheduler loop slice)"
+        return "generic ephemeral volumes (the loop's claim and volume part)"
     if pod_group_key(pod) is not None:
         if client is None:
             return "gang membership without an object store to hold its PodGroup"
         if spec.resource_claims or spec.volumes:
             return ("a gang pod with resource claims or volumes (their commit checks against "
-                    "the gang's Unreserve come with the scheduler loop slice)")
+                    "the gang's Unreserve come with the loop's claim and volume part)")
     if (spec.resource_claims or spec.volumes) and client is None:
         return "resource claims or volumes without an object store"
     if spec.resource_claims and not ClaimMaskBuilder(client).batchable(pod):
@@ -171,7 +178,7 @@ def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
             return f"persistentvolumeclaim {name!r} does not exist"
         if not pvc.bound_pv:
             return (f"persistentvolumeclaim {name!r} is unbound (delayed binding comes "
-                    "with the scheduler loop slice)")
+                    "with the loop's claim and volume part)")
     return None
 
 
@@ -357,7 +364,7 @@ def preempt_screen(state: DeviceState, pods: Sequence[Pod], batch: DeviceBatch,
     return screen.astype(bool), best
 
 
-def _gang_rows(pods: Sequence[Pod]) -> Tuple[Dict[str, List[int]], Dict[str, List[int]]]:
+def batch_gangs(pods: Sequence[Pod]) -> Tuple[Dict[str, List[int]], Dict[str, List[int]]]:
     """The batch's flat gangs and slice gangs: group key -> batch rows, in
     batch order (``tpu_scheduler.py:1282-1293``, ``_slice_batch_args``)."""
     flat: Dict[str, List[int]] = {}
@@ -367,6 +374,64 @@ def _gang_rows(pods: Sequence[Pod]) -> Tuple[Dict[str, List[int]], Dict[str, Lis
         if gkey is not None:
             (slices if is_slice_pod(pod) else flat).setdefault(gkey, []).append(i)
     return flat, slices
+
+
+def slice_batch_kw(slices: Dict[str, List[int]], state: DeviceState) -> Dict[str, object]:
+    """The slice plan's arguments of ``schedule_batch`` for the batch's
+    slice gangs (``tpu_scheduler.py:1618-1646``), or {} without one."""
+    if not slices:
+        return {}
+    return dict(slice_members=gang_member_index(list(slices.values()), state.device),
+                slice_grid=(state.caps.superpods, state.caps.sp_slots))
+
+
+def quota_batch_kw(quota: QuotaAdmission, state: DeviceState, pods: Sequence[Pod],
+                   pad_to: int) -> Dict[str, object]:
+    """The quota screen's arguments of ``schedule_batch`` after the
+    ledger's rows are synced into the device (``tpu_scheduler.py:
+    1647-1664``), or {} when no pod of the batch is screened."""
+    table = quota.device_quota_table()
+    if not table and not state.nsq_slots:
+        return {}
+    ns_idx, req = build_quota_batch_args(pods, state, table, pad_to)
+    if ns_idx is None:
+        return {}
+    return dict(quota_ns=ns_idx, quota_req=torch.from_numpy(req).to(state.device),
+                quota_used=state.nsq_used, quota_limit=state.nsq_limit)
+
+
+def judge_gangs(flat: Dict[str, List[int]], slices: Dict[str, List[int]], res: BatchResult,
+                node_idx: np.ndarray, slice_words: Optional[np.ndarray], poisoned: Set[int],
+                device) -> Dict[str, str]:
+    """Whole-gang verdicts of one batch (``tpu_scheduler.py:1276-1318``,
+    ``_judge_gangs``, ``_judge_slice_gangs``): group key -> reason for every
+    gang to reject, in the order the JAX loop rejects them. Flat gangs by
+    one ``gang_verdicts`` device call on the batch's results and one read:
+    "incomplete" when a distinct-node cover existed on the decision-time
+    masks but the batch's commits broke it, else "infeasible". Slice gangs
+    on the host from their words: "incomplete" when the plan found a window
+    that a member lost, else "infeasible". Then a gang placed whole with a
+    member in ``poisoned`` (a stale slot, a winner the quota screen
+    flagged): "incomplete"."""
+    reasons: Dict[str, str] = {}
+    if flat:
+        member_idx, member_valid = gang_member_index(list(flat.values()), device)
+        placed_all, kernel_ok, _assign = gang_verdicts(res.node_idx, res.first_fail,
+                                                       member_idx, member_valid)
+        verdicts = torch.stack([placed_all, kernel_ok]).cpu().numpy()  # one read
+        for g, gkey in enumerate(flat):
+            if not verdicts[0, g]:
+                reasons[gkey] = "incomplete" if verdicts[1, g] else "infeasible"
+    for gkey, rows in slices.items():
+        if all(node_idx[i] >= 0 for i in rows):
+            continue
+        plan_ok = slice_words is None or all(int(slice_words[i]) & SLICE_PLAN_OK_BIT
+                                             for i in rows)
+        reasons[gkey] = "incomplete" if plan_ok else "infeasible"
+    for gkey, rows in {**flat, **slices}.items():
+        if gkey not in reasons and any(i in poisoned for i in rows):
+            reasons[gkey] = "incomplete"  # a PodGroup never half-admits
+    return reasons
 
 
 class BatchScheduler:
@@ -478,7 +543,7 @@ class BatchScheduler:
                 if batch_of.setdefault(gkey, b) != b:
                     raise NotImplementedError(
                         f"gang {gkey} straddles a batch boundary (Permit across batches "
-                        "comes with the scheduler loop slice)")
+                        "is the scheduler loop's: TPUScheduler)")
                 members.setdefault(gkey, set()).add(pod.key())
         self._call_members = members
         out: Dict[str, Optional[str]] = {}
@@ -520,14 +585,11 @@ class BatchScheduler:
         pods = self._gang_prefilter(self._quota_gate(pods, placed), placed)
         if not pods:
             return placed  # every pod failed a PreFilter: no batch
-        flat, slices = _gang_rows(pods)
+        flat, slices = batch_gangs(pods)
 
         def extras(pods: Sequence[Pod], pad_to: int) -> Dict[str, object]:
-            kw = {**self._screens(pods, pad_to), **self._quota_batch_args(pods, pad_to)}
-            if slices:
-                kw.update(slice_members=gang_member_index(list(slices.values()), self.device),
-                          slice_grid=(self.caps.superpods, self.caps.sp_slots))
-            return kw
+            return {**self._screens(pods, pad_to), **self._quota_batch_args(pods, pad_to),
+                    **slice_batch_kw(slices, state)}
 
         batch = run_device_batch(state, pods, t, extras=extras)
         res, node_idx, slot_names = batch.res, batch.node_idx, batch.slot_names
@@ -622,19 +684,10 @@ class BatchScheduler:
         return kept
 
     def _quota_batch_args(self, pods: Sequence[Pod], pad_to: int) -> Dict[str, object]:
-        """The quota screen's arguments of ``schedule_batch`` after the
-        ledger's rows are synced into the device (``tpu_scheduler.py:
-        1647-1664``), or {} when no pod of the batch is screened."""
         if self.quota is None:
             return {}
         t0 = time.perf_counter()
-        state, out = self.state, {}
-        table = self.quota.device_quota_table()
-        if table or state.nsq_slots:
-            ns_idx, req = build_quota_batch_args(pods, state, table, pad_to)
-            if ns_idx is not None:
-                out = dict(quota_ns=ns_idx, quota_req=torch.from_numpy(req).to(self.device),
-                           quota_used=state.nsq_used, quota_limit=state.nsq_limit)
+        out = quota_batch_kw(self.quota, self.state, pods, pad_to)
         self.screen_seconds["quota_table"] += time.perf_counter() - t0
         return out
 
@@ -767,38 +820,14 @@ class BatchScheduler:
     def _judge_gangs(self, flat: Dict[str, List[int]], slices: Dict[str, List[int]], res,
                      node_idx: np.ndarray, slice_words: Optional[np.ndarray],
                      flagged: Set[int]) -> Dict[int, str]:
-        """Whole-gang verdicts of one batch (``tpu_scheduler.py:1276-1318``,
-        ``_judge_gangs``, ``_judge_slice_gangs``): {batch row -> reason} for
-        every member of a gang the batch did not place whole, with
-        ``reject_gang`` called once per such gang. Slice gangs are judged
-        on the host from their words; flat gangs by ``gang_verdicts`` on
-        the batch's device results, read once. A gang placed whole with a
-        member the quota screen flagged (``flagged``) is rejected too,
-        "incomplete"."""
+        """Whole-gang verdicts of one batch (``judge_gangs``): {batch row ->
+        reason} for every member of a gang the batch did not place whole,
+        or with a member the quota screen flagged (``flagged``), with
+        ``reject_gang`` called once per such gang."""
         if not flat and not slices:
             return {}
         t0 = time.perf_counter()
-        reasons: Dict[str, str] = {}
-        if flat:
-            member_idx, member_valid = gang_member_index(list(flat.values()), self.device)
-            placed_all, kernel_ok, _assign = gang_verdicts(res.node_idx, res.first_fail,
-                                                           member_idx, member_valid)
-            verdicts = torch.stack([placed_all, kernel_ok]).cpu().numpy()  # one read
-            for g, gkey in enumerate(flat):
-                if not verdicts[0, g]:
-                    # "incomplete": a distinct-node cover existed on the
-                    # decision-time masks, but the batch's commits broke it
-                    reasons[gkey] = "incomplete" if verdicts[1, g] else "infeasible"
-        for gkey, rows in slices.items():
-            if all(node_idx[i] >= 0 for i in rows):
-                continue
-            # "infeasible": the plan found no window; "incomplete": a member
-            # lost its planned cell to the batch's commits
-            plan_ok = all(int(slice_words[i]) & SLICE_PLAN_OK_BIT for i in rows)
-            reasons[gkey] = "incomplete" if plan_ok else "infeasible"
-        for gkey, rows in {**flat, **slices}.items():
-            if gkey not in reasons and any(i in flagged for i in rows):
-                reasons[gkey] = "incomplete"  # a PodGroup never half-admits past quota
+        reasons = judge_gangs(flat, slices, res, node_idx, slice_words, flagged, self.device)
         out: Dict[int, str] = {}
         for gkey, reason in reasons.items():
             self.coscheduling.reject_gang(gkey, reason)

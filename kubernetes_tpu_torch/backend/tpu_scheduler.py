@@ -11,8 +11,8 @@ One ``schedule_batch_cycle`` (``:494``):
      on the device carry of the newest batch in flight when nothing
      external changed since the chain's last sync (``_try_pipelined_encode``),
      else after landing the ring, updating the cache snapshot and syncing
-     the device mirror, growing exactly the capacity axis a CapacityError
-     names (``_resync_grown``);
+     the device mirror, growing exactly the capacity axes the CapacityErrors
+     name (``_resync_grown``);
   3. dispatch the batch program once (the fused CUDA kernel for a full
      mode-``off`` batch; the scan for a sampled batch or a topology mode, or
      the speculative rounds, as ``spec_decode_eligible`` picks), adopt its
@@ -53,12 +53,34 @@ overrides), and each sampled batch's window starts where the last one's
 ended (``final_sample_start``). A preemption victim is deleted in the
 store, so its DELETED event wakes the nominated pod, as in the JAX loop.
 
+Gangs, torus slices and namespace quota (``:548-572``, ``:998-1021``,
+``:1262-1318``, ``:1385-1753``): at pop, QuotaAdmission's PreFilter and
+then Coscheduling's are the host gates; a pod that fails one takes the
+failure path without a batch row. The batch program gets the slice gangs'
+member index (the slice plan pins each member to its torus window) and the
+quota screen's columns after the ledger's rows are synced
+(``batch_scheduler.slice_batch_kw`` / ``quota_batch_kw``); the slice and
+quota words ride the packed block. The commit then follows the JAX order:
+the winners the quota screen flagged; the flat gangs' verdicts
+(``batch_scheduler.judge_gangs``: one ``gang_verdicts`` call and one
+read, the only read besides the packed block's and the preemption
+screen's); the slice gangs' from their words, with ``slice_wait_duration``
+and ``slice_fragmentation``; a stale or flagged member poisons its whole
+gang; each rejected gang's ``reject_gang`` (and SlicePacking's
+``forget_gang``); then in batch order a rejected gang's members, stale
+winners and flagged winners surrender their rows and take the failure
+path, and the other winners go through ``_commit_bindings``: assume,
+Reserve, Permit (a gang member short of its quorum waits in
+``waiting_pods``, assumed, until a later batch's member allows it), then
+``_bind_stage``: bind, finish and PostBind (a parked pod that Permit
+allows lands through it too). A pod whose assume, Reserve, Permit or bind
+fails surrenders its row too.
+
 Left out: the relay breaker, telemetry, tracing and the latency ledger;
 the sequential fallback path (a capacity that does not converge raises
-PermanentDeviceError); the gang, slice, quota, claim and volume arguments.
-Raised as NotImplementedError at pop, before any device work, for what the
-loop's gang and quota slice brings: pods with claims or volumes, gang and
-slice pods, and a store holding SchedulingQuota objects.
+PermanentDeviceError); the claim and volume arguments: pods with claims,
+volumes or ephemeral claims raise NotImplementedError at pop, before any
+device work.
 """
 
 from __future__ import annotations
@@ -70,7 +92,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Set
 
 import numpy as np
 import torch
@@ -78,17 +100,20 @@ import torch
 from ..api.types import Pod
 from ..apiserver.store import Store
 from ..cache.snapshot import Snapshot
-from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.profile import ATTRIBUTION_ORDER
 from ..framework.types import Diagnosis, QueuedPodInfo
 from ..metrics.scheduler_metrics import ERROR, SCHEDULED, UNSCHEDULABLE
 from ..ops.encode import CapacityError
-from ..ops.slice import is_slice_pod
+from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT
+from ..ops.schema import COL_PODS, Capacities
+from ..ops.slice import fragmentation_host
 from ..ops.tiebreak import seeds_for
-from ..scheduler.scheduler import Scheduler
+from ..scheduler.scheduler import BindItem, Scheduler
 from ..utils.device import DeviceLike, resolve_device
-from .batch_scheduler import (DeviceBatch, DispatchedBatch, EncodedBatch, adopt_device_batch,
-                              dispatch_device_batch, encode_device_batch, preempt_screen)
+from .batch_scheduler import (DeviceBatch, DispatchedBatch, EncodedBatch,
+                              adopt_device_batch, dispatch_device_batch, encode_device_batch,
+                              batch_gangs, judge_gangs, preempt_screen, quota_batch_kw,
+                              slice_batch_kw)
 from .commit_plane import CommitWorker, materialize_result
 from .device_state import DeviceState, caps_for_cluster
 from .errors import PermanentDeviceError
@@ -117,16 +142,11 @@ def _default_full_batch(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def loop_unsupported_reason(pod: Pod, store: Store) -> Optional[str]:
+def loop_unsupported_reason(pod: Pod) -> Optional[str]:
     """Why the loop cannot schedule ``pod`` yet, or None."""
     if pod.spec.resource_claims or pod.spec.volumes or pod.spec.ephemeral_claims:
         return ("resource claims or volumes (their commit checks meet the loop's store "
-                "with the gang and quota part of the loop)")
-    if pod_group_key(pod) is not None or is_slice_pod(pod):
-        return "gang or slice membership (Permit and gang activation are not ported yet)"
-    if store.scheduling_quotas:
-        return ("a store holding SchedulingQuota objects (the PreEnqueue gate and the "
-                "release moves are not ported yet)")
+                "in the claim and volume part of the loop)")
     return None
 
 
@@ -217,6 +237,11 @@ class TPUScheduler(Scheduler):
         # chain's last full sync, and whether a commit invalidated a row
         self._chain_ext_seq = -1
         self._chain_dirty = False
+        # the flat gangs' verdict calls: host seconds (the call and its
+        # read) and reads
+        self.gang_seconds = 0.0
+        self.gang_reads = 0
+        self.quota_flagged = 0  # winners the device's quota screen flagged
 
     def close(self) -> None:
         """Commit every batch in flight and end the commit worker's thread."""
@@ -239,9 +264,7 @@ class TPUScheduler(Scheduler):
         if state is None:
             with mutex:
                 if self.state is None:
-                    self.state = DeviceState(caps_for_cluster(n, batch=self.batch_size),
-                                             self.device, self.store.ns_labels)
-                    self.state.sync(self.snapshot)
+                    self._rebuild_mirror(caps_for_cluster(n, batch=self.batch_size))
             return
         if not needs_grow:
             return
@@ -254,10 +277,8 @@ class TPUScheduler(Scheduler):
             nodes = caps.nodes
             while nodes < n:
                 nodes *= 2
-            caps = dataclasses.replace(caps, nodes=nodes,
-                                       value_words=max(caps.value_words, (nodes + 2 + 31) // 32))
-            self.state = DeviceState(caps, self.device, self.store.ns_labels)
-            self.state.sync(self.snapshot)
+            self._rebuild_mirror(dataclasses.replace(
+                caps, nodes=nodes, value_words=max(caps.value_words, (nodes + 2 + 31) // 32)))
 
     # CapacityError.dimension -> the Capacities fields to double (the names
     # ops/encode.py and backend/sig_table.py raise; "value vocab for 'key'"
@@ -288,31 +309,48 @@ class TPUScheduler(Scheduler):
         "sp_slots": ("sp_slots",),
     }
 
-    def _resync_grown(self, err: CapacityError) -> None:
-        """Double exactly the capacity axis ``err`` names until it covers
-        ``err.needed``, rebuild the mirror and sync it (``:386-411``).
-        Called outside the device mutex: the drain needs the worker."""
-        self._drain_inflight()
-        if self.state is None:  # the drain's commit dropped the mirror
-            self._ensure_device()
-            return
+    def _grown(self, caps: Capacities, err: CapacityError) -> Capacities:
+        """``caps`` with exactly the axis ``err`` names doubled until it
+        covers ``err.needed``."""
         fields = self._GROW_FIELDS.get(err.dimension)
         if fields is None and err.dimension.startswith("value vocab"):
             fields = ("value_words",)
         if fields is None:
             raise PermanentDeviceError(
                 f"unknown capacity dimension {err.dimension!r}") from err
+        updates = {}
+        for f in fields:
+            v = getattr(caps, f)
+            while v < err.needed:
+                v *= 2
+            updates[f] = v
+        return dataclasses.replace(caps, **updates)
+
+    def _rebuild_mirror(self, caps: Capacities) -> None:
+        """A fresh mirror on ``caps``, synced; each CapacityError its sync
+        meets grows that axis and starts again. The sync walks the nodes in
+        the snapshot's order, which follows the process's string hashing,
+        so the first overflow it meets need not be the largest (torus slot
+        17 before slot 62). The caller holds the device mutex."""
+        for _attempt in range(GROW_ATTEMPTS):
+            self.state = DeviceState(caps, self.device, self.store.ns_labels)
+            try:
+                self.state.sync(self.snapshot)
+                return
+            except CapacityError as err:
+                caps = self._grown(caps, err)
+        raise PermanentDeviceError(f"capacities did not converge in {GROW_ATTEMPTS} growths")
+
+    def _resync_grown(self, err: CapacityError) -> None:
+        """Grow the capacity axis ``err`` names, rebuild the mirror and sync
+        it (``:386-411``), growing again for any axis that sync outgrows.
+        Called outside the device mutex: the drain needs the worker."""
+        self._drain_inflight()
+        if self.state is None:  # the drain's commit dropped the mirror
+            self._ensure_device()
+            return
         with self.device_mutex:
-            caps = self.state.caps
-            updates = {}
-            for f in fields:
-                v = getattr(caps, f)
-                while v < err.needed:
-                    v *= 2
-                updates[f] = v
-            self.state = DeviceState(dataclasses.replace(caps, **updates), self.device,
-                                     self.store.ns_labels)
-            self.state.sync(self.snapshot)
+            self._rebuild_mirror(self._grown(self.state.caps, err))
 
     def _invalidate_device_row(self, name: str) -> None:
         """The host rejects a row the device committed to: the next sync
@@ -354,15 +392,28 @@ class TPUScheduler(Scheduler):
             pod = self.store.get_pod(qp.pod.key())
             if pod is None or pod.spec.node_name or not self._responsible_for(pod):
                 continue  # skipPodSchedule
-            reason = loop_unsupported_reason(pod, self.store)
+            reason = loop_unsupported_reason(pod)
             if reason is not None:
                 raise NotImplementedError(f"pod {pod.key()}: {reason}")
             live.append((qp, pod))
         self._ensure_device()
         batch: List[QueuedPodInfo] = []
+        profile = self.profile
         for qp, pod in live:
             qp.pod = pod
-            batch.append(qp)
+            # the host gates (the batch program models neither namespace
+            # quota nor gang quorum): a pod that fails one takes no row
+            for gate, plugin in ((profile.quota.pre_filter, "QuotaAdmission"),
+                                 (profile.coscheduling.pre_filter, "Coscheduling")):
+                if gate(pod) is not None:
+                    self.metrics.inc("schedule_attempts")
+                    self._handle_scheduling_failure(
+                        qp, True, Diagnosis(unschedulable_plugins={plugin}), pod_cycle)
+                    self.smetrics.observe_attempt(UNSCHEDULABLE, profile.name,
+                                                  self.now_fn() - t_pop)
+                    break
+            else:
+                batch.append(qp)
         laps("pop")
         if batch:
             self._flush_batch(batch, pod_cycle, t_pop, laps)
@@ -385,8 +436,16 @@ class TPUScheduler(Scheduler):
         return k, start
 
     def _encode(self, batched: List[QueuedPodInfo]) -> EncodedBatch:
+        """Encode a batch with its slice gangs' member index and, after the
+        ledger's rows are synced, its quota screen's columns."""
         pods = [qp.pod for qp in batched]
-        return encode_device_batch(self.state, pods, tie_seeds=seeds_for(batched),
+        state, quota = self.state, self.profile.quota
+
+        def extras(pods, pad_to):
+            return {**slice_batch_kw(batch_gangs(pods)[1], state),
+                    **quota_batch_kw(quota, state, pods, pad_to)}
+
+        return encode_device_batch(state, pods, tie_seeds=seeds_for(batched), extras=extras,
                                    capacity=self.sizer.bucket_for(len(pods)))
 
     def _flush_batch(self, batched: List[QueuedPodInfo], pod_cycle: int, t_pop: float,
@@ -601,13 +660,26 @@ class TPUScheduler(Scheduler):
 
     def _commit_batch(self, qps: List[QueuedPodInfo], batch: DeviceBatch, pod_cycle: int,
                       t0: float) -> None:
-        """``_commit_batch_coalesced``: failures in batch order, then the
-        winners' assume, bind and finish. The preemption screen runs on the
-        adopted carry under the device mutex."""
+        """``_commit_batch_coalesced`` (``:1217-1542``): the batch's
+        verdicts (stale winners, the quota screen's flags, the gangs'), the
+        preemption screen on the adopted carry under the device mutex when a
+        pod is unplaced, then every pod in batch order: the failures, and
+        the winners through ``_commit_bindings``."""
         node_idx, slot_names = batch.node_idx, batch.slot_names
         n = len(qps)
+        pods = [qp.pod for qp in qps]
         winners = {i: slot_names.get(int(node_idx[i])) for i in range(n) if node_idx[i] >= 0}
         missing = self.cache.missing_real_nodes(name for name in winners.values() if name)
+        # a stale slot, or a node that left while the batch was decided
+        stale = {i for i, name in winners.items() if name is None or name in missing}
+        flagged: Set[int] = set()
+        if batch.quota_words is not None:
+            w = batch.quota_words[:n]
+            rows = ((node_idx[:n] >= 0) & ((w & QUOTA_SCREEN_BIT) != 0)
+                    & ((w & QUOTA_OK_BIT) == 0))
+            flagged = set(np.flatnonzero(rows).tolist())
+            self.quota_flagged += len(flagged)
+        gang_rejected = self._judge(pods, batch, stale | flagged, t0)
         hints = None
         if (node_idx[:n] < 0).any():
             if self.commit_worker is not None:
@@ -615,24 +687,43 @@ class TPUScheduler(Scheduler):
                 # binds and evictions committed since its last refresh
                 self.cache.update_snapshot(self._commit_snapshot)
             with self.device_mutex:
-                screen, best = preempt_screen(self.state, [qp.pod for qp in qps], batch,
+                screen, best = preempt_screen(self.state, pods, batch,
                                               self.cache.min_pod_priority())
                 hints = (screen, best, dict(self.state.encoder.node_slots))
-        binds = []
+        items: List[BindItem] = []
         for i, qp in enumerate(qps):
             self.metrics.inc("schedule_attempts")
-            if i in winners:
-                name = winners[i]
-                if name is None or name in missing:
-                    # a stale slot, or its node left while the batch was
-                    # decided: requeue, never bind
-                    if name is not None:
-                        self._invalidate_device_row(name)
-                        self.metrics.inc("errors")
-                    self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
-                    self.smetrics.observe_attempt(ERROR, self.profile.name, self.now_fn() - t0)
-                    continue
-                binds.append((qp, name))
+            name = winners.get(i)
+            if i in gang_rejected:
+                # the program placed it, a sibling missed: surrender the row
+                if name is not None:
+                    self._invalidate_device_row(name)
+                    diagnosis = Diagnosis(unschedulable_plugins={"Coscheduling"})
+                else:
+                    diagnosis = self._diagnose(batch.first_fail[i], slot_names)
+                    diagnosis.unschedulable_plugins.add("Coscheduling")
+                self._handle_scheduling_failure(qp, True, diagnosis, pod_cycle)
+                self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name,
+                                              self.now_fn() - t0)
+                continue
+            if i in stale:
+                # requeue, never bind
+                if name is not None:
+                    self._invalidate_device_row(name)
+                self.metrics.inc("errors")
+                self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
+                self.smetrics.observe_attempt(ERROR, self.profile.name, self.now_fn() - t0)
+                continue
+            if i in flagged:
+                # back behind the quota gate, which judges the host ledger
+                self._invalidate_device_row(name)
+                self._handle_scheduling_failure(
+                    qp, True, Diagnosis(unschedulable_plugins={"QuotaAdmission"}), pod_cycle)
+                self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name,
+                                              self.now_fn() - t0)
+                continue
+            if name is not None:
+                items.append(BindItem(qp, name))
                 continue
             diagnosis = self._diagnose(batch.first_fail[i], slot_names)
             screen, best, slot_of = hints
@@ -640,38 +731,127 @@ class TPUScheduler(Scheduler):
             pod_hints = (screen[i], slot_of, slot_names.get(b) if b >= 0 else None)
             self._handle_scheduling_failure(qp, True, diagnosis, pod_cycle, pod_hints)
             self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name, self.now_fn() - t0)
-        if binds:
-            self._commit_bindings(binds, pod_cycle, t0)
+        if items:
+            self._commit_bindings(items, pod_cycle, t0)
 
-    def _commit_bindings(self, binds: List[tuple], pod_cycle: int, t0: float) -> None:
-        """The bind tail of a batch (``commit_plane.py:155``): every winner
-        assumed in the cache, the winners bound through the store in one
-        pass, the bound ones finished. ``binds``: (queued pod, node) per
-        winner, in batch order. A winner whose assume or bind fails is rolled
-        back, takes the error path, and its device row is invalidated (the
-        device committed to it)."""
-        live = []
-        for qp, name in binds:
-            assumed = qp.pod.clone()
+    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
+        """The bind tail of a batch (``commit_plane.py:155-307``), each
+        stage over the whole batch: assume, Reserve (every winner, then the
+        refused ones rolled back), Permit (a pod voting WAIT parks at once,
+        so the next member's quorum counts it; a quorum allows the parked
+        siblings, which land right there), then ``_bind_stage``. Per pod
+        the plugins see the JAX commit plane's calls in its order, and each
+        pod fails alone."""
+        profile = self.profile
+        live: List[BindItem] = []
+        for item in items:  # assume
+            item.assumed = item.qp.pod.clone()
             try:
-                self.cache.assume_pod(assumed, name)
+                self.cache.assume_pod(item.assumed, item.node_name)
             except KeyError:
-                self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
-                self._invalidate_device_row(name)
+                self._handle_scheduling_failure(item.qp, False, Diagnosis(), pod_cycle)
+                self._invalidate_device_row(item.node_name)
                 continue
-            self.profile.nominator.delete_nominated_pod_if_exists(qp.pod)
-            live.append((qp, name, assumed))
-        outcomes = self.store.bind_batch([(a.key(), name) for _qp, name, a in live])
-        now = self.now_fn()
-        for (qp, name, assumed), err in zip(live, outcomes):
+            profile.nominator.delete_nominated_pod_if_exists(item.qp.pod)
+            live.append(item)
+        refused = [profile.reserve(item.assumed, item.node_name) for item in live]
+        survivors = []
+        for item, reason in zip(live, refused):
+            if reason is not None:
+                self._fail_assumed(item, True, pod_cycle)
+            else:
+                survivors.append(item)
+        verdicts = []
+        for item in survivors:  # Permit: a WAIT parks before the next member's vote
+            reason, wait_s = profile.permit(item.assumed, item.node_name)
+            if reason is None and wait_s is not None:
+                self.park(item.assumed, item.node_name, pod_cycle, t0, wait_s)
+                reason = "waiting"
+            verdicts.append(reason)
+        permitted = []
+        for item, reason in zip(survivors, verdicts):
+            if reason is None:
+                permitted.append(item)
+            elif reason != "waiting":
+                self._fail_assumed(item, True, pod_cycle)
+        self._bind_stage(permitted, pod_cycle, t0)
+
+    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
+        """Bind assumed pods through the store in one pass, then finish
+        each bound one, count it, and run PostBind over them."""
+        outcomes = self.store.bind_batch([(item.assumed.key(), item.node_name)
+                                          for item in items])
+        bound = []
+        for item, err in zip(items, outcomes):
             if err is not None:
-                self.cache.forget_pod(assumed)
-                self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
-                self._invalidate_device_row(name)
-                continue
-            self.cache.finish_binding(assumed)
+                self._fail_assumed(item, False, pod_cycle)
+            else:
+                bound.append(item)
+        if not bound:
+            return
+        now = self.now_fn()
+        for item in bound:
+            self.cache.finish_binding(item.assumed)
             self.metrics.inc("scheduled")
             self.smetrics.observe_attempt(SCHEDULED, self.profile.name, now - t0)
+        self.profile.post_bind_batch([item.assumed for item in bound])
+
+    def _fail_assumed(self, item: BindItem, unschedulable: bool, pod_cycle: int) -> None:
+        """An assumed pod refused after its assume: Unreserve (a refused
+        Reserve's too: the whole point unreserves), the assume forgotten,
+        the failure path; the device committed to it, so the next sync
+        repairs its row."""
+        self.profile.unreserve(item.assumed, item.node_name)
+        self.cache.forget_pod(item.assumed)
+        self._handle_scheduling_failure(item.qp, unschedulable, Diagnosis(), pod_cycle)
+        self._invalidate_device_row(item.node_name)
+
+    def _judge(self, pods: List[Pod], batch: DeviceBatch, poisoned: Set[int],
+               t0: float) -> Dict[int, str]:
+        """The batch's gang verdicts (``judge_gangs``), each rejected
+        gang's ``reject_gang`` (and a slice gang's plan forgotten), the
+        slice gangs' wait and the fragmentation gauges. Returns batch row
+        -> group key for every member of a rejected gang."""
+        flat, slices = batch_gangs(pods)
+        if not flat and not slices:
+            return {}
+        t = time.perf_counter()
+        reasons = judge_gangs(flat, slices, batch.res, batch.node_idx, batch.slice_words,
+                              poisoned, self.device)
+        if flat:
+            self.gang_seconds += time.perf_counter() - t
+            self.gang_reads += 1
+        now = self.now_fn()
+        for gkey in slices:
+            result = "rejected" if gkey in reasons else "scheduled"
+            self.smetrics.slice_wait_duration.observe(now - t0, result)
+        out: Dict[int, str] = {}
+        node_idx = batch.node_idx
+        for gkey, reason in reasons.items():
+            self.profile.coscheduling.reject_gang(gkey, reason)
+            if gkey in slices and any(node_idx[i] < 0 for i in slices[gkey]):
+                # the plan's node reservations go: a retry plans afresh
+                self.profile.slice_packing.forget_gang(gkey)
+            for i in flat.get(gkey) or slices[gkey]:
+                out[i] = gkey
+        if slices:
+            self._update_slice_frag_metrics()
+        return out
+
+    def _update_slice_frag_metrics(self) -> None:
+        """``slice_fragmentation`` per superpod from the host mirror (no
+        device read): the free run structure of the pod-less nodes."""
+        with self.device_mutex:
+            state = self.state
+            if state is None:
+                return
+            m = state._mirror
+            valid = m["valid"]
+            rows = fragmentation_host(m["topo_sp"], m["topo_pos"], valid,
+                                      valid & (m["requested"][:, COL_PODS] == 0),
+                                      (state.caps.superpods, state.caps.sp_slots))
+        for row in rows:
+            self.smetrics.slice_fragmentation.set(str(row["sp"]), value=row["frag"])
 
     def _failure_snapshot(self) -> Snapshot:
         """With the worker, every failure path runs on it, against its own

@@ -26,9 +26,24 @@ The ledger is seeded per namespace on first touch from the pods bound in
 the caller's cluster (``bound_pods_fn``; the JAX plugin reads its store's
 pods), in pod-key order, each charge classified own-quota first.
 
-Left out, for the scheduler loop: PreEnqueue gating and the targeted
-release moves, the release wave's shadow admitter, ``run_reclaim`` (the
-eviction of loans for a lender's demand), fair-share weights and metrics.
+The scheduler loop's half (``:284-288``, ``:525-559``, ``:576-800``):
+
+  * PreEnqueue (``pre_enqueue_status``): the queue's admission gate, the
+    fits check again;
+  * ``weight_for``: a namespace's fair-share weight (the largest of its
+    quotas'), None for a namespace without quota;
+  * a release (``unreserve``, ``pod_deleted``) calls ``on_release(ns)``
+    for the namespace and every other member of its pool: the loop's
+    targeted release move, gated by ``shadow_admitter(ns)``, which charges
+    a shadow copy of the ledger so one freed slot admits one pod;
+  * ``pod_observed_bound``: a pod bound outside Reserve is charged;
+  * ``run_reclaim`` (from the loop's 1 s sweep): for a pool whose
+    recorded lender demand does not fit, evict its loans newest first
+    through ``on_evict(pods, reason)`` (the loop's gang-closure eviction)
+    until it fits, at most once per ``DEFAULT_RECLAIM_COOLDOWN_S`` per pool unless
+    new demand arrived. The JAX pass's SLO breaker is left out: without a
+    guard function it never opens;
+  * the gauges ``quota_usage`` and ``quota_borrowed`` on ``metrics``.
 """
 
 from __future__ import annotations
@@ -38,9 +53,12 @@ from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
 from ...api import resource as resource_api
 from ...api.types import (QUOTA_CLAIMS, QUOTA_CPU, QUOTA_DIM_ORDER, QUOTA_MEMORY, QUOTA_PODS,
                           Pod, SchedulingQuota)
+from ..types import ALL, SCHEDULING_QUOTA, ClusterEvent
 from .coscheduling import pod_group_key
 
+NAME = "QuotaAdmission"
 ERR_REASON_QUOTA_EXCEEDED = "QuotaExceeded"
+DEFAULT_RECLAIM_COOLDOWN_S = 5.0
 
 # int32 ceiling of the device table's rows (ops/quota.py QUOTA_NO_LIMIT)
 _NO_LIMIT = 2**31 - 1
@@ -60,13 +78,27 @@ def pod_quota_request(pod: Pod) -> Request:
     }
 
 
+class Refusal(str):
+    """A refusal reason that names its plugin, as the queue's gate reads it."""
+
+    plugin = NAME
+
+
 class QuotaAdmission:
     """``client`` is the object store the SchedulingQuotas and PodGroups
     live in; ``bound_pods_fn`` lists the pods bound in the cluster."""
 
-    def __init__(self, client, bound_pods_fn: Callable[[], Iterable[Pod]]):
+    def __init__(self, client, bound_pods_fn: Callable[[], Iterable[Pod]], metrics=None):
         self.client = client
         self.bound_pods_fn = bound_pods_fn
+        self.metrics = metrics
+        # the loop's hooks: the targeted release move, fn(ns), and the
+        # gang-closure eviction of the reclaim pass, fn(pods, reason) -> n
+        self.on_release: Optional[Callable[[str], int]] = None
+        self.on_evict: Optional[Callable[[List[Pod], str], int]] = None
+        self.reclaims_executed = 0
+        self._last_reclaim: Dict[str, float] = {}  # cohort -> time of its last pass
+        self._demand_fresh: Set[str] = set()       # cohorts with demand since their pass
         self._usage: Dict[str, Request] = {}     # ns -> charged usage, loans included
         self._charged: Dict[str, Tuple[str, Request]] = {}  # pod key -> (ns, charge)
         self._seeded: Set[str] = set()
@@ -82,7 +114,11 @@ class QuotaAdmission:
         self._quota_index: Optional[Dict[str, List[SchedulingQuota]]] = None
         self._cohort_index: Dict[str, List[str]] = {}
         self._index_version = -1
-        self._derived: Dict[str, Tuple[Optional[Request], Optional[str]]] = {}
+        self._derived: Dict[str, Tuple[Optional[Request], Optional[float], Optional[str]]] = {}
+
+    @staticmethod
+    def events_to_register() -> List[ClusterEvent]:
+        return [ClusterEvent(SCHEDULING_QUOTA, ALL, "SchedulingQuotaChange")]
 
     # ------------------------------------------------------------- quota view
 
@@ -113,21 +149,21 @@ class QuotaAdmission:
             self._derived.clear()
         return self._quota_index
 
-    def _derived_for(self, ns: str) -> Tuple[Optional[Request], Optional[str]]:
+    def _derived_for(self, ns: str) -> Tuple[Optional[Request], Optional[float], Optional[str]]:
         self._index()
         d = self._derived.get(ns)
         if d is None:
             quotas = self._index().get(ns, [])
-            hard: Optional[Request] = None
-            cohort: Optional[str] = None
+            d = (None, None, None)
             if quotas:
-                hard = {}
+                hard: Request = {}
+                cohort: Optional[str] = None
                 for q in quotas:
                     for dim, cap in q.hard.items():
                         hard[dim] = min(hard[dim], cap) if dim in hard else cap
                     if cohort is None and q.cohort:
                         cohort = q.cohort
-            d = (hard, cohort)
+                d = (hard, float(max(q.weight for q in quotas)), cohort)
             self._derived[ns] = d
         return d
 
@@ -136,8 +172,12 @@ class QuotaAdmission:
         None when it has no SchedulingQuota: unlimited."""
         return self._derived_for(ns)[0]
 
-    def cohort_for(self, ns: str) -> Optional[str]:
+    def weight_for(self, ns: str) -> Optional[float]:
+        """The namespace's fair-share weight, or None: not a tenant."""
         return self._derived_for(ns)[1]
+
+    def cohort_for(self, ns: str) -> Optional[str]:
+        return self._derived_for(ns)[2]
 
     def cohort_members(self, cohort: str) -> List[str]:
         self._index()
@@ -262,12 +302,15 @@ class QuotaAdmission:
             self._loan_seq += 1
             self._loans[key] = (ns, req, self._loan_seq)
         self._drop_demand(key)
+        self._sync_metrics(ns)
         return True
 
-    def _release(self, pod_key: str) -> None:
+    def _release(self, pod_key: str) -> Optional[str]:
+        """Release a pod's charge; returns its namespace, or None when it
+        held none."""
         entry = self._charged.pop(pod_key, None)
         if entry is None:
-            return
+            return None
         ns, req = entry
         used = self._usage.setdefault(ns, {})
         for dim, v in req.items():
@@ -283,8 +326,21 @@ class QuotaAdmission:
             b = self._borrowed.setdefault(ns, {})
             for dim, v in req.items():
                 b[dim] = max(b.get(dim, 0) - v, 0)
+        self._sync_metrics(ns)
+        return ns
+
+    def _sync_metrics(self, ns: str) -> None:
+        if self.metrics is None:
+            return
+        used = self._usage.get(ns, {})
+        borrowed = self._borrowed.get(ns, {})
+        for dim in (QUOTA_PODS, QUOTA_CPU, QUOTA_MEMORY, QUOTA_CLAIMS):
+            self.metrics.quota_usage.set(ns, dim, value=used.get(dim, 0))
+            self.metrics.quota_borrowed.set(ns, dim, value=borrowed.get(dim, 0))
 
     def _note_reclaim_demand(self, cohort: str, pod: Pod, req: Request) -> None:
+        if pod.key() not in self._demand_pods:
+            self._demand_fresh.add(cohort)
         self._reclaim_demand.setdefault(cohort, {})[pod.key()] = dict(req)
         self._demand_pods[pod.key()] = cohort
 
@@ -315,11 +371,143 @@ class QuotaAdmission:
         return reason
 
     def unreserve(self, pod: Pod) -> None:
-        self._release(pod.key())
+        ns = self._release(pod.key())
+        if ns is not None:
+            self._fire_release(ns)
 
     def pod_deleted(self, pod: Pod) -> None:
         self._drop_demand(pod.key())
-        self._release(pod.key())
+        ns = self._release(pod.key())
+        if ns is not None:
+            self._fire_release(ns)
+
+    def pod_observed_bound(self, pod: Pod) -> None:
+        """A pod bound outside this scheduler's Reserve is charged too."""
+        if self.effective_hard(pod.meta.namespace) is None:
+            return
+        self._ensure_seeded(pod.meta.namespace)
+        self._charge(pod)
+
+    def pre_enqueue_status(self, pod: Pod) -> Optional[Refusal]:
+        """The PreEnqueue gate: None to admit, else the refusal."""
+        reason = self._fits(pod)
+        return None if reason is None else Refusal(reason)
+
+    # ---------------------------------------------------------- release waves
+
+    def _fire_release(self, ns: str) -> None:
+        """Freed headroom in ``ns`` wakes its gated pods, and, as pool
+        headroom, every other member's of its cohort."""
+        if self.on_release is None:
+            return
+        if self._index().get(ns):
+            self.on_release(ns)
+        cohort = self.cohort_for(ns)
+        if cohort:
+            for member in self.cohort_members(cohort):
+                if member != ns and self._index().get(member):
+                    self.on_release(member)
+
+    def shadow_admitter(self, ns: str) -> Callable[[Pod], Optional[Refusal]]:
+        """The gate of one release wave: each admitted pod charges a shadow
+        copy of the namespace's usage (and of its pool's), so one freed
+        slot admits one gated pod, not the whole parked backlog."""
+        self._ensure_seeded(ns)
+        shadow = dict(self._usage.get(ns, {}))
+        hard = self.effective_hard(ns)
+        cohort = self.cohort_for(ns)
+        ccaps, cshadow = {}, {}
+        if cohort is not None:
+            ccaps, cused = self.cohort_state(cohort)
+            cshadow = dict(cused)
+
+        def admit(pod: Pod) -> Optional[Refusal]:
+            if hard is None or pod.meta.namespace != ns:
+                return self.pre_enqueue_status(pod)
+            req = pod_quota_request(pod)
+            dim = self._violated(hard, shadow, req)
+            cdim = self._violated(ccaps, cshadow, req) if cohort is not None else None
+            if dim is not None and cohort is not None and self._reclaim_demand.get(cohort):
+                cdim = cdim or dim  # lender demand freezes new loans
+            if dim is not None and (cohort is None or cdim is not None):
+                return Refusal(_reason(ns, "over quota", dim))
+            if dim is None and cdim is not None:
+                return Refusal(_reason(ns, "cohort exhausted by loans", cdim))
+            for d, v in req.items():
+                shadow[d] = shadow.get(d, 0) + v
+                if cohort is not None:
+                    cshadow[d] = cshadow.get(d, 0) + v
+            return None
+
+        return admit
+
+    # ---------------------------------------------------------------- reclaim
+
+    def run_reclaim(self, now: float) -> int:
+        """The reclaim pass: for every pool whose recorded lender demand,
+        summed, does not fit, evict its loans newest first until it does
+        (``_reclaim_cohort``); a pool is passed over within the cooldown of
+        its last pass unless new demand arrived. Returns pods evicted."""
+        if self.on_evict is None or not self._reclaim_demand:
+            return 0
+        evicted_total = 0
+        for cohort in list(self._reclaim_demand):
+            live = self._live_demand(cohort)
+            if not live:
+                continue
+            agg: Request = {}
+            for r in live.values():
+                for d, v in r.items():
+                    agg[d] = agg.get(d, 0) + v
+            if self._cohort_violated(cohort, agg) is None:
+                continue
+            last = self._last_reclaim.get(cohort)
+            if (last is not None and now - last < DEFAULT_RECLAIM_COOLDOWN_S
+                    and cohort not in self._demand_fresh):
+                continue
+            self._last_reclaim[cohort] = now
+            self._demand_fresh.discard(cohort)
+            n = self._reclaim_cohort(cohort, agg)
+            evicted_total += n
+            if self.metrics is not None:
+                self.metrics.quota_reclaims.inc("evicted" if n else "noop")
+            if n:
+                self.reclaims_executed += 1
+        return evicted_total
+
+    def _live_demand(self, cohort: str) -> Dict[str, Request]:
+        """Drop the demands whose pod is gone, bound or charged since."""
+        demands = self._reclaim_demand.get(cohort, {})
+        pods = getattr(self.client, "pods", {})
+        for key in list(demands):
+            pod = pods.get(key)
+            if pod is None or pod.spec.node_name or key in self._charged:
+                demands.pop(key, None)
+                self._demand_pods.pop(key, None)
+        if not demands:
+            self._reclaim_demand.pop(cohort, None)
+        return demands
+
+    def _reclaim_cohort(self, cohort: str, agg: Request) -> int:
+        """Evict the pool's loans newest first until ``agg`` fits. Each
+        eviction deletes through the store, so its release lands here at
+        once and the next check sees the freed headroom."""
+        evicted = 0
+        loans = sorted(((seq, key, ns) for key, (ns, _r, seq) in self._loans.items()
+                        if self.cohort_for(ns) == cohort), reverse=True)
+        pods = getattr(self.client, "pods", {})
+        for _seq, key, _ns in loans:
+            if self._cohort_violated(cohort, agg) is None:
+                break
+            pod = pods.get(key)
+            if pod is None:
+                # a loan of a pod the store no longer holds
+                ns = self._release(key)
+                if ns is not None:
+                    self._fire_release(ns)
+                continue
+            evicted += self.on_evict([pod], "quota_reclaim")
+        return evicted
 
     # ----------------------------------------------------------- device view
 

@@ -1,26 +1,40 @@
 """The default scheduling profile (``default-scheduler``) of the scheduler
 loop: its name, its queue-sort key, the cluster events its plugins register
 (which failures each event wakes), and the plugin objects the loop calls
-(``kubernetes_tpu/scheduler/scheduler.py:154-200`` and
-``framework/registry.py:DEFAULT_PLUGINS``). The filters and scores of the
-batch itself run on the device; the host keeps the nominator, the filter
-runner of the preemption dry run and DefaultPreemption. No plugin registry:
-one profile, the default plugin set.
+(``kubernetes_tpu/scheduler/scheduler.py:154-213`` and
+``framework/registry.py:106-176``). The filters and scores of the batch
+itself run on the device; the host keeps the rest of the default plugin
+set, in its order:
+
+  * QueueSort: Coscheduling (``sort_key``);
+  * PreEnqueue: QuotaAdmission (``pre_enqueue``);
+  * the batch's host gates at pop: QuotaAdmission's PreFilter, then
+    Coscheduling's; the preemption dry run's PreFilters run QuotaAdmission,
+    Coscheduling, the rest, then SlicePacking (``filters``);
+  * PostFilter: DefaultPreemption (``preemption``);
+  * Reserve: QuotaAdmission first, Coscheduling last (``reserve``);
+    Unreserve in reverse (``unreserve``); VolumeBinding and
+    DynamicResources reserve nothing for the pods the loop takes;
+  * Permit: Coscheduling; PostBind: Coscheduling (``post_bind_batch``).
+
+No plugin registry: one profile, the default plugin set.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, FrozenSet, Iterable, Optional
+from typing import Callable, Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 from ..api.types import Pod, PodDisruptionBudget
 from ..queue.scheduling_queue import priority_sort_key
+from .plugins.coscheduling import Coscheduling, pod_group_key
 from .plugins.defaultpreemption import DefaultPreemption
 from .plugins.interpodaffinity import NsLabelsFn
+from .plugins.quota import QuotaAdmission
+from .plugins.slicepacking import SlicePacking
 from .runtime import FilterRunner, PodNominator
-from .types import (ADD, ALL, CSI_NODE, ClusterEvent, DELETE, NODE, NodeInfo, POD, POD_GROUP, PV,
-                    PVC, RESOURCE_CLAIM, RESOURCE_CLASS, SCHEDULING_QUOTA, STORAGE_CLASS,
-                    UPDATE_NODE_ALLOCATABLE, UPDATE_NODE_LABEL, UPDATE_NODE_TAINT,
-                    WILDCARD_EVENT)
+from .types import (ADD, ALL, CSI_NODE, ClusterEvent, DELETE, NODE, NodeInfo, POD, PV, PVC,
+                    RESOURCE_CLAIM, RESOURCE_CLASS, STORAGE_CLASS, UPDATE_NODE_ALLOCATABLE,
+                    UPDATE_NODE_LABEL, UPDATE_NODE_TAINT, WILDCARD_EVENT)
 
 DEFAULT_PROFILE = "default-scheduler"
 
@@ -48,17 +62,17 @@ DEFAULT_EVENT_MAP: Dict[ClusterEvent, FrozenSet[str]] = {
     ClusterEvent(PVC, ADD): frozenset({"NodeVolumeLimits", "VolumeZone"}),
     ClusterEvent(PVC, ADD | DELETE): frozenset({"VolumeRestrictions"}),
     ClusterEvent(PVC, _ADD_OR_UPDATE): frozenset({"VolumeBinding"}),
-    ClusterEvent(POD, ADD, "PodAdd"): frozenset({"Coscheduling"}),
     ClusterEvent(POD, DELETE): frozenset({"NodePorts", "NodeResourcesBalancedAllocation",
                                           "NodeResourcesFit"}),
     ClusterEvent(POD, ADD | DELETE): frozenset({"InterPodAffinity", "PodTopologySpread"}),
-    ClusterEvent(POD_GROUP, ALL, "PodGroupChange"): frozenset({"Coscheduling"}),
     ClusterEvent(RESOURCE_CLAIM, ALL, "ResourceClaimChange"): frozenset({"DynamicResources"}),
     ClusterEvent(RESOURCE_CLASS, _ADD_OR_UPDATE, "ResourceClassChange"): frozenset(
         {"DynamicResources"}),
-    ClusterEvent(SCHEDULING_QUOTA, ALL, "SchedulingQuotaChange"): frozenset({"QuotaAdmission"}),
     ClusterEvent(STORAGE_CLASS, ADD): frozenset({"VolumeBinding", "VolumeZone"}),
 }
+for _name, _plugin in (("Coscheduling", Coscheduling), ("QuotaAdmission", QuotaAdmission)):
+    for _ev in _plugin.events_to_register():
+        DEFAULT_EVENT_MAP[_ev] = DEFAULT_EVENT_MAP.get(_ev, frozenset()) | {_name}
 
 # the batch program's first-fail ids (backend/batch.py), in filter config
 # order: the plugin each names and the reason of its status
@@ -77,12 +91,18 @@ ATTRIBUTION_ORDER = (
 )
 
 
+# a Permit verdict: (None, None) allow, (None, seconds) wait, (reason, None) reject
+PermitVerdict = Tuple[Optional[str], Optional[float]]
+
+
 class Profile:
     """The default profile over one scheduler's cluster view. ``client``
-    is the store (PDBs, and claims and volumes once the loop takes them);
-    ``node_infos_fn`` lists the snapshot's nodes in the order the plugins
-    walk them; ``evict(victim, preemptor)`` and ``clear_nomination(pod)``
-    are the scheduler's store writes for a preemption."""
+    is the store (PDBs, PodGroups, SchedulingQuotas and the pods the
+    plugins count); ``node_infos_fn`` lists the snapshot's nodes in the
+    order the plugins walk them; ``evict(victim, preemptor)`` and
+    ``clear_nomination(pod)`` are the scheduler's store writes for a
+    preemption; ``bound_pods_fn`` lists the bound pods the quota ledger
+    seeds from; ``waiting`` is the scheduler's waiting-pods handle."""
 
     name = DEFAULT_PROFILE
     sort_key = staticmethod(priority_sort_key)
@@ -91,7 +111,41 @@ class Profile:
     def __init__(self, client, node_infos_fn: Callable[[], Iterable[NodeInfo]],
                  ns_labels_fn: Optional[NsLabelsFn],
                  evict: Callable[[Pod, Pod], None], clear_nomination: Callable[[Pod], None],
-                 pdb_lister: Optional[Callable[[], Iterable[PodDisruptionBudget]]] = None):
+                 pdb_lister: Optional[Callable[[], Iterable[PodDisruptionBudget]]] = None,
+                 bound_pods_fn: Optional[Callable[[], Iterable[Pod]]] = None,
+                 metrics=None, now_fn=None, waiting=None):
         self.nominator = PodNominator()
-        self.filters = FilterRunner(client, node_infos_fn, self.nominator, ns_labels_fn)
+        self.coscheduling = Coscheduling(client, now_fn=now_fn, metrics=metrics, waiting=waiting)
+        self.quota = QuotaAdmission(client, bound_pods_fn or (lambda: ()), metrics=metrics)
+        self.slice_packing = SlicePacking(node_infos_fn, client)
+        self.sort_key = self.coscheduling.sort_key
+        self.filters = FilterRunner(client, node_infos_fn, self.nominator, ns_labels_fn,
+                                    self.quota, self.coscheduling, self.slice_packing)
         self.preemption = DefaultPreemption(self.filters, evict, clear_nomination, pdb_lister)
+
+    def pre_enqueue(self, pod: Pod):
+        """The PreEnqueue point: None to admit, else the refusal."""
+        return self.quota.pre_enqueue_status(pod)
+
+    def reserve(self, pod: Pod, node_name: str) -> Optional[str]:
+        """The Reserve point in order; the first refusal's reason, or None."""
+        return self.quota.reserve(pod)
+
+    def unreserve(self, pod: Pod, node_name: str) -> None:
+        """The Unreserve point, the Reserve plugins in reverse."""
+        self.coscheduling.unreserve(pod)
+        self.quota.unreserve(pod)
+
+    def permit(self, pod: Pod, node_name: str) -> PermitVerdict:
+        return self.coscheduling.permit(pod, node_name)
+
+    def post_bind_batch(self, pods: List[Pod]) -> None:
+        """The PostBind point for a batch's bound pods: one bound-count
+        bump and one status write per gang."""
+        per_gang: Dict[str, int] = {}
+        for pod in pods:
+            gkey = pod_group_key(pod)
+            if gkey is not None:
+                per_gang[gkey] = per_gang.get(gkey, 0) + 1
+        if per_gang:
+            self.coscheduling.post_bind_batch(per_gang)

@@ -13,19 +13,20 @@ returns None when it passes, else its reason.
 The PreFilters run in the default order of ``kubernetes_tpu/framework/
 registry.py``: QuotaAdmission and Coscheduling (when the caller has them),
 NodeAffinity, NodePorts, NodeResourcesFit, VolumeRestrictions,
-PodTopologySpread, InterPodAffinity, VolumeBinding, DynamicResources; the
-first failure wins, and the node restrictions of NodeAffinity and of
-claims already allocated must intersect. The Filters, in order:
-NodeUnschedulable, NodeName, TaintToleration, NodeAffinity, NodePorts,
-NodeResourcesFit, VolumeRestrictions, NodeVolumeLimits, VolumeBinding and
-VolumeZone (``framework/plugins/volume.py``), PodTopologySpread,
-InterPodAffinity, DynamicResources. PodTopologySpread and InterPodAffinity
+PodTopologySpread, InterPodAffinity, VolumeBinding, DynamicResources, and
+SlicePacking (when the caller has it); the first failure wins, and the
+node restrictions of NodeAffinity and of claims already allocated must
+intersect. The Filters, in order: NodeUnschedulable, NodeName,
+TaintToleration, NodeAffinity, NodePorts, NodeResourcesFit,
+VolumeRestrictions, NodeVolumeLimits, VolumeBinding and VolumeZone
+(``framework/plugins/volume.py``), PodTopologySpread, InterPodAffinity,
+DynamicResources, SlicePacking. PodTopologySpread and InterPodAffinity
 carry counts that the AddPod / RemovePod extensions move as the dry run
 adds and removes pods.
 
-SlicePacking is left out: a slice gang member preempts only for a gang the
-batch rejected, and that rejection arms the gang's backoff, which fails
-Coscheduling's PreFilter first.
+``BatchScheduler`` runs without SlicePacking: a slice gang member preempts
+only for a gang the batch rejected, and that rejection arms the gang's
+backoff, which fails Coscheduling's PreFilter first.
 """
 
 from __future__ import annotations
@@ -79,6 +80,7 @@ class PreFilterState:
     spread: podtopologyspread.PreFilterState
     affinity: interpodaffinity.PreFilterState
     claims: dynamicresources.Claims         # DynamicResources
+    slice_target: Optional[str] = None      # SlicePacking: the member's planned node
 
     def clone(self) -> "PreFilterState":
         return dataclasses.replace(self, spread=self.spread.clone(),
@@ -90,19 +92,20 @@ class FilterRunner:
     ``client`` is the object store PVCs and claims resolve in (None: no
     pod has volumes or claims); ``node_infos_fn`` lists the cluster's
     NodeInfos (several PreFilters read every node); ``quota`` and
-    ``coscheduling`` are the caller's QuotaAdmission and Coscheduling, or
-    None."""
+    ``coscheduling`` and ``slice_packing`` are the caller's QuotaAdmission,
+    Coscheduling and SlicePacking, or None."""
 
     def __init__(self, client, node_infos_fn: Callable[[], Iterable[NodeInfo]],
                  nominator: PodNominator,
                  ns_labels_fn: Optional[interpodaffinity.NsLabelsFn] = None,
-                 quota=None, coscheduling=None):
+                 quota=None, coscheduling=None, slice_packing=None):
         self.client = client
         self.node_infos_fn = node_infos_fn
         self.nominator = nominator
         self.ns_labels_fn = ns_labels_fn or (lambda ns: {})
         self.quota = quota
         self.coscheduling = coscheduling
+        self.slice_packing = slice_packing
 
     def pre_filter(self, pod: Pod) -> Tuple[Optional[PreFilterState], Optional[str]]:
         """The PreFilters in the default order; the first failure wins."""
@@ -140,8 +143,13 @@ class FilterRunner:
                              else names & {claim.allocated_node})
                     if not names:
                         return None, ERR_REASON_PREFILTER_RESTRICTION
+        target = None
+        if self.slice_packing is not None:
+            target, reason = self.slice_packing.pre_filter(pod)
+            if reason is not None:
+                return None, reason
         return PreFilterState(pod.host_ports(), pod.resource_request(), rwop, bound, spread,
-                              affinity, claims), None
+                              affinity, claims, target), None
 
     def filter(self, state: PreFilterState, pod: Pod, ni: NodeInfo) -> Optional[str]:
         """The Filters in the default order; the first failure wins."""
@@ -159,6 +167,8 @@ class FilterRunner:
             reason = interpodaffinity.filter_node(state.affinity, pod, ni, self.ns_labels_fn)
         if reason is None and state.claims:
             reason = dynamicresources.filter_node(state.claims, ni.node)
+        if reason is None and self.slice_packing is not None:
+            reason = self.slice_packing.filter(state.slice_target, pod, ni)
         return reason
 
     def add_pod(self, state: PreFilterState, pod: Pod, added: Pod, ni: NodeInfo) -> None:

@@ -249,12 +249,14 @@ class QueuedPodInfo:
     """A pod in the scheduling queue: ``timestamp`` is when it last entered
     a sub-queue (the PrioritySort tie-break and the backoff base),
     ``attempts`` counts its pops, ``unschedulable_plugins`` the plugins it
-    failed (which cluster events wake it)."""
+    failed (which cluster events wake it), ``gated`` whether the PreEnqueue
+    gate parked it."""
 
     pod: Pod
     timestamp: float = 0.0
     attempts: int = 0
     unschedulable_plugins: Set[str] = dataclasses.field(default_factory=set)
+    gated: bool = False
 
 
 # ActionType bitmask

@@ -3,7 +3,12 @@ scheduler_metrics.py``, pkg/scheduler/metrics/metrics.go): the
 ``scheduling_attempt_duration_seconds`` histogram by result, timed from a
 batch's pop to each pod's commit, and the ``schedule_attempts`` and
 ``preemption_attempts`` counters. ``run_loop`` reads the p50 / p90 / p99
-of a run's measured phase.
+of a run's measured phase. The gang, slice and quota parts of the loop
+write ``gangs_rejected`` (by reason), ``gang_wait_duration`` and
+``slice_wait_duration`` (by result), ``slice_fragmentation`` (by
+superpod), the quota gauges ``quota_usage`` and ``quota_borrowed`` (by
+namespace and dimension), ``quota_reclaims`` (by outcome) and
+``evicted_pods`` (by reason), under the JAX metrics' names.
 
 The histogram keeps every observation, so its quantiles are exact (the JAX
 registry's are bucket estimates); one run's attempts are few enough. The
@@ -41,6 +46,12 @@ class Histogram:
     def count(self, *labels: str) -> int:
         return len(self.values(*labels))
 
+    def sum(self, *labels: str) -> float:
+        return float(sum(self.values(*labels)))
+
+    def label_sets(self) -> List[Tuple[str, ...]]:
+        return list(self._obs)
+
     def quantile(self, q: float, *labels: str, since: int = 0) -> float:
         """The ``q`` quantile (0..1, linear interpolation) of the label
         set's observations from the ``since``-th on; 0.0 when there are
@@ -54,9 +65,21 @@ class Counter:
         self.by_labels: Dict[Tuple[str, ...], int] = {}
         self._mu = threading.Lock()
 
-    def inc(self, *labels: str, value: int = 1) -> None:
+    def inc(self, *labels: str, value: float = 1) -> None:
         with self._mu:
             self.by_labels[labels] = self.by_labels.get(labels, 0) + value
+
+    def labels(self, *labels: str) -> float:
+        return self.by_labels.get(labels, 0)
+
+    def label_sets(self) -> List[Tuple[str, ...]]:
+        return list(self.by_labels)
+
+
+class Gauge(Counter):
+    def set(self, *labels: str, value: float) -> None:
+        with self._mu:
+            self.by_labels[labels] = value
 
 
 class SchedulerMetrics:
@@ -64,6 +87,14 @@ class SchedulerMetrics:
         self.schedule_attempts = Counter()             # by (result, profile)
         self.scheduling_attempt_duration = Histogram()  # by (result, profile)
         self.preemption_attempts = Counter()
+        self.gangs_rejected = Counter()                # by reason
+        self.gang_wait_duration = Histogram()          # by result
+        self.slice_wait_duration = Histogram()         # by result
+        self.slice_fragmentation = Gauge()             # by superpod
+        self.quota_usage = Gauge()                     # by (namespace, dimension)
+        self.quota_borrowed = Gauge()                  # by (namespace, dimension)
+        self.quota_reclaims = Counter()                # by outcome
+        self.evicted_pods = Counter()                  # by reason
 
     def observe_attempt(self, result: str, profile: str, duration_s: float) -> None:
         self.schedule_attempts.inc(result, profile)

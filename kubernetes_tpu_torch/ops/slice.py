@@ -147,6 +147,58 @@ def plan_slices(nt, req: torch.Tensor, member_idx: torch.Tensor, member_valid: t
     return targets, ok
 
 
+def slice_assign_host(topo_sp, topo_pos, valid, fits, want, slice_grid: Tuple[int, int],
+                      taken_cells=None) -> Tuple[List[List[int]], List[bool]]:
+    """The host oracle of ``plan_slices`` (``kubernetes_tpu/ops/slice.py:
+    152-210``), which the SlicePacking plugin plans with: the same greedy
+    best-fit walk in plain Python. ``fits`` [G, N] bool (node n fits gang
+    g's request and is schedulable), ``want`` [G] member counts,
+    ``taken_cells`` seeds the taken-cell bitmap. Returns (per gang its node
+    slots, empty when rejected; per gang its ok flag)."""
+    s_pods, ps = slice_grid
+    cells = s_pods * ps
+    grid_node = np.full(cells, -1, np.int64)
+    for nidx in range(len(topo_sp)):
+        sp, pos = int(topo_sp[nidx]), int(topo_pos[nidx])
+        if valid[nidx] and 0 <= sp < s_pods and 0 <= pos < ps:
+            grid_node[sp * ps + pos] = nidx
+    taken = np.zeros(cells, bool)
+    for c in taken_cells or ():
+        if 0 <= c < cells:
+            taken[c] = True
+    out_targets: List[List[int]] = []
+    out_ok: List[bool] = []
+    for gi in range(len(want)):
+        k = int(want[gi])
+        best, best_score = -1, None
+        if k > 0:
+            feas = np.array([grid_node[c] >= 0 and bool(fits[gi][grid_node[c]]) and not taken[c]
+                             for c in range(cells)])
+            fg = feas.reshape(s_pods, ps)
+            for s in range(s_pods):
+                row = fg[s]
+                for b in range(ps - k + 1):
+                    if not row[b:b + k].all():
+                        continue
+                    left, q = 0, b - 1
+                    while q >= 0 and row[q]:
+                        left, q = left + 1, q - 1
+                    right, q = 0, b + k
+                    while q < ps and row[q]:
+                        right, q = right + 1, q + 1
+                    cand = (left + right, s, b)
+                    if best_score is None or cand < best_score:
+                        best_score, best = cand, s * ps + b
+        if best < 0:
+            out_targets.append([])
+            out_ok.append(False)
+            continue
+        out_targets.append([int(grid_node[best + o]) for o in range(k)])
+        taken[best:best + k] = True
+        out_ok.append(True)
+    return out_targets, out_ok
+
+
 def fragmentation_host(topo_sp, topo_pos, valid, node_free,
                        slice_grid: Tuple[int, int]) -> List[Dict[str, object]]:
     """Per-superpod fragmentation on the host (numpy, no device read).

@@ -64,9 +64,11 @@ need more topology signatures and a wider torus than
   the multi-tenant mix. See ``scheduling_soak`` and ``run_soak``.
 
 ``run_loop`` drives a workload through the scheduler loop (the store,
-``TPUScheduler.run_until_settled``); ``run_with_preemption`` drives one
-through a BatchScheduler and resubmits the pods it nominated;
-``slice_stats`` reports contiguity and fragmentation after a run.
+``TPUScheduler.run_until_settled``), gangs and slices included, and
+``run_loop_soak`` the soak (``soak_rounds``: the JAX harness's soak
+phase); ``run_with_preemption`` drives one through a BatchScheduler and
+resubmits the pods it nominated; ``slice_stats`` reports contiguity and
+fragmentation after a run.
 """
 
 from __future__ import annotations
@@ -84,11 +86,12 @@ from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
 from ..ops.slice import SLICE_LABEL, TOPO_SLOT_LABEL, TOPO_SUPERPOD_LABEL, fragmentation_host
-from ..utils.clock import FakeClock  # noqa: F401  (re-export: Coscheduling's backoff clock)
+from ..utils.clock import FakeClock
 
 _NODE_CAPACITY = {"cpu": "32", "memory": "128Gi", "pods": 110}
 _DEFAULT_REQ = {"cpu": "900m", "memory": "2Gi"}
 _SMALL_REQ = {"cpu": "100m", "memory": "500Mi"}
+LOOP_BATCH = 128  # the loop's largest batch, the JAX harness's default
 
 
 def scheduling_basic_nodes(count: int, zones: int = 10,
@@ -482,14 +485,28 @@ def span_overlap_s(a: Sequence[tuple], b: Sequence[tuple]) -> float:
     return total
 
 
-def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
+def create_gang_pod(store, pod: Pod, size: int, convert=lambda obj: obj) -> None:
+    """Create ``pod`` in ``store``, and first its PodGroup (minMember
+    ``size``) when it is a gang member whose group is missing, as the JAX
+    harness's ``_make_pod`` does (``harness.py:469-485``). ``convert``
+    turns the port's objects into the store's package's."""
+    gkey = pod_group_key(pod)
+    if gkey is not None and store.get_object("PodGroup", gkey) is None:
+        store.create_object("PodGroup", convert(PodGroup(
+            meta=ObjectMeta(name=gkey.split("/", 1)[1], namespace=pod.meta.namespace),
+            min_member=size)))
+    store.create_pod(convert(pod))
+
+
+def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BATCH,
              batch_deadline_ms: Optional[float] = 0) -> dict:
     """Drive ``w`` through the scheduler loop, as the JAX harness's Runner
     does (``kubernetes_tpu/perf/harness.py:309-700``): a fresh ``Store``
     and ``TPUScheduler(store, device, ...)``; the nodes created, then the
     init pods (and warm pods) created and settled; then the measured pods
     created and settled, the measured phase timed on the host's clock from
-    the first create to the settle. ``percentage`` is
+    the first create to the settle. A gang's PodGroup is created just
+    before its first member (``create_gang_pod``). ``percentage`` is
     percentageOfNodesToScore (0: the adaptive default);
     ``batch_deadline_ms`` None takes the loop's default
     (``KTPU_BATCH_DEADLINE_MS``).
@@ -517,9 +534,13 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
     ``pipeline_depth``,
     ``commit_worker``, ``cycles`` (pods popped, per settle), ``metrics``,
     ``pending``, ``preempted`` (victim -> preemptor), ``nominations`` (in
-    order), ``start`` (the sampling window's final start, or None) and
-    ``settle_abandoned``. The loop's commit worker is stopped before it
-    returns."""
+    order), ``start`` (the sampling window's final start, or None),
+    ``settle_abandoned``; for gangs ``gang_rejected`` (reason -> whole-gang
+    rejections), ``pod_groups`` (key -> (phase, scheduled)), ``waiting``
+    (the pods parked at Permit at the end), ``gated``, ``gang_ms`` and
+    ``gang_reads`` (the flat gangs' verdict calls), ``slice_stats``
+    (``slice_stats`` over the cluster at the end, for a torus workload).
+    The loop's commit worker is stopped before it returns."""
     import gc
     import time
 
@@ -527,9 +548,6 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
     from ..backend.tpu_scheduler import TPUScheduler
     from ..ops import fused_step
 
-    if w.store() is not None:
-        raise NotImplementedError(f"{w.name}: claims, volumes or PodGroups need the loop's "
-                                  "gang and quota part")
     store = Store()
     sched = TPUScheduler(store, device=device, batch_size=batch_size,
                          batch_deadline_ms=batch_deadline_ms,
@@ -537,10 +555,12 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
     launches = fused_step.LAUNCHES
     for ni in w.node_infos():
         store.create_node(ni.node)
+    sizes = {p.key(): shape.gang_size for shape, count in w._ops() if shape.gang_size
+             for p in shape.pods(count)}
     cycles = []
     for pods in (w.init_pod_list(), w.warm_pod_list()):
         for pod in pods:
-            store.create_pod(pod)
+            create_gang_pod(store, pod, sizes.get(pod.key(), 0))
         cycles.append(sched.run_until_settled())
     # collect the garbage of earlier runs in this process before the clock
     # starts, so that its collection pauses do not land in the measured phase
@@ -554,7 +574,7 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
     spans0 = (len(sched.dispatch_spans), len(sched.commit_spans))
     t0 = time.perf_counter()
     for pod in w.measured_pod_list():
-        store.create_pod(pod)
+        create_gang_pod(store, pod, sizes.get(pod.key(), 0))
     cycles.append(sched.run_until_settled())
     measured_s = time.perf_counter() - t0
     sched.close()
@@ -591,7 +611,25 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = 128,
         "nominations": list(sched.nominations),
         "start": None if sched._start_carry is None else int(sched._start_carry),
         "settle_abandoned": sched.settle_abandoned,
+        **_gang_outcome(sched, store, bool(w.tpu_slots)),
     }
+
+
+def _gang_outcome(sched, store: Store, torus: bool) -> dict:
+    """What a loop run left for gangs and quota (``run_loop``'s keys)."""
+    out = {"gang_rejected": {labels[0]: n for labels, n in
+                             sched.smetrics.gangs_rejected.by_labels.items()},
+           "pod_groups": {k: (g.phase, g.scheduled) for k, g in store.pod_groups.items()},
+           "waiting": sorted(sched.waiting_pods), "gated": sched.queue.pending_pods()["gated"],
+           "gang_ms": sched.gang_seconds * 1e3, "gang_reads": sched.gang_reads,
+           "flagged": sched.quota_flagged}
+    if torus:
+        infos = {n: NodeInfo(node) for n, node in store.nodes.items()}
+        for p in store.pods.values():
+            if p.spec.node_name in infos:
+                infos[p.spec.node_name].add_pod(p)
+        out["slice_stats"] = slice_stats(infos.values())
+    return out
 
 
 # ----------------------------------------------------------------- SchedulingSoak
@@ -672,6 +710,10 @@ class Soak:
         return scheduling_basic_nodes(self.nodes, 10, self.device_attributes,
                                       _PREEMPTION_NODE)
 
+    def gang_size(self, pod: Pod) -> int:
+        return next((m.gang_size for m in self.mix
+                     if m.gang_size and m.namespace == pod.meta.namespace), 0)
+
     def caps(self) -> Capacities:
         # every gang's anti-affinity selector is a signature of its own, and
         # its term an existing-pod term
@@ -729,18 +771,23 @@ class Soak:
 
 
 def scheduling_soak(nodes: int = 1000, rounds: int = 8, scale: int = 24, gangs: bool = True,
-                    cohort: str = "") -> Soak:
+                    cohort: str = "", claims: bool = True) -> Soak:
     """The JAX ``scheduling_soak`` at its published size; ``cohort`` names
-    the pool of the ``/Cohort`` variant (the JAX one passes it as is), and
-    ``gangs=False`` drops soak-a's gangs, as the JAX one's ``gangs`` does."""
+    the pool of the ``/Cohort`` variant (the JAX one passes it as is),
+    ``gangs=False`` drops soak-a's gangs and ``claims=False`` soak-b's
+    claim pods with the nodes' device attributes, as the JAX one's
+    ``gangs`` and ``claims`` do (``/NoGangs``, ``/NoClaims``)."""
     mix = [SoakArrival(ns, max(w * scale // 2, 2)) for ns, w in SOAK_TENANTS]
     if gangs:
         mix.append(SoakArrival("soak-a", 8, every=2, prefix="gang", gang_size=8))
-    mix.append(SoakArrival("soak-b", max(scale // 2, 2), prefix="claim", claim=SOAK_CLAIM))
+    if claims:
+        mix.append(SoakArrival("soak-b", max(scale // 2, 2), prefix="claim", claim=SOAK_CLAIM))
     mix.append(SoakArrival("soak-c", 2, every=2, prefix="preemptor",
                            req={"cpu": "2", "memory": "4Gi"}, priority=100))
-    attrs = {"tpu.dev/cores": (8, 16), "tpu.dev/gen": ("v5", "v5", "v4", "v5")}
-    suffix = ("/Cohort" if cohort else "") + ("" if gangs else "/NoGangs")
+    attrs = ({"tpu.dev/cores": (8, 16), "tpu.dev/gen": ("v5", "v5", "v4", "v5")}
+             if claims else None)
+    suffix = (("/Cohort" if cohort else "") + ("" if gangs else "/NoGangs")
+              + ("" if claims else "/NoClaims"))
     return Soak(f"SchedulingSoak/{nodes}Nodes{suffix}", nodes, rounds, scale, tuple(mix),
                 cohort, attrs)
 
@@ -854,3 +901,128 @@ def run_soak(sched, w: Soak) -> dict:
                        "nominations": nominations})
     return {"placed": placed_all, "bound": bound, "oversubscription": oversub,
             "passes": passes, "rounds": rounds, "pending": [p.key() for p in pending]}
+
+
+def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) -> dict:
+    """The JAX harness's soak phase (``kubernetes_tpu/perf/harness.py:
+    784-990``) over a scheduler loop ``sched`` on ``store`` and ``clock``
+    (either package's: ``convert`` turns the port's pods and PodGroups into
+    the store's package's objects; ``quota`` is the loop's QuotaAdmission).
+    Each round: the round's arrivals are created (a gang's PodGroup just
+    before its first member); then up to ``SOAK_CYCLES_PER_ROUND`` batch
+    cycles, the clock advanced ``SOAK_TICK_S`` after each, the new binds
+    noted and the
+    ledger checked for oversubscription, until a cycle pops nothing and the
+    queue is empty after a backoff flush; then ``SOAK_CHURN_FRAC`` of each
+    tenant's soak-bound pods still in the store are deleted, oldest first.
+    The ring is landed at the end. Returns ``bound`` (tenant -> pods that
+    bound), ``oversubscription`` (violations over every check), ``checks``,
+    ``rounds`` (per round the ledger's usage per tenant after the churn)
+    and ``cycles`` (batch cycles driven)."""
+    tenants = [ns for ns, _w in SOAK_TENANTS]
+    bound_seen = {k for k, p in store.pods.items() if p.spec.node_name}
+    soak_bound: Dict[str, List[str]] = {ns: [] for ns in tenants}
+    bound = dict.fromkeys(tenants, 0)
+    out = {"oversubscription": 0, "checks": 0, "rounds": [], "cycles": 0}
+
+    def note_new_bindings() -> None:
+        for key, p in list(store.pods.items()):
+            if p.spec.node_name and key not in bound_seen:
+                bound_seen.add(key)
+                if p.meta.namespace in bound:
+                    bound[p.meta.namespace] += 1
+                    soak_bound[p.meta.namespace].append(key)
+
+    def check() -> None:
+        out["oversubscription"] += quota_oversubscription(quota, tenants)
+        out["checks"] += 1
+
+    counter = 0
+    for r in range(w.rounds):
+        arrivals = w.arrivals(r, counter)
+        counter += len(arrivals)
+        for pod in arrivals:
+            create_gang_pod(store, pod, w.gang_size(pod), convert)
+        for _c in range(SOAK_CYCLES_PER_ROUND):
+            progressed = sched.schedule_batch_cycle() > 0
+            out["cycles"] += 1
+            clock.advance(SOAK_TICK_S)
+            note_new_bindings()
+            check()
+            if not progressed:
+                sched.queue.flush_backoff_completed()
+                if len(sched.queue) == 0:
+                    break
+        for ns in tenants:
+            keys = soak_bound[ns]
+            n = int(len(keys) * SOAK_CHURN_FRAC)
+            for key in keys[:n]:
+                if store.get_pod(key) is not None:
+                    store.delete_pod(key)
+            soak_bound[ns] = keys[n:]
+        note_new_bindings()
+        check()
+        out["rounds"].append({ns: quota.usage(ns) for ns in tenants})
+    sched._drain_inflight()
+    note_new_bindings()
+    check()
+    out["bound"] = bound
+    return out
+
+
+def run_loop_soak(w: Soak, device, percentage: int = 0) -> dict:
+    """Drive the soak ``w`` through the port's scheduler loop
+    (``soak_rounds``) on a FakeClock: a fresh ``Store`` and
+    ``TPUScheduler``, then the nodes and the tenants' SchedulingQuotas
+    created through the store, then the rounds. The soak's claim pods need
+    the loop's claim part: pass a soak made with ``claims=False``.
+    ``percentage`` is percentageOfNodesToScore (0: the adaptive default,
+    which samples on the CPU from 100 nodes on).
+
+    Cut from the JAX soak: the device flap (the JAX loop's relay breaker
+    then sends pods down its sequential path, which the port does not
+    have).
+
+    Returns ``soak_rounds``' dict with ``placed`` (pod key -> node, "" when
+    unbound), ``pending``, ``batch_pods``, ``modes``, ``paths``,
+    ``launches`` (fused-kernel launches), ``pods_per_s`` (pods bound over
+    the wall seconds of the rounds), ``soak_s``, ``attempt_ms`` (p50 / p99
+    of the scheduled attempts on the soak's clock, which advances
+    ``SOAK_TICK_S`` per cycle), ``batch_ms`` (each cycle's wall ms on the
+    scheduling thread), ``stage_ms``, ``commit_ms``, ``evicted`` and
+    ``reclaims`` (the reclaim pass's evictions and passes that evicted) and
+    ``run_loop``'s gang keys."""
+    import time
+
+    from ..backend.tpu_scheduler import TPUScheduler
+    from ..ops import fused_step
+
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = TPUScheduler(store, device=device, batch_size=LOOP_BATCH, batch_deadline_ms=0,
+                         now_fn=clock, percentage_of_nodes_to_score=percentage)
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    for q in w.quotas():
+        store.create_object("SchedulingQuota", q)
+    launches = fused_step.LAUNCHES
+    t0 = time.perf_counter()
+    out = soak_rounds(w, store, sched, sched.profile.quota, clock)
+    soak_s = time.perf_counter() - t0
+    sched.close()
+    hist = sched.smetrics.scheduling_attempt_duration
+    out.update({
+        "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+        "pending": sched.queue.pending_pods(), "batch_pods": list(sched.batch_pods),
+        "modes": list(sched.batch_modes), "paths": list(sched.batch_paths),
+        "launches": fused_step.LAUNCHES - launches,
+        "pods_per_s": sum(out["bound"].values()) / soak_s, "soak_s": soak_s,
+        "attempt_ms": {f"p{q}": hist.quantile(q / 100, "scheduled", sched.profile.name) * 1e3
+                       for q in (50, 99)},
+        "batch_ms": [t * 1e3 for t in sched.cycle_seconds],
+        "stage_ms": {k: v * 1e3 for k, v in sched.stage_seconds.items()},
+        "commit_ms": {k: v * 1e3 for k, v in sched.commit_seconds.items()},
+        "evicted": sum(sched.smetrics.evicted_pods.by_labels.values()), "reclaims": sched.profile.quota.reclaims_executed,
+        **_gang_outcome(sched, store, False),
+    })
+    return out

@@ -10,6 +10,7 @@ UNSCHEDULABLE_TIMEOUT = ClusterEvent(WILDCARD, ALL, "UnschedulableTimeout")
 NODE_ADD = ClusterEvent(NODE, ADD, "NodeAdd")
 POD_ADD = ClusterEvent(POD, ADD, "PodAdd")
 POD_DELETE = ClusterEvent(POD, DELETE, "AssignedPodDelete")
+EVICTION = ClusterEvent(POD, DELETE, "EvictionWave")
 NODE_ALLOCATABLE_CHANGE = ClusterEvent(NODE, UPDATE_NODE_ALLOCATABLE, "NodeAllocatableChange")
 NODE_LABEL_CHANGE = ClusterEvent(NODE, UPDATE_NODE_LABEL, "NodeLabelChange")
 NODE_TAINT_CHANGE = ClusterEvent(NODE, UPDATE_NODE_TAINT, "NodeTaintChange")

@@ -14,6 +14,24 @@ the store, and returns to the queue unless it is gone or bound meanwhile.
 ``:936``, which its ``TPUScheduler.run_until_settled`` calls) drives the
 subclass's ``schedule_batch_cycle`` until the queue settles.
 
+Gangs and quota (``:54-94``, ``:184-393``, ``:559-662``): the queue gets
+Coscheduling's gang key, QuotaAdmission's PreEnqueue gate and the
+namespaces' fair-share weights; a quota release fires the targeted move
+of the namespace's gated pods (``_on_quota_release``). A pod that Permit
+parks waits in ``waiting_pods`` (assumed, not bound) until its gang's
+quorum allows it (``allow_waiting_pod``: it lands then, through the
+subclass's ``_bind_stage``) or a rejection or its deadline tears it down
+(``reject_waiting_pod``:
+Unreserve, the assume forgotten, the failure path; one POD_DELETE move per
+teardown, however many members it cascades through). The 1 s sweep
+rejects the waiters past their deadline, a gang member's whole gang
+first, and runs QuotaAdmission's reclaim pass, whose evictions take whole
+gangs (``_quota_evict``: delete, then recreate unbound, then one EVICTION
+move). The pod events charge a pod observed bound, release a deleted
+pod's charge before the POD_DELETE wave, and tell Coscheduling of a
+member's deletion; the PodGroup and SchedulingQuota events (and the other
+kinds the event map names) move the pods whose plugins registered them.
+
 The ring's commit worker lands batches on a second thread, so the outcome
 counters take an atomic ``inc`` (``:91-98``), and every store event that
 can change what the device mirrors bumps ``external_change_seq``
@@ -21,25 +39,26 @@ can change what the device mirrors bumps ``external_change_seq``
 or delete, except the confirmation of this scheduler's own assumed bind.
 The ring rides the device carry only while the sequence holds.
 
-Left out: the sequential per-pod cycle (``schedule_one``) and the
-extenders; Permit and its waiting pods, the PreEnqueue gate and quota
-release moves, which come with the gang and quota parts of the loop.
+Left out: the sequential per-pod cycle (``schedule_one``), the extenders
+and profiles other than the default one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
-from ..api.types import Node, Pod
+from ..api.types import Node, Pod, PodStatus
 from ..apiserver.store import ADDED, DELETED, MODIFIED, NotFound, Store
 from ..cache.cache import Cache
 from ..cache.snapshot import Snapshot
+from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.profile import Profile
-from ..framework.types import ClusterEvent, Diagnosis, QueuedPodInfo
-from ..metrics.scheduler_metrics import SchedulerMetrics
+from ..framework.types import ALL, WILDCARD, ClusterEvent, Diagnosis, QueuedPodInfo
+from ..metrics.scheduler_metrics import UNSCHEDULABLE, SchedulerMetrics
 from ..queue import events as qevents
 from ..queue.scheduling_queue import SchedulingQueue
 
@@ -68,6 +87,47 @@ def num_feasible_nodes_to_find(num_all_nodes: int, percentage: int = 0) -> int:
     if num < MIN_FEASIBLE_NODES_TO_FIND:
         return MIN_FEASIBLE_NODES_TO_FIND
     return num
+
+
+@dataclasses.dataclass
+class WaitingPod:
+    """One pod parked at Permit (runtime/waiting_pods_map.go) by
+    Coscheduling, the one plugin that votes WAIT: assumed on
+    ``node_name``; ``t0`` is its batch's pop time, ``deadline`` when the
+    sweep rejects it."""
+
+    pod: Pod
+    node_name: str
+    pod_cycle: int
+    t0: float
+    deadline: float
+
+
+@dataclasses.dataclass
+class BindItem:
+    """A placed pod entering the bind tail: ``assumed`` is its clone in
+    the cache, once assumed."""
+
+    qp: QueuedPodInfo
+    node_name: str
+    assumed: Optional[Pod] = None
+
+
+class WaitingPods:
+    """The handle Permit plugins release or reject parked pods through
+    (Handle.IterateOverWaitingPods / GetWaitingPod)."""
+
+    def __init__(self, sched: "Scheduler"):
+        self._sched = sched
+
+    def iterate(self) -> List[Tuple[str, Pod]]:
+        return [(k, wp.pod) for k, wp in self._sched.waiting_pods.items()]
+
+    def allow(self, pod_key: str) -> bool:
+        return self._sched.allow_waiting_pod(pod_key)
+
+    def reject(self, pod_key: str, plugins: Tuple[str, ...]) -> bool:
+        return self._sched.reject_waiting_pod(pod_key, plugins)
 
 
 class SyncCounters(dict):
@@ -107,11 +167,64 @@ class Scheduler:
         self.nominations = []
         self._last_cleanup = now_fn()
         self._last_unsched_flush = now_fn()
+        self.waiting_pods: Dict[str, WaitingPod] = {}
+        self._reject_depth = 0  # reject_waiting_pod's nesting: the outermost moves
         self.profile = Profile(store, lambda: self._failure_snapshot().list(), store.ns_labels,
-                               self._evict, self._clear_nomination, store.list_pdbs)
+                               self._evict, self._clear_nomination, store.list_pdbs,
+                               bound_pods_fn=self._bound_pods, metrics=self.smetrics,
+                               now_fn=now_fn, waiting=WaitingPods(self))
+        quota = self.profile.quota
         self.queue = SchedulingQueue(less_key=self.profile.sort_key,
-                                     cluster_event_map=self.profile.event_map, now_fn=now_fn)
+                                     cluster_event_map=self.profile.event_map, now_fn=now_fn,
+                                     gang_key_fn=pod_group_key,
+                                     pre_enqueue_fn=self.profile.pre_enqueue,
+                                     ns_weight_fn=quota.weight_for)
+        quota.on_release = self._on_quota_release
+        quota.on_evict = self._quota_evict
         self._add_all_event_handlers()
+
+    def _bound_pods(self):
+        return (p for p in self.store.pods.values() if p.spec.node_name)
+
+    # ----------------------------------------------------------- quota admission
+
+    def _on_quota_release(self, ns: str) -> int:
+        """The targeted release move: the namespace's gated pods that the
+        freed headroom admits, one freed slot per pod."""
+        quota = self.profile.quota
+        return self.queue.move_gated_pods(namespace=ns, plugin="QuotaAdmission",
+                                          admit_fn=quota.shadow_admitter(ns))
+
+    def _quota_evict(self, pods: List[Pod], reason: str) -> int:
+        """The reclaim pass's eviction (``controllers/drain.py:108-169``):
+        the set grows to whole gangs (every bound member of a gang it
+        touches), every pod of it is deleted, then each is created again
+        unbound, then one EVICTION move. Returns the pods evicted."""
+        groups = {pod_group_key(p) for p in pods} - {None}
+        closure = list(pods)
+        if groups:
+            keys = {p.key() for p in pods}
+            for p in self.store.pods.values():
+                if p.spec.node_name and p.key() not in keys and pod_group_key(p) in groups:
+                    closure.append(p)
+                    keys.add(p.key())
+        evicted, recreations = [], []
+        for pod in closure:
+            if self.store.get_pod(pod.key()) is None:
+                continue
+            self.store.delete_pod(pod.key())
+            evicted.append(pod.key())
+            clone = pod.clone()
+            clone.spec.node_name = ""
+            clone.status = PodStatus()
+            recreations.append(clone)
+        # a gang is torn down whole before any member comes back
+        for clone in recreations:
+            self.store.create_pod(clone)
+        if evicted:
+            self.smetrics.evicted_pods.inc(reason, value=len(evicted))
+            self.queue.move_all_to_active_or_backoff_queue(qevents.EVICTION)
+        return len(evicted)
 
     # ----------------------------------------------------------- event wiring
 
@@ -124,12 +237,26 @@ class Scheduler:
             self._on_pod_event(ADDED, None, pod)
         self.store.add_event_handler("Pod", self._on_pod_event)
         self.store.add_event_handler("Node", self._on_node_event)
+        self._add_dynamic_event_handlers()
+
+    def _add_dynamic_event_handlers(self) -> None:
+        """eventhandlers.go:249's dynamic arm (``:316-338``): every other
+        kind the event map names gets a handler that moves the pods whose
+        failed plugins registered it."""
+        wanted = {ev.resource for ev in self.profile.event_map
+                  if ev.resource not in ("Pod", "Node", WILDCARD)}
+        for resource in sorted(wanted):
+            def handler(event, old, new, _res=resource):
+                self.queue.move_all_to_active_or_backoff_queue(ClusterEvent(_res, ALL))
+            self.store.add_event_handler(resource, handler)
 
     def _on_pod_event(self, event: str, old: Optional[Pod], new: Optional[Pod]) -> None:
+        quota = self.profile.quota
         if event == ADDED:
             if new.spec.node_name:
                 self._bump_external()  # a pod bound elsewhere
                 self.cache.add_pod(new)
+                quota.pod_observed_bound(new)
                 self.queue.assigned_pod_updated_or_added(new)
             elif self._responsible_for(new):
                 self.queue.add(new)
@@ -141,6 +268,7 @@ class Scheduler:
                         # assume is already in the device carry
                         self._bump_external()
                     self.cache.add_pod(new)  # the binding's confirmation
+                    quota.pod_observed_bound(new)
                 else:
                     self._bump_external()
                     self.cache.update_pod(old, new)
@@ -148,12 +276,17 @@ class Scheduler:
             elif self._responsible_for(new):
                 self.queue.update(old, new)
         elif event == DELETED and old is not None:
+            # the quota release first: the POD_DELETE wave below must
+            # re-gate against the freed headroom
+            quota.pod_deleted(old)
             if old.spec.node_name:
                 self._bump_external()
                 self.cache.remove_pod(old)
                 self.queue.move_all_to_active_or_backoff_queue(qevents.POD_DELETE)
             else:
                 self.queue.delete(old)
+            if pod_group_key(old) is not None and self._responsible_for(old):
+                self.profile.coscheduling.pod_deleted(old)
 
     def _on_node_event(self, event: str, old: Optional[Node], new: Optional[Node]) -> None:
         self._bump_external()  # any node event invalidates the device carry
@@ -215,18 +348,76 @@ class Scheduler:
 
     # ----------------------------------------------------------- failures
 
+    # ----------------------------------------------------------- Permit
+
+    def park(self, assumed: Pod, node_name: str, pod_cycle: int, t0: float,
+             timeout: float) -> None:
+        """Permit voted WAIT: the assumed pod waits until ``timeout`` from
+        now for its gang's quorum."""
+        self.waiting_pods[assumed.key()] = WaitingPod(assumed, node_name, pod_cycle, t0,
+                                                      self.now_fn() + timeout)
+
+    def allow_waiting_pod(self, pod_key: str) -> bool:
+        """Permit allowed a parked pod: it lands now, through the bind
+        tail's bind, finish and PostBind stage."""
+        wp = self.waiting_pods.pop(pod_key, None)
+        if wp is None:
+            return False
+        self._bind_stage([BindItem(QueuedPodInfo(pod=wp.pod), wp.node_name, wp.pod)],
+                         wp.pod_cycle, wp.t0)
+        return True
+
+    def reject_waiting_pod(self, pod_key: str, plugins: Tuple[str, ...]) -> bool:
+        """A parked pod is rejected: Unreserve (a gang member's cascades to
+        its parked siblings), the assume forgotten, the failure path with
+        ``plugins`` attributed; the outermost rejection of a cascade fires
+        one POD_DELETE move for the capacity the forgets freed."""
+        wp = self.waiting_pods.pop(pod_key, None)
+        if wp is None:
+            return False
+        self._reject_depth += 1
+        try:
+            self.profile.unreserve(wp.pod, wp.node_name)
+            self.cache.forget_pod(wp.pod)
+            diagnosis = Diagnosis(unschedulable_plugins={p for p in plugins if p})
+            self._handle_scheduling_failure(QueuedPodInfo(pod=wp.pod), True, diagnosis,
+                                            wp.pod_cycle)
+            self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name,
+                                          self.now_fn() - wp.t0)
+        finally:
+            self._reject_depth -= 1
+        if self._reject_depth == 0:
+            self.queue.move_all_to_active_or_backoff_queue(qevents.POD_DELETE)
+        return True
+
+    def _sweep_expired_waiting_pods(self, now: float) -> None:
+        """The Permit timeout: a parked pod past its deadline is rejected,
+        a gang member's whole gang first."""
+        expired = [(k, wp) for k, wp in self.waiting_pods.items() if now >= wp.deadline]
+        for key, wp in expired:
+            if key not in self.waiting_pods:
+                continue  # a gang's cascade rejected it already
+            gkey = pod_group_key(wp.pod)
+            if gkey is not None:
+                self.profile.coscheduling.reject_gang(gkey, "timeout")
+            if key in self.waiting_pods:
+                self.reject_waiting_pod(key, ("Coscheduling",))
+
     def _periodic_housekeeping(self, now: Optional[float] = None) -> None:
-        """The reference's tickers, driven from the loop: the assume-expiry
-        sweep (1 s, cache.go:731) and the unschedulable-timeout flush (30 s,
+        """The reference's tickers, driven from the loop: the 1 s sweep
+        (Permit timeouts, assume expiry, cache.go:731, and the quota
+        reclaim pass) and the unschedulable-timeout flush (30 s,
         scheduling_queue.go:463)."""
         if now is None:
             now = self.now_fn()
         if now - self._last_cleanup >= 1.0:
             self._last_cleanup = now
+            self._sweep_expired_waiting_pods(now)
             for pod in self.cache.cleanup(now):
                 current = self.store.get_pod(pod.key())
                 if current is not None and not current.spec.node_name:
                     self.queue.add(current)
+            self.profile.quota.run_reclaim(now)
         if now - self._last_unsched_flush >= 30.0:
             self._last_unsched_flush = now
             self.queue.flush_unschedulable_left_over()
@@ -274,9 +465,14 @@ class Scheduler:
     def schedule_batch_cycle(self) -> int:
         raise NotImplementedError
 
+    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
+        """The bind tail's bind, finish and PostBind stage (the subclass's)."""
+        raise NotImplementedError
+
     def run_until_settled(self) -> int:
         """Drive ``schedule_batch_cycle`` until the queue settles; returns
-        the pods popped. A cycle that neither binds nor parks a pod counts
+        the pods popped. A cycle that neither binds nor parks a pod (in the
+        unschedulable map, gated or not) counts
         toward ``SETTLE_MAX_NO_PROGRESS`` and sleeps ``IDLE_WAIT_S`` times
         its count (at most ten times; ``idle_seconds`` sums the sleeps): a
         cycle whose batch is still in the in-flight ring counts so, as in
@@ -288,7 +484,8 @@ class Scheduler:
         self.settle_abandoned = False
         while cycles < SETTLE_MAX_CYCLES:
             before_sched = self.metrics["scheduled"]
-            before_unsched = self.queue.pending_pods()["unschedulable"]
+            before = self.queue.pending_pods()
+            before_unsched = before["unschedulable"] + before["gated"]
             n = self.schedule_batch_cycle()
             if n == 0:
                 self.queue.flush_backoff_completed()
@@ -300,8 +497,9 @@ class Scheduler:
                     continue
                 break
             cycles += n
+            pending = self.queue.pending_pods()
             if (self.metrics["scheduled"] > before_sched
-                    or self.queue.pending_pods()["unschedulable"] > before_unsched):
+                    or pending["unschedulable"] + pending["gated"] > before_unsched):
                 no_progress = 0
             else:
                 no_progress += 1

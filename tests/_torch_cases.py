@@ -1661,6 +1661,104 @@ class LoopPair:
         self.tsched = TPUScheduler(self.tstore, device="cpu", now_fn=self.tclock,
                                    batch_size=self.batch, batch_deadline_ms=0,
                                    percentage_of_nodes_to_score=self.percentage)
+        # the pods each batch cycle popped, in pop order, per side
+        self.popped = ([], [])
+        for side, sched in enumerate((self.jsched, self.tsched)):
+            self._record_pops(sched.queue, self.popped[side])
+
+    def land_worker_each_cycle(self) -> None:
+        """With the commit worker on, land its commits at the end of every
+        batch cycle on both sides: the ring still holds its batches in
+        flight and the worker commits them on its own thread, but the next
+        pop no longer races the worker's requeues, so the pods popped per
+        batch do not follow thread timing."""
+        for sched in (self.jsched, self.tsched):
+            if sched.commit_worker is None:
+                continue
+            cycle = sched.schedule_batch_cycle
+
+            def landed(_cycle=cycle, _worker=sched.commit_worker):
+                n = _cycle()
+                _worker.flush()
+                return n
+
+            sched.schedule_batch_cycle = landed
+
+    @staticmethod
+    def _record_pops(queue, log) -> None:
+        pop_batch = queue.pop_batch
+
+        def recorded(k):
+            out = pop_batch(k)
+            if out:
+                log.append([qp.pod.key() for qp in out])
+            return out
+
+        queue.pop_batch = recorded
+
+    def add_pod_group(self, name: str, min_member: int, ns: str = "default",
+                      timeout_s: int = 0) -> None:
+        from kubernetes_tpu.api.types import ObjectMeta as JMeta, PodGroup as JPodGroup
+        from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup
+
+        self.jstore.create_object("PodGroup", JPodGroup(
+            meta=JMeta(name=name, namespace=ns), min_member=min_member,
+            schedule_timeout_seconds=timeout_s))
+        self.tstore.create_object("PodGroup", PodGroup(
+            meta=ObjectMeta(name=name, namespace=ns), min_member=min_member,
+            schedule_timeout_seconds=timeout_s))
+
+    def add_quota(self, ns: str, hard: dict, weight: int = 1, cohort: str = "") -> None:
+        from kubernetes_tpu_torch.api.types import ObjectMeta, SchedulingQuota
+
+        from kubernetes_tpu_torch.api.types import Namespace
+
+        q = SchedulingQuota(meta=ObjectMeta(name="quota", namespace=ns), hard=dict(hard),
+                            weight=weight, cohort=cohort)
+        namespace = Namespace(meta=ObjectMeta(name=ns, namespace=""))
+        if ns not in self.jstore.namespaces:  # the JAX store admits pods of known namespaces
+            self.jstore.create_namespace(to_jax(namespace))
+            self.tstore.create_namespace(namespace)
+        self.jstore.create_object("SchedulingQuota", to_jax(q))
+        self.tstore.create_object("SchedulingQuota", q)
+
+    def delete_pod(self, key: str) -> None:
+        self.jstore.delete_pod(key)
+        self.tstore.delete_pod(key)
+
+    def gang_state(self, which: int) -> dict:
+        """``state`` with what gangs, slices and quota add: the pods popped
+        per batch, the pods parked at Permit, the PodGroups' status, the
+        gated count and the gang, slice and quota metrics."""
+        sched = (self.jsched, self.tsched)[which]
+        store = (self.jstore, self.tstore)[which]
+        m = sched.smetrics
+
+        def counter(c):
+            return {k: c.labels(*k) for k in c.label_sets() if c.labels(*k)}
+
+        def hist(h):
+            return {k: (h.count(*k), round(h.sum(*k), 9)) for k in h.label_sets()}
+
+        return {
+            **self.state(which),
+            "popped": self.popped[which],
+            "waiting": sorted(sched.waiting_pods),
+            "pod_groups": pod_group_status(store),
+            "gangs_rejected": counter(m.gangs_rejected),
+            "gang_wait": hist(m.gang_wait_duration),
+            "slice_wait": hist(m.slice_wait_duration),
+            "slice_fragmentation": counter(m.slice_fragmentation),
+            "quota_usage": counter(m.quota_usage),
+            "quota_borrowed": counter(m.quota_borrowed),
+        }
+
+    def assert_gang_equal(self) -> dict:
+        """Every key of ``gang_state`` equal; returns the port's."""
+        jax_state, port_state = self.gang_state(0), self.gang_state(1)
+        for key in jax_state:
+            assert port_state[key] == jax_state[key], key
+        return port_state
 
     def add_nodes(self, infos_j, infos_t) -> None:
         """Nodes (NodeInfos of ``build_nodes`` / ``build_topo_nodes``) and
@@ -1713,3 +1811,37 @@ class LoopPair:
         for key in jax_state:
             assert port_state[key] == jax_state[key], key
         return port_state
+
+    def drive_port_unlanded(self, cycles: int, step: float) -> None:
+        """The port's loop alone, ``cycles`` batch cycles with its clock
+        advanced ``step`` after each and the backoff flushed, then settled:
+        with the commit worker on, nothing lands its commits between
+        cycles, so Permit parks and allows run on the worker while the next
+        batches pop and dispatch, and the 1 s sweep meets whatever the
+        worker still holds (its flush before the sweep lands it)."""
+        for _ in range(cycles):
+            self.tsched.schedule_batch_cycle()
+            self.tclock.advance(step)
+            self.tsched.queue.flush_backoff_completed()
+        self.cycles[1] += self.tsched.run_until_settled()
+
+    def assert_port_consistent(self) -> dict:
+        """What holds on the port's settled loop however its worker's
+        commits interleaved with its pops: no pod waits at Permit, no
+        assume is left open, and every node of the cache holds exactly the
+        pods the store binds to it. Returns the port's ``gang_state``."""
+        from kubernetes_tpu_torch.cache.snapshot import Snapshot
+
+        sched, store = self.tsched, self.tstore
+        assert not sched.waiting_pods
+        assert [k for k in store.pods if sched.cache.is_assumed(k)] == []
+        snap = Snapshot()
+        sched.cache.update_snapshot(snap)
+        cached = {name: sorted(p.key() for p in ni.pods)
+                  for name, ni in snap.node_info_map.items()}
+        bound: dict = {name: [] for name in cached}
+        for key, pod in store.pods.items():
+            if pod.spec.node_name:
+                bound.setdefault(pod.spec.node_name, []).append(key)
+        assert cached == {name: sorted(keys) for name, keys in bound.items()}
+        return self.gang_state(1)

@@ -2,7 +2,8 @@
 nominated and slice-masked batches among them), and the topology scan, the
 speculative rounds, the claim mask, the preemption screen, the quota
 screen, the slice planner, the gang assigner and the claim, volume,
-preemption, gang, quota and PreemptionAll workloads against their CPU runs,
+preemption, gang, quota and PreemptionAll workloads and the scheduler loop
+(SchedulingBasic, the ring, gangs, slices and the soak) against their CPU runs,
 on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
@@ -792,3 +793,84 @@ def test_pinned_block_equals_blocking_read(cuda):
     for a, b in zip(got, want):
         assert (a is None and b is None) or np.array_equal(a, b)
     assert (got[0] >= 0).all()
+
+
+@pytest.mark.cuda
+def test_slice_workload_through_the_loop_matches_cpu(cuda, monkeypatch):
+    """SchedulingSlices at a small size through the scheduler loop on the
+    card against the CPU loop: the same placements, PodGroups and pods
+    popped per batch; every slice gang contiguous; every batch mode ``off``
+    on the fused kernel, one launch each."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_slices(nodes=32, slots=8, init_gangs=1, measured_small=2,
+                                    measured_medium=1, measured_large=0)
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_loop(w, cuda, batch_size=64)
+    cpu = workloads.run_loop(w, "cpu", percentage=100, batch_size=64)
+    for key in ("placed", "pod_groups", "batch_pods", "gang_rejected", "slice_stats"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["slice_stats"]["ContiguityViolations"] == 0 and gpu["waiting"] == []
+    assert set(gpu["modes"]) == {"off"} and gpu["launches"] == gpu["batches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["cohort", "nogangs"])
+def test_soak_through_the_loop_matches_cpu(cuda, variant, monkeypatch):
+    """A small SchedulingSoak (60 nodes, 4 rounds, without claim pods)
+    through the loop on the card against the CPU loop: the same binds,
+    pods popped per batch, ledgers and evictions, zero oversubscription;
+    without gangs every batch one fused launch."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_soak(nodes=60, scale=4, rounds=4, claims=False,
+                                  cohort="soak" if variant == "cohort" else "",
+                                  gangs=variant != "nogangs")
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_loop_soak(w, cuda)
+    cpu = workloads.run_loop_soak(w, "cpu", percentage=100)
+    for key in ("placed", "bound", "rounds", "batch_pods", "pending", "evicted", "flagged",
+                "oversubscription"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["oversubscription"] == 0 and gpu["waiting"] == []
+    if variant == "nogangs":
+        assert set(gpu["modes"]) == {"off"} and gpu["launches"] == len(gpu["batch_pods"])
+        assert gpu["flagged"] > 0
+
+
+@pytest.mark.cuda
+def test_gang_split_across_batches_with_worker_matches_cpu(cuda, monkeypatch):
+    """A gang of six in batches of four through the worker ring on the
+    card: the first batch's members wait at Permit, the second allows
+    them, and placements, PodGroups and pops equal the CPU's inline ring."""
+    from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    def run(device, worker):
+        _ring_env(monkeypatch, worker)
+        clock = FakeClock()
+        store = Store(now_fn=clock)
+        sched = TPUScheduler(store, device=device, batch_size=4, batch_deadline_ms=0,
+                             percentage_of_nodes_to_score=100, now_fn=clock)
+        for i in range(10):
+            store.create_node(make_node(f"node-{i}").capacity(
+                {"cpu": "8", "memory": "16Gi", "pods": 32}).obj())
+        store.create_object("PodGroup", PodGroup(meta=ObjectMeta(name="wide"), min_member=6))
+        for i in range(6):
+            store.create_pod(make_pod(f"wide-{i}").req({"cpu": "500m"}).pod_group("wide").obj())
+        sched.run_until_settled()
+        sched.close()
+        return {"placed": {k: p.spec.node_name for k, p in store.pods.items()},
+                "groups": {k: (g.phase, g.scheduled) for k, g in store.pod_groups.items()},
+                "pops": list(sched.batch_pods), "waiting": dict(sched.waiting_pods),
+                "worker": sched.commit_worker is not None}
+
+    gpu, cpu = run(cuda, "1"), run("cpu", "0")
+    assert gpu["worker"] and not cpu["worker"]
+    for key in ("placed", "groups", "pops", "waiting"):
+        assert gpu[key] == cpu[key], key
+    assert all(gpu["placed"].values()) and gpu["groups"] == {"default/wide": ("Running", 6)}
+    assert gpu["pops"] == [4, 2]

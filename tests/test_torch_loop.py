@@ -269,9 +269,10 @@ def test_preemption_across_batches(pipeline):
 
 
 def test_unported_kinds_raise():
-    """Pods with claims or volumes, gang and slice pods, and a store with
-    SchedulingQuota objects raise NotImplementedError at pop, before any
-    device work; the pods are not bound."""
+    """Pods with claims or volumes raise NotImplementedError at pop, before
+    any device work, and stay unbound; gang and slice pods and a store with
+    SchedulingQuota objects are scheduled (a gang member whose PodGroup is
+    missing fails Coscheduling's gate and parks)."""
     from kubernetes_tpu_torch.api.types import ObjectMeta, SchedulingQuota
     from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
     from kubernetes_tpu_torch.apiserver.store import Store
@@ -294,9 +295,19 @@ def test_unported_kinds_raise():
                 meta=ObjectMeta(name="q", namespace="default"), hard={"pods": 10}))
         sched = TPUScheduler(store, device="cpu", batch_deadline_ms=0)
         store.create_pod(pod)
-        with pytest.raises(NotImplementedError):
-            sched.run_until_settled()
-        assert sched.state is None and not store.get_pod(pod.key()).spec.node_name
+        if kind in ("claim", "volume"):
+            with pytest.raises(NotImplementedError):
+                sched.run_until_settled()
+            assert sched.state is None and not store.get_pod(pod.key()).spec.node_name
+            continue
+        sched.run_until_settled()
+        bound = store.get_pod(pod.key()).spec.node_name
+        if kind == "gang":
+            assert not bound and sched.queue.pending_pods()["unschedulable"] == 1
+        else:
+            assert bound == "n0"
+        if kind == "quota":
+            assert sched.profile.quota.usage("default")["pods"] == 1
 
 
 def test_event_map_and_attribution_match_jax():
