@@ -180,9 +180,8 @@
    Permit, and placements, gang rejections, PodGroups, pods popped per
    batch and modes equal to the CPU loop; every SchedulingSlices batch mode
    ``off`` with one fused launch each and 0 contiguity violations.
-   SchedulingSoak/1000Nodes, /Cohort and /NoGangs without their claim pods
-   (``/NoClaims``: the loop's claim part is not ported) through
-   ``run_loop_soak`` (the JAX harness's soak phase: 8 rounds of arrivals,
+   SchedulingSoak/1000Nodes/Cohort and /NoGangs, with their claim pods,
+   through ``run_loop_soak`` (the JAX harness's soak phase: 8 rounds of arrivals,
    up to 120 batch cycles each on a FakeClock advanced 50 ms per cycle, a
    quarter of each tenant's bound pods deleted after each round):
    placements, binds per tenant, ledgers per round, pods popped per batch,
@@ -194,7 +193,25 @@
    batch (or per cycle that ran a batch), host ms by stage and commit ms,
    the gang verdicts' ms and reads, beside BatchScheduler's ms per batch
    for the same workload from the gang and quota phases.
-13. Each workload run prints pods/s, ms per batch, host ms per stage, and
+13. Loop_claims phase: claims and volumes through the loop (the inline
+   ring), each on the card and on the CPU in this call, in one process:
+   SchedulingDRA/5000Nodes (1000 init + 1000 measured claim pods),
+   SchedulingInTreePVs/5000Nodes and SchedulingCSIPVs/5000Nodes (each pod
+   with its own pre-bound PV and PVC; CSINodes allowing 39 volumes; 1000
+   init pods instead of the published 5000, then 1000 measured) through
+   ``run_loop``, with each op's claims, PVs and PVCs in the store before
+   its pods; SchedulingSoak/1000Nodes with its claim pods through
+   ``run_loop_soak``; and the seeded delayed-binding case (500 nodes, 128
+   pods with WaitForFirstConsumer PVCs, 96 zonal PVs, then 16 more) through
+   ``run_delayed_binding``. Each: placements, pods popped per batch,
+   counters, PV bindings, claim allocations and the pods the sequential
+   path bound equal to the CPU run; one fused launch per full mode-off
+   batch; no CSINode limit exceeded, no ReadWriteOncePod claim shared,
+   every claim allocated to its pods' node; every pod bound (the delayed
+   case: every PV bound to one pod on a node of its zone). Prints pods/s,
+   attempt p50/p99, host ms per measured batch by stage and the claim
+   and volume ms (the volume screen, the claim mask, the commit checks).
+14. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -1856,9 +1873,9 @@ SOAK_LOOP_KEYS = ("placed", "bound", "rounds", "batch_pods", "pending", "evicted
 
 def loop_gang_phase(gangs: dict, quota: dict) -> dict:
     """SchedulingGangs and SchedulingSlices through ``run_loop`` (the
-    inline ring), and SchedulingSoak, /Cohort and /NoGangs (without their
-    claim pods) through ``run_loop_soak``, on the card and on the CPU in
-    this call."""
+    inline ring), and SchedulingSoak/Cohort and /NoGangs (with their claim
+    pods; the plain soak runs in the loop_claims phase) through
+    ``run_loop_soak``, on the card and on the CPU in this call."""
     out = {}
     for w in (workloads.scheduling_gangs(), workloads.scheduling_slices()):
         slices = bool(w.tpu_slots)
@@ -1886,9 +1903,7 @@ def loop_gang_phase(gangs: dict, quota: dict) -> dict:
               + f"; BatchScheduler in this call (gang phase) "
               f"{gangs[w.name]['gpu']['median_ms']:.2f} ms per batch")
         out[w.name] = {"launches": gpu["launches"], "run": gpu}
-    for w in (workloads.scheduling_soak(claims=False),
-              workloads.scheduling_soak(cohort="soak", claims=False),
-              workloads.scheduling_soak(gangs=False, claims=False)):
+    for w in (workloads.scheduling_soak(cohort="soak"), workloads.scheduling_soak(gangs=False)):
         with _env(**RING):
             fused_step.LAUNCHES = 0
             gpu = workloads.run_loop_soak(w, "cuda")
@@ -1923,9 +1938,133 @@ def loop_gang_phase(gangs: dict, quota: dict) -> dict:
               + ", ".join(f"{k} {v / max(len(busy), 1):.2f}" for k, v in gpu["commit_ms"].items())
               + f"; gang_verdicts {gpu['gang_ms']:.2f} ms over {gpu['gang_reads']} reads; "
               f"{gpu['launches']} fused launches for {off} mode-off batches; BatchScheduler's "
-              f"soak (with claims) in this call {quota[w.name.replace('/NoClaims', '')]['median_ms']:.2f} "
-              "ms per batch")
+              f"soak in this call {quota[w.name]['median_ms']:.2f} ms per batch")
         out[w.name] = {"launches": gpu["launches"], "run": gpu}
+    return out
+
+
+# the loop's claim and volume runs: what the card's run must share with the
+# CPU's, and the pods the SchedulingInTreePVs and SchedulingCSIPVs runs
+# create before the measured 1000 (5000 published; a depth cut, PERF.md 4)
+LOOP_CLAIM_KEYS = ("placed", "batch_pods", "cycles", "modes", "paths", "metrics",
+                   "fallback_scheduled", "pv_bindings", "claims")
+LOOP_PV_INIT = 1000
+
+
+def _check_claim_loop(name: str, gpu: dict, cpu: dict, keys) -> int:
+    """Card == CPU on ``keys``; one fused launch per full mode-off batch;
+    no CSINode limit exceeded, no ReadWriteOncePod claim shared, every
+    bound claim pod's claim allocated to its node. Returns the mode-off
+    batches."""
+    _check_loop_same(name, gpu, cpu, keys)
+    off = sum(m == "off" for m in gpu["modes"])
+    fused = sum(m == "off" and p == "fused" for m, p in zip(gpu["modes"], gpu["paths"]))
+    if gpu["launches"] != off or fused != off:
+        raise AssertionError(f"{name} through the loop: {gpu['launches']} fused launches, "
+                             f"{fused} fused batches for {off} mode-off batches")
+    if gpu["csi_over"] or gpu["rwop_shared"]:
+        raise AssertionError(f"{name} through the loop: CSINode limits exceeded on "
+                             f"{gpu['csi_over']}, ReadWriteOncePod claims shared "
+                             f"{gpu['rwop_shared']}")
+    for claim_key, (node, users) in gpu["claims"].items():
+        for pod_key in users:
+            if gpu["placed"].get(pod_key, node) != node:
+                raise AssertionError(f"{name}: claim {claim_key} on {node}, its pod {pod_key} "
+                                     f"on {gpu['placed'][pod_key]}")
+    return off
+
+
+def loop_claims_phase(dra: dict) -> dict:
+    """Claims and volumes through the loop (the inline ring), each on the
+    card and on the CPU in this call: SchedulingDRA, SchedulingInTreePVs
+    and SchedulingCSIPVs at 5000 nodes through ``run_loop``, SchedulingSoak
+    /1000Nodes with its claim pods through ``run_loop_soak``, and the
+    seeded delayed-binding case through ``run_delayed_binding``."""
+    out = {}
+    for w in (workloads.scheduling_dra(),
+              workloads.scheduling_intree_pvs(init_pods=LOOP_PV_INIT),
+              workloads.scheduling_csi_pvs(init_pods=LOOP_PV_INIT)):
+        gpu = _loop_run(w, f"{w.name} [ring]", RING)
+        with _env(**RING):
+            cpu = workloads.run_loop(w, "cpu", percentage=100)
+        _check_all_bound(w.name, w, gpu)
+        off = _check_claim_loop(w.name, gpu, cpu, LOOP_CLAIM_KEYS)
+        m = max(gpu["measured_batches"], 1)
+        bs = dra.get(w.name)
+        print(f"{w.name} through the loop: every pod bound, placements, pods popped per "
+              f"batch, counters, PV bindings and claim allocations == the cpu loop; "
+              f"{gpu['launches']} fused launches for {off} mode-off batches; "
+              f"{gpu['fallback_scheduled']} pods bound by the sequential path; "
+              f"{len([c for c in gpu['claims'].values() if c[0]])} claims allocated, "
+              f"{len([v for v in gpu['pv_bindings'].values() if v])} PVs bound; "
+              f"{gpu['pods_per_s']:.1f} pods/s, attempt p50 {gpu['attempt_ms']['p50']:.2f} ms, "
+              f"p99 {gpu['attempt_ms']['p99']:.2f} ms; median "
+              f"{statistics.median(gpu['measured_batch_ms']):.2f} ms per measured batch; "
+              "host ms per measured batch by stage: "
+              + ", ".join(f"{k} {v / m:.2f}" for k, v in gpu["measured_stage_ms"].items())
+              + "; commit ms per measured batch: "
+              + ", ".join(f"{k} {v / m:.2f}" for k, v in gpu["measured_commit_ms"].items())
+              + "; claim and volume ms per measured batch: "
+              + ", ".join(f"{k} {v / m:.3f}" for k, v in gpu["measured_screen_ms"].items())
+              + (f"; BatchScheduler in this call (dra phase) {bs['gpu']['median_ms']:.2f} ms "
+                 "per batch" if bs else ""))
+        out[w.name] = {"launches": gpu["launches"], "run": gpu}
+    w = workloads.scheduling_soak()
+    with _env(**RING):
+        fused_step.LAUNCHES = 0
+        gpu = workloads.run_loop_soak(w, "cuda")
+        if gpu["launches"] != fused_step.LAUNCHES:
+            raise AssertionError(f"{w.name}: launches counted twice")
+        cpu = workloads.run_loop_soak(w, "cpu", percentage=100)
+    _check_loop_same(w.name, gpu, cpu, SOAK_LOOP_KEYS + ("claims", "fallback_scheduled"))
+    if gpu["oversubscription"] or gpu["waiting"] or not gpu["bound"]["soak-b"]:
+        raise AssertionError(f"{w.name} through the loop: {gpu['oversubscription']} "
+                             f"oversubscribed dimensions, waiting {gpu['waiting']}, claim "
+                             f"tenant bound {gpu['bound']['soak-b']}")
+    off = sum(mo == "off" for mo in gpu["modes"])
+    if gpu["launches"] != off:
+        raise AssertionError(f"{w.name} through the loop: {gpu['launches']} launches for "
+                             f"{off} mode-off batches")
+    busy = gpu["batch_ms"] or [0.0]
+    print(f"{w.name} (with claims) through the loop: {sum(gpu['bound'].values())} pods bound "
+          f"(per tenant {gpu['bound']}) in {len(gpu['batch_pods'])} batches over "
+          f"{gpu['cycles']} cycles; {len([c for c in gpu['claims'].values() if c[0]])} claims "
+          f"allocated; 0 oversubscription at {gpu['checks']} checks; "
+          f"{gpu['fallback_scheduled']} pods bound by the sequential path; all == the cpu "
+          f"loop; {gpu['pods_per_s']:.1f} pods/s over {gpu['soak_s']:.2f} s; attempt p50 "
+          f"{gpu['attempt_ms']['p50']:.2f} ms, p99 {gpu['attempt_ms']['p99']:.2f} ms on the "
+          f"soak's clock; median {statistics.median(busy):.2f} ms per cycle that ran a batch; "
+          "claim and volume ms per batch: "
+          + ", ".join(f"{k} {v / max(len(busy), 1):.3f}" for k, v in gpu["screen_ms"].items())
+          + f"; {gpu['launches']} fused launches for {off} mode-off batches")
+    out[w.name] = {"launches": gpu["launches"], "run": gpu}
+    c = workloads.DelayedBinding()
+    with _env(**RING):
+        fused_step.LAUNCHES = 0
+        gpu = workloads.run_delayed_binding(c, "cuda")
+        if gpu["launches"] != fused_step.LAUNCHES:
+            raise AssertionError(f"{c.name}: launches counted twice")
+        cpu = workloads.run_delayed_binding(c, "cpu")
+    off = _check_claim_loop(c.name, gpu, cpu, ("placed", "batch_pods", "modes", "paths",
+                                               "metrics", "fallback_scheduled", "pv_bindings",
+                                               "rounds"))
+    zones = {pv.meta.name: pv.node_affinity for pv in c.pv_list()}
+    bound = {claim: pv for pv, claim in gpu["pv_bindings"].items() if claim}
+    if len(bound) != c.pvs + c.extra_pvs or sum(map(bool, gpu["placed"].values())) != len(bound):
+        raise AssertionError(f"{c.name}: {len(bound)} PVs bound, "
+                             f"{sum(map(bool, gpu['placed'].values()))} pods bound")
+    for claim, pv in bound.items():
+        node = gpu["placed"][claim]
+        zone = f"zone-{int(node.split('-')[1]) % 10}"
+        if zone not in zones[pv]["topology.kubernetes.io/zone"]:
+            raise AssertionError(f"{c.name}: {claim} on {node} ({zone}) bound to {pv}")
+    print(f"{c.name} ({c.pods} pods, {c.pvs} + {c.extra_pvs} zonal PVs): every PV bound to "
+          f"one pod on a node of its zone, the other pods parked; placements, PV bindings, "
+          f"counters {gpu['metrics']} and pods popped == the cpu loop over {gpu['rounds']} "
+          f"settles; {gpu['launches']} fused launches for {off} mode-off batches; "
+          f"{gpu['pods_per_s']:.1f} pods bound per s; median "
+          f"{statistics.median(gpu['batch_ms'] or [0.0]):.2f} ms per batch")
+    out[c.name] = {"launches": gpu["launches"], "run": gpu}
     return out
 
 
@@ -1966,6 +2105,7 @@ def main() -> int:
     pre_all = timed("preempt_all", preempt_all_phase)
     loop = timed("loop", loop_phase, topo, spec, sl["gpu"])
     loop_gang = timed("loop_gang", loop_gang_phase, gangs, quota)
+    loop_claims = timed("loop_claims", loop_claims_phase, dra)
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1987,7 +2127,9 @@ def main() -> int:
                                  **{k: v["launches"] for k, v in quota.items()},
                                  **{k: v["launches"] for k, v in pre_all.items()},
                                  **{f"loop:{k}": v["launches"] for k, v in loop.items()},
-                                 **{f"loop:{k}": v["launches"] for k, v in loop_gang.items()}},
+                                 **{f"loop:{k}": v["launches"] for k, v in loop_gang.items()},
+                                 **{f"loop:{k}": v["launches"]
+                                    for k, v in loop_claims.items()}},
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))

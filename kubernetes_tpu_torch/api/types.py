@@ -660,6 +660,16 @@ class ResourceClaim:
 
 
 @dataclass
+class PodSchedulingContext:
+    """resource.k8s.io PodSchedulingContext (namespaced; name = the pod's
+    name): DynamicResources' PostBind persists the selected node here."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selected_node: str = ""
+    potential_nodes: Tuple[str, ...] = ()
+
+
+@dataclass
 class Namespace:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
 

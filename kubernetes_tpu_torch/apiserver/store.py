@@ -11,10 +11,12 @@ an unbound pod) and the nomination write; namespaces, whose labels
 affinity terms' namespaceSelector reads. Creation timestamps come from the
 store's ``now_fn``. Then what the claim and volume screens and their
 commit-time checks read and write:
-ResourceClass, ResourceClaim, PodGroup and SchedulingQuota through
-``create_object`` / ``get_object`` / ``update_object`` (the Coscheduling
-plugin's status writes), the storage kinds through their own accessors, the
-claim allocation writes of the DynamicResources Reserve, and the
+ResourceClass, ResourceClaim, PodSchedulingContext, PodGroup and
+SchedulingQuota through ``create_object`` / ``get_object`` /
+``update_object`` / ``delete_object`` (the Coscheduling plugin's status
+writes, DynamicResources' PostBind), the storage kinds through their own
+accessors, the claim allocation writes of the DynamicResources Reserve and
+the PV bind of VolumeBinding's PreBind (``bind_pv``), and the
 PodDisruptionBudgets that preemption reads. Every write bumps
 the object's ``resource_version`` from one store-wide counter, as the JAX
 store does (the volume screen caches by it), and ``kind_version`` gives
@@ -22,8 +24,9 @@ the counter of a generic kind's last write: where the JAX store sends a
 watch event, a reader of the port's store compares versions (the quota
 ledger rebuilds its index when SchedulingQuota's moves). No WAL, watches,
 informers, admission or locking: one scheduler thread owns it. The generic
-kinds fire their handlers too (the scheduler loop's PodGroup and
-SchedulingQuota moves).
+kinds, the storage kinds and the claim writes fire their handlers too, in
+write order, where the JAX store sends its events (the scheduler loop's
+PodGroup, SchedulingQuota, claim and volume moves).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..api.types import (CSINode, Namespace, Node, PersistentVolume, PersistentVolumeClaim,
-                         Pod, PodDisruptionBudget, PodGroup, ResourceClaim,
+                         Pod, PodDisruptionBudget, PodGroup, PodSchedulingContext, ResourceClaim,
                          SchedulingQuota, StorageClass)
 
 ADDED = "ADDED"
@@ -72,6 +75,7 @@ class Store:
         self.pdbs: Dict[str, PodDisruptionBudget] = {}          # by namespace/name
         self.pod_groups: Dict[str, PodGroup] = {}               # by namespace/name
         self.scheduling_quotas: Dict[str, SchedulingQuota] = {}  # by namespace/name
+        self.pod_scheduling_contexts: Dict[str, PodSchedulingContext] = {}  # by namespace/name
 
     def _bump(self, obj) -> None:
         self._rv += 1
@@ -197,7 +201,8 @@ class Store:
 
     def _kind_map(self, kind: str) -> Dict[str, object]:
         maps = {"ResourceClass": self.resource_classes, "ResourceClaim": self.resource_claims,
-                "PodGroup": self.pod_groups, "SchedulingQuota": self.scheduling_quotas}
+                "PodGroup": self.pod_groups, "SchedulingQuota": self.scheduling_quotas,
+                "PodSchedulingContext": self.pod_scheduling_contexts}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]
@@ -229,21 +234,51 @@ class Store:
         m[key] = obj
         self._notify(kind, MODIFIED, old, obj)
 
+    def delete_object(self, kind: str, key: str) -> None:
+        """Remove an object (no finalizers in the port's store)."""
+        old = self._kind_map(kind).pop(key, None)
+        if old is not None:
+            self._notify(kind, DELETED, old, None)
+
     # ------------------------------------------------------------- storage kinds
 
     def create_pv(self, pv: PersistentVolume) -> None:
         self._bump(pv)
         self.pvs[pv.meta.name] = pv
+        self._notify("PersistentVolume", ADDED, None, pv)
 
     def create_pvc(self, pvc: PersistentVolumeClaim) -> None:
         self._bump(pvc)
         self.pvcs[pvc.meta.key()] = pvc
+        self._notify("PersistentVolumeClaim", ADDED, None, pvc)
 
     def create_storage_class(self, sc: StorageClass) -> None:
         self.storage_classes[sc.meta.name] = sc
+        self._notify("StorageClass", ADDED, None, sc)
 
     def create_csinode(self, cn: CSINode) -> None:
         self.csinodes[cn.meta.name] = cn
+        self._notify("CSINode", ADDED, None, cn)
+
+    def bind_pv(self, pv_name: str, pvc_key: str) -> None:
+        """The PV controller's bind (VolumeBinding's PreBind write): the
+        PV's claimRef and the PVC's volumeName, then the two MODIFIED
+        events in that order. NotFound for a missing PV or PVC, Conflict
+        for a PV bound to another claim."""
+        pv = self.pvs.get(pv_name)
+        pvc = self.pvcs.get(pvc_key)
+        if pv is None or pvc is None:
+            raise NotFound(f"{pv_name} / {pvc_key}")
+        if pv.bound_pvc and pv.bound_pvc != pvc_key:
+            raise Conflict(f"pv {pv_name} already bound to {pv.bound_pvc}")
+        new_pv = dataclasses.replace(pv, bound_pvc=pvc_key)
+        new_pvc = dataclasses.replace(pvc, bound_pv=pv_name)
+        self._bump(new_pv)
+        self._bump(new_pvc)
+        self.pvs[pv_name] = new_pv
+        self.pvcs[pvc_key] = new_pvc
+        self._notify("PersistentVolume", MODIFIED, pv, new_pv)
+        self._notify("PersistentVolumeClaim", MODIFIED, pvc, new_pvc)
 
     def get_pvc(self, key: str) -> Optional[PersistentVolumeClaim]:
         return self.pvcs.get(key)
@@ -286,6 +321,7 @@ class Store:
         new = dataclasses.replace(claim, allocated_node=node_name, reserved_for=reserved)
         self._bump(new)
         self.resource_claims[claim_key] = new
+        self._notify("ResourceClaim", MODIFIED, claim, new)
 
     def release_claim(self, claim_key: str, pod_key: str) -> None:
         """Drop one pod's reservation; the last one leaving deallocates."""
@@ -297,3 +333,4 @@ class Store:
                                   allocated_node=claim.allocated_node if reserved else "")
         self._bump(new)
         self.resource_claims[claim_key] = new
+        self._notify("ResourceClaim", MODIFIED, claim, new)

@@ -29,11 +29,12 @@ node and a claim pod resolves its claims again and allocates them there
 it: a Reserve conflict (a claim that an earlier pod of the batch allocated
 to another node) lands in ``retry`` (resubmitted, the pod is pinned to the
 allocated node), a failed volume check or a vanished claim in ``fallback``
-(the JAX package hands such a pod to its sequential path, which the port
-does not have yet). Only what this path implements is accepted: a claim or
-volume pod without a store, a missing claim, class or PVC, an unbound or
-delayed-binding PVC and ephemeral volumes raise NotImplementedError rather
-than being placed by a path that would ignore them.
+(the scheduler loop, ``backend/tpu_scheduler.py``, hands such a pod to its
+sequential path, as the JAX package does; this class has none). Only what
+this path implements is accepted: a claim or volume pod without a store, a
+missing claim, class or PVC, an unbound or delayed-binding PVC and
+ephemeral volumes raise NotImplementedError (the loop takes them all)
+rather than being placed by a path that would ignore them.
 
 Gangs (pods with the ``scheduling.x-k8s.io/pod-group`` label) follow
 ``tpu_scheduler.py``: before encode, Coscheduling's PreFilter
@@ -55,9 +56,8 @@ snapshot). A gang that places gets its bound count and phase (PostBind).
 raises NotImplementedError for a gang that straddles a batch boundary
 within one ``schedule`` call (the scheduler loop, ``backend/
 tpu_scheduler.py``, parks the earlier members at Permit), for gang pods
-with claims or volumes (their commit checks against Unreserve come with
-the loop's claim and volume part) and for gang pods without an object
-store. The verdicts (``judge_gangs``) and the program's slice and quota
+with claims or volumes (their Unreserve needs the loop's bind tail) and
+for gang pods without an object store. The verdicts (``judge_gangs``) and the program's slice and quota
 arguments (``slice_batch_kw``, ``quota_batch_kw``) are shared with the
 loop.
 
@@ -161,13 +161,13 @@ def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
     resolve in."""
     spec = pod.spec
     if spec.ephemeral_claims:
-        return "generic ephemeral volumes (the loop's claim and volume part)"
+        return "generic ephemeral volumes (the scheduler loop takes them)"
     if pod_group_key(pod) is not None:
         if client is None:
             return "gang membership without an object store to hold its PodGroup"
         if spec.resource_claims or spec.volumes:
-            return ("a gang pod with resource claims or volumes (their commit checks against "
-                    "the gang's Unreserve come with the loop's claim and volume part)")
+            return ("a gang pod with resource claims or volumes (their Unreserve needs the "
+                    "scheduler loop's bind tail)")
     if (spec.resource_claims or spec.volumes) and client is None:
         return "resource claims or volumes without an object store"
     if spec.resource_claims and not ClaimMaskBuilder(client).batchable(pod):
@@ -177,8 +177,8 @@ def unsupported_reason(pod: Pod, client=None) -> Optional[str]:
         if pvc is None:
             return f"persistentvolumeclaim {name!r} does not exist"
         if not pvc.bound_pv:
-            return (f"persistentvolumeclaim {name!r} is unbound (delayed binding comes "
-                    "with the loop's claim and volume part)")
+            return (f"persistentvolumeclaim {name!r} is unbound (the scheduler loop binds "
+                    "delayed claims)")
     return None
 
 
@@ -398,6 +398,28 @@ def quota_batch_kw(quota: QuotaAdmission, state: DeviceState, pods: Sequence[Pod
         return {}
     return dict(quota_ns=ns_idx, quota_req=torch.from_numpy(req).to(state.device),
                 quota_used=state.nsq_used, quota_limit=state.nsq_limit)
+
+
+def screen_batch_kw(volume_masks: VolumeMaskBuilder, claim_masks: ClaimMaskBuilder,
+                    state: DeviceState, snapshot: Snapshot, pods: Sequence[Pod], pad_to: int,
+                    seconds: Dict[str, float]) -> Dict[str, torch.Tensor]:
+    """The batch's volume screen (built on the host from ``snapshot``,
+    uploaded once) and claim mask (built on the batch's device), as
+    ``schedule_batch``'s ``extra_mask`` and ``dra_mask``; only those the
+    batch needs (``tpu_scheduler.py:670-706``). Their host seconds add to
+    ``seconds["volume_mask"]`` and ``seconds["claim_mask"]``."""
+    out = {}
+    t0 = time.perf_counter()
+    vol = volume_masks.build(pods, snapshot, state.encoder, state.caps.nodes, pad_to)
+    if vol is not None:
+        out["extra_mask"] = torch.tensor(vol, device=state.device)
+    t1 = time.perf_counter()
+    dra = claim_masks.build(pods, state, pad_to)
+    if dra is not None:
+        out["dra_mask"] = dra
+    seconds["volume_mask"] += t1 - t0
+    seconds["claim_mask"] += time.perf_counter() - t1
+    return out
 
 
 def judge_gangs(flat: Dict[str, List[int]], slices: Dict[str, List[int]], res: BatchResult,
@@ -862,24 +884,10 @@ class BatchScheduler:
         self._evicted.clear()
 
     def _screens(self, pods: Sequence[Pod], pad_to: int) -> Dict[str, torch.Tensor]:
-        """The batch's volume screen (built on the host, uploaded once) and
-        claim mask (built on the batch's device), as schedule_batch's
-        ``extra_mask`` and ``dra_mask``; only those the batch needs."""
         if self.client is None:
             return {}
-        state, out = self.state, {}
-        t0 = time.perf_counter()
-        vol = self._volume_masks.build(pods, self.snapshot, state.encoder,
-                                       self.caps.nodes, pad_to)
-        if vol is not None:
-            out["extra_mask"] = torch.tensor(vol, device=self.device)
-        t1 = time.perf_counter()
-        dra = self._claim_masks.build(pods, state, pad_to)
-        if dra is not None:
-            out["dra_mask"] = dra
-        self.screen_seconds["volume_mask"] += t1 - t0
-        self.screen_seconds["claim_mask"] += time.perf_counter() - t1
-        return out
+        return screen_batch_kw(self._volume_masks, self._claim_masks, self.state, self.snapshot,
+                               pods, pad_to, self.screen_seconds)
 
     def _commit_prechecks(self, pod: Pod, node_name: str
                           ) -> Tuple[dynamicresources.Claims, Optional[str]]:
@@ -895,10 +903,11 @@ class BatchScheduler:
             rwop, reason = volume.volume_restrictions_pre_filter(
                 client, pod, self.snapshot.node_info_map.values())
             if reason is None:
-                bound, reason = volume.volume_binding_pre_filter(client, pod)
+                bound, _delayed, reason = volume.volume_binding_pre_filter(client, pod)
         claims = []
         if reason is None and pod.spec.resource_claims:
             claims, reason = dynamicresources.pre_filter(client, pod)
         if reason is None and pod.spec.volumes:
-            reason = volume.verify_on_node(client, pod, ni, rwop, bound)
+            failed = volume.verify_on_node(client, pod, ni, rwop, bound)
+            reason = failed[1] if failed is not None else None
         return claims, reason

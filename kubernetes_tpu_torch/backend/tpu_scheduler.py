@@ -76,11 +76,35 @@ Reserve, Permit (a gang member short of its quorum waits in
 allows lands through it too). A pod whose assume, Reserve, Permit or bind
 fails surrenders its row too.
 
+Claims and volumes (``:442-471``, ``:670-706``, ``:1455-1505``,
+``:2019``): at pop, a pod ``batch_supported`` refuses (a missing PVC, an
+unbound immediate-mode PVC, a claim or class that does not resolve) takes
+the sequential path (``_schedule_fallback``: ``Scheduler.schedule_one_pod``)
+after the batch queued before it is dispatched and the ring has landed, so
+pop order holds. The others ride the batch: the encode adds the host
+volume screen (``ops/volume_mask.py``, built from the snapshot; with the
+worker a batch with volumes takes the drain-and-sync path, as the screen
+must read a snapshot the worker is not refreshing) and the claim mask
+(``backend/claim_mask.py``, on the device). At commit, in batch order, each
+winner is assumed at once, so the checks of a later volume or claim winner
+see the batch's earlier winners, as the reference's assume-then-next order
+does (the JAX loop assumes them after the loop: ROADMAP C9). A volume or
+claim winner first runs every PreFilter (which resolves its claims again
+and finds one deleted since the encode) and then the exact volume filters
+on its node (``_verify_volumes_on_node``); a plain winner runs none, as
+``_bind_path_needs_prefilter`` (``:1153``) is False for the default
+profile, the port's only one. A pod failing either surrenders
+its row and takes the sequential path right there, before the batch's
+binds land, and counts in ``fallback_scheduled`` when that path binds it.
+The winners then take the bind tail with their PreFilter state: Reserve
+(QuotaAdmission, VolumeBinding's assumed PVs, DynamicResources'
+allocations), Permit, PreBind (the PV binds), bind, PostBind (the claim
+pods' PodSchedulingContext). Generic ephemeral volumes are read by no
+plugin, as in the JAX package (ROADMAP C17).
+
 Left out: the relay breaker, telemetry, tracing and the latency ledger;
-the sequential fallback path (a capacity that does not converge raises
-PermanentDeviceError); the claim and volume arguments: pods with claims,
-volumes or ephemeral claims raise NotImplementedError at pop, before any
-device work.
+custom profiles (a capacity that does not converge raises
+PermanentDeviceError).
 """
 
 from __future__ import annotations
@@ -100,7 +124,9 @@ import torch
 from ..api.types import Pod
 from ..apiserver.store import Store
 from ..cache.snapshot import Snapshot
+from ..framework.plugins import volume
 from ..framework.profile import ATTRIBUTION_ORDER
+from ..framework.runtime import PreFilterState
 from ..framework.types import Diagnosis, QueuedPodInfo
 from ..metrics.scheduler_metrics import ERROR, SCHEDULED, UNSCHEDULABLE
 from ..ops.encode import CapacityError
@@ -108,12 +134,14 @@ from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT
 from ..ops.schema import COL_PODS, Capacities
 from ..ops.slice import fragmentation_host
 from ..ops.tiebreak import seeds_for
+from ..ops.volume_mask import VolumeMaskBuilder
 from ..scheduler.scheduler import BindItem, Scheduler
 from ..utils.device import DeviceLike, resolve_device
 from .batch_scheduler import (DeviceBatch, DispatchedBatch, EncodedBatch,
                               adopt_device_batch, dispatch_device_batch, encode_device_batch,
                               batch_gangs, judge_gangs, preempt_screen, quota_batch_kw,
-                              slice_batch_kw)
+                              screen_batch_kw, slice_batch_kw)
+from .claim_mask import ClaimMaskBuilder
 from .commit_plane import CommitWorker, materialize_result
 from .device_state import DeviceState, caps_for_cluster
 from .errors import PermanentDeviceError
@@ -128,6 +156,10 @@ LOOP_STAGES = ("pop", "snapshot", "sync", "encode", "dispatch", "commit")
 # read of the packed block, the commit itself (failures, preemption,
 # assume, bind) and reconcile
 COMMIT_STAGES = ("wait", "bind", "reconcile")
+# host seconds of the claim and volume work: the volume screen's build and
+# upload and the claim mask's build and enqueue (encode), and the commit
+# checks of the volume and claim winners (PreFilters, exact volume filters)
+SCREENS = ("volume_mask", "claim_mask", "commit_checks")
 # the sync-and-encode attempts, each after one capacity growth
 GROW_ATTEMPTS = 8
 
@@ -140,14 +172,6 @@ def _default_full_batch(device: torch.device) -> bool:
     if env in ("0", "1"):
         return env == "1"
     return device.type == "cuda"
-
-
-def loop_unsupported_reason(pod: Pod) -> Optional[str]:
-    """Why the loop cannot schedule ``pod`` yet, or None."""
-    if pod.spec.resource_claims or pod.spec.volumes or pod.spec.ephemeral_claims:
-        return ("resource claims or volumes (their commit checks meet the loop's store "
-                "in the claim and volume part of the loop)")
-    return None
 
 
 @dataclasses.dataclass
@@ -242,6 +266,10 @@ class TPUScheduler(Scheduler):
         self.gang_seconds = 0.0
         self.gang_reads = 0
         self.quota_flagged = 0  # winners the device's quota screen flagged
+        self._volume_masks = VolumeMaskBuilder(store)
+        self._claim_masks = ClaimMaskBuilder(store)
+        self.screen_seconds = dict.fromkeys(SCREENS, 0.0)
+        self.fallback_scheduled = 0  # pods the sequential path bound
 
     def close(self) -> None:
         """Commit every batch in flight and end the commit worker's thread."""
@@ -392,12 +420,10 @@ class TPUScheduler(Scheduler):
             pod = self.store.get_pod(qp.pod.key())
             if pod is None or pod.spec.node_name or not self._responsible_for(pod):
                 continue  # skipPodSchedule
-            reason = loop_unsupported_reason(pod)
-            if reason is not None:
-                raise NotImplementedError(f"pod {pod.key()}: {reason}")
             live.append((qp, pod))
         self._ensure_device()
-        batch: List[QueuedPodInfo] = []
+        buffer: List[QueuedPodInfo] = []
+        flushed = False
         profile = self.profile
         for qp, pod in live:
             qp.pod = pod
@@ -413,12 +439,43 @@ class TPUScheduler(Scheduler):
                                                   self.now_fn() - t_pop)
                     break
             else:
-                batch.append(qp)
+                if self.batch_supported(pod):
+                    buffer.append(qp)
+                    continue
+                # the sequential path, in pop order: the batch queued before
+                # the pod is dispatched and the ring lands first
+                laps("pop")
+                if buffer:
+                    self._flush_batch(buffer, pod_cycle, t_pop, laps)
+                    buffer, flushed = [], True
+                self._drain_inflight()
+                self._schedule_fallback(qp, pod_cycle)
+                laps("commit")
         laps("pop")
-        if batch:
-            self._flush_batch(batch, pod_cycle, t_pop, laps)
+        if buffer:
+            self._flush_batch(buffer, pod_cycle, t_pop, laps)
+            flushed = True
+        if flushed:
             self.cycle_seconds.append(time.perf_counter() - t0)
         return len(qps)
+
+    def batch_supported(self, pod: Pod) -> bool:
+        """Whether the pod rides the batch (``:442``): a pod whose volumes
+        the screen can judge (every PVC exists, bound or delayed-binding)
+        and whose claims resolve; the default profile is the port's only
+        one."""
+        if pod.spec.volumes and not self._volume_masks.batchable(pod):
+            return False
+        if pod.spec.resource_claims and not self._claim_masks.batchable(pod):
+            return False
+        return True
+
+    def _schedule_fallback(self, qp: QueuedPodInfo, pod_cycle: int) -> None:
+        """The sequential path for one pod (``:2019``)."""
+        before = self.metrics["scheduled"]
+        self.schedule_one_pod(qp, pod_cycle)
+        if self.metrics["scheduled"] > before:
+            self.fallback_scheduled += 1
 
     def _sample_args(self):
         """(sample_k, sample_start) of the next batch, or (None, None) for a
@@ -436,14 +493,17 @@ class TPUScheduler(Scheduler):
         return k, start
 
     def _encode(self, batched: List[QueuedPodInfo]) -> EncodedBatch:
-        """Encode a batch with its slice gangs' member index and, after the
-        ledger's rows are synced, its quota screen's columns."""
+        """Encode a batch with its slice gangs' member index, after the
+        ledger's rows are synced its quota screen's columns, and its volume
+        screen (from the scheduling thread's snapshot) and claim mask."""
         pods = [qp.pod for qp in batched]
         state, quota = self.state, self.profile.quota
 
         def extras(pods, pad_to):
             return {**slice_batch_kw(batch_gangs(pods)[1], state),
-                    **quota_batch_kw(quota, state, pods, pad_to)}
+                    **quota_batch_kw(quota, state, pods, pad_to),
+                    **screen_batch_kw(self._volume_masks, self._claim_masks, state,
+                                      self.snapshot, pods, pad_to, self.screen_seconds)}
 
         return encode_device_batch(state, pods, tie_seeds=seeds_for(batched), extras=extras,
                                    capacity=self.sizer.bucket_for(len(pods)))
@@ -546,6 +606,10 @@ class TPUScheduler(Scheduler):
         if self.commit_worker is not None:
             # the worker's own commits dirty the cache: gate on events
             if self._chain_dirty or self.external_change_seq() != self._chain_ext_seq:
+                return None
+            if any(qp.pod.spec.volumes for qp in batched):
+                # the volume screen reads self.snapshot, which is refreshed
+                # only on the drain-and-sync path while the worker commits
                 return None
         else:
             self.cache.update_snapshot(self.snapshot)
@@ -664,7 +728,9 @@ class TPUScheduler(Scheduler):
         verdicts (stale winners, the quota screen's flags, the gangs'), the
         preemption screen on the adopted carry under the device mutex when a
         pod is unplaced, then every pod in batch order: the failures, and
-        the winners through ``_commit_bindings``."""
+        the winners, each assumed at once (a volume or claim winner after
+        its commit checks, or down the sequential path), then through
+        ``_commit_bindings``."""
         node_idx, slot_names = batch.node_idx, batch.slot_names
         n = len(qps)
         pods = [qp.pod for qp in qps]
@@ -723,7 +789,19 @@ class TPUScheduler(Scheduler):
                                               self.now_fn() - t0)
                 continue
             if name is not None:
-                items.append(BindItem(qp, name))
+                state = None
+                if qp.pod.spec.volumes or qp.pod.spec.resource_claims:
+                    state = self._commit_checks(qp.pod, name)
+                    if state is None:
+                        # the device's choice fails the exact checks: the
+                        # sequential path owns the pod (it re-runs them and
+                        # records the pod's proper condition)
+                        self._invalidate_device_row(name)
+                        self._schedule_fallback(qp, pod_cycle)
+                        continue
+                item = BindItem(qp, name, state=state)
+                if self._assume(item, pod_cycle):
+                    items.append(item)
                 continue
             diagnosis = self._diagnose(batch.first_fail[i], slot_names)
             screen, best, slot_of = hints
@@ -734,29 +812,64 @@ class TPUScheduler(Scheduler):
         if items:
             self._commit_bindings(items, pod_cycle, t0)
 
-    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
-        """The bind tail of a batch (``commit_plane.py:155-307``), each
-        stage over the whole batch: assume, Reserve (every winner, then the
-        refused ones rolled back), Permit (a pod voting WAIT parks at once,
-        so the next member's quorum counts it; a quorum allows the parked
-        siblings, which land right there), then ``_bind_stage``. Per pod
-        the plugins see the JAX commit plane's calls in its order, and each
-        pod fails alone."""
-        profile = self.profile
-        live: List[BindItem] = []
-        for item in items:  # assume
-            item.assumed = item.qp.pod.clone()
-            try:
-                self.cache.assume_pod(item.assumed, item.node_name)
-            except KeyError:
-                self._handle_scheduling_failure(item.qp, False, Diagnosis(), pod_cycle)
+    def _commit_checks(self, pod: Pod, node_name: str) -> Optional[PreFilterState]:
+        """A volume or claim winner's checks on its node (``:1455-1501``)
+        against the failure path's snapshot, refreshed first so that it
+        holds the batch's earlier winners: every PreFilter, then the exact
+        volume filters (``_verify_volumes_on_node``, which also records
+        VolumeBinding's choice of PVs). The pod's PreFilter state, or None
+        when a check fails."""
+        t = time.perf_counter()
+        try:
+            snap = self._failure_snapshot()
+            self.cache.update_snapshot(snap)
+            state, _names, fail = self.profile.filters.pre_filter_status(pod)
+            if fail is not None:
+                return None
+            if pod.spec.volumes and not self._verify_volumes_on_node(state, pod, node_name, snap):
+                return None
+            return state
+        finally:
+            self.screen_seconds["commit_checks"] += time.perf_counter() - t
+
+    def _verify_volumes_on_node(self, state: PreFilterState, pod: Pod, node_name: str,
+                                snap: Snapshot) -> bool:
+        """The exact volume filters on the device's chosen node (``:1125``,
+        the filters of ``_VOLUME_FILTERS``): the host half of the
+        over-admitting volume screen."""
+        ni = snap.node_info_map.get(node_name)
+        if ni is None or ni.node is None:
+            return False  # the chosen node left the snapshot
+        return volume.verify_on_node(self.store, pod, ni, state.rwop, state.bound,
+                                     state.delayed, state.node_bindings) is None
+
+    def _assume(self, item: BindItem, pod_cycle: int) -> bool:
+        """Assume the pod on its node in the cache, so the next pod's
+        checks and the sequential path see it; a pod whose node left takes
+        the failure path."""
+        item.assumed = item.qp.pod.clone()
+        try:
+            self.cache.assume_pod(item.assumed, item.node_name)
+        except KeyError:
+            self._handle_scheduling_failure(item.qp, False, Diagnosis(), pod_cycle)
+            if item.device:
                 self._invalidate_device_row(item.node_name)
-                continue
-            profile.nominator.delete_nominated_pod_if_exists(item.qp.pod)
-            live.append(item)
-        refused = [profile.reserve(item.assumed, item.node_name) for item in live]
+            return False
+        self.profile.nominator.delete_nominated_pod_if_exists(item.qp.pod)
+        return True
+
+    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
+        """The bind tail of assumed pods (``commit_plane.py:155-307``), each
+        stage over all of them: Reserve (every pod, then the refused ones
+        rolled back), Permit (a pod voting WAIT parks at once, so the next
+        member's quorum counts it; a quorum allows the parked siblings,
+        which land right there), then ``_bind_stage``. Per pod the plugins
+        see the JAX commit plane's calls in its order, and each pod fails
+        alone. The sequential path calls it with its one pod."""
+        profile = self.profile
+        refused = [profile.reserve(item.assumed, item.node_name, item.state) for item in items]
         survivors = []
-        for item, reason in zip(live, refused):
+        for item, reason in zip(items, refused):
             if reason is not None:
                 self._fail_assumed(item, True, pod_cycle)
             else:
@@ -765,7 +878,7 @@ class TPUScheduler(Scheduler):
         for item in survivors:  # Permit: a WAIT parks before the next member's vote
             reason, wait_s = profile.permit(item.assumed, item.node_name)
             if reason is None and wait_s is not None:
-                self.park(item.assumed, item.node_name, pod_cycle, t0, wait_s)
+                self.park(item, pod_cycle, t0, wait_s)
                 reason = "waiting"
             verdicts.append(reason)
         permitted = []
@@ -777,12 +890,19 @@ class TPUScheduler(Scheduler):
         self._bind_stage(permitted, pod_cycle, t0)
 
     def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
-        """Bind assumed pods through the store in one pass, then finish
-        each bound one, count it, and run PostBind over them."""
+        """PreBind each assumed pod (VolumeBinding's PV binds), bind the
+        rest through the store in one pass, then finish each bound one,
+        count it, and run PostBind over them."""
+        live = []
+        for item in items:
+            if self.profile.pre_bind(item.assumed) is not None:
+                self._fail_assumed(item, False, pod_cycle)
+            else:
+                live.append(item)
         outcomes = self.store.bind_batch([(item.assumed.key(), item.node_name)
-                                          for item in items])
+                                          for item in live])
         bound = []
-        for item, err in zip(items, outcomes):
+        for item, err in zip(live, outcomes):
             if err is not None:
                 self._fail_assumed(item, False, pod_cycle)
             else:
@@ -799,12 +919,13 @@ class TPUScheduler(Scheduler):
     def _fail_assumed(self, item: BindItem, unschedulable: bool, pod_cycle: int) -> None:
         """An assumed pod refused after its assume: Unreserve (a refused
         Reserve's too: the whole point unreserves), the assume forgotten,
-        the failure path; the device committed to it, so the next sync
+        the failure path; when the device committed to it, the next sync
         repairs its row."""
-        self.profile.unreserve(item.assumed, item.node_name)
+        self.profile.unreserve(item.assumed, item.node_name, item.state)
         self.cache.forget_pod(item.assumed)
         self._handle_scheduling_failure(item.qp, unschedulable, Diagnosis(), pod_cycle)
-        self._invalidate_device_row(item.node_name)
+        if item.device:
+            self._invalidate_device_row(item.node_name)
 
     def _judge(self, pods: List[Pod], batch: DeviceBatch, poisoned: Set[int],
                t0: float) -> Dict[int, str]:

@@ -2,7 +2,9 @@
 
 An own copy of the Filters of
 ``kubernetes_tpu/framework/plugins/basic.py``: NodeUnschedulable,
-NodeName, TaintToleration and NodePorts, without the plugin runtime. Each
+NodeName, TaintToleration and NodePorts, without the plugin runtime, and
+TaintToleration's PreScore and Score (the untolerated PreferNoSchedule
+taints, normalized reversed). Each
 filter returns None when the node passes, else the plugin's reason. The
 preemption dry run (``framework/preemption.py``) runs them through
 ``framework/runtime.py``; the batched path computes the same predicates on
@@ -13,8 +15,8 @@ from __future__ import annotations
 
 from typing import Iterable, Optional, Tuple
 
-from ...api.types import (TAINT_NO_EXECUTE, TAINT_NO_SCHEDULE, ContainerPort, Pod, Taint,
-                          Toleration)
+from ...api.types import (TAINT_NO_EXECUTE, TAINT_NO_SCHEDULE, TAINT_PREFER_NO_SCHEDULE,
+                          ContainerPort, Pod, Taint, Toleration)
 from ..types import NodeInfo, ports_conflict
 
 ERR_REASON_UNSCHEDULABLE = "node(s) were unschedulable"
@@ -69,3 +71,15 @@ def node_ports_filter(wanted: Tuple[ContainerPort, ...], ni: NodeInfo) -> Option
     if ports_conflict(ni.used_ports, wanted):
         return ERR_REASON_PORTS
     return None
+
+
+def taint_toleration_pre_score(pod: Pod) -> Tuple[Toleration, ...]:
+    """The pod's tolerations that can tolerate a PreferNoSchedule taint."""
+    return tuple(t for t in pod.spec.tolerations if t.effect in ("", TAINT_PREFER_NO_SCHEDULE))
+
+
+def taint_toleration_score(prefer: Tuple[Toleration, ...], ni: NodeInfo) -> int:
+    """The node's PreferNoSchedule taints none of ``prefer`` tolerates."""
+    return sum(1 for t in ni.node.spec.taints
+               if t.effect == TAINT_PREFER_NO_SCHEDULE
+               and not any(tol.tolerates(t) for tol in prefer))

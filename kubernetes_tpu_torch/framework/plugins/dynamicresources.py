@@ -1,11 +1,15 @@
-"""The DynamicResources plugin's claim checks as plain functions.
+"""The DynamicResources plugin as plain functions.
 
-An own copy of the PreFilter claim resolution, the exact Filter and Reserve
-/ Unreserve of ``kubernetes_tpu/framework/plugins/dynamicresources.py``,
+An own copy of ``kubernetes_tpu/framework/plugins/dynamicresources.py``
 over (store, pod, node name), without the plugin runtime (cycle state,
-status codes, registry). The batched path screens claims with the device
-mask (``backend/claim_mask.py``); at commit it resolves the pod's claims
-again (``pre_filter``) and allocates them to the chosen node (``reserve``).
+status codes, registry): the PreFilter claim resolution, the exact Filter,
+Reserve / Unreserve (``:143-174``; each claim allocated to the chosen node
+and reserved for the pod through the store, a refused one rolling back
+what the pod took) and PostBind (``:176``; the pod's PodSchedulingContext
+records the selected node). The batched path screens claims with the
+device mask (``backend/claim_mask.py``); at commit it resolves the pod's
+claims again (``pre_filter``), which also finds a claim deleted since the
+batch's encode, and Reserve allocates them.
 
 Allocation is node-level: claims carry no per-device inventory, so claim
 contention inside a batch reduces to the allocated-node restriction, which
@@ -14,10 +18,11 @@ Reserve enforces exactly.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 from ...api import dra
-from ...api.types import Node, Pod, ResourceClaim
+from ...api.types import Node, ObjectMeta, OwnerReference, Pod, PodSchedulingContext, ResourceClaim
 from ...apiserver.store import Conflict, NotFound
 
 ERR_REASON_MISSING_CLAIM = "waiting for resource claim to be created"
@@ -77,3 +82,23 @@ def unreserve(client, pod: Pod, claim_keys: List[str]) -> None:
     pod_key = pod.key()
     for claim_key in claim_keys:
         client.release_claim(claim_key, pod_key)
+
+
+def post_bind(client, pod: Pod, node_name: str) -> None:
+    """The pod's PodSchedulingContext (owned by the pod) records
+    ``node_name``: created, or updated when it names another node."""
+    if not pod.spec.resource_claims:
+        return
+    existing = client.get_object("PodSchedulingContext", pod.key())
+    try:
+        if existing is None:
+            client.create_object("PodSchedulingContext", PodSchedulingContext(
+                meta=ObjectMeta(name=pod.meta.name, namespace=pod.meta.namespace,
+                                owner_references=(OwnerReference(
+                                    kind="Pod", name=pod.meta.name, controller=True),)),
+                selected_node=node_name))
+        elif existing.selected_node != node_name:
+            client.update_object("PodSchedulingContext",
+                                 dataclasses.replace(existing, selected_node=node_name))
+    except Conflict:
+        pass  # another writer; the status is current

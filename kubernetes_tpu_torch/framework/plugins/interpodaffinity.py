@@ -1,13 +1,15 @@
-"""Inter-pod affinity: the terms, and the PreFilter and Filter the
-preemption dry run runs.
+"""Inter-pod affinity: the terms, and the host PreFilter, Filter, PreScore
+and Score.
 
 An own copy of the term parsing of ``kubernetes_tpu/framework/plugins/
-interpodaffinity.py`` (``AffinityTerm`` and the four term extractors) and
-of its PreFilter state, AddPod / RemovePod extensions and Filter
-(``:117-250``, interpodaffinity/filtering.go), as plain functions without
-the scores: the batched path evaluates the terms through
-``backend/sig_table.py`` and ``ops/topology.py``; only the host dry run
-(``framework/runtime.py:FilterRunner``) reads these.
+interpodaffinity.py`` (``AffinityTerm`` and the four term extractors), of
+its PreFilter state, AddPod / RemovePod extensions and Filter
+(``:117-250``, interpodaffinity/filtering.go), and of its PreScore, Score
+and NormalizeScore (``:251-313``, scoring.go) at the default arguments
+(hardPodAffinityWeight 1, the existing pods' preferred terms counted), as
+plain functions: the batched path evaluates the terms through
+``backend/sig_table.py`` and ``ops/topology.py``; the host dry run and the
+sequential path (``framework/runtime.py``) read these.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 from ...api.types import LABEL_HOSTNAME, MATCH_NOTHING, LabelSelector, Node, Pod, PodAffinityTerm
-from ..types import NodeInfo
+from ..types import MAX_NODE_SCORE, NodeInfo
 
 ERR_EXISTING_ANTI = "node(s) didn't satisfy existing pods anti-affinity rules"
 ERR_AFFINITY = "node(s) didn't match pod affinity rules"
@@ -195,3 +197,53 @@ def filter_node(s: PreFilterState, pod: Pod, ni: NodeInfo, ns_labels_fn: NsLabel
         if cnt > 0 and labels.get(tk) == tv:
             return ERR_EXISTING_ANTI
     return None
+
+
+def pre_score(pod: Pod, node_infos: Iterable[NodeInfo], ns_labels_fn: NsLabelsFn
+              ) -> Dict[TopoPair, int]:
+    """The weight per topology pair: the pod's preferred (anti-)affinity
+    terms over the existing pods, and the existing pods' required affinity
+    (weight 1) and preferred terms toward the pod."""
+    pref = preferred_affinity_terms(pod)
+    pref_anti = preferred_anti_affinity_terms(pod)
+    scores: Dict[TopoPair, int] = {}
+    scan_all = bool(pref or pref_anti)
+
+    def add(term, labels, other, sign):
+        tv = labels.get(term.topology_key)
+        if tv is not None and term.matches(other, ns_labels_fn):
+            pair = (term.topology_key, tv)
+            scores[pair] = scores.get(pair, 0) + sign
+
+    for ni in node_infos:
+        node = ni.node
+        if node is None:
+            continue
+        labels = node.meta.labels
+        for ep in (ni.pods if scan_all else ni.pods_with_affinity):
+            for term in pref:
+                add(term, labels, ep, term.weight)
+            for term in pref_anti:
+                add(term, labels, ep, -term.weight)
+            for term in required_affinity_terms(ep):
+                add(term, labels, pod, 1)
+            for term in preferred_affinity_terms(ep):
+                add(term, labels, pod, term.weight)
+            for term in preferred_anti_affinity_terms(ep):
+                add(term, labels, pod, -term.weight)
+    return scores
+
+
+def score_node(topology_score: Dict[TopoPair, int], ni: NodeInfo) -> int:
+    labels = ni.node.meta.labels
+    return sum(w for (tk, tv), w in topology_score.items() if labels.get(tk) == tv)
+
+
+def normalize_score(scores: Dict[str, int]) -> None:
+    """scoring.go NormalizeScore, in place: [min, max] (floored and ceiled
+    at 0) onto [0, 100] through a float."""
+    max_count = max([*scores.values(), 0])
+    min_count = min([*scores.values(), 0])
+    diff = max_count - min_count
+    for name, raw in scores.items():
+        scores[name] = int(MAX_NODE_SCORE * (raw - min_count) / diff) if diff > 0 else 0

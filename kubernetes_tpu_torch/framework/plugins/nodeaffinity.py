@@ -5,14 +5,15 @@ An own copy of ``kubernetes_tpu/framework/plugins/nodeaffinity.py``
 argument, which no caller of the port sets: the Filter requires every
 nodeSelector pair among the node's labels and one matching required term
 (terms OR-ed, expressions AND-ed); the PreFilter restricts the candidate
-nodes when every required term is a metadata.name matchFields term.
+nodes when every required term is a metadata.name matchFields term; the
+Score sums the weights of the preferred terms the node matches.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Set, Tuple
 
-from ...api.types import NodeSelector, Pod
+from ...api.types import NodeSelector, Pod, PreferredSchedulingTerm
 from ..types import NodeInfo
 
 ERR_REASON_POD = "node(s) didn't match Pod's node affinity/selector"
@@ -51,3 +52,15 @@ def node_affinity_filter(pod: Pod, ni: NodeInfo) -> Optional[str]:
     if required is not None and not required.matches(node):
         return ERR_REASON_POD
     return None
+
+
+def preferred_terms(pod: Pod) -> Tuple[PreferredSchedulingTerm, ...]:
+    """The PreScore state: the pod's preferred node affinity terms."""
+    a = pod.spec.affinity
+    if a and a.node_affinity:
+        return tuple(a.node_affinity.preferred)
+    return ()
+
+
+def node_affinity_score(terms: Tuple[PreferredSchedulingTerm, ...], ni: NodeInfo) -> int:
+    return sum(t.weight for t in terms if t.weight != 0 and t.preference.matches(ni.node))

@@ -1,25 +1,31 @@
-"""PodTopologySpread's PreFilter and Filter, for the preemption dry run.
+"""PodTopologySpread's host PreFilter, Filter, PreScore and Score.
 
-An own copy of the filtering half of ``kubernetes_tpu/framework/plugins/
-podtopologyspread.py`` (``:50-197``, podtopologyspread/filtering.go) as
-plain functions: the PreFilter counts, over the nodes that match the pod's
-required node affinity and carry every DoNotSchedule constraint's key, the
-pods of the pod's namespace each constraint selects, per topology pair;
-AddPod / RemovePod move those counts as the dry run adds and removes pods;
-the Filter admits a node when ``matchNum + selfMatch - minMatchNum <=
-maxSkew`` for every constraint. The batched path counts spread through
-``ops/topology.py``; only the host dry run reads these. There are no
-default constraints (the JAX plugin's default arguments) and no scores.
+An own copy of ``kubernetes_tpu/framework/plugins/podtopologyspread.py``
+as plain functions. Filtering (``:50-197``, filtering.go): the PreFilter
+counts, over the nodes that match the pod's required node affinity and
+carry every DoNotSchedule constraint's key, the pods of the pod's
+namespace each constraint selects, per topology pair; AddPod / RemovePod
+move those counts as the dry run adds and removes pods; the Filter admits
+a node when ``matchNum + selfMatch - minMatchNum <= maxSkew`` for every
+constraint. Scoring (``:198-279``, scoring.go) over the ScheduleAnyway
+constraints: PreScore ignores the filtered nodes without every
+constraint's key, weighs each constraint by ``log(domains + 2)`` and
+counts the matching pods per pair over all nodes; a node scores
+``round(sum(count * weight + maxSkew - 1))``, normalized reversed against
+the range. The batched path counts spread through ``ops/topology.py``; the
+host dry run and the sequential path read these. There are no default
+constraints (the JAX plugin's default arguments).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
-from ...api.types import (DO_NOT_SCHEDULE, MATCH_NOTHING, LabelSelector, Node, Pod,
-                          TopologySpreadConstraint)
-from ..types import NodeInfo
+from ...api.types import (DO_NOT_SCHEDULE, LABEL_HOSTNAME, MATCH_NOTHING, SCHEDULE_ANYWAY,
+                          LabelSelector, Node, Pod, TopologySpreadConstraint)
+from ..types import MAX_NODE_SCORE, NodeInfo
 
 ERR_REASON_CONSTRAINTS = "node(s) didn't match pod topology spread constraints"
 ERR_REASON_LABEL = ERR_REASON_CONSTRAINTS + " (missing required label)"
@@ -27,6 +33,10 @@ ERR_REASON_LABEL = ERR_REASON_CONSTRAINTS + " (missing required label)"
 
 def _selector_of(c: TopologySpreadConstraint) -> LabelSelector:
     return c.label_selector if c.label_selector is not None else MATCH_NOTHING
+
+
+def _count_matching(pods: Iterable[Pod], sel: LabelSelector, ns: str) -> int:
+    return sum(1 for p in pods if p.meta.namespace == ns and sel.matches(p.meta.labels))
 
 
 def _matches_node_affinity(pod: Pod, node: Node) -> bool:
@@ -75,8 +85,7 @@ def pre_filter(pod: Pod, node_infos: Iterable[NodeInfo]) -> PreFilterState:
             continue
         for c in constraints:
             pair = (c.topology_key, labels[c.topology_key])
-            sel = _selector_of(c)
-            cnt = sum(1 for p in ni.pods if p.meta.namespace == ns and sel.matches(p.meta.labels))
+            cnt = _count_matching(ni.pods, _selector_of(c), ns)
             s.tp_pair_to_match_num[pair] = s.tp_pair_to_match_num.get(pair, 0) + cnt
     for k, _v in s.tp_pair_to_match_num:
         s.tp_key_to_domains_num[k] = s.tp_key_to_domains_num.get(k, 0) + 1
@@ -112,3 +121,86 @@ def filter_node(s: PreFilterState, pod: Pod, ni: NodeInfo) -> Optional[str]:
         if match_num + self_match - min_match > c.max_skew:
             return ERR_REASON_CONSTRAINTS
     return None
+
+
+@dataclass
+class PreScoreState:
+    constraints: List[TopologySpreadConstraint] = field(default_factory=list)
+    ignored_nodes: Set[str] = field(default_factory=set)
+    pair_counts: Dict[Tuple[str, str], int] = field(default_factory=dict)
+    weights: List[float] = field(default_factory=list)
+
+
+def pre_score(pod: Pod, filtered: Sequence[Node], node_infos: Iterable[NodeInfo]
+              ) -> PreScoreState:
+    constraints = [c for c in pod.spec.topology_spread_constraints
+                   if c.when_unsatisfiable == SCHEDULE_ANYWAY]
+    s = PreScoreState(constraints=constraints)
+    if not constraints:
+        return s
+    sizes = [0] * len(constraints)
+    for node in filtered:
+        labels = node.meta.labels
+        if any(c.topology_key not in labels for c in constraints):
+            s.ignored_nodes.add(node.meta.name)
+            continue
+        for i, c in enumerate(constraints):
+            if c.topology_key == LABEL_HOSTNAME:
+                continue
+            pair = (c.topology_key, labels.get(c.topology_key, ""))
+            if pair not in s.pair_counts:
+                s.pair_counts[pair] = 0
+                sizes[i] += 1
+    for i, c in enumerate(constraints):
+        size = sizes[i]
+        if c.topology_key == LABEL_HOSTNAME:
+            size = len(filtered) - len(s.ignored_nodes)
+        s.weights.append(math.log(size + 2))
+    for ni in node_infos:
+        node = ni.node
+        if node is None or not _matches_node_affinity(pod, node):
+            continue
+        labels = node.meta.labels
+        if any(c.topology_key not in labels for c in constraints):
+            continue
+        for c in constraints:
+            pair = (c.topology_key, labels.get(c.topology_key, ""))
+            if pair in s.pair_counts:
+                s.pair_counts[pair] += _count_matching(ni.pods, _selector_of(c),
+                                                       pod.meta.namespace)
+    return s
+
+
+def score_node(s: PreScoreState, pod: Pod, ni: NodeInfo) -> int:
+    node = ni.node
+    if not s.constraints or node.meta.name in s.ignored_nodes:
+        return 0
+    labels = node.meta.labels
+    score = 0.0
+    for i, c in enumerate(s.constraints):
+        if c.topology_key not in labels:
+            continue
+        if c.topology_key == LABEL_HOSTNAME:
+            cnt = _count_matching(ni.pods, _selector_of(c), pod.meta.namespace)
+        else:
+            cnt = s.pair_counts.get((c.topology_key, labels[c.topology_key]), 0)
+        score += cnt * s.weights[i] + (c.max_skew - 1)
+    return round(score)
+
+
+def normalize_score(s: PreScoreState, scores: Dict[str, int]) -> None:
+    """In place: the ignored nodes 0, the others reversed against the
+    range of the rest."""
+    if not s.constraints:
+        return
+    valid = [v for name, v in scores.items() if name not in s.ignored_nodes]
+    if not valid:
+        return
+    lo, hi = min(valid), max(valid)
+    for name, raw in scores.items():
+        if name in s.ignored_nodes:
+            scores[name] = 0
+        elif hi == 0:
+            scores[name] = MAX_NODE_SCORE
+        else:
+            scores[name] = MAX_NODE_SCORE * (hi + lo - raw) // hi

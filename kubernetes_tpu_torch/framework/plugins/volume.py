@@ -1,24 +1,37 @@
-"""The exact volume filters the batched path re-runs on a chosen node.
+"""The volume plugins of the default profile as plain functions, and
+VolumeBinding's bind tail.
 
-An own copy, as plain functions over (store, pod, NodeInfo), of the volume
-filters of ``kubernetes_tpu/framework/plugins/volume.py`` that the default
-filter list holds, in its order: VolumeRestrictions (and its PreFilter),
-NodeVolumeLimits, VolumeBinding's Filter for bound claims (and its
-PreFilter), and VolumeZone. Each returns None when it passes, else the
-plugin's reason. ``verify_on_node`` runs the four on one node, as
+An own copy, over (store, pod, NodeInfo), of the volume plugins of
+``kubernetes_tpu/framework/plugins/volume.py`` that the default filter
+list holds, in its order: VolumeRestrictions (and its PreFilter),
+NodeVolumeLimits, VolumeBinding (PreFilter ``:284``, Filter ``:304``) and
+VolumeZone. Each check returns None when it passes, else the plugin's
+reason. ``verify_on_node`` runs the four on one node, as
 ``TPUScheduler._verify_volumes_on_node`` does after the device's
 over-admitting screen (``ops/volume_mask.py``).
 
+VolumeBinding's PreFilter splits the pod's claims into bound ones, whose
+PV must admit the node, and delayed (WaitForFirstConsumer) ones; its
+Filter matches each delayed claim to the smallest free PV of its class
+that fits and admits the node (``find_matching_volumes``), and records
+the node's choice. ``VolumeBinding`` holds the bind tail (``:369-391``):
+Reserve assumes the chosen node's (PV, PVC) pairs for the pod, Unreserve
+forgets them, PreBind writes each through the store's ``bind_pv``. Like
+the JAX plugin, the Filter does not see another pod's assumed pairs: two
+pods may choose one PV, and the second's PreBind then meets a Conflict.
+
 A pod's volumes are PVC names (api/types.py PodSpec.volumes); PVs carry
-topology as required label matches. Delayed (WaitForFirstConsumer) binding
-is not here: it needs VolumeBinding's Reserve / PreBind bind tail.
+topology as required label matches. No plugin reads a pod's generic
+ephemeral volumes (``spec.ephemeral_claims``), as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
-from ...api.types import BINDING_WAIT_FOR_FIRST_CONSUMER, RWOP, PersistentVolumeClaim, Pod
+from ...api.types import (BINDING_WAIT_FOR_FIRST_CONSUMER, RWOP, Node, PersistentVolumeClaim,
+                          Pod)
+from ...apiserver.store import Conflict, NotFound
 from ...ops.volume_mask import ZONE_KEYS
 from ..types import NodeInfo
 
@@ -28,6 +41,10 @@ ERR_REASON_CONFLICT = "node(s) had volume node affinity conflict"
 ERR_REASON_RWOP = "pod uses a ReadWriteOncePod PVC already in use"
 ERR_REASON_LIMIT = "node(s) exceed max volume count"
 ERR_REASON_ZONE = "node(s) had no available volume zone"
+ERR_REASON_NO_PV = "node(s) didn't find available persistent volumes to bind"
+
+# a delayed claim's choice on one node: (PV name, PVC key)
+Binding = Tuple[str, str]
 
 
 def pod_pvcs(client, pod: Pod) -> Tuple[List[PersistentVolumeClaim], Optional[str]]:
@@ -136,15 +153,15 @@ def node_volume_limits_filter(client, pod: Pod, ni: NodeInfo) -> Optional[str]:
 # -------------------------------------------------------------- VolumeBinding
 
 
-def volume_binding_pre_filter(client, pod: Pod) -> Tuple[List[PersistentVolumeClaim],
-                                                         Optional[str]]:
-    """(the pod's bound claims, reason) (volume_binding.go:168): a missing
-    claim or an unbound immediate-mode one rejects the pod. A delayed
-    (WaitForFirstConsumer) claim raises NotImplementedError: binding it
-    needs the bind tail."""
+def volume_binding_pre_filter(client, pod: Pod
+                              ) -> Tuple[List[PersistentVolumeClaim],
+                                         List[PersistentVolumeClaim], Optional[str]]:
+    """(the pod's bound claims, its delayed claims, reason)
+    (volume_binding.go:168): a missing claim or an unbound immediate-mode
+    one rejects the pod."""
     claims, missing = pod_pvcs(client, pod)
     if missing is not None:
-        return [], f'{ERR_REASON_PVC_NOT_FOUND} "{missing}"'
+        return [], [], f'{ERR_REASON_PVC_NOT_FOUND} "{missing}"'
     bound, unbound_immediate, delayed = [], [], []
     for pvc in claims:
         if pvc.bound_pv:
@@ -156,33 +173,104 @@ def volume_binding_pre_filter(client, pod: Pod) -> Tuple[List[PersistentVolumeCl
         else:
             unbound_immediate.append(pvc)
     if unbound_immediate:
-        return [], ERR_REASON_NOT_BOUND
-    if delayed:
-        raise NotImplementedError(
-            f"pod {pod.key()}: delayed (WaitForFirstConsumer) claim {delayed[0].meta.key()}")
-    return bound, None
+        return [], [], ERR_REASON_NOT_BOUND
+    return bound, delayed, None
 
 
-def volume_binding_filter(client, bound: List[PersistentVolumeClaim],
-                          ni: NodeInfo) -> Optional[str]:
+def find_matching_volumes(client, delayed: List[PersistentVolumeClaim],
+                          node: Node) -> Optional[List[Binding]]:
+    """binder.go findMatchingVolumes: per delayed claim in order, the
+    smallest unbound PV of its class that holds its request and admits the
+    node, none taken twice; None when a claim finds none."""
+    chosen: List[Binding] = []
+    taken: Set[str] = set()
+    for pvc in delayed:
+        best = None
+        for pv in client.list_pvs():
+            if pv.bound_pvc or pv.meta.name in taken or pv.storage_class != pvc.storage_class:
+                continue
+            if pvc.requested_bytes and pv.capacity_bytes < pvc.requested_bytes:
+                continue
+            if not pv.matches_node(node):
+                continue
+            if best is None or pv.capacity_bytes < best.capacity_bytes:
+                best = pv
+        if best is None:
+            return None
+        taken.add(best.meta.name)
+        chosen.append((best.meta.name, pvc.meta.key()))
+    return chosen
+
+
+def volume_binding_filter(client, bound: List[PersistentVolumeClaim], ni: NodeInfo,
+                          delayed: List[PersistentVolumeClaim] = (),
+                          node_bindings: Optional[Dict[str, List[Binding]]] = None
+                          ) -> Optional[str]:
     """Each bound claim's PV must admit the node by its node affinity
-    (volume_binding.go:224)."""
+    (volume_binding.go:224), and every delayed claim must find a PV on it;
+    the node's choice goes to ``node_bindings``."""
     for pvc in bound:
         pv = client.get_pv(pvc.bound_pv)
         if pv is not None and not pv.matches_node(ni.node):
             return ERR_REASON_CONFLICT
+    if not delayed:
+        return None
+    chosen = find_matching_volumes(client, delayed, ni.node)
+    if chosen is None:
+        return ERR_REASON_NO_PV
+    if node_bindings is not None:
+        node_bindings[ni.node.meta.name] = chosen
     return None
+
+
+class VolumeBinding:
+    """VolumeBinding's Reserve, Unreserve and PreBind: the (PV, PVC) pairs
+    assumed per pod between its Reserve and its PreBind."""
+
+    def __init__(self, client):
+        self.client = client
+        self._assumed: Dict[str, List[Binding]] = {}
+
+    def reserve(self, pod: Pod, node_name: str,
+                node_bindings: Dict[str, List[Binding]]) -> None:
+        self._assumed[pod.key()] = node_bindings.get(node_name, [])
+
+    def unreserve(self, pod: Pod) -> None:
+        self._assumed.pop(pod.key(), None)
+
+    def pre_bind(self, pod: Pod) -> Optional[str]:
+        """Bind the pod's assumed pairs in order; the first failure's
+        reason (another pod bound the PV first), else None."""
+        for pv_name, pvc_key in self._assumed.pop(pod.key(), []):
+            try:
+                self.client.bind_pv(pv_name, pvc_key)
+            except (Conflict, NotFound) as err:
+                return f"binding volumes: {err}"
+        return None
 
 
 # -------------------------------------------------------------- the commit check
 
 
 def verify_on_node(client, pod: Pod, ni: NodeInfo, rwop: Set[str],
-                   bound: List[PersistentVolumeClaim]) -> Optional[str]:
+                   bound: List[PersistentVolumeClaim],
+                   delayed: List[PersistentVolumeClaim] = (),
+                   node_bindings: Optional[Dict[str, List[Binding]]] = None
+                   ) -> Optional[Tuple[str, str]]:
     """The exact volume filters on one node, in the default filter order:
-    VolumeRestrictions, NodeVolumeLimits, VolumeBinding, VolumeZone. ``rwop``
-    and ``bound`` are the two PreFilters' results."""
-    return (volume_restrictions_filter(rwop, ni)
-            or node_volume_limits_filter(client, pod, ni)
-            or volume_binding_filter(client, bound, ni)
-            or volume_zone_filter(client, pod, ni))
+    VolumeRestrictions, NodeVolumeLimits, VolumeBinding, VolumeZone; the
+    first failure's (plugin, reason), else None. ``rwop``, ``bound`` and
+    ``delayed`` are the PreFilters' results; VolumeBinding records the
+    node's delayed choice in ``node_bindings``."""
+    checks = (
+        ("VolumeRestrictions", lambda: volume_restrictions_filter(rwop, ni)),
+        ("NodeVolumeLimits", lambda: node_volume_limits_filter(client, pod, ni)),
+        ("VolumeBinding", lambda: volume_binding_filter(client, bound, ni, delayed,
+                                                        node_bindings)),
+        ("VolumeZone", lambda: volume_zone_filter(client, pod, ni)),
+    )
+    for plugin, check in checks:
+        reason = check()
+        if reason is not None:
+            return plugin, reason
+    return None

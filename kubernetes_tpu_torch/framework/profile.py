@@ -12,10 +12,14 @@ set, in its order:
     Coscheduling's; the preemption dry run's PreFilters run QuotaAdmission,
     Coscheduling, the rest, then SlicePacking (``filters``);
   * PostFilter: DefaultPreemption (``preemption``);
-  * Reserve: QuotaAdmission first, Coscheduling last (``reserve``);
-    Unreserve in reverse (``unreserve``); VolumeBinding and
-    DynamicResources reserve nothing for the pods the loop takes;
-  * Permit: Coscheduling; PostBind: Coscheduling (``post_bind_batch``).
+  * the sequential path's PreScore and Score (``scores``);
+  * Reserve: QuotaAdmission, VolumeBinding, DynamicResources, then
+    Coscheduling (``reserve``), Unreserve in reverse (``unreserve``);
+    VolumeBinding's and DynamicResources' work from the pod's PreFilter
+    state, which a plain pod of a batch does not have (the JAX commit runs
+    the PreFilters for volume and claim pods only);
+  * Permit: Coscheduling; PreBind: VolumeBinding (``pre_bind``); PostBind:
+    DynamicResources, then Coscheduling (``post_bind_batch``).
 
 No plugin registry: one profile, the default plugin set.
 """
@@ -26,12 +30,14 @@ from typing import Callable, Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 from ..api.types import Pod, PodDisruptionBudget
 from ..queue.scheduling_queue import priority_sort_key
+from .plugins import dynamicresources
 from .plugins.coscheduling import Coscheduling, pod_group_key
 from .plugins.defaultpreemption import DefaultPreemption
 from .plugins.interpodaffinity import NsLabelsFn
 from .plugins.quota import QuotaAdmission
 from .plugins.slicepacking import SlicePacking
-from .runtime import FilterRunner, PodNominator
+from .plugins.volume import VolumeBinding
+from .runtime import FilterRunner, PodNominator, PreFilterState, ScoreRunner
 from .types import (ADD, ALL, CSI_NODE, ClusterEvent, DELETE, NODE, NodeInfo, POD, PV, PVC,
                     RESOURCE_CLAIM, RESOURCE_CLASS, STORAGE_CLASS, UPDATE_NODE_ALLOCATABLE,
                     UPDATE_NODE_LABEL, UPDATE_NODE_TAINT, WILDCARD_EVENT)
@@ -122,26 +128,52 @@ class Profile:
         self.filters = FilterRunner(client, node_infos_fn, self.nominator, ns_labels_fn,
                                     self.quota, self.coscheduling, self.slice_packing)
         self.preemption = DefaultPreemption(self.filters, evict, clear_nomination, pdb_lister)
+        self.scores = ScoreRunner(node_infos_fn, ns_labels_fn)
+        self.client = client
+        self.volume_binding = VolumeBinding(client)
 
     def pre_enqueue(self, pod: Pod):
         """The PreEnqueue point: None to admit, else the refusal."""
         return self.quota.pre_enqueue_status(pod)
 
-    def reserve(self, pod: Pod, node_name: str) -> Optional[str]:
-        """The Reserve point in order; the first refusal's reason, or None."""
-        return self.quota.reserve(pod)
+    def reserve(self, pod: Pod, node_name: str,
+                state: Optional[PreFilterState] = None) -> Optional[str]:
+        """The Reserve point in order; the first refusal's reason, or None.
+        A claim Reserve refuses releases what the pod took of its claims."""
+        reason = self.quota.reserve(pod)
+        if reason is not None or state is None:
+            return reason
+        self.volume_binding.reserve(pod, node_name, state.node_bindings)
+        if state.claims:
+            if dynamicresources.reserve(self.client, pod, node_name, state.claims) is not None:
+                return dynamicresources.ERR_REASON_CANNOT_ALLOCATE
+            state.allocated = [key for key, _claim, _sels in state.claims]
+        return None
 
-    def unreserve(self, pod: Pod, node_name: str) -> None:
+    def unreserve(self, pod: Pod, node_name: str,
+                  state: Optional[PreFilterState] = None) -> None:
         """The Unreserve point, the Reserve plugins in reverse."""
         self.coscheduling.unreserve(pod)
+        if state is not None and state.allocated:
+            dynamicresources.unreserve(self.client, pod, state.allocated)
+            state.allocated = []
+        self.volume_binding.unreserve(pod)
         self.quota.unreserve(pod)
 
     def permit(self, pod: Pod, node_name: str) -> PermitVerdict:
         return self.coscheduling.permit(pod, node_name)
 
+    def pre_bind(self, pod: Pod) -> Optional[str]:
+        """The PreBind point: VolumeBinding's PV binds; the refusal's
+        reason, or None."""
+        return self.volume_binding.pre_bind(pod)
+
     def post_bind_batch(self, pods: List[Pod]) -> None:
-        """The PostBind point for a batch's bound pods: one bound-count
-        bump and one status write per gang."""
+        """The PostBind point for a batch's bound pods, each plugin over
+        the batch in turn: each claim pod's PodSchedulingContext, then one
+        bound-count bump and one status write per gang."""
+        for pod in pods:
+            dynamicresources.post_bind(self.client, pod, pod.spec.node_name)
         per_gang: Dict[str, int] = {}
         for pod in pods:
             gkey = pod_group_key(pod)

@@ -87,6 +87,27 @@ class Resource:
         return m
 
 
+# the score range of a plugin after normalization (framework/interface.go)
+MAX_NODE_SCORE = 100
+MIN_NODE_SCORE = 0
+
+
+def default_normalize_score(max_priority: int, reverse: bool, scores: Dict[str, int]) -> None:
+    """helper.DefaultNormalizeScore (normalize_score.go:30), in place over
+    node name -> raw score: scale to [0, max_priority], ``reverse`` for
+    lower-is-better; an all-zero maximum gives every node ``max_priority``
+    reversed, else 0."""
+    max_score = max(scores.values(), default=0)
+    if max_score == 0:
+        if reverse:
+            for name in scores:
+                scores[name] = max_priority
+        return
+    for name, raw in scores.items():
+        v = max_priority * raw // max_score
+        scores[name] = max_priority - v if reverse else v
+
+
 def nonzero_request(req: Dict[str, int]) -> Dict[str, int]:
     """GetNonzeroRequests (pkg/scheduler/util): scoring-path request with
     nominal defaults for cpu/memory when unset."""
@@ -309,3 +330,7 @@ class Diagnosis:
 
     node_to_status: Dict[str, str] = dataclasses.field(default_factory=dict)
     unschedulable_plugins: Set[str] = dataclasses.field(default_factory=set)
+    # the nodes whose status is UnschedulableAndUnresolvable: preemption
+    # skips them (none on the batched path, whose statuses are all
+    # Unschedulable)
+    unresolvable: Set[str] = dataclasses.field(default_factory=set)

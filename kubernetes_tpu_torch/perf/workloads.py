@@ -18,6 +18,9 @@ op lists) and ``kubernetes_tpu/perf/harness.py`` (``_node_wrapper`` and
 * SchedulingInTreePVs (:74-97): pods of 100m / 500Mi, each with its own
   pre-bound in-tree EBS PV and PVC (pv-aws.yaml, pvc.yaml; ReadOnlyMany,
   1 GiB), as ``kubernetes_tpu/perf/harness.py:511-535`` creates them.
+* SchedulingCSIPVs (:136-166; ``kubernetes_tpu/perf/workloads.py:138``):
+  as SchedulingInTreePVs with CSI PVs (no in-tree volume type) and, per
+  node, a CSINode allowing 39 volumes of ebs.csi.aws.com.
 * SchedulingDRA (``kubernetes_tpu/perf/workloads.py:230-258``): nodes
   publishing tpu.dev/cores in [8, 16] and tpu.dev/gen in [v5, v5, v4, v5]
   (value i % len), pods of 100m / 500Mi with one claim from template
@@ -62,6 +65,9 @@ need more topology signatures and a wider torus than
   TopologySpreading's zone constraint (mode ``general``).
 * SchedulingSoak (``kubernetes_tpu/perf/workloads.py:469-525``, ``Soak``):
   the multi-tenant mix. See ``scheduling_soak`` and ``run_soak``.
+* DelayedBinding (a seeded case): WaitForFirstConsumer PVCs, one per pod,
+  and fewer zonal PVs than pods; ``run_delayed_binding`` drives it through
+  the loop.
 
 ``run_loop`` drives a workload through the scheduler loop (the store,
 ``TPUScheduler.run_until_settled``), gangs and slices included, and
@@ -76,9 +82,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from ..api.types import (LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE, POD_GROUP_LABEL, ROX,
-                         LabelSelector, ObjectMeta, PersistentVolume, PersistentVolumeClaim, Pod,
-                         PodGroup, ResourceClaim, ResourceClass, SchedulingQuota)
+import numpy as np
+
+from ..api.types import (BINDING_WAIT_FOR_FIRST_CONSUMER, LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE,
+                         POD_GROUP_LABEL, ROX, RWOP, CSINode, LabelSelector, ObjectMeta,
+                         PersistentVolume, PersistentVolumeClaim, Pod, PodGroup, ResourceClaim,
+                         ResourceClass, SchedulingQuota, StorageClass)
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.store import Store
 from ..backend.device_state import _bucket, caps_for_cluster
@@ -92,6 +101,7 @@ _NODE_CAPACITY = {"cpu": "32", "memory": "128Gi", "pods": 110}
 _DEFAULT_REQ = {"cpu": "900m", "memory": "2Gi"}
 _SMALL_REQ = {"cpu": "100m", "memory": "500Mi"}
 LOOP_BATCH = 128  # the loop's largest batch, the JAX harness's default
+CSI_LIMIT = 39  # SchedulingCSIPVs' attachable volumes per node (the EBS default)
 
 
 def scheduling_basic_nodes(count: int, zones: int = 10,
@@ -195,11 +205,12 @@ class PodShape:
     def needs_store(self) -> bool:
         return bool(self.claim or self.pv_volume_type is not None or self.gang_size)
 
-    def populate(self, store: Store, count: int, namespace: str = "default") -> None:
+    def populate(self, store: Store, count: int, namespace: str = "default",
+                 groups: bool = True) -> None:
         """The objects of ``count`` pods of this shape: the claim class and
-        each pod's claim, or each pod's bound PV and PVC, and each gang's
-        PodGroup (minMember = the gang size)."""
-        for g in range(-(-count // self.gang_size) if self.gang_size else 0):
+        each pod's claim, or each pod's bound PV and PVC, and (``groups``)
+        each gang's PodGroup (minMember = the gang size)."""
+        for g in range(-(-count // self.gang_size) if self.gang_size and groups else 0):
             store.create_object("PodGroup", PodGroup(
                 meta=ObjectMeta(name=f"{self.prefix}-pg{g}", namespace=namespace),
                 min_member=self.gang_size))
@@ -247,6 +258,9 @@ class Workload:
     measured_extra: Tuple[Tuple[PodShape, int], ...] = ()
     tpu_slots: int = 0  # torus coordinate labels (scheduling_basic_nodes)
     cap_overrides: Optional[Dict[str, int]] = None  # Capacities fields over caps_for_cluster
+    # a CSINode per node allowing CSI_LIMIT volumes of this driver
+    # (nodeAllocatableStrategy.csiNodeAllocatable), or none
+    csi_driver: str = ""
 
     @property
     def n_init(self) -> int:
@@ -288,13 +302,21 @@ class Workload:
         return [p for shape, count in ((self.measured, self.measured_pods),) + self.measured_extra
                 for p in shape.pods(count)]
 
+    def csinodes(self) -> List[CSINode]:
+        return [CSINode(meta=ObjectMeta(name=f"node-{i}", namespace=""),
+                        drivers={self.csi_driver: CSI_LIMIT})
+                for i in range(self.nodes if self.csi_driver else 0)]
+
     def store(self) -> Optional[Store]:
         """A fresh object store with every pod's claims, volumes and
-        PodGroups, or None when the workload needs none."""
+        PodGroups and the nodes' CSINodes, or None when the workload needs
+        none."""
         shapes = self._ops()
-        if not any(s.needs_store for s, _ in shapes):
+        if not any(s.needs_store for s, _ in shapes) and not self.csi_driver:
             return None
         store = Store()
+        for cn in self.csinodes():
+            store.create_csinode(cn)
         for shape, count in shapes:
             shape.populate(store, count)
         return store
@@ -334,6 +356,20 @@ def scheduling_intree_pvs(nodes: int = 5000, init_pods: int = 5000,
     shape = dict(req=_SMALL_REQ, pv_volume_type="ebs")
     return Workload(f"SchedulingInTreePVs/{nodes}Nodes", nodes, PodShape("init", **shape),
                     init_pods, PodShape("pv", **shape), measured)
+
+
+def scheduling_csi_pvs(nodes: int = 5000, init_pods: int = 5000,
+                       measured: int = 1000) -> Workload:
+    """performance-config.yaml:136-166 SchedulingCSIPVs (the JAX
+    ``scheduling_csi_pvs``, ``kubernetes_tpu/perf/workloads.py:138``):
+    every node's CSINode allows 39 volumes of ``ebs.csi.aws.com``; each pod
+    claims a pre-bound CSI PV (no in-tree volume type). As in the JAX
+    harness, the PVCs name no storage class, so NodeVolumeLimits counts
+    none of them against the limit."""
+    shape = dict(req=_SMALL_REQ, pv_volume_type="")
+    return Workload(f"SchedulingCSIPVs/{nodes}Nodes", nodes, PodShape("init", **shape),
+                    init_pods, PodShape("csi", **shape), measured,
+                    csi_driver="ebs.csi.aws.com")
 
 
 TPU_CLAIM = ClaimShape("accel", "tpu-claim", "tpu.example.com",
@@ -539,8 +575,14 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     rejections), ``pod_groups`` (key -> (phase, scheduled)), ``waiting``
     (the pods parked at Permit at the end), ``gated``, ``gang_ms`` and
     ``gang_reads`` (the flat gangs' verdict calls), ``slice_stats``
-    (``slice_stats`` over the cluster at the end, for a torus workload).
-    The loop's commit worker is stopped before it returns."""
+    (``slice_stats`` over the cluster at the end, for a torus workload);
+    for claims and volumes (each op's objects are created before its
+    pods: the claims, the PVs and PVCs, and a CSINode after each node)
+    ``fallback_scheduled`` and ``measured_fallback_scheduled`` (pods the
+    sequential path bound), ``screen_ms`` and ``measured_screen_ms`` (the
+    volume screen, the claim mask and the commit checks) and
+    ``_volume_outcome``'s keys. The loop's commit worker is stopped before
+    it returns."""
     import gc
     import time
 
@@ -553,12 +595,20 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
                          batch_deadline_ms=batch_deadline_ms,
                          percentage_of_nodes_to_score=percentage)
     launches = fused_step.LAUNCHES
+    csinodes = {cn.meta.name: cn for cn in w.csinodes()}
     for ni in w.node_infos():
         store.create_node(ni.node)
+        if ni.node.meta.name in csinodes:
+            store.create_csinode(csinodes[ni.node.meta.name])
     sizes = {p.key(): shape.gang_size for shape, count in w._ops() if shape.gang_size
              for p in shape.pods(count)}
+    init_ops = ((w.init, w.init_pods),) + w.init_extra
+    warm_ops = ((w.warm, w.warm_pods),) if w.warm else ()
+    measured_ops = ((w.measured, w.measured_pods),) + w.measured_extra
     cycles = []
-    for pods in (w.init_pod_list(), w.warm_pod_list()):
+    for ops, pods in ((init_ops, w.init_pod_list()), (warm_ops, w.warm_pod_list())):
+        for shape, count in ops:
+            shape.populate(store, count, groups=False)
         for pod in pods:
             create_gang_pod(store, pod, sizes.get(pod.key(), 0))
         cycles.append(sched.run_until_settled())
@@ -572,6 +622,9 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
         sched.carry_batches
     idle0 = sched.idle_seconds
     spans0 = (len(sched.dispatch_spans), len(sched.commit_spans))
+    screens0, fallback0 = dict(sched.screen_seconds), sched.fallback_scheduled
+    for shape, count in measured_ops:
+        shape.populate(store, count, groups=False)
     t0 = time.perf_counter()
     for pod in w.measured_pod_list():
         create_gang_pod(store, pod, sizes.get(pod.key(), 0))
@@ -611,7 +664,144 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
         "nominations": list(sched.nominations),
         "start": None if sched._start_carry is None else int(sched._start_carry),
         "settle_abandoned": sched.settle_abandoned,
+        "fallback_scheduled": sched.fallback_scheduled,
+        "measured_fallback_scheduled": sched.fallback_scheduled - fallback0,
+        "screen_ms": {k: v * 1e3 for k, v in sched.screen_seconds.items()},
+        "measured_screen_ms": {k: (v - screens0[k]) * 1e3
+                               for k, v in sched.screen_seconds.items()},
+        **_volume_outcome(store),
         **_gang_outcome(sched, store, bool(w.tpu_slots)),
+    }
+
+
+def _volume_outcome(store: Store) -> dict:
+    """What a loop run left for claims and volumes (``run_loop``'s keys):
+    ``pv_bindings`` (PV -> its claim), ``claims`` (claim key -> (allocated
+    node, reserved-for pod keys)), ``csi_over`` (nodes with more volumes of
+    a CSINode's driver than its limit; only PVCs with a storage class name
+    a driver) and ``rwop_shared`` (ReadWriteOncePod PVCs used by more than
+    one bound pod)."""
+    users: Dict[str, List[str]] = {}
+    on_node: Dict[str, Dict[str, set]] = {}
+    for key, pod in store.pods.items():
+        if not pod.spec.node_name:
+            continue
+        for vol in pod.spec.volumes:
+            pvc = store.get_pvc(f"{pod.meta.namespace}/{vol}")
+            if pvc is None:
+                continue
+            users.setdefault(pvc.meta.key(), []).append(key)
+            sc = store.get_storage_class(pvc.storage_class)
+            if sc is not None:
+                on_node.setdefault(pod.spec.node_name, {}).setdefault(
+                    sc.provisioner, set()).add(pvc.meta.key())
+    csi_over = sorted(
+        name for name, drivers in on_node.items()
+        if (cn := store.get_csinode(name)) is not None
+        and any(len(v) > cn.drivers.get(d, len(v)) for d, v in drivers.items()))
+    rwop_shared = sorted(k for k, pods in users.items()
+                         if len(pods) > 1 and RWOP in store.get_pvc(k).access_modes)
+    return {"pv_bindings": {name: pv.bound_pvc for name, pv in store.pvs.items()},
+            "claims": {k: (c.allocated_node, c.reserved_for)
+                       for k, c in store.resource_claims.items()},
+            "csi_over": csi_over, "rwop_shared": rwop_shared}
+
+
+@dataclasses.dataclass(frozen=True)
+class DelayedBinding:
+    """A seeded delayed-binding case: ``nodes`` nodes in 10 zones, a
+    WaitForFirstConsumer StorageClass, ``pods`` pods (100m / 500Mi) each
+    with its own unbound PVC of that class, and ``pvs`` free zonal PVs of
+    the class (fewer than the pods: each PV admits the nodes of one zone,
+    its zone and its size drawn from seed 0), then ``extra_pvs`` more
+    created once the first ones are taken, whose events move the pods
+    that found none."""
+
+    nodes: int = 500
+    pods: int = 128
+    pvs: int = 96
+    extra_pvs: int = 16
+
+    @property
+    def name(self) -> str:
+        return f"DelayedBinding/{self.nodes}Nodes"
+
+    def pv_list(self) -> List[PersistentVolume]:
+        rng = np.random.RandomState(0)
+        zones = rng.randint(0, 10, self.pvs + self.extra_pvs)
+        sizes = rng.randint(1, 5, self.pvs + self.extra_pvs)
+        return [PersistentVolume(
+            meta=ObjectMeta(name=f"pv-{j}", namespace=""), capacity_bytes=int(sizes[j]) << 30,
+            storage_class="wffc", access_modes=(ROX,),
+            node_affinity={LABEL_TOPOLOGY_ZONE: (f"zone-{zones[j]}",)})
+            for j in range(self.pvs + self.extra_pvs)]
+
+
+DELAYED_ROUNDS = 32  # settles at most, each after the backoff's 11 s on the clock
+
+
+def run_delayed_binding(c: DelayedBinding, device) -> dict:
+    """Drive ``c`` through the scheduler loop on a FakeClock: the nodes,
+    the class, the first PVs, the PVCs and the pods created; settles, each
+    after the clock advanced past the backoff, until one binds nothing;
+    then the extra PVs and settles again. A pod whose PV a batch sibling
+    bound first is refused at PreBind and retried (the pods of one zone
+    choose the same smallest free PV, so about one binds per zone and
+    settle). Returns ``placed``,
+    ``pv_bindings``, ``metrics``, ``batch_pods``, ``modes``, ``paths``,
+    ``launches`` (fused-kernel launches), ``fallback_scheduled``,
+    ``rounds`` (settles), ``pods_per_s`` (pods bound over the settles'
+    wall seconds), ``batch_ms``, ``screen_ms`` and ``_volume_outcome``'s
+    keys."""
+    import time
+
+    from ..backend.tpu_scheduler import TPUScheduler
+    from ..ops import fused_step
+
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = TPUScheduler(store, device=device, batch_size=LOOP_BATCH, batch_deadline_ms=0,
+                         now_fn=clock, percentage_of_nodes_to_score=100)
+    for ni in scheduling_basic_nodes(c.nodes):
+        store.create_node(ni.node)
+    store.create_storage_class(StorageClass(meta=ObjectMeta(name="wffc", namespace=""),
+                                            provisioner="ebs.csi.aws.com",
+                                            volume_binding_mode=BINDING_WAIT_FOR_FIRST_CONSUMER))
+    pvs = c.pv_list()
+    for pv in pvs[:c.pvs]:
+        store.create_pv(pv)
+    launches = fused_step.LAUNCHES
+    t0 = time.perf_counter()
+    for i in range(c.pods):
+        store.create_pvc(PersistentVolumeClaim(meta=ObjectMeta(name=f"late-{i}"),
+                                               storage_class="wffc", access_modes=(ROX,),
+                                               requested_bytes=1 << 30))
+        store.create_pod(make_pod(f"late-{i}").req(_SMALL_REQ).pvc(f"late-{i}").obj())
+    rounds = 0
+    for extra in (False, True):
+        if extra:
+            for pv in pvs[c.pvs:]:
+                store.create_pv(pv)
+        for _ in range(DELAYED_ROUNDS):
+            before = sched.metrics["scheduled"]
+            sched.run_until_settled()
+            rounds += 1
+            clock.advance(11.0)
+            sched.queue.flush_backoff_completed()
+            if sched.metrics["scheduled"] == before:
+                break
+    sched.close()
+    wall = time.perf_counter() - t0
+    return {
+        "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+        "metrics": dict(sched.metrics), "batch_pods": list(sched.batch_pods),
+        "modes": list(sched.batch_modes), "paths": list(sched.batch_paths),
+        "launches": fused_step.LAUNCHES - launches,
+        "fallback_scheduled": sched.fallback_scheduled, "rounds": rounds,
+        "pods_per_s": sched.metrics["scheduled"] / wall,
+        "batch_ms": [t * 1e3 for t in sched.cycle_seconds],
+        "screen_ms": {k: v * 1e3 for k, v in sched.screen_seconds.items()},
+        **_volume_outcome(store),
     }
 
 
@@ -753,21 +943,26 @@ class Soak:
         for pod in pods:
             gkey = pod_group_key(pod)
             if gkey is not None and store.get_object("PodGroup", gkey) is None:
-                size = next(m.gang_size for m in self.mix
-                            if m.gang_size and m.namespace == pod.meta.namespace)
                 store.create_object("PodGroup", PodGroup(
                     meta=ObjectMeta(name=gkey.split("/", 1)[1], namespace=pod.meta.namespace),
-                    min_member=size))
-            for entry in pod.spec.resource_claims:
-                c = SOAK_CLAIM
-                if store.get_object("ResourceClass", c.klass) is None:
-                    store.create_object("ResourceClass", ResourceClass(
-                        meta=ObjectMeta(name=c.klass, namespace=""), driver_name=c.klass,
-                        selectors=dict(c.class_selectors)))
-                store.create_object("ResourceClaim", ResourceClaim(
-                    meta=ObjectMeta(name=f"{pod.meta.name}-{entry.name}",
-                                    namespace=pod.meta.namespace),
-                    resource_class_name=c.klass, selectors=dict(c.selectors)))
+                    min_member=self.gang_size(pod)))
+            self.create_claims(store, pod)
+
+    @staticmethod
+    def create_claims(store, pod: Pod, convert=lambda obj: obj) -> None:
+        """The claim pod's ResourceClaims ``<pod>-<entry>`` (and their class,
+        once) in ``store``; ``convert`` turns the port's objects into the
+        store's package's."""
+        c = SOAK_CLAIM
+        for entry in pod.spec.resource_claims:
+            if store.get_object("ResourceClass", c.klass) is None:
+                store.create_object("ResourceClass", convert(ResourceClass(
+                    meta=ObjectMeta(name=c.klass, namespace=""), driver_name=c.klass,
+                    selectors=dict(c.class_selectors))))
+            store.create_object("ResourceClaim", convert(ResourceClaim(
+                meta=ObjectMeta(name=f"{pod.meta.name}-{entry.name}",
+                                namespace=pod.meta.namespace),
+                resource_class_name=c.klass, selectors=dict(c.selectors))))
 
 
 def scheduling_soak(nodes: int = 1000, rounds: int = 8, scale: int = 24, gangs: bool = True,
@@ -909,7 +1104,7 @@ def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) ->
     (either package's: ``convert`` turns the port's pods and PodGroups into
     the store's package's objects; ``quota`` is the loop's QuotaAdmission).
     Each round: the round's arrivals are created (a gang's PodGroup just
-    before its first member); then up to ``SOAK_CYCLES_PER_ROUND`` batch
+    before its first member, a claim pod's claims just before it); then up to ``SOAK_CYCLES_PER_ROUND`` batch
     cycles, the clock advanced ``SOAK_TICK_S`` after each, the new binds
     noted and the
     ledger checked for oversubscription, until a cycle pops nothing and the
@@ -942,6 +1137,7 @@ def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) ->
         arrivals = w.arrivals(r, counter)
         counter += len(arrivals)
         for pod in arrivals:
+            w.create_claims(store, pod, convert)
             create_gang_pod(store, pod, w.gang_size(pod), convert)
         for _c in range(SOAK_CYCLES_PER_ROUND):
             progressed = sched.schedule_batch_cycle() > 0
@@ -974,14 +1170,11 @@ def run_loop_soak(w: Soak, device, percentage: int = 0) -> dict:
     """Drive the soak ``w`` through the port's scheduler loop
     (``soak_rounds``) on a FakeClock: a fresh ``Store`` and
     ``TPUScheduler``, then the nodes and the tenants' SchedulingQuotas
-    created through the store, then the rounds. The soak's claim pods need
-    the loop's claim part: pass a soak made with ``claims=False``.
-    ``percentage`` is percentageOfNodesToScore (0: the adaptive default,
+    created through the store, then the rounds. ``percentage`` is percentageOfNodesToScore (0: the adaptive default,
     which samples on the CPU from 100 nodes on).
 
-    Cut from the JAX soak: the device flap (the JAX loop's relay breaker
-    then sends pods down its sequential path, which the port does not
-    have).
+    Cut from the JAX soak: the device flap (it needs the JAX loop's relay
+    breaker, which the port does not have).
 
     Returns ``soak_rounds``' dict with ``placed`` (pod key -> node, "" when
     unbound), ``pending``, ``batch_pods``, ``modes``, ``paths``,
@@ -1023,6 +1216,9 @@ def run_loop_soak(w: Soak, device, percentage: int = 0) -> dict:
         "stage_ms": {k: v * 1e3 for k, v in sched.stage_seconds.items()},
         "commit_ms": {k: v * 1e3 for k, v in sched.commit_seconds.items()},
         "evicted": sum(sched.smetrics.evicted_pods.by_labels.values()), "reclaims": sched.profile.quota.reclaims_executed,
+        "fallback_scheduled": sched.fallback_scheduled,
+        "screen_ms": {k: v * 1e3 for k, v in sched.screen_seconds.items()},
+        **_volume_outcome(store),
         **_gang_outcome(sched, store, False),
     })
     return out

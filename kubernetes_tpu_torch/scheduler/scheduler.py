@@ -39,8 +39,23 @@ can change what the device mirrors bumps ``external_change_seq``
 or delete, except the confirmation of this scheduler's own assumed bind.
 The ring rides the device carry only while the sequence holds.
 
-Left out: the sequential per-pod cycle (``schedule_one``), the extenders
-and profiles other than the default one.
+The sequential path (``:478-912``) is ``schedule_one_pod``: the PreFilters
+(their node restriction kept), the pod's nominated node first, then the
+Filters over the snapshot's nodes from ``next_start_node_index`` (which
+rotates across pods) until ``num_feasible_nodes_to_find`` nodes fit, the
+PreScores and Scores (``framework/runtime.py:ScoreRunner``) when more than
+one fits, and ``_select_host``: the highest total, ties broken by the
+seeded per-(pod, attempt, node) key of ``ops/tiebreak.py``. The chosen
+pod goes through the subclass's bind tail as a one-item call (``_assume``,
+then ``_commit_bindings``: Reserve, Permit, PreBind, bind, PostBind). A pod
+no node fits fails with its Diagnosis (the first failing filter per node,
+and which of those statuses are unresolvable); an error fails it to the
+backoff queue. It reads the snapshot the failure path reads (the commit
+worker's own, with the worker).
+
+Left out: the per-pod cycle ``schedule_one`` (the loop hands pods to
+``schedule_one_pod``), the extenders and profiles other than the default
+one.
 """
 
 from __future__ import annotations
@@ -57,8 +72,10 @@ from ..cache.cache import Cache
 from ..cache.snapshot import Snapshot
 from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.profile import Profile
-from ..framework.types import ALL, WILDCARD, ClusterEvent, Diagnosis, QueuedPodInfo
-from ..metrics.scheduler_metrics import UNSCHEDULABLE, SchedulerMetrics
+from ..framework.runtime import PreFilterState
+from ..framework.types import ALL, WILDCARD, ClusterEvent, Diagnosis, NodeInfo, QueuedPodInfo
+from ..metrics.scheduler_metrics import ERROR, UNSCHEDULABLE, SchedulerMetrics
+from ..ops.tiebreak import name_hash, pod_seed, tie_key
 from ..queue import events as qevents
 from ..queue.scheduling_queue import SchedulingQueue
 
@@ -94,23 +111,36 @@ class WaitingPod:
     """One pod parked at Permit (runtime/waiting_pods_map.go) by
     Coscheduling, the one plugin that votes WAIT: assumed on
     ``node_name``; ``t0`` is its batch's pop time, ``deadline`` when the
-    sweep rejects it."""
+    sweep rejects it, ``state`` its PreFilter state (for its Unreserve)."""
 
     pod: Pod
     node_name: str
     pod_cycle: int
     t0: float
     deadline: float
+    state: Optional[PreFilterState] = None
 
 
 @dataclasses.dataclass
 class BindItem:
     """A placed pod entering the bind tail: ``assumed`` is its clone in
-    the cache, once assumed."""
+    the cache, once assumed; ``state`` its PreFilter state, which the
+    Reserve, Unreserve and PreBind of VolumeBinding and DynamicResources
+    read (None for a plain pod of a batch, whose PreFilters did not run)."""
 
     qp: QueuedPodInfo
     node_name: str
     assumed: Optional[Pod] = None
+    state: Optional[PreFilterState] = None
+    device: bool = True  # the device committed the placement (not the sequential path)
+
+
+class FitError(Exception):
+    """No node fits the pod (framework/types.go FitError)."""
+
+    def __init__(self, diagnosis: Diagnosis):
+        super().__init__("no node fits the pod")
+        self.diagnosis = diagnosis
 
 
 class WaitingPods:
@@ -150,6 +180,7 @@ class Scheduler:
         self.store = store
         self.now_fn = now_fn
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
+        self.next_start_node_index = 0  # the sequential path's rotating start
         self.cache = Cache(now_fn=now_fn)
         self.snapshot = Snapshot()
         self.smetrics = SchedulerMetrics()
@@ -350,12 +381,11 @@ class Scheduler:
 
     # ----------------------------------------------------------- Permit
 
-    def park(self, assumed: Pod, node_name: str, pod_cycle: int, t0: float,
-             timeout: float) -> None:
+    def park(self, item: BindItem, pod_cycle: int, t0: float, timeout: float) -> None:
         """Permit voted WAIT: the assumed pod waits until ``timeout`` from
         now for its gang's quorum."""
-        self.waiting_pods[assumed.key()] = WaitingPod(assumed, node_name, pod_cycle, t0,
-                                                      self.now_fn() + timeout)
+        self.waiting_pods[item.assumed.key()] = WaitingPod(
+            item.assumed, item.node_name, pod_cycle, t0, self.now_fn() + timeout, item.state)
 
     def allow_waiting_pod(self, pod_key: str) -> bool:
         """Permit allowed a parked pod: it lands now, through the bind
@@ -363,7 +393,7 @@ class Scheduler:
         wp = self.waiting_pods.pop(pod_key, None)
         if wp is None:
             return False
-        self._bind_stage([BindItem(QueuedPodInfo(pod=wp.pod), wp.node_name, wp.pod)],
+        self._bind_stage([BindItem(QueuedPodInfo(pod=wp.pod), wp.node_name, wp.pod, wp.state)],
                          wp.pod_cycle, wp.t0)
         return True
 
@@ -377,7 +407,7 @@ class Scheduler:
             return False
         self._reject_depth += 1
         try:
-            self.profile.unreserve(wp.pod, wp.node_name)
+            self.profile.unreserve(wp.pod, wp.node_name, wp.state)
             self.cache.forget_pod(wp.pod)
             diagnosis = Diagnosis(unschedulable_plugins={p for p in plugins if p})
             self._handle_scheduling_failure(QueuedPodInfo(pod=wp.pod), True, diagnosis,
@@ -440,7 +470,8 @@ class Scheduler:
             self.metrics.inc("unschedulable")
             if diagnosis.node_to_status:
                 self.smetrics.preemption_attempts.inc()
-                node, _reason = self.profile.preemption.post_filter(pod, hints)
+                node, _reason = self.profile.preemption.post_filter(pod, hints,
+                                                                    diagnosis.unresolvable)
                 if node:
                     nominated_node = node
         if nominated_node:
@@ -459,6 +490,114 @@ class Scheduler:
 
     def num_feasible_nodes_to_find(self, num_all_nodes: int) -> int:
         return num_feasible_nodes_to_find(num_all_nodes, self.percentage_of_nodes_to_score)
+
+    # ----------------------------------------------------------- the sequential path
+
+    def schedule_one_pod(self, qp: QueuedPodInfo, pod_cycle: int) -> None:
+        """One pod through the sequential cycle (``:478``): find its node,
+        then the bind tail as a one-item call; a pod no node fits takes the
+        failure path with its Diagnosis, an error the backoff queue."""
+        pod = qp.pod
+        self.metrics.inc("schedule_attempts")
+        t0 = self.now_fn()
+        try:
+            node_name, state = self.schedule_pod(pod, qp.attempts)
+        except FitError as err:
+            self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name, self.now_fn() - t0)
+            self._handle_scheduling_failure(qp, True, err.diagnosis, pod_cycle)
+            return
+        except Exception:  # noqa: BLE001 - a cycle error requeues the pod
+            logging.getLogger(__name__).exception("scheduling %s failed", pod.key())
+            self.metrics.inc("errors")
+            self.smetrics.observe_attempt(ERROR, self.profile.name, self.now_fn() - t0)
+            self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
+            return
+        item = BindItem(qp, node_name, state=state, device=False)
+        if self._assume(item, pod_cycle):
+            self._commit_bindings([item], pod_cycle, t0)
+
+    def schedule_pod(self, pod: Pod, attempts: int) -> Tuple[str, PreFilterState]:
+        """(``:705``) the chosen node and the pod's PreFilter state, or
+        FitError."""
+        snap = self._failure_snapshot()
+        self.cache.update_snapshot(snap)
+        all_nodes = snap.list()
+        if not all_nodes:
+            raise FitError(Diagnosis())
+        feasible, diagnosis, state = self.find_nodes_that_fit_pod(pod, all_nodes)
+        if not feasible:
+            raise FitError(diagnosis)
+        if len(feasible) == 1:
+            return feasible[0].node.meta.name, state
+        return self._select_host(self.profile.scores.score(pod, feasible), pod, attempts), state
+
+    def find_nodes_that_fit_pod(self, pod: Pod, all_nodes: List[NodeInfo]
+                                ) -> Tuple[List[NodeInfo], Diagnosis, Optional[PreFilterState]]:
+        """(``:751``) the PreFilters, then the nodes they leave: the pod's
+        nominated node alone when it fits, else from the rotating start
+        until ``num_feasible_nodes_to_find`` nodes fit. A PreFilter failure
+        gives every node its status."""
+        diagnosis = Diagnosis()
+        filters = self.profile.filters
+        state, names, fail = filters.pre_filter_status(pod)
+        if fail is not None:
+            diagnosis.unschedulable_plugins.add(fail.plugin)
+            for ni in all_nodes:
+                diagnosis.node_to_status[ni.node.meta.name] = fail.reason
+                if fail.unresolvable:
+                    diagnosis.unresolvable.add(ni.node.meta.name)
+            raise FitError(diagnosis)
+        nodes = all_nodes
+        if names is not None:
+            nodes = [ni for ni in all_nodes if ni.node.meta.name in names]
+        nominated = pod.status.nominated_node_name
+        if nominated:
+            ni = next((n for n in nodes if n.node.meta.name == nominated), None)
+            if ni is not None and filters.filter_with_nominated_pods_status(
+                    state, pod, ni) is None:
+                return [ni], diagnosis, state
+        num_to_find = self.num_feasible_nodes_to_find(len(nodes))
+        feasible: List[NodeInfo] = []
+        checked = 0
+        start = self.next_start_node_index % len(nodes) if nodes else 0
+        for i in range(len(nodes)):
+            ni = nodes[(start + i) % len(nodes)]
+            checked += 1
+            fail = filters.filter_with_nominated_pods_status(state, pod, ni)
+            if fail is None:
+                feasible.append(ni)
+                if len(feasible) >= num_to_find:
+                    break
+                continue
+            name = ni.node.meta.name
+            diagnosis.node_to_status[name] = fail.reason
+            diagnosis.unschedulable_plugins.add(fail.plugin)
+            if fail.unresolvable:
+                diagnosis.unresolvable.add(name)
+        self.next_start_node_index = (start + checked) % len(nodes) if nodes else 0
+        return feasible, diagnosis, state
+
+    @staticmethod
+    def _select_host(totals: Dict[str, int], pod: Pod, attempts: int) -> str:
+        """(``:846``) the highest total; a tie goes to the larger seeded
+        per-(pod, attempt, node) key, the key the batch program's jitter
+        uses."""
+        seed = pod_seed(pod.key(), attempts)
+        best = None
+        for name, score in totals.items():
+            key = (score, tie_key(seed, name_hash(name)))
+            if best is None or key > best[0]:
+                best = (key, name)
+        return best[1]
+
+    def _assume(self, item: BindItem, pod_cycle: int) -> bool:
+        """Assume the pod on its node (the subclass's); False when the
+        assume failed and the pod took the failure path."""
+        raise NotImplementedError
+
+    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
+        """The bind tail after the assume (the subclass's)."""
+        raise NotImplementedError
 
     # ----------------------------------------------------------- driving
 

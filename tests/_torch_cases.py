@@ -1760,6 +1760,43 @@ class LoopPair:
             assert port_state[key] == jax_state[key], key
         return port_state
 
+    def create(self, method: str, *objs, kind: str = "") -> None:
+        """Port API objects written through the store ``method`` of both
+        stores, in order (``create_pv``, ``create_pod``, ...; ``kind``
+        for ``create_object``): the port's object as it is, the JAX store a
+        copy rebuilt as the JAX package's (made before the port's store
+        stamps it)."""
+        for obj in objs:
+            jobj = to_jax(obj)
+            args = (kind,) if kind else ()
+            getattr(self.jstore, method)(*args, jobj)
+            getattr(self.tstore, method)(*args, obj)
+
+    def volume_state(self, which: int) -> dict:
+        """``state`` with what claims and volumes add: the pods popped per
+        batch, PV -> its claim, PVC -> its PV, each claim's allocated node
+        and reserved-for pods, each PodSchedulingContext's node, and the
+        pods the sequential path bound."""
+        sched = (self.jsched, self.tsched)[which]
+        store = (self.jstore, self.tstore)[which]
+        contexts = store._kind_map("PodSchedulingContext")
+        return {
+            **self.state(which),
+            "popped": self.popped[which],
+            "pv_bindings": {k: pv.bound_pvc for k, pv in store.pvs.items()},
+            "pvc_bindings": {k: pvc.bound_pv for k, pvc in store.pvcs.items()},
+            "claims": claim_allocations(store),
+            "contexts": {k: c.selected_node for k, c in contexts.items()},
+            "fallback_scheduled": sched.fallback_scheduled,
+        }
+
+    def assert_volume_equal(self) -> dict:
+        """Every key of ``volume_state`` equal; returns the port's."""
+        jax_state, port_state = self.volume_state(0), self.volume_state(1)
+        for key in jax_state:
+            assert port_state[key] == jax_state[key], key
+        return port_state
+
     def add_nodes(self, infos_j, infos_t) -> None:
         """Nodes (NodeInfos of ``build_nodes`` / ``build_topo_nodes``) and
         their pods, bound."""

@@ -3,8 +3,8 @@ nominated and slice-masked batches among them), and the topology scan, the
 speculative rounds, the claim mask, the preemption screen, the quota
 screen, the slice planner, the gang assigner and the claim, volume,
 preemption, gang, quota and PreemptionAll workloads and the scheduler loop
-(SchedulingBasic, the ring, gangs, slices and the soak) against their CPU runs,
-on the card.
+(SchedulingBasic, the ring, gangs, slices, the soak, claims and volumes and
+delayed binding) against their CPU runs, on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -874,3 +874,61 @@ def test_gang_split_across_batches_with_worker_matches_cpu(cuda, monkeypatch):
         assert gpu[key] == cpu[key], key
     assert all(gpu["placed"].values()) and gpu["groups"] == {"default/wide": ("Running", 6)}
     assert gpu["pops"] == [4, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scheduling_dra", "scheduling_intree_pvs", "scheduling_csi_pvs"])
+def test_claims_and_volumes_through_the_loop_match_cpu(cuda, name, monkeypatch):
+    """SchedulingDRA, SchedulingInTreePVs and SchedulingCSIPVs at a small
+    size through the loop on the card against the CPU loop: the same
+    placements, pods popped, PV bindings, claim allocations and sequential
+    binds; every batch mode ``off`` with one fused launch each."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = getattr(workloads, name)(nodes=300, init_pods=200, measured=100)
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_loop(w, cuda)
+    cpu = workloads.run_loop(w, "cpu", percentage=100)
+    for key in ("placed", "batch_pods", "pv_bindings", "claims", "fallback_scheduled",
+                "metrics"):
+        assert gpu[key] == cpu[key], key
+    assert all(gpu["placed"].values()) and gpu["csi_over"] == [] and gpu["rwop_shared"] == []
+    assert set(gpu["modes"]) == {"off"} and gpu["launches"] == gpu["batches"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("worker", ["0", "1"])
+def test_delayed_binding_through_the_loop_matches_cpu(cuda, worker, monkeypatch):
+    """The seeded delayed-binding case at a small size on the card (the
+    inline ring and the worker ring) against the CPU's inline ring: the
+    same placements, PV bindings and counters; every PV bound to one pod
+    in its zone."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    c = workloads.DelayedBinding(nodes=120, pods=64, pvs=40, extra_pvs=8)
+    _ring_env(monkeypatch, worker)
+    gpu = workloads.run_delayed_binding(c, cuda)
+    _ring_env(monkeypatch, "0")
+    cpu = workloads.run_delayed_binding(c, "cpu")
+    for key in ("placed", "pv_bindings", "metrics", "fallback_scheduled"):
+        assert gpu[key] == cpu[key], key
+    assert sum(1 for v in gpu["pv_bindings"].values() if v) == c.pvs + c.extra_pvs
+    assert gpu["launches"] == sum(m == "off" for m in gpu["modes"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "nogangs"])
+def test_soak_with_claims_through_the_loop_matches_cpu(cuda, variant, monkeypatch):
+    """A small SchedulingSoak with its claim pods (60 nodes, 4 rounds)
+    through the loop on the card against the CPU loop: the same binds,
+    pods popped, ledgers and claim allocations, zero oversubscription."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_soak(nodes=60, scale=4, rounds=4, gangs=variant != "nogangs")
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_loop_soak(w, cuda)
+    cpu = workloads.run_loop_soak(w, "cpu", percentage=100)
+    for key in ("placed", "bound", "rounds", "batch_pods", "pending", "claims",
+                "fallback_scheduled", "oversubscription"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["oversubscription"] == 0 and gpu["bound"]["soak-b"] > 0

@@ -269,23 +269,31 @@ def test_preemption_across_batches(pipeline):
 
 
 def test_unported_kinds_raise():
-    """Pods with claims or volumes raise NotImplementedError at pop, before
-    any device work, and stay unbound; gang and slice pods and a store with
-    SchedulingQuota objects are scheduled (a gang member whose PodGroup is
-    missing fails Coscheduling's gate and parks)."""
-    from kubernetes_tpu_torch.api.types import ObjectMeta, SchedulingQuota
+    """No kind of pod raises any more. A claim pod whose claim is missing
+    and a volume pod whose PVC is missing take the sequential path at pop
+    (``batch_supported`` refuses them), fail its PreFilter and park,
+    unbound, with the plugin whose event wakes them (DynamicResources,
+    VolumeRestrictions); once the object is created they bind. Gang and
+    slice pods and a store with SchedulingQuota objects are scheduled (a
+    gang member whose PodGroup is missing fails Coscheduling's gate and
+    parks)."""
+    from kubernetes_tpu_torch.api.types import (ROX, ObjectMeta, PersistentVolume,
+                                                PersistentVolumeClaim, ResourceClaim,
+                                                SchedulingQuota)
     from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
     from kubernetes_tpu_torch.apiserver.store import Store
     from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
     from kubernetes_tpu_torch.ops.slice import SLICE_LABEL
+    from kubernetes_tpu_torch.utils.clock import FakeClock
 
     cases = {
-        "claim": make_pod("c").req({"cpu": "1"}).resource_claim("gpu", template_name="t").obj(),
+        "claim": make_pod("c").req({"cpu": "1"}).resource_claim("gpu", claim_name="c-gpu").obj(),
         "volume": make_pod("v").req({"cpu": "1"}).pvc("data").obj(),
         "gang": make_pod("g").req({"cpu": "1"}).pod_group("pg").obj(),
         "slice": make_pod("s").req({"cpu": "1"}).label(SLICE_LABEL, "1").obj(),
         "quota": make_pod("q").req({"cpu": "1"}).obj(),
     }
+    missing = {"claim": "DynamicResources", "volume": "VolumeRestrictions"}
     for kind, pod in cases.items():
         store = Store()
         store.create_node(make_node("n0").capacity({"cpu": "8", "memory": "8Gi",
@@ -293,15 +301,29 @@ def test_unported_kinds_raise():
         if kind == "quota":
             store.create_object("SchedulingQuota", SchedulingQuota(
                 meta=ObjectMeta(name="q", namespace="default"), hard={"pods": 10}))
-        sched = TPUScheduler(store, device="cpu", batch_deadline_ms=0)
+        clock = FakeClock()
+        sched = TPUScheduler(store, device="cpu", batch_deadline_ms=0, now_fn=clock)
         store.create_pod(pod)
-        if kind in ("claim", "volume"):
-            with pytest.raises(NotImplementedError):
-                sched.run_until_settled()
-            assert sched.state is None and not store.get_pod(pod.key()).spec.node_name
-            continue
         sched.run_until_settled()
         bound = store.get_pod(pod.key()).spec.node_name
+        if kind in missing:
+            assert not bound and sched.batch_counter == 0
+            (qp,) = sched.queue.pending_pod_infos()
+            assert qp.unschedulable_plugins == {missing[kind]}
+            if kind == "claim":
+                store.create_object("ResourceClaim", ResourceClaim(
+                    meta=ObjectMeta(name="c-gpu", namespace="default")))
+            else:
+                store.create_pv(PersistentVolume(meta=ObjectMeta(name="pv-data"),
+                                                 capacity_bytes=1 << 30,
+                                                 bound_pvc="default/data", access_modes=(ROX,)))
+                store.create_pvc(PersistentVolumeClaim(meta=ObjectMeta(name="data"),
+                                                       bound_pv="pv-data", access_modes=(ROX,)))
+            clock.advance(2)  # the event moved it to backoffQ
+            sched.run_until_settled()
+            assert store.get_pod(pod.key()).spec.node_name == "n0"
+            assert sched.batch_counter == 1 and sched.fallback_scheduled == 0
+            continue
         if kind == "gang":
             assert not bound and sched.queue.pending_pods()["unschedulable"] == 1
         else:

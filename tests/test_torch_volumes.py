@@ -202,18 +202,16 @@ def test_volume_filters_match_jax(filter_name):
         elif filter_name == "VolumeBinding":
             plugin = jvol.VolumeBinding(jstore, volume_capacity_priority=False)
             _, st = plugin.pre_filter(state, jpod)
-            if st.is_success() and plugin.STATE_KEY in state._data \
-                    and state.read(plugin.STATE_KEY).delayed:
-                with pytest.raises(NotImplementedError):
-                    tvol.volume_binding_pre_filter(tstore, tpod)
-                verdicts.add("delayed")
-                continue
-            bound, reason = tvol.volume_binding_pre_filter(tstore, tpod)
+            bound, delayed, reason = tvol.volume_binding_pre_filter(tstore, tpod)
             assert reason == _jax_verdict(st)
             verdicts.add(reason)
             if reason is not None:
                 continue
-            check = lambda ni: tvol.volume_binding_filter(tstore, bound, ni)  # noqa: E731
+            if delayed:
+                verdicts.add("delayed")
+            node_bindings = {}
+            check = lambda ni: tvol.volume_binding_filter(  # noqa: E731
+                tstore, bound, ni, delayed, node_bindings)
         elif filter_name == "NodeVolumeLimits":
             plugin = jvol.NodeVolumeLimits(jstore)
             check = lambda ni: tvol.node_volume_limits_filter(tstore, tpod, ni)  # noqa: E731
@@ -224,6 +222,9 @@ def test_volume_filters_match_jax(filter_name):
             want = _jax_verdict(plugin.filter(state, jpod, jni))
             assert check(tinfos[name]) == want, (filter_name, tpod.key(), name)
             verdicts.add(want)
+        if filter_name == "VolumeBinding":
+            # the delayed claims' choice per node, as the JAX Filter records it
+            assert node_bindings == state.read(plugin.STATE_KEY).node_bindings
     assert None in verdicts and len(verdicts) >= 2, verdicts
 
 
