@@ -156,9 +156,8 @@
    placements and pods popped equal to the loop on the CPU at percentage
    100 (the inline ring, the plain fused step); each ring run with batches
    encoded on the carry. Then one inline-ring dispatch on the carry (the
-   third) under ``set_sync_debug_mode("error")``; the ring once at the
-   default deadline (``KTPU_BATCH_DEADLINE_MS``, 500 ms: popped batch sizes
-   and program buckets); SchedulingPodAntiAffinity/5000Nodes and
+   third) under ``set_sync_debug_mode("error")`` (the ring at the default
+   deadline runs in the loop_faults phase); SchedulingPodAntiAffinity/5000Nodes and
    TopologySpreading/5000Nodes through the ring (placements, pods popped,
    modes and grown capacities equal to the CPU loop); the sampled loop
    (1000 nodes, 256 pods at percentage 10: every batch on the scan, no
@@ -211,7 +210,42 @@
    case: every PV bound to one pod on a node of its zone). Prints pods/s,
    attempt p50/p99, host ms per measured batch by stage and the claim
    and volume ms (the volume screen, the claim mask, the commit checks).
-14. Each workload run prints pods/s, ms per batch, host ms per stage, and
+14. Loop_faults phase: the loop's failure model on the card.
+   SchedulingSoak/1000Nodes/NoGangs (with its claim pods) through
+   ``run_loop_soak`` with the device flap (the first three batch commits
+   of round 4 die at their read: the relay breaker opens, every batchable
+   pod takes the sequential path until the 0.5 s probe commits) and the
+   oracle comparer on every 8th landed winner, on the card and on the CPU:
+   placements, binds per tenant, pods popped, the flap's batches, the
+   degraded pods and seconds, the sequential binds, the breaker's state
+   after every cycle and the comparer's checks equal; no comparer
+   mismatch, no oversubscription, the breaker closed at the end. The
+   relay death (``perf/workloads.py:run_relay_death``) at
+   SchedulingBasic/1000Nodes: commits die until the breaker opens
+   (threshold 2), 192 pods retried or arriving while it is open take the
+   sequential path, and past its 5 s probe interval a probe batch closes
+   it; every step (breaker state, openings, degraded pods, sequential
+   binds, batches, mirror) and every placement equal to the CPU loop's,
+   and while the breaker is open no batch is dispatched, the fused kernel
+   is not launched and the loop holds no mirror on the card. Then the
+   ring at the 500 ms default deadline in turns (cold, warmed, warmed,
+   cold) at SchedulingBasic/5000Nodes, each run's placements equal to the
+   CPU loop's at percentage 100; a warmed turn runs ``warm_buckets`` with
+   one measured pod as the sample after the init pods settle. In the
+   first warmed turn every fused launch of the sweep (P = 16, 32, 64, 128)
+   is held against ``fused_step_batch_ref`` on the same inputs bit for
+   bit; in each, the launches are counted apart (``warm_launches``) and
+   every tensor of the mirror is unchanged across the sweep. Prints
+   pods/s, attempt p50 and p99, the popped batch sizes, the measured
+   phase's first batch ms at each bucket, and for a warmed turn the
+   sweep's seconds, its timed run per bucket and the sizer's fitted
+   model. A "cold" turn is cold for its loop only: the process has run
+   every bucket in earlier phases. Every loop run outside the flap and
+   the relay death must leave the relay
+   breaker closed with no pod degraded (a kernel that failed quietly into
+   the host path fails the smoke); the soaks of the loop_gang and
+   loop_claims phases run with the flap too, each checked like this one.
+15. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -235,7 +269,7 @@ import warnings
 import numpy as np
 import torch
 
-from kubernetes_tpu_torch.backend import batch, batch_scheduler, claim_mask
+from kubernetes_tpu_torch.backend import batch, batch_scheduler, claim_mask, tpu_scheduler
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
 from kubernetes_tpu_torch.backend.device_state import DeviceState
 from kubernetes_tpu_torch.ops import fused_step, preempt, topology
@@ -1660,6 +1694,8 @@ def _env(**values):
                 os.environ[k] = v
 
 
+# loop_phase's key for the CPU loop's SchedulingBasic run
+CPU_BASIC = "cpu"
 # the ring at its default (depth 2, commits inline), synchronous, and the
 # ring with the commit worker
 RING = dict(KTPU_PIPELINE_DEPTH=None, KTPU_COMMIT_WORKER=None)
@@ -1667,12 +1703,21 @@ SYNC = dict(RING, KTPU_PIPELINE_DEPTH="0")
 WORKER = dict(RING, KTPU_COMMIT_WORKER="1")
 
 
+def _no_silent_degrade(label: str, run: dict) -> None:
+    """Outside the scripted flap no commit may fail: a kernel that failed
+    quietly into the sequential path would open the relay breaker."""
+    if run["relay_opens"] or run["relay_degraded_pods"]:
+        raise AssertionError(f"{label}: the relay breaker opened {run['relay_opens']} times, "
+                             f"{run['relay_degraded_pods']} pods degraded")
+
+
 def _loop_run(w, label: str, env: dict, **kw) -> dict:
     with _env(**env):
         fused_step.LAUNCHES = 0
         run = workloads.run_loop(w, "cuda", **kw)
-    if run["launches"] != fused_step.LAUNCHES:
+    if run["launches"] + run["warm_launches"] != fused_step.LAUNCHES:
         raise AssertionError(f"{label}: launches counted twice")
+    _no_silent_degrade(label, run)
     _loop_report(label, run)
     return run
 
@@ -1705,11 +1750,11 @@ class _StrictDispatch:
 
 def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
     """The scheduler loop on the card: the in-flight ring against the
-    synchronous loop in turns, the ring at the default deadline, topology
-    workloads through the ring (capacity growth), the sampled loop and
-    PreemptionBasic (inline ring exact, worker ring bound)."""
-    from kubernetes_tpu_torch.backend import tpu_scheduler
-
+    synchronous loop in turns, topology workloads through the ring
+    (capacity growth), the sampled loop and PreemptionBasic (inline ring
+    exact, worker ring bound). The ring at the default deadline runs in the
+    loop_faults phase, cold against warmed. Returns the CPU loop's
+    SchedulingBasic run under ``CPU_BASIC`` beside the card's runs."""
     out = {}
     parts, t_part = {}, time.perf_counter()
 
@@ -1767,19 +1812,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
         raise AssertionError(f"strict dispatch: {strict.checked}, carry {run['carry_batches']}")
     print("one ring dispatch on the carry (fused kernel, carry adopted, packed block staged "
           "to pinned memory) ran under set_sync_debug_mode('error'): no host read")
-
-    deadline = _loop_run(basic, f"{basic.name} [ring, default deadline]",
-                         dict(RING, KTPU_BATCH_DEADLINE_MS=None), batch_deadline_ms=None)
-    _check_all_bound(basic.name, basic, deadline)
-    sizes, buckets = {}, {}
-    for n, b in zip(deadline["batch_pods"], deadline["buckets"]):
-        sizes[n] = sizes.get(n, 0) + 1
-        buckets[b] = buckets.get(b, 0) + 1
-    print(f"{basic.name} at the default deadline (500 ms): popped batch sizes "
-          f"{dict(sorted(sizes.items()))}, program buckets {dict(sorted(buckets.items()))}, "
-          f"attempt p99 {deadline['attempt_ms']['p99']:.2f} ms")
-    out[f"{basic.name}/deadline"] = {"launches": deadline["launches"], "run": deadline}
-    part("strict and deadline")
+    part("strict")
 
     for name, prev in topo.items():
         w = prev["workload"]
@@ -1840,6 +1873,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
         out[f"{pre.name}/{label.split()[0]}"] = {"launches": p_gpu["launches"], "run": p_gpu}
     part("preemption")
     print("loop phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    out[CPU_BASIC] = cpu
     return out
 
 
@@ -1868,7 +1902,24 @@ def _check_atomic(name: str, w, run: dict) -> None:
 LOOP_GANG_KEYS = ("placed", "gang_rejected", "pod_groups", "batch_pods", "cycles", "modes")
 SOAK_LOOP_KEYS = ("placed", "bound", "rounds", "batch_pods", "pending", "evicted", "reclaims",
                   "flagged", "gang_rejected", "pod_groups", "modes", "oversubscription",
-                  "checks")
+                  "checks", "flap_batches", "relay_degraded_pods", "breaker", "degraded_s",
+                  "fallback_scheduled")
+
+
+def _flap_note(run: dict) -> str:
+    return (f"; the flap: {run['flap_batches']} commits failed, the breaker open "
+            f"{run['breaker'].count(2)} cycles, {run['degraded_s']:.2f} degraded s on the "
+            f"soak's clock, {run['relay_degraded_pods']} pods degraded to the sequential path")
+
+
+def _check_flap(name: str, run: dict) -> None:
+    """The soak's scripted flap: three commits failed, the breaker opened
+    once and was closed at the end."""
+    if (run["flap_batches"] != workloads.SOAK_FLAP_BATCHES or run["relay_opens"] != 1
+            or run["breaker_state"] != 0 or not run["degraded_s"]):
+        raise AssertionError(f"{name}: flap batches {run['flap_batches']}, breaker opened "
+                             f"{run['relay_opens']} times, state {run['breaker_state']} at "
+                             f"the end, {run['degraded_s']} degraded s")
 
 
 def loop_gang_phase(gangs: dict, quota: dict) -> dict:
@@ -1911,6 +1962,7 @@ def loop_gang_phase(gangs: dict, quota: dict) -> dict:
                 raise AssertionError(f"{w.name}: launches counted twice")
             cpu = workloads.run_loop_soak(w, "cpu", percentage=100)
         _check_loop_same(w.name, gpu, cpu, SOAK_LOOP_KEYS)
+        _check_flap(w.name, gpu)
         if gpu["oversubscription"] or gpu["waiting"]:
             raise AssertionError(f"{w.name} through the loop: {gpu['oversubscription']} "
                                  f"oversubscribed dimensions, waiting {gpu['waiting']}")
@@ -1938,7 +1990,8 @@ def loop_gang_phase(gangs: dict, quota: dict) -> dict:
               + ", ".join(f"{k} {v / max(len(busy), 1):.2f}" for k, v in gpu["commit_ms"].items())
               + f"; gang_verdicts {gpu['gang_ms']:.2f} ms over {gpu['gang_reads']} reads; "
               f"{gpu['launches']} fused launches for {off} mode-off batches; BatchScheduler's "
-              f"soak in this call {quota[w.name]['median_ms']:.2f} ms per batch")
+              f"soak in this call {quota[w.name]['median_ms']:.2f} ms per batch"
+              + _flap_note(gpu))
         out[w.name] = {"launches": gpu["launches"], "run": gpu}
     return out
 
@@ -2016,7 +2069,8 @@ def loop_claims_phase(dra: dict) -> dict:
         if gpu["launches"] != fused_step.LAUNCHES:
             raise AssertionError(f"{w.name}: launches counted twice")
         cpu = workloads.run_loop_soak(w, "cpu", percentage=100)
-    _check_loop_same(w.name, gpu, cpu, SOAK_LOOP_KEYS + ("claims", "fallback_scheduled"))
+    _check_loop_same(w.name, gpu, cpu, SOAK_LOOP_KEYS + ("claims",))
+    _check_flap(w.name, gpu)
     if gpu["oversubscription"] or gpu["waiting"] or not gpu["bound"]["soak-b"]:
         raise AssertionError(f"{w.name} through the loop: {gpu['oversubscription']} "
                              f"oversubscribed dimensions, waiting {gpu['waiting']}, claim "
@@ -2036,7 +2090,7 @@ def loop_claims_phase(dra: dict) -> dict:
           f"soak's clock; median {statistics.median(busy):.2f} ms per cycle that ran a batch; "
           "claim and volume ms per batch: "
           + ", ".join(f"{k} {v / max(len(busy), 1):.3f}" for k, v in gpu["screen_ms"].items())
-          + f"; {gpu['launches']} fused launches for {off} mode-off batches")
+          + f"; {gpu['launches']} fused launches for {off} mode-off batches" + _flap_note(gpu))
     out[w.name] = {"launches": gpu["launches"], "run": gpu}
     c = workloads.DelayedBinding()
     with _env(**RING):
@@ -2045,6 +2099,7 @@ def loop_claims_phase(dra: dict) -> dict:
         if gpu["launches"] != fused_step.LAUNCHES:
             raise AssertionError(f"{c.name}: launches counted twice")
         cpu = workloads.run_delayed_binding(c, "cpu")
+    _no_silent_degrade(c.name, gpu)
     off = _check_claim_loop(c.name, gpu, cpu, ("placed", "batch_pods", "modes", "paths",
                                                "metrics", "fallback_scheduled", "pv_bindings",
                                                "rounds"))
@@ -2065,6 +2120,232 @@ def loop_claims_phase(dra: dict) -> dict:
           f"{gpu['pods_per_s']:.1f} pods bound per s; median "
           f"{statistics.median(gpu['batch_ms'] or [0.0]):.2f} ms per batch")
     out[c.name] = {"launches": gpu["launches"], "run": gpu}
+    return out
+
+
+# ---------------------------------------------------------------- loop_faults phase
+
+# what the flap soak on the card must share with the CPU's
+FLAP_KEYS = ("placed", "bound", "rounds", "batch_pods", "pending", "modes", "flap_batches",
+             "relay_degraded_pods", "fallback_scheduled", "breaker", "degraded_s",
+             "comparer_checks", "comparer_mismatches", "oversubscription", "checks")
+COMPARER_EVERY_N = 8
+WARM_BUCKETS = (16, 32, 64, 128)
+# the relay death's cluster and measured pods: the degraded pods take the
+# sequential path on the host, one pod at a time
+RELAY_DEATH_NODES = 1000
+RELAY_DEATH_PODS = 256
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+class _WarmCheck:
+    """Stands in for ``batch.fused_step_batch`` during the warm sweep
+    (``armed``): each
+    launch on the card keeps copies of its inputs and outputs (on the card,
+    so the sweep's timed runs stay clean of the plain version), and
+    ``verify`` holds each against ``fused_step_batch_ref`` on the same
+    inputs, every output bit for bit (the plain version launches nothing)."""
+
+    def __init__(self):
+        self.inner = batch.fused_step_batch
+        self.launches = []  # (inputs, outputs) of each launch on the card
+
+    @contextlib.contextmanager
+    def armed(self):
+        """Stand in for the fused step only while ``warm_buckets`` runs, so
+        the measured phase launches the kernel unwrapped."""
+        warm = tpu_scheduler.TPUScheduler.warm_buckets
+
+        def checked(sched, *args, **kw):
+            batch.fused_step_batch = self
+            try:
+                return warm(sched, *args, **kw)
+            finally:
+                batch.fused_step_batch = self.inner
+
+        tpu_scheduler.TPUScheduler.warm_buckets = checked
+        try:
+            yield
+        finally:
+            tpu_scheduler.TPUScheduler.warm_buckets = warm
+
+    def __call__(self, *args):
+        out = self.inner(*args)
+        if args[0].device.type == "cuda":
+            copy = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            self.launches.append((copy, [t.clone() for t in out]))
+        return out
+
+    @property
+    def pods(self) -> list:
+        return [args[4].shape[0] for args, _out in self.launches]
+
+    def verify(self) -> None:
+        for args, out in self.launches:
+            ref = fused_step.fused_step_batch_ref(*args)
+            for name, got, want in zip(ref._fields, out, ref):
+                if not torch.equal(_bits(got), _bits(want)):
+                    raise AssertionError(f"warm launch at P={args[4].shape[0]}: {name} "
+                                         "differs from the plain version")
+
+
+def _check_warm_sweep(run: dict, check: _WarmCheck) -> None:
+    """Every launch of the sweep was kept, one per warm launch, at every
+    bucket, each equal to the plain version."""
+    check.verify()
+    if (len(check.launches) != run["warm_launches"] or not run["warm_launches"]
+            or sorted(set(check.pods)) != list(WARM_BUCKETS)):
+        raise AssertionError(f"warm sweep: {run['warm_launches']} warm launches, checked "
+                             f"at P={check.pods}")
+
+
+def _check_relay_death(name: str, gpu: dict, cpu: dict) -> None:
+    """The relay death on the card: every step and placement equal to the
+    CPU loop's; pods degraded while the breaker was open; while it was
+    open, no batch dispatched, no fused launch and no mirror; the probe
+    launched the kernel and closed it."""
+    strip = [[{k: v for k, v in st.items() if k != "launches"} for st in run["steps"]]
+             for run in (gpu, cpu)]
+    _check_loop_same(f"{name} relay death", {**gpu, "steps": strip[0]},
+                     {**cpu, "steps": strip[1]}, ("steps", "placed", "faults", "degraded_s",
+                                                   "relay_degraded_pods", "fallback_scheduled"))
+    steps = gpu["steps"]
+    opened = [st for st in steps if st["state"] == "open"]
+    if (not gpu["relay_degraded_pods"] or len(opened) != 3 or steps[-1]["state"] != "closed"
+            or len({(st["batches"], st["launches"]) for st in opened}) != 1
+            or any(st["mirror"] for st in opened)
+            or steps[-1]["launches"] <= opened[-1]["launches"]):
+        raise AssertionError(f"{name} relay death on the card: {steps}")
+
+
+def loop_faults_phase(loop: dict) -> dict:
+    """The loop's failure model on the card: SchedulingSoak/1000Nodes/
+    NoGangs with the device flap and the comparer on the card and the CPU;
+    the relay death at SchedulingBasic/1000Nodes, card against CPU, with
+    pods degraded while the breaker is open; the ring at the 500 ms
+    default deadline in turns, cold against warmed, each == the CPU loop's
+    placements (the loop phase's run), the first warmed turn's sweep with
+    every warm launch of the kernel against its plain version, and the
+    mirror unchanged across every sweep."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    w = workloads.scheduling_soak(gangs=False)
+    with _env(**RING):
+        fused_step.LAUNCHES = 0
+        gpu = workloads.run_loop_soak(w, "cuda", comparer_every_n=COMPARER_EVERY_N)
+        if gpu["launches"] != fused_step.LAUNCHES:
+            raise AssertionError(f"{w.name}: launches counted twice")
+        t_cpu = time.perf_counter()
+        cpu = workloads.run_loop_soak(w, "cpu", percentage=100,
+                                      comparer_every_n=COMPARER_EVERY_N)
+        cpu_s = time.perf_counter() - t_cpu
+    _check_loop_same(f"{w.name} with the flap", gpu, cpu, FLAP_KEYS)
+    _check_flap(w.name, gpu)
+    off = sum(m == "off" for m in gpu["modes"])
+    if (gpu["comparer_mismatches"] or not gpu["comparer_checks"] or gpu["oversubscription"]
+            or gpu["launches"] != off or off != len(gpu["modes"])):
+        raise AssertionError(f"{w.name} with the flap: {gpu['comparer_mismatches']} comparer "
+                             f"mismatches in {gpu['comparer_checks']} checks, "
+                             f"{gpu['oversubscription']} oversubscribed, {gpu['launches']} "
+                             f"launches for {off} mode-off of {len(gpu['modes'])} batches")
+    flips = [i for i in range(1, len(gpu["breaker"])) if gpu["breaker"][i] != gpu["breaker"][i - 1]]
+    print(f"{w.name} through the loop with the device flap and the comparer every "
+          f"{COMPARER_EVERY_N}th landed winner: {sum(gpu['bound'].values())} pods bound (per "
+          f"tenant {gpu['bound']}) in {len(gpu['batch_pods'])} batches over {gpu['cycles']} "
+          f"cycles; breaker state changes at cycles {flips}"
+          + _flap_note(gpu) + f", {gpu['fallback_scheduled']} bound there; comparer "
+          f"{gpu['comparer_checks']} checks, {gpu['comparer_mismatches']} mismatches; 0 "
+          f"oversubscription at {gpu['checks']} checks; all == the cpu loop ({cpu_s:.1f} s); "
+          f"{gpu['launches']} fused launches for {off} batches; {gpu['pods_per_s']:.1f} "
+          f"pods/s over {gpu['soak_s']:.2f} s; attempt p50 {gpu['attempt_ms']['p50']:.2f} ms, "
+          f"p99 {gpu['attempt_ms']['p99']:.2f} ms on the soak's clock")
+    out[f"{w.name}/flap"] = {"launches": gpu["launches"], "run": gpu}
+    part("flap soak")
+
+    rw = workloads.scheduling_basic(RELAY_DEATH_NODES, RELAY_DEATH_NODES // 2, RELAY_DEATH_PODS)
+    with _env(**RING):
+        fused_step.LAUNCHES = 0
+        gpu = workloads.run_relay_death(rw, "cuda", percentage=100)
+        if gpu["launches"] > fused_step.LAUNCHES:
+            raise AssertionError(f"{rw.name} relay death: launches counted twice")
+        cpu = workloads.run_relay_death(rw, "cpu", percentage=100)
+    _check_relay_death(rw.name, gpu, cpu)
+    steps = gpu["steps"]
+    print(f"{rw.name} relay death (threshold {workloads.RELAY_DEATH_THRESHOLD}, probe "
+          f"{workloads.RELAY_DEATH_PROBE_S} s): {gpu['faults']} commits died, the breaker "
+          f"per step {[st['state'] for st in steps]}; {gpu['relay_degraded_pods']} pods "
+          f"arrived or retried while it was open and took the sequential path "
+          f"({gpu['fallback_scheduled']} bound there), no batch dispatched, no fused launch "
+          f"and no mirror on the card while open; the probe batch closed it "
+          f"({steps[-1]['launches'] - steps[-2]['launches']} fused launches); "
+          f"{gpu['degraded_s']:.2f} degraded s on the run's clock; steps and placements == the "
+          f"cpu loop; {gpu['seconds']:.2f} s on the card, {cpu['seconds']:.2f} s on the cpu")
+    out[f"{rw.name}/relay_death"] = {"launches": gpu["launches"], "run": gpu}
+    part("relay death")
+
+    basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    cpu_basic = loop[CPU_BASIC]
+    turns = {"cold": [], "warm": []}
+    env = dict(RING, KTPU_BATCH_DEADLINE_MS=None)
+    sweep = None
+    for kind in ("cold", "warm", "warm", "cold"):
+        label = f"{basic.name} [ring, default deadline, {kind}]"
+        warm = kind == "warm"
+        if warm and sweep is None:
+            # the first warmed turn: every launch of the sweep is kept and
+            # held against the plain version after the run
+            check = _WarmCheck()
+            with check.armed():
+                run = sweep = _loop_run(basic, label, env, batch_deadline_ms=None, warm=True)
+            _check_warm_sweep(run, check)
+        else:
+            run = _loop_run(basic, label, env, batch_deadline_ms=None, warm=warm)
+        _check_all_bound(basic.name, basic, run)
+        _check_loop_same(f"{basic.name} at the deadline", run, cpu_basic, ("placed",))
+        if warm and (not run["mirror_unchanged"]
+                     or run["warm_launches"] != sweep["warm_launches"]):
+            raise AssertionError(f"{basic.name} warmed: {run['warm_launches']} warm launches, "
+                                 f"the mirror unchanged: {run['mirror_unchanged']}")
+        turns[kind].append(run)
+    print(f"{basic.name} warm sweep (N=5120, the first warmed turn): {sweep['warmed']} programs "
+          f"in {sweep['warm_s']:.3f} s (with the check's copies); {sweep['warm_launches']} fused "
+          f"launches, each == fused_step_batch_ref bit for bit (P = {check.pods}); the mirror's "
+          f"tensors unchanged across the sweep")
+    for kind, runs in turns.items():
+        for i, run in enumerate(runs):
+            sizes = {}
+            for n in run["batch_pods"]:
+                sizes[n] = sizes.get(n, 0) + 1
+            print(f"{basic.name} at the default deadline (500 ms), {kind} {i + 1}: "
+                  f"{run['pods_per_s']:.1f} pods/s, attempt p50 {run['attempt_ms']['p50']:.2f} "
+                  f"ms, p99 {run['attempt_ms']['p99']:.2f} ms; popped batch sizes "
+                  f"{dict(sorted(sizes.items()))}; the measured phase's first batch ms per "
+                  f"bucket "
+                  + ", ".join(f"{b}: {ms:.2f}" for b, ms in sorted(run["first_batch_ms"].items()))
+                  + (f"; the sweep {run['warmed']} programs in {run['warm_s']:.3f} s, "
+                     f"{run['warm_launches']} launches, timed runs (bucket, ms) "
+                     + ", ".join(f"({b}, {t * 1e3:.3f})" for b, t in run["warm_timings"])
+                     + f", fitted a {run['warm_sizer']['a'] * 1e3:.3f} ms, b "
+                     f"{run['warm_sizer']['b'] * 1e3:.5f} ms per pod (wait a "
+                     f"{run['warm_sizer']['wa'] * 1e3:.3f}, b {run['warm_sizer']['wb'] * 1e3:.5f}"
+                     f"), target {run['warm_sizer']['target']}" if kind == "warm" else "")
+                  + "; placements == the cpu loop")
+    out[f"{basic.name}/deadline"] = {"launches": turns["cold"][0]["launches"],
+                                     "run": turns["cold"]}
+    out[f"{basic.name}/deadline_warm"] = {"launches": turns["warm"][0]["launches"],
+                                          "run": turns["warm"]}
+    out["warm_launches"] = sweep["warm_launches"]
+    part("deadline turns")
+    print("loop_faults phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     return out
 
 
@@ -2106,6 +2387,9 @@ def main() -> int:
     loop = timed("loop", loop_phase, topo, spec, sl["gpu"])
     loop_gang = timed("loop_gang", loop_gang_phase, gangs, quota)
     loop_claims = timed("loop_claims", loop_claims_phase, dra)
+    loop_faults = timed("loop_faults", loop_faults_phase, loop)
+    loop.pop(CPU_BASIC)
+    warm_launches = loop_faults.pop("warm_launches")
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2129,7 +2413,10 @@ def main() -> int:
                                  **{f"loop:{k}": v["launches"] for k, v in loop.items()},
                                  **{f"loop:{k}": v["launches"] for k, v in loop_gang.items()},
                                  **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_claims.items()}},
+                                    for k, v in loop_claims.items()},
+                                 **{f"loop:{k}": v["launches"]
+                                    for k, v in loop_faults.items()}},
+        "warm_launches": warm_launches,
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))

@@ -299,18 +299,35 @@ def dispatch_device_batch(state: DeviceState, enc: EncodedBatch,
     batch in flight), the evolved carry adopted as the device truth, and
     the packed block's copy to the host started. On the fused path nothing
     here waits for the device."""
+    res, spec = run_batch_program(state, enc, sample_k, sample_start, topo_carry)
+    state.adopt_device(res)
+    block, ready = stage_to_host(res.packed)
+    path = "spec" if spec else "fused" if enc.mode == "off" and sample_k is None else "scan"
+    return DispatchedBatch(enc, res, path, block, ready)
+
+
+def run_batch_program(state: DeviceState, enc: EncodedBatch, sample_k: Optional[int] = None,
+                      sample_start: Optional[torch.Tensor] = None,
+                      topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      ports_enabled: Optional[bool] = None,
+                      **masks) -> Tuple[BatchResult, bool]:
+    """(the result, whether it took the speculative rounds) of one run of
+    the batch program on ``enc`` against the mirror, adopting nothing (the
+    JAX ``_run_batch_fn(adopt=False)``). ``ports_enabled`` defaults to
+    whether the encode saw host ports; ``masks`` (``extra_mask``,
+    ``dra_mask``) replace the encode's."""
     mode = enc.mode
     topo = {} if mode == "off" else dict(tc=state.tc, tb=enc.tb, topo_mode=mode,
                                           vd_override=enc.vd, host_key=enc.host_key,
                                           topo_carry=topo_carry)
     spec = spec_decode_eligible(mode, state.device, sampled=sample_k is not None)
+    if ports_enabled is None:
+        ports_enabled = state.encoder.last_has_ports
     res = schedule_batch(enc.pb, enc.et, state.nt, DEFAULT_WEIGHTS, device=state.device,
-                         spec_decode=spec, ports_enabled=state.encoder.last_has_ports,
-                         sample_k=sample_k, sample_start=sample_start, **topo, **enc.kw)
-    state.adopt_device(res)
-    block, ready = stage_to_host(res.packed)
-    path = "spec" if spec else "fused" if mode == "off" and sample_k is None else "scan"
-    return DispatchedBatch(enc, res, path, block, ready)
+                         spec_decode=spec, ports_enabled=ports_enabled,
+                         sample_k=sample_k, sample_start=sample_start, **topo,
+                         **{**enc.kw, **masks})
+    return res, spec
 
 
 def adopt_device_batch(state: DeviceState, disp: DispatchedBatch, read: tuple,

@@ -102,9 +102,31 @@ allocations), Permit, PreBind (the PV binds), bind, PostBind (the claim
 pods' PodSchedulingContext). Generic ephemeral volumes are read by no
 plugin, as in the JAX package (ROADMAP C17).
 
-Left out: the relay breaker, telemetry, tracing and the latency ledger;
-custom profiles (a capacity that does not converge raises
-PermanentDeviceError).
+The failure model (``:146-306``, ``:526-588``, ``:1070-1123``,
+``:1787-2017``): a commit that raises at its read takes the relay death
+path: the ring is poisoned back to backoffQ and the mirror dropped. A
+``TransientDeviceError`` then counts against the relay breaker
+(``backend/circuit.py``;
+``relay_breaker_threshold`` failures in a row, ``KTPU_RELAY_BREAKER_THRESHOLD``,
+3). While it is open a cycle touches no device state: every pod that
+would have ridden the batch takes the sequential path in pop order
+(``relay_degraded_pods``). Past ``relay_probe_interval_s``
+(``KTPU_RELAY_PROBE_S``, 0.5 s) the cycle's batch is the half-open probe,
+and a probe that commits closes the breaker; ``degraded_seconds`` streams
+while it is open and books the rest at the close, ``backend_circuit_state``
+follows each transition. A batch computed on a mirror since dropped is
+poisoned without counting. Unlike the JAX loop, where any exception at
+the read feeds the breaker, every other exception (a sticky CUDA error, a
+CUDA out-of-memory, a fault of the commit code) is raised once the ring is
+poisoned: the card is local and has no relay to lose, so a probe could
+only hide a kernel or commit fault behind the host path. ``comparer_every_n`` checks a batch's landed winners
+again with the host PreFilters and Filters (``_compare_with_oracle``).
+``warm_buckets`` runs the batch program at every sizer bucket outside the
+measured window and seeds the sizer from its timed runs
+(``_calibrate_sizer``).
+
+Left out: telemetry, tracing and the latency ledger; custom profiles (a
+capacity that does not converge raises PermanentDeviceError).
 """
 
 from __future__ import annotations
@@ -129,22 +151,27 @@ from ..framework.profile import ATTRIBUTION_ORDER
 from ..framework.runtime import PreFilterState
 from ..framework.types import Diagnosis, QueuedPodInfo
 from ..metrics.scheduler_metrics import ERROR, SCHEDULED, UNSCHEDULABLE
+from ..ops import fused_step
 from ..ops.encode import CapacityError
+from ..ops.preempt import screen_prefix
 from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT
 from ..ops.schema import COL_PODS, Capacities
 from ..ops.slice import fragmentation_host
 from ..ops.tiebreak import seeds_for
 from ..ops.volume_mask import VolumeMaskBuilder
 from ..scheduler.scheduler import BindItem, Scheduler
+from ..api.wrappers import make_pod
 from ..utils.device import DeviceLike, resolve_device
 from .batch_scheduler import (DeviceBatch, DispatchedBatch, EncodedBatch,
                               adopt_device_batch, dispatch_device_batch, encode_device_batch,
                               batch_gangs, judge_gangs, preempt_screen, quota_batch_kw,
-                              screen_batch_kw, slice_batch_kw)
+                              run_batch_program, screen_batch_kw, slice_batch_kw,
+                              topo_mode_info)
+from .circuit import STATE_VALUES, CircuitBreaker
 from .claim_mask import ClaimMaskBuilder
 from .commit_plane import CommitWorker, materialize_result
 from .device_state import DeviceState, caps_for_cluster
-from .errors import PermanentDeviceError
+from .errors import PermanentDeviceError, TransientDeviceError
 from .sizer import BatchSizer
 
 # host seconds per stage on the scheduling thread, summed over its cycles:
@@ -217,10 +244,34 @@ def _on_stream(stream: Optional[torch.cuda.Stream]):
 
 class TPUScheduler(Scheduler):
     def __init__(self, store: Store, device: DeviceLike = None, batch_size: int = 128,
-                 batch_deadline_ms: Optional[float] = None, **kwargs):
+                 batch_deadline_ms: Optional[float] = None, comparer_every_n: int = 0,
+                 relay_breaker_threshold: Optional[int] = None,
+                 relay_probe_interval_s: Optional[float] = None, **kwargs):
         self.device = resolve_device(device)
         super().__init__(store, **kwargs)
         self.batch_size = batch_size
+        # the relay breaker (``:146-175``): repeated commit failures open it,
+        # and every pod takes the sequential path, touching no device state,
+        # until a probe past ``relay_probe_interval_s`` commits
+        if relay_breaker_threshold is None:
+            relay_breaker_threshold = int(os.environ.get("KTPU_RELAY_BREAKER_THRESHOLD", "3"))
+        if relay_probe_interval_s is None:
+            relay_probe_interval_s = float(os.environ.get("KTPU_RELAY_PROBE_S", "0.5"))
+        self.relay_breaker = CircuitBreaker(
+            failure_threshold=relay_breaker_threshold, reset_timeout_s=relay_probe_interval_s,
+            now_fn=self.now_fn, on_state_change=self._relay_state_change)
+        self.relay_degraded_pods = 0  # batchable pods the open breaker sent down the sequential path
+        self._relay_degraded_since: Optional[float] = None
+        # the oracle comparer: every winner of a batch that starts while
+        # ``batch_scheduled`` is a multiple of ``comparer_every_n`` is
+        # checked again with the host PreFilters and Filters; 0 disables
+        self.comparer_every_n = comparer_every_n
+        self.comparer_checks = 0
+        self.comparer_mismatches = 0
+        self.batch_scheduled = 0  # batch winners bound or parked at Permit
+        self._slot_reuses_seen = 0  # encoder.slot_reuses already in device_slot_reuse
+        self.warm_launches = 0  # fused-kernel launches of warm_buckets
+        self.warm_timings: List[tuple] = []  # (bucket, seconds) of the last sweep's timed runs
         if batch_deadline_ms is None:
             batch_deadline_ms = float(os.environ.get("KTPU_BATCH_DEADLINE_MS", "500"))
         self.sizer = BatchSizer(batch_size, batch_deadline_ms / 1000.0)
@@ -237,7 +288,9 @@ class TPUScheduler(Scheduler):
         # sampled batch's final_sample_start (schedule_one.go:475 rotation)
         self._start_carry: Optional[torch.Tensor] = None
         # a scripted device fault: called with "commit" before each batch's
-        # read; an exception it returns is raised there and poisons the ring
+        # read; an exception it returns is raised there and takes the relay
+        # death path (ring poison, mirror dropped; a TransientDeviceError is
+        # counted by the breaker, any other is raised out of the cycle)
         self.relay_fault_fn: Optional[Callable[[str], Optional[BaseException]]] = None
         self.pipeline_depth = max(0, int(os.environ.get("KTPU_PIPELINE_DEPTH", "2")))
         self._inflight: Deque[_Inflight] = deque()
@@ -277,7 +330,29 @@ class TPUScheduler(Scheduler):
         if self.commit_worker is not None:
             self.commit_worker.stop()
 
+    def _relay_state_change(self, _old: str, new: str) -> None:
+        """A relay breaker transition (``:289-306``): the circuit gauge, and
+        the degraded seconds of the open window, booked when it closes (a
+        half-open probe neither closes nor restarts the window)."""
+        self.smetrics.backend_circuit_state.set(value=STATE_VALUES[new])
+        now = self.now_fn()
+        if new == "open" and self._relay_degraded_since is None:
+            self._relay_degraded_since = now
+        elif new == "closed" and self._relay_degraded_since is not None:
+            self.smetrics.degraded_seconds.inc(value=now - self._relay_degraded_since)
+            self._relay_degraded_since = None
+
     # ------------------------------------------------------------- device
+
+    def _sync_slot_reuse_metric(self) -> None:
+        """The encoder's new slot reuses into ``device_slot_reuse`` (a
+        rebuilt mirror's encoder counts from 0 again)."""
+        reuses = self.state.encoder.slot_reuses
+        if reuses < self._slot_reuses_seen:
+            self._slot_reuses_seen = 0
+        if reuses > self._slot_reuses_seen:
+            self.smetrics.device_slot_reuse.inc(value=reuses - self._slot_reuses_seen)
+            self._slot_reuses_seen = reuses
 
     def _ensure_device(self) -> None:
         """Build the device mirror, or rebuild it with a doubled node axis
@@ -415,13 +490,23 @@ class TPUScheduler(Scheduler):
             return 0
         t_pop = self.now_fn()
         pod_cycle = self.queue.scheduling_cycle
+        # the relay breaker (``:526-588``): while it is open, no pod rides
+        # the batch and nothing touches the device; past the probe interval
+        # it admits this cycle's batch as the half-open probe
+        relay_ok = self.relay_breaker.allow()
+        if self._relay_degraded_since is not None:
+            # the degraded seconds stream while the breaker stays open
+            now = self.now_fn()
+            self.smetrics.degraded_seconds.inc(value=now - self._relay_degraded_since)
+            self._relay_degraded_since = now
         live = []
         for qp in qps:
             pod = self.store.get_pod(qp.pod.key())
             if pod is None or pod.spec.node_name or not self._responsible_for(pod):
                 continue  # skipPodSchedule
             live.append((qp, pod))
-        self._ensure_device()
+        if relay_ok:
+            self._ensure_device()
         buffer: List[QueuedPodInfo] = []
         flushed = False
         profile = self.profile
@@ -439,9 +524,12 @@ class TPUScheduler(Scheduler):
                                                   self.now_fn() - t_pop)
                     break
             else:
-                if self.batch_supported(pod):
+                batchable = self.batch_supported(pod)
+                if relay_ok and batchable:
                     buffer.append(qp)
                     continue
+                if batchable:
+                    self.relay_degraded_pods += 1
                 # the sequential path, in pop order: the batch queued before
                 # the pod is dispatched and the ring lands first
                 laps("pop")
@@ -533,6 +621,7 @@ class TPUScheduler(Scheduler):
                 try:
                     with mutex:
                         self.state.sync(self.snapshot)
+                        self._sync_slot_reuse_metric()
                         laps("sync")
                         enc = self._encode(batched)
                         laps("encode")
@@ -642,6 +731,155 @@ class TPUScheduler(Scheduler):
         while self._inflight:
             self._commit_inflight(self._inflight.popleft())
 
+    # ------------------------------------------------------------- warm sweep
+
+    def _sync_grown(self) -> None:
+        """Sync the mirror to the snapshot, growing each capacity axis the
+        sync outgrows (on the scheduling thread, the ring landed)."""
+        for _attempt in range(GROW_ATTEMPTS):
+            try:
+                with self.device_mutex:
+                    self.state.sync(self.snapshot)
+                return
+            except CapacityError as err:
+                self._resync_grown(err)
+        raise PermanentDeviceError(f"capacities did not converge in {GROW_ATTEMPTS} growths")
+
+    def warm_buckets(self, sample_pods: Optional[List[Pod]] = None) -> int:
+        """Run the batch program once at every sizer bucket, outside any
+        measured window (``:1812-1985``), so that the first batch at a
+        bucket does not pay the card's lazy module loading and allocator
+        growth, then seed the sizer's latency model from the measured times
+        (``_calibrate_sizer``). ``sample_pods`` are pods shaped like the
+        incoming workload, never stored: their signatures and terms are
+        registered first, so the warmed program is the topology mode the
+        real batches run (default: one pod asking 1m cpu). Per bucket: the
+        program and its ``ports_enabled`` twin; with a volume or claim in
+        the sample the masked variants (all-True masks), each with its
+        carry variant when the program has a topology carry; a second clean
+        run, timed with ``now_fn`` up to the host read of its result; the
+        carry variant; the preemption screen. Nothing is adopted: the
+        mirror, ``batch_counter``, ``batch_modes``, ``batch_paths``,
+        ``stage_seconds`` and the sampling carry stay as they were; the
+        fused kernel's launches add to ``warm_launches``. Returns the
+        programs warmed, counted as the JAX loop counts them."""
+        self._drain_inflight()
+        self._ensure_device()
+        self.cache.update_snapshot(self.snapshot)
+        self._sync_grown()
+        pods = list(sample_pods) if sample_pods else [
+            make_pod("__bucket_warm__").req({"cpu": "1m"}).obj()]
+        launches0 = fused_step.LAUNCHES
+        # the registration pass, growing capacities as a batch would
+        for _attempt in range(GROW_ATTEMPTS):
+            try:
+                with self.device_mutex:
+                    encode_device_batch(self.state, pods,
+                                        capacity=self.sizer.bucket_for(len(pods)))
+                break
+            except CapacityError as err:
+                self._resync_grown(err)
+        else:
+            logging.getLogger(__name__).warning(
+                "warm_buckets: capacities did not converge for the sample; warming with "
+                "its topology unregistered")
+        self._sync_grown()  # the counts of the signatures just registered
+        n_valid = self.cache.node_count()
+        if self.percentage_of_nodes_to_score or not _default_full_batch(self.device):
+            k = self.num_feasible_nodes_to_find(n_valid)
+        else:
+            k = n_valid
+        sample_k = k if k < n_valid else None
+        warmed = 0
+        timings = []  # (bucket, seconds of the clean second run)
+        with self.device_mutex:
+            state = self.state
+            mode_info = topo_mode_info(state)
+            sample_start = (torch.zeros((), dtype=torch.int32, device=self.device)
+                            if sample_k is not None else None)
+            for bucket in sorted({self.sizer.bucket_for(b) for b in self.sizer._ladder()}):
+                # a sample larger than the bucket is cut: the small buckets
+                # are the ones deadline cuts switch to
+                warm_slice = pods[:bucket]
+                try:
+                    enc = encode_device_batch(state, warm_slice, capacity=bucket)
+                except CapacityError:
+                    continue
+                enc = dataclasses.replace(enc, mode=mode_info[0], vd=mode_info[1],
+                                          host_key=mode_info[2])
+
+                def run(**kw):
+                    res = run_batch_program(state, enc, sample_k, sample_start, **kw)[0]
+                    res.node_idx.cpu()  # the host read: the program has run
+                    return res
+
+                def carry(res):
+                    return (res.final_sel_counts, res.final_seg_exist)
+
+                def ones():
+                    return torch.ones((bucket, state.caps.nodes), dtype=torch.bool,
+                                      device=self.device)
+
+                res = run()
+                run(ports_enabled=not state.encoder.last_has_ports)
+                volumes = any(p.spec.volumes for p in warm_slice)
+                variants = []
+                if volumes:
+                    variants.append(dict(extra_mask=ones()))
+                if any(p.spec.resource_claims for p in warm_slice):
+                    dm = ones()
+                    variants.append(dict(dra_mask=dm))
+                    if volumes:
+                        variants.append(dict(extra_mask=ones(), dra_mask=dm))
+                for var in variants:
+                    res_m = run(**var)
+                    if res_m.final_sel_counts is not None:
+                        run(topo_carry=carry(res_m), **var)
+                warmed += 1
+                t0 = self.now_fn()
+                run()
+                timings.append((bucket, self.now_fn() - t0))
+                if res.final_sel_counts is not None:
+                    run(topo_carry=carry(res))
+                    warmed += 1
+                if res.static_masks:
+                    # the failure path's program: the default profile wires
+                    # DefaultPreemption's PostFilter
+                    pres = screen_prefix(enc.pb, state.preempt_inputs(), res.static_masks,
+                                         np.ones(len(warm_slice), bool))
+                    pres.best.cpu()
+                    warmed += 1
+        self.warm_launches += fused_step.LAUNCHES - launches0
+        self.warm_timings = timings
+        self._calibrate_sizer(timings)
+        return warmed
+
+    def _calibrate_sizer(self, timings) -> None:
+        """Seed the sizer's latency model from the warm runs' times per
+        bucket (``:1987-2017``): least squares on exec(B) = ea + eb·B. A
+        batch's pop-to-commit span covers its own run and the ring's worth
+        of batches dispatched after it, so the seed is a = (K+1)·ea + 30 ms
+        of host work and b = (K+1)·eb for ring depth K; the commit-wait
+        model starts at wait = exec."""
+        if len(timings) < 2:
+            return
+        xs = np.array([float(b) for b, _ in timings])
+        ys = np.array([t for _, t in timings])
+        eb, ea = np.polyfit(xs, ys, 1)
+        if eb <= 0:
+            return
+        span = self.pipeline_depth + 1
+        s = self.sizer
+        s._fit.a = max(span * ea, 0.0) + 0.03
+        s._fit.b = span * eb
+        s._fit.updates = max(s._fit.updates, 3)
+        s._fit.outliers = 0
+        s._wfit.a = max(ea, 0.0)
+        s._wfit.b = eb
+        s._wfit.updates = max(s._wfit.updates, 3)
+        s._bucket = None  # target() derives the bucket from the seeded model
+        s.target()
+
     # ------------------------------------------------------------- commit
 
     def _commit_inflight(self, fl: _Inflight) -> None:
@@ -655,7 +893,8 @@ class TPUScheduler(Scheduler):
         on_worker = self.commit_worker is not None
         if fl.state is not self.state:
             # computed on a mirror since dropped or rebuilt: requeue it
-            self._poison_batches((fl,), RuntimeError("device rebuilt while batch in flight"))
+            self._poison_batches((fl,), RuntimeError("device rebuilt while batch in flight"),
+                                 count_breaker=False)
             return
         wait: Optional[float] = None
         laps = _Laps(self.commit_seconds)
@@ -693,17 +932,30 @@ class TPUScheduler(Scheduler):
             else:
                 stale = list(self._inflight)
                 self._inflight.clear()
-            self._poison_batches((fl, *stale), exc)
+            # only a transient device error feeds the breaker; any other
+            # (a sticky CUDA error, an out-of-memory, a fault of the commit
+            # code) poisons the ring and is raised, so that no probe hides
+            # it behind the sequential path
+            transient = isinstance(exc, TransientDeviceError)
+            self._poison_batches((fl, *stale), exc, count_breaker=transient)
+            if not transient:
+                raise
+        else:
+            self.relay_breaker.record_success()
         # the sizer controls pop-to-commit at the batch's bucket: observed
         # here, where the span ends; the commit wait feeds the stall model
         self.sizer.update(fl.bucket, self.now_fn() - fl.t0)
         if wait is not None:
             self.sizer.update_wait(fl.bucket, wait)
 
-    def _poison_batches(self, batches, exc: BaseException) -> None:
+    def _poison_batches(self, batches, exc: BaseException, count_breaker: bool = True) -> None:
         """Fail batches in flight back to the queue, each pod through the
-        error path to backoffQ, in one queue-move window (``:1094-1123``)."""
+        error path to backoffQ, in one queue-move window (``:1094-1123``);
+        with ``count_breaker`` the failure counts against the relay breaker
+        first."""
         logging.getLogger(__name__).warning("requeueing %d batches: %s", len(batches), exc)
+        if count_breaker:
+            self.relay_breaker.record_failure(exc)
         with self.queue.coalesce_moves():
             for fl in batches:
                 for qp in fl.qps:
@@ -799,6 +1051,8 @@ class TPUScheduler(Scheduler):
                         self._invalidate_device_row(name)
                         self._schedule_fallback(qp, pod_cycle)
                         continue
+                if self.comparer_every_n and self.batch_scheduled % self.comparer_every_n == 0:
+                    self._compare_with_oracle(qp.pod, name)
                 item = BindItem(qp, name, state=state)
                 if self._assume(item, pod_cycle):
                     items.append(item)
@@ -810,7 +1064,40 @@ class TPUScheduler(Scheduler):
             self._handle_scheduling_failure(qp, True, diagnosis, pod_cycle, pod_hints)
             self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name, self.now_fn() - t0)
         if items:
-            self._commit_bindings(items, pod_cycle, t0)
+            self.batch_scheduled += self._commit_bindings(items, pod_cycle, t0)
+
+    def _compare_with_oracle(self, pod: Pod, node_name: str) -> None:
+        """The device/host comparer (``:1787-1810``): the host PreFilters
+        and Filters judge the winner on its node in the failure path's
+        snapshot, refreshed first; a node missing there or a check that
+        fails counts a mismatch. It judges the placement the device made:
+        against the cache with the batch's earlier winners assumed in
+        batch order, as the device committed them, and without the host
+        gates (QuotaAdmission, Coscheduling), which the batch program does
+        not model and Reserve and Permit judge next. The JAX comparer reads
+        the snapshot before the batch's winners are assumed and runs the
+        gates, so it flags winners that an earlier winner of the batch
+        made feasible, and winners whose quota a batch committed from the
+        ring since their pop used up, which Reserve then refuses (ROADMAP
+        C18)."""
+        snap = self._failure_snapshot()
+        self.cache.update_snapshot(snap)
+        ni = snap.node_info_map.get(node_name)
+        self.comparer_checks += 1
+        if ni is None or ni.node is None:
+            self.comparer_mismatches += 1
+            logging.getLogger(__name__).warning(
+                "comparer: device placed %s on unknown node %s", pod.key(), node_name)
+            return
+        filters = self.profile.filters
+        state, _names, fail = filters.pre_filter_status(pod, gates=False)
+        if fail is None:
+            fail = filters.filter_status(state, pod, ni)
+        if fail is not None:
+            self.comparer_mismatches += 1
+            logging.getLogger(__name__).warning(
+                "comparer: oracle rejects device placement %s -> %s: %s",
+                pod.key(), node_name, fail.reason)
 
     def _commit_checks(self, pod: Pod, node_name: str) -> Optional[PreFilterState]:
         """A volume or claim winner's checks on its node (``:1455-1501``)
@@ -858,14 +1145,15 @@ class TPUScheduler(Scheduler):
         self.profile.nominator.delete_nominated_pod_if_exists(item.qp.pod)
         return True
 
-    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
+    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
         """The bind tail of assumed pods (``commit_plane.py:155-307``), each
         stage over all of them: Reserve (every pod, then the refused ones
         rolled back), Permit (a pod voting WAIT parks at once, so the next
         member's quorum counts it; a quorum allows the parked siblings,
         which land right there), then ``_bind_stage``. Per pod the plugins
         see the JAX commit plane's calls in its order, and each pod fails
-        alone. The sequential path calls it with its one pod."""
+        alone. The sequential path calls it with its one pod. Returns the
+        pods bound or parked (JAX's ``stats.bound + stats.waiting``)."""
         profile = self.profile
         refused = [profile.reserve(item.assumed, item.node_name, item.state) for item in items]
         survivors = []
@@ -887,12 +1175,12 @@ class TPUScheduler(Scheduler):
                 permitted.append(item)
             elif reason != "waiting":
                 self._fail_assumed(item, True, pod_cycle)
-        self._bind_stage(permitted, pod_cycle, t0)
+        return verdicts.count("waiting") + self._bind_stage(permitted, pod_cycle, t0)
 
-    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
+    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
         """PreBind each assumed pod (VolumeBinding's PV binds), bind the
         rest through the store in one pass, then finish each bound one,
-        count it, and run PostBind over them."""
+        count it, and run PostBind over them. Returns the pods bound."""
         live = []
         for item in items:
             if self.profile.pre_bind(item.assumed) is not None:
@@ -908,13 +1196,14 @@ class TPUScheduler(Scheduler):
             else:
                 bound.append(item)
         if not bound:
-            return
+            return 0
         now = self.now_fn()
         for item in bound:
             self.cache.finish_binding(item.assumed)
             self.metrics.inc("scheduled")
             self.smetrics.observe_attempt(SCHEDULED, self.profile.name, now - t0)
         self.profile.post_bind_batch([item.assumed for item in bound])
+        return len(bound)
 
     def _fail_assumed(self, item: BindItem, unschedulable: bool, pod_cycle: int) -> None:
         """An assumed pod refused after its assume: Unreserve (a refused

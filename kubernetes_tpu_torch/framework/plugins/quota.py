@@ -41,24 +41,39 @@ The scheduler loop's half (``:284-288``, ``:525-559``, ``:576-800``):
     recorded lender demand does not fit, evict its loans newest first
     through ``on_evict(pods, reason)`` (the loop's gang-closure eviction)
     until it fits, at most once per ``DEFAULT_RECLAIM_COOLDOWN_S`` per pool unless
-    new demand arrived. The JAX pass's SLO breaker is left out: without a
-    guard function it never opens;
-  * the gauges ``quota_usage`` and ``quota_borrowed`` on ``metrics``.
+    new demand arrived. An SLO breaker (``:176-185``, ``:602-638``) guards
+    the pass: ``reclaim_guard_fn``, judged after each wave that evicted,
+    returns False for a lender-SLO regression, which counts against
+    ``reclaim_breaker`` (threshold ``RECLAIM_BREAKER_THRESHOLD``, reset
+    ``RECLAIM_BREAKER_RESET_S``); while it is open the pass is suspended
+    (``reclaim_suspended``, the ``suspended`` outcome of
+    ``quota_reclaims``), and a clean wave after its half-open probe heals
+    it. Without a guard function it never opens;
+  * the gauges ``quota_usage`` and ``quota_borrowed`` on ``metrics``;
+  * ``dump``: the ledger per namespace and per pool, with the reclaim
+    breaker's state.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
 
+import time
+
 from ...api import resource as resource_api
 from ...api.types import (QUOTA_CLAIMS, QUOTA_CPU, QUOTA_DIM_ORDER, QUOTA_MEMORY, QUOTA_PODS,
                           Pod, SchedulingQuota)
+from ...backend.circuit import OPEN, CircuitBreaker
 from ..types import ALL, SCHEDULING_QUOTA, ClusterEvent
 from .coscheduling import pod_group_key
 
 NAME = "QuotaAdmission"
 ERR_REASON_QUOTA_EXCEEDED = "QuotaExceeded"
 DEFAULT_RECLAIM_COOLDOWN_S = 5.0
+# the reclaim pass's SLO breaker: open after this many waves the guard
+# judged regressions, probed again after the reset
+RECLAIM_BREAKER_THRESHOLD = 2
+RECLAIM_BREAKER_RESET_S = 30.0
 
 # int32 ceiling of the device table's rows (ops/quota.py QUOTA_NO_LIMIT)
 _NO_LIMIT = 2**31 - 1
@@ -86,9 +101,11 @@ class Refusal(str):
 
 class QuotaAdmission:
     """``client`` is the object store the SchedulingQuotas and PodGroups
-    live in; ``bound_pods_fn`` lists the pods bound in the cluster."""
+    live in; ``bound_pods_fn`` lists the pods bound in the cluster;
+    ``now_fn`` is the reclaim breaker's clock."""
 
-    def __init__(self, client, bound_pods_fn: Callable[[], Iterable[Pod]], metrics=None):
+    def __init__(self, client, bound_pods_fn: Callable[[], Iterable[Pod]], metrics=None,
+                 now_fn: Optional[Callable[[], float]] = None):
         self.client = client
         self.bound_pods_fn = bound_pods_fn
         self.metrics = metrics
@@ -96,6 +113,13 @@ class QuotaAdmission:
         # gang-closure eviction of the reclaim pass, fn(pods, reason) -> n
         self.on_release: Optional[Callable[[str], int]] = None
         self.on_evict: Optional[Callable[[List[Pod], str], int]] = None
+        # the SLO guard, judged after each wave that evicted: False is a
+        # lender-SLO regression and counts against the breaker
+        self.reclaim_guard_fn: Optional[Callable[[], bool]] = None
+        self.reclaim_breaker = CircuitBreaker(
+            failure_threshold=RECLAIM_BREAKER_THRESHOLD,
+            reset_timeout_s=RECLAIM_BREAKER_RESET_S, now_fn=now_fn or time.monotonic)
+        self.reclaim_suspended = False
         self.reclaims_executed = 0
         self._last_reclaim: Dict[str, float] = {}  # cohort -> time of its last pass
         self._demand_fresh: Set[str] = set()       # cohorts with demand since their pass
@@ -447,7 +471,8 @@ class QuotaAdmission:
         """The reclaim pass: for every pool whose recorded lender demand,
         summed, does not fit, evict its loans newest first until it does
         (``_reclaim_cohort``); a pool is passed over within the cooldown of
-        its last pass unless new demand arrived. Returns pods evicted."""
+        its last pass unless new demand arrived, and every pool is passed
+        over while the SLO breaker is open. Returns pods evicted."""
         if self.on_evict is None or not self._reclaim_demand:
             return 0
         evicted_total = 0
@@ -465,6 +490,13 @@ class QuotaAdmission:
             if (last is not None and now - last < DEFAULT_RECLAIM_COOLDOWN_S
                     and cohort not in self._demand_fresh):
                 continue
+            if not self.reclaim_breaker.allow():
+                if not self.reclaim_suspended:
+                    self.reclaim_suspended = True
+                    if self.metrics is not None:
+                        self.metrics.quota_reclaims.inc("suspended")
+                continue
+            self.reclaim_suspended = False
             self._last_reclaim[cohort] = now
             self._demand_fresh.discard(cohort)
             n = self._reclaim_cohort(cohort, agg)
@@ -473,6 +505,12 @@ class QuotaAdmission:
                 self.metrics.quota_reclaims.inc("evicted" if n else "noop")
             if n:
                 self.reclaims_executed += 1
+                # a judged regression counts against the breaker; a clean
+                # wave heals it (an open breaker only through its probe)
+                if self.reclaim_guard_fn is not None and not self.reclaim_guard_fn():
+                    self.reclaim_breaker.record_failure()
+                elif self.reclaim_breaker.state != OPEN:
+                    self.reclaim_breaker.record_success()
         return evicted_total
 
     def _live_demand(self, cohort: str) -> Dict[str, Request]:
@@ -508,6 +546,50 @@ class QuotaAdmission:
                 continue
             evicted += self.on_evict([pod], "quota_reclaim")
         return evicted
+
+    # ----------------------------------------------------------------- debug
+
+    def dump(self) -> dict:
+        """The ledger as the JAX plugin's dump (``:839-882``) gives it: per
+        namespace its caps, usage, loans, pool, weight and charged pods;
+        under ``_cohorts`` per pool its members, guaranteed caps, usage,
+        lent amounts, headroom, loans newest first, pending demand and the
+        reclaim breaker."""
+        out: dict = {}
+        for q in list(self._quota_map().values()):
+            ns = q.meta.namespace
+            out[ns] = {
+                "hard": self.effective_hard(ns) or {},
+                "used": self.usage(ns),
+                "borrowed": self.borrowed(ns),
+                "cohort": self.cohort_for(ns) or "",
+                "weight": self.weight_for(ns),
+                "charged_pods": sum(1 for _k, (n, _r) in self._charged.items() if n == ns),
+            }
+        cohorts: dict = {}
+        self._index()
+        for cohort in self._cohort_index:
+            caps, used = self.cohort_state(cohort)
+            lent: Request = {}
+            for ns in self.cohort_members(cohort):
+                for dim, v in self._borrowed.get(ns, {}).items():
+                    lent[dim] = lent.get(dim, 0) + v
+            loans = sorted(((seq, key, ns) for key, (ns, _r, seq) in self._loans.items()
+                            if self.cohort_for(ns) == cohort), reverse=True)
+            cohorts[cohort] = {
+                "members": self.cohort_members(cohort),
+                "guaranteed": caps,
+                "used": used,
+                "lent": lent,
+                "headroom": {dim: max(cap - used.get(dim, 0), 0) for dim, cap in caps.items()},
+                "loans": [{"pod": key, "namespace": ns, "seq": seq} for seq, key, ns in loans],
+                "pending_demand": len(self._reclaim_demand.get(cohort, {})),
+                "reclaim_breaker": self.reclaim_breaker.dump(),
+                "reclaim_suspended": self.reclaim_suspended,
+            }
+        if cohorts:
+            out["_cohorts"] = cohorts
+        return out
 
     # ----------------------------------------------------------- device view
 

@@ -122,7 +122,8 @@ class Profile:
                  metrics=None, now_fn=None, waiting=None):
         self.nominator = PodNominator()
         self.coscheduling = Coscheduling(client, now_fn=now_fn, metrics=metrics, waiting=waiting)
-        self.quota = QuotaAdmission(client, bound_pods_fn or (lambda: ()), metrics=metrics)
+        self.quota = QuotaAdmission(client, bound_pods_fn or (lambda: ()), metrics=metrics,
+                                    now_fn=now_fn)
         self.slice_packing = SlicePacking(node_infos_fn, client)
         self.sort_key = self.coscheduling.sort_key
         self.filters = FilterRunner(client, node_infos_fn, self.nominator, ns_labels_fn,

@@ -159,14 +159,16 @@ class FilterRunner:
         state, _names, fail = self.pre_filter_status(pod)
         return state, (fail.reason if fail is not None else None)
 
-    def pre_filter_status(self, pod: Pod
+    def pre_filter_status(self, pod: Pod, gates: bool = True
                           ) -> Tuple[Optional[PreFilterState], Optional[Set[str]], Optional[Fail]]:
         """The PreFilters in the default order: (the state, the node names
         they restrict the pod to or None for every node, None), or (None,
-        None, the first failure)."""
+        None, the first failure). ``gates=False`` leaves out the host gates
+        (QuotaAdmission and Coscheduling), which judge the tenant and the
+        gang, not the node."""
         for plugin, gate in (("QuotaAdmission", self.quota),
                              ("Coscheduling", self.coscheduling)):
-            if gate is not None:
+            if gate is not None and gates:
                 reason = gate.pre_filter(pod)
                 if reason is not None:
                     return None, None, Fail(plugin, reason, True)

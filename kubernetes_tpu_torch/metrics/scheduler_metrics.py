@@ -7,8 +7,13 @@ of a run's measured phase. The gang, slice and quota parts of the loop
 write ``gangs_rejected`` (by reason), ``gang_wait_duration`` and
 ``slice_wait_duration`` (by result), ``slice_fragmentation`` (by
 superpod), the quota gauges ``quota_usage`` and ``quota_borrowed`` (by
-namespace and dimension), ``quota_reclaims`` (by outcome) and
-``evicted_pods`` (by reason), under the JAX metrics' names.
+namespace and dimension), ``quota_reclaims`` (by outcome: evicted, noop,
+or suspended while the reclaim pass's SLO breaker is open) and
+``evicted_pods`` (by reason). The relay breaker writes
+``backend_circuit_state`` (0 closed, 1 half-open, 2 open) and
+``degraded_seconds`` (the seconds the breaker held the batch path open),
+and the encoder's reused node slots feed ``device_slot_reuse``. All under
+the JAX metrics' names.
 
 The histogram keeps every observation, so its quantiles are exact (the JAX
 registry's are bucket estimates); one run's attempts are few enough. The
@@ -95,6 +100,9 @@ class SchedulerMetrics:
         self.quota_borrowed = Gauge()                  # by (namespace, dimension)
         self.quota_reclaims = Counter()                # by outcome
         self.evicted_pods = Counter()                  # by reason
+        self.backend_circuit_state = Gauge()           # the relay breaker's STATE_VALUES
+        self.degraded_seconds = Counter()              # seconds the breaker held open
+        self.device_slot_reuse = Counter()             # tombstoned slots handed to new nodes
 
     def observe_attempt(self, result: str, profile: str, duration_s: float) -> None:
         self.schedule_attempts.inc(result, profile)

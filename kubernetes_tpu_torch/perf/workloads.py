@@ -70,9 +70,11 @@ need more topology signatures and a wider torus than
   the loop.
 
 ``run_loop`` drives a workload through the scheduler loop (the store,
-``TPUScheduler.run_until_settled``), gangs and slices included, and
-``run_loop_soak`` the soak (``soak_rounds``: the JAX harness's soak
-phase); ``run_with_preemption`` drives one through a BatchScheduler and
+``TPUScheduler.run_until_settled``), gangs and slices included, with the
+warm sweep before its measured phase on request; ``run_loop_soak`` the
+soak (``soak_rounds``: the JAX harness's soak phase, its device flap and
+invariants included); ``run_relay_death`` the relay breaker's degrade and
+heal at a workload's size (``relay_death``); ``run_with_preemption`` drives one through a BatchScheduler and
 resubmits the pods it nominated; ``slice_stats`` reports contiguity and
 fragmentation after a run.
 """
@@ -91,6 +93,7 @@ from ..api.types import (BINDING_WAIT_FOR_FIRST_CONSUMER, LABEL_HOSTNAME, LABEL_
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.store import Store
 from ..backend.device_state import _bucket, caps_for_cluster
+from ..backend.errors import TransientDeviceError
 from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
@@ -170,36 +173,42 @@ class PodShape:
     slice: bool = False
 
     def pods(self, count: int) -> List[Pod]:
-        out = []
-        for i in range(count):
-            pw = make_pod(f"{self.prefix}-{i}").req(self.req)
-            if self.gang_size:
-                group = f"{self.prefix}-pg{i // self.gang_size}"
-                pw.pod_group(group)
-                if self.slice:
-                    pw.label(SLICE_LABEL, "1")
-                else:
-                    pw.pod_affinity(LABEL_HOSTNAME,
-                                    LabelSelector(match_labels={POD_GROUP_LABEL: group}),
-                                    anti=True)
-            if self.priority:
-                pw.priority(self.priority)
-            if self.claim:
-                pw.resource_claim(self.claim.name, template_name=self.claim.template)
-            if self.pv_volume_type is not None:
-                pw.pvc(f"pvc-{self.prefix}-{i}")
-            if self.affinity_key:
-                for k, v in self.affinity_labels.items():
-                    pw.label(k, v)
-                pw.pod_affinity(self.affinity_key,
-                                LabelSelector(match_labels=dict(self.affinity_labels)),
-                                anti=self.anti)
-            if self.spread_key:
-                pw.label("spread-app", self.prefix)
-                pw.spread_constraint(1, self.spread_key,
-                                     selector=LabelSelector(match_labels={"spread-app": self.prefix}))
-            out.append(pw.obj())
-        return out
+        return [self.pod(i) for i in range(count)]
+
+    def sample(self) -> Pod:
+        """A pod of the shape that no op creates (index 10**9, as the JAX
+        harness's warm sample): ``warm_buckets``' sample pod."""
+        return self.pod(10 ** 9)
+
+    def pod(self, i: int) -> Pod:
+        """The shape's ``i``-th pod."""
+        pw = make_pod(f"{self.prefix}-{i}").req(self.req)
+        if self.gang_size:
+            group = f"{self.prefix}-pg{i // self.gang_size}"
+            pw.pod_group(group)
+            if self.slice:
+                pw.label(SLICE_LABEL, "1")
+            else:
+                pw.pod_affinity(LABEL_HOSTNAME,
+                                LabelSelector(match_labels={POD_GROUP_LABEL: group}),
+                                anti=True)
+        if self.priority:
+            pw.priority(self.priority)
+        if self.claim:
+            pw.resource_claim(self.claim.name, template_name=self.claim.template)
+        if self.pv_volume_type is not None:
+            pw.pvc(f"pvc-{self.prefix}-{i}")
+        if self.affinity_key:
+            for k, v in self.affinity_labels.items():
+                pw.label(k, v)
+            pw.pod_affinity(self.affinity_key,
+                            LabelSelector(match_labels=dict(self.affinity_labels)),
+                            anti=self.anti)
+        if self.spread_key:
+            pw.label("spread-app", self.prefix)
+            pw.spread_constraint(1, self.spread_key,
+                                 selector=LabelSelector(match_labels={"spread-app": self.prefix}))
+        return pw.obj()
 
     @property
     def needs_store(self) -> bool:
@@ -535,7 +544,7 @@ def create_gang_pod(store, pod: Pod, size: int, convert=lambda obj: obj) -> None
 
 
 def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BATCH,
-             batch_deadline_ms: Optional[float] = 0) -> dict:
+             batch_deadline_ms: Optional[float] = 0, warm: bool = False) -> dict:
     """Drive ``w`` through the scheduler loop, as the JAX harness's Runner
     does (``kubernetes_tpu/perf/harness.py:309-700``): a fresh ``Store``
     and ``TPUScheduler(store, device, ...)``; the nodes created, then the
@@ -545,7 +554,11 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     before its first member (``create_gang_pod``). ``percentage`` is
     percentageOfNodesToScore (0: the adaptive default);
     ``batch_deadline_ms`` None takes the loop's default
-    (``KTPU_BATCH_DEADLINE_MS``).
+    (``KTPU_BATCH_DEADLINE_MS``). With ``warm``, ``warm_buckets`` runs
+    with one sample pod of the measured shape (``PodShape.sample``) after
+    the init pods settle and before the measured phase, as the JAX
+    harness does before each measured phase (``kubernetes_tpu/perf/
+    harness.py:613-629``).
 
     Returns a dict: ``placed`` (pod key -> node, "" when unbound),
     ``pods_per_s`` (measured pods over the measured phase's seconds),
@@ -553,7 +566,16 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     scheduled attempts, pop to commit), ``batches``, ``paths``, ``modes``
     ``batch_pods`` and ``buckets`` (per batch: its pods, and the pod axis
     its program ran at),
-    ``launches`` (fused-kernel launches over the run), ``stage_ms`` (the
+    ``launches`` (fused-kernel launches over the run, the warm sweep's
+    left out), ``warmed``, ``warm_s``, ``warm_launches``, ``warm_timings``
+    and ``warm_sizer`` (the programs the sweep warmed, its seconds, its
+    fused launches, its timed runs and ``_sizer_model`` after it; 0, [] and
+    None without ``warm``), ``mirror_unchanged`` (with ``warm``: every
+    tensor of the mirror equal before and after the sweep, the mirror the
+    same object; None without), ``first_batch_ms`` (bucket -> the host ms
+    of the measured phase's first cycle at that bucket, when every
+    measured cycle ran one batch),
+    ``relay_opens`` and ``relay_degraded_pods`` (``_relay_outcome``), ``stage_ms`` (the
     scheduling thread's host stages summed over the run),
     ``measured_stage_ms`` (summed over the measured phase),
     ``measured_commit_ms`` (the commits' wait, bind and reconcile over the
@@ -612,12 +634,26 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
         for pod in pods:
             create_gang_pod(store, pod, sizes.get(pod.key(), 0))
         cycles.append(sched.run_until_settled())
+    warmed, warm_s, warm_sizer, mirror_unchanged = 0, 0.0, None, None
+    if warm:
+        sched.cache.update_snapshot(sched.snapshot)
+        sched._sync_grown()  # the sync the sweep starts with
+        state = sched.state
+        before = _mirror_tensors(state)
+        t_warm = time.perf_counter()
+        warmed = sched.warm_buckets([w.measured.sample()])
+        warm_s = time.perf_counter() - t_warm
+        warm_sizer = _sizer_model(sched.sizer)
+        after = _mirror_tensors(state)
+        mirror_unchanged = (sched.state is state and before.keys() == after.keys()
+                            and all(bool((after[k] == v).all()) for k, v in before.items()))
     # collect the garbage of earlier runs in this process before the clock
     # starts, so that its collection pauses do not land in the measured phase
     gc.collect()
     hist = sched.smetrics.scheduling_attempt_duration
     n_before = hist.count("scheduled", sched.profile.name)
     stages0, n_cycles = dict(sched.stage_seconds), len(sched.cycle_seconds)
+    buckets0 = len(sched.batch_buckets)
     commit0, batches0, carry0 = dict(sched.commit_seconds), sched.batch_counter, \
         sched.carry_batches
     idle0 = sched.idle_seconds
@@ -635,13 +671,22 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     commit_spans = [s for s in sched.commit_spans[spans0[1]:] if s[0] >= t0]
     attempt_ms = {f"p{q}": hist.quantile(q / 100, "scheduled", sched.profile.name,
                                           since=n_before) * 1e3 for q in (50, 90, 99)}
+    first_batch_ms: Dict[int, float] = {}
+    measured_buckets = sched.batch_buckets[buckets0:]
+    measured_cycles = sched.cycle_seconds[n_cycles:]
+    if len(measured_cycles) == len(measured_buckets):  # one batch per cycle
+        for bucket, t in zip(measured_buckets, measured_cycles):
+            first_batch_ms.setdefault(bucket, t * 1e3)
     return {
         "placed": {k: p.spec.node_name for k, p in store.pods.items()},
         "pods_per_s": w.n_measured / measured_s, "measured_s": measured_s,
         "attempt_ms": attempt_ms, "batches": sched.batch_counter,
         "paths": list(sched.batch_paths), "modes": list(sched.batch_modes),
         "buckets": list(sched.batch_buckets), "batch_pods": list(sched.batch_pods),
-        "launches": fused_step.LAUNCHES - launches,
+        "launches": fused_step.LAUNCHES - launches - sched.warm_launches,
+        "warmed": warmed, "warm_s": warm_s, "warm_launches": sched.warm_launches,
+        "warm_timings": list(sched.warm_timings), "warm_sizer": warm_sizer,
+        "mirror_unchanged": mirror_unchanged, "first_batch_ms": first_batch_ms, **_relay_outcome(sched),
         "stage_ms": {k: v * 1e3 for k, v in sched.stage_seconds.items()},
         "measured_stage_ms": {k: (v - stages0[k]) * 1e3 for k, v in sched.stage_seconds.items()},
         "measured_commit_ms": {k: (v - commit0[k]) * 1e3
@@ -672,6 +717,21 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
         **_volume_outcome(store),
         **_gang_outcome(sched, store, bool(w.tpu_slots)),
     }
+
+
+def _mirror_tensors(state) -> dict:
+    """Copies of every tensor of the mirror ``state``, by group and field."""
+    return {f"{type(g).__name__}.{f.name}": getattr(g, f.name).clone()
+            for g in (state.nt, state.tc) for f in dataclasses.fields(g)
+            if hasattr(getattr(g, f.name), "clone")}
+
+
+def _sizer_model(s) -> dict:
+    """The deadline sizer's model: the latency fit ``a`` + ``b`` x bucket,
+    the commit-wait fit ``wa`` + ``wb`` x bucket, and the bucket
+    ``target`` picks."""
+    return {"a": float(s._fit.a), "b": float(s._fit.b), "wa": float(s._wfit.a),
+            "wb": float(s._wfit.b), "target": s.target()}
 
 
 def _volume_outcome(store: Store) -> dict:
@@ -751,8 +811,8 @@ def run_delayed_binding(c: DelayedBinding, device) -> dict:
     ``pv_bindings``, ``metrics``, ``batch_pods``, ``modes``, ``paths``,
     ``launches`` (fused-kernel launches), ``fallback_scheduled``,
     ``rounds`` (settles), ``pods_per_s`` (pods bound over the settles'
-    wall seconds), ``batch_ms``, ``screen_ms`` and ``_volume_outcome``'s
-    keys."""
+    wall seconds), ``batch_ms``, ``screen_ms``, ``_relay_outcome``'s and
+    ``_volume_outcome``'s keys."""
     import time
 
     from ..backend.tpu_scheduler import TPUScheduler
@@ -801,8 +861,15 @@ def run_delayed_binding(c: DelayedBinding, device) -> dict:
         "pods_per_s": sched.metrics["scheduled"] / wall,
         "batch_ms": [t * 1e3 for t in sched.cycle_seconds],
         "screen_ms": {k: v * 1e3 for k, v in sched.screen_seconds.items()},
-        **_volume_outcome(store),
+        **_relay_outcome(sched), **_volume_outcome(store),
     }
+
+
+def _relay_outcome(sched) -> dict:
+    """The relay breaker's openings over a loop run and the batchable pods
+    it sent down the sequential path: both 0 unless a commit failed."""
+    return {"relay_opens": sched.relay_breaker.opens,
+            "relay_degraded_pods": sched.relay_degraded_pods}
 
 
 def _gang_outcome(sched, store: Store, torus: bool) -> dict:
@@ -835,6 +902,9 @@ SOAK_CLAIM = ClaimShape("accel", "soak-claim", "tpu.example.com",
 SOAK_CHURN_FRAC = 0.25
 SOAK_CYCLES_PER_ROUND = 120
 SOAK_TICK_S = 0.05
+# the flap's batch commits that die at their read (the JAX soak's
+# ``{"round": rounds // 2, "batches": 3}``)
+SOAK_FLAP_BATCHES = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -886,7 +956,10 @@ class Soak:
     ``SOAK_CHURN_FRAC`` of each tenant's soak-bound pods leave. ``cohort``
     joins the three quotas into one lending pool (the ``/Cohort`` variant);
     a soak without ``gangs`` (``/NoGangs``) registers no anti-affinity term,
-    so its batches stay in mode ``off``."""
+    so its batches stay in mode ``off``. ``flap`` scripts one device flap
+    through the scheduler loop (``soak_rounds``): the first three batch
+    commits of round ``rounds // 2`` die at their read, as the JAX
+    soak's ``flap`` does."""
 
     name: str
     nodes: int
@@ -895,6 +968,7 @@ class Soak:
     mix: Tuple[SoakArrival, ...]
     cohort: str = ""
     device_attributes: Optional[Dict[str, tuple]] = None
+    flap: bool = True
 
     def node_infos(self) -> List[NodeInfo]:
         return scheduling_basic_nodes(self.nodes, 10, self.device_attributes,
@@ -966,12 +1040,13 @@ class Soak:
 
 
 def scheduling_soak(nodes: int = 1000, rounds: int = 8, scale: int = 24, gangs: bool = True,
-                    cohort: str = "", claims: bool = True) -> Soak:
+                    cohort: str = "", claims: bool = True, flap: bool = True) -> Soak:
     """The JAX ``scheduling_soak`` at its published size; ``cohort`` names
     the pool of the ``/Cohort`` variant (the JAX one passes it as is),
     ``gangs=False`` drops soak-a's gangs and ``claims=False`` soak-b's
     claim pods with the nodes' device attributes, as the JAX one's
-    ``gangs`` and ``claims`` do (``/NoGangs``, ``/NoClaims``)."""
+    ``gangs`` and ``claims`` do (``/NoGangs``, ``/NoClaims``); ``flap``
+    is the JAX one's too (on by default)."""
     mix = [SoakArrival(ns, max(w * scale // 2, 2)) for ns, w in SOAK_TENANTS]
     if gangs:
         mix.append(SoakArrival("soak-a", 8, every=2, prefix="gang", gang_size=8))
@@ -984,7 +1059,7 @@ def scheduling_soak(nodes: int = 1000, rounds: int = 8, scale: int = 24, gangs: 
     suffix = (("/Cohort" if cohort else "") + ("" if gangs else "/NoGangs")
               + ("" if claims else "/NoClaims"))
     return Soak(f"SchedulingSoak/{nodes}Nodes{suffix}", nodes, rounds, scale, tuple(mix),
-                cohort, attrs)
+                cohort, attrs, flap)
 
 
 def soak_chunks(pods: Sequence[Pod], size: int) -> List[List[Pod]]:
@@ -1039,8 +1114,9 @@ def run_soak(sched, w: Soak) -> dict:
     pass and every churn.
 
     Cut from the JAX soak (``kubernetes_tpu/perf/harness.py:784-990``): no
-    device flap (the port has no relay); no DRR queue, tick-driven cycles
-    or release moves (the scheduler loop): pods go in arrival order, so
+    device flap (BatchScheduler has no relay breaker; the loop's soak,
+    ``soak_rounds``, has the flap); no DRR queue, tick-driven cycles or
+    release moves (the scheduler loop): pods go in arrival order, so
     tenant wait percentiles are not comparable with the JAX harness's.
 
     Returns a dict: ``placed`` (pod key -> node, each pod as it bound),
@@ -1110,15 +1186,36 @@ def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) ->
     ledger checked for oversubscription, until a cycle pops nothing and the
     queue is empty after a backoff flush; then ``SOAK_CHURN_FRAC`` of each
     tenant's soak-bound pods still in the store are deleted, oldest first.
-    The ring is landed at the end. Returns ``bound`` (tenant -> pods that
-    bound), ``oversubscription`` (violations over every check), ``checks``,
-    ``rounds`` (per round the ledger's usage per tenant after the churn)
-    and ``cycles`` (batch cycles driven)."""
+    With ``w.flap``, the loop's ``relay_fault_fn`` is set after round
+    ``rounds // 2``'s arrivals (``:823-910``): the next three batch
+    commits raise at their read and take the relay death path (the
+    breaker counts them, the ring is poisoned, the pods go to backoffQ),
+    and the hook clears itself when spent. The ring is landed at the end.
+    Returns ``bound`` (tenant -> pods that bound), ``oversubscription``
+    (violations over every check), ``checks``, ``rounds`` (per round the
+    ledger's usage per tenant after the churn), ``cycles`` (batch cycles
+    driven), ``breaker`` (the relay breaker's ``STATE_VALUES`` after each
+    cycle) and the JAX soak's invariants (``:975-990``): ``degraded_s``
+    (degraded seconds over the rounds), ``breaker_state`` (at the end),
+    ``flap_batches`` (commits the flap failed), ``comparer_checks`` and
+    ``comparer_mismatches``."""
+    from ..backend.circuit import STATE_VALUES
+
     tenants = [ns for ns, _w in SOAK_TENANTS]
     bound_seen = {k for k, p in store.pods.items() if p.spec.node_name}
     soak_bound: Dict[str, List[str]] = {ns: [] for ns in tenants}
     bound = dict.fromkeys(tenants, 0)
-    out = {"oversubscription": 0, "checks": 0, "rounds": [], "cycles": 0}
+    out = {"oversubscription": 0, "checks": 0, "rounds": [], "cycles": 0, "breaker": []}
+    flap_left = flap_batches = 0
+
+    def relay_fault(_op: str):
+        nonlocal flap_left, flap_batches
+        if flap_left <= 0:
+            sched.relay_fault_fn = None
+            return None
+        flap_left -= 1
+        flap_batches += 1
+        return TransientDeviceError("scripted device flap (soak)")
 
     def note_new_bindings() -> None:
         for key, p in list(store.pods.items()):
@@ -1132,6 +1229,7 @@ def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) ->
         out["oversubscription"] += quota_oversubscription(quota, tenants)
         out["checks"] += 1
 
+    degraded0 = sched.smetrics.degraded_seconds.labels()
     counter = 0
     for r in range(w.rounds):
         arrivals = w.arrivals(r, counter)
@@ -1139,9 +1237,13 @@ def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) ->
         for pod in arrivals:
             w.create_claims(store, pod, convert)
             create_gang_pod(store, pod, w.gang_size(pod), convert)
+        if w.flap and r == w.rounds // 2:
+            flap_left = SOAK_FLAP_BATCHES
+            sched.relay_fault_fn = relay_fault
         for _c in range(SOAK_CYCLES_PER_ROUND):
             progressed = sched.schedule_batch_cycle() > 0
             out["cycles"] += 1
+            out["breaker"].append(STATE_VALUES[sched.relay_breaker.state])
             clock.advance(SOAK_TICK_S)
             note_new_bindings()
             check()
@@ -1163,18 +1265,21 @@ def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) ->
     note_new_bindings()
     check()
     out["bound"] = bound
+    out.update(degraded_s=sched.smetrics.degraded_seconds.labels() - degraded0,
+               breaker_state=STATE_VALUES[sched.relay_breaker.state],
+               flap_batches=flap_batches, comparer_checks=sched.comparer_checks,
+               comparer_mismatches=sched.comparer_mismatches)
     return out
 
 
-def run_loop_soak(w: Soak, device, percentage: int = 0) -> dict:
+def run_loop_soak(w: Soak, device, percentage: int = 0, comparer_every_n: int = 0) -> dict:
     """Drive the soak ``w`` through the port's scheduler loop
     (``soak_rounds``) on a FakeClock: a fresh ``Store`` and
     ``TPUScheduler``, then the nodes and the tenants' SchedulingQuotas
-    created through the store, then the rounds. ``percentage`` is percentageOfNodesToScore (0: the adaptive default,
-    which samples on the CPU from 100 nodes on).
-
-    Cut from the JAX soak: the device flap (it needs the JAX loop's relay
-    breaker, which the port does not have).
+    created through the store, then the rounds (with the device flap when
+    ``w.flap``). ``percentage`` is percentageOfNodesToScore (0: the
+    adaptive default, which samples on the CPU from 100 nodes on);
+    ``comparer_every_n`` the loop's oracle comparer (0: off).
 
     Returns ``soak_rounds``' dict with ``placed`` (pod key -> node, "" when
     unbound), ``pending``, ``batch_pods``, ``modes``, ``paths``,
@@ -1183,7 +1288,9 @@ def run_loop_soak(w: Soak, device, percentage: int = 0) -> dict:
     of the scheduled attempts on the soak's clock, which advances
     ``SOAK_TICK_S`` per cycle), ``batch_ms`` (each cycle's wall ms on the
     scheduling thread), ``stage_ms``, ``commit_ms``, ``evicted`` and
-    ``reclaims`` (the reclaim pass's evictions and passes that evicted) and
+    ``reclaims`` (the reclaim pass's evictions and passes that evicted),
+    ``relay_opens`` and ``relay_degraded_pods`` (the relay breaker's
+    openings and the batchable pods it sent down the sequential path) and
     ``run_loop``'s gang keys."""
     import time
 
@@ -1193,7 +1300,8 @@ def run_loop_soak(w: Soak, device, percentage: int = 0) -> dict:
     clock = FakeClock()
     store = Store(now_fn=clock)
     sched = TPUScheduler(store, device=device, batch_size=LOOP_BATCH, batch_deadline_ms=0,
-                         now_fn=clock, percentage_of_nodes_to_score=percentage)
+                         now_fn=clock, percentage_of_nodes_to_score=percentage,
+                         comparer_every_n=comparer_every_n)
     for ni in w.node_infos():
         store.create_node(ni.node)
     for q in w.quotas():
@@ -1218,7 +1326,109 @@ def run_loop_soak(w: Soak, device, percentage: int = 0) -> dict:
         "evicted": sum(sched.smetrics.evicted_pods.by_labels.values()), "reclaims": sched.profile.quota.reclaims_executed,
         "fallback_scheduled": sched.fallback_scheduled,
         "screen_ms": {k: v * 1e3 for k, v in sched.screen_seconds.items()},
-        **_volume_outcome(store),
+        **_relay_outcome(sched), **_volume_outcome(store),
         **_gang_outcome(sched, store, False),
     })
+    return out
+
+
+# the relay death's breaker (tests/test_faults.py:641's settings): open
+# after two failed commits in a row, probed again 5 s later
+RELAY_DEATH_THRESHOLD = 2
+RELAY_DEATH_PROBE_S = 5.0
+
+
+def relay_death(store, sched, clock, waves, convert=lambda obj: obj,
+                observe=lambda: {}) -> dict:
+    """tests/test_faults.py:641's relay death over a scheduler loop
+    ``sched`` (either package's, built with ``relay_breaker_threshold=
+    RELAY_DEATH_THRESHOLD`` and ``relay_probe_interval_s=
+    RELAY_DEATH_PROBE_S``) on ``store`` and ``clock``, with three waves of
+    pods (``convert`` as in ``soak_rounds``). Five steps, each: the clock
+    advanced and the backoff flushed, the step's wave created, the loop
+    settled.
+
+      1. wave 0 arrives and every batch commit dies at its read (a
+         ``TransientDeviceError`` from ``relay_fault_fn``): one failure;
+      2. 1.1 s on, the retried pods' commits die: the breaker opens;
+      3. 2.1 s on, the retried pods take the sequential path (degraded);
+      4. the fault cleared, 1 s on, wave 1 arrives while the breaker is
+         still open: degraded too;
+      5. 2 s on, wave 2 arrives past the probe interval: its batch is the
+         probe, commits and closes the breaker.
+
+    Returns ``steps`` (per step the breaker's ``state``, ``opens`` and
+    ``failures``, ``degraded_pods``, ``fallback_scheduled``,
+    ``batch_scheduled``, ``batches`` (``batch_counter``), ``scheduled``
+    and what ``observe()`` returns), ``faults`` (commits that died) and
+    ``degraded_s``."""
+    faults = 0
+
+    def fault(_op: str):
+        nonlocal faults
+        faults += 1
+        return TransientDeviceError("scripted relay death")
+
+    degraded0 = sched.smetrics.degraded_seconds.labels()
+    script = ((0, True, 0.0), (None, True, 1.1), (None, True, 2.1), (1, False, 1.0),
+              (2, False, 2.0))
+    steps = []
+    for wave, on, advance in script:
+        sched.relay_fault_fn = fault if on else None
+        if advance:
+            clock.advance(advance)
+            sched.queue.flush_backoff_completed()
+        if wave is not None:
+            for pod in waves[wave]:
+                store.create_pod(convert(pod))
+        sched.run_until_settled()
+        b = sched.relay_breaker
+        steps.append({"state": b.state, "opens": b.opens, "failures": b.consecutive_failures,
+                      "degraded_pods": sched.relay_degraded_pods,
+                      "fallback_scheduled": sched.fallback_scheduled,
+                      "batch_scheduled": sched.batch_scheduled, "batches": sched.batch_counter,
+                      "scheduled": sched.metrics["scheduled"], **observe()})
+    sched._drain_inflight()
+    return {"steps": steps, "faults": faults,
+            "degraded_s": sched.smetrics.degraded_seconds.labels() - degraded0}
+
+
+def run_relay_death(w: Workload, device, percentage: int = 0) -> dict:
+    """``relay_death`` through the port's loop at ``w``'s size on a
+    FakeClock: ``w``'s nodes and init pods settle with no fault, then the
+    measured pods arrive in three waves: one batch (``LOOP_BATCH`` pods),
+    half a batch while the breaker is open, and the rest, whose batch is
+    the probe. Each step also records ``mirror`` (whether the loop holds a
+    device mirror) and ``launches`` (fused-kernel launches since the init
+    pods settled). Returns ``relay_death``'s dict with ``placed``,
+    ``relay_degraded_pods``, ``fallback_scheduled``, ``relay_opens``,
+    ``launches`` and ``seconds`` (the five steps' wall seconds)."""
+    import time
+
+    from ..backend.tpu_scheduler import TPUScheduler
+    from ..ops import fused_step
+
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = TPUScheduler(store, device=device, batch_size=LOOP_BATCH, batch_deadline_ms=0,
+                         now_fn=clock, percentage_of_nodes_to_score=percentage,
+                         relay_breaker_threshold=RELAY_DEATH_THRESHOLD,
+                         relay_probe_interval_s=RELAY_DEATH_PROBE_S)
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    for pod in w.init_pod_list():
+        store.create_pod(pod)
+    sched.run_until_settled()
+    measured = w.measured_pod_list()
+    b = LOOP_BATCH
+    waves = (measured[:b], measured[b:b + b // 2], measured[b + b // 2:])
+    launches = fused_step.LAUNCHES
+    t0 = time.perf_counter()
+    out = relay_death(store, sched, clock, waves, observe=lambda: {
+        "mirror": sched.state is not None, "launches": fused_step.LAUNCHES - launches})
+    seconds = time.perf_counter() - t0
+    sched.close()
+    out.update({"placed": {k: p.spec.node_name for k, p in store.pods.items()},
+                "launches": fused_step.LAUNCHES - launches, "seconds": seconds,
+                "fallback_scheduled": sched.fallback_scheduled, **_relay_outcome(sched)})
     return out

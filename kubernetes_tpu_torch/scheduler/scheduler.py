@@ -595,8 +595,9 @@ class Scheduler:
         assume failed and the pod took the failure path."""
         raise NotImplementedError
 
-    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
-        """The bind tail after the assume (the subclass's)."""
+    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
+        """The bind tail after the assume (the subclass's); returns the pods
+        bound or parked at Permit."""
         raise NotImplementedError
 
     # ----------------------------------------------------------- driving
@@ -604,8 +605,9 @@ class Scheduler:
     def schedule_batch_cycle(self) -> int:
         raise NotImplementedError
 
-    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> None:
-        """The bind tail's bind, finish and PostBind stage (the subclass's)."""
+    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
+        """The bind tail's bind, finish and PostBind stage (the subclass's);
+        returns the pods bound."""
         raise NotImplementedError
 
     def run_until_settled(self) -> int:

@@ -1628,11 +1628,13 @@ class LoopPair:
     """The same cluster in a JAX ClusterStore under the real JAX
     TPUScheduler and in the port's Store under the port's TPUScheduler
     (``device="cpu"``), each on its own FakeClock, both clocks starting
-    equal; ``batch_deadline_ms=0`` on both. Objects are built from the
-    specs of this module through each package's wrappers and written to
-    both stores in the same order."""
+    equal; ``batch_deadline_ms=0`` on both, and ``sched_kw`` (arguments
+    both schedulers take: the relay breaker's and the comparer's). Objects
+    are built from the specs of this module through each package's
+    wrappers and written to both stores in the same order."""
 
-    def __init__(self, batch: int = 16, percentage: int = 0, start: bool = True):
+    def __init__(self, batch: int = 16, percentage: int = 0, start: bool = True,
+                 sched_kw: dict = None):
         from kubernetes_tpu.apiserver.store import ClusterStore
         from kubernetes_tpu.utils.clock import FakeClock as JFakeClock
         from kubernetes_tpu_torch.apiserver.store import Store
@@ -1645,6 +1647,7 @@ class LoopPair:
         # topo_pods_spec sets minDomains on ScheduleAnyway constraints too)
         self.jstore.validation_enabled = False
         self.batch, self.percentage = batch, percentage
+        self.sched_kw = dict(sched_kw or {})
         self.cycles = [0, 0]
         if start:
             self.start()
@@ -1657,10 +1660,12 @@ class LoopPair:
 
         self.jsched = JTPUScheduler(self.jstore, now_fn=self.jclock, batch_size=self.batch,
                                     batch_deadline_ms=0,
-                                    percentage_of_nodes_to_score=self.percentage)
+                                    percentage_of_nodes_to_score=self.percentage,
+                                    **self.sched_kw)
         self.tsched = TPUScheduler(self.tstore, device="cpu", now_fn=self.tclock,
                                    batch_size=self.batch, batch_deadline_ms=0,
-                                   percentage_of_nodes_to_score=self.percentage)
+                                   percentage_of_nodes_to_score=self.percentage,
+                                   **self.sched_kw)
         # the pods each batch cycle popped, in pop order, per side
         self.popped = ([], [])
         for side, sched in enumerate((self.jsched, self.tsched)):

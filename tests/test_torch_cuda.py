@@ -3,8 +3,9 @@ nominated and slice-masked batches among them), and the topology scan, the
 speculative rounds, the claim mask, the preemption screen, the quota
 screen, the slice planner, the gang assigner and the claim, volume,
 preemption, gang, quota and PreemptionAll workloads and the scheduler loop
-(SchedulingBasic, the ring, gangs, slices, the soak, claims and volumes and
-delayed binding) against their CPU runs, on the card.
+(SchedulingBasic, the ring, gangs, slices, the soak, claims and volumes,
+delayed binding and the soak's device flap) against their CPU runs, and
+the warm sweep's launches against the plain version, on the card.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -932,3 +933,93 @@ def test_soak_with_claims_through_the_loop_matches_cpu(cuda, variant, monkeypatc
                 "fallback_scheduled", "oversubscription"):
         assert gpu[key] == cpu[key], key
     assert gpu["oversubscription"] == 0 and gpu["bound"]["soak-b"] > 0
+
+
+@pytest.mark.cuda
+def test_warm_sweep_matches_plain_version(cuda, monkeypatch):
+    """The warm sweep of ``run_loop(warm=True)`` at SchedulingBasic's 5120
+    node slots (200 init pods settled first) on the card: every fused
+    launch of the sweep, at P = 16, 32, 64 and 128, equal to the plain
+    version on the same inputs bit for bit; the launches counted apart
+    from the loop's; the mirror's tensors unchanged; the sizer seeded from
+    the timed runs; the measured pods placed as the CPU loop places them."""
+    from kubernetes_tpu_torch.backend import batch, tpu_scheduler
+    from kubernetes_tpu_torch.perf import workloads
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    inner, warm, pods = batch.fused_step_batch, tpu_scheduler.TPUScheduler.warm_buckets, []
+
+    def checked(*args):
+        out = inner(*args)
+        ref = fused_step.fused_step_batch_ref(*args)
+        for name, got, want in zip(out._fields, out, ref):
+            assert torch.equal(bits(got), bits(want)), name
+        pods.append(args[4].shape[0])
+        return out
+
+    def sweep(sched, *args, **kw):
+        monkeypatch.setattr(batch, "fused_step_batch", checked)
+        try:
+            return warm(sched, *args, **kw)
+        finally:
+            monkeypatch.setattr(batch, "fused_step_batch", inner)
+
+    _ring_env(monkeypatch, "0")
+    monkeypatch.setattr(tpu_scheduler.TPUScheduler, "warm_buckets", sweep)
+    w = workloads.scheduling_basic(5000, 200, 200)
+    run = workloads.run_loop(w, cuda, batch_deadline_ms=500, warm=True)
+    assert sorted(set(pods)) == [16, 32, 64, 128] and len(pods) == run["warm_launches"]
+    assert run["mirror_unchanged"] and len(run["warm_timings"]) == 4
+    assert run["warm_sizer"]["b"] > 0 and run["warmed"] >= 8
+    cpu = workloads.run_loop(w, "cpu", percentage=100)
+    assert run["placed"] == cpu["placed"]
+
+
+@pytest.mark.cuda
+def test_relay_death_through_the_loop_matches_cpu(cuda, monkeypatch):
+    """The relay death (``workloads.run_relay_death``) at 100 nodes and 256
+    measured pods through the loop on the card against the CPU loop: the
+    same steps and placements; pods degraded while the breaker is open,
+    and meanwhile no batch, no fused launch and no mirror on the card; the
+    probe batch launches the kernel and closes the breaker."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(100, 50, 256)
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_relay_death(w, cuda, percentage=100)
+    cpu = workloads.run_relay_death(w, "cpu", percentage=100)
+    strip = [[{k: v for k, v in st.items() if k != "launches"} for st in run["steps"]]
+             for run in (gpu, cpu)]
+    assert strip[0] == strip[1] and gpu["placed"] == cpu["placed"]
+    assert gpu["degraded_s"] == cpu["degraded_s"] and gpu["faults"] == cpu["faults"]
+    opened = [st for st in gpu["steps"] if st["state"] == "open"]
+    assert len(opened) == 3 and gpu["relay_degraded_pods"] == 192
+    assert len({(st["batches"], st["launches"]) for st in opened}) == 1
+    assert not any(st["mirror"] for st in opened)
+    assert gpu["steps"][-1]["state"] == "closed"
+    assert gpu["steps"][-1]["launches"] > opened[-1]["launches"]
+
+
+@pytest.mark.cuda
+def test_flap_soak_through_the_loop_matches_cpu(cuda, monkeypatch):
+    """A small SchedulingSoak without gangs (32 nodes, 4 rounds, scale 6)
+    with the device flap and the comparer every second landed winner
+    through the loop on the card against the CPU loop: the same binds,
+    pops, degraded pods, sequential binds, breaker state per cycle and
+    degraded seconds; three flap batches, no comparer mismatch, the breaker
+    closed at the end."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_soak(nodes=32, rounds=4, scale=6, gangs=False)
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_loop_soak(w, cuda, comparer_every_n=2)
+    cpu = workloads.run_loop_soak(w, "cpu", percentage=100, comparer_every_n=2)
+    for key in ("placed", "bound", "batch_pods", "flap_batches", "relay_degraded_pods",
+                "fallback_scheduled", "breaker", "degraded_s", "comparer_checks",
+                "comparer_mismatches", "oversubscription"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["flap_batches"] == 3 and gpu["relay_opens"] == 1 and gpu["breaker_state"] == 0
+    assert gpu["comparer_checks"] > 0 and gpu["comparer_mismatches"] == 0
+    assert gpu["launches"] == len(gpu["batch_pods"])

@@ -458,6 +458,8 @@ def test_poisoned_ring_requeues_like_jax(depth, monkeypatch):
     (that batch and those dispatched after it) goes back to backoffQ, the
     mirror is dropped and rebuilt by the next batch, and the queue equals
     JAX's; past the backoff every pod binds that can."""
+    from kubernetes_tpu_torch.backend.errors import TransientDeviceError
+
     pair = _ring_pair(monkeypatch, depth)
     calls = {"j": 0, "t": 0}
     states = []
@@ -468,7 +470,7 @@ def test_poisoned_ring_requeues_like_jax(depth, monkeypatch):
             calls[side] += 1
             if side == "t":
                 states.append(pair.tsched.state)
-            return RuntimeError("device lost") if calls[side] == 3 else None
+            return TransientDeviceError("device lost") if calls[side] == 3 else None
         return fn
 
     pair.jsched.relay_fault_fn, pair.tsched.relay_fault_fn = fault("j"), fault("t")
