@@ -245,7 +245,24 @@
    breaker closed with no pod degraded (a kernel that failed quietly into
    the host path fails the smoke); the soaks of the loop_gang and
    loop_claims phases run with the flap too, each checked like this one.
-15. Each workload run prints pods/s, ms per batch, host ms per stage, and
+15. Loop_profiles phase: the loop built from a KubeSchedulerConfiguration
+   (``config.scheduler_from_config``, through ``run_loop``'s ``config``),
+   on the card (the inline ring) and on the CPU in this call.
+   SchedulingBasic/5000Nodes with two batchable profiles,
+   ``default-scheduler`` and ``batch-b`` (the default set through
+   multiPoint), the 1000 measured pods alternating between them: every
+   batch on the fused kernel, launches equal to batches, nothing on the
+   sequential path, placements equal to the CPU loop of the same config;
+   prints pods/s and attempt p99 per profile. SchedulingBasic/1000Nodes (500
+   init, 256 measured pods, 64 of them on ``most-allocated``, the C20
+   profile, and 64 on ``no-scoring``): the 128 custom pods take the
+   sequential path (``fallback_scheduled`` 128), the rest the kernel, and
+   placements equal the CPU loop's. PreemptionBasic/500Nodes with its
+   priorities from PriorityClasses (``low`` 1, ``high`` 100) through the
+   config-built loop: every preemptor bound; placements, victims and
+   nominations equal to the loop phase's numeric-priority runs on the card
+   and on the CPU.
+16. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -1694,8 +1711,9 @@ def _env(**values):
                 os.environ[k] = v
 
 
-# loop_phase's key for the CPU loop's SchedulingBasic run
+# loop_phase's keys for the CPU loop's SchedulingBasic and PreemptionBasic runs
 CPU_BASIC = "cpu"
+CPU_PREEMPT = "cpu_preempt"
 # the ring at its default (depth 2, commits inline), synchronous, and the
 # ring with the commit worker
 RING = dict(KTPU_PIPELINE_DEPTH=None, KTPU_COMMIT_WORKER=None)
@@ -1874,6 +1892,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
     part("preemption")
     print("loop phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
     out[CPU_BASIC] = cpu
+    out[CPU_PREEMPT] = p_cpu
     return out
 
 
@@ -2349,6 +2368,99 @@ def loop_faults_phase(loop: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- loop_profiles phase
+
+PROFILE_CUSTOM_NODES, PROFILE_CUSTOM_INIT, PROFILE_CUSTOM_PODS = 1000, 500, 256
+
+
+def loop_profiles_phase(loop: dict) -> dict:
+    """The loop built from a KubeSchedulerConfiguration on the card and on
+    the CPU: two batchable profiles at SchedulingBasic/5000Nodes, the custom
+    profiles at SchedulingBasic/1000Nodes, PreemptionBasic/500Nodes with
+    PriorityClasses (against the loop phase's numeric runs)."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    names = ("default-scheduler", "batch-b")
+    config = workloads.profiles_config(*names)
+    basic = workloads.with_scheduler_names(workloads.scheduling_basic(N_NODES, N_PODS, N_PODS),
+                                           names)
+    gpu = _loop_run(basic, f"{basic.name} [two profiles, ring]", RING, config=config)
+    with _env(**RING):
+        cpu = workloads.run_loop(basic, "cpu", percentage=100, config=config)
+    _check_all_bound(basic.name, basic, gpu)
+    if (set(gpu["paths"]) != {"fused"} or gpu["launches"] != gpu["batches"]
+            or gpu["fallback_scheduled"]):
+        raise AssertionError(f"{basic.name} [two profiles]: paths {set(gpu['paths'])}, "
+                             f"{gpu['launches']} launches for {gpu['batches']} batches, "
+                             f"{gpu['fallback_scheduled']} sequential binds")
+    if gpu["scheduled_by_profile"] != {"default-scheduler": N_PODS // 2, "batch-b": N_PODS // 2}:
+        raise AssertionError(f"{basic.name} [two profiles]: {gpu['scheduled_by_profile']}")
+    _check_loop_same(f"{basic.name} [two profiles]", gpu, cpu, ("placed", "cycles", "paths"))
+    print(f"{basic.name} with profiles {list(names)} (measured pods alternating): every batch "
+          f"on the fused kernel, {gpu['launches']} launches for {gpu['batches']} batches, 0 "
+          f"sequential binds, placements == the cpu loop of the same config; "
+          f"{gpu['pods_per_s']:.1f} pods/s; attempt p99 per profile "
+          + ", ".join(f"{k} {v['p99']:.2f} ms" for k, v in gpu["attempt_ms_by_profile"].items())
+          + " (the loop phase's one-profile ring runs: "
+          + " / ".join(f"{r['pods_per_s']:.1f}" for r in loop[f"{basic.name}/ring"]["run"])
+          + " pods/s)")
+    out[f"{basic.name}/profiles"] = {"launches": gpu["launches"], "run": gpu}
+    part("two profiles")
+
+    names = ("default-scheduler", "most-allocated", "default-scheduler", "no-scoring")
+    config = workloads.profiles_config("default-scheduler", "most-allocated", "no-scoring")
+    custom = workloads.with_scheduler_names(workloads.scheduling_basic(
+        PROFILE_CUSTOM_NODES, PROFILE_CUSTOM_INIT, PROFILE_CUSTOM_PODS), names)
+    gpu = _loop_run(custom, f"{custom.name} [custom profiles, ring]", RING, config=config,
+                    percentage=100)
+    with _env(**RING):
+        cpu = workloads.run_loop(custom, "cpu", percentage=100, config=config)
+    _check_all_bound(custom.name, custom, gpu)
+    n_custom = PROFILE_CUSTOM_PODS // 2
+    if (gpu["fallback_scheduled"] != n_custom or gpu["launches"] != gpu["batches"]
+            or set(gpu["paths"]) != {"fused"}
+            or sum(gpu["batch_pods"]) != PROFILE_CUSTOM_INIT + PROFILE_CUSTOM_PODS - n_custom):
+        raise AssertionError(f"{custom.name} [custom profiles]: {gpu['fallback_scheduled']} "
+                             f"sequential binds, {gpu['launches']} launches for "
+                             f"{gpu['batches']} batches of {sum(gpu['batch_pods'])} pods")
+    _check_loop_same(f"{custom.name} [custom profiles]", gpu, cpu,
+                     ("placed", "cycles", "fallback_scheduled", "batch_pods"))
+    print(f"{custom.name} with profiles most-allocated and no-scoring: {n_custom} custom pods "
+          f"bound by the sequential path, {sum(gpu['batch_pods'])} pods in {gpu['batches']} "
+          f"batches on the fused kernel ({gpu['launches']} launches), placements == the cpu "
+          f"loop; {gpu['pods_per_s']:.1f} pods/s; attempt p99 per profile "
+          + ", ".join(f"{k} {v['p99']:.2f} ms" for k, v in gpu["attempt_ms_by_profile"].items()))
+    out[f"{custom.name}/custom_profiles"] = {"launches": gpu["launches"], "run": gpu}
+    part("custom profiles")
+
+    pre = workloads.preemption_basic(classes=True)
+    gpu = _loop_run(pre, f"{pre.name} [priority classes, inline ring]", RING,
+                    config=workloads.profiles_config("default-scheduler"))
+    preemptors = [k for k in gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
+    if not all(gpu["placed"][k] for k in preemptors) or gpu["settle_abandoned"]:
+        raise AssertionError(f"{pre.name} [priority classes]: a preemptor is unbound")
+    numeric = loop[f"{pre.name}/inline"]["run"]
+    _check_loop_same(f"{pre.name} [priority classes]", gpu, loop[CPU_PREEMPT],
+                     ("placed", "preempted", "nominations", "cycles", "metrics"))
+    _check_loop_same(f"{pre.name} [priority classes] against the numeric card run", gpu,
+                     numeric, ("placed", "preempted", "nominations", "cycles", "metrics"))
+    print(f"{pre.name} with PriorityClasses low (1) and high (100): {len(preemptors)} "
+          f"preemptors bound, {len(gpu['preempted'])} victims, {len(gpu['nominations'])} "
+          f"nominations, all == the cpu loop's and the card's numeric-priority runs of the "
+          f"loop phase; {gpu['launches']} launches for {gpu['batches']} batches")
+    out[f"{pre.name}/classes"] = {"launches": gpu["launches"], "run": gpu}
+    part("priority classes")
+    print("loop_profiles phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -2388,7 +2500,9 @@ def main() -> int:
     loop_gang = timed("loop_gang", loop_gang_phase, gangs, quota)
     loop_claims = timed("loop_claims", loop_claims_phase, dra)
     loop_faults = timed("loop_faults", loop_faults_phase, loop)
+    loop_profiles = timed("loop_profiles", loop_profiles_phase, loop)
     loop.pop(CPU_BASIC)
+    loop.pop(CPU_PREEMPT)
     warm_launches = loop_faults.pop("warm_launches")
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
@@ -2415,7 +2529,9 @@ def main() -> int:
                                  **{f"loop:{k}": v["launches"]
                                     for k, v in loop_claims.items()},
                                  **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_faults.items()}},
+                                    for k, v in loop_faults.items()},
+                                 **{f"loop:{k}": v["launches"]
+                                    for k, v in loop_profiles.items()}},
         "warm_launches": warm_launches,
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],

@@ -675,6 +675,41 @@ class Namespace:
 
 
 @dataclass
+class Service:
+    """core/v1 Service, trimmed to the map selector SelectorSpread reads."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class ReplicationController:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class ReplicaSet:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+
+
+@dataclass
+class StatefulSet:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+
+
+@dataclass
+class PriorityClass:
+    """scheduling/v1 PriorityClass: the priority that admission gives a pod
+    naming it (``apiserver/admission.py``)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    value: int = 0
+
+
+@dataclass
 class PodDisruptionBudget:
     """policy/v1 PodDisruptionBudget, trimmed to what preemption reads
     (``framework/preemption.py``): the selector over pods of its namespace

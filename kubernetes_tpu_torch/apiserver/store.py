@@ -11,8 +11,9 @@ an unbound pod) and the nomination write; namespaces, whose labels
 affinity terms' namespaceSelector reads. Creation timestamps come from the
 store's ``now_fn``. Then what the claim and volume screens and their
 commit-time checks read and write:
-ResourceClass, ResourceClaim, PodSchedulingContext, PodGroup and
-SchedulingQuota through ``create_object`` / ``get_object`` /
+ResourceClass, ResourceClaim, PodSchedulingContext, PodGroup,
+SchedulingQuota and the owners SelectorSpread reads (Service,
+ReplicationController, ReplicaSet, StatefulSet) through ``create_object`` / ``get_object`` /
 ``update_object`` / ``delete_object`` (the Coscheduling plugin's status
 writes, DynamicResources' PostBind), the storage kinds through their own
 accessors, the claim allocation writes of the DynamicResources Reserve and
@@ -23,7 +24,10 @@ store does (the volume screen caches by it), and ``kind_version`` gives
 the counter of a generic kind's last write: where the JAX store sends a
 watch event, a reader of the port's store compares versions (the quota
 ledger rebuilds its index when SchedulingQuota's moves). No WAL, watches,
-informers, admission or locking: one scheduler thread owns it. The generic
+informers or locking: one scheduler thread owns it. A pod create runs
+admission first (``apiserver/admission.py``: DefaultPriority turns a
+PriorityClass name into the pod's priority, or refuses the pod), and the
+store holds the PriorityClasses it reads. The generic
 kinds, the storage kinds and the claim writes fire their handlers too, in
 write order, where the JAX store sends its events (the scheduler loop's
 PodGroup, SchedulingQuota, claim and volume moves).
@@ -36,8 +40,9 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from ..api.types import (CSINode, Namespace, Node, PersistentVolume, PersistentVolumeClaim,
-                         Pod, PodDisruptionBudget, PodGroup, PodSchedulingContext, ResourceClaim,
-                         SchedulingQuota, StorageClass)
+                         Pod, PodDisruptionBudget, PodGroup, PodSchedulingContext, PriorityClass,
+                         ResourceClaim, SchedulingQuota, StorageClass)
+from .admission import DefaultPriority
 
 ADDED = "ADDED"
 MODIFIED = "MODIFIED"
@@ -76,6 +81,13 @@ class Store:
         self.pod_groups: Dict[str, PodGroup] = {}               # by namespace/name
         self.scheduling_quotas: Dict[str, SchedulingQuota] = {}  # by namespace/name
         self.pod_scheduling_contexts: Dict[str, PodSchedulingContext] = {}  # by namespace/name
+        self.priority_classes: Dict[str, PriorityClass] = {}    # by name
+        # the owners SelectorSpread reads, by namespace/name
+        self.services: Dict[str, object] = {}
+        self.replication_controllers: Dict[str, object] = {}
+        self.replica_sets: Dict[str, object] = {}
+        self.stateful_sets: Dict[str, object] = {}
+        self.admission = DefaultPriority()
 
     def _bump(self, obj) -> None:
         self._rv += 1
@@ -115,6 +127,7 @@ class Store:
     # ------------------------------------------------------------- pods
 
     def create_pod(self, pod: Pod) -> None:
+        self.admission.admit(self, pod)
         if pod.key() in self.pods:
             raise Conflict(f"pod {pod.key()} exists")
         self._bump(pod)
@@ -202,7 +215,9 @@ class Store:
     def _kind_map(self, kind: str) -> Dict[str, object]:
         maps = {"ResourceClass": self.resource_classes, "ResourceClaim": self.resource_claims,
                 "PodGroup": self.pod_groups, "SchedulingQuota": self.scheduling_quotas,
-                "PodSchedulingContext": self.pod_scheduling_contexts}
+                "PodSchedulingContext": self.pod_scheduling_contexts,
+                "Service": self.services, "ReplicationController": self.replication_controllers,
+                "ReplicaSet": self.replica_sets, "StatefulSet": self.stateful_sets}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]
@@ -221,6 +236,9 @@ class Store:
 
     def get_object(self, kind: str, key: str):
         return self._kind_map(kind).get(key)
+
+    def list_services(self, namespace: str) -> List[object]:
+        return [s for s in self.services.values() if s.meta.namespace == namespace]
 
     def update_object(self, kind: str, obj) -> None:
         """Replace an existing object; NotFound when there is none."""
@@ -303,6 +321,13 @@ class Store:
 
     def list_pdbs(self) -> List[PodDisruptionBudget]:
         return list(self.pdbs.values())
+
+    # ------------------------------------------------------------- scheduling/v1
+
+    def create_priority_class(self, pc: PriorityClass) -> None:
+        self._bump(pc)
+        self.priority_classes[pc.meta.name] = pc
+        self._notify("PriorityClass", ADDED, None, pc)
 
     # ------------------------------------------------------------- resource.k8s.io
 

@@ -118,12 +118,12 @@ import torch
 from ..api.types import Pod
 from ..apiserver.store import Conflict
 from ..cache.snapshot import Snapshot
-from ..framework.plugins import dynamicresources, volume
+from ..framework.plugins import dynamicresources, names, volume
 from ..framework.plugins.coscheduling import Coscheduling, pod_group_key
-from ..framework.plugins.defaultpreemption import DefaultPreemption
 from ..framework.plugins.interpodaffinity import HOSTNAME_KEY, NsLabelsFn
 from ..framework.plugins.quota import ERR_REASON_QUOTA_EXCEEDED, QuotaAdmission
-from ..framework.runtime import FilterRunner, PodNominator
+from ..framework.registry import in_tree_registry
+from ..framework.runtime import Framework, PodNominator
 from ..framework.types import NodeInfo
 from ..ops.preempt import screen_prefix
 from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT, build_quota_batch_args
@@ -522,11 +522,23 @@ class BatchScheduler:
         # screen flagged, over all batches
         self.quota_gated: Dict[str, int] = {}
         self.quota_flagged: Dict[str, int] = {}
-        filters = FilterRunner(client, lambda: self.snapshot.node_info_map.values(),
-                               self.nominator, ns_labels_fn, self.quota, self.coscheduling)
-        self._preemption = DefaultPreemption(
-            filters, self._evict, self._clear_nomination,
-            client.list_pdbs if client is not None else None)
+        # the default profile, its QuotaAdmission and Coscheduling this
+        # scheduler's engines (left out without a store) and no SlicePacking
+        # (the batch program plans the slices): DefaultPreemption's filters
+        registry = in_tree_registry()
+        for name, engine in ((names.QUOTA_ADMISSION, self.quota),
+                             (names.COSCHEDULING, self.coscheduling),
+                             (names.SLICE_PACKING, None)):
+            if engine is None:
+                del registry[name]
+            else:
+                registry[name] = lambda h, a, _engine=engine: _engine
+        self.framework = Framework(
+            {"client": client, "snapshot_fn": lambda: self.snapshot.node_info_map.values(),
+             "ns_labels_fn": ns_labels_fn, "nominator": self.nominator,
+             "evict": self._evict, "clear_nomination": self._clear_nomination},
+            registry=registry)
+        self._preemption = self.framework.plugin(names.DEFAULT_PREEMPTION)
 
     def add_node(self, ni: NodeInfo) -> None:
         """Add or replace a node (its pods come with its NodeInfo)."""
@@ -678,7 +690,7 @@ class BatchScheduler:
                 gang_bound.setdefault(gkey, []).append(bound_pod)
         # the commit plane unreserves after every winner has reserved
         for pod in held:
-            self.quota.unreserve(pod)
+            self.quota.unreserve(None, pod, pod.spec.node_name)
         for gkey, keys in refused.items():
             rejected.update(self._turn_gang_away(gkey, keys, pods, placed,
                                                  gang_bound.pop(gkey, [])))
@@ -692,7 +704,7 @@ class BatchScheduler:
         for name in rejected:
             state.invalidate_row(name)
         if gang_bound:
-            self.coscheduling.post_bind_batch({g: len(m) for g, m in gang_bound.items()})
+            self.coscheduling.post_bind_batch([p for m in gang_bound.values() for p in m])
         self._remove_evicted()
         t.append(time.perf_counter())
         for stage, a, b in zip(STAGES, t, t[1:]):
@@ -711,12 +723,12 @@ class BatchScheduler:
         t0 = time.perf_counter()
         kept = []
         for pod in pods:
-            reason = self.quota.pre_filter(pod)
-            if reason is None:
+            _restrict, fail = self.quota.pre_filter(None, pod)
+            if fail is None:
                 kept.append(pod)
             else:
                 placed[pod.key()] = None
-                self.quota_rejected[pod.key()] = reason
+                self.quota_rejected[pod.key()] = fail.reason
                 ns = pod.meta.namespace
                 self.quota_gated[ns] = self.quota_gated.get(ns, 0) + 1
         self.screen_seconds["quota_gate"] += time.perf_counter() - t0
@@ -764,7 +776,7 @@ class BatchScheduler:
                     return False
             if self.quota is not None:
                 tq = time.perf_counter()
-                reason = self.quota.reserve(pod)
+                reason = self.quota.reserve(None, pod, name)
                 self.screen_seconds["quota_reserve"] += time.perf_counter() - tq
                 t0 += time.perf_counter() - tq
                 if reason is not None:
@@ -790,7 +802,7 @@ class BatchScheduler:
         Returns the nodes whose device commit is surrendered."""
         nodes = set()
         for bound_pod in bound:
-            self.quota.unreserve(bound_pod)
+            self.quota.unreserve(None, bound_pod, bound_pod.spec.node_name)
             name = bound_pod.spec.node_name
             self.snapshot.node_info_map[name].remove_pod(bound_pod)
             self.snapshot.changed_names.add(name)
@@ -847,12 +859,12 @@ class BatchScheduler:
         t0 = time.perf_counter()
         kept = []
         for pod in pods:
-            reason = self.coscheduling.pre_filter(pod)
-            if reason is None:
+            _restrict, fail = self.coscheduling.pre_filter(None, pod)
+            if fail is None:
                 kept.append(pod)
             else:
                 placed[pod.key()] = None
-                self.gang_rejected[pod.key()] = reason
+                self.gang_rejected[pod.key()] = fail.reason
         self.screen_seconds["gang_prefilter"] += time.perf_counter() - t0
         return kept
 

@@ -53,10 +53,24 @@ overrides), and each sampled batch's window starts where the last one's
 ended (``final_sample_start``). A preemption victim is deleted in the
 store, so its DELETED event wakes the nominated pod, as in the JAX loop.
 
+Profiles (``:442-490``, ``:1140-1160``, ``:1778-1785``): a pod rides the
+batch only when its profile's PreFilter, Filter, PreScore and Score lists
+equal the default set's, names and weights, and every argument the batch
+program has baked in is at its default (``_framework_batchable``, judged
+once per profile at construction; ``BAKED_ARGS``). The JAX loop compares names and weights only,
+so a profile that changes an argument rides its batch and is scored as if
+it had not (ROADMAP C20). Pods of other profiles take the sequential path,
+run by their profile's own plugins. A batch may mix pods of several
+batchable profiles: each pod's framework is looked up at commit. No
+preemption screen runs when no profile has a PostFilter
+(``_preemption_wired``). The bind tail runs per profile, in the order a
+profile's first pod appears, as the JAX commit plane does
+(``_by_framework``).
+
 Gangs, torus slices and namespace quota (``:548-572``, ``:998-1021``,
-``:1262-1318``, ``:1385-1753``): at pop, QuotaAdmission's PreFilter and
-then Coscheduling's are the host gates; a pod that fails one takes the
-failure path without a batch row. The batch program gets the slice gangs'
+``:1262-1318``, ``:1385-1753``): at pop, the pod's profile's
+QuotaAdmission PreFilter and then its Coscheduling PreFilter are the host
+gates; a pod that fails one takes the failure path without a batch row. The batch program gets the slice gangs'
 member index (the slice plan pins each member to its torus window) and the
 quota screen's columns after the ledger's rows are synced
 (``batch_scheduler.slice_batch_kw`` / ``quota_batch_kw``); the slice and
@@ -91,9 +105,10 @@ see the batch's earlier winners, as the reference's assume-then-next order
 does (the JAX loop assumes them after the loop: ROADMAP C9). A volume or
 claim winner first runs every PreFilter (which resolves its claims again
 and finds one deleted since the encode) and then the exact volume filters
-on its node (``_verify_volumes_on_node``); a plain winner runs none, as
-``_bind_path_needs_prefilter`` (``:1153``) is False for the default
-profile, the port's only one. A pod failing either surrenders
+on its node (``_verify_volumes_on_node``); a plain winner runs none
+unless its profile has a Reserve, Permit or PreBind plugin outside the
+default bind path (``_bind_path_needs_prefilter``, ``:1153``), which may
+read PreFilter state. A pod failing either surrenders
 its row and takes the sequential path right there, before the batch's
 binds land, and counts in ``fallback_scheduled`` when that path binds it.
 The winners then take the bind tail with their PreFilter state: Reserve
@@ -125,8 +140,8 @@ again with the host PreFilters and Filters (``_compare_with_oracle``).
 measured window and seeds the sizer from its timed runs
 (``_calibrate_sizer``).
 
-Left out: telemetry, tracing and the latency ledger; custom profiles (a
-capacity that does not converge raises PermanentDeviceError).
+Left out: telemetry, tracing and the latency ledger (a capacity that does
+not converge raises PermanentDeviceError).
 """
 
 from __future__ import annotations
@@ -146,9 +161,9 @@ import torch
 from ..api.types import Pod
 from ..apiserver.store import Store
 from ..cache.snapshot import Snapshot
-from ..framework.plugins import volume
-from ..framework.profile import ATTRIBUTION_ORDER
-from ..framework.runtime import PreFilterState
+from ..framework.plugins import names, volume
+from ..framework.registry import DEFAULT_PLUGINS
+from ..framework.runtime import Framework, PreFilterState
 from ..framework.types import Diagnosis, QueuedPodInfo
 from ..metrics.scheduler_metrics import ERROR, SCHEDULED, UNSCHEDULABLE
 from ..ops import fused_step
@@ -189,6 +204,52 @@ COMMIT_STAGES = ("wait", "bind", "reconcile")
 SCREENS = ("volume_mask", "claim_mask", "commit_checks")
 # the sync-and-encode attempts, each after one capacity growth
 GROW_ATTEMPTS = 8
+
+# the batch program's first-fail ids (backend/batch.py), in filter config
+# order: the plugin each names and the reason of its status
+ATTRIBUTION_ORDER = (
+    ("NodeUnschedulable", "node(s) were unschedulable"),
+    ("NodeName", "node(s) didn't match the requested node name"),
+    ("TaintToleration", "node(s) had untolerated taint"),
+    ("NodeAffinity", "node(s) didn't match Pod's node affinity/selector"),
+    ("NodePorts", "node(s) didn't have free ports for the requested pod ports"),
+    ("NodeResourcesFit", "Insufficient resources"),
+    ("PodTopologySpread", "node(s) didn't match pod topology spread constraints"),
+    ("InterPodAffinity", "node(s) didn't match pod affinity/anti-affinity rules"),
+    ("VolumeBinding", "node(s) didn't satisfy volume placement"),
+    ("DynamicResources", "cannot allocate all claims"),
+    ("SlicePacking", "node(s) outside the gang's planned torus slice"),
+)
+
+# the plugin arguments the batch program has baked in, at the values it
+# computes with: the scores' strategy, resources and shape
+# (ops/scores.py, the fused kernel's LeastAllocated and Balanced terms),
+# the spread constraints of the topology scan (ops/topology.py, which reads
+# only the pod's own), the hard affinity weight of the symmetric term
+# (backend/sig_table.py:encode_topo, called at its default), and the node
+# affinity of ops/filters.py (the pod's alone)
+BAKED_ARGS = {
+    names.NODE_RESOURCES_FIT: (("strategy", "LeastAllocated"),
+                               ("resources", (("cpu", 1), ("memory", 1))),
+                               ("shape", ((0, 0), (100, 10)))),
+    names.NODE_RESOURCES_BALANCED_ALLOCATION: (("resources", (("cpu", 1), ("memory", 1))),),
+    names.INTER_POD_AFFINITY: (("hard_pod_affinity_weight", 1),),
+    names.POD_TOPOLOGY_SPREAD: (("default_constraints", ()), ("system_defaulted", False)),
+    names.NODE_AFFINITY: (("added_affinity", None),),
+}
+# the points whose lists the batch program implements
+BATCH_POINTS = ("pre_filter", "filter", "pre_score", "score")
+# the Reserve, Permit and PreBind plugins of the default bind path: each
+# reads no PreFilter state of a plain pod (VolumeBinding and
+# DynamicResources act on volume and claim pods, which run the PreFilters
+# at commit)
+DEFAULT_BIND_PATH_PLUGINS = frozenset((names.VOLUME_BINDING, names.DYNAMIC_RESOURCES,
+                                       names.COSCHEDULING, names.QUOTA_ADMISSION))
+
+
+def _as_tuples(v):
+    """Lists and tuples alike, nested, for comparing argument values."""
+    return tuple(_as_tuples(x) for x in v) if isinstance(v, (list, tuple)) else v
 
 
 def _default_full_batch(device: torch.device) -> bool:
@@ -323,6 +384,15 @@ class TPUScheduler(Scheduler):
         self._claim_masks = ClaimMaskBuilder(store)
         self.screen_seconds = dict.fromkeys(SCREENS, 0.0)
         self.fallback_scheduled = 0  # pods the sequential path bound
+        # profile name -> whether its pods ride the batch, and whether its
+        # bind path reads PreFilter state (the profiles are fixed)
+        self._batchable = {name: self._framework_batchable(fwk)
+                           for name, fwk in self.profiles.items()}
+        self._bind_prefilter = {name: self._bind_path_needs_prefilter(fwk)
+                                for name, fwk in self.profiles.items()}
+        # whether any profile runs a PostFilter (the preemption screen is
+        # wasted otherwise)
+        self._preempt_wired = any(f.points.get("post_filter") for f in self.profiles.values())
 
     def close(self) -> None:
         """Commit every batch in flight and end the commit worker's thread."""
@@ -509,18 +579,17 @@ class TPUScheduler(Scheduler):
             self._ensure_device()
         buffer: List[QueuedPodInfo] = []
         flushed = False
-        profile = self.profile
         for qp, pod in live:
             qp.pod = pod
+            fwk = self.profiles[pod.spec.scheduler_name]
             # the host gates (the batch program models neither namespace
             # quota nor gang quorum): a pod that fails one takes no row
-            for gate, plugin in ((profile.quota.pre_filter, "QuotaAdmission"),
-                                 (profile.coscheduling.pre_filter, "Coscheduling")):
-                if gate(pod) is not None:
+            for plugin, gate in fwk.gate_plugins:
+                if gate.pre_filter(None, pod)[1] is not None:
                     self.metrics.inc("schedule_attempts")
                     self._handle_scheduling_failure(
                         qp, True, Diagnosis(unschedulable_plugins={plugin}), pod_cycle)
-                    self.smetrics.observe_attempt(UNSCHEDULABLE, profile.name,
+                    self.smetrics.observe_attempt(UNSCHEDULABLE, fwk.profile_name,
                                                   self.now_fn() - t_pop)
                     break
             else:
@@ -548,15 +617,38 @@ class TPUScheduler(Scheduler):
         return len(qps)
 
     def batch_supported(self, pod: Pod) -> bool:
-        """Whether the pod rides the batch (``:442``): a pod whose volumes
-        the screen can judge (every PVC exists, bound or delayed-binding)
-        and whose claims resolve; the default profile is the port's only
-        one."""
+        """Whether the pod rides the batch (``:442``): a pod of a batchable
+        profile whose volumes the screen can judge (every PVC exists, bound
+        or delayed-binding) and whose claims resolve."""
+        if not self._batchable[pod.spec.scheduler_name]:
+            return False
         if pod.spec.volumes and not self._volume_masks.batchable(pod):
             return False
         if pod.spec.resource_claims and not self._claim_masks.batchable(pod):
             return False
         return True
+
+    def _framework_batchable(self, fwk: Framework) -> bool:
+        """True when the profile's PreFilter, Filter, PreScore and Score
+        lists equal the default set's, names and weights (``:473-490``),
+        and every argument the batch program has baked in is at its
+        default (``BAKED_ARGS``)."""
+        ok = all(fwk.point_names(point) == DEFAULT_PLUGINS.get(point, [])
+                 for point in BATCH_POINTS)
+        for name, args in BAKED_ARGS.items():
+            plugin = fwk.plugin(name)
+            if ok and plugin is not None:
+                ok = all(_as_tuples(getattr(plugin, arg)) == _as_tuples(default)
+                         for arg, default in args)
+        return ok
+
+    def _bind_path_needs_prefilter(self, fwk: Framework) -> bool:
+        """True when the profile has a Reserve, Permit or PreBind plugin
+        outside the default bind path (``:1140-1160``): it may read the
+        PreFilter state a plain pod of a batch does not have."""
+        return any(plugin.name() not in DEFAULT_BIND_PATH_PLUGINS
+                   for point in ("reserve", "permit", "pre_bind")
+                   for plugin, _w in fwk.points.get(point, []))
 
     def _schedule_fallback(self, qp: QueuedPodInfo, pod_cycle: int) -> None:
         """The sequential path for one pod (``:2019``)."""
@@ -585,11 +677,11 @@ class TPUScheduler(Scheduler):
         ledger's rows are synced its quota screen's columns, and its volume
         screen (from the scheduling thread's snapshot) and claim mask."""
         pods = [qp.pod for qp in batched]
-        state, quota = self.state, self.profile.quota
+        state, quota = self.state, self._quota_plugin()
 
         def extras(pods, pad_to):
             return {**slice_batch_kw(batch_gangs(pods)[1], state),
-                    **quota_batch_kw(quota, state, pods, pad_to),
+                    **(quota_batch_kw(quota, state, pods, pad_to) if quota is not None else {}),
                     **screen_batch_kw(self._volume_masks, self._claim_masks, state,
                                       self.snapshot, pods, pad_to, self.screen_seconds)}
 
@@ -842,9 +934,9 @@ class TPUScheduler(Scheduler):
                 if res.final_sel_counts is not None:
                     run(topo_carry=carry(res))
                     warmed += 1
-                if res.static_masks:
-                    # the failure path's program: the default profile wires
-                    # DefaultPreemption's PostFilter
+                if res.static_masks and self._preempt_wired:
+                    # the failure path's program, when a profile wires a
+                    # PostFilter
                     pres = screen_prefix(enc.pb, state.preempt_inputs(), res.static_masks,
                                          np.ones(len(warm_slice), bool))
                     pres.best.cpu()
@@ -999,7 +1091,7 @@ class TPUScheduler(Scheduler):
             self.quota_flagged += len(flagged)
         gang_rejected = self._judge(pods, batch, stale | flagged, t0)
         hints = None
-        if (node_idx[:n] < 0).any():
+        if self._preempt_wired and (node_idx[:n] < 0).any():
             if self.commit_worker is not None:
                 # PostFilter reads the worker's snapshot: bring it up to the
                 # binds and evictions committed since its last refresh
@@ -1012,6 +1104,7 @@ class TPUScheduler(Scheduler):
         for i, qp in enumerate(qps):
             self.metrics.inc("schedule_attempts")
             name = winners.get(i)
+            fwk = self.profiles[qp.pod.spec.scheduler_name]
             if i in gang_rejected:
                 # the program placed it, a sibling missed: surrender the row
                 if name is not None:
@@ -1021,7 +1114,7 @@ class TPUScheduler(Scheduler):
                     diagnosis = self._diagnose(batch.first_fail[i], slot_names)
                     diagnosis.unschedulable_plugins.add("Coscheduling")
                 self._handle_scheduling_failure(qp, True, diagnosis, pod_cycle)
-                self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name,
+                self.smetrics.observe_attempt(UNSCHEDULABLE, fwk.profile_name,
                                               self.now_fn() - t0)
                 continue
             if i in stale:
@@ -1030,20 +1123,21 @@ class TPUScheduler(Scheduler):
                     self._invalidate_device_row(name)
                 self.metrics.inc("errors")
                 self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
-                self.smetrics.observe_attempt(ERROR, self.profile.name, self.now_fn() - t0)
+                self.smetrics.observe_attempt(ERROR, fwk.profile_name, self.now_fn() - t0)
                 continue
             if i in flagged:
                 # back behind the quota gate, which judges the host ledger
                 self._invalidate_device_row(name)
                 self._handle_scheduling_failure(
                     qp, True, Diagnosis(unschedulable_plugins={"QuotaAdmission"}), pod_cycle)
-                self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name,
+                self.smetrics.observe_attempt(UNSCHEDULABLE, fwk.profile_name,
                                               self.now_fn() - t0)
                 continue
             if name is not None:
                 state = None
-                if qp.pod.spec.volumes or qp.pod.spec.resource_claims:
-                    state = self._commit_checks(qp.pod, name)
+                if (qp.pod.spec.volumes or qp.pod.spec.resource_claims
+                        or self._bind_prefilter[fwk.profile_name]):
+                    state = self._commit_checks(fwk, qp.pod, name)
                     if state is None:
                         # the device's choice fails the exact checks: the
                         # sequential path owns the pod (it re-runs them and
@@ -1052,21 +1146,23 @@ class TPUScheduler(Scheduler):
                         self._schedule_fallback(qp, pod_cycle)
                         continue
                 if self.comparer_every_n and self.batch_scheduled % self.comparer_every_n == 0:
-                    self._compare_with_oracle(qp.pod, name)
-                item = BindItem(qp, name, state=state)
+                    self._compare_with_oracle(fwk, qp.pod, name)
+                item = BindItem(qp, name, fwk, state=state)
                 if self._assume(item, pod_cycle):
                     items.append(item)
                 continue
             diagnosis = self._diagnose(batch.first_fail[i], slot_names)
-            screen, best, slot_of = hints
-            b = int(best[i])
-            pod_hints = (screen[i], slot_of, slot_names.get(b) if b >= 0 else None)
+            pod_hints = None
+            if hints is not None:
+                screen, best, slot_of = hints
+                b = int(best[i])
+                pod_hints = (screen[i], slot_of, slot_names.get(b) if b >= 0 else None)
             self._handle_scheduling_failure(qp, True, diagnosis, pod_cycle, pod_hints)
-            self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name, self.now_fn() - t0)
+            self.smetrics.observe_attempt(UNSCHEDULABLE, fwk.profile_name, self.now_fn() - t0)
         if items:
             self.batch_scheduled += self._commit_bindings(items, pod_cycle, t0)
 
-    def _compare_with_oracle(self, pod: Pod, node_name: str) -> None:
+    def _compare_with_oracle(self, fwk: Framework, pod: Pod, node_name: str) -> None:
         """The device/host comparer (``:1787-1810``): the host PreFilters
         and Filters judge the winner on its node in the failure path's
         snapshot, refreshed first; a node missing there or a check that
@@ -1089,7 +1185,7 @@ class TPUScheduler(Scheduler):
             logging.getLogger(__name__).warning(
                 "comparer: device placed %s on unknown node %s", pod.key(), node_name)
             return
-        filters = self.profile.filters
+        filters = fwk.filters
         state, _names, fail = filters.pre_filter_status(pod, gates=False)
         if fail is None:
             fail = filters.filter_status(state, pod, ni)
@@ -1099,18 +1195,20 @@ class TPUScheduler(Scheduler):
                 "comparer: oracle rejects device placement %s -> %s: %s",
                 pod.key(), node_name, fail.reason)
 
-    def _commit_checks(self, pod: Pod, node_name: str) -> Optional[PreFilterState]:
-        """A volume or claim winner's checks on its node (``:1455-1501``)
-        against the failure path's snapshot, refreshed first so that it
-        holds the batch's earlier winners: every PreFilter, then the exact
-        volume filters (``_verify_volumes_on_node``, which also records
-        VolumeBinding's choice of PVs). The pod's PreFilter state, or None
-        when a check fails."""
+    def _commit_checks(self, fwk: Framework, pod: Pod,
+                       node_name: str) -> Optional[PreFilterState]:
+        """A volume or claim winner's checks on its node (``:1455-1501``),
+        or those of a winner whose profile's bind path reads PreFilter
+        state, against the failure path's snapshot, refreshed first so that
+        it holds the batch's earlier winners: every PreFilter, then the
+        exact volume filters (``_verify_volumes_on_node``, which also
+        records VolumeBinding's choice of PVs). The pod's PreFilter state,
+        or None when a check fails."""
         t = time.perf_counter()
         try:
             snap = self._failure_snapshot()
             self.cache.update_snapshot(snap)
-            state, _names, fail = self.profile.filters.pre_filter_status(pod)
+            state, _names, fail = fwk.filters.pre_filter_status(pod)
             if fail is not None:
                 return None
             if pod.spec.volumes and not self._verify_volumes_on_node(state, pod, node_name, snap):
@@ -1142,67 +1240,95 @@ class TPUScheduler(Scheduler):
             if item.device:
                 self._invalidate_device_row(item.node_name)
             return False
-        self.profile.nominator.delete_nominated_pod_if_exists(item.qp.pod)
+        item.fwk.nominator.delete_nominated_pod_if_exists(item.qp.pod)
         return True
 
+    def _by_framework(self, items: List[BindItem]) -> Dict[Framework, List[BindItem]]:
+        """The items grouped by their profile's framework, each group in
+        batch order, the groups in order of first appearance."""
+        if len(self.profiles) == 1:
+            return {items[0].fwk: items} if items else {}
+        groups: Dict[Framework, List[BindItem]] = {}
+        for item in items:
+            groups.setdefault(item.fwk, []).append(item)
+        return groups
+
     def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
-        """The bind tail of assumed pods (``commit_plane.py:155-307``), each
-        stage over all of them: Reserve (every pod, then the refused ones
-        rolled back), Permit (a pod voting WAIT parks at once, so the next
-        member's quorum counts it; a quorum allows the parked siblings,
-        which land right there), then ``_bind_stage``. Per pod the plugins
-        see the JAX commit plane's calls in its order, and each pod fails
-        alone. The sequential path calls it with its one pod. Returns the
-        pods bound or parked (JAX's ``stats.bound + stats.waiting``)."""
-        profile = self.profile
-        refused = [profile.reserve(item.assumed, item.node_name, item.state) for item in items]
-        survivors = []
-        for item, reason in zip(items, refused):
-            if reason is not None:
-                self._fail_assumed(item, True, pod_cycle)
-            else:
-                survivors.append(item)
-        verdicts = []
-        for item in survivors:  # Permit: a WAIT parks before the next member's vote
-            reason, wait_s = profile.permit(item.assumed, item.node_name)
-            if reason is None and wait_s is not None:
-                self.park(item, pod_cycle, t0, wait_s)
-                reason = "waiting"
-            verdicts.append(reason)
-        permitted = []
-        for item, reason in zip(survivors, verdicts):
-            if reason is None:
-                permitted.append(item)
-            elif reason != "waiting":
-                self._fail_assumed(item, True, pod_cycle)
-        return verdicts.count("waiting") + self._bind_stage(permitted, pod_cycle, t0)
+        """The bind tail of assumed pods (``commit_plane.py:155-307``), per
+        profile in the order its pods first appear: Reserve over the
+        profile's pods (then the refused ones rolled back), Permit over
+        the rest (a pod voting WAIT parks at once, so the next member's
+        quorum counts it; a quorum allows the parked siblings, which land
+        right there), then ``_bind_stage`` over every profile's permitted
+        pods. Per pod the plugins see the JAX commit plane's calls in its
+        order, and each pod fails alone. The sequential path calls it with
+        its one pod. Returns the pods bound or parked (JAX's
+        ``stats.bound + stats.waiting``)."""
+        permitted: List[BindItem] = []
+        waiting = 0
+        for fwk, group in self._by_framework(items).items():
+            refused = fwk.reserve_batch([(item.state, item.assumed, item.node_name)
+                                         for item in group])
+            survivors = []
+            for item, reason in zip(group, refused):
+                if reason is not None:
+                    self._fail_assumed(item, True, pod_cycle)
+                else:
+                    survivors.append(item)
+            verdicts = fwk.permit_batch(
+                [(item.state, item.assumed, item.node_name) for item in survivors],
+                lambda i, wait_s, _group=survivors: self.park(_group[i], pod_cycle, t0, wait_s))
+            for item, reason in zip(survivors, verdicts):
+                if reason is None:
+                    permitted.append(item)
+                elif reason == "waiting":
+                    waiting += 1
+                else:
+                    self._fail_assumed(item, True, pod_cycle)
+        return waiting + self._bind_stage(permitted, pod_cycle, t0)
 
     def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
-        """PreBind each assumed pod (VolumeBinding's PV binds), bind the
-        rest through the store in one pass, then finish each bound one,
-        count it, and run PostBind over them. Returns the pods bound."""
-        live = []
-        for item in items:
-            if self.profile.pre_bind(item.assumed) is not None:
-                self._fail_assumed(item, False, pod_cycle)
-            else:
-                live.append(item)
-        outcomes = self.store.bind_batch([(item.assumed.key(), item.node_name)
-                                          for item in live])
-        bound = []
-        for item, err in zip(live, outcomes):
-            if err is not None:
+        """PreBind each assumed pod per profile (VolumeBinding's PV
+        binds), bind the rest (a pod whose profile's Bind point is not
+        DefaultBinder alone through that point, one by one; then the
+        others through the store in one pass), then finish each bound one,
+        count it, and run PostBind over them per profile. Returns the pods
+        bound."""
+        live: List[BindItem] = []
+        for fwk, group in self._by_framework(items).items():
+            refused = fwk.pre_bind_batch([(item.state, item.assumed, item.node_name)
+                                          for item in group])
+            for item, reason in zip(group, refused):
+                if reason is not None:
+                    self._fail_assumed(item, False, pod_cycle)
+                else:
+                    live.append(item)
+        bound: List[BindItem] = []
+        batched: List[BindItem] = []
+        for item in live:
+            if item.fwk.default_binder:
+                batched.append(item)
+            elif item.fwk.bind(item.state, item.assumed, item.node_name) is not None:
                 self._fail_assumed(item, False, pod_cycle)
             else:
                 bound.append(item)
+        if batched:
+            outcomes = self.store.bind_batch([(item.assumed.key(), item.node_name)
+                                              for item in batched])
+            for item, err in zip(batched, outcomes):
+                if err is not None:
+                    self._fail_assumed(item, False, pod_cycle)
+                else:
+                    bound.append(item)
         if not bound:
             return 0
         now = self.now_fn()
         for item in bound:
             self.cache.finish_binding(item.assumed)
             self.metrics.inc("scheduled")
-            self.smetrics.observe_attempt(SCHEDULED, self.profile.name, now - t0)
-        self.profile.post_bind_batch([item.assumed for item in bound])
+            self.smetrics.observe_attempt(SCHEDULED, item.fwk.profile_name, now - t0)
+        for fwk, group in self._by_framework(bound).items():
+            fwk.post_bind_batch([item.assumed for item in group])
         return len(bound)
 
     def _fail_assumed(self, item: BindItem, unschedulable: bool, pod_cycle: int) -> None:
@@ -1210,7 +1336,7 @@ class TPUScheduler(Scheduler):
         Reserve's too: the whole point unreserves), the assume forgotten,
         the failure path; when the device committed to it, the next sync
         repairs its row."""
-        self.profile.unreserve(item.assumed, item.node_name, item.state)
+        item.fwk.unreserve(item.state, item.assumed, item.node_name)
         self.cache.forget_pod(item.assumed)
         self._handle_scheduling_failure(item.qp, unschedulable, Diagnosis(), pod_cycle)
         if item.device:
@@ -1238,11 +1364,17 @@ class TPUScheduler(Scheduler):
         out: Dict[int, str] = {}
         node_idx = batch.node_idx
         for gkey, reason in reasons.items():
-            self.profile.coscheduling.reject_gang(gkey, reason)
-            if gkey in slices and any(node_idx[i] < 0 for i in slices[gkey]):
+            members = flat.get(gkey) or slices[gkey]
+            fwk = self.framework_for_pod(pods[members[0]])
+            cos = fwk.plugin(names.COSCHEDULING)
+            if cos is not None:
+                cos.reject_gang(gkey, reason)
+            packing = fwk.plugin(names.SLICE_PACKING)
+            if (gkey in slices and packing is not None
+                    and any(node_idx[i] < 0 for i in slices[gkey])):
                 # the plan's node reservations go: a retry plans afresh
-                self.profile.slice_packing.forget_gang(gkey)
-            for i in flat.get(gkey) or slices[gkey]:
+                packing.forget_gang(gkey)
+            for i in members:
                 out[i] = gkey
         if slices:
             self._update_slice_frag_metrics()

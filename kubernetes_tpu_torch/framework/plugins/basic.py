@@ -1,14 +1,14 @@
-"""The simple per-node filters as plain functions on NodeInfo.
+"""The simple per-node plugins: PrioritySort, NodeUnschedulable,
+NodeName, TaintToleration and NodePorts.
 
-An own copy of the Filters of
-``kubernetes_tpu/framework/plugins/basic.py``: NodeUnschedulable,
-NodeName, TaintToleration and NodePorts, without the plugin runtime, and
-TaintToleration's PreScore and Score (the untolerated PreferNoSchedule
-taints, normalized reversed). Each
-filter returns None when the node passes, else the plugin's reason. The
-preemption dry run (``framework/preemption.py``) runs them through
-``framework/runtime.py``; the batched path computes the same predicates on
-the device (``ops/filters.py``).
+An own copy of ``kubernetes_tpu/framework/plugins/basic.py``: the Filters
+as plain functions on NodeInfo (None when the node passes, else the
+plugin's reason), TaintToleration's PreScore and Score (the untolerated
+PreferNoSchedule taints, normalized reversed), and the plugin objects the
+registry builds (``framework/registry.py``), each with exactly the points
+of its JAX counterpart. The preemption dry run and the sequential path
+run them through ``framework/runtime.py``; the batched path computes the
+same predicates on the device (``ops/filters.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,10 @@ from typing import Iterable, Optional, Tuple
 
 from ...api.types import (TAINT_NO_EXECUTE, TAINT_NO_SCHEDULE, TAINT_PREFER_NO_SCHEDULE,
                           ContainerPort, Pod, Taint, Toleration)
-from ..types import NodeInfo, ports_conflict
+from ..interface import Fail
+from ..types import (ADD, DELETE, MAX_NODE_SCORE, NODE, POD, UPDATE_NODE_TAINT, ClusterEvent,
+                     NodeInfo, default_normalize_score, ports_conflict)
+from . import names
 
 ERR_REASON_UNSCHEDULABLE = "node(s) were unschedulable"
 ERR_REASON_NODE_NAME = "node(s) didn't match the requested node name"
@@ -83,3 +86,78 @@ def taint_toleration_score(prefer: Tuple[Toleration, ...], ni: NodeInfo) -> int:
     return sum(1 for t in ni.node.spec.taints
                if t.effect == TAINT_PREFER_NO_SCHEDULE
                and not any(tol.tolerates(t) for tol in prefer))
+
+
+# ----------------------------------------------------------------- the plugin objects
+
+
+class PrioritySort:
+    """queuesort/priority_sort.go: higher priority first, then FIFO."""
+
+    def name(self) -> str:
+        return names.PRIORITY_SORT
+
+    def less(self, a, b) -> bool:
+        p1, p2 = a.pod.spec.priority, b.pod.spec.priority
+        return p1 > p2 or (p1 == p2 and a.timestamp < b.timestamp)
+
+
+class NodeUnschedulable:
+    def name(self) -> str:
+        return names.NODE_UNSCHEDULABLE
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(NODE, ADD | UPDATE_NODE_TAINT)]
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = node_unschedulable_filter(pod, ni)
+        return None if reason is None else Fail(names.NODE_UNSCHEDULABLE, reason, True)
+
+
+class NodeName:
+    def name(self) -> str:
+        return names.NODE_NAME
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = node_name_filter(pod, ni)
+        return None if reason is None else Fail(names.NODE_NAME, reason, True)
+
+
+class TaintToleration:
+    def name(self) -> str:
+        return names.TAINT_TOLERATION
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(NODE, ADD | UPDATE_NODE_TAINT)]
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = taint_toleration_filter(pod, ni)
+        return None if reason is None else Fail(names.TAINT_TOLERATION, reason, True)
+
+    def pre_score(self, state, pod: Pod, feasible) -> None:
+        state.data[names.TAINT_TOLERATION] = taint_toleration_pre_score(pod)
+
+    def score_node(self, state, pod: Pod, ni: NodeInfo) -> int:
+        return taint_toleration_score(state.data[names.TAINT_TOLERATION], ni)
+
+    def normalize_score(self, state, pod: Pod, scores) -> None:
+        default_normalize_score(MAX_NODE_SCORE, True, scores)
+
+
+class NodePorts:
+    def name(self) -> str:
+        return names.NODE_PORTS
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(POD, DELETE), ClusterEvent(NODE, ADD)]
+
+    def pre_filter(self, state, pod: Pod):
+        state.ports = pod.host_ports()
+        return None, None
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = node_ports_filter(state.ports, ni)
+        return None if reason is None else Fail(names.NODE_PORTS, reason, False)

@@ -9,15 +9,16 @@ gang through the ``scheduling.x-k8s.io/pod-group`` label, and the plugin
     adjacently and drain into one batch; a groupless pod keeps
     PrioritySort's key exactly;
   * PreFilter (``pre_filter``): fails a member while its group sits in
-    rejection backoff, when its PodGroup does not exist, or when fewer than
-    ``min_member`` members exist;
+    rejection backoff, when its PodGroup does not exist, or when fewer
+    than ``min_member`` members exist;
   * Permit (``permit``): parks a member (WAIT with the group's
-    ``schedule_timeout_seconds``, else ``PERMIT_TIMEOUT_S``) until
+    ``schedule_timeout_seconds``, else ``permit_timeout_s``) until
     ``min_member`` of them hold a node (parked, bound, and itself), then
     allows every parked sibling through the scheduler's waiting-pods
     handle;
   * Reserve does nothing; Unreserve (``unreserve``) rejects the gang's
-    parked members (``reject_gang`` with ``force`` False);
+    parked members (``reject_gang`` with ``force`` False); a rejected gang
+    fails its PreFilter for ``gang_backoff_s``;
   * ``reject_gang``: tears down the parked members, counts the rejection by
     reason (``gangs_rejected``), arms the backoff and sets the group
     Pending; the scheduler's permit sweep and the batch commit's whole-gang
@@ -42,6 +43,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 from ...api.types import (POD_GROUP_LABEL, POD_GROUP_PENDING, POD_GROUP_RUNNING,
                           POD_GROUP_SCHEDULING, Pod, PodGroup)
 from ...metrics.scheduler_metrics import Counter
+from ..interface import Fail
 from ..types import ADD, ALL, POD, POD_GROUP, ClusterEvent
 
 NAME = "Coscheduling"
@@ -64,12 +66,16 @@ def pod_group_key(pod: Pod) -> Optional[str]:
 class Coscheduling:
     # the JAX plugin's defaults: the Permit park when the PodGroup names no
     # timeout, and how long a rejected group fails its PreFilter
-    PERMIT_TIMEOUT_S = 60.0
-    GANG_BACKOFF_S = 5.0
+    DEFAULT_PERMIT_TIMEOUT_S = 60.0
+    DEFAULT_GANG_BACKOFF_S = 5.0
 
     def __init__(self, client, members_fn: Optional[MembersFn] = None,
-                 now_fn: Optional[Callable[[], float]] = None, metrics=None, waiting=None):
+                 now_fn: Optional[Callable[[], float]] = None, metrics=None, waiting=None,
+                 permit_timeout_s: float = DEFAULT_PERMIT_TIMEOUT_S,
+                 gang_backoff_s: float = DEFAULT_GANG_BACKOFF_S):
         self.client = client
+        self.permit_timeout_s = permit_timeout_s
+        self.gang_backoff_s = gang_backoff_s
         self.members_fn = members_fn or self._members_in_store
         self.now_fn = now_fn or time.monotonic
         self.metrics = metrics
@@ -82,6 +88,9 @@ class Coscheduling:
         self._first_wait: Dict[str, float] = {}  # gkey -> first member's park time
         self._denied: Dict[str, float] = {}     # gkey -> end of the rejection backoff
         self._rejecting: Set[str] = set()       # reject_gang's reentrancy guard
+
+    def name(self) -> str:
+        return NAME
 
     @property
     def rejections(self) -> Dict[str, int]:
@@ -102,6 +111,9 @@ class Coscheduling:
         gkey = f"{pod.meta.namespace}/{name}"
         ts = self._group_ts.setdefault(gkey, qp.timestamp)
         return (-pod.spec.priority, ts, gkey)
+
+    def less(self, a, b) -> bool:
+        return self.sort_key(a) < self.sort_key(b)
 
     # ------------------------------------------------------------- helpers
 
@@ -135,25 +147,30 @@ class Coscheduling:
 
     # ------------------------------------------------------------- extension points
 
-    def pre_filter(self, pod: Pod) -> Optional[str]:
-        """None when ``pod`` may take a batch row, else why not (the JAX
-        PreFilter's unresolvable Status reason)."""
+    def pre_filter(self, state, pod: Pod):
+        """(None, None) when ``pod`` may take a batch row, else (None, the
+        unresolvable failure, with the JAX PreFilter's reason)."""
         gkey = pod_group_key(pod)
         if gkey is None:
-            return None
+            return None, None
+        reason = None
         until = self._denied.get(gkey)
-        if until is not None:
-            if self.now_fn() < until:
-                return f'{ERR_REASON_GANG_BACKOFF} "{gkey}"'
-            self._denied.pop(gkey, None)
-        pg = self._group(gkey)
-        if pg is None:
-            return f'{ERR_REASON_MISSING_GROUP} "{gkey}"'
-        if self.members_fn(gkey, False) < pg.min_member:
-            return f'{ERR_REASON_TOO_FEW_MEMBERS} for "{gkey}"'
-        return None
+        if until is not None and self.now_fn() < until:
+            reason = f'{ERR_REASON_GANG_BACKOFF} "{gkey}"'
+        else:
+            if until is not None:
+                self._denied.pop(gkey, None)
+            pg = self._group(gkey)
+            if pg is None:
+                reason = f'{ERR_REASON_MISSING_GROUP} "{gkey}"'
+            elif self.members_fn(gkey, False) < pg.min_member:
+                reason = f'{ERR_REASON_TOO_FEW_MEMBERS} for "{gkey}"'
+        return None, (None if reason is None else Fail(NAME, reason, True))
 
-    def permit(self, pod: Pod, node_name: str) -> Tuple[Optional[str], Optional[float]]:
+    def reserve(self, state, pod: Pod, node_name: str) -> Optional[str]:
+        return None  # nothing to hold; Unreserve carries the gang semantics
+
+    def permit(self, state, pod: Pod, node_name: str) -> Tuple[Optional[str], Optional[float]]:
         """(None, None) to allow, (None, timeout seconds) to park the pod,
         (reason, None) to reject it."""
         gkey = pod_group_key(pod)
@@ -171,9 +188,9 @@ class Coscheduling:
             return None, None
         self._first_wait.setdefault(gkey, self.now_fn())
         self._set_phase(gkey, POD_GROUP_SCHEDULING)
-        return None, float(pg.schedule_timeout_seconds or self.PERMIT_TIMEOUT_S)
+        return None, float(pg.schedule_timeout_seconds or self.permit_timeout_s)
 
-    def unreserve(self, pod: Pod) -> None:
+    def unreserve(self, state, pod: Pod, node_name: str) -> None:
         """A member's failure after Reserve takes its parked siblings down."""
         gkey = pod_group_key(pod)
         if gkey is None or gkey in self._rejecting:
@@ -198,20 +215,23 @@ class Coscheduling:
             if force or rejected or waited:
                 self.gangs_rejected.inc(reason)
                 self._observe_wait(gkey, "rejected")
-                self._denied[gkey] = self.now_fn() + self.GANG_BACKOFF_S
+                self._denied[gkey] = self.now_fn() + self.gang_backoff_s
                 self._set_phase(gkey, POD_GROUP_PENDING)
             return rejected
         finally:
             self._rejecting.discard(gkey)
 
-    def post_bind(self, pod: Pod) -> None:
-        gkey = pod_group_key(pod)
-        if gkey is not None:
-            self.post_bind_batch({gkey: 1})
+    def post_bind(self, state, pod: Pod, node_name: str) -> None:
+        self.post_bind_batch([pod])
 
-    def post_bind_batch(self, per_gang: Dict[str, int]) -> None:
-        """One bound-count bump and one status write per gang of a batch
-        (``per_gang``: gkey -> members bound). Call after the binds."""
+    def post_bind_batch(self, pods: List[Pod]) -> None:
+        """PostBind over a batch's bound pods: one bound-count bump and one
+        status write per gang. Call after the binds."""
+        per_gang: Dict[str, int] = {}
+        for pod in pods:
+            gkey = pod_group_key(pod)
+            if gkey is not None:
+                per_gang[gkey] = per_gang.get(gkey, 0) + 1
         for gkey, n in per_gang.items():
             if gkey in self._bound:
                 self._bound[gkey] += n

@@ -5,9 +5,13 @@ An own copy of ``kubernetes_tpu/framework/plugins/defaultpreemption.py``
 runner. ``post_filter`` runs the pod's PreFilters (the batched path skips
 them), reads the device screen's hints, and runs the Evaluator
 (``framework/preemption.py``) against the cluster as the filter runner
-lists it. One ``random.Random(0)`` lives as long as the plugin, as the
-default ``seed`` argument of the JAX plugin: it draws the candidate walk's
-offsets.
+lists it. One ``random.Random(seed)`` lives as long as the plugin, as in
+the JAX plugin: it draws the candidate walk's offsets. Its arguments:
+``min_candidate_nodes_percentage`` (10), ``min_candidate_nodes_absolute``
+(100) and ``seed`` (0). The registry builds it without a filter runner;
+the profile's ``Framework`` hands it its own (``set_framework``), and the
+scheduler's store writes (``evict``, ``clear_nomination``) come from the
+handle.
 """
 
 from __future__ import annotations
@@ -18,8 +22,9 @@ from typing import Callable, Collection, Dict, Iterable, Optional, Tuple
 import numpy as np
 
 from ...api.types import Pod, PodDisruptionBudget
-from ..preemption import Evaluator
-from ..runtime import FilterRunner
+from ..preemption import (MIN_CANDIDATE_NODES_ABSOLUTE, MIN_CANDIDATE_NODES_PERCENTAGE,
+                          Evaluator)
+from . import names
 
 # the device screen's hints for one pod: (its screen row over the node
 # slots, node name -> slot, the top-ranked node's name or None)
@@ -27,14 +32,25 @@ Hints = Tuple[np.ndarray, Dict[str, int], Optional[str]]
 
 
 class DefaultPreemption:
-    def __init__(self, filters: FilterRunner, evict: Callable[[Pod, Pod], None],
+    def __init__(self, filters, evict: Callable[[Pod, Pod], None],
                  clear_nomination: Callable[[Pod], None],
-                 pdb_lister: Optional[Callable[[], Iterable[PodDisruptionBudget]]] = None):
-        self.filters = filters
+                 pdb_lister: Optional[Callable[[], Iterable[PodDisruptionBudget]]] = None,
+                 min_candidate_nodes_percentage: int = MIN_CANDIDATE_NODES_PERCENTAGE,
+                 min_candidate_nodes_absolute: int = MIN_CANDIDATE_NODES_ABSOLUTE,
+                 seed: int = 0):
+        self.filters = filters  # framework/runtime.py:FilterRunner
         self.evict = evict
         self.clear_nomination = clear_nomination
         self.pdb_lister = pdb_lister or (lambda: [])
-        self.rng = random.Random(0)
+        self.min_pct = min_candidate_nodes_percentage
+        self.min_abs = min_candidate_nodes_absolute
+        self.rng = random.Random(seed)
+
+    def name(self) -> str:
+        return names.DEFAULT_PREEMPTION
+
+    def set_framework(self, fwk) -> None:
+        self.filters = fwk.filters
 
     def post_filter(self, pod: Pod, hints: Optional[Hints] = None,
                     unresolvable: Collection[str] = ()) -> Tuple[Optional[str], Optional[str]]:
@@ -64,5 +80,7 @@ class DefaultPreemption:
             if not pdbs:
                 preferred = best_name
         ev = Evaluator(self.filters, state, pdbs, self.evict, self.clear_nomination, self.rng,
-                       screen_fn=screen_fn, preferred_node=preferred)
+                       screen_fn=screen_fn, preferred_node=preferred,
+                       min_candidate_nodes_percentage=self.min_pct,
+                       min_candidate_nodes_absolute=self.min_abs)
         return ev.preempt(pod, node_infos, unresolvable)

@@ -1,8 +1,7 @@
-"""The DynamicResources plugin as plain functions.
+"""The DynamicResources plugin: plain functions and the plugin object.
 
 An own copy of ``kubernetes_tpu/framework/plugins/dynamicresources.py``
-over (store, pod, node name), without the plugin runtime (cycle state,
-status codes, registry): the PreFilter claim resolution, the exact Filter,
+over (store, pod, node name): the PreFilter claim resolution, the exact Filter,
 Reserve / Unreserve (``:143-174``; each claim allocated to the chosen node
 and reserved for the pod through the store, a refused one rolling back
 what the pod took) and PostBind (``:176``; the pod's PodSchedulingContext
@@ -24,9 +23,13 @@ from typing import List, Optional, Tuple
 from ...api import dra
 from ...api.types import Node, ObjectMeta, OwnerReference, Pod, PodSchedulingContext, ResourceClaim
 from ...apiserver.store import Conflict, NotFound
+from ..interface import Fail
+from ..types import ADD, ALL, NODE, RESOURCE_CLAIM, RESOURCE_CLASS, UPDATE, ClusterEvent, NodeInfo
+from . import names
 
 ERR_REASON_MISSING_CLAIM = "waiting for resource claim to be created"
 ERR_REASON_CANNOT_ALLOCATE = "cannot allocate all claims"
+ERR_REASON_PREFILTER_RESTRICTION = "node(s) didn't satisfy plugin(s) prefilter restriction"
 
 # a pod's resolved claims: [(claim key, claim, merged selectors)]
 Claims = List[Tuple[str, ResourceClaim, List[dra.DeviceSelector]]]
@@ -102,3 +105,62 @@ def post_bind(client, pod: Pod, node_name: str) -> None:
                                  dataclasses.replace(existing, selected_node=node_name))
     except Conflict:
         pass  # another writer; the status is current
+
+
+class DynamicResources:
+    """The plugin object over the functions above; a claim's allocated
+    node restricts the pod's nodes at PreFilter. A pod without PreFilter
+    state (a plain pod of a batch) reserves nothing."""
+
+    def __init__(self, client=None):
+        self.client = client
+
+    def name(self) -> str:
+        return names.DYNAMIC_RESOURCES
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(RESOURCE_CLAIM, ALL, "ResourceClaimChange"),
+                ClusterEvent(RESOURCE_CLASS, ADD | UPDATE, "ResourceClassChange"),
+                ClusterEvent(NODE, ADD | UPDATE)]
+
+    def pre_filter(self, state, pod: Pod):
+        if not pod.spec.resource_claims:
+            return None, None
+        claims, reason = pre_filter(self.client, pod)
+        if reason is not None:
+            return None, Fail(names.DYNAMIC_RESOURCES, reason, True)
+        state.claims = claims
+        node_names = None
+        for _key, claim, _sels in claims:
+            if claim.allocated_node:
+                node_names = ({claim.allocated_node} if node_names is None
+                              else node_names & {claim.allocated_node})
+        return node_names, None
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        if not state.claims:
+            return None
+        reason = filter_node(state.claims, ni.node)
+        return None if reason is None else Fail(names.DYNAMIC_RESOURCES, reason, False)
+
+    def reserve(self, state, pod: Pod, node_name: str) -> Optional[str]:
+        """Allocate the pod's claims; a refusal releases what it took."""
+        if state is None or not state.claims:
+            return None
+        if reserve(self.client, pod, node_name, state.claims) is not None:
+            return ERR_REASON_CANNOT_ALLOCATE
+        state.allocated = [key for key, _claim, _sels in state.claims]
+        return None
+
+    def unreserve(self, state, pod: Pod, node_name: str) -> None:
+        if state is not None and state.allocated:
+            unreserve(self.client, pod, state.allocated)
+            state.allocated = []
+
+    def post_bind(self, state, pod: Pod, node_name: str) -> None:
+        post_bind(self.client, pod, node_name)
+
+    def post_bind_batch(self, pods: List[Pod]) -> None:
+        for pod in pods:
+            post_bind(self.client, pod, pod.spec.node_name)

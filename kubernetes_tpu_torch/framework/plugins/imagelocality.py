@@ -7,15 +7,18 @@ nodesWithImage // totalNodes``, clamped to [23 MB, 1000 MB per container]
 and scaled to [0, 100]. PreScore counts each image's nodes and keeps one
 size per image (the first node's) over the snapshot's nodes. The batched
 path computes the same score on the device (``ops/scores.py``); the
-sequential path (``framework/runtime.py:ScoreRunner``) runs these.
+sequential path (``framework/runtime.py:ScoreRunner``) runs them
+through the plugin object, which reads the snapshot's nodes from its
+``snapshot_fn``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, NamedTuple
+from typing import Callable, Dict, Iterable, NamedTuple, Optional
 
 from ...api.types import Pod
 from ..types import MAX_NODE_SCORE, NodeInfo
+from . import names
 
 MB = 1024 * 1024
 MIN_THRESHOLD = 23 * MB
@@ -62,3 +65,17 @@ def score_node(s: SpreadState, pod: Pod, ni: NodeInfo) -> int:
     max_threshold = MAX_CONTAINER_THRESHOLD * len(pod.spec.containers)
     total = min(max(total, MIN_THRESHOLD), max_threshold)
     return MAX_NODE_SCORE * (total - MIN_THRESHOLD) // (max_threshold - MIN_THRESHOLD)
+
+
+class ImageLocality:
+    def __init__(self, snapshot_fn: Optional[Callable[[], Iterable[NodeInfo]]] = None):
+        self.snapshot_fn = snapshot_fn or (lambda: ())
+
+    def name(self) -> str:
+        return names.IMAGE_LOCALITY
+
+    def pre_score(self, state, pod: Pod, feasible) -> None:
+        state.data[names.IMAGE_LOCALITY] = pre_score(self.snapshot_fn())
+
+    def score_node(self, state, pod: Pod, ni: NodeInfo) -> int:
+        return score_node(state.data[names.IMAGE_LOCALITY], pod, ni)

@@ -5,11 +5,14 @@ An own copy of the term parsing of ``kubernetes_tpu/framework/plugins/
 interpodaffinity.py`` (``AffinityTerm`` and the four term extractors), of
 its PreFilter state, AddPod / RemovePod extensions and Filter
 (``:117-250``, interpodaffinity/filtering.go), and of its PreScore, Score
-and NormalizeScore (``:251-313``, scoring.go) at the default arguments
-(hardPodAffinityWeight 1, the existing pods' preferred terms counted), as
-plain functions: the batched path evaluates the terms through
-``backend/sig_table.py`` and ``ops/topology.py``; the host dry run and the
-sequential path (``framework/runtime.py``) read these.
+and NormalizeScore (``:251-313``, scoring.go), with the existing pods'
+preferred terms counted, as plain functions, and the plugin object, whose
+``hard_pod_affinity_weight`` argument (default 1) weighs the existing
+pods' required affinity terms in PreScore. The batched path evaluates the
+terms through ``backend/sig_table.py`` and ``ops/topology.py`` at the
+default weight (a profile with another takes the sequential path); the
+host dry run and the sequential path (``framework/runtime.py``) read
+these.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 from ...api.types import LABEL_HOSTNAME, MATCH_NOTHING, LabelSelector, Node, Pod, PodAffinityTerm
-from ..types import MAX_NODE_SCORE, NodeInfo
+from ..interface import Fail
+from ..types import ADD, DELETE, MAX_NODE_SCORE, NODE, POD, UPDATE_NODE_LABEL, ClusterEvent, NodeInfo
+from . import names
 
 ERR_EXISTING_ANTI = "node(s) didn't satisfy existing pods anti-affinity rules"
 ERR_AFFINITY = "node(s) didn't match pod affinity rules"
@@ -199,11 +204,12 @@ def filter_node(s: PreFilterState, pod: Pod, ni: NodeInfo, ns_labels_fn: NsLabel
     return None
 
 
-def pre_score(pod: Pod, node_infos: Iterable[NodeInfo], ns_labels_fn: NsLabelsFn
-              ) -> Dict[TopoPair, int]:
+def pre_score(pod: Pod, node_infos: Iterable[NodeInfo], ns_labels_fn: NsLabelsFn,
+              hard_weight: int = 1) -> Dict[TopoPair, int]:
     """The weight per topology pair: the pod's preferred (anti-)affinity
     terms over the existing pods, and the existing pods' required affinity
-    (weight 1) and preferred terms toward the pod."""
+    (at ``hard_weight``, the hardPodAffinityWeight argument; none when it
+    is 0) and preferred terms toward the pod."""
     pref = preferred_affinity_terms(pod)
     pref_anti = preferred_anti_affinity_terms(pod)
     scores: Dict[TopoPair, int] = {}
@@ -225,8 +231,9 @@ def pre_score(pod: Pod, node_infos: Iterable[NodeInfo], ns_labels_fn: NsLabelsFn
                 add(term, labels, ep, term.weight)
             for term in pref_anti:
                 add(term, labels, ep, -term.weight)
-            for term in required_affinity_terms(ep):
-                add(term, labels, pod, 1)
+            if hard_weight > 0:
+                for term in required_affinity_terms(ep):
+                    add(term, labels, pod, hard_weight)
             for term in preferred_affinity_terms(ep):
                 add(term, labels, pod, term.weight)
             for term in preferred_anti_affinity_terms(ep):
@@ -247,3 +254,45 @@ def normalize_score(scores: Dict[str, int]) -> None:
     diff = max_count - min_count
     for name, raw in scores.items():
         scores[name] = int(MAX_NODE_SCORE * (raw - min_count) / diff) if diff > 0 else 0
+
+
+class InterPodAffinity:
+    def __init__(self, snapshot_fn=None, ns_labels_fn: Optional[NsLabelsFn] = None,
+                 hard_pod_affinity_weight: int = 1):
+        self.snapshot_fn = snapshot_fn or (lambda: ())
+        self.ns_labels_fn = ns_labels_fn or (lambda ns: {})
+        self.hard_pod_affinity_weight = hard_pod_affinity_weight
+
+    def name(self) -> str:
+        return names.INTER_POD_AFFINITY
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(POD, ADD | DELETE), ClusterEvent(NODE, ADD | UPDATE_NODE_LABEL)]
+
+    def pre_filter(self, state, pod: Pod):
+        state.affinity = pre_filter(pod, self.snapshot_fn(), self.ns_labels_fn)
+        return None, None
+
+    def add_pod(self, state, pod: Pod, other: Pod, ni: NodeInfo) -> None:
+        update_for_pod(state.affinity, pod, other, ni.node, 1, self.ns_labels_fn)
+
+    def remove_pod(self, state, pod: Pod, other: Pod, ni: NodeInfo) -> None:
+        update_for_pod(state.affinity, pod, other, ni.node, -1, self.ns_labels_fn)
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = filter_node(state.affinity, pod, ni, self.ns_labels_fn)
+        if reason is None:
+            return None
+        return Fail(names.INTER_POD_AFFINITY, reason,
+                    reason not in (ERR_ANTI_AFFINITY, ERR_EXISTING_ANTI))
+
+    def pre_score(self, state, pod: Pod, feasible) -> None:
+        state.data[names.INTER_POD_AFFINITY] = pre_score(
+            pod, self.snapshot_fn(), self.ns_labels_fn, self.hard_pod_affinity_weight)
+
+    def score_node(self, state, pod: Pod, ni: NodeInfo) -> int:
+        return score_node(state.data[names.INTER_POD_AFFINITY], ni)
+
+    def normalize_score(self, state, pod: Pod, scores) -> None:
+        normalize_score(scores)

@@ -13,8 +13,11 @@ constraint's key, weighs each constraint by ``log(domains + 2)`` and
 counts the matching pods per pair over all nodes; a node scores
 ``round(sum(count * weight + maxSkew - 1))``, normalized reversed against
 the range. The batched path counts spread through ``ops/topology.py``; the
-host dry run and the sequential path read these. There are no default
-constraints (the JAX plugin's default arguments).
+host dry run and the sequential path read these through the plugin
+object. Its arguments: ``default_constraints`` apply to a pod that sets
+none, and ``system_defaulted`` (they are the built-in defaults) lets
+PreScore count nodes that lack a constraint's key. The batched path has
+neither: a profile that sets one takes the sequential path.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 from ...api.types import (DO_NOT_SCHEDULE, LABEL_HOSTNAME, MATCH_NOTHING, SCHEDULE_ANYWAY,
                           LabelSelector, Node, Pod, TopologySpreadConstraint)
-from ..types import MAX_NODE_SCORE, NodeInfo
+from ..interface import Fail
+from ..types import ADD, DELETE, MAX_NODE_SCORE, NODE, POD, UPDATE_NODE_LABEL, ClusterEvent, NodeInfo
+from . import names
 
 ERR_REASON_CONSTRAINTS = "node(s) didn't match pod topology spread constraints"
 ERR_REASON_LABEL = ERR_REASON_CONSTRAINTS + " (missing required label)"
@@ -69,9 +74,17 @@ class PreFilterState:
         return min(vals) if vals else 0
 
 
-def pre_filter(pod: Pod, node_infos: Iterable[NodeInfo]) -> PreFilterState:
-    constraints = [c for c in pod.spec.topology_spread_constraints
-                   if c.when_unsatisfiable == DO_NOT_SCHEDULE]
+def constraints_of(pod: Pod, when: str, defaults: Sequence[TopologySpreadConstraint] = ()
+                   ) -> List[TopologySpreadConstraint]:
+    """The pod's constraints of one kind, or the defaults' when it sets
+    none."""
+    own = pod.spec.topology_spread_constraints
+    return [c for c in (own or defaults) if c.when_unsatisfiable == when]
+
+
+def pre_filter(pod: Pod, node_infos: Iterable[NodeInfo],
+               defaults: Sequence[TopologySpreadConstraint] = ()) -> PreFilterState:
+    constraints = constraints_of(pod, DO_NOT_SCHEDULE, defaults)
     s = PreFilterState(constraints=constraints)
     if not constraints:
         return s
@@ -131,17 +144,19 @@ class PreScoreState:
     weights: List[float] = field(default_factory=list)
 
 
-def pre_score(pod: Pod, filtered: Sequence[Node], node_infos: Iterable[NodeInfo]
-              ) -> PreScoreState:
-    constraints = [c for c in pod.spec.topology_spread_constraints
-                   if c.when_unsatisfiable == SCHEDULE_ANYWAY]
+def pre_score(pod: Pod, filtered: Sequence[Node], node_infos: Iterable[NodeInfo],
+              defaults: Sequence[TopologySpreadConstraint] = (),
+              system_defaulted: bool = False) -> PreScoreState:
+    constraints = constraints_of(pod, SCHEDULE_ANYWAY, defaults)
     s = PreScoreState(constraints=constraints)
     if not constraints:
         return s
+    # system defaults score nodes that lack a key, too (plugin.go systemDefaulted)
+    require_all = bool(pod.spec.topology_spread_constraints) or not system_defaulted
     sizes = [0] * len(constraints)
     for node in filtered:
         labels = node.meta.labels
-        if any(c.topology_key not in labels for c in constraints):
+        if require_all and any(c.topology_key not in labels for c in constraints):
             s.ignored_nodes.add(node.meta.name)
             continue
         for i, c in enumerate(constraints):
@@ -161,7 +176,7 @@ def pre_score(pod: Pod, filtered: Sequence[Node], node_infos: Iterable[NodeInfo]
         if node is None or not _matches_node_affinity(pod, node):
             continue
         labels = node.meta.labels
-        if any(c.topology_key not in labels for c in constraints):
+        if require_all and any(c.topology_key not in labels for c in constraints):
             continue
         for c in constraints:
             pair = (c.topology_key, labels.get(c.topology_key, ""))
@@ -204,3 +219,48 @@ def normalize_score(s: PreScoreState, scores: Dict[str, int]) -> None:
             scores[name] = MAX_NODE_SCORE
         else:
             scores[name] = MAX_NODE_SCORE * (hi + lo - raw) // hi
+
+
+class PodTopologySpread:
+    def __init__(self, snapshot_fn=None,
+                 default_constraints: Tuple[TopologySpreadConstraint, ...] = (),
+                 system_defaulted: bool = False):
+        self.snapshot_fn = snapshot_fn or (lambda: ())
+        self.default_constraints = default_constraints
+        self.system_defaulted = system_defaulted
+
+    def name(self) -> str:
+        return names.POD_TOPOLOGY_SPREAD
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(POD, ADD | DELETE), ClusterEvent(NODE, ADD | UPDATE_NODE_LABEL)]
+
+    def pre_filter(self, state, pod: Pod):
+        state.spread = pre_filter(pod, self.snapshot_fn(), self.default_constraints)
+        return None, None
+
+    def add_pod(self, state, pod: Pod, other: Pod, ni: NodeInfo) -> None:
+        update_for_pod(state.spread, pod, other, ni.node, 1)
+
+    def remove_pod(self, state, pod: Pod, other: Pod, ni: NodeInfo) -> None:
+        update_for_pod(state.spread, pod, other, ni.node, -1)
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        if not state.spread.constraints:
+            return None
+        reason = filter_node(state.spread, pod, ni)
+        if reason is None:
+            return None
+        return Fail(names.POD_TOPOLOGY_SPREAD, reason, reason != ERR_REASON_CONSTRAINTS)
+
+    def pre_score(self, state, pod: Pod, feasible) -> None:
+        state.data[names.POD_TOPOLOGY_SPREAD] = pre_score(
+            pod, [ni.node for ni in feasible], self.snapshot_fn(), self.default_constraints,
+            self.system_defaulted)
+
+    def score_node(self, state, pod: Pod, ni: NodeInfo) -> int:
+        return score_node(state.data[names.POD_TOPOLOGY_SPREAD], pod, ni)
+
+    def normalize_score(self, state, pod: Pod, scores) -> None:
+        normalize_score(state.data[names.POD_TOPOLOGY_SPREAD], scores)

@@ -28,7 +28,7 @@ pods), in pod-key order, each charge classified own-quota first.
 
 The scheduler loop's half (``:284-288``, ``:525-559``, ``:576-800``):
 
-  * PreEnqueue (``pre_enqueue_status``): the queue's admission gate, the
+  * PreEnqueue (``pre_enqueue``): the queue's admission gate, the
     fits check again;
   * ``weight_for``: a namespace's fair-share weight (the largest of its
     quotas'), None for a namespace without quota;
@@ -51,7 +51,9 @@ The scheduler loop's half (``:284-288``, ``:525-559``, ``:576-800``):
     it. Without a guard function it never opens;
   * the gauges ``quota_usage`` and ``quota_borrowed`` on ``metrics``;
   * ``dump``: the ledger per namespace and per pool, with the reclaim
-    breaker's state.
+    breaker's state;
+  * ``share_ledger``: a second profile's instance charges and reads the
+    first's ledger.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from ...api.types import (QUOTA_CLAIMS, QUOTA_CPU, QUOTA_DIM_ORDER, QUOTA_MEMORY
                           Pod, SchedulingQuota)
 from ...backend.circuit import OPEN, CircuitBreaker
 from ..types import ALL, SCHEDULING_QUOTA, ClusterEvent
+from ..interface import Fail
 from .coscheduling import pod_group_key
 
 NAME = "QuotaAdmission"
@@ -128,7 +131,9 @@ class QuotaAdmission:
         self._seeded: Set[str] = set()
         self._borrowed: Dict[str, Request] = {}  # ns -> the loan part of _usage
         self._loans: Dict[str, Tuple[str, Request, int]] = {}  # pod key -> (ns, charge, seq)
-        self._loan_seq = 0
+        # boxed, so that a profile's instance that shares this ledger
+        # (``share_ledger``) numbers its loans in the same sequence
+        self._loan_seq: Dict[str, int] = {"n": 0}
         self._gang_counts: Dict[str, int] = {}   # gang key -> charged members
         self._gang_charged: Dict[str, str] = {}  # pod key -> gang key
         # cohort -> pod key -> priced request: a lender's demand, blocked
@@ -323,8 +328,8 @@ class QuotaAdmission:
             b = self._borrowed.setdefault(ns, {})
             for dim, v in req.items():
                 b[dim] = b.get(dim, 0) + v
-            self._loan_seq += 1
-            self._loans[key] = (ns, req, self._loan_seq)
+            self._loan_seq["n"] += 1
+            self._loans[key] = (ns, req, self._loan_seq["n"])
         self._drop_demand(key)
         self._sync_metrics(ns)
         return True
@@ -379,12 +384,16 @@ class QuotaAdmission:
 
     # ------------------------------------------------------- extension points
 
-    def pre_filter(self, pod: Pod) -> Optional[str]:
-        """None when the pod may take a batch row, else the unresolvable
-        reason."""
-        return self._fits(pod)
+    def name(self) -> str:
+        return NAME
 
-    def reserve(self, pod: Pod) -> Optional[str]:
+    def pre_filter(self, state, pod: Pod):
+        """(None, None) when the pod may take a batch row, else (None, the
+        unresolvable failure)."""
+        reason = self._fits(pod)
+        return None, (None if reason is None else Fail(NAME, reason, True))
+
+    def reserve(self, state, pod: Pod, node_name: str) -> Optional[str]:
         """The authoritative charge: None when charged (or unquota'd), else
         the reason it was refused."""
         if self.effective_hard(pod.meta.namespace) is None:
@@ -394,10 +403,19 @@ class QuotaAdmission:
             self._charge(pod)
         return reason
 
-    def unreserve(self, pod: Pod) -> None:
+    def unreserve(self, state, pod: Pod, node_name: str) -> None:
         ns = self._release(pod.key())
         if ns is not None:
             self._fire_release(ns)
+
+    def share_ledger(self, other: "QuotaAdmission") -> None:
+        """Alias this instance's ledger onto ``other``'s (``quota.py:297``):
+        usage is cluster state, so every profile's instance charges and
+        reads one ledger."""
+        for attr in ("_usage", "_charged", "_seeded", "_borrowed", "_loans", "_loan_seq",
+                     "_gang_counts", "_gang_charged", "_reclaim_demand", "_demand_pods",
+                     "_last_reclaim", "_demand_fresh"):
+            setattr(self, attr, getattr(other, attr))
 
     def pod_deleted(self, pod: Pod) -> None:
         self._drop_demand(pod.key())
@@ -412,7 +430,7 @@ class QuotaAdmission:
         self._ensure_seeded(pod.meta.namespace)
         self._charge(pod)
 
-    def pre_enqueue_status(self, pod: Pod) -> Optional[Refusal]:
+    def pre_enqueue(self, pod: Pod) -> Optional[Refusal]:
         """The PreEnqueue gate: None to admit, else the refusal."""
         reason = self._fits(pod)
         return None if reason is None else Refusal(reason)
@@ -447,7 +465,7 @@ class QuotaAdmission:
 
         def admit(pod: Pod) -> Optional[Refusal]:
             if hard is None or pod.meta.namespace != ns:
-                return self.pre_enqueue_status(pod)
+                return self.pre_enqueue(pod)
             req = pod_quota_request(pod)
             dim = self._violated(hard, shadow, req)
             cdim = self._violated(ccaps, cshadow, req) if cohort is not None else None

@@ -3,8 +3,8 @@
 The port's own copy of ``kubernetes_tpu/framework/plugins/slicepacking.py``
 (the sequential twin of the batch program's slice planner): at a slice
 gang's first member the PreFilter plans one node per member ordinal with
-``ops/slice.py:slice_assign_host`` over the live cluster; the Filter then
-pins each member to its planned node. Inert for a pod without the
+``ops/slice.py:slice_assign_host`` over the live cluster; the Filter
+then pins each member to its planned node. Inert for a pod without the
 ``ktpu.dev/slice`` marker or without a PodGroup. Coordinates come from the
 well-known node labels only.
 
@@ -22,6 +22,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
 
 from ...api.types import Pod
 from ...ops.slice import TOPO_SLOT_LABEL, TOPO_SUPERPOD_LABEL, is_slice_pod, slice_assign_host
+from ..interface import Fail
 from ..types import NodeInfo
 from .coscheduling import pod_group_key
 from .noderesources import fits_request
@@ -41,9 +42,14 @@ class SlicePacking:
         self._plans: Dict[str, dict] = {}  # gkey -> {"targets", "next", "seen"}
         self._reserved: Set[str] = set()   # nodes held by live plans
 
-    def pre_filter(self, pod: Pod) -> Tuple[Optional[str], Optional[str]]:
-        """(the member's planned node or None, the unschedulable reason or
-        None)."""
+    def name(self) -> str:
+        return NAME
+
+    def pre_filter(self, state, pod: Pod):
+        """Plans the gang at its first member and sets the member's planned
+        node on ``state.slice_target``; (None, None), or (None, the
+        failure) when no slice fits."""
+        state.slice_target = None
         if not is_slice_pod(pod):
             return None, None
         gkey = pod_group_key(pod)
@@ -57,7 +63,7 @@ class SlicePacking:
         if plan is None:
             plan = self._compute_plan(gkey, pod)
             if plan is None:
-                return None, ERR_NO_SLICE
+                return None, Fail(NAME, ERR_NO_SLICE, False)
             self._plans[gkey] = plan
             self._reserved.update(plan["targets"])
         target = plan["targets"][plan["next"] % len(plan["targets"])]
@@ -66,16 +72,18 @@ class SlicePacking:
         if plan["next"] >= len(plan["targets"]):
             # every ordinal handed out: the members hold the nodes now
             self.forget_gang(gkey)
-        return target, None
+        state.slice_target = target
+        return None, None
 
-    @staticmethod
-    def filter(target: Optional[str], pod: Pod, ni: NodeInfo) -> Optional[str]:
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        """Pins a slice member to its planned node."""
         if not is_slice_pod(pod) or pod_group_key(pod) is None:
             return None
+        target = state.slice_target
         if target is None:
-            return ERR_NO_SLICE
+            return Fail(NAME, ERR_NO_SLICE, False)
         if ni.node is None or ni.node.meta.name != target:
-            return ERR_OUTSIDE
+            return Fail(NAME, ERR_OUTSIDE, False)
         return None
 
     def forget_gang(self, gkey: str) -> None:

@@ -1,11 +1,13 @@
-"""The volume plugins of the default profile as plain functions, and
-VolumeBinding's bind tail.
+"""The volume plugins: their checks as plain functions, and the plugin
+objects with VolumeBinding's bind tail.
 
 An own copy, over (store, pod, NodeInfo), of the volume plugins of
-``kubernetes_tpu/framework/plugins/volume.py`` that the default filter
-list holds, in its order: VolumeRestrictions (and its PreFilter),
+``kubernetes_tpu/framework/plugins/volume.py``: the four of the default
+filter list, in its order, VolumeRestrictions (and its PreFilter),
 NodeVolumeLimits, VolumeBinding (PreFilter ``:284``, Filter ``:304``) and
-VolumeZone. Each check returns None when it passes, else the plugin's
+VolumeZone, and the in-tree attach limits no default list holds
+(``NonCSILimits``: EBSLimits, GCEPDLimits, AzureDiskLimits, CinderLimits,
+``:404-500``). Each check returns None when it passes, else the plugin's
 reason. ``verify_on_node`` runs the four on one node, as
 ``TPUScheduler._verify_volumes_on_node`` does after the device's
 over-admitting screen (``ops/volume_mask.py``).
@@ -27,13 +29,17 @@ ephemeral volumes (``spec.ephemeral_claims``), as in the JAX package.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 from ...api.types import (BINDING_WAIT_FOR_FIRST_CONSUMER, RWOP, Node, PersistentVolumeClaim,
                           Pod)
 from ...apiserver.store import Conflict, NotFound
 from ...ops.volume_mask import ZONE_KEYS
-from ..types import NodeInfo
+from ..interface import Fail
+from ..types import (ADD, CSI_NODE, DELETE, NODE, PV, PVC, STORAGE_CLASS, UPDATE, ClusterEvent,
+                     NodeInfo)
+from . import names
 
 ERR_REASON_NOT_BOUND = "pod has unbound immediate PersistentVolumeClaims"
 ERR_REASON_PVC_NOT_FOUND = "persistentvolumeclaim not found"
@@ -223,32 +229,6 @@ def volume_binding_filter(client, bound: List[PersistentVolumeClaim], ni: NodeIn
     return None
 
 
-class VolumeBinding:
-    """VolumeBinding's Reserve, Unreserve and PreBind: the (PV, PVC) pairs
-    assumed per pod between its Reserve and its PreBind."""
-
-    def __init__(self, client):
-        self.client = client
-        self._assumed: Dict[str, List[Binding]] = {}
-
-    def reserve(self, pod: Pod, node_name: str,
-                node_bindings: Dict[str, List[Binding]]) -> None:
-        self._assumed[pod.key()] = node_bindings.get(node_name, [])
-
-    def unreserve(self, pod: Pod) -> None:
-        self._assumed.pop(pod.key(), None)
-
-    def pre_bind(self, pod: Pod) -> Optional[str]:
-        """Bind the pod's assumed pairs in order; the first failure's
-        reason (another pod bound the PV first), else None."""
-        for pv_name, pvc_key in self._assumed.pop(pod.key(), []):
-            try:
-                self.client.bind_pv(pv_name, pvc_key)
-            except (Conflict, NotFound) as err:
-                return f"binding volumes: {err}"
-        return None
-
-
 # -------------------------------------------------------------- the commit check
 
 
@@ -274,3 +254,203 @@ def verify_on_node(client, pod: Pod, ni: NodeInfo, rwop: Set[str],
         if reason is not None:
             return plugin, reason
     return None
+
+
+# ----------------------------------------------------------------- the plugin objects
+
+
+class VolumeZone:
+    def __init__(self, client=None):
+        self.client = client
+
+    def name(self) -> str:
+        return names.VOLUME_ZONE
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(STORAGE_CLASS, ADD), ClusterEvent(NODE, ADD | UPDATE),
+                ClusterEvent(PVC, ADD), ClusterEvent(PV, ADD | UPDATE)]
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = volume_zone_filter(self.client, pod, ni)
+        return None if reason is None else Fail(names.VOLUME_ZONE, reason, True)
+
+
+class VolumeRestrictions:
+    def __init__(self, client=None, snapshot_fn=None):
+        self.client = client
+        self.snapshot_fn = snapshot_fn or (lambda: ())
+
+    def name(self) -> str:
+        return names.VOLUME_RESTRICTIONS
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(PVC, ADD | DELETE), ClusterEvent(NODE, ADD | UPDATE)]
+
+    def pre_filter(self, state, pod: Pod):
+        if pod.spec.volumes:
+            state.rwop, reason = volume_restrictions_pre_filter(self.client, pod,
+                                                                self.snapshot_fn())
+            if reason is not None:
+                return None, Fail(names.VOLUME_RESTRICTIONS, reason, True)
+        return None, None
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = volume_restrictions_filter(state.rwop, ni)
+        return None if reason is None else Fail(names.VOLUME_RESTRICTIONS, reason, True)
+
+
+class NodeVolumeLimits:
+    def __init__(self, client=None):
+        self.client = client
+
+    def name(self) -> str:
+        return names.NODE_VOLUME_LIMITS
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(CSI_NODE, ADD), ClusterEvent(PVC, ADD), ClusterEvent(PV, ADD)]
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        reason = node_volume_limits_filter(self.client, pod, ni)
+        if reason is None:
+            return None
+        return Fail(names.NODE_VOLUME_LIMITS, reason, reason != ERR_REASON_LIMIT)
+
+
+class VolumeBinding:
+    """VolumeBinding's PreFilter and Filter over the functions above, its
+    Score, and its bind tail: Reserve assumes the chosen node's (PV, PVC)
+    pairs for the pod, Unreserve forgets them, PreBind writes each through
+    the store's ``bind_pv``. A pod without PreFilter state (a plain pod of
+    a batch) reserves nothing."""
+
+    def __init__(self, client=None):
+        self.client = client
+        self._assumed: Dict[str, List[Binding]] = {}
+
+    def name(self) -> str:
+        return names.VOLUME_BINDING
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(PV, ADD | UPDATE), ClusterEvent(PVC, ADD | UPDATE),
+                ClusterEvent(STORAGE_CLASS, ADD), ClusterEvent(NODE, ADD | UPDATE),
+                ClusterEvent(CSI_NODE, ADD | UPDATE)]
+
+    def pre_filter(self, state, pod: Pod):
+        if pod.spec.volumes:
+            state.bound, state.delayed, reason = volume_binding_pre_filter(self.client, pod)
+            if reason is not None:
+                return None, Fail(names.VOLUME_BINDING, reason, True)
+        return None, None
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        if not state.bound and not state.delayed:
+            return None
+        reason = volume_binding_filter(self.client, state.bound, ni, state.delayed,
+                                       state.node_bindings)
+        if reason is None:
+            return None
+        return Fail(names.VOLUME_BINDING, reason, reason != ERR_REASON_NO_PV)
+
+    def score_node(self, state, pod: Pod, ni: NodeInfo) -> int:
+        """0: the score sits behind the VolumeCapacityPriority feature
+        gate, off in the JAX package (volume_binding.go:296)."""
+        return 0
+
+    def reserve(self, state, pod: Pod, node_name: str) -> Optional[str]:
+        if state is not None:
+            self._assumed[pod.key()] = state.node_bindings.get(node_name, [])
+        return None
+
+    def unreserve(self, state, pod: Pod, node_name: str) -> None:
+        self._assumed.pop(pod.key(), None)
+
+    def pre_bind(self, state, pod: Pod, node_name: str) -> Optional[str]:
+        """Bind the pod's assumed pairs in order; the first failure's
+        reason (another pod bound the PV first), else None."""
+        for pv_name, pvc_key in self._assumed.pop(pod.key(), []):
+            try:
+                self.client.bind_pv(pv_name, pvc_key)
+            except (Conflict, NotFound) as err:
+                return f"binding volumes: {err}"
+        return None
+
+
+# the in-tree attach limits per volume type (non_csi.go:45-51)
+NON_CSI_DEFAULT_LIMITS = {"ebs": 39, "gce-pd": 16, "azure-disk": 16, "cinder": 256}
+KUBE_MAX_PD_VOLS = "KUBE_MAX_PD_VOLS"  # the environment override (non_csi.go:66)
+
+
+class NonCSILimits:
+    """The unique volumes of one in-tree type (PVs with ``volume_type``)
+    on the node's pods plus the pod's must stay within the node's limit:
+    its ``attachable-volumes-<type>`` allocatable, else
+    ``$KUBE_MAX_PD_VOLS``, else the type's default (non_csi.go:210)."""
+
+    def __init__(self, name: str, volume_type: str, client=None):
+        self._name = name
+        self.volume_type = volume_type
+        self.client = client
+
+    def name(self) -> str:
+        return self._name
+
+    @staticmethod
+    def events_to_register():
+        return [ClusterEvent(NODE, ADD), ClusterEvent(PVC, ADD), ClusterEvent(PV, ADD)]
+
+    def _typed_pv_of_claim(self, pvc: PersistentVolumeClaim) -> Optional[str]:
+        pv = self.client.get_pv(pvc.bound_pv) if pvc.bound_pv else None
+        return pv.meta.name if pv is not None and pv.volume_type == self.volume_type else None
+
+    def _max_volumes(self, ni: NodeInfo) -> int:
+        from_node = ni.node.status.allocatable.get(f"attachable-volumes-{self.volume_type}")
+        if from_node is not None:
+            return int(from_node)
+        env = os.environ.get(KUBE_MAX_PD_VOLS, "")
+        if env.isdigit() and int(env) > 0:
+            return int(env)
+        return NON_CSI_DEFAULT_LIMITS[self.volume_type]
+
+    def pre_filter(self, state, pod: Pod):
+        claims, missing = pod_pvcs(self.client, pod)
+        if missing is not None:
+            return None, Fail(self._name, ERR_REASON_PVC_NOT_FOUND, True)
+        state.data[self._name] = {name for pvc in claims
+                                  if (name := self._typed_pv_of_claim(pvc)) is not None}
+        return None, None
+
+    def filter(self, state, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
+        new_vols = state.data.get(self._name)
+        if new_vols is None:
+            return Fail(self._name, f"reading {'PreFilter' + self._name!r} from cycleState", True)
+        if not new_vols:
+            return None
+        existing = set()
+        for pvc_key in ni.pvc_ref_counts:
+            pvc = self.client.get_pvc(pvc_key)
+            name = self._typed_pv_of_claim(pvc) if pvc is not None else None
+            if name is not None:
+                existing.add(name)
+        if len(existing | new_vols) > self._max_volumes(ni):
+            return Fail(self._name, ERR_REASON_LIMIT, False)
+        return None
+
+
+def make_ebs_limits(client=None) -> NonCSILimits:
+    return NonCSILimits(names.EBS_LIMITS, "ebs", client)
+
+
+def make_gce_pd_limits(client=None) -> NonCSILimits:
+    return NonCSILimits(names.GCE_PD_LIMITS, "gce-pd", client)
+
+
+def make_azure_disk_limits(client=None) -> NonCSILimits:
+    return NonCSILimits(names.AZURE_DISK_LIMITS, "azure-disk", client)
+
+
+def make_cinder_limits(client=None) -> NonCSILimits:
+    return NonCSILimits(names.CINDER_LIMITS, "cinder", client)

@@ -19,8 +19,9 @@ metrics:
   violations, lowest highest victim priority, smallest priority sum,
   fewest victims, latest start of the highest-priority victims, first in
   the walk;
-* the candidate count (:172): max(10% of the nodes, 100), from a random
-  offset.
+* the candidate count (:172): max(minCandidateNodesPercentage of the
+  nodes, minCandidateNodesAbsolute) (DefaultPreemption's arguments, 10%
+  and 100 by default), at most every node, from a random offset.
 
 The filters come from ``framework/runtime.py:FilterRunner``; statuses are
 reason strings. ``prepare_candidate`` evicts through the ``evict``
@@ -70,8 +71,12 @@ class Evaluator:
                  pdbs: Sequence[PodDisruptionBudget], evict: Callable[[Pod, Pod], None],
                  clear_nomination: Callable[[Pod], None], rng: random.Random,
                  screen_fn: Optional[Callable[[str], bool]] = None,
-                 preferred_node: Optional[str] = None):
+                 preferred_node: Optional[str] = None,
+                 min_candidate_nodes_percentage: int = MIN_CANDIDATE_NODES_PERCENTAGE,
+                 min_candidate_nodes_absolute: int = MIN_CANDIDATE_NODES_ABSOLUTE):
         self.filters = filters
+        self.min_pct = min_candidate_nodes_percentage
+        self.min_abs = min_candidate_nodes_absolute
         self.state = state
         self.pdbs = list(pdbs)
         self.evict = evict
@@ -115,9 +120,9 @@ class Evaluator:
 
     def _offset_and_num_candidates(self, num_nodes: int) -> Tuple[int, int]:
         """(:172) a random offset; the count is max(pct * N, abs), at most N."""
-        n = num_nodes * MIN_CANDIDATE_NODES_PERCENTAGE // 100
-        if n < MIN_CANDIDATE_NODES_ABSOLUTE:
-            n = MIN_CANDIDATE_NODES_ABSOLUTE
+        n = num_nodes * self.min_pct // 100
+        if n < self.min_abs:
+            n = self.min_abs
         if n > num_nodes:
             n = num_nodes
         return self.rng.randrange(num_nodes) if num_nodes else 0, n

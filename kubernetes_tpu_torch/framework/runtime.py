@@ -1,85 +1,65 @@
-"""The pod nominator, the host filter chain and the host score runner.
+"""The framework runtime: one ``Framework`` per profile, its filter chain
+and its score runner, and the pod nominator.
 
-An own copy of the parts of ``kubernetes_tpu/framework/runtime.py`` that
-preemption and the sequential path read: ``PodNominator`` (``:37-58``),
-the PreFilters run once per pod, the Filters, the AddPod / RemovePod
-extensions and ``filter_with_nominated_pods``, the two-pass filter of
-``run_filter_plugins_with_nominated_pods`` (``:331-363``), and the PreScore
-and Score runner with normalization and the default weights (``:380-415``;
-``framework/registry.py:152-167``). There is no plugin registry or cycle
-state: ``FilterRunner`` calls the plain functions of ``framework/plugins/``
-and carries what their PreFilters computed in a ``PreFilterState``, which
-the Evaluator clones per dry run. Each check returns None when it passes,
-else its reason (the preemption dry run's form); the ``*_status`` forms
-return a ``Fail`` instead: the plugin, the reason, and whether the status
-is UnschedulableAndUnresolvable, as the JAX plugin returns it, which the
-sequential path's Diagnosis records.
+An own copy of ``kubernetes_tpu/framework/runtime.py``
+(pkg/scheduler/framework/runtime/framework.go). ``build_plugins`` builds a
+profile's plugins as the JAX ``Framework`` does: one instance per plugin
+name from the registry, an entry of the profile's list kept at a point only
+when its instance has the point's method (``interface.POINT_METHODS``), a
+name the registry does not know dropped. ``Framework`` holds the profile's
+points and runs them in their order: the PreEnqueue gate, the PreFilters
+and Filters (``FilterRunner``), PostFilter, the PreScores and Scores
+(``ScoreRunner``), Reserve and Unreserve (the Reserve plugins in reverse),
+Permit, PreBind, Bind (a plugin's ``SKIP`` passes the pod to the next) and
+PostBind; its ``cluster_event_map`` and ``queue_sort_key`` feed the
+scheduling queue. The bind tail's points run over a profile's items of a
+batch (``reserve_batch``, ``permit_batch``, ``pre_bind_batch``,
+``post_bind_batch``), item by item as JAX's batched executors do. The
+default profile is the expansion of an empty config: ``DEFAULT_PLUGINS``
+through the registry.
 
-The PreFilters run in the default order of ``kubernetes_tpu/framework/
-registry.py``: QuotaAdmission and Coscheduling (when the caller has them),
-NodeAffinity, NodePorts, NodeResourcesFit, VolumeRestrictions,
-PodTopologySpread, InterPodAffinity, VolumeBinding, DynamicResources, and
-SlicePacking (when the caller has it); the first failure wins, and the
-node restrictions of NodeAffinity and of claims already allocated must
-intersect. The Filters, in order: NodeUnschedulable, NodeName,
-TaintToleration, NodeAffinity, NodePorts, NodeResourcesFit,
-VolumeRestrictions, NodeVolumeLimits, VolumeBinding and VolumeZone
-(``framework/plugins/volume.py``), PodTopologySpread, InterPodAffinity,
-DynamicResources, SlicePacking. PodTopologySpread and InterPodAffinity
-carry counts that the AddPod / RemovePod extensions move as the dry run
-adds and removes pods. VolumeBinding's Filter records each node's choice
-of PVs for the pod's delayed claims in the state, which its Reserve reads.
+``FilterRunner`` runs the profile's PreFilters once per pod into a
+``PreFilterState`` (the cycle state, which the Evaluator clones per dry
+run): the first failure wins, and the node names the PreFilters restrict
+the pod to must intersect (``:264-278``). ``gates=False`` leaves out the
+host gates, QuotaAdmission and Coscheduling, which judge the tenant and
+the gang, not the node. The Filters run in the profile's order, the first
+failure wins (a ``Fail``: the plugin, the reason, and whether the status
+is UnschedulableAndUnresolvable, which the sequential path's Diagnosis
+records); the AddPod / RemovePod extensions of the PreFilter plugins move
+the counts of PodTopologySpread and InterPodAffinity as the dry run adds
+and removes pods; ``filter_with_nominated_pods`` is the two-pass filter of
+``run_filter_plugins_with_nominated_pods`` (``:331-363``).
 
-``ScoreRunner`` runs the PreScores (TaintToleration, NodeAffinity,
-PodTopologySpread, InterPodAffinity, ImageLocality) and then the Scores in
-the default order and weights: BalancedAllocation 1, ImageLocality 1,
-InterPodAffinity 2, NodeResourcesFit (LeastAllocated) 1, NodeAffinity 2,
-PodTopologySpread 2, TaintToleration 3, each normalized before its weight
-applies, in the JAX plugins' host arithmetic.
-
-``BatchScheduler`` runs without SlicePacking: a slice gang member preempts
-only for a gang the batch rejected, and that rejection arms the gang's
-backoff, which fails Coscheduling's PreFilter first.
+``ScoreRunner`` runs the PreScores and then the Scores, each normalized
+before its weight applies (``:380-415``), in the JAX plugins' host
+arithmetic.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Set, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
 
 from ..api.types import ContainerPort, PersistentVolumeClaim, Pod
-from .plugins import (basic, dynamicresources, imagelocality, interpodaffinity, nodeaffinity,
-                      noderesources, podtopologyspread, volume)
-from .types import (MAX_NODE_SCORE, MIN_NODE_SCORE, NodeInfo, default_normalize_score,
-                    nonzero_request)
+from .interface import POINT_METHODS, SKIP, Fail
+from .plugins import dynamicresources, interpodaffinity, names, podtopologyspread, volume
+from .plugins.dynamicresources import ERR_REASON_PREFILTER_RESTRICTION
+from .types import MAX_NODE_SCORE, MIN_NODE_SCORE, WILDCARD_EVENT, ClusterEvent, NodeInfo
 
-ERR_REASON_PREFILTER_RESTRICTION = "node(s) didn't satisfy plugin(s) prefilter restriction"
-
-
-class Fail(NamedTuple):
-    """A failed check: the plugin, its reason, and whether its status is
-    UnschedulableAndUnresolvable (preemption cannot help on that node)."""
-
-    plugin: str
-    reason: str
-    unresolvable: bool
-
-
-# the Filter reasons whose status is plain Unschedulable; every other
-# Filter reason of the plugins below is UnschedulableAndUnresolvable
-_UNSCHEDULABLE_FILTERS = frozenset(("NodePorts", "NodeResourcesFit", "DynamicResources",
-                                    "SlicePacking"))
-_UNSCHEDULABLE_REASONS = frozenset((volume.ERR_REASON_LIMIT, volume.ERR_REASON_NO_PV,
-                                    podtopologyspread.ERR_REASON_CONSTRAINTS,
-                                    interpodaffinity.ERR_ANTI_AFFINITY,
-                                    interpodaffinity.ERR_EXISTING_ANTI))
-
-
-def _fail(plugin: str, reason: Optional[str]) -> Optional[Fail]:
-    if reason is None:
-        return None
-    return Fail(plugin, reason, plugin not in _UNSCHEDULABLE_FILTERS
-                and reason not in _UNSCHEDULABLE_REASONS)
+DEFAULT_SCHEDULER_NAME = "default-scheduler"
+# the host gates, in the loop's order: judged per tenant and per gang, not
+# per node
+HOST_GATES_ORDER = (names.QUOTA_ADMISSION, names.COSCHEDULING)
+HOST_GATES = frozenset(HOST_GATES_ORDER)
+# the in-tree Reserve plugins with nothing to do for a pod whose PreFilters
+# did not run (a plain winner of a batch, whose state is None): VolumeBinding
+# and DynamicResources act on the state's volumes and claims, Coscheduling
+# never acts at Reserve. ``reserve_batch`` skips them for such a pod.
+RESERVE_NEEDS_STATE = frozenset((names.VOLUME_BINDING, names.DYNAMIC_RESOURCES,
+                                 names.COSCHEDULING))
+# a bind-tail item: (the pod's PreFilter state or None, the pod, its node)
+BindTriple = Tuple[Optional["PreFilterState"], Pod, str]
 
 
 class PodNominator:
@@ -108,51 +88,80 @@ class PodNominator:
 
 @dataclasses.dataclass
 class PreFilterState:
-    """What the PreFilters computed for one pod. NodeAffinity's node-name
-    restriction is returned apart (``pre_filter_status``). ``clone``
-    copies the two count states the extensions move and the delayed
-    claims' per-node choice; the rest is read-only, but for
-    ``allocated``, the claim keys DynamicResources' Reserve took."""
+    """The cycle state of one pod: what its PreFilters (and PreScores)
+    computed. NodeAffinity's node-name restriction is returned apart
+    (``pre_filter_status``). ``clone`` copies the two count states the
+    extensions move, the delayed claims' per-node choice and ``data``; the
+    rest is read-only, but for ``allocated``, the claim keys
+    DynamicResources' Reserve took. ``data`` holds the PreScore results and
+    any other plugin's state, under the plugin's name."""
 
-    ports: Tuple[ContainerPort, ...]        # NodePorts
-    request: Dict[str, int]                 # NodeResourcesFit
-    rwop: Set[str]                          # VolumeRestrictions
-    bound: List[PersistentVolumeClaim]      # VolumeBinding: bound claims
-    spread: podtopologyspread.PreFilterState
-    affinity: interpodaffinity.PreFilterState
-    claims: dynamicresources.Claims         # DynamicResources
+    ports: Tuple[ContainerPort, ...] = ()                                # NodePorts
+    request: Dict[str, int] = dataclasses.field(default_factory=dict)   # NodeResourcesFit
+    rwop: Set[str] = dataclasses.field(default_factory=set)             # VolumeRestrictions
+    bound: List[PersistentVolumeClaim] = dataclasses.field(default_factory=list)  # VolumeBinding
+    spread: podtopologyspread.PreFilterState = dataclasses.field(
+        default_factory=podtopologyspread.PreFilterState)
+    affinity: interpodaffinity.PreFilterState = dataclasses.field(
+        default_factory=interpodaffinity.PreFilterState)
+    claims: dynamicresources.Claims = dataclasses.field(default_factory=list)  # DynamicResources
     slice_target: Optional[str] = None      # SlicePacking: the member's planned node
     # VolumeBinding: the delayed (WaitForFirstConsumer) claims, and the
     # PVs the Filter chose for them per node
     delayed: List[PersistentVolumeClaim] = dataclasses.field(default_factory=list)
     node_bindings: Dict[str, List[volume.Binding]] = dataclasses.field(default_factory=dict)
     allocated: List[str] = dataclasses.field(default_factory=list)
+    data: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     def clone(self) -> "PreFilterState":
         return dataclasses.replace(self, spread=self.spread.clone(),
                                    affinity=self.affinity.clone(),
-                                   node_bindings=dict(self.node_bindings))
+                                   node_bindings=dict(self.node_bindings), data=dict(self.data))
+
+
+Points = Dict[str, List[Tuple[object, int]]]
+
+
+def build_plugins(handle: dict, config: Dict[str, List[Tuple[str, int]]], args: Dict[str, dict],
+                  registry: dict) -> Tuple[Dict[str, object], Points]:
+    """(plugin name -> instance, point -> [(instance, weight)]) of one
+    profile (``runtime.py:161-175``)."""
+    instances: Dict[str, object] = {}
+    points: Points = {}
+    for point, entries in config.items():
+        lst = []
+        for name, weight in entries:
+            factory = registry.get(name)
+            if factory is None:
+                continue  # a name the registry does not know
+            if name not in instances:
+                instances[name] = factory(handle, args.get(name, {}))
+            method = POINT_METHODS.get(point)
+            if method and not hasattr(instances[name], method):
+                continue  # a MultiPoint entry at a point its plugin does not implement
+            lst.append((instances[name], weight))
+        points[point] = lst
+    return instances, points
+
+
+def _named(fail: Fail, plugin) -> Fail:
+    return fail if fail.plugin else fail._replace(plugin=plugin.name())
 
 
 class FilterRunner:
-    """The default PreFilters and Filters over (pod, NodeInfo).
-    ``client`` is the object store PVCs and claims resolve in (None: no
-    pod has volumes or claims); ``node_infos_fn`` lists the cluster's
-    NodeInfos (several PreFilters read every node); ``quota`` and
-    ``coscheduling`` and ``slice_packing`` are the caller's QuotaAdmission,
-    Coscheduling and SlicePacking, or None."""
+    """A profile's PreFilters and Filters over (pod, NodeInfo), built by
+    its ``Framework``. ``node_infos_fn`` lists the cluster's NodeInfos
+    (the preemption dry run walks them); ``pre_filters`` and ``filters``
+    are the profile's ordered [(plugin, weight)]."""
 
-    def __init__(self, client, node_infos_fn: Callable[[], Iterable[NodeInfo]],
-                 nominator: PodNominator,
-                 ns_labels_fn: Optional[interpodaffinity.NsLabelsFn] = None,
-                 quota=None, coscheduling=None, slice_packing=None):
-        self.client = client
+    def __init__(self, node_infos_fn: Callable[[], Iterable[NodeInfo]], nominator: PodNominator,
+                 pre_filters: List[Tuple[object, int]], filters: List[Tuple[object, int]]):
         self.node_infos_fn = node_infos_fn
         self.nominator = nominator
-        self.ns_labels_fn = ns_labels_fn or (lambda ns: {})
-        self.quota = quota
-        self.coscheduling = coscheduling
-        self.slice_packing = slice_packing
+        self.pre_filters = [p for p, _w in pre_filters]
+        self.node_pre_filters = [p for p in self.pre_filters if p.name() not in HOST_GATES]
+        self.filters = [p for p, _w in filters]
+        self.extensions = [p for p in self.pre_filters if hasattr(p, "add_pod")]
 
     def pre_filter(self, pod: Pod) -> Tuple[Optional[PreFilterState], Optional[str]]:
         """(the state, None), or (None, the first failure's reason)."""
@@ -161,53 +170,21 @@ class FilterRunner:
 
     def pre_filter_status(self, pod: Pod, gates: bool = True
                           ) -> Tuple[Optional[PreFilterState], Optional[Set[str]], Optional[Fail]]:
-        """The PreFilters in the default order: (the state, the node names
+        """The PreFilters in the profile's order: (the state, the node names
         they restrict the pod to or None for every node, None), or (None,
-        None, the first failure). ``gates=False`` leaves out the host gates
-        (QuotaAdmission and Coscheduling), which judge the tenant and the
-        gang, not the node."""
-        for plugin, gate in (("QuotaAdmission", self.quota),
-                             ("Coscheduling", self.coscheduling)):
-            if gate is not None and gates:
-                reason = gate.pre_filter(pod)
-                if reason is not None:
-                    return None, None, Fail(plugin, reason, True)
-        names, reason = nodeaffinity.node_affinity_pre_filter(pod)
-        if reason is not None:
-            return None, None, Fail("NodeAffinity", reason, True)
-        infos = list(self.node_infos_fn())
-        rwop: Set[str] = set()
-        if pod.spec.volumes:
-            rwop, reason = volume.volume_restrictions_pre_filter(self.client, pod, infos)
-            if reason is not None:
-                return None, None, Fail("VolumeRestrictions", reason, True)
-        spread = podtopologyspread.pre_filter(pod, infos)
-        affinity = interpodaffinity.pre_filter(pod, infos, self.ns_labels_fn)
-        bound: List[PersistentVolumeClaim] = []
-        delayed: List[PersistentVolumeClaim] = []
-        if pod.spec.volumes:
-            bound, delayed, reason = volume.volume_binding_pre_filter(self.client, pod)
-            if reason is not None:
-                return None, None, Fail("VolumeBinding", reason, True)
-        claims: dynamicresources.Claims = []
-        if pod.spec.resource_claims:
-            claims, reason = dynamicresources.pre_filter(self.client, pod)
-            if reason is not None:
-                return None, None, Fail("DynamicResources", reason, True)
-            for _key, claim, _sels in claims:
-                if claim.allocated_node:
-                    names = ({claim.allocated_node} if names is None
-                             else names & {claim.allocated_node})
-                    if not names:
-                        return None, None, Fail("DynamicResources",
-                                                ERR_REASON_PREFILTER_RESTRICTION, True)
-        target = None
-        if self.slice_packing is not None:
-            target, reason = self.slice_packing.pre_filter(pod)
-            if reason is not None:
-                return None, None, Fail("SlicePacking", reason, False)
-        return PreFilterState(pod.host_ports(), pod.resource_request(), rwop, bound, spread,
-                              affinity, claims, target, delayed), names, None
+        None, the first failure). ``gates=False`` leaves out the host
+        gates."""
+        state = PreFilterState()
+        node_names: Optional[Set[str]] = None
+        for plugin in (self.pre_filters if gates else self.node_pre_filters):
+            restrict, fail = plugin.pre_filter(state, pod)
+            if fail is not None:
+                return None, None, _named(fail, plugin)
+            if restrict is not None:
+                node_names = set(restrict) if node_names is None else node_names & restrict
+                if not node_names:
+                    return None, None, Fail(plugin.name(), ERR_REASON_PREFILTER_RESTRICTION, True)
+        return state, node_names, None
 
     def filter(self, state: PreFilterState, pod: Pod, ni: NodeInfo) -> Optional[str]:
         """The first failing Filter's reason, or None."""
@@ -215,44 +192,22 @@ class FilterRunner:
         return fail.reason if fail is not None else None
 
     def filter_status(self, state: PreFilterState, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
-        """The Filters in the default order; the first failure, or None."""
-        fail = (_fail("NodeUnschedulable", basic.node_unschedulable_filter(pod, ni))
-                or _fail("NodeName", basic.node_name_filter(pod, ni))
-                or _fail("TaintToleration", basic.taint_toleration_filter(pod, ni))
-                or _fail("NodeAffinity", nodeaffinity.node_affinity_filter(pod, ni))
-                or _fail("NodePorts", basic.node_ports_filter(state.ports, ni))
-                or _fail("NodeResourcesFit", noderesources.fit_filter(state.request, ni)))
-        if fail is None and pod.spec.volumes:
-            failed = volume.verify_on_node(self.client, pod, ni, state.rwop, state.bound,
-                                           state.delayed, state.node_bindings)
-            if failed is not None:
-                fail = _fail(*failed)
-        if fail is None and state.spread.constraints:
-            fail = _fail("PodTopologySpread",
-                         podtopologyspread.filter_node(state.spread, pod, ni))
-        if fail is None:
-            fail = _fail("InterPodAffinity",
-                         interpodaffinity.filter_node(state.affinity, pod, ni,
-                                                      self.ns_labels_fn))
-        if fail is None and state.claims:
-            fail = _fail("DynamicResources",
-                         dynamicresources.filter_node(state.claims, ni.node))
-        if fail is None and self.slice_packing is not None:
-            fail = _fail("SlicePacking",
-                         self.slice_packing.filter(state.slice_target, pod, ni))
-        return fail
+        """The Filters in the profile's order; the first failure, or None."""
+        for plugin in self.filters:
+            fail = plugin.filter(state, pod, ni)
+            if fail is not None:
+                return _named(fail, plugin)
+        return None
 
     def add_pod(self, state: PreFilterState, pod: Pod, added: Pod, ni: NodeInfo) -> None:
         """The AddPod extensions: ``added`` joins ``ni`` in the dry run."""
-        podtopologyspread.update_for_pod(state.spread, pod, added, ni.node, 1)
-        interpodaffinity.update_for_pod(state.affinity, pod, added, ni.node, 1,
-                                        self.ns_labels_fn)
+        for plugin in self.extensions:
+            plugin.add_pod(state, pod, added, ni)
 
     def remove_pod(self, state: PreFilterState, pod: Pod, removed: Pod, ni: NodeInfo) -> None:
         """The RemovePod extensions: ``removed`` leaves ``ni``."""
-        podtopologyspread.update_for_pod(state.spread, pod, removed, ni.node, -1)
-        interpodaffinity.update_for_pod(state.affinity, pod, removed, ni.node, -1,
-                                        self.ns_labels_fn)
+        for plugin in self.extensions:
+            plugin.remove_pod(state, pod, removed, ni)
 
     def filter_with_nominated_pods(self, state: PreFilterState, pod: Pod,
                                    ni: NodeInfo) -> Optional[str]:
@@ -281,47 +236,187 @@ class FilterRunner:
 
 
 class ScoreRunner:
-    """The default PreScore and Score points over a pod's feasible nodes
+    """A profile's PreScore and Score points over a pod's feasible nodes
     (``run_pre_score_plugins`` and ``run_score_plugins``): node name ->
-    the weighted sum of the normalized scores. ``node_infos_fn`` lists
-    the snapshot's nodes, which the PreScores of InterPodAffinity,
-    PodTopologySpread and ImageLocality walk."""
+    the weighted sum of the normalized scores. ``pre_scores`` and
+    ``scores`` are the profile's [(plugin, weight)]."""
 
-    def __init__(self, node_infos_fn: Callable[[], Iterable[NodeInfo]],
-                 ns_labels_fn: Optional[interpodaffinity.NsLabelsFn] = None):
-        self.node_infos_fn = node_infos_fn
-        self.ns_labels_fn = ns_labels_fn or (lambda ns: {})
+    def __init__(self, pre_scores: List[Tuple[object, int]], scores: List[Tuple[object, int]]):
+        self.pre_scores = [p for p, _w in pre_scores]
+        self.scores = [(p, w, getattr(p, "normalize_score", None)) for p, w in scores]
 
-    def score(self, pod: Pod, feasible: List[NodeInfo]) -> Dict[str, int]:
-        infos = list(self.node_infos_fn())
-        prefer = basic.taint_toleration_pre_score(pod)
-        preferred = nodeaffinity.preferred_terms(pod)
-        spread = podtopologyspread.pre_score(pod, [ni.node for ni in feasible], infos)
-        topology = interpodaffinity.pre_score(pod, infos, self.ns_labels_fn)
-        images = imagelocality.pre_score(infos)
-        req = nonzero_request(pod.resource_request())
-        plugins = (
-            ("NodeResourcesBalancedAllocation", 1,
-             lambda ni: noderesources.balanced_allocation_score(req, ni), None),
-            ("ImageLocality", 1, lambda ni: imagelocality.score_node(images, pod, ni), None),
-            ("InterPodAffinity", 2, lambda ni: interpodaffinity.score_node(topology, ni),
-             interpodaffinity.normalize_score),
-            ("NodeResourcesFit", 1, lambda ni: noderesources.least_allocated_score(req, ni),
-             None),
-            ("NodeAffinity", 2, lambda ni: nodeaffinity.node_affinity_score(preferred, ni),
-             lambda scores: default_normalize_score(MAX_NODE_SCORE, False, scores)),
-            ("PodTopologySpread", 2, lambda ni: podtopologyspread.score_node(spread, pod, ni),
-             lambda scores: podtopologyspread.normalize_score(spread, scores)),
-            ("TaintToleration", 3, lambda ni: basic.taint_toleration_score(prefer, ni),
-             lambda scores: default_normalize_score(MAX_NODE_SCORE, True, scores)),
-        )
+    def score(self, pod: Pod, feasible: List[NodeInfo],
+              state: Optional[PreFilterState] = None) -> Dict[str, int]:
+        if state is None:
+            state = PreFilterState()
+        for plugin in self.pre_scores:
+            plugin.pre_score(state, pod, feasible)
         totals = {ni.node.meta.name: 0 for ni in feasible}
-        for plugin, weight, score_fn, normalize in plugins:
-            scores = {ni.node.meta.name: score_fn(ni) for ni in feasible}
+        for plugin, weight, normalize in self.scores:
+            scores = {ni.node.meta.name: plugin.score_node(state, pod, ni) for ni in feasible}
             if normalize is not None:
-                normalize(scores)
+                normalize(state, pod, scores)
             for name, v in scores.items():
                 if not MIN_NODE_SCORE <= v <= MAX_NODE_SCORE:
-                    raise RuntimeError(f"plugin {plugin} returned out-of-range score {v}")
+                    raise RuntimeError(f"plugin {plugin.name()} returned out-of-range score {v}")
                 totals[name] += v * weight
         return totals
+
+
+class Framework:
+    """One profile's plugins (profile/profile.go maps a scheduler name to
+    one), built from ``(handle, plugin_config, plugin_args, registry,
+    profile_name)``; ``plugin_config`` None is the default set. ``handle``
+    is the dict of the scheduler's services the factories read
+    (``framework/registry.py``); each profile has its own nominator, as in
+    the JAX package."""
+
+    def __init__(self, handle: dict,
+                 plugin_config: Optional[Dict[str, List[Tuple[str, int]]]] = None,
+                 plugin_args: Optional[Dict[str, dict]] = None, registry=None,
+                 profile_name: str = DEFAULT_SCHEDULER_NAME):
+        from .registry import DEFAULT_PLUGINS, in_tree_registry
+
+        self.profile_name = profile_name
+        self.nominator: PodNominator = handle.setdefault("nominator", PodNominator())
+        self._instances, self.points = build_plugins(
+            handle, plugin_config or DEFAULT_PLUGINS, plugin_args or {},
+            registry or in_tree_registry())
+        snapshot_fn = handle.get("snapshot_fn") or (lambda: ())
+        self.filters = FilterRunner(snapshot_fn, self.nominator, self.points.get("pre_filter", []),
+                                    self.points.get("filter", []))
+        self.scores = ScoreRunner(self.points.get("pre_score", []), self.points.get("score", []))
+        for plugin in self._instances.values():
+            if hasattr(plugin, "set_framework"):
+                plugin.set_framework(self)
+        bind = self.points.get("bind", [])
+        self.default_binder = (len(bind) == 1 and bind[0][0].name() == names.DEFAULT_BINDER)
+        # the host gates the loop runs at pop: (name, plugin) of those present
+        self.gate_plugins = tuple((n, self._instances[n]) for n in HOST_GATES_ORDER
+                                  if n in self._instances)
+        # the bind tail's plugin lists, resolved once
+        self._reserve = [p for p, _w in self.points.get("reserve", [])]
+        self._reserve_stateless = [p for p in self._reserve
+                                   if p.name() not in RESERVE_NEEDS_STATE]
+        self._permit = [p for p, _w in self.points.get("permit", [])]
+        self._pre_bind = [p for p, _w in self.points.get("pre_bind", [])]
+        self._post_bind = [(p, getattr(p, "post_bind_batch", None))
+                           for p, _w in self.points.get("post_bind", [])]
+        self._pre_enqueue = [p for p, _w in self.points.get("pre_enqueue", [])]
+
+    def plugin(self, name: str):
+        return self._instances.get(name)
+
+    def point_names(self, point: str) -> List[Tuple[str, int]]:
+        return [(p.name(), w) for p, w in self.points.get(point, [])]
+
+    def cluster_event_map(self) -> Dict[ClusterEvent, Set[str]]:
+        """Event -> the plugins that registered it (fillEventToPluginMap);
+        a plugin that registers nothing is moved by any event."""
+        out: Dict[ClusterEvent, Set[str]] = {}
+        for name, plugin in self._instances.items():
+            events = plugin.events_to_register() if hasattr(plugin, "events_to_register") else None
+            for ev in events or (WILDCARD_EVENT,):
+                out.setdefault(ev, set()).add(name)
+        return out
+
+    def queue_sort_key(self):
+        """The queue's heap key: the first QueueSort plugin's ``sort_key``,
+        else PrioritySort's order; FIFO without a QueueSort plugin."""
+        qs = self.points.get("queue_sort") or []
+        if qs:
+            key = getattr(qs[0][0], "sort_key", None)
+            return key if key is not None else (lambda qp: (-qp.pod.spec.priority, qp.timestamp))
+        return lambda qp: qp.timestamp
+
+    def pre_enqueue(self, pod: Pod):
+        """The PreEnqueue point: None to admit, else the first refusal."""
+        for plugin in self._pre_enqueue:
+            refusal = plugin.pre_enqueue(pod)
+            if refusal is not None:
+                return refusal
+        return None
+
+    def post_filter(self, pod: Pod, hints=None, unresolvable=()
+                    ) -> Tuple[Optional[str], Optional[str]]:
+        """The PostFilter point: the first plugin that nominates a node
+        wins; (None, the last refusal) when none does."""
+        reason = "no PostFilter plugin could resolve"
+        for plugin, _w in self.points.get("post_filter", []):
+            node, reason = plugin.post_filter(pod, hints, unresolvable)
+            if node:
+                return node, None
+        return None, reason
+
+    # the bind tail, over the profile's items of a batch (``runtime.py:
+    # 541-606``): item by item in order, each item's plugins in the point's
+    # order, the first refusal per item wins
+
+    def reserve_batch(self, items: List[BindTriple]) -> List[Optional[str]]:
+        """The Reserve point per item: the first refusal, or None. An item
+        without PreFilter state skips ``RESERVE_NEEDS_STATE``."""
+        out = []
+        for state, pod, node_name in items:
+            reason = None
+            for plugin in (self._reserve if state is not None else self._reserve_stateless):
+                reason = plugin.reserve(state, pod, node_name)
+                if reason is not None:
+                    break
+            out.append(reason)
+        return out
+
+    def unreserve(self, state: Optional[PreFilterState], pod: Pod, node_name: str) -> None:
+        """Unreserve, the Reserve plugins in reverse."""
+        for plugin in reversed(self._reserve):
+            plugin.unreserve(state, pod, node_name)
+
+    def permit_batch(self, items: List[BindTriple],
+                     on_wait: Callable[[int, float], None]) -> List[Optional[str]]:
+        """The Permit point per item: the first rejection's reason, or None;
+        the first WAIT calls ``on_wait(i, seconds)`` before the next item's
+        Permit runs (a gang's quorum counts the member parked) and gives
+        "waiting"."""
+        out = []
+        for i, (state, pod, node_name) in enumerate(items):
+            verdict = None
+            for plugin in self._permit:
+                reason, wait_s = plugin.permit(state, pod, node_name)
+                if reason is not None:
+                    verdict = reason
+                    break
+                if wait_s is not None:
+                    on_wait(i, wait_s)
+                    verdict = "waiting"
+                    break
+            out.append(verdict)
+        return out
+
+    def pre_bind_batch(self, items: List[BindTriple]) -> List[Optional[str]]:
+        """The PreBind point per item: the first refusal, or None."""
+        out = []
+        for state, pod, node_name in items:
+            reason = None
+            for plugin in self._pre_bind:
+                reason = plugin.pre_bind(state, pod, node_name)
+                if reason is not None:
+                    break
+            out.append(reason)
+        return out
+
+    def bind(self, state: Optional[PreFilterState], pod: Pod, node_name: str) -> Optional[str]:
+        """The Bind point, one pod: the first outcome that is not ``SKIP``."""
+        for plugin, _w in self.points.get("bind", []):
+            out = plugin.bind(state, pod, node_name)
+            if out is not SKIP:
+                return out
+        return "no bind plugin accepted the pod"
+
+    def post_bind_batch(self, pods: List[Pod]) -> None:
+        """The PostBind point over a batch's bound pods, each plugin over
+        the batch in turn (one call when it has ``post_bind_batch``)."""
+        for plugin, batch_fn in self._post_bind:
+            if batch_fn is not None:
+                batch_fn(pods)
+            else:
+                for pod in pods:
+                    plugin.post_bind(None, pod, pod.spec.node_name)

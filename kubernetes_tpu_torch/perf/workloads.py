@@ -88,13 +88,14 @@ import numpy as np
 
 from ..api.types import (BINDING_WAIT_FOR_FIRST_CONSUMER, LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE,
                          POD_GROUP_LABEL, ROX, RWOP, CSINode, LabelSelector, ObjectMeta,
-                         PersistentVolume, PersistentVolumeClaim, Pod, PodGroup, ResourceClaim,
-                         ResourceClass, SchedulingQuota, StorageClass)
+                         PersistentVolume, PersistentVolumeClaim, Pod, PodGroup, PriorityClass,
+                         ResourceClaim, ResourceClass, SchedulingQuota, StorageClass)
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.store import Store
 from ..backend.device_state import _bucket, caps_for_cluster
 from ..backend.errors import TransientDeviceError
 from ..framework.plugins.coscheduling import pod_group_key
+from ..framework.runtime import DEFAULT_SCHEDULER_NAME as DEFAULT_SCHEDULER
 from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
 from ..ops.slice import SLICE_LABEL, TOPO_SLOT_LABEL, TOPO_SUPERPOD_LABEL, fragmentation_host
@@ -165,6 +166,10 @@ class PodShape:
     # a pre-bound PV (of this in-tree volume type) and PVC per pod
     pv_volume_type: Optional[str] = None
     priority: int = 0
+    # the PriorityClass the pods name (admission gives them its value)
+    priority_class: str = ""
+    # pod i names scheduler scheduler_names[i % len]; () keeps the default
+    scheduler_names: Tuple[str, ...] = ()
     # gang membership: pods i // gang_size share the PodGroup
     # <prefix>-pg<i // gang_size>. A flat gang's members are anti-affine to
     # their own group on the hostname key; a slice gang's (``slice``) carry
@@ -194,6 +199,8 @@ class PodShape:
                                 anti=True)
         if self.priority:
             pw.priority(self.priority)
+        if self.scheduler_names:
+            pw.scheduler_name(self.scheduler_names[i % len(self.scheduler_names)])
         if self.claim:
             pw.resource_claim(self.claim.name, template_name=self.claim.template)
         if self.pv_volume_type is not None:
@@ -208,7 +215,9 @@ class PodShape:
             pw.label("spread-app", self.prefix)
             pw.spread_constraint(1, self.spread_key,
                                  selector=LabelSelector(match_labels={"spread-app": self.prefix}))
-        return pw.obj()
+        pod = pw.obj()
+        pod.spec.priority_class_name = self.priority_class
+        return pod
 
     @property
     def needs_store(self) -> bool:
@@ -267,6 +276,8 @@ class Workload:
     measured_extra: Tuple[Tuple[PodShape, int], ...] = ()
     tpu_slots: int = 0  # torus coordinate labels (scheduling_basic_nodes)
     cap_overrides: Optional[Dict[str, int]] = None  # Capacities fields over caps_for_cluster
+    # the PriorityClasses the loop's store holds: (name, value)
+    priority_classes: Tuple[Tuple[str, int], ...] = ()
     # a CSINode per node allowing CSI_LIMIT volumes of this driver
     # (nodeAllocatableStrategy.csiNodeAllocatable), or none
     csi_driver: str = ""
@@ -401,11 +412,57 @@ _WARM_PREEMPTORS = 8
 MAX_PREEMPTION_ROUNDS = 16
 
 
-def preemption_basic(nodes: int = 500, init_pods: int = 2000, measured: int = 500) -> Workload:
-    return Workload(f"PreemptionBasic/{nodes}Nodes", nodes, PodShape("victim", **_VICTIM),
-                    init_pods, PodShape("preemptor", **_PREEMPTOR), measured, zones=0,
-                    node_capacity=_PREEMPTION_NODE, warm=PodShape("warm", **_PREEMPTOR),
-                    warm_pods=_WARM_PREEMPTORS)
+# profiles of KubeSchedulerConfiguration (v1beta3) for ``run_loop``'s
+# ``config``: ``batch-b`` lists the default set through multiPoint (every
+# plugin but VolumeBinding, whose Score no default list holds, so listing
+# it would add it there), and its expansion is the default set's;
+# ``most-allocated`` keeps the default set and sets NodeResourcesFit's
+# MostAllocated (ROADMAP C20); ``no-scoring`` disables every Score plugin
+DEFAULT_SET_MULTI_POINT = (
+    "PrioritySort", "QuotaAdmission", "Coscheduling", "NodeUnschedulable", "NodeName",
+    "TaintToleration", "NodeAffinity", "NodePorts", "NodeResourcesFit",
+    "NodeResourcesBalancedAllocation", "VolumeRestrictions", "NodeVolumeLimits", "VolumeZone",
+    "PodTopologySpread", "InterPodAffinity", "DynamicResources", "SlicePacking",
+    "ImageLocality", "DefaultPreemption", "DefaultBinder")
+PROFILES = {
+    DEFAULT_SCHEDULER: {},
+    "batch-b": {"plugins": {
+        "multiPoint": {"enabled": [{"name": n} for n in DEFAULT_SET_MULTI_POINT]},
+        "queueSort": {"disabled": [{"name": "PrioritySort"}]}}},
+    "most-allocated": {"pluginConfig": [
+        {"name": "NodeResourcesFit", "args": {"strategy": "MostAllocated"}}]},
+    "no-scoring": {"plugins": {"score": {"disabled": [{"name": "*"}]}}},
+}
+
+
+def profiles_config(*names: str) -> dict:
+    """A v1beta3 config of the ``PROFILES`` named, in order."""
+    return {"apiVersion": "kubescheduler.config.k8s.io/v1beta3",
+            "kind": "KubeSchedulerConfiguration",
+            "profiles": [{"schedulerName": n, **PROFILES[n]} for n in names]}
+
+
+def with_scheduler_names(w: Workload, names: Sequence[str]) -> Workload:
+    """``w`` with its measured pods naming ``names`` in turn."""
+    return dataclasses.replace(w, measured=dataclasses.replace(
+        w.measured, scheduler_names=tuple(names)))
+
+
+def preemption_basic(nodes: int = 500, init_pods: int = 2000, measured: int = 500,
+                     classes: bool = False) -> Workload:
+    """With ``classes``, the victims and the preemptors set no priority and
+    name the PriorityClasses ``low`` (1) and ``high`` (100), which the
+    loop's store creates before the pods (``run_loop``): admission gives
+    them the numbers the default form sets."""
+    victim, preemptor, pcs = _VICTIM, _PREEMPTOR, ()
+    if classes:
+        victim = dict(_VICTIM, priority=0, priority_class="low")
+        preemptor = dict(_PREEMPTOR, priority=0, priority_class="high")
+        pcs = (("low", _VICTIM["priority"]), ("high", _PREEMPTOR["priority"]))
+    return Workload(f"PreemptionBasic/{nodes}Nodes", nodes, PodShape("victim", **victim),
+                    init_pods, PodShape("preemptor", **preemptor), measured, zones=0,
+                    node_capacity=_PREEMPTION_NODE, warm=PodShape("warm", **preemptor),
+                    warm_pods=_WARM_PREEMPTORS, priority_classes=pcs)
 
 
 def preemption_pvs(nodes: int = 500, init_pods: int = 2000, measured: int = 500) -> Workload:
@@ -544,15 +601,20 @@ def create_gang_pod(store, pod: Pod, size: int, convert=lambda obj: obj) -> None
 
 
 def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BATCH,
-             batch_deadline_ms: Optional[float] = 0, warm: bool = False) -> dict:
+             batch_deadline_ms: Optional[float] = 0, warm: bool = False,
+             config: Optional[dict] = None, out_of_tree_registry: Optional[dict] = None) -> dict:
     """Drive ``w`` through the scheduler loop, as the JAX harness's Runner
     does (``kubernetes_tpu/perf/harness.py:309-700``): a fresh ``Store``
-    and ``TPUScheduler(store, device, ...)``; the nodes created, then the
+    and the ``TPUScheduler`` that ``config.scheduler_from_config`` builds on
+    ``device`` from ``config`` (a KubeSchedulerConfiguration dict; None,
+    the default profile alone) and ``out_of_tree_registry``; the
+    workload's PriorityClasses created, the nodes created, then the
     init pods (and warm pods) created and settled; then the measured pods
     created and settled, the measured phase timed on the host's clock from
     the first create to the settle. A gang's PodGroup is created just
     before its first member (``create_gang_pod``). ``percentage`` is
-    percentageOfNodesToScore (0: the adaptive default);
+    percentageOfNodesToScore (0: the adaptive default), unless the config
+    sets it;
     ``batch_deadline_ms`` None takes the loop's default
     (``KTPU_BATCH_DEADLINE_MS``). With ``warm``, ``warm_buckets`` runs
     with one sample pod of the measured shape (``PodShape.sample``) after
@@ -563,7 +625,9 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     Returns a dict: ``placed`` (pod key -> node, "" when unbound),
     ``pods_per_s`` (measured pods over the measured phase's seconds),
     ``measured_s``, ``attempt_ms`` (p50 / p90 / p99 of the measured phase's
-    scheduled attempts, pop to commit), ``batches``, ``paths``, ``modes``
+    scheduled attempts, pop to commit, of the config's first profile) and
+    ``attempt_ms_by_profile``, ``scheduled_by_profile`` (the measured
+    phase's scheduled attempts per profile), ``batches``, ``paths``, ``modes``
     ``batch_pods`` and ``buckets`` (per batch: its pods, and the pod axis
     its program ran at),
     ``launches`` (fused-kernel launches over the run, the warm sweep's
@@ -610,12 +674,18 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
 
     from ..backend.device_state import caps_for_cluster
     from ..backend.tpu_scheduler import TPUScheduler
+    from ..config import scheduler_from_config
     from ..ops import fused_step
 
     store = Store()
-    sched = TPUScheduler(store, device=device, batch_size=batch_size,
-                         batch_deadline_ms=batch_deadline_ms,
-                         percentage_of_nodes_to_score=percentage)
+    raw = dict(config or {})
+    raw.setdefault("percentageOfNodesToScore", percentage)
+    sched = scheduler_from_config(store, raw=raw, out_of_tree_registry=out_of_tree_registry,
+                                  scheduler_cls=TPUScheduler, device=device,
+                                  batch_size=batch_size, batch_deadline_ms=batch_deadline_ms)
+    for name, value in w.priority_classes:
+        store.create_priority_class(PriorityClass(meta=ObjectMeta(name=name, namespace=""),
+                                                  value=value))
     launches = fused_step.LAUNCHES
     csinodes = {cn.meta.name: cn for cn in w.csinodes()}
     for ni in w.node_infos():
@@ -651,7 +721,7 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     # starts, so that its collection pauses do not land in the measured phase
     gc.collect()
     hist = sched.smetrics.scheduling_attempt_duration
-    n_before = hist.count("scheduled", sched.profile.name)
+    n_before = {name: hist.count("scheduled", name) for name in sched.profiles}
     stages0, n_cycles = dict(sched.stage_seconds), len(sched.cycle_seconds)
     buckets0 = len(sched.batch_buckets)
     commit0, batches0, carry0 = dict(sched.commit_seconds), sched.batch_counter, \
@@ -669,8 +739,12 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     sched.close()
     dispatch_spans = sched.dispatch_spans[spans0[0]:]
     commit_spans = [s for s in sched.commit_spans[spans0[1]:] if s[0] >= t0]
-    attempt_ms = {f"p{q}": hist.quantile(q / 100, "scheduled", sched.profile.name,
-                                          since=n_before) * 1e3 for q in (50, 90, 99)}
+    attempt_ms_by_profile = {
+        name: {f"p{q}": hist.quantile(q / 100, "scheduled", name, since=n_before[name]) * 1e3
+               for q in (50, 90, 99)}
+        for name in sched.profiles if hist.count("scheduled", name) > n_before[name]}
+    attempt_ms = attempt_ms_by_profile.get(
+        next(iter(sched.profiles)), {f"p{q}": 0.0 for q in (50, 90, 99)})
     first_batch_ms: Dict[int, float] = {}
     measured_buckets = sched.batch_buckets[buckets0:]
     measured_cycles = sched.cycle_seconds[n_cycles:]
@@ -680,7 +754,10 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     return {
         "placed": {k: p.spec.node_name for k, p in store.pods.items()},
         "pods_per_s": w.n_measured / measured_s, "measured_s": measured_s,
-        "attempt_ms": attempt_ms, "batches": sched.batch_counter,
+        "attempt_ms": attempt_ms, "attempt_ms_by_profile": attempt_ms_by_profile,
+        "scheduled_by_profile": {name: hist.count("scheduled", name) - n_before[name]
+                                 for name in sched.profiles},
+        "batches": sched.batch_counter,
         "paths": list(sched.batch_paths), "modes": list(sched.batch_modes),
         "buckets": list(sched.batch_buckets), "batch_pods": list(sched.batch_pods),
         "launches": fused_step.LAUNCHES - launches - sched.warm_launches,
@@ -1308,7 +1385,7 @@ def run_loop_soak(w: Soak, device, percentage: int = 0, comparer_every_n: int = 
         store.create_object("SchedulingQuota", q)
     launches = fused_step.LAUNCHES
     t0 = time.perf_counter()
-    out = soak_rounds(w, store, sched, sched.profile.quota, clock)
+    out = soak_rounds(w, store, sched, sched._quota_plugin(), clock)
     soak_s = time.perf_counter() - t0
     sched.close()
     hist = sched.smetrics.scheduling_attempt_duration
@@ -1318,12 +1395,12 @@ def run_loop_soak(w: Soak, device, percentage: int = 0, comparer_every_n: int = 
         "modes": list(sched.batch_modes), "paths": list(sched.batch_paths),
         "launches": fused_step.LAUNCHES - launches,
         "pods_per_s": sum(out["bound"].values()) / soak_s, "soak_s": soak_s,
-        "attempt_ms": {f"p{q}": hist.quantile(q / 100, "scheduled", sched.profile.name) * 1e3
+        "attempt_ms": {f"p{q}": hist.quantile(q / 100, "scheduled", DEFAULT_SCHEDULER) * 1e3
                        for q in (50, 99)},
         "batch_ms": [t * 1e3 for t in sched.cycle_seconds],
         "stage_ms": {k: v * 1e3 for k, v in sched.stage_seconds.items()},
         "commit_ms": {k: v * 1e3 for k, v in sched.commit_seconds.items()},
-        "evicted": sum(sched.smetrics.evicted_pods.by_labels.values()), "reclaims": sched.profile.quota.reclaims_executed,
+        "evicted": sum(sched.smetrics.evicted_pods.by_labels.values()), "reclaims": sched._quota_plugin().reclaims_executed,
         "fallback_scheduled": sched.fallback_scheduled,
         "screen_ms": {k: v * 1e3 for k, v in sched.screen_seconds.items()},
         **_relay_outcome(sched), **_volume_outcome(store),

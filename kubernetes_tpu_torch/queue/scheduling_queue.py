@@ -26,7 +26,7 @@ plain three-part queue, in the same order):
   (``:547-590``) is the targeted release move, through a shadow admitter.
 - ``gang_key_fn(pod)``: a gang member's arrival or move brings its parked
   siblings along (``activate_gang``, ``:591-615``), at most once per gang
-  per ``POD_INITIAL_BACKOFF`` (the starvation guard).
+  per ``initial_backoff`` (the starvation guard).
 - ``ns_weight_fn(ns)``: namespaces with a weight get activeQ heaps of
   their own, served by deficit round robin (``:163-205``, ``:326-418``) in
   proportion to the weight, a gang keeping its tenant's turn; the other
@@ -86,8 +86,13 @@ class SchedulingQueue:
                  now_fn=time.monotonic,
                  gang_key_fn: Optional[Callable[[Pod], Optional[str]]] = None,
                  pre_enqueue_fn: Optional[GateFn] = None,
-                 ns_weight_fn: Optional[Callable[[str], Optional[float]]] = None):
+                 ns_weight_fn: Optional[Callable[[str], Optional[float]]] = None,
+                 initial_backoff: float = POD_INITIAL_BACKOFF,
+                 max_backoff: float = POD_MAX_BACKOFF):
         self._lock = threading.RLock()
+        # podInitialBackoffSeconds and podMaxBackoffSeconds
+        self.initial_backoff = initial_backoff
+        self.max_backoff = max_backoff
         self.less_key = less_key or priority_sort_key
         self.now_fn = now_fn
         self.set_cluster_event_map(cluster_event_map or {})
@@ -123,11 +128,11 @@ class SchedulingQueue:
 
     def _backoff_duration(self, qp: QueuedPodInfo) -> float:
         """calculateBackoffDuration (:766): initial * 2^(attempts-1), capped."""
-        d = POD_INITIAL_BACKOFF
+        d = self.initial_backoff
         for _ in range(1, qp.attempts):
             d *= 2
-            if d >= POD_MAX_BACKOFF:
-                return POD_MAX_BACKOFF
+            if d >= self.max_backoff:
+                return self.max_backoff
         return d
 
     def _tenant_of(self, pod: Pod) -> Optional[str]:
@@ -444,12 +449,12 @@ class SchedulingQueue:
     @_locked
     def activate_gang(self, gkey: str) -> int:
         """Move every unschedulable member of ``gkey`` toward activeQ, at
-        most once per ``POD_INITIAL_BACKOFF`` per gang."""
+        most once per ``initial_backoff`` per gang."""
         if self.gang_key_fn is None:
             return 0
         now = self.now_fn()
         last = self._gang_last_co.get(gkey)
-        if last is not None and now - last < POD_INITIAL_BACKOFF:
+        if last is not None and now - last < self.initial_backoff:
             return 0
         moved = 0
         for key in list(self._unschedulable):

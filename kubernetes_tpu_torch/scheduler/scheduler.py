@@ -7,9 +7,20 @@ handlers feed the cache and the queue (``_add_all_event_handlers``): an
 unbound pod of this scheduler joins the queue, a bound one the cache and a
 queue move (``assigned_pod_updated_or_added``); a node event updates the
 cache and moves the pods the change may help. A failed pod
-(``_handle_scheduling_failure``) runs the profile's PostFilter
-(DefaultPreemption) when it failed a filter, persists its nomination in
-the store, and returns to the queue unless it is gone or bound meanwhile.
+(``_handle_scheduling_failure``) runs its profile's PostFilter
+(DefaultPreemption) when it failed a filter and the profile has one,
+persists its nomination in the store, and returns to the queue unless it
+is gone or bound meanwhile.
+
+Profiles (``:150-240``, ``:428-432``): ``profiles`` maps each scheduler
+name to a ``framework/runtime.py:Framework`` or to its spec
+(``plugin_config``, ``plugin_args``, ``registry``), built over one handle
+of the scheduler's services; without it the one default profile. The
+scheduler is responsible for the pods that name one of its profiles
+(``framework_for_pod``); the queue takes the union of the profiles' event
+maps and the first profile's QueueSort, a pod's PreEnqueue gate is its own
+profile's, and every profile's QuotaAdmission charges one ledger
+(``share_ledger``), read through ``_quota_plugin``.
 ``run_until_settled`` (the reference's ``run_batched_until_settled``,
 ``:936``, which its ``TPUScheduler.run_until_settled`` calls) drives the
 subclass's ``schedule_batch_cycle`` until the queue settles.
@@ -54,8 +65,7 @@ backoff queue. It reads the snapshot the failure path reads (the commit
 worker's own, with the worker).
 
 Left out: the per-pod cycle ``schedule_one`` (the loop hands pods to
-``schedule_one_pod``), the extenders and profiles other than the default
-one.
+``schedule_one_pod``) and the extenders.
 """
 
 from __future__ import annotations
@@ -70,9 +80,9 @@ from ..api.types import Node, Pod, PodStatus
 from ..apiserver.store import ADDED, DELETED, MODIFIED, NotFound, Store
 from ..cache.cache import Cache
 from ..cache.snapshot import Snapshot
+from ..framework.plugins import names
 from ..framework.plugins.coscheduling import pod_group_key
-from ..framework.profile import Profile
-from ..framework.runtime import PreFilterState
+from ..framework.runtime import DEFAULT_SCHEDULER_NAME, Framework, PreFilterState
 from ..framework.types import ALL, WILDCARD, ClusterEvent, Diagnosis, NodeInfo, QueuedPodInfo
 from ..metrics.scheduler_metrics import ERROR, UNSCHEDULABLE, SchedulerMetrics
 from ..ops.tiebreak import name_hash, pod_seed, tie_key
@@ -123,13 +133,15 @@ class WaitingPod:
 
 @dataclasses.dataclass
 class BindItem:
-    """A placed pod entering the bind tail: ``assumed`` is its clone in
-    the cache, once assumed; ``state`` its PreFilter state, which the
-    Reserve, Unreserve and PreBind of VolumeBinding and DynamicResources
-    read (None for a plain pod of a batch, whose PreFilters did not run)."""
+    """A placed pod entering the bind tail, with its profile's framework:
+    ``assumed`` is its clone in the cache, once assumed; ``state`` its
+    PreFilter state, which the Reserve, Unreserve and PreBind of
+    VolumeBinding and DynamicResources read (None for a plain pod of a
+    batch, whose PreFilters did not run)."""
 
     qp: QueuedPodInfo
     node_name: str
+    fwk: Framework
     assumed: Optional[Pod] = None
     state: Optional[PreFilterState] = None
     device: bool = True  # the device committed the placement (not the sequential path)
@@ -175,8 +187,9 @@ class SyncCounters(dict):
 
 
 class Scheduler:
-    def __init__(self, store: Store, percentage_of_nodes_to_score: int = 0,
-                 now_fn=time.monotonic):
+    def __init__(self, store: Store, profiles: Optional[Dict[str, object]] = None,
+                 percentage_of_nodes_to_score: int = 0, pod_initial_backoff: float = 1.0,
+                 pod_max_backoff: float = 10.0, now_fn=time.monotonic):
         self.store = store
         self.now_fn = now_fn
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
@@ -200,30 +213,85 @@ class Scheduler:
         self._last_unsched_flush = now_fn()
         self.waiting_pods: Dict[str, WaitingPod] = {}
         self._reject_depth = 0  # reject_waiting_pod's nesting: the outermost moves
-        self.profile = Profile(store, lambda: self._failure_snapshot().list(), store.ns_labels,
-                               self._evict, self._clear_nomination, store.list_pdbs,
-                               bound_pods_fn=self._bound_pods, metrics=self.smetrics,
-                               now_fn=now_fn, waiting=WaitingPods(self))
-        quota = self.profile.quota
-        self.queue = SchedulingQueue(less_key=self.profile.sort_key,
-                                     cluster_event_map=self.profile.event_map, now_fn=now_fn,
-                                     gang_key_fn=pod_group_key,
-                                     pre_enqueue_fn=self.profile.pre_enqueue,
-                                     ns_weight_fn=quota.weight_for)
-        quota.on_release = self._on_quota_release
-        quota.on_evict = self._quota_evict
+        # the services every profile's plugins are built over (the handle)
+        handle_base = {
+            "snapshot_fn": lambda: self._failure_snapshot().list(),
+            "ns_labels_fn": store.ns_labels,
+            "client": store,
+            "metrics": self.smetrics,
+            "now_fn": now_fn,
+            "waiting_pods": WaitingPods(self),
+            "bound_pods_fn": self._bound_pods,
+            "evict": self._evict,
+            "clear_nomination": self._clear_nomination,
+        }
+        self.profiles: Dict[str, Framework] = {}
+        for name, spec in (profiles or {DEFAULT_SCHEDULER_NAME: {}}).items():
+            if isinstance(spec, Framework):
+                self.profiles[name] = spec
+                continue
+            self.profiles[name] = Framework(dict(handle_base),
+                                            plugin_config=spec.get("plugin_config"),
+                                            plugin_args=spec.get("plugin_args"),
+                                            registry=spec.get("registry"), profile_name=name)
+        event_map: Dict[ClusterEvent, set] = {}
+        for fwk in self.profiles.values():
+            for ev, plugins in fwk.cluster_event_map().items():
+                event_map.setdefault(ev, set()).update(plugins)
+        self.event_map = event_map
+        # one quota ledger for every profile: Reserve charges land in the
+        # pod's own profile's instance, release and fair share read any
+        self._quota = None  # the first profile's QuotaAdmission that has one
+        for fwk in self.profiles.values():
+            quota = fwk.plugin(names.QUOTA_ADMISSION)
+            if quota is None:
+                continue
+            quota.on_release = self._on_quota_release
+            quota.on_evict = self._quota_evict
+            if self._quota is None:
+                self._quota = quota
+            else:
+                quota.share_ledger(self._quota)
+        # profile name -> its QuotaAdmission, else the shared one
+        self._quota_of = {name: fwk.plugin(names.QUOTA_ADMISSION) or self._quota
+                          for name, fwk in self.profiles.items()}
+        first = next(iter(self.profiles.values()))
+        # one profile's PreEnqueue serves every pod the queue takes
+        gate = first.pre_enqueue if len(self.profiles) == 1 else self._pre_enqueue_gate
+        self.queue = SchedulingQueue(
+            less_key=first.queue_sort_key(), cluster_event_map=event_map, now_fn=now_fn,
+            gang_key_fn=pod_group_key, pre_enqueue_fn=gate,
+            ns_weight_fn=self._quota.weight_for if self._quota is not None else None,
+            initial_backoff=pod_initial_backoff, max_backoff=pod_max_backoff)
         self._add_all_event_handlers()
 
     def _bound_pods(self):
         return (p for p in self.store.pods.values() if p.spec.node_name)
 
+    def framework_for_pod(self, pod: Pod) -> Framework:
+        return self.profiles[pod.spec.scheduler_name]
+
     # ----------------------------------------------------------- quota admission
+
+    def _quota_plugin(self, pod: Optional[Pod] = None):
+        """The pod's profile's QuotaAdmission, else any profile's (the
+        ledger is one), else None."""
+        if pod is None:
+            return self._quota
+        return self._quota_of.get(pod.spec.scheduler_name, self._quota)
+
+    def _pre_enqueue_gate(self, pod: Pod):
+        """The queue's admission gate: the pod's profile's PreEnqueue."""
+        fwk = self.profiles.get(pod.spec.scheduler_name)
+        return fwk.pre_enqueue(pod) if fwk is not None else None
 
     def _on_quota_release(self, ns: str) -> int:
         """The targeted release move: the namespace's gated pods that the
         freed headroom admits, one freed slot per pod."""
-        quota = self.profile.quota
-        return self.queue.move_gated_pods(namespace=ns, plugin="QuotaAdmission",
+        quota = self._quota_plugin()
+        if quota is None:
+            return 0
+        return self.queue.move_gated_pods(namespace=ns, plugin=names.QUOTA_ADMISSION,
                                           admit_fn=quota.shadow_admitter(ns))
 
     def _quota_evict(self, pods: List[Pod], reason: str) -> int:
@@ -274,7 +342,7 @@ class Scheduler:
         """eventhandlers.go:249's dynamic arm (``:316-338``): every other
         kind the event map names gets a handler that moves the pods whose
         failed plugins registered it."""
-        wanted = {ev.resource for ev in self.profile.event_map
+        wanted = {ev.resource for ev in self.event_map
                   if ev.resource not in ("Pod", "Node", WILDCARD)}
         for resource in sorted(wanted):
             def handler(event, old, new, _res=resource):
@@ -282,12 +350,13 @@ class Scheduler:
             self.store.add_event_handler(resource, handler)
 
     def _on_pod_event(self, event: str, old: Optional[Pod], new: Optional[Pod]) -> None:
-        quota = self.profile.quota
         if event == ADDED:
             if new.spec.node_name:
                 self._bump_external()  # a pod bound elsewhere
                 self.cache.add_pod(new)
-                quota.pod_observed_bound(new)
+                quota = self._quota_of.get(new.spec.scheduler_name, self._quota)
+                if quota is not None:
+                    quota.pod_observed_bound(new)
                 self.queue.assigned_pod_updated_or_added(new)
             elif self._responsible_for(new):
                 self.queue.add(new)
@@ -299,7 +368,9 @@ class Scheduler:
                         # assume is already in the device carry
                         self._bump_external()
                     self.cache.add_pod(new)  # the binding's confirmation
-                    quota.pod_observed_bound(new)
+                    quota = self._quota_of.get(new.spec.scheduler_name, self._quota)
+                    if quota is not None:
+                        quota.pod_observed_bound(new)
                 else:
                     self._bump_external()
                     self.cache.update_pod(old, new)
@@ -309,7 +380,9 @@ class Scheduler:
         elif event == DELETED and old is not None:
             # the quota release first: the POD_DELETE wave below must
             # re-gate against the freed headroom
-            quota.pod_deleted(old)
+            quota = self._quota_plugin(old)
+            if quota is not None:
+                quota.pod_deleted(old)
             if old.spec.node_name:
                 self._bump_external()
                 self.cache.remove_pod(old)
@@ -317,7 +390,9 @@ class Scheduler:
             else:
                 self.queue.delete(old)
             if pod_group_key(old) is not None and self._responsible_for(old):
-                self.profile.coscheduling.pod_deleted(old)
+                cos = self.framework_for_pod(old).plugin(names.COSCHEDULING)
+                if cos is not None:
+                    cos.pod_deleted(old)
 
     def _on_node_event(self, event: str, old: Optional[Node], new: Optional[Node]) -> None:
         self._bump_external()  # any node event invalidates the device carry
@@ -349,7 +424,7 @@ class Scheduler:
         return None
 
     def _responsible_for(self, pod: Pod) -> bool:
-        return pod.spec.scheduler_name == self.profile.name
+        return pod.spec.scheduler_name in self.profiles
 
     def _bump_external(self) -> None:
         with self._ext_mu:
@@ -393,7 +468,8 @@ class Scheduler:
         wp = self.waiting_pods.pop(pod_key, None)
         if wp is None:
             return False
-        self._bind_stage([BindItem(QueuedPodInfo(pod=wp.pod), wp.node_name, wp.pod, wp.state)],
+        self._bind_stage([BindItem(QueuedPodInfo(pod=wp.pod), wp.node_name,
+                                   self.framework_for_pod(wp.pod), wp.pod, wp.state)],
                          wp.pod_cycle, wp.t0)
         return True
 
@@ -407,12 +483,12 @@ class Scheduler:
             return False
         self._reject_depth += 1
         try:
-            self.profile.unreserve(wp.pod, wp.node_name, wp.state)
+            self.framework_for_pod(wp.pod).unreserve(wp.state, wp.pod, wp.node_name)
             self.cache.forget_pod(wp.pod)
             diagnosis = Diagnosis(unschedulable_plugins={p for p in plugins if p})
             self._handle_scheduling_failure(QueuedPodInfo(pod=wp.pod), True, diagnosis,
                                             wp.pod_cycle)
-            self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name,
+            self.smetrics.observe_attempt(UNSCHEDULABLE, wp.pod.spec.scheduler_name,
                                           self.now_fn() - wp.t0)
         finally:
             self._reject_depth -= 1
@@ -428,8 +504,9 @@ class Scheduler:
             if key not in self.waiting_pods:
                 continue  # a gang's cascade rejected it already
             gkey = pod_group_key(wp.pod)
-            if gkey is not None:
-                self.profile.coscheduling.reject_gang(gkey, "timeout")
+            cos = self.framework_for_pod(wp.pod).plugin(names.COSCHEDULING)
+            if gkey is not None and cos is not None:
+                cos.reject_gang(gkey, "timeout")
             if key in self.waiting_pods:
                 self.reject_waiting_pod(key, ("Coscheduling",))
 
@@ -447,7 +524,9 @@ class Scheduler:
                 current = self.store.get_pod(pod.key())
                 if current is not None and not current.spec.node_name:
                     self.queue.add(current)
-            self.profile.quota.run_reclaim(now)
+            quota = self._quota_plugin()
+            if quota is not None:
+                quota.run_reclaim(now)
         if now - self._last_unsched_flush >= 30.0:
             self._last_unsched_flush = now
             self.queue.flush_unschedulable_left_over()
@@ -465,22 +544,22 @@ class Scheduler:
         pod turned away by an error (``unschedulable`` False) takes the
         backoff queue."""
         pod = qp.pod
+        fwk = self.framework_for_pod(pod)
         nominated_node = ""
         if unschedulable:
             self.metrics.inc("unschedulable")
-            if diagnosis.node_to_status:
+            if diagnosis.node_to_status and fwk.points.get("post_filter"):
                 self.smetrics.preemption_attempts.inc()
-                node, _reason = self.profile.preemption.post_filter(pod, hints,
-                                                                    diagnosis.unresolvable)
+                node, _reason = fwk.post_filter(pod, hints, diagnosis.unresolvable)
                 if node:
                     nominated_node = node
         if nominated_node:
-            self.profile.nominator.add_nominated_pod(pod, nominated_node)
+            fwk.nominator.add_nominated_pod(pod, nominated_node)
             self.nominations.append((pod.key(), nominated_node))
             try:
                 self.store.update_pod_nominated_node(pod.key(), nominated_node)
             except NotFound:
-                self.profile.nominator.delete_nominated_pod_if_exists(pod)
+                fwk.nominator.delete_nominated_pod_if_exists(pod)
         current = self.store.get_pod(pod.key())
         if current is None or current.spec.node_name:
             return  # gone, or bound by someone else
@@ -503,16 +582,17 @@ class Scheduler:
         try:
             node_name, state = self.schedule_pod(pod, qp.attempts)
         except FitError as err:
-            self.smetrics.observe_attempt(UNSCHEDULABLE, self.profile.name, self.now_fn() - t0)
+            self.smetrics.observe_attempt(UNSCHEDULABLE, pod.spec.scheduler_name,
+                                          self.now_fn() - t0)
             self._handle_scheduling_failure(qp, True, err.diagnosis, pod_cycle)
             return
         except Exception:  # noqa: BLE001 - a cycle error requeues the pod
             logging.getLogger(__name__).exception("scheduling %s failed", pod.key())
             self.metrics.inc("errors")
-            self.smetrics.observe_attempt(ERROR, self.profile.name, self.now_fn() - t0)
+            self.smetrics.observe_attempt(ERROR, pod.spec.scheduler_name, self.now_fn() - t0)
             self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
             return
-        item = BindItem(qp, node_name, state=state, device=False)
+        item = BindItem(qp, node_name, self.framework_for_pod(pod), state=state, device=False)
         if self._assume(item, pod_cycle):
             self._commit_bindings([item], pod_cycle, t0)
 
@@ -529,7 +609,8 @@ class Scheduler:
             raise FitError(diagnosis)
         if len(feasible) == 1:
             return feasible[0].node.meta.name, state
-        return self._select_host(self.profile.scores.score(pod, feasible), pod, attempts), state
+        totals = self.framework_for_pod(pod).scores.score(pod, feasible, state)
+        return self._select_host(totals, pod, attempts), state
 
     def find_nodes_that_fit_pod(self, pod: Pod, all_nodes: List[NodeInfo]
                                 ) -> Tuple[List[NodeInfo], Diagnosis, Optional[PreFilterState]]:
@@ -538,7 +619,7 @@ class Scheduler:
         until ``num_feasible_nodes_to_find`` nodes fit. A PreFilter failure
         gives every node its status."""
         diagnosis = Diagnosis()
-        filters = self.profile.filters
+        filters = self.framework_for_pod(pod).filters
         state, names, fail = filters.pre_filter_status(pod)
         if fail is not None:
             diagnosis.unschedulable_plugins.add(fail.plugin)

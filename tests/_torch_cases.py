@@ -1629,12 +1629,16 @@ class LoopPair:
     TPUScheduler and in the port's Store under the port's TPUScheduler
     (``device="cpu"``), each on its own FakeClock, both clocks starting
     equal; ``batch_deadline_ms=0`` on both, and ``sched_kw`` (arguments
-    both schedulers take: the relay breaker's and the comparer's). Objects
-    are built from the specs of this module through each package's
-    wrappers and written to both stores in the same order."""
+    both schedulers take: the relay breaker's and the comparer's). With
+    ``config`` (a KubeSchedulerConfiguration dict, its objects the port's)
+    both loops are built by their package's ``scheduler_from_config``, the
+    JAX one from the config rebuilt with ``to_jax``; ``registries`` are
+    the out-of-tree registries (JAX's, the port's). Objects are built from
+    the specs of this module through each package's wrappers and written to
+    both stores in the same order."""
 
     def __init__(self, batch: int = 16, percentage: int = 0, start: bool = True,
-                 sched_kw: dict = None):
+                 sched_kw: dict = None, config: dict = None, registries=(None, None)):
         from kubernetes_tpu.apiserver.store import ClusterStore
         from kubernetes_tpu.utils.clock import FakeClock as JFakeClock
         from kubernetes_tpu_torch.apiserver.store import Store
@@ -1648,6 +1652,7 @@ class LoopPair:
         self.jstore.validation_enabled = False
         self.batch, self.percentage = batch, percentage
         self.sched_kw = dict(sched_kw or {})
+        self.config, self.registries = config, registries
         self.cycles = [0, 0]
         if start:
             self.start()
@@ -1656,16 +1661,32 @@ class LoopPair:
         """Build both schedulers (``start=False`` defers this until the
         stores are filled: the schedulers then replay the stores' LIST)."""
         from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler as JTPUScheduler
+        from kubernetes_tpu.config import scheduler_from_config as jax_from_config
         from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+        from kubernetes_tpu_torch.config import scheduler_from_config
 
-        self.jsched = JTPUScheduler(self.jstore, now_fn=self.jclock, batch_size=self.batch,
-                                    batch_deadline_ms=0,
-                                    percentage_of_nodes_to_score=self.percentage,
-                                    **self.sched_kw)
-        self.tsched = TPUScheduler(self.tstore, device="cpu", now_fn=self.tclock,
-                                   batch_size=self.batch, batch_deadline_ms=0,
-                                   percentage_of_nodes_to_score=self.percentage,
-                                   **self.sched_kw)
+        if self.config is None:
+            self.jsched = JTPUScheduler(self.jstore, now_fn=self.jclock, batch_size=self.batch,
+                                        batch_deadline_ms=0,
+                                        percentage_of_nodes_to_score=self.percentage,
+                                        **self.sched_kw)
+            self.tsched = TPUScheduler(self.tstore, device="cpu", now_fn=self.tclock,
+                                       batch_size=self.batch, batch_deadline_ms=0,
+                                       percentage_of_nodes_to_score=self.percentage,
+                                       **self.sched_kw)
+        else:
+            raw = dict(self.config)
+            raw.setdefault("percentageOfNodesToScore", self.percentage)
+            self.jsched = jax_from_config(self.jstore, raw=to_jax(raw),
+                                          out_of_tree_registry=self.registries[0],
+                                          scheduler_cls=JTPUScheduler, now_fn=self.jclock,
+                                          batch_size=self.batch, batch_deadline_ms=0,
+                                          **self.sched_kw)
+            self.tsched = scheduler_from_config(self.tstore, raw=raw,
+                                                out_of_tree_registry=self.registries[1],
+                                                scheduler_cls=TPUScheduler, device="cpu",
+                                                now_fn=self.tclock, batch_size=self.batch,
+                                                batch_deadline_ms=0, **self.sched_kw)
         # the pods each batch cycle popped, in pop order, per side
         self.popped = ([], [])
         for side, sched in enumerate((self.jsched, self.tsched)):

@@ -679,14 +679,14 @@ def test_worker_ring_binds_every_preemptor(cuda, monkeypatch):
 
     store = Store()
     sched = TPUScheduler(store, device=cuda, batch_size=16, batch_deadline_ms=0)
-    real, missing = sched.profile.preemption.post_filter, []
+    real, missing = sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter, []
 
     def post_filter(pod, hints=None, unresolvable=()):
-        seen = {p.key() for ni in sched.profile.filters.node_infos_fn() for p in ni.pods}
+        seen = {p.key() for ni in sched.profiles["default-scheduler"].filters.node_infos_fn() for p in ni.pods}
         missing.append({k for k, p in list(store.pods.items()) if p.spec.node_name} - seen)
         return real(pod, hints, unresolvable)
 
-    sched.profile.preemption.post_filter = post_filter
+    sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter = post_filter
     for ni in w.node_infos():
         store.create_node(ni.node)
     for pods in (w.init_pod_list(), w.measured_pod_list()):
@@ -1023,3 +1023,42 @@ def test_flap_soak_through_the_loop_matches_cpu(cuda, monkeypatch):
     assert gpu["flap_batches"] == 3 and gpu["relay_opens"] == 1 and gpu["breaker_state"] == 0
     assert gpu["comparer_checks"] > 0 and gpu["comparer_mismatches"] == 0
     assert gpu["launches"] == len(gpu["batch_pods"])
+
+
+@pytest.mark.cuda
+def test_profiles_through_the_loop_match_cpu(cuda, monkeypatch):
+    """The loop built from a KubeSchedulerConfiguration on the card against
+    the CPU loop of the same config, at a small size: two batchable
+    profiles share the fused kernel's batches (one launch per batch, no
+    sequential bind); the MostAllocated and no-scoring profiles' pods take
+    the sequential path, the rest the kernel; PreemptionBasic with
+    PriorityClasses equals its numeric-priority run."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    _ring_env(monkeypatch, "0")
+    names = ("default-scheduler", "batch-b")
+    w = workloads.with_scheduler_names(workloads.scheduling_basic(300, 100, 128), names)
+    config = workloads.profiles_config(*names)
+    gpu = workloads.run_loop(w, cuda, config=config)
+    cpu = workloads.run_loop(w, "cpu", percentage=100, config=config)
+    assert gpu["placed"] == cpu["placed"] and all(gpu["placed"].values())
+    assert set(gpu["paths"]) == {"fused"} and gpu["launches"] == gpu["batches"]
+    assert gpu["fallback_scheduled"] == 0
+    assert gpu["scheduled_by_profile"] == {"default-scheduler": 64, "batch-b": 64}
+
+    names = ("default-scheduler", "most-allocated", "default-scheduler", "no-scoring")
+    w = workloads.with_scheduler_names(workloads.scheduling_basic(200, 60, 64), names)
+    config = workloads.profiles_config("default-scheduler", "most-allocated", "no-scoring")
+    gpu = workloads.run_loop(w, cuda, percentage=100, config=config)
+    cpu = workloads.run_loop(w, "cpu", percentage=100, config=config)
+    for key in ("placed", "cycles", "fallback_scheduled", "batch_pods"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["fallback_scheduled"] == 32 and gpu["launches"] == gpu["batches"]
+
+    runs = [workloads.run_loop(workloads.preemption_basic(24, 96, 24, classes=classes), dev,
+                               percentage=100)
+            for classes, dev in ((True, cuda), (True, "cpu"), (False, cuda))]
+    for key in ("placed", "preempted", "nominations", "cycles", "metrics"):
+        assert runs[0][key] == runs[1][key] == runs[2][key], key
+    assert runs[0]["preempted"] and all(
+        node for key, node in runs[0]["placed"].items() if "/preemptor-" in key)

@@ -152,7 +152,8 @@ def test_coscheduling_matches_jax_plugin():
         out = []
         for jp, tp in zip(jpods, tpods):
             _, st = jplug.pre_filter(CycleState(), jp)
-            got = tplug.pre_filter(tp)
+            _restrict, fail = tplug.pre_filter(None, tp)
+            got = fail.reason if fail is not None else None
             assert (got is None) == st.is_success()
             assert got is None or (got,) == tuple(st.reasons)
             out.append(got)
@@ -177,7 +178,7 @@ def test_coscheduling_matches_jax_plugin():
         for p in jpods[:3][:2] if n_bound == 2 else jpods[2:3]:
             jstore.pods[p.key()] = p.clone()
             jstore.pods[p.key()].spec.node_name = "n"
-        tplug.post_bind_batch({"default/a": n_bound})
+        tplug.post_bind_batch(tpods[:2] if n_bound == 2 else tpods[2:3])
         jplug.post_bind_batch([(None, p, "n") for p in (jpods[:2] if n_bound == 2
                                                          else jpods[2:3])])
         assert pod_group_status(tstore) == pod_group_status(jstore)

@@ -329,7 +329,7 @@ def test_unported_kinds_raise():
         else:
             assert bound == "n0"
         if kind == "quota":
-            assert sched.profile.quota.usage("default")["pods"] == 1
+            assert sched._quota_plugin().usage("default")["pods"] == 1
 
 
 def test_event_map_and_attribution_match_jax():
@@ -338,12 +338,15 @@ def test_event_map_and_attribution_match_jax():
     from kubernetes_tpu.apiserver.store import ClusterStore
     from kubernetes_tpu.backend.tpu_scheduler import _ATTRIBUTION_ORDER
     from kubernetes_tpu.scheduler.scheduler import Scheduler as JScheduler
-    from kubernetes_tpu_torch.framework.profile import ATTRIBUTION_ORDER, DEFAULT_EVENT_MAP
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.backend.tpu_scheduler import ATTRIBUTION_ORDER
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
 
     jmap = JScheduler(ClusterStore()).profiles["default-scheduler"].cluster_event_map()
+    tmap = Scheduler(Store()).profiles["default-scheduler"].cluster_event_map()
     assert {(ev.resource.name, ev.action_type, ev.label): frozenset(p)
             for ev, p in jmap.items()} == {
-        (ev.resource, ev.action_type, ev.label): p for ev, p in DEFAULT_EVENT_MAP.items()}
+        (ev.resource, ev.action_type, ev.label): frozenset(p) for ev, p in tmap.items()}
     assert tuple(ATTRIBUTION_ORDER) == tuple(_ATTRIBUTION_ORDER)
 
 

@@ -212,7 +212,7 @@ def test_small_soak_with_claims_matches_jax(gangs, mode):
         pair.add_quota(q.meta.namespace, q.hard, weight=q.weight, cohort=q.cohort)
     jout = workloads.soak_rounds(w, pair.jstore, pair.jsched, pair.jsched._quota_plugin(),
                                  pair.jclock, convert=to_jax)
-    tout = workloads.soak_rounds(w, pair.tstore, pair.tsched, pair.tsched.profile.quota,
+    tout = workloads.soak_rounds(w, pair.tstore, pair.tsched, pair.tsched._quota_plugin(),
                                  pair.tclock)
     _close(pair)
     got = pair.assert_volume_equal()

@@ -374,7 +374,7 @@ def test_flap_soak_matches_jax(claims, mode):
         pair.add_quota(q.meta.namespace, q.hard, weight=q.weight, cohort=q.cohort)
     jout = workloads.soak_rounds(w, pair.jstore, pair.jsched, pair.jsched._quota_plugin(),
                                  pair.jclock, convert=to_jax)
-    tout = workloads.soak_rounds(w, pair.tstore, pair.tsched, pair.tsched.profile.quota,
+    tout = workloads.soak_rounds(w, pair.tstore, pair.tsched, pair.tsched._quota_plugin(),
                                  pair.tclock)
     _close(pair)
     pair.assert_volume_equal()
@@ -576,7 +576,7 @@ def test_reclaim_breaker_suspends_on_slo_regression():
     _nodes(pair, cpu="8")
     pair.add_quota("lend", {"pods": 6}, weight=2, cohort="pool")
     pair.add_quota("hungry", {"pods": 2}, cohort="pool")
-    plugins = (pair.jsched._quota_plugin(), pair.tsched.profile.quota)
+    plugins = (pair.jsched._quota_plugin(), pair.tsched._quota_plugin())
     for p in plugins:
         p.reclaim_guard_fn = lambda: False
 

@@ -94,7 +94,7 @@ def test_gate_at_pop_and_device_screen(mode):
     assert len(_bound(got, "team-a")) == 2
     assert got["pending"]["gated"] + got["pending"]["unschedulable"] == 3
     assert pair.tsched.quota_flagged == 3
-    assert pair.tsched.profile.quota.usage("team-a")["pods"] == 2
+    assert pair.tsched._quota_plugin().usage("team-a")["pods"] == 2
 
 
 def test_gate_and_release_move_on_delete(mode):
@@ -160,7 +160,7 @@ def test_reclaim_evicts_the_newest_loan(mode):
     _close(pair)
     assert _bound(got, "lend") == ["lend/l-0"] and len(_bound(got, "borrow")) == 2
     assert pair.tsched.smetrics.evicted_pods.labels("quota_reclaim") == 1
-    assert (pair.tsched.profile.quota.reclaims_executed
+    assert (pair.tsched._quota_plugin().reclaims_executed
             == pair.jsched._quota_plugin().reclaims_executed == 1)
 
 
@@ -229,7 +229,7 @@ def test_c12_with_unlanded_worker(step, monkeypatch):
 
     pair.add_pods(gang(jax_api()), gang(torch_api()))
     pair.drive_port_unlanded(8, step)
-    quota = pair.tsched.profile.quota
+    quota = pair.tsched._quota_plugin()
     for advance in (0.0, 3.0, 10.0):
         pair.tclock.advance(advance)
         pair.tsched.queue.flush_backoff_completed()
@@ -262,7 +262,7 @@ def test_small_soak_matches_jax(variant, mode):
         pair.add_quota(q.meta.namespace, q.hard, weight=q.weight, cohort=q.cohort)
     jout = workloads.soak_rounds(w, pair.jstore, pair.jsched, pair.jsched._quota_plugin(),
                                  pair.jclock, convert=to_jax)
-    tout = workloads.soak_rounds(w, pair.tstore, pair.tsched, pair.tsched.profile.quota,
+    tout = workloads.soak_rounds(w, pair.tstore, pair.tsched, pair.tsched._quota_plugin(),
                                  pair.tclock)
     got = pair.assert_gang_equal()
     _close(pair)

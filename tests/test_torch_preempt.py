@@ -251,7 +251,7 @@ def _evaluator_world(seed: int, with_pdbs: bool):
     from kubernetes_tpu.apiserver.store import ClusterStore
     from kubernetes_tpu_torch.api import types as ttypes
     from kubernetes_tpu_torch.framework.plugins.defaultpreemption import DefaultPreemption
-    from kubernetes_tpu_torch.framework.runtime import FilterRunner, PodNominator
+    from kubernetes_tpu_torch.framework.runtime import Framework, PodNominator
 
     prios = [0, 5, 10, 50]
     spec = tc.preempt_cluster_spec(24, seed, prios)
@@ -275,7 +275,7 @@ def _evaluator_world(seed: int, with_pdbs: bool):
     log = {"evicted": [], "cleared": []}
     nominator = PodNominator()
     tplugin = DefaultPreemption(
-        FilterRunner(None, lambda: tinfos, nominator),
+        Framework({"snapshot_fn": lambda: tinfos, "nominator": nominator}).filters,
         lambda victim, pod: log["evicted"].append((victim.key(), pod.key())),
         lambda pod: log["cleared"].append(pod.key()),
         pdb_lister=lambda: tc.pdbs(ttypes, pdb_spec))

@@ -139,11 +139,11 @@ def _claim_world(seed: int):
 def test_claim_prefilter_and_filter_match_jax(seed):
     from kubernetes_tpu.framework.interface import CycleState
     from kubernetes_tpu.framework.plugins.dynamicresources import DynamicResources
-    from kubernetes_tpu_torch.framework.runtime import FilterRunner, PodNominator
+    from kubernetes_tpu_torch.framework.runtime import Framework
 
     jstore, jinfos, jpods, tstore, tinfos, tpods = _claim_world(seed)
     dra = DynamicResources(client=jstore)
-    runner = FilterRunner(tstore, lambda: tinfos, PodNominator())
+    runner = Framework({"client": tstore, "snapshot_fn": lambda: tinfos}).filters
     fwk, _plugin = tc.jax_framework(lambda: jinfos, tc.JaxPreemptClient(jstore, {}))
     from kubernetes_tpu_torch.framework.plugins import dynamicresources as tdra
 
@@ -171,13 +171,14 @@ def test_filter_with_nominated_pods_matches_jax(seed):
     AddPod extensions run for them on a copy of the state), on every
     node."""
     from kubernetes_tpu.framework.interface import CycleState
-    from kubernetes_tpu_torch.framework.runtime import FilterRunner, PodNominator
+    from kubernetes_tpu_torch.framework.runtime import Framework, PodNominator
 
     jinfos, jpods, tinfos, tpods = _topo_world(seed + 10)
     fwk, _plugin = tc.jax_framework(lambda: jinfos, tc.JaxPreemptClient(None, {}))
     fwk.handle_ctx["ns_labels_fn"] = _ns_labels
     nominator = PodNominator()
-    runner = FilterRunner(None, lambda: tinfos, nominator, _ns_labels)
+    runner = Framework({"snapshot_fn": lambda: tinfos, "ns_labels_fn": _ns_labels,
+                        "nominator": nominator}).filters
     for k, (jp, tp) in enumerate(zip(jpods, tpods)):
         jp.spec.priority = tp.spec.priority = 10 * (k % 3)
     for k in range(0, len(jpods), 3):
@@ -367,7 +368,7 @@ def _gang_world(backoff):
     sched = BatchScheduler(cluster(api), caps=Capacities(**caps), device="cpu", client=store)
     clock = lambda: 50.0  # noqa: E731
     sched.coscheduling.now_fn = clock
-    sched.coscheduling.GANG_BACKOFF_S = backoff
+    sched.coscheduling.gang_backoff_s = backoff
     env = tc.JaxEnv(cluster(tc.jax_api()), caps, clock=clock,
                     plugin_args={"Coscheduling": {"gang_backoff_s": backoff}})
     env.store.create_object("PodGroup", jtypes.PodGroup(

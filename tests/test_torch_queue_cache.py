@@ -6,7 +6,8 @@ error), cluster events (eager and inside a coalescing window), clock
 advances, backoff and unschedulable-timeout flushes; the pop order (pod
 and attempts), ``pending_pods``, the cycle counters and each queued pod's
 attempts must be equal after every step. The JAX queue gets the default
-profile's sort key and event map; the port's its own copies.
+profile's sort key and event map; the port's queue its own default
+profile's.
 
 Cache: nodes and bound pods added, updated and removed, pods assumed,
 finished, forgotten and expired; after every step ``update_snapshot`` into
@@ -35,11 +36,13 @@ def _jax_queue(clock):
 
 
 def _port_queue(clock):
-    from kubernetes_tpu_torch.framework.profile import Profile
+    from kubernetes_tpu_torch.apiserver.store import Store
     from kubernetes_tpu_torch.queue.scheduling_queue import SchedulingQueue
+    from kubernetes_tpu_torch.scheduler.scheduler import Scheduler
 
-    return SchedulingQueue(less_key=Profile.sort_key, now_fn=clock,
-                           cluster_event_map=Profile.event_map)
+    fwk = Scheduler(Store()).profiles["default-scheduler"]
+    return SchedulingQueue(less_key=fwk.queue_sort_key(), now_fn=clock,
+                           cluster_event_map=fwk.cluster_event_map())
 
 
 def _events(pkg):

@@ -260,14 +260,15 @@ def test_quota_admission_matches_jax():
 
     def pre(name):
         _, st = jq.pre_filter(CycleState(), jpods[name])
-        reason = tq.pre_filter(tpods[name])
+        _restrict, fail = tq.pre_filter(None, tpods[name])
+        reason = fail.reason if fail is not None else None
         assert (reason is None) == st.is_success() and (reason is None or
                                                         reason == st.reasons[0]), name
         return reason
 
     def res(name):
         st = jq.reserve(CycleState(), jpods[name], "n1")
-        reason = tq.reserve(tpods[name])
+        reason = tq.reserve(None, tpods[name], "n1")
         assert (reason is None) == st.is_success() and (reason is None or
                                                         reason == st.reasons[0]), name
         return reason
@@ -290,7 +291,7 @@ def test_quota_admission_matches_jax():
         elif op == "res":
             verdicts.append(res(name))
         elif op == "unres":
-            tq.unreserve(tpods[name])
+            tq.unreserve(None, tpods[name], "n1")
             jq.unreserve(CycleState(), jpods[name], "n1")
         else:
             tq.pod_deleted(tpods[name])
@@ -331,10 +332,11 @@ def test_quota_edit_is_seen_like_jax():
     def step(i, op):
         if op == "res":
             st = jq.reserve(CycleState(), jpods[i], "n0")
-            reason = tq.reserve(tpods[i])
+            reason = tq.reserve(None, tpods[i], "n0")
         else:
             _, st = jq.pre_filter(CycleState(), jpods[i])
-            reason = tq.pre_filter(tpods[i])
+            _restrict, fail = tq.pre_filter(None, tpods[i])
+            reason = fail.reason if fail is not None else None
         assert (reason is None) == st.is_success(), (i, op)
         assert reason is None or reason == st.reasons[0]
         assert tq.effective_hard("a") == jq.effective_hard("a")

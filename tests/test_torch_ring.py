@@ -581,14 +581,14 @@ def test_worker_loop_equals_inline_ring(monkeypatch):
 def _watch_postfilter(sched, store) -> list:
     """Wrap ``sched``'s PostFilter: each call records the pods bound in the
     store that the node list it reads does not hold."""
-    real, missing = sched.profile.preemption.post_filter, []
+    real, missing = sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter, []
 
     def post_filter(pod, hints=None, unresolvable=()):
-        seen = {p.key() for ni in sched.profile.filters.node_infos_fn() for p in ni.pods}
+        seen = {p.key() for ni in sched.profiles["default-scheduler"].filters.node_infos_fn() for p in ni.pods}
         missing.append({k for k, p in list(store.pods.items()) if p.spec.node_name} - seen)
         return real(pod, hints, unresolvable)
 
-    sched.profile.preemption.post_filter = post_filter
+    sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter = post_filter
     return missing
 
 

@@ -169,6 +169,10 @@ def _imports(path: pathlib.Path):
 def test_import_closure_has_no_jax():
     files = sorted((ROOT / "kubernetes_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # every package of the port, the config package and the registry too
+    assert {"config", "framework", "plugins", "apiserver", "backend"} <= {
+        p.parent.name for p in files}
+    assert ROOT / "kubernetes_tpu_torch" / "framework" / "registry.py" in files
     bad = []
     for path in files:
         for mod in _imports(path):

@@ -345,5 +345,5 @@ def test_oversized_slice_gang_rejected_whole():
     assert pod_group_status(tstore)["default/wide"] == ("Pending", 0)
     assert sched.coscheduling.rejections == plugin.metrics.gangs_rejected.by_label == {
         "infeasible": 1}
-    assert sched.coscheduling.pre_filter(_slice_pods(torch_api())[0]).startswith(
+    assert sched.coscheduling.pre_filter(None, _slice_pods(torch_api())[0])[1].reason.startswith(
         "pod group is in rejection backoff")
