@@ -262,7 +262,33 @@
    config-built loop: every preemptor bound; placements, victims and
    nominations equal to the loop phase's numeric-priority runs on the card
    and on the CPU.
-16. Each workload run prints pods/s, ms per batch, host ms per stage, and
+16. Loop_admission phase: the store's admission chain and the scheduler
+   extenders through the loop, on the card (the inline ring) and on the
+   CPU in this call. SchedulingBasic/5000Nodes/Admission
+   (``workloads.admission_basic``): nodes 0-499 created not Ready, 500-749
+   with the unreachable NoExecute taint, pool=a / pool=b in halves; the
+   1000 measured pods spread over ``default``, team-a (node-selector
+   annotation pool=b), team-b (a LimitRange defaulting 500m / 1Gi; its pods
+   set no requests) and team-c (a RuntimeClass of 250m overhead, a
+   ResourceQuota of 200 pods): placements, the creates refused per plugin
+   (50, by ResourceQuota) and the counters equal to the CPU loop's; no pod
+   on a not-Ready node, every team-a pod on pool=b, every admitted team-c
+   pod charged its overhead (``workloads.admission_violations``). The
+   chain's cost: SchedulingBasic/5000Nodes with the chain and validation
+   on, then off (``admission = None``, ``validation_enabled = False``), 3
+   pairs in turns; prints the median pods/s of each and the µs of a
+   measured create. SchedulingBasic/1000Nodes/Extender (500 init, 256
+   measured pods, a quarter on ``no-scoring``) with an in-process
+   ``workloads.LoopExtender``: placements and calls per verb equal to the
+   CPU run's, no sequential pod on a node the Filter drops, every pod bound
+   through the extender; prints the batch pods on filtered nodes (ROADMAP
+   C22). PreemptionBasic/500Nodes with a preempt-capable extender that
+   keeps every other candidate node: victims and nominations equal to the
+   CPU run's. The same extender behind a ``ThreadingHTTPServer`` on
+   127.0.0.1, configured by urlPrefix with its four verbs, for 64 pods on
+   ``no-scoring`` at 1000 nodes: placements and calls equal to the
+   in-process run of the same pods; prints the ms per POST per verb.
+17. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -1662,8 +1688,8 @@ def preempt_all_phase() -> dict:
 
 
 def _loop_report(name: str, run: dict) -> None:
-    ms = run["measured_batch_ms"]
-    n = len(ms)
+    ms = run["measured_batch_ms"] or [0.0]  # [0.0]: no measured cycle ran a batch
+    n = len(run["measured_batch_ms"])
     m = max(run["measured_batches"], 1)
     ring = (f"ring depth {run['pipeline_depth']}, commit worker "
             f"{'on' if run['commit_worker'] else 'off'}")
@@ -2461,6 +2487,185 @@ def loop_profiles_phase(loop: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- loop_admission phase
+
+ADMISSION_PAIRS = 3  # the chain's cost: chain on / off in turns
+EXT_NODES, EXT_INIT, EXT_PODS, WIRE_PODS = 1000, 500, 256, 64
+EXT_NAMES = ("default-scheduler",) * 3 + ("no-scoring",)
+
+
+def _extenders(made: list, nodes: int, bind: bool = True, preempt: bool = False):
+    """``run_loop``'s ``extenders``: one ``LoopExtender`` binding through
+    the run's store (appended to ``made``)."""
+    def make(store):
+        made.append(workloads.LoopExtender(nodes, store.bind if bind else None, preempt=preempt))
+        return made[-1:]
+    return make
+
+
+def _check_calls(name: str, got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{name}: extender calls {got} differ from {what}'s {want}")
+
+
+def loop_admission_phase(loop: dict) -> dict:
+    """The store's admission chain and the scheduler extenders through the
+    loop on the card, each run against the CPU loop: SchedulingBasic/
+    5000Nodes with the chain doing the work (``workloads.admission_basic``);
+    the chain's cost, SchedulingBasic/5000Nodes with the chain and
+    validation on and off in turns; SchedulingBasic/1000Nodes with an
+    in-process extender and a quarter of the pods on ``no-scoring``;
+    PreemptionBasic/500Nodes with a preempt-capable extender; the same
+    extender behind a local HTTP server against its in-process run."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    w = workloads.admission_basic(N_NODES, N_PODS, N_PODS)
+    gpu = _loop_run(w, f"{w.name} [inline ring]", RING)
+    with _env(**RING):
+        cpu = workloads.run_loop(w, "cpu", percentage=100)
+    _check_loop_same(w.name, gpu, cpu, ("placed", "cycles", "metrics", "refused",
+                                        "refused_pods", "quota_used", "admitted"))
+    team_c = workloads.ADMISSION_TENANTS[3]
+    want_refused = {"ResourceQuota": N_PODS // len(workloads.ADMISSION_TENANTS)
+                    - team_c.quota_pods}
+    if (gpu["refused"] != want_refused or not all(gpu["placed"].values())
+            or set(gpu["paths"]) != {"fused"} or gpu["launches"] != gpu["batches"]):
+        raise AssertionError(f"{w.name}: refused {gpu['refused']}, paths {set(gpu['paths'])}, "
+                             f"{gpu['launches']} launches for {gpu['batches']} batches")
+    broken = workloads.admission_violations(w, gpu)
+    if broken:
+        raise AssertionError(f"{w.name}: {broken[:5]}")
+    n_ready = N_NODES - w.not_ready_nodes
+    print(f"{w.name}: {len(gpu['placed'])} pods bound, creates refused per plugin "
+          f"{gpu['refused']}, no pod on the {w.not_ready_nodes} nodes created not Ready "
+          f"(the {n_ready} others take them, the {w.unreachable_nodes[1] - w.unreachable_nodes[0]}"
+          f" unreachable ones included), every team-a pod on pool=b, team-b's at the "
+          f"LimitRange's 500m, team-c's at 900m + 250m overhead, ResourceQuota used "
+          f"{gpu['quota_used']}; == the cpu loop (placements, refusals, counters); "
+          f"{gpu['launches']} launches for {gpu['batches']} batches; {gpu['pods_per_s']:.1f} "
+          f"pods/s; the measured creates {gpu['measured_create_ms']:.2f} ms")
+    out[w.name] = {"launches": gpu["launches"], "run": gpu}
+    part("admission")
+
+    basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    turns = {"chain": [], "none": []}
+    for i in range(ADMISSION_PAIRS):
+        for kind in ("chain", "none"):
+            run = _loop_run(basic, f"{basic.name} [{kind} {i + 1}]", RING,
+                            admission=kind == "chain")
+            _check_all_bound(basic.name, basic, run)
+            _check_loop_same(f"{basic.name} [{kind}]", run, loop[CPU_BASIC], ("placed", "cycles"))
+            turns[kind].append(run)
+    med = {k: statistics.median(r["pods_per_s"] for r in v) for k, v in turns.items()}
+    create_us = {k: statistics.median(r["measured_create_ms"] for r in v) * 1e3 / N_PODS
+                 for k, v in turns.items()}
+    print(f"{basic.name}, the admission chain and validation on / off in turns "
+          f"({ADMISSION_PAIRS} pairs, inline ring): median "
+          f"{med['chain']:.1f} / {med['none']:.1f} pods/s (each: "
+          + " / ".join(f"{r['pods_per_s']:.1f}" for r in turns["chain"]) + " against "
+          + " / ".join(f"{r['pods_per_s']:.1f}" for r in turns["none"])
+          + f"); a measured create {create_us['chain']:.2f} / {create_us['none']:.2f} us, the "
+          f"chain's share {create_us['chain'] - create_us['none']:.2f} us per create; placements "
+          "== the loop phase's cpu run either way")
+    out[f"{basic.name}/chain"] = {"launches": turns["chain"][-1]["launches"],
+                                  "pods_per_s": med, "create_us": create_us}
+    part("cost")
+
+    ext_w = workloads.extender_basic(EXT_NODES, EXT_INIT, EXT_PODS, EXT_NAMES)
+    config = workloads.profiles_config("default-scheduler", "no-scoring")
+    made = []
+    gpu = _loop_run(ext_w, f"{ext_w.name} [extender, ring]", RING, config=config,
+                    percentage=100, extenders=_extenders(made, EXT_NODES))
+    with _env(**RING):
+        cpu = workloads.run_loop(ext_w, "cpu", percentage=100, config=config,
+                                 extenders=_extenders(made, EXT_NODES))
+    _check_all_bound(ext_w.name, ext_w, gpu)
+    _check_loop_same(ext_w.name, gpu, cpu, ("placed", "cycles", "fallback_scheduled",
+                                            "batch_pods", "metrics"))
+    _check_calls(ext_w.name, made[0].calls, made[1].calls, "the cpu run")
+    measured = [p.key() for p in ext_w.measured_pod_list()]
+    sequential = [k for i, k in enumerate(measured) if EXT_NAMES[i % 4] == "no-scoring"]
+    batch_pods = [k for k in gpu["placed"] if k not in sequential]
+    if (made[0].calls["bind"] != len(gpu["placed"]) or gpu["fallback_scheduled"] != len(sequential)
+            or any(workloads.filtered_by_extender(gpu["placed"][k]) for k in sequential)):
+        raise AssertionError(f"{ext_w.name}: calls {made[0].calls}, "
+                             f"{gpu['fallback_scheduled']} sequential binds")
+    c22 = sum(workloads.filtered_by_extender(gpu["placed"][k]) for k in batch_pods)
+    upper = sum(int(gpu["placed"][k].rsplit("-", 1)[1]) >= EXT_NODES // 2 for k in sequential)
+    print(f"{ext_w.name} with a LoopExtender (Filter drops node-i, i % "
+          f"{workloads.EXTENDER_FILTER_MOD} == 0; Prioritize {workloads.EXTENDER_POOL_SCORE} "
+          f"to pool=b at weight {workloads.EXTENDER_WEIGHT}; Bind through the store): calls "
+          f"{made[0].calls} == the cpu run's, placements == the cpu loop; every one of "
+          f"{len(gpu['placed'])} pods bound through the extender; {len(sequential)} sequential "
+          f"pods, none on a filtered node, {upper} on pool=b; {c22} of {len(batch_pods)} batch "
+          f"pods on filtered nodes (ROADMAP C22: the batch meets no Filter); "
+          f"{gpu['pods_per_s']:.1f} pods/s; attempt p99 per profile "
+          + ", ".join(f"{k} {v['p99']:.2f} ms" for k, v in gpu["attempt_ms_by_profile"].items()))
+    out[f"{ext_w.name}"] = {"launches": gpu["launches"], "run": gpu}
+    part("extender")
+
+    pre = workloads.preemption_basic()
+    made = []
+    gpu = _loop_run(pre, f"{pre.name} [preempting extender, inline ring]", RING, percentage=100,
+                    extenders=_extenders(made, pre.nodes, bind=False, preempt=True))
+    with _env(**RING):
+        cpu = workloads.run_loop(pre, "cpu", percentage=100,
+                                 extenders=_extenders(made, pre.nodes, bind=False, preempt=True))
+    _check_loop_same(f"{pre.name} [preempting extender]", gpu, cpu,
+                     ("placed", "preempted", "nominations", "cycles", "metrics"))
+    _check_calls(pre.name, made[0].calls, made[1].calls, "the cpu run")
+    preemptors = [k for k in gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
+    if not all(gpu["placed"][k] for k in preemptors) or not made[0].calls["preempt"]:
+        raise AssertionError(f"{pre.name} [preempting extender]: a preemptor is unbound")
+    print(f"{pre.name} with a preempt-capable extender (every other candidate node kept): "
+          f"{made[0].calls['preempt']} ProcessPreemption calls, {len(gpu['preempted'])} victims, "
+          f"{len(gpu['nominations'])} nominations, all == the cpu loop; {len(preemptors)} "
+          f"preemptors bound; {gpu['launches']} launches for {gpu['batches']} batches; "
+          f"{gpu['pods_per_s']:.1f} pods/s")
+    out[f"{pre.name}/extender"] = {"launches": gpu["launches"], "run": gpu}
+    part("preempting extender")
+
+    wire_w = workloads.extender_basic(EXT_NODES, EXT_INIT, WIRE_PODS, ("no-scoring",))
+    made = []
+    local = _loop_run(wire_w, f"{wire_w.name} [in-process extender]", RING, config=config,
+                      percentage=100, extenders=_extenders(made, EXT_NODES, preempt=True))
+    stores = []
+    ext = workloads.LoopExtender(EXT_NODES, lambda key, node: stores[-1].bind(key, node),
+                                 preempt=True)
+    server, url = workloads.serve_extender(ext)
+    try:
+        wired = _loop_run(wire_w, f"{wire_w.name} [HTTP extender]", RING, percentage=100,
+                          config=dict(config, extenders=[workloads.extender_config(url)]),
+                          extenders=lambda store: stores.append(store) or [])
+    finally:
+        server.shutdown()
+        server.server_close()
+    _check_loop_same(f"{wire_w.name} [HTTP extender]", wired, local,
+                     ("placed", "cycles", "fallback_scheduled", "metrics"))
+    _check_calls(wire_w.name, ext.calls, made[0].calls, "the in-process run")
+    posts = wired["extender_post_ms"]
+    if sorted(posts) != ["bind", "filter", "prioritize"]:
+        raise AssertionError(f"{wire_w.name} [HTTP extender]: POSTs {sorted(posts)}")
+    print(f"{wire_w.name}, {WIRE_PODS} pods on no-scoring, the extender behind "
+          f"ThreadingHTTPServer on 127.0.0.1 (HTTPExtender from the config's urlPrefix, four "
+          f"verbs): placements and calls {ext.calls} == the in-process run; ms per POST "
+          + ", ".join(f"{v} median {statistics.median(ms):.3f} (min {min(ms):.3f}, max "
+                      f"{max(ms):.3f}, {len(ms)} POSTs)" for v, ms in sorted(posts.items()))
+          + f"; {wired['pods_per_s']:.1f} against {local['pods_per_s']:.1f} pods/s in process")
+    out[f"{wire_w.name}/http"] = {"launches": wired["launches"], "run": wired,
+                                  "post_ms": posts}
+    part("wire")
+    print("loop_admission phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -2501,6 +2706,7 @@ def main() -> int:
     loop_claims = timed("loop_claims", loop_claims_phase, dra)
     loop_faults = timed("loop_faults", loop_faults_phase, loop)
     loop_profiles = timed("loop_profiles", loop_profiles_phase, loop)
+    loop_admission = timed("loop_admission", loop_admission_phase, loop)
     loop.pop(CPU_BASIC)
     loop.pop(CPU_PREEMPT)
     warm_launches = loop_faults.pop("warm_launches")
@@ -2531,7 +2737,9 @@ def main() -> int:
                                  **{f"loop:{k}": v["launches"]
                                     for k, v in loop_faults.items()},
                                  **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_profiles.items()}},
+                                    for k, v in loop_profiles.items()},
+                                 **{f"loop:{k}": v["launches"]
+                                    for k, v in loop_admission.items()}},
         "warm_launches": warm_launches,
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],

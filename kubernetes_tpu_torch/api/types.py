@@ -611,6 +611,11 @@ class StorageClass:
     volume_binding_mode: str = BINDING_IMMEDIATE
 
 
+# the default-class marker the DefaultStorageClass admission plugin reads
+# (plugin/pkg/admission/storage/storageclass/setdefault)
+ANNOTATION_DEFAULT_STORAGE_CLASS = "storageclass.kubernetes.io/is-default-class"
+
+
 @dataclass
 class CSINode:
     """storage/v1 CSINode: per-driver attachable volume limits
@@ -719,3 +724,58 @@ class PodDisruptionBudget:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     selector: Optional[LabelSelector] = None
     disruptions_allowed: int = 0
+
+
+# ---------------------------------------------------------------------------
+# the kinds the admission chain reads (``apiserver/admission.py``)
+
+
+@dataclass
+class ResourceQuota:
+    """core/v1 ResourceQuota: per-namespace hard caps on the pods' summed
+    requests and count, in canonical ints (milli-cpu, KiB; ``api/
+    resource.py``). ResourceQuota admission charges ``used`` at create and
+    never releases it (the quota controller reconciles in the reference)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    hard: Dict[str, int] = field(default_factory=dict)   # "pods", "requests.cpu", "requests.memory"
+    used: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class LimitRangeItem:
+    """core/v1 LimitRangeItem; LimitRanger applies the Container type."""
+
+    type: str = "Container"
+    default: Dict[str, object] = field(default_factory=dict)          # limits
+    default_request: Dict[str, object] = field(default_factory=dict)  # requests
+    max: Dict[str, object] = field(default_factory=dict)
+    min: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class LimitRange:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    limits: Tuple[LimitRangeItem, ...] = ()
+
+
+@dataclass
+class ServiceAccount:
+    """core/v1 ServiceAccount: the identity ServiceAccount admission
+    defaults onto pods and requires to exist."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    automount_service_account_token: bool = True
+
+
+@dataclass
+class RuntimeClass:
+    """node.k8s.io/v1 RuntimeClass (cluster-scoped): RuntimeClass admission
+    sets a pod's ``spec.overhead`` from it and merges its scheduling
+    constraints into the pod."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    handler: str = ""
+    overhead: Dict[str, object] = field(default_factory=dict)  # resource -> quantity
+    node_selector: Dict[str, str] = field(default_factory=dict)
+    tolerations: Tuple[Toleration, ...] = ()

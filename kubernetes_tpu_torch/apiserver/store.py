@@ -24,10 +24,21 @@ store does (the volume screen caches by it), and ``kind_version`` gives
 the counter of a generic kind's last write: where the JAX store sends a
 watch event, a reader of the port's store compares versions (the quota
 ledger rebuilds its index when SchedulingQuota's moves). No WAL, watches,
-informers or locking: one scheduler thread owns it. A pod create runs
-admission first (``apiserver/admission.py``: DefaultPriority turns a
-PriorityClass name into the pod's priority, or refuses the pod), and the
-store holds the PriorityClasses it reads. The generic
+informers or locking: one scheduler thread owns it.
+
+Admission and validation (``:187-248``, ``:405-452``, ``:643-662``,
+``:822-836``): ``create_node``, ``create_pod``, ``create_object``,
+``create_pv`` and ``create_pvc`` run the admission chain
+(``apiserver/admission.py:AdmissionChain``, ``default_chain()``) and then
+the field validation (``api/validation.py``) before the write, and the
+updates of nodes, pods and generic objects their update halves. The chain
+mutates the object it is given, so the handlers see the admitted one. A
+pod's quota charge (``AdmissionChain.charge``) runs after the duplicate-key
+check and is undone when the insert fails. ``admission = None`` and
+``validation_enabled = False`` switch them off, as on the JAX store. The
+store holds the kinds the chain reads: PriorityClass, ResourceQuota,
+LimitRange, ServiceAccount and RuntimeClass (the last four through
+``create_object``). The generic
 kinds, the storage kinds and the claim writes fire their handlers too, in
 write order, where the JAX store sends its events (the scheduler loop's
 PodGroup, SchedulingQuota, claim and volume moves).
@@ -39,10 +50,12 @@ import dataclasses
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from ..api.types import (CSINode, Namespace, Node, PersistentVolume, PersistentVolumeClaim,
-                         Pod, PodDisruptionBudget, PodGroup, PodSchedulingContext, PriorityClass,
-                         ResourceClaim, SchedulingQuota, StorageClass)
-from .admission import DefaultPriority
+from ..api import validation
+from ..api.types import (CSINode, LimitRange, Namespace, Node, PersistentVolume,
+                         PersistentVolumeClaim, Pod, PodDisruptionBudget, PodGroup,
+                         PodSchedulingContext, PriorityClass, ResourceClaim, ResourceQuota,
+                         RuntimeClass, SchedulingQuota, ServiceAccount, StorageClass)
+from .admission import AdmissionChain
 
 ADDED = "ADDED"
 MODIFIED = "MODIFIED"
@@ -59,7 +72,7 @@ class NotFound(Exception):
     """404."""
 
 
-_CLUSTER_SCOPED = frozenset(("ResourceClass",))
+_CLUSTER_SCOPED = frozenset(("ResourceClass", "RuntimeClass"))
 
 
 class Store:
@@ -87,7 +100,15 @@ class Store:
         self.replication_controllers: Dict[str, object] = {}
         self.replica_sets: Dict[str, object] = {}
         self.stateful_sets: Dict[str, object] = {}
-        self.admission = DefaultPriority()
+        # what the admission chain reads
+        self.resource_quotas: Dict[str, ResourceQuota] = {}    # by namespace/name
+        self.limit_ranges: Dict[str, LimitRange] = {}          # by namespace/name
+        self.service_accounts: Dict[str, ServiceAccount] = {}  # by namespace/name
+        self.runtime_classes: Dict[str, RuntimeClass] = {}     # by name
+        # the admission chain and the field validation on the write path;
+        # None / False switch them off
+        self.admission: Optional[AdmissionChain] = AdmissionChain()
+        self.validation_enabled = True
 
     def _bump(self, obj) -> None:
         self._rv += 1
@@ -102,9 +123,24 @@ class Store:
         for h in self._handlers.get(kind, []):
             h(event, old, new)
 
+    def _admit(self, kind: str, obj) -> None:
+        """The chain's admit and validate passes, then the field validation
+        of the admitted object (the strategy.Validate position)."""
+        if self.admission is not None:
+            self.admission.run(self, kind, obj)
+        if self.validation_enabled:
+            validation.validate(kind, obj)
+
+    def _admit_update(self, kind: str, old, obj) -> None:
+        if self.admission is not None:
+            self.admission.run_update(self, kind, old, obj)
+        if self.validation_enabled:
+            validation.validate_update(kind, old, obj)
+
     # ------------------------------------------------------------- nodes
 
     def create_node(self, node: Node) -> None:
+        self._admit("Node", node)
         if node.meta.name in self.nodes:
             raise Conflict(f"node {node.meta.name} exists")
         self._bump(node)
@@ -113,6 +149,7 @@ class Store:
 
     def update_node(self, node: Node) -> None:
         old = self.nodes.get(node.meta.name)
+        self._admit_update("Node", old, node)
         if old is None:
             raise NotFound(node.meta.name)
         self._bump(node)
@@ -127,15 +164,25 @@ class Store:
     # ------------------------------------------------------------- pods
 
     def create_pod(self, pod: Pod) -> None:
-        self.admission.admit(self, pod)
+        self._admit("Pod", pod)
         if pod.key() in self.pods:
             raise Conflict(f"pod {pod.key()} exists")
-        self._bump(pod)
-        self.pods[pod.key()] = pod
+        # the quota charge after the duplicate-key check, undone if the
+        # insert fails: a refused create leaves no usage behind
+        undo_charge = (self.admission.charge(self, "Pod", pod)
+                       if self.admission is not None else None)
+        try:
+            self._bump(pod)
+            self.pods[pod.key()] = pod
+        except BaseException:
+            if undo_charge is not None:
+                undo_charge()
+            raise
         self._notify("Pod", ADDED, None, pod)
 
     def update_pod(self, pod: Pod) -> None:
         old = self.pods.get(pod.key())
+        self._admit_update("Pod", old, pod)
         if old is None:
             raise NotFound(pod.key())
         self._bump(pod)
@@ -217,7 +264,9 @@ class Store:
                 "PodGroup": self.pod_groups, "SchedulingQuota": self.scheduling_quotas,
                 "PodSchedulingContext": self.pod_scheduling_contexts,
                 "Service": self.services, "ReplicationController": self.replication_controllers,
-                "ReplicaSet": self.replica_sets, "StatefulSet": self.stateful_sets}
+                "ReplicaSet": self.replica_sets, "StatefulSet": self.stateful_sets,
+                "ResourceQuota": self.resource_quotas, "LimitRange": self.limit_ranges,
+                "ServiceAccount": self.service_accounts, "RuntimeClass": self.runtime_classes}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]
@@ -225,6 +274,7 @@ class Store:
     # ------------------------------------------------------------- generic kinds
 
     def create_object(self, kind: str, obj) -> None:
+        self._admit(kind, obj)
         m = self._kind_map(kind)
         key = obj.meta.name if kind in _CLUSTER_SCOPED else obj.meta.key()
         if key in m:
@@ -245,6 +295,7 @@ class Store:
         m = self._kind_map(kind)
         key = obj.meta.name if kind in _CLUSTER_SCOPED else obj.meta.key()
         old = m.get(key)
+        self._admit_update(kind, old, obj)
         if old is None:
             raise NotFound(f"{kind} {key}")
         self._bump(obj)
@@ -261,11 +312,13 @@ class Store:
     # ------------------------------------------------------------- storage kinds
 
     def create_pv(self, pv: PersistentVolume) -> None:
+        self._admit("PersistentVolume", pv)
         self._bump(pv)
         self.pvs[pv.meta.name] = pv
         self._notify("PersistentVolume", ADDED, None, pv)
 
     def create_pvc(self, pvc: PersistentVolumeClaim) -> None:
+        self._admit("PersistentVolumeClaim", pvc)
         self._bump(pvc)
         self.pvcs[pvc.meta.key()] = pvc
         self._notify("PersistentVolumeClaim", ADDED, None, pvc)

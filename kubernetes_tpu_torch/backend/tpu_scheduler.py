@@ -1289,10 +1289,13 @@ class TPUScheduler(Scheduler):
 
     def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
         """PreBind each assumed pod per profile (VolumeBinding's PV
-        binds), bind the rest (a pod whose profile's Bind point is not
-        DefaultBinder alone through that point, one by one; then the
-        others through the store in one pass), then finish each bound one,
-        count it, and run PostBind over them per profile. Returns the pods
+        binds), bind the rest (a pod a binder extender is interested in
+        through the first such extender, and a pod whose profile's Bind
+        point is not DefaultBinder alone through that point, one by one, as
+        the JAX commit plane's ``_run_bind`` does, ``commit_plane.py:
+        326-343``; then the others through the store in one pass), then
+        finish each bound one, count it, and run PostBind over them per
+        profile. A failed bind takes ``_fail_assumed``. Returns the pods
         bound."""
         live: List[BindItem] = []
         for fwk, group in self._by_framework(items).items():
@@ -1306,9 +1309,15 @@ class TPUScheduler(Scheduler):
         bound: List[BindItem] = []
         batched: List[BindItem] = []
         for item in live:
-            if item.fwk.default_binder:
+            ext = self._binder_extender_for(item.assumed) if self.extenders else None
+            if ext is None and item.fwk.default_binder:
                 batched.append(item)
-            elif item.fwk.bind(item.state, item.assumed, item.node_name) is not None:
+                continue
+            if ext is not None:
+                fail = self._extender_bind(ext, item.assumed, item.node_name)
+            else:
+                fail = item.fwk.bind(item.state, item.assumed, item.node_name)
+            if fail is not None:
                 self._fail_assumed(item, False, pod_cycle)
             else:
                 bound.append(item)

@@ -7,10 +7,11 @@ device=...)`` decodes the config, merges ``out_of_tree_registry`` (the
 app.WithPlugin hook, server.go:293: name -> factory taking ``(handle,
 args)``; a name the in-tree registry holds raises) into the in-tree
 registry, and builds one profile per ``profiles`` entry: its expanded
-plugin lists, its pluginConfig args and the registry. The loop runs on the
-card unless ``device="cpu"`` is given (``utils/device.py``). Extenders are
-not ported (ROADMAP.md A12b.7): a config that names one raises
-``NotImplementedError`` rather than scheduling without it.
+plugin lists, its pluginConfig args and the registry, and the config's
+extenders (``scheduler/extender.py:build_extenders``: an entry's
+``instance`` as it is, else an ``HTTPExtender`` on its ``urlPrefix``). The
+loop runs on the card unless ``device="cpu"`` is given
+(``utils/device.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional
 
 from ..apiserver.store import Store
 from ..framework.registry import in_tree_registry
+from ..scheduler.extender import build_extenders
 from .types import KubeSchedulerConfiguration, expand_profile, load_config
 
 
@@ -31,9 +33,6 @@ def scheduler_from_config(store: Store, cfg: Optional[KubeSchedulerConfiguration
     constructor (``device``, ``batch_size``, ...)."""
     if cfg is None:
         cfg = load_config(raw)
-    if cfg.extenders:
-        raise NotImplementedError(
-            "scheduler extenders are not ported to the PyTorch scheduler (ROADMAP.md A12b.7)")
     if out_of_tree_registry:
         merged = in_tree_registry()
         for name, factory in out_of_tree_registry.items():
@@ -49,4 +48,5 @@ def scheduler_from_config(store: Store, cfg: Optional[KubeSchedulerConfiguration
     return scheduler_cls(store, profiles=profiles,
                          percentage_of_nodes_to_score=cfg.percentage_of_nodes_to_score,
                          pod_initial_backoff=cfg.pod_initial_backoff_seconds,
-                         pod_max_backoff=cfg.pod_max_backoff_seconds, **scheduler_kwargs)
+                         pod_max_backoff=cfg.pod_max_backoff_seconds,
+                         extenders=build_extenders(cfg.extenders), **scheduler_kwargs)

@@ -10,8 +10,9 @@ package); ``expand_profile`` merges a profile's per-point enable / disable
 and its MultiPoint shorthand into the default plugin set
 (runtime/framework.go:430). Plugin arguments keep the JAX registry's
 snake_case keys (``strategy``, ``hard_pod_affinity_weight``), not
-upstream's camelCase ones. Extenders are decoded and validated here; the
-port's scheduler does not run them (``config/factory.py``).
+upstream's camelCase ones. Extenders are decoded and validated here and
+built by ``config/factory.py``; an in-process one is set on an entry's
+``instance`` after decoding, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -10,14 +10,14 @@ the JAX plugin: it draws the candidate walk's offsets. Its arguments:
 ``min_candidate_nodes_percentage`` (10), ``min_candidate_nodes_absolute``
 (100) and ``seed`` (0). The registry builds it without a filter runner;
 the profile's ``Framework`` hands it its own (``set_framework``), and the
-scheduler's store writes (``evict``, ``clear_nomination``) come from the
-handle.
+scheduler's store writes (``evict``, ``clear_nomination``) and its
+extenders come from the handle (JAX ``scheduler/scheduler.py:157``).
 """
 
 from __future__ import annotations
 
 import random
-from typing import Callable, Collection, Dict, Iterable, Optional, Tuple
+from typing import Callable, Collection, Dict, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -37,8 +37,9 @@ class DefaultPreemption:
                  pdb_lister: Optional[Callable[[], Iterable[PodDisruptionBudget]]] = None,
                  min_candidate_nodes_percentage: int = MIN_CANDIDATE_NODES_PERCENTAGE,
                  min_candidate_nodes_absolute: int = MIN_CANDIDATE_NODES_ABSOLUTE,
-                 seed: int = 0):
+                 seed: int = 0, extenders: Sequence = ()):
         self.filters = filters  # framework/runtime.py:FilterRunner
+        self.extenders = extenders  # the scheduler's list, read at each attempt
         self.evict = evict
         self.clear_nomination = clear_nomination
         self.pdb_lister = pdb_lister or (lambda: [])
@@ -82,5 +83,6 @@ class DefaultPreemption:
         ev = Evaluator(self.filters, state, pdbs, self.evict, self.clear_nomination, self.rng,
                        screen_fn=screen_fn, preferred_node=preferred,
                        min_candidate_nodes_percentage=self.min_pct,
-                       min_candidate_nodes_absolute=self.min_abs)
+                       min_candidate_nodes_absolute=self.min_abs,
+                       extenders=self.extenders)
         return ev.preempt(pod, node_infos, unresolvable)

@@ -1,14 +1,17 @@
 """The preemption engine behind the DefaultPreemption PostFilter.
 
 An own copy of ``kubernetes_tpu/framework/preemption.py``
-(pkg/scheduler/framework/preemption/preemption.go) without extenders or
-metrics:
+(pkg/scheduler/framework/preemption/preemption.go) without metrics:
 
 * ``preempt`` (:138): the eligibility check, the device-proposed node
-  verified exactly first, else the candidate walk over the nodes where
-  preemption might help (not those whose filter status was
-  UnschedulableAndUnresolvable, :363), one node picked, the victims
-  evicted and lower nominations on it cleared;
+  verified exactly first (and handed to the extenders: when they drop it,
+  the walk runs), else the candidate walk over the nodes where preemption
+  might help (not those whose filter status was
+  UnschedulableAndUnresolvable, :363), trimmed by the extenders, one node
+  picked, the victims evicted and lower nominations on it cleared;
+* ``_call_extenders`` (:237-260): each interested extender that supports
+  preemption rewrites the node -> victims map in turn; an error of an
+  ignorable one skips it, of any other leaves no candidate;
 * ``select_victims_on_node`` (default_preemption.go:226): on a copy of the
   node and of the PreFilter state remove every lower-priority pod (the
   RemovePod extensions move the state's counts), check the pod fits, then
@@ -73,8 +76,10 @@ class Evaluator:
                  screen_fn: Optional[Callable[[str], bool]] = None,
                  preferred_node: Optional[str] = None,
                  min_candidate_nodes_percentage: int = MIN_CANDIDATE_NODES_PERCENTAGE,
-                 min_candidate_nodes_absolute: int = MIN_CANDIDATE_NODES_ABSOLUTE):
+                 min_candidate_nodes_absolute: int = MIN_CANDIDATE_NODES_ABSOLUTE,
+                 extenders: Sequence = ()):
         self.filters = filters
+        self.extenders = extenders
         self.min_pct = min_candidate_nodes_percentage
         self.min_abs = min_candidate_nodes_absolute
         self.state = state
@@ -96,8 +101,11 @@ class Evaluator:
         if self.preferred_node is not None and self.preferred_node in by_name:
             victims, n_viol, ok = self.select_victims_on_node(pod, by_name[self.preferred_node])
             if ok:
-                self.prepare_candidate(Candidate(self.preferred_node, victims, n_viol), pod)
-                return self.preferred_node, None
+                cands = self._call_extenders(
+                    pod, [Candidate(self.preferred_node, victims, n_viol)])
+                if cands:
+                    self.prepare_candidate(cands[0], pod)
+                    return cands[0].node_name, None
         candidates = self.find_candidates(pod, node_infos, unresolvable)
         if not candidates:
             return None, f"preemption: 0/{len(node_infos)} nodes are available"
@@ -181,7 +189,27 @@ class Evaluator:
                 candidates.append(Candidate(ni.node.meta.name, victims, n_viol))
                 if len(candidates) >= num:
                     break
-        return candidates
+        return self._call_extenders(pod, candidates)
+
+    def _call_extenders(self, pod: Pod, candidates: List[Candidate]) -> List[Candidate]:
+        """(:241) the interested extenders that support preemption trim the
+        node -> victims map in turn; the candidates are the nodes left, in
+        the map's order, each with its trimmed victims."""
+        extenders = [e for e in self.extenders
+                     if e.supports_preemption() and e.is_interested(pod)]
+        if not extenders or not candidates:
+            return candidates
+        victims_by_node = {c.node_name: list(c.victims) for c in candidates}
+        by_node = {c.node_name: c for c in candidates}
+        for ext in extenders:
+            try:
+                victims_by_node = ext.process_preemption(pod, victims_by_node, None)
+            except Exception:  # noqa: BLE001 - as JAX: any error, ignorable or not
+                if ext.is_ignorable():
+                    continue
+                return []
+        return [Candidate(n, v, by_node[n].num_pdb_violations)
+                for n, v in victims_by_node.items() if n in by_node]
 
     def select_victims_on_node(self, pod: Pod, node_info: NodeInfo) -> Tuple[List[Pod], int, bool]:
         """(victims most important first, PDB violations, whether the pod

@@ -5,8 +5,9 @@ registry.go:46, name -> factory; apis/config/v1beta3/default_plugins.go:
 32-51, the default set and its weights). A factory takes ``(handle,
 args)``: ``handle`` is the profile's dict of the scheduler's services
 (``snapshot_fn`` lists the NodeInfos, ``ns_labels_fn``, ``client`` the
-store, ``metrics``, ``now_fn``, ``waiting_pods``, ``bound_pods_fn``, and
-the preemption writes ``evict`` and ``clear_nomination``), ``args`` the
+store, ``metrics``, ``now_fn``, ``waiting_pods``, ``bound_pods_fn``, the
+preemption writes ``evict`` and ``clear_nomination``, and the scheduler's
+``extenders``, which DefaultPreemption hands its Evaluator), ``args`` the
 profile's pluginConfig block for the plugin, with the JAX registry's
 snake_case keys. ``DEFAULT_PLUGINS`` equals the JAX package's, name for
 name, order for order, weight for weight: the queue's order, the
@@ -92,7 +93,7 @@ def in_tree_registry() -> Dict[str, Factory]:
             None, h.get("evict"), h.get("clear_nomination"), _pdb_lister(h),
             min_candidate_nodes_percentage=a.get("min_candidate_nodes_percentage", 10),
             min_candidate_nodes_absolute=a.get("min_candidate_nodes_absolute", 100),
-            seed=a.get("seed", 0)),
+            seed=a.get("seed", 0), extenders=h.get("extenders", ())),
     }
 
 

@@ -82,16 +82,21 @@ fragmentation after a run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..api.types import (BINDING_WAIT_FOR_FIRST_CONSUMER, LABEL_HOSTNAME, LABEL_TOPOLOGY_ZONE,
-                         POD_GROUP_LABEL, ROX, RWOP, CSINode, LabelSelector, ObjectMeta,
-                         PersistentVolume, PersistentVolumeClaim, Pod, PodGroup, PriorityClass,
-                         ResourceClaim, ResourceClass, SchedulingQuota, StorageClass)
+                         POD_GROUP_LABEL, ROX, RWOP, CSINode, LabelSelector, LimitRange,
+                         LimitRangeItem, Namespace, ObjectMeta, PersistentVolume,
+                         PersistentVolumeClaim, Pod, PodGroup, PriorityClass, ResourceClaim,
+                         ResourceClass, ResourceQuota, RuntimeClass, SchedulingQuota,
+                         StorageClass, Taint)
+from ..api.validation import ValidationError
 from ..api.wrappers import make_node, make_pod
+from ..apiserver.admission import UNREACHABLE_TAINT, AdmissionError, PodNodeSelector
 from ..apiserver.store import Store
+from ..scheduler.extender import CallableExtender
 from ..backend.device_state import _bucket, caps_for_cluster
 from ..backend.errors import TransientDeviceError
 from ..framework.plugins.coscheduling import pod_group_key
@@ -149,6 +154,41 @@ class ClaimShape:
 
 
 @dataclasses.dataclass(frozen=True)
+class Tenant:
+    """A namespace of the admission workload and the objects its pods meet
+    in the admission chain: its node-selector annotation (PodNodeSelector),
+    a LimitRange whose Container ``default_request`` the pods get in place
+    of requests of their own (LimitRanger), a RuntimeClass of ``overhead``
+    the pods name (RuntimeClass), and a ResourceQuota of ``quota_pods``
+    pods (ResourceQuota; 0: none)."""
+
+    name: str
+    node_selector: str = ""
+    default_request: Dict[str, str] = dataclasses.field(default_factory=dict)
+    runtime_class: str = ""
+    overhead: Dict[str, str] = dataclasses.field(default_factory=dict)
+    quota_pods: int = 0
+
+    def create(self, store) -> None:
+        """The namespace and its objects, through ``store``'s writes."""
+        ann = {PodNodeSelector.ANNOTATION: self.node_selector} if self.node_selector else {}
+        store.create_namespace(Namespace(meta=ObjectMeta(name=self.name, namespace="",
+                                                         annotations=ann)))
+        if self.default_request:
+            store.create_object("LimitRange", LimitRange(
+                meta=ObjectMeta(name="limits", namespace=self.name),
+                limits=(LimitRangeItem(default_request=dict(self.default_request)),)))
+        if self.runtime_class and store.get_object("RuntimeClass", self.runtime_class) is None:
+            store.create_object("RuntimeClass", RuntimeClass(
+                meta=ObjectMeta(name=self.runtime_class, namespace=""), handler="runc",
+                overhead=dict(self.overhead)))
+        if self.quota_pods:
+            store.create_object("ResourceQuota", ResourceQuota(
+                meta=ObjectMeta(name="quota", namespace=self.name),
+                hard={"pods": self.quota_pods}))
+
+
+@dataclasses.dataclass(frozen=True)
 class PodShape:
     """The pods of one createPods or measurePods op, named ``{prefix}-{i}``."""
 
@@ -176,6 +216,9 @@ class PodShape:
     # the slice marker instead
     gang_size: int = 0
     slice: bool = False
+    # pod i lives in tenants[i % len]'s namespace and meets its objects
+    # (``Tenant``); () keeps every pod in ``default``
+    tenants: Tuple["Tenant", ...] = ()
 
     def pods(self, count: int) -> List[Pod]:
         return [self.pod(i) for i in range(count)]
@@ -187,7 +230,10 @@ class PodShape:
 
     def pod(self, i: int) -> Pod:
         """The shape's ``i``-th pod."""
-        pw = make_pod(f"{self.prefix}-{i}").req(self.req)
+        tenant = self.tenants[i % len(self.tenants)] if self.tenants else None
+        pw = make_pod(f"{self.prefix}-{i}", namespace=tenant.name if tenant else "default")
+        if tenant is None or not tenant.default_request:
+            pw.req(self.req)  # a LimitRange tenant's pods set no requests
         if self.gang_size:
             group = f"{self.prefix}-pg{i // self.gang_size}"
             pw.pod_group(group)
@@ -217,6 +263,8 @@ class PodShape:
                                  selector=LabelSelector(match_labels={"spread-app": self.prefix}))
         pod = pw.obj()
         pod.spec.priority_class_name = self.priority_class
+        if tenant is not None:
+            pod.spec.runtime_class_name = tenant.runtime_class
         return pod
 
     @property
@@ -281,6 +329,14 @@ class Workload:
     # a CSINode per node allowing CSI_LIMIT volumes of this driver
     # (nodeAllocatableStrategy.csiNodeAllocatable), or none
     csi_driver: str = ""
+    # the admission workload's cluster: nodes [0, not_ready_nodes) are
+    # created not Ready, nodes in [unreachable_nodes) carry the unreachable
+    # NoExecute taint, node i is labelled pool=node_pools[i * len // nodes],
+    # and the tenants' namespaces and objects are created first
+    not_ready_nodes: int = 0
+    unreachable_nodes: Tuple[int, int] = (0, 0)
+    node_pools: Tuple[str, ...] = ()
+    tenants: Tuple[Tenant, ...] = ()
 
     @property
     def n_init(self) -> int:
@@ -301,8 +357,18 @@ class Workload:
 
     def node_infos(self) -> List[NodeInfo]:
         if not self.one_zone:
-            return scheduling_basic_nodes(self.nodes, self.zones, self.device_attributes,
-                                          self.node_capacity, self.tpu_slots)
+            infos = scheduling_basic_nodes(self.nodes, self.zones, self.device_attributes,
+                                           self.node_capacity, self.tpu_slots)
+            for i, ni in enumerate(infos):
+                node = ni.node
+                if self.node_pools:
+                    node.meta.labels["pool"] = self.node_pools[i * len(self.node_pools)
+                                                               // self.nodes]
+                node.status.ready = i >= self.not_ready_nodes
+                if self.unreachable_nodes[0] <= i < self.unreachable_nodes[1]:
+                    node.spec.taints = tuple(node.spec.taints) + (
+                        Taint(key=UNREACHABLE_TAINT, effect="NoExecute"),)
+            return infos
         infos = []
         for i in range(self.nodes):
             nw = make_node(f"node-{i}").capacity(_NODE_CAPACITY)
@@ -346,6 +412,54 @@ def scheduling_basic(nodes: int = 5000, init_pods: int = 1000,
                      measured: int = 1000) -> Workload:
     return Workload(f"SchedulingBasic/{nodes}Nodes", nodes, PodShape("init"), init_pods,
                     PodShape("measured"), measured)
+
+
+# SchedulingBasic's measured pods spread over four namespaces, each meeting
+# one more plugin of the admission chain
+ADMISSION_TENANTS = (
+    Tenant("default"),
+    Tenant("team-a", node_selector="pool=b"),
+    Tenant("team-b", default_request={"cpu": "500m", "memory": "1Gi"}),
+    Tenant("team-c", runtime_class="overhead-250m", overhead={"cpu": "250m"}, quota_pods=200),
+)
+
+
+def admission_basic(nodes: int = 5000, init_pods: int = 1000, measured: int = 1000) -> Workload:
+    """SchedulingBasic with the admission chain doing the work: nodes
+    0-9.99% created not Ready (TaintNodesByCondition taints them), the next
+    5% carrying the unreachable NoExecute taint (which DefaultTolerationSeconds
+    lets every pod tolerate), the two halves in pool=a and pool=b; the init
+    pods in ``default``, the measured pods spread over ``ADMISSION_TENANTS``
+    (team-a's go to pool=b, team-b's get 500m / 1Gi, team-c's a 250m
+    overhead under a quota of 200 pods, so its later creates are
+    refused). At 5000 nodes: 500 not Ready, 250 unreachable."""
+    return Workload(f"SchedulingBasic/{nodes}Nodes/Admission", nodes, PodShape("init"),
+                    init_pods, PodShape("measured", tenants=ADMISSION_TENANTS), measured,
+                    not_ready_nodes=nodes // 10, unreachable_nodes=(nodes // 10, nodes * 3 // 20),
+                    node_pools=("a", "b"), tenants=ADMISSION_TENANTS)
+
+
+def admission_violations(w: Workload, run: dict) -> List[str]:
+    """The rules of ``admission_basic`` that ``run_loop``'s ``run`` breaks:
+    a pod on a node created not Ready, no pod on an unreachable node, a
+    team-a pod without the pool=b selector or off pool=b, a team-b pod
+    whose cpu request is not the LimitRange's, a team-c pod without its
+    RuntimeClass's overhead."""
+    out = []
+    nodes = {k: int(n.rsplit("-", 1)[1]) for k, n in run["placed"].items() if n}
+    if any(i < w.not_ready_nodes for i in nodes.values()):
+        out.append("a pod on a node created not Ready")
+    if not any(w.unreachable_nodes[0] <= i < w.unreachable_nodes[1] for i in nodes.values()):
+        out.append("no pod on an unreachable node")
+    for key, (selector, cpu, overhead) in run["admitted"].items():
+        ns = key.split("/", 1)[0]
+        if ns == "team-a" and (selector != {"pool": "b"} or nodes.get(key, 0) < w.nodes // 2):
+            out.append(f"{key}: not on pool=b")
+        elif ns == "team-b" and cpu != 500:
+            out.append(f"{key}: cpu {cpu}m, not the LimitRange's 500m")
+        elif ns == "team-c" and (overhead != {"cpu": "250m"} or cpu != 1150):
+            out.append(f"{key}: overhead {overhead}, cpu {cpu}m")
+    return out
 
 
 def scheduling_pod_anti_affinity(nodes: int = 5000, init_pods: int = 1000,
@@ -587,6 +701,144 @@ def span_overlap_s(a: Sequence[tuple], b: Sequence[tuple]) -> float:
     return total
 
 
+# the loop's extender runs (``LoopExtender``): Filter drops node-i with
+# i % EXTENDER_FILTER_MOD == 0, Prioritize gives EXTENDER_POOL_SCORE to the
+# upper half of the nodes (pool=b in ``extender_basic``) at EXTENDER_WEIGHT
+EXTENDER_FILTER_MOD = 7
+EXTENDER_POOL_SCORE = 10
+EXTENDER_WEIGHT = 5
+EXTENDER_VERBS = ("filter", "prioritize", "bind", "preempt")
+
+
+def extender_basic(nodes: int = 1000, init_pods: int = 500, measured: int = 256,
+                   scheduler_names: Sequence[str] = ()) -> Workload:
+    """SchedulingBasic with its halves in pool=a and pool=b and the
+    measured pods naming ``scheduler_names`` in turn: the cluster of the
+    loop's extender runs."""
+    w = with_scheduler_names(scheduling_basic(nodes, init_pods, measured), scheduler_names)
+    return dataclasses.replace(w, name=f"{w.name}/Extender", node_pools=("a", "b"))
+
+
+def filtered_by_extender(node_name: str) -> bool:
+    """Whether ``LoopExtender``'s Filter drops the node."""
+    return int(node_name.rsplit("-", 1)[1]) % EXTENDER_FILTER_MOD == 0
+
+
+class LoopExtender(CallableExtender):
+    """The in-process extender of the loop's extender runs, over node names
+    only, so that either package's scheduler can call it: Filter drops the
+    nodes ``filtered_by_extender`` names, Prioritize gives the upper half of
+    ``nodes`` EXTENDER_POOL_SCORE at EXTENDER_WEIGHT, Bind calls
+    ``bind(pod key, node name)`` (the store's bind; None: not a binder), and
+    with ``preempt`` ProcessPreemption keeps every other candidate node. ``calls`` counts
+    each verb; ``wire`` answers the same verbs in the HTTP extender's JSON
+    (``serve_extender``)."""
+
+    def __init__(self, nodes: int, bind: Optional[Callable[[str, str], None]],
+                 preempt: bool = False):
+        bind_fn = None
+        if bind is not None:
+            def bind_fn(pod, node_name):
+                self.bind_pod(pod.key(), node_name)
+        super().__init__("loop-extender", filter_fn=self._filter_nodes,
+                         prioritize_fn=self._prioritize_nodes, bind_fn=bind_fn,
+                         weight=EXTENDER_WEIGHT)
+        self.nodes = nodes
+        self._bind_to = bind
+        self.preempt = preempt
+        self.calls = dict.fromkeys(EXTENDER_VERBS, 0)
+
+    def keep(self, names: Sequence[str]) -> Tuple[List[str], Dict[str, str]]:
+        self.calls["filter"] += 1
+        return ([n for n in names if not filtered_by_extender(n)],
+                {n: "node(s) filtered by the extender" for n in names
+                 if filtered_by_extender(n)})
+
+    def scores(self, names: Sequence[str]) -> Dict[str, int]:
+        self.calls["prioritize"] += 1
+        half = self.nodes // 2
+        return {n: EXTENDER_POOL_SCORE if int(n.rsplit("-", 1)[1]) >= half else 0
+                for n in names}
+
+    def bind_pod(self, key: str, node_name: str) -> None:
+        self.calls["bind"] += 1
+        self._bind_to(key, node_name)
+
+    def trim(self, node_names: Sequence[str]) -> List[str]:
+        self.calls["preempt"] += 1
+        return list(node_names)[::2]
+
+    def _filter_nodes(self, pod, nodes):
+        kept, failed = self.keep([n.meta.name for n in nodes])
+        kept = set(kept)
+        return [n for n in nodes if n.meta.name in kept], failed
+
+    def _prioritize_nodes(self, pod, nodes):
+        return self.scores([n.meta.name for n in nodes])
+
+    def supports_preemption(self) -> bool:
+        return self.preempt
+
+    def process_preemption(self, pod, victims_by_node, node_infos):
+        kept = set(self.trim(list(victims_by_node)))
+        return {n: v for n, v in victims_by_node.items() if n in kept}
+
+    def wire(self, verb: str, args: dict):
+        """One verb's answer in the extender's JSON
+        (kube-scheduler/extender/v1/types.go)."""
+        if verb == "filter":
+            kept, failed = self.keep([item["metadata"]["name"]
+                                      for item in args["Nodes"]["Items"]])
+            return {"Nodes": {"Items": [{"metadata": {"name": n}} for n in kept]},
+                    "FailedNodes": failed, "Error": ""}
+        if verb == "prioritize":
+            return [{"Host": n, "Score": s} for n, s in self.scores(args["NodeNames"]).items()]
+        if verb == "bind":
+            try:
+                self.bind_pod(f"{args['PodNamespace']}/{args['PodName']}", args["Node"])
+            except Exception as err:  # noqa: BLE001 - reported on the wire
+                return {"Error": str(err)}
+            return {"Error": ""}
+        if verb == "preempt":
+            victims = args["NodeNameToMetaVictims"]
+            return {"NodeNameToMetaVictims": {n: victims[n] for n in self.trim(list(victims))}}
+        return {"Error": f"unknown verb {verb!r}"}
+
+
+def serve_extender(ext: LoopExtender):
+    """``ext`` behind a ``ThreadingHTTPServer`` on 127.0.0.1 at a free port,
+    each verb at ``/<verb>``. Returns (server, url prefix); stop it with
+    ``server.shutdown()`` and ``server.server_close()``."""
+    import json
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 - the http.server hook
+            args = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            body = json.dumps(ext.wire(self.path.rsplit("/", 1)[-1], args)).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, f"http://127.0.0.1:{server.server_address[1]}"
+
+
+def extender_config(url_prefix: str) -> dict:
+    """A KubeSchedulerConfiguration ``extenders`` entry naming all four
+    verbs at ``url_prefix`` (the JSON form of ``LoopExtender``)."""
+    return {"urlPrefix": url_prefix, "filterVerb": "filter", "prioritizeVerb": "prioritize",
+            "bindVerb": "bind", "preemptVerb": "preempt", "weight": EXTENDER_WEIGHT}
+
+
 def create_gang_pod(store, pod: Pod, size: int, convert=lambda obj: obj) -> None:
     """Create ``pod`` in ``store``, and first its PodGroup (minMember
     ``size``) when it is a gang member whose group is missing, as the JAX
@@ -602,7 +854,9 @@ def create_gang_pod(store, pod: Pod, size: int, convert=lambda obj: obj) -> None
 
 def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BATCH,
              batch_deadline_ms: Optional[float] = 0, warm: bool = False,
-             config: Optional[dict] = None, out_of_tree_registry: Optional[dict] = None) -> dict:
+             config: Optional[dict] = None, out_of_tree_registry: Optional[dict] = None,
+             extenders: Optional[Callable[[Store], list]] = None,
+             admission: bool = True) -> dict:
     """Drive ``w`` through the scheduler loop, as the JAX harness's Runner
     does (``kubernetes_tpu/perf/harness.py:309-700``): a fresh ``Store``
     and the ``TPUScheduler`` that ``config.scheduler_from_config`` builds on
@@ -620,7 +874,13 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     with one sample pod of the measured shape (``PodShape.sample``) after
     the init pods settle and before the measured phase, as the JAX
     harness does before each measured phase (``kubernetes_tpu/perf/
-    harness.py:613-629``).
+    harness.py:613-629``). ``extenders(store)`` gives in-process extenders
+    added to the config's (``ExtenderConfig.instance``). The store runs its
+    admission chain and validation unless ``admission`` is False (the JAX
+    store's own switches, ``admission = None`` and
+    ``validation_enabled = False``); the workload's tenants (``Tenant``)
+    are created first, and a create the chain or the validation refuses is
+    counted and skipped.
 
     Returns a dict: ``placed`` (pod key -> node, "" when unbound),
     ``pods_per_s`` (measured pods over the measured phase's seconds),
@@ -667,22 +927,46 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     ``fallback_scheduled`` and ``measured_fallback_scheduled`` (pods the
     sequential path bound), ``screen_ms`` and ``measured_screen_ms`` (the
     volume screen, the claim mask and the commit checks) and
-    ``_volume_outcome``'s keys. The loop's commit worker is stopped before
-    it returns."""
+    ``_volume_outcome``'s keys; ``refused`` (plugin, or "validation" ->
+    the creates refused) and ``refused_pods``, ``measured_create_ms`` (the
+    host ms of the measured pods' creates, admission included),
+    ``admitted`` (for a workload with tenants: pod key -> its node
+    selector, cpu request in milli and overhead after admission),
+    ``quota_used`` (ResourceQuota key -> used), ``extender_post_ms`` (an
+    HTTP extender's ms per POST, by verb). The loop's commit worker is
+    stopped before it returns."""
     import gc
     import time
 
     from ..backend.device_state import caps_for_cluster
     from ..backend.tpu_scheduler import TPUScheduler
-    from ..config import scheduler_from_config
+    from ..config import Extender, load_config, scheduler_from_config
     from ..ops import fused_step
 
     store = Store()
+    if not admission:
+        store.admission, store.validation_enabled = None, False
     raw = dict(config or {})
     raw.setdefault("percentageOfNodesToScore", percentage)
-    sched = scheduler_from_config(store, raw=raw, out_of_tree_registry=out_of_tree_registry,
+    cfg = load_config(raw)
+    cfg.extenders += [Extender(instance=e) for e in (extenders(store) if extenders else ())]
+    sched = scheduler_from_config(store, cfg, out_of_tree_registry=out_of_tree_registry,
                                   scheduler_cls=TPUScheduler, device=device,
                                   batch_size=batch_size, batch_deadline_ms=batch_deadline_ms)
+    post_ms = _time_posts(sched.extenders)
+    for tenant in w.tenants:
+        tenant.create(store)
+    refused: Dict[str, int] = {}
+    refused_pods: List[str] = []
+
+    def create(pod: Pod) -> None:
+        try:
+            create_gang_pod(store, pod, sizes.get(pod.key(), 0))
+        except (AdmissionError, ValidationError) as err:
+            plugin = getattr(err, "plugin", "validation")
+            refused[plugin] = refused.get(plugin, 0) + 1
+            refused_pods.append(pod.key())
+
     for name, value in w.priority_classes:
         store.create_priority_class(PriorityClass(meta=ObjectMeta(name=name, namespace=""),
                                                   value=value))
@@ -702,7 +986,7 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
         for shape, count in ops:
             shape.populate(store, count, groups=False)
         for pod in pods:
-            create_gang_pod(store, pod, sizes.get(pod.key(), 0))
+            create(pod)
         cycles.append(sched.run_until_settled())
     warmed, warm_s, warm_sizer, mirror_unchanged = 0, 0.0, None, None
     if warm:
@@ -731,9 +1015,11 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     screens0, fallback0 = dict(sched.screen_seconds), sched.fallback_scheduled
     for shape, count in measured_ops:
         shape.populate(store, count, groups=False)
+    measured_pods = w.measured_pod_list()
     t0 = time.perf_counter()
-    for pod in w.measured_pod_list():
-        create_gang_pod(store, pod, sizes.get(pod.key(), 0))
+    for pod in measured_pods:
+        create(pod)
+    create_s = time.perf_counter() - t0
     cycles.append(sched.run_until_settled())
     measured_s = time.perf_counter() - t0
     sched.close()
@@ -793,7 +1079,36 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
                                for k, v in sched.screen_seconds.items()},
         **_volume_outcome(store),
         **_gang_outcome(sched, store, bool(w.tpu_slots)),
+        "refused": refused, "refused_pods": refused_pods,
+        "measured_create_ms": create_s * 1e3,
+        "admitted": {p.key(): (dict(p.spec.node_selector), p.resource_request().get("cpu", 0),
+                               dict(p.spec.overhead))
+                     for p in store.pods.values() if w.tenants},
+        "quota_used": {k: dict(q.used) for k, q in store.resource_quotas.items()},
+        "extender_post_ms": post_ms,
     }
+
+
+def _time_posts(extenders) -> Dict[str, List[float]]:
+    """Wrap each HTTP extender's POST (``HTTPExtender._post``) to record its
+    ms by verb; returns the record."""
+    out: Dict[str, List[float]] = {}
+    for ext in extenders:
+        post = getattr(ext, "_post", None)
+        if post is None:
+            continue
+
+        def timed(verb, payload, _post=post):
+            import time
+
+            t = time.perf_counter()
+            try:
+                return _post(verb, payload)
+            finally:
+                out.setdefault(verb, []).append((time.perf_counter() - t) * 1e3)
+
+        ext._post = timed
+    return out
 
 
 def _mirror_tensors(state) -> dict:
@@ -1072,11 +1387,22 @@ class Soak:
                 hard={"pods": cap, "requests.cpu": cap * 1000, "claims": cap}))
         return out
 
-    def store(self) -> Store:
-        """A fresh object store with the tenants' SchedulingQuotas."""
-        store = Store()
+    def create_quotas(self, store) -> None:
+        """Each tenant's Namespace and SchedulingQuota, as the JAX harness's
+        createQuota op writes them (``kubernetes_tpu/perf/harness.py:
+        557-570``): the admission chain's NamespaceLifecycle refuses pods of
+        a namespace the store does not hold."""
         for q in self.quotas():
+            if q.meta.namespace not in store.namespaces:
+                store.create_namespace(Namespace(meta=ObjectMeta(name=q.meta.namespace,
+                                                                 namespace="")))
             store.create_object("SchedulingQuota", q)
+
+    def store(self) -> Store:
+        """A fresh object store with the tenants' Namespaces and
+        SchedulingQuotas."""
+        store = Store()
+        self.create_quotas(store)
         return store
 
     def arrivals(self, r: int, counter: int) -> List[Pod]:
@@ -1381,8 +1707,7 @@ def run_loop_soak(w: Soak, device, percentage: int = 0, comparer_every_n: int = 
                          comparer_every_n=comparer_every_n)
     for ni in w.node_infos():
         store.create_node(ni.node)
-    for q in w.quotas():
-        store.create_object("SchedulingQuota", q)
+    w.create_quotas(store)
     launches = fused_step.LAUNCHES
     t0 = time.perf_counter()
     out = soak_rounds(w, store, sched, sched._quota_plugin(), clock)

@@ -64,8 +64,26 @@ and which of those statuses are unresolvable); an error fails it to the
 backoff queue. It reads the snapshot the failure path reads (the commit
 worker's own, with the worker).
 
+Extenders (``:116-123``, ``:693-703``, ``:735-746``, ``:808-840``;
+``scheduler/extender.py``): ``extenders`` (built by ``config/factory.py``
+from the config's list) are called by the sequential path as the JAX
+``Scheduler`` calls them. Filter runs after the plugins' Filters, over the
+nodes that passed them, each interested extender in turn
+(``_find_nodes_that_pass_extenders``): the nodes it fails go into the
+Diagnosis (those it calls unresolvable are kept out of preemption); an
+``ExtenderError`` of an ignorable extender skips it, of any other fails
+the cycle to the backoff queue. The nominated-node fast path returns before
+them. Prioritize adds each interested extender's score times its weight to
+the plugins' totals when more than one node is feasible; its errors are
+ignored. Bind goes through the first interested binder extender, before
+the Bind plugins (``_binder_extender_for``, ``_extender_bind``; the
+subclass's ``_bind_stage`` calls them for every pod, batch or sequential).
+DefaultPreemption gets the list through the handle. A pod that rides the
+batch meets no extender's Filter or Prioritize, as in the JAX loop
+(ROADMAP C22).
+
 Left out: the per-pod cycle ``schedule_one`` (the loop hands pods to
-``schedule_one_pod``) and the extenders.
+``schedule_one_pod``).
 """
 
 from __future__ import annotations
@@ -88,6 +106,7 @@ from ..metrics.scheduler_metrics import ERROR, UNSCHEDULABLE, SchedulerMetrics
 from ..ops.tiebreak import name_hash, pod_seed, tie_key
 from ..queue import events as qevents
 from ..queue.scheduling_queue import SchedulingQueue
+from .extender import ExtenderError
 
 MIN_FEASIBLE_NODES_TO_FIND = 100           # schedule_one.go:52
 MIN_FEASIBLE_NODES_PERCENTAGE_TO_FIND = 5  # :56
@@ -189,8 +208,9 @@ class SyncCounters(dict):
 class Scheduler:
     def __init__(self, store: Store, profiles: Optional[Dict[str, object]] = None,
                  percentage_of_nodes_to_score: int = 0, pod_initial_backoff: float = 1.0,
-                 pod_max_backoff: float = 10.0, now_fn=time.monotonic):
+                 pod_max_backoff: float = 10.0, now_fn=time.monotonic, extenders=None):
         self.store = store
+        self.extenders = list(extenders or [])
         self.now_fn = now_fn
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
         self.next_start_node_index = 0  # the sequential path's rotating start
@@ -224,6 +244,7 @@ class Scheduler:
             "bound_pods_fn": self._bound_pods,
             "evict": self._evict,
             "clear_nomination": self._clear_nomination,
+            "extenders": self.extenders,
         }
         self.profiles: Dict[str, Framework] = {}
         for name, spec in (profiles or {DEFAULT_SCHEDULER_NAME: {}}).items():
@@ -610,6 +631,20 @@ class Scheduler:
         if len(feasible) == 1:
             return feasible[0].node.meta.name, state
         totals = self.framework_for_pod(pod).scores.score(pod, feasible, state)
+        if self.extenders:
+            # prioritizeNodes (:662-691): each extender's raw score times its
+            # weight onto the plugins' totals; its errors are ignored
+            nodes = [ni.node for ni in feasible]
+            for ext in self.extenders:
+                if not ext.is_interested(pod):
+                    continue
+                try:
+                    prios = ext.prioritize(pod, nodes)
+                except Exception:  # noqa: BLE001 - ignored, as in JAX (:673)
+                    continue
+                for name, score in prios.items():
+                    if name in totals:
+                        totals[name] += score * ext.weight()
         return self._select_host(totals, pod, attempts), state
 
     def find_nodes_that_fit_pod(self, pod: Pod, all_nodes: List[NodeInfo]
@@ -656,7 +691,55 @@ class Scheduler:
             if fail.unresolvable:
                 diagnosis.unresolvable.add(name)
         self.next_start_node_index = (start + checked) % len(nodes) if nodes else 0
+        if feasible and self.extenders:
+            feasible = self._find_nodes_that_pass_extenders(pod, feasible, diagnosis)
         return feasible, diagnosis, state
+
+    def _find_nodes_that_pass_extenders(self, pod: Pod, feasible: List[NodeInfo],
+                                        diagnosis: Diagnosis) -> List[NodeInfo]:
+        """(``:817``; schedule_one.go:547) each interested extender's Filter
+        over the nodes left; a failed node's reason goes into the
+        Diagnosis, an unresolvable one's too, kept out of preemption. An
+        ``ExtenderError`` of an ignorable extender skips it; any other error
+        is raised (the cycle fails)."""
+        by_name = {ni.node.meta.name: ni for ni in feasible}
+        nodes = [ni.node for ni in feasible]
+        for ext in self.extenders:
+            if not nodes:
+                break
+            if not ext.is_interested(pod):
+                continue
+            try:
+                nodes, failed, unresolvable = ext.filter(pod, nodes)
+            except ExtenderError:
+                if ext.is_ignorable():
+                    continue
+                raise
+            for name, reason in failed.items():
+                diagnosis.node_to_status[name] = reason
+                diagnosis.unresolvable.discard(name)
+            for name, reason in unresolvable.items():
+                diagnosis.node_to_status[name] = reason
+                diagnosis.unresolvable.add(name)
+        return [by_name[n.meta.name] for n in nodes]
+
+    def _binder_extender_for(self, pod: Pod):
+        """The first binder extender interested in the pod
+        (``commit_plane.py:132-136``), or None."""
+        for ext in self.extenders:
+            if ext.is_binder() and ext.is_interested(pod):
+                return ext
+        return None
+
+    @staticmethod
+    def _extender_bind(ext, pod: Pod, node_name: str) -> Optional[str]:
+        """(``:693-703``; schedule_one.go:774) bind through the extender:
+        None, or the failure's reason."""
+        try:
+            ext.bind(pod, node_name)
+        except Exception as err:  # noqa: BLE001 - a failed bind fails the pod
+            return f"extender bind: {err}"
+        return None
 
     @staticmethod
     def _select_host(totals: Dict[str, int], pod: Pod, attempts: int) -> str:

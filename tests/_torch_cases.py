@@ -1633,12 +1633,15 @@ class LoopPair:
     ``config`` (a KubeSchedulerConfiguration dict, its objects the port's)
     both loops are built by their package's ``scheduler_from_config``, the
     JAX one from the config rebuilt with ``to_jax``; ``registries`` are
-    the out-of-tree registries (JAX's, the port's). Objects are built from
+    the out-of-tree registries (JAX's, the port's); ``extenders(pair)``
+    gives (JAX's, the port's) in-process extenders added to the config's,
+    each package's ``ExtenderConfig.instance``. Objects are built from
     the specs of this module through each package's wrappers and written to
     both stores in the same order."""
 
     def __init__(self, batch: int = 16, percentage: int = 0, start: bool = True,
-                 sched_kw: dict = None, config: dict = None, registries=(None, None)):
+                 sched_kw: dict = None, config: dict = None, registries=(None, None),
+                 extenders=None):
         from kubernetes_tpu.apiserver.store import ClusterStore
         from kubernetes_tpu.utils.clock import FakeClock as JFakeClock
         from kubernetes_tpu_torch.apiserver.store import Store
@@ -1647,12 +1650,14 @@ class LoopPair:
         self.jclock, self.tclock = JFakeClock(), FakeClock()
         assert self.jclock() == self.tclock()
         self.jstore, self.tstore = ClusterStore(), Store(now_fn=self.tclock)
-        # the specs' objects as they are (the port's store validates nothing;
-        # topo_pods_spec sets minDomains on ScheduleAnyway constraints too)
+        # the specs' objects as they are on both sides (topo_pods_spec sets
+        # minDomains on ScheduleAnyway constraints too); both admission
+        # chains stay on
         self.jstore.validation_enabled = False
+        self.tstore.validation_enabled = False
         self.batch, self.percentage = batch, percentage
         self.sched_kw = dict(sched_kw or {})
-        self.config, self.registries = config, registries
+        self.config, self.registries, self.extenders = config, registries, extenders
         self.cycles = [0, 0]
         if start:
             self.start()
@@ -1661,9 +1666,11 @@ class LoopPair:
         """Build both schedulers (``start=False`` defers this until the
         stores are filled: the schedulers then replay the stores' LIST)."""
         from kubernetes_tpu.backend.tpu_scheduler import TPUScheduler as JTPUScheduler
+        from kubernetes_tpu.config import Extender as JExtender
+        from kubernetes_tpu.config import load_config as jax_load_config
         from kubernetes_tpu.config import scheduler_from_config as jax_from_config
         from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
-        from kubernetes_tpu_torch.config import scheduler_from_config
+        from kubernetes_tpu_torch.config import Extender, load_config, scheduler_from_config
 
         if self.config is None:
             self.jsched = JTPUScheduler(self.jstore, now_fn=self.jclock, batch_size=self.batch,
@@ -1677,12 +1684,17 @@ class LoopPair:
         else:
             raw = dict(self.config)
             raw.setdefault("percentageOfNodesToScore", self.percentage)
-            self.jsched = jax_from_config(self.jstore, raw=to_jax(raw),
+            jcfg, tcfg = jax_load_config(to_jax(raw)), load_config(raw)
+            if self.extenders is not None:
+                jexts, texts = self.extenders(self)
+                jcfg.extenders += [JExtender(instance=e) for e in jexts]
+                tcfg.extenders += [Extender(instance=e) for e in texts]
+            self.jsched = jax_from_config(self.jstore, jcfg,
                                           out_of_tree_registry=self.registries[0],
                                           scheduler_cls=JTPUScheduler, now_fn=self.jclock,
                                           batch_size=self.batch, batch_deadline_ms=0,
                                           **self.sched_kw)
-            self.tsched = scheduler_from_config(self.tstore, raw=raw,
+            self.tsched = scheduler_from_config(self.tstore, tcfg,
                                                 out_of_tree_registry=self.registries[1],
                                                 scheduler_cls=TPUScheduler, device="cpu",
                                                 now_fn=self.tclock, batch_size=self.batch,

@@ -148,13 +148,3 @@ def test_validate_config_errors_equal_jax(case):
     with pytest.raises(ConfigError) as terr:
         ttypes.validate_config(build(ttypes))
     assert str(terr.value) == str(jerr.value)
-
-
-def test_extenders_raise_not_implemented():
-    """A config that names an extender is decoded, but the port's factory
-    refuses to build a scheduler that would drop it."""
-    from kubernetes_tpu_torch.apiserver.store import Store
-    from kubernetes_tpu_torch.config import scheduler_from_config
-
-    with pytest.raises(NotImplementedError, match="A12b.7"):
-        scheduler_from_config(Store(), raw=CONFIGS["extenders"], device="cpu")

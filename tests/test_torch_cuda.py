@@ -720,6 +720,9 @@ def test_growth_through_the_ring_matches_cpu(cuda, worker, monkeypatch):
         _ring_env(monkeypatch, worker_env)
         api, clock = torch_api(), FakeClock()
         store = Store(now_fn=clock)
+        # the specs' objects as they are, as on LoopPair's stores
+        # (topo_pods_spec sets minDomains on ScheduleAnyway constraints too)
+        store.validation_enabled = False
         sched = TPUScheduler(store, device=device, batch_size=16, batch_deadline_ms=0,
                              percentage_of_nodes_to_score=100, now_fn=clock)
         infos = build_topo_nodes(api, topo_cluster_spec(136, 3, keys=(HOST, ZONE)))
@@ -1062,3 +1065,66 @@ def test_profiles_through_the_loop_match_cpu(cuda, monkeypatch):
         assert runs[0][key] == runs[1][key] == runs[2][key], key
     assert runs[0]["preempted"] and all(
         node for key, node in runs[0]["placed"].items() if "/preemptor-" in key)
+
+
+@pytest.mark.cuda
+def test_admission_through_the_loop_matches_cpu(cuda, monkeypatch):
+    """SchedulingBasic/5000Nodes with the admission chain doing the work
+    (``workloads.admission_basic``) on the card against the CPU loop:
+    placements, refusals per plugin and counters equal; no pod on a node
+    created not Ready, team-a's pods on pool=b, team-b's requests from the
+    LimitRange, team-c's overhead from its RuntimeClass and its creates past
+    the quota of 200 pods refused."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    _ring_env(monkeypatch, "0")
+    w = workloads.admission_basic(5000, 1000, 1000)
+    gpu = workloads.run_loop(w, cuda)
+    cpu = workloads.run_loop(w, "cpu", percentage=100)
+    for key in ("placed", "refused", "refused_pods", "metrics", "cycles", "quota_used"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["refused"] == {"ResourceQuota": 50}
+    assert all(gpu["placed"].values()) and len(gpu["placed"]) == 1950
+    assert set(gpu["paths"]) == {"fused"} and gpu["launches"] == gpu["batches"]
+    assert workloads.admission_violations(w, gpu) == []
+
+
+@pytest.mark.cuda
+def test_extenders_through_the_loop_match_cpu(cuda, monkeypatch):
+    """SchedulingBasic/1000Nodes/Extender with a quarter of the measured
+    pods on ``no-scoring`` and an in-process ``LoopExtender``, on the card
+    against the CPU loop: placements and calls per verb equal, no
+    sequential pod on a node the Filter drops, every pod bound through the
+    extender; PreemptionBasic with a preempt-capable one: victims and
+    nominations equal."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    _ring_env(monkeypatch, "0")
+    names = ("default-scheduler",) * 3 + ("no-scoring",)
+    w = workloads.extender_basic(1000, 500, 256, names)
+    config = workloads.profiles_config("default-scheduler", "no-scoring")
+    runs, made = [], []
+    for dev in (cuda, "cpu"):
+        def exts(store, _made=made):
+            _made.append(workloads.LoopExtender(w.nodes, store.bind))
+            return _made[-1:]
+        runs.append(workloads.run_loop(w, dev, percentage=100, config=config, extenders=exts))
+    gpu, cpu = runs
+    for key in ("placed", "cycles", "fallback_scheduled", "batch_pods", "metrics"):
+        assert gpu[key] == cpu[key], key
+    assert made[0].calls == made[1].calls
+    assert made[0].calls["bind"] == len(gpu["placed"]) == 756 and all(gpu["placed"].values())
+    sequential = [k for i, k in enumerate(p.key() for p in w.measured_pod_list())
+                  if names[i % 4] == "no-scoring"]
+    assert not any(workloads.filtered_by_extender(gpu["placed"][k]) for k in sequential)
+
+    pre = workloads.preemption_basic(24, 96, 24)
+    runs, made = [], []
+    for dev in (cuda, "cpu"):
+        def exts(store, _made=made):
+            _made.append(workloads.LoopExtender(pre.nodes, None, preempt=True))
+            return _made[-1:]
+        runs.append(workloads.run_loop(pre, dev, percentage=100, extenders=exts))
+    for key in ("placed", "preempted", "nominations", "cycles", "metrics"):
+        assert runs[0][key] == runs[1][key], key
+    assert made[0].calls == made[1].calls and made[0].calls["preempt"] > 0

@@ -491,6 +491,7 @@ def test_warm_buckets_match_jax(sample, monkeypatch):
     pair.add_nodes(build_topo_nodes(jax_api(), spec), build_topo_nodes(torch_api(), spec))
     alone_clock = FakeClock()
     alone_store = Store(now_fn=alone_clock)
+    alone_store.validation_enabled = False  # as the pair's stores (the specs as they are)
     alone = TPUScheduler(alone_store, device="cpu", now_fn=alone_clock, batch_size=32,
                          batch_deadline_ms=0)
     for ni in build_topo_nodes(torch_api(), spec):
