@@ -288,7 +288,33 @@
    127.0.0.1, configured by urlPrefix with its four verbs, for 64 pods on
    ``no-scoring`` at 1000 nodes: placements and calls equal to the
    in-process run of the same pods; prints the ms per POST per verb.
-17. Each workload run prints pods/s, ms per batch, host ms per stage, and
+17. Loop_telemetry phase: the observability layer through the loop on the
+   card (``perf/workloads.py:LoopObserver``: telemetry, the latency ledger
+   and tracing on for a whole run). SchedulingBasic/5000Nodes on the inline
+   ring with the recorders off and on in turns (3 pairs): every run's
+   placements equal the loop phase's CPU run, and on equals off in this
+   process; prints pods/s and attempt p99 of both (the layer's cost). From
+   each run with the recorders on: the dispatch ledger's ``schedule_batch``
+   count must equal the fused launches and the batches; the median
+   ``deviceExecS`` (the batch program between two CUDA events) beside the
+   kernel phase's ms; the dwell / exec / fetch medians; the fused step's
+   bytes over the median ``deviceExecS`` against 3.35 TB/s; the card's
+   busy share of the measured phase (the ``deviceExecS`` committed in it
+   over its wall seconds); upload and fetch bytes and the allocator's peak;
+   builds and retraces (retraces must be 0); every closed ledger entry's
+   e2e equal to the sum of its segments to 1e-9 relative, one closed
+   ``scheduled`` entry per pod bound, e2e p50 / p99 and the median of each
+   segment; one ``scheduling.cycle`` span per batch and the
+   ``device.dispatch.*`` spans lying end to end in their
+   ``device.commit.wait``. Then SchedulingBorrow/1000Nodes and
+   /1000Nodes/NoBorrow (``workloads.run_loop_borrow``: 8 rounds at scale
+   100, 60 cycles of 0.05 s on a FakeClock per round) on the card and on
+   the CPU at percentage 100: placements, per-tenant admissions, loans,
+   reclaims, the invariants and the ledger's per-tenant e2e observations
+   equal; zero oversubscription in both arms, reclaims with borrowing on,
+   and a pool-utilization lift above 0.10 (``tests/test_borrow.py``'s
+   bar); prints pods/s and the lender's e2e p99 of both arms.
+18. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -459,10 +485,13 @@ def _compare(got, want, label: str) -> float:
 
 def _bound(args: dict, out) -> tuple:
     """(bound_ms, bound_by, bytes): each input read once and each output written
-    once over the memory rate, against the float32 work over its peak."""
-    nbytes = sum(t.numel() * t.element_size() for t in args.values())
-    nbytes += sum(t.numel() * t.element_size() for t in out)
+    once over the memory rate (``fused_step.fused_step_bytes``, which must
+    equal the tensors' own bytes), against the float32 work over its peak."""
     pods, n = args["static_ok"].shape
+    nbytes = fused_step.fused_step_bytes(pods, n, args["alloc"].shape[1], args["ports"].shape[1])
+    counted = sum(t.numel() * t.element_size() for t in (*args.values(), *out))
+    if nbytes != counted:
+        raise AssertionError(f"fused_step_bytes {nbytes} != the tensors' {counted} bytes")
     flops = pods * n * 40  # scores, normalization, total and argmax per (pod, node)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), nbytes
@@ -2666,6 +2695,163 @@ def loop_admission_phase(loop: dict) -> dict:
     return out
 
 
+TELEMETRY_PAIRS = 3  # the recorders' cost: off / on in turns
+BORROW_NODES, BORROW_ROUNDS, BORROW_SCALE = 1000, 8, 100
+BORROW_KEYS = ("placed", "invariants", "tenants", "e2e", "batch_pods", "evicted", "reclaims",
+               "cycles")
+
+
+def _segment_medians(entries) -> dict:
+    segs: dict = {}
+    for e in entries:
+        for seg, v in e["segments"].items():
+            segs.setdefault(seg, []).append(v)
+    return {seg: statistics.median(v) for seg, v in sorted(segs.items())}
+
+
+def _check_observed(name: str, run: dict) -> dict:
+    """The recorders' checks on one observed run; returns its numbers."""
+    o = run["observed"]
+    fused = {k: v for k, v in o["programs"].items() if k.startswith("schedule_batch@")}
+    count = sum(v["count"] for v in fused.values())
+    if not (count == o["launches"] == run["launches"] == run["batches"]):
+        raise AssertionError(f"{name}: {count} schedule_batch records, {o['launches']} launches "
+                             f"observed, {run['launches']} counted, {run['batches']} batches")
+    if o["retraces"] != 0:
+        raise AssertionError(f"{name}: {o['retraces']} retraces")
+    if o["e2e_rel_err"] > 1e-9 or o["live"]:
+        raise AssertionError(f"{name}: e2e against its segments {o['e2e_rel_err']:.3g} "
+                             f"relative, {o['live']} entries open")
+    scheduled = [e for e in o["entries"] if e["result"] == "scheduled"]
+    if len(scheduled) != run["metrics"]["scheduled"] or len(o["entries"]) != len(run["placed"]):
+        raise AssertionError(f"{name}: {len(scheduled)} entries closed scheduled for "
+                             f"{run['metrics']['scheduled']} pods bound")
+    if o["cycles"] != run["batches"] or o["waits"] != run["batches"] or o["phase_gap_ns"]:
+        raise AssertionError(f"{name}: {o['cycles']} cycle spans and {o['waits']} waits for "
+                             f"{run['batches']} batches, phase gap {o['phase_gap_ns']} ns")
+    if len(o["device_exec_s"]) != run["batches"] or not all(t > 0 for t in o["device_exec_s"]):
+        raise AssertionError(f"{name}: deviceExecS {o['device_exec_s']}")
+    if sorted(o["hbm"]) != ["bytes_in_use", "bytes_limit", "peak_bytes_in_use", "peak_ever"]:
+        raise AssertionError(f"{name}: device memory sample {o['hbm']}")
+    recs = [r for r in o["records"] if r["program"] == "schedule_batch"]
+    measured = [e["e2e"] for e in scheduled if "/measured-" in e["pod"]]
+    return {
+        "device_exec_ms": statistics.median(o["device_exec_s"]) * 1e3,
+        "phases_ms": {p: statistics.median(r[f"{p}S"] for r in recs) * 1e3
+                      for p in ("dwell", "exec", "fetch", "wait")},
+        "busy_share": o["busy_share"], "transfer": o["transfer"],
+        "hbm_peak": o["hbm"]["peak_ever"], "compilations": o["compilations"],
+        "e2e_ms": {q: float(np.quantile(measured, q / 100)) * 1e3 for q in (50, 99)},
+        "segments_ms": {k: v * 1e3 for k, v in _segment_medians(scheduled).items()},
+        "wait_uncovered_us": o["wait_uncovered_us"], "events": o["events"],
+        "cost": {k: v.get("bytesAccessed") for k, v in fused.items()},
+    }
+
+
+def loop_telemetry_phase(loop: dict, kern: dict) -> dict:
+    """Device telemetry, the latency ledger and tracing through the loop on
+    the card: SchedulingBasic/5000Nodes with the recorders off and on in
+    turns, each == the CPU loop and on == off, the dispatch ledger, the
+    ledger's segments and the spans checked on every observed run; then
+    SchedulingBorrow/1000Nodes, both arms, on the card == the CPU."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    turns = {"off": [], "on": []}
+    for i in range(TELEMETRY_PAIRS):
+        for kind in ("off", "on"):
+            run = _loop_run(basic, f"{basic.name} [recorders {kind} {i + 1}]", RING,
+                            observe=kind == "on")
+            _check_all_bound(basic.name, basic, run)
+            _check_loop_same(f"{basic.name} [recorders {kind}]", run, loop[CPU_BASIC],
+                             ("placed", "cycles"))
+            _check_loop_same(f"{basic.name} [recorders {kind} against off]", run,
+                             turns["off"][0] if turns["off"] else run,
+                             ("placed", "cycles", "batch_pods", "metrics", "paths"))
+            turns[kind].append(run)
+    obs = [_check_observed(f"{basic.name} [recorders on {i + 1}]", r)
+           for i, r in enumerate(turns["on"])]
+    med = {k: statistics.median(r["pods_per_s"] for r in v) for k, v in turns.items()}
+    p99 = {k: statistics.median(r["attempt_ms"]["p99"] for r in v) for k, v in turns.items()}
+    print(f"{basic.name}, the three recorders off / on in turns ({TELEMETRY_PAIRS} pairs, "
+          f"inline ring): median {med['off']:.1f} / {med['on']:.1f} pods/s (each: "
+          + " / ".join(f"{r['pods_per_s']:.1f}" for r in turns["off"]) + " against "
+          + " / ".join(f"{r['pods_per_s']:.1f}" for r in turns["on"])
+          + f"); attempt p99 {p99['off']:.2f} / {p99['on']:.2f} ms; placements == the "
+          "cpu loop, on == off")
+    for i, o in enumerate(obs):
+        t = o["transfer"]
+        nbytes = o["cost"][f"schedule_batch@{P}/off"]  # the cost ledger's, from the shapes
+        print(f"{basic.name} [recorders on {i + 1}]: {turns['on'][i]['batches']} schedule_batch "
+              f"records == {turns['on'][i]['launches']} fused launches; deviceExecS median "
+              f"{o['device_exec_ms']:.4f} ms per batch program (the kernel alone "
+              f"{kern['ms']:.4f} ms in the kernel phase); the wait's dwell / exec / fetch / "
+              "whole medians " + " / ".join(f"{v:.4f}" for v in o["phases_ms"].values())
+              + f" ms; the fused step's {nbytes:.0f} bytes over the median deviceExecS "
+              f"{nbytes / (o['device_exec_ms'] / 1e3) / 1e9:.1f} GB/s = "
+              f"{nbytes / (o['device_exec_ms'] / 1e3) / HBM_BYTES_PER_S * 100:.2f}% of 3.35 "
+              f"TB/s (over the kernel's ms: {nbytes / (kern['ms'] / 1e3) / HBM_BYTES_PER_S * 100:.2f}"
+              f"%); the card busy {o['busy_share'] * 100:.3f}% of the measured phase; uploads "
+              f"{t['uploads']} of {t['uploadBytes']} bytes, fetches {t['fetches']} of "
+              f"{t['fetchBytes']} bytes, allocator peak {o['hbm_peak']} bytes; builds "
+              f"{o['compilations']} (the library was built before the phase), retraces 0; "
+              f"ledger: every e2e == its segments' sum, measured e2e p50 "
+              f"{o['e2e_ms'][50]:.2f} / p99 {o['e2e_ms'][99]:.2f} ms, segment medians "
+              + ", ".join(f"{k} {v:.3f}" for k, v in o["segments_ms"].items())
+              + f" ms; one scheduling.cycle span per batch, the dispatch phases end to end "
+              f"in each wait (its own bookkeeping after them at most "
+              f"{o['wait_uncovered_us']:.1f} us); flight events {o['events']}")
+    out[f"{basic.name}/recorders"] = {"launches": turns["on"][-1]["launches"],
+                                      "pods_per_s": med, "p99_ms": p99, "observed": obs}
+    part("recorders")
+
+    arms = {}
+    for borrowing in (True, False):
+        w = workloads.scheduling_borrow(BORROW_NODES, BORROW_ROUNDS, BORROW_SCALE,
+                                        borrowing=borrowing)
+        with _env(**RING):
+            fused_step.LAUNCHES = 0
+            gpu = workloads.run_loop_borrow(w, "cuda", percentage=100)
+            if gpu["launches"] != fused_step.LAUNCHES:
+                raise AssertionError(f"{w.name}: launches counted twice")
+            cpu = workloads.run_loop_borrow(w, "cpu", percentage=100)
+        _check_loop_same(w.name, gpu, cpu, BORROW_KEYS)
+        inv = gpu["invariants"]
+        if inv["OversubscriptionViolations"] != 0 or (borrowing and inv["Reclaims"] <= 0):
+            raise AssertionError(f"{w.name}: invariants {inv}")
+        if set(gpu["paths"]) != {"fused"} or gpu["launches"] != len(gpu["paths"]):
+            raise AssertionError(f"{w.name}: paths {set(gpu['paths'])}, {gpu['launches']} "
+                                 f"launches for {len(gpu['paths'])} batches")
+        arms[borrowing] = (w, gpu, cpu)
+    on, off = arms[True][1]["invariants"], arms[False][1]["invariants"]
+    lift = on["PoolUtilizationMean"] - off["PoolUtilizationMean"]
+    if not lift > 0.10:
+        raise AssertionError(f"SchedulingBorrow: utilization lift {lift:.4f} <= 0.10")
+    for borrowing, (w, gpu, cpu) in arms.items():
+        lender = gpu["tenants"]["borrow-lender"]
+        print(f"{w.name} through the loop (inline ring, FakeClock): == the cpu loop (placements, "
+              f"per-tenant admissions, loans, reclaims, invariants, the ledger's per-tenant e2e); "
+              f"invariants {gpu['invariants']}; admitted "
+              + ", ".join(f"{ns} {t['Admitted']:.0f}" for ns, t in gpu["tenants"].items())
+              + f"; {len(gpu['paths'])} batches, {gpu['launches']} fused launches; "
+              f"{gpu['pods_per_s']:.1f} pods/s ({cpu['pods_per_s']:.1f} on the cpu); the "
+              f"lender's e2e p99 {lender['E2eP99']:.3f} s on the FakeClock")
+        out[w.name] = {"launches": gpu["launches"], "pods_per_s": gpu["pods_per_s"],
+                       "lender_p99_s": lender["E2eP99"], "invariants": gpu["invariants"]}
+    print(f"SchedulingBorrow/{BORROW_NODES}Nodes: pool utilization lift {lift:.4f} > 0.10, "
+          f"{on['Reclaims']:.0f} reclaims, zero oversubscription in both arms")
+    part("borrow")
+    print("loop_telemetry phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -2707,6 +2893,7 @@ def main() -> int:
     loop_faults = timed("loop_faults", loop_faults_phase, loop)
     loop_profiles = timed("loop_profiles", loop_profiles_phase, loop)
     loop_admission = timed("loop_admission", loop_admission_phase, loop)
+    loop_telemetry = timed("loop_telemetry", loop_telemetry_phase, loop, kern)
     loop.pop(CPU_BASIC)
     loop.pop(CPU_PREEMPT)
     warm_launches = loop_faults.pop("warm_launches")
@@ -2739,7 +2926,9 @@ def main() -> int:
                                  **{f"loop:{k}": v["launches"]
                                     for k, v in loop_profiles.items()},
                                  **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_admission.items()}},
+                                    for k, v in loop_admission.items()},
+                                 **{f"loop:{k}": v["launches"]
+                                    for k, v in loop_telemetry.items()}},
         "warm_launches": warm_launches,
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],

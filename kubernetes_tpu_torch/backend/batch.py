@@ -52,13 +52,14 @@ import torch
 from ..api.dra import OP_EQ, OP_GE, OP_GT, OP_LE, OP_LT, OP_NE
 from ..ops import filters, scores, topology
 from ..ops.fused_step import (NEG_INF, NOMINATED_BONUS, WEIGHT_ORDER, _normalize,
-                              _resource_scores, fused_step_batch)
+                              _resource_scores, fused_step_batch, fused_step_bytes)
 from ..ops.gang import assign_gangs
 from ..ops.quota import quota_screen
 from ..ops.slice import plan_slices
 from ..ops.schema import ExprTable, NodeTensors, PodBatch, TopoBatch, TopoCounts
 from ..ops.tiebreak import jitter_table
 from ..utils.device import DeviceLike, check_on, resolve_device
+from . import telemetry
 from .device_state import _bucket
 
 # default plugin weights on the batched path (default_plugins.go:32-51)
@@ -984,7 +985,18 @@ def schedule_batch(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     if quota_ns is not None and quota_used is not None:
         quota_words = quota_screen(res.node_idx, quota_ns, quota_req, quota_used, quota_limit)
     res.packed = pack_result_block(res.node_idx, res.first_fail, slice_words, quota_words)
+    if (topo_mode == "off" and not spec_decode and sample_k is None
+            and telemetry.get() is not None):
+        # the cost ledger (``:1576-1583``): the fused kernel's bytes, from
+        # its shapes, once per bucket
+        telemetry.cost_probe("schedule_batch", f"{pb.capacity}/off", _fused_cost, (pb, nt))
     return res
+
+
+def _fused_cost(pb: PodBatch, nt: NodeTensors) -> Dict[str, float]:
+    n, r = nt.allocatable.shape
+    return {"bytesAccessed": float(fused_step_bytes(pb.req.shape[0], n, r,
+                                                    nt.port_bits.shape[1]))}
 
 
 def _slice_plan(pb: PodBatch, nt: NodeTensors,

@@ -134,6 +134,7 @@ from ..utils.device import DeviceLike
 from .batch import (DEFAULT_WEIGHTS, SLICE_PLAN_OK_BIT, BatchResult, gang_member_index,
                     gang_verdicts, pack_result_block, schedule_batch, spec_decode_eligible,
                     unpack_result_block)
+from . import telemetry
 from .claim_mask import ClaimMaskBuilder
 from .commit_plane import materialize_result
 from .device_state import DeviceState, caps_for_cluster
@@ -230,6 +231,9 @@ class DispatchedBatch:
     # ``ready`` has fired; ``ready`` is None when it already is
     block: torch.Tensor
     ready: Optional["torch.cuda.Event"]
+    # with telemetry on, on CUDA: timing events recorded just before and
+    # just after the batch program on its stream
+    exec_events: Optional[Tuple["torch.cuda.Event", "torch.cuda.Event"]] = None
 
     @property
     def quota_col(self) -> bool:
@@ -298,12 +302,21 @@ def dispatch_device_batch(state: DeviceState, enc: EncodedBatch,
     the scan; ``topo_carry`` starts the topology counts from the newest
     batch in flight), the evolved carry adopted as the device truth, and
     the packed block's copy to the host started. On the fused path nothing
-    here waits for the device."""
+    here waits for the device. With telemetry on, on CUDA, two timing
+    events bracket the batch program on the current stream (the dispatch
+    ledger's ``deviceExecS``, ``commit_plane.materialize_profiled``)."""
+    events = None
+    if telemetry.get() is not None and state.device.type == "cuda":
+        stream = torch.cuda.current_stream(state.device)
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        events[0].record(stream)
     res, spec = run_batch_program(state, enc, sample_k, sample_start, topo_carry)
+    if events is not None:
+        events[1].record(stream)
     state.adopt_device(res)
     block, ready = stage_to_host(res.packed)
     path = "spec" if spec else "fused" if enc.mode == "off" and sample_k is None else "scan"
-    return DispatchedBatch(enc, res, path, block, ready)
+    return DispatchedBatch(enc, res, path, block, ready, events)
 
 
 def run_batch_program(state: DeviceState, enc: EncodedBatch, sample_k: Optional[int] = None,
@@ -375,7 +388,8 @@ def preempt_screen(state: DeviceState, pods: Sequence[Pod], batch: DeviceBatch,
     if min_prio is None or all(pods[i].spec.priority <= min_prio
                                for i in np.flatnonzero(failed)):
         return np.zeros((n, state.caps.nodes), bool), np.full(n, -1, np.int32)
-    pres = screen_prefix(batch.pb, state.preempt_inputs(), batch.res.static_masks, failed)
+    with telemetry.dispatch("preempt_screen", bucket=str(batch.pb.capacity)):
+        pres = screen_prefix(batch.pb, state.preempt_inputs(), batch.res.static_masks, failed)
     best, screen, _, _ = unpack_result_block(
         pack_result_block(pres.best, pres.screen.to(torch.int8)), state.caps.nodes)
     return screen.astype(bool), best
@@ -455,8 +469,10 @@ def judge_gangs(flat: Dict[str, List[int]], slices: Dict[str, List[int]], res: B
     reasons: Dict[str, str] = {}
     if flat:
         member_idx, member_valid = gang_member_index(list(flat.values()), device)
-        placed_all, kernel_ok, _assign = gang_verdicts(res.node_idx, res.first_fail,
-                                                       member_idx, member_valid)
+        with telemetry.dispatch("gang_verdicts",
+                                bucket=f"{member_idx.shape[0]}x{member_idx.shape[1]}"):
+            placed_all, kernel_ok, _assign = gang_verdicts(res.node_idx, res.first_fail,
+                                                           member_idx, member_valid)
         verdicts = torch.stack([placed_all, kernel_ok]).cpu().numpy()  # one read
         for g, gkey in enumerate(flat):
             if not verdicts[0, g]:

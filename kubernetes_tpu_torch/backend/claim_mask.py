@@ -14,6 +14,9 @@ restriction row built from the encoder's slot map), and the commit path's
 Reserve allocates exactly, so two pods of one batch that share an
 unallocated claim cannot both allocate it to different nodes: the second
 fails Reserve and is retried against the allocation.
+
+The screen runs under ``telemetry.dispatch("claim_mask", ...)`` with its
+(empty) cost probe, as ``:77-83`` of the JAX module.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..api import dra
+from . import telemetry
 from .batch import claim_feasibility_mask
 from .device_state import _bucket
 
@@ -61,9 +65,13 @@ def build_dra_mask(device_state, entries, pad_to: int) -> Optional[torch.Tensor]
                 row[slot] = True
             restrict[p] &= row
     dev = device_state.device
-    mask = claim_feasibility_mask(
-        *(torch.tensor(a, device=dev) for a in (sel_key, sel_op, sel_kind, sel_val)),
-        device_state.attr_kind, device_state.attr_val)
+    bucket = f"{pad_to}x{sel_key.shape[1]}"
+    with telemetry.dispatch("claim_mask", bucket=bucket):
+        mask = claim_feasibility_mask(
+            *(torch.tensor(a, device=dev) for a in (sel_key, sel_op, sel_kind, sel_val)),
+            device_state.attr_kind, device_state.attr_val)
+    # the screen has no byte count: its cost slot stays empty
+    telemetry.cost_probe("claim_mask", bucket, lambda: None)
     if restrict is not None:
         mask = mask & torch.tensor(restrict, device=dev)
     return mask

@@ -2,7 +2,18 @@
 ``kubernetes_tpu/backend/commit_plane.py``).
 
 - ``materialize_result``: the one blocking read of a dispatched batch, its
-  packed block (``:380-406``), without the telemetry.
+  packed block (``:380-406``), counted as a ``fetch`` transfer.
+- ``materialize_profiled`` (``:409-455``): with telemetry off it is
+  ``materialize_result`` after one read of the recorder. With it on, the
+  end event the dispatch recorded after the batch program is synchronized
+  first (JAX's ``block_until_ready``): the clock after it is the end of
+  execution, the clock after the read the end of the wait, and the events'
+  ``elapsed_time`` the program's own time on the card (``deviceExecS``).
+  The dispatch ledger splits the wait into dwell, exec and fetch, and the
+  ``device.dispatch.*`` spans are emitted under the open
+  ``device.commit.wait``. Unlike JAX, an exception from that synchronize
+  is not swallowed: it is the card failing, and it reaches the loop's
+  relay death path as a failed read does.
 - ``CommitWorker`` (whole, ``:456-549``): one thread that commits the
   in-flight batches handed to it, strictly in the order given, so that
   batch K's host commit overlaps batch K+1's encode, dispatch and device
@@ -13,11 +24,13 @@
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from . import telemetry
 from .batch import unpack_result_block
 
 
@@ -29,7 +42,39 @@ def materialize_result(disp, n_nodes: int) -> Tuple[np.ndarray, np.ndarray,
     event, then unpack the block on the host."""
     if disp.ready is not None:
         disp.ready.synchronize()
+    telemetry.transfer("fetch", _nbytes(disp.block))
     return unpack_result_block(disp.block, n_nodes, quota_col=disp.quota_col)
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def materialize_profiled(disp, n_nodes: int, *, program: str, bucket: Optional[str] = None,
+                         t_submit: Optional[float] = None,
+                         now_fn: Callable[[], float] = time.perf_counter,
+                         batch_id: str = "", pods: int = 0) -> Tuple[tuple, Optional[dict]]:
+    """(``materialize_result``'s tuple, the dispatch record or None when
+    telemetry is off)."""
+    rec = telemetry.get()
+    if rec is None:
+        return materialize_result(disp, n_nodes), None
+    t_wait0 = now_fn()
+    device_exec_s = None
+    if disp.exec_events is not None:
+        start, end = disp.exec_events
+        end.synchronize()  # a failing card raises here, to the relay death path
+        device_exec_s = start.elapsed_time(end) / 1e3
+    t_exec_done = now_fn()
+    out = materialize_result(disp, n_nodes)
+    t_wait_end = now_fn()
+    record = rec.dispatch_ledger.record_window(
+        program, bucket, batch_id=batch_id, pods=pods,
+        t_submit=t_submit if t_submit is not None else t_wait0, t_wait0=t_wait0,
+        t_exec_done=t_exec_done, t_wait_end=t_wait_end, fetch_bytes=_nbytes(disp.block),
+        device_exec_s=device_exec_s)
+    telemetry.emit_phase_spans(record)
+    return out, record
 
 
 class CommitWorker:

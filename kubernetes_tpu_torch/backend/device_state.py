@@ -42,6 +42,12 @@ pending. ``invalidate_row`` puts its row among the pending ones, so a row
 the host rejected after the device committed to it is seen again (the JAX
 package only drops its generation, and its probes never revisit it:
 ROADMAP C5a).
+
+Telemetry (``backend/telemetry.py``, ``:409-516``): the row upload runs
+under ``dispatch("apply_rows", bucket)`` and counts its bytes (the stacked
+rows and the int32 slot index, as the JAX package counts them) as an
+``upload``; a removed node records ``node_remove`` and a tombstoned slot
+handed to a new node ``slot_reclaim``.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from ..ops.quota import QUOTA_DIMS, QUOTA_NO_LIMIT
 from ..framework.plugins.interpodaffinity import NsLabelsFn
 from ..ops.schema import Capacities, NodeTensors, TopoCounts, round_node_capacity, tensor_from_numpy
 from ..utils.device import DeviceLike, resolve_device
+from . import telemetry
 from .sig_table import SigTable
 
 _ROW_FIELDS = (
@@ -184,6 +191,7 @@ class DeviceState:
             self._mirror_node.pop(name, None)
             slot = self.encoder.release_node_slot(name)
             self.nodes_removed += 1
+            telemetry.event("node_remove", node=name, slot=slot if slot is not None else -1)
             if slot is not None:
                 dirty.append((slot, NodeInfo()))  # empty row: valid=False
                 self.sig_table.recount_node(slot, None)
@@ -192,7 +200,11 @@ class DeviceState:
         for name, ni in current.items():
             if self._uploaded_gen.get(name) == ni.generation:
                 continue
+            reuses0 = self.encoder.slot_reuses
             slot = self.encoder.node_slot(name)
+            if self.encoder.slot_reuses != reuses0:
+                # a tombstoned row went to this node
+                telemetry.event("slot_reclaim", node=name, slot=slot)
             dirty.append((slot, ni))
             self._uploaded_gen[name] = ni.generation
             images_changed |= self._track_images(name, ni)
@@ -234,17 +246,23 @@ class DeviceState:
         # first row (the same content to the same slot)
         n = len(changed)
         b = _bucket(n)
-        slots = np.empty(b, np.int64)
+        slots = np.empty(b, np.int32)
         slots[:n] = [s for s, _ in changed]
         slots[n:] = slots[0]
-        idx = torch.from_numpy(slots).to(self.device)
-        for field, dtype in _ROW_FIELDS:
-            stacked = np.empty((b,) + self._mirror[field].shape[1:], dtype)
-            stacked[:n] = np.stack([r[field] for _, r in changed]).astype(dtype)
-            stacked[n:] = stacked[0]
-            getattr(self.nt, field).index_copy_(
-                0, idx, tensor_from_numpy(field, stacked, self.device))
+        nbytes = slots.nbytes
+        with telemetry.dispatch("apply_rows", bucket=str(b)):
+            # the slots go up as int32, as the JAX package's do, and widen
+            # on the device for index_copy_
+            idx = torch.from_numpy(slots).to(self.device).long()
+            for field, dtype in _ROW_FIELDS:
+                stacked = np.empty((b,) + self._mirror[field].shape[1:], dtype)
+                stacked[:n] = np.stack([r[field] for _, r in changed]).astype(dtype)
+                stacked[n:] = stacked[0]
+                nbytes += stacked.nbytes
+                getattr(self.nt, field).index_copy_(
+                    0, idx, tensor_from_numpy(field, stacked, self.device))
         self.rows_uploaded += n
+        telemetry.transfer("upload", nbytes)
         return n
 
     def reconcile(self, snapshot: Snapshot) -> int:

@@ -140,8 +140,35 @@ again with the host PreFilters and Filters (``_compare_with_oracle``).
 measured window and seeds the sizer from its timed runs
 (``_calibrate_sizer``).
 
-Left out: telemetry, tracing and the latency ledger (a capacity that does
-not converge raises PermanentDeviceError).
+Observability (``:208-212``, ``:584-1123``, ``:1185-1228``, ``:1353``,
+``:1427``, ``:1578``, ``:1685-1740``, ``:1832``; ``backend/telemetry.py``,
+``metrics/latency_ledger.py``, ``utils/tracing.py``), each off by default
+at the cost of one global read per hook, and changing no placement when
+on. Each batch gets JAX's id ``b<batch_counter>``. Spans: one
+``scheduling.cycle`` (``batch``) per flushed batch, with
+``device.encode.pipelined``, ``device.sync`` and ``device.encode``,
+``device.dispatch`` (``topo``), ``device.commit.backpressure``, and for
+each commit landed inside it ``device.commit.wait`` (with the dispatch
+ledger's ``device.dispatch.{dwell,exec,fetch}`` children), ``host.commit``
+and ``device.commit.reconcile``; a commit landed by a drain outside a
+flush roots its own. Flight events: ``encode``, ``dispatch`` (``sig`` =
+``<bucket>/<mode>``), ``commit``, ``poison``, ``requeue``, ``degrade``,
+``slot_reclaim``, ``slice_assign``, ``slice_reject``, ``frag_alert``
+(edge-triggered at ``KTPU_FRAG_ALERT``, 0.5). Dispatch contexts:
+``schedule_batch`` (bucket ``<bucket>/<mode>``) around every dispatch and
+warm run, ``gang_verdicts``, ``preempt_screen``, ``claim_mask``,
+``apply_rows``; ``warm_buckets`` runs in ``calibration()``. Each commit
+reads through ``commit_plane.materialize_profiled`` and samples the card's
+memory after it. The latency ledger moves a batch's pods to
+``device.inflight`` at dispatch and to ``commit.host`` at the claim; the
+bind tail moves them to ``bind`` and closes them. ``KTPU_PROFILE_DIR``
+captures a ``torch.profiler`` trace of the first ``KTPU_PROFILE_BATCHES``
+(4) batch cycles, exported as a Chrome trace into that directory; a
+profiler that cannot start turns profiling off. ``KTPU_TELEMETRY=1``,
+``KTPU_LEDGER=1`` and ``KTPU_TRACE_FILE`` turn the recorders on when a
+loop is built (``enable_observability_from_env``).
+
+A capacity that does not converge raises PermanentDeviceError.
 """
 
 from __future__ import annotations
@@ -163,8 +190,9 @@ from ..apiserver.store import Store
 from ..cache.snapshot import Snapshot
 from ..framework.plugins import names, volume
 from ..framework.registry import DEFAULT_PLUGINS
-from ..framework.runtime import Framework, PreFilterState
+from ..framework.runtime import WAITING, Framework, PreFilterState
 from ..framework.types import Diagnosis, QueuedPodInfo
+from ..metrics import latency_ledger
 from ..metrics.scheduler_metrics import ERROR, SCHEDULED, UNSCHEDULABLE
 from ..ops import fused_step
 from ..ops.encode import CapacityError
@@ -176,7 +204,10 @@ from ..ops.tiebreak import seeds_for
 from ..ops.volume_mask import VolumeMaskBuilder
 from ..scheduler.scheduler import BindItem, Scheduler
 from ..api.wrappers import make_pod
+from ..framework.runtime import sampled_attempt
+from ..utils import tracing
 from ..utils.device import DeviceLike, resolve_device
+from . import telemetry
 from .batch_scheduler import (DeviceBatch, DispatchedBatch, EncodedBatch,
                               adopt_device_batch, dispatch_device_batch, encode_device_batch,
                               batch_gangs, judge_gangs, preempt_screen, quota_batch_kw,
@@ -184,7 +215,7 @@ from .batch_scheduler import (DeviceBatch, DispatchedBatch, EncodedBatch,
                               topo_mode_info)
 from .circuit import STATE_VALUES, CircuitBreaker
 from .claim_mask import ClaimMaskBuilder
-from .commit_plane import CommitWorker, materialize_result
+from .commit_plane import CommitWorker, materialize_profiled
 from .device_state import DeviceState, caps_for_cluster
 from .errors import PermanentDeviceError, TransientDeviceError
 from .sizer import BatchSizer
@@ -277,6 +308,8 @@ class _Inflight:
     # poisons the batch instead of committing it against a rebuilt mirror
     state: DeviceState
     stream: Optional[torch.cuda.Stream]  # the dispatch stream (CUDA)
+    batch_id: str = ""       # "b<batch_counter>", the flight recorder's key
+    t_submit: float = 0.0    # now_fn when its dispatch returned
 
 
 class _Laps:
@@ -393,12 +426,37 @@ class TPUScheduler(Scheduler):
         # whether any profile runs a PostFilter (the preemption screen is
         # wasted otherwise)
         self._preempt_wired = any(f.points.get("post_filter") for f in self.profiles.values())
+        # KTPU_PROFILE_DIR: a torch.profiler capture of the first
+        # KTPU_PROFILE_BATCHES batch cycles, exported as a Chrome trace
+        self._profile_dir = os.environ.get("KTPU_PROFILE_DIR", "")
+        self._profile_batches = int(os.environ.get("KTPU_PROFILE_BATCHES", "4"))
+        self._profiler = None
+        self._frag_alerted: Set[int] = set()  # superpods past the alert threshold
+        self.enable_observability_from_env()
+
+    def enable_observability_from_env(self) -> None:
+        """The recorders the environment asks for, as the JAX server's setup
+        turns them on (``cmd/server.py:533-561``): ``KTPU_TRACE_FILE``,
+        ``KTPU_TELEMETRY=1`` (feeding this loop's metrics) and
+        ``KTPU_LEDGER=1`` (this loop's metrics, its quota tenants)."""
+        tracing.maybe_enable_from_env()
+        telemetry.maybe_enable_from_env(self.smetrics)
+        latency_ledger.maybe_enable_from_env(self.smetrics, tenant_fn=self._ns_fair_weight)
 
     def close(self) -> None:
-        """Commit every batch in flight and end the commit worker's thread."""
+        """Commit every batch in flight, end the commit worker's thread and
+        flush a profiler capture still open."""
         self._drain_inflight()
         if self.commit_worker is not None:
             self.commit_worker.stop()
+        self._stop_profile()
+
+    def run_until_settled(self) -> int:
+        """The base settle loop; a profiler capture the settle did not fill
+        is flushed at its end (``:2027-2043``)."""
+        cycles = super().run_until_settled()
+        self._stop_profile()
+        return cycles
 
     def _relay_state_change(self, _old: str, new: str) -> None:
         """A relay breaker transition (``:289-306``): the circuit gauge, and
@@ -573,6 +631,7 @@ class TPUScheduler(Scheduler):
         for qp in qps:
             pod = self.store.get_pod(qp.pod.key())
             if pod is None or pod.spec.node_name or not self._responsible_for(pod):
+                latency_ledger.close_skipped(qp.pod.key(), pod)
                 continue  # skipPodSchedule
             live.append((qp, pod))
         if relay_ok:
@@ -599,6 +658,7 @@ class TPUScheduler(Scheduler):
                     continue
                 if batchable:
                     self.relay_degraded_pods += 1
+                    telemetry.event("degrade", pod=pod.key(), reason="relay breaker open")
                 # the sequential path, in pop order: the batch queued before
                 # the pod is dispatched and the ring lands first
                 laps("pop")
@@ -691,13 +751,22 @@ class TPUScheduler(Scheduler):
     def _flush_batch(self, batched: List[QueuedPodInfo], pod_cycle: int, t_pop: float,
                      laps: _Laps) -> None:
         """Encode, dispatch and ring one batch (``_flush_batch_traced``,
-        ``:657-880``), then commit what passed the ring's depth."""
+        ``:650-880``), then commit what passed the ring's depth, in one
+        ``scheduling.cycle`` span."""
+        with tracing.span("scheduling.cycle", batch=len(batched)):
+            self._flush_batch_traced(batched, pod_cycle, t_pop, laps)
+
+    def _flush_batch_traced(self, batched: List[QueuedPodInfo], pod_cycle: int, t_pop: float,
+                            laps: _Laps) -> None:
+        self._maybe_profile()
         mutex = self.device_mutex
         t_work = laps.t
-        with mutex:
-            enc = self._try_pipelined_encode(batched, laps)
-            state = self.state
-        if enc is not None:
+        with tracing.span("device.encode.pipelined", batch=len(batched)):
+            with mutex:
+                enc = self._try_pipelined_encode(batched, laps)
+                state = self.state
+        pipelined = enc is not None
+        if pipelined:
             self.carry_batches += 1
         else:
             self._drain_inflight()
@@ -712,10 +781,12 @@ class TPUScheduler(Scheduler):
             for _attempt in range(GROW_ATTEMPTS):
                 try:
                     with mutex:
-                        self.state.sync(self.snapshot)
+                        with tracing.span("device.sync"):
+                            self.state.sync(self.snapshot)
                         self._sync_slot_reuse_metric()
                         laps("sync")
-                        enc = self._encode(batched)
+                        with tracing.span("device.encode", batch=len(batched)):
+                            enc = self._encode(batched)
                         laps("encode")
                         state = self.state
                     break
@@ -730,6 +801,8 @@ class TPUScheduler(Scheduler):
             self._chain_ext_seq = ext_seq
             self._chain_dirty = False
         self.batch_counter += 1
+        batch_id = f"b{self.batch_counter}"
+        bucket = enc.pb.capacity
         # the cross-batch topology carry: the newest batch in flight's
         # evolved counts (after a drain the host recounted them: no carry)
         prev = self._inflight[-1] if self._inflight else None
@@ -745,20 +818,30 @@ class TPUScheduler(Scheduler):
                     for qp in batched:
                         self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
                 return
-            disp = dispatch_device_batch(state, enc, sample_k, sample_start, carry)
+            telemetry.event("encode", batchId=batch_id, bucket=bucket, pods=len(batched),
+                            pipelined=pipelined)
+            sig = f"{bucket}/{enc.mode}"
+            with tracing.span("device.dispatch", topo=enc.mode):
+                with telemetry.dispatch("schedule_batch", bucket=sig):
+                    disp = dispatch_device_batch(state, enc, sample_k, sample_start, carry)
             if disp.res.final_sample_start is not None:
                 self._start_carry = disp.res.final_sample_start
+            t_submit = self.now_fn()
             stream = (torch.cuda.current_stream(self.device)
                       if self.device.type == "cuda" else None)
             self._inflight.append(_Inflight(batched, disp, pod_cycle, t_pop,
                                             (enc.mode, enc.vd, enc.host_key),
-                                            enc.pb.capacity, state, stream))
+                                            bucket, state, stream, batch_id, t_submit))
+        telemetry.event("dispatch", batchId=batch_id, bucket=bucket, pods=len(batched),
+                        topo=enc.mode, sig=sig, packed=True, inflight=len(self._inflight))
+        latency_ledger.transition_many((qp.pod.key() for qp in batched), "device.inflight",
+                                       batch_id=batch_id)
         laps("dispatch")
         self.dispatch_spans.append((t_work, laps.t))
         self.batch_modes.append(enc.mode)
         self.batch_paths.append(disp.path)
         self.batch_pods.append(len(batched))
-        self.batch_buckets.append(enc.pb.capacity)
+        self.batch_buckets.append(bucket)
         # land the oldest batches past the ring's depth: inline, or handed
         # to the worker behind a bounded backlog
         while len(self._inflight) > self.pipeline_depth:
@@ -768,11 +851,50 @@ class TPUScheduler(Scheduler):
             if self.commit_worker is not None:
                 backlog = max(1, self.pipeline_depth)
                 if self.commit_worker.depth() >= backlog:
-                    self.commit_worker.wait_below(backlog)
+                    with tracing.span("device.commit.backpressure"):
+                        self.commit_worker.wait_below(backlog)
                 self.commit_worker.submit(fl)
             else:
                 self._commit_inflight(fl)
         laps("commit")
+
+    def _maybe_profile(self) -> None:
+        """Start a ``torch.profiler`` capture at the first batch cycle and
+        stop it past ``KTPU_PROFILE_BATCHES`` (``:626-644``) when
+        ``KTPU_PROFILE_DIR`` is set. A profiler that cannot start turns
+        profiling off; the batch path is untouched either way."""
+        if not self._profile_dir:
+            return
+        if self._profiler is None and self.batch_counter == 0:
+            try:
+                from torch.profiler import ProfilerActivity, profile
+
+                activities = [ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(ProfilerActivity.CUDA)
+                self._profiler = profile(activities=activities)
+                self._profiler.start()
+            except Exception:  # noqa: BLE001 - profiling must never break scheduling
+                logging.getLogger(__name__).exception("profiler did not start; profiling off")
+                self._profiler = None
+                self._profile_dir = ""
+        elif self._profiler is not None and self.batch_counter >= self._profile_batches:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        """Stop the capture and export it as ``<KTPU_PROFILE_DIR>/
+        loop-<pid>.json`` (a Chrome trace)."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        path = os.path.join(self._profile_dir, f"loop-{os.getpid()}.json")
+        self._profile_dir = ""
+        try:
+            prof.stop()
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            prof.export_chrome_trace(path)
+        except Exception:  # noqa: BLE001 - a torn capture must not fail the loop
+            logging.getLogger(__name__).exception("profiler capture not written")
 
     def _try_pipelined_encode(self, batched: List[QueuedPodInfo],
                               laps: _Laps) -> Optional[EncodedBatch]:
@@ -854,7 +976,12 @@ class TPUScheduler(Scheduler):
         mirror, ``batch_counter``, ``batch_modes``, ``batch_paths``,
         ``stage_seconds`` and the sampling carry stay as they were; the
         fused kernel's launches add to ``warm_launches``. Returns the
-        programs warmed, counted as the JAX loop counts them."""
+        programs warmed, counted as the JAX loop counts them. The sweep is
+        the build ledger's ``calibration()`` window."""
+        with telemetry.calibration():
+            return self._warm_buckets(sample_pods)
+
+    def _warm_buckets(self, sample_pods: Optional[List[Pod]]) -> int:
         self._drain_inflight()
         self._ensure_device()
         self.cache.update_snapshot(self.snapshot)
@@ -901,7 +1028,8 @@ class TPUScheduler(Scheduler):
                                           host_key=mode_info[2])
 
                 def run(**kw):
-                    res = run_batch_program(state, enc, sample_k, sample_start, **kw)[0]
+                    with telemetry.dispatch("schedule_batch", bucket=f"{bucket}/{enc.mode}"):
+                        res = run_batch_program(state, enc, sample_k, sample_start, **kw)[0]
                     res.node_idx.cpu()  # the host read: the program has run
                     return res
 
@@ -989,29 +1117,39 @@ class TPUScheduler(Scheduler):
                                  count_breaker=False)
             return
         wait: Optional[float] = None
+        rec: Optional[dict] = None
         laps = _Laps(self.commit_seconds)
+        worker = "commit" if on_worker else "inline"
         try:
             with _on_stream(fl.stream):
                 if self.relay_fault_fn is not None:
                     fault = self.relay_fault_fn("commit")
                     if fault is not None:
                         raise fault
-                t_wait = self.now_fn()
-                read = materialize_result(fl.disp, self.state.caps.nodes)
-                wait = self.now_fn() - t_wait
+                with tracing.span("device.commit.wait", batch=len(fl.qps), packed="packed",
+                                  worker=worker):
+                    t_wait = self.now_fn()
+                    read, rec = materialize_profiled(
+                        fl.disp, self.state.caps.nodes, program="schedule_batch",
+                        bucket=f"{fl.bucket}/{fl.mode_info[0]}", t_submit=fl.t_submit,
+                        now_fn=self.now_fn, batch_id=fl.batch_id, pods=len(fl.qps))
+                    wait = self.now_fn() - t_wait
                 laps("wait")
                 t_host = laps.t
                 batch = adopt_device_batch(self.state, fl.disp, read, mutex)
-                with self.queue.coalesce_moves():
-                    self._commit_batch(fl.qps, batch, fl.pod_cycle, fl.t0)
+                with tracing.span("host.commit", batch=len(fl.qps), worker=worker):
+                    with self.queue.coalesce_moves():
+                        self._commit_batch(fl.qps, batch, fl.pod_cycle, fl.t0, fl.batch_id)
                 laps("bind")
                 if self.state is not None:
-                    snap = self._commit_snapshot if on_worker else self.snapshot
-                    with mutex:
-                        self.cache.update_snapshot(snap)
-                        left = self.state.reconcile(snap)
-                    if left:
-                        self._chain_dirty = True
+                    with tracing.span("device.commit.reconcile", batch=len(fl.qps),
+                                      worker=worker):
+                        snap = self._commit_snapshot if on_worker else self.snapshot
+                        with mutex:
+                            self.cache.update_snapshot(snap)
+                            left = self.state.reconcile(snap)
+                        if left:
+                            self._chain_dirty = True
                 laps("reconcile")
                 self.commit_spans.append((t_host, laps.t))
         except Exception as exc:  # noqa: BLE001 - the loop requeues and rebuilds
@@ -1034,6 +1172,13 @@ class TPUScheduler(Scheduler):
                 raise
         else:
             self.relay_breaker.record_success()
+            extra = {}
+            if rec is not None:  # the slow-program outlier shows on the event alone
+                extra = {"device_ms": round(rec["execS"] * 1e3, 3),
+                         "fetch_ms": round(rec["fetchS"] * 1e3, 3)}
+            telemetry.event("commit", batchId=fl.batch_id, bucket=fl.bucket, pods=len(fl.qps),
+                            packed=True, wait_s=round(wait, 6), **extra)
+            telemetry.sample_hbm(self.device)
         # the sizer controls pop-to-commit at the batch's bucket: observed
         # here, where the span ends; the commit wait feeds the stall model
         self.sizer.update(fl.bucket, self.now_fn() - fl.t0)
@@ -1050,8 +1195,11 @@ class TPUScheduler(Scheduler):
             self.relay_breaker.record_failure(exc)
         with self.queue.coalesce_moves():
             for fl in batches:
+                telemetry.event("poison", batchId=fl.batch_id, bucket=fl.bucket,
+                                pods=len(fl.qps), error=f"{type(exc).__name__}: {exc}"[:200])
                 for qp in fl.qps:
                     self._handle_scheduling_failure(qp, False, Diagnosis(), fl.pod_cycle)
+                telemetry.event("requeue", batchId=fl.batch_id, pods=len(fl.qps))
 
     def _diagnose(self, ff_row: np.ndarray, slot_names: Dict[int, str]) -> Diagnosis:
         """The first failing filter of each node, from the device's
@@ -1067,14 +1215,17 @@ class TPUScheduler(Scheduler):
         return d
 
     def _commit_batch(self, qps: List[QueuedPodInfo], batch: DeviceBatch, pod_cycle: int,
-                      t0: float) -> None:
+                      t0: float, batch_id: str = "") -> None:
         """``_commit_batch_coalesced`` (``:1217-1542``): the batch's
         verdicts (stale winners, the quota screen's flags, the gangs'), the
         preemption screen on the adopted carry under the device mutex when a
         pod is unplaced, then every pod in batch order: the failures, and
         the winners, each assumed at once (a volume or claim winner after
         its commit checks, or down the sequential path), then through
-        ``_commit_bindings``."""
+        ``_commit_bindings``. The batch's pods enter ``commit.host`` in the
+        latency ledger first."""
+        latency_ledger.transition_many((qp.pod.key() for qp in qps), "commit.host",
+                                       batch_id=batch_id)
         node_idx, slot_names = batch.node_idx, batch.slot_names
         n = len(qps)
         pods = [qp.pod for qp in qps]
@@ -1089,7 +1240,7 @@ class TPUScheduler(Scheduler):
                     & ((w & QUOTA_OK_BIT) == 0))
             flagged = set(np.flatnonzero(rows).tolist())
             self.quota_flagged += len(flagged)
-        gang_rejected = self._judge(pods, batch, stale | flagged, t0)
+        gang_rejected = self._judge(pods, batch, stale | flagged, t0, batch_id)
         hints = None
         if self._preempt_wired and (node_idx[:n] < 0).any():
             if self.commit_worker is not None:
@@ -1121,6 +1272,10 @@ class TPUScheduler(Scheduler):
                 # requeue, never bind
                 if name is not None:
                     self._invalidate_device_row(name)
+                slot = int(node_idx[i])
+                telemetry.event("slot_reclaim", batchId=batch_id, pod=qp.pod.key(), slot=slot,
+                                reason=(f"node {name} removed while batch in flight" if name
+                                        else f"slot {slot} reclaimed since dispatch"))
                 self.metrics.inc("errors")
                 self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
                 self.smetrics.observe_attempt(ERROR, fwk.profile_name, self.now_fn() - t0)
@@ -1147,7 +1302,8 @@ class TPUScheduler(Scheduler):
                         continue
                 if self.comparer_every_n and self.batch_scheduled % self.comparer_every_n == 0:
                     self._compare_with_oracle(fwk, qp.pod, name)
-                item = BindItem(qp, name, fwk, state=state)
+                item = BindItem(qp, name, fwk, state=state,
+                                sampled=sampled_attempt(self.metrics["schedule_attempts"]))
                 if self._assume(item, pod_cycle):
                     items.append(item)
                 continue
@@ -1253,7 +1409,8 @@ class TPUScheduler(Scheduler):
             groups.setdefault(item.fwk, []).append(item)
         return groups
 
-    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
+    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float,
+                         per_pod: bool = False) -> int:
         """The bind tail of assumed pods (``commit_plane.py:155-307``), per
         profile in the order its pods first appear: Reserve over the
         profile's pods (then the refused ones rolled back), Permit over
@@ -1262,13 +1419,15 @@ class TPUScheduler(Scheduler):
         right there), then ``_bind_stage`` over every profile's permitted
         pods. Per pod the plugins see the JAX commit plane's calls in its
         order, and each pod fails alone. The sequential path calls it with
-        its one pod. Returns the pods bound or parked (JAX's
-        ``stats.bound + stats.waiting``)."""
+        its one pod (``per_pod``: the JAX per-pod executors' spans).
+        Returns the pods bound or parked (JAX's ``stats.bound +
+        stats.waiting``)."""
         permitted: List[BindItem] = []
         waiting = 0
         for fwk, group in self._by_framework(items).items():
             refused = fwk.reserve_batch([(item.state, item.assumed, item.node_name)
-                                         for item in group])
+                                         for item in group], per_pod,
+                                        [item.sampled for item in group])
             survivors = []
             for item, reason in zip(group, refused):
                 if reason is not None:
@@ -1277,17 +1436,19 @@ class TPUScheduler(Scheduler):
                     survivors.append(item)
             verdicts = fwk.permit_batch(
                 [(item.state, item.assumed, item.node_name) for item in survivors],
-                lambda i, wait_s, _group=survivors: self.park(_group[i], pod_cycle, t0, wait_s))
+                lambda i, wait_s, _group=survivors: self.park(_group[i], pod_cycle, t0, wait_s),
+                per_pod, [item.sampled for item in survivors])
             for item, reason in zip(survivors, verdicts):
                 if reason is None:
                     permitted.append(item)
-                elif reason == "waiting":
+                elif reason == WAITING:
                     waiting += 1
                 else:
                     self._fail_assumed(item, True, pod_cycle)
-        return waiting + self._bind_stage(permitted, pod_cycle, t0)
+        return waiting + self._bind_stage(permitted, pod_cycle, t0, per_pod)
 
-    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
+    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float,
+                    per_pod: bool = False) -> int:
         """PreBind each assumed pod per profile (VolumeBinding's PV
         binds), bind the rest (a pod a binder extender is interested in
         through the first such extender, and a pod whose profile's Bind
@@ -1295,17 +1456,25 @@ class TPUScheduler(Scheduler):
         the JAX commit plane's ``_run_bind`` does, ``commit_plane.py:
         326-343``; then the others through the store in one pass), then
         finish each bound one, count it, and run PostBind over them per
-        profile. A failed bind takes ``_fail_assumed``. Returns the pods
-        bound."""
+        profile. A failed bind takes ``_fail_assumed``. The latency ledger
+        moves the pods to ``bind`` (a batch's after PreBind, as the JAX
+        commit plane does; a pod of the sequential path or allowed by Permit
+        before, as JAX's ``_binding_cycle`` does) and closes the bound ones.
+        Returns the pods bound."""
+        if per_pod:
+            latency_ledger.transition_many((item.assumed.key() for item in items), "bind")
         live: List[BindItem] = []
         for fwk, group in self._by_framework(items).items():
             refused = fwk.pre_bind_batch([(item.state, item.assumed, item.node_name)
-                                          for item in group])
+                                          for item in group], per_pod,
+                                         [item.sampled for item in group])
             for item, reason in zip(group, refused):
                 if reason is not None:
                     self._fail_assumed(item, False, pod_cycle)
                 else:
                     live.append(item)
+        if not per_pod:
+            latency_ledger.transition_many((item.assumed.key() for item in live), "bind")
         bound: List[BindItem] = []
         batched: List[BindItem] = []
         for item in live:
@@ -1322,8 +1491,18 @@ class TPUScheduler(Scheduler):
             else:
                 bound.append(item)
         if batched:
-            outcomes = self.store.bind_batch([(item.assumed.key(), item.node_name)
-                                              for item in batched])
+            pairs = [(item.assumed.key(), item.node_name) for item in batched]
+            t_bind = time.perf_counter()
+            if per_pod:
+                outcomes = [item.fwk.default_bind(lambda _p=pair: self.store.bind_batch([_p])[0],
+                                                  item.sampled)
+                            for item, pair in zip(batched, pairs)]
+            else:
+                outcomes = self.store.bind_batch(pairs)
+                failed = sum(err is not None for err in outcomes)
+                for fwk, group in self._by_framework(batched).items():
+                    fwk.observe_batched_bind(time.perf_counter() - t_bind, failed,
+                                             any(item.sampled for item in group))
             for item, err in zip(batched, outcomes):
                 if err is not None:
                     self._fail_assumed(item, False, pod_cycle)
@@ -1336,8 +1515,13 @@ class TPUScheduler(Scheduler):
             self.cache.finish_binding(item.assumed)
             self.metrics.inc("scheduled")
             self.smetrics.observe_attempt(SCHEDULED, item.fwk.profile_name, now - t0)
+        if per_pod:
+            latency_ledger.close_many((item.assumed.key() for item in bound), "scheduled")
         for fwk, group in self._by_framework(bound).items():
-            fwk.post_bind_batch([item.assumed for item in group])
+            fwk.post_bind_batch([item.assumed for item in group], per_pod,
+                                [item.sampled for item in group])
+        if not per_pod:
+            latency_ledger.close_many((item.assumed.key() for item in bound), "scheduled")
         return len(bound)
 
     def _fail_assumed(self, item: BindItem, unschedulable: bool, pod_cycle: int) -> None:
@@ -1352,11 +1536,12 @@ class TPUScheduler(Scheduler):
             self._invalidate_device_row(item.node_name)
 
     def _judge(self, pods: List[Pod], batch: DeviceBatch, poisoned: Set[int],
-               t0: float) -> Dict[int, str]:
+               t0: float, batch_id: str = "") -> Dict[int, str]:
         """The batch's gang verdicts (``judge_gangs``), each rejected
         gang's ``reject_gang`` (and a slice gang's plan forgotten), the
-        slice gangs' wait and the fragmentation gauges. Returns batch row
-        -> group key for every member of a rejected gang."""
+        slice gangs' wait, ``slice_assign`` / ``slice_reject`` events and
+        the fragmentation gauges. Returns batch row -> group key for every
+        member of a rejected gang."""
         flat, slices = batch_gangs(pods)
         if not flat and not slices:
             return {}
@@ -1367,11 +1552,16 @@ class TPUScheduler(Scheduler):
             self.gang_seconds += time.perf_counter() - t
             self.gang_reads += 1
         now = self.now_fn()
-        for gkey in slices:
+        node_idx = batch.node_idx
+        for gkey, rows in slices.items():
             result = "rejected" if gkey in reasons else "scheduled"
             self.smetrics.slice_wait_duration.observe(now - t0, result)
+            if all(node_idx[i] >= 0 for i in rows):
+                telemetry.event("slice_assign", batchId=batch_id, gang=gkey, members=len(rows))
+            else:
+                telemetry.event("slice_reject", batchId=batch_id, gang=gkey, members=len(rows),
+                                reason=reasons[gkey])
         out: Dict[int, str] = {}
-        node_idx = batch.node_idx
         for gkey, reason in reasons.items():
             members = flat.get(gkey) or slices[gkey]
             fwk = self.framework_for_pod(pods[members[0]])
@@ -1391,7 +1581,9 @@ class TPUScheduler(Scheduler):
 
     def _update_slice_frag_metrics(self) -> None:
         """``slice_fragmentation`` per superpod from the host mirror (no
-        device read): the free run structure of the pod-less nodes."""
+        device read): the free run structure of the pod-less nodes; a
+        superpod crossing ``KTPU_FRAG_ALERT`` (0.5) records one
+        ``frag_alert`` until it drops below again."""
         with self.device_mutex:
             state = self.state
             if state is None:
@@ -1401,8 +1593,15 @@ class TPUScheduler(Scheduler):
             rows = fragmentation_host(m["topo_sp"], m["topo_pos"], valid,
                                       valid & (m["requested"][:, COL_PODS] == 0),
                                       (state.caps.superpods, state.caps.sp_slots))
+        threshold = float(os.environ.get("KTPU_FRAG_ALERT", "0.5"))
         for row in rows:
             self.smetrics.slice_fragmentation.set(str(row["sp"]), value=row["frag"])
+            if row["frag"] >= threshold and row["sp"] not in self._frag_alerted:
+                self._frag_alerted.add(row["sp"])
+                telemetry.event("frag_alert", superpod=row["sp"], frag=round(row["frag"], 4),
+                                largestRun=row["largest_run"], free=row["free"])
+            elif row["frag"] < threshold:
+                self._frag_alerted.discard(row["sp"])
 
     def _failure_snapshot(self) -> Snapshot:
         """With the worker, every failure path runs on it, against its own

@@ -53,7 +53,10 @@ The scheduler loop's half (``:284-288``, ``:525-559``, ``:576-800``):
   * ``dump``: the ledger per namespace and per pool, with the reclaim
     breaker's state;
   * ``share_ledger``: a second profile's instance charges and reads the
-    first's ledger.
+    first's ledger;
+  * flight events (``backend/telemetry.py``; ``:516``, ``:611``,
+    ``:624``): ``borrow_grant`` per loan, ``borrow_reclaim`` per reclaim
+    wave, ``reclaim_suspended`` when the breaker suspends the pass.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ import time
 from ...api import resource as resource_api
 from ...api.types import (QUOTA_CLAIMS, QUOTA_CPU, QUOTA_DIM_ORDER, QUOTA_MEMORY, QUOTA_PODS,
                           Pod, SchedulingQuota)
+from ...backend import telemetry
 from ...backend.circuit import OPEN, CircuitBreaker
 from ..types import ALL, SCHEDULING_QUOTA, ClusterEvent
 from ..interface import Fail
@@ -330,6 +334,8 @@ class QuotaAdmission:
                 b[dim] = b.get(dim, 0) + v
             self._loan_seq["n"] += 1
             self._loans[key] = (ns, req, self._loan_seq["n"])
+            telemetry.event("borrow_grant", pod=key, namespace=ns,
+                            cohort=self.cohort_for(ns) or "")
         self._drop_demand(key)
         self._sync_metrics(ns)
         return True
@@ -511,6 +517,8 @@ class QuotaAdmission:
             if not self.reclaim_breaker.allow():
                 if not self.reclaim_suspended:
                     self.reclaim_suspended = True
+                    telemetry.event("reclaim_suspended", cohort=cohort,
+                                    breaker=self.reclaim_breaker.state)
                     if self.metrics is not None:
                         self.metrics.quota_reclaims.inc("suspended")
                 continue
@@ -519,6 +527,7 @@ class QuotaAdmission:
             self._demand_fresh.discard(cohort)
             n = self._reclaim_cohort(cohort, agg)
             evicted_total += n
+            telemetry.event("borrow_reclaim", cohort=cohort, evicted=n, demands=len(live))
             if self.metrics is not None:
                 self.metrics.quota_reclaims.inc("evicted" if n else "noop")
             if n:

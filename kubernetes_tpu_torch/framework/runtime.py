@@ -34,14 +34,33 @@ and removes pods; ``filter_with_nominated_pods`` is the two-pass filter of
 ``ScoreRunner`` runs the PreScores and then the Scores, each normalized
 before its weight applies (``:380-415``), in the JAX plugins' host
 arithmetic.
+
+Instrumentation (``:23-118``, ``:186-210``, ``:282-330``, ``:470-650``):
+every point a pod runs on its own opens a ``framework.<point>`` span
+(``profile``) with one ``plugin.<name>`` child (``extension_point``) per
+plugin it runs, and observes ``framework_extension_point_duration`` once;
+the bind tail's points over a batch's items open one ``framework.<point>``
+span (``profile``, ``batch``) and observe once, as the JAX commit plane's
+batched executors do, with per-pod spans where the JAX package runs the
+per-pod executors (the sequential path, a pod Permit allowed: ``per_pod``).
+The per-plugin ``plugin_execution_duration`` is sampled as in the JAX
+scheduler: the state of one attempt in ``PLUGIN_METRICS_SAMPLE_PERIOD``
+(every first attempt) records it (``PreFilterState.sampled``, or the
+``sampled`` flags of a batch's items). With tracing off a span costs one
+read of the tracer global; the Filter point, the per-node hot loop, has
+no span nor histogram of its own unless tracing is on or the attempt is
+sampled (the scheduler observes the Filter point once per attempt).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Optional, Set, Tuple
+from time import perf_counter
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 from ..api.types import ContainerPort, PersistentVolumeClaim, Pod
+from ..utils import tracing
 from .interface import POINT_METHODS, SKIP, Fail
 from .plugins import dynamicresources, interpodaffinity, names, podtopologyspread, volume
 from .plugins.dynamicresources import ERR_REASON_PREFILTER_RESTRICTION
@@ -60,6 +79,109 @@ RESERVE_NEEDS_STATE = frozenset((names.VOLUME_BINDING, names.DYNAMIC_RESOURCES,
                                  names.COSCHEDULING))
 # a bind-tail item: (the pod's PreFilter state or None, the pod, its node)
 BindTriple = Tuple[Optional["PreFilterState"], Pod, str]
+# one attempt in this many records the per-plugin durations (the JAX
+# scheduler's PLUGIN_METRICS_SAMPLE_PERIOD); attempt 1 always does
+PLUGIN_METRICS_SAMPLE_PERIOD = 20
+_NULL_CM = contextlib.nullcontext()
+# Permit's verdict for a pod parked at WAIT
+WAITING = "waiting"
+
+
+def sampled_attempt(attempts: int) -> bool:
+    """Whether the attempt counted ``attempts``-th records the per-plugin
+    durations (``scheduler.py:_new_cycle_state``)."""
+    return (attempts - 1) % PLUGIN_METRICS_SAMPLE_PERIOD == 0
+
+
+def status_label(out) -> str:
+    """The extension-point status label of a plugin's or a point's result:
+    None (or ``SKIP``) succeeds, a ``Fail`` is unschedulable (and
+    unresolvable), Permit's ``WAITING`` waits, any other refusal is
+    unschedulable."""
+    if out is None or out is SKIP:
+        return "Success"
+    if out is WAITING:
+        return "Wait"
+    if isinstance(out, Fail):
+        return "UnschedulableAndUnresolvable" if out.unresolvable else "Unschedulable"
+    return "Unschedulable"
+
+
+def timed(tr, metrics, point: str, plugin, call, status_of=status_label):
+    """One plugin call with its ``plugin.<name>`` span (tracing on) and its
+    sampled ``plugin_execution_duration`` (``metrics`` given)."""
+    if tr is None and metrics is None:
+        return call()
+    t0 = perf_counter()
+    status = "Error"  # unless call() returns
+    try:
+        if tr is not None:
+            with tr.span("plugin." + plugin.name(), extension_point=point):
+                out = call()
+        else:
+            out = call()
+        status = status_of(out)
+        return out
+    finally:
+        if metrics is not None:
+            metrics.plugin_execution_duration.observe(perf_counter() - t0, plugin.name(),
+                                                      point, status)
+
+
+def _reserve(plugin, state, pod, node_name):
+    return plugin.reserve(state, pod, node_name)
+
+
+def _pre_bind(plugin, state, pod, node_name):
+    return plugin.pre_bind(state, pod, node_name)
+
+
+def _worst(outs) -> str:
+    """A batch's point label: the last failing item's, else Success."""
+    label = "Success"
+    for out in outs or ():
+        if out is not None:
+            label = status_label(out)
+    return label
+
+
+def _first_label(out) -> str:
+    return status_label(out[1] if out[0] is None else None)
+
+
+def _success(_out) -> str:
+    return "Success"
+
+
+def _second_label(out) -> str:
+    return status_label(out[1])
+
+
+def _third_label(out) -> str:
+    return status_label(out[2])
+
+
+@contextlib.contextmanager
+def point_span(tr, metrics, point: str, profile: str, status_of=status_label, **attrs):
+    """The ``framework.<point>`` span (tracing on) and one
+    ``framework_extension_point_duration`` observation (``metrics`` given)
+    around one run of a point; the body sets ``box[0]`` to its result,
+    whose label ``status_of`` gives."""
+    box = [None]
+    if tr is None and metrics is None:
+        yield box
+        return
+    t0 = perf_counter()
+    status = "Error"
+    try:
+        with (tr.span("framework." + point, profile=profile, **attrs) if tr is not None
+              else _NULL_CM):
+            yield box
+        status = status_of(box[0])
+    finally:
+        if metrics is not None:
+            metrics.framework_extension_point_duration.observe(perf_counter() - t0, point,
+                                                               status, profile)
 
 
 class PodNominator:
@@ -112,6 +234,7 @@ class PreFilterState:
     node_bindings: Dict[str, List[volume.Binding]] = dataclasses.field(default_factory=dict)
     allocated: List[str] = dataclasses.field(default_factory=list)
     data: Dict[str, object] = dataclasses.field(default_factory=dict)
+    sampled: bool = False  # this attempt records the per-plugin durations
 
     def clone(self) -> "PreFilterState":
         return dataclasses.replace(self, spread=self.spread.clone(),
@@ -155,9 +278,12 @@ class FilterRunner:
     are the profile's ordered [(plugin, weight)]."""
 
     def __init__(self, node_infos_fn: Callable[[], Iterable[NodeInfo]], nominator: PodNominator,
-                 pre_filters: List[Tuple[object, int]], filters: List[Tuple[object, int]]):
+                 pre_filters: List[Tuple[object, int]], filters: List[Tuple[object, int]],
+                 profile_name: str = DEFAULT_SCHEDULER_NAME, metrics=None):
         self.node_infos_fn = node_infos_fn
         self.nominator = nominator
+        self.profile_name = profile_name
+        self.metrics = metrics
         self.pre_filters = [p for p, _w in pre_filters]
         self.node_pre_filters = [p for p in self.pre_filters if p.name() not in HOST_GATES]
         self.filters = [p for p, _w in filters]
@@ -168,16 +294,32 @@ class FilterRunner:
         state, _names, fail = self.pre_filter_status(pod)
         return state, (fail.reason if fail is not None else None)
 
-    def pre_filter_status(self, pod: Pod, gates: bool = True
+    def pre_filter_status(self, pod: Pod, gates: bool = True, sampled: bool = False
                           ) -> Tuple[Optional[PreFilterState], Optional[Set[str]], Optional[Fail]]:
         """The PreFilters in the profile's order: (the state, the node names
         they restrict the pod to or None for every node, None), or (None,
         None, the first failure). ``gates=False`` leaves out the host
-        gates."""
-        state = PreFilterState()
+        gates; ``sampled`` marks the attempt whose per-plugin durations are
+        recorded."""
+        tr = tracing._tracer
+        if tr is None and self.metrics is None:
+            return self._pre_filter(pod, gates, sampled, None)
+        with point_span(tr, self.metrics, "pre_filter", self.profile_name,
+                        status_of=_third_label) as box:
+            box[0] = self._pre_filter(pod, gates, sampled, tr)
+        return box[0]
+
+    def _pre_filter(self, pod: Pod, gates: bool, sampled: bool, tr):
+        state = PreFilterState(sampled=sampled)
+        metrics = self.metrics if sampled else None
         node_names: Optional[Set[str]] = None
         for plugin in (self.pre_filters if gates else self.node_pre_filters):
-            restrict, fail = plugin.pre_filter(state, pod)
+            if tr is None and metrics is None:
+                restrict, fail = plugin.pre_filter(state, pod)
+            else:
+                restrict, fail = timed(tr, metrics, "pre_filter", plugin,
+                                       lambda p=plugin: p.pre_filter(state, pod),
+                                       status_of=_second_label)
             if fail is not None:
                 return None, None, _named(fail, plugin)
             if restrict is not None:
@@ -192,11 +334,25 @@ class FilterRunner:
         return fail.reason if fail is not None else None
 
     def filter_status(self, state: PreFilterState, pod: Pod, ni: NodeInfo) -> Optional[Fail]:
-        """The Filters in the profile's order; the first failure, or None."""
-        for plugin in self.filters:
-            fail = plugin.filter(state, pod, ni)
-            if fail is not None:
-                return _named(fail, plugin)
+        """The Filters in the profile's order; the first failure, or None.
+        Spans (tracing on) and per-plugin durations (a sampled attempt)
+        only: the Filter point's duration is observed once per attempt by
+        the scheduler, as the reference does."""
+        tr = tracing._tracer
+        metrics = self.metrics if state is not None and state.sampled else None
+        if tr is None and metrics is None:
+            for plugin in self.filters:
+                fail = plugin.filter(state, pod, ni)
+                if fail is not None:
+                    return _named(fail, plugin)
+            return None
+        with (tr.span("framework.filter", profile=self.profile_name) if tr is not None
+              else _NULL_CM):
+            for plugin in self.filters:
+                fail = timed(tr, metrics, "filter", plugin,
+                             lambda p=plugin: p.filter(state, pod, ni))
+                if fail is not None:
+                    return _named(fail, plugin)
         return None
 
     def add_pod(self, state: PreFilterState, pod: Pod, added: Pod, ni: NodeInfo) -> None:
@@ -241,26 +397,44 @@ class ScoreRunner:
     the weighted sum of the normalized scores. ``pre_scores`` and
     ``scores`` are the profile's [(plugin, weight)]."""
 
-    def __init__(self, pre_scores: List[Tuple[object, int]], scores: List[Tuple[object, int]]):
+    def __init__(self, pre_scores: List[Tuple[object, int]], scores: List[Tuple[object, int]],
+                 profile_name: str = DEFAULT_SCHEDULER_NAME, metrics=None):
         self.pre_scores = [p for p, _w in pre_scores]
         self.scores = [(p, w, getattr(p, "normalize_score", None)) for p, w in scores]
+        self.profile_name = profile_name
+        self.metrics = metrics
 
     def score(self, pod: Pod, feasible: List[NodeInfo],
               state: Optional[PreFilterState] = None) -> Dict[str, int]:
         if state is None:
             state = PreFilterState()
-        for plugin in self.pre_scores:
-            plugin.pre_score(state, pod, feasible)
+        tr = tracing._tracer
+        sampled = self.metrics if state.sampled else None
+        with point_span(tr, self.metrics, "pre_score", self.profile_name):
+            for plugin in self.pre_scores:
+                timed(tr, sampled, "pre_score", plugin,
+                      lambda p=plugin: p.pre_score(state, pod, feasible))
         totals = {ni.node.meta.name: 0 for ni in feasible}
-        for plugin, weight, normalize in self.scores:
-            scores = {ni.node.meta.name: plugin.score_node(state, pod, ni) for ni in feasible}
-            if normalize is not None:
-                normalize(state, pod, scores)
-            for name, v in scores.items():
-                if not MIN_NODE_SCORE <= v <= MAX_NODE_SCORE:
-                    raise RuntimeError(f"plugin {plugin.name()} returned out-of-range score {v}")
-                totals[name] += v * weight
+        with point_span(tr, self.metrics, "score", self.profile_name):
+            for plugin, weight, normalize in self.scores:
+                scores = timed(tr, sampled, "score", plugin,
+                               lambda p=plugin, norm=normalize: self._score_one(p, norm, state,
+                                                                                pod, feasible),
+                               status_of=_success)
+                for name, v in scores.items():
+                    if not MIN_NODE_SCORE <= v <= MAX_NODE_SCORE:
+                        raise RuntimeError(f"plugin {plugin.name()} returned out-of-range "
+                                           f"score {v}")
+                    totals[name] += v * weight
         return totals
+
+    @staticmethod
+    def _score_one(plugin, normalize, state: PreFilterState, pod: Pod,
+                   feasible: List[NodeInfo]) -> Dict[str, int]:
+        scores = {ni.node.meta.name: plugin.score_node(state, pod, ni) for ni in feasible}
+        if normalize is not None:
+            normalize(state, pod, scores)
+        return scores
 
 
 class Framework:
@@ -283,9 +457,11 @@ class Framework:
             handle, plugin_config or DEFAULT_PLUGINS, plugin_args or {},
             registry or in_tree_registry())
         snapshot_fn = handle.get("snapshot_fn") or (lambda: ())
+        self._metrics = handle.get("metrics")
         self.filters = FilterRunner(snapshot_fn, self.nominator, self.points.get("pre_filter", []),
-                                    self.points.get("filter", []))
-        self.scores = ScoreRunner(self.points.get("pre_score", []), self.points.get("score", []))
+                                    self.points.get("filter", []), profile_name, self._metrics)
+        self.scores = ScoreRunner(self.points.get("pre_score", []), self.points.get("score", []),
+                                  profile_name, self._metrics)
         for plugin in self._instances.values():
             if hasattr(plugin, "set_framework"):
                 plugin.set_framework(self)
@@ -341,82 +517,177 @@ class Framework:
                     ) -> Tuple[Optional[str], Optional[str]]:
         """The PostFilter point: the first plugin that nominates a node
         wins; (None, the last refusal) when none does."""
+        tr, m = tracing._tracer, self._metrics
         reason = "no PostFilter plugin could resolve"
-        for plugin, _w in self.points.get("post_filter", []):
-            node, reason = plugin.post_filter(pod, hints, unresolvable)
-            if node:
-                return node, None
+        with point_span(tr, m, "post_filter", self.profile_name, status_of=_first_label) as box:
+            for plugin, _w in self.points.get("post_filter", []):
+                node, reason = timed(tr, None, "post_filter", plugin,
+                                     lambda p=plugin: p.post_filter(pod, hints, unresolvable),
+                                     status_of=_first_label)
+                if node:
+                    box[0] = (node, None)
+                    return box[0]
+            box[0] = (None, reason)
         return None, reason
 
     # the bind tail, over the profile's items of a batch (``runtime.py:
     # 541-606``): item by item in order, each item's plugins in the point's
-    # order, the first refusal per item wins
+    # order, the first refusal per item wins. Over a batch one span and one
+    # duration cover the point (JAX's batched executors); ``per_pod`` gives
+    # each item its own span with its plugins' spans and its own duration
+    # (JAX's per-pod executors: the sequential path, a pod Permit allowed).
+    # ``sampled`` flags the items whose per-plugin durations are recorded.
 
-    def reserve_batch(self, items: List[BindTriple]) -> List[Optional[str]]:
-        """The Reserve point per item: the first refusal, or None. An item
-        without PreFilter state skips ``RESERVE_NEEDS_STATE``."""
-        out = []
-        for state, pod, node_name in items:
-            reason = None
-            for plugin in (self._reserve if state is not None else self._reserve_stateless):
-                reason = plugin.reserve(state, pod, node_name)
-                if reason is not None:
-                    break
-            out.append(reason)
+    def _run_point(self, point: str, items: List[BindTriple], call, per_pod: bool,
+                   sampled: Optional[Sequence[bool]], plugins: list,
+                   stateless: Optional[list] = None) -> list:
+        """``call(plugin, state, pod, node_name)`` per item over
+        ``plugins`` (``stateless`` for an item without PreFilter state), the
+        first refusal per item kept (None: every plugin passed)."""
+        tr, m = tracing._tracer, self._metrics
+        if not items or (not per_pod and not plugins):
+            return [None] * len(items)
+        if stateless is None:
+            stateless = plugins
+        if per_pod:
+            out = []
+            for i, (state, pod, node) in enumerate(items):
+                rec = m if sampled and sampled[i] else None
+                with point_span(tr, m, point, self.profile_name) as box:
+                    for plugin in (plugins if state is not None else stateless):
+                        box[0] = timed(tr, rec, point, plugin,
+                                       lambda p=plugin: call(p, state, pod, node))
+                        if box[0] is not None:
+                            break
+                out.append(box[0])
+            return out
+        with point_span(tr, m, point, self.profile_name, status_of=_worst,
+                        batch=len(items)) as box:
+            out = box[0] = []
+            for i, (state, pod, node) in enumerate(items):
+                rec = m if sampled and sampled[i] else None
+                reason = None
+                for plugin in (plugins if state is not None else stateless):
+                    reason = (call(plugin, state, pod, node) if rec is None
+                              else timed(None, rec, point, plugin,
+                                         lambda p=plugin: call(p, state, pod, node)))
+                    if reason is not None:
+                        break
+                out.append(reason)
         return out
 
-    def unreserve(self, state: Optional[PreFilterState], pod: Pod, node_name: str) -> None:
-        """Unreserve, the Reserve plugins in reverse."""
-        for plugin in reversed(self._reserve):
-            plugin.unreserve(state, pod, node_name)
+    def reserve_batch(self, items: List[BindTriple], per_pod: bool = False,
+                      sampled: Optional[Sequence[bool]] = None) -> List[Optional[str]]:
+        """The Reserve point per item: the first refusal, or None. An item
+        without PreFilter state skips ``RESERVE_NEEDS_STATE``."""
+        return self._run_point("reserve", items, _reserve, per_pod, sampled, self._reserve,
+                               self._reserve_stateless)
 
-    def permit_batch(self, items: List[BindTriple],
-                     on_wait: Callable[[int, float], None]) -> List[Optional[str]]:
+    def unreserve(self, state: Optional[PreFilterState], pod: Pod, node_name: str) -> None:
+        """Unreserve, the Reserve plugins in reverse (per pod, as JAX's
+        ``run_reserve_plugins_unreserve``)."""
+        tr, m = tracing._tracer, self._metrics
+        if tr is None and m is None:
+            for plugin in reversed(self._reserve):
+                plugin.unreserve(state, pod, node_name)
+            return
+        rec = m if state is not None and state.sampled else None
+        with point_span(tr, m, "unreserve", self.profile_name):
+            for plugin in reversed(self._reserve):
+                timed(tr, rec, "unreserve", plugin,
+                      lambda p=plugin: p.unreserve(state, pod, node_name))
+
+    def permit_batch(self, items: List[BindTriple], on_wait: Callable[[int, float], None],
+                     per_pod: bool = False,
+                     sampled: Optional[Sequence[bool]] = None) -> List[Optional[str]]:
         """The Permit point per item: the first rejection's reason, or None;
         the first WAIT calls ``on_wait(i, seconds)`` before the next item's
         Permit runs (a gang's quorum counts the member parked) and gives
-        "waiting"."""
-        out = []
-        for i, (state, pod, node_name) in enumerate(items):
-            verdict = None
-            for plugin in self._permit:
-                reason, wait_s = plugin.permit(state, pod, node_name)
-                if reason is not None:
-                    verdict = reason
-                    break
-                if wait_s is not None:
-                    on_wait(i, wait_s)
-                    verdict = "waiting"
-                    break
-            out.append(verdict)
-        return out
+        ``WAITING``."""
+        row = {id(pod): i for i, (_st, pod, _node) in enumerate(items)}
 
-    def pre_bind_batch(self, items: List[BindTriple]) -> List[Optional[str]]:
+        def permit(plugin, state, pod, node):
+            reason, wait_s = plugin.permit(state, pod, node)
+            if reason is None and wait_s is not None:
+                on_wait(row[id(pod)], wait_s)
+                return WAITING
+            return reason
+
+        return self._run_point("permit", items, permit, per_pod, sampled, self._permit)
+
+    def pre_bind_batch(self, items: List[BindTriple], per_pod: bool = False,
+                       sampled: Optional[Sequence[bool]] = None) -> List[Optional[str]]:
         """The PreBind point per item: the first refusal, or None."""
-        out = []
-        for state, pod, node_name in items:
-            reason = None
-            for plugin in self._pre_bind:
-                reason = plugin.pre_bind(state, pod, node_name)
-                if reason is not None:
-                    break
-            out.append(reason)
-        return out
+        return self._run_point("pre_bind", items, _pre_bind, per_pod, sampled, self._pre_bind)
 
     def bind(self, state: Optional[PreFilterState], pod: Pod, node_name: str) -> Optional[str]:
         """The Bind point, one pod: the first outcome that is not ``SKIP``."""
-        for plugin, _w in self.points.get("bind", []):
-            out = plugin.bind(state, pod, node_name)
-            if out is not SKIP:
-                return out
-        return "no bind plugin accepted the pod"
+        tr, m = tracing._tracer, self._metrics
+        rec = m if state is not None and state.sampled else None
+        with point_span(tr, m, "bind", self.profile_name) as box:
+            box[0] = "no bind plugin accepted the pod"
+            for plugin, _w in self.points.get("bind", []):
+                out = (plugin.bind(state, pod, node_name) if tr is None and rec is None
+                       else timed(tr, rec, "bind", plugin,
+                                  lambda p=plugin: p.bind(state, pod, node_name)))
+                if out is not SKIP:
+                    box[0] = out
+                    break
+        return box[0]
 
-    def post_bind_batch(self, pods: List[Pod]) -> None:
+    def default_bind(self, call: Callable[[], Optional[str]], sampled: bool = False
+                     ) -> Optional[str]:
+        """One pod bound by ``call`` (the store's bind) on behalf of the
+        DefaultBinder, instrumented as the per-pod Bind point."""
+        tr, m = tracing._tracer, self._metrics
+        if tr is None and m is None:
+            return call()
+        plugin = self.points["bind"][0][0]
+        with point_span(tr, m, "bind", self.profile_name) as box:
+            box[0] = timed(tr, m if sampled else None, "bind", plugin, call)
+        return box[0]
+
+    def observe_batched_bind(self, seconds: float, failed: int, sampled: bool) -> None:
+        """The store's one bind pass over a batch's DefaultBinder pods: one
+        Bind-point duration, and the DefaultBinder's when an item is
+        sampled (``commit_plane.py:345-358``)."""
+        m = self._metrics
+        if m is None:
+            return
+        status = "Success" if failed == 0 else "Error"
+        m.framework_extension_point_duration.observe(seconds, "bind", status, self.profile_name)
+        if sampled:
+            for plugin, _w in self.points.get("bind", []):
+                m.plugin_execution_duration.observe(seconds, plugin.name(), "bind", status)
+
+    def post_bind_batch(self, pods: List[Pod], per_pod: bool = False,
+                        sampled: Optional[Sequence[bool]] = None) -> None:
         """The PostBind point over a batch's bound pods, each plugin over
-        the batch in turn (one call when it has ``post_bind_batch``)."""
-        for plugin, batch_fn in self._post_bind:
-            if batch_fn is not None:
-                batch_fn(pods)
-            else:
-                for pod in pods:
-                    plugin.post_bind(None, pod, pod.spec.node_name)
+        the batch in turn (one call when it has ``post_bind_batch``);
+        ``per_pod`` runs it pod by pod, a span each."""
+        tr, m = tracing._tracer, self._metrics
+        if not self._post_bind or not pods:
+            return
+        if per_pod:
+            for i, pod in enumerate(pods):
+                rec = m if sampled and sampled[i] else None
+                with point_span(tr, m, "post_bind", self.profile_name):
+                    for plugin, batch_fn in self._post_bind:
+                        timed(tr, rec, "post_bind", plugin,
+                              lambda p=plugin, fn=batch_fn: self._post_bind_one(p, fn, [pod]),
+                              status_of=_success)
+            return
+        rec = m if sampled and any(sampled) else None
+        with point_span(tr, m, "post_bind", self.profile_name, batch=len(pods)):
+            for plugin, batch_fn in self._post_bind:
+                timed(None, rec, "post_bind", plugin,
+                      lambda p=plugin, fn=batch_fn: self._post_bind_one(p, fn, pods),
+                      status_of=_success)
+
+    @staticmethod
+    def _post_bind_one(plugin, batch_fn, pods: List[Pod]) -> None:
+        if batch_fn is not None:
+            batch_fn(pods)
+        else:
+            for pod in pods:
+                plugin.post_bind(None, pod, pod.spec.node_name)

@@ -39,10 +39,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
+
+from ..backend import telemetry
 
 NEG_INF = -(2.0 ** 30)  # not -inf: padded nodes must never win, yet stay ordered
 NOMINATED_BONUS = 1e7   # the nominated node wins outright when feasible
@@ -219,6 +222,7 @@ def build_library(defines: Sequence[str] = ()) -> Path:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(_SOURCE)],
                               capture_output=True, text=True)
@@ -229,6 +233,9 @@ def build_library(defines: Sequence[str] = ()) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    # the build ledger: this build, attributed to the dispatch open on this
+    # thread (a library already in _build/ counts nothing)
+    telemetry.compiled(time.perf_counter() - t0)
     return out
 
 
@@ -247,6 +254,22 @@ def load_library(path: Path) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     return load_library(build_library())
+
+
+def fused_step_bytes(pods: int, n: int, r: int, w: int) -> int:
+    """The bytes one launch must move at P=``pods``, N=``n``, R=``r``,
+    W=``w``: each input of ``fused_step_batch`` read once (the int32
+    [N, R] alloc / requested / nonzero and [N, W] ports, the int32 [P, R]
+    requests and [P, W] port bits, the bool / int8 [P, N] static mask and
+    first-fail ids, the four float32 [P, N] score planes, the int32 / bool
+    [P] nominated node and validity) and each output written once (the
+    [P] winner, score and feasibility, the bool [P, N] fit and port masks,
+    the int8 [P, N] first-fail ids, the evolved [N, R] x2 and [N, W]
+    carries)."""
+    inputs = 4 * (3 * n * r + n * w + 2 * pods * r + pods * w) + 2 * pods * n \
+        + 4 * 4 * pods * n + 5 * pods
+    outputs = 9 * pods + 3 * pods * n + 4 * (2 * n * r + n * w)
+    return inputs + outputs
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

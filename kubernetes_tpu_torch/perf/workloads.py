@@ -73,7 +73,9 @@ need more topology signatures and a wider torus than
 ``TPUScheduler.run_until_settled``), gangs and slices included, with the
 warm sweep before its measured phase on request; ``run_loop_soak`` the
 soak (``soak_rounds``: the JAX harness's soak phase, its device flap and
-invariants included); ``run_relay_death`` the relay breaker's degrade and
+invariants included); ``run_loop_borrow`` SchedulingBorrow (``Borrow``,
+``borrow_rounds``: the JAX harness's borrow phase and its invariants, the
+latency ledger's per-tenant e2e); ``run_relay_death`` the relay breaker's degrade and
 heal at a workload's size (``relay_death``); ``run_with_preemption`` drives one through a BatchScheduler and
 resubmits the pods it nominated; ``slice_stats`` reports contiguity and
 fragmentation after a run.
@@ -852,11 +854,103 @@ def create_gang_pod(store, pod: Pod, size: int, convert=lambda obj: obj) -> None
     store.create_pod(convert(pod))
 
 
+class LoopObserver:
+    """The three recorders on for a loop's measured phase: telemetry (fed
+    by the loop's metrics), the latency ledger (on the loop's clock, its
+    quota tenants, every closed entry kept) and tracing (in memory). They
+    replace whatever recorder was on; ``finish`` turns all three off and
+    sums up what they saw."""
+
+    def __init__(self, sched):
+        from ..backend import telemetry
+        from ..metrics import latency_ledger
+        from ..ops import fused_step
+        from ..utils import tracing
+
+        self.telemetry = telemetry.enable(sched.smetrics)
+        self.ledger = latency_ledger.enable(sched.smetrics, now_fn=sched.now_fn,
+                                            tenant_fn=sched._ns_fair_weight,
+                                            keep_closed=1 << 20)
+        self.spans = tracing.InMemoryExporter()
+        tracing.enable(self.spans)
+        self._launches = fused_step.LAUNCHES
+
+    def finish(self, window_t0: float, window_s: float) -> dict:
+        """Turn the recorders off. Returns ``programs`` (the dispatch
+        ledger's table per program and bucket), ``records`` (its records),
+        ``device_exec_s`` (each batch program's time on the card, CUDA
+        events; empty on the CPU), ``busy_share`` (the sum of those
+        committed inside the window that starts at ``window_t0``, wall
+        clock, over its ``window_s``; None on the CPU), ``launches``
+        (fused-kernel launches while observed), ``transfer``, ``hbm``,
+        ``compile``,
+        ``compilations`` and ``retraces``, ``events`` (flight events per
+        type), ``entries`` (the ledger's closed entries: pod, result, e2e,
+        segments), ``live`` (entries still open), ``e2e_rel_err`` (the
+        largest relative gap between an entry's e2e and the sum of its
+        segments), ``cycles`` (``scheduling.cycle`` spans of batches),
+        ``waits`` (``device.commit.wait`` spans), ``phase_gap_ns`` (the
+        largest gap inside a wait's ``device.dispatch.*`` children, which
+        lie end to end) and ``wait_uncovered_us`` (the largest part of a
+        wait span its children do not cover: the span's own bookkeeping
+        after the read)."""
+        from ..backend import telemetry
+        from ..metrics import latency_ledger
+        from ..ops import fused_step
+        from ..utils import tracing
+
+        tracing.disable()
+        latency_ledger.disable()
+        telemetry.disable()
+        disp = self.telemetry.dispatch_ledger.dump()
+        dump = self.telemetry.dump(0)
+        records = disp["records"]
+        exec_s = [r["deviceExecS"] for r in records if "deviceExecS" in r]
+        window = [r["deviceExecS"] for r in records
+                  if "deviceExecS" in r and r["t"] >= window_t0]
+        entries, worst = [], 0.0
+        for e in self.ledger.timeline_entries():
+            if e["closed"] is None:
+                continue
+            e2e = e["closed"] - e["opened"]
+            total = sum(e["segments"].values())
+            worst = max(worst, abs(e2e - total) / max(abs(e2e), 1e-12))
+            entries.append({"pod": e["pod"], "result": e["result"], "e2e": e2e,
+                            "segments": dict(e["segments"])})
+        spans = self.spans.spans
+        kids: Dict[str, list] = {}
+        for sp in spans:
+            kids.setdefault(sp.parent_id, []).append(sp)
+        waits = [sp for sp in spans if sp.name == "device.commit.wait"]
+        gap = uncovered = 0
+        for sp in waits:
+            phases = [k for k in kids.get(sp.span_id, ()) if k.name.startswith("device.dispatch.")]
+            if phases:
+                covered = max(k.end for k in phases) - min(k.start for k in phases)
+                gap = max(gap, abs(sum(k.end - k.start for k in phases) - covered))
+                uncovered = max(uncovered, (sp.end - sp.start) - covered)
+        events: Dict[str, int] = {}
+        for ev in self.telemetry.flight.dump():
+            events[ev["type"]] = events.get(ev["type"], 0) + 1
+        return {
+            "programs": disp["programs"], "records": records, "device_exec_s": exec_s,
+            "busy_share": sum(window) / window_s if window and window_s > 0 else None,
+            "launches": fused_step.LAUNCHES - self._launches,
+            "transfer": dump["transfer"], "hbm": dump["hbm"], "compile": dump["compile"],
+            "compilations": self.telemetry.ledger.total_compilations(),
+            "retraces": self.telemetry.ledger.total_retraces(), "events": events,
+            "entries": entries, "live": len(self.ledger), "e2e_rel_err": worst,
+            "cycles": sum(1 for sp in spans
+                          if sp.name == "scheduling.cycle" and "batch" in sp.attributes),
+            "waits": len(waits), "phase_gap_ns": gap, "wait_uncovered_us": uncovered / 1e3,
+        }
+
+
 def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BATCH,
              batch_deadline_ms: Optional[float] = 0, warm: bool = False,
              config: Optional[dict] = None, out_of_tree_registry: Optional[dict] = None,
              extenders: Optional[Callable[[Store], list]] = None,
-             admission: bool = True) -> dict:
+             admission: bool = True, observe: bool = False) -> dict:
     """Drive ``w`` through the scheduler loop, as the JAX harness's Runner
     does (``kubernetes_tpu/perf/harness.py:309-700``): a fresh ``Store``
     and the ``TPUScheduler`` that ``config.scheduler_from_config`` builds on
@@ -933,8 +1027,11 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     ``admitted`` (for a workload with tenants: pod key -> its node
     selector, cpu request in milli and overhead after admission),
     ``quota_used`` (ResourceQuota key -> used), ``extender_post_ms`` (an
-    HTTP extender's ms per POST, by verb). The loop's commit worker is
-    stopped before it returns."""
+    HTTP extender's ms per POST, by verb); with ``observe``, ``observed``
+    (``LoopObserver.finish``: the recorders on from the first node's
+    create to the measured settle, the busy share over the measured phase;
+    None without). The loop's commit worker is stopped before it
+    returns."""
     import gc
     import time
 
@@ -971,6 +1068,7 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
         store.create_priority_class(PriorityClass(meta=ObjectMeta(name=name, namespace=""),
                                                   value=value))
     launches = fused_step.LAUNCHES
+    observer = LoopObserver(sched) if observe else None
     csinodes = {cn.meta.name: cn for cn in w.csinodes()}
     for ni in w.node_infos():
         store.create_node(ni.node)
@@ -1016,6 +1114,7 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     for shape, count in measured_ops:
         shape.populate(store, count, groups=False)
     measured_pods = w.measured_pod_list()
+    wall0 = time.time()
     t0 = time.perf_counter()
     for pod in measured_pods:
         create(pod)
@@ -1023,6 +1122,7 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
     cycles.append(sched.run_until_settled())
     measured_s = time.perf_counter() - t0
     sched.close()
+    observed = observer.finish(wall0, measured_s) if observer is not None else None
     dispatch_spans = sched.dispatch_spans[spans0[0]:]
     commit_spans = [s for s in sched.commit_spans[spans0[1]:] if s[0] >= t0]
     attempt_ms_by_profile = {
@@ -1085,7 +1185,7 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
                                dict(p.spec.overhead))
                      for p in store.pods.values() if w.tenants},
         "quota_used": {k: dict(q.used) for k, q in store.resource_quotas.items()},
-        "extender_post_ms": post_ms,
+        "extender_post_ms": post_ms, "observed": observed,
     }
 
 
@@ -1299,6 +1399,18 @@ SOAK_TICK_S = 0.05
 SOAK_FLAP_BATCHES = 3
 
 
+def create_quotas(store, quotas: Iterable[SchedulingQuota]) -> None:
+    """Each tenant's Namespace and SchedulingQuota, as the JAX harness's
+    createQuota op writes them (``kubernetes_tpu/perf/harness.py:
+    557-570``): the admission chain's NamespaceLifecycle refuses pods of a
+    namespace the store does not hold."""
+    for q in quotas:
+        if q.meta.namespace not in store.namespaces:
+            store.create_namespace(Namespace(meta=ObjectMeta(name=q.meta.namespace,
+                                                             namespace="")))
+        store.create_object("SchedulingQuota", q)
+
+
 @dataclasses.dataclass(frozen=True)
 class SoakArrival:
     """One entry of the soak's per-round mix: ``count`` pods of
@@ -1388,15 +1500,7 @@ class Soak:
         return out
 
     def create_quotas(self, store) -> None:
-        """Each tenant's Namespace and SchedulingQuota, as the JAX harness's
-        createQuota op writes them (``kubernetes_tpu/perf/harness.py:
-        557-570``): the admission chain's NamespaceLifecycle refuses pods of
-        a namespace the store does not hold."""
-        for q in self.quotas():
-            if q.meta.namespace not in store.namespaces:
-                store.create_namespace(Namespace(meta=ObjectMeta(name=q.meta.namespace,
-                                                                 namespace="")))
-            store.create_object("SchedulingQuota", q)
+        create_quotas(store, self.quotas())
 
     def store(self) -> Store:
         """A fresh object store with the tenants' Namespaces and
@@ -1730,6 +1834,219 @@ def run_loop_soak(w: Soak, device, percentage: int = 0, comparer_every_n: int = 
         "screen_ms": {k: v * 1e3 for k, v in sched.screen_seconds.items()},
         **_relay_outcome(sched), **_volume_outcome(store),
         **_gang_outcome(sched, store, False),
+    })
+    return out
+
+
+# SchedulingBorrow's tenants: (namespace, weight, pods cap in units of scale)
+BORROW_TENANTS = (("borrow-lender", 2, 3), ("borrow-hungry", 1, 1))
+BORROW_POOL = "pool"
+
+
+@dataclasses.dataclass(frozen=True)
+class Borrow:
+    """SchedulingBorrow (``kubernetes_tpu/perf/workloads.py:528-565``), the
+    cohort-borrowing A/B: ``nodes`` nodes of cpu 4 / 16Gi / 32 pods in 4
+    zones; an idle lender (SchedulingQuota weight 2, ``pods`` cap 3 x
+    ``scale``) and a hungry borrower (weight 1, cap ``scale``) in the cohort
+    ``cohort`` ("pool"; "" for the ``/NoBorrow`` arm, which drops only the
+    cohort: the same caps, the same arrivals). Per round ``scale`` hungry
+    pods and one lender pod of 100m / 500Mi; at round ``rounds // 2`` the
+    lender wakes with a burst of 2 x ``scale`` - 4, which with borrowing on
+    must be funded by reclaiming the borrower's loans. ``cycles_per_round``
+    batch cycles per round, the clock advanced ``tick_s`` after each
+    (``borrow_rounds``)."""
+
+    name: str
+    nodes: int
+    rounds: int
+    scale: int
+    cohort: str = BORROW_POOL
+    cycles_per_round: int = 60
+    tick_s: float = 0.05
+
+    def node_infos(self) -> List[NodeInfo]:
+        return scheduling_basic_nodes(self.nodes, 4, capacity=_PREEMPTION_NODE)
+
+    def caps(self) -> Capacities:
+        return caps_for_cluster(self.nodes)
+
+    def tenants(self) -> List[str]:
+        return sorted(ns for ns, _w, _m in BORROW_TENANTS)
+
+    def quotas(self) -> List[SchedulingQuota]:
+        return [SchedulingQuota(meta=ObjectMeta(name="quota", namespace=ns), weight=w,
+                                cohort=self.cohort, hard={"pods": m * self.scale})
+                for ns, w, m in BORROW_TENANTS]
+
+    def create_quotas(self, store) -> None:
+        create_quotas(store, self.quotas())
+
+    @property
+    def mix(self) -> Tuple[SoakArrival, ...]:
+        return (SoakArrival("borrow-hungry", self.scale, prefix="hungry"),
+                SoakArrival("borrow-lender", 1, prefix="lender"))
+
+    @property
+    def burst_round(self) -> int:
+        return self.rounds // 2
+
+    def arrivals(self, r: int, counter: int) -> List[Pod]:
+        """Round ``r``'s pods in the JAX harness's order: the mix, then at
+        the burst round the lender's wake-up burst (the next entry)."""
+        out: List[Pod] = []
+        for entry, m in enumerate(self.mix):
+            out += m.pods(entry, r, counter + len(out))
+        if r == self.burst_round:
+            burst = SoakArrival("borrow-lender", 2 * self.scale - 4, prefix="wake")
+            out += burst.pods(len(self.mix), r, counter + len(out))
+        return out
+
+
+def scheduling_borrow(nodes: int = 1000, rounds: int = 8, scale: int = 100,
+                      borrowing: bool = True, cycles_per_round: int = 60,
+                      tick_s: float = 0.05) -> Borrow:
+    """SchedulingBorrow/<nodes>Nodes, and ``/NoBorrow`` without the cohort."""
+    return Borrow(f"SchedulingBorrow/{nodes}Nodes{'' if borrowing else '/NoBorrow'}", nodes,
+                  rounds, scale, BORROW_POOL if borrowing else "", cycles_per_round, tick_s)
+
+
+def borrow_rounds(w: Borrow, store, sched, quota, clock, convert=lambda obj: obj) -> dict:
+    """The JAX harness's borrow phase (``kubernetes_tpu/perf/harness.py:
+    999-1150``) over a scheduler loop ``sched`` on ``store`` and ``clock``
+    (either package's, as ``soak_rounds``; the latency ledger, when on,
+    feeds ``sched.smetrics.tenant_e2e_duration``). Each round: the round's
+    arrivals are created; then up to ``w.cycles_per_round`` batch cycles,
+    the clock advanced ``w.tick_s`` after each, the new binds noted and the
+    invariants sampled, until a cycle pops nothing and the queue is empty
+    after a backoff flush. The ring is landed at the end.
+
+    Returns ``invariants`` (``PoolUtilizationMean`` / ``Peak``: the pool's
+    used pods over its summed caps per sample; ``LoansOutstandingPeak``;
+    ``Reclaims``: reclaim passes that evicted; ``OversubscriptionViolations``
+    over every sample, borrow-aware as ``quota_oversubscription``;
+    ``BurstRound``), ``tenants`` (per namespace ``Admitted``,
+    ``BorrowedPeak``, ``E2eP50`` / ``E2eP99`` / ``E2eCount`` of the
+    ledger's ``tenant_e2e_duration`` over the phase: exact quantiles on the
+    port, bucket estimates on the JAX registry) and ``cycles``."""
+    tenants = w.tenants()
+    hist = sched.smetrics.tenant_e2e_duration
+    snaps = {ns: hist.snapshot(ns) for ns in tenants}
+    admitted = dict.fromkeys(tenants, 0)
+    borrowed_peak = dict.fromkeys(tenants, 0)
+    bound_seen = {k for k, p in store.pods.items() if p.spec.node_name}
+    reclaims0 = quota.reclaims_executed
+    util: List[float] = []
+    state = {"loans_peak": 0, "oversub": 0, "cycles": 0}
+
+    def note_new_bindings() -> None:
+        for key, p in list(store.pods.items()):
+            if p.spec.node_name and key not in bound_seen:
+                bound_seen.add(key)
+                if p.meta.namespace in admitted:
+                    admitted[p.meta.namespace] += 1
+
+    def sample() -> None:
+        cap = used = loans = 0
+        for ns in tenants:
+            hard = quota.effective_hard(ns)
+            if not hard:
+                continue
+            ns_loans = quota.borrowed(ns).get("pods", 0)
+            cap += hard.get("pods", 0)
+            used += quota.usage(ns).get("pods", 0)
+            loans += ns_loans
+            borrowed_peak[ns] = max(borrowed_peak[ns], ns_loans)
+        state["oversub"] += quota_oversubscription(quota, tenants)
+        state["loans_peak"] = max(state["loans_peak"], loans)
+        if cap:
+            util.append(used / cap)
+
+    counter = 0
+    for r in range(w.rounds):
+        arrivals = w.arrivals(r, counter)
+        counter += len(arrivals)
+        for pod in arrivals:
+            store.create_pod(convert(pod))
+        for _c in range(w.cycles_per_round):
+            progressed = sched.schedule_batch_cycle() > 0
+            state["cycles"] += 1
+            clock.advance(w.tick_s)
+            note_new_bindings()
+            sample()
+            if not progressed:
+                sched.queue.flush_backoff_completed()
+                if len(sched.queue) == 0:
+                    break
+    sched._drain_inflight()
+    note_new_bindings()
+    sample()
+    return {
+        "invariants": {
+            "PoolUtilizationMean": sum(util) / len(util) if util else 0.0,
+            "PoolUtilizationPeak": max(util) if util else 0.0,
+            "LoansOutstandingPeak": float(state["loans_peak"]),
+            "Reclaims": float(quota.reclaims_executed - reclaims0),
+            "OversubscriptionViolations": float(state["oversub"]),
+            "BurstRound": float(w.burst_round),
+        },
+        "tenants": {ns: {"Admitted": float(admitted[ns]),
+                         "BorrowedPeak": float(borrowed_peak[ns]),
+                         "E2eP50": hist.percentile_since(snaps[ns], 0.50, ns),
+                         "E2eP99": hist.percentile_since(snaps[ns], 0.99, ns),
+                         "E2eCount": float(hist.count_since(snaps[ns], ns))}
+                    for ns in tenants},
+        "cycles": state["cycles"],
+    }
+
+
+def run_loop_borrow(w: Borrow, device, percentage: int = 0) -> dict:
+    """Drive SchedulingBorrow ``w`` through the port's scheduler loop
+    (``borrow_rounds``) on a FakeClock: a fresh ``Store`` and
+    ``TPUScheduler``, the nodes and the tenants' quotas created through the
+    store, and the latency ledger on (on the loop's clock and metrics, its
+    quota tenants) for the run unless one is on already.
+
+    Returns ``borrow_rounds``' dict with ``placed``, ``pods_per_s`` (pods
+    bound over the wall seconds of the rounds), ``borrow_s``, ``launches``
+    (fused-kernel launches), ``paths``, ``modes``, ``batch_pods``,
+    ``e2e`` (namespace -> the ledger's e2e observations of its scheduled
+    pods, in close order), ``evicted`` and ``reclaims``."""
+    import time
+
+    from ..backend.tpu_scheduler import TPUScheduler
+    from ..metrics import latency_ledger
+    from ..ops import fused_step
+
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = TPUScheduler(store, device=device, batch_size=LOOP_BATCH, batch_deadline_ms=0,
+                         now_fn=clock, percentage_of_nodes_to_score=percentage)
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    w.create_quotas(store)
+    own = latency_ledger.get() is None
+    if own:
+        latency_ledger.enable(sched.smetrics, now_fn=clock, tenant_fn=sched._ns_fair_weight)
+    try:
+        launches = fused_step.LAUNCHES
+        t0 = time.perf_counter()
+        out = borrow_rounds(w, store, sched, sched._quota_plugin(), clock)
+        borrow_s = time.perf_counter() - t0
+        sched.close()
+    finally:
+        if own:
+            latency_ledger.disable()
+    hist = sched.smetrics.tenant_e2e_duration
+    out.update({
+        "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+        "pods_per_s": sum(t["Admitted"] for t in out["tenants"].values()) / borrow_s,
+        "borrow_s": borrow_s, "launches": fused_step.LAUNCHES - launches,
+        "paths": list(sched.batch_paths), "modes": list(sched.batch_modes),
+        "batch_pods": list(sched.batch_pods),
+        "e2e": {ns: hist.values(ns) for ns in w.tenants()},
+        "evicted": sum(sched.smetrics.evicted_pods.by_labels.values()),
+        "reclaims": sched._quota_plugin().reclaims_executed,
     })
     return out
 

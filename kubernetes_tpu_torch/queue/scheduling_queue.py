@@ -35,6 +35,12 @@ plain three-part queue, in the same order):
 Every public entry point runs under the queue's RLock (``:60-75``): the
 ring's commit worker requeues failed pods and fires the moves of its binds
 while the scheduling thread pops.
+
+The latency ledger (``metrics/latency_ledger.py``) follows each pod at the
+JAX queue's six places (``:191``, ``:203``, ``:239``, ``:282``, ``:322``,
+``:461``): activeQ (``queue.drr_wait`` in a tenant bucket while another
+bucket is live), backoffQ, the gated park, the unschedulable map, the pop
+(``cycle.host``) and the terminal delete of an unbound pod (``drop``).
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..api.types import Pod
 from ..framework.types import ClusterEvent, QueuedPodInfo
+from ..metrics import latency_ledger
 from . import events
 
 POD_INITIAL_BACKOFF = 1.0
@@ -156,6 +163,11 @@ class SchedulingQueue:
                 bisect.insort(self._drr_names, tenant)
             heapq.heappush(self._active_ns.setdefault(tenant, []), entry)
         self._in_queue.add(key)
+        # a tenant's pod waits on the rotation while another bucket is live
+        contended = (tenant is not None
+                     and len(self._active_ns) + (1 if self._active else 0) > 1)
+        latency_ledger.transition(key, "queue.drr_wait" if contended else "queue.active",
+                                  namespace=qp.pod.meta.namespace)
 
     def _push_backoff(self, qp: QueuedPodInfo) -> None:
         key = qp.pod.key()
@@ -164,6 +176,7 @@ class SchedulingQueue:
         expiry = qp.timestamp + self._backoff_duration(qp)
         heapq.heappush(self._backoff, (expiry, next(self._counter), qp))
         self._in_queue.add(key)
+        latency_ledger.transition(key, "queue.backoff", namespace=qp.pod.meta.namespace)
 
     def _park_gated(self, qp: QueuedPodInfo) -> bool:
         """The PreEnqueue gate for a pod about to enter activeQ or backoffQ:
@@ -184,6 +197,7 @@ class SchedulingQueue:
         if plugin:
             qp.unschedulable_plugins.add(plugin)
         self._unschedulable[key] = qp
+        latency_ledger.transition(key, "queue.gated", namespace=qp.pod.meta.namespace)
         return True
 
     # ------------------------------------------------------------- API
@@ -220,6 +234,7 @@ class SchedulingQueue:
     @_locked
     def delete(self, pod: Pod) -> None:
         key = pod.key()
+        latency_ledger.drop(key)  # an unbound pod's terminal delete
         self._unschedulable.pop(key, None)
         if key in self._in_queue:
             self._in_queue.discard(key)
@@ -250,6 +265,7 @@ class SchedulingQueue:
         self._in_queue.discard(qp.pod.key())
         qp.attempts += 1
         self.scheduling_cycle += 1
+        latency_ledger.transition(qp.pod.key(), "cycle.host", namespace=qp.pod.meta.namespace)
         return qp
 
     def _pop_active(self) -> Optional[QueuedPodInfo]:
@@ -359,6 +375,8 @@ class SchedulingQueue:
                 self._push_backoff(qp)
         elif not self._park_gated(qp):
             self._unschedulable[key] = qp
+            latency_ledger.transition(key, "queue.unschedulable",
+                                      namespace=qp.pod.meta.namespace)
 
     @_locked
     def move_all_to_active_or_backoff_queue(self, event: ClusterEvent) -> int:

@@ -82,6 +82,17 @@ DefaultPreemption gets the list through the handle. A pod that rides the
 batch meets no extender's Filter or Prioritize, as in the JAX loop
 (ROADMAP C22).
 
+Observability (``:472``, ``:547-715``, ``:910``): ``schedule_pod`` runs
+in a ``scheduling.cycle`` span (``pod``) with a ``Trace`` of its steps
+(logged past ``trace_threshold_s``); the framework's points open their
+spans under it (``framework/runtime.py``). The latency ledger
+(``metrics/latency_ledger.py``) parks a pod Permit holds in
+``gang.permit_park``, moves a pod Permit allows to ``commit.host`` and
+closes a pod found deleted or bound by someone else at its failure
+(``close_skipped``); the bind tail's ``bind`` and the close at bind are the
+subclass's. The attempt whose count is 1 modulo
+``PLUGIN_METRICS_SAMPLE_PERIOD`` records its per-plugin durations.
+
 Left out: the per-pod cycle ``schedule_one`` (the loop hands pods to
 ``schedule_one_pod``).
 """
@@ -92,7 +103,7 @@ import dataclasses
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 from ..api.types import Node, Pod, PodStatus
 from ..apiserver.store import ADDED, DELETED, MODIFIED, NotFound, Store
@@ -100,12 +111,16 @@ from ..cache.cache import Cache
 from ..cache.snapshot import Snapshot
 from ..framework.plugins import names
 from ..framework.plugins.coscheduling import pod_group_key
-from ..framework.runtime import DEFAULT_SCHEDULER_NAME, Framework, PreFilterState
+from ..framework.runtime import (DEFAULT_SCHEDULER_NAME, Framework, PreFilterState,
+                                 sampled_attempt)
 from ..framework.types import ALL, WILDCARD, ClusterEvent, Diagnosis, NodeInfo, QueuedPodInfo
+from ..metrics import latency_ledger
 from ..metrics.scheduler_metrics import ERROR, UNSCHEDULABLE, SchedulerMetrics
 from ..ops.tiebreak import name_hash, pod_seed, tie_key
 from ..queue import events as qevents
 from ..queue.scheduling_queue import SchedulingQueue
+from ..utils import tracing
+from ..utils.trace import Trace
 from .extender import ExtenderError
 
 MIN_FEASIBLE_NODES_TO_FIND = 100           # schedule_one.go:52
@@ -148,6 +163,7 @@ class WaitingPod:
     t0: float
     deadline: float
     state: Optional[PreFilterState] = None
+    sampled: bool = False  # its attempt records the per-plugin durations
 
 
 @dataclasses.dataclass
@@ -164,6 +180,7 @@ class BindItem:
     assumed: Optional[Pod] = None
     state: Optional[PreFilterState] = None
     device: bool = True  # the device committed the placement (not the sequential path)
+    sampled: bool = False  # its attempt records the per-plugin durations
 
 
 class FitError(Exception):
@@ -213,6 +230,7 @@ class Scheduler:
         self.extenders = list(extenders or [])
         self.now_fn = now_fn
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
+        self.trace_threshold_s = 0.1  # LogIfLong(100ms), schedule_one.go:313
         self.next_start_node_index = 0  # the sequential path's rotating start
         self.cache = Cache(now_fn=now_fn)
         self.snapshot = Snapshot()
@@ -300,6 +318,13 @@ class Scheduler:
         if pod is None:
             return self._quota
         return self._quota_of.get(pod.spec.scheduler_name, self._quota)
+
+    def _ns_fair_weight(self, ns: str) -> Optional[float]:
+        """The namespace's fair-share weight, None for a namespace that is
+        no quota tenant (``:242``): the queue's ``ns_weight_fn`` and the
+        latency ledger's ``tenant_fn``."""
+        quota = self._quota_plugin()
+        return quota.weight_for(ns) if quota is not None else None
 
     def _pre_enqueue_gate(self, pod: Pod):
         """The queue's admission gate: the pod's profile's PreEnqueue."""
@@ -481,7 +506,10 @@ class Scheduler:
         """Permit voted WAIT: the assumed pod waits until ``timeout`` from
         now for its gang's quorum."""
         self.waiting_pods[item.assumed.key()] = WaitingPod(
-            item.assumed, item.node_name, pod_cycle, t0, self.now_fn() + timeout, item.state)
+            item.assumed, item.node_name, pod_cycle, t0, self.now_fn() + timeout, item.state,
+            item.sampled)
+        latency_ledger.transition(item.assumed.key(), "gang.permit_park",
+                                  namespace=item.assumed.meta.namespace, create=False)
 
     def allow_waiting_pod(self, pod_key: str) -> bool:
         """Permit allowed a parked pod: it lands now, through the bind
@@ -489,9 +517,12 @@ class Scheduler:
         wp = self.waiting_pods.pop(pod_key, None)
         if wp is None:
             return False
+        latency_ledger.transition(pod_key, "commit.host", namespace=wp.pod.meta.namespace,
+                                  create=False)
         self._bind_stage([BindItem(QueuedPodInfo(pod=wp.pod), wp.node_name,
-                                   self.framework_for_pod(wp.pod), wp.pod, wp.state)],
-                         wp.pod_cycle, wp.t0)
+                                   self.framework_for_pod(wp.pod), wp.pod, wp.state,
+                                   sampled=wp.sampled)],
+                         wp.pod_cycle, wp.t0, per_pod=True)
         return True
 
     def reject_waiting_pod(self, pod_key: str, plugins: Tuple[str, ...]) -> bool:
@@ -583,7 +614,9 @@ class Scheduler:
                 fwk.nominator.delete_nominated_pod_if_exists(pod)
         current = self.store.get_pod(pod.key())
         if current is None or current.spec.node_name:
-            return  # gone, or bound by someone else
+            # gone, or bound by someone else: the ledger entry must not linger
+            latency_ledger.close_skipped(pod.key(), current)
+            return
         qp.pod = current
         qp.unschedulable_plugins = set(diagnosis.unschedulable_plugins)
         self.queue.add_unschedulable_if_not_present(qp, pod_cycle, error=not unschedulable)
@@ -599,9 +632,10 @@ class Scheduler:
         failure path with its Diagnosis, an error the backoff queue."""
         pod = qp.pod
         self.metrics.inc("schedule_attempts")
+        sampled = sampled_attempt(self.metrics["schedule_attempts"])
         t0 = self.now_fn()
         try:
-            node_name, state = self.schedule_pod(pod, qp.attempts)
+            node_name, state = self.schedule_pod(pod, qp.attempts, sampled)
         except FitError as err:
             self.smetrics.observe_attempt(UNSCHEDULABLE, pod.spec.scheduler_name,
                                           self.now_fn() - t0)
@@ -613,24 +647,38 @@ class Scheduler:
             self.smetrics.observe_attempt(ERROR, pod.spec.scheduler_name, self.now_fn() - t0)
             self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
             return
-        item = BindItem(qp, node_name, self.framework_for_pod(pod), state=state, device=False)
+        item = BindItem(qp, node_name, self.framework_for_pod(pod), state=state, device=False,
+                        sampled=sampled)
         if self._assume(item, pod_cycle):
-            self._commit_bindings([item], pod_cycle, t0)
+            self._commit_bindings([item], pod_cycle, t0, per_pod=True)
 
-    def schedule_pod(self, pod: Pod, attempts: int) -> Tuple[str, PreFilterState]:
+    def schedule_pod(self, pod: Pod, attempts: int,
+                     sampled: bool = False) -> Tuple[str, PreFilterState]:
         """(``:705``) the chosen node and the pod's PreFilter state, or
-        FitError."""
+        FitError; in a ``scheduling.cycle`` span, with a ``Trace``."""
+        with tracing.span("scheduling.cycle", pod=pod.key()):
+            return self._schedule_pod_traced(pod, attempts, sampled)
+
+    def _schedule_pod_traced(self, pod: Pod, attempts: int,
+                             sampled: bool) -> Tuple[str, PreFilterState]:
+        trace = Trace("Scheduling", now_fn=self.now_fn, pod=pod.key())
         snap = self._failure_snapshot()
         self.cache.update_snapshot(snap)
+        trace.step("Snapshotting scheduler cache and node infos done")
         all_nodes = snap.list()
         if not all_nodes:
             raise FitError(Diagnosis())
-        feasible, diagnosis, state = self.find_nodes_that_fit_pod(pod, all_nodes)
+        feasible, diagnosis, state = self.find_nodes_that_fit_pod(pod, all_nodes, sampled)
+        trace.step("Computing predicates done")
         if not feasible:
+            trace.log_if_long(self.trace_threshold_s)
             raise FitError(diagnosis)
         if len(feasible) == 1:
+            trace.log_if_long(self.trace_threshold_s)
             return feasible[0].node.meta.name, state
         totals = self.framework_for_pod(pod).scores.score(pod, feasible, state)
+        trace.step("Prioritizing done")
+        trace.log_if_long(self.trace_threshold_s)
         if self.extenders:
             # prioritizeNodes (:662-691): each extender's raw score times its
             # weight onto the plugins' totals; its errors are ignored
@@ -647,15 +695,17 @@ class Scheduler:
                         totals[name] += score * ext.weight()
         return self._select_host(totals, pod, attempts), state
 
-    def find_nodes_that_fit_pod(self, pod: Pod, all_nodes: List[NodeInfo]
+    def find_nodes_that_fit_pod(self, pod: Pod, all_nodes: List[NodeInfo], sampled: bool = False
                                 ) -> Tuple[List[NodeInfo], Diagnosis, Optional[PreFilterState]]:
         """(``:751``) the PreFilters, then the nodes they leave: the pod's
         nominated node alone when it fits, else from the rotating start
         until ``num_feasible_nodes_to_find`` nodes fit. A PreFilter failure
-        gives every node its status."""
+        gives every node its status. The Filter point's duration is
+        observed once, over the node walk after the PreFilters."""
         diagnosis = Diagnosis()
-        filters = self.framework_for_pod(pod).filters
-        state, names, fail = filters.pre_filter_status(pod)
+        fwk = self.framework_for_pod(pod)
+        filters = fwk.filters
+        state, names, fail = filters.pre_filter_status(pod, sampled=sampled)
         if fail is not None:
             diagnosis.unschedulable_plugins.add(fail.plugin)
             for ni in all_nodes:
@@ -663,6 +713,19 @@ class Scheduler:
                 if fail.unresolvable:
                     diagnosis.unresolvable.add(ni.node.meta.name)
             raise FitError(diagnosis)
+        t_filter = time.perf_counter()
+        status = "Error"  # unless the walk returns
+        try:
+            feasible = self._filter_nodes(pod, all_nodes, names, state, diagnosis)
+            status = "Success" if feasible else "Unschedulable"
+            return feasible, diagnosis, state
+        finally:
+            self.smetrics.framework_extension_point_duration.observe(
+                time.perf_counter() - t_filter, "filter", status, fwk.profile_name)
+
+    def _filter_nodes(self, pod: Pod, all_nodes: List[NodeInfo], names: Optional[Set[str]],
+                      state: PreFilterState, diagnosis: Diagnosis) -> List[NodeInfo]:
+        filters = self.framework_for_pod(pod).filters
         nodes = all_nodes
         if names is not None:
             nodes = [ni for ni in all_nodes if ni.node.meta.name in names]
@@ -671,7 +734,7 @@ class Scheduler:
             ni = next((n for n in nodes if n.node.meta.name == nominated), None)
             if ni is not None and filters.filter_with_nominated_pods_status(
                     state, pod, ni) is None:
-                return [ni], diagnosis, state
+                return [ni]
         num_to_find = self.num_feasible_nodes_to_find(len(nodes))
         feasible: List[NodeInfo] = []
         checked = 0
@@ -693,7 +756,7 @@ class Scheduler:
         self.next_start_node_index = (start + checked) % len(nodes) if nodes else 0
         if feasible and self.extenders:
             feasible = self._find_nodes_that_pass_extenders(pod, feasible, diagnosis)
-        return feasible, diagnosis, state
+        return feasible
 
     def _find_nodes_that_pass_extenders(self, pod: Pod, feasible: List[NodeInfo],
                                         diagnosis: Diagnosis) -> List[NodeInfo]:
@@ -759,9 +822,11 @@ class Scheduler:
         assume failed and the pod took the failure path."""
         raise NotImplementedError
 
-    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
+    def _commit_bindings(self, items: List[BindItem], pod_cycle: int, t0: float,
+                         per_pod: bool = False) -> int:
         """The bind tail after the assume (the subclass's); returns the pods
-        bound or parked at Permit."""
+        bound or parked at Permit. ``per_pod``: one pod of the sequential
+        path."""
         raise NotImplementedError
 
     # ----------------------------------------------------------- driving
@@ -769,9 +834,11 @@ class Scheduler:
     def schedule_batch_cycle(self) -> int:
         raise NotImplementedError
 
-    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float) -> int:
+    def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float,
+                    per_pod: bool = False) -> int:
         """The bind tail's bind, finish and PostBind stage (the subclass's);
-        returns the pods bound."""
+        returns the pods bound. ``per_pod``: one pod of the sequential path
+        or one Permit allowed."""
         raise NotImplementedError
 
     def run_until_settled(self) -> int:

@@ -1920,3 +1920,214 @@ class LoopPair:
                 bound.setdefault(pod.spec.node_name, []).append(key)
         assert cached == {name: sorted(keys) for name, keys in bound.items()}
         return self.gang_state(1)
+
+
+# ----------------------------------------------------------------- observability
+
+
+class Recorders:
+    """Both packages' telemetry, latency ledger and tracer on for a block,
+    each ledger on its own side's clock of ``pair`` (a LoopPair) with a
+    closed tail long enough to keep every entry, and each fed its own
+    loop's metrics and quota tenants; everything is turned off again at the
+    exit. ``jax`` / ``port`` hold (telemetry, ledger, span exporter)."""
+
+    def __init__(self, pair, ledger=True, telemetry=True, tracing=True, keep_closed=1 << 16):
+        self.pair = pair
+        self.flags = (ledger, telemetry, tracing)
+        self.keep_closed = keep_closed
+
+    def _modules(self):
+        from kubernetes_tpu.backend import telemetry as jtel
+        from kubernetes_tpu.metrics import latency_ledger as jled
+        from kubernetes_tpu.utils import tracing as jtr
+        from kubernetes_tpu_torch.backend import telemetry as ttel
+        from kubernetes_tpu_torch.metrics import latency_ledger as tled
+        from kubernetes_tpu_torch.utils import tracing as ttr
+
+        return (jtel, jled, jtr), (ttel, tled, ttr)
+
+    def __enter__(self):
+        ledger, telemetry, tracing = self.flags
+        out = []
+        for (tel, led, tr), sched, clock in zip(self._modules(), (self.pair.jsched,
+                                                                  self.pair.tsched),
+                                                (self.pair.jclock, self.pair.tclock)):
+            recs = [None, None, None]
+            if telemetry:
+                recs[0] = tel.enable(sched.smetrics)
+            if ledger:
+                recs[1] = led.enable(sched.smetrics, now_fn=clock,
+                                     tenant_fn=sched._ns_fair_weight,
+                                     keep_closed=self.keep_closed)
+            if tracing:
+                recs[2] = tr.InMemoryExporter()
+                tr.enable(recs[2])
+            out.append(recs)
+        self.jax, self.port = out
+        return self
+
+    def __exit__(self, *exc):
+        for tel, led, tr in self._modules():
+            tel.disable()
+            led.disable()
+            tr.disable()
+
+
+def ledger_view(ledger) -> dict:
+    """pod -> (result, segments, the intervals' segment order, e2e, the
+    intervals) of every entry, closed or live (a live one's e2e None)."""
+    out = {}
+    for e in ledger.timeline_entries():
+        closed = e["closed"] is not None
+        out[e["pod"]] = (e["result"], e["segments"],
+                         [seg for seg, _t0, _t1 in e["intervals"]],
+                         (e["closed"] - e["opened"]) if closed else None,
+                         [tuple(i) for i in e["intervals"]] if closed else None)
+    return out
+
+
+FLIGHT_KEYS = ("type", "batchId", "bucket", "sig", "pods", "topo")
+
+
+def flight_view(telemetry) -> list:
+    """The flight recorder's events as (type, batchId, bucket, sig, pods,
+    topo) tuples, in order."""
+    return [tuple(ev.get(k) for k in FLIGHT_KEYS) for ev in telemetry.flight.dump()]
+
+
+SPAN_ATTRS = ("batch", "topo", "pod", "profile", "extension_point", "worker", "packed",
+              "program", "bucket", "batchId")
+
+
+def span_forest(exporter) -> list:
+    """The exported spans as trees in start order: (name, the compared
+    attributes, children), siblings by start time then export order."""
+    spans = list(exporter.spans)
+    order = {id(s): i for i, s in enumerate(spans)}
+    kids = {}
+    ids = {s.span_id for s in spans}
+    roots = []
+    for s in spans:
+        if s.parent_id and s.parent_id in ids:
+            kids.setdefault(s.parent_id, []).append(s)
+        else:
+            roots.append(s)
+
+    def key(s):
+        return (s.start, order[id(s)])
+
+    def tree(s):
+        attrs = tuple((k, str(s.attributes[k])) for k in SPAN_ATTRS if k in s.attributes)
+        return (s.name, attrs, tuple(tree(c) for c in sorted(kids.get(s.span_id, ()), key=key)))
+
+    return [tree(s) for s in sorted(roots, key=key)]
+
+
+def _scenario_basic(pair) -> None:
+    """12 nodes, 40 pods in three batches, all bound; a second settle past
+    11 s."""
+    spec = cluster_spec(12, 0)
+    pair.add_nodes(build_nodes(jax_api(), spec), build_nodes(torch_api(), spec))
+    pods = pods_spec(40, 1)
+    pair.add_pods(build_pods(jax_api(), pods), build_pods(torch_api(), pods))
+    pair.settle()
+    pair.advance(11.0)
+    pair.settle()
+    pair.assert_equal()
+
+
+def _scenario_failures(pair) -> None:
+    """12 nodes, 150 pods: 22 fail (PostFilter runs for them), park
+    unschedulable or in backoffQ, are retried past their backoff and park
+    again."""
+    spec = cluster_spec(12, 0)
+    pair.add_nodes(build_nodes(jax_api(), spec), build_nodes(torch_api(), spec))
+    pods = pods_spec(150, 1)
+    pair.add_pods(build_pods(jax_api(), pods), build_pods(torch_api(), pods))
+    pair.settle()
+    pair.advance(11.0)
+    pair.settle()
+    pair.assert_equal()
+
+
+def _scenario_poison(pair) -> None:
+    """The first two batch commits die at their read (a transient device
+    error): the ring is poisoned and requeued to backoffQ, then retried."""
+    from kubernetes_tpu.backend.errors import TransientDeviceError as JError
+    from kubernetes_tpu_torch.backend.errors import TransientDeviceError
+
+    spec = cluster_spec(12, 0)
+    pair.add_nodes(build_nodes(jax_api(), spec), build_nodes(torch_api(), spec))
+    pods = pods_spec(60, 1)
+    pair.add_pods(build_pods(jax_api(), pods), build_pods(torch_api(), pods))
+    left = [2, 2]
+
+    def fault(side, err):
+        def fn(_op):
+            if left[side] > 0:
+                left[side] -= 1
+                return err("scripted device fault")
+            return None
+        return fn
+
+    pair.jsched.relay_fault_fn = fault(0, JError)
+    pair.tsched.relay_fault_fn = fault(1, TransientDeviceError)
+    pair.settle()
+    pair.advance(2.0)
+    pair.settle()
+    pair.advance(5.0)
+    pair.settle()
+    pair.assert_equal()
+
+
+def _scenario_gang(pair) -> None:
+    """A gang of 4 whose first 3 members park at Permit until the 4th
+    arrives 1.5 s later, and a gang of 3 too big for the nodes: rejected
+    whole, retried past its backoff."""
+    def nodes(api):
+        return [api.make_node(f"node-{i}").capacity({"cpu": "4", "memory": "32Gi", "pods": 32})
+                .label("kubernetes.io/hostname", f"node-{i}").obj() for i in range(4)]
+
+    def members(api, prefix, n, group, cpu="1"):
+        return [api.make_pod(f"{prefix}-{i}").req({"cpu": cpu}).pod_group(group).obj()
+                for i in range(n)]
+
+    for jn, tn in zip(nodes(jax_api()), nodes(torch_api())):
+        pair.jstore.create_node(jn)
+        pair.tstore.create_node(tn)
+    pair.add_pod_group("g1", 4, timeout_s=30)
+    pair.add_pod_group("g2", 3)
+    pair.add_pods(members(jax_api(), "a", 3, "g1"), members(torch_api(), "a", 3, "g1"))
+    pair.settle()
+    pair.advance(1.5)
+    pair.settle()
+    pair.add_pods(members(jax_api(), "b", 1, "g1"), members(torch_api(), "b", 1, "g1"))
+    pair.settle()
+    pair.add_pods(members(jax_api(), "c", 3, "g2", "3"), members(torch_api(), "c", 3, "g2", "3"))
+    pair.settle()
+    pair.advance(3.0)
+    pair.settle()
+    pair.assert_gang_equal()
+
+
+def _scenario_churn(pair) -> None:
+    """6 nodes, 80 pods; then five pending pods and five bound ones are
+    deleted, and the rest retried past their backoff."""
+    spec = cluster_spec(6, 0)
+    pair.add_nodes(build_nodes(jax_api(), spec), build_nodes(torch_api(), spec))
+    pods = pods_spec(80, 1)
+    pair.add_pods(build_pods(jax_api(), pods), build_pods(torch_api(), pods))
+    pair.settle()
+    pending = [k for k, p in pair.tstore.pods.items() if not p.spec.node_name][:5]
+    bound = [k for k, p in pair.tstore.pods.items() if p.spec.node_name][:5]
+    for key in pending + bound:
+        pair.delete_pod(key)
+    pair.advance(11.0)
+    pair.settle()
+    pair.assert_equal()
+
+
+# the loop scenarios the observability tests drive through a LoopPair
+LOOP_SCENARIOS = {"basic": _scenario_basic, "failures": _scenario_failures,
+                  "poison": _scenario_poison, "gang": _scenario_gang, "churn": _scenario_churn}

@@ -5,7 +5,12 @@ screen, the slice planner, the gang assigner and the claim, volume,
 preemption, gang, quota and PreemptionAll workloads and the scheduler loop
 (SchedulingBasic, the ring, gangs, slices, the soak, claims and volumes,
 delayed binding and the soak's device flap) against their CPU runs, and
-the warm sweep's launches against the plain version, on the card.
+the warm sweep's launches against the plain version, on the card. With the
+observability layer on: a batch read through ``materialize_profiled``
+(``deviceExecS`` > 0, the packed block's fetch bytes), an observed loop run
+(dispatch count == fused launches, each ``deviceExecS`` within its cycle,
+the memory sample's three keys, placements == the run with the recorders
+off) and the latency ledger on the card == the CPU loop's.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -1128,3 +1133,122 @@ def test_extenders_through_the_loop_match_cpu(cuda, monkeypatch):
     for key in ("placed", "preempted", "nominations", "cycles", "metrics"):
         assert runs[0][key] == runs[1][key], key
     assert made[0].calls == made[1].calls and made[0].calls["preempt"] > 0
+
+
+# ---------------------------------------------------------------- telemetry
+
+
+@pytest.fixture
+def recorders_off():
+    yield
+    from kubernetes_tpu_torch.backend import telemetry
+    from kubernetes_tpu_torch.metrics import latency_ledger
+    from kubernetes_tpu_torch.utils import tracing
+
+    for m in (telemetry, latency_ledger, tracing):
+        m.disable()
+
+
+@pytest.mark.cuda
+def test_profiled_read_times_the_batch_program(cuda, recorders_off):
+    """One dispatched batch read through ``materialize_profiled`` with
+    telemetry on: the events bracket the batch program (``deviceExecS`` >
+    0), the fetch counts the packed block's bytes, and the read equals
+    ``materialize_result``'s."""
+    from kubernetes_tpu_torch.backend import batch_scheduler, telemetry
+    from kubernetes_tpu_torch.backend.commit_plane import materialize_profiled
+    from kubernetes_tpu_torch.backend.device_state import DeviceState, caps_for_cluster
+    from kubernetes_tpu_torch.cache.snapshot import Snapshot
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(nodes=300, init_pods=0, measured=128)
+
+    def dispatched():
+        state = DeviceState(caps_for_cluster(300), cuda)
+        state.sync(Snapshot(w.node_infos()))
+        enc = batch_scheduler.encode_device_batch(state, w.measured_pod_list())
+        return state, batch_scheduler.dispatch_device_batch(state, enc)
+
+    rec = telemetry.enable()
+    state, disp = dispatched()
+    assert disp.exec_events is not None
+    read, record = materialize_profiled(disp, state.caps.nodes, program="schedule_batch",
+                                        bucket="128/off", batch_id="b1", pods=128)
+    assert record["deviceExecS"] > 0
+    assert record["fetchBytes"] == disp.block.numel() * disp.block.element_size()
+    assert rec.transfer_bytes["fetch"] == record["fetchBytes"]
+    assert sum(record["window"].values()) == pytest.approx(record["waitS"], abs=1e-12)
+    telemetry.disable()
+    state, disp = dispatched()  # the same batch on a fresh mirror, telemetry off
+    assert disp.exec_events is None
+    want, none = materialize_profiled(disp, state.caps.nodes, program="schedule_batch")
+    assert none is None
+    for a, b in zip(read, want):
+        assert (a is None and b is None) or np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_observed_loop_on_the_card(cuda, recorders_off, monkeypatch):
+    """SchedulingBasic at 500 nodes through the synchronous loop with the
+    recorders on: the dispatch count equals the fused launches; each
+    batch's ``deviceExecS`` is positive and within its cycle's host time
+    (synchronous: the cycle encodes, dispatches and reads its batch); the
+    memory sample has its three keys; every fetch is the packed block's
+    bytes; the placements equal the same run with the recorders off."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    monkeypatch.setenv("KTPU_PIPELINE_DEPTH", "0")
+    monkeypatch.setenv("KTPU_COMMIT_WORKER", "0")
+    w = workloads.scheduling_basic(nodes=500, init_pods=256, measured=512)
+    run = workloads.run_loop(w, "cuda", observe=True)
+    off = workloads.run_loop(w, "cuda")
+    assert run["placed"] == off["placed"] and run["cycles"] == off["cycles"]
+    o = run["observed"]
+    count = sum(v["count"] for k, v in o["programs"].items() if k.startswith("schedule_batch@"))
+    assert count == o["launches"] == run["launches"] == run["batches"]
+    # synchronous: the newest records are the measured cycles' batches
+    measured = [r["deviceExecS"] for r in o["records"]][-len(run["measured_batch_ms"]):]
+    assert all(0 < t * 1e3 <= ms for t, ms in zip(measured, run["measured_batch_ms"]))
+    assert {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"} <= set(o["hbm"])
+    words = 1 + -(-run["caps"]["nodes"] // 4)  # node_idx, then first_fail as int32 words
+    for r in o["records"]:
+        assert r["fetchBytes"] == 4 * int(r["bucket"].split("/")[0]) * words
+    assert o["retraces"] == 0 and o["e2e_rel_err"] <= 1e-9
+
+
+@pytest.mark.cuda
+def test_ledger_on_the_card_equals_the_cpu(cuda, recorders_off, monkeypatch):
+    """The same store through the loop on the card and on the CPU (full
+    batches), each ledger on its own FakeClock stepped between settles:
+    every entry equal (result, segments, their order, e2e)."""
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu_torch.metrics import latency_ledger
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    from _torch_cases import (build_nodes, build_pods, cluster_spec, ledger_view, pods_spec,
+                              torch_api)
+
+    monkeypatch.setenv("KTPU_PIPELINE_DEPTH", "2")
+    views = []
+    for device in ("cuda", "cpu"):
+        clock = FakeClock()
+        store = Store(now_fn=clock)
+        sched = TPUScheduler(store, device=device, now_fn=clock, batch_size=16,
+                             batch_deadline_ms=0, percentage_of_nodes_to_score=100)
+        led = latency_ledger.enable(sched.smetrics, now_fn=clock, keep_closed=1 << 16)
+        spec = cluster_spec(12, 0)
+        for ni in build_nodes(torch_api(), spec):
+            store.create_node(ni.node)
+            for p in ni.pods:
+                store.create_pod(p)
+        for p in build_pods(torch_api(), pods_spec(150, 1)):
+            store.create_pod(p)
+        sched.run_until_settled()
+        clock.advance(11.0)
+        sched.queue.flush_backoff_completed()
+        sched.run_until_settled()
+        sched.close()
+        views.append(ledger_view(led))
+        latency_ledger.disable()
+    assert views[0] == views[1] and len(views[0]) == 150

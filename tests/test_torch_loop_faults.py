@@ -419,7 +419,7 @@ def test_comparer_flags_a_corrupted_placement(monkeypatch):
     pod lands on the tainted node the device did not choose: the comparer
     counts one mismatch."""
     from kubernetes_tpu_torch.apiserver.store import Store
-    from kubernetes_tpu_torch.backend import tpu_scheduler
+    from kubernetes_tpu_torch.backend import commit_plane, tpu_scheduler
     from kubernetes_tpu_torch.utils.clock import FakeClock
 
     clock = FakeClock()
@@ -430,7 +430,7 @@ def test_comparer_flags_a_corrupted_placement(monkeypatch):
                       .taint("dedicated", "x").obj())
     store.create_node(torch_api().make_node("node-1").capacity({"cpu": "4", "pods": 32}).obj())
     store.create_pod(torch_api().make_pod("p-0").req({"cpu": "100m"}).obj())
-    real = tpu_scheduler.materialize_result
+    real = commit_plane.materialize_result
 
     def corrupted(disp, n_nodes):
         node_idx, ff, sw, qw = real(disp, n_nodes)
@@ -438,7 +438,8 @@ def test_comparer_flags_a_corrupted_placement(monkeypatch):
         node_idx[0] = sched.state.encoder.node_slots["node-0"]
         return node_idx, ff, sw, qw
 
-    monkeypatch.setattr(tpu_scheduler, "materialize_result", corrupted)
+    # the loop reads through commit_plane.materialize_profiled, which calls it
+    monkeypatch.setattr(commit_plane, "materialize_result", corrupted)
     sched.run_until_settled()
     sched.close()
     assert sched.comparer_checks == 1 and sched.comparer_mismatches == 1
