@@ -148,7 +148,7 @@
    device).run_until_settled()``, every bind through the store).
    SchedulingBasic/5000Nodes (1000 init, then 1000 measured pods) on the
    card at the default percentageOfNodesToScore (a full batch on CUDA),
-   six times in turns: the in-flight ring at its default (depth 2, its
+   three times in turns: the in-flight ring at its default (depth 2, its
    commits inline), the synchronous loop (``KTPU_PIPELINE_DEPTH=0``) and
    the ring with the commit worker (``KTPU_COMMIT_WORKER=1``).
    Each run: every pod bound, every batch on the fused kernel with
@@ -275,7 +275,7 @@
    on a not-Ready node, every team-a pod on pool=b, every admitted team-c
    pod charged its overhead (``workloads.admission_violations``). The
    chain's cost: SchedulingBasic/5000Nodes with the chain and validation
-   on, then off (``admission = None``, ``validation_enabled = False``), 3
+   on, then off (``admission = None``, ``validation_enabled = False``), 2
    pairs in turns; prints the median pods/s of each and the µs of a
    measured create. SchedulingBasic/1000Nodes/Extender (500 init, 256
    measured pods, a quarter on ``no-scoring``) with an in-process
@@ -291,7 +291,7 @@
 17. Loop_telemetry phase: the observability layer through the loop on the
    card (``perf/workloads.py:LoopObserver``: telemetry, the latency ledger
    and tracing on for a whole run). SchedulingBasic/5000Nodes on the inline
-   ring with the recorders off and on in turns (3 pairs): every run's
+   ring with the recorders off and on in turns (2 pairs): every run's
    placements equal the loop phase's CPU run, and on equals off in this
    process; prints pods/s and attempt p99 of both (the layer's cost). From
    each run with the recorders on: the dispatch ledger's ``schedule_batch``
@@ -314,7 +314,30 @@
    equal; zero oversubscription in both arms, reclaims with borrowing on,
    and a pool-utilization lift above 0.10 (``tests/test_borrow.py``'s
    bar); prints pods/s and the lender's e2e p99 of both arms.
-18. Each workload run prints pods/s, ms per batch, host ms per stage, and
+18. Loop_rebalance phase: the drain orchestrator and the SLO-guarded
+   rebalancer through the loop on the card. ``packing_entropy`` (the
+   rebalancer's score, plain PyTorch) on SchedulingBasic/5000Nodes'
+   settled mirror (N = 5120, R = 6) and on the smeared mirror at the end of
+   the replay, against its plain version on the CPU within 1e-6; prints
+   its CUDA-event ms (median of 30), its kernels per call
+   (torch.profiler), the plain version's ms and the least time for its
+   bytes. SchedulingReplay/500Nodes and /NoRebalance
+   (``workloads.run_loop_replay``: 16 rounds at scale 20, 120 cycles of
+   0.05 s on a FakeClock per round, the rebalancer at cooldown 2 s, score
+   interval 0.5 s, band 0.85 / 0.70) on the card and on the CPU at
+   percentage 100: placements, the ReplayInvariants, the waves and their
+   victims and the per-tenant e2e equal; the JAX test's bar: waves with
+   the rebalancer on, none off, nothing pending, no uncordon pending,
+   PackingEff on above off, no tenant p99 past 3x the /NoRebalance arm's
+   + 0.5 s; prints pods/s and the ms of each score inside the loop.
+   SchedulingElastic/1000Nodes (``workloads.run_loop_elastic``: 6 rounds of
+   150 pods and gangs, the storm, the rolling drain and the spot
+   reclamation) on the card and on the CPU: placements, the
+   ElasticInvariants, the evictions and the nodes equal; no pod lost, no
+   node oversubscribed, nothing pending, slots reused, the node axis at
+   ``caps_for_cluster(1000).nodes`` and no upload in the settled second
+   sync; prints pods/s and the evictions by reason.
+19. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -1841,8 +1864,8 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
         cpu = workloads.run_loop(basic, "cpu", percentage=100)
     turns = {"ring": [], "sync": [], "worker": []}
     envs = {"ring": RING, "sync": SYNC, "worker": WORKER}
-    # two turns each: the loop_gang phase after this one needs the time
-    for i, kind in enumerate(("ring", "sync", "worker") * 2):
+    # one turn each: the phases after this one need the time
+    for i, kind in enumerate(("ring", "sync", "worker")):
         gpu = _loop_run(basic, f"{basic.name} [{kind} {i // 3 + 1}]", envs[kind])
         _check_all_bound(basic.name, basic, gpu)
         if set(gpu["paths"]) != {"fused"} or gpu["launches"] != gpu["batches"]:
@@ -2518,7 +2541,7 @@ def loop_profiles_phase(loop: dict) -> dict:
 
 # ---------------------------------------------------------------- loop_admission phase
 
-ADMISSION_PAIRS = 3  # the chain's cost: chain on / off in turns
+ADMISSION_PAIRS = 2  # the chain's cost: chain on / off in turns
 EXT_NODES, EXT_INIT, EXT_PODS, WIRE_PODS = 1000, 500, 256, 64
 EXT_NAMES = ("default-scheduler",) * 3 + ("no-scoring",)
 
@@ -2695,7 +2718,7 @@ def loop_admission_phase(loop: dict) -> dict:
     return out
 
 
-TELEMETRY_PAIRS = 3  # the recorders' cost: off / on in turns
+TELEMETRY_PAIRS = 2  # the recorders' cost: off / on in turns
 BORROW_NODES, BORROW_ROUNDS, BORROW_SCALE = 1000, 8, 100
 BORROW_KEYS = ("placed", "invariants", "tenants", "e2e", "batch_pods", "evicted", "reclaims",
                "cycles")
@@ -2852,6 +2875,211 @@ def loop_telemetry_phase(loop: dict, kern: dict) -> dict:
     return out
 
 
+ENTROPY_TOL = 1e-6  # packing_entropy on the card against its plain version
+REPLAY_NODES = 500   # SchedulingReplay's JAX default
+ELASTIC_NODES = 1000  # SchedulingElastic's JAX default
+REPLAY_KEYS = ("placed", "invariants", "tenants", "e2e", "cycles", "evicted", "batch_pods")
+ELASTIC_KEYS = ("placed", "invariants", "evicted", "nodes", "cycles", "batch_pods")
+
+
+# tests/test_rebalance.py:338-340's knobs
+REPLAY_TEST_KNOBS = {"cooldown_s": 1.0, "score_interval_s": 0.25, "entropy_high": 0.80,
+                     "entropy_low": 0.60, "max_migrations_per_wave": 8}
+
+
+def _replay_bar(name: str, on_run: dict, off_run: dict) -> None:
+    """The JAX acceptance bar that holds on the loop in every mode: waves
+    and migrations with the rebalancer on, none off, no pod and no
+    uncordon pending, no tenant's p99 past 3x the /NoRebalance arm's +
+    0.5 s (``tests/test_rebalance.py:363-394``). PackingEff is printed: on
+    the batch loop its two arms differ by under 1e-7, either way."""
+    on, off = on_run["invariants"], off_run["invariants"]
+    bad = []
+    if not (on["Waves"] > 0 and on["Migrations"] > 0 and off["Waves"] == 0):
+        bad.append("waves")
+    if on["PendingUncordons"] or on["PendingAtEnd"] or off["PendingAtEnd"]:
+        bad.append("pending")
+    for ns, t_off in off_run["tenants"].items():
+        t_on = on_run["tenants"][ns]
+        if t_on["E2eCount"] and t_off["E2eCount"] and \
+                t_on["E2eP99"] > t_off["E2eP99"] * 3.0 + 0.5:
+            bad.append(f"p99 {ns}")
+    if on["TenantP99Max"] > off["TenantP99Max"] * 3.0 + 0.5:
+        bad.append("p99 max")
+    if bad:
+        raise AssertionError(f"{name}: bar failed ({bad}): on {on}, off {off}")
+
+
+def _basic_mirror() -> dict:
+    """SchedulingBasic/5000Nodes' init pods settled through the loop on the
+    card: the mirror's score inputs (N = 5120, R = 6)."""
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.controllers.rebalance import mirror_score_inputs
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    w = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = tpu_scheduler.TPUScheduler(store, device="cuda", now_fn=clock, batch_deadline_ms=0,
+                                       batch_size=workloads.LOOP_BATCH,
+                                       percentage_of_nodes_to_score=100)
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    for pod in w.init_pod_list():
+        store.create_pod(pod)
+    sched.run_until_settled()
+    sched.close()
+    return mirror_score_inputs(sched.state)
+
+
+def _entropy_on_card(name: str, inputs: dict) -> dict:
+    """``packing_entropy`` on the card against its plain version on the CPU
+    on the same inputs (within ENTROPY_TOL); its CUDA-event ms (median of
+    TIMED_LAUNCHES), the plain version's ms, its kernels per call
+    (torch.profiler) and the least time for its bytes."""
+    from kubernetes_tpu_torch.controllers.rebalance import packing_entropy
+
+    req, valid = torch.from_numpy(inputs["requested"]), torch.from_numpy(inputs["valid"])
+    cm, cp = packing_entropy(req, valid)
+    dreq, dvalid = req.to("cuda"), valid.to("cuda")
+    times, (gm, gp) = _event_ms(lambda: packing_entropy(dreq, dvalid))
+    err = max(abs(float(gm) - float(cm)), float((gp.cpu() - cp).abs().max()))
+    if not err <= ENTROPY_TOL:
+        raise AssertionError(f"{name}: packing_entropy on the card off by {err} > {ENTROPY_TOL}")
+    plain = []
+    for _ in range(TIMED_LAUNCHES):
+        t = time.perf_counter()
+        packing_entropy(req, valid)
+        plain.append((time.perf_counter() - t) * 1e3)
+    prof = _profiled(packing_entropy, (dreq, dvalid), {})
+    n, r = req.shape
+    nbytes = req.numel() * 4 + valid.numel() + (r + 1) * 4  # rows and mask in, scores out
+    out = {"ms": statistics.median(times), "plain_ms": statistics.median(plain),
+           "kernels": prof["kernels"], "max_abs_err": err,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "entropy": float(gm)}
+    print(f"packing_entropy on {name} (N={n}, R={r}): |card - plain| {err:.3g} <= "
+          f"{ENTROPY_TOL}; entropy {float(gm):.6f}; {out['ms']:.4f} ms on the card (median of "
+          f"{TIMED_LAUNCHES} CUDA-event timings), {prof['kernels']} kernels per call, device "
+          f"busy {prof['device_ms']:.4f} ms; the plain version {out['plain_ms']:.4f} ms on the "
+          f"cpu; its {nbytes} bytes take {out['bound_ms']:.6f} ms at 3.35 TB/s")
+    return out
+
+
+def loop_rebalance_phase() -> dict:
+    """The drain orchestrator and the rebalancer through the loop on the
+    card: ``packing_entropy`` on SchedulingBasic/5000Nodes' mirror and the
+    replay's smeared mirror against its plain version; SchedulingReplay/
+    500Nodes both arms and SchedulingElastic/1000Nodes, each == the CPU
+    loop, with the JAX tests' bars."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    scores = {"SchedulingBasic/5000Nodes": _entropy_on_card("SchedulingBasic/5000Nodes",
+                                                             _basic_mirror())}
+    part("basic_mirror")
+    arms = {}
+    for rebalance in (True, False):
+        w = workloads.scheduling_replay(REPLAY_NODES, rebalance=rebalance)
+        with _env(**RING):
+            fused_step.LAUNCHES = 0
+            gpu = workloads.run_loop_replay(w, "cuda", percentage=100)
+            if gpu["launches"] != fused_step.LAUNCHES:
+                raise AssertionError(f"{w.name}: launches counted twice")
+            cpu = workloads.run_loop_replay(w, "cpu", percentage=100)
+        _check_loop_same(w.name, gpu, cpu, REPLAY_KEYS)
+        for g, c in zip(gpu["waves"], cpu["waves"]):
+            if {k: v for k, v in g.items() if k != "entropy"} != {
+                    k: v for k, v in c.items() if k != "entropy"} \
+                    or abs(g["entropy"] - c["entropy"]) > ENTROPY_TOL:
+                raise AssertionError(f"{w.name}: wave {g} differs from the cpu's {c}")
+        if len(gpu["waves"]) != len(cpu["waves"]):
+            raise AssertionError(f"{w.name}: {len(gpu['waves'])} waves, cpu {len(cpu['waves'])}")
+        arms[rebalance] = (w, gpu, cpu)
+    on, off = arms[True][1]["invariants"], arms[False][1]["invariants"]
+    _replay_bar(f"SchedulingReplay/{REPLAY_NODES}Nodes", arms[True][1], arms[False][1])
+    scores[f"SchedulingReplay/{REPLAY_NODES}Nodes (smeared, end of trace)"] = _entropy_on_card(
+        f"SchedulingReplay/{REPLAY_NODES}Nodes (smeared)", arms[True][1]["mirror"])
+    for rebalance, (w, gpu, cpu) in arms.items():
+        score_ms = [t * 1e3 for t in gpu["score_s"]]
+        cpu_score_ms = [t * 1e3 for t in cpu["score_s"]]
+        print(f"{w.name} through the loop (inline ring, FakeClock): == the cpu loop (placements, "
+              f"invariants, waves and their victims, per-tenant e2e); invariants "
+              f"{gpu['invariants']}; waves " + "; ".join(
+                  f"{wv['nodes']} ({wv['evicted']} pods)" for wv in gpu["waves"])
+              + f"; {len(gpu['batch_pods'])} batches, {gpu['launches']} fused launches, "
+              f"{gpu['cycles']} cycles; {gpu['pods_per_s']:.1f} pods/s ({cpu['pods_per_s']:.1f} "
+              f"on the cpu); the rebalancer's score inside the loop "
+              + (f"{statistics.median(score_ms):.3f} ms per call (median of {len(score_ms)}; "
+                 f"{statistics.median(cpu_score_ms):.3f} ms on the cpu)" if score_ms
+                 else "never ran (off)")
+              + f"; evicted {gpu['evicted']}")
+        out[w.name] = {"launches": gpu["launches"], "pods_per_s": gpu["pods_per_s"],
+                       "invariants": gpu["invariants"],
+                       "score_ms": statistics.median(score_ms) if score_ms else None}
+    # the JAX test's packing bar, in its own mode: one pod per cycle (the
+    # sequential path) at its size, where the rebalancer gets the clock
+    seq = {}
+    for rebalance in (True, False):
+        w = workloads.scheduling_replay(24, 6, 4, rebalance=REPLAY_TEST_KNOBS if rebalance
+                                        else False)
+        with _env(**RING):
+            gpu = workloads.run_loop_replay(w, "cuda", percentage=100, sequential=True)
+            cpu = workloads.run_loop_replay(w, "cpu", percentage=100, sequential=True)
+        _check_loop_same(f"{w.name} [sequential]", gpu, cpu, REPLAY_KEYS)
+        seq[rebalance] = gpu
+    _replay_bar("SchedulingReplay/24Nodes [sequential]", seq[True], seq[False])
+    s_on, s_off = seq[True]["invariants"], seq[False]["invariants"]
+    if not (s_on["PackingEff"] > s_off["PackingEff"] + 0.005
+            and s_on["FinalEntropy"] < s_off["FinalEntropy"]):
+        raise AssertionError(f"SchedulingReplay/24Nodes [sequential]: packing not better: "
+                             f"on {s_on}, off {s_off}")
+    print(f"SchedulingReplay/24Nodes [sequential, one pod per cycle, the JAX test's knobs]: "
+          f"== the cpu loop in both arms; waves {s_on['Waves']:.0f}, migrations "
+          f"{s_on['Migrations']:.0f}, PackingEff {s_on['PackingEff']:.6f} on against "
+          f"{s_off['PackingEff']:.6f} off (> +0.005), FinalEntropy {s_on['FinalEntropy']:.6f} / "
+          f"{s_off['FinalEntropy']:.6f}, Suspended {s_on['Suspended']:.0f}; the score on the "
+          f"card {statistics.median(seq[True]['score_s']) * 1e3:.3f} ms per call (the host "
+          "snapshot's rows: no batch, no mirror)")
+    print(f"SchedulingReplay/{REPLAY_NODES}Nodes: waves {on['Waves']:.0f}, migrations "
+          f"{on['Migrations']:.0f}, PackingEff {on['PackingEff']:.9f} on against "
+          f"{off['PackingEff']:.9f} off, FinalEntropy {on['FinalEntropy']:.6f} / "
+          f"{off['FinalEntropy']:.6f}, TenantP99Max {on['TenantP99Max']:.4f} / "
+          f"{off['TenantP99Max']:.4f} s; nothing pending, no uncordon pending")
+    part("replay")
+
+    w = workloads.scheduling_elastic(ELASTIC_NODES)
+    with _env(**RING):
+        fused_step.LAUNCHES = 0
+        gpu = workloads.run_loop_elastic(w, "cuda", percentage=100)
+        if gpu["launches"] != fused_step.LAUNCHES:
+            raise AssertionError(f"{w.name}: launches counted twice")
+        cpu = workloads.run_loop_elastic(w, "cpu", percentage=100)
+    _check_loop_same(w.name, gpu, cpu, ELASTIC_KEYS)
+    inv = gpu["invariants"]
+    rows = float(tpu_scheduler.caps_for_cluster(ELASTIC_NODES).nodes)
+    if (inv["LostPods"] or inv["Oversubscribed"] or inv["PendingAtEnd"]
+            or not inv["SlotReuses"] > 0 or inv["RowCapacity"] != rows
+            or inv["UploadBytesSteady"] != 0):
+        raise AssertionError(f"{w.name}: invariants {inv}")
+    print(f"{w.name} through the loop (inline ring, FakeClock): == the cpu loop (placements, "
+          f"invariants, evictions, nodes); invariants {inv}; evicted by reason "
+          f"{gpu['evicted']}; {len(gpu['batch_pods'])} batches, {gpu['launches']} fused "
+          f"launches, {gpu['cycles']} cycles; {gpu['pods_per_s']:.1f} pods/s "
+          f"({cpu['pods_per_s']:.1f} on the cpu)")
+    out[w.name] = {"launches": gpu["launches"], "pods_per_s": gpu["pods_per_s"],
+                   "invariants": inv, "evicted": gpu["evicted"]}
+    part("elastic")
+    out["packing_entropy"] = scores
+    print("loop_rebalance phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -2894,11 +3122,17 @@ def main() -> int:
     loop_profiles = timed("loop_profiles", loop_profiles_phase, loop)
     loop_admission = timed("loop_admission", loop_admission_phase, loop)
     loop_telemetry = timed("loop_telemetry", loop_telemetry_phase, loop, kern)
+    loop_rebalance = timed("loop_rebalance", loop_rebalance_phase)
+    entropy = loop_rebalance.pop("packing_entropy")
     loop.pop(CPU_BASIC)
     loop.pop(CPU_PREEMPT)
     warm_launches = loop_faults.pop("warm_launches")
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
+    print("packing_entropy (an XLA program of the JAX package, plain PyTorch in the port): "
+          + "; ".join(f"{k}: {v['ms']:.4f} ms on the card, {v['kernels']} kernels per call, "
+                      f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms, "
+                      f"|err| {v['max_abs_err']:.3g}" for k, v in entropy.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -2928,7 +3162,9 @@ def main() -> int:
                                  **{f"loop:{k}": v["launches"]
                                     for k, v in loop_admission.items()},
                                  **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_telemetry.items()}},
+                                    for k, v in loop_telemetry.items()},
+                                 **{f"loop:{k}": v["launches"]
+                                    for k, v in loop_rebalance.items()}},
         "warm_launches": warm_launches,
         "slice_masked_ms": gangs[slices_name]["masked_ms"],
         "slice_unmasked_ms": gangs[slices_name]["plain_ms"],

@@ -266,7 +266,8 @@ class Store:
                 "Service": self.services, "ReplicationController": self.replication_controllers,
                 "ReplicaSet": self.replica_sets, "StatefulSet": self.stateful_sets,
                 "ResourceQuota": self.resource_quotas, "LimitRange": self.limit_ranges,
-                "ServiceAccount": self.service_accounts, "RuntimeClass": self.runtime_classes}
+                "ServiceAccount": self.service_accounts, "RuntimeClass": self.runtime_classes,
+                "PodDisruptionBudget": self.pdbs}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]

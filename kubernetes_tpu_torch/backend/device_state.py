@@ -111,6 +111,7 @@ class DeviceState:
         self._n_prio = len(self.encoder.prio_vocab)
         self.rows_uploaded = 0
         self.rows_elided = 0
+        self.last_upload_bytes = 0  # the bytes the last sync uploaded
         self.nodes_removed = 0
         # host mirror of the device row content, initialized to the empty-row
         # encoding (label_num is INT_NONE-filled, topo fields -1)
@@ -182,6 +183,7 @@ class DeviceState:
         dirty: List[Tuple[int, NodeInfo]] = []
         images_changed = False
         current = snapshot.node_info_map
+        self.last_upload_bytes = 0
         # removed nodes FIRST, so a node added in the same sync reuses the
         # freed slot instead of growing the axis
         removed = [n for n in self.encoder.node_slots if n not in current]
@@ -262,6 +264,7 @@ class DeviceState:
                 getattr(self.nt, field).index_copy_(
                     0, idx, tensor_from_numpy(field, stacked, self.device))
         self.rows_uploaded += n
+        self.last_upload_bytes = nbytes
         telemetry.transfer("upload", nbytes)
         return n
 

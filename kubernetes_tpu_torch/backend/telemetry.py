@@ -76,10 +76,13 @@ EVENT_KINDS = frozenset({
     "encode", "dispatch", "commit", "poison", "requeue", "degrade",
     # device runtime
     "retrace_storm",
-    # elasticity
-    "slot_reclaim", "node_remove",
+    # elasticity: slot reuse, node removal, the drain orchestrator's waves
+    "slot_reclaim", "node_remove", "evict_wave",
     # slice-topology packing: per-gang torus verdicts, fragmentation alert
     "slice_assign", "slice_reject", "frag_alert",
+    # continuous rebalancing: executed migration waves, the SLO guardrail
+    # opening, and its half-open probe closing it again
+    "rebalance_wave", "rebalance_suspended", "rebalance_resume",
     # cohort quota borrowing: loan grants, reclaim waves, the reclaim
     # breaker opening
     "borrow_grant", "borrow_reclaim", "reclaim_suspended",

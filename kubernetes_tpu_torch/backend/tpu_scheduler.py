@@ -393,6 +393,8 @@ class TPUScheduler(Scheduler):
         # serializes the scheduling thread's sync, encode and dispatch with
         # a commit's adopt, preemption screen and reconcile
         self.device_mutex = threading.RLock()
+        # the continuous rebalancer, off until enable_rebalancer (:284-287)
+        self.rebalancer = None
         self.commit_worker: Optional[CommitWorker] = None
         if self.pipeline_depth and os.environ.get("KTPU_COMMIT_WORKER", "0") == "1":
             self.commit_worker = CommitWorker(self._commit_inflight)
@@ -603,6 +605,19 @@ class TPUScheduler(Scheduler):
                 and not self.commit_worker.idle()):
             self.commit_worker.flush()
         super()._periodic_housekeeping(now)
+        if self.rebalancer is not None:
+            # after the sweep; the rebalancer gates itself on its score
+            # interval and an idle commit worker (:611-614)
+            self.rebalancer.maybe_run(now)
+
+    def enable_rebalancer(self, **kwargs):
+        """Attach the continuous rebalancer (``controllers/rebalance.py``),
+        driven from housekeeping (``:616-624``); ``kwargs`` are its knobs.
+        Returns it."""
+        from ..controllers.rebalance import Rebalancer
+
+        self.rebalancer = Rebalancer(self, now_fn=kwargs.pop("now_fn", self.now_fn), **kwargs)
+        return self.rebalancer
 
     def schedule_batch_cycle(self) -> int:
         """Schedule up to one batch; returns the pods popped."""

@@ -24,6 +24,7 @@ import numpy as np
 from ...api.types import Pod, PodDisruptionBudget
 from ..preemption import (MIN_CANDIDATE_NODES_ABSOLUTE, MIN_CANDIDATE_NODES_PERCENTAGE,
                           Evaluator)
+from ..interface import Fail
 from . import names
 
 # the device screen's hints for one pod: (its screen row over the node
@@ -54,13 +55,20 @@ class DefaultPreemption:
         self.filters = fwk.filters
 
     def post_filter(self, pod: Pod, hints: Optional[Hints] = None,
-                    unresolvable: Collection[str] = ()) -> Tuple[Optional[str], Optional[str]]:
+                    unresolvable: Collection[str] = (), state=None
+                    ) -> Tuple[Optional[str], Optional[str]]:
         """(the node the pod is nominated to, or None and the reason).
         ``unresolvable``: the nodes whose filter status was
-        UnschedulableAndUnresolvable (none on the batched path)."""
-        state, reason = self.filters.pre_filter(pod)
-        if reason is not None:
-            return None, reason
+        UnschedulableAndUnresolvable (none on the batched path). ``state``:
+        the sequential cycle's PreFilter state, or its PreFilter's ``Fail``;
+        None on the batch path, whose PreFilters did not run, so they run
+        here (the JAX plugin's ``if not state.prefilter_ran``, ``:52-58``)."""
+        if isinstance(state, Fail):
+            return None, state.reason
+        if state is None:
+            state, reason = self.filters.pre_filter(pod)
+            if reason is not None:
+                return None, reason
         node_infos = list(self.filters.node_infos_fn())
         pdbs = list(self.pdb_lister())
         screen_fn = preferred = None

@@ -28,15 +28,23 @@ tenant), ``ledger_evicted`` (``scheduler_pod_ledger_evicted_total``),
 under the JAX metrics' names.
 
 The histogram keeps every observation, so its quantiles are exact (the JAX
-registry's are bucket estimates); one run's attempts are few enough. The
+registry's are bucket estimates); one run's attempts are few enough. A
+histogram given the JAX family's buckets (``tenant_e2e_duration``:
+``exponential_buckets(0.005, 2, 16)``) also gives the JAX registry's
+estimate (``estimate``, ``estimate_since``), which the rebalancer's SLO
+guardrail reads, as the JAX one reads ``percentile``. The continuous
+rebalancer (``controllers/rebalance.py``) writes ``rebalance_waves`` (by
+result: executed, empty, suspended), ``rebalance_migrations``,
+``packing_entropy`` and ``rebalance_suspended`` (0 or 1). The
 ring's commit worker observes on its own thread: a counter's increment
 takes a lock, and a histogram's observation is one list append.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -45,12 +53,23 @@ UNSCHEDULABLE = "unschedulable"
 ERROR = "error"
 
 
+def exponential_buckets(start: float, factor: float, count: int) -> List[float]:
+    """The JAX registry's bucket bounds (``metrics/registry.py:79``)."""
+    return [start * factor ** i for i in range(count)]
+
+
+# the JAX pod e2e families' buckets (scheduler_metrics.py:353), to ~160 s
+E2E_BUCKETS = exponential_buckets(0.005, 2, 16)
+
+
 class Histogram:
     """Observations per label values; ``quantile`` over those of one
-    label set, or over all of them with no labels given."""
+    label set, or over all of them with no labels given. ``buckets`` (the
+    upper bounds of a JAX registry family) enable the bucket estimate."""
 
-    def __init__(self):
+    def __init__(self, buckets: Optional[Sequence[float]] = None):
         self._obs: Dict[Tuple[str, ...], List[float]] = {}
+        self.buckets = sorted(buckets) if buckets else None
 
     def observe(self, value: float, *labels: str) -> None:
         self._obs.setdefault(labels, []).append(value)
@@ -89,6 +108,37 @@ class Histogram:
         none."""
         vals = self.values(*labels)[since:]
         return float(np.quantile(vals, q)) if vals else 0.0
+
+    def estimate(self, q: float, *labels: str) -> float:
+        """The JAX registry's ``percentile`` (``kubernetes_tpu/metrics/
+        registry.py:146-193``): linear interpolation inside the bucket the
+        ``q`` quantile falls in, from the label set's bucket counts."""
+        return self.estimate_since(0, q, *labels)
+
+    def estimate_since(self, snap: int, q: float, *labels: str) -> float:
+        """``estimate`` over the observations since ``snap``, as the JAX
+        registry's ``percentile_since`` over its bucket-count delta."""
+        if self.buckets is None:
+            raise ValueError("histogram has no buckets")
+        vals = self._obs.get(labels, ())[snap:]
+        if not vals:
+            return 0.0
+        counts = [0] * len(self.buckets)
+        for v in vals:
+            i = bisect.bisect_left(self.buckets, v)
+            if i < len(counts):
+                counts[i] += 1
+        target = q * len(vals)
+        cum = 0
+        for i, b in enumerate(self.buckets):
+            below = cum
+            cum += counts[i]
+            if cum >= target:
+                if counts[i] == 0:
+                    return b
+                lo = self.buckets[i - 1] if i else 0.0
+                return lo + (target - below) / counts[i] * (b - lo)
+        return self.buckets[-1]
 
 
 class Counter:
@@ -141,8 +191,13 @@ class SchedulerMetrics:
         # the pod-lifetime latency ledger (metrics/latency_ledger.py)
         self.pod_e2e_duration = Histogram()            # by result
         self.pod_latency_segment = Histogram()         # by segment
-        self.tenant_e2e_duration = Histogram()         # by quota tenant namespace
+        self.tenant_e2e_duration = Histogram(E2E_BUCKETS)  # by quota tenant namespace
         self.ledger_evicted = Counter()                # scheduler_pod_ledger_evicted_total
+        # the continuous rebalancer (controllers/rebalance.py)
+        self.rebalance_waves = Counter()               # by result
+        self.rebalance_migrations = Counter()
+        self.packing_entropy = Gauge()
+        self.rebalance_suspended = Gauge()
         # the framework runtime (framework/runtime.py)
         self.framework_extension_point_duration = Histogram()  # by (point, status, profile)
         self.plugin_execution_duration = Histogram()   # by (plugin, point, status), sampled

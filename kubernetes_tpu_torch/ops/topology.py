@@ -36,6 +36,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 INT_MAX = 2**31 - 1
@@ -61,35 +62,56 @@ _LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
 _SQRTHF = 0.707106781186547524
 
 
-def size_log_table(n: int, device) -> torch.Tensor:
-    """[n] float32: ``log(float32(k) + 2)`` for k = 0..n-1, with the bits of
-    ``jnp.log`` on the JAX package's CPU backend (PodTopologySpread's
-    topology-size weight, scoring.go:257). Every step is one float32
-    operation of its own, so the CPU and CUDA tables are the same bits.
-    Built on ``device`` in about 40 elementwise launches, once per batch."""
-    x = torch.arange(n, dtype=_F32, device=device) + 2.0
-    bits = torch.clamp_min(x, 2.0 ** -126).view(_I32)     # positive: the sign bit is 0
-    e = (bits >> 23).to(_F32) - 127.0 + 1.0                # exponent + 1, exact
-    m = ((bits & 0x007FFFFF) | 0x3F000000).view(_F32)      # mantissa in [0.5, 1)
+def _fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as the fused multiply-add the
+    JAX package's CPU backend contracts these steps into: the product of
+    two float32 is exact in float64, so only the sum rounds there (a second
+    rounding to float32 differs from a single one only when the float64 sum
+    lands exactly halfway between two float32, which none of the tests'
+    inputs do)."""
+    def f64(v):  # a constant is the float32 nearest it, as in the JAX code
+        return v.to(torch.float64) if torch.is_tensor(v) else float(np.float32(v))
+
+    return (f64(a) * f64(b) + f64(c)).to(_F32)
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 natural log of a positive float32 tensor, with the bits of
+    ``jnp.log`` on the JAX package's CPU backend: its Cephes polynomial,
+    each step one float32 operation of its own, or one fused multiply-add
+    where that backend contracts the step into one (``_fma``). So the CPU
+    and CUDA results are the same bits (``torch.log`` on the card is not:
+    settled C6). Inputs below the smallest normal float32 are clamped to
+    it; zero gives that clamp's log, not -inf (callers mask it)."""
+    bits = torch.clamp_min(x.to(_F32), 2.0 ** -126).view(_I32)  # positive: sign bit 0
+    e = (bits >> 23).to(_F32) - 127.0 + 1.0                     # exponent + 1, exact
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(_F32)           # mantissa in [0.5, 1)
     low = m < _SQRTHF
     e = e - low.to(_F32)
     t = (m - 1.0) + torch.where(low, m, 0.0)
     x2 = t * t
     x3 = x2 * t
     p = _LOG_P
-    y = p[1] + t * p[0]
-    y1 = p[4] + t * p[3]
-    y2 = p[7] + t * p[6]
-    y = p[2] + y * t
-    y1 = p[5] + y1 * t
-    y2 = p[8] + y2 * t
-    y = y1 + y * x3
-    y = y2 + y * x3
-    y = y * x3
-    y = y + _LOG_Q1 * e
+    y = _fma(t, p[0], p[1])
+    y1 = _fma(t, p[3], p[4])
+    y2 = _fma(t, p[6], p[7])
+    y = _fma(y, t, p[2])
+    y1 = _fma(y1, t, p[5])
+    y2 = _fma(y2, t, p[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2)
+    y = _fma(y, x3, e * _LOG_Q1)
     t = t - 0.5 * x2
     t = t + y
-    return t + _LOG_Q2 * e
+    return _fma(e, _LOG_Q2, t)
+
+
+def size_log_table(n: int, device) -> torch.Tensor:
+    """[n] float32: ``log(float32(k) + 2)`` for k = 0..n-1, with the bits of
+    ``jnp.log`` on the JAX package's CPU backend (PodTopologySpread's
+    topology-size weight, scoring.go:257; ``log_f32``). Built on ``device``
+    in elementwise launches, once per batch."""
+    return log_f32(torch.arange(n, dtype=_F32, device=device) + 2.0)
 
 
 def _domains(label_val: torch.Tensor, key: torch.Tensor) -> torch.Tensor:

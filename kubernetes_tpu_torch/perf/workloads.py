@@ -75,7 +75,12 @@ warm sweep before its measured phase on request; ``run_loop_soak`` the
 soak (``soak_rounds``: the JAX harness's soak phase, its device flap and
 invariants included); ``run_loop_borrow`` SchedulingBorrow (``Borrow``,
 ``borrow_rounds``: the JAX harness's borrow phase and its invariants, the
-latency ledger's per-tenant e2e); ``run_relay_death`` the relay breaker's degrade and
+latency ledger's per-tenant e2e); ``run_loop_replay`` SchedulingReplay
+(``Replay``, ``replay_rounds``: the JAX harness's replay phase with the
+continuous rebalancer and its ReplayInvariants); ``run_loop_elastic``
+SchedulingElastic (``Elastic``, ``elastic_rounds``: storms, drain waves
+and spot reclamation through the drain orchestrator, and the
+ElasticInvariants); ``run_relay_death`` the relay breaker's degrade and
 heal at a workload's size (``relay_death``); ``run_with_preemption`` drives one through a BatchScheduler and
 resubmits the pods it nominated; ``slice_stats`` reports contiguity and
 fragmentation after a run.
@@ -94,12 +99,14 @@ from ..api.types import (BINDING_WAIT_FOR_FIRST_CONSUMER, LABEL_HOSTNAME, LABEL_
                          PersistentVolumeClaim, Pod, PodGroup, PriorityClass, ResourceClaim,
                          ResourceClass, ResourceQuota, RuntimeClass, SchedulingQuota,
                          StorageClass, Taint)
+from ..api import resource as resource_api
 from ..api.validation import ValidationError
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.admission import UNREACHABLE_TAINT, AdmissionError, PodNodeSelector
 from ..apiserver.store import Store
 from ..scheduler.extender import CallableExtender
 from ..backend.device_state import _bucket, caps_for_cluster
+from ..backend import telemetry
 from ..backend.errors import TransientDeviceError
 from ..framework.plugins.coscheduling import pod_group_key
 from ..framework.runtime import DEFAULT_SCHEDULER_NAME as DEFAULT_SCHEDULER
@@ -118,13 +125,14 @@ CSI_LIMIT = 39  # SchedulingCSIPVs' attachable volumes per node (the EBS default
 def scheduling_basic_nodes(count: int, zones: int = 10,
                            device_attributes: Optional[Dict[str, tuple]] = None,
                            capacity: Optional[Dict[str, object]] = None,
-                           tpu_slots: int = 0) -> List[NodeInfo]:
-    """``device_attributes``: per key, the values node i publishes value
+                           tpu_slots: int = 0, first: int = 0) -> List[NodeInfo]:
+    """Nodes ``node-<first>`` .. ``node-<first + count - 1>``.
+    ``device_attributes``: per key, the values node i publishes value
     ``i % len`` of (harness.py ``_node_wrapper``). ``zones`` 0: no zone or
     hostname label, as the harness makes nodes without a zone count.
     ``tpu_slots``: node i is torus host (i // tpu_slots, i % tpu_slots)."""
     infos = []
-    for i in range(count):
+    for i in range(first, first + count):
         nw = make_node(f"node-{i}").capacity(capacity or _NODE_CAPACITY)
         if zones:
             nw.label(LABEL_TOPOLOGY_ZONE, f"zone-{i % zones}")
@@ -1447,6 +1455,25 @@ class SoakArrival:
         return out
 
 
+def mix_arrivals(mix: Sequence[SoakArrival], r: int, counter: int) -> List[Pod]:
+    """Round ``r``'s pods of ``mix``, in mix order, each entry on its own
+    ``every``; ``counter`` pods came before."""
+    out: List[Pod] = []
+    for entry, m in enumerate(mix):
+        if r % m.every == 0:
+            out += m.pods(entry, r, counter + len(out))
+    return out
+
+
+def mix_gang_size(mix: Sequence[SoakArrival], pod: Pod) -> int:
+    """The gang size of ``pod``'s mix entry (its namespace's gang entry),
+    0 for a pod of no gang."""
+    if pod_group_key(pod) is None:
+        return 0
+    return next((m.gang_size for m in mix
+                 if m.gang_size and m.namespace == pod.meta.namespace), 0)
+
+
 @dataclasses.dataclass(frozen=True)
 class Soak:
     """SchedulingSoak (``kubernetes_tpu/perf/workloads.py:469-525``): 1000
@@ -1479,8 +1506,7 @@ class Soak:
                                       _PREEMPTION_NODE)
 
     def gang_size(self, pod: Pod) -> int:
-        return next((m.gang_size for m in self.mix
-                     if m.gang_size and m.namespace == pod.meta.namespace), 0)
+        return mix_gang_size(self.mix, pod)
 
     def caps(self) -> Capacities:
         # every gang's anti-affinity selector is a signature of its own, and
@@ -1511,11 +1537,7 @@ class Soak:
 
     def arrivals(self, r: int, counter: int) -> List[Pod]:
         """Round ``r``'s pods, in mix order; ``counter`` pods came before."""
-        out: List[Pod] = []
-        for entry, m in enumerate(self.mix):
-            if r % m.every == 0:
-                out += m.pods(entry, r, counter + len(out))
-        return out
+        return mix_arrivals(self.mix, r, counter)
 
     def populate(self, store: Store, pods: Iterable[Pod]) -> None:
         """The objects the round's pods need: each gang's PodGroup and each
@@ -2150,4 +2172,531 @@ def run_relay_death(w: Workload, device, percentage: int = 0) -> dict:
     out.update({"placed": {k: p.spec.node_name for k, p in store.pods.items()},
                 "launches": fused_step.LAUNCHES - launches, "seconds": seconds,
                 "fallback_scheduled": sched.fallback_scheduled, **_relay_outcome(sched)})
+    return out
+
+
+# ----------------------------------------------------------------- SchedulingReplay
+
+# the replay's diurnal arrival curve (multipliers cycling over the rounds)
+REPLAY_CURVE = (0.4, 0.7, 1.0, 1.4, 1.6, 1.3, 0.9, 0.5)
+# the rebalancer's knobs in the JAX workload (``workloads.py:636-638``)
+REPLAY_KNOBS = {"cooldown_s": 2.0, "score_interval_s": 0.5, "entropy_high": 0.85,
+                "entropy_low": 0.70}
+
+
+def device_state_of(sched):
+    """A scheduler loop's DeviceState: the port loop's ``state`` (its
+    ``device`` is the torch device), the JAX loop's ``device``; None before
+    its first batch."""
+    return sched.state if hasattr(sched, "state") else getattr(sched, "device", None)
+
+
+@dataclasses.dataclass(frozen=True)
+class Replay:
+    """SchedulingReplay (``kubernetes_tpu/perf/workloads.py:599-639``), the
+    continuous-rebalancing trace: ``nodes`` nodes of cpu 4 / 16Gi / 32 pods
+    in 10 zones; SchedulingSoak's three tenants (weights 4 / 2 / 1) with
+    quotas that never bind (``pods`` (weight + 2) x ``scale`` x 12,
+    ``requests.cpu`` 1000 times that), each landing weight x ``scale`` / 2
+    pods of 100m / 500Mi per round times the curve's multiplier, and soak-a
+    8 pods in gangs of 4 (arrivals rounded down to whole gangs); bursts of
+    2.5x at round ``rounds // 4`` and 2.0x at ``3 * rounds // 4``; from
+    round ``rounds // 2`` the tenants' counts rotate (the tenant shift).
+    After each round ``churn_frac`` of each tenant's replay-bound pods
+    leave. ``rebalance`` is the rebalancer's knobs, None for the
+    ``/NoRebalance`` arm."""
+
+    name: str
+    nodes: int
+    rounds: int
+    scale: int
+    cycles_per_round: int = 120
+    churn_frac: float = 0.3
+    tick_s: float = 0.05
+    gangs: bool = True
+    rebalance: Optional[Dict[str, float]] = None
+    shift: bool = True
+    bursts: bool = True
+
+    def node_infos(self) -> List[NodeInfo]:
+        return scheduling_basic_nodes(self.nodes, 10, capacity=_PREEMPTION_NODE)
+
+    def tenants(self) -> List[str]:
+        return sorted(ns for ns, _w in SOAK_TENANTS)
+
+    def quotas(self) -> List[SchedulingQuota]:
+        return [SchedulingQuota(meta=ObjectMeta(name="quota", namespace=ns), weight=w,
+                                hard={"pods": (w + 2) * self.scale * 12,
+                                      "requests.cpu": (w + 2) * self.scale * 12000})
+                for ns, w in SOAK_TENANTS]
+
+    def create_quotas(self, store) -> None:
+        create_quotas(store, self.quotas())
+
+    @property
+    def mix(self) -> Tuple[SoakArrival, ...]:
+        mix = [SoakArrival(ns, max(w * self.scale // 2, 2)) for ns, w in SOAK_TENANTS]
+        if self.gangs:
+            mix.append(SoakArrival("soak-a", 8, prefix="gang", gang_size=4))
+        return tuple(mix)
+
+    def gang_size(self, pod: Pod) -> int:
+        return mix_gang_size(self.mix, pod)
+
+    def burst_rounds(self) -> Dict[int, float]:
+        return {self.rounds // 4: 2.5, (3 * self.rounds) // 4: 2.0} if self.bursts else {}
+
+    def arrivals(self, r: int, counter: int) -> List[Pod]:
+        """Round ``r``'s pods, in mix order (``harness.py:1206-1227``);
+        ``counter`` pods came before."""
+        mix = self.mix
+        counts = [m.count for m in mix]
+        if self.shift and r >= self.rounds // 2:
+            counts = counts[1:] + counts[:1]
+        mult = REPLAY_CURVE[r % len(REPLAY_CURVE)] * float(self.burst_rounds().get(r, 1.0))
+        out: List[Pod] = []
+        for entry, m in enumerate(mix):
+            n = int(round(counts[entry] * mult))
+            if m.gang_size:
+                n -= n % m.gang_size
+            out += dataclasses.replace(m, count=n).pods(entry, r, counter + len(out))
+        return out
+
+
+def scheduling_replay(nodes: int = 500, rounds: int = 16, scale: int = 20,
+                      cycles_per_round: int = 120, churn_frac: float = 0.3, tick_s: float = 0.05,
+                      gangs: bool = True, rebalance=True, shift: bool = True,
+                      bursts: bool = True) -> Replay:
+    """SchedulingReplay/<nodes>Nodes at the JAX defaults; ``rebalance``
+    True for ``REPLAY_KNOBS``, a dict of knobs, or False for the
+    ``/NoRebalance`` arm."""
+    knobs = (dict(rebalance) if isinstance(rebalance, dict)
+             else dict(REPLAY_KNOBS) if rebalance else None)
+    arm = "" if knobs else "/NoRebalance"
+    return Replay(f"SchedulingReplay/{nodes}Nodes{arm}", nodes, rounds, scale, cycles_per_round,
+                  churn_frac, tick_s, gangs, knobs, shift, bursts)
+
+
+def replay_rounds(w: Replay, store, sched, clock, convert=lambda obj: obj,
+                  score_fn=None, sequential: bool = False) -> dict:
+    """The JAX harness's replay phase (``kubernetes_tpu/perf/harness.py:
+    1152-1330``) over a scheduler loop ``sched`` on ``store`` and ``clock``
+    (either package's, as ``soak_rounds``; the latency ledger, when on,
+    feeds ``tenant_e2e_duration``). With ``w.rebalance`` the loop's
+    ``enable_rebalancer`` attaches the rebalancer. Each round: the
+    arrivals are created; then up to ``w.cycles_per_round`` batch cycles,
+    the clock advanced ``w.tick_s`` after each, the new binds noted and the
+    rebalancer ticked, until a cycle pops nothing and, after a backoff
+    flush, the queue is empty and no wave waits to reopen its nodes; then
+    the churn, and the packing score of the host snapshot
+    (``score_fn(sched)``; by default the port's ``score_from_snapshot`` on
+    the CPU, so that runs on the card and on the CPU are judged by the same
+    measure: the rebalancer's own scores run on the loop's device). Then
+    the ring is landed and up to ``w.cycles_per_round`` more cycles
+    complete the waves (no new one).
+    ``sequential`` drives ``schedule_one`` (one pod per cycle, the
+    sequential path: the JAX harness's ``oracle`` backend) instead of the
+    batch cycle.
+
+    Returns ``invariants`` (the JAX ReplayInvariants: ``PackingEff``, one
+    minus the mean entropy over the second half of the rounds;
+    ``FinalEntropy``, ``FinalFrag``; ``TenantP99Max``, the largest tenant
+    p99 as the JAX registry estimates it, ``Histogram.estimate_since`` on
+    the port; ``Waves``, ``Migrations``, ``Suspended``,
+    ``PendingUncordons``, ``PendingAtEnd``), ``tenants`` (per namespace
+    ``Weight``, ``E2eP50`` / ``E2eP99`` (``percentile_since``: exact on the
+    port, bucket estimates on the JAX registry) and ``E2eCount``),
+    ``waves`` (per wave: when, its nodes, pods evicted, gangs, entropy),
+    ``entropies`` (per round), ``cycles`` and ``score_s`` (the wall seconds
+    of each of the rebalancer's scores, when it records them)."""
+    tenants = w.tenants()
+    hist = sched.smetrics.tenant_e2e_duration
+    snaps = {ns: hist.snapshot(ns) for ns in tenants}
+    bound_seen = {k for k, p in store.pods.items() if p.spec.node_name}
+    replay_bound: Dict[str, List[str]] = {ns: [] for ns in tenants}
+    if score_fn is None:
+        from ..controllers.rebalance import score_from_snapshot
+
+        def score_fn(s):
+            return score_from_snapshot(s, "cpu")
+    rb = sched.enable_rebalancer(now_fn=clock, **w.rebalance) if w.rebalance else None
+    entropies: List[float] = []
+    state = {"cycles": 0}
+
+    def note_new_bindings() -> None:
+        for key, p in list(store.pods.items()):
+            if p.spec.node_name and key not in bound_seen:
+                bound_seen.add(key)
+                if p.meta.namespace in replay_bound:
+                    replay_bound[p.meta.namespace].append(key)
+
+    def cycle() -> bool:
+        progressed = sched.schedule_one() if sequential else sched.schedule_batch_cycle() > 0
+        state["cycles"] += 1
+        clock.advance(w.tick_s)
+        note_new_bindings()
+        return progressed
+
+    def settled(progressed: bool) -> bool:
+        if progressed:
+            return False
+        sched.queue.flush_backoff_completed()
+        return len(sched.queue) == 0 and (rb is None or not rb.drain.pending_uncordons)
+
+    def sample():
+        sched.cache.update_snapshot(sched.snapshot)
+        return score_fn(sched)
+
+    counter = 0
+    for r in range(w.rounds):
+        arrivals = w.arrivals(r, counter)
+        counter += len(arrivals)
+        for pod in arrivals:
+            create_gang_pod(store, pod, w.gang_size(pod), convert)
+        for _c in range(w.cycles_per_round):
+            progressed = cycle()
+            if rb is not None:
+                rb.maybe_run(clock())
+            if settled(progressed):
+                break
+        if w.churn_frac > 0.0:
+            for ns in tenants:
+                keys = replay_bound[ns]
+                n = int(len(keys) * w.churn_frac)
+                for key in keys[:n]:
+                    if store.get_pod(key) is not None:
+                        store.delete_pod(key)
+                replay_bound[ns] = keys[n:]
+            note_new_bindings()
+        score = sample()
+        if score is not None:
+            entropies.append(score["entropy"])
+    sched._drain_inflight()
+    # the trace is over: the waves in flight complete, no new one starts
+    for _c in range(w.cycles_per_round):
+        progressed = cycle()
+        if rb is not None:
+            rb.drain.poll_pending_uncordons()
+        if settled(progressed):
+            break
+    note_new_bindings()
+    final = sample() or {"entropy": 0.0, "frag_max": 0.0}
+    steady = entropies[len(entropies) // 2:] or [final["entropy"]]
+    estimate = getattr(hist, "estimate_since", None) or hist.percentile_since
+    p99s = [estimate(snaps[ns], 0.99, ns) for ns in tenants if hist.count_since(snaps[ns], ns)]
+    quota = sched._quota_plugin()
+    pending = sched.queue.pending_pods()
+    return {
+        "invariants": {
+            "PackingEff": float(1.0 - sum(steady) / len(steady)),
+            "FinalEntropy": float(final["entropy"]),
+            "FinalFrag": float(final["frag_max"]),
+            "TenantP99Max": float(max(p99s, default=0.0)),
+            "Waves": float(rb.waves_executed if rb is not None else 0.0),
+            "Migrations": float(rb.migrations if rb is not None else 0.0),
+            "Suspended": float(1.0 if rb is not None and rb.suspended else 0.0),
+            "PendingUncordons": float(len(rb.drain.pending_uncordons) if rb is not None
+                                      else 0.0),
+            "PendingAtEnd": float(sum(pending.values())),
+        },
+        "tenants": {ns: {"Weight": float((quota.weight_for(ns) if quota is not None else None)
+                                         or 0.0),
+                         "E2eP50": hist.percentile_since(snaps[ns], 0.50, ns),
+                         "E2eP99": hist.percentile_since(snaps[ns], 0.99, ns),
+                         "E2eCount": float(hist.count_since(snaps[ns], ns))}
+                    for ns in tenants},
+        "waves": [{"at": wv["at"], "nodes": list(wv["nodes"]), "evicted": wv["evicted"],
+                   "gangs": wv["gangs"], "entropy": wv["entropy"]}
+                  for wv in (rb.last_waves if rb is not None else ())],
+        "entropies": entropies,
+        "cycles": state["cycles"],
+        "score_s": list(getattr(rb, "score_seconds", ())),
+    }
+
+
+def run_loop_replay(w: Replay, device, percentage: int = 0, sequential: bool = False) -> dict:
+    """Drive SchedulingReplay ``w`` through the port's scheduler loop
+    (``replay_rounds``, one pod per cycle with ``sequential``) on a
+    FakeClock: a fresh ``Store`` and ``TPUScheduler``, the nodes and quotas
+    created through the store, and the latency ledger on for the run (on
+    the loop's clock, metrics and quota tenants) unless one is on already.
+
+    Returns ``replay_rounds``' dict with ``placed``, ``pods_per_s`` (pods
+    bound over the wall seconds of the trace), ``replay_s``, ``launches``
+    (fused-kernel launches), ``paths``, ``batch_pods``, ``e2e`` (namespace
+    -> its pods' e2e observations in close order), ``evicted`` (by
+    reason) and ``mirror`` (the device mirror's ``requested`` rows and its
+    schedulable rows at the end, the rebalancer's score inputs; None
+    without a mirror)."""
+    import time
+
+    from ..backend.tpu_scheduler import TPUScheduler
+    from ..controllers.rebalance import mirror_score_inputs
+    from ..metrics import latency_ledger
+    from ..ops import fused_step
+
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = TPUScheduler(store, device=device, batch_size=LOOP_BATCH, batch_deadline_ms=0,
+                         now_fn=clock, percentage_of_nodes_to_score=percentage)
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    w.create_quotas(store)
+    own = latency_ledger.get() is None
+    if own:
+        latency_ledger.enable(sched.smetrics, now_fn=clock, tenant_fn=sched._ns_fair_weight)
+    try:
+        launches = fused_step.LAUNCHES
+        bound0 = sched.metrics["scheduled"]
+        t0 = time.perf_counter()
+        out = replay_rounds(w, store, sched, clock, sequential=sequential)
+        replay_s = time.perf_counter() - t0
+        sched.close()
+    finally:
+        if own:
+            latency_ledger.disable()
+    hist = sched.smetrics.tenant_e2e_duration
+    out.update({
+        "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+        "pods_per_s": (sched.metrics["scheduled"] - bound0) / replay_s, "replay_s": replay_s,
+        "launches": fused_step.LAUNCHES - launches, "paths": list(sched.batch_paths),
+        "batch_pods": list(sched.batch_pods),
+        "e2e": {ns: hist.values(ns) for ns in w.tenants()},
+        "evicted": dict(sched.smetrics.evicted_pods.by_labels),
+        "mirror": mirror_score_inputs(sched.state),
+    })
+    return out
+
+
+# ----------------------------------------------------------------- SchedulingElastic
+
+
+@dataclasses.dataclass(frozen=True)
+class Elastic:
+    """SchedulingElastic (``kubernetes_tpu/perf/workloads.py:568-596``),
+    cluster elasticity under load: ``nodes`` nodes of cpu 4 / 16Gi / 32
+    pods in 10 zones; per round ``pods_per_round`` pods of 100m / 500Mi and
+    (every second round) 8 pods in gangs of 4; after each round's first
+    drive, one chaos step in turn: a storm (``storm_frac`` of the nodes
+    drained, deleted, and replaced by nodes of new names), a rolling drain
+    of the last ``drain_nodes`` nodes (uncordoned at the next drain), and
+    a spot reclamation of ``spot_frac`` of the nodes (NoExecute taint,
+    deleted, replaced). Evicted pods are created again unbound."""
+
+    name: str
+    nodes: int
+    rounds: int = 6
+    pods_per_round: int = 150
+    storm_frac: float = 0.3
+    drain_nodes: int = 8
+    spot_frac: float = 0.15
+    cycles_per_round: int = 120
+    tick_s: float = 0.05
+    gangs: bool = True
+    settle_rounds: int = 2
+
+    def node_infos(self, first: int = 0, count: Optional[int] = None) -> List[NodeInfo]:
+        return scheduling_basic_nodes(self.nodes if count is None else count, 10,
+                                      capacity=_PREEMPTION_NODE, first=first)
+
+    @property
+    def mix(self) -> Tuple[SoakArrival, ...]:
+        mix = [SoakArrival("default", self.pods_per_round, prefix="el")]
+        if self.gangs:
+            mix.append(SoakArrival("default", 8, every=2, prefix="elg", gang_size=4))
+        return tuple(mix)
+
+    def gang_size(self, pod: Pod) -> int:
+        return mix_gang_size(self.mix, pod)
+
+    def arrivals(self, r: int, counter: int) -> List[Pod]:
+        return mix_arrivals(self.mix, r, counter)
+
+
+def scheduling_elastic(nodes: int = 1000, rounds: int = 6, pods_per_round: int = 150,
+                       storm_frac: float = 0.3, drain_nodes: int = 8, spot_frac: float = 0.15,
+                       cycles_per_round: int = 120, tick_s: float = 0.05,
+                       gangs: bool = True) -> Elastic:
+    """SchedulingElastic/<nodes>Nodes at the JAX defaults."""
+    return Elastic(f"SchedulingElastic/{nodes}Nodes", nodes, rounds, pods_per_round, storm_frac,
+                   drain_nodes, spot_frac, cycles_per_round, tick_s, gangs)
+
+
+def elastic_oversubscribed(store) -> int:
+    """Nodes whose bound pods ask more cpu than the node allocates, or
+    outnumber its pod capacity (``harness.py:1377-1402``; a pod bound to a
+    deleted node is not counted)."""
+    used: Dict[str, int] = {}
+    npods: Dict[str, int] = {}
+    for p in store.pods.values():
+        n = p.spec.node_name
+        if not n:
+            continue
+        used[n] = used.get(n, 0) + p.resource_request().get(resource_api.CPU, 0)
+        npods[n] = npods.get(n, 0) + 1
+    bad = 0
+    for n, cpu in used.items():
+        node = store.nodes.get(n)
+        if node is None:
+            continue
+        alloc = node.status.allocatable
+        cap = resource_api.canonical(resource_api.CPU, alloc.get(resource_api.CPU, "0"))
+        pods_cap = int(alloc.get(resource_api.PODS, 0) or 0)
+        if cpu > cap or (pods_cap and npods.get(n, 0) > pods_cap):
+            bad += 1
+    return bad
+
+
+def elastic_rounds(w: Elastic, store, sched, clock, drain=None,
+                   convert=lambda obj: obj) -> dict:
+    """The JAX harness's elastic phase (``kubernetes_tpu/perf/harness.py:
+    1332-1517``) over a scheduler loop ``sched`` on ``store`` and ``clock``
+    (either package's, as ``soak_rounds``), evicting through ``drain``, a
+    DrainOrchestrator of the store's package (the port's on the loop's
+    metrics, queue and clock by default). Each round: the arrivals; up to
+    ``w.cycles_per_round`` batch cycles (the clock advanced ``w.tick_s``
+    after each) until a cycle pops nothing and the queue is empty after a
+    backoff flush; the round's chaos step; the cycles again; an
+    oversubscription check. New nodes take the next unused ordinal. Then
+    every cordon is lifted, ``w.settle_rounds`` drives settle the loop, the
+    ring is landed, and two syncs of the settled snapshot measure the
+    upload of the second.
+
+    Returns ``invariants`` (the JAX ElasticInvariants: ``LostPods``,
+    ``Oversubscribed``, ``RowCapacity`` (the mirror's node axis),
+    ``SlotReuses``, ``NodesRemoved``, ``NodesAdded``, ``EvictedPods``,
+    ``UploadBytesSteady``, ``HbmPeakBytes`` (the port's device telemetry's
+peak: 0 with it off, and on the CPU),
+    ``PendingAtEnd``), ``evicted`` (pods evicted by reason), ``nodes``
+    (the live node names at the end) and ``cycles``."""
+    if drain is None:
+        from ..controllers.drain import DrainOrchestrator
+
+        drain = DrainOrchestrator(store, metrics=sched.smetrics, queue=sched.queue,
+                                  now_fn=clock)
+    m = sched.smetrics
+    reasons = ("drain", "spot", "taint")
+    reuse0 = m.device_slot_reuse.labels()
+    evict0 = {r: m.evicted_pods.labels(r) for r in reasons}
+    created: set = set()
+    state = {"cycles": 0, "added": 0, "removed": 0, "oversub": 0, "next_node": w.nodes}
+    cordoned: List[str] = []
+
+    def drive_round() -> None:
+        for _c in range(w.cycles_per_round):
+            progressed = sched.schedule_batch_cycle() > 0
+            state["cycles"] += 1
+            clock.advance(w.tick_s)
+            if not progressed:
+                sched.queue.flush_backoff_completed()
+                if len(sched.queue) == 0:
+                    break
+
+    def add_nodes(count: int) -> None:
+        made = 0
+        while made < count:
+            i = state["next_node"]
+            state["next_node"] += 1
+            if f"node-{i}" in store.nodes:
+                continue
+            store.create_node(convert(w.node_infos(first=i, count=1)[0].node))
+            made += 1
+        state["added"] += count
+
+    counter = 0
+    for r in range(w.rounds):
+        arrivals = w.arrivals(r, counter)
+        counter += len(arrivals)
+        for pod in arrivals:
+            create_gang_pod(store, pod, w.gang_size(pod), convert)
+            created.add(pod.key())
+        drive_round()
+        live = sorted(store.nodes)
+        phase = r % 3
+        if phase == 0 and w.storm_frac > 0:
+            storm = live[:max(1, int(len(live) * w.storm_frac))]
+            drain.drain_wave(storm)
+            for name in storm:
+                store.delete_node(name)
+            state["removed"] += len(storm)
+            add_nodes(len(storm))
+        elif phase == 1 and w.drain_nodes > 0:
+            for name in cordoned:
+                drain.uncordon(name)
+            cordoned = live[-w.drain_nodes:]
+            drain.drain_wave(cordoned)
+        elif phase == 2 and w.spot_frac > 0:
+            spot = live[:max(1, int(len(live) * w.spot_frac))]
+            drain.spot_reclaim(spot, delete_nodes=True)
+            state["removed"] += len(spot)
+            add_nodes(len(spot))
+        drive_round()
+        state["oversub"] += elastic_oversubscribed(store)
+    for name in cordoned:
+        drain.uncordon(name)
+    for name in sorted(store.nodes):
+        drain.uncordon(name)
+    for _s in range(max(w.settle_rounds, 1)):
+        drive_round()
+    sched._drain_inflight()
+    state["oversub"] += elastic_oversubscribed(store)
+    ds = device_state_of(sched)
+    upload_steady = None
+    if ds is not None:
+        # the second sync of a settled snapshot uploads nothing
+        for _ in range(2):
+            sched.cache.update_snapshot(sched.snapshot)
+            ds.sync(sched.snapshot)
+        upload_steady = ds.last_upload_bytes
+    rec = telemetry.get()
+    return {
+        "invariants": {
+            "LostPods": float(sum(1 for k in created if store.get_pod(k) is None)),
+            "Oversubscribed": float(state["oversub"]),
+            "RowCapacity": float(ds.caps.nodes) if ds is not None else 0.0,
+            "SlotReuses": float(m.device_slot_reuse.labels() - reuse0),
+            "NodesRemoved": float(state["removed"]),
+            "NodesAdded": float(state["added"]),
+            "EvictedPods": float(sum(m.evicted_pods.labels(r) - evict0[r] for r in reasons)),
+            "UploadBytesSteady": float(upload_steady if upload_steady is not None else -1),
+            "HbmPeakBytes": float(rec.hbm_peak if rec is not None else 0),
+            "PendingAtEnd": float(sum(sched.queue.pending_pods().values())),
+        },
+        "evicted": {r: m.evicted_pods.labels(r) - evict0[r] for r in reasons},
+        "nodes": sorted(store.nodes),
+        "cycles": state["cycles"],
+    }
+
+
+def run_loop_elastic(w: Elastic, device, percentage: int = 0) -> dict:
+    """Drive SchedulingElastic ``w`` through the port's scheduler loop
+    (``elastic_rounds``) on a FakeClock: a fresh ``Store`` and
+    ``TPUScheduler``, the nodes created through the store.
+
+    Returns ``elastic_rounds``' dict with ``placed``, ``pods_per_s`` (pods
+    bound over the wall seconds of the run), ``elastic_s``, ``launches``
+    (fused-kernel launches), ``paths`` and ``batch_pods``."""
+    import time
+
+    from ..backend.tpu_scheduler import TPUScheduler
+    from ..ops import fused_step
+
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = TPUScheduler(store, device=device, batch_size=LOOP_BATCH, batch_deadline_ms=0,
+                         now_fn=clock, percentage_of_nodes_to_score=percentage)
+    for ni in w.node_infos():
+        store.create_node(ni.node)
+    launches = fused_step.LAUNCHES
+    bound0 = sched.metrics["scheduled"]
+    t0 = time.perf_counter()
+    out = elastic_rounds(w, store, sched, clock)
+    elastic_s = time.perf_counter() - t0
+    sched.close()
+    out.update({
+        "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+        "pods_per_s": (sched.metrics["scheduled"] - bound0) / elastic_s,
+        "elastic_s": elastic_s, "launches": fused_step.LAUNCHES - launches,
+        "paths": list(sched.batch_paths), "batch_pods": list(sched.batch_pods),
+    })
     return out

@@ -37,8 +37,9 @@ Unreserve, the assume forgotten, the failure path; one POD_DELETE move per
 teardown, however many members it cascades through). The 1 s sweep
 rejects the waiters past their deadline, a gang member's whole gang
 first, and runs QuotaAdmission's reclaim pass, whose evictions take whole
-gangs (``_quota_evict``: delete, then recreate unbound, then one EVICTION
-move). The pod events charge a pod observed bound, release a deleted
+gangs (``_quota_evict``, through ``controllers/drain.py``'s
+``DrainOrchestrator.evict_pods``: delete, then recreate unbound, then one
+EVICTION move and an ``evict_wave`` flight event). The pod events charge a pod observed bound, release a deleted
 pod's charge before the POD_DELETE wave, and tell Coscheduling of a
 member's deletion; the PodGroup and SchedulingQuota events (and the other
 kinds the event map names) move the pods whose plugins registered them.
@@ -105,7 +106,7 @@ import threading
 import time
 from typing import Dict, List, Optional, Set, Tuple
 
-from ..api.types import Node, Pod, PodStatus
+from ..api.types import Node, Pod
 from ..apiserver.store import ADDED, DELETED, MODIFIED, NotFound, Store
 from ..cache.cache import Cache
 from ..cache.snapshot import Snapshot
@@ -184,11 +185,14 @@ class BindItem:
 
 
 class FitError(Exception):
-    """No node fits the pod (framework/types.go FitError)."""
+    """No node fits the pod (framework/types.go FitError). ``state`` is
+    what the cycle's PreFilters left for PostFilter: their state, or the
+    first PreFilter's ``Fail``; None when they did not run."""
 
-    def __init__(self, diagnosis: Diagnosis):
+    def __init__(self, diagnosis: Diagnosis, state=None):
         super().__init__("no node fits the pod")
         self.diagnosis = diagnosis
+        self.state = state
 
 
 class WaitingPods:
@@ -281,6 +285,7 @@ class Scheduler:
         # one quota ledger for every profile: Reserve charges land in the
         # pod's own profile's instance, release and fair share read any
         self._quota = None  # the first profile's QuotaAdmission that has one
+        self._reclaim_drainer = None  # the reclaim pass's DrainOrchestrator, built on use
         for fwk in self.profiles.values():
             quota = fwk.plugin(names.QUOTA_ADMISSION)
             if quota is None:
@@ -341,35 +346,18 @@ class Scheduler:
                                           admit_fn=quota.shadow_admitter(ns))
 
     def _quota_evict(self, pods: List[Pod], reason: str) -> int:
-        """The reclaim pass's eviction (``controllers/drain.py:108-169``):
-        the set grows to whole gangs (every bound member of a gang it
-        touches), every pod of it is deleted, then each is created again
-        unbound, then one EVICTION move. Returns the pods evicted."""
-        groups = {pod_group_key(p) for p in pods} - {None}
-        closure = list(pods)
-        if groups:
-            keys = {p.key() for p in pods}
-            for p in self.store.pods.values():
-                if p.spec.node_name and p.key() not in keys and pod_group_key(p) in groups:
-                    closure.append(p)
-                    keys.add(p.key())
-        evicted, recreations = [], []
-        for pod in closure:
-            if self.store.get_pod(pod.key()) is None:
-                continue
-            self.store.delete_pod(pod.key())
-            evicted.append(pod.key())
-            clone = pod.clone()
-            clone.spec.node_name = ""
-            clone.status = PodStatus()
-            recreations.append(clone)
-        # a gang is torn down whole before any member comes back
-        for clone in recreations:
-            self.store.create_pod(clone)
-        if evicted:
-            self.smetrics.evicted_pods.inc(reason, value=len(evicted))
-            self.queue.move_all_to_active_or_backoff_queue(qevents.EVICTION)
-        return len(evicted)
+        """The reclaim pass's eviction (``:271-282``): whole gangs through
+        the drain orchestrator, built on the first reclaim (delete, then
+        create unbound, then one EVICTION move and an ``evict_wave``
+        event). Returns the pods evicted."""
+        orch = self._reclaim_drainer
+        if orch is None:
+            from ..controllers.drain import DrainOrchestrator
+
+            orch = DrainOrchestrator(self.store, metrics=self.smetrics, queue=self.queue,
+                                     now_fn=self.now_fn)
+            self._reclaim_drainer = orch
+        return orch.evict_pods(pods, reason=reason)
 
     # ----------------------------------------------------------- event wiring
 
@@ -588,13 +576,16 @@ class Scheduler:
         return self.snapshot
 
     def _handle_scheduling_failure(self, qp: QueuedPodInfo, unschedulable: bool,
-                                   diagnosis: Diagnosis, pod_cycle: int, hints=None) -> None:
+                                   diagnosis: Diagnosis, pod_cycle: int, hints=None,
+                                   state=None) -> None:
         """schedule_one.go:812 and MakeDefaultErrorFunc: a pod that failed a
         filter runs the PostFilter (preemption, with the device screen's
-        ``hints``) and its nomination is written to the store; then it
-        returns to the queue, unless it was deleted or bound meanwhile. A
-        pod turned away by an error (``unschedulable`` False) takes the
-        backoff queue."""
+        ``hints``, and the sequential cycle's PreFilter ``state``, as
+        ``FitError.state``: a batch pod's PreFilters did not run, so
+        PostFilter runs them) and its nomination is written to the store;
+        then it returns to the queue, unless it was deleted or bound
+        meanwhile. A pod turned away by an error (``unschedulable`` False)
+        takes the backoff queue."""
         pod = qp.pod
         fwk = self.framework_for_pod(pod)
         nominated_node = ""
@@ -602,7 +593,7 @@ class Scheduler:
             self.metrics.inc("unschedulable")
             if diagnosis.node_to_status and fwk.points.get("post_filter"):
                 self.smetrics.preemption_attempts.inc()
-                node, _reason = fwk.post_filter(pod, hints, diagnosis.unresolvable)
+                node, _reason = fwk.post_filter(pod, hints, diagnosis.unresolvable, state)
                 if node:
                     nominated_node = node
         if nominated_node:
@@ -626,6 +617,23 @@ class Scheduler:
 
     # ----------------------------------------------------------- the sequential path
 
+    def schedule_one(self) -> bool:
+        """One sequential cycle of the queue's next pod (``:459-476``):
+        housekeeping, the pop, then ``schedule_one_pod``; a pod deleted or
+        bound meanwhile is skipped. Returns False when the active queue is
+        empty."""
+        self._periodic_housekeeping()
+        qp = self.queue.pop()
+        if qp is None:
+            return False
+        pod = self.store.get_pod(qp.pod.key())
+        if pod is None or pod.spec.node_name or not self._responsible_for(pod):
+            latency_ledger.close_skipped(qp.pod.key(), pod)
+            return True
+        qp.pod = pod
+        self.schedule_one_pod(qp, self.queue.scheduling_cycle)
+        return True
+
     def schedule_one_pod(self, qp: QueuedPodInfo, pod_cycle: int) -> None:
         """One pod through the sequential cycle (``:478``): find its node,
         then the bind tail as a one-item call; a pod no node fits takes the
@@ -639,7 +647,8 @@ class Scheduler:
         except FitError as err:
             self.smetrics.observe_attempt(UNSCHEDULABLE, pod.spec.scheduler_name,
                                           self.now_fn() - t0)
-            self._handle_scheduling_failure(qp, True, err.diagnosis, pod_cycle)
+            self._handle_scheduling_failure(qp, True, err.diagnosis, pod_cycle,
+                                            state=err.state)
             return
         except Exception:  # noqa: BLE001 - a cycle error requeues the pod
             logging.getLogger(__name__).exception("scheduling %s failed", pod.key())
@@ -672,7 +681,7 @@ class Scheduler:
         trace.step("Computing predicates done")
         if not feasible:
             trace.log_if_long(self.trace_threshold_s)
-            raise FitError(diagnosis)
+            raise FitError(diagnosis, state)
         if len(feasible) == 1:
             trace.log_if_long(self.trace_threshold_s)
             return feasible[0].node.meta.name, state
@@ -712,7 +721,7 @@ class Scheduler:
                 diagnosis.node_to_status[ni.node.meta.name] = fail.reason
                 if fail.unresolvable:
                     diagnosis.unresolvable.add(ni.node.meta.name)
-            raise FitError(diagnosis)
+            raise FitError(diagnosis, fail)
         t_filter = time.perf_counter()
         status = "Error"  # unless the walk returns
         try:

@@ -2128,6 +2128,29 @@ def _scenario_churn(pair) -> None:
     pair.assert_equal()
 
 
+def _scenario_reclaim(pair) -> None:
+    """SchedulingBorrow's lender burst at the borrow tests' small size (16
+    nodes, 6 rounds, scale 8, 60 cycles of 0.05 s): the quota reclaim pass
+    evicts the borrower's loans, each eviction through the drain
+    orchestrator (``evict_wave``), to fund the burst."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_borrow(nodes=16, rounds=6, scale=8, cycles_per_round=60,
+                                    tick_s=0.05)
+    for ni in w.node_infos():
+        pair.jstore.create_node(to_jax(ni.node))
+        pair.tstore.create_node(ni.node)
+    for q in w.quotas():
+        pair.add_quota(q.meta.namespace, q.hard, weight=q.weight, cohort=q.cohort)
+    workloads.borrow_rounds(w, pair.jstore, pair.jsched, pair.jsched._quota_plugin(),
+                            pair.jclock, convert=to_jax)
+    out = workloads.borrow_rounds(w, pair.tstore, pair.tsched, pair.tsched._quota_plugin(),
+                                  pair.tclock)
+    assert out["invariants"]["Reclaims"] > 0
+    pair.assert_gang_equal()
+
+
 # the loop scenarios the observability tests drive through a LoopPair
 LOOP_SCENARIOS = {"basic": _scenario_basic, "failures": _scenario_failures,
-                  "poison": _scenario_poison, "gang": _scenario_gang, "churn": _scenario_churn}
+                  "poison": _scenario_poison, "gang": _scenario_gang, "churn": _scenario_churn,
+                  "reclaim": _scenario_reclaim}

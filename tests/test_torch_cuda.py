@@ -4,7 +4,9 @@ speculative rounds, the claim mask, the preemption screen, the quota
 screen, the slice planner, the gang assigner and the claim, volume,
 preemption, gang, quota and PreemptionAll workloads and the scheduler loop
 (SchedulingBasic, the ring, gangs, slices, the soak, claims and volumes,
-delayed binding and the soak's device flap) against their CPU runs, and
+delayed binding, the soak's device flap, SchedulingReplay, SchedulingElastic and
+a drain wave) against their CPU runs, ``packing_entropy`` against its plain
+version, and
 the warm sweep's launches against the plain version, on the card. With the
 observability layer on: a batch read through ``materialize_profiled``
 (``deviceExecS`` > 0, the packed block's fetch bytes), an observed loop run
@@ -1252,3 +1254,101 @@ def test_ledger_on_the_card_equals_the_cpu(cuda, recorders_off, monkeypatch):
         views.append(ledger_view(led))
         latency_ledger.disable()
     assert views[0] == views[1] and len(views[0]) == 150
+
+
+# ------------------------------------------------------------------ drain and rebalance
+
+
+@pytest.mark.cuda
+def test_packing_entropy_on_the_card_matches_cpu(cuda):
+    """``packing_entropy`` on the card against its plain version on the
+    CPU, on seeded [N, 6] rows up to N = 5120: within 1e-6."""
+    from kubernetes_tpu_torch.controllers.rebalance import packing_entropy
+
+    rng = np.random.RandomState(7)
+    for n in (24, 512, 5120):
+        req = (rng.randint(0, 40, size=(n, 6)) * rng.choice([1, 100, 512, 4000], 6))
+        req = np.where(rng.uniform(size=(n, 6)) < 0.5, 0, req).astype(np.float32)
+        valid = rng.uniform(size=n) < 0.9
+        cm, cp = packing_entropy(torch.from_numpy(req), torch.from_numpy(valid))
+        gm, gp = packing_entropy(torch.from_numpy(req).to(cuda), torch.from_numpy(valid).to(cuda))
+        assert abs(float(gm) - float(cm)) <= 1e-6
+        assert np.allclose(gp.cpu().numpy(), cp.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_replay_through_the_loop_matches_cpu(cuda, monkeypatch):
+    """A small SchedulingReplay (24 nodes, 6 rounds, scale 4) with the
+    rebalancer on, through the loop on the card against the CPU loop: the
+    same placements, invariants and waves (victims included)."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    knobs = {"cooldown_s": 1.0, "score_interval_s": 0.25, "entropy_high": 0.80,
+             "entropy_low": 0.60, "max_migrations_per_wave": 8}
+    w = workloads.scheduling_replay(nodes=24, rounds=6, scale=4, rebalance=knobs)
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_loop_replay(w, cuda, percentage=100)
+    cpu = workloads.run_loop_replay(w, "cpu", percentage=100)
+    for key in ("placed", "invariants", "tenants", "cycles", "evicted"):
+        assert gpu[key] == cpu[key], key
+    strip = lambda waves: [{k: v for k, v in wv.items() if k != "entropy"} for wv in waves]  # noqa: E731
+    assert strip(gpu["waves"]) == strip(cpu["waves"]) and gpu["invariants"]["Waves"] > 0
+
+
+@pytest.mark.cuda
+def test_elastic_through_the_loop_matches_cpu(cuda, monkeypatch):
+    """A small SchedulingElastic (24 nodes, 6 rounds) through the loop on
+    the card against the CPU loop: the same placements, invariants,
+    evictions and nodes; no pod lost, slots reused, no steady upload."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_elastic(nodes=24, rounds=6, pods_per_round=12, drain_nodes=3,
+                                     cycles_per_round=40)
+    _ring_env(monkeypatch, "0")
+    gpu = workloads.run_loop_elastic(w, cuda, percentage=100)
+    cpu = workloads.run_loop_elastic(w, "cpu", percentage=100)
+    for key in ("placed", "invariants", "evicted", "nodes", "cycles"):
+        assert gpu[key] == cpu[key], key
+    inv = gpu["invariants"]
+    assert inv["LostPods"] == 0 and inv["SlotReuses"] > 0 and inv["UploadBytesSteady"] == 0
+
+
+@pytest.mark.cuda
+def test_drain_wave_through_the_loop_matches_cpu(cuda, monkeypatch):
+    """A gang of 3 and a solo pod on 4 nodes through the loop on the card
+    and on the CPU; the gang's first member's node drained: the gang is
+    evicted whole and binds again whole, the stores equal."""
+    from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup
+    from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu_torch.controllers.drain import DrainOrchestrator
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    _ring_env(monkeypatch, "0")
+    views = []
+    for device in (cuda, "cpu"):
+        clock = FakeClock()
+        store = Store(now_fn=clock)
+        sched = TPUScheduler(store, device=device, now_fn=clock, batch_size=16,
+                             batch_deadline_ms=0, percentage_of_nodes_to_score=100)
+        for i in range(4):
+            store.create_node(make_node(f"n{i}").capacity(
+                {"cpu": "2", "memory": "16Gi", "pods": 20}).obj())
+        store.create_object("PodGroup", PodGroup(meta=ObjectMeta(name="g"), min_member=3,
+                                                 schedule_timeout_seconds=30))
+        for i in range(3):
+            store.create_pod(make_pod(f"g-{i}").req({"cpu": "1"}).pod_group("g").obj())
+        store.create_pod(make_pod("solo").req({"cpu": "1"}).obj())
+        sched.run_until_settled()
+        drain = DrainOrchestrator(store, metrics=sched.smetrics, queue=sched.queue, now_fn=clock)
+        victim = store.get_pod("default/g-0").spec.node_name
+        summary = drain.drain_wave([victim])
+        drain.uncordon(victim)
+        clock.advance(11.0)
+        sched.queue.flush_backoff_completed()
+        sched.run_until_settled()
+        sched.close()
+        views.append((summary, {k: p.spec.node_name for k, p in store.pods.items()}))
+    assert views[0] == views[1]
+    assert views[0][0]["gangs"] == 1 and all(views[0][1].values())

@@ -11,8 +11,9 @@ document; the entry views, the metrics and the documents are equal.
 Through ``LoopPair`` (both loops on the CPU, each ledger on its own side's
 FakeClock): basic batches, failures across attempts (backoffQ and the
 unschedulable map), a ring poison and requeue, a gang's Permit park and a
-whole-gang reject, deletes under churn, and quota tenants (the gated park
-and the fair-share wait), at ring depth 0 and 2. Every entry, closed or
+whole-gang reject, deletes under churn, quota tenants (the gated park
+and the fair-share wait), and SchedulingBorrow's quota reclaim (evicted
+pods recreated unbound), at ring depth 0 and 2. Every entry, closed or
 live, equals the JAX loop's: its result, its segments (zero-length ones
 included), the order of its intervals, its e2e and its intervals' clock
 values. Every closed entry's e2e equals the sum of its segments to 1e-9
@@ -268,7 +269,8 @@ def test_loop_ledger_matches_jax(scenario, depth):
               "poison": {"queue.backoff"},
               "gang": {"gang.permit_park"},
               "churn": {"queue.backoff"},
-              "tenants": {"queue.gated", "queue.drr_wait"}}[scenario]
+              "tenants": {"queue.gated", "queue.drr_wait"},
+              "reclaim": {"queue.gated", "bind"}}[scenario]
     assert expect <= segs
     if scenario == "churn":
         assert any(v[0] == "deleted" for v in closed.values())

@@ -170,7 +170,7 @@ def test_import_closure_has_no_jax():
     files = sorted((ROOT / "kubernetes_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     # every package of the port, the config package and the registry too
-    assert {"config", "framework", "plugins", "apiserver", "backend"} <= {
+    assert {"config", "framework", "plugins", "apiserver", "backend", "controllers"} <= {
         p.parent.name for p in files}
     assert ROOT / "kubernetes_tpu_torch" / "framework" / "registry.py" in files
     bad = []

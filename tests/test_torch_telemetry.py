@@ -16,8 +16,9 @@ JAX mirror on the same snapshot.
 Through ``LoopPair`` (both loops on the CPU, FakeClocks): the flight
 recorder's (type, batchId, bucket, sig, pods, topo) sequence equals the
 JAX loop's in basic batches, failures across attempts, a ring poison and
-requeue, a gang's Permit park and whole-gang reject, and deletes under
-churn, at ring depth 0 and 2 (JAX's ``retrace_storm`` events, which an XLA
+requeue, a gang's Permit park and whole-gang reject, deletes under
+churn, and SchedulingBorrow's quota reclaim (one ``evict_wave`` per
+eviction, through the drain orchestrator), at ring depth 0 and 2 (JAX's ``retrace_storm`` events, which an XLA
 recompile fires, are left out: the port builds its kernel once per
 process). The port's placements with the three recorders on equal them
 off. The build ledger counts an ``nvcc`` build of the fused kernel under
@@ -417,7 +418,7 @@ def _jax_flight(rec) -> list:
     return [ev for ev in flight_view(rec.jax[0]) if ev[0] != "retrace_storm"]
 
 
-@pytest.mark.parametrize("scenario", ["basic", "failures", "poison", "gang", "churn"])
+@pytest.mark.parametrize("scenario", ["basic", "failures", "poison", "gang", "churn", "reclaim"])
 def test_flight_events_match_jax(scenario, depth):
     pair = LoopPair(batch=16)
     with Recorders(pair, ledger=False, tracing=False) as rec:

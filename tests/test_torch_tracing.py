@@ -12,14 +12,13 @@ the JAX loop's (names, parents, sibling order, the attributes ``batch``,
 ``topo``, ``pod``, ``profile``, ``extension_point``, ``worker``,
 ``packed``, ``program``, ``bucket``, ``batchId``) in basic batches,
 failures (PostFilter under the commit), a ring poison, a gang's Permit
-park and reject, and deletes under churn, at ring depth 0 and 2; and with
+park and reject, deletes under churn, and SchedulingBorrow's quota
+reclaim, at ring depth 0 and 2; and with
 pods of a second profile on the sequential path, whose cycles carry the
 PreFilter, Filter, PreScore and Score points and their plugins, and whose
-bind tail runs the per-pod points. One difference is pruned there: the
-JAX sequential path hands PostFilter the cycle's CycleState, so its
-DefaultPreemption runs no PreFilter again, while the port's runs the
-PreFilters afresh for every pod, which shows as a ``framework.pre_filter``
-under the ``plugin.DefaultPreemption`` of a failed sequential pod. The
+bind tail runs the per-pod points; there the trees are compared whole: a
+failed sequential pod's PostFilter gets the cycle's PreFilter state, as
+the JAX loop's does, so its DefaultPreemption runs no PreFilter again. The
 dispatch ledger's ``device.dispatch.*`` children sum to their
 ``device.commit.wait``."""
 
@@ -241,21 +240,11 @@ def test_loop_span_trees_match_jax(scenario, depth):
     assert _phase_sums(rec.port[2]) == len(rec.port[0].flight.events("commit")) > 0
 
 
-def _prune_sequential_preemption(forest):
-    """The forest with the children of ``plugin.DefaultPreemption`` under a
-    root ``framework.post_filter`` (a sequential pod's failure) dropped."""
-    def strip(tree):
-        name, attrs, kids = tree
-        return (name, attrs, () if name == "plugin.DefaultPreemption" else kids)
-
-    return [(n, a, tuple(strip(k) for k in kids)) if n == "framework.post_filter"
-            else (n, a, kids) for n, a, kids in forest]
-
-
 def test_sequential_span_trees_match_jax(depth):
     """Every seventh pod names the ``no-scoring`` profile, which does not
     ride the batch: the sequential path's cycle spans with their
-    extension-point children, the per-pod bind tail, and the failures."""
+    extension-point children, the per-pod bind tail, and the failures,
+    whose PostFilter runs each PreFilter once (in the cycle)."""
     from kubernetes_tpu_torch.perf.workloads import profiles_config
 
     pair = LoopPair(batch=16, config=profiles_config("default-scheduler", "no-scoring"))
@@ -272,7 +261,7 @@ def test_sequential_span_trees_match_jax(depth):
         pair.settle()
         pair.assert_equal()
         want, got = span_forest(rec.jax[2]), span_forest(rec.port[2])
-    assert _prune_sequential_preemption(got) == _prune_sequential_preemption(want)
+    assert got == want
     seq = [t for t in got if t[0] == "scheduling.cycle" and dict(t[1]).get("pod")]
     assert len(seq) > 0
     kids = {k[0] for t in seq for k in t[2]}
