@@ -27,7 +27,8 @@
    batch, and the placements must equal the same run on the CPU (plain
    versions).
 4. Topology phase: the topology-size log table on the card must equal the
-   CPU's for every size 0..8194. Then, with the scan forced
+   CPU's for every size 0..8194; prints its build's CUDA-event ms and
+   kernels (once per topology batch). Then, with the scan forced
    (``KTPU_SPEC=0``), SchedulingPodAntiAffinity/5000Nodes (1000 init + 1000
    measured pods, each anti-affine to the others on the hostname key) and
    TopologySpreading/5000Nodes (5000 plain init pods, then 2000 pods with a
@@ -148,7 +149,7 @@
    device).run_until_settled()``, every bind through the store).
    SchedulingBasic/5000Nodes (1000 init, then 1000 measured pods) on the
    card at the default percentageOfNodesToScore (a full batch on CUDA),
-   three times in turns: the in-flight ring at its default (depth 2, its
+   six times in turns: the in-flight ring at its default (depth 2, its
    commits inline), the synchronous loop (``KTPU_PIPELINE_DEPTH=0``) and
    the ring with the commit worker (``KTPU_COMMIT_WORKER=1``).
    Each run: every pod bound, every batch on the fused kernel with
@@ -275,7 +276,7 @@
    on a not-Ready node, every team-a pod on pool=b, every admitted team-c
    pod charged its overhead (``workloads.admission_violations``). The
    chain's cost: SchedulingBasic/5000Nodes with the chain and validation
-   on, then off (``admission = None``, ``validation_enabled = False``), 2
+   on, then off (``admission = None``, ``validation_enabled = False``), 3
    pairs in turns; prints the median pods/s of each and the µs of a
    measured create. SchedulingBasic/1000Nodes/Extender (500 init, 256
    measured pods, a quarter on ``no-scoring``) with an in-process
@@ -291,7 +292,7 @@
 17. Loop_telemetry phase: the observability layer through the loop on the
    card (``perf/workloads.py:LoopObserver``: telemetry, the latency ledger
    and tracing on for a whole run). SchedulingBasic/5000Nodes on the inline
-   ring with the recorders off and on in turns (2 pairs): every run's
+   ring with the recorders off and on in turns (3 pairs): every run's
    placements equal the loop phase's CPU run, and on equals off in this
    process; prints pods/s and attempt p99 of both (the layer's cost). From
    each run with the recorders on: the dispatch ledger's ``schedule_batch``
@@ -319,17 +320,24 @@
    rebalancer's score, plain PyTorch) on SchedulingBasic/5000Nodes'
    settled mirror (N = 5120, R = 6) and on the smeared mirror at the end of
    the replay, against its plain version on the CPU within 1e-6; prints
-   its CUDA-event ms (median of 30), its kernels per call
-   (torch.profiler), the plain version's ms and the least time for its
+   its CUDA-event ms (median of 30), its kernel launches per call
+   (torch.profiler's cudaLaunchKernel calls), the plain version's ms and the least time for its
    bytes. SchedulingReplay/500Nodes and /NoRebalance
    (``workloads.run_loop_replay``: 16 rounds at scale 20, 120 cycles of
    0.05 s on a FakeClock per round, the rebalancer at cooldown 2 s, score
    interval 0.5 s, band 0.85 / 0.70) on the card and on the CPU at
    percentage 100: placements, the ReplayInvariants, the waves and their
    victims and the per-tenant e2e equal; the JAX test's bar: waves with
-   the rebalancer on, none off, nothing pending, no uncordon pending,
-   PackingEff on above off, no tenant p99 past 3x the /NoRebalance arm's
-   + 0.5 s; prints pods/s and the ms of each score inside the loop.
+   the rebalancer on, none off, nothing pending, no uncordon pending, no
+   tenant p99 past 3x the /NoRebalance arm's + 0.5 s; prints pods/s, the
+   ms of each score inside the loop, and PackingEff of both arms (on the
+   batch loop the rebalancer gets one wave and the two arms differ by
+   under 1e-7, the JAX loop's as the port's:
+   ``tests/torch_replay_default_size.py``). SchedulingReplay/24Nodes one
+   pod per cycle with the JAX test's knobs (its size and mode), both arms
+   on the card and on the CPU, equal, with the whole bar: the above and
+   PackingEff on above off by 0.005, FinalEntropy on below off; prints
+   the fused launches (none: the sequential path) and pods/s.
    SchedulingElastic/1000Nodes (``workloads.run_loop_elastic``: 6 rounds of
    150 pods and gangs, the storm, the rolling drain and the spot
    reclamation) on the card and on the CPU: placements, the
@@ -819,9 +827,14 @@ def topology_phase() -> dict:
         raise AssertionError("size_log_table differs between cuda and cpu")
     x = torch.arange(sizes, dtype=torch.float32) + 2.0
     plain_card = torch.log(x.cuda()).cpu()
+    times, _ = _event_ms(lambda: topology.size_log_table(sizes, "cuda"))
+    prof = _profiled(topology.size_log_table, (sizes, "cuda"), {})
     print(f"size_log_table over sizes 0..{sizes - 1}: cuda == cpu bit for bit; torch.log: "
           f"cuda differs from cpu at {int((plain_card != torch.log(x)).sum())} sizes and from "
-          f"the table at {int((plain_card != on_card).sum())}")
+          f"the table at {int((plain_card != on_card).sum())}; built once per topology batch "
+          f"in {statistics.median(times):.4f} ms on the card (median of {TIMED_LAUNCHES} "
+          f"CUDA-event timings), {prof['launch_calls']} kernel launches ({prof['kernels']} "
+          f"device records)")
 
     out = {}
     with _spec_flag("0"):  # the scan; the spec phase runs the rounds
@@ -1864,8 +1877,8 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
         cpu = workloads.run_loop(basic, "cpu", percentage=100)
     turns = {"ring": [], "sync": [], "worker": []}
     envs = {"ring": RING, "sync": SYNC, "worker": WORKER}
-    # one turn each: the phases after this one need the time
-    for i, kind in enumerate(("ring", "sync", "worker")):
+    # two turns each: the loop_gang phase after this one needs the time
+    for i, kind in enumerate(("ring", "sync", "worker") * 2):
         gpu = _loop_run(basic, f"{basic.name} [{kind} {i // 3 + 1}]", envs[kind])
         _check_all_bound(basic.name, basic, gpu)
         if set(gpu["paths"]) != {"fused"} or gpu["launches"] != gpu["batches"]:
@@ -2541,7 +2554,7 @@ def loop_profiles_phase(loop: dict) -> dict:
 
 # ---------------------------------------------------------------- loop_admission phase
 
-ADMISSION_PAIRS = 2  # the chain's cost: chain on / off in turns
+ADMISSION_PAIRS = 3  # the chain's cost: chain on / off in turns
 EXT_NODES, EXT_INIT, EXT_PODS, WIRE_PODS = 1000, 500, 256, 64
 EXT_NAMES = ("default-scheduler",) * 3 + ("no-scoring",)
 
@@ -2718,7 +2731,7 @@ def loop_admission_phase(loop: dict) -> dict:
     return out
 
 
-TELEMETRY_PAIRS = 2  # the recorders' cost: off / on in turns
+TELEMETRY_PAIRS = 3  # the recorders' cost: off / on in turns
 BORROW_NODES, BORROW_ROUNDS, BORROW_SCALE = 1000, 8, 100
 BORROW_KEYS = ("placed", "invariants", "tenants", "e2e", "batch_pods", "evicted", "reclaims",
                "cycles")
@@ -2935,9 +2948,10 @@ def _basic_mirror() -> dict:
 def _entropy_on_card(name: str, inputs: dict) -> dict:
     """``packing_entropy`` on the card against its plain version on the CPU
     on the same inputs (within ENTROPY_TOL); its CUDA-event ms (median of
-    TIMED_LAUNCHES), the plain version's ms, its kernels per call
+    TIMED_LAUNCHES), the plain version's ms, its kernel launches per call
     (torch.profiler) and the least time for its bytes."""
     from kubernetes_tpu_torch.controllers.rebalance import packing_entropy
+    from kubernetes_tpu_torch.ops.topology import log_f32
 
     req, valid = torch.from_numpy(inputs["requested"]), torch.from_numpy(inputs["valid"])
     cm, cp = packing_entropy(req, valid)
@@ -2952,14 +2966,20 @@ def _entropy_on_card(name: str, inputs: dict) -> dict:
         packing_entropy(req, valid)
         plain.append((time.perf_counter() - t) * 1e3)
     prof = _profiled(packing_entropy, (dreq, dvalid), {})
+    log_prof = _profiled(log_f32, (dreq,), {})  # called twice per score: [N, R] and a scalar
     n, r = req.shape
     nbytes = req.numel() * 4 + valid.numel() + (r + 1) * 4  # rows and mask in, scores out
+    # launches are counted at the runtime call: after the loop phases the
+    # profiler loses some of a short program's device records, never its
+    # cudaLaunchKernel calls
     out = {"ms": statistics.median(times), "plain_ms": statistics.median(plain),
-           "kernels": prof["kernels"], "max_abs_err": err,
+           "kernels": prof["launch_calls"], "max_abs_err": err,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "entropy": float(gm)}
     print(f"packing_entropy on {name} (N={n}, R={r}): |card - plain| {err:.3g} <= "
           f"{ENTROPY_TOL}; entropy {float(gm):.6f}; {out['ms']:.4f} ms on the card (median of "
-          f"{TIMED_LAUNCHES} CUDA-event timings), {prof['kernels']} kernels per call, device "
+          f"{TIMED_LAUNCHES} CUDA-event timings), {prof['launch_calls']} kernel launches per "
+          f"call ({log_prof['launch_calls']} in one log_f32 over the rows; the profiler's "
+          f"device records {prof['kernels']} / {log_prof['kernels']}), device "
           f"busy {prof['device_ms']:.4f} ms; the plain version {out['plain_ms']:.4f} ms on the "
           f"cpu; its {nbytes} bytes take {out['bound_ms']:.6f} ms at 3.35 TB/s")
     return out
@@ -3028,10 +3048,16 @@ def loop_rebalance_phase() -> dict:
         w = workloads.scheduling_replay(24, 6, 4, rebalance=REPLAY_TEST_KNOBS if rebalance
                                         else False)
         with _env(**RING):
+            fused_step.LAUNCHES = 0
             gpu = workloads.run_loop_replay(w, "cuda", percentage=100, sequential=True)
+            if gpu["launches"] != fused_step.LAUNCHES:
+                raise AssertionError(f"{w.name} [sequential]: launches counted twice")
             cpu = workloads.run_loop_replay(w, "cpu", percentage=100, sequential=True)
         _check_loop_same(f"{w.name} [sequential]", gpu, cpu, REPLAY_KEYS)
         seq[rebalance] = gpu
+        out[f"{w.name}/sequential"] = {"launches": gpu["launches"],
+                                       "pods_per_s": gpu["pods_per_s"],
+                                       "invariants": gpu["invariants"]}
     _replay_bar("SchedulingReplay/24Nodes [sequential]", seq[True], seq[False])
     s_on, s_off = seq[True]["invariants"], seq[False]["invariants"]
     if not (s_on["PackingEff"] > s_off["PackingEff"] + 0.005
@@ -3042,8 +3068,10 @@ def loop_rebalance_phase() -> dict:
           f"== the cpu loop in both arms; waves {s_on['Waves']:.0f}, migrations "
           f"{s_on['Migrations']:.0f}, PackingEff {s_on['PackingEff']:.6f} on against "
           f"{s_off['PackingEff']:.6f} off (> +0.005), FinalEntropy {s_on['FinalEntropy']:.6f} / "
-          f"{s_off['FinalEntropy']:.6f}, Suspended {s_on['Suspended']:.0f}; the score on the "
-          f"card {statistics.median(seq[True]['score_s']) * 1e3:.3f} ms per call (the host "
+          f"{s_off['FinalEntropy']:.6f}, Suspended {s_on['Suspended']:.0f}; fused launches "
+          f"{seq[True]['launches']} / {seq[False]['launches']} (on / off); "
+          f"{seq[True]['pods_per_s']:.1f} / {seq[False]['pods_per_s']:.1f} pods/s; the score on "
+          f"the card {statistics.median(seq[True]['score_s']) * 1e3:.3f} ms per call (the host "
           "snapshot's rows: no batch, no mirror)")
     print(f"SchedulingReplay/{REPLAY_NODES}Nodes: waves {on['Waves']:.0f}, migrations "
           f"{on['Migrations']:.0f}, PackingEff {on['PackingEff']:.9f} on against "
@@ -3130,7 +3158,8 @@ def main() -> int:
     slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     print("packing_entropy (an XLA program of the JAX package, plain PyTorch in the port): "
-          + "; ".join(f"{k}: {v['ms']:.4f} ms on the card, {v['kernels']} kernels per call, "
+          + "; ".join(f"{k}: {v['ms']:.4f} ms on the card, {v['kernels']} kernel launches "
+                      f"per call, "
                       f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms, "
                       f"|err| {v['max_abs_err']:.3g}" for k, v in entropy.items()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -19,10 +19,10 @@ plugin in ``state.data`` under its name):
     optional ``add_pod(state, pod, other, node_info)`` and ``remove_pod``
     are its extensions, which the preemption dry run calls;
   * filter: ``filter(state, pod, node_info)`` -> None, or the ``Fail``;
-  * post_filter: ``post_filter(pod, hints, unresolvable)`` -> (the node
-    the pod is nominated to, or None; the reason or None); a plugin that
-    also takes ``state`` gets the sequential cycle's PreFilter state (or
-    the PreFilter's ``Fail``; None on the batch path);
+  * post_filter: ``post_filter(pod, hints, unresolvable, state)`` -> (the
+    node the pod is nominated to, or None; the reason or None); ``state`` is
+    the sequential cycle's PreFilter state (or the PreFilter's ``Fail``;
+    None on the batch path);
   * pre_score: ``pre_score(state, pod, feasible)`` over the feasible
     NodeInfos;
   * score: ``score_node(state, pod, node_info)`` -> int in [0, 100] after

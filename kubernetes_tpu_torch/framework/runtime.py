@@ -56,7 +56,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import inspect
 from time import perf_counter
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
@@ -144,24 +143,6 @@ def _worst(outs) -> str:
         if out is not None:
             label = status_label(out)
     return label
-
-
-_STATE_ARG: Dict[object, bool] = {}
-
-
-def _takes_state(plugin) -> bool:
-    """Whether the plugin's ``post_filter`` takes a ``state`` argument (the
-    in-tree DefaultPreemption does; a plugin written to the three-argument
-    form keeps working). Cached per function."""
-    fn = plugin.post_filter
-    key = getattr(fn, "__func__", fn)
-    if key not in _STATE_ARG:
-        try:
-            params = inspect.signature(fn).parameters
-        except (TypeError, ValueError):
-            params = {}
-        _STATE_ARG[key] = "state" in params
-    return _STATE_ARG[key]
 
 
 def _first_label(out) -> str:
@@ -537,16 +518,14 @@ class Framework:
         """The PostFilter point: the first plugin that nominates a node
         wins; (None, the last refusal) when none does. ``state`` is the
         sequential cycle's PreFilter outcome (``FitError.state``; None on
-        the batch path), handed to each plugin whose ``post_filter`` takes
-        a ``state`` argument."""
+        the batch path), handed to every plugin."""
         tr, m = tracing._tracer, self._metrics
         reason = "no PostFilter plugin could resolve"
         with point_span(tr, m, "post_filter", self.profile_name, status_of=_first_label) as box:
             for plugin, _w in self.points.get("post_filter", []):
-                kw = {"state": state} if _takes_state(plugin) else {}
                 node, reason = timed(tr, None, "post_filter", plugin,
-                                     lambda p=plugin, kw=kw: p.post_filter(pod, hints,
-                                                                           unresolvable, **kw),
+                                     lambda p=plugin: p.post_filter(pod, hints,
+                                                                    unresolvable, state),
                                      status_of=_first_label)
                 if node:
                     box[0] = (node, None)

@@ -688,10 +688,10 @@ def test_worker_ring_binds_every_preemptor(cuda, monkeypatch):
     sched = TPUScheduler(store, device=cuda, batch_size=16, batch_deadline_ms=0)
     real, missing = sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter, []
 
-    def post_filter(pod, hints=None, unresolvable=()):
+    def post_filter(pod, hints=None, unresolvable=(), state=None):
         seen = {p.key() for ni in sched.profiles["default-scheduler"].filters.node_infos_fn() for p in ni.pods}
         missing.append({k for k, p in list(store.pods.items()) if p.spec.node_name} - seen)
-        return real(pod, hints, unresolvable)
+        return real(pod, hints, unresolvable, state)
 
     sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter = post_filter
     for ni in w.node_infos():

@@ -583,10 +583,10 @@ def _watch_postfilter(sched, store) -> list:
     store that the node list it reads does not hold."""
     real, missing = sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter, []
 
-    def post_filter(pod, hints=None, unresolvable=()):
+    def post_filter(pod, hints=None, unresolvable=(), state=None):
         seen = {p.key() for ni in sched.profiles["default-scheduler"].filters.node_infos_fn() for p in ni.pods}
         missing.append({k for k, p in list(store.pods.items()) if p.spec.node_name} - seen)
-        return real(pod, hints, unresolvable)
+        return real(pod, hints, unresolvable, state)
 
     sched.profiles["default-scheduler"].plugin("DefaultPreemption").post_filter = post_filter
     return missing
