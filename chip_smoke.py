@@ -18,7 +18,13 @@
    built for. Times the kernel (median of CUDA-event timings over 30
    launches) and the plain version on the SchedulingBasic batch, the kernel
    on the masked batch, and works out the least time the card could take
-   for the same work.
+   for the same work. It runs alone; then the phases below run in three
+   processes at once on the same card (``chip_smoke.py --group NAME``,
+   started by this script and stopped by it on any failure or past
+   GROUPS_DEADLINE_S), each phase in the group of the phases whose results
+   it reads: core (3-5, 11), batch (6, 8-10, 12-13) and loop (the
+   loop_basic part of 11, then 14-19, then 7). Each group's output is
+   printed in that order once all have ended, a failed group's last.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
    110 pods with zone and hostname labels; pods asking 900m / 2Gi) through
    BatchScheduler on the card with the default ``KTPU_SPEC=auto``: 1000
@@ -146,10 +152,11 @@
    per mode.
 11. Loop phase: the scheduler loop (``perf/workloads.py:run_loop``: nodes
    and pods created in the port's Store, ``TPUScheduler(store,
-   device).run_until_settled()``, every bind through the store).
-   SchedulingBasic/5000Nodes (1000 init, then 1000 measured pods) on the
+   device).run_until_settled()``, every bind through the store). Its
+   SchedulingBasic and PreemptionBasic runs are the loop_basic phase, at
+   the head of the loop group. SchedulingBasic/5000Nodes (1000 init, then 1000 measured pods) on the
    card at the default percentageOfNodesToScore (a full batch on CUDA),
-   six times in turns: the in-flight ring at its default (depth 2, its
+   three times in turns: the in-flight ring at its default (depth 2, its
    commits inline), the synchronous loop (``KTPU_PIPELINE_DEPTH=0``) and
    the ring with the commit worker (``KTPU_COMMIT_WORKER=1``).
    Each run: every pod bound, every batch on the fused kernel with
@@ -261,7 +268,7 @@
    placements equal the CPU loop's. PreemptionBasic/500Nodes with its
    priorities from PriorityClasses (``low`` 1, ``high`` 100) through the
    config-built loop: every preemptor bound; placements, victims and
-   nominations equal to the loop phase's numeric-priority runs on the card
+   nominations equal to the loop_basic phase's numeric-priority runs on the card
    and on the CPU.
 16. Loop_admission phase: the store's admission chain and the scheduler
    extenders through the loop, on the card (the inline ring) and on the
@@ -276,7 +283,7 @@
    on a not-Ready node, every team-a pod on pool=b, every admitted team-c
    pod charged its overhead (``workloads.admission_violations``). The
    chain's cost: SchedulingBasic/5000Nodes with the chain and validation
-   on, then off (``admission = None``, ``validation_enabled = False``), 3
+   on, then off (``admission = None``, ``validation_enabled = False``), 2
    pairs in turns; prints the median pods/s of each and the µs of a
    measured create. SchedulingBasic/1000Nodes/Extender (500 init, 256
    measured pods, a quarter on ``no-scoring``) with an in-process
@@ -292,8 +299,8 @@
 17. Loop_telemetry phase: the observability layer through the loop on the
    card (``perf/workloads.py:LoopObserver``: telemetry, the latency ledger
    and tracing on for a whole run). SchedulingBasic/5000Nodes on the inline
-   ring with the recorders off and on in turns (3 pairs): every run's
-   placements equal the loop phase's CPU run, and on equals off in this
+   ring with the recorders off and on in turns (2 pairs): every run's
+   placements equal the loop_basic phase's CPU run, and on equals off in this
    process; prints pods/s and attempt p99 of both (the layer's cost). From
    each run with the recorders on: the dispatch ledger's ``schedule_batch``
    count must equal the fused launches and the batches; the median
@@ -345,7 +352,34 @@
    node oversubscribed, nothing pending, slots reused, the node axis at
    ``caps_for_cluster(1000).nodes`` and no upload in the settled second
    sync; prints pods/s and the evictions by reason.
-19. Each workload run prints pods/s, ms per batch, host ms per stage, and
+19. Loop_wire phase: the batched device service over HTTP on the card
+   (``backend/service.py``; ``perf/workloads.py:run_loop_wire``):
+   ``WireScheduler`` against ``serve(DeviceService(device="cuda"))`` on
+   127.0.0.1, in this process. SchedulingBasic/5000Nodes at batch 128,
+   pipeline depth 0 and 3 in turns (two pairs), held against the loop
+   phase's CPU run at percentage 100: every pod bound, pods per batch,
+   counters and the queue equal to it, and at depth 0 the placements too
+   (at depth 3 the service runs the batches in flight in the order their
+   handler threads take its lock, ROADMAP C26; the pods placed elsewhere
+   are printed); every batch on the fused kernel, launches (counted from 0
+   just before each run) equal to the batches the service ran and to
+   those the client sent; no replay, resync or conflict.
+   PreemptionBasic/500Nodes at depth 0: the hints from the screen on the
+   card, nominations and placements equal to a CPU service's run (the
+   loop's screen chooses other victims at this size).
+   SchedulingBasic/1000Nodes with two replicas on one card service (depth
+   3, one cycle each in turn): one accepted placement and one bind per
+   pod, no bind of a bound pod, no node over capacity, conflicts counted
+   by the clients equal to the service's. SchedulingBasic/500Nodes (256
+   init, 512 measured pods) with ``ServiceBinding.restart`` after 3 of
+   its 6 batches: one full resync, no batch run twice, placements equal
+   to a CPU service's run with the same restart. Prints pods/s, attempt
+   p50 / p99, the per-batch split (the client's payload encode and delta
+   push, the transport, the service's decode, sync, encode, dispatch, read
+   and commit) and the echoed deviceTime (dwell / exec / fetch of the
+   read, the batch program's CUDA events); the wire runs have telemetry on
+   (for the echoed deviceTime).
+20. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -363,6 +397,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1802,7 +1837,7 @@ def _env(**values):
                 os.environ[k] = v
 
 
-# loop_phase's keys for the CPU loop's SchedulingBasic and PreemptionBasic runs
+# loop_basic_phase's keys for the CPU loop's SchedulingBasic and PreemptionBasic runs
 CPU_BASIC = "cpu"
 CPU_PREEMPT = "cpu_preempt"
 # the ring at its default (depth 2, commits inline), synchronous, and the
@@ -1857,13 +1892,13 @@ class _StrictDispatch:
         return out
 
 
-def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
-    """The scheduler loop on the card: the in-flight ring against the
-    synchronous loop in turns, topology workloads through the ring
-    (capacity growth), the sampled loop and PreemptionBasic (inline ring
-    exact, worker ring bound). The ring at the default deadline runs in the
-    loop_faults phase, cold against warmed. Returns the CPU loop's
-    SchedulingBasic run under ``CPU_BASIC`` beside the card's runs."""
+def loop_basic_phase() -> dict:
+    """The scheduler loop on the card at SchedulingBasic/5000Nodes: the
+    in-flight ring against the synchronous loop and the commit worker; and
+    PreemptionBasic (inline ring exact, worker ring bound). Returns the CPU
+    loop's SchedulingBasic and PreemptionBasic runs under ``CPU_BASIC`` and
+    ``CPU_PREEMPT`` beside the card's runs: the later loop phases of its
+    group hold their runs against them."""
     out = {}
     parts, t_part = {}, time.perf_counter()
 
@@ -1877,8 +1912,9 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
         cpu = workloads.run_loop(basic, "cpu", percentage=100)
     turns = {"ring": [], "sync": [], "worker": []}
     envs = {"ring": RING, "sync": SYNC, "worker": WORKER}
-    # two turns each: the loop_gang phase after this one needs the time
-    for i, kind in enumerate(("ring", "sync", "worker") * 2):
+    # one turn each: the later phases need the time (the loop_telemetry
+    # phase runs the ring again, off / on in turns)
+    for i, kind in enumerate(("ring", "sync", "worker")):
         gpu = _loop_run(basic, f"{basic.name} [{kind} {i // 3 + 1}]", envs[kind])
         _check_all_bound(basic.name, basic, gpu)
         if set(gpu["paths"]) != {"fused"} or gpu["launches"] != gpu["batches"]:
@@ -1900,13 +1936,54 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
               + " / ".join(f"{r['measured_overlap_ms']:.2f} of {r['measured_commit_host_ms']:.2f}"
                            for r in runs) + " ms")
     print(f"{basic.name}: every run's placements == the cpu loop at percentage 100 (inline "
-          f"ring), one kernel launch per batch; BatchScheduler in this call "
-          f"{basic_batch['pods_per_s']:.1f} pods/s")
+          f"ring), one kernel launch per batch")
     out[f"{basic.name}/ring"] = {"launches": turns["ring"][0]["launches"], "run": turns["ring"]}
     out[f"{basic.name}/sync"] = {"launches": turns["sync"][0]["launches"], "run": turns["sync"]}
     out[f"{basic.name}/worker"] = {"launches": turns["worker"][0]["launches"],
                                    "run": turns["worker"]}
     part("basic turns")
+
+    pre = workloads.preemption_basic()
+    with _env(**RING):
+        p_cpu = workloads.run_loop(pre, "cpu", percentage=100)
+    for label, env in (("inline ring", RING), ("worker ring", WORKER)):
+        p_gpu = _loop_run(pre, f"{pre.name} [{label}]", env)
+        preemptors = [k for k in p_gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
+        if not all(p_gpu["placed"][k] for k in preemptors) or p_gpu["settle_abandoned"]:
+            raise AssertionError(f"{pre.name} [{label}]: a preemptor is unbound")
+        if p_gpu["launches"] != p_gpu["batches"]:
+            raise AssertionError(f"{pre.name} [{label}]: {p_gpu['launches']} launches for "
+                                 f"{p_gpu['batches']} batches")
+        if label == "inline ring":
+            _check_loop_same(pre.name, p_gpu, p_cpu,
+                             ("placed", "preempted", "nominations", "cycles", "metrics"))
+        print(f"{pre.name} through the {label}: {len(preemptors)} preemptors bound, "
+              f"{len(p_gpu['preempted'])} victims, {len(p_gpu['nominations'])} nominations, "
+              f"pods popped per settle {p_gpu['cycles']}"
+              + ("; all == cpu" if label == "inline ring" else
+                 f" (the cpu's inline ring: {len(p_cpu['preempted'])} victims, "
+                 f"{len(p_cpu['nominations'])} nominations, {p_cpu['cycles']})"))
+        out[f"{pre.name}/{label.split()[0]}"] = {"launches": p_gpu["launches"], "run": p_gpu}
+    part("preemption")
+    print("loop_basic phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    out[CPU_BASIC] = cpu
+    out[CPU_PREEMPT] = p_cpu
+    return out
+
+
+def loop_phase(topo: dict, spec: dict) -> dict:
+    """The scheduler loop on the card beside BatchScheduler's runs: one
+    ring dispatch on the carry under the strict sync mode, the topology
+    workloads through the ring (capacity growth) and the sampled loop. The
+    ring at the default deadline runs in the loop_faults phase, cold
+    against warmed."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
 
     # one ring dispatch on the carry (the third, inline: the mode is
     # process-wide) under the strict mode
@@ -1958,32 +2035,7 @@ def loop_phase(topo: dict, spec: dict, basic_batch: dict) -> dict:
           f"{s_gpu['start']} == cpu, placements == cpu")
     out["sampled"] = {"launches": s_gpu["launches"], "run": s_gpu}
     part("sampled")
-
-    pre = workloads.preemption_basic()
-    with _env(**RING):
-        p_cpu = workloads.run_loop(pre, "cpu", percentage=100)
-    for label, env in (("inline ring", RING), ("worker ring", WORKER)):
-        p_gpu = _loop_run(pre, f"{pre.name} [{label}]", env)
-        preemptors = [k for k in p_gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
-        if not all(p_gpu["placed"][k] for k in preemptors) or p_gpu["settle_abandoned"]:
-            raise AssertionError(f"{pre.name} [{label}]: a preemptor is unbound")
-        if p_gpu["launches"] != p_gpu["batches"]:
-            raise AssertionError(f"{pre.name} [{label}]: {p_gpu['launches']} launches for "
-                                 f"{p_gpu['batches']} batches")
-        if label == "inline ring":
-            _check_loop_same(pre.name, p_gpu, p_cpu,
-                             ("placed", "preempted", "nominations", "cycles", "metrics"))
-        print(f"{pre.name} through the {label}: {len(preemptors)} preemptors bound, "
-              f"{len(p_gpu['preempted'])} victims, {len(p_gpu['nominations'])} nominations, "
-              f"pods popped per settle {p_gpu['cycles']}"
-              + ("; all == cpu" if label == "inline ring" else
-                 f" (the cpu's inline ring: {len(p_cpu['preempted'])} victims, "
-                 f"{len(p_cpu['nominations'])} nominations, {p_cpu['cycles']})"))
-        out[f"{pre.name}/{label.split()[0]}"] = {"launches": p_gpu["launches"], "run": p_gpu}
-    part("preemption")
     print("loop phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
-    out[CPU_BASIC] = cpu
-    out[CPU_PREEMPT] = p_cpu
     return out
 
 
@@ -2337,7 +2389,7 @@ def loop_faults_phase(loop: dict) -> dict:
     the relay death at SchedulingBasic/1000Nodes, card against CPU, with
     pods degraded while the breaker is open; the ring at the 500 ms
     default deadline in turns, cold against warmed, each == the CPU loop's
-    placements (the loop phase's run), the first warmed turn's sweep with
+    placements (the loop_basic phase's run), the first warmed turn's sweep with
     every warm launch of the kernel against its plain version, and the
     mirror unchanged across every sweep."""
     out = {}
@@ -2468,7 +2520,7 @@ def loop_profiles_phase(loop: dict) -> dict:
     """The loop built from a KubeSchedulerConfiguration on the card and on
     the CPU: two batchable profiles at SchedulingBasic/5000Nodes, the custom
     profiles at SchedulingBasic/1000Nodes, PreemptionBasic/500Nodes with
-    PriorityClasses (against the loop phase's numeric runs)."""
+    PriorityClasses (against the loop_basic phase's numeric runs)."""
     out = {}
     parts, t_part = {}, time.perf_counter()
 
@@ -2498,7 +2550,7 @@ def loop_profiles_phase(loop: dict) -> dict:
           f"sequential binds, placements == the cpu loop of the same config; "
           f"{gpu['pods_per_s']:.1f} pods/s; attempt p99 per profile "
           + ", ".join(f"{k} {v['p99']:.2f} ms" for k, v in gpu["attempt_ms_by_profile"].items())
-          + " (the loop phase's one-profile ring runs: "
+          + " (the loop_basic phase's one-profile ring runs: "
           + " / ".join(f"{r['pods_per_s']:.1f}" for r in loop[f"{basic.name}/ring"]["run"])
           + " pods/s)")
     out[f"{basic.name}/profiles"] = {"launches": gpu["launches"], "run": gpu}
@@ -2544,7 +2596,7 @@ def loop_profiles_phase(loop: dict) -> dict:
     print(f"{pre.name} with PriorityClasses low (1) and high (100): {len(preemptors)} "
           f"preemptors bound, {len(gpu['preempted'])} victims, {len(gpu['nominations'])} "
           f"nominations, all == the cpu loop's and the card's numeric-priority runs of the "
-          f"loop phase; {gpu['launches']} launches for {gpu['batches']} batches")
+          f"loop_basic phase; {gpu['launches']} launches for {gpu['batches']} batches")
     out[f"{pre.name}/classes"] = {"launches": gpu["launches"], "run": gpu}
     part("priority classes")
     print("loop_profiles phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
@@ -2554,7 +2606,7 @@ def loop_profiles_phase(loop: dict) -> dict:
 
 # ---------------------------------------------------------------- loop_admission phase
 
-ADMISSION_PAIRS = 3  # the chain's cost: chain on / off in turns
+ADMISSION_PAIRS = 2  # the chain's cost: chain on / off in turns
 EXT_NODES, EXT_INIT, EXT_PODS, WIRE_PODS = 1000, 500, 256, 64
 EXT_NAMES = ("default-scheduler",) * 3 + ("no-scoring",)
 
@@ -2637,7 +2689,7 @@ def loop_admission_phase(loop: dict) -> dict:
           + " / ".join(f"{r['pods_per_s']:.1f}" for r in turns["none"])
           + f"); a measured create {create_us['chain']:.2f} / {create_us['none']:.2f} us, the "
           f"chain's share {create_us['chain'] - create_us['none']:.2f} us per create; placements "
-          "== the loop phase's cpu run either way")
+          "== the loop_basic phase's cpu run either way")
     out[f"{basic.name}/chain"] = {"launches": turns["chain"][-1]["launches"],
                                   "pods_per_s": med, "create_us": create_us}
     part("cost")
@@ -2731,7 +2783,7 @@ def loop_admission_phase(loop: dict) -> dict:
     return out
 
 
-TELEMETRY_PAIRS = 3  # the recorders' cost: off / on in turns
+TELEMETRY_PAIRS = 2  # the recorders' cost: off / on in turns
 BORROW_NODES, BORROW_ROUNDS, BORROW_SCALE = 1000, 8, 100
 BORROW_KEYS = ("placed", "invariants", "tenants", "e2e", "batch_pods", "evicted", "reclaims",
                "cycles")
@@ -3108,8 +3160,308 @@ def loop_rebalance_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- loop_wire phase
+
+# what a wire run of SchedulingBasic shares with the CPU loop's run of it
+# (loop_basic_phase's CPU_BASIC: the wire equals the loop on the CPU,
+# tests/test_torch_wire.py), and one of PreemptionBasic or of the restart
+# with a CPU service's run
+WIRE_LOOP_KEYS = ("placed", "batch_pods", "metrics", "pending")
+WIRE_KEYS = WIRE_LOOP_KEYS + ("queued",)
+WIRE_REPLICA_NODES = 1000  # the two-replica run
+WIRE_RESTART = (500, 256, 512)  # the restart run's nodes, init and measured pods
+WIRE_RESTART_AFTER = 3     # the restart comes after this many batches of its 6
+
+
+def _wire_report(name: str, run: dict) -> None:
+    split = ", ".join(f"{k} {v:.3f}" for k, v in run["wire_split_ms"].items() if v is not None)
+    dev = ", ".join(f"{k} {v:.4f}" for k, v in run["device_time_ms"].items())
+    att = run["attempt_ms"] or {}
+    print(f"{name} through the wire (depth {run['depth']}, {run['replicas']} replica(s)): "
+          f"{run['metrics']['scheduled']} pods bound, {run['client_batches']} batches sent, "
+          f"{run['batches']} run on the service (paths {sorted(set(run['paths']))}), fused "
+          f"launches {run['launches']}, replays {run['replays']}, resyncs {run['resyncs']}, "
+          f"conflicts {run['conflicts']}; measured phase {run['pods_per_s']:.1f} pods/s over "
+          f"{run['measured_s']:.3f} s; attempt ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in att.items())
+          + f"; per measured batch (median ms): {split}; deviceTime (median ms): {dev}")
+
+
+def _wire_run(w, label: str, device, depth: int, **kw) -> dict:
+    fused_step.LAUNCHES = 0
+    run = workloads.run_loop_wire(w, device, depth, **kw)
+    if run["launches"] != fused_step.LAUNCHES:
+        raise AssertionError(f"{label}: launches counted twice")
+    if run["settle_abandoned"] or run["degraded_pods"] or run["double_binds"] \
+            or run["over_capacity"] or run["placements"] != run["binds"]:
+        raise AssertionError(f"{label}: settle abandoned, degraded pods, a bind of a bound "
+                             f"pod, a node over capacity or placements != binds: "
+                             f"{run['degraded_pods']}, {run['double_binds'][:5]}, "
+                             f"{run['over_capacity'][:5]}, {run['placements']} placements, "
+                             f"{run['binds']} binds")
+    if device != "cpu":
+        _wire_report(label, run)
+    return run
+
+
+def _check_wire_same(name: str, got: dict, want: dict, keys, ref: str = "cpu service") -> None:
+    for key in keys:
+        if got[key] != want[key]:
+            raise AssertionError(f"{name} through the wire: {key} differs from the {ref}'s run")
+
+
+def loop_wire_phase(loop: dict) -> dict:
+    """The batched device service over HTTP on the card
+    (``backend/service.py``): ``WireScheduler`` against
+    ``serve(DeviceService(device="cuda"))`` on 127.0.0.1. SchedulingBasic
+    is held against the CPU loop's run of the loop_basic phase
+    (``loop[CPU_BASIC]``, percentage 100); PreemptionBasic (whose victims
+    the wire's hints and the loop's screen choose differently at 500
+    nodes) and the restart against a CPU service's run. At
+    depth 3 the service runs the three batches in flight in the order
+    their handler threads take its lock (ROADMAP C26), so placements are
+    not compared there: every pod must bind, with the CPU's pods per batch,
+    counters and queue."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    basic = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    cpu = loop[CPU_BASIC]
+    turns = {0: [], 3: []}
+    moved = {0: [], 3: []}
+    for depth in (0, 3, 3, 0):
+        label = f"{basic.name} [depth {depth} {len(turns[depth]) + 1}]"
+        gpu = _wire_run(basic, label, "cuda", depth)
+        _check_wire_same(label, gpu, cpu, WIRE_LOOP_KEYS if depth == 0 else
+                         WIRE_LOOP_KEYS[1:], "cpu loop")
+        _check_all_bound(label, basic, gpu)
+        if set(gpu["paths"]) != {"fused"} or not (
+                gpu["launches"] == gpu["batches"] == gpu["client_batches"]):
+            raise AssertionError(f"{label}: paths {set(gpu['paths'])}, {gpu['launches']} "
+                                 f"launches, {gpu['batches']} batches run, "
+                                 f"{gpu['client_batches']} sent")
+        if gpu["replays"] or gpu["resyncs"] or gpu["conflicts"]:
+            raise AssertionError(f"{label}: replays, resyncs or conflicts in a clean run")
+        turns[depth].append(gpu)
+        moved[depth].append(sum(1 for k, v in gpu["placed"].items() if v != cpu["placed"][k]))
+    for depth, runs in turns.items():
+        print(f"{basic.name} through the wire at depth {depth} in turns: pods/s "
+              + " / ".join(f"{r['pods_per_s']:.1f}" for r in runs) + "; attempt p50 "
+              + " / ".join(f"{r['attempt_ms']['p50']:.2f}" for r in runs) + ", p99 "
+              + " / ".join(f"{r['attempt_ms']['p99']:.2f}" for r in runs) + " ms; pods placed "
+              "elsewhere than the cpu loop " + " / ".join(str(n) for n in moved[depth]))
+    print(f"{basic.name}: every wire run binds every pod with the cpu loop's pods per batch, "
+          "counters and queue, at depth 0 its placements; one fused launch per batch, none "
+          "replayed")
+    for depth, runs in turns.items():
+        out[f"{basic.name}/depth{depth}"] = {"launches": runs[0]["launches"], "run": runs}
+    part("basic turns")
+
+    pre = workloads.preemption_basic()
+    p_cpu = _wire_run(pre, f"{pre.name} [cpu]", "cpu", 0, percentage=100)
+    p_gpu = _wire_run(pre, f"{pre.name} [depth 0]", "cuda", 0)
+    _check_wire_same(pre.name, p_gpu, p_cpu, WIRE_KEYS + ("nominations",))
+    preemptors = [k for k in p_gpu["placed"] if "/preemptor-" in k or "/warm-" in k]
+    if not all(p_gpu["placed"][k] for k in preemptors) or not p_gpu["nominations"]:
+        raise AssertionError(f"{pre.name} through the wire: a preemptor unbound or no "
+                             "nomination")
+    if p_gpu["launches"] != p_gpu["batches"]:
+        raise AssertionError(f"{pre.name}: {p_gpu['launches']} launches for "
+                             f"{p_gpu['batches']} batches")
+    print(f"{pre.name} through the wire: {len(preemptors)} preemptors bound, "
+          f"{len(p_gpu['nominations'])} nominations from the card's screen hints, all == the "
+          "cpu service's run")
+    out[pre.name] = {"launches": p_gpu["launches"], "run": p_gpu}
+    part("preemption")
+
+    small = workloads.scheduling_basic(WIRE_REPLICA_NODES, N_PODS // 2, N_PODS // 2)
+    two = _wire_run(small, f"{small.name} [2 replicas, depth 3]", "cuda", 3, replicas=2)
+    n_pods = small.n_init + small.n_measured
+    if not all(two["placed"].values()) or len(two["placed"]) != n_pods \
+            or two["placements"] != n_pods:
+        raise AssertionError(f"{small.name} [2 replicas]: not every pod bound, or "
+                             f"{two['placements']} placements for {n_pods} pods")
+    if not (two["conflicts"] == two["service_conflicts"] > 0):
+        raise AssertionError(f"{small.name} [2 replicas]: conflicts {two['conflicts']} counted "
+                             f"by the clients, {two['service_conflicts']} by the service")
+    print(f"{small.name}, two replicas on one card service: every pod placed and bound once "
+          f"({two['placements']} placements, {two['binds']} binds, none of a bound pod), no "
+          f"node over capacity, {two['conflicts']} conflict verdicts requeued, "
+          f"{two['batches']} batches run")
+    out[f"{small.name}/replicas2"] = {"launches": two["launches"], "run": two}
+    part("replicas")
+
+    small = workloads.scheduling_basic(*WIRE_RESTART)
+    r_cpu = _wire_run(small, f"{small.name} [cpu, restart]", "cpu", 0, percentage=100,
+                      restart_after=WIRE_RESTART_AFTER)
+    r_gpu = _wire_run(small, f"{small.name} [restart after {WIRE_RESTART_AFTER} batches]",
+                      "cuda", 0, restart_after=WIRE_RESTART_AFTER)
+    _check_wire_same(f"{small.name} [restart]", r_gpu, r_cpu, WIRE_KEYS)
+    if not (r_gpu["resyncs"] == r_gpu["restarts"] == 1
+            and r_gpu["launches"] == r_gpu["batches"] == r_gpu["client_batches"]):
+        raise AssertionError(f"{small.name} [restart]: resyncs {r_gpu['resyncs']}, launches "
+                             f"{r_gpu['launches']}, {r_gpu['batches']} batches run, "
+                             f"{r_gpu['client_batches']} sent")
+    print(f"{small.name} with a service restart after {WIRE_RESTART_AFTER} batches: one full "
+          f"resync, {r_gpu['launches']} launches for {r_gpu['client_batches']} batches (none "
+          "run twice), placements == the cpu service's run with the same restart")
+    out[f"{small.name}/restart"] = {"launches": r_gpu["launches"], "run": r_gpu}
+    part("restart")
+    print("loop_wire phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
+
+
+# ---------------------------------------------------------------- groups
+#
+# The phases run in three processes at once on the one card, each phase in
+# the group of the phases whose results it reads. The card is idle most of
+# the time (the loop's host work bounds it), so the groups share it and the
+# host's cores; their timings are taken beside each other (the kernel
+# phase, whose numbers enter the kernels line, runs alone before them).
+
+
+def core_group(timed, kern: dict) -> dict:
+    sl = timed("slice", slice_phase)
+    topo = timed("topology", topology_phase)
+    spec = timed("spec", spec_phase, sl, topo)
+    loop = timed("loop", loop_phase, topo, spec)
+    return {"main_launches": sl["launches"],
+            "launches": {sl["workload"].name: sl["launches"],
+                         **{f"loop:{k}": v["launches"] for k, v in loop.items()}}}
+
+
+def batch_group(timed, kern: dict) -> dict:
+    dra = timed("dra", dra_phase)
+    gangs = timed("gang", gang_phase)
+    quota = timed("quota", quota_phase)
+    pre_all = timed("preempt_all", preempt_all_phase)
+    loop_gang = timed("loop_gang", loop_gang_phase, gangs, quota)
+    loop_claims = timed("loop_claims", loop_claims_phase, dra)
+    slices = next(v for v in gangs.values() if v["workload"].tpu_slots)
+    return {"slice_masked_ms": slices["masked_ms"], "slice_unmasked_ms": slices["plain_ms"],
+            "launches": {**{k: v["launches"] for k, v in dra.items()},
+                         **{k: v["launches"] for k, v in gangs.items()},
+                         **{k: v["launches"] for k, v in quota.items()},
+                         **{k: v["launches"] for k, v in pre_all.items()},
+                         **{f"loop:{k}": v["launches"] for k, v in loop_gang.items()},
+                         **{f"loop:{k}": v["launches"] for k, v in loop_claims.items()}}}
+
+
+def loop_group(timed, kern: dict) -> dict:
+    loop = timed("loop_basic", loop_basic_phase)
+    loop_faults = timed("loop_faults", loop_faults_phase, loop)
+    loop_profiles = timed("loop_profiles", loop_profiles_phase, loop)
+    loop_admission = timed("loop_admission", loop_admission_phase, loop)
+    loop_telemetry = timed("loop_telemetry", loop_telemetry_phase, loop, kern)
+    loop_rebalance = timed("loop_rebalance", loop_rebalance_phase)
+    loop_wire = timed("loop_wire", loop_wire_phase, loop)
+    pre = timed("preempt", preempt_phase)  # here for the groups' balance
+    entropy = loop_rebalance.pop("packing_entropy")
+    loop.pop(CPU_BASIC)
+    loop.pop(CPU_PREEMPT)
+    warm_launches = loop_faults.pop("warm_launches")
+    print("packing_entropy (an XLA program of the JAX package, plain PyTorch in the port): "
+          + "; ".join(f"{k}: {v['ms']:.4f} ms on the card, {v['kernels']} kernel launches "
+                      f"per call, "
+                      f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms, "
+                      f"|err| {v['max_abs_err']:.3g}" for k, v in entropy.items()))
+    return {"warm_launches": warm_launches,
+            "launches": {**{f"loop:{k}": v["launches"]
+                            for part in (loop, loop_faults, loop_profiles, loop_admission,
+                                         loop_telemetry, loop_rebalance)
+                            for k, v in part.items()},
+                         **{f"wire:{k}": v["launches"] for k, v in loop_wire.items()},
+                         **{k: v["launches"] for k, v in pre.items()}}}
+
+
+GROUPS = {"core": core_group, "batch": batch_group, "loop": loop_group}
+GROUPS_DEADLINE_S = 1080  # the groups are stopped past this, with the script's failure
+
+
+def group_main(name: str, kern_path: str, out_path: str) -> int:
+    """One group's phases in this process; its results go to ``out_path``."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // len(GROUPS)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(kern_path) as f:
+        kern = json.load(f)
+    phase_s = {}
+
+    def timed(phase, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[phase] = time.perf_counter() - t
+        return out
+
+    res = GROUPS[name](timed, kern)
+    with open(out_path, "w") as f:
+        json.dump({**res, "phase_s": phase_s}, f)
+    return 0
+
+
+def run_groups(kern: dict) -> dict | None:
+    """Starts every group at once, waits for all, and replays their output
+    in order (a failed group's last). On a failure or past the deadline the
+    other groups are stopped and None is returned."""
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
+        kern_path = os.path.join(tmp, "kernel.json")
+        with open(kern_path, "w") as f:
+            json.dump(kern, f)
+        procs, logs, failed = {}, {}, []
+        try:
+            for name in GROUPS:
+                logs[name] = (open(os.path.join(tmp, f"{name}.out"), "w+"),
+                              open(os.path.join(tmp, f"{name}.err"), "w+"))
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--group", name, kern_path,
+                     os.path.join(tmp, f"{name}.json")],
+                    stdout=logs[name][0], stderr=logs[name][1])
+            pending = set(GROUPS)
+            while pending and not failed:
+                time.sleep(0.5)
+                for name in sorted(pending):
+                    if procs[name].poll() is not None:
+                        pending.discard(name)
+                        if procs[name].returncode:
+                            failed.append(f"{name} (exit {procs[name].returncode})")
+                if pending and time.monotonic() - t0 > GROUPS_DEADLINE_S:
+                    failed.extend(f"{name} (past {GROUPS_DEADLINE_S} s)" for name in pending)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        order = sorted(GROUPS, key=lambda name: any(f.startswith(name) for f in failed))
+        for name in order:
+            for log, stream in zip(logs[name], (sys.stdout, sys.stderr)):
+                log.seek(0)
+                stream.write(log.read())
+                log.close()
+            sys.stdout.flush()
+            sys.stderr.flush()
+        print(f"groups ran at once in {time.monotonic() - t0:.1f} s wall")
+        if failed:
+            print("chip_smoke: group failed: " + ", ".join(failed), file=sys.stderr)
+            return None
+        out = {}
+        for name in GROUPS:
+            with open(os.path.join(tmp, f"{name}.json")) as f:
+                out[name] = json.load(f)
+        return out
 
 
 def main() -> int:
@@ -3124,44 +3476,17 @@ def main() -> int:
         for line in report.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print("ptxas:", line.strip())
-    device = torch.device("cuda")
-    phase_s = {}
-
-    def timed(name, fn, *args):
-        t = time.perf_counter()
-        out = fn(*args)
-        phase_s[name] = time.perf_counter() - t
-        return out
-
-    kern = timed("kernel", kernel_phase, device)
-    sl = timed("slice", slice_phase)
-    basic_name = sl["workload"].name
-    topo = timed("topology", topology_phase)
-    spec = timed("spec", spec_phase, sl, topo)
-    dra = timed("dra", dra_phase)
-    pre = timed("preempt", preempt_phase)
-    gangs = timed("gang", gang_phase)
-    quota = timed("quota", quota_phase)
-    pre_all = timed("preempt_all", preempt_all_phase)
-    loop = timed("loop", loop_phase, topo, spec, sl["gpu"])
-    loop_gang = timed("loop_gang", loop_gang_phase, gangs, quota)
-    loop_claims = timed("loop_claims", loop_claims_phase, dra)
-    loop_faults = timed("loop_faults", loop_faults_phase, loop)
-    loop_profiles = timed("loop_profiles", loop_profiles_phase, loop)
-    loop_admission = timed("loop_admission", loop_admission_phase, loop)
-    loop_telemetry = timed("loop_telemetry", loop_telemetry_phase, loop, kern)
-    loop_rebalance = timed("loop_rebalance", loop_rebalance_phase)
-    entropy = loop_rebalance.pop("packing_entropy")
-    loop.pop(CPU_BASIC)
-    loop.pop(CPU_PREEMPT)
-    warm_launches = loop_faults.pop("warm_launches")
-    slices_name = next(k for k, v in gangs.items() if v["workload"].tpu_slots)
+    t = time.perf_counter()
+    kern = kernel_phase(torch.device("cuda"))
+    phase_s = {"kernel": time.perf_counter() - t}
+    groups = run_groups(kern)
+    if groups is None:
+        return 1
+    core, bat, lp = groups["core"], groups["batch"], groups["loop"]
+    for g in groups.values():
+        phase_s.update(g["phase_s"])
     print("seconds per phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
-    print("packing_entropy (an XLA program of the JAX package, plain PyTorch in the port): "
-          + "; ".join(f"{k}: {v['ms']:.4f} ms on the card, {v['kernels']} kernel launches "
-                      f"per call, "
-                      f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.6f} ms, "
-                      f"|err| {v['max_abs_err']:.3g}" for k, v in entropy.items()))
+    print(f"whole script {time.perf_counter() - t0:.1f} s wall")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -3170,33 +3495,14 @@ def main() -> int:
         "name": "fused_step_batch", "route": "cuda",
         "source": "kubernetes_tpu_torch/csrc/fused_step.cu",
         "replaces": "kubernetes_tpu/ops/pallas_step.py:62",
-        "launches": sl["launches"], "max_abs_err": kern["max_abs_err"],
+        "launches": core["main_launches"], "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "masked_ms": kern["masked_ms"], "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": None,
-        "launches_by_workload": {basic_name: sl["launches"],
-                                 **{k: v["launches"] for k, v in dra.items()},
-                                 **{k: v["launches"] for k, v in pre.items()},
-                                 **{k: v["launches"] for k, v in gangs.items()},
-                                 **{k: v["launches"] for k, v in quota.items()},
-                                 **{k: v["launches"] for k, v in pre_all.items()},
-                                 **{f"loop:{k}": v["launches"] for k, v in loop.items()},
-                                 **{f"loop:{k}": v["launches"] for k, v in loop_gang.items()},
-                                 **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_claims.items()},
-                                 **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_faults.items()},
-                                 **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_profiles.items()},
-                                 **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_admission.items()},
-                                 **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_telemetry.items()},
-                                 **{f"loop:{k}": v["launches"]
-                                    for k, v in loop_rebalance.items()}},
-        "warm_launches": warm_launches,
-        "slice_masked_ms": gangs[slices_name]["masked_ms"],
-        "slice_unmasked_ms": gangs[slices_name]["plain_ms"],
+        "launches_by_workload": {**core["launches"], **bat["launches"], **lp["launches"]},
+        "warm_launches": lp["warm_launches"],
+        "slice_masked_ms": bat["slice_masked_ms"],
+        "slice_unmasked_ms": bat["slice_unmasked_ms"],
         "status": "ported, exact against the plain version; cluster of 8 blocks"}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -3205,4 +3511,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--group"]:
+        sys.exit(group_main(*sys.argv[2:5]))
     sys.exit(main())

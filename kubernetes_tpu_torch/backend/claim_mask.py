@@ -1,7 +1,6 @@
 """The batched claim-feasibility screen for resource.k8s.io claims.
 
-Own copy of ``kubernetes_tpu/backend/claim_mask.py`` without the wire
-helpers. Claims allocate at node granularity, so a pod's claim feasibility
+Own copy of ``kubernetes_tpu/backend/claim_mask.py``, whole. Claims allocate at node granularity, so a pod's claim feasibility
 is a static per-batch predicate: the merged class and claim selectors
 against the node-published attribute table that ``DeviceState`` keeps on
 the device. ``build_dra_mask`` encodes each pod's selectors into int32 rows
@@ -14,6 +13,12 @@ restriction row built from the encoder's slot map), and the commit path's
 Reserve allocates exactly, so two pods of one batch that share an
 unallocated claim cannot both allocate it to different nodes: the second
 fails Reserve and is retried against the allocation.
+
+On the wire (``backend/service.py``) the client resolves each claim pod's
+selectors against its store and ships them as rows
+(``wire_claims_for_batch``); the device service decodes them
+(``wire_claims_to_entries``) and builds the mask against its own
+attribute table.
 
 The screen runs under ``telemetry.dispatch("claim_mask", ...)`` with its
 (empty) cost probe, as ``:77-83`` of the JAX module.
@@ -93,6 +98,38 @@ def claim_rows_for_pod(client, pod) -> Tuple[List[dra.DeviceSelector], List[str]
         if claim.allocated_node:
             allocated.append(claim.allocated_node)
     return sels, allocated
+
+
+def wire_claims_for_batch(client, pods) -> List[dict]:
+    """The request form of a batch's claims (``:110``): one entry per
+    claim pod, selectors flattened to [key, op, kind, operand] rows."""
+    out: List[dict] = []
+    for i, pod in enumerate(pods):
+        if not pod.spec.resource_claims:
+            continue
+        sels, allocated = claim_rows_for_pod(client, pod)
+        out.append({
+            "pod": i,
+            "selectors": [[s.key, s.op, s.operand_kind, s.operand] for s in sels],
+            "allocatedNodes": allocated,
+        })
+    return out
+
+
+def wire_claims_to_entries(claims) -> List[tuple]:
+    """``build_dra_mask``'s entries from the request form (``:128``; the
+    operand's type follows its kind tag)."""
+    entries = []
+    for c in claims or ():
+        sels = []
+        for key, op, kind, operand in c.get("selectors") or ():
+            kind = int(kind)
+            sels.append(dra.DeviceSelector(
+                key=str(key), op=int(op), operand_kind=kind,
+                operand=int(operand) if kind == dra.KIND_INT else str(operand)))
+        entries.append((int(c.get("pod", -1)), sels,
+                        [str(n) for n in c.get("allocatedNodes") or ()]))
+    return entries
 
 
 class ClaimMaskBuilder:

@@ -111,6 +111,11 @@ class BatchSizer:
     def update(self, batch_size: int, latency_s: float) -> None:
         self._fit.update(batch_size, latency_s)
 
+    @property
+    def updates(self) -> int:
+        """Observations folded into the latency model."""
+        return self._fit.updates
+
     def update_wait(self, batch_size: int, wait_s: float) -> None:
         """Feed one commit-wait observation (the ring's blocking read)."""
         self._wfit.update(batch_size, wait_s)

@@ -74,6 +74,10 @@ STORM_WINDOW = 32
 EVENT_KINDS = frozenset({
     # batch lifecycle
     "encode", "dispatch", "commit", "poison", "requeue", "degrade",
+    # the wire path: sessions and HA, the pipelined transport, the device
+    # time a service echoes
+    "conflict", "fence", "takeover", "pipeline_poison", "pipeline_dup_reply",
+    "wire_device_time",
     # device runtime
     "retrace_storm",
     # elasticity: slot reuse, node removal, the drain orchestrator's waves

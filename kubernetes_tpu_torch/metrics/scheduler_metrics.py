@@ -179,6 +179,12 @@ class SchedulerMetrics:
         self.backend_circuit_state = Gauge()           # the relay breaker's STATE_VALUES
         self.degraded_seconds = Counter()              # seconds the breaker held open
         self.device_slot_reuse = Counter()             # tombstoned slots handed to new nodes
+        # the wire path (backend/service.py; the JAX names, :145-210)
+        self.wire_retries = Counter()                  # scheduler_wire_retries_total, by op
+        self.wire_inflight = Gauge()                   # scheduler_wire_inflight
+        self.client_sessions = Gauge()                 # scheduler_client_sessions
+        self.ha_takeovers = Counter()                  # scheduler_ha_takeovers_total
+        self.commit_conflicts = Counter()              # scheduler_commit_conflicts_total, by client
         # the device runtime (backend/telemetry.py): kernel builds, device
         # memory, transfers, flight events, the dispatch waterfall
         self.xla_compilations = Counter()              # by (program, bucket)

@@ -103,7 +103,7 @@ from ..api import resource as resource_api
 from ..api.validation import ValidationError
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.admission import UNREACHABLE_TAINT, AdmissionError, PodNodeSelector
-from ..apiserver.store import Store
+from ..apiserver.store import Conflict, Store
 from ..scheduler.extender import CallableExtender
 from ..backend.device_state import _bucket, caps_for_cluster
 from ..backend import telemetry
@@ -1195,6 +1195,261 @@ def run_loop(w: Workload, device, percentage: int = 0, batch_size: int = LOOP_BA
         "quota_used": {k: dict(q.used) for k, q in store.resource_quotas.items()},
         "extender_post_ms": post_ms, "observed": observed,
     }
+
+
+WIRE_STAGES = ("client_encode", "client_push", "transport", "service_decode", "service_sync",
+               "service_encode", "service_dispatch", "service_read", "service_commit")
+REPLICA_BACKOFF_S = (0.05, 0.2)  # the replicas' pod backoff: a conflicted pod retries soon
+
+
+def _settle_replicas(scheds, max_rounds: int = 100000) -> int:
+    """Settle several replicas on one thread, one cycle each in turn (their
+    pipelined batches overlap on the service); returns the pods popped."""
+    import time
+
+    popped = 0
+    for _ in range(max_rounds):
+        n = sum(s.schedule_batch_cycle() for s in scheds)
+        popped += n
+        if n:
+            continue
+        for s in scheds:
+            s.queue.flush_backoff_completed()
+        pending = [s.queue.pending_pods() for s in scheds]
+        if all(p["active"] == 0 and p["backoff"] == 0 for p in pending):
+            break
+        if all(p["active"] == 0 for p in pending):
+            time.sleep(0.01)
+    return popped
+
+
+def _wire_split(sched, service_log: List[dict]) -> List[dict]:
+    """One record per batch the client processed (``WireScheduler.
+    wire_log``) joined by batchId with the service's (``DeviceService.
+    batch_log``): ms of the client's payload encode and delta push, the
+    transport (the client's push and call less the service's handler time
+    of both), and the service's decode, sync (the push's and the batch's),
+    encode, dispatch, read and commit; with the echoed deviceTime."""
+    by_id = {r["batchId"]: r for r in service_log}
+    out = []
+    for c in sched.wire_log:
+        s = by_id.get(c["batchId"])
+        if s is None:
+            continue  # a replayed reply: the service ran it once, in another record
+        handler = (c.get("serviceTime") or {}).get("totalMs", 0.0) / 1e3
+        out.append({
+            "batchId": c["batchId"], "pods": c["pods"], "path": s["path"],
+            "client_encode": c["encode"] * 1e3, "client_push": c["push"] * 1e3,
+            "transport": max(0.0, c["push"] + c["call"] - s["push"] - handler) * 1e3,
+            "service_decode": s["decode"] * 1e3,
+            "service_sync": (s["sync"] + s["push_sync"]) * 1e3,
+            "service_encode": s["encode"] * 1e3, "service_dispatch": s["dispatch"] * 1e3,
+            "service_read": s["read"] * 1e3, "service_commit": s["commit"] * 1e3,
+            "deviceTime": c.get("deviceTime"),
+        })
+    return out
+
+
+def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
+                  percentage: int = 0, replicas: int = 1,
+                  restart_after: Optional[int] = None) -> dict:
+    """Drive ``w`` through ``WireScheduler`` against ``serve(DeviceService(
+    device=device))`` on 127.0.0.1 (``backend/service.py``): the wire
+    counterpart of ``run_loop``, as the JAX harness's wire runner
+    (``kubernetes_tpu/perf/harness.py``'s ``wire`` mode). One Store; the
+    service's pod axis is ``batch_size``, the clients pop ``batch_size``
+    at ``depth`` batches in flight (``wire_pipeline_depth``), the deadline
+    sizer off; ``percentage`` is the service's percentageOfNodesToScore.
+    ``replicas`` > 1 runs that many WireSchedulers on the one store and
+    service, one cycle each in turn (``_settle_replicas``; pod backoff
+    ``REPLICA_BACKOFF_S``): their batches race for the same pods, and the
+    service's ownership check answers the losers with conflicts.
+    ``restart_after`` restarts the service (``ServiceBinding.restart``: new
+    epoch, empty mirror) once, after the first cycle in which the first
+    replica's processed batches reach it. Telemetry is on for the run (the
+    echoed ``deviceTime``) unless a recorder already was.
+
+    Returns ``run_loop``'s keys that apply (``placed``, ``pods_per_s``,
+    ``measured_s``, ``attempt_ms``, ``batches`` (batch programs the
+    services ran), ``paths``, ``batch_pods`` (pods per batch the client
+    sent), ``launches`` (fused-kernel launches over the run), ``cycles``,
+    ``metrics``, ``pending``, ``nominations``, ``settle_abandoned``), ``queued``
+    (each pod left in the first replica's queue with its unschedulable
+    plugins) and:
+    ``wire`` (``_wire_split`` per measured batch of the first replica),
+    ``wire_split_ms`` (the medians of its stages), ``device_time_ms`` (the
+    medians of the echoed dwell, exec, fetch and the CUDA events' exec),
+    ``client_batches`` (logical batches the clients sent, summed),
+    ``replays`` (the services' idempotent replays), ``resyncs``,
+    ``conflicts`` (conflict verdicts the clients counted, summed),
+    ``service_conflicts`` (the services' ownership check), ``rejoins``,
+    ``restarts``, ``degraded_pods``, ``placements`` (results with a node
+    and no conflict verdict that the clients received, summed), ``binds``
+    (binds the store took), ``double_binds`` (pods whose bind the store
+    refused because they were bound already: must be empty),
+    ``over_capacity`` (nodes whose bound
+    requests pass their allocatable), ``depth``, ``replicas``. Every socket
+    is closed before it returns."""
+    import gc
+    import time
+
+    from ..backend.service import DeviceService, WireScheduler, serve, stop
+    from ..ops import fused_step
+
+    services = [DeviceService(batch_size=batch_size, percentage_of_nodes_to_score=percentage,
+                              device=device)]
+    server, port = serve(services[0])
+    own_telemetry = telemetry.get() is None
+    try:
+        store = Store()
+        backoff = {}
+        if replicas > 1:
+            backoff = dict(pod_initial_backoff=REPLICA_BACKOFF_S[0],
+                           pod_max_backoff=REPLICA_BACKOFF_S[1])
+        scheds = [WireScheduler(store, endpoint=f"http://127.0.0.1:{port}",
+                                batch_size=batch_size, wire_pipeline_depth=depth,
+                                batch_deadline_ms=0, client_id=f"wire-{r}", **backoff)
+                  for r in range(replicas)]
+        sched = scheds[0]
+        if own_telemetry:
+            telemetry.enable(sched.smetrics)
+        # the placements the service accepted (a result with a node and no
+        # conflict verdict), the binds the store took, and those it refused
+        # because the pod was bound already: with the ownership check, a
+        # pod another replica holds gets a conflict, so that placements ==
+        # binds and no bind reaches a bound pod
+        tally = {"placements": 0, "binds": 0}
+        double_binds: List[str] = []
+        bind_batch, bind_one = store.bind_batch, store.bind
+
+        def counted(pairs):
+            out = bind_batch(pairs)
+            for (key, _node), err in zip(pairs, out):
+                if err is None:
+                    tally["binds"] += 1
+                elif isinstance(err, Conflict):
+                    double_binds.append(key)
+            return out
+
+        def counted_one(key, node_name):
+            try:
+                bind_one(key, node_name)
+            except Conflict:
+                double_binds.append(key)
+                raise
+            tally["binds"] += 1
+
+        store.bind_batch, store.bind = counted, counted_one
+        for s in scheds:
+            process = s._process_wire_results
+
+            def counted_results(batch, res, pod_cycle, t0, _process=process):
+                tally["placements"] += sum(1 for r in res["results"]
+                                           if r.get("nodeName") and not r.get("conflict"))
+                return _process(batch, res, pod_cycle, t0)
+
+            s._process_wire_results = counted_results
+        if restart_after is not None:
+            cycle = sched.schedule_batch_cycle
+
+            def cycle_then_restart():
+                n = cycle()
+                if len(services) == 1 and len(sched.wire_log) >= restart_after:
+                    services.append(server.binding.restart())
+                return n
+
+            sched.schedule_batch_cycle = cycle_then_restart
+
+        def settle() -> int:
+            if replicas == 1:
+                return sched.run_until_settled()
+            return _settle_replicas(scheds)
+
+        for name, value in w.priority_classes:
+            store.create_priority_class(PriorityClass(meta=ObjectMeta(name=name, namespace=""),
+                                                      value=value))
+        launches = fused_step.LAUNCHES
+        for ni in w.node_infos():
+            store.create_node(ni.node)
+        sizes = {p.key(): shape.gang_size for shape, count in w._ops() if shape.gang_size
+                 for p in shape.pods(count)}
+        cycles = []
+        init_ops = ((w.init, w.init_pods),) + w.init_extra
+        warm_ops = ((w.warm, w.warm_pods),) if w.warm else ()
+        for ops, pods in ((init_ops, w.init_pod_list()), (warm_ops, w.warm_pod_list())):
+            for shape, count in ops:
+                shape.populate(store, count, groups=False)
+            for pod in pods:
+                create_gang_pod(store, pod, sizes.get(pod.key(), 0))
+            cycles.append(settle())
+        gc.collect()
+        hist = sched.smetrics.scheduling_attempt_duration
+        n_before = hist.count("scheduled", DEFAULT_SCHEDULER)
+        log0 = len(sched.wire_log)
+        for shape, count in ((w.measured, w.measured_pods),) + w.measured_extra:
+            shape.populate(store, count, groups=False)
+        t0 = time.perf_counter()
+        for pod in w.measured_pod_list():
+            create_gang_pod(store, pod, sizes.get(pod.key(), 0))
+        cycles.append(settle())
+        measured_s = time.perf_counter() - t0
+        for s in scheds:
+            s.close()
+        service_log = [r for svc in services for r in svc.batch_log]
+        split = _wire_split(sched, service_log)
+        init_ids = {c["batchId"] for c in list(sched.wire_log)[:log0]}
+        measured = [r for r in split if r["batchId"] not in init_ids]
+        device_times = [r["deviceTime"] for r in measured if r["deviceTime"]]
+        on_node: Dict[str, List[Pod]] = {}
+        for p in store.pods.values():
+            if p.spec.node_name:
+                on_node.setdefault(p.spec.node_name, []).append(p)
+        over = []
+        for name, pods in on_node.items():
+            ni = NodeInfo(store.nodes[name])
+            for p in pods:
+                ni.add_pod(p)
+            if len(pods) > ni.allocatable.allowed_pod_number or any(
+                    v > ni.allocatable.get(k) for k, v in ni.requested.as_map().items()
+                    if k != resource_api.PODS):
+                over.append(name)
+        return {
+            "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+            "pods_per_s": w.n_measured / measured_s, "measured_s": measured_s,
+            "attempt_ms": {f"p{q}": hist.quantile(q / 100, "scheduled", DEFAULT_SCHEDULER,
+                                                  since=n_before) * 1e3
+                           for q in (50, 90, 99)}
+            if hist.count("scheduled", DEFAULT_SCHEDULER) > n_before else None,
+            "batches": sum(svc.batch_counter for svc in services),
+            "paths": [p for svc in services for p in svc.batch_paths],
+            "batch_pods": [c["pods"] for c in sched.wire_log],
+            "launches": fused_step.LAUNCHES - launches, "cycles": cycles,
+            "metrics": dict(sched.metrics), "pending": sched.queue.pending_pods(),
+            "queued": sorted((qp.pod.key(), tuple(sorted(qp.unschedulable_plugins)))
+                             for qp in sched.queue.pending_pod_infos()),
+            "nominations": list(sched.nominations),
+            "settle_abandoned": any(s.settle_abandoned for s in scheds),
+            "wire": measured,
+            "wire_split_ms": {k: float(np.median([r[k] for r in measured])) if measured else None
+                              for k in WIRE_STAGES},
+            "device_time_ms": {k: float(np.median([d[k] for d in device_times if k in d]))
+                               for k in ("dwellMs", "execMs", "fetchMs", "deviceExecMs")
+                               if any(k in d for d in device_times)},
+            "client_batches": sum(s.wire_batches for s in scheds),
+            "replays": sum(svc.batch_replays for svc in services),
+            "resyncs": sum(s.resyncs for s in scheds),
+            "conflicts": sum(s.smetrics.commit_conflicts.labels(s.client_id) for s in scheds),
+            "service_conflicts": sum(svc.commit_conflicts for svc in services),
+            "rejoins": sum(s.session_rejoins for s in scheds),
+            "restarts": len(services) - 1,
+            "degraded_pods": sum(s.degraded_pods for s in scheds),
+            "double_binds": sorted(double_binds), **tally,
+            "over_capacity": over, "depth": depth, "replicas": replicas,
+        }
+    finally:
+        if own_telemetry:
+            telemetry.disable()
+        stop(server)
 
 
 def _time_posts(extenders) -> Dict[str, List[float]]:

@@ -11,6 +11,9 @@ NODE_ADD = ClusterEvent(NODE, ADD, "NodeAdd")
 POD_ADD = ClusterEvent(POD, ADD, "PodAdd")
 POD_DELETE = ClusterEvent(POD, DELETE, "AssignedPodDelete")
 EVICTION = ClusterEvent(POD, DELETE, "EvictionWave")
+# a peer scheduler's session fenced on the shared device service: its
+# capacity was released, like an assigned pod's delete (the wire path)
+SCHEDULER_TAKEOVER = ClusterEvent(POD, DELETE, "SchedulerTakeover")
 NODE_ALLOCATABLE_CHANGE = ClusterEvent(NODE, UPDATE_NODE_ALLOCATABLE, "NodeAllocatableChange")
 NODE_LABEL_CHANGE = ClusterEvent(NODE, UPDATE_NODE_LABEL, "NodeLabelChange")
 NODE_TAINT_CHANGE = ClusterEvent(NODE, UPDATE_NODE_TAINT, "NodeTaintChange")

@@ -2154,3 +2154,198 @@ def _scenario_reclaim(pair) -> None:
 LOOP_SCENARIOS = {"basic": _scenario_basic, "failures": _scenario_failures,
                   "poison": _scenario_poison, "gang": _scenario_gang, "churn": _scenario_churn,
                   "reclaim": _scenario_reclaim}
+
+
+# ----------------------------------------------------------------- the wire service
+
+
+class WirePair:
+    """Each package's ``WireScheduler`` against a ``serve(DeviceService)``
+    on 127.0.0.1, in one process: side 0 is the JAX client, side 1 the
+    port's. ``services`` names whose service each side talks to (default:
+    its own; ``("port", "jax")`` crosses them); the port's service runs on
+    ``device="cpu"``. Each side has its own store (validation off, both
+    admission chains on) and its own FakeClock, both starting equal, which
+    is also the client's retry sleep. ``plan`` gives each side a FaultPlan
+    of its client's package, shared by that side's client and server.
+    ``depth`` is the wire pipeline depth; every client read timeout is 10
+    s. ``build(fn)`` calls ``fn(api, store)`` for each side with its
+    package's ``Api``, in the same order. Use it as a context manager: the
+    servers are stopped and their sockets closed at exit.
+
+    With ``depth`` > 0 each client keeps ``depth`` batches in flight.
+    Each service runs them in the order its handler threads take the lock,
+    so on several lanes that order, hence what is decided, follows thread
+    timing (ROADMAP C26). With ``one_lane`` (the default) both clients send
+    their batches in flight on one lane, one at a time in submission
+    order, and the runs are deterministic and comparable; without it each
+    keeps ``depth`` lanes, and only the order-free invariants compare
+    (``invariants``)."""
+
+    def __init__(self, batch: int = 8, service_batch: int = 32, depth: int = 0,
+                 percentage: int = 0, plan: bool = False, services=("jax", "port"),
+                 sched_kw: dict = None, service_kw: dict = None, client_ids=("wire", "wire"),
+                 one_lane: bool = True):
+        from kubernetes_tpu.apiserver.store import ClusterStore
+        from kubernetes_tpu.utils.clock import FakeClock as JFakeClock
+        from kubernetes_tpu_torch.apiserver.store import Store
+        from kubernetes_tpu_torch.utils.clock import FakeClock
+
+        self.clocks = (JFakeClock(), FakeClock())
+        assert self.clocks[0]() == self.clocks[1]()
+        self.stores = (ClusterStore(), Store(now_fn=self.clocks[1]))
+        for store in self.stores:
+            store.validation_enabled = False
+        self.apis = (jax_api(), torch_api())
+        self.services, self.servers, self.plans, self.scheds = [], [], [], []
+        self.service_pkgs = services
+        self.one_lane = one_lane
+        self.sent_batch_ids = (set(), set())  # each client's batchIds sent
+        self.cycles = [0, 0]
+        try:
+            for side in (0, 1):
+                self._start_side(side, batch, service_batch, depth, percentage, plan,
+                                 services[side], dict(sched_kw or {}), dict(service_kw or {}),
+                                 client_ids[side])
+        except BaseException:
+            self.close()
+            raise
+
+    @staticmethod
+    def _modules(pkg: str):
+        if pkg == "jax":
+            from kubernetes_tpu.backend import service
+            from kubernetes_tpu.testing import faults
+        else:
+            from kubernetes_tpu_torch.backend import service
+            from kubernetes_tpu_torch.testing import faults
+        return service, faults
+
+    def _start_side(self, side, batch, service_batch, depth, percentage, plan, service_pkg,
+                    sched_kw, service_kw, client_id) -> None:
+        client_mod, client_faults = self._modules(("jax", "port")[side])
+        server_mod, _ = self._modules(service_pkg)
+        fault_plan = client_faults.FaultPlan() if plan else None
+        kw = dict(batch_size=service_batch, percentage_of_nodes_to_score=percentage,
+                  **service_kw)
+        if service_pkg == "port":
+            kw["device"] = "cpu"
+        service = server_mod.DeviceService(**kw)
+        server, port = server_mod.serve(service, fault_plan=fault_plan)
+        self.services.append(service)
+        self.servers.append((service_pkg, server))
+        self.plans.append(fault_plan)
+        clock = self.clocks[side]
+        self.scheds.append(client_mod.WireScheduler(
+            self.stores[side], endpoint=f"http://127.0.0.1:{port}", batch_size=batch,
+            wire_pipeline_depth=depth, batch_deadline_ms=0, read_timeout=10.0,
+            now_fn=clock, sleep_fn=clock.advance, fault_plan=fault_plan,
+            client_id=client_id, percentage_of_nodes_to_score=percentage, **sched_kw))
+        sched = self.scheds[-1]
+        sent = self.sent_batch_ids[side]
+        real_send = sched.client.schedule_batch
+
+        def send(payload, _real=real_send, _sent=sent):
+            _sent.add(payload["batchId"])
+            return _real(payload)
+
+        sched.client.schedule_batch = send
+        pipeline = sched._wire_pipeline
+        if pipeline is not None:
+            pipeline._send = send
+            if self.one_lane:
+                pipeline.depth = 1
+
+    def service(self, side: int):
+        """The live service behind side ``side``'s server (a restart swaps it)."""
+        return self.servers[side][1].binding.service
+
+    def close(self) -> None:
+        for pkg, server in self.servers:
+            server.shutdown()
+            server.server_close()
+        self.servers = []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def build(self, fn) -> None:
+        for side in (0, 1):
+            fn(self.apis[side], self.stores[side])
+
+    def each(self, fn) -> list:
+        """``[fn(sched, store, side) for each side]``."""
+        return [fn(self.scheds[side], self.stores[side], side) for side in (0, 1)]
+
+    def settle(self) -> None:
+        for side in (0, 1):
+            self.cycles[side] += self.scheds[side].run_until_settled()
+
+    def advance(self, dt: float) -> None:
+        for side in (0, 1):
+            self.clocks[side].advance(dt)
+            self.scheds[side].queue.flush_backoff_completed()
+
+    def state(self, side: int) -> dict:
+        """What the two runs must agree on."""
+        sched, store = self.scheds[side], self.stores[side]
+        queued = sorted((qp.pod.key(), qp.attempts, tuple(sorted(qp.unschedulable_plugins)))
+                        for qp in sched.queue.pending_pod_infos())
+        service = self.service(side)
+        return {
+            "placed": {k: p.spec.node_name for k, p in store.pods.items()},
+            "nominated": {k: p.status.nominated_node_name for k, p in store.pods.items()
+                          if p.status.nominated_node_name},
+            "metrics": {k: sched.metrics[k] for k in
+                        ("schedule_attempts", "scheduled", "unschedulable", "errors")},
+            "pending": dict(sched.queue.pending_pods()),
+            "queued": queued,
+            "cycles": self.cycles[side],
+            "resyncs": sched.resyncs,
+            "session_rejoins": sched.session_rejoins,
+            "degraded_pods": sched.degraded_pods,
+            "breaker": sched.breaker.state,
+            "conflicts": sched.smetrics.commit_conflicts.labels(sched.client_id),
+            "service_batches": service.batch_counter,
+            "service_replays": service.batch_replays,
+            "service_conflicts": service.commit_conflicts,
+            "settle_abandoned": sched.settle_abandoned,
+        }
+
+    def invariants(self, side: int) -> dict:
+        """What holds in any order the service runs pipelined batches in:
+        the pods bound, no node over its allocatable, one program run per
+        batch sent and none replayed, nothing degraded."""
+        sched, store = self.scheds[side], self.stores[side]
+        used: dict = {}
+        for pod in store.pods.values():
+            if pod.spec.node_name:
+                req = pod.resource_request()
+                cpu, mem, n = used.get(pod.spec.node_name, (0, 0, 0))
+                used[pod.spec.node_name] = (cpu + req.get("cpu", 0), mem + req.get("memory", 0),
+                                            n + 1)
+        over = []
+        for name, node in store.nodes.items():
+            cpu, mem, n = used.get(name, (0, 0, 0))
+            alloc = node.allocatable_canonical()
+            if (cpu > alloc.get("cpu", 0) or mem > alloc.get("memory", 0)
+                    or n > alloc.get("pods", 0)):
+                over.append(name)
+        service = self.service(side)
+        return {"bound": sum(1 for p in store.pods.values() if p.spec.node_name),
+                "over_capacity": over,
+                "program_runs_equal_batches": (service.batch_counter
+                                               == len(self.sent_batch_ids[side])),
+                "service_replays": service.batch_replays,
+                "degraded_pods": sched.degraded_pods}
+
+    def assert_equal(self, skip=()) -> dict:
+        """Every key of ``state`` but ``skip`` equal; returns the port's."""
+        jax_state, port_state = self.state(0), self.state(1)
+        for key in jax_state:
+            if key not in skip:
+                assert port_state[key] == jax_state[key], (key, jax_state[key], port_state[key])
+        return port_state

@@ -12,7 +12,10 @@ observability layer on: a batch read through ``materialize_profiled``
 (``deviceExecS`` > 0, the packed block's fetch bytes), an observed loop run
 (dispatch count == fused launches, each ``deviceExecS`` within its cycle,
 the memory sample's three keys, placements == the run with the recorders
-off) and the latency ledger on the card == the CPU loop's.
+off) and the latency ledger on the card == the CPU loop's. The wire
+service (``backend/service.py``) on the card against a CPU service:
+SchedulingBasic at depth 0 and 3, preemption hints, a restart and two
+replicas.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -1352,3 +1355,64 @@ def test_drain_wave_through_the_loop_matches_cpu(cuda, monkeypatch):
         views.append((summary, {k: p.spec.node_name for k, p in store.pods.items()}))
     assert views[0] == views[1]
     assert views[0][0]["gangs"] == 1 and all(views[0][1].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 3])
+def test_wire_loop_on_card_matches_cpu_service(cuda, depth):
+    """SchedulingBasic at 300 nodes through ``WireScheduler`` and
+    ``serve(DeviceService(device="cuda"))`` on 127.0.0.1 against the same
+    run on a CPU service at percentage 100: every pod bound, the same pods
+    per batch, counters and queue, and at depth 0 the same placements (at
+    depth 3 the service runs the batches in flight in lock order, C26),
+    one fused launch per full mode-off batch, nothing replayed or
+    resynced, the card's deviceTime echoed."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(300, 200, 300)
+    gpu = workloads.run_loop_wire(w, cuda, depth)
+    cpu = workloads.run_loop_wire(w, "cpu", depth, percentage=100)
+    keys = ("placed", "batch_pods", "metrics", "pending") if depth == 0 else (
+        "batch_pods", "metrics", "pending")
+    for key in keys:
+        assert gpu[key] == cpu[key], key
+    assert len(gpu["placed"]) == 500 and all(gpu["placed"].values())
+    assert gpu["placements"] == gpu["binds"] == 500 and not gpu["over_capacity"]
+    assert gpu["paths"] == ["fused"] * gpu["batches"]
+    assert gpu["launches"] == gpu["batches"] == gpu["client_batches"]
+    assert gpu["replays"] == gpu["resyncs"] == 0
+    assert gpu["device_time_ms"]["deviceExecMs"] > 0
+
+
+@pytest.mark.cuda
+def test_wire_preemption_on_card_matches_cpu_service(cuda):
+    """A small PreemptionBasic through the wire: hints from the screen on
+    the card, nominations equal to the CPU service's run."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.preemption_basic(nodes=48, init_pods=192, measured=48)
+    gpu = workloads.run_loop_wire(w, cuda, 0)
+    cpu = workloads.run_loop_wire(w, "cpu", 0, percentage=100)
+    for key in ("placed", "nominations", "metrics", "batch_pods"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["nominations"]
+
+
+@pytest.mark.cuda
+def test_wire_restart_and_replicas_on_card(cuda):
+    """A service restart mid-run: one full resync, no batch run twice,
+    placements equal to the CPU service's run with the same restart; two
+    replicas on one card service: one placement and one bind per pod, none
+    of a bound pod, no node over capacity, conflicts counted."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(300, 200, 300)
+    gpu = workloads.run_loop_wire(w, cuda, 0, restart_after=3)
+    cpu = workloads.run_loop_wire(w, "cpu", 0, percentage=100, restart_after=3)
+    assert gpu["placed"] == cpu["placed"]
+    assert gpu["resyncs"] == gpu["restarts"] == 1
+    assert gpu["launches"] == gpu["batches"] == gpu["client_batches"]
+    two = workloads.run_loop_wire(w, cuda, 3, replicas=2)
+    assert all(two["placed"].values()) and not two["double_binds"] and not two["over_capacity"]
+    assert two["placements"] == two["binds"] == len(two["placed"])
+    assert two["conflicts"] == two["service_conflicts"] > 0

@@ -170,9 +170,12 @@ def test_import_closure_has_no_jax():
     files = sorted((ROOT / "kubernetes_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     # every package of the port, the config package and the registry too
-    assert {"config", "framework", "plugins", "apiserver", "backend", "controllers"} <= {
-        p.parent.name for p in files}
+    assert {"config", "framework", "plugins", "apiserver", "backend", "controllers",
+            "testing"} <= {p.parent.name for p in files}
     assert ROOT / "kubernetes_tpu_torch" / "framework" / "registry.py" in files
+    # the wire service's modules (its own copies of the codec and faults)
+    for rel in ("backend/service.py", "api/codec.py", "testing/faults.py"):
+        assert ROOT / "kubernetes_tpu_torch" / rel in files, rel
     bad = []
     for path in files:
         for mod in _imports(path):
