@@ -22,7 +22,7 @@
    processes at once on the same card (``chip_smoke.py --group NAME``,
    started by this script and stopped by it on any failure or past
    GROUPS_DEADLINE_S), each phase in the group of the phases whose results
-   it reads: core (3-5, 11), batch (6, 8-10, 12-13) and loop (the
+   it reads: core (3-5, 11, 20), batch (6, 8-10, 12-13) and loop (the
    loop_basic part of 11, then 14-19, then 7). Each group's output is
    printed in that order once all have ended, a failed group's last.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
@@ -379,7 +379,29 @@
    and commit) and the echoed deviceTime (dwell / exec / fetch of the
    read, the batch program's CUDA events); the wire runs have telemetry on
    (for the echoed deviceTime).
-20. Each workload run prints pods/s, ms per batch, host ms per stage, and
+20. Loop_fabric phase: the device fabric on the card
+   (``backend/fabric.py``): one ``WireScheduler`` over two
+   ``serve(DeviceService(device="cuda"))`` replicas on 127.0.0.1, every
+   CPU reference this phase's own run. SchedulingBasic/1000Nodes (500 init
+   and 500 measured pods, depth 0) with the primary's endpoint killed
+   (``FaultPlan.kill``) after its third batch, with cold standbys and then
+   warm ones (the replicator on): one transient failover to the standby,
+   every pod bound once, launches equal to the batches the replicas ran
+   (per replica too), the primary's three batches run once, and the
+   placements, pods per batch, counters and queue of the same script on
+   two CPU services; the warm promote's resync uploads fewer row bytes
+   than the cold one's full seed. SchedulingBasic/1000Nodes (256 + 256
+   pods) with both replicas killed, then one healed (a FakeClock): the
+   breaker opens with nothing dispatched, the init pods take the
+   sequential path, the measured pods the batched path on the healed
+   replica, placements equal to the CPU's. When grpc and protobuf are
+   installed (decided from ``importlib.util.find_spec``, and printed),
+   SchedulingBasic/5000Nodes over gRPC (``serve_grpc``) and over HTTP at
+   depth 0: placements, counters and queue equal to a CPU loop run, one
+   fused launch per batch. Prints the failover ms, the promote bytes warm
+   against cold, ``standby_resync_bytes`` by kind, pods/s, attempt p50 /
+   p99, and the gRPC per-batch split and request bytes beside HTTP's.
+21. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -392,6 +414,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import statistics
@@ -3177,7 +3200,9 @@ def _wire_report(name: str, run: dict) -> None:
     split = ", ".join(f"{k} {v:.3f}" for k, v in run["wire_split_ms"].items() if v is not None)
     dev = ", ".join(f"{k} {v:.4f}" for k, v in run["device_time_ms"].items())
     att = run["attempt_ms"] or {}
-    print(f"{name} through the wire (depth {run['depth']}, {run['replicas']} replica(s)): "
+    services = len(run.get("per_replica") or (None,))
+    print(f"{name} through the {run['transport']} wire (depth {run['depth']}, "
+          f"{run['replicas']} client(s), {services} service(s)): "
           f"{run['metrics']['scheduled']} pods bound, {run['client_batches']} batches sent, "
           f"{run['batches']} run on the service (paths {sorted(set(run['paths']))}), fused "
           f"launches {run['launches']}, replays {run['replays']}, resyncs {run['resyncs']}, "
@@ -3317,6 +3342,171 @@ def loop_wire_phase(loop: dict) -> dict:
     return out
 
 
+FABRIC_NODES = 1000  # the fabric runs' SchedulingBasic size: 1000 nodes,
+FABRIC_PODS = 500    # 500 init and 500 measured pods
+FABRIC_KILL_AFTER = 3  # the primary is killed after this many batches
+OUTAGE_PODS = 256    # the all-replicas-down run's init and measured pods
+FABRIC_KEYS = WIRE_KEYS + ("client_batches",)
+
+
+def _fabric_report(name: str, run: dict) -> None:
+    att = run["attempt_ms"] or {}
+    print(f"{name}: {run['metrics']['scheduled']} pods bound, failovers {run['failovers']}, "
+          f"active replica {run['active']}, per replica (batches, fused launches) "
+          + ", ".join(f"({r['batches']}, {r['launches']})" for r in run["per_replica"])
+          + f"; failover {run['failover_ms']:.1f} ms from the kill to the end of the promoted "
+          f"replica's first batch (mostly the configured retry sleeps and pod backoff), the "
+          f"fabric's promotion {run['promote_ms']:.1f} ms from the error reaching it to the "
+          f"flip; promote resync uploaded {run['promote_bytes']} row bytes; "
+          f"replication bytes {run['replication_bytes']}; measured phase "
+          f"{run['pods_per_s']:.1f} pods/s, attempt ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in att.items()))
+
+
+def _check_fabric(label: str, run: dict, n_pods: int, card: bool = True) -> None:
+    """One transient failover to the standby, every pod bound once, none
+    run twice; on the card launches == the batches the replicas ran."""
+    per = run["per_replica"]
+    if run["failovers"] != {"transient": 1} or run["active"] != 1:
+        raise AssertionError(f"{label}: failovers {run['failovers']}, active {run['active']}")
+    if not (run["placements"] == run["binds"] == n_pods and all(run["placed"].values())):
+        raise AssertionError(f"{label}: {run['placements']} placements, {run['binds']} binds "
+                             f"for {n_pods} pods")
+    if run["batches"] != run["client_batches"] or card and not (
+            run["launches"] == run["batches"] == sum(r["launches"] for r in per)
+            == sum(r["batches"] for r in per) and all(r["batches"] == r["launches"]
+                                                      for r in per)):
+        raise AssertionError(f"{label}: {run['launches']} launches, {run['batches']} batches "
+                             f"run, {run['client_batches']} sent, per replica {per}")
+    if run["replays"] or per[0]["batches"] != FABRIC_KILL_AFTER:
+        raise AssertionError(f"{label}: a batch ran twice, or the primary ran "
+                             f"{per[0]['batches']} batches")
+
+
+def _check_outage(label: str, run: dict, n_pods: int, card: bool) -> None:
+    """The breaker open with nothing dispatched while the replicas were
+    down, the pods on the sequential path; after the heal the batched path
+    on the replica that came back, one launch per batch."""
+    out, healed = run["outage"], run["healed"]
+    if not (out["breaker"] == "open" and out["degraded_pods"] == OUTAGE_PODS
+            and out["batches"] == [0, 0] and out["launches"] == 0):
+        raise AssertionError(f"{label}: while every replica was down: {out}")
+    if healed["dispatched_open"] or out["dispatched_open"]:
+        raise AssertionError(f"{label}: a batch was dispatched while the breaker was open")
+    if not (healed["breaker"] == "closed" and healed["active"] == 1
+            and healed["batches"][0] == 0 and healed["batches"][1] > 0
+            and healed["failovers"] == {"transient": 1}
+            and healed["degraded_pods"] == OUTAGE_PODS):
+        raise AssertionError(f"{label}: after the heal: {healed}")
+    if card and healed["launches"] != healed["batches"][1]:
+        raise AssertionError(f"{label}: {healed['launches']} launches for "
+                             f"{healed['batches'][1]} batches")
+    if run["bound"] != n_pods:
+        raise AssertionError(f"{label}: {run['bound']} of {n_pods} pods bound")
+
+
+def loop_fabric_phase() -> dict:
+    """The device fabric on the card (``backend/fabric.py``): one
+    ``WireScheduler`` over two ``serve(DeviceService(device="cuda"))``
+    replicas on 127.0.0.1. SchedulingBasic/1000Nodes with the primary killed
+    after three batches, cold standbys and warm ones (the replicator on),
+    each against the same script on two CPU services; all replicas down and
+    one healed, against the CPU; and, when the machine has grpc and
+    protobuf, SchedulingBasic/5000Nodes over gRPC beside HTTP against the
+    CPU loop. Every CPU reference is this phase's own run."""
+    out = {}
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+    basic = workloads.scheduling_basic(FABRIC_NODES, FABRIC_PODS, FABRIC_PODS)
+    n_pods = 2 * FABRIC_PODS
+    kw = dict(fabric_replicas=2, kill_primary_after=FABRIC_KILL_AFTER)
+    cpu = _wire_run(basic, f"{basic.name} [cpu fabric]", "cpu", 0, percentage=100, **kw)
+    _check_fabric(f"{basic.name} [cpu fabric]", cpu, n_pods, card=False)
+    runs = {}
+    for mode, warm in (("cold", False), ("warm", True)):
+        label = f"{basic.name} [fabric, {mode} standby, primary killed]"
+        gpu = _wire_run(basic, label, "cuda", 0, standby_replication=warm, **kw)
+        _check_fabric(label, gpu, n_pods)
+        _check_wire_same(label, gpu, cpu, FABRIC_KEYS, "cpu fabric")
+        if set(gpu["paths"]) != {"fused"}:
+            raise AssertionError(f"{label}: paths {set(gpu['paths'])}")
+        _fabric_report(label, gpu)
+        runs[mode] = gpu
+        out[f"{basic.name}/{mode}"] = {"launches": gpu["launches"], "run": gpu}
+    cold, warm = runs["cold"], runs["warm"]
+    if not (0 < warm["promote_bytes"] < cold["promote_bytes"]
+            and warm["replication_bytes"].get("full", 0) > 0):
+        raise AssertionError(f"warm standby: promote bytes {warm['promote_bytes']} against "
+                             f"cold {cold['promote_bytes']}, replication "
+                             f"{warm['replication_bytes']}")
+    print(f"{basic.name}: the warm standby's promote resync uploaded {warm['promote_bytes']} "
+          f"row bytes against the cold standby's full seed of {cold['promote_bytes']}; "
+          f"standby_resync_bytes by kind {warm['replication_bytes']}; both runs == the cpu "
+          "fabric's placements, counters and queue")
+    part("failover")
+
+    small = workloads.scheduling_basic(FABRIC_NODES, OUTAGE_PODS, OUTAGE_PODS)
+    o_cpu = workloads.run_fabric_outage(small, "cpu", percentage=100)
+    o_gpu = workloads.run_fabric_outage(small, "cuda")
+    for label, run in (("cpu", o_cpu), ("cuda", o_gpu)):
+        _check_outage(f"{small.name} [all replicas down, {label}]", run, 2 * OUTAGE_PODS,
+                      card=label == "cuda")
+    if o_gpu["placed"] != o_cpu["placed"]:
+        raise AssertionError(f"{small.name} [all replicas down]: placements differ from the "
+                             "cpu's")
+    print(f"{small.name} with every replica down: the breaker opened, "
+          f"{o_gpu['outage']['degraded_pods']} pods on the sequential path, nothing dispatched "
+          f"while open; after the heal the batched path on replica {o_gpu['healed']['active']} "
+          f"({o_gpu['healed']['batches'][1]} batches, {o_gpu['healed']['launches']} fused "
+          "launches); placements == the cpu's")
+    out[f"{small.name}/outage"] = {"launches": o_gpu["healed"]["launches"], "run": o_gpu}
+    part("outage")
+
+    have_grpc = (importlib.util.find_spec("grpc") is not None
+                 and importlib.util.find_spec("google.protobuf") is not None)
+    if not have_grpc:
+        print("gRPC: not run, grpc or google.protobuf is not installed on this machine; the "
+              "gRPC transport runs in the CPU tests only")
+    else:
+        import google.protobuf
+        import grpc
+
+        print(f"gRPC: run, grpc {grpc.__version__}, protobuf {google.protobuf.__version__}")
+        big = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+        with _env(**RING):
+            l_cpu = workloads.run_loop(big, "cpu", percentage=100)
+        both = {}
+        for transport in ("grpc", "http"):
+            label = f"{big.name} [{transport}, depth 0]"
+            gpu = _wire_run(big, label, "cuda", 0, transport=transport)
+            _check_wire_same(label, gpu, l_cpu, WIRE_LOOP_KEYS, "cpu loop")
+            _check_all_bound(label, big, gpu)
+            if set(gpu["paths"]) != {"fused"} or not (
+                    gpu["launches"] == gpu["batches"] == gpu["client_batches"]):
+                raise AssertionError(f"{label}: paths {set(gpu['paths'])}, {gpu['launches']} "
+                                     f"launches, {gpu['batches']} batches run, "
+                                     f"{gpu['client_batches']} sent")
+            both[transport] = gpu
+        g, h = both["grpc"], both["http"]
+        print(f"{big.name} over gRPC: placements, counters and queue == the cpu loop, one fused "
+              f"launch per batch; per measured batch (median ms) gRPC / HTTP: "
+              + ", ".join(f"{k} {g['wire_split_ms'][k]:.3f} / {h['wire_split_ms'][k]:.3f}"
+                          for k in g["wire_split_ms"] if g["wire_split_ms"][k] is not None)
+              + f"; scheduleBatch request bytes gRPC {g['request_bytes']} (template "
+              f"deduplicated) / HTTP JSON {h['request_bytes']} over {g['client_batches']} "
+              f"batches; pods/s {g['pods_per_s']:.1f} / {h['pods_per_s']:.1f}")
+        out[f"{big.name}/grpc"] = {"launches": g["launches"], "run": g}
+        part("grpc")
+    print("loop_fabric phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -3335,9 +3525,11 @@ def core_group(timed, kern: dict) -> dict:
     topo = timed("topology", topology_phase)
     spec = timed("spec", spec_phase, sl, topo)
     loop = timed("loop", loop_phase, topo, spec)
+    fabric = timed("loop_fabric", loop_fabric_phase)
     return {"main_launches": sl["launches"],
             "launches": {sl["workload"].name: sl["launches"],
-                         **{f"loop:{k}": v["launches"] for k, v in loop.items()}}}
+                         **{f"loop:{k}": v["launches"] for k, v in loop.items()},
+                         **{f"fabric:{k}": v["launches"] for k, v in fabric.items()}}}
 
 
 def batch_group(timed, kern: dict) -> dict:

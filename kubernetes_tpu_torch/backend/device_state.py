@@ -112,6 +112,7 @@ class DeviceState:
         self.rows_uploaded = 0
         self.rows_elided = 0
         self.last_upload_bytes = 0  # the bytes the last sync uploaded
+        self.upload_bytes = 0       # the row bytes every sync uploaded, summed
         self.nodes_removed = 0
         # host mirror of the device row content, initialized to the empty-row
         # encoding (label_num is INT_NONE-filled, topo fields -1)
@@ -265,6 +266,7 @@ class DeviceState:
                     0, idx, tensor_from_numpy(field, stacked, self.device))
         self.rows_uploaded += n
         self.last_upload_bytes = nbytes
+        self.upload_bytes += nbytes
         telemetry.transfer("upload", nbytes)
         return n
 

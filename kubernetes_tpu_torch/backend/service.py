@@ -40,6 +40,9 @@ rows and the batch. Four pieces:
     bind tail stay the port's host machinery (the bind tail is the
     loop's: ``TPUScheduler._assume``, ``_commit_bindings``,
     ``_bind_stage``). It runs nothing on a device and takes no ``device``.
+    Its client is a ``WireClient``, a ``grpc_service.GrpcClient``
+    (``transport="grpc"``), or, for more than one endpoint, a
+    ``fabric.DeviceFabric`` of either, as in JAX.
 
 No fallback hides the card: ``DeviceService(device=None)`` raises without
 CUDA, and a failure of the batch program, of the kernel's build or launch,
@@ -48,11 +51,10 @@ or of the preemption screen raises out of ``schedule_batch`` (HTTP 500, a
 screen's hints (``:975``); ``WireScheduler`` raises that error out of its
 cycle, where the JAX client counts it against its breaker and, once the
 breaker opens, schedules on the host. Only a transport failure
-(``TransientDeviceError``) counts against the breaker. Two branches of
-the JAX client are not ported: ``transport="grpc"``
-(``backend/grpc_service.py``) and more than one endpoint (the device
-fabric, ``backend/fabric.py``); each raises
-NotImplementedError. The JAX lock tracer is not ported: plain locks.
+(``TransientDeviceError``, a fabric's ``FailoverError`` from a replica lost
+to one) counts against the breaker; a failover from a permanent error raises
+that error once the fabric has promoted a standby. The JAX lock tracer is
+not ported: plain locks.
 
 Which pods ride the wire (``_wire_supported``): no volumes, claims that
 resolve, and a profile the batch program implements (the loop's
@@ -114,8 +116,8 @@ from .claim_mask import (ClaimMaskBuilder, build_dra_mask, wire_claims_for_batch
                          wire_claims_to_entries)
 from .commit_plane import materialize_profiled
 from .device_state import DeviceState, caps_for_cluster
-from .errors import (ConflictError, DeviceServiceError, PermanentDeviceError, RetryPolicy,
-                     StaleEpochError, TransientDeviceError, raise_injected_fault)
+from .errors import (ConflictError, DeviceServiceError, FailoverError, PermanentDeviceError,
+                     RetryPolicy, StaleEpochError, TransientDeviceError, raise_injected_fault)
 from .sizer import BatchSizer
 from .tpu_scheduler import ATTRIBUTION_ORDER, GROW_ATTEMPTS, TPUScheduler, _default_full_batch
 
@@ -780,9 +782,10 @@ class DeviceService:
                 self.stage_seconds[k] += v
             service_ms = {f"{k}Ms": round(v * 1e3, 3) for k, v in laps.items()}
             service_ms["decodeMs"] = round(decode_s * 1e3, 3)
-            service_ms["totalMs"] = round((time.perf_counter() - t0) * 1e3, 3)
+            total_s = time.perf_counter() - t0
+            service_ms["totalMs"] = round(total_s * 1e3, 3)
             self.batch_log.append({"batchId": batch_id, "client": cid, "pods": len(pods),
-                                   "path": disp.path, "mode": enc.mode, **laps,
+                                   "path": disp.path, "mode": enc.mode, **laps, "total": total_s,
                                    "decode": decode_s, "push": self._push_seconds,
                                    "push_sync": self._push_sync,
                                    "deviceExecS": rec.get("deviceExecS") if rec else None})
@@ -1178,7 +1181,13 @@ class WireScheduler(Scheduler):
     """The control plane driving a device service over the wire
     (``:1433``): the loop's host machinery (queue order, the host gates,
     assume and bind, failure handling and backoff) around remote batches.
-    ``endpoint`` is one ``http://host:port``; ``wire_pipeline_depth`` keeps
+    ``endpoint`` is one ``http://host:port`` (``host:port`` over gRPC), a
+    comma-separated string of them or a sequence: more than one builds the
+    device fabric (``backend/fabric.py``), whose standbys the
+    ``standby_replication`` worker keeps warm and whose down replicas are
+    re-probed every ``fabric_probe_interval_s``; ``fault_plan`` may then be
+    a list, one plan per endpoint. ``transport`` is ``"http"`` or
+    ``"grpc"`` (``backend/grpc_service.py``). ``wire_pipeline_depth`` keeps
     that many batches in flight (``KTPU_WIRE_PIPELINE_DEPTH``, 3; 0 is
     synchronous); ``batch_deadline_ms`` feeds the deadline sizer of the
     synchronous pop (``KTPU_BATCH_DEADLINE_MS``, 500; 0 pops ``batch_size``).
@@ -1192,32 +1201,54 @@ class WireScheduler(Scheduler):
                  breaker_threshold: int = 3, breaker_reset_s: float = 5.0,
                  client_id: Optional[str] = None,
                  heartbeat_interval_s: float = 5.0,
+                 fabric_probe_interval_s: float = 5.0,
                  wire_pipeline_depth: Optional[int] = None,
                  batch_deadline_ms: Optional[float] = None,
+                 standby_replication: bool = True,
                  fault_plan=None, sleep_fn=None, **kwargs):
-        if transport == "grpc":
-            raise NotImplementedError(
-                "transport='grpc' is the JAX package's backend/grpc_service.py, not ported "
-                "yet; the port speaks HTTP/JSON only")
-        if transport != "http":
+        if transport not in ("http", "grpc"):
             raise ValueError(f"unknown transport {transport!r}")
         endpoints = ([e.strip() for e in endpoint.split(",") if e.strip()]
                      if isinstance(endpoint, str) else [str(e) for e in endpoint])
         if not endpoints:
-            raise ValueError("WireScheduler needs an endpoint")
-        if len(endpoints) > 1 or isinstance(fault_plan, (list, tuple)):
-            raise NotImplementedError(
-                "more than one endpoint is the JAX package's device fabric "
-                "(backend/fabric.py), not ported yet")
+            raise ValueError("WireScheduler needs at least one endpoint")
+        plans = (list(fault_plan) if isinstance(fault_plan, (list, tuple))
+                 else [fault_plan] * len(endpoints))
+        if len(plans) != len(endpoints):
+            raise ValueError(f"fault_plan list ({len(plans)}) must match endpoints "
+                             f"({len(endpoints)})")
         super().__init__(store, **kwargs)
+        sleep_fn = sleep_fn if sleep_fn is not None else time.sleep
         self.retry_policy = RetryPolicy(
             max_retries=wire_max_retries, backoff_base=wire_backoff_base,
             backoff_max=wire_backoff_max, deadline_s=wire_deadline_s,
-            sleep_fn=sleep_fn if sleep_fn is not None else time.sleep, now_fn=self.now_fn,
+            sleep_fn=sleep_fn, now_fn=self.now_fn,
             on_retry=lambda op: self.smetrics.wire_retries.inc(op))
-        self.client = WireClient(endpoints[0], connect_timeout=connect_timeout,
-                                 read_timeout=read_timeout, retry=self.retry_policy,
-                                 fault_plan=fault_plan)
+        if transport == "grpc":
+            from .grpc_service import GrpcClient
+
+            def make_client(ep, plan, retry=None):
+                return GrpcClient(ep, read_timeout=read_timeout, retry=retry or self.retry_policy,
+                                  fault_plan=plan)
+        else:
+            def make_client(ep, plan, retry=None):
+                return WireClient(ep, connect_timeout=connect_timeout, read_timeout=read_timeout,
+                                  retry=retry or self.retry_policy, fault_plan=plan)
+        if len(endpoints) > 1:
+            from .fabric import DeviceFabric
+
+            # probes of a maybe-dead replica run on the scheduling thread:
+            # one attempt each, no backoff sleeps
+            probe_retry = RetryPolicy(max_retries=0, backoff_base=wire_backoff_base,
+                                      backoff_max=wire_backoff_max, deadline_s=wire_deadline_s,
+                                      sleep_fn=sleep_fn, now_fn=self.now_fn)
+            self.client = DeviceFabric(
+                endpoints, lambda ep, i: make_client(ep, plans[i]),
+                probe_client_factory=lambda ep, i: make_client(ep, plans[i], retry=probe_retry),
+                metrics=self.smetrics, now_fn=self.now_fn,
+                probe_interval_s=fabric_probe_interval_s, replication=standby_replication)
+        else:
+            self.client = make_client(endpoints[0], plans[0])
         self.batch_size = batch_size
         # N transport failures in a row open the breaker: every pod then
         # takes the sequential path until a half-open probe heals the wire
@@ -1258,8 +1289,10 @@ class WireScheduler(Scheduler):
         self._wire_inflight: Deque[_WireInflight] = deque()
         self._wire_pipeline: Optional[WirePipeline] = None
         if wire_pipeline_depth:
-            self._wire_pipeline = WirePipeline(self.client.schedule_batch, wire_pipeline_depth,
-                                               fault_plan=fault_plan)
+            # a fabric's reply-side faults are its endpoints' business
+            self._wire_pipeline = WirePipeline(
+                self.client.schedule_batch, wire_pipeline_depth,
+                fault_plan=plans[0] if len(endpoints) == 1 else None)
         self.pipelined_wire_batches = 0
         # bumped by every full resync and rejoin: a reply completed before
         # the bump must not re-adopt its stale epoch and session stamps
@@ -1306,7 +1339,8 @@ class WireScheduler(Scheduler):
         program implements."""
         if pod.spec.volumes:
             return False
-        if pod.spec.resource_claims and not self._claim_masks.batchable(pod):
+        if pod.spec.resource_claims and not (getattr(self.client, "supports_dra", False)
+                                             and self._claim_masks.batchable(pod)):
             return False
         fwk = self.framework_for_pod(pod)
         cached = self._batchable_cache.get(fwk.profile_name)
@@ -1630,7 +1664,16 @@ class WireScheduler(Scheduler):
         out of the cycle, as the loop raises a device error that is not
         transient (``TPUScheduler``'s relay), so that no breaker sends the
         pods to the sequential path on the host in its place; the JAX
-        client counts it against the breaker too."""
+        client counts it against the breaker too. A fabric's
+        ``FailoverError`` is a transport failure only when the replica it
+        left was lost to one: after a permanent error the fabric has already
+        promoted a standby (``reason="permanent"``), and the cause is raised
+        as a bare ``PermanentDeviceError`` is, so that replicas failing in
+        turn never open the breaker."""
+        cause = exc.__cause__ if isinstance(exc, FailoverError) else None
+        if isinstance(cause, DeviceServiceError) and not isinstance(cause, TransientDeviceError):
+            self._requeue_wire_failure(batch, exc, pod_cycle, t0, batch_id=batch_id)
+            raise cause
         if not isinstance(exc, TransientDeviceError):
             self._requeue_wire_failure(batch, exc, pod_cycle, t0, batch_id=batch_id)
             raise exc
@@ -1942,8 +1985,12 @@ class WireScheduler(Scheduler):
                 self._commit_bindings(live, pod_cycle, t0)
 
     def close(self) -> None:
-        """Land every batch in flight."""
+        """Land every batch in flight, then release the client (a fabric's
+        replication worker, a gRPC channel)."""
         self._drain_wire_inflight()
+        close = getattr(self.client, "close", None)
+        if close is not None:
+            close()
 
     def debug_sessions(self) -> dict:
         """The /debug/sessions body: this replica's session and the
@@ -1958,8 +2005,12 @@ class WireScheduler(Scheduler):
         return out
 
     def debug_fabric(self) -> dict:
-        """The /debug/fabric body: one endpoint, no fabric."""
-        return {"enabled": False, "endpoint": self.client.endpoint}
+        """The /debug/fabric body (``:2516``): the fabric's ``dump()``, or
+        ``enabled: False`` and the one endpoint."""
+        dump = getattr(self.client, "dump", None)
+        if dump is None:
+            return {"enabled": False, "endpoint": self.client.endpoint}
+        return dump()
 
     def debug_circuit(self) -> dict:
         """The /debug/circuit body: the breaker, the resync and degradation

@@ -78,6 +78,9 @@ EVENT_KINDS = frozenset({
     # time a service echoes
     "conflict", "fence", "takeover", "pipeline_poison", "pipeline_dup_reply",
     "wire_device_time",
+    # the device fabric: a replica lost or back, the failover, and the
+    # warm-standby replicator's pushes
+    "replica_down", "replica_rejoin", "failover", "replication",
     # device runtime
     "retrace_storm",
     # elasticity: slot reuse, node removal, the drain orchestrator's waves

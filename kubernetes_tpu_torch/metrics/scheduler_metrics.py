@@ -185,6 +185,16 @@ class SchedulerMetrics:
         self.client_sessions = Gauge()                 # scheduler_client_sessions
         self.ha_takeovers = Counter()                  # scheduler_ha_takeovers_total
         self.commit_conflicts = Counter()              # scheduler_commit_conflicts_total, by client
+        # the device fabric (backend/fabric.py): the replica it routes to
+        # (an index into its endpoints), failovers by the failing error's
+        # family, each replica's health (1 up, 0 down), how many delta
+        # generations each standby lags, and the bytes the warm-standby
+        # replicator shipped (full seeds and dirty suffixes)
+        self.fabric_active_replica = Gauge()           # scheduler_fabric_active_replica
+        self.fabric_failovers = Counter()              # by reason: transient, permanent
+        self.fabric_replica_health = Gauge()           # by endpoint
+        self.standby_replication_lag = Gauge()         # by endpoint
+        self.standby_resync_bytes = Counter()          # by kind: full, delta
         # the device runtime (backend/telemetry.py): kernel builds, device
         # memory, transfers, flight events, the dispatch waterfall
         self.xla_compilations = Counter()              # by (program, bucket)

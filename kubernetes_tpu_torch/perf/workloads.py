@@ -1236,7 +1236,7 @@ def _wire_split(sched, service_log: List[dict]) -> List[dict]:
         s = by_id.get(c["batchId"])
         if s is None:
             continue  # a replayed reply: the service ran it once, in another record
-        handler = (c.get("serviceTime") or {}).get("totalMs", 0.0) / 1e3
+        handler = s["total"]  # the handler's seconds (HTTP also echoes them as serviceTime)
         out.append({
             "batchId": c["batchId"], "pods": c["pods"], "path": s["path"],
             "client_encode": c["encode"] * 1e3, "client_push": c["push"] * 1e3,
@@ -1250,9 +1250,25 @@ def _wire_split(sched, service_log: List[dict]) -> List[dict]:
     return out
 
 
+def _serve_wire(service, transport: str):
+    """(server, endpoint, stop) of ``service`` on 127.0.0.1 over
+    ``transport``."""
+    if transport == "grpc":
+        from ..backend.grpc_service import serve_grpc
+
+        server, port = serve_grpc(service)
+        return server, f"127.0.0.1:{port}", lambda: server.stop(0).wait(10)
+    from ..backend.service import serve, stop
+
+    server, port = serve(service)
+    return server, f"http://127.0.0.1:{port}", lambda: stop(server)
+
+
 def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
                   percentage: int = 0, replicas: int = 1,
-                  restart_after: Optional[int] = None) -> dict:
+                  restart_after: Optional[int] = None, transport: str = "http",
+                  fabric_replicas: int = 1, kill_primary_after: Optional[int] = None,
+                  standby_replication: bool = False) -> dict:
     """Drive ``w`` through ``WireScheduler`` against ``serve(DeviceService(
     device=device))`` on 127.0.0.1 (``backend/service.py``): the wire
     counterpart of ``run_loop``, as the JAX harness's wire runner
@@ -1260,13 +1276,21 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
     service's pod axis is ``batch_size``, the clients pop ``batch_size``
     at ``depth`` batches in flight (``wire_pipeline_depth``), the deadline
     sizer off; ``percentage`` is the service's percentageOfNodesToScore.
+    ``transport`` is ``"http"`` or ``"grpc"`` (``serve_grpc``).
     ``replicas`` > 1 runs that many WireSchedulers on the one store and
     service, one cycle each in turn (``_settle_replicas``; pod backoff
     ``REPLICA_BACKOFF_S``): their batches race for the same pods, and the
     service's ownership check answers the losers with conflicts.
     ``restart_after`` restarts the service (``ServiceBinding.restart``: new
-    epoch, empty mirror) once, after the first cycle in which the first
-    replica's processed batches reach it. Telemetry is on for the run (the
+    epoch, empty mirror; HTTP only) once, after the first cycle in which the
+    first replica's processed batches reach it. ``fabric_replicas`` > 1
+    serves that many DeviceServices on ``device``, each endpoint with its
+    own ``FaultPlan``, and one WireScheduler drives them all through the
+    device fabric (``standby_replication`` is its warm-standby worker; pod
+    backoff ``REPLICA_BACKOFF_S``, settled by ``_settle_replicas``);
+    ``kill_primary_after`` kills the first endpoint (``FaultPlan.kill``:
+    every call to it fails) once, after the first cycle in which the
+    client's processed batches reach it. Telemetry is on for the run (the
     echoed ``deviceTime``) unless a recorder already was.
 
     Returns ``run_loop``'s keys that apply (``placed``, ``pods_per_s``,
@@ -1288,27 +1312,55 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
     (binds the store took), ``double_binds`` (pods whose bind the store
     refused because they were bound already: must be empty),
     ``over_capacity`` (nodes whose bound
-    requests pass their allocatable), ``depth``, ``replicas``. Every socket
-    is closed before it returns."""
+    requests pass their allocatable), ``depth``, ``replicas``,
+    ``transport``, ``request_bytes`` (the scheduleBatch requests' encoded
+    bytes, summed: JSON over HTTP, the template-deduplicated protobuf over
+    gRPC), and with a fabric: ``failovers`` (by reason), ``active`` (the
+    active replica's index), ``per_replica`` (each service's ``batches``
+    and fused ``launches``, counted around its calls: exact at depth 0),
+    ``failover_ms`` (wall ms from the kill to the end of the first batch the
+    promoted replica ran: mostly the client's configured retry sleeps and
+    the pods' backoff), ``promote_ms`` (wall ms of the fabric's own
+    promotion, the first ``_replica_lost``: from the lost replica's error
+    reaching the fabric to the flip of the active replica, the standby's
+    Health probe included), ``promote_bytes`` (the row bytes the promoted
+    service's DeviceState uploaded from the kill to its first batch: the
+    resync), ``replication_bytes`` (the warm-standby pushes' JSON bytes by
+    kind, ``full`` and ``delta``). Every socket is closed before it
+    returns."""
     import gc
+    import json
     import time
 
-    from ..backend.service import DeviceService, WireScheduler, serve, stop
+    from ..backend.service import DeviceService, WireScheduler
     from ..ops import fused_step
+    from ..testing.faults import FaultPlan
 
+    if restart_after is not None and transport != "http":
+        raise ValueError("restart_after restarts an HTTP binding")
+    n_services = max(1, fabric_replicas)
     services = [DeviceService(batch_size=batch_size, percentage_of_nodes_to_score=percentage,
-                              device=device)]
-    server, port = serve(services[0])
+                              device=device) for _ in range(n_services)]
+    stops, endpoints, servers = [], [], []
     own_telemetry = telemetry.get() is None
+    scheds = []
     try:
+        for svc in services:
+            server, endpoint, stop_fn = _serve_wire(svc, transport)
+            servers.append(server)
+            endpoints.append(endpoint)
+            stops.append(stop_fn)
         store = Store()
         backoff = {}
-        if replicas > 1:
+        if replicas > 1 or n_services > 1:
             backoff = dict(pod_initial_backoff=REPLICA_BACKOFF_S[0],
                            pod_max_backoff=REPLICA_BACKOFF_S[1])
-        scheds = [WireScheduler(store, endpoint=f"http://127.0.0.1:{port}",
-                                batch_size=batch_size, wire_pipeline_depth=depth,
-                                batch_deadline_ms=0, client_id=f"wire-{r}", **backoff)
+        plans = [FaultPlan() for _ in services] if n_services > 1 else None
+        scheds = [WireScheduler(store, endpoint=endpoints if n_services > 1 else endpoints[0],
+                                transport=transport, batch_size=batch_size,
+                                wire_pipeline_depth=depth, batch_deadline_ms=0,
+                                client_id=f"wire-{r}", fault_plan=plans,
+                                standby_replication=standby_replication, **backoff)
                   for r in range(replicas)]
         sched = scheds[0]
         if own_telemetry:
@@ -1318,7 +1370,7 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
         # because the pod was bound already: with the ownership check, a
         # pod another replica holds gets a conflict, so that placements ==
         # binds and no bind reaches a bound pod
-        tally = {"placements": 0, "binds": 0}
+        tally = {"placements": 0, "binds": 0, "request_bytes": 0}
         double_binds: List[str] = []
         bind_batch, bind_one = store.bind_batch, store.bind
 
@@ -1349,19 +1401,80 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
                 return _process(batch, res, pod_cycle, t0)
 
             s._process_wire_results = counted_results
-        if restart_after is not None:
+        if transport == "grpc":
+            from ..backend.grpc_service import _batch_to_proto
+
+            def request_bytes(payload):
+                return _batch_to_proto(payload).ByteSize()
+        else:
+            def request_bytes(payload):
+                return len(json.dumps(payload).encode())
+        for s in scheds:
+            for client in ([rep.client for rep in s.client.replicas] if n_services > 1
+                           else [s.client]):
+                def sized(payload, _send=client.schedule_batch):
+                    tally["request_bytes"] += request_bytes(payload)
+                    return _send(payload)
+
+                client.schedule_batch = sized
+            if n_services == 1 and s._wire_pipeline is not None:
+                s._wire_pipeline._send = s.client.schedule_batch
+        kill = {"t": None, "bytes": {}, "first": None, "promote_bytes": None}
+        per_replica = [{"batches": 0, "launches": 0} for _ in services]
+
+        def upload_mark(svc):
+            state = svc.state
+            return (id(state), state.upload_bytes) if state is not None else (None, 0)
+
+        for i, svc in enumerate(services):
+            real = svc.schedule_batch
+
+            def counted_batch(req, _real=real, _i=i, _svc=svc):
+                if kill["t"] is not None and kill["first"] is None and _i != 0:
+                    ident, nbytes = upload_mark(_svc)
+                    at_kill = kill["bytes"][_i]
+                    kill["promote_bytes"] = nbytes - (at_kill[1] if at_kill[0] == ident else 0)
+                before_batches, before = _svc.batch_counter, fused_step.LAUNCHES
+                out = _real(req)
+                per_replica[_i]["launches"] += fused_step.LAUNCHES - before
+                per_replica[_i]["batches"] += _svc.batch_counter - before_batches
+                if kill["t"] is not None and kill["first"] is None and _i != 0:
+                    kill["first"] = time.perf_counter()
+                return out
+
+            svc.schedule_batch = counted_batch
+        promote = {"ms": None}
+        if n_services > 1:
+            lost = sched.client._replica_lost
+
+            def timed_lost(*args, _lost=lost):
+                t = time.perf_counter()
+                out = _lost(*args)
+                if promote["ms"] is None:
+                    promote["ms"] = (time.perf_counter() - t) * 1e3
+                return out
+
+            sched.client._replica_lost = timed_lost
+        if restart_after is not None or kill_primary_after is not None:
             cycle = sched.schedule_batch_cycle
 
-            def cycle_then_restart():
+            def cycle_then_fault():
                 n = cycle()
-                if len(services) == 1 and len(sched.wire_log) >= restart_after:
-                    services.append(server.binding.restart())
+                done = len(sched.wire_log)
+                if restart_after is not None and len(services) == 1 \
+                        and done >= restart_after:
+                    services.append(servers[0].binding.restart())
+                if kill_primary_after is not None and kill["t"] is None \
+                        and done >= kill_primary_after:
+                    kill["bytes"] = {i: upload_mark(svc) for i, svc in enumerate(services)}
+                    kill["t"] = time.perf_counter()
+                    plans[0].kill()
                 return n
 
-            sched.schedule_batch_cycle = cycle_then_restart
+            sched.schedule_batch_cycle = cycle_then_fault
 
         def settle() -> int:
-            if replicas == 1:
+            if len(scheds) == 1 and n_services == 1:
                 return sched.run_until_settled()
             return _settle_replicas(scheds)
 
@@ -1413,7 +1526,7 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
                     v > ni.allocatable.get(k) for k, v in ni.requested.as_map().items()
                     if k != resource_api.PODS):
                 over.append(name)
-        return {
+        out = {
             "placed": {k: p.spec.node_name for k, p in store.pods.items()},
             "pods_per_s": w.n_measured / measured_s, "measured_s": measured_s,
             "attempt_ms": {f"p{q}": hist.quantile(q / 100, "scheduled", DEFAULT_SCHEDULER,
@@ -1441,15 +1554,117 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
             "conflicts": sum(s.smetrics.commit_conflicts.labels(s.client_id) for s in scheds),
             "service_conflicts": sum(svc.commit_conflicts for svc in services),
             "rejoins": sum(s.session_rejoins for s in scheds),
-            "restarts": len(services) - 1,
+            "restarts": len(services) - n_services,
             "degraded_pods": sum(s.degraded_pods for s in scheds),
             "double_binds": sorted(double_binds), **tally,
             "over_capacity": over, "depth": depth, "replicas": replicas,
+            "transport": transport,
         }
+        if n_services > 1:
+            out.update({
+                "failovers": dict((k[0], v) for k, v in
+                                  sched.smetrics.fabric_failovers.by_labels.items()),
+                "active": sched.client.active_replica().index,
+                "per_replica": per_replica,
+                "failover_ms": ((kill["first"] - kill["t"]) * 1e3
+                                if kill["first"] is not None else None),
+                "promote_ms": promote["ms"],
+                "promote_bytes": kill["promote_bytes"],
+                "replication_bytes": dict((k[0], v) for k, v in
+                                          sched.smetrics.standby_resync_bytes.by_labels.items()),
+            })
+        return out
     finally:
         if own_telemetry:
             telemetry.disable()
-        stop(server)
+        for s in scheds:
+            close = getattr(s.client, "close", None)
+            if close is not None:
+                close()
+        for stop_fn in stops:
+            stop_fn()
+
+
+def run_fabric_outage(w: Workload, device, batch_size: int = LOOP_BATCH,
+                      percentage: int = 0) -> dict:
+    """All replicas of a two-replica device fabric down, then one back,
+    through ``WireScheduler`` on a FakeClock (every clock of the client:
+    retry sleeps, breakers, the probe interval, pod backoff): the JAX
+    suite's ``test_all_replicas_down_degrades_to_oracle_then_heals`` at
+    ``w``'s size. Both endpoints killed, ``w``'s nodes and init pods
+    settle: the breaker opens after three failed batches (its default
+    threshold) and the pods take the sequential path. Then the second replica
+    heals, the clock passes the breaker's reset, the measured pods arrive:
+    the half-open probe rides the fabric's ``health()``, which fails over
+    to the replica that answers, and the batched path resumes there.
+
+    Returns ``placed``, ``outage`` and ``healed`` (each: the breaker state,
+    the degraded pods, ``dispatched_open`` (fabric scheduleBatch calls made
+    while the breaker was open), the services' ``batches``, the fused
+    ``launches`` of the step, the active replica, failovers by reason) and
+    ``bound``. The servers are stopped before it returns."""
+    from ..backend.service import DeviceService, WireScheduler, serve, stop
+    from ..ops import fused_step
+    from ..testing.faults import FaultPlan
+
+    clock = FakeClock()
+    services = [DeviceService(batch_size=batch_size, percentage_of_nodes_to_score=percentage,
+                              device=device) for _ in range(2)]
+    servers = [serve(svc)[0] for svc in services]
+    plans = [FaultPlan().kill(), FaultPlan().kill()]
+    sched = None
+    try:
+        store = Store(now_fn=clock)
+        sched = WireScheduler(
+            store, endpoint=[f"http://127.0.0.1:{srv.server_address[1]}" for srv in servers],
+            batch_size=batch_size, wire_pipeline_depth=0, batch_deadline_ms=0,
+            heartbeat_interval_s=0.0,
+            standby_replication=False, fault_plan=plans, now_fn=clock, sleep_fn=clock.advance,
+            pod_initial_backoff=REPLICA_BACKOFF_S[0], pod_max_backoff=REPLICA_BACKOFF_S[1])
+        fabric = sched.client
+        dispatched_open = [0]
+        send = fabric.schedule_batch
+
+        def watched(payload):
+            if sched.breaker.state == "open":
+                dispatched_open[0] += 1
+            return send(payload)
+
+        fabric.schedule_batch = watched
+
+        def settle() -> None:
+            sched.run_until_settled()
+            while sched.queue.pending_pods()["backoff"]:
+                clock.advance(REPLICA_BACKOFF_S[1])
+                sched.run_until_settled()
+
+        def step(pods) -> dict:
+            launches = fused_step.LAUNCHES
+            for pod in pods:
+                store.create_pod(pod)
+            settle()
+            return {"breaker": sched.breaker.state, "degraded_pods": sched.degraded_pods,
+                    "dispatched_open": dispatched_open[0],
+                    "batches": [svc.batch_counter for svc in services],
+                    "launches": fused_step.LAUNCHES - launches,
+                    "active": fabric.active_replica().index,
+                    "failovers": dict((k[0], v) for k, v in
+                                      sched.smetrics.fabric_failovers.by_labels.items())}
+
+        for ni in w.node_infos():
+            store.create_node(ni.node)
+        outage = step(w.init_pod_list())
+        plans[1].heal()
+        clock.advance(sched.breaker.reset_timeout_s + 0.5)
+        healed = step(w.measured_pod_list())
+        placed = {k: p.spec.node_name for k, p in store.pods.items()}
+        return {"placed": placed, "outage": outage, "healed": healed,
+                "bound": sum(1 for v in placed.values() if v)}
+    finally:
+        if sched is not None:
+            sched.close()
+        for srv in servers:
+            stop(srv)
 
 
 def _time_posts(extenders) -> Dict[str, List[float]]:

@@ -8,6 +8,7 @@ the port's, so both packages see the same inputs.
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 
@@ -2349,3 +2350,167 @@ class WirePair:
             if key not in skip:
                 assert port_state[key] == jax_state[key], (key, jax_state[key], port_state[key])
         return port_state
+
+
+# ----------------------------------------------------------------- the device fabric
+
+# the flight events a fabric scenario compares, in two groups whose relative
+# order follows thread timing when a pipeline lane fails: the fabric's own
+# (emitted by the failing call's thread) and the loop's (the scheduling
+# thread's); each group's order is compared
+FABRIC_EVENTS = ("replica_down", "poison", "failover", "replica_rejoin", "replication")
+LOOP_EVENTS = ("requeue", "degrade", "pipeline_poison", "conflict")
+_ENDPOINT_FIELDS = ("endpoint", "fromEndpoint")
+_EVENT_FIELDS = ("verb", "pods", "reason", "restarted", "nodes", "removed", "full")
+
+
+def metric_items(metric) -> list:
+    """A counter or gauge of either package as sorted (labels, value)."""
+    return sorted((ls, metric.labels(*ls)) for ls in metric.label_sets())
+
+
+class FabricPair(WirePair):
+    """Each package's ``WireScheduler`` over ``replicas`` served
+    ``DeviceService``s through its device fabric (``backend/fabric.py``):
+    the JAX suite's ``_FabricRig`` on both sides. Each endpoint of each side
+    has its own FaultPlan of the client's package (``plans[side][i]``),
+    shared by its client and server; every clock of a side (retry sleeps,
+    breakers, the probe interval, pod backoff, the services' leases) rides
+    that side's FakeClock. The scheduler defaults are the rig's: batch 8,
+    one transport retry, no heartbeats, pod backoff 0.01-0.05 s. The
+    replicator's worker thread is off on both sides: a test replicates with
+    ``replication_flush()``, at the same points on both. ``state`` adds the
+    fabric's view (active replica, failovers by reason, replica health,
+    each service's counters) to ``WirePair.state``; ``sent_batch_ids``
+    holds the batches a service answered."""
+
+    def __init__(self, replicas: int = 2, batch: int = 8, service_batch: int = 32,
+                 depth: int = 0, sched_kw: dict = None, one_lane: bool = True):
+        self.replicas = replicas
+        kw = dict(wire_max_retries=1, heartbeat_interval_s=0.0, pod_initial_backoff=0.01,
+                  pod_max_backoff=0.05)
+        kw.update(sched_kw or {})
+        self.fabric_plans = ([], [])
+        self.fabric_services = ([], [])
+        # cleared, it holds every scheduleBatch call (the pipeline's lanes)
+        # until it is set again
+        self.lane_gate = threading.Event()
+        self.lane_gate.set()
+        super().__init__(batch=batch, service_batch=service_batch, depth=depth, plan=True,
+                         sched_kw=kw, one_lane=one_lane)
+        self.plans = self.fabric_plans
+
+    def _start_side(self, side, batch, service_batch, depth, percentage, plan, service_pkg,
+                    sched_kw, service_kw, client_id) -> None:
+        mod, faults = self._modules(("jax", "port")[side])
+        clock = self.clocks[side]
+        endpoints = []
+        for _ in range(self.replicas):
+            plan = faults.FaultPlan()
+            kw = dict(batch_size=service_batch, now_fn=clock)
+            if side == 1:
+                kw["device"] = "cpu"
+            service = mod.DeviceService(**kw)
+            server, port = mod.serve(service, fault_plan=plan)
+            self.servers.append((("jax", "port")[side], server))
+            self.fabric_plans[side].append(plan)
+            self.fabric_services[side].append(service)
+            endpoints.append(f"http://127.0.0.1:{port}")
+        self.services.append(None)
+        sched = mod.WireScheduler(
+            self.stores[side], endpoint=endpoints, batch_size=batch, wire_pipeline_depth=depth,
+            batch_deadline_ms=0, read_timeout=10.0, now_fn=clock, sleep_fn=clock.advance,
+            fault_plan=self.fabric_plans[side], client_id=client_id, **sched_kw)
+        sched.client._repl_worker_enabled = False
+        self.scheds.append(sched)
+        sent = self.sent_batch_ids[side]
+        for rep in sched.client.replicas:
+            real = rep.client.schedule_batch
+
+            def send(payload, _real=real, _sent=sent, _gate=self.lane_gate):
+                _gate.wait(timeout=10)
+                out = _real(payload)  # a call that raised ran no program
+                _sent.add(payload["batchId"])
+                return out
+
+            rep.client.schedule_batch = send
+        if sched._wire_pipeline is not None and self.one_lane:
+            sched._wire_pipeline.depth = 1
+
+    def fabric(self, side: int):
+        return self.scheds[side].client
+
+    def service(self, side: int):
+        """The live service behind side ``side``'s active endpoint."""
+        i = self.fabric(side).active_replica().index
+        return self.servers[side * self.replicas + i][1].binding.service
+
+    def services_of(self, side: int) -> list:
+        return [self.servers[side * self.replicas + i][1].binding.service
+                for i in range(self.replicas)]
+
+    def state(self, side: int) -> dict:
+        out = super().state(side)
+        fab = self.fabric(side)
+        services = self.services_of(side)
+        out.update({
+            "service_batches": [s.batch_counter for s in services],
+            "service_replays": [s.batch_replays for s in services],
+            "service_conflicts": [s.commit_conflicts for s in services],
+            "active": fab.active_replica().index,
+            "fabric_failovers": fab.failovers,
+            "failovers": metric_items(self.scheds[side].smetrics.fabric_failovers),
+            "healthy": [r.healthy for r in fab.replicas],
+            "health_gauge": [self.scheds[side].smetrics.fabric_replica_health.labels(r.endpoint)
+                             for r in fab.replicas],
+            "needs_full": [r.repl_needs_full for r in fab.replicas],
+            "repl_seq": fab._repl_seq,
+        })
+        return out
+
+    def invariants(self, side: int) -> dict:
+        out = super().invariants(side)
+        out["program_runs_equal_batches"] = (
+            sum(s.batch_counter for s in self.services_of(side))
+            == len(self.sent_batch_ids[side]))
+        out["service_replays"] = sum(s.batch_replays for s in self.services_of(side))
+        return out
+
+    def flight(self, side: int, tele, kinds=FABRIC_EVENTS + LOOP_EVENTS) -> list:
+        """``tele``'s events of ``kinds`` in order, endpoints as replica
+        indices and batch ids as their order of appearance."""
+        index = {r.endpoint: r.index for r in self.fabric(side).replicas}
+        batch_ids: dict = {}
+        out = []
+        for ev in tele.flight.dump():
+            if ev["type"] not in kinds:
+                continue
+            bid = ev.get("batchId")
+            if bid is not None:
+                bid = batch_ids.setdefault(bid, len(batch_ids))
+            out.append((ev["type"], bid)
+                       + tuple(index.get(ev.get(k)) for k in _ENDPOINT_FIELDS)
+                       + tuple(ev.get(k) for k in _EVENT_FIELDS))
+        return out
+
+    def mirror(self, side: int) -> dict:
+        """The active service's host mirror after a forced full resync:
+        field -> (the rows of each node, by name). Each side's must equal
+        what it held before the resync (``assert_resync_mirror_identical``)."""
+        svc = self.service(side)
+        state = svc.device if side == 0 else svc.state
+        slots = state.encoder.node_slots
+        return {f: {n: np.asarray(a[s]).tolist() for n, s in slots.items()}
+                for f, a in state._mirror.items()}
+
+    def assert_resync_mirror_identical(self) -> list:
+        """On each side, a forced full resync into the active service leaves
+        its mirror as it was; returns both mirrors (by node name)."""
+        out = []
+        for side in (0, 1):
+            before = self.mirror(side)
+            self.scheds[side]._full_resync(self.service(side).epoch)
+            after = self.mirror(side)
+            assert before == after, side
+            out.append(after)
+        return out

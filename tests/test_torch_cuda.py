@@ -15,7 +15,8 @@ the memory sample's three keys, placements == the run with the recorders
 off) and the latency ledger on the card == the CPU loop's. The wire
 service (``backend/service.py``) on the card against a CPU service:
 SchedulingBasic at depth 0 and 3, preemption hints, a restart and two
-replicas.
+replicas; the device fabric of two card services with the primary killed
+(cold and warm standbys) and the gRPC transport (skipped without grpc).
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -1416,3 +1417,51 @@ def test_wire_restart_and_replicas_on_card(cuda):
     assert all(two["placed"].values()) and not two["double_binds"] and not two["over_capacity"]
     assert two["placements"] == two["binds"] == len(two["placed"])
     assert two["conflicts"] == two["service_conflicts"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+def test_fabric_failover_on_card_matches_cpu(cuda, warm):
+    """Two card services behind the device fabric, the primary killed after
+    two batches: one transient failover to the standby, every pod bound
+    once, launches == the batches the replicas ran, none run twice, and the
+    placements of the same script on two CPU services; a warm standby's
+    promote uploads fewer row bytes than a cold one's."""
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(300, 200, 300)
+    kw = dict(fabric_replicas=2, kill_primary_after=2, standby_replication=warm)
+    gpu = workloads.run_loop_wire(w, cuda, 0, **kw)
+    cpu = workloads.run_loop_wire(w, "cpu", 0, percentage=100, **kw)
+    for key in ("placed", "batch_pods", "metrics", "pending"):
+        assert gpu[key] == cpu[key], key
+    assert gpu["failovers"] == {"transient": 1} and gpu["active"] == 1
+    assert gpu["placements"] == gpu["binds"] == 500 and not gpu["double_binds"]
+    assert not gpu["over_capacity"] and gpu["replays"] == 0
+    assert gpu["launches"] == gpu["batches"] == sum(r["launches"] for r in gpu["per_replica"])
+    assert [r["batches"] for r in gpu["per_replica"]] == [r["launches"]
+                                                          for r in gpu["per_replica"]]
+    if warm:
+        cold = workloads.run_loop_wire(w, cuda, 0, fabric_replicas=2, kill_primary_after=2)
+        assert 0 < gpu["promote_bytes"] < cold["promote_bytes"]
+        assert gpu["replication_bytes"]["full"] > 0
+
+
+@pytest.mark.cuda
+def test_grpc_on_card_matches_http(cuda):
+    """SchedulingBasic over gRPC against ``serve_grpc(DeviceService(device=
+    "cuda"))``: the placements, counters and queue of the HTTP run, one
+    fused launch per batch."""
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None or importlib.util.find_spec(
+            "google.protobuf") is None:
+        pytest.skip("grpc or protobuf is not installed")
+    from kubernetes_tpu_torch.perf import workloads
+
+    w = workloads.scheduling_basic(300, 200, 300)
+    grpc_run = workloads.run_loop_wire(w, cuda, 0, transport="grpc")
+    http_run = workloads.run_loop_wire(w, cuda, 0)
+    for key in ("placed", "batch_pods", "metrics", "pending"):
+        assert grpc_run[key] == http_run[key], key
+    assert grpc_run["launches"] == grpc_run["batches"] == grpc_run["client_batches"]

@@ -751,13 +751,32 @@ def test_wire_scheduler_raises_a_device_failure(monkeypatch, depth, target):
 
 
 def test_unported_branches_raise():
+    """The two branches the port once refused now build as in JAX: one
+    endpoint keeps the plain WireClient, a list or a comma-separated string
+    builds the device fabric; what stays refused is malformed: an unknown
+    transport, a fault_plan list that does not match the endpoints, no
+    endpoint."""
     from kubernetes_tpu_torch.apiserver.store import Store
-    from kubernetes_tpu_torch.backend.service import WireScheduler
+    from kubernetes_tpu_torch.backend.fabric import DeviceFabric
+    from kubernetes_tpu_torch.backend.service import WireClient, WireScheduler
+    from kubernetes_tpu_torch.testing.faults import FaultPlan
 
-    with pytest.raises(NotImplementedError, match="grpc_service"):
-        WireScheduler(Store(), endpoint="127.0.0.1:1", transport="grpc")
-    with pytest.raises(NotImplementedError, match="fabric"):
-        WireScheduler(Store(), endpoint="http://127.0.0.1:1,http://127.0.0.1:2")
+    one = WireScheduler(Store(), endpoint="http://127.0.0.1:1")
+    assert isinstance(one.client, WireClient)
+    assert one.debug_fabric() == {"enabled": False, "endpoint": "http://127.0.0.1:1"}
+    eps = ["http://127.0.0.1:1", "http://127.0.0.1:2"]
+    for endpoint in (" , ".join(eps), eps):
+        sched = WireScheduler(Store(), endpoint=endpoint)
+        assert isinstance(sched.client, DeviceFabric)
+        assert [r.endpoint for r in sched.client.replicas] == eps
+        assert sched.debug_fabric()["enabled"] is True
+        sched.close()
+    with pytest.raises(ValueError, match="transport"):
+        WireScheduler(Store(), endpoint="127.0.0.1:1", transport="quic")
+    with pytest.raises(ValueError, match="fault_plan"):
+        WireScheduler(Store(), endpoint=eps, fault_plan=[FaultPlan()])
+    with pytest.raises(ValueError, match="endpoint"):
+        WireScheduler(Store(), endpoint=" , ")
 
 
 def test_replay_runs_no_program(monkeypatch):
