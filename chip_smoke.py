@@ -22,8 +22,9 @@
    processes at once on the same card (``chip_smoke.py --group NAME``,
    started by this script and stopped by it on any failure or past
    GROUPS_DEADLINE_S), each phase in the group of the phases whose results
-   it reads: core (3-5, 11, 20), batch (6, 8-10, 12-13) and loop (the
-   loop_basic part of 11, then 14-19, then 7). Each group's output is
+   it reads: core (3-5, 11, 20), batch (6, 8-10, 12-13, the shard phase
+   of 21) and loop (the loop_basic part of 11, then 14-19, then 7, then
+   the shard_scale phase of 21). Each group's output is
    printed in that order once all have ended, a failed group's last.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
    110 pods with zone and hostname labels; pods asking 900m / 2Gi) through
@@ -401,7 +402,27 @@
    fused launch per batch. Prints the failover ms, the promote bytes warm
    against cold, ``standby_resync_bytes`` by kind, pods/s, attempt p50 /
    p99, and the gRPC per-batch split and request bytes beside HTTP's.
-21. Each workload run prints pods/s, ms per batch, host ms per stage, and
+21. Shard phase: node-axis sharding of the batch program
+   (``kubernetes_tpu_torch/parallel/``), each world size W as W processes
+   (``parallel.launch.run_ranks``), every rank on this one card.
+   SchedulingBasic/5000Nodes, one 128-pod batch (N=5120): at W=1 over NCCL
+   the sharded scan and rounds each equal, bit for bit, the unsharded
+   batch on the fused kernel; at W=2 and 4 over gloo each equals the same
+   program's gloo run on the CPU. TopologySpreading/5000Nodes (mode
+   general; the scan and the rounds) and SchedulingPodAntiAffinity/
+   5000Nodes (mode host; the rounds, the card's path for it), one measured
+   batch each (their init pods bound one per node) at W=4, each equal to
+   the single-device run on the card and to the CPU's W=4 run.
+   Shard_scale phase: the stretch shape of tests/test_stretch_50k.py
+   (50,000 nodes in 65,536 slots, 64 pods) at W=8: the scan equals the
+   rounds, every winner valid and distinct; then
+   ``entry.dryrun_multichip(4)`` on the card. Both print ms per batch, the
+   collectives and their bytes per batch, each rank's allocator peak, and
+   that every rank shared one card (no multi-card run exists, so the times
+   measure no scaling); every sharded run's fused launches on every rank
+   are counted (0: the sharded program takes the scan or the rounds) and
+   join the launches map.
+22. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -427,12 +448,16 @@ import warnings
 import numpy as np
 import torch
 
+from kubernetes_tpu_torch.api.wrappers import make_node, make_pod
 from kubernetes_tpu_torch.backend import batch, batch_scheduler, claim_mask, tpu_scheduler
 from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
 from kubernetes_tpu_torch.backend.device_state import DeviceState
+from kubernetes_tpu_torch.framework.types import NodeInfo
 from kubernetes_tpu_torch.ops import fused_step, preempt, topology
-from kubernetes_tpu_torch.perf import workloads
+from kubernetes_tpu_torch.perf import sharding, workloads
 from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
+from kubernetes_tpu_torch import entry as port_entry
+from kubernetes_tpu_torch.parallel import launch
 
 N_NODES = 5000
 N_PODS = 1000
@@ -3507,6 +3532,213 @@ def loop_fabric_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- shard phase
+
+# timed batches after the first per sharded run on the card at W <= 2 and
+# the stretch; the W=4 runs time their one batch (each collective is a gloo
+# round trip of 1.5-3.0 ms on the card's host, PERF.md §6 PR 21)
+SHARD_REPEAT = 1
+SHARD_TIMEOUT_S = 300.0
+STRETCH_NODES, STRETCH_SLOTS, STRETCH_PODS, STRETCH_WORLD = 50000, 65536, 64, 8
+
+
+def _on(x, device):
+    return type(x).from_numpy(x.to_numpy(), device)
+
+
+def _single(inputs, device, spec: bool) -> dict:
+    """The unsharded program on ``device`` (mode off without ``spec``: the
+    fused kernel), as numpy."""
+    nt, pb, et, tc, tb, kw = inputs
+    res = batch.schedule_batch_core(_on(pb, device), _on(et, device), _on(nt, device),
+                                    batch.DEFAULT_WEIGHTS, _on(tc, device), _on(tb, device),
+                                    kw["topo_mode"], kw["vd_override"], kw["host_key"],
+                                    spec_decode=spec)
+    torch.cuda.synchronize()
+    return launch.result_to_numpy(res)
+
+
+def _sharded(label: str, world: int, device, runs, repeat: int = SHARD_REPEAT) -> dict:
+    """``runs`` (name -> (inputs, spec)) through ``schedule_cases`` at
+    ``world`` ranks on ``device``, each batch run once and, on the card,
+    ``repeat`` more times; prints each run's numbers on the card. Fails
+    when a rank launched the fused kernel (the sharded program takes the
+    scan or the rounds). Returns name -> rank 0's record, with ``peaks``
+    (every rank's)."""
+    names = list(runs)
+    repeat = repeat if device == "cuda" else 0
+    cases = []
+    for name in names:
+        (nt, pb, et, tc, tb, kw), spec = runs[name]
+        cases.append(launch.case_fields(pb, et, nt, tc, tb, spec_decode=spec, repeat=repeat,
+                                        **kw))
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(launch.schedule_cases, world, device=device, args=(cases,),
+                             timeout_s=SHARD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = {}
+    for i, name in enumerate(names):
+        rec = dict(ranks[0][i], peaks=[r[i]["peak_bytes"] for r in ranks])
+        counts = {(r[i]["collectives"], r[i]["collective_bytes"]) for r in ranks}
+        if len(counts) != 1:
+            raise AssertionError(f"{label} {name}: the ranks issued different collectives "
+                                 f"{sorted(counts)}")
+        launches = [r[i]["fused_launches"] for r in ranks]
+        if any(launches):
+            raise AssertionError(f"{label} {name}: fused launches per rank {launches}, not 0")
+        out[name] = rec
+        if device == "cuda":
+            timed = rec["ms"][1:] or rec["ms"]
+            backend = launch.default_backend(torch.device(device), world)
+            print(f"{label} {name} at W={world} ({backend} on the card): "
+                  f"{statistics.median(timed):.3f} ms per batch ("
+                  + (f"median of {len(timed)} after the first, {rec['ms'][0]:.3f}" if repeat
+                     else "its one batch")
+                  + f"), {rec['collectives']} collectives "
+                  f"of {rec['collective_bytes']} bytes per batch, 0 fused launches on "
+                  f"every rank; allocator peak per rank (MiB) "
+                  + ", ".join("n/a" if p is None else f"{p / 2**20:.1f}" for p in rec["peaks"]))
+    if device == "cuda":
+        print(f"{label} at W={world}: {len(names)} runs in one spawn, {wall:.1f} s wall with "
+              "process start")
+    return out
+
+
+def _same(label: str, got: dict, want: dict, what: str) -> None:
+    bad = launch.result_diff(got, want)
+    if bad:
+        raise AssertionError(f"{label}: differs from {what} in {bad}")
+
+
+def _parts():
+    """(parts, part): ``part(name)`` books the seconds since the last call."""
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        parts[name] = time.perf_counter() - t_part[0]
+        t_part[0] = time.perf_counter()
+
+    return parts, part
+
+
+def _card_note(phase: str, parts: dict) -> None:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+    print(f"{phase} phase: every rank of every world size shared one card ({card}); no "
+          "multi-card run exists, so these times measure no scaling")
+    print(f"{phase} phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+
+
+def shard_phase() -> dict:
+    """Node-axis sharding on the card at W=1, 2 and 4: ranks as processes
+    sharing the one card (``kubernetes_tpu_torch/parallel/``)."""
+    parts, part = _parts()
+    name = f"SchedulingBasic/{N_NODES}Nodes"
+    basic = sharding.batch_inputs(workloads.scheduling_basic_nodes(N_NODES),
+                          workloads.scheduling_basic_pods("init", P))
+    if basic[5]["topo_mode"] != "off":
+        raise AssertionError(f"{name}: mode {basic[5]['topo_mode']}, not off")
+    before = fused_step.LAUNCHES
+    fused = _single(basic, "cuda", spec=False)
+    launches = fused_step.LAUNCHES - before
+    if launches != 1:
+        raise AssertionError(f"{name}: {launches} fused launches for one unsharded batch")
+    runs = {"scan": (basic, False), "rounds": (basic, True)}
+    w1 = _sharded(name, 1, "cuda", runs)
+    for run, rec in w1.items():
+        _same(f"{name} {run} W=1 (nccl)", rec["result"], fused,
+              "the unsharded fused-kernel batch")
+    print(f"{name}: the W=1 NCCL scan and rounds == the unsharded fused-kernel batch bit for "
+          f"bit ({int((fused['node_idx'] >= 0).sum())}/{P} placed; {launches} fused launch)")
+    part("basic W=1")
+    # the fused kernel's launches: the unsharded reference batch's, and
+    # every sharded run's on every rank (0, asserted in ``_sharded``)
+    out = {name: {"launches": launches},
+           **{f"{name} {run} W=1": {"launches": 0} for run in runs}}
+    gpu, cpu = _sharded(name, 2, "cuda", runs), _sharded(name, 2, "cpu", runs)
+    for run in runs:
+        _same(f"{name} {run} W=2", gpu[run]["result"], cpu[run]["result"],
+              "the CPU's W=2 gloo run")
+        _same(f"{name} {run} W=2", gpu[run]["result"], fused, "the unsharded fused-kernel batch")
+        out[f"{name} {run} W=2"] = {"launches": 0}
+    print(f"{name} at W=2 on the card == the CPU's W=2 run == the unsharded batch, scan and "
+          "rounds")
+    part("basic W=2")
+
+    spread = workloads.topology_spreading()
+    anti = workloads.scheduling_pod_anti_affinity()
+    topo = {"spread": sharding.batch_inputs(sharding.bind_init(spread, spread.init_pods),
+                                    spread.measured_pod_list()[:P]),
+            "anti": sharding.batch_inputs(sharding.bind_init(anti, anti.init_pods),
+                                  anti.measured_pod_list()[:P])}
+    for key, mode in (("spread", "general"), ("anti", "host")):
+        if topo[key][5]["topo_mode"] != mode:
+            raise AssertionError(f"{key}: mode {topo[key][5]['topo_mode']}, not {mode}")
+    runs4 = dict(runs, **{"spread scan": (topo["spread"], False),
+                          "spread rounds": (topo["spread"], True),
+                          "anti rounds": (topo["anti"], True)})
+    part("topology inputs")
+    gpu, cpu = _sharded("W=4", 4, "cuda", runs4, 0), _sharded("W=4", 4, "cpu", runs4)
+    for run, (inputs, spec) in runs4.items():
+        label = f"{run} W=4"
+        _same(label, gpu[run]["result"], cpu[run]["result"], "the CPU's W=4 gloo run")
+        want = fused if inputs is basic else _single(inputs, "cuda", spec)
+        _same(label, gpu[run]["result"], want, "the single-device run on the card")
+        out[label if inputs is not basic else f"{name} {label}"] = {"launches": 0}
+    for key, w, paths in (("spread", spread, "scan and rounds"), ("anti", anti, "rounds")):
+        placed = int((gpu[f"{key} rounds"]["result"]["node_idx"] >= 0).sum())
+        print(f"{w.name} ({topo[key][5]['topo_mode']}), one measured batch after "
+              f"{w.init_pods} init pods bound: the W=4 {paths} on the card == the "
+              f"single-device card run == the CPU's W=4 run ({placed}/{P} placed)")
+    print(f"{name} at W=4 on the card == the CPU's W=4 run == the unsharded batch")
+    part("W=4")
+    _card_note("shard", parts)
+    return out
+
+
+def shard_scale_phase() -> dict:
+    """The stretch shape at W=8 and ``entry.dryrun_multichip(4)``, the ranks
+    sharing the one card (in the loop group, beside the shard phase's)."""
+    from kubernetes_tpu_torch.backend.device_state import caps_for_cluster
+
+    parts, part = _parts()
+    infos = [NodeInfo(make_node(f"n{i}").capacity(
+        {"cpu": "8", "memory": "16Gi", "pods": 32}).obj()) for i in range(STRETCH_NODES)]
+    caps = dataclasses.replace(caps_for_cluster(STRETCH_SLOTS), nodes=STRETCH_SLOTS,
+                               pods=STRETCH_PODS)
+    pods = [make_pod(f"p{i}").req({"cpu": "2", "memory": "2Gi"}).obj()
+            for i in range(STRETCH_PODS)]
+    stretch = sharding.batch_inputs(infos, pods, caps)
+    part("stretch inputs")
+    label = f"Stretch/{STRETCH_NODES}Nodes in {STRETCH_SLOTS} slots"
+    st = _sharded(label, STRETCH_WORLD, "cuda",
+                  {"scan": (stretch, False), "rounds": (stretch, True)})
+    idx = st["scan"]["result"]["node_idx"]
+    if not np.array_equal(idx, st["rounds"]["result"]["node_idx"]):
+        raise AssertionError(f"{label}: the rounds differ from the scan")
+    if not ((idx >= 0).all() and (idx < STRETCH_NODES).all()
+            and len(set(idx.tolist())) == STRETCH_PODS):
+        raise AssertionError(f"{label}: a winner invalid or shared: {idx.tolist()}")
+    out = {f"{label} {run} W={STRETCH_WORLD}": {"launches": 0} for run in st}
+    print(f"{label} at W={STRETCH_WORLD}: scan == rounds, {STRETCH_PODS} distinct valid winners "
+          f"on ranks {sorted({int(i) // (STRETCH_SLOTS // STRETCH_WORLD) for i in idx})}")
+    part("stretch")
+
+    dry = port_entry.dryrun_multichip(4)
+    print("entry.dryrun_multichip(4) on the card: the four programs' checks pass; "
+          + ", ".join(f"{run} {rec['collectives']} collectives {rec['ms'][0]:.1f} ms"
+                      for run, rec in zip((r[0] for r in port_entry.DRYRUN_RUNS),
+                                          dry["ranks"][0])))
+    if any(rec["fused_launches"] for rank in dry["ranks"] for rec in rank):
+        raise AssertionError("entry.dryrun_multichip(4): a rank launched the fused kernel")
+    out.update({f"dryrun {run[0]} W=4": {"launches": 0} for run in port_entry.DRYRUN_RUNS})
+    part("dryrun")
+    _card_note("shard_scale", parts)
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -3539,6 +3771,7 @@ def batch_group(timed, kern: dict) -> dict:
     pre_all = timed("preempt_all", preempt_all_phase)
     loop_gang = timed("loop_gang", loop_gang_phase, gangs, quota)
     loop_claims = timed("loop_claims", loop_claims_phase, dra)
+    shard = timed("shard", shard_phase)
     slices = next(v for v in gangs.values() if v["workload"].tpu_slots)
     return {"slice_masked_ms": slices["masked_ms"], "slice_unmasked_ms": slices["plain_ms"],
             "launches": {**{k: v["launches"] for k, v in dra.items()},
@@ -3546,7 +3779,8 @@ def batch_group(timed, kern: dict) -> dict:
                          **{k: v["launches"] for k, v in quota.items()},
                          **{k: v["launches"] for k, v in pre_all.items()},
                          **{f"loop:{k}": v["launches"] for k, v in loop_gang.items()},
-                         **{f"loop:{k}": v["launches"] for k, v in loop_claims.items()}}}
+                         **{f"loop:{k}": v["launches"] for k, v in loop_claims.items()},
+                         **{f"shard:{k}": v["launches"] for k, v in shard.items()}}}
 
 
 def loop_group(timed, kern: dict) -> dict:
@@ -3558,6 +3792,7 @@ def loop_group(timed, kern: dict) -> dict:
     loop_rebalance = timed("loop_rebalance", loop_rebalance_phase)
     loop_wire = timed("loop_wire", loop_wire_phase, loop)
     pre = timed("preempt", preempt_phase)  # here for the groups' balance
+    shard_scale = timed("shard_scale", shard_scale_phase)  # likewise
     entropy = loop_rebalance.pop("packing_entropy")
     loop.pop(CPU_BASIC)
     loop.pop(CPU_PREEMPT)
@@ -3573,7 +3808,8 @@ def loop_group(timed, kern: dict) -> dict:
                                          loop_telemetry, loop_rebalance)
                             for k, v in part.items()},
                          **{f"wire:{k}": v["launches"] for k, v in loop_wire.items()},
-                         **{k: v["launches"] for k, v in pre.items()}}}
+                         **{k: v["launches"] for k, v in pre.items()},
+                         **{f"shard:{k}": v["launches"] for k, v in shard_scale.items()}}}
 
 
 GROUPS = {"core": core_group, "batch": batch_group, "loop": loop_group}

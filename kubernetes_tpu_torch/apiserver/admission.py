@@ -514,7 +514,7 @@ def default_chain() -> List[AdmissionPlugin]:
     StorageObjectInUseProtection → RuntimeClass → ResourceQuota (always
     last).
 
-    Left out until the HTTP front comes (ROADMAP A11): NodeRestriction and
+    Left out until the HTTP front comes (ROADMAP A21): NodeRestriction and
     OwnerReferencesPermissionEnforcement, which read the request's
     identity, which the port's store does not carry; the Mutating and
     Validating admission webhooks, which call out over HTTP;

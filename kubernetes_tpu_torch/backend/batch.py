@@ -1,6 +1,5 @@
 """The batched scheduling step: one call schedules a pod batch against the
-node mirror (PyTorch counterpart of ``kubernetes_tpu/backend/batch.py``,
-without sharding).
+node mirror (PyTorch counterpart of ``kubernetes_tpu/backend/batch.py``).
 
   0. SLICE plan (batches with slice gangs): the torus planner
      (``ops/slice.py``) picks each slice gang's window and ``_slice_plan``
@@ -38,6 +37,14 @@ without sharding).
 
 ``gang_verdicts`` judges a batch's flat gangs after that read: one device
 call over the batch's ``node_idx`` and ``first_fail`` (``ops/gang.py``).
+
+Node-axis sharding (the JAX ``axis_name``): ``schedule_batch_core`` with a
+``mesh`` (``parallel/mesh.py:NodeMesh``) runs one rank's share of the
+batch, its node tensors that rank's window of the node axis, and the
+collectives of ``ops/topology.py`` make every per-pod decision global:
+the winner per scan step or round, the normalizations, the topology
+tables. It takes the scan or the rounds in every mode, never the fused
+kernel or the sampling window, as the JAX sharded program does.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..ops.quota import quota_screen
 from ..ops.slice import plan_slices
 from ..ops.schema import ExprTable, NodeTensors, PodBatch, TopoBatch, TopoCounts
 from ..ops.tiebreak import jitter_table
+from ..ops.topology import _gmax, _gmin, _gsum
 from ..utils.device import DeviceLike, check_on, resolve_device
 from . import telemetry
 from .device_state import _bucket
@@ -223,18 +231,20 @@ def claim_feasibility_mask(sel_key: torch.Tensor, sel_op: torch.Tensor,
 def static_phase(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                  extra_mask: Optional[torch.Tensor] = None,
                  dra_mask: Optional[torch.Tensor] = None,
-                 slice_mask: Optional[torch.Tensor] = None):
+                 slice_mask: Optional[torch.Tensor] = None, mesh=None):
     """(static_masks, static_ok, static_ff, taint_raw, affinity_raw,
     image_score, jitter): everything about the batch that no intra-batch
     commit can change (``schedule_batch_core`` lines 1042-1104).
     ``extra_mask`` (the volume screen), ``dra_mask`` (the claim mask) and
     ``slice_mask`` (``_slice_plan``) are optional [P, N] bool masks ANDed
     into ``static_ok``; the first-fail id of a cell is its earliest failing
-    plugin: 1-4, then 9, then 10, then 11."""
+    plugin: 1-4, then 9, then 10, then 11. Under a ``mesh`` ``nt`` is one
+    rank's window: NodeName compares global slot ids and ImageLocality
+    divides by the valid nodes of every rank (``:1036-1046``, ``:1084``)."""
     expr_match = filters.eval_exprs(et, nt)
     static_masks = {
         "NodeUnschedulable": filters.filter_unschedulable(pb, nt),
-        "NodeName": filters.filter_node_name(pb, nt),
+        "NodeName": filters.filter_node_name(pb, nt, _slot_offset(nt, mesh)),
         "TaintToleration": filters.filter_taints(pb, nt),
         "NodeAffinity": filters.filter_node_affinity(pb, et, nt, expr_match),
     }
@@ -254,21 +264,28 @@ def static_phase(pb: PodBatch, et: ExprTable, nt: NodeTensors,
         static_ff = torch.where(~static_masks[name], torch.full_like(static_ff, sid), static_ff)
     taint_raw = scores.score_taint_toleration(pb, nt)
     affinity_raw = scores.score_node_affinity(pb, et, nt, expr_match)
-    total_nodes = torch.clamp_min(torch.sum(nt.valid), 1)
-    image_score = scores.score_image_locality(pb, nt, total_nodes=total_nodes)
+    image_score = scores.score_image_locality(pb, nt, mesh=mesh)
     jitter = jitter_table(pb.tie_seed, nt.name_hash)
     return static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score, jitter
 
 
+def _slot_offset(nt: NodeTensors, mesh) -> int:
+    """The first global slot of this rank's window (0 without a mesh)."""
+    return 0 if mesh is None else mesh.rank * nt.capacity
+
+
 def _commit_scatters(nt: NodeTensors, pb: PodBatch, node_idx: torch.Tensor,
-                     nonzero: bool):
+                     nonzero: bool, slot_offset: int = 0):
     """The batch's commits added in one post-scan scatter each: the
     priority-class table [N, C, R] and, when ``nonzero``, the full nonzero
     request table [N, R] (the scan carries only its two scored columns).
-    ``index_add_`` on flattened rows: no host read, on any device."""
-    committed = node_idx >= 0
-    slot = torch.where(committed, node_idx, 0).long()
-    n, c, r = nt.class_req.shape
+    ``index_add_`` on flattened rows: no host read, on any device. Under
+    sharding ``node_idx`` holds global slots and ``nt`` the window from
+    ``slot_offset``: only the winners inside it are added."""
+    n = nt.capacity
+    committed = (node_idx >= slot_offset) & (node_idx < slot_offset + n)
+    slot = torch.where(committed, node_idx - slot_offset, 0).long()
+    _, c, r = nt.class_req.shape
     f_class = nt.class_req.clone(memory_format=torch.contiguous_format)
     f_class.view(n * c, r).index_add_(0, slot * c + pb.prio_class.long(),
                                       torch.where(committed[:, None], pb.req, 0))
@@ -308,8 +325,8 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
                    vd_override: Optional[int], host_key: int, static,
                    sample_k: Optional[int] = None,
                    sample_start: Optional[torch.Tensor] = None,
-                   topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                   ) -> BatchResult:
+                   topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   mesh=None) -> BatchResult:
     """The XLA scan ``step`` (``kubernetes_tpu/backend/batch.py:1202-1392``)
     as a loop over the batch's pods on device tensors: the fit against the
     carried free resources with the ``req == 0`` sentinel, ports, spread
@@ -321,12 +338,22 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
     bonus, the first-maximum argmax, and the commit of the winner to every
     carry. ``topo_carry`` (sel_counts, seg_exist) starts the count carries
     from an earlier batch's final ones in place of ``tc``'s. Nothing in
-    the loop reads a device value on the host."""
+    the loop reads a device value on the host.
+
+    Under a ``mesh`` the node axis is this rank's window and each step
+    picks the global winner (``:1301-1320``) with one all-gather of every
+    rank's best (``topology._gfirst_max``): the lowest rank holding the
+    maximum owns it, and its row carries the global slot, the score,
+    ``any_feasible`` and, in mode general, the winner's domain column. Only
+    the owning rank (``mine``) commits the winner to its node columns. The
+    sampling window stays single-device."""
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
      jitter) = static
     w = {k: float(np.float32(v)) for k, v in weights.items()}
     n = nt.capacity
     device = nt.valid.device
+    offset = _slot_offset(nt, mesh)
+    n_global = n if mesh is None else n * mesh.world
     iota = torch.arange(n, dtype=torch.int32, device=device)
     affinity_ok = static_masks["NodeAffinity"]
     pod_bits = _pod_port_bits(pb, nt.port_bits.shape[1])
@@ -342,10 +369,10 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
         seg_exist = tc.term_counts                           # [T, N] per-node counts
     elif topo_on:
         static_topo = topology.make_static(tc.term_counts, tc.term_key, nt.label_val,
-                                           nt.valid, vd)
+                                           nt.valid, vd, mesh)
         seg_exist = static_topo.seg_exist0                   # [T, Vd] domain counts
     if topo_on:
-        log_tbl = topology.size_log_table(max(n, vd) + 1, device)
+        log_tbl = topology.size_log_table(max(n_global, vd) + 1, device)
         sel = tc.sel_counts
         if topo_carry is not None:
             sel, seg_exist = topo_carry
@@ -369,16 +396,16 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
         if host:
             xs = {k: v[p] for k, v in tb_fields.items()}
             spread_ok = topology.spread_filter_host(xs, sel, hostkey_ok, nt.valid,
-                                                    affinity_ok[p])
+                                                    affinity_ok[p], mesh)
             aff_ok, anti_ok, exist_ok, exist_at = topology.ipa_filter_host(
-                xs, sel, seg_exist, hostkey_ok, nt.valid)
+                xs, sel, seg_exist, hostkey_ok, nt.valid, mesh)
             ipa_ok = aff_ok & anti_ok & exist_ok
         elif topo_on:
             xs = {k: v[p] for k, v in tb_fields.items()}
             spread_ok = topology.spread_filter(xs, sel, nt.label_val, nt.valid,
-                                               affinity_ok[p], vd)
+                                               affinity_ok[p], vd, mesh)
             aff_ok, anti_ok, exist_ok, exist_at = topology.ipa_filter(
-                xs, sel, seg_exist, static_topo.dom_t, nt.label_val, nt.valid, vd)
+                xs, sel, seg_exist, static_topo.dom_t, nt.label_val, nt.valid, vd, mesh)
             ipa_ok = aff_ok & anti_ok & exist_ok
         feasible = static_ok[p] & fit_ok & ports_ok & spread_ok & ipa_ok
         if sample_k is not None:
@@ -390,49 +417,60 @@ def _topology_scan(pb: PodBatch, et: ExprTable, nt: NodeTensors, weights: Dict[s
             alloc2, (nz2 + pb.nonzero_req[p, :2][None, :]).to(torch.float32))
         total = (w["NodeResourcesFit"] * least_alloc
                  + w["NodeResourcesBalancedAllocation"] * balanced
-                 + w["TaintToleration"] * _normalize(taint_raw[p], feasible, True)
-                 + w["NodeAffinity"] * _normalize(affinity_raw[p], feasible, False)
+                 + w["TaintToleration"] * _normalize(taint_raw[p], feasible, True, mesh=mesh)
+                 + w["NodeAffinity"] * _normalize(affinity_raw[p], feasible, False, mesh=mesh)
                  + w["ImageLocality"] * image_score[p])
         if host:
             spread = topology.spread_score_host(xs, sel, hostkey_ok, nt.valid,
-                                                affinity_ok[p], feasible, log_tbl)
-            ipa = topology.ipa_score_host(xs, sel, exist_at, hostkey_ok, feasible)
+                                                affinity_ok[p], feasible, log_tbl, mesh)
+            ipa = topology.ipa_score_host(xs, sel, exist_at, hostkey_ok, feasible, mesh)
         elif topo_on:
             spread = topology.spread_score(xs, sel, nt.label_val, nt.valid, affinity_ok[p],
-                                           feasible, vd, log_tbl)
-            ipa = topology.ipa_score(xs, sel, exist_at, nt.label_val, nt.valid, feasible, vd)
+                                           feasible, vd, log_tbl, mesh)
+            ipa = topology.ipa_score(xs, sel, exist_at, nt.label_val, nt.valid, feasible, vd,
+                                     mesh)
         if topo_on:
             total = total + w["PodTopologySpread"] * spread
             total = total + w["InterPodAffinity"] * ipa
 
         # the nominated node wins outright when feasible (schedule_one.go:394)
-        is_nom = (iota == pb.nominated[p]).to(torch.float32)
+        is_nom = (iota + offset == pb.nominated[p]).to(torch.float32)
         eff = torch.where(feasible, total + jitter[p] + is_nom * NOMINATED_BONUS, NEG_INF)
         idx = torch.argmax(eff)                              # the first maximum wins
-        any_feasible = torch.any(feasible) & pb.valid[p]
-        best = total.index_select(0, idx.view(1))[0]
+        # under a mesh the global first maximum, the owner's row: its global
+        # slot, score, feasibility (a feasible node's eff beats NEG_INF, so
+        # the owner has one when any rank has) and, in mode general, its
+        # winner's domain column
+        dom_col = ((static_topo.dom_t.index_select(1, idx.view(1))[:, 0],)
+                   if topo_on and not host and mesh is not None else ())
+        (win, best, any_feasible, *dom_col), mine = topology._gfirst_max(
+            eff.index_select(0, idx.view(1))[0], mesh, idx.to(torch.int32) + offset,
+            total.index_select(0, idx.view(1))[0], torch.any(feasible), *dom_col)
+        any_feasible = any_feasible & pb.valid[p]
 
-        onehot = (iota == idx) & any_feasible                # [N]
+        commit = any_feasible if mine is None else any_feasible & mine
+        onehot = (iota == idx) & commit                      # [N]
         free = free - onehot[:, None].to(torch.int32) * pb.req[p][None, :]
         nz2 = nz2 + onehot[:, None].to(torch.int32) * pb.nonzero_req[p, :2][None, :]
         ports = torch.where(onehot[:, None], ports | pod_bits[p][None, :], ports)
         if host:
             sel, seg_exist = topology.commit_update_host(
-                sel, seg_exist, idx, any_feasible, xs["pod_sig_mask"], xs["pod_term_mask"])
+                sel, seg_exist, idx, any_feasible, xs["pod_sig_mask"], xs["pod_term_mask"],
+                mine)
         elif topo_on:
             sel, seg_exist = topology.commit_update(
                 sel, seg_exist, static_topo.dom_t, idx, any_feasible, xs["pod_sig_mask"],
-                xs["pod_term_mask"])
+                xs["pod_term_mask"], mine, *dom_col)
         ff = static_ff[p]
         for fid, ok in ((5, ports_ok), (6, fit_ok), (SPREAD_FAIL_ID, spread_ok),
                         (IPA_FAIL_ID, ipa_ok)):
             ff = torch.where((ff == 0) & ~ok, fid, ff)
-        outs.append((torch.where(any_feasible, idx.to(torch.int32), -1), best, any_feasible,
+        outs.append((torch.where(any_feasible, win, -1), best, any_feasible,
                      fit_ok, ports_ok, spread_ok, ipa_ok, ff))
 
     (node_idx, best, any_feasible, fit_ok, ports_ok, spread_ok, ipa_ok,
      first_fail) = (torch.stack(col) for col in zip(*outs))
-    f_class, f_nz = _commit_scatters(nt, pb, node_idx, nonzero=True)
+    f_class, f_nz = _commit_scatters(nt, pb, node_idx, nonzero=True, slot_offset=offset)
     return BatchResult(
         node_idx=node_idx, best_score=best, any_feasible=any_feasible,
         static_masks=static_masks, fit_ok=fit_ok, ports_ok=ports_ok, spread_ok=spread_ok,
@@ -468,7 +506,7 @@ ROUNDS = 0
 
 def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], static,
                       pod_bits: torch.Tensor, sel0=None, seg0=None, host=None, gen=None,
-                      ports_enabled: bool = True) -> BatchResult:
+                      ports_enabled: bool = True, mesh=None) -> BatchResult:
     """Speculative decode, single device (the JAX package's
     ``backend/batch.py:_speculative_core``): a few vectorized decide/repair
     rounds over all the batch's pods in place of the P dependent steps, with
@@ -499,16 +537,28 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
     nowhere else. The first round runs before the first read; on a batch
     with no valid pod it changes nothing and is not counted, so such a
     batch runs zero rounds, as the JAX ``while_loop`` does. The loop stops
-    after a round that finalizes no pod, as there."""
+    after a round that finalizes no pod, as there.
+
+    Under a ``mesh`` (``:357-460``) the node-axis state is this rank's
+    window and every [P] decision vector is made global by an elementwise
+    collective: each pod's pick is the global first maximum (its slot id
+    global, ``mine`` on the owning rank), a node's lowest contender is
+    found on the rank that owns it, the per-pod reductions of the filters,
+    scores and normalizations run over every rank, and only the owner
+    applies a commit to its node columns (the general mode's replicated
+    [T, Vd] table takes every commit on every rank). So every rank runs the
+    same rounds and finalizes the same prefix."""
     global ROUNDS
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
      jitter) = static
     P, N = pb.capacity, nt.capacity
     device = nt.valid.device
+    offset = _slot_offset(nt, mesh)
+    n_global = N if mesh is None else N * mesh.world
     alloc2 = nt.allocatable[:, :2].to(torch.float32)
     iota_p = torch.arange(P, dtype=torch.int64, device=device)
     iota_n = torch.arange(N, dtype=torch.int32, device=device)
-    is_nom = (iota_n[None, :] == pb.nominated[:, None]).to(torch.float32)   # [P, N]
+    is_nom = (iota_n[None, :] + offset == pb.nominated[:, None]).to(torch.float32)  # [P, N]
     w = {k: float(np.float32(v)) for k, v in weights.items()}
     req_gate = torch.where(pb.req == 0, -(2 ** 30), pb.req)  # `req == 0 always fits`
     valid_n = nt.valid
@@ -525,7 +575,7 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
         m_filter = tbx["term_filter_match"]                                # [P, T]
         tsw = tbx["term_score_w"]                                          # [P, T] f32
         vd = gen["vd"] if gen is not None else 0
-        log_tbl = topology.size_log_table(max(N, vd) + 1, device)
+        log_tbl = topology.size_log_table(max(n_global, vd) + 1, device)
         kinds = ("sf", "ia", "ianti", "ss", "ip")
         rows = {k: tbx[f"{k}_sig"].reshape(-1).long() for k in kinds}
 
@@ -579,31 +629,50 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
         j_lt_i = iota_p[None, :] < iota_p[:, None]
 
         def seg_at(values, k):
-            """Per-pod domain sums [P, C, Vd] of ``values`` under kind k's keys,
-            and each node's own domain's sum [P, C, N]."""
-            seg = topology._seg_sum(values, dom[k], vd)
+            """Per-pod domain sums [P, C, Vd] of ``values`` under kind k's keys
+            (over every rank), and each node's own domain's sum [P, C, N]."""
+            seg = topology._seg_sum(values, dom[k], vd, mesh)
             return seg, torch.gather(seg, 2, dom[k])
+
+    def global_argmax(eff, feasible, *cols):
+        """Each pod's first maximum over the global node axis: (choice, its
+        global slot; local, its column here; mine, [P] True where this rank
+        owns the pick; any_f, a feasible node on any rank; ``cols`` [P, k, N]
+        at the pick, from its owner). Ties go to the lowest rank, then the
+        first local maximum: the single-device pick. Under a mesh one
+        all-gather (``topology._gfirst_max``); the owner has a feasible node
+        when any rank has, as a feasible node's eff beats NEG_INF."""
+        local = torch.argmax(eff, dim=1)
+        at = [torch.gather(c, 2, local[:, None, None].expand(-1, c.shape[1], 1))[..., 0]
+              for c in cols]
+        (choice, any_f, *at), mine = topology._gfirst_max(
+            pick(eff, local), mesh, local + offset, torch.any(feasible, dim=1), *at)
+        if mine is None:
+            mine = torch.ones((P,), dtype=torch.bool, device=device)
+        return choice, local, mine, any_f, at
 
     def spread_score(cnt, w_log, mask, base_mask):
         """The rounded raw spread score [P, N] from float counts [P, C, N],
         normalized per pod (the constraint axis summed in XLA's order)."""
         contrib = torch.where(mask, cnt * w_log + ss_skew1, 0.0)
         raw = torch.floor(topology._fold_sum(contrib, dim=1) + 0.5)
-        return topology._spread_normalize(raw, base_mask, ignored, ss_has_cons, dim=1)
+        return topology._spread_normalize(raw, base_mask, ignored, ss_has_cons, dim=1,
+                                          mesh=mesh)
 
     def eval_host(cnt, viol, active):
         """Host mode: spread and inter-pod affinity filters [P, N] from a view's
         counts ({kind: [P, C, N]}) and existing-term violations ``viol``."""
         elig = elig_sf & active[:, None]   # `active` only masks finalized pods
-        minm = torch.amin(torch.where(elig[:, None, :], cnt["sf"], topology.INT_MAX), dim=2)
-        ndom = torch.sum(elig, dim=1, dtype=torch.int32)                         # [P]
+        minm = _gmin(torch.amin(torch.where(elig[:, None, :], cnt["sf"], topology.INT_MAX),
+                                dim=2), mesh)
+        ndom = _gsum(torch.sum(elig, dim=1, dtype=torch.int32), mesh)            # [P]
         minm = torch.where((ndom > 0)[:, None], minm, 0)
         minm = torch.where((min_dom >= 0) & (ndom[:, None] < min_dom), 0, minm)
         ok_c = hk3 & (cnt["sf"] + sf_self - minm[:, :, None] <= sf_skew)
         spread_ok = torch.all(torch.where(sf_valid, ok_c, True), dim=1)
         pods_exist = torch.all(torch.where(ia_valid, hk3 & (cnt["ia"] > 0), True), dim=1)
-        total = torch.sum(torch.where(ia_total_mask, cnt["ia"], 0), dim=(1, 2),
-                          dtype=torch.int32)                                     # [P]
+        total = _gsum(torch.sum(torch.where(ia_total_mask, cnt["ia"], 0), dim=(1, 2),
+                                dtype=torch.int32), mesh)                        # [P]
         first_ok = (total == 0) & tbx["ia_self_all"]
         aff_ok = no_ia | (all_keys & (pods_exist | first_ok[:, None]))
         anti_ok = ~torch.any(anti_mask & (cnt["ianti"] > 0), dim=1)
@@ -613,17 +682,18 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
         """Host mode: spread and inter-pod affinity scores [P, N], normalized
         per pod over its feasible set."""
         base_mask = feasible & ~ignored
-        w_log = log_tbl.index_select(0, torch.sum(base_mask, dim=1))[:, None, None]
+        w_log = log_tbl.index_select(0, _gsum(torch.sum(base_mask, dim=1), mesh))[:, None, None]
         spread = spread_score(cnt["ss"].to(torch.float32), w_log, ss_mask, base_mask)
         pref = torch.sum(torch.where(ip_mask, ip_w * cnt["ip"].to(torch.float32), 0.0), dim=1)
-        return spread, topology._ipa_normalize(pref + sym, feasible, dim=1)
+        return spread, topology._ipa_normalize(pref + sym, feasible, dim=1, mesh=mesh)
 
     def eval_gen(cnt, viol, active):
         """General mode: the filters [P, N], every count-derived quantity
         summed again per pod over its domains from the view's counts."""
         elig = elig_sf & active[:, None]
         seg, cnt_at = seg_at(torch.where(elig[:, None, :] & has["sf"], cnt["sf"], 0), "sf")
-        pres = topology._seg_sum(elig[:, None, :].expand(dom["sf"].shape), dom["sf"], vd) > 0
+        pres = topology._seg_sum(elig[:, None, :].expand(dom["sf"].shape), dom["sf"], vd,
+                                 mesh) > 0
         minm = torch.amin(torch.where(pres, seg, topology.INT_MAX), dim=2)        # [P, C]
         minm = torch.where(torch.any(pres, dim=2), minm, 0)
         ndom = torch.sum(pres, dim=2, dtype=torch.int32)
@@ -642,8 +712,9 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
     def scores_gen(cnt, sym, feasible):
         """General mode: the scores [P, N]."""
         base_mask = feasible & ~ignored
-        pres = topology._seg_sum(base_mask[:, None, :].expand(dom["ss"].shape), dom["ss"], vd) > 0
-        sz = torch.where(tbx["ss_hostname"], torch.sum(base_mask, dim=1)[:, None],
+        pres = topology._seg_sum(base_mask[:, None, :].expand(dom["ss"].shape), dom["ss"], vd,
+                                 mesh) > 0
+        sz = torch.where(tbx["ss_hostname"], _gsum(torch.sum(base_mask, dim=1), mesh)[:, None],
                          torch.sum(pres, dim=2))                                  # [P, C]
         w_log = log_tbl.index_select(0, sz.reshape(-1)).view(sz.shape)[:, :, None]
         _, at_ss = seg_at(torch.where(ss_add, cnt["ss"], 0), "ss")
@@ -651,7 +722,7 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
                               ss_mask, base_mask)
         _, at_ip = seg_at(torch.where(ip_add, cnt["ip"], 0), "ip")
         pref = torch.sum(torch.where(ip_mask, ip_w * at_ip.to(torch.float32), 0.0), dim=1)
-        return spread, topology._ipa_normalize(pref + sym, feasible, dim=1)
+        return spread, topology._ipa_normalize(pref + sym, feasible, dim=1, mesh=mesh)
 
     if host is not None:
         t_eval, t_scores = eval_host, scores_host
@@ -686,8 +757,9 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
             feasible = feasible & spread_ok & ipa_ok
         total = (w["NodeResourcesFit"] * least_alloc
                  + w["NodeResourcesBalancedAllocation"] * balanced
-                 + w["TaintToleration"] * _normalize(taint_raw, feasible, True, dim=1)
-                 + w["NodeAffinity"] * _normalize(affinity_raw, feasible, False, dim=1)
+                 + w["TaintToleration"] * _normalize(taint_raw, feasible, True, dim=1, mesh=mesh)
+                 + w["NodeAffinity"] * _normalize(affinity_raw, feasible, False, dim=1,
+                                                  mesh=mesh)
                  + w["ImageLocality"] * image_score)
         if topo_on:
             spread, ipa = t_scores(cnt, sym, feasible)
@@ -727,23 +799,28 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
             view = (cnt0, _whole_matmul(m_filter, exist_at),
                     _whole_matmul(tsw, exist_at).to(torch.float32))
         eff, feasible, _total, _sp, _ip = assemble(fit, ports, la, bal, active, view)
-        any_f = torch.any(feasible, dim=1)
-        choice = torch.argmax(eff, dim=1)            # first maximum; 0 on an all-NEG_INF row
+        # first maximum; 0 on an all-NEG_INF row. ``choice`` is the global
+        # slot, ``local`` its column on the rank that owns it (``mine``);
+        # in mode general ``dcol`` [P, T] is the pick's domain per term
+        choice, local, mine, any_f, dcol = global_argmax(
+            eff, feasible, *(() if gen is None else (dom_t[None].expand(P, -1, -1),)))
         failing = active & ~any_f
 
-        # tentative winners: the lowest pod index per chosen node
+        # tentative winners: the lowest pod index per chosen node, found on
+        # the rank that owns the node
         contender = active & any_f
         win = torch.full((N,), P, dtype=torch.int64, device=device).scatter_reduce_(
-            0, choice, torch.where(contender, iota_p, P), "amin", include_self=True)
-        accepted = contender & (torch.gather(win, 0, choice) == iota_p)
+            0, local, torch.where(contender & mine, iota_p, P), "amin", include_self=True)
+        accepted = _gmax(contender & mine & (torch.gather(win, 0, local) == iota_p), mesh)
+        owned = accepted & mine
 
         # each winner's sequential view: the commits of lower-index winners
         # on their nodes (rivals), round-start state elsewhere
-        d_req = _by_node(N, choice, pb.req, accepted)
-        d_nz = _by_node(N, choice, pb.nonzero_req, accepted)
+        d_req = _by_node(N, local, pb.req, owned)
+        d_nz = _by_node(N, local, pb.nonzero_req, owned)
         port_mixed = port_dyn
         if ports_enabled:
-            port_mixed = port_dyn | _by_node(N, choice, pod_bits, accepted)
+            port_mixed = port_dyn | _by_node(N, local, pod_bits, owned)
         fit2, ports2, la2, bal2 = components(req_dyn + d_req, nz_dyn + d_nz, port_mixed)
         # node n is a rival of pod p when a winner j < p committed there
         # (win[n] < P exactly on the nodes some winner took)
@@ -752,11 +829,11 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
         if topo_on:
             # the winners' count columns on their nodes, on each pod's rivals
             rival_i = rival.to(torch.int32)
-            d_cnt = gather_rows(_by_node(N, choice, sig_mask, accepted).t())     # [S, N] rows
+            d_cnt = gather_rows(_by_node(N, local, sig_mask, owned).t())         # [S, N] rows
             cnt_mix = {k: cnt0[k] + d_cnt[k] * rival_i[:, None, :] for k in kinds}
             _, viol, sym = view
             if host is not None:
-                cterm_hk = _by_node(N, choice, term_mask, accepted).t() * hk_i   # [T, N]
+                cterm_hk = _by_node(N, local, term_mask, owned).t() * hk_i       # [T, N]
                 viol = viol + _whole_matmul(m_filter, cterm_hk) * rival_i
                 sym = sym + _whole_matmul(tsw, cterm_hk).to(torch.float32) * rival_i
             view_mix = (cnt_mix, viol, sym)
@@ -765,15 +842,19 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
         eff_mix, feas_mix, tot_mix, sp_mix, ip_mix = assemble(
             fit_mix, ports_mix, torch.where(rival, la2, la), torch.where(rival, bal2, bal),
             active, view_mix)
-        choice_mix = torch.argmax(eff_mix, dim=1)
+        choice_mix = global_argmax(eff_mix, feas_mix)[0]
+        # the round-start pick's mixed feasibility and score, from its owner
+        feas_pick, best_pick = topology._gowned(mine, mesh, mine & pick(feas_mix, local),
+                                                pick(tot_mix, local))
         # an infeasible-in-mix winner defers: argmax over an all-NEG_INF row
         # is 0, which would read as stable for a pod whose choice was slot 0
-        unstable = accepted & ((choice_mix != choice) | ~pick(feas_mix, choice))
+        unstable = accepted & ((choice_mix != choice) | ~feas_pick)
         if gen is not None:
             # a winner whose view an earlier winner's term commit could touch
             # waits a round: add_term[t, j] = accepted j adds term t at a keyed
-            # domain; interaction = pod i's anti match or symmetric weight on t
-            dcol = torch.gather(dom_t, 1, choice[None, :].expand(dom_t.shape[0], P))  # [T, P]
+            # domain; interaction = pod i's anti match or symmetric weight on t.
+            # dcol is each pick's domain, read on its owner
+            dcol = dcol[0].t()                                                   # [T, P]
             add_term = term_mask.t() * (dcol > 0) * accepted[None, :]            # [T, P]
             interacts = (_whole_matmul(m_filter, add_term) > 0) | (
                 _whole_matmul(abs_tsw, add_term) > 0)                             # [P(i), P(j)]
@@ -795,15 +876,16 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
         failing = failing & in_prefix
         accepted = accepted & ~unstable & in_prefix
 
-        # apply the finalized prefix
-        req_dyn = req_dyn + _by_node(N, choice, pb.req, accepted)
-        nz_dyn = nz_dyn + _by_node(N, choice, pb.nonzero_req, accepted)
+        # apply the finalized prefix (each pick on the rank that owns it)
+        owned = accepted & mine
+        req_dyn = req_dyn + _by_node(N, local, pb.req, owned)
+        nz_dyn = nz_dyn + _by_node(N, local, pb.nonzero_req, owned)
         if ports_enabled:
-            port_dyn = port_dyn | _by_node(N, choice, pod_bits, accepted)
+            port_dyn = port_dyn | _by_node(N, local, pod_bits, owned)
         if topo_on:
-            sel_dyn = sel_dyn + _by_node(N, choice, sig_mask, accepted).t()
+            sel_dyn = sel_dyn + _by_node(N, local, sig_mask, owned).t()
         if host is not None:
-            term_dyn = term_dyn + _by_node(N, choice, term_mask, accepted).t()
+            term_dyn = term_dyn + _by_node(N, local, term_mask, owned).t()
         elif gen is not None:
             # each finalized pod's terms land at its node's domains (the
             # deferral block's dcol: the same picks)
@@ -813,7 +895,7 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
                 0, (t_rows + dcol).flatten(), add_f.flatten()).view(term_dyn.shape)
         final = accepted | failing
         out_idx = torch.where(accepted, choice.to(torch.int32), out_idx)
-        best = torch.where(final, pick(tot_mix, choice), best)
+        best = torch.where(final, best_pick, best)
         anyf_out = torch.where(final, accepted, anyf_out)
         fit_out = torch.where(final[:, None], fit_mix, fit_out)
         ports_out = torch.where(final[:, None], ports_mix, ports_out)
@@ -837,7 +919,7 @@ def _speculative_core(pb: PodBatch, nt: NodeTensors, weights: Dict[str, float], 
         if not more_h:
             break
 
-    f_class, _ = _commit_scatters(nt, pb, out_idx, nonzero=False)
+    f_class, _ = _commit_scatters(nt, pb, out_idx, nonzero=False, slot_offset=offset)
     return BatchResult(
         node_idx=out_idx, best_score=best, any_feasible=anyf_out, static_masks=static_masks,
         fit_ok=fit_out, ports_ok=ports_out, spread_ok=spread_out, ipa_ok=ipa_out,
@@ -856,8 +938,8 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
                         slice_mask: Optional[torch.Tensor] = None,
                         sample_k: Optional[int] = None,
                         sample_start: Optional[torch.Tensor] = None,
-                        topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                        ) -> BatchResult:
+                        topo_carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        mesh=None) -> BatchResult:
     """Static phase, the commit phase of ``topo_mode`` and the post-scan
     scatters. ``weights`` are the plugin weights by name (every key of
     DEFAULT_WEIGHTS). Modes ``host`` and ``general`` need ``tc`` and ``tb``;
@@ -875,13 +957,19 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
     final_seg_exist) of the newest batch in flight, which replace ``tc``'s
     sel_counts and the initial seg_exist (the per-node term counts in mode
     ``host``, the per-domain ones in mode ``general``) on the scan and the
-    rounds."""
+    rounds. ``mesh`` (``parallel/mesh.py``) runs this rank's share of the
+    sharded program (``nt``, ``tc``'s count tables, the masks and
+    ``topo_carry``'s node-axis tables are its window; ``node_idx`` holds
+    global slots): the scan, or the rounds with ``spec_decode``, in every
+    mode, never the fused kernel, and no sampling window."""
     if topo_mode not in TOPO_MODES:
         raise ValueError(f"topo_mode must be one of {TOPO_MODES}, not {topo_mode!r}")
     if spec_decode and sample_k is not None:
         raise ValueError("the speculative rounds have no sampling window: a sampled batch "
                          "takes the scan")
-    static = static_phase(pb, et, nt, extra_mask, dra_mask, slice_mask)
+    if mesh is not None and sample_k is not None:
+        raise ValueError("the sharded program has no sampling window")
+    static = static_phase(pb, et, nt, extra_mask, dra_mask, slice_mask, mesh)
     if topo_mode != "off" and (tc is None or tb is None):
         raise ValueError(f"topo_mode {topo_mode!r} needs tc and tb")
     if spec_decode:
@@ -894,21 +982,21 @@ def schedule_batch_core(pb: PodBatch, et: ExprTable, nt: NodeTensors,
             return _speculative_core(
                 pb, nt, weights, static, pod_bits, sel0, seg0,
                 host=dict(tb=tb_fields, hostkey_ok=nt.label_val[:, host_key] > 0,
-                          affinity_ok=affinity_ok), ports_enabled=ports_enabled)
+                          affinity_ok=affinity_ok), ports_enabled=ports_enabled, mesh=mesh)
         if topo_mode == "general":
             vd = vd_override if vd_override else int(et.bits.shape[1]) * 32
             static_topo = topology.make_static(tc.term_counts, tc.term_key, nt.label_val,
-                                               nt.valid, vd)
+                                               nt.valid, vd, mesh)
             sel0, seg0 = topo_carry or (tc.sel_counts, static_topo.seg_exist0)
             return _speculative_core(
                 pb, nt, weights, static, pod_bits, sel0, seg0,
                 gen=dict(tb=tb_fields, affinity_ok=affinity_ok, vd=vd,
-                         dom_t=static_topo.dom_t), ports_enabled=ports_enabled)
+                         dom_t=static_topo.dom_t), ports_enabled=ports_enabled, mesh=mesh)
         return _speculative_core(pb, nt, weights, static, pod_bits,
-                                 ports_enabled=ports_enabled)
-    if topo_mode != "off" or sample_k is not None:
+                                 ports_enabled=ports_enabled, mesh=mesh)
+    if topo_mode != "off" or sample_k is not None or mesh is not None:
         return _topology_scan(pb, et, nt, weights, tc, tb, topo_mode, vd_override,
-                              host_key, static, sample_k, sample_start, topo_carry)
+                              host_key, static, sample_k, sample_start, topo_carry, mesh)
     (static_masks, static_ok, static_ff, taint_raw, affinity_raw, image_score,
      jitter) = static
     pod_bits = _pod_port_bits(pb, nt.port_bits.shape[1])

@@ -237,9 +237,10 @@ class ClusterEncoder:
         if slot is None:
             reused = bool(self._free_slots)
             slot = self._free_slots.pop() if self._free_slots else len(self.node_slots)
-            # slots are dense; a freed slot is reused before extending
-            used = set(self.node_slots.values())
-            if slot in used:  # freed-list raced with dense growth; find a hole
+            # slots are dense; a freed slot is reused before extending.
+            # slot_names is node_slots' live inverse, so the check is O(1)
+            if slot in self.slot_names:  # freed-list raced with dense growth; find a hole
+                used = set(self.node_slots.values())
                 slot = next(i for i in range(self.caps.nodes + 1) if i not in used)
             if slot >= self.caps.nodes:
                 raise CapacityError("nodes", slot + 1, self.caps.nodes)

@@ -61,8 +61,13 @@ def eval_term_program(expr_match: torch.Tensor, term_idx: torch.Tensor,
     return torch.where(has_terms[:, None], any_term, torch.ones_like(any_term))
 
 
-def filter_node_name(pb: PodBatch, nt: NodeTensors) -> torch.Tensor:
+def filter_node_name(pb: PodBatch, nt: NodeTensors, slot_offset: int = 0) -> torch.Tensor:
+    """NodeName: the pod's target slot, or any node (-1). Under node-axis
+    sharding ``nt`` is one rank's window and ``slot_offset`` its first
+    global slot: the target is a global slot id."""
     n_idx = torch.arange(nt.capacity, dtype=torch.int32, device=pb.node_name.device)[None, :]
+    if slot_offset:
+        n_idx = n_idx + slot_offset
     want = pb.node_name[:, None]
     return (want == -1) | (want == n_idx)
 

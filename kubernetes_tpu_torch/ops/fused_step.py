@@ -92,13 +92,18 @@ def _resource_scores(alloc2: torch.Tensor, nz_total: torch.Tensor):
 
 
 def _normalize(raw: torch.Tensor, feasible: torch.Tensor, reverse: bool,
-               dim=None) -> torch.Tensor:
+               dim=None, mesh=None) -> torch.Tensor:
     """DefaultNormalizeScore over the feasible set: of one pod's [N] raw
     scores, or with ``dim`` of every row of a [P, N] batch (the per-row max
     of the speculative rounds). One form for the scan and the rounds, whose
-    outputs must match bit for bit."""
+    outputs must match bit for bit. Under a ``mesh`` (``parallel/mesh.py``)
+    the node axis is this rank's window and the maximum is taken over every
+    rank (``kubernetes_tpu/backend/batch.py:265-280``), elementwise per row
+    in the ``dim`` form."""
     masked = torch.where(feasible, raw, torch.zeros_like(raw))
     mx = torch.amax(masked) if dim is None else torch.amax(masked, dim=dim, keepdim=True)
+    if mesh is not None:
+        mx = mesh.all_reduce(mx, "max")
     scaled = torch.floor(raw * 100.0 / torch.clamp_min(mx, 1.0))
     if reverse:
         return torch.where(mx == 0, torch.full_like(scaled, 100.0), 100.0 - scaled)

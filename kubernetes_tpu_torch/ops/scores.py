@@ -48,14 +48,20 @@ _MIN_THRESHOLD = 23.0 * _MB
 _MAX_CONTAINER_THRESHOLD = 1000.0 * _MB
 
 
-def score_image_locality(pb: PodBatch, nt: NodeTensors, total_nodes=None) -> torch.Tensor:
-    """imagelocality: Σ_present size·numNodes/totalNodes, clamped+scaled."""
+def score_image_locality(pb: PodBatch, nt: NodeTensors, total_nodes=None,
+                         mesh=None) -> torch.Tensor:
+    """imagelocality: Σ_present size·numNodes/totalNodes, clamped+scaled.
+    totalNodes defaults to the valid nodes, summed over the ``mesh``'s
+    ranks when ``nt`` is one rank's window (``parallel/mesh.py``)."""
     ids = pb.image_ids                                   # [P, C]
     idl = ids.long()
     word = nt.image_bits[:, (ids >> 5).long()]           # [N, P, C]
     present = _bit(word, ids).to(torch.float32).permute(1, 0, 2)  # [P, N, C]
     if total_nodes is None:
-        total_nodes = torch.clamp_min(torch.sum(nt.valid), 1)
+        valid = torch.sum(nt.valid)
+        if mesh is not None:
+            valid = mesh.all_reduce(valid, "sum")
+        total_nodes = torch.clamp_min(valid, 1)
     total_nodes = torch.as_tensor(total_nodes).to(torch.float32)
     spread = nt.image_num_nodes[idl].to(torch.float32) / total_nodes  # [P, C]
     contrib = torch.floor(nt.image_sizes[idl].to(torch.float32) * spread)

@@ -1,9 +1,9 @@
 """PodTopologySpread and InterPodAffinity inside the commit scan (PyTorch).
 
-Counterpart of ``kubernetes_tpu/ops/topology.py``, without the sharded
-(``axis_name``) form. Topology domains are label value ids: a constraint's
-or term's per-domain pod counts are one segment sum of TopoCounts rows over
-``label_val[:, key]``, and a node's count is one gather back. Every function
+Counterpart of ``kubernetes_tpu/ops/topology.py``. Topology domains are
+label value ids: a constraint's or term's per-domain pod counts are one
+segment sum of TopoCounts rows over ``label_val[:, key]``, and a node's
+count is one gather back. Every function
 here runs once per pod inside the scan of ``backend/batch.py``, against the
 counts as the batch's earlier pods left them; the speculative rounds there
 share ``_seg_sum``, ``_fold_sum`` and the two normalizations in their
@@ -30,10 +30,22 @@ How the JAX semantics carry over:
   computes, and CUDA's may differ from both.
 * Nothing here reads a device value on the host: no ``.item()``, no
   data-dependent shape, no Python branch on a tensor.
+
+Sharding (the JAX ``axis_name``): every function takes an optional
+``mesh`` (``parallel/mesh.py:NodeMesh``), under which the node axis of its
+inputs is this rank's window. Segment sums run over the local nodes and one
+all-reduce merges the per-rank tables; per-pod reductions over the node
+axis (minima, maxima, counts) reduce across ranks the same way; reads stay
+local. The general mode's ``seg_exist`` table is replicated and updated on
+every rank from the winner's domain column. The cross-rank winner is one
+all-gather of each rank's best row (``_gfirst_max``) and values read on the
+winner's rank reach the others in one packed psum (``_gowned``). With
+``mesh=None`` the collectives are the identity.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +55,75 @@ INT_MAX = 2**31 - 1
 
 _I32 = torch.int32
 _F32 = torch.float32
+
+
+def _gsum(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``lax.psum`` over the mesh's ranks (``mesh=None``: ``x``)."""
+    return x if mesh is None else mesh.all_reduce(x, "sum")
+
+
+def _gmax(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``lax.pmax``; a bool goes through int32, as in the JAX program."""
+    if mesh is None:
+        return x
+    if x.dtype == torch.bool:
+        return mesh.all_reduce(x.to(_I32), "max") > 0
+    return mesh.all_reduce(x, "max")
+
+
+def _gmin(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``lax.pmin``."""
+    return x if mesh is None else mesh.all_reduce(x, "min")
+
+
+def _pack(shape, cols) -> torch.Tensor:
+    """``cols`` (each of ``shape`` or ``shape + [k]``) as one int32
+    ``[*shape, K]`` row: float32 by its bits, bool and ints as int32."""
+    return torch.cat([(c.view(_I32) if c.dtype == _F32 else c.to(_I32)).reshape(*shape, -1)
+                      for c in cols], dim=-1)
+
+
+def _unpack(row: torch.Tensor, cols) -> tuple:
+    """``_pack``'s inverse: ``row`` [*shape, K] back into ``cols``' shapes
+    and dtypes."""
+    out, at, n = [], 0, math.prod(row.shape[:-1])
+    for c in cols:
+        part = row[..., at:at + c.numel() // n].reshape(c.shape)
+        at += c.numel() // n
+        out.append(part.view(_F32) if c.dtype == _F32 else
+                   part != 0 if c.dtype == torch.bool else part.to(c.dtype))
+    return tuple(out)
+
+
+def _gfirst_max(val: torch.Tensor, mesh, *cols) -> tuple:
+    """The cross-rank first maximum of ``val`` (float32, one per pod) with
+    one all-gather: every rank sends its row of ``val`` and ``cols`` and
+    takes the row of the lowest rank holding the maximum, as the
+    single-device argmax takes the first. The JAX program's pmax of the
+    best, pmin of the rank holding it and psum of the owner's values give
+    the same row, bit for bit. (A psum of a [W, ...] buffer holding each
+    rank's row in its own slot moves the same rows, but gloo's round trip
+    for it on the card was 1.05-1.9x the all-gather's: ``perf/sharding.py``.)
+    Returns (the owner's ``cols``, mine: this rank owns the pick);
+    ``mesh=None``: (``cols``, None)."""
+    if mesh is None:
+        return cols, None
+    row = _pack(val.shape, (val,) + cols)
+    rows = mesh.all_gather(row[None], 0)                              # [W, *shape, 1+K]
+    owner = torch.argmax(rows[..., 0].view(_F32), dim=0)              # the first maximum
+    took = torch.gather(rows, 0, owner[None, ..., None].expand(1, *rows.shape[1:]))[0]
+    return _unpack(took[..., 1:], cols), owner == mesh.rank
+
+
+def _gowned(mine: torch.Tensor, mesh, *cols) -> tuple:
+    """Each pod's ``cols`` from the rank that owns its pick (``mine``, from
+    ``_gfirst_max``), on every rank: one psum of the packed values masked to
+    the owner, float32 by its bits so they arrive exact. ``mesh=None``:
+    ``cols``."""
+    if mesh is None:
+        return cols
+    row = _pack(mine.shape, cols)
+    return _unpack(_gsum(torch.where(mine[..., None], row, 0), mesh), cols)
 
 
 class TopoStatic(NamedTuple):
@@ -124,15 +205,15 @@ def _domains(label_val: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
     return label_val.index_select(1, key.long()).t().long()
 
 
-def _seg_sum(values: torch.Tensor, dom: torch.Tensor, vd: int) -> torch.Tensor:
+def _seg_sum(values: torch.Tensor, dom: torch.Tensor, vd: int, mesh=None) -> torch.Tensor:
     """Int values summed by domain id over the last axis: [C, N] (or the
     speculative rounds' per-pod [P, C, N]) with int64 ids of the same shape
-    -> [C, Vd] (or [P, C, Vd]) int32."""
+    -> [C, Vd] (or [P, C, Vd]) int32, summed over the mesh's ranks."""
     seg = torch.zeros((*dom.shape[:-1], vd), dtype=_I32, device=dom.device)
-    return seg.scatter_add_(-1, dom, values.to(_I32))
+    return _gsum(seg.scatter_add_(-1, dom, values.to(_I32)), mesh)
 
 
-def _seg_counts(sig, key, sel_counts, label_val, elig, vd: int):
+def _seg_counts(sig, key, sel_counts, label_val, elig, vd: int, mesh=None):
     """Per-domain sums of ``sel_counts[sig]`` over eligible nodes that carry
     the key. sig/key [C]; elig [C, N] or [N]. Returns (dom [C, N] int64,
     has_key [C, N], seg [C, Vd], cnt_at [C, N])."""
@@ -143,7 +224,7 @@ def _seg_counts(sig, key, sel_counts, label_val, elig, vd: int):
     cnts = sel_counts.index_select(0, sig.long())
     # nodes lacking the key are never counted (the reference skips them), so
     # segment column 0 stays empty and whole-table sums match the oracle
-    seg = _seg_sum(torch.where(elig & has_key, cnts, 0), dom, vd)
+    seg = _seg_sum(torch.where(elig & has_key, cnts, 0), dom, vd, mesh)
     return dom, has_key, seg, torch.gather(seg, 1, dom)
 
 
@@ -156,16 +237,16 @@ def _fold_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     return out
 
 
-def make_static(term_counts, term_key, label_val, valid, vd: int) -> TopoStatic:
+def make_static(term_counts, term_key, label_val, valid, vd: int, mesh=None) -> TopoStatic:
     dom_t = _domains(label_val, term_key)                                 # [T, N]
     add = torch.where(valid[None, :] & (dom_t > 0), term_counts, 0)
-    return TopoStatic(dom_t=dom_t, seg_exist0=_seg_sum(add, dom_t, vd))
+    return TopoStatic(dom_t=dom_t, seg_exist0=_seg_sum(add, dom_t, vd, mesh))
 
 
 # ----------------------------------------------------------------- filters
 
 
-def spread_filter(xs, sel_counts, label_val, valid, affinity_ok, vd: int):
+def spread_filter(xs, sel_counts, label_val, valid, affinity_ok, vd: int, mesh=None):
     """PodTopologySpread Filter (filtering.go:335): per DoNotSchedule
     constraint, matchNum + selfMatch - minMatchNum <= maxSkew over the
     domains of eligible nodes (matching the pod's node affinity and carrying
@@ -176,8 +257,8 @@ def spread_filter(xs, sel_counts, label_val, valid, affinity_ok, vd: int):
     has_all = torch.all(torch.where(sf_valid[:, None], has_key, True), dim=0)
     elig = valid & affinity_ok & has_all
     _, _, seg, cnt_at = _seg_counts(xs["sf_sig"], xs["sf_key"], sel_counts, label_val,
-                                    elig, vd)
-    pres = _seg_sum(elig[None, :].expand(dom.shape[0], -1), dom, vd) > 0   # [C, Vd]
+                                    elig, vd, mesh)
+    pres = _seg_sum(elig[None, :].expand(dom.shape[0], -1), dom, vd, mesh) > 0   # [C, Vd]
     minm = torch.amin(torch.where(pres, seg, INT_MAX), dim=1)
     minm = torch.where(torch.any(pres, dim=1), minm, 0)
     ndom = torch.sum(pres, dim=1, dtype=_I32)
@@ -188,14 +269,14 @@ def spread_filter(xs, sel_counts, label_val, valid, affinity_ok, vd: int):
     return torch.all(torch.where(sf_valid[:, None], ok_c, True), dim=0)
 
 
-def ipa_filter(xs, sel_counts, seg_exist, dom_t, label_val, valid, vd: int):
+def ipa_filter(xs, sel_counts, seg_exist, dom_t, label_val, valid, vd: int, mesh=None):
     """InterPodAffinity Filter's three checks (filtering.go:377-387).
     Returns (aff_ok, anti_ok, exist_ok, exist_at); exist_at [T, N] is the
     per-node existing-term domain count, reused by the score."""
     # 1. the pod's required affinity (and the first-pod-in-cluster case)
     ia_valid = xs["ia_valid"]
     _, has_key, seg, cnt_at = _seg_counts(xs["ia_sig"], xs["ia_key"], sel_counts,
-                                          label_val, valid, vd)
+                                          label_val, valid, vd, mesh)
     pods_exist = torch.all(torch.where(ia_valid[:, None], cnt_at > 0, True), dim=0)
     all_keys = torch.all(torch.where(ia_valid[:, None], has_key, True), dim=0)
     total = torch.sum(torch.where(ia_valid[:, None], seg, 0))
@@ -204,7 +285,7 @@ def ipa_filter(xs, sel_counts, seg_exist, dom_t, label_val, valid, vd: int):
 
     # 2. the pod's required anti-affinity
     _, an_has_key, _, an_cnt = _seg_counts(xs["ianti_sig"], xs["ianti_key"], sel_counts,
-                                           label_val, valid, vd)
+                                           label_val, valid, vd, mesh)
     anti_ok = ~torch.any(xs["ianti_valid"][:, None] & an_has_key & (an_cnt > 0), dim=0)
 
     # 3. existing pods' required anti-affinity against the pod
@@ -222,18 +303,21 @@ def _row_reduce(fn, x, dim):
     return fn(x) if dim is None else fn(x, dim=dim, keepdim=True)
 
 
-def _spread_normalize(raw, base, ignored, has_cons, dim=None):
+def _spread_normalize(raw, base, ignored, has_cons, dim=None, mesh=None):
     """Spread score normalization (scoring.go:232-271) of one pod's [N]
-    scores, or with ``dim`` of every row of a [P, N] batch."""
-    mx = _row_reduce(torch.amax, torch.where(base, raw, float("-inf")), dim)
-    mn = _row_reduce(torch.amin, torch.where(base, raw, float("inf")), dim)
+    scores, or with ``dim`` of every row of a [P, N] batch; the maximum,
+    minimum and any() over the global node axis."""
+    mx = _gmax(_row_reduce(torch.amax, torch.where(base, raw, float("-inf")), dim), mesh)
+    mn = _gmin(_row_reduce(torch.amin, torch.where(base, raw, float("inf")), dim), mesh)
     norm = torch.where(mx == 0, 100.0,
                        torch.floor(100.0 * (mx + mn - raw) / torch.clamp_min(mx, 1.0)))
-    norm = torch.where(ignored | ~_row_reduce(torch.any, base, dim), 0.0, norm)
+    any_base = _gmax(_row_reduce(torch.any, base, dim), mesh)
+    norm = torch.where(ignored | ~any_base, 0.0, norm)
     return torch.where(has_cons, norm, 0.0)
 
 
-def spread_score(xs, sel_counts, label_val, valid, affinity_ok, feasible, vd: int, log_tbl):
+def spread_score(xs, sel_counts, label_val, valid, affinity_ok, feasible, vd: int, log_tbl,
+                 mesh=None):
     """PodTopologySpread Score and Normalize (scoring.go:196-271). Returns
     [N] float32 scores, 0 for ignored and infeasible nodes. ``log_tbl`` is
     ``size_log_table`` over at least max(N, vd) + 1 sizes."""
@@ -246,43 +330,46 @@ def spread_score(xs, sel_counts, label_val, valid, affinity_ok, feasible, vd: in
     base = feasible & ~ignored
 
     # domain sizes over filtered non-ignored nodes; hostname counts nodes
-    pres = _seg_sum(base[None, :].expand(dom.shape[0], -1), dom, vd) > 0
-    sz = torch.where(ss_host, torch.sum(base, dtype=_I32), torch.sum(pres, dim=1, dtype=_I32))
+    pres = _seg_sum(base[None, :].expand(dom.shape[0], -1), dom, vd, mesh) > 0
+    sz = torch.where(ss_host, _gsum(torch.sum(base, dtype=_I32), mesh),
+                     torch.sum(pres, dim=1, dtype=_I32))
     w = log_tbl.index_select(0, sz.long())                                # [C]
 
     # counts over eligible nodes (affinity match and the require-all key rule)
     elig = valid & affinity_ok & torch.where(require_all, has_all, True)
-    _, _, _, cnt_at = _seg_counts(xs["ss_sig"], xs["ss_key"], sel_counts, label_val, elig, vd)
+    _, _, _, cnt_at = _seg_counts(xs["ss_sig"], xs["ss_key"], sel_counts, label_val, elig, vd,
+                                  mesh)
     cnt = torch.where(ss_host[:, None], sel_counts.index_select(0, xs["ss_sig"].long()),
                       cnt_at).to(_F32)
     contrib = torch.where(ss_valid[:, None] & has_key,
                           cnt * w[:, None] + (xs["ss_skew"][:, None].to(_F32) - 1.0), 0.0)
     raw = torch.floor(_fold_sum(contrib) + 0.5)                            # math.Round, >= 0
-    return _spread_normalize(raw, base, ignored, torch.any(ss_valid))
+    return _spread_normalize(raw, base, ignored, torch.any(ss_valid), mesh=mesh)
 
 
-def _ipa_normalize(raw, feasible, dim=None):
-    """IPA score normalization, min and max clamped at 0; ``dim`` as above."""
-    mx = torch.clamp_min(_row_reduce(torch.amax, torch.where(feasible, raw, float("-inf")),
-                                     dim), 0.0)
-    mn = torch.clamp_max(_row_reduce(torch.amin, torch.where(feasible, raw, float("inf")),
-                                     dim), 0.0)
+def _ipa_normalize(raw, feasible, dim=None, mesh=None):
+    """IPA score normalization, min and max clamped at 0; ``dim`` and
+    ``mesh`` as above."""
+    mx = torch.clamp_min(_gmax(_row_reduce(
+        torch.amax, torch.where(feasible, raw, float("-inf")), dim), mesh), 0.0)
+    mn = torch.clamp_max(_gmin(_row_reduce(
+        torch.amin, torch.where(feasible, raw, float("inf")), dim), mesh), 0.0)
     diff = mx - mn
     return torch.where(diff > 0, torch.floor(100.0 * (raw - mn) / torch.clamp_min(diff, 1.0)), 0.0)
 
 
-def ipa_score(xs, sel_counts, exist_at, label_val, valid, feasible, vd: int):
+def ipa_score(xs, sel_counts, exist_at, label_val, valid, feasible, vd: int, mesh=None):
     """InterPodAffinity Score and Normalize (scoring.go): the pod's preferred
     terms against existing pods plus the existing terms' symmetric weights,
     normalized over the feasible set with min and max clamped at 0.
     Returns [N] float32."""
     ip_valid = xs["ip_valid"]
     _, has_key, _, cnt_at = _seg_counts(xs["ip_sig"], xs["ip_key"], sel_counts, label_val,
-                                        valid, vd)
+                                        valid, vd, mesh)
     pref = torch.sum(torch.where(ip_valid[:, None] & has_key,
                                  xs["ip_w"][:, None].to(_F32) * cnt_at, 0.0), dim=0)
     sym = torch.sum(xs["term_score_w"][:, None] * exist_at.to(_F32), dim=0)
-    return _ipa_normalize(pref + sym, feasible)
+    return _ipa_normalize(pref + sym, feasible, mesh=mesh)
 
 
 # ------------------------------------------------------- hostname fast path
@@ -293,14 +380,14 @@ def ipa_score(xs, sel_counts, exist_at, label_val, valid, feasible, vd: int):
 # [T, N] term-count table itself.
 
 
-def spread_filter_host(xs, sel_counts, hostkey_ok, valid, affinity_ok):
+def spread_filter_host(xs, sel_counts, hostkey_ok, valid, affinity_ok, mesh=None):
     """Spread filter with hostname domains: matchNum at node n is
     sel_counts[sig, n]; minMatchNum is the minimum over eligible nodes."""
     min_dom = xs["sf_min_domains"]
     elig = valid & affinity_ok & hostkey_ok
     cnt = sel_counts.index_select(0, xs["sf_sig"].long())                 # [C, N]
-    minm = torch.amin(torch.where(elig[None, :], cnt, INT_MAX), dim=1)
-    ndom = torch.sum(elig, dtype=_I32)
+    minm = _gmin(torch.amin(torch.where(elig[None, :], cnt, INT_MAX), dim=1), mesh)
+    ndom = _gsum(torch.sum(elig, dtype=_I32), mesh)
     minm = torch.where(ndom > 0, minm, 0)
     minm = torch.where((min_dom >= 0) & (ndom < min_dom), 0, minm)
     ok_c = hostkey_ok[None, :] & (cnt + xs["sf_self"][:, None].to(_I32) - minm[:, None]
@@ -308,7 +395,7 @@ def spread_filter_host(xs, sel_counts, hostkey_ok, valid, affinity_ok):
     return torch.all(torch.where(xs["sf_valid"][:, None], ok_c, True), dim=0)
 
 
-def ipa_filter_host(xs, sel_counts, term_cnt, hostkey_ok, valid):
+def ipa_filter_host(xs, sel_counts, term_cnt, hostkey_ok, valid, mesh=None):
     """InterPodAffinity filter with hostname domains: a node's count is its
     own sel_counts column; exist_at is the carried per-node term count."""
     ia_valid = xs["ia_valid"]
@@ -316,8 +403,8 @@ def ipa_filter_host(xs, sel_counts, term_cnt, hostkey_ok, valid):
     exist = hostkey_ok[None, :] & (cnt_at > 0)
     pods_exist = torch.all(torch.where(ia_valid[:, None], exist, True), dim=0)
     all_keys = torch.all(torch.where(ia_valid[:, None], hostkey_ok[None, :], True), dim=0)
-    total = torch.sum(torch.where(ia_valid[:, None] & valid[None, :] & hostkey_ok[None, :],
-                                  cnt_at, 0))
+    total = _gsum(torch.sum(torch.where(ia_valid[:, None] & valid[None, :] & hostkey_ok[None, :],
+                                        cnt_at, 0)), mesh)
     first_ok = (total == 0) & xs["ia_self_all"]
     aff_ok = ~torch.any(ia_valid) | (all_keys & (pods_exist | first_ok))
 
@@ -329,27 +416,28 @@ def ipa_filter_host(xs, sel_counts, term_cnt, hostkey_ok, valid):
     return aff_ok, anti_ok, viol == 0, exist_at
 
 
-def spread_score_host(xs, sel_counts, hostkey_ok, valid, affinity_ok, feasible, log_tbl):
+def spread_score_host(xs, sel_counts, hostkey_ok, valid, affinity_ok, feasible, log_tbl,
+                      mesh=None):
     """Spread score with hostname domains (scoring.go:196-271): the size is
     the count of non-ignored feasible nodes, counts are read per node."""
     ss_valid = xs["ss_valid"]
     ignored = xs["ss_require_all"] & ~hostkey_ok
     base = feasible & ~ignored
-    w = log_tbl.index_select(0, torch.sum(base, dtype=torch.int64).view(1))  # [1]
+    w = log_tbl.index_select(0, _gsum(torch.sum(base, dtype=torch.int64), mesh).view(1))  # [1]
     cnt = sel_counts.index_select(0, xs["ss_sig"].long()).to(_F32)          # [C, N]
     contrib = torch.where(ss_valid[:, None] & hostkey_ok[None, :],
                           cnt * w + (xs["ss_skew"][:, None].to(_F32) - 1.0), 0.0)
     raw = torch.floor(_fold_sum(contrib) + 0.5)
-    return _spread_normalize(raw, base, ignored, torch.any(ss_valid))
+    return _spread_normalize(raw, base, ignored, torch.any(ss_valid), mesh=mesh)
 
 
-def ipa_score_host(xs, sel_counts, exist_at, hostkey_ok, feasible):
+def ipa_score_host(xs, sel_counts, exist_at, hostkey_ok, feasible, mesh=None):
     ip_valid = xs["ip_valid"]
     cnt_at = sel_counts.index_select(0, xs["ip_sig"].long())                # [PT, N]
     pref = torch.sum(torch.where(ip_valid[:, None] & hostkey_ok[None, :],
                                  xs["ip_w"][:, None].to(_F32) * cnt_at.to(_F32), 0.0), dim=0)
     sym = torch.sum(xs["term_score_w"][:, None] * exist_at.to(_F32), dim=0)
-    return _ipa_normalize(pref + sym, feasible)
+    return _ipa_normalize(pref + sym, feasible, mesh=mesh)
 
 
 # ----------------------------------------------------------------- commit
@@ -360,9 +448,13 @@ def _commit_column(n: int, local_idx, commit, device) -> torch.Tensor:
     return ((torch.arange(n, dtype=_I32, device=device) == local_idx) & commit).to(_I32)
 
 
-def commit_update_host(sel_counts, term_cnt, local_idx, commit, pod_sig_mask, pod_term_mask):
+def commit_update_host(sel_counts, term_cnt, local_idx, commit, pod_sig_mask, pod_term_mask,
+                       mine=None):
     """Hostname-mode commit: both tables are [*, N] and take a one-column
-    add at the winning node (elementwise, no scatter)."""
+    add at the winning node (elementwise, no scatter); under a mesh only
+    the rank that owns the winner (``mine``) adds it."""
+    if mine is not None:
+        commit = commit & mine
     col = _commit_column(sel_counts.shape[1], local_idx, commit, sel_counts.device)
     sel_counts = sel_counts + pod_sig_mask.to(_I32)[:, None] * col[None, :]
     term_cnt = term_cnt + pod_term_mask.to(_I32)[:, None] * col[None, :]
@@ -370,13 +462,19 @@ def commit_update_host(sel_counts, term_cnt, local_idx, commit, pod_sig_mask, po
 
 
 def commit_update(sel_counts, seg_exist, dom_t, local_idx, commit, pod_sig_mask,
-                  pod_term_mask):
+                  pod_term_mask, mine=None, dom_col=None):
     """Add a committed pod's memberships to the evolving tables:
-    sel_counts[:, node] += pod_sig_mask, and the pod's carried terms to
-    seg_exist at the winning node's domains."""
-    col = _commit_column(sel_counts.shape[1], local_idx, commit, sel_counts.device)
+    sel_counts[:, node] += pod_sig_mask on the rank that owns the winner
+    (``mine``), and the pod's carried terms to seg_exist at the winning
+    node's domains on every rank. ``dom_col`` [T] is the winner's domain
+    column, which under a mesh comes from its owner's row (``_gfirst_max``);
+    None reads it here at ``local_idx``."""
+    owned = commit if mine is None else commit & mine
+    col = _commit_column(sel_counts.shape[1], local_idx, owned, sel_counts.device)
     sel_counts = sel_counts + pod_sig_mask.to(_I32)[:, None] * col[None, :]
-    dom_col = dom_t.index_select(1, local_idx.long().view(1))               # [T, 1]
+    if dom_col is None:
+        dom_col = dom_t.index_select(1, local_idx.long().view(1))[:, 0]
+    dom_col = dom_col[:, None]                                              # [T, 1]
     add = torch.where(commit & (dom_col > 0), pod_term_mask.to(_I32)[:, None], 0)
     vd = seg_exist.shape[1]
     onehot = torch.arange(vd, dtype=dom_col.dtype, device=dom_col.device)[None, :] == dom_col

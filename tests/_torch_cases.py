@@ -2514,3 +2514,134 @@ class FabricPair(WirePair):
             assert before == after, side
             out.append(after)
         return out
+
+
+# ----------------------------------------------------------------- node-axis sharding
+
+
+def _encoding(pkg: str):
+    """(ClusterEncoder, SigTable, Capacities, hostname key, encoder
+    keywords) of ``pkg`` ("jax" or "port"; the port's encoder on the CPU)."""
+    if pkg == "jax":
+        from kubernetes_tpu.backend.sig_table import SigTable
+        from kubernetes_tpu.framework.plugins.podtopologyspread import HOSTNAME_KEY
+        from kubernetes_tpu.ops.encode import ClusterEncoder
+        from kubernetes_tpu.ops.schema import Capacities
+        return ClusterEncoder, SigTable, Capacities, HOSTNAME_KEY, {}
+    from kubernetes_tpu_torch.backend.sig_table import SigTable
+    from kubernetes_tpu_torch.framework.plugins.interpodaffinity import HOSTNAME_KEY
+    from kubernetes_tpu_torch.ops.encode import ClusterEncoder
+    from kubernetes_tpu_torch.ops.schema import Capacities
+    return ClusterEncoder, SigTable, Capacities, HOSTNAME_KEY, {"device": "cpu"}
+
+
+def _encode_case(pkg: str, infos, pods, n_nodes: int, n_pods: int):
+    encoder_cls, sig_cls, caps_cls, _host, kw = _encoding(pkg)
+    enc = encoder_cls(caps_cls(nodes=n_nodes, pods=n_pods, value_words=32), **kw)
+    sig = sig_cls(enc)
+    nt = enc.encode_snapshot(infos)
+    pb, et = enc.encode_pods(pods)
+    tb = sig.encode_topo(pods)  # registers the batch's rows before the counts are read
+    return enc, nt, pb, et, sig.topo_counts(), tb
+
+
+def _sharding_zone_case(api, n_nodes: int, n_pods: int, topo: bool):
+    """tests/test_sharding.py:build_inputs with ``api``'s objects."""
+    infos = []
+    for i in range(n_nodes):
+        nw = api.make_node(f"node-{i}").capacity(
+            {"cpu": "4", "memory": "8Gi", "pods": 20}).label("zone", f"z{i % 4}")
+        if i % 7 == 0:
+            nw.taint("dedicated", "x", "NoSchedule")
+        infos.append(api.NodeInfo(nw.obj()))
+    pods = []
+    for i in range(n_pods):
+        pw = api.make_pod(f"p{i}").req({"cpu": "1", "memory": "1Gi"}).label("app", f"a{i % 2}")
+        if i % 3 == 0:
+            pw.node_affinity_in("zone", [f"z{i % 4}"])
+        if topo:
+            pw.spread_constraint(1, "zone",
+                                 selector=api.LabelSelector(match_labels={"app": f"a{i % 2}"}))
+            if i % 2 == 0:
+                pw.pod_affinity("zone", api.LabelSelector(match_labels={"app": "a1"}), anti=True)
+        pods.append(pw.obj())
+    return infos, pods
+
+
+def _sharding_capacity_case(api):
+    infos = [api.NodeInfo(api.make_node("only").capacity(
+        {"cpu": "2", "memory": "4Gi", "pods": 1}).obj())]
+    infos += [api.NodeInfo(api.make_node(f"full-{i}").capacity(
+        {"cpu": "0", "memory": "0", "pods": 0}).obj()) for i in range(7)]
+    return infos, [api.make_pod(f"p{i}").req({"cpu": "1"}).obj() for i in range(4)]
+
+
+def _sharding_anti_case(api):
+    infos = [api.NodeInfo(api.make_node(f"n{i}").capacity(
+        {"cpu": "8", "memory": "16Gi", "pods": 10}).label("zone", f"z{i % 2}").obj())
+        for i in range(16)]
+    sel = api.LabelSelector(match_labels={"app": "x"})
+    pods = [api.make_pod(f"p{i}").req({"cpu": "1"}).label("app", "x")
+            .pod_affinity("zone", sel, anti=True).obj() for i in range(4)]
+    return infos, pods
+
+
+def _sharding_conflict_case(api):
+    infos = [api.NodeInfo(api.make_node(f"n{i}").capacity(
+        {"cpu": "2", "memory": "4Gi", "pods": 3}).obj()) for i in range(8)]
+    pods = [api.make_pod(f"p{i}").req({"cpu": "1500m", "memory": "1Gi"}).obj()
+            for i in range(16)]
+    return infos, pods
+
+
+def _sharding_hostname_case(api, host_key: str):
+    infos = [api.NodeInfo(api.make_node(f"node-{i}").capacity(
+        {"cpu": "8", "memory": "16Gi", "pods": 20}).label(host_key, f"node-{i}").obj())
+        for i in range(32)]
+    sel = api.LabelSelector(match_labels={"app": "web"})
+    pods = []
+    for i in range(16):
+        pw = api.make_pod(f"p{i}").req({"cpu": "1", "memory": "1Gi"}).label("app", "web")
+        pw.spread_constraint(1, host_key, selector=sel)
+        if i % 2 == 0:
+            pw.pod_affinity(host_key, api.LabelSelector(match_labels={"app": "web"}), anti=True)
+        pods.append(pw.obj())
+    return infos, pods
+
+
+# The nine cases of tests/test_sharding.py: name -> (builder, nodes, pods,
+# the sharded program's keywords). The builder takes (api, hostname key).
+SHARDING_CASES = {
+    "off_scan": (lambda api, hk: _sharding_zone_case(api, 32, 8, False), 32, 8,
+                 dict(topo_enabled=False)),
+    "topology_scan": (lambda api, hk: _sharding_zone_case(api, 32, 8, True), 32, 8,
+                      dict(topo_enabled=True)),
+    "topo_carry_scan": (lambda api, hk: _sharding_zone_case(api, 32, 8, True), 32, 8,
+                        dict(topo_enabled=True)),
+    "capacity_scan": (lambda api, hk: _sharding_capacity_case(api), 8, 4,
+                      dict(topo_enabled=False)),
+    "anti_cross_shard": (lambda api, hk: _sharding_anti_case(api), 16, 4,
+                         dict(topo_enabled=True)),
+    "off_rounds": (lambda api, hk: _sharding_zone_case(api, 48, 16, False), 48, 16,
+                   dict(topo_enabled=False, spec_decode=True)),
+    "conflict_rounds": (lambda api, hk: _sharding_conflict_case(api), 8, 16,
+                        dict(topo_enabled=False, spec_decode=True)),
+    "host_rounds": (lambda api, hk: _sharding_hostname_case(api, hk), 32, 16,
+                    dict(topo_enabled=True, spec_decode=True, topo_mode="host")),
+    "general_rounds": (lambda api, hk: _sharding_zone_case(api, 48, 16, True), 48, 16,
+                       dict(topo_enabled=True, spec_decode=True, topo_mode="general")),
+}
+
+
+def sharding_case(pkg: str, name: str):
+    """(enc, nt, pb, et, tc, tb, kw) of SHARDING_CASES[name], built and
+    encoded by ``pkg`` ("jax" or "port"); ``kw`` are the sharded program's
+    keywords, with ``host_key`` (the hostname key's slot) in mode host."""
+    build, n_nodes, n_pods, kw = SHARDING_CASES[name]
+    host = _encoding(pkg)[3]
+    infos, pods = build(jax_api() if pkg == "jax" else torch_api(), host)
+    enc, nt, pb, et, tc, tb = _encode_case(pkg, infos, pods, n_nodes, n_pods)
+    kw = dict(kw)
+    if kw.get("topo_mode") == "host":
+        kw["host_key"] = enc.key_slot(host)
+    return enc, nt, pb, et, tc, tb, kw

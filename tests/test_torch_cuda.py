@@ -17,6 +17,9 @@ service (``backend/service.py``) on the card against a CPU service:
 SchedulingBasic at depth 0 and 3, preemption hints, a restart and two
 replicas; the device fabric of two card services with the primary killed
 (cold and warm standbys) and the gRPC transport (skipped without grpc).
+Node-axis sharding (``parallel/``): one NCCL rank's sharded scan against
+the fused kernel's batch at N=5120, and two gloo ranks on the card
+against two on the CPU in modes off and host.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -1465,3 +1468,60 @@ def test_grpc_on_card_matches_http(cuda):
     for key in ("placed", "batch_pods", "metrics", "pending"):
         assert grpc_run[key] == http_run[key], key
     assert grpc_run["launches"] == grpc_run["batches"] == grpc_run["client_batches"]
+
+
+def _sharded_basic_batch():
+    """The first SchedulingBasic/5000Nodes batch (N=5120, P=128), encoded on
+    the host by the main path's DeviceState."""
+    from kubernetes_tpu_torch.backend.batch_scheduler import encode_device_batch
+    from kubernetes_tpu_torch.backend.device_state import DeviceState, caps_for_cluster
+    from kubernetes_tpu_torch.cache.snapshot import Snapshot
+    from kubernetes_tpu_torch.perf import workloads
+
+    ds = DeviceState(caps_for_cluster(5000), "cpu")
+    ds.sync(Snapshot(workloads.scheduling_basic_nodes(5000)))
+    enc = encode_device_batch(ds, workloads.scheduling_basic_pods("init", 128))
+    assert enc.mode == "off"
+    return ds.nt, enc.pb, enc.et, ds.tc, enc.tb
+
+
+@pytest.mark.cuda
+def test_sharded_scan_one_nccl_rank_equals_fused_kernel(cuda):
+    from kubernetes_tpu_torch.backend import batch
+    from kubernetes_tpu_torch.parallel import launch
+
+    nt, pb, et, tc, tb = _sharded_basic_batch()
+    on = [type(x).from_numpy(x.to_numpy(), cuda) for x in (pb, et, nt)]
+    before = fused_step.LAUNCHES
+    want = launch.result_to_numpy(batch.schedule_batch_core(*on, batch.DEFAULT_WEIGHTS))
+    assert fused_step.LAUNCHES == before + 1
+    case = launch.case_fields(pb, et, nt, tc, tb, topo_enabled=False)
+    rec = launch.run_ranks(launch.schedule_cases, 1, device="cuda", args=([case],),
+                           timeout_s=300)[0][0]
+    assert launch.result_diff(rec["result"], want) == []
+    assert rec["collectives"] > 0 and rec["fused_launches"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["off", "host"])
+def test_two_gloo_ranks_on_card_equal_cpu(cuda, mode):
+    """Two gloo ranks sharing the card against two on the CPU, the scan and
+    the rounds, at 32 nodes and 16 pods."""
+    from _torch_cases import sharding_case
+    from kubernetes_tpu_torch.parallel import launch
+
+    _enc, nt, pb, et, tc, tb, kw = sharding_case(
+        "port", "off_rounds" if mode == "off" else "host_rounds")
+    kw = dict(kw, spec_decode=False)
+    cases = [launch.case_fields(pb, et, nt, tc, tb, **kw),
+             launch.case_fields(pb, et, nt, tc, tb, **dict(kw, spec_decode=True))]
+    gpu = launch.run_ranks(launch.schedule_cases, 2, device="cuda", args=(cases,),
+                           timeout_s=300)[0]
+    cpu = launch.run_ranks(launch.schedule_cases, 2, device="cpu", args=(cases,),
+                           timeout_s=300)[0]
+    for g, c in zip(gpu, cpu):
+        assert launch.result_diff(g["result"], c["result"]) == []
+        assert (g["collectives"], g["collective_bytes"]) == (c["collectives"],
+                                                             c["collective_bytes"])
+    assert (gpu[0]["result"]["node_idx"] == gpu[1]["result"]["node_idx"]).all()
+

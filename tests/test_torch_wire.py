@@ -908,3 +908,73 @@ def test_two_replicas_bind_each_pod_once(monkeypatch, ownership):
         assert two["conflicts"] == two["service_conflicts"] > 0
     else:
         assert two["placements"] > 192 and two["service_conflicts"] == 0
+
+
+# ------------------------------------------------------------------ C28: the wire against the loop
+
+# the smallest seeded PreemptionBasic (workloads.preemption_basic) at which
+# the port's wire and the port's loop place pods differently: one more
+# preemptor than the batch of 128 (below 128 measured pods, none differ)
+C28_CASE = dict(nodes=8, init_pods=32, measured=130)
+
+
+def _c28_drive(sides, settle, nodes, phases):
+    """Nodes, then each phase's pods, into every (store, is_port) side,
+    settling after each phase; the port's objects rebuilt for JAX."""
+    for store, port in sides:
+        for node in nodes:
+            store.create_node(node if port else to_jax(node))
+    for pods in phases:
+        for store, port in sides:
+            for pod in pods:
+                store.create_pod(pod if port else to_jax(pod))
+        settle()
+
+
+@pytest.mark.parametrize("ring", ["depth2", "depth0"])
+def test_c28_jax_wire_against_jax_loop(ring, monkeypatch):
+    """ROADMAP C28: at PreemptionBasic's size the wire (depth 0) and the
+    loop place pods differently. Both packages' wires and both loops run
+    one seeded case in this process (C14): the port's wire equals JAX's
+    wire, the port's loop equals JAX's loop, and JAX's wire and loop differ
+    on exactly the pods where the port's do. The cause is the loop's
+    in-flight ring (``KTPU_PIPELINE_DEPTH``, default 2): it pops the next
+    batch (the last two preemptors) before the 128-pod batch's PostFilter
+    has moved that batch's failed pods back, while the wire at depth 0
+    lands each batch first and pops them together. With the ring at depth
+    0 the loop equals the wire in both packages."""
+    from _torch_cases import LoopPair
+    from kubernetes_tpu_torch.perf import workloads
+
+    if ring == "depth0":
+        monkeypatch.setenv("KTPU_PIPELINE_DEPTH", "0")
+    else:
+        monkeypatch.delenv("KTPU_PIPELINE_DEPTH", raising=False)
+    monkeypatch.delenv("KTPU_COMMIT_WORKER", raising=False)
+    w = workloads.preemption_basic(**C28_CASE)
+    nodes = [ni.node for ni in w.node_infos()]
+    phases = (w.init_pod_list(), w.warm_pod_list(), w.measured_pod_list())
+    with WirePair(batch=128, service_batch=128, percentage=100) as wire:
+        _c28_drive(((wire.stores[0], False), (wire.stores[1], True)), wire.settle, nodes, phases)
+        jwire, twire = wire.state(0), wire.state(1)
+    loop = LoopPair(batch=128, percentage=100)
+    try:
+        _c28_drive(((loop.jstore, False), (loop.tstore, True)), loop.settle, nodes, phases)
+        jloop, tloop = loop.state(0), loop.state(1)
+    finally:
+        loop.tsched.close()
+    for key in ("placed", "nominated"):
+        assert twire[key] == jwire[key], key
+        assert tloop[key] == jloop[key], key
+
+    def moved(a, b):
+        return sorted(k for k in a["placed"] if a["placed"][k] != b["placed"][k])
+
+    jax_moved, port_moved = moved(jwire, jloop), moved(twire, tloop)
+    assert port_moved == jax_moved
+    assert jwire["nominated"] == jloop["nominated"]
+    if ring == "depth2":
+        assert port_moved, "the case no longer shows C28"
+        assert all("/preemptor-" in k for k in port_moved)
+    else:
+        assert port_moved == []
