@@ -22,7 +22,7 @@
    processes at once on the same card (``chip_smoke.py --group NAME``,
    started by this script and stopped by it on any failure or past
    GROUPS_DEADLINE_S), each phase in the group of the phases whose results
-   it reads: core (3-5, 11, 20), batch (6, 8-10, 12-13, the shard phase
+   it reads: core (3-5, 11, 20, 22), batch (6, 8-10, 12-13, the shard phase
    of 21) and loop (the loop_basic part of 11, then 14-19, then 7, then
    the shard_scale phase of 21). Each group's output is
    printed in that order once all have ended, a failed group's last.
@@ -422,7 +422,23 @@
    measure no scaling); every sharded run's fused launches on every rank
    are counted (0: the sharded program takes the scan or the rounds) and
    join the launches map.
-22. Each workload run prints pods/s, ms per batch, host ms per stage, and
+22. Harness phase (core group): the scheduler_perf harness
+   (``kubernetes_tpu_torch/perf/harness.py``, backend ``tpu``) runs
+   SchedulingBasic/5000Nodes and SchedulingDRA/5000Nodes (``perf/cases.py``,
+   1000 init + 1000 measured pods; the DRA pods' claims made by the
+   resourceclaim controller through the informers) as ``run_workload``
+   runs them, on the card and then on the CPU in this process, both at
+   ``KTPU_BATCH_DEADLINE_MS=0`` (the CPU with full batches). Every pod must
+   be bound (each DRA claim allocated where its pod landed), the placements
+   and the DataItems' names, labels, units and Counts equal to the CPU
+   run's, and the fused kernel launched once per batch (the warm sweep's
+   launches counted apart, none on the CPU). Prints each case's
+   SchedulingThroughput (Average, Perc50 / 90 / 99) and attempt p50 / p90 /
+   p99 beside the card's name and power limit. Then ``python -m
+   kubernetes_tpu_torch.perf --backend tpu --cases SchedulingBasic --out
+   <tmpdir>`` as a subprocess (full scale, the card's default deadline):
+   exit 0, ``summary.json`` and a well-formed DataItems file.
+23. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -454,6 +470,7 @@ from kubernetes_tpu_torch.backend.batch_scheduler import BatchScheduler
 from kubernetes_tpu_torch.backend.device_state import DeviceState
 from kubernetes_tpu_torch.framework.types import NodeInfo
 from kubernetes_tpu_torch.ops import fused_step, preempt, topology
+from kubernetes_tpu_torch.perf import cases as perf_cases, harness as perf_harness
 from kubernetes_tpu_torch.perf import sharding, workloads
 from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
 from kubernetes_tpu_torch import entry as port_entry
@@ -3739,6 +3756,148 @@ def shard_scale_phase() -> dict:
     return out
 
 
+HARNESS_CASES = ("SchedulingBasic", "SchedulingDRA")
+# the perf entry point's own run (a subprocess): the card's default
+# deadline sizer and full scale
+HARNESS_MAIN_TIMEOUT_S = 420
+DATA_ITEM_KEYS = {"data", "unit", "labels"}
+
+
+def _card() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
+
+
+def _harness_run(case: str, device: str) -> dict:
+    """One published-size test case through the harness's ``tpu`` backend
+    on ``device``, as ``run_workload`` runs it (the ops, ``close``, the
+    TestCase and Backend labels), keeping the Runner for its store."""
+    tc = perf_cases.TEST_CASES[case]()
+    env = dict(KTPU_BATCH_DEADLINE_MS="0", KTPU_SPEC=None, KTPU_PIPELINE_DEPTH=None,
+               KTPU_COMMIT_WORKER=None, KTPU_FULL_BATCH=None if device == "cuda" else "1")
+    with _env(**env):
+        before = fused_step.LAUNCHES
+        t0 = time.perf_counter()
+        r = perf_harness.Runner(backend="tpu", device=device)
+        try:
+            r.run_ops(tc["ops"])
+        finally:
+            r.close()
+        wall = time.perf_counter() - t0
+        launches = fused_step.LAUNCHES - before
+    for it in r.data_items:
+        it.labels.setdefault("TestCase", tc["name"])
+        it.labels.setdefault("Backend", "tpu")
+    return {"name": tc["name"], "runner": r, "launches": launches,
+            "warm_launches": r.scheduler.warm_launches, "s": wall,
+            "placed": {k: p.spec.node_name for k, p in r.store.pods.items()}}
+
+
+def _check_data_items_json(path: str, case: str) -> int:
+    with open(path) as f:
+        doc = json.load(f)
+    items = doc.get("dataItems")
+    if doc.get("version") != "v1" or not isinstance(items, list) or not items:
+        raise AssertionError(f"{path}: not a DataItems document")
+    for it in items:
+        if set(it) != DATA_ITEM_KEYS or not isinstance(it["data"], dict) \
+                or not all(isinstance(v, (int, float)) for v in it["data"].values()) \
+                or not isinstance(it["unit"], str) or "Name" not in it["labels"]:
+            raise AssertionError(f"{path}: malformed DataItem {it}")
+    head = items[0]
+    if head["labels"].get("Name") != "SchedulingThroughput" or head["unit"] != "pods/s" \
+            or set(head["data"]) != {"Average", "Perc50", "Perc90", "Perc95", "Perc99"} \
+            or not head["labels"].get("TestCase", "").startswith(case) \
+            or head["labels"].get("Backend") != "tpu" or not head["data"]["Average"] > 0:
+        raise AssertionError(f"{path}: first DataItem {head}")
+    return len(items)
+
+
+def harness_phase() -> dict:
+    """SchedulingBasic/5000Nodes and SchedulingDRA/5000Nodes through the
+    scheduler_perf harness (``perf/harness.py``, backend ``tpu``) on the
+    card and on the CPU in this process (C14), then ``python -m
+    kubernetes_tpu_torch.perf`` as a subprocess."""
+    parts, part = _parts()
+    card = _card()
+    out = {}
+    for case in HARNESS_CASES:
+        gpu = _harness_run(case, "cuda")
+        part(f"{case} card")
+        cpu = _harness_run(case, "cpu")
+        part(f"{case} cpu")
+        name, sched = gpu["name"], gpu["runner"].scheduler
+        placed = gpu["placed"]
+        if len(placed) != 2000 or not all(placed.values()):
+            raise AssertionError(f"{name} harness: {sum(map(bool, placed.values()))} of "
+                                 f"{len(placed)} pods bound")
+        if placed != cpu["placed"]:
+            diff = sum(placed[k] != cpu["placed"].get(k) for k in placed)
+            raise AssertionError(f"{name} harness: {diff} placements differ from the CPU run")
+        shape = [[(it.unit, it.labels, it.data.get("Count")) for it in run["runner"].data_items]
+                 for run in (gpu, cpu)]
+        if shape[0] != shape[1]:
+            raise AssertionError(f"{name} harness: the DataItems differ from the CPU run's")
+        batches = len(sched.batch_paths)
+        launches = gpu["launches"] - gpu["warm_launches"]
+        if set(sched.batch_paths) != {"fused"} or launches != batches or cpu["launches"]:
+            raise AssertionError(f"{name} harness: {launches} fused launches for {batches} "
+                                 f"batches ({sorted(set(sched.batch_paths))}); CPU "
+                                 f"{cpu['launches']}")
+        if case == "SchedulingDRA":
+            claims = gpu["runner"].store.resource_claims
+            if len(claims) != 2000 or any(c.allocated_node != placed[c.reserved_for[0]]
+                                          for c in claims.values()):
+                raise AssertionError(f"{name} harness: the controller's claims are not "
+                                     "allocated where their pods landed")
+        items = {it.labels["Name"]: it for it in gpu["runner"].data_items
+                 if it.labels.get("result", "scheduled") == "scheduled"}
+        tput = items["SchedulingThroughput"].data
+        lat = items["scheduling_attempt_duration_seconds"].data
+        (win,) = gpu["runner"].measured_windows
+        if win["pods"] != 1000 or not win["seconds"] > 0:
+            raise AssertionError(f"{name} harness: measured window {win}")
+        print(f"{name} harness on the card ({card}): SchedulingThroughput Average "
+              f"{tput['Average']:.1f} pods/s, Perc50 {tput['Perc50']:.1f}, Perc90 "
+              f"{tput['Perc90']:.1f}, Perc99 {tput['Perc99']:.1f} (over the rates of its 1 s "
+              "samples); the measured window "
+              f"{win['pods']} pods in {win['seconds']:.4f} s = "
+              f"{win['pods'] / win['seconds']:.1f} pods/s; attempt p50 / p90 / p99 "
+              f"{lat['Perc50'] * 1e3:.3f} / {lat['Perc90'] * 1e3:.3f} / "
+              f"{lat['Perc99'] * 1e3:.3f} ms; {len(gpu['runner'].data_items)} DataItems; "
+              f"{launches} fused launches for {batches} batches (+{gpu['warm_launches']} "
+              f"in the warm sweep); run {gpu['s']:.1f} s on the card, {cpu['s']:.1f} s on "
+              "the CPU; placements and DataItems == the CPU run")
+        out[f"harness:{name}"] = {"launches": launches}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-perf-") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "kubernetes_tpu_torch.perf", "--backend",
+                               "tpu", "--cases", "SchedulingBasic", "--out", tmp],
+                              capture_output=True, text=True, timeout=HARNESS_MAIN_TIMEOUT_S,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"python -m kubernetes_tpu_torch.perf: exit {proc.returncode}"
+                                 f"\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        if sorted(os.listdir(tmp)) != ["SchedulingBasic.json", "summary.json"]:
+            raise AssertionError(f"python -m kubernetes_tpu_torch.perf wrote {os.listdir(tmp)}")
+        with open(os.path.join(tmp, "summary.json")) as f:
+            summary = json.load(f)
+        if summary != {"backend": "tpu", "scale": 1.0, "cases": 1, "failures": 0}:
+            raise AssertionError(f"python -m kubernetes_tpu_torch.perf: summary {summary}")
+        n_items = _check_data_items_json(os.path.join(tmp, "SchedulingBasic.json"),
+                                         "SchedulingBasic")
+    print(f"python -m kubernetes_tpu_torch.perf --backend tpu --cases SchedulingBasic on the "
+          f"card ({card}): exit 0 in {wall:.1f} s wall with process start; "
+          f"{proc.stdout.strip().splitlines()[-1]}; summary.json and {n_items} DataItems "
+          "well formed")
+    part("perf entry point")
+    print("harness phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -3758,10 +3917,12 @@ def core_group(timed, kern: dict) -> dict:
     spec = timed("spec", spec_phase, sl, topo)
     loop = timed("loop", loop_phase, topo, spec)
     fabric = timed("loop_fabric", loop_fabric_phase)
+    perf = timed("harness", harness_phase)
     return {"main_launches": sl["launches"],
             "launches": {sl["workload"].name: sl["launches"],
                          **{f"loop:{k}": v["launches"] for k, v in loop.items()},
-                         **{f"fabric:{k}": v["launches"] for k, v in fabric.items()}}}
+                         **{f"fabric:{k}": v["launches"] for k, v in fabric.items()},
+                         **{k: v["launches"] for k, v in perf.items()}}}
 
 
 def batch_group(timed, kern: dict) -> dict:
@@ -3849,7 +4010,7 @@ def run_groups(kern: dict) -> dict | None:
         kern_path = os.path.join(tmp, "kernel.json")
         with open(kern_path, "w") as f:
             json.dump(kern, f)
-        procs, logs, failed = {}, {}, []
+        procs, logs, failed, ended = {}, {}, [], {}
         try:
             for name in GROUPS:
                 logs[name] = (open(os.path.join(tmp, f"{name}.out"), "w+"),
@@ -3864,6 +4025,7 @@ def run_groups(kern: dict) -> dict | None:
                 for name in sorted(pending):
                     if procs[name].poll() is not None:
                         pending.discard(name)
+                        ended[name] = time.monotonic() - t0
                         if procs[name].returncode:
                             failed.append(f"{name} (exit {procs[name].returncode})")
                 if pending and time.monotonic() - t0 > GROUPS_DEADLINE_S:
@@ -3881,7 +4043,9 @@ def run_groups(kern: dict) -> dict | None:
                 log.close()
             sys.stdout.flush()
             sys.stderr.flush()
-        print(f"groups ran at once in {time.monotonic() - t0:.1f} s wall")
+        print(f"groups ran at once in {time.monotonic() - t0:.1f} s wall; ended at "
+              + ", ".join(f"{name} {t:.1f} s" for name, t in sorted(ended.items(),
+                                                                    key=lambda kv: kv[1])))
         if failed:
             print("chip_smoke: group failed: " + ", ".join(failed), file=sys.stderr)
             return None

@@ -779,3 +779,60 @@ class RuntimeClass:
     overhead: Dict[str, object] = field(default_factory=dict)  # resource -> quantity
     node_selector: Dict[str, str] = field(default_factory=dict)
     tolerations: Tuple[Toleration, ...] = ()
+
+
+# ---------------------------------------------------------------------------
+# the kinds the client runtime, the resourceclaim controller and the perf
+# harness write (``kubernetes_tpu/api/types.py:725``, ``:854``, ``:871``,
+# ``:1029``)
+
+
+@dataclass
+class Lease:
+    """coordination.k8s.io/v1 Lease: the leader-election lock object
+    (``client/leaderelection.py``)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    holder_identity: str = ""
+    lease_duration_seconds: float = 15.0
+    acquire_time: float = 0.0
+    renew_time: float = 0.0
+    lease_transitions: int = 0
+
+
+@dataclass
+class Secret:
+    """core/v1 Secret: the SchedulingSecrets perf workload's pods mount one."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    type: str = "Opaque"
+    data: Dict[str, str] = field(default_factory=dict)
+
+
+@dataclass
+class Event:
+    """core/v1 Event: an involved object's reason and note with series
+    counting, persisted by ``utils/events.py:EventRecorder`` when it is
+    given a store."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    involved_object: str = ""  # "ns/name" of the object the event is about
+    reason: str = ""
+    message: str = ""
+    type: str = "Normal"       # Normal | Warning
+    count: int = 1
+    first_timestamp: float = 0.0
+    last_timestamp: float = 0.0
+    reporting_controller: str = ""
+
+
+@dataclass
+class ResourceClaimTemplate:
+    """resource.k8s.io ResourceClaimTemplate (namespaced): the spec the
+    resourceclaim controller (``controllers/resourceclaim.py``) stamps out
+    as a pod-owned ResourceClaim for every pod.spec.resourceClaims entry
+    naming it."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    resource_class_name: str = ""
+    selectors: Dict[str, object] = field(default_factory=dict)

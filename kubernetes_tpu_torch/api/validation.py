@@ -447,7 +447,7 @@ _CLUSTER_SCOPED_META_ONLY = (
 _NAMESPACED_META_ONLY = (
     "PersistentVolumeClaim", "ServiceAccount", "ReplicaSet", "ReplicationController",
     "StatefulSet", "PodDisruptionBudget", "ResourceQuota", "LimitRange", "ResourceClaim",
-    "PodSchedulingContext",
+    "PodSchedulingContext", "Secret", "Lease", "ResourceClaimTemplate",
 )
 
 

@@ -21,10 +21,23 @@ the PV bind of VolumeBinding's PreBind (``bind_pv``), and the
 PodDisruptionBudgets that preemption reads. Every write bumps
 the object's ``resource_version`` from one store-wide counter, as the JAX
 store does (the volume screen caches by it), and ``kind_version`` gives
-the counter of a generic kind's last write: where the JAX store sends a
-watch event, a reader of the port's store compares versions (the quota
-ledger rebuilds its index when SchedulingQuota's moves). No WAL, watches,
-informers or locking: one scheduler thread owns it.
+the counter of a generic kind's last write (the quota ledger rebuilds its
+index when SchedulingQuota's moves).
+
+The watch surface of ``:54-105``, ``:181-230`` and ``:315-346``: every
+write that fires handlers also appends to a bounded journal (4096
+events; ``WatchEvent.seq`` from a counter of its own, the LIST/WATCH
+resourceVersion) and pushes to the live ``Watch``es of its kind, in
+write order, beside the synchronous handlers. ``list_objects(kind)``
+returns a kind's objects and the journal's sequence, ``watch(kind,
+since)`` the events after ``since`` (``Expired`` when the journal no
+longer covers it: the reflector relists), ``snapshot_map`` a copy of a
+kind's map. One lock covers each write with its journal entry and the
+reads of the watch surface, because a ``client/reflector.py`` thread
+reads them; the handlers run outside it. Leases (``get_lease``,
+``create_lease``, ``update_lease(expect_rv)``) are the leader-election
+lock, Secrets, Events and ResourceClaimTemplates generic kinds. No WAL,
+impersonation or CRD registry.
 
 Admission and validation (``:187-248``, ``:405-452``, ``:643-662``,
 ``:822-836``): ``create_node``, ``create_pod``, ``create_object``,
@@ -47,14 +60,17 @@ PodGroup, SchedulingQuota, claim and volume moves).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from collections import deque
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..api import validation
-from ..api.types import (CSINode, LimitRange, Namespace, Node, PersistentVolume,
+from ..api.types import (CSINode, Event, Lease, LimitRange, Namespace, Node, PersistentVolume,
                          PersistentVolumeClaim, Pod, PodDisruptionBudget, PodGroup,
-                         PodSchedulingContext, PriorityClass, ResourceClaim, ResourceQuota,
-                         RuntimeClass, SchedulingQuota, ServiceAccount, StorageClass)
+                         PodSchedulingContext, PriorityClass, ResourceClaim,
+                         ResourceClaimTemplate, ResourceQuota, RuntimeClass, SchedulingQuota,
+                         Secret, ServiceAccount, StorageClass)
 from .admission import AdmissionChain
 
 ADDED = "ADDED"
@@ -72,7 +88,66 @@ class NotFound(Exception):
     """404."""
 
 
-_CLUSTER_SCOPED = frozenset(("ResourceClass", "RuntimeClass"))
+class Expired(Exception):
+    """410 Gone: the watch's resourceVersion fell off the journal; the
+    client relists."""
+
+
+@dataclasses.dataclass
+class WatchEvent:
+    """One event of a Watch (apimachinery pkg/watch/watch.go:29)."""
+
+    seq: int
+    type: str  # ADDED | MODIFIED | DELETED
+    object: object
+    old: Optional[object] = None
+
+
+class Watch:
+    """A watch channel: a thread-safe event queue and ``stop``."""
+
+    def __init__(self, kind: str, store: "Store"):
+        self.kind = kind
+        self._store = store
+        self._events: Deque[WatchEvent] = deque()
+        self._cond = threading.Condition()
+        self.stopped = False
+
+    def _push(self, ev: WatchEvent) -> None:
+        with self._cond:
+            if self.stopped:
+                return
+            self._events.append(ev)
+            self._cond.notify_all()
+
+    def next(self, timeout: float = 0.0) -> Optional[WatchEvent]:
+        """The next event, or None after ``timeout`` (at once when 0)."""
+        with self._cond:
+            if not self._events and timeout > 0:
+                self._cond.wait(timeout)
+            return self._events.popleft() if self._events else None
+
+    def drain(self) -> List[WatchEvent]:
+        with self._cond:
+            out = list(self._events)
+            self._events.clear()
+            return out
+
+    def stop(self) -> None:
+        with self._cond:
+            self.stopped = True
+            self._cond.notify_all()
+        self._store._stop_watch(self)
+
+
+# the kinds keyed by bare name (``ClusterStore.CLUSTER_SCOPED_KINDS``, ``:582-588``);
+# every other kind by namespace/name
+CLUSTER_SCOPED_KINDS = frozenset((
+    "Node", "Namespace", "PersistentVolume", "StorageClass", "CSINode", "PriorityClass",
+    "VolumeAttachment", "MutatingWebhookConfiguration", "ValidatingWebhookConfiguration",
+    "ClusterRole", "ClusterRoleBinding", "CertificateSigningRequest", "RuntimeClass",
+    "IngressClass", "ResourceClass"))
+JOURNAL_CAPACITY = 4096
 
 
 class Store:
@@ -105,6 +180,18 @@ class Store:
         self.limit_ranges: Dict[str, LimitRange] = {}          # by namespace/name
         self.service_accounts: Dict[str, ServiceAccount] = {}  # by namespace/name
         self.runtime_classes: Dict[str, RuntimeClass] = {}     # by name
+        # the client runtime's, the controllers' and the harness's kinds
+        self.leases: Dict[str, Lease] = {}                     # by namespace/name
+        self.secrets: Dict[str, Secret] = {}                   # by namespace/name
+        self.events: Dict[str, Event] = {}                     # by namespace/name
+        self.resource_claim_templates: Dict[str, ResourceClaimTemplate] = {}
+        # the watch journal: (seq, kind, event, old, new), bounded, and the
+        # live watches per kind, under the one lock with the map writes
+        self._lock = threading.RLock()
+        self._event_seq = 0
+        self._journal: List[Tuple[int, str, str, object, object]] = []
+        self._journal_capacity = JOURNAL_CAPACITY
+        self._watchers: Dict[str, List[Watch]] = {}
         # the admission chain and the field validation on the write path;
         # None / False switch them off
         self.admission: Optional[AdmissionChain] = AdmissionChain()
@@ -118,6 +205,51 @@ class Store:
 
     def add_event_handler(self, kind: str, handler: Handler) -> None:
         self._handlers.setdefault(kind, []).append(handler)
+
+    def _journal_event(self, kind: str, event: str, old, new) -> None:
+        """Append to the journal and push to the kind's watches; called
+        under ``_lock`` with the map write, so the journal keeps write
+        order."""
+        self._event_seq += 1
+        seq = self._event_seq
+        self._journal.append((seq, kind, event, old, new))
+        if len(self._journal) > self._journal_capacity:
+            del self._journal[: len(self._journal) - self._journal_capacity]
+        for w in self._watchers.get(kind, []):
+            w._push(WatchEvent(seq=seq, type=event, old=old,
+                               object=new if new is not None else old))
+
+    def list_objects(self, kind: str) -> Tuple[List[object], int]:
+        """LIST: the kind's objects and the journal's sequence (the
+        reflector's initial sync)."""
+        with self._lock:
+            return list(self._kind_map(kind).values()), self._event_seq
+
+    def watch(self, kind: str, since: int) -> Watch:
+        """WATCH from ``since`` (a sequence from ``list_objects`` or a
+        ``WatchEvent``); ``Expired`` when the journal no longer covers it."""
+        with self._lock:
+            oldest = self._journal[0][0] - 1 if self._journal else self._event_seq
+            if since < oldest:
+                raise Expired(f"resourceVersion {since} is too old (oldest {oldest})")
+            w = Watch(kind, self)
+            for seq, k, event, old, new in self._journal:
+                if seq > since and k == kind:
+                    w._push(WatchEvent(seq=seq, type=event, old=old,
+                                       object=new if new is not None else old))
+            self._watchers.setdefault(kind, []).append(w)
+            return w
+
+    def _stop_watch(self, w: Watch) -> None:
+        with self._lock:
+            lst = self._watchers.get(w.kind, [])
+            if w in lst:
+                lst.remove(w)
+
+    def snapshot_map(self, kind: str) -> Dict[str, object]:
+        """A copy of a kind's map, safe to iterate while others write."""
+        with self._lock:
+            return dict(self._kind_map(kind))
 
     def _notify(self, kind: str, event: str, old, new) -> None:
         for h in self._handlers.get(kind, []):
@@ -141,10 +273,12 @@ class Store:
 
     def create_node(self, node: Node) -> None:
         self._admit("Node", node)
-        if node.meta.name in self.nodes:
-            raise Conflict(f"node {node.meta.name} exists")
-        self._bump(node)
-        self.nodes[node.meta.name] = node
+        with self._lock:
+            if node.meta.name in self.nodes:
+                raise Conflict(f"node {node.meta.name} exists")
+            self._bump(node)
+            self.nodes[node.meta.name] = node
+            self._journal_event("Node", ADDED, None, node)
         self._notify("Node", ADDED, None, node)
 
     def update_node(self, node: Node) -> None:
@@ -152,12 +286,17 @@ class Store:
         self._admit_update("Node", old, node)
         if old is None:
             raise NotFound(node.meta.name)
-        self._bump(node)
-        self.nodes[node.meta.name] = node
+        with self._lock:
+            self._bump(node)
+            self.nodes[node.meta.name] = node
+            self._journal_event("Node", MODIFIED, old, node)
         self._notify("Node", MODIFIED, old, node)
 
     def delete_node(self, name: str) -> None:
-        old = self.nodes.pop(name, None)
+        with self._lock:
+            old = self.nodes.pop(name, None)
+            if old is not None:
+                self._journal_event("Node", DELETED, old, None)
         if old is not None:
             self._notify("Node", DELETED, old, None)
 
@@ -165,19 +304,21 @@ class Store:
 
     def create_pod(self, pod: Pod) -> None:
         self._admit("Pod", pod)
-        if pod.key() in self.pods:
-            raise Conflict(f"pod {pod.key()} exists")
-        # the quota charge after the duplicate-key check, undone if the
-        # insert fails: a refused create leaves no usage behind
-        undo_charge = (self.admission.charge(self, "Pod", pod)
-                       if self.admission is not None else None)
-        try:
-            self._bump(pod)
-            self.pods[pod.key()] = pod
-        except BaseException:
-            if undo_charge is not None:
-                undo_charge()
-            raise
+        with self._lock:
+            if pod.key() in self.pods:
+                raise Conflict(f"pod {pod.key()} exists")
+            # the quota charge after the duplicate-key check, undone if the
+            # insert fails: a refused create leaves no usage behind
+            undo_charge = (self.admission.charge(self, "Pod", pod)
+                           if self.admission is not None else None)
+            try:
+                self._bump(pod)
+                self.pods[pod.key()] = pod
+                self._journal_event("Pod", ADDED, None, pod)
+            except BaseException:
+                if undo_charge is not None:
+                    undo_charge()
+                raise
         self._notify("Pod", ADDED, None, pod)
 
     def update_pod(self, pod: Pod) -> None:
@@ -185,12 +326,17 @@ class Store:
         self._admit_update("Pod", old, pod)
         if old is None:
             raise NotFound(pod.key())
-        self._bump(pod)
-        self.pods[pod.key()] = pod
+        with self._lock:
+            self._bump(pod)
+            self.pods[pod.key()] = pod
+            self._journal_event("Pod", MODIFIED, old, pod)
         self._notify("Pod", MODIFIED, old, pod)
 
     def delete_pod(self, key: str) -> None:
-        old = self.pods.pop(key, None)
+        with self._lock:
+            old = self.pods.pop(key, None)
+            if old is not None:
+                self._journal_event("Pod", DELETED, old, None)
         if old is not None:
             self._notify("Pod", DELETED, old, None)
 
@@ -198,6 +344,7 @@ class Store:
         return self.pods.get(key)
 
     def _bind_one(self, pod_key: str, node_name: str) -> Tuple[Pod, Pod]:
+        """The bind write, under ``_lock``."""
         pod = self.pods.get(pod_key)
         if pod is None:
             raise NotFound(pod_key)
@@ -208,12 +355,14 @@ class Store:
         new.status.phase = "Running"
         self._bump(new)
         self.pods[pod_key] = new
+        self._journal_event("Pod", MODIFIED, pod, new)
         return pod, new
 
     def bind(self, pod_key: str, node_name: str) -> None:
         """POST pods/{name}/binding (storage.go:169): NotFound for a gone
         pod, Conflict for a bound one."""
-        old, new = self._bind_one(pod_key, node_name)
+        with self._lock:
+            old, new = self._bind_one(pod_key, node_name)
         self._notify("Pod", MODIFIED, old, new)
 
     def bind_batch(self, bindings: Sequence[Tuple[str, str]]) -> List[Optional[Exception]]:
@@ -222,11 +371,12 @@ class Store:
         the writes, in order."""
         outcomes: List[Optional[Exception]] = [None] * len(bindings)
         notifies = []
-        for i, (key, node_name) in enumerate(bindings):
-            try:
-                notifies.append(self._bind_one(key, node_name))
-            except (NotFound, Conflict) as err:
-                outcomes[i] = err
+        with self._lock:
+            for i, (key, node_name) in enumerate(bindings):
+                try:
+                    notifies.append(self._bind_one(key, node_name))
+                except (NotFound, Conflict) as err:
+                    outcomes[i] = err
         for old, new in notifies:
             self._notify("Pod", MODIFIED, old, new)
         return outcomes
@@ -234,13 +384,15 @@ class Store:
     def update_pod_nominated_node(self, key: str, node_name: str) -> None:
         """Persist ``status.nominated_node_name`` (schedule_one.go:846) on a
         copy of the pod."""
-        old = self.pods.get(key)
-        if old is None:
-            raise NotFound(key)
-        new = old.clone()
-        new.status.nominated_node_name = node_name
-        self._bump(new)
-        self.pods[key] = new
+        with self._lock:
+            old = self.pods.get(key)
+            if old is None:
+                raise NotFound(key)
+            new = old.clone()
+            new.status.nominated_node_name = node_name
+            self._bump(new)
+            self.pods[key] = new
+            self._journal_event("Pod", MODIFIED, old, new)
         self._notify("Pod", MODIFIED, old, new)
 
     # ------------------------------------------------------------- namespaces
@@ -248,7 +400,10 @@ class Store:
     def create_namespace(self, ns: Namespace) -> None:
         """A namespace, whose labels affinity terms' namespaceSelector
         reads (``ns_labels``)."""
-        self.namespaces[ns.meta.name] = ns
+        with self._lock:
+            self.namespaces[ns.meta.name] = ns
+            self._journal_event("Namespace", ADDED, None, ns)
+        self._notify("Namespace", ADDED, None, ns)
 
     def ns_labels(self, name: str) -> Dict[str, str]:
         ns = self.namespaces.get(name)
@@ -267,7 +422,12 @@ class Store:
                 "ReplicaSet": self.replica_sets, "StatefulSet": self.stateful_sets,
                 "ResourceQuota": self.resource_quotas, "LimitRange": self.limit_ranges,
                 "ServiceAccount": self.service_accounts, "RuntimeClass": self.runtime_classes,
-                "PodDisruptionBudget": self.pdbs}
+                "PodDisruptionBudget": self.pdbs, "Pod": self.pods, "Node": self.nodes,
+                "Namespace": self.namespaces, "PersistentVolume": self.pvs,
+                "PersistentVolumeClaim": self.pvcs, "StorageClass": self.storage_classes,
+                "CSINode": self.csinodes, "PriorityClass": self.priority_classes,
+                "Lease": self.leases, "Secret": self.secrets, "Event": self.events,
+                "ResourceClaimTemplate": self.resource_claim_templates}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]
@@ -275,18 +435,23 @@ class Store:
     # ------------------------------------------------------------- generic kinds
 
     def create_object(self, kind: str, obj) -> None:
+        if kind == "Pod":
+            return self.create_pod(obj)  # the quota charge under the lock
         self._admit(kind, obj)
         m = self._kind_map(kind)
-        key = obj.meta.name if kind in _CLUSTER_SCOPED else obj.meta.key()
-        if key in m:
-            raise Conflict(f"{kind} {key} exists")
-        self._bump(obj)
-        self._kind_rv[kind] = self._rv
-        m[key] = obj
+        key = obj.meta.name if kind in CLUSTER_SCOPED_KINDS else obj.meta.key()
+        with self._lock:
+            if key in m:
+                raise Conflict(f"{kind} {key} exists")
+            self._bump(obj)
+            self._kind_rv[kind] = self._rv
+            m[key] = obj
+            self._journal_event(kind, ADDED, None, obj)
         self._notify(kind, ADDED, None, obj)
 
     def get_object(self, kind: str, key: str):
-        return self._kind_map(kind).get(key)
+        with self._lock:
+            return self._kind_map(kind).get(key)
 
     def list_services(self, namespace: str) -> List[object]:
         return [s for s in self.services.values() if s.meta.namespace == namespace]
@@ -294,19 +459,24 @@ class Store:
     def update_object(self, kind: str, obj) -> None:
         """Replace an existing object; NotFound when there is none."""
         m = self._kind_map(kind)
-        key = obj.meta.name if kind in _CLUSTER_SCOPED else obj.meta.key()
+        key = obj.meta.name if kind in CLUSTER_SCOPED_KINDS else obj.meta.key()
         old = m.get(key)
         self._admit_update(kind, old, obj)
         if old is None:
             raise NotFound(f"{kind} {key}")
-        self._bump(obj)
-        self._kind_rv[kind] = self._rv
-        m[key] = obj
+        with self._lock:
+            self._bump(obj)
+            self._kind_rv[kind] = self._rv
+            m[key] = obj
+            self._journal_event(kind, MODIFIED, old, obj)
         self._notify(kind, MODIFIED, old, obj)
 
     def delete_object(self, kind: str, key: str) -> None:
         """Remove an object (no finalizers in the port's store)."""
-        old = self._kind_map(kind).pop(key, None)
+        with self._lock:
+            old = self._kind_map(kind).pop(key, None)
+            if old is not None:
+                self._journal_event(kind, DELETED, old, None)
         if old is not None:
             self._notify(kind, DELETED, old, None)
 
@@ -314,22 +484,30 @@ class Store:
 
     def create_pv(self, pv: PersistentVolume) -> None:
         self._admit("PersistentVolume", pv)
-        self._bump(pv)
-        self.pvs[pv.meta.name] = pv
+        with self._lock:
+            self._bump(pv)
+            self.pvs[pv.meta.name] = pv
+            self._journal_event("PersistentVolume", ADDED, None, pv)
         self._notify("PersistentVolume", ADDED, None, pv)
 
     def create_pvc(self, pvc: PersistentVolumeClaim) -> None:
         self._admit("PersistentVolumeClaim", pvc)
-        self._bump(pvc)
-        self.pvcs[pvc.meta.key()] = pvc
+        with self._lock:
+            self._bump(pvc)
+            self.pvcs[pvc.meta.key()] = pvc
+            self._journal_event("PersistentVolumeClaim", ADDED, None, pvc)
         self._notify("PersistentVolumeClaim", ADDED, None, pvc)
 
     def create_storage_class(self, sc: StorageClass) -> None:
-        self.storage_classes[sc.meta.name] = sc
+        with self._lock:
+            self.storage_classes[sc.meta.name] = sc
+            self._journal_event("StorageClass", ADDED, None, sc)
         self._notify("StorageClass", ADDED, None, sc)
 
     def create_csinode(self, cn: CSINode) -> None:
-        self.csinodes[cn.meta.name] = cn
+        with self._lock:
+            self.csinodes[cn.meta.name] = cn
+            self._journal_event("CSINode", ADDED, None, cn)
         self._notify("CSINode", ADDED, None, cn)
 
     def bind_pv(self, pv_name: str, pvc_key: str) -> None:
@@ -337,18 +515,21 @@ class Store:
         PV's claimRef and the PVC's volumeName, then the two MODIFIED
         events in that order. NotFound for a missing PV or PVC, Conflict
         for a PV bound to another claim."""
-        pv = self.pvs.get(pv_name)
-        pvc = self.pvcs.get(pvc_key)
-        if pv is None or pvc is None:
-            raise NotFound(f"{pv_name} / {pvc_key}")
-        if pv.bound_pvc and pv.bound_pvc != pvc_key:
-            raise Conflict(f"pv {pv_name} already bound to {pv.bound_pvc}")
-        new_pv = dataclasses.replace(pv, bound_pvc=pvc_key)
-        new_pvc = dataclasses.replace(pvc, bound_pv=pv_name)
-        self._bump(new_pv)
-        self._bump(new_pvc)
-        self.pvs[pv_name] = new_pv
-        self.pvcs[pvc_key] = new_pvc
+        with self._lock:
+            pv = self.pvs.get(pv_name)
+            pvc = self.pvcs.get(pvc_key)
+            if pv is None or pvc is None:
+                raise NotFound(f"{pv_name} / {pvc_key}")
+            if pv.bound_pvc and pv.bound_pvc != pvc_key:
+                raise Conflict(f"pv {pv_name} already bound to {pv.bound_pvc}")
+            new_pv = dataclasses.replace(pv, bound_pvc=pvc_key)
+            new_pvc = dataclasses.replace(pvc, bound_pv=pv_name)
+            self._bump(new_pv)
+            self._bump(new_pvc)
+            self.pvs[pv_name] = new_pv
+            self.pvcs[pvc_key] = new_pvc
+            self._journal_event("PersistentVolume", MODIFIED, pv, new_pv)
+            self._journal_event("PersistentVolumeClaim", MODIFIED, pvc, new_pvc)
         self._notify("PersistentVolume", MODIFIED, pv, new_pv)
         self._notify("PersistentVolumeClaim", MODIFIED, pvc, new_pvc)
 
@@ -370,8 +551,11 @@ class Store:
     # ------------------------------------------------------------- policy/v1
 
     def create_pdb(self, pdb: PodDisruptionBudget) -> None:
-        self._bump(pdb)
-        self.pdbs[pdb.meta.key()] = pdb
+        """No resource version, as on the JAX store (``:563-567``)."""
+        with self._lock:
+            self.pdbs[pdb.meta.key()] = pdb
+            self._journal_event("PodDisruptionBudget", ADDED, None, pdb)
+        self._notify("PodDisruptionBudget", ADDED, None, pdb)
 
     def list_pdbs(self) -> List[PodDisruptionBudget]:
         return list(self.pdbs.values())
@@ -379,8 +563,10 @@ class Store:
     # ------------------------------------------------------------- scheduling/v1
 
     def create_priority_class(self, pc: PriorityClass) -> None:
-        self._bump(pc)
-        self.priority_classes[pc.meta.name] = pc
+        """No resource version, as on the JAX store (``:573-577``)."""
+        with self._lock:
+            self.priority_classes[pc.meta.name] = pc
+            self._journal_event("PriorityClass", ADDED, None, pc)
         self._notify("PriorityClass", ADDED, None, pc)
 
     # ------------------------------------------------------------- resource.k8s.io
@@ -389,27 +575,64 @@ class Store:
         """Allocate a ResourceClaim to a node and reserve it for a pod (the
         DynamicResources Reserve write). A claim allocated to a different
         node raises Conflict; a missing one NotFound."""
-        claim = self.resource_claims.get(claim_key)
-        if claim is None:
-            raise NotFound(claim_key)
-        if claim.allocated_node and claim.allocated_node != node_name:
-            raise Conflict(f"claim {claim_key} already allocated to {claim.allocated_node}")
-        reserved = claim.reserved_for
-        if pod_key not in reserved:
-            reserved = reserved + (pod_key,)
-        new = dataclasses.replace(claim, allocated_node=node_name, reserved_for=reserved)
-        self._bump(new)
-        self.resource_claims[claim_key] = new
+        with self._lock:
+            claim = self.resource_claims.get(claim_key)
+            if claim is None:
+                raise NotFound(claim_key)
+            if claim.allocated_node and claim.allocated_node != node_name:
+                raise Conflict(f"claim {claim_key} already allocated to {claim.allocated_node}")
+            reserved = claim.reserved_for
+            if pod_key not in reserved:
+                reserved = reserved + (pod_key,)
+            new = dataclasses.replace(claim, allocated_node=node_name, reserved_for=reserved)
+            self._bump(new)
+            self.resource_claims[claim_key] = new
+            self._journal_event("ResourceClaim", MODIFIED, claim, new)
         self._notify("ResourceClaim", MODIFIED, claim, new)
 
     def release_claim(self, claim_key: str, pod_key: str) -> None:
         """Drop one pod's reservation; the last one leaving deallocates."""
-        claim = self.resource_claims.get(claim_key)
-        if claim is None or pod_key not in claim.reserved_for:
-            return
-        reserved = tuple(k for k in claim.reserved_for if k != pod_key)
-        new = dataclasses.replace(claim, reserved_for=reserved,
-                                  allocated_node=claim.allocated_node if reserved else "")
-        self._bump(new)
-        self.resource_claims[claim_key] = new
+        with self._lock:
+            claim = self.resource_claims.get(claim_key)
+            if claim is None or pod_key not in claim.reserved_for:
+                return
+            reserved = tuple(k for k in claim.reserved_for if k != pod_key)
+            new = dataclasses.replace(claim, reserved_for=reserved,
+                                      allocated_node=claim.allocated_node if reserved else "")
+            self._bump(new)
+            self.resource_claims[claim_key] = new
+            self._journal_event("ResourceClaim", MODIFIED, claim, new)
         self._notify("ResourceClaim", MODIFIED, claim, new)
+
+    # ------------------------------------------------------------- coordination.k8s.io
+
+    def get_lease(self, key: str) -> Optional[Lease]:
+        with self._lock:
+            return self.leases.get(key)
+
+    def create_lease(self, lease: Lease) -> None:
+        self._admit("Lease", lease)
+        with self._lock:
+            if lease.meta.key() in self.leases:
+                raise Conflict(f"lease {lease.meta.key()} exists")
+            self._bump(lease)
+            self.leases[lease.meta.key()] = lease
+            self._journal_event("Lease", ADDED, None, lease)
+        self._notify("Lease", ADDED, None, lease)
+
+    def update_lease(self, lease: Lease, expect_rv: int) -> None:
+        """Replace the lease only while the stored one still has
+        ``expect_rv`` (optimistic concurrency, etcd3/store.go:328: what
+        makes leader election safe); Conflict otherwise."""
+        self._admit_update("Lease", self.leases.get(lease.meta.key()), lease)
+        with self._lock:
+            old = self.leases.get(lease.meta.key())
+            if old is None:
+                raise NotFound(lease.meta.key())
+            if old.meta.resource_version != expect_rv:
+                raise Conflict(f"lease {lease.meta.key()}: rv {expect_rv} != "
+                               f"{old.meta.resource_version}")
+            self._bump(lease)
+            self.leases[lease.meta.key()] = lease
+            self._journal_event("Lease", MODIFIED, old, lease)
+        self._notify("Lease", MODIFIED, old, lease)

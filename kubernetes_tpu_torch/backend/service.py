@@ -1977,7 +1977,9 @@ class WireScheduler(Scheduler):
                         if n in hint_slot_of:
                             row[hint_slot_of[n]] = True
                 hints = (row, hint_slot_of, hint.get("best"))
-            self._handle_scheduling_failure(qp, True, d, pod_cycle, hints)
+            self._handle_scheduling_failure(
+                qp, True, d, pod_cycle, hints,
+                sampled=sampled_attempt(self.metrics["schedule_attempts"]))
             self.smetrics.observe_attempt(UNSCHEDULABLE, fwk.profile_name, self.now_fn() - t0)
         if items:
             live = [item for item in items if self._assume(item, pod_cycle)]

@@ -776,11 +776,13 @@ class TPUScheduler(Scheduler):
         self._maybe_profile()
         mutex = self.device_mutex
         t_work = laps.t
+        t0 = self.now_fn()  # the phases of device_batch_duration, on the loop's clock
         with tracing.span("device.encode.pipelined", batch=len(batched)):
             with mutex:
                 enc = self._try_pipelined_encode(batched, laps)
                 state = self.state
         pipelined = enc is not None
+        t_sync = t0  # on the carry nothing is uploaded
         if pipelined:
             self.carry_batches += 1
         else:
@@ -800,6 +802,7 @@ class TPUScheduler(Scheduler):
                             self.state.sync(self.snapshot)
                         self._sync_slot_reuse_metric()
                         laps("sync")
+                        t_sync = self.now_fn()
                         with tracing.span("device.encode", batch=len(batched)):
                             enc = self._encode(batched)
                         laps("encode")
@@ -815,6 +818,7 @@ class TPUScheduler(Scheduler):
                     f"capacities did not converge in {GROW_ATTEMPTS} growths")
             self._chain_ext_seq = ext_seq
             self._chain_dirty = False
+        t_enc = self.now_fn()
         self.batch_counter += 1
         batch_id = f"b{self.batch_counter}"
         bucket = enc.pb.capacity
@@ -841,7 +845,7 @@ class TPUScheduler(Scheduler):
                     disp = dispatch_device_batch(state, enc, sample_k, sample_start, carry)
             if disp.res.final_sample_start is not None:
                 self._start_carry = disp.res.final_sample_start
-            t_submit = self.now_fn()
+            t_submit = t_dispatch = self.now_fn()
             stream = (torch.cuda.current_stream(self.device)
                       if self.device.type == "cuda" else None)
             self._inflight.append(_Inflight(batched, disp, pod_cycle, t_pop,
@@ -867,10 +871,17 @@ class TPUScheduler(Scheduler):
                 backlog = max(1, self.pipeline_depth)
                 if self.commit_worker.depth() >= backlog:
                     with tracing.span("device.commit.backpressure"):
+                        t_bp = self.now_fn()
                         self.commit_worker.wait_below(backlog)
+                        self.smetrics.device_batch_duration.observe(
+                            self.now_fn() - t_bp, "commit_backpressure")
                 self.commit_worker.submit(fl)
             else:
                 self._commit_inflight(fl)
+        dur = self.smetrics.device_batch_duration
+        dur.observe(t_sync - t0, "upload")
+        dur.observe(t_enc - t_sync, "encode")
+        dur.observe(t_dispatch - t_enc, "compute")
         laps("commit")
 
     def _maybe_profile(self) -> None:
@@ -1134,6 +1145,8 @@ class TPUScheduler(Scheduler):
         wait: Optional[float] = None
         rec: Optional[dict] = None
         laps = _Laps(self.commit_seconds)
+        dur = self.smetrics.device_batch_duration
+        t0 = self.now_fn()
         worker = "commit" if on_worker else "inline"
         try:
             with _on_stream(fl.stream):
@@ -1149,22 +1162,27 @@ class TPUScheduler(Scheduler):
                         bucket=f"{fl.bucket}/{fl.mode_info[0]}", t_submit=fl.t_submit,
                         now_fn=self.now_fn, batch_id=fl.batch_id, pods=len(fl.qps))
                     wait = self.now_fn() - t_wait
+                    dur.observe(wait, "commit_wait")
                 laps("wait")
                 t_host = laps.t
                 batch = adopt_device_batch(self.state, fl.disp, read, mutex)
                 with tracing.span("host.commit", batch=len(fl.qps), worker=worker):
+                    t_host0 = self.now_fn()
                     with self.queue.coalesce_moves():
                         self._commit_batch(fl.qps, batch, fl.pod_cycle, fl.t0, fl.batch_id)
+                    dur.observe(self.now_fn() - t_host0, "commit_host")
                 laps("bind")
                 if self.state is not None:
                     with tracing.span("device.commit.reconcile", batch=len(fl.qps),
                                       worker=worker):
+                        t_rec0 = self.now_fn()
                         snap = self._commit_snapshot if on_worker else self.snapshot
                         with mutex:
                             self.cache.update_snapshot(snap)
                             left = self.state.reconcile(snap)
                         if left:
                             self._chain_dirty = True
+                        dur.observe(self.now_fn() - t_rec0, "commit_reconcile")
                 laps("reconcile")
                 self.commit_spans.append((t_host, laps.t))
         except Exception as exc:  # noqa: BLE001 - the loop requeues and rebuilds
@@ -1194,6 +1212,7 @@ class TPUScheduler(Scheduler):
             telemetry.event("commit", batchId=fl.batch_id, bucket=fl.bucket, pods=len(fl.qps),
                             packed=True, wait_s=round(wait, 6), **extra)
             telemetry.sample_hbm(self.device)
+        dur.observe(self.now_fn() - t0, "commit")
         # the sizer controls pop-to-commit at the batch's bucket: observed
         # here, where the span ends; the commit wait feeds the stall model
         self.sizer.update(fl.bucket, self.now_fn() - fl.t0)
@@ -1328,7 +1347,9 @@ class TPUScheduler(Scheduler):
                 screen, best, slot_of = hints
                 b = int(best[i])
                 pod_hints = (screen[i], slot_of, slot_names.get(b) if b >= 0 else None)
-            self._handle_scheduling_failure(qp, True, diagnosis, pod_cycle, pod_hints)
+            self._handle_scheduling_failure(
+                qp, True, diagnosis, pod_cycle, pod_hints,
+                sampled=sampled_attempt(self.metrics["schedule_attempts"]))
             self.smetrics.observe_attempt(UNSCHEDULABLE, fwk.profile_name, self.now_fn() - t0)
         if items:
             self.batch_scheduled += self._commit_bindings(items, pod_cycle, t0)

@@ -74,7 +74,8 @@ HOST_GATES = frozenset(HOST_GATES_ORDER)
 # the in-tree Reserve plugins with nothing to do for a pod whose PreFilters
 # did not run (a plain winner of a batch, whose state is None): VolumeBinding
 # and DynamicResources act on the state's volumes and claims, Coscheduling
-# never acts at Reserve. ``reserve_batch`` skips them for such a pod.
+# never acts at Reserve. ``reserve_batch`` skips them for such a pod, but for
+# a sampled one: JAX calls them on an empty CycleState and times them.
 RESERVE_NEEDS_STATE = frozenset((names.VOLUME_BINDING, names.DYNAMIC_RESOURCES,
                                  names.COSCHEDULING))
 # a bind-tail item: (the pod's PreFilter state or None, the pod, its node)
@@ -513,17 +514,19 @@ class Framework:
                 return refusal
         return None
 
-    def post_filter(self, pod: Pod, hints=None, unresolvable=(), state=None
-                    ) -> Tuple[Optional[str], Optional[str]]:
+    def post_filter(self, pod: Pod, hints=None, unresolvable=(), state=None,
+                    sampled: bool = False) -> Tuple[Optional[str], Optional[str]]:
         """The PostFilter point: the first plugin that nominates a node
         wins; (None, the last refusal) when none does. ``state`` is the
         sequential cycle's PreFilter outcome (``FitError.state``; None on
-        the batch path), handed to every plugin."""
+        the batch path), handed to every plugin; a ``sampled`` attempt
+        records the per-plugin durations."""
         tr, m = tracing._tracer, self._metrics
+        rec = m if sampled else None
         reason = "no PostFilter plugin could resolve"
         with point_span(tr, m, "post_filter", self.profile_name, status_of=_first_label) as box:
             for plugin, _w in self.points.get("post_filter", []):
-                node, reason = timed(tr, None, "post_filter", plugin,
+                node, reason = timed(tr, rec, "post_filter", plugin,
                                      lambda p=plugin: p.post_filter(pod, hints,
                                                                     unresolvable, state),
                                      status_of=_first_label)
@@ -545,8 +548,9 @@ class Framework:
                    sampled: Optional[Sequence[bool]], plugins: list,
                    stateless: Optional[list] = None) -> list:
         """``call(plugin, state, pod, node_name)`` per item over
-        ``plugins`` (``stateless`` for an item without PreFilter state), the
-        first refusal per item kept (None: every plugin passed)."""
+        ``plugins`` (``stateless`` for an item without PreFilter state that
+        is not sampled), the first refusal per item kept (None: every
+        plugin passed)."""
         tr, m = tracing._tracer, self._metrics
         if not items or (not per_pod and not plugins):
             return [None] * len(items)
@@ -557,7 +561,7 @@ class Framework:
             for i, (state, pod, node) in enumerate(items):
                 rec = m if sampled and sampled[i] else None
                 with point_span(tr, m, point, self.profile_name) as box:
-                    for plugin in (plugins if state is not None else stateless):
+                    for plugin in (plugins if state is not None or rec is not None else stateless):
                         box[0] = timed(tr, rec, point, plugin,
                                        lambda p=plugin: call(p, state, pod, node))
                         if box[0] is not None:
@@ -570,7 +574,7 @@ class Framework:
             for i, (state, pod, node) in enumerate(items):
                 rec = m if sampled and sampled[i] else None
                 reason = None
-                for plugin in (plugins if state is not None else stateless):
+                for plugin in (plugins if state is not None or rec is not None else stateless):
                     reason = (call(plugin, state, pod, node) if rec is None
                               else timed(None, rec, point, plugin,
                                          lambda p=plugin: call(p, state, pod, node)))
@@ -582,7 +586,8 @@ class Framework:
     def reserve_batch(self, items: List[BindTriple], per_pod: bool = False,
                       sampled: Optional[Sequence[bool]] = None) -> List[Optional[str]]:
         """The Reserve point per item: the first refusal, or None. An item
-        without PreFilter state skips ``RESERVE_NEEDS_STATE``."""
+        without PreFilter state skips ``RESERVE_NEEDS_STATE`` unless it is
+        sampled."""
         return self._run_point("reserve", items, _reserve, per_pod, sampled, self._reserve,
                                self._reserve_stateless)
 

@@ -114,6 +114,7 @@ from ..framework.types import NodeInfo
 from ..ops.schema import Capacities
 from ..ops.slice import SLICE_LABEL, TOPO_SLOT_LABEL, TOPO_SUPERPOD_LABEL, fragmentation_host
 from ..utils.clock import FakeClock
+from .phases import borrow_loop, elastic_loop, quota_oversubscription, replay_loop, soak_loop
 
 _NODE_CAPACITY = {"cpu": "32", "memory": "128Gi", "pods": 110}
 _DEFAULT_REQ = {"cpu": "900m", "memory": "2Gi"}
@@ -2079,27 +2080,6 @@ def soak_chunks(pods: Sequence[Pod], size: int) -> List[List[Pod]]:
     return [c for c in chunks if c]
 
 
-def quota_oversubscription(quota, namespaces: Sequence[str]) -> int:
-    """Dimensions over their cap in the ledger, the JAX harness's check
-    (``kubernetes_tpu/perf/harness.py:838-864``): a namespace's usage less
-    its loans against its own caps, and every pool's usage against the sum
-    of its members' caps."""
-    bad = 0
-    cohorts = set()
-    for ns in namespaces:
-        hard = quota.effective_hard(ns)
-        if not hard:
-            continue
-        used, loans = quota.usage(ns), quota.borrowed(ns)
-        bad += sum(1 for dim, cap in hard.items() if used.get(dim, 0) - loans.get(dim, 0) > cap)
-        if quota.cohort_for(ns):
-            cohorts.add(quota.cohort_for(ns))
-    for cohort in cohorts:
-        caps, used = quota.cohort_state(cohort)
-        bad += sum(1 for dim, cap in caps.items() if used.get(dim, 0) > cap)
-    return bad
-
-
 def run_soak(sched, w: Soak) -> dict:
     """Drive ``w`` through ``sched`` (a BatchScheduler over ``w.node_infos()``
     with ``client=w.store()`` and ``caps=w.caps()``). Each round: the
@@ -2173,101 +2153,46 @@ def run_soak(sched, w: Soak) -> dict:
             "passes": passes, "rounds": rounds, "pending": [p.key() for p in pending]}
 
 
+def round_arrivals(w, create: Callable[[Pod], None]) -> Callable[[int], List[str]]:
+    """The phases' ``arrive`` for a workload ``w``: round ``r``'s pods
+    (``w.arrivals``, numbered on from the rounds before), each passed to
+    ``create`` in order; returns their keys."""
+    counter = [0]
+
+    def arrive(r: int) -> List[str]:
+        pods = w.arrivals(r, counter[0])
+        counter[0] += len(pods)
+        for pod in pods:
+            create(pod)
+        return [p.key() for p in pods]
+
+    return arrive
+
+
 def soak_rounds(w: Soak, store, sched, quota, clock, convert=lambda obj: obj) -> dict:
-    """The JAX harness's soak phase (``kubernetes_tpu/perf/harness.py:
-    784-990``) over a scheduler loop ``sched`` on ``store`` and ``clock``
-    (either package's: ``convert`` turns the port's pods and PodGroups into
-    the store's package's objects; ``quota`` is the loop's QuotaAdmission).
-    Each round: the round's arrivals are created (a gang's PodGroup just
-    before its first member, a claim pod's claims just before it); then up to ``SOAK_CYCLES_PER_ROUND`` batch
-    cycles, the clock advanced ``SOAK_TICK_S`` after each, the new binds
-    noted and the
-    ledger checked for oversubscription, until a cycle pops nothing and the
-    queue is empty after a backoff flush; then ``SOAK_CHURN_FRAC`` of each
-    tenant's soak-bound pods still in the store are deleted, oldest first.
-    With ``w.flap``, the loop's ``relay_fault_fn`` is set after round
-    ``rounds // 2``'s arrivals (``:823-910``): the next three batch
-    commits raise at their read and take the relay death path (the
-    breaker counts them, the ring is poisoned, the pods go to backoffQ),
-    and the hook clears itself when spent. The ring is landed at the end.
-    Returns ``bound`` (tenant -> pods that bound), ``oversubscription``
-    (violations over every check), ``checks``, ``rounds`` (per round the
-    ledger's usage per tenant after the churn), ``cycles`` (batch cycles
-    driven), ``breaker`` (the relay breaker's ``STATE_VALUES`` after each
-    cycle) and the JAX soak's invariants (``:975-990``): ``degraded_s``
-    (degraded seconds over the rounds), ``breaker_state`` (at the end),
-    ``flap_batches`` (commits the flap failed), ``comparer_checks`` and
-    ``comparer_mismatches``."""
-    from ..backend.circuit import STATE_VALUES
+    """The JAX harness's soak phase (``phases.soak_loop``) of ``w`` over a
+    scheduler loop ``sched`` on ``store`` and ``clock`` (either package's:
+    ``convert`` turns the port's pods and PodGroups into the store's
+    package's objects; ``quota`` is the loop's QuotaAdmission). Each round
+    creates ``w``'s arrivals (a gang's PodGroup just before its first
+    member, a claim pod's claims just before it), then runs up to
+    ``SOAK_CYCLES_PER_ROUND`` batch cycles with the clock advanced
+    ``SOAK_TICK_S`` after each, then churns ``SOAK_CHURN_FRAC``. With
+    ``w.flap``, the first ``SOAK_FLAP_BATCHES`` batch commits of round
+    ``rounds // 2`` die at their read (``:823-910``).
+    Returns ``soak_loop``'s dict but its ``waits``."""
+    def create(pod: Pod) -> None:
+        w.create_claims(store, pod, convert)
+        create_gang_pod(store, pod, w.gang_size(pod), convert)
 
-    tenants = [ns for ns, _w in SOAK_TENANTS]
-    bound_seen = {k for k, p in store.pods.items() if p.spec.node_name}
-    soak_bound: Dict[str, List[str]] = {ns: [] for ns in tenants}
-    bound = dict.fromkeys(tenants, 0)
-    out = {"oversubscription": 0, "checks": 0, "rounds": [], "cycles": 0, "breaker": []}
-    flap_left = flap_batches = 0
-
-    def relay_fault(_op: str):
-        nonlocal flap_left, flap_batches
-        if flap_left <= 0:
-            sched.relay_fault_fn = None
-            return None
-        flap_left -= 1
-        flap_batches += 1
-        return TransientDeviceError("scripted device flap (soak)")
-
-    def note_new_bindings() -> None:
-        for key, p in list(store.pods.items()):
-            if p.spec.node_name and key not in bound_seen:
-                bound_seen.add(key)
-                if p.meta.namespace in bound:
-                    bound[p.meta.namespace] += 1
-                    soak_bound[p.meta.namespace].append(key)
-
-    def check() -> None:
-        out["oversubscription"] += quota_oversubscription(quota, tenants)
-        out["checks"] += 1
-
-    degraded0 = sched.smetrics.degraded_seconds.labels()
-    counter = 0
-    for r in range(w.rounds):
-        arrivals = w.arrivals(r, counter)
-        counter += len(arrivals)
-        for pod in arrivals:
-            w.create_claims(store, pod, convert)
-            create_gang_pod(store, pod, w.gang_size(pod), convert)
-        if w.flap and r == w.rounds // 2:
-            flap_left = SOAK_FLAP_BATCHES
-            sched.relay_fault_fn = relay_fault
-        for _c in range(SOAK_CYCLES_PER_ROUND):
-            progressed = sched.schedule_batch_cycle() > 0
-            out["cycles"] += 1
-            out["breaker"].append(STATE_VALUES[sched.relay_breaker.state])
-            clock.advance(SOAK_TICK_S)
-            note_new_bindings()
-            check()
-            if not progressed:
-                sched.queue.flush_backoff_completed()
-                if len(sched.queue) == 0:
-                    break
-        for ns in tenants:
-            keys = soak_bound[ns]
-            n = int(len(keys) * SOAK_CHURN_FRAC)
-            for key in keys[:n]:
-                if store.get_pod(key) is not None:
-                    store.delete_pod(key)
-            soak_bound[ns] = keys[n:]
-        note_new_bindings()
-        check()
-        out["rounds"].append({ns: quota.usage(ns) for ns in tenants})
-    sched._drain_inflight()
-    note_new_bindings()
-    check()
-    out["bound"] = bound
-    out.update(degraded_s=sched.smetrics.degraded_seconds.labels() - degraded0,
-               breaker_state=STATE_VALUES[sched.relay_breaker.state],
-               flap_batches=flap_batches, comparer_checks=sched.comparer_checks,
-               comparer_mismatches=sched.comparer_mismatches)
+    out = soak_loop(store, sched, quota, clock, w.rounds, round_arrivals(w, create),
+                    [ns for ns, _w in SOAK_TENANTS],
+                    cycle=lambda: sched.schedule_batch_cycle() > 0,
+                    cycles_per_round=SOAK_CYCLES_PER_ROUND, tick_s=SOAK_TICK_S,
+                    churn_frac=SOAK_CHURN_FRAC, breaker=sched.relay_breaker,
+                    flap_round=w.rounds // 2 if w.flap else None,
+                    flap_batches=SOAK_FLAP_BATCHES)
+    del out["waits"]
     return out
 
 
@@ -2404,92 +2329,17 @@ def scheduling_borrow(nodes: int = 1000, rounds: int = 8, scale: int = 100,
 
 
 def borrow_rounds(w: Borrow, store, sched, quota, clock, convert=lambda obj: obj) -> dict:
-    """The JAX harness's borrow phase (``kubernetes_tpu/perf/harness.py:
-    999-1150``) over a scheduler loop ``sched`` on ``store`` and ``clock``
-    (either package's, as ``soak_rounds``; the latency ledger, when on,
-    feeds ``sched.smetrics.tenant_e2e_duration``). Each round: the round's
-    arrivals are created; then up to ``w.cycles_per_round`` batch cycles,
-    the clock advanced ``w.tick_s`` after each, the new binds noted and the
-    invariants sampled, until a cycle pops nothing and the queue is empty
-    after a backoff flush. The ring is landed at the end.
-
-    Returns ``invariants`` (``PoolUtilizationMean`` / ``Peak``: the pool's
-    used pods over its summed caps per sample; ``LoansOutstandingPeak``;
-    ``Reclaims``: reclaim passes that evicted; ``OversubscriptionViolations``
-    over every sample, borrow-aware as ``quota_oversubscription``;
-    ``BurstRound``), ``tenants`` (per namespace ``Admitted``,
-    ``BorrowedPeak``, ``E2eP50`` / ``E2eP99`` / ``E2eCount`` of the
-    ledger's ``tenant_e2e_duration`` over the phase: exact quantiles on the
-    port, bucket estimates on the JAX registry) and ``cycles``."""
+    """The JAX harness's borrow phase (``phases.borrow_loop``) of ``w``
+    over a scheduler loop ``sched`` on ``store`` and ``clock`` (either
+    package's, as ``soak_rounds``): ``w.cycles_per_round`` batch cycles a
+    round at most, the clock advanced ``w.tick_s`` after each, the pool
+    being ``w``'s tenants. Returns ``borrow_loop``'s dict."""
     tenants = w.tenants()
-    hist = sched.smetrics.tenant_e2e_duration
-    snaps = {ns: hist.snapshot(ns) for ns in tenants}
-    admitted = dict.fromkeys(tenants, 0)
-    borrowed_peak = dict.fromkeys(tenants, 0)
-    bound_seen = {k for k, p in store.pods.items() if p.spec.node_name}
-    reclaims0 = quota.reclaims_executed
-    util: List[float] = []
-    state = {"loans_peak": 0, "oversub": 0, "cycles": 0}
-
-    def note_new_bindings() -> None:
-        for key, p in list(store.pods.items()):
-            if p.spec.node_name and key not in bound_seen:
-                bound_seen.add(key)
-                if p.meta.namespace in admitted:
-                    admitted[p.meta.namespace] += 1
-
-    def sample() -> None:
-        cap = used = loans = 0
-        for ns in tenants:
-            hard = quota.effective_hard(ns)
-            if not hard:
-                continue
-            ns_loans = quota.borrowed(ns).get("pods", 0)
-            cap += hard.get("pods", 0)
-            used += quota.usage(ns).get("pods", 0)
-            loans += ns_loans
-            borrowed_peak[ns] = max(borrowed_peak[ns], ns_loans)
-        state["oversub"] += quota_oversubscription(quota, tenants)
-        state["loans_peak"] = max(state["loans_peak"], loans)
-        if cap:
-            util.append(used / cap)
-
-    counter = 0
-    for r in range(w.rounds):
-        arrivals = w.arrivals(r, counter)
-        counter += len(arrivals)
-        for pod in arrivals:
-            store.create_pod(convert(pod))
-        for _c in range(w.cycles_per_round):
-            progressed = sched.schedule_batch_cycle() > 0
-            state["cycles"] += 1
-            clock.advance(w.tick_s)
-            note_new_bindings()
-            sample()
-            if not progressed:
-                sched.queue.flush_backoff_completed()
-                if len(sched.queue) == 0:
-                    break
-    sched._drain_inflight()
-    note_new_bindings()
-    sample()
-    return {
-        "invariants": {
-            "PoolUtilizationMean": sum(util) / len(util) if util else 0.0,
-            "PoolUtilizationPeak": max(util) if util else 0.0,
-            "LoansOutstandingPeak": float(state["loans_peak"]),
-            "Reclaims": float(quota.reclaims_executed - reclaims0),
-            "OversubscriptionViolations": float(state["oversub"]),
-            "BurstRound": float(w.burst_round),
-        },
-        "tenants": {ns: {"Admitted": float(admitted[ns]),
-                         "BorrowedPeak": float(borrowed_peak[ns]),
-                         "E2eP50": hist.percentile_since(snaps[ns], 0.50, ns),
-                         "E2eP99": hist.percentile_since(snaps[ns], 0.99, ns),
-                         "E2eCount": float(hist.count_since(snaps[ns], ns))}
-                    for ns in tenants},
-        "cycles": state["cycles"],
-    }
+    arrive = round_arrivals(w, lambda pod: store.create_pod(convert(pod)))
+    return borrow_loop(store, sched, quota, clock, w.rounds, arrive, tenants, tenants,
+                       cycle=lambda: sched.schedule_batch_cycle() > 0,
+                       cycles_per_round=w.cycles_per_round, tick_s=w.tick_s,
+                       burst_round=w.burst_round)
 
 
 def run_loop_borrow(w: Borrow, device, percentage: int = 0) -> dict:
@@ -2749,139 +2599,33 @@ def scheduling_replay(nodes: int = 500, rounds: int = 16, scale: int = 20,
 
 def replay_rounds(w: Replay, store, sched, clock, convert=lambda obj: obj,
                   score_fn=None, sequential: bool = False) -> dict:
-    """The JAX harness's replay phase (``kubernetes_tpu/perf/harness.py:
-    1152-1330``) over a scheduler loop ``sched`` on ``store`` and ``clock``
-    (either package's, as ``soak_rounds``; the latency ledger, when on,
-    feeds ``tenant_e2e_duration``). With ``w.rebalance`` the loop's
-    ``enable_rebalancer`` attaches the rebalancer. Each round: the
-    arrivals are created; then up to ``w.cycles_per_round`` batch cycles,
-    the clock advanced ``w.tick_s`` after each, the new binds noted and the
-    rebalancer ticked, until a cycle pops nothing and, after a backoff
-    flush, the queue is empty and no wave waits to reopen its nodes; then
-    the churn, and the packing score of the host snapshot
-    (``score_fn(sched)``; by default the port's ``score_from_snapshot`` on
-    the CPU, so that runs on the card and on the CPU are judged by the same
-    measure: the rebalancer's own scores run on the loop's device). Then
-    the ring is landed and up to ``w.cycles_per_round`` more cycles
-    complete the waves (no new one).
-    ``sequential`` drives ``schedule_one`` (one pod per cycle, the
-    sequential path: the JAX harness's ``oracle`` backend) instead of the
-    batch cycle.
-
-    Returns ``invariants`` (the JAX ReplayInvariants: ``PackingEff``, one
-    minus the mean entropy over the second half of the rounds;
-    ``FinalEntropy``, ``FinalFrag``; ``TenantP99Max``, the largest tenant
-    p99 as the JAX registry estimates it, ``Histogram.estimate_since`` on
-    the port; ``Waves``, ``Migrations``, ``Suspended``,
-    ``PendingUncordons``, ``PendingAtEnd``), ``tenants`` (per namespace
-    ``Weight``, ``E2eP50`` / ``E2eP99`` (``percentile_since``: exact on the
-    port, bucket estimates on the JAX registry) and ``E2eCount``),
-    ``waves`` (per wave: when, its nodes, pods evicted, gangs, entropy),
-    ``entropies`` (per round), ``cycles`` and ``score_s`` (the wall seconds
-    of each of the rebalancer's scores, when it records them)."""
-    tenants = w.tenants()
-    hist = sched.smetrics.tenant_e2e_duration
-    snaps = {ns: hist.snapshot(ns) for ns in tenants}
-    bound_seen = {k for k, p in store.pods.items() if p.spec.node_name}
-    replay_bound: Dict[str, List[str]] = {ns: [] for ns in tenants}
+    """The JAX harness's replay phase (``phases.replay_loop``) of ``w``
+    over a scheduler loop ``sched`` on ``store`` and ``clock`` (either
+    package's, as ``soak_rounds``). With ``w.rebalance`` the loop's
+    ``enable_rebalancer`` attaches the rebalancer. The packing score is
+    ``score_fn(sched)`` of the host snapshot; by default the port's
+    ``score_from_snapshot`` on the CPU, so that runs on the card and on the
+    CPU are judged by the same measure (the rebalancer's own scores run on
+    the loop's device). ``sequential`` drives ``schedule_one`` (one pod per
+    cycle, the sequential path: the JAX harness's ``oracle`` backend)
+    instead of the batch cycle. Returns ``replay_loop``'s dict."""
     if score_fn is None:
         from ..controllers.rebalance import score_from_snapshot
 
         def score_fn(s):
             return score_from_snapshot(s, "cpu")
     rb = sched.enable_rebalancer(now_fn=clock, **w.rebalance) if w.rebalance else None
-    entropies: List[float] = []
-    state = {"cycles": 0}
+    arrive = round_arrivals(w, lambda pod: create_gang_pod(store, pod, w.gang_size(pod), convert))
 
-    def note_new_bindings() -> None:
-        for key, p in list(store.pods.items()):
-            if p.spec.node_name and key not in bound_seen:
-                bound_seen.add(key)
-                if p.meta.namespace in replay_bound:
-                    replay_bound[p.meta.namespace].append(key)
-
-    def cycle() -> bool:
-        progressed = sched.schedule_one() if sequential else sched.schedule_batch_cycle() > 0
-        state["cycles"] += 1
-        clock.advance(w.tick_s)
-        note_new_bindings()
-        return progressed
-
-    def settled(progressed: bool) -> bool:
-        if progressed:
-            return False
-        sched.queue.flush_backoff_completed()
-        return len(sched.queue) == 0 and (rb is None or not rb.drain.pending_uncordons)
-
-    def sample():
+    def score():
         sched.cache.update_snapshot(sched.snapshot)
         return score_fn(sched)
 
-    counter = 0
-    for r in range(w.rounds):
-        arrivals = w.arrivals(r, counter)
-        counter += len(arrivals)
-        for pod in arrivals:
-            create_gang_pod(store, pod, w.gang_size(pod), convert)
-        for _c in range(w.cycles_per_round):
-            progressed = cycle()
-            if rb is not None:
-                rb.maybe_run(clock())
-            if settled(progressed):
-                break
-        if w.churn_frac > 0.0:
-            for ns in tenants:
-                keys = replay_bound[ns]
-                n = int(len(keys) * w.churn_frac)
-                for key in keys[:n]:
-                    if store.get_pod(key) is not None:
-                        store.delete_pod(key)
-                replay_bound[ns] = keys[n:]
-            note_new_bindings()
-        score = sample()
-        if score is not None:
-            entropies.append(score["entropy"])
-    sched._drain_inflight()
-    # the trace is over: the waves in flight complete, no new one starts
-    for _c in range(w.cycles_per_round):
-        progressed = cycle()
-        if rb is not None:
-            rb.drain.poll_pending_uncordons()
-        if settled(progressed):
-            break
-    note_new_bindings()
-    final = sample() or {"entropy": 0.0, "frag_max": 0.0}
-    steady = entropies[len(entropies) // 2:] or [final["entropy"]]
-    estimate = getattr(hist, "estimate_since", None) or hist.percentile_since
-    p99s = [estimate(snaps[ns], 0.99, ns) for ns in tenants if hist.count_since(snaps[ns], ns)]
-    quota = sched._quota_plugin()
-    pending = sched.queue.pending_pods()
-    return {
-        "invariants": {
-            "PackingEff": float(1.0 - sum(steady) / len(steady)),
-            "FinalEntropy": float(final["entropy"]),
-            "FinalFrag": float(final["frag_max"]),
-            "TenantP99Max": float(max(p99s, default=0.0)),
-            "Waves": float(rb.waves_executed if rb is not None else 0.0),
-            "Migrations": float(rb.migrations if rb is not None else 0.0),
-            "Suspended": float(1.0 if rb is not None and rb.suspended else 0.0),
-            "PendingUncordons": float(len(rb.drain.pending_uncordons) if rb is not None
-                                      else 0.0),
-            "PendingAtEnd": float(sum(pending.values())),
-        },
-        "tenants": {ns: {"Weight": float((quota.weight_for(ns) if quota is not None else None)
-                                         or 0.0),
-                         "E2eP50": hist.percentile_since(snaps[ns], 0.50, ns),
-                         "E2eP99": hist.percentile_since(snaps[ns], 0.99, ns),
-                         "E2eCount": float(hist.count_since(snaps[ns], ns))}
-                    for ns in tenants},
-        "waves": [{"at": wv["at"], "nodes": list(wv["nodes"]), "evicted": wv["evicted"],
-                   "gangs": wv["gangs"], "entropy": wv["entropy"]}
-                  for wv in (rb.last_waves if rb is not None else ())],
-        "entropies": entropies,
-        "cycles": state["cycles"],
-        "score_s": list(getattr(rb, "score_seconds", ())),
-    }
+    return replay_loop(store, sched, clock, w.rounds, arrive, w.tenants(),
+                       cycle=(sched.schedule_one if sequential
+                              else lambda: sched.schedule_batch_cycle() > 0),
+                       cycles_per_round=w.cycles_per_round, score=score, rebalancer=rb,
+                       tick_s=w.tick_s, churn_frac=w.churn_frac)
 
 
 def run_loop_replay(w: Replay, device, percentage: int = 0, sequential: bool = False) -> dict:
@@ -2992,150 +2736,38 @@ def scheduling_elastic(nodes: int = 1000, rounds: int = 6, pods_per_round: int =
                    drain_nodes, spot_frac, cycles_per_round, tick_s, gangs)
 
 
-def elastic_oversubscribed(store) -> int:
-    """Nodes whose bound pods ask more cpu than the node allocates, or
-    outnumber its pod capacity (``harness.py:1377-1402``; a pod bound to a
-    deleted node is not counted)."""
-    used: Dict[str, int] = {}
-    npods: Dict[str, int] = {}
-    for p in store.pods.values():
-        n = p.spec.node_name
-        if not n:
-            continue
-        used[n] = used.get(n, 0) + p.resource_request().get(resource_api.CPU, 0)
-        npods[n] = npods.get(n, 0) + 1
-    bad = 0
-    for n, cpu in used.items():
-        node = store.nodes.get(n)
-        if node is None:
-            continue
-        alloc = node.status.allocatable
-        cap = resource_api.canonical(resource_api.CPU, alloc.get(resource_api.CPU, "0"))
-        pods_cap = int(alloc.get(resource_api.PODS, 0) or 0)
-        if cpu > cap or (pods_cap and npods.get(n, 0) > pods_cap):
-            bad += 1
-    return bad
-
-
 def elastic_rounds(w: Elastic, store, sched, clock, drain=None,
                    convert=lambda obj: obj) -> dict:
-    """The JAX harness's elastic phase (``kubernetes_tpu/perf/harness.py:
-    1332-1517``) over a scheduler loop ``sched`` on ``store`` and ``clock``
-    (either package's, as ``soak_rounds``), evicting through ``drain``, a
+    """The JAX harness's elastic phase (``phases.elastic_loop``) of ``w``
+    over a scheduler loop ``sched`` on ``store`` and ``clock`` (either
+    package's, as ``soak_rounds``), evicting through ``drain``, a
     DrainOrchestrator of the store's package (the port's on the loop's
-    metrics, queue and clock by default). Each round: the arrivals; up to
-    ``w.cycles_per_round`` batch cycles (the clock advanced ``w.tick_s``
-    after each) until a cycle pops nothing and the queue is empty after a
-    backoff flush; the round's chaos step; the cycles again; an
-    oversubscription check. New nodes take the next unused ordinal. Then
-    every cordon is lifted, ``w.settle_rounds`` drives settle the loop, the
-    ring is landed, and two syncs of the settled snapshot measure the
-    upload of the second.
-
-    Returns ``invariants`` (the JAX ElasticInvariants: ``LostPods``,
-    ``Oversubscribed``, ``RowCapacity`` (the mirror's node axis),
-    ``SlotReuses``, ``NodesRemoved``, ``NodesAdded``, ``EvictedPods``,
-    ``UploadBytesSteady``, ``HbmPeakBytes`` (the port's device telemetry's
-peak: 0 with it off, and on the CPU),
-    ``PendingAtEnd``), ``evicted`` (pods evicted by reason), ``nodes``
-    (the live node names at the end) and ``cycles``."""
+    metrics, queue and clock by default). New nodes take the next unused
+    ordinal. Returns ``elastic_loop``'s dict."""
     if drain is None:
         from ..controllers.drain import DrainOrchestrator
 
         drain = DrainOrchestrator(store, metrics=sched.smetrics, queue=sched.queue,
                                   now_fn=clock)
-    m = sched.smetrics
-    reasons = ("drain", "spot", "taint")
-    reuse0 = m.device_slot_reuse.labels()
-    evict0 = {r: m.evicted_pods.labels(r) for r in reasons}
-    created: set = set()
-    state = {"cycles": 0, "added": 0, "removed": 0, "oversub": 0, "next_node": w.nodes}
-    cordoned: List[str] = []
-
-    def drive_round() -> None:
-        for _c in range(w.cycles_per_round):
-            progressed = sched.schedule_batch_cycle() > 0
-            state["cycles"] += 1
-            clock.advance(w.tick_s)
-            if not progressed:
-                sched.queue.flush_backoff_completed()
-                if len(sched.queue) == 0:
-                    break
+    next_node = [w.nodes]
 
     def add_nodes(count: int) -> None:
         made = 0
         while made < count:
-            i = state["next_node"]
-            state["next_node"] += 1
+            i = next_node[0]
+            next_node[0] += 1
             if f"node-{i}" in store.nodes:
                 continue
             store.create_node(convert(w.node_infos(first=i, count=1)[0].node))
             made += 1
-        state["added"] += count
 
-    counter = 0
-    for r in range(w.rounds):
-        arrivals = w.arrivals(r, counter)
-        counter += len(arrivals)
-        for pod in arrivals:
-            create_gang_pod(store, pod, w.gang_size(pod), convert)
-            created.add(pod.key())
-        drive_round()
-        live = sorted(store.nodes)
-        phase = r % 3
-        if phase == 0 and w.storm_frac > 0:
-            storm = live[:max(1, int(len(live) * w.storm_frac))]
-            drain.drain_wave(storm)
-            for name in storm:
-                store.delete_node(name)
-            state["removed"] += len(storm)
-            add_nodes(len(storm))
-        elif phase == 1 and w.drain_nodes > 0:
-            for name in cordoned:
-                drain.uncordon(name)
-            cordoned = live[-w.drain_nodes:]
-            drain.drain_wave(cordoned)
-        elif phase == 2 and w.spot_frac > 0:
-            spot = live[:max(1, int(len(live) * w.spot_frac))]
-            drain.spot_reclaim(spot, delete_nodes=True)
-            state["removed"] += len(spot)
-            add_nodes(len(spot))
-        drive_round()
-        state["oversub"] += elastic_oversubscribed(store)
-    for name in cordoned:
-        drain.uncordon(name)
-    for name in sorted(store.nodes):
-        drain.uncordon(name)
-    for _s in range(max(w.settle_rounds, 1)):
-        drive_round()
-    sched._drain_inflight()
-    state["oversub"] += elastic_oversubscribed(store)
-    ds = device_state_of(sched)
-    upload_steady = None
-    if ds is not None:
-        # the second sync of a settled snapshot uploads nothing
-        for _ in range(2):
-            sched.cache.update_snapshot(sched.snapshot)
-            ds.sync(sched.snapshot)
-        upload_steady = ds.last_upload_bytes
-    rec = telemetry.get()
-    return {
-        "invariants": {
-            "LostPods": float(sum(1 for k in created if store.get_pod(k) is None)),
-            "Oversubscribed": float(state["oversub"]),
-            "RowCapacity": float(ds.caps.nodes) if ds is not None else 0.0,
-            "SlotReuses": float(m.device_slot_reuse.labels() - reuse0),
-            "NodesRemoved": float(state["removed"]),
-            "NodesAdded": float(state["added"]),
-            "EvictedPods": float(sum(m.evicted_pods.labels(r) - evict0[r] for r in reasons)),
-            "UploadBytesSteady": float(upload_steady if upload_steady is not None else -1),
-            "HbmPeakBytes": float(rec.hbm_peak if rec is not None else 0),
-            "PendingAtEnd": float(sum(sched.queue.pending_pods().values())),
-        },
-        "evicted": {r: m.evicted_pods.labels(r) - evict0[r] for r in reasons},
-        "nodes": sorted(store.nodes),
-        "cycles": state["cycles"],
-    }
+    arrive = round_arrivals(w, lambda pod: create_gang_pod(store, pod, w.gang_size(pod), convert))
+    return elastic_loop(store, sched, clock, w.rounds, arrive,
+                        cycle=lambda: sched.schedule_batch_cycle() > 0,
+                        cycles_per_round=w.cycles_per_round, drain=drain, add_nodes=add_nodes,
+                        device_state=lambda: device_state_of(sched), tick_s=w.tick_s,
+                        storm_frac=w.storm_frac, drain_nodes=w.drain_nodes,
+                        spot_frac=w.spot_frac, settle_rounds=w.settle_rounds)
 
 
 def run_loop_elastic(w: Elastic, device, percentage: int = 0) -> dict:

@@ -577,7 +577,7 @@ class Scheduler:
 
     def _handle_scheduling_failure(self, qp: QueuedPodInfo, unschedulable: bool,
                                    diagnosis: Diagnosis, pod_cycle: int, hints=None,
-                                   state=None) -> None:
+                                   state=None, sampled: bool = False) -> None:
         """schedule_one.go:812 and MakeDefaultErrorFunc: a pod that failed a
         filter runs the PostFilter (preemption, with the device screen's
         ``hints``, and the sequential cycle's PreFilter ``state``, as
@@ -585,7 +585,8 @@ class Scheduler:
         PostFilter runs them) and its nomination is written to the store;
         then it returns to the queue, unless it was deleted or bound
         meanwhile. A pod turned away by an error (``unschedulable`` False)
-        takes the backoff queue."""
+        takes the backoff queue. ``sampled``: the attempt records the
+        PostFilter plugins' durations."""
         pod = qp.pod
         fwk = self.framework_for_pod(pod)
         nominated_node = ""
@@ -593,7 +594,8 @@ class Scheduler:
             self.metrics.inc("unschedulable")
             if diagnosis.node_to_status and fwk.points.get("post_filter"):
                 self.smetrics.preemption_attempts.inc()
-                node, _reason = fwk.post_filter(pod, hints, diagnosis.unresolvable, state)
+                node, _reason = fwk.post_filter(pod, hints, diagnosis.unresolvable, state,
+                                                sampled)
                 if node:
                     nominated_node = node
         if nominated_node:
@@ -648,7 +650,7 @@ class Scheduler:
             self.smetrics.observe_attempt(UNSCHEDULABLE, pod.spec.scheduler_name,
                                           self.now_fn() - t0)
             self._handle_scheduling_failure(qp, True, err.diagnosis, pod_cycle,
-                                            state=err.state)
+                                            state=err.state, sampled=sampled)
             return
         except Exception:  # noqa: BLE001 - a cycle error requeues the pod
             logging.getLogger(__name__).exception("scheduling %s failed", pod.key())
@@ -656,6 +658,8 @@ class Scheduler:
             self.smetrics.observe_attempt(ERROR, pod.spec.scheduler_name, self.now_fn() - t0)
             self._handle_scheduling_failure(qp, False, Diagnosis(), pod_cycle)
             return
+        self.smetrics.scheduling_algorithm_duration.observe(self.now_fn() - t0,
+                                                            pod.spec.scheduler_name)
         item = BindItem(qp, node_name, self.framework_for_pod(pod), state=state, device=False,
                         sampled=sampled)
         if self._assume(item, pod_cycle):

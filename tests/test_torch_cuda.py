@@ -1525,3 +1525,36 @@ def test_two_gloo_ranks_on_card_equal_cpu(cuda, mode):
                                                              c["collective_bytes"])
     assert (gpu[0]["result"]["node_idx"] == gpu[1]["result"]["node_idx"]).all()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["SchedulingBasic", "SchedulingDRA"])
+def test_harness_on_card_matches_cpu(cuda, monkeypatch, case):
+    """The scheduler_perf harness (``perf/harness.py``, backend ``tpu``) at
+    64 nodes on the card and on the CPU in one process: every pod bound,
+    the placements and the DataItems' names, labels, units and Counts
+    equal, and the fused kernel launched once per batch on the card (the
+    warm sweep's launches apart)."""
+    from kubernetes_tpu_torch.perf import cases, harness
+
+    monkeypatch.setenv("KTPU_BATCH_DEADLINE_MS", "0")
+    monkeypatch.setenv("KTPU_FULL_BATCH", "1")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        tc = cases.TEST_CASES[case](nodes=64, init_pods=40, measured=60)
+        before = fused_step.LAUNCHES
+        r = harness.Runner(backend="tpu", device=device, batch_size=16)
+        try:
+            r.run_ops(tc["ops"])
+        finally:
+            r.close()
+        runs[device] = (r, fused_step.LAUNCHES - before)
+    (gpu, launches), (cpu, cpu_launches) = runs["cuda"], runs["cpu"]
+    placed = {k: p.spec.node_name for k, p in gpu.store.pods.items()}
+    assert len(placed) == 100 and all(placed.values())
+    assert placed == {k: p.spec.node_name for k, p in cpu.store.pods.items()}
+    assert [(it.unit, it.labels, it.data.get("Count")) for it in gpu.data_items] == [
+        (it.unit, it.labels, it.data.get("Count")) for it in cpu.data_items]
+    sched = gpu.scheduler
+    assert cpu_launches == 0 and set(sched.batch_paths) == {"fused"}
+    assert launches - sched.warm_launches == len(sched.batch_paths) > 0
