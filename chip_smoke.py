@@ -24,7 +24,7 @@
    GROUPS_DEADLINE_S), each phase in the group of the phases whose results
    it reads: core (3-5, 11, 20, 22), batch (6, 8-10, 12-13, the shard phase
    of 21) and loop (the loop_basic part of 11, then 14-19, then 7, then
-   the shard_scale phase of 21). Each group's output is
+   the shard_scale phase of 21, then 23). Each group's output is
    printed in that order once all have ended, a failed group's last.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
    110 pods with zone and hostname labels; pods asking 900m / 2Gi) through
@@ -438,7 +438,30 @@
    kubernetes_tpu_torch.perf --backend tpu --cases SchedulingBasic --out
    <tmpdir>`` as a subprocess (full scale, the card's default deadline):
    exit 0, ``summary.json`` and a well-formed DataItems file.
-23. Each workload run prints pods/s, ms per batch, host ms per stage, and
+23. Loop_controllers phase (loop group): the controller manager and its
+   controllers (``kubernetes_tpu_torch/controllers/``, the default
+   initializers) and the scheduler loop over one store on one FakeClock,
+   taking turns until neither has work (``perf/control_plane.py``), on the
+   card and then with ``device="cpu"`` in this process. SchedulingBasic's
+   5000 nodes, each with a Lease in kube-node-lease: a Deployment of 2000
+   replicas (900m / 2Gi) under a PDB of minAvailable 90%, a StatefulSet of
+   100 and a Job of 200 completions at parallelism 200, all bound; 250
+   nodes (5%) stop renewing their Leases, are marked NotReady with the
+   unreachable taint past the 40 s grace and cordoned, and past the 300 s
+   toleration their pods are evicted and replaced elsewhere; the
+   Deployment scales to 3000, then to 1500. Then PreemptionBasic/500Nodes
+   with its 2000 victims owned by two ReplicaSets, the first 500 under a
+   PDB of minAvailable 100% created with a stale disruptionsAllowed of 500
+   that the disruption controller corrects to 0, and 250 preemptors (half
+   of its 500), resubmitted past their backoff until bound. Every
+   step's placements, PDB statuses, taints, evictions, objects per kind,
+   reconciles and pods popped must equal the CPU run's; every pod bound
+   and none on a tainted node after each step; no guarded victim evicted;
+   the fused kernel launched once per fused (mode-off) batch of each step
+   on the card and never on the CPU. Prints each step's pods/s, the
+   controllers' reconciles and seconds, the scheduler's seconds and the
+   launches beside the card's name and power limit.
+24. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -454,6 +477,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -471,7 +495,7 @@ from kubernetes_tpu_torch.backend.device_state import DeviceState
 from kubernetes_tpu_torch.framework.types import NodeInfo
 from kubernetes_tpu_torch.ops import fused_step, preempt, topology
 from kubernetes_tpu_torch.perf import cases as perf_cases, harness as perf_harness
-from kubernetes_tpu_torch.perf import sharding, workloads
+from kubernetes_tpu_torch.perf import control_plane, sharding, workloads
 from kubernetes_tpu_torch.perf.kernel_phases import scheduling_basic_args
 from kubernetes_tpu_torch import entry as port_entry
 from kubernetes_tpu_torch.parallel import launch
@@ -3397,7 +3421,7 @@ def _fabric_report(name: str, run: dict) -> None:
           f"active replica {run['active']}, per replica (batches, fused launches) "
           + ", ".join(f"({r['batches']}, {r['launches']})" for r in run["per_replica"])
           + f"; failover {run['failover_ms']:.1f} ms from the kill to the end of the promoted "
-          f"replica's first batch (mostly the configured retry sleeps and pod backoff), the "
+          f"replica's first batch (mostly the configured retry sleeps), the "
           f"fabric's promotion {run['promote_ms']:.1f} ms from the error reaching it to the "
           f"flip; promote resync uploaded {run['promote_bytes']} row bytes; "
           f"replication bytes {run['replication_bytes']}; measured phase "
@@ -3898,6 +3922,143 @@ def harness_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- loop_controllers phase
+
+CONTROL_NODES = 5000  # SchedulingBasic's nodes
+CONTROL_SIZES = dict(replicas=2000, stateful=100, job=200, lost=250, scale_to=(3000, 1500))
+# PreemptionBasic/500Nodes with half its 500 preemptors: past about 480 the
+# last ones find no node without a guarded victim left (two nominations on
+# one node, C10) and take guarded victims as the least violation
+BUDGET_SIZES = dict(nodes=500, victims=2000, preemptors=250)
+
+
+def _control_side(device: str):
+    """A store, a FakeClock, the loop on ``device`` and the manager with
+    its default initializers over them."""
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.controllers import ControllerManager
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    clock = FakeClock()
+    store = Store(now_fn=clock)
+    sched = tpu_scheduler.TPUScheduler(store, device=device, now_fn=clock, batch_deadline_ms=0)
+    return store, clock, sched, lambda: ControllerManager(store, now_fn=clock,
+                                                          metrics=sched.smetrics)
+
+
+def _control_run(device: str) -> dict:
+    """``run_control_plane`` and ``run_preemption_budgets`` on ``device``
+    (the CPU with full batches, as the card); per step its record, and its
+    fused launches, batches and fused batches."""
+    with _env(KTPU_PIPELINE_DEPTH=None, KTPU_COMMIT_WORKER=None, KTPU_SPEC=None,
+              KTPU_FULL_BATCH=None if device == "cuda" else "1"):
+        store, clock, sched, manager = _control_side(device)
+        nodes = control_plane.add_nodes(control_plane.port_api(), store, clock, CONTROL_NODES,
+                                        control_plane.NODE_CAPACITY)
+        m = manager()
+        fused_step.LAUNCHES = 0
+        marks = [0, 0, 0]  # launches, batches and warm launches at the last step's end
+        launches = {}
+
+        def on_step(name, rec):
+            paths = sched.batch_paths[marks[1]:]
+            warm = sched.warm_launches - marks[2]
+            launches[name] = (fused_step.LAUNCHES - marks[0] - warm, len(paths),
+                              sum(p == "fused" for p in paths))
+            marks[:] = [fused_step.LAUNCHES, len(sched.batch_paths), sched.warm_launches]
+
+        steps = control_plane.run_control_plane(store, m, sched, clock, nodes=nodes,
+                                                on_step=on_step, **CONTROL_SIZES)
+        bstore, bclock, bsched, bmanager = _control_side(device)
+        budgets = control_plane.run_preemption_budgets(bstore, bmanager(), bsched, bclock,
+                                                       **BUDGET_SIZES)
+        budget_paths = bsched.batch_paths
+        launches["preemption_budgets"] = (fused_step.LAUNCHES - marks[0] - bsched.warm_launches,
+                                          len(budget_paths),
+                                          sum(p == "fused" for p in budget_paths))
+        steps["preemption_budgets"] = budgets
+        warm = sched.warm_launches + bsched.warm_launches
+    return {"steps": steps, "launches": launches, "warm": warm}
+
+
+def _control_check(steps: dict) -> None:
+    """Every pod bound after each step and none on a tainted node; the
+    PDBs' statuses; no guarded victim evicted."""
+    for name, rec in steps.items():
+        tainted = {n for n, v in rec["taints"].items() if v[0]}
+        unbound = [k for k, n in rec["placed"].items() if not n
+                   and not (name == "preemption_budgets" and "/free-" in k)]
+        on_tainted = [k for k, n in rec["placed"].items() if n in tainted]
+        if unbound or on_tainted:
+            raise AssertionError(f"loop_controllers {name}: {len(unbound)} pods unbound "
+                                 f"{unbound[:5]}, {len(on_tainted)} on a tainted node "
+                                 f"{on_tainted[:5]}")
+    replicas, (up, down) = CONTROL_SIZES["replicas"], CONTROL_SIZES["scale_to"]
+    web = {"workloads": replicas, "node_loss": replicas, f"scale_{up}": up,
+           f"scale_{down}": down}
+    for name, n in web.items():
+        want = (n, n, -(-n * 9 // 10), n - -(-n * 9 // 10))
+        if steps[name]["pdbs"] != {"default/web": want}:
+            raise AssertionError(f"loop_controllers {name}: PDB {steps[name]['pdbs']}, "
+                                 f"want {want}")
+    loss = steps["node_loss"]
+    if len([n for n, v in loss["taints"].items()
+            if "node.kubernetes.io/unreachable" in v[0]]) != CONTROL_SIZES["lost"] \
+            or not loss["evicted"]:
+        raise AssertionError(f"loop_controllers node_loss: {len(loss['taints'])} tainted "
+                             f"nodes, {loss['evicted']} evicted")
+    b = steps["preemption_budgets"]
+    guarded = BUDGET_SIZES["victims"] // 4
+    if b["pdb_before"] != (guarded, guarded, guarded, 0) or b["guarded_evicted"] \
+            or b["preemptors_bound"] != BUDGET_SIZES["preemptors"]:
+        raise AssertionError(f"loop_controllers preemption_budgets: PDB before "
+                             f"{b['pdb_before']}, {b['guarded_evicted']} guarded victims "
+                             f"evicted, {b['preemptors_bound']} preemptors bound")
+
+
+def loop_controllers_phase() -> dict:
+    """The controller manager and the scheduler loop taking turns at full
+    width (``perf/control_plane.py``) on the card, then on the CPU."""
+    parts, part = _parts()
+    card = _card()
+    gpu = _control_run("cuda")
+    part("card")
+    cpu = _control_run("cpu")
+    part("cpu")
+    _control_check(gpu["steps"])
+    out = {}
+    for name, rec in gpu["steps"].items():
+        want = cpu["steps"][name]
+        for key in rec:
+            if key != "seconds" and rec[key] != want[key]:
+                raise AssertionError(f"loop_controllers {name}: {key} differs from the CPU run")
+        n_launch, n_batch, n_fused = gpu["launches"][name]
+        if n_launch != n_fused or (n_batch and not n_fused) or cpu["launches"][name][0]:
+            raise AssertionError(f"loop_controllers {name}: {n_launch} fused launches for "
+                                 f"{n_fused} fused of {n_batch} batches; CPU "
+                                 f"{cpu['launches'][name][0]}")
+        sec = rec["seconds"]
+        bound = sum(1 for n in rec["placed"].values() if n)
+        print(f"Controllers/5000Nodes {name} on the card ({card}): {rec['popped']} pods popped "
+              f"in {sec['turns']} turns, {rec['reconciles']} reconciles; {sec['wall']:.3f} s "
+              f"wall ({rec['popped'] / sec['wall']:.1f} pods popped/s), controllers "
+              f"{sec['controllers']:.3f} s, scheduler {sec['scheduler']:.3f} s; {bound} pods "
+              f"bound, PDBs {rec['pdbs']}, {len(rec['taints'])} nodes tainted or cordoned, "
+              f"{rec['evicted']} evicted; {n_launch} fused launches for {n_batch} batches; "
+              f"the CPU run {want['seconds']['wall']:.3f} s; == the CPU run")
+        out[f"loop:Controllers/5000Nodes/{name}"] = {"launches": n_launch}
+    b = gpu["steps"]["preemption_budgets"]
+    print(f"PreemptionBasic/500Nodes with owned victims under a live PDB: the stale "
+          f"disruptionsAllowed {BUDGET_SIZES['victims'] // 4} corrected to "
+          f"{b['pdb_before'][3]} before the preemptors; {b['preemptors_bound']} preemptors "
+          f"bound after {b['rounds']} resubmission rounds, {b['guarded_evicted']} guarded "
+          "victims evicted; == the CPU run")
+    print("loop_controllers phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                                        for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -3954,6 +4115,7 @@ def loop_group(timed, kern: dict) -> dict:
     loop_wire = timed("loop_wire", loop_wire_phase, loop)
     pre = timed("preempt", preempt_phase)  # here for the groups' balance
     shard_scale = timed("shard_scale", shard_scale_phase)  # likewise
+    controllers = timed("loop_controllers", loop_controllers_phase)
     entropy = loop_rebalance.pop("packing_entropy")
     loop.pop(CPU_BASIC)
     loop.pop(CPU_PREEMPT)
@@ -3970,7 +4132,8 @@ def loop_group(timed, kern: dict) -> dict:
                             for k, v in part.items()},
                          **{f"wire:{k}": v["launches"] for k, v in loop_wire.items()},
                          **{k: v["launches"] for k, v in pre.items()},
-                         **{f"shard:{k}": v["launches"] for k, v in shard_scale.items()}}}
+                         **{f"shard:{k}": v["launches"] for k, v in shard_scale.items()},
+                         **{k: v["launches"] for k, v in controllers.items()}}}
 
 
 GROUPS = {"core": core_group, "batch": batch_group, "loop": loop_group}
@@ -4004,7 +4167,10 @@ def group_main(name: str, kern_path: str, out_path: str) -> int:
 def run_groups(kern: dict) -> dict | None:
     """Starts every group at once, waits for all, and replays their output
     in order (a failed group's last). On a failure or past the deadline the
-    other groups are stopped and None is returned."""
+    other groups are stopped and None is returned. Each group runs in a
+    process group of its own, which is killed whole at the end: a group
+    stopped mid-phase leaves no child behind (a rank of the sharded
+    program, the harness's subprocess, a service)."""
     t0 = time.monotonic()
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as tmp:
         kern_path = os.path.join(tmp, "kernel.json")
@@ -4018,7 +4184,7 @@ def run_groups(kern: dict) -> dict | None:
                 procs[name] = subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--group", name, kern_path,
                      os.path.join(tmp, f"{name}.json")],
-                    stdout=logs[name][0], stderr=logs[name][1])
+                    stdout=logs[name][0], stderr=logs[name][1], process_group=0)
             pending = set(GROUPS)
             while pending and not failed:
                 time.sleep(0.5)
@@ -4032,8 +4198,8 @@ def run_groups(kern: dict) -> dict | None:
                     failed.extend(f"{name} (past {GROUPS_DEADLINE_S} s)" for name in pending)
         finally:
             for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
                 proc.wait()
         order = sorted(GROUPS, key=lambda name: any(f.startswith(name) for f in failed))
         for name in order:
@@ -4060,6 +4226,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # a terminated script still stops its groups (run_groups' finally)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     t0 = time.perf_counter()
     lib = fused_step.build_library()
     print(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")

@@ -609,6 +609,7 @@ class StorageClass:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     provisioner: str = ""
     volume_binding_mode: str = BINDING_IMMEDIATE
+    allow_volume_expansion: bool = False  # the persistentvolume-expander's gate
 
 
 # the default-class marker the DefaultStorageClass admission plugin reads
@@ -679,30 +680,153 @@ class Namespace:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
 
 
+# ---------------------------------------------------------------------------
+# workload objects (core/v1 Service + ReplicationController, apps/v1
+# ReplicaSet + StatefulSet + Deployment + DaemonSet, batch/v1 Job + CronJob):
+# SelectorSpread's owner lookup and the controller manager's loops
+# (``controllers/``)
+
+
+@dataclass
+class ServicePort:
+    """core/v1 ServicePort: one exposed port of a Service; ``node_port`` is
+    set for NodePort and LoadBalancer services."""
+
+    name: str = ""
+    protocol: str = "TCP"
+    port: int = 0          # the ClusterIP-facing port
+    target_port: int = 0   # backend pod port (int form only)
+    node_port: int = 0     # 0 = not a NodePort
+
+
 @dataclass
 class Service:
-    """core/v1 Service, trimmed to the map selector SelectorSpread reads."""
+    """core/v1 Service: the map selector SelectorSpread and the endpoint
+    controllers read, and the proxy surface."""
 
     meta: ObjectMeta = field(default_factory=ObjectMeta)
-    selector: Dict[str, str] = field(default_factory=dict)
+    selector: Dict[str, str] = field(default_factory=dict)  # spec.selector (map form)
+    external_ips: Tuple[str, ...] = ()  # spec.externalIPs
+    type: str = "ClusterIP"            # ClusterIP | NodePort | LoadBalancer
+    cluster_ip: str = ""               # virtual IP ("" = none allocated)
+    headless: bool = False             # wire form clusterIP: "None"
+    ports: Tuple[ServicePort, ...] = ()
+    session_affinity: str = "None"     # None | ClientIP
+    session_affinity_timeout_s: int = 10800  # ClientIPConfig.TimeoutSeconds default
 
 
 @dataclass
 class ReplicationController:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
-    selector: Dict[str, str] = field(default_factory=dict)
+    selector: Dict[str, str] = field(default_factory=dict)  # spec.selector (map form)
+    replicas: int = 1
+    template: Optional["Pod"] = None
 
 
 @dataclass
 class ReplicaSet:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     selector: Optional[LabelSelector] = None
+    replicas: int = 1
+    template: Optional["Pod"] = None
 
 
 @dataclass
 class StatefulSet:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     selector: Optional[LabelSelector] = None
+    replicas: int = 1
+    template: Optional["Pod"] = None
+
+
+@dataclass
+class Deployment:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+    replicas: int = 1
+    template: Optional["Pod"] = None
+    # rollout strategy (apps/v1 DeploymentStrategy): RollingUpdate keeps the
+    # surge and unavailable windows; Recreate tears the old ReplicaSet down first
+    strategy: str = "RollingUpdate"
+    max_surge: int = 1
+    max_unavailable: int = 1
+
+
+@dataclass
+class DaemonSet:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    selector: Optional[LabelSelector] = None
+    template: Optional["Pod"] = None
+
+
+@dataclass
+class Job:
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    completions: int = 1
+    parallelism: int = 1
+    template: Optional["Pod"] = None
+    succeeded: int = 0
+    # failure policy (job_controller.go syncJob): stop after backoffLimit pod
+    # failures; fail the job past activeDeadlineSeconds
+    backoff_limit: int = 6
+    active_deadline_seconds: Optional[int] = None
+    failed: int = 0
+    condition: str = ""  # "" | "Complete" | "Failed" (reason in failed_reason)
+    failed_reason: str = ""
+    start_time: float = 0.0
+    completion_time: float = 0.0  # set when the condition turns terminal
+    # the ttl-after-finished controller deletes the job this long after it ends
+    ttl_seconds_after_finished: Optional[int] = None
+
+
+@dataclass
+class CronJob:
+    """batch/v1 CronJob: spawns Jobs on a five-field cron schedule."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    schedule: str = "* * * * *"
+    template: Optional["Pod"] = None  # the spawned Job's pod template
+    completions: int = 1
+    parallelism: int = 1
+    suspend: bool = False
+    last_schedule_minute: int = -1  # epoch minute of the last firing
+
+
+@dataclass
+class VolumeAttachment:
+    """storage/v1 VolumeAttachment: a PV attached to a node, kept by the
+    attach/detach controller."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    pv_name: str = ""
+    node_name: str = ""
+    attached: bool = True
+
+
+@dataclass(frozen=True)
+class EndpointAddress:
+    pod_key: str = ""
+    node_name: str = ""
+
+
+@dataclass
+class Endpoints:
+    """core/v1 Endpoints: the ready pod addresses behind a Service, kept by
+    the endpoints controller."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    addresses: Tuple[EndpointAddress, ...] = ()
+
+
+@dataclass
+class EndpointSlice:
+    """discovery.k8s.io/v1 EndpointSlice: a shard of a Service's ready
+    addresses (at most 100 per slice), kept by the endpointslice
+    controller."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    service: str = ""  # owning Service key
+    addresses: Tuple[EndpointAddress, ...] = ()
 
 
 @dataclass
@@ -716,14 +840,22 @@ class PriorityClass:
 
 @dataclass
 class PodDisruptionBudget:
-    """policy/v1 PodDisruptionBudget, trimmed to what preemption reads
-    (``framework/preemption.py``): the selector over pods of its namespace
-    and the status's ``disruptionsAllowed``, which the disruption
-    controller maintains and the victim selection consumes."""
+    """policy/v1 PodDisruptionBudget: the spec (minAvailable or
+    maxUnavailable, an int or "N%") and the status the disruption controller
+    (``controllers/disruption.py``) keeps; preemption
+    (``framework/preemption.py``) reads the selector over pods of its
+    namespace and ``disruptionsAllowed``."""
 
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     selector: Optional[LabelSelector] = None
+    # spec: None means unset; one of the two is normally set
+    min_available: Optional[object] = None    # int or "N%"
+    max_unavailable: Optional[object] = None  # int or "N%"
+    # status
     disruptions_allowed: int = 0
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -809,6 +941,20 @@ class Secret:
     data: Dict[str, str] = field(default_factory=dict)
 
 
+# the bootstrap token secret type (the kubeadm join tokens the bootstrapsigner
+# and tokencleaner controllers manage)
+SECRET_TYPE_BOOTSTRAP_TOKEN = "bootstrap.kubernetes.io/token"
+
+
+@dataclass
+class ConfigMap:
+    """core/v1 ConfigMap (the root-ca-cert-publisher's and the
+    bootstrapsigner's target)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    data: Dict[str, str] = field(default_factory=dict)
+
+
 @dataclass
 class Event:
     """core/v1 Event: an involved object's reason and note with series
@@ -836,3 +982,76 @@ class ResourceClaimTemplate:
     meta: ObjectMeta = field(default_factory=ObjectMeta)
     resource_class_name: str = ""
     selectors: Dict[str, object] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# the kinds of the certificate, security and autoscaling loops
+# (``controllers/certificates.py``, ``controllers/autoscaling.py``)
+
+
+@dataclass
+class CertificateSigningRequest:
+    """certificates.k8s.io/v1 CSR, reduced to what the csrapproving,
+    csrsigning and csrcleaner controllers drive: approve, sign, clean."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    signer_name: str = ""            # e.g. kubernetes.io/kube-apiserver-client-kubelet
+    username: str = ""               # requesting identity
+    groups: Tuple[str, ...] = ()
+    usages: Tuple[str, ...] = ()     # "client auth" | "server auth" | ...
+    request: str = ""                # the CSR blob (opaque here)
+    # status
+    approved: bool = False
+    denied: bool = False
+    approval_reason: str = ""
+    certificate: str = ""            # issued by the signing controller
+    issued_at: float = 0.0
+
+
+@dataclass
+class HorizontalPodAutoscaler:
+    """autoscaling/v2-shaped HPA, reduced to a cpu-utilization target over a
+    scale-target workload. The metrics API is ``Store.pod_metrics`` (pod key
+    to milli-cpu usage)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    target_kind: str = "Deployment"   # scaleTargetRef
+    target_name: str = ""
+    min_replicas: int = 1
+    max_replicas: int = 10
+    target_cpu_utilization: int = 80  # usage / per-pod cpu request, percent
+    # status
+    current_replicas: int = 0
+    desired_replicas: int = 0
+    last_scale_time: float = 0.0
+
+
+@dataclass
+class PolicyRule:
+    """rbac/v1 PolicyRule (verbs x resources x resourceNames; '*' wildcards)."""
+
+    verbs: Tuple[str, ...] = ("*",)
+    resources: Tuple[str, ...] = ("*",)       # kind names, e.g. "Pod"
+    resource_names: Tuple[str, ...] = ()      # () = any
+    subresources: Tuple[str, ...] = ("*",)    # e.g. "binding", "finalizers"
+
+
+@dataclass
+class ClusterRole:
+    """rbac/v1 ClusterRole; ``aggregation_selectors`` is the AggregationRule
+    reduced to label-match dicts: when set, the clusterrole-aggregation
+    controller overwrites ``rules`` with the union of every matching
+    ClusterRole's rules."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    rules: Tuple[PolicyRule, ...] = ()
+    aggregation_selectors: Tuple[Dict[str, str], ...] = ()
+
+
+@dataclass
+class ClusterRoleBinding:
+    """rbac/v1 ClusterRoleBinding: subjects are "user:NAME" or "group:NAME"."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    role: str = ""                    # ClusterRole name
+    subjects: Tuple[str, ...] = ()

@@ -39,6 +39,22 @@ reads them; the handlers run outside it. Leases (``get_lease``,
 lock, Secrets, Events and ResourceClaimTemplates generic kinds. No WAL,
 impersonation or CRD registry.
 
+The controller manager's kinds (``:347-400``): Deployment, DaemonSet, Job,
+CronJob, Endpoints, EndpointSlice, VolumeAttachment, ConfigMap,
+CertificateSigningRequest, HorizontalPodAutoscaler, ClusterRole and
+ClusterRoleBinding are generic kinds; ReplicaSet, StatefulSet,
+ReplicationController and Service also have the JAX accessors
+(``create_replica_set``, ``get_replica_set``, ..., ``:609-650``), which
+write without the duplicate check. ``pod_metrics`` (pod key to milli-cpu
+usage) stands in for the metrics API the HPA controller reads.
+
+Finalizers (``update_object`` / ``delete_object``, ``:664-729``): deleting
+an object that has finalizers only marks it terminating
+(``deletion_timestamp`` from ``now_fn``, a MODIFIED event); an update
+keeps the stored ``deletion_timestamp`` (but a Namespace's, which its
+controller sets), and the update that clears the last finalizer of a
+terminating object completes the delete (a DELETED event).
+
 Admission and validation (``:187-248``, ``:405-452``, ``:643-662``,
 ``:822-836``): ``create_node``, ``create_pod``, ``create_object``,
 ``create_pv`` and ``create_pvc`` run the admission chain
@@ -68,9 +84,10 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 from ..api import validation
 from ..api.types import (CSINode, Event, Lease, LimitRange, Namespace, Node, PersistentVolume,
                          PersistentVolumeClaim, Pod, PodDisruptionBudget, PodGroup,
-                         PodSchedulingContext, PriorityClass, ResourceClaim,
-                         ResourceClaimTemplate, ResourceQuota, RuntimeClass, SchedulingQuota,
-                         Secret, ServiceAccount, StorageClass)
+                         PodSchedulingContext, PriorityClass, ReplicaSet, ReplicationController,
+                         ResourceClaim, ResourceClaimTemplate, ResourceQuota, RuntimeClass,
+                         SchedulingQuota, Secret, Service, ServiceAccount, StatefulSet,
+                         StorageClass)
 from .admission import AdmissionChain
 
 ADDED = "ADDED"
@@ -185,6 +202,23 @@ class Store:
         self.secrets: Dict[str, Secret] = {}                   # by namespace/name
         self.events: Dict[str, Event] = {}                     # by namespace/name
         self.resource_claim_templates: Dict[str, ResourceClaimTemplate] = {}
+        # the controller manager's kinds, by namespace/name (the cluster-
+        # scoped VolumeAttachment, CSR and RBAC kinds by name)
+        self.deployments: Dict[str, object] = {}
+        self.daemon_sets: Dict[str, object] = {}
+        self.jobs: Dict[str, object] = {}
+        self.cron_jobs: Dict[str, object] = {}
+        self.endpoints: Dict[str, object] = {}
+        self.endpoint_slices: Dict[str, object] = {}
+        self.volume_attachments: Dict[str, object] = {}
+        self.config_maps: Dict[str, object] = {}
+        self.csrs: Dict[str, object] = {}
+        self.hpas: Dict[str, object] = {}
+        self.cluster_roles: Dict[str, object] = {}
+        self.cluster_role_bindings: Dict[str, object] = {}
+        # the metrics API's stand-in: pod key -> milli-cpu usage (the HPA
+        # controller reads it)
+        self.pod_metrics: Dict[str, int] = {}
         # the watch journal: (seq, kind, event, old, new), bounded, and the
         # live watches per kind, under the one lock with the map writes
         self._lock = threading.RLock()
@@ -427,7 +461,14 @@ class Store:
                 "PersistentVolumeClaim": self.pvcs, "StorageClass": self.storage_classes,
                 "CSINode": self.csinodes, "PriorityClass": self.priority_classes,
                 "Lease": self.leases, "Secret": self.secrets, "Event": self.events,
-                "ResourceClaimTemplate": self.resource_claim_templates}
+                "ResourceClaimTemplate": self.resource_claim_templates,
+                "Deployment": self.deployments, "DaemonSet": self.daemon_sets,
+                "Job": self.jobs, "CronJob": self.cron_jobs, "Endpoints": self.endpoints,
+                "EndpointSlice": self.endpoint_slices,
+                "VolumeAttachment": self.volume_attachments, "ConfigMap": self.config_maps,
+                "CertificateSigningRequest": self.csrs, "HorizontalPodAutoscaler": self.hpas,
+                "ClusterRole": self.cluster_roles,
+                "ClusterRoleBinding": self.cluster_role_bindings}
         if kind not in maps:
             raise NotFound(f"unknown kind {kind!r}")
         return maps[kind]
@@ -457,7 +498,10 @@ class Store:
         return [s for s in self.services.values() if s.meta.namespace == namespace]
 
     def update_object(self, kind: str, obj) -> None:
-        """Replace an existing object; NotFound when there is none."""
+        """Replace an existing object; NotFound when there is none. The
+        stored ``deletion_timestamp`` wins over the client's (a Namespace
+        keeps the client's), and an update that leaves a terminating object
+        without finalizers completes its delete."""
         m = self._kind_map(kind)
         key = obj.meta.name if kind in CLUSTER_SCOPED_KINDS else obj.meta.key()
         old = m.get(key)
@@ -465,20 +509,82 @@ class Store:
         if old is None:
             raise NotFound(f"{kind} {key}")
         with self._lock:
-            self._bump(obj)
-            self._kind_rv[kind] = self._rv
-            m[key] = obj
-            self._journal_event(kind, MODIFIED, old, obj)
-        self._notify(kind, MODIFIED, old, obj)
+            if kind != "Namespace":
+                obj.meta.deletion_timestamp = old.meta.deletion_timestamp
+            deleted = bool(obj.meta.deletion_timestamp and not obj.meta.finalizers)
+            if deleted:
+                m.pop(key, None)
+                self._journal_event(kind, DELETED, old, None)
+            else:
+                self._bump(obj)
+                self._kind_rv[kind] = self._rv
+                m[key] = obj
+                self._journal_event(kind, MODIFIED, old, obj)
+        if deleted:
+            self._notify(kind, DELETED, old, None)
+        else:
+            self._notify(kind, MODIFIED, old, obj)
 
     def delete_object(self, kind: str, key: str) -> None:
-        """Remove an object (no finalizers in the port's store)."""
+        """Remove an object. One with finalizers is only marked terminating
+        (on a copy, once); the update that clears its last finalizer
+        removes it."""
+        m = self._kind_map(kind)
+        marked = old = None
         with self._lock:
-            old = self._kind_map(kind).pop(key, None)
-            if old is not None:
-                self._journal_event(kind, DELETED, old, None)
+            cur = m.get(key)
+            if cur is not None and cur.meta.finalizers:
+                if not cur.meta.deletion_timestamp:
+                    marked = dataclasses.replace(cur)
+                    marked.meta = dataclasses.replace(cur.meta, deletion_timestamp=self.now_fn())
+                    self._bump(marked)
+                    m[key] = marked
+                    self._journal_event(kind, MODIFIED, cur, marked)
+            else:
+                old = m.pop(key, None)
+                if old is not None:
+                    self._journal_event(kind, DELETED, old, None)
+        if marked is not None:
+            self._notify(kind, MODIFIED, cur, marked)
         if old is not None:
             self._notify(kind, DELETED, old, None)
+
+    # ------------------------------------------------------------- workload kinds
+    # (the JAX accessors: a write without the duplicate check or, but for
+    # Service, admission)
+
+    def _put(self, kind: str, m: Dict[str, object], obj) -> None:
+        with self._lock:
+            self._bump(obj)
+            self._kind_rv[kind] = self._rv
+            m[obj.meta.key()] = obj
+            self._journal_event(kind, ADDED, None, obj)
+        self._notify(kind, ADDED, None, obj)
+
+    def create_service(self, svc: Service) -> None:
+        self._admit("Service", svc)
+        self._put("Service", self.services, svc)
+
+    def create_replication_controller(self, rc: ReplicationController) -> None:
+        self._put("ReplicationController", self.replication_controllers, rc)
+
+    def get_replication_controller(self, key: str) -> Optional[ReplicationController]:
+        with self._lock:
+            return self.replication_controllers.get(key)
+
+    def create_replica_set(self, rs: ReplicaSet) -> None:
+        self._put("ReplicaSet", self.replica_sets, rs)
+
+    def get_replica_set(self, key: str) -> Optional[ReplicaSet]:
+        with self._lock:
+            return self.replica_sets.get(key)
+
+    def create_stateful_set(self, ss: StatefulSet) -> None:
+        self._put("StatefulSet", self.stateful_sets, ss)
+
+    def get_stateful_set(self, key: str) -> Optional[StatefulSet]:
+        with self._lock:
+            return self.stateful_sets.get(key)
 
     # ------------------------------------------------------------- storage kinds
 

@@ -289,10 +289,17 @@ class FilterRunner:
         self.node_pre_filters = [p for p in self.pre_filters if p.name() not in HOST_GATES]
         self.filters = [p for p, _w in filters]
         self.extensions = [p for p in self.pre_filters if hasattr(p, "add_pod")]
+        # set by ``Framework.post_filter`` for the PostFilter point of a
+        # sampled attempt: the PreFilters a PostFilter plugin runs through
+        # ``pre_filter`` (a batch pod's, whose PreFilters did not run) then
+        # record their durations, as the JAX plugin's run on the attempt's
+        # sampled CycleState does (C31)
+        self.attempt_sampled = False
 
     def pre_filter(self, pod: Pod) -> Tuple[Optional[PreFilterState], Optional[str]]:
-        """(the state, None), or (None, the first failure's reason)."""
-        state, _names, fail = self.pre_filter_status(pod)
+        """(the state, None), or (None, the first failure's reason); sampled
+        when the attempt is (``attempt_sampled``)."""
+        state, _names, fail = self.pre_filter_status(pod, sampled=self.attempt_sampled)
         return state, (fail.reason if fail is not None else None)
 
     def pre_filter_status(self, pod: Pod, gates: bool = True, sampled: bool = False
@@ -524,16 +531,21 @@ class Framework:
         tr, m = tracing._tracer, self._metrics
         rec = m if sampled else None
         reason = "no PostFilter plugin could resolve"
-        with point_span(tr, m, "post_filter", self.profile_name, status_of=_first_label) as box:
-            for plugin, _w in self.points.get("post_filter", []):
-                node, reason = timed(tr, rec, "post_filter", plugin,
-                                     lambda p=plugin: p.post_filter(pod, hints,
-                                                                    unresolvable, state),
-                                     status_of=_first_label)
-                if node:
-                    box[0] = (node, None)
-                    return box[0]
-            box[0] = (None, reason)
+        self.filters.attempt_sampled = sampled
+        try:
+            with point_span(tr, m, "post_filter", self.profile_name,
+                            status_of=_first_label) as box:
+                for plugin, _w in self.points.get("post_filter", []):
+                    node, reason = timed(tr, rec, "post_filter", plugin,
+                                         lambda p=plugin: p.post_filter(pod, hints,
+                                                                        unresolvable, state),
+                                         status_of=_first_label)
+                    if node:
+                        box[0] = (node, None)
+                        return box[0]
+                box[0] = (None, reason)
+        finally:
+            self.filters.attempt_sampled = False
         return None, reason
 
     # the bind tail, over the profile's items of a batch (``runtime.py:

@@ -1203,9 +1203,15 @@ WIRE_STAGES = ("client_encode", "client_push", "transport", "service_decode", "s
 REPLICA_BACKOFF_S = (0.05, 0.2)  # the replicas' pod backoff: a conflicted pod retries soon
 
 
-def _settle_replicas(scheds, max_rounds: int = 100000) -> int:
+def _settle_replicas(scheds, max_rounds: int = 100000,
+                     queue_clock: Optional[FakeClock] = None) -> int:
     """Settle several replicas on one thread, one cycle each in turn (their
-    pipelined batches overlap on the service); returns the pods popped."""
+    pipelined batches overlap on the service); returns the pods popped.
+    ``queue_clock`` is the queues' FakeClock: a round in which no replica
+    has an active pod advances it past the longest pod backoff, so that
+    every backed-off pod returns at once. On the wall clock the pods of one
+    failed batch, requeued one after another, return split at whatever
+    instant a flush falls, and the batches then depend on the host's load."""
     import time
 
     popped = 0
@@ -1220,7 +1226,10 @@ def _settle_replicas(scheds, max_rounds: int = 100000) -> int:
         if all(p["active"] == 0 and p["backoff"] == 0 for p in pending):
             break
         if all(p["active"] == 0 for p in pending):
-            time.sleep(0.01)
+            if queue_clock is not None:
+                queue_clock.advance(REPLICA_BACKOFF_S[1])
+            else:
+                time.sleep(0.01)
     return popped
 
 
@@ -1288,7 +1297,9 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
     serves that many DeviceServices on ``device``, each endpoint with its
     own ``FaultPlan``, and one WireScheduler drives them all through the
     device fabric (``standby_replication`` is its warm-standby worker; pod
-    backoff ``REPLICA_BACKOFF_S``, settled by ``_settle_replicas``);
+    backoff ``REPLICA_BACKOFF_S`` on a FakeClock of the queue's own, settled
+    by ``_settle_replicas``, which passes it when the queue idles, so that
+    the batches do not depend on the host's speed);
     ``kill_primary_after`` kills the first endpoint (``FaultPlan.kill``:
     every call to it fails) once, after the first cycle in which the
     client's processed batches reach it. Telemetry is on for the run (the
@@ -1320,8 +1331,8 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
     active replica's index), ``per_replica`` (each service's ``batches``
     and fused ``launches``, counted around its calls: exact at depth 0),
     ``failover_ms`` (wall ms from the kill to the end of the first batch the
-    promoted replica ran: mostly the client's configured retry sleeps and
-    the pods' backoff), ``promote_ms`` (wall ms of the fabric's own
+    promoted replica ran: mostly the client's configured retry sleeps; the
+    pods' backoff passes on the queue's clock), ``promote_ms`` (wall ms of the fabric's own
     promotion, the first ``_replica_lost``: from the lost replica's error
     reaching the fabric to the flip of the active replica, the standby's
     Health probe included), ``promote_bytes`` (the row bytes the promoted
@@ -1364,6 +1375,11 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
                                 standby_replication=standby_replication, **backoff)
                   for r in range(replicas)]
         sched = scheds[0]
+        queue_clock = None
+        if n_services > 1:
+            queue_clock = FakeClock()
+            for s in scheds:
+                s.queue.now_fn = queue_clock
         if own_telemetry:
             telemetry.enable(sched.smetrics)
         # the placements the service accepted (a result with a node and no
@@ -1477,7 +1493,7 @@ def run_loop_wire(w: Workload, device, depth: int, batch_size: int = LOOP_BATCH,
         def settle() -> int:
             if len(scheds) == 1 and n_services == 1:
                 return sched.run_until_settled()
-            return _settle_replicas(scheds)
+            return _settle_replicas(scheds, queue_clock=queue_clock)
 
         for name, value in w.priority_classes:
             store.create_priority_class(PriorityClass(meta=ObjectMeta(name=name, namespace=""),

@@ -19,7 +19,9 @@ replicas; the device fabric of two card services with the primary killed
 (cold and warm standbys) and the gRPC transport (skipped without grpc).
 Node-axis sharding (``parallel/``): one NCCL rank's sharded scan against
 the fused kernel's batch at N=5120, and two gloo ranks on the card
-against two on the CPU in modes off and host.
+against two on the CPU in modes off and host. The scheduler_perf harness,
+and the controller manager and the loop taking turns
+(``perf/control_plane.py``), each against its CPU run.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -1558,3 +1560,56 @@ def test_harness_on_card_matches_cpu(cuda, monkeypatch, case):
     sched = gpu.scheduler
     assert cpu_launches == 0 and set(sched.batch_paths) == {"fused"}
     assert launches - sched.warm_launches == len(sched.batch_paths) > 0
+
+
+@pytest.mark.cuda
+def test_control_plane_on_card_matches_cpu(cuda, monkeypatch):
+    """The controller manager and the loop taking turns
+    (``perf/control_plane.py``) at 64 nodes on the card and on the CPU in
+    one process: every step's placements, PDB statuses, taints, evictions,
+    objects per kind, reconciles and pods popped equal; every pod bound and
+    none on a tainted node; the fused kernel launched once per fused batch
+    on the card, never on the CPU; PreemptionBasic's cluster with a guarded
+    ReplicaSet evicts no guarded victim."""
+    from kubernetes_tpu_torch.apiserver.store import Store
+    from kubernetes_tpu_torch.backend.tpu_scheduler import TPUScheduler
+    from kubernetes_tpu_torch.controllers import ControllerManager
+    from kubernetes_tpu_torch.perf import control_plane as cp
+    from kubernetes_tpu_torch.utils.clock import FakeClock
+
+    monkeypatch.setenv("KTPU_BATCH_DEADLINE_MS", "0")
+    monkeypatch.setenv("KTPU_FULL_BATCH", "1")
+
+    def side(device):
+        clock = FakeClock()
+        store = Store(now_fn=clock)
+        sched = TPUScheduler(store, device=device, now_fn=clock, batch_size=16,
+                             batch_deadline_ms=0)
+        return store, clock, sched, ControllerManager(store, now_fn=clock,
+                                                      metrics=sched.smetrics)
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        before = fused_step.LAUNCHES
+        store, clock, sched, m = side(device)
+        nodes = cp.add_nodes(cp.port_api(), store, clock, 64, cp.NODE_CAPACITY)
+        steps = cp.run_control_plane(store, m, sched, clock, nodes=nodes, replicas=100,
+                                     stateful=4, job=8, lost=4, scale_to=(150, 60))
+        bstore, bclock, bsched, bm = side(device)
+        steps["budgets"] = cp.run_preemption_budgets(bstore, bm, bsched, bclock, nodes=16,
+                                                     victims=64, preemptors=16)
+        paths = sched.batch_paths + bsched.batch_paths
+        warm = sched.warm_launches + bsched.warm_launches
+        runs[device] = ({n: {k: v for k, v in r.items() if k != "seconds"}
+                         for n, r in steps.items()},
+                        fused_step.LAUNCHES - before - warm, paths)
+    (gpu, launches, paths), (cpu, cpu_launches, _) = runs["cuda"], runs["cpu"]
+    assert gpu == cpu
+    for name, rec in gpu.items():
+        if name != "budgets":
+            tainted = {n for n, v in rec["taints"].items() if v[0]}
+            assert all(rec["placed"].values()) and not [
+                n for n in rec["placed"].values() if n in tainted], name
+    assert gpu["node_loss"]["evicted"] > 0
+    assert gpu["budgets"]["guarded_evicted"] == 0 and gpu["budgets"]["preemptors_bound"] == 16
+    assert cpu_launches == 0 and launches == sum(p == "fused" for p in paths) > 0

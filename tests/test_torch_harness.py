@@ -350,11 +350,13 @@ def test_unknown_backend_raises():
 
 
 def test_c31_batch_postfilter_prefilters_unsampled():
-    """C31 (open): a batch pod that fails runs its PreFilters inside the
-    PostFilter (DefaultPreemption) without the attempt's sampling, so on the
-    ``tpu`` backend the port records no per-plugin PreFilter durations for a
-    sampled failed attempt where the JAX loop does. Everything else of
-    Unschedulable/16Nodes is equal; the JAX-only items are exactly those."""
+    """C31 (settled): a batch pod that fails runs its PreFilters inside the
+    PostFilter (DefaultPreemption), whose state is None; the Framework hands
+    the attempt's sampling to that run (``FilterRunner.attempt_sampled``),
+    so a sampled failed attempt records the per-plugin PreFilter durations
+    the JAX loop records on its sampled CycleState. Unschedulable/16Nodes on
+    ``tpu``: the placements and every DataItem (unit, labels, data keys,
+    Count) are equal, those PreFilter items included."""
     kw = dict(nodes=16, init_pods=5, measured=10)
     jr = run_case("jax", "Unschedulable", "tpu", kw)
     tr = run_case("port", "Unschedulable", "tpu", kw)
@@ -364,7 +366,8 @@ def test_c31_batch_postfilter_prefilters_unsampled():
         return (it.labels.get("Name") == "plugin_execution_duration_seconds"
                 and it.labels.get("extension_point") == "pre_filter")
 
-    extra = [it for it in jr.data_items if c31(it)]
-    assert extra and not [it for it in tr.data_items if c31(it)]
-    assert all(it.data["Count"] == 1.0 for it in extra)
-    assert shape(tr.data_items) == shape([it for it in jr.data_items if not c31(it)])
+    want = [it for it in jr.data_items if c31(it)]
+    got = [it for it in tr.data_items if c31(it)]
+    assert want and all(it.data["Count"] == 1.0 for it in want)
+    assert shape(got) == shape(want)
+    assert shape(tr.data_items) == shape(jr.data_items)

@@ -17,7 +17,19 @@ E2eP50 / E2eP99 items hold the port's exact quantiles of the tenant's e2e
 observations, and the port histogram's bucket estimate of the same
 observations (``estimate``) equals the JAX item, which is that estimate.
 TenantP99Max is the largest of those estimates, as the JAX one is. The JAX
-tests' own bars then hold on the port's items."""
+tests' own bars then hold on the port's items.
+
+The replay cases run in a child interpreter with ``PYTHONHASHSEED`` fixed
+(``in_fixed_hash_order``): both loops take new node names into the snapshot
+in a Python set's order (C14), so the replay's run depends on the process's
+string hashes, in both packages alike. The two packages stay equal under
+any seed, but under some seeds (4, of 0-9) the rebalancer's SLO guard
+suspends it in both, and the JAX acceptance bar (``not Suspended``) fails
+there; a pytest-xdist worker draws a random seed."""
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -174,12 +186,32 @@ def test_borrow_raises_pool_utilization():
 
 @pytest.mark.parametrize("rebalance", [True, False], ids=["rebalance", "norebalance"])
 def test_replay_matches_jax(rebalance):
-    check_replay(rebalance, "oracle")
+    in_fixed_hash_order("check_replay", rebalance, "oracle")
 
 
 @pytest.mark.parametrize("rebalance", [True, False], ids=["rebalance", "norebalance"])
 def test_replay_tpu_matches_jax(rebalance):
-    check_replay(rebalance, "tpu")
+    in_fixed_hash_order("check_replay", rebalance, "tpu")
+
+
+HASH_SEED = "0"
+
+
+def in_fixed_hash_order(name: str, *args) -> None:
+    """This module's ``name(*args)`` under ``PYTHONHASHSEED=HASH_SEED``:
+    here when this interpreter already runs under it, else in a child
+    interpreter (with this one's environment, the test's monkeypatched
+    variables included) that must exit 0."""
+    if os.environ.get("PYTHONHASHSEED") == HASH_SEED:
+        globals()[name](*args)
+        return
+    tests = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path[:0] = [{os.path.dirname(tests)!r}, {tests!r}]; "
+            f"import test_torch_harness_phases as t; t.{name}(*{args!r})")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(tests),
+                          env=dict(os.environ, PYTHONHASHSEED=HASH_SEED),
+                          capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, (proc.stdout[-6000:], proc.stderr[-6000:])
 
 
 def check_replay(rebalance: bool, backend: str) -> None:
@@ -208,6 +240,10 @@ def check_replay(rebalance: bool, backend: str) -> None:
 
 
 def test_replay_rebalancing_packs_better():
+    in_fixed_hash_order("check_packs_better")
+
+
+def check_packs_better() -> None:
     on = by_name(both("SchedulingReplay", "oracle", dict(REPLAY, rebalance=REPLAY_KNOBS))[1],
                  "ReplayInvariants")[0].data
     off = by_name(both("SchedulingReplay", "oracle", dict(REPLAY, rebalance=False))[1],

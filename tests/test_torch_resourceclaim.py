@@ -14,7 +14,7 @@ and the requeue counts must be equal. Then the claims the controller makes
 for SchedulingDRA's pods equal those ``perf/workloads.scheduling_dra(...).
 store()`` holds, which the port's workloads build without the controller."""
 
-from test_torch_client import KITS, both
+from test_torch_client import KITS, Clock, both
 
 
 def _claims(store) -> dict:
@@ -26,12 +26,16 @@ def _claims(store) -> dict:
 
 
 def _controller(k, store):
+    """The controller with its workqueue on a stopped clock: a failed key's
+    backoff then never runs out within a round, however slow the run (on
+    the workqueue's default wall clock a slow round popped it twice)."""
     if k.pkg == "jax":
         from kubernetes_tpu.controllers.resourceclaim import ResourceClaimController
     else:
         from kubernetes_tpu_torch.controllers.resourceclaim import ResourceClaimController
     factory = k.client.SharedInformerFactory(store)
     ctrl = ResourceClaimController(store, factory)
+    ctrl.queue.now_fn = Clock()
     factory.wait_for_cache_sync()
     return factory, ctrl
 
