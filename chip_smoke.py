@@ -22,7 +22,7 @@
    processes at once on the same card (``chip_smoke.py --group NAME``,
    started by this script and stopped by it on any failure or past
    GROUPS_DEADLINE_S), each phase in the group of the phases whose results
-   it reads: core (3-5, 11, 20, 22), batch (6, 8-10, 12-13, the shard phase
+   it reads: core (3-5, 11, 20, 22, 24), batch (6, 8-10, 12-13, the shard phase
    of 21) and loop (the loop_basic part of 11, then 14-19, then 7, then
    the shard_scale phase of 21, then 23). Each group's output is
    printed in that order once all have ended, a failed group's last.
@@ -461,7 +461,30 @@
    on the card and never on the CPU. Prints each step's pods/s, the
    controllers' reconciles and seconds, the scheduler's seconds and the
    launches beside the card's name and power limit.
-24. Each workload run prints pods/s, ms per batch, host ms per stage, and
+24. Loop_apiserver phase (core group): the scheduler loop behind the API
+   front (``kubernetes_tpu_torch/perf/apiserver.py``), on the card and then
+   with ``device="cpu"`` in this process, SchedulingBasic/5000Nodes (1000
+   init + 1000 measured pods of 900m / 2Gi). Run A, "[apiserver, durable]":
+   a ``Store`` with a write-ahead log in a temporary directory, served on
+   127.0.0.1 with token authentication (an admin and
+   ``system:kube-scheduler``), RBAC and the default flow control; the 5000
+   nodes POSTed as core/v1 manifests, the pods alternately as manifests and
+   protobuf bodies; a REST informer on Pods as the scheduler; the loop
+   (``batch_deadline_ms=0``, percentage 100) settled after the init and the
+   measured pods. Run B, "[apiserver, crash]": the init pods bound, the log
+   compacted, the measured pods POSTed and left unscheduled as the server,
+   the loop and the store are dropped; ``restore`` from the log, a new
+   server and a fresh loop on the card finish the work. Both must bind
+   every pod exactly once (Run B: none of the init pods' binds lost or
+   made again), the informer must see every bind, every bind batch must
+   write one WAL line, Run A's ``restore`` must give every pod the live
+   store's node, the placements must equal the CPU run's, and the fused
+   kernel must launch once per fused (mode-off) batch on the card and never
+   on the CPU. Prints the creates per second by codec, the informer's lag
+   from bind to event (p50 / p99), the WAL's lines and bytes, ms per
+   ``append_batch``, the restore's seconds, the measured window's pods/s
+   and the launches beside the card's name and power limit.
+25. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -4059,6 +4082,67 @@ def loop_controllers_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- loop_apiserver phase
+
+APISERVER_RUNS = (("apiserver, durable", False), ("apiserver, crash", True))
+
+
+def _apiserver_report(name: str, card: str, gpu: dict, cpu: dict, crash: bool) -> None:
+    lag, append = gpu["informer_lag_ms"], sorted(gpu["append_ms"])
+    wal = "the restored store's WAL" if crash else "WAL"
+    rates = ", ".join(f"{c} {gpu['posts'][c] / gpu['post_s'][c]:.1f}/s "
+                      f"({gpu['post_s'][c] / gpu['posts'][c] * 1e3:.3f} ms each)"
+                      for c in gpu["posts"] if gpu["posts"][c])
+    print(f"{name} on the card ({card}): node manifests "
+          f"{N_NODES / gpu['nodes_post_s']:.1f} creates/s; pods {rates}; informer lag bind to "
+          f"event p50 {lag['p50']:.3f} / p99 {lag['p99']:.3f} / max {lag['max']:.3f} ms over "
+          f"{gpu['informer_events']} binds; {wal} {gpu['wal']['lines']} lines, "
+          f"{gpu['wal']['records']} records, {gpu['wal']['bytes']} bytes, "
+          f"{len(gpu['batch_lines'])} bind batches of one line each, append_batch median "
+          f"{append[len(append) // 2]:.3f} / max {append[-1]:.3f} ms; restore "
+          f"{gpu['restore_s']:.3f} s; measured window {gpu['measured_s']:.3f} s = "
+          f"{gpu['pods_per_s']:.1f} pods/s (creates {gpu['create_s']:.3f} s of it); "
+          f"{gpu['launches']} fused launches for {gpu['batches']} batches; the CPU run "
+          f"{cpu['measured_s']:.3f} s, {cpu['pods_per_s']:.1f} pods/s; == the CPU run")
+
+
+def loop_apiserver_phase() -> dict:
+    """SchedulingBasic/5000Nodes behind the API front: Run A (durable) and
+    Run B (crash and restore), each on the card, then on the CPU."""
+    from kubernetes_tpu_torch.perf.apiserver import check_apiserver_run, run_loop_apiserver
+
+    parts, part = _parts()
+    card = _card()
+    w = workloads.scheduling_basic(N_NODES, N_PODS, N_PODS)
+    out = {}
+    env = dict(KTPU_BATCH_DEADLINE_MS="0", KTPU_SPEC=None, KTPU_PIPELINE_DEPTH=None,
+               KTPU_COMMIT_WORKER=None, KTPU_FULL_BATCH=None, KTPU_WAL_COMPACT_LINES=None)
+    for label, crash in APISERVER_RUNS:
+        name = f"{w.name} [{label}]"
+        with _env(**env):
+            gpu = run_loop_apiserver(w, "cuda", crash=crash)
+            part(f"{label} card")
+            cpu = run_loop_apiserver(w, "cpu", crash=crash)
+            part(f"{label} cpu")
+        faults = (check_apiserver_run(f"{name} on the card", w, gpu, crash)
+                  + check_apiserver_run(f"{name} on the CPU", w, cpu, crash))
+        if gpu["placed"] != cpu["placed"]:
+            diff = sum(gpu["placed"][k] != cpu["placed"].get(k) for k in gpu["placed"])
+            faults.append(f"{name}: {diff} placements differ from the CPU run")
+        fused = sum(p == "fused" for p in gpu["paths"])
+        if gpu["launches"] != fused or not fused or cpu["launches"]:
+            faults.append(f"{name}: {gpu['launches']} fused launches for {fused} fused of "
+                          f"{gpu['batches']} batches; CPU {cpu['launches']}")
+        if faults:
+            raise AssertionError("; ".join(faults))
+        _apiserver_report(name, card, gpu, cpu, crash)
+        out[name] = {"launches": gpu["launches"]}
+    print("loop_apiserver phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                                      for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return out
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -4079,11 +4163,13 @@ def core_group(timed, kern: dict) -> dict:
     loop = timed("loop", loop_phase, topo, spec)
     fabric = timed("loop_fabric", loop_fabric_phase)
     perf = timed("harness", harness_phase)
+    apiserver = timed("loop_apiserver", loop_apiserver_phase)
     return {"main_launches": sl["launches"],
             "launches": {sl["workload"].name: sl["launches"],
                          **{f"loop:{k}": v["launches"] for k, v in loop.items()},
                          **{f"fabric:{k}": v["launches"] for k, v in fabric.items()},
-                         **{k: v["launches"] for k, v in perf.items()}}}
+                         **{k: v["launches"] for k, v in perf.items()},
+                         **{f"loop:{k}": v["launches"] for k, v in apiserver.items()}}}
 
 
 def batch_group(timed, kern: dict) -> dict:

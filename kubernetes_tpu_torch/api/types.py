@@ -914,6 +914,91 @@ class RuntimeClass:
 
 
 # ---------------------------------------------------------------------------
+# the API front's kinds (``kubernetes_tpu/api/types.py:516-555``, ``:903-931``,
+# ``:981``): CRDs and their objects, aggregated APIServices, Ingress and its
+# class (DefaultIngressClass admission), and the binding subresource's body
+
+
+@dataclass
+class CustomResourceDefinition:
+    """apiextensions.k8s.io/v1 CustomResourceDefinition, reduced to the
+    registration surface: group, names, served version and scope. Custom
+    objects carry free-form spec dicts (no schema)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)  # name = plural.group
+    group: str = ""
+    version: str = "v1"
+    kind: str = ""
+    plural: str = ""
+    namespaced: bool = True
+
+
+@dataclass
+class CustomResource:
+    """An object of a CRD-served kind: typed meta, free-form spec and status
+    (the unstructured.Unstructured analog)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    api_version: str = ""
+    kind: str = ""
+    spec: Dict[str, object] = field(default_factory=dict)
+    status: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class APIService:
+    """apiregistration.k8s.io/v1 APIService, reduced to the aggregation
+    surface: which group/version is served and where to proxy it; no
+    endpoint means served by this apiserver."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)  # name = version.group
+    group: str = ""
+    version: str = "v1"
+    service_endpoint: str = ""  # "host:port" or a full URL; "" = local
+    insecure_skip_tls_verify: bool = True
+    group_priority_minimum: int = 1000
+    version_priority: int = 15
+
+
+@dataclass
+class IngressClass:
+    """networking.k8s.io/v1 IngressClass; the is-default-class annotation
+    marks the cluster default (DefaultIngressClass admission)."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    controller: str = ""
+
+
+ANNOTATION_DEFAULT_INGRESS_CLASS = "ingressclass.kubernetes.io/is-default-class"
+
+
+@dataclass
+class IngressRule:
+    host: str = ""
+    service_name: str = ""  # the backend service (one backend per rule)
+    service_port: int = 0
+
+
+@dataclass
+class Ingress:
+    """networking.k8s.io/v1 Ingress, reduced to class selection and
+    host-to-service rules."""
+
+    meta: ObjectMeta = field(default_factory=ObjectMeta)
+    ingress_class_name: str = ""
+    rules: Tuple[IngressRule, ...] = ()
+
+
+@dataclass
+class Binding:
+    """The pods/{name}/binding subresource's body
+    (pkg/registry/core/pod/storage/storage.go:146 BindingREST)."""
+
+    pod_key: str = ""
+    node_name: str = ""
+
+
+# ---------------------------------------------------------------------------
 # the kinds the client runtime, the resourceclaim controller and the perf
 # harness write (``kubernetes_tpu/api/types.py:725``, ``:854``, ``:871``,
 # ``:1029``)
@@ -1034,6 +1119,21 @@ class PolicyRule:
     resources: Tuple[str, ...] = ("*",)       # kind names, e.g. "Pod"
     resource_names: Tuple[str, ...] = ()      # () = any
     subresources: Tuple[str, ...] = ("*",)    # e.g. "binding", "finalizers"
+
+    def matches(self, verb: str, kind: str, name: str, subresource: str) -> bool:
+        if "*" not in self.verbs and verb not in self.verbs:
+            return False
+        if "*" not in self.resources and kind not in self.resources:
+            return False
+        if self.resource_names and name not in self.resource_names \
+                and name.rsplit("/", 1)[-1] not in self.resource_names:
+            # resourceNames are bare object names; the HTTP gate passes a
+            # namespaced object's store key
+            return False
+        if subresource and "*" not in self.subresources \
+                and subresource not in self.subresources:
+            return False
+        return True
 
 
 @dataclass

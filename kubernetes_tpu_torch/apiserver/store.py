@@ -36,8 +36,7 @@ kind's map. One lock covers each write with its journal entry and the
 reads of the watch surface, because a ``client/reflector.py`` thread
 reads them; the handlers run outside it. Leases (``get_lease``,
 ``create_lease``, ``update_lease(expect_rv)``) are the leader-election
-lock, Secrets, Events and ResourceClaimTemplates generic kinds. No WAL,
-impersonation or CRD registry.
+lock, Secrets, Events and ResourceClaimTemplates generic kinds.
 
 The controller manager's kinds (``:347-400``): Deployment, DaemonSet, Job,
 CronJob, Endpoints, EndpointSlice, VolumeAttachment, ConfigMap,
@@ -71,10 +70,27 @@ LimitRange, ServiceAccount and RuntimeClass (the last four through
 kinds, the storage kinds and the claim writes fire their handlers too, in
 write order, where the JAX store sends its events (the scheduler loop's
 PodGroup, SchedulingQuota, claim and volume moves).
+
+The API front's seams (``:192-224``, ``:252-300``, ``:343-400``,
+``:505-534``, ``:580-660``), for ``apiserver/http.py`` and
+``apiserver/wal.py``: ``_journal_event`` also hands every journaled write to
+an attached write-ahead log (``_wal``; ``bind_batch`` parks a batch's
+records and appends them as one group-commit line); ``_guarded_update``
+admits an update outside the lock and commits it only while the stored
+object is still the one admitted against (else it admits again); the
+request's identity per thread (``request_user``, ``request_groups``,
+``set_request_user``, ``as_user``; in-process writes are
+``system:admin``), which NodeRestriction and the owner-reference and
+certificate plugins read with ``authorizer`` (set by ``serve_api``);
+``KINDS`` and ``_kind_maps`` in the JAX order (a WAL snapshot's order); the
+CRD and APIService registry (``create_crd``, which serves a new kind
+through the generic verbs, ``crd_for_plural``, ``api_service_for``,
+``is_cluster_scoped``) and the admission webhooks' and Ingress kinds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -168,6 +184,8 @@ JOURNAL_CAPACITY = 4096
 
 
 class Store:
+    CLUSTER_SCOPED_KINDS = CLUSTER_SCOPED_KINDS
+
     def __init__(self, now_fn=time.time):
         self.now_fn = now_fn
         self._rv = 0
@@ -216,6 +234,21 @@ class Store:
         self.hpas: Dict[str, object] = {}
         self.cluster_roles: Dict[str, object] = {}
         self.cluster_role_bindings: Dict[str, object] = {}
+        # the API front's kinds: the admission webhooks' configurations,
+        # Ingress and IngressClass, the CRDs with one map per served custom
+        # kind (and its scope), the aggregated APIServices
+        self.mutating_webhooks: Dict[str, object] = {}
+        self.validating_webhooks: Dict[str, object] = {}
+        self.ingresses: Dict[str, object] = {}
+        self.ingress_classes: Dict[str, object] = {}
+        self.crds: Dict[str, object] = {}
+        self.api_services: Dict[str, object] = {}
+        self._custom_kinds: Dict[str, Dict[str, object]] = {}
+        self._custom_scope: Dict[str, bool] = {}  # kind -> namespaced
+        # the request's identity per thread (the HTTP front pins it) and the
+        # authorizer admission asks (None: authorization off)
+        self._request_user = threading.local()
+        self.authorizer = None
         # the metrics API's stand-in: pod key -> milli-cpu usage (the HPA
         # controller reads it)
         self.pod_metrics: Dict[str, int] = {}
@@ -230,6 +263,10 @@ class Store:
         # None / False switch them off
         self.admission: Optional[AdmissionChain] = AdmissionChain()
         self.validation_enabled = True
+        # the write-ahead log (``wal.attach_wal``; None: memory only) and the
+        # group-commit buffer a batched writer holds under the lock
+        self._wal = None
+        self._wal_group: Optional[list] = None
 
     def _bump(self, obj) -> None:
         self._rv += 1
@@ -249,6 +286,12 @@ class Store:
         self._journal.append((seq, kind, event, old, new))
         if len(self._journal) > self._journal_capacity:
             del self._journal[: len(self._journal) - self._journal_capacity]
+        if self._wal is not None:
+            key = self._key_of(kind, new if new is not None else old)
+            if self._wal_group is not None:
+                self._wal_group.append((seq, kind, event, key, new))
+            else:
+                self._wal.append(seq, kind, event, key, new)
         for w in self._watchers.get(kind, []):
             w._push(WatchEvent(seq=seq, type=event, old=old,
                                object=new if new is not None else old))
@@ -303,6 +346,48 @@ class Store:
         if self.validation_enabled:
             validation.validate_update(kind, old, obj)
 
+    def _guarded_update(self, kind: str, obj, lookup, commit):
+        """An update admitted outside the lock (a webhook may call out) and
+        committed under it only while ``lookup()`` still gives the object it
+        was admitted against; else admitted again against the new one, up to
+        16 times (GuaranteedUpdate's retry, etcd3/store.go:328). ``commit(old)``
+        writes; returns the replaced object."""
+        for _ in range(16):
+            with self._lock:
+                old = lookup()
+            self._admit_update(kind, old, obj)
+            with self._lock:
+                if lookup() is old:
+                    commit(old)
+                    return old
+        raise Conflict(f"{kind} {self._key_of(kind, obj)}: too many concurrent updates")
+
+    # ------------------------------------------------------------- request user
+    # (the HTTP front pins the authenticated user for the request; in-process
+    # writers are system:admin)
+
+    def request_user(self) -> str:
+        return getattr(self._request_user, "name", "") or "system:admin"
+
+    def request_groups(self) -> tuple:
+        return getattr(self._request_user, "groups", ())
+
+    def set_request_user(self, name: str, groups: tuple = ()) -> None:
+        self._request_user.name = name
+        self._request_user.groups = tuple(groups)
+
+    @contextlib.contextmanager
+    def as_user(self, name: str, groups: tuple = ()):
+        """Writes on this thread as ``name`` with ``groups``; the previous
+        identity, groups included, comes back on exit."""
+        prev = (getattr(self._request_user, "name", ""),
+                getattr(self._request_user, "groups", ()))
+        self.set_request_user(name, groups)
+        try:
+            yield
+        finally:
+            self._request_user.name, self._request_user.groups = prev
+
     # ------------------------------------------------------------- nodes
 
     def create_node(self, node: Node) -> None:
@@ -316,14 +401,14 @@ class Store:
         self._notify("Node", ADDED, None, node)
 
     def update_node(self, node: Node) -> None:
-        old = self.nodes.get(node.meta.name)
-        self._admit_update("Node", old, node)
-        if old is None:
-            raise NotFound(node.meta.name)
-        with self._lock:
+        def commit(old):
+            if old is None:
+                raise NotFound(node.meta.name)
             self._bump(node)
             self.nodes[node.meta.name] = node
             self._journal_event("Node", MODIFIED, old, node)
+
+        old = self._guarded_update("Node", node, lambda: self.nodes.get(node.meta.name), commit)
         self._notify("Node", MODIFIED, old, node)
 
     def delete_node(self, name: str) -> None:
@@ -356,14 +441,14 @@ class Store:
         self._notify("Pod", ADDED, None, pod)
 
     def update_pod(self, pod: Pod) -> None:
-        old = self.pods.get(pod.key())
-        self._admit_update("Pod", old, pod)
-        if old is None:
-            raise NotFound(pod.key())
-        with self._lock:
+        def commit(old):
+            if old is None:
+                raise NotFound(pod.key())
             self._bump(pod)
             self.pods[pod.key()] = pod
             self._journal_event("Pod", MODIFIED, old, pod)
+
+        old = self._guarded_update("Pod", pod, lambda: self.pods.get(pod.key()), commit)
         self._notify("Pod", MODIFIED, old, pod)
 
     def delete_pod(self, key: str) -> None:
@@ -402,15 +487,25 @@ class Store:
     def bind_batch(self, bindings: Sequence[Tuple[str, str]]) -> List[Optional[Exception]]:
         """Bind (pod key, node name) pairs in order; each fails alone. Returns
         None or the exception per binding; the MODIFIED events follow all
-        the writes, in order."""
+        the writes, in order. With a WAL the batch's records land as one
+        group-commit line, under the lock (``:505-534``)."""
         outcomes: List[Optional[Exception]] = [None] * len(bindings)
         notifies = []
         with self._lock:
-            for i, (key, node_name) in enumerate(bindings):
-                try:
-                    notifies.append(self._bind_one(key, node_name))
-                except (NotFound, Conflict) as err:
-                    outcomes[i] = err
+            group_owner = self._wal_group is None
+            if group_owner:
+                self._wal_group = []
+            try:
+                for i, (key, node_name) in enumerate(bindings):
+                    try:
+                        notifies.append(self._bind_one(key, node_name))
+                    except (NotFound, Conflict) as err:
+                        outcomes[i] = err
+            finally:
+                if group_owner:
+                    group, self._wal_group = self._wal_group, None
+                    if self._wal is not None and group:
+                        self._wal.append_batch(group)
         for old, new in notifies:
             self._notify("Pod", MODIFIED, old, new)
         return outcomes
@@ -448,40 +543,108 @@ class Store:
         before the first)."""
         return self._kind_rv.get(kind, 0)
 
+    @property
+    def KINDS(self) -> Tuple[str, ...]:
+        """Every kind the store holds, in the JAX order (a WAL snapshot's)."""
+        return tuple(self._kind_maps())
+
+    def _kind_maps(self) -> Dict[str, Dict[str, object]]:
+        return {
+            "Pod": self.pods, "Node": self.nodes, "Namespace": self.namespaces,
+            "PodDisruptionBudget": self.pdbs, "PriorityClass": self.priority_classes,
+            "PersistentVolume": self.pvs, "PersistentVolumeClaim": self.pvcs,
+            "StorageClass": self.storage_classes, "CSINode": self.csinodes,
+            "Service": self.services, "ReplicationController": self.replication_controllers,
+            "ReplicaSet": self.replica_sets, "StatefulSet": self.stateful_sets,
+            "Lease": self.leases, "Deployment": self.deployments,
+            "DaemonSet": self.daemon_sets, "Job": self.jobs, "Endpoints": self.endpoints,
+            "ResourceQuota": self.resource_quotas, "LimitRange": self.limit_ranges,
+            "CronJob": self.cron_jobs, "EndpointSlice": self.endpoint_slices,
+            "VolumeAttachment": self.volume_attachments,
+            "ServiceAccount": self.service_accounts,
+            "MutatingWebhookConfiguration": self.mutating_webhooks,
+            "ValidatingWebhookConfiguration": self.validating_webhooks,
+            "ConfigMap": self.config_maps, "Secret": self.secrets,
+            "CertificateSigningRequest": self.csrs, "RuntimeClass": self.runtime_classes,
+            "Ingress": self.ingresses, "IngressClass": self.ingress_classes,
+            "Event": self.events, "HorizontalPodAutoscaler": self.hpas,
+            "ClusterRole": self.cluster_roles,
+            "ClusterRoleBinding": self.cluster_role_bindings,
+            "ResourceClass": self.resource_classes, "ResourceClaim": self.resource_claims,
+            "ResourceClaimTemplate": self.resource_claim_templates,
+            "PodSchedulingContext": self.pod_scheduling_contexts,
+            "PodGroup": self.pod_groups, "SchedulingQuota": self.scheduling_quotas,
+            "CustomResourceDefinition": self.crds, "APIService": self.api_services,
+            **self._custom_kinds,
+        }
+
     def _kind_map(self, kind: str) -> Dict[str, object]:
-        maps = {"ResourceClass": self.resource_classes, "ResourceClaim": self.resource_claims,
-                "PodGroup": self.pod_groups, "SchedulingQuota": self.scheduling_quotas,
-                "PodSchedulingContext": self.pod_scheduling_contexts,
-                "Service": self.services, "ReplicationController": self.replication_controllers,
-                "ReplicaSet": self.replica_sets, "StatefulSet": self.stateful_sets,
-                "ResourceQuota": self.resource_quotas, "LimitRange": self.limit_ranges,
-                "ServiceAccount": self.service_accounts, "RuntimeClass": self.runtime_classes,
-                "PodDisruptionBudget": self.pdbs, "Pod": self.pods, "Node": self.nodes,
-                "Namespace": self.namespaces, "PersistentVolume": self.pvs,
-                "PersistentVolumeClaim": self.pvcs, "StorageClass": self.storage_classes,
-                "CSINode": self.csinodes, "PriorityClass": self.priority_classes,
-                "Lease": self.leases, "Secret": self.secrets, "Event": self.events,
-                "ResourceClaimTemplate": self.resource_claim_templates,
-                "Deployment": self.deployments, "DaemonSet": self.daemon_sets,
-                "Job": self.jobs, "CronJob": self.cron_jobs, "Endpoints": self.endpoints,
-                "EndpointSlice": self.endpoint_slices,
-                "VolumeAttachment": self.volume_attachments, "ConfigMap": self.config_maps,
-                "CertificateSigningRequest": self.csrs, "HorizontalPodAutoscaler": self.hpas,
-                "ClusterRole": self.cluster_roles,
-                "ClusterRoleBinding": self.cluster_role_bindings}
-        if kind not in maps:
-            raise NotFound(f"unknown kind {kind!r}")
-        return maps[kind]
+        try:
+            return self._kind_maps()[kind]
+        except KeyError:
+            raise NotFound(f"unknown kind {kind!r}") from None
+
+    def is_cluster_scoped(self, kind: str) -> bool:
+        """The one scope rule (the keys and the HTTP front's paths): the
+        built-in cluster-scoped kinds, CRDs, APIServices and the custom
+        kinds registered cluster-scoped."""
+        if kind in CLUSTER_SCOPED_KINDS or kind in ("CustomResourceDefinition", "APIService"):
+            return True
+        return kind in self._custom_scope and not self._custom_scope[kind]
+
+    def _key_of(self, kind: str, obj) -> str:
+        return obj.meta.name if self.is_cluster_scoped(kind) else obj.meta.key()
+
+    # ------------------------------------------------------------- dynamic kinds
+
+    def _register_crd_kind(self, crd) -> None:
+        """The kind map and scope of a CRD's kind (also WAL restore's step,
+        before any object of the kind)."""
+        self._custom_kinds.setdefault(crd.kind, {})
+        self._custom_scope[crd.kind] = bool(crd.namespaced)
+
+    def create_crd(self, crd) -> None:
+        """Register a custom kind (apiextensions' registration step, no
+        schema): the generic verbs, watches and informers serve it after
+        this as a built-in. Named ``plural.group`` when unnamed."""
+        with self._lock:
+            crd.meta.name = crd.meta.name or f"{crd.plural}.{crd.group}"
+            if crd.kind in self._kind_maps():
+                raise Conflict(f"kind {crd.kind!r} already served")
+            self._bump(crd)
+            self._kind_rv["CustomResourceDefinition"] = self._rv
+            self.crds[crd.meta.name] = crd
+            self._register_crd_kind(crd)
+            self._journal_event("CustomResourceDefinition", ADDED, None, crd)
+        self._notify("CustomResourceDefinition", ADDED, None, crd)
+
+    def api_service_for(self, group: str, version: str):
+        """The APIService with an endpoint that claims this group/version
+        (kube-aggregator handler.go), or None."""
+        with self._lock:
+            for svc in self.api_services.values():
+                if svc.group == group and svc.version == version and svc.service_endpoint:
+                    return svc
+        return None
+
+    def crd_for_plural(self, group: str, plural: str):
+        with self._lock:
+            for crd in self.crds.values():
+                if crd.group == group and crd.plural == plural:
+                    return crd
+        return None
 
     # ------------------------------------------------------------- generic kinds
 
     def create_object(self, kind: str, obj) -> None:
+        if kind == "CustomResourceDefinition":
+            return self.create_crd(obj)  # the kind's map and scope too
         if kind == "Pod":
             return self.create_pod(obj)  # the quota charge under the lock
         self._admit(kind, obj)
         m = self._kind_map(kind)
-        key = obj.meta.name if kind in CLUSTER_SCOPED_KINDS else obj.meta.key()
         with self._lock:
+            key = self._key_of(kind, obj)
             if key in m:
                 raise Conflict(f"{kind} {key} exists")
             self._bump(obj)
@@ -503,12 +666,13 @@ class Store:
         keeps the client's), and an update that leaves a terminating object
         without finalizers completes its delete."""
         m = self._kind_map(kind)
-        key = obj.meta.name if kind in CLUSTER_SCOPED_KINDS else obj.meta.key()
-        old = m.get(key)
-        self._admit_update(kind, old, obj)
-        if old is None:
-            raise NotFound(f"{kind} {key}")
-        with self._lock:
+        key = self._key_of(kind, obj)
+        deleted = False
+
+        def commit(old):
+            nonlocal deleted
+            if old is None:
+                raise NotFound(f"{kind} {key}")
             if kind != "Namespace":
                 obj.meta.deletion_timestamp = old.meta.deletion_timestamp
             deleted = bool(obj.meta.deletion_timestamp and not obj.meta.finalizers)
@@ -520,6 +684,8 @@ class Store:
                 self._kind_rv[kind] = self._rv
                 m[key] = obj
                 self._journal_event(kind, MODIFIED, old, obj)
+
+        old = self._guarded_update(kind, obj, lambda: m.get(key), commit)
         if deleted:
             self._notify(kind, DELETED, old, None)
         else:

@@ -44,6 +44,7 @@ import os
 import threading
 from typing import Dict, Optional
 
+from ..native import proto_sha256, vendored_sha256
 from .errors import (ConflictError, PermanentDeviceError, RetryPolicy, StaleEpochError,
                      TransientDeviceError, raise_injected_fault)
 
@@ -59,25 +60,11 @@ SERVICE = "ktpu.v1.Device"
 
 
 def _proto_sha256() -> str:
-    import hashlib
-
-    with open(_PROTO, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
+    return proto_sha256(_PROTO)
 
 
 def _vendored_hash() -> Optional[str]:
-    """The ``PROTO_SHA256`` literal read from the vendored module's text,
-    before it is imported: a stale module is never imported, so its
-    descriptor never reaches the default pool."""
-    import re
-
-    try:
-        with open(_VENDORED, encoding="utf-8") as f:
-            head = f.read(4096)
-    except OSError:
-        return None
-    m = re.search(r'^PROTO_SHA256 = "([0-9a-f]{64})"', head, re.M)
-    return m.group(1) if m else None
+    return vendored_sha256(_VENDORED) or None
 
 
 def pb2():

@@ -4,8 +4,8 @@ workqueue, leader election, over the port's ``apiserver/store.py:Store``.
 
 A Reflector LISTs then WATCHes one kind, feeds a DeltaFIFO, and a
 SharedIndexInformer pops deltas into an indexed local cache while fanning
-out to event handlers. ``rest.py`` (the HTTP client) is not ported: the
-port has no HTTP front.
+out to event handlers. ``rest.APIClient`` is the store-shaped read path
+over the HTTP front (``apiserver/http.py``): the same informers run over it.
 """
 
 from .delta_fifo import Delta, DeltaFIFO

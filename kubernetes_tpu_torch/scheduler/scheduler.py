@@ -552,8 +552,9 @@ class Scheduler:
 
     def _periodic_housekeeping(self, now: Optional[float] = None) -> None:
         """The reference's tickers, driven from the loop: the 1 s sweep
-        (Permit timeouts, assume expiry, cache.go:731, and the quota
-        reclaim pass) and the unschedulable-timeout flush (30 s,
+        (Permit timeouts, assume expiry, cache.go:731, the WAL's
+        compaction and the quota reclaim pass) and the unschedulable-timeout
+        flush (30 s,
         scheduling_queue.go:463)."""
         if now is None:
             now = self.now_fn()
@@ -564,6 +565,11 @@ class Scheduler:
                 current = self.store.get_pod(pod.key())
                 if current is not None and not current.spec.node_name:
                     self.queue.add(current)
+            # the WAL's auto-compaction (KTPU_WAL_COMPACT_LINES; a no-op
+            # without a WAL or below the threshold), as JAX's :646-651
+            wal = getattr(self.store, "_wal", None)
+            if wal is not None:
+                wal.maybe_compact(self.store)
             quota = self._quota_plugin()
             if quota is not None:
                 quota.run_reclaim(now)

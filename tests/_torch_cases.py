@@ -1157,12 +1157,17 @@ def pod_group_status(store) -> dict:
 
 def to_jax(obj):
     """A port API object rebuilt as the JAX package's (dataclasses by class
-    name from ``kubernetes_tpu.api.types``, field by field; memoized caches
-    are not copied)."""
+    name from ``kubernetes_tpu.api.types``, then ``apiserver.auth`` and
+    ``apiserver.admission``, where the JAX package keeps the RBAC objects
+    and the webhook configurations; field by field; memoized caches are not
+    copied)."""
     from kubernetes_tpu.api import types as jtypes
+    from kubernetes_tpu.apiserver import admission as jadmission
+    from kubernetes_tpu.apiserver import auth as jauth
 
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        cls = getattr(jtypes, type(obj).__name__)
+        name = type(obj).__name__
+        cls = next(getattr(m, name) for m in (jtypes, jauth, jadmission) if hasattr(m, name))
         return cls(**{f.name: to_jax(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
     if isinstance(obj, list):
         return [to_jax(v) for v in obj]

@@ -458,14 +458,352 @@ def test_tolerations_outgrow_the_axis():
 
 
 def test_default_chain_is_the_jax_chain_without_the_left_out_plugins():
-    """The port's chain is the JAX chain in its order, less the plugins
-    that need the HTTP front (ROADMAP A11)."""
+    """The port's chain is the JAX chain in its order, whole: the plugins
+    left out until the HTTP front came (ROADMAP A21) are in it, and no
+    plugin is left out any more. Likewise the roster with the default-off
+    plugins."""
+    from kubernetes_tpu.apiserver.admission import all_ordered_plugins as jax_roster
     from kubernetes_tpu.apiserver.admission import default_chain as jax_chain
-    from kubernetes_tpu_torch.apiserver.admission import default_chain
+    from kubernetes_tpu_torch.apiserver.admission import all_ordered_plugins, default_chain
 
-    left_out = {"NodeRestriction", "OwnerReferencesPermissionEnforcement",
-                "MutatingAdmissionWebhook", "ValidatingAdmissionWebhook", "CertificateApproval",
-                "CertificateSigning", "CertificateSubjectRestriction", "DefaultIngressClass",
-                "PersistentVolumeClaimResize"}
-    assert [p.name for p in default_chain()] == [
-        p.name for p in jax_chain() if p.name not in left_out]
+    assert [p.name for p in default_chain()] == [p.name for p in jax_chain()]
+    assert [type(p).__name__ for p in default_chain()] == [
+        type(p).__name__ for p in jax_chain()]
+    assert [p.name for p in all_ordered_plugins()] == [p.name for p in jax_roster()]
+
+
+# ----------------------------------------------------------------- the API front's plugins
+# (ROADMAP A21): each case runs the same writes against a JAX ClusterStore and
+# a port Store (``_torch_front.FrontPair`` without its servers: one constant
+# clock), each store's chain its own package's, and requires equal outcomes
+# (exception, plugin, message) and equal stored objects.
+
+
+def _stores(monkeypatch, plugins=None, authorizer: bool = False):
+    """A store pair; ``plugins`` (class names) replaces both chains with
+    those plugins of each package; ``authorizer`` sets each package's RBAC
+    authorizer on its store."""
+    from _torch_front import FrontPair, packages
+
+    pair = FrontPair(monkeypatch, serve=False)
+    if plugins is not None:
+        import kubernetes_tpu.apiserver.admission as jadm
+        import kubernetes_tpu_torch.apiserver.admission as tadm
+
+        pair.jstore.admission = jadm.AdmissionChain([getattr(jadm, n)() for n in plugins])
+        pair.tstore.admission = tadm.AdmissionChain([getattr(tadm, n)() for n in plugins])
+    if authorizer:
+        jm, tm = packages()
+        pair.jstore.authorizer = jm["auth"].RBACAuthorizer(pair.jstore)
+        pair.tstore.authorizer = tm["auth"].RBACAuthorizer(pair.tstore)
+    return pair
+
+
+def _as(pair, user: str, groups=()):
+    for store in (pair.jstore, pair.tstore):
+        store.set_request_user(user, groups)
+
+
+def _same_objects(pair, kind: str) -> dict:
+    from kubernetes_tpu.api.codec import to_wire as jwire
+    from kubernetes_tpu_torch.api.codec import to_wire
+
+    got = {k: to_wire(o) for k, o in pair.tstore._kind_map(kind).items()}
+    assert got == {k: jwire(o) for k, o in pair.jstore._kind_map(kind).items()}
+    return got
+
+
+def _grant(pair, user: str, verbs, kinds, subresources=("*",)) -> None:
+    from kubernetes_tpu_torch.api.types import (ClusterRole, ClusterRoleBinding, ObjectMeta,
+                                                PolicyRule)
+
+    name = f"{user}-{'-'.join(verbs)}"
+    pair.both("create_object", ClusterRole(meta=ObjectMeta(name=name, namespace=""), rules=(
+        PolicyRule(verbs=tuple(verbs), resources=tuple(kinds),
+                   subresources=tuple(subresources)),)), "ClusterRole")
+    pair.both("create_object", ClusterRoleBinding(meta=ObjectMeta(name=name, namespace=""),
+                                                  role=name, subjects=(f"user:{user}",)),
+              "ClusterRoleBinding")
+
+
+def test_node_restriction(monkeypatch):
+    from kubernetes_tpu_torch.api.types import Lease, ObjectMeta
+
+    pair = _stores(monkeypatch)
+    for name in ("n1", "n2"):
+        pair.both("create_node", torch_api().make_node(name).capacity({"cpu": "4"}).obj())
+    _as(pair, "system:node:n1", ("system:nodes",))
+    outcomes = [
+        pair.both("update_node", torch_api().make_node("n1").capacity({"cpu": "8"}).obj()),
+        pair.both("update_node", torch_api().make_node("n2").capacity({"cpu": "8"}).obj()),
+        pair.both("create_pod", torch_api().make_pod("mirror").req({"cpu": "1"}).node("n1").obj()),
+        pair.both("create_pod", torch_api().make_pod("other").req({"cpu": "1"}).node("n2").obj()),
+        pair.both("create_lease", Lease(meta=ObjectMeta(name="n1", namespace="kube-node-lease"))),
+        pair.both("create_lease", Lease(meta=ObjectMeta(name="n2", namespace="kube-node-lease"))),
+    ]
+    assert [o is None for o in outcomes] == [True, False, True, False, True, False]
+    assert all("NodeRestriction" in o[1] for o in outcomes if o is not None)
+    _as(pair, "system:admin")
+    assert pair.both("update_node", torch_api().make_node("n2").capacity({"cpu": "2"}).obj()) \
+        is None
+    _same_objects(pair, "Node")
+    _same_objects(pair, "Pod")
+
+
+def test_persistent_volume_claim_resize(monkeypatch):
+    from kubernetes_tpu_torch.api.types import ObjectMeta, PersistentVolumeClaim, StorageClass
+
+    pair = _stores(monkeypatch)
+    pair.both("create_storage_class", StorageClass(meta=ObjectMeta(name="rigid", namespace="")))
+    pair.both("create_storage_class", StorageClass(meta=ObjectMeta(name="elastic", namespace=""),
+                                                   allow_volume_expansion=True))
+    outs = []
+    for name, cls in (("a", "rigid"), ("b", "elastic")):
+        pair.both("create_pvc", PersistentVolumeClaim(meta=ObjectMeta(name=name),
+                                                      storage_class=cls, requested_bytes=100))
+        for size in (200, 50, 200):
+            outs.append(pair.both("update_object", PersistentVolumeClaim(
+                meta=ObjectMeta(name=name), storage_class=cls, requested_bytes=size),
+                "PersistentVolumeClaim"))
+    assert [o is None for o in outs] == [False, False, False, True, False, True]
+    assert "expansion" in outs[0][1] and "shrink" in outs[1][1]
+    _same_objects(pair, "PersistentVolumeClaim")
+
+
+def test_owner_references_permission_enforcement(monkeypatch):
+    from kubernetes_tpu_torch.api.types import OwnerReference
+
+    pair = _stores(monkeypatch, authorizer=True)
+    _grant(pair, "carol", ("update",), ("ReplicaSet",), ("finalizers",))
+    ref = OwnerReference(kind="ReplicaSet", name="rs", controller=True, block_owner_deletion=True)
+    outs = []
+    for user in ("alice", "carol"):
+        _as(pair, user)
+        pod = torch_api().make_pod(f"p-{user}").req({"cpu": "1"}).obj()
+        pod.meta.owner_references = (ref,)
+        outs.append(pair.both("create_pod", pod))
+    assert outs[0] is not None and "blockOwnerDeletion" in outs[0][1] and outs[1] is None
+    _as(pair, "system:admin")
+    for store in (pair.jstore, pair.tstore):
+        store.authorizer = None
+    pod = torch_api().make_pod("p-open").req({"cpu": "1"}).obj()
+    pod.meta.owner_references = (ref,)
+    assert pair.both("create_pod", pod) is None
+    _same_objects(pair, "Pod")
+
+
+def _webhook(name: str, handler=None, url: str = "", policy: str = "Fail", kinds=("Pod",)):
+    from kubernetes_tpu_torch.api.types import ObjectMeta
+    from kubernetes_tpu_torch.apiserver.admission import WebhookConfiguration
+
+    return WebhookConfiguration(meta=ObjectMeta(name=name, namespace=""), kinds=kinds,
+                                handler=handler, url=url, failure_policy=policy)
+
+
+def test_mutating_admission_webhook(monkeypatch):
+    def bump(review):
+        return {"allowed": True, "patch": [
+            {"op": "replace", "path": "/spec/priority", "value": 7},
+            {"op": "add", "path": "/meta/labels/webhook", "value": review["operation"]}]}
+
+    pair = _stores(monkeypatch)
+    pair.both("create_object", _webhook("bumper", bump), "MutatingWebhookConfiguration")
+    assert pair.both("create_pod", torch_api().make_pod("p").req({"cpu": "1"}).obj()) is None
+    pods = _same_objects(pair, "Pod")
+    assert pods["default/p"]["spec"]["priority"] == 7
+    assert pods["default/p"]["meta"]["labels"] == {"webhook": "CREATE"}
+    pair.both("create_object", _webhook("bad-patch", lambda r: {"patch": [
+        {"op": "move", "path": "/spec/priority"}]}), "MutatingWebhookConfiguration")
+    out = pair.both("create_pod", torch_api().make_pod("q").req({"cpu": "1"}).obj())
+    assert out is not None and "invalid patch" in out[1]
+
+
+def test_validating_admission_webhook(monkeypatch):
+    def broken(review):
+        raise RuntimeError("down")
+
+    pair = _stores(monkeypatch)
+    pair.both("create_object", _webhook("flaky", broken, policy="Ignore"),
+              "ValidatingWebhookConfiguration")
+    assert pair.both("create_pod", torch_api().make_pod("a").req({"cpu": "1"}).obj()) is None
+    pair.both("create_object", _webhook("gate", lambda r: {
+        "allowed": r["name"] != "b", "message": "not today", "patch": [
+            {"op": "replace", "path": "/spec/priority", "value": 9}]}),
+        "ValidatingWebhookConfiguration")
+    out = pair.both("create_pod", torch_api().make_pod("b").req({"cpu": "1"}).obj())
+    assert out is not None and "not today" in out[1]
+    assert pair.both("create_pod", torch_api().make_pod("c").req({"cpu": "1"}).obj()) is None
+    pair.both("create_object", _webhook("strict", broken), "ValidatingWebhookConfiguration")
+    out = pair.both("create_pod", torch_api().make_pod("d").req({"cpu": "1"}).obj())
+    assert out is not None and "webhook call failed" in out[1]
+    pods = _same_objects(pair, "Pod")
+    assert pods["default/c"]["spec"]["priority"] == 0  # a validating webhook patches nothing
+
+
+def test_admission_webhook_over_http(monkeypatch):
+    """A webhook configured by URL: the AdmissionReview-shaped POST to a
+    local server, whose answer both packages apply alike."""
+    import json
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    reviews = []
+
+    class Hook(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802
+            review = json.loads(self.rfile.read(int(self.headers["Content-Length"])))
+            reviews.append(review)
+            body = json.dumps({"allowed": review["name"] != "bad", "patch": [
+                {"op": "replace", "path": "/spec/priority", "value": 3}]}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = HTTPServer(("127.0.0.1", 0), Hook)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        pair = _stores(monkeypatch)
+        url = f"http://127.0.0.1:{srv.server_address[1]}/mutate"
+        pair.both("create_object", _webhook("remote", url=url), "MutatingWebhookConfiguration")
+        assert pair.both("create_pod", torch_api().make_pod("ok").req({"cpu": "1"}).obj()) is None
+        out = pair.both("create_pod", torch_api().make_pod("bad").req({"cpu": "1"}).obj())
+        assert out is not None and "denied by webhook" in out[1]
+        assert _same_objects(pair, "Pod")["default/ok"]["spec"]["priority"] == 3
+        assert reviews[0] == reviews[1] and reviews[2] == reviews[3]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+def test_certificate_plugins(monkeypatch):
+    from kubernetes_tpu_torch.api.types import CertificateSigningRequest, ObjectMeta
+
+    def csr(**kw):
+        base = dict(meta=ObjectMeta(name="c1", namespace=""), username="alice",
+                    signer_name="kubernetes.io/kube-apiserver-client", usages=("client auth",))
+        base.update(kw)
+        return CertificateSigningRequest(**base)
+
+    pair = _stores(monkeypatch, authorizer=True)
+    _grant(pair, "approver", ("approve",), ("CertificateSigningRequest",), ("approval",))
+    _grant(pair, "signer", ("sign",), ("CertificateSigningRequest",), ("status",))
+    kind = "CertificateSigningRequest"
+    outs = [pair.both("create_object", csr(meta=ObjectMeta(name="m", namespace=""),
+                                           groups=("system:masters",)), kind),
+            pair.both("create_object", csr(), kind)]
+    for user, change in (("alice", dict(approved=True)), ("approver", dict(approved=True)),
+                         ("approver", dict(approved=True, certificate="X")),
+                         ("signer", dict(approved=True, certificate="X")),
+                         ("root", dict(approved=True, certificate="X", denied=True))):
+        _as(pair, user, ("system:masters",) if user == "root" else ())
+        outs.append(pair.both("update_object", csr(**change), kind))
+    assert [o is None for o in outs] == [False, True, False, True, False, True, True]
+    assert "CertificateSubjectRestriction" in outs[0][1]
+    assert "CertificateApproval" in outs[2][1] and "CertificateSigning" in outs[4][1]
+    _same_objects(pair, kind)
+
+
+def test_default_ingress_class(monkeypatch):
+    from kubernetes_tpu_torch.api.types import (ANNOTATION_DEFAULT_INGRESS_CLASS, Ingress,
+                                                IngressClass, IngressRule, ObjectMeta)
+
+    pair = _stores(monkeypatch)
+    default = {ANNOTATION_DEFAULT_INGRESS_CLASS: "true"}
+    pair.both("create_object", IngressClass(meta=ObjectMeta(name="nginx", namespace="",
+                                                            annotations=default)), "IngressClass")
+    pair.both("create_object", IngressClass(meta=ObjectMeta(name="other", namespace="")),
+              "IngressClass")
+    rules = (IngressRule(host="a.example", service_name="web", service_port=80),)
+    assert pair.both("create_object", Ingress(meta=ObjectMeta(name="i1"), rules=rules),
+                     "Ingress") is None
+    assert pair.both("create_object", Ingress(meta=ObjectMeta(name="i2"),
+                                              ingress_class_name="other"), "Ingress") is None
+    pair.both("create_object", IngressClass(meta=ObjectMeta(name="traefik", namespace="",
+                                                            annotations=default)),
+              "IngressClass")
+    out = pair.both("create_object", Ingress(meta=ObjectMeta(name="i3")), "Ingress")
+    assert out is not None and "multiple IngressClasses" in out[1]
+    got = _same_objects(pair, "Ingress")
+    assert {k: v["ingress_class_name"] for k, v in got.items()} == {
+        "default/i1": "nginx", "default/i2": "other"}
+
+
+def _pod_edits():
+    """Seeded pod edits the default-off plugins act on."""
+    from kubernetes_tpu_torch.api.types import (Affinity, LabelSelector, PodAffinityTerm,
+                                                PodAntiAffinity, SecurityContext)
+
+    def anti(key):
+        def edit(pod):
+            pod.spec.affinity = Affinity(pod_anti_affinity=PodAntiAffinity(required=(
+                PodAffinityTerm(label_selector=LabelSelector(match_labels={"a": "b"}),
+                                topology_key=key),)))
+        return edit
+
+    def root(pod):
+        pod.spec.containers[0].security_context = SecurityContext(run_as_user=0)
+
+    def extended(pod):
+        pod.spec.containers[0].requests["example.com/gpu"] = 1
+
+    return {"plain": lambda pod: None, "root": root, "extended": extended,
+            "anti-host": anti("kubernetes.io/hostname"),
+            "anti-zone": anti("topology.kubernetes.io/zone")}
+
+
+@pytest.mark.parametrize("plugin", [
+    "NamespaceAutoProvision", "NamespaceExists", "SecurityContextDeny",
+    "LimitPodHardAntiAffinityTopology", "AlwaysPullImages", "ExtendedResourceToleration",
+    "DenyServiceExternalIPs", "AlwaysAdmit", "AlwaysDeny"])
+def test_default_off_plugins(monkeypatch, plugin):
+    """Each default-off plugin of ``all_ordered_plugins`` alone in both
+    chains: pods with every edit in two namespaces (one absent), a Service
+    with and without external IPs, and its update."""
+    from kubernetes_tpu_torch.api.types import ObjectMeta, Service
+
+    pair = _stores(monkeypatch, plugins=[plugin])
+    outs = []
+    for ns in ("default", "team-a"):
+        for name, edit in _pod_edits().items():
+            pod = torch_api().make_pod(f"{name}-{ns}", namespace=ns).req({"cpu": "1"}).obj()
+            edit(pod)
+            outs.append(pair.both("create_pod", pod))
+    outs.append(pair.both("create_service", Service(meta=ObjectMeta(name="s1"))))
+    svc = Service(meta=ObjectMeta(name="s2"))
+    svc.external_ips = ("1.2.3.4",)
+    outs.append(pair.both("create_service", svc))
+    upd = Service(meta=ObjectMeta(name="s1"))
+    upd.external_ips = ("5.6.7.8",)
+    outs.append(pair.both("update_object", upd, "Service"))
+    assert any(o is None for o in outs) or plugin == "AlwaysDeny"
+    for kind in ("Pod", "Namespace", "Service"):
+        _same_objects(pair, kind)
+
+
+def test_event_rate_limit(monkeypatch):
+    from kubernetes_tpu.apiserver.admission import EventRateLimit as JEventRateLimit
+    from kubernetes_tpu_torch.api.types import Event, ObjectMeta
+    from kubernetes_tpu_torch.apiserver.admission import AdmissionChain, EventRateLimit
+
+    import kubernetes_tpu.apiserver.admission as jadm
+
+    pair = _stores(monkeypatch)
+    clock = [0.0]
+    pair.jstore.admission = jadm.AdmissionChain([JEventRateLimit(qps=2.0, burst=3,
+                                                                 now_fn=lambda: clock[0])])
+    pair.tstore.admission = AdmissionChain([EventRateLimit(qps=2.0, burst=3,
+                                                           now_fn=lambda: clock[0])])
+    outs = []
+    for i in range(12):
+        ns = ("a", "b")[i % 2]
+        outs.append(pair.both("create_object", Event(meta=ObjectMeta(name=f"e{i}", namespace=ns)),
+                              "Event"))
+        clock[0] += 0.1 if i < 8 else 1.0
+    assert any(o is None for o in outs) and any(o is not None for o in outs)
+    _same_objects(pair, "Event")

@@ -20,8 +20,10 @@ replicas; the device fabric of two card services with the primary killed
 Node-axis sharding (``parallel/``): one NCCL rank's sharded scan against
 the fused kernel's batch at N=5120, and two gloo ranks on the card
 against two on the CPU in modes off and host. The scheduler_perf harness,
-and the controller manager and the loop taking turns
-(``perf/control_plane.py``), each against its CPU run.
+the controller manager and the loop taking turns
+(``perf/control_plane.py``), and the loop behind the API front with its
+write-ahead log, crash and restore (``perf/apiserver.py``), each against
+its CPU run.
 
 Marked ``cuda``: without a CUDA device these tests skip. They import no JAX,
 so they also run on a machine that has only PyTorch and the CUDA toolkit:
@@ -1613,3 +1615,24 @@ def test_control_plane_on_card_matches_cpu(cuda, monkeypatch):
     assert gpu["node_loss"]["evicted"] > 0
     assert gpu["budgets"]["guarded_evicted"] == 0 and gpu["budgets"]["preemptors_bound"] == 16
     assert cpu_launches == 0 and launches == sum(p == "fused" for p in paths) > 0
+
+
+@pytest.mark.cuda
+def test_loop_apiserver_on_card_matches_cpu(cuda, monkeypatch):
+    """The loop behind the API front (``perf/apiserver.py``): SchedulingBasic
+    at 64 nodes POSTed over HTTP to a durable, authenticated front, Run A
+    and the crash-and-restore Run B, on the card and on the CPU: every check
+    of ``check_apiserver_run`` holds, placements equal, one fused launch per
+    fused batch on the card, none on the CPU."""
+    from kubernetes_tpu_torch.perf import workloads
+    from kubernetes_tpu_torch.perf.apiserver import check_apiserver_run, run_loop_apiserver
+
+    monkeypatch.setenv("KTPU_BATCH_DEADLINE_MS", "0")
+    w = workloads.scheduling_basic(64, 40, 40)
+    for crash in (False, True):
+        runs = {d: run_loop_apiserver(w, d, crash=crash, batch_size=16) for d in ("cuda", "cpu")}
+        for d, run in runs.items():
+            assert check_apiserver_run(f"{d} crash={crash}", w, run, crash) == []
+        assert runs["cuda"]["placed"] == runs["cpu"]["placed"]
+        assert runs["cpu"]["launches"] == 0
+        assert runs["cuda"]["launches"] == sum(p == "fused" for p in runs["cuda"]["paths"]) > 0
