@@ -24,7 +24,7 @@
    GROUPS_DEADLINE_S), each phase in the group of the phases whose results
    it reads: core (3-5, 11, 20, 22, 24), batch (6, 8-10, 12-13, the shard phase
    of 21) and loop (the loop_basic part of 11, then 14-19, then 7, then
-   the shard_scale phase of 21, then 23). Each group's output is
+   the shard_scale phase of 21, then 23, then 25). Each group's output is
    printed in that order once all have ended, a failed group's last.
 3. Slice phase: SchedulingBasic/5000Nodes (5000 nodes of cpu 32 / 128Gi /
    110 pods with zone and hostname labels; pods asking 900m / 2Gi) through
@@ -484,7 +484,38 @@
    from bind to event (p50 / p99), the WAL's lines and bytes, ms per
    ``append_batch``, the restore's seconds, the measured window's pods/s
    and the launches beside the card's name and power limit.
-25. Each workload run prints pods/s, ms per batch, host ms per stage, and
+25. Loop_kubemark phase (loop group): the scheduler binary in front of a
+   kubemark cluster (``kubernetes_tpu_torch/perf/kubemark.py``). Run A,
+   "[kubemark, binary]", on the card and then with ``device="cpu"`` (full
+   batches) in this process: one ``Store`` on a FakeClock, 5000 hollow
+   kubelets (``kubelet/kubemark.py:HollowCluster``, JAX's ``default_node``:
+   cpu 8 / 32Gi / 110 pods in three zones, each kubelet with a
+   ``FakeRuntimeService`` and a PLEG), ``SchedulerApp(store, tpu=True,
+   device=...)`` with leader election through the store's Lease, its
+   informers and its ``ComponentServer`` on port 0, and a controller
+   manager with the deployment, replicaset and endpoints controllers; a
+   Service and a Deployment of 2000 replicas of cpu 500m; turns of manager
+   settle, ``app.tick()`` and ``cluster.tick()`` until every pod is Running
+   (at most 10), then one more ``cluster.tick()`` so that each PLEG relists
+   the sandboxes its kubelet started. Every pod must be Running in a
+   sandbox that its PLEG reported; the placements, every Pod, Node, Lease
+   and Endpoints object with its resource version, the kubelets'
+   transitions, PLEG events and sandboxes, the batches and the
+   /debug/devicestate body (the batch sizer's
+   wall-clock fit left out) must equal the CPU run's; ``relay.track()``
+   must count exactly one "commit-read" per batch and no other read;
+   /healthz, /configz, /metrics, /debug/devicestate and /debug/cache must
+   answer 200 and the cache comparer report no drift; the fused kernel
+   must launch once per fused batch on the card and never on the CPU. Run
+   B, "[kube-scheduler --simulate]": ``python -m
+   kubernetes_tpu_torch.cmd.server --simulate nodes=5000,pods=2000 --port
+   0`` as a child process in a process group of its own, with its own
+   deadline: exit 0 with "simulation complete: 2000 pods bound", its fused
+   launches (which it prints) one per fused batch, and no process of its
+   group left. Prints the turns, the batches, the fused launches, ms per
+   kubelet tick, the pods per second of the scheduling turns and the
+   phase's seconds beside the card's name and power limit.
+26. Each workload run prints pods/s, ms per batch, host ms per stage, and
    the CUDA kernels and device busy time of one measured batch
    (torch.profiler). Then the card's name and power limit, one JSON line of
    per-kernel numbers, and, as the last line, the device summary.
@@ -495,6 +526,7 @@ device is present.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import importlib.util
@@ -4143,6 +4175,112 @@ def loop_apiserver_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- loop_kubemark phase
+
+KUBEMARK_NODES, KUBEMARK_REPLICAS = 5000, 2000  # kubemark's published scale
+KUBEMARK_SIMULATE_S = 400  # Run B's own deadline
+
+
+def _kubemark_run(device: str) -> dict:
+    from kubernetes_tpu_torch.perf.kubemark import run_kubemark
+
+    with _env(KTPU_BATCH_DEADLINE_MS=None, KTPU_SPEC=None, KTPU_PIPELINE_DEPTH=None,
+              KTPU_COMMIT_WORKER=None, KTPU_FULL_BATCH=None if device == "cuda" else "1"):
+        return run_kubemark(device, nodes=KUBEMARK_NODES, replicas=KUBEMARK_REPLICAS)
+
+
+def _kubemark_simulate() -> dict:
+    """Run B: the binary's own entry point as a child in a process group of
+    its own; the group is killed whole at the end, and a process of it
+    still alive after the binary's exit is a fault."""
+    cmd = [sys.executable, "-m", "kubernetes_tpu_torch.cmd.server", "--simulate",
+           f"nodes={KUBEMARK_NODES},pods={KUBEMARK_REPLICAS}", "--port", "0"]
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            process_group=0, cwd=os.path.dirname(os.path.abspath(__file__)))
+    left = False
+    try:
+        out, err = proc.communicate(timeout=KUBEMARK_SIMULATE_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError(f"loop_kubemark [kube-scheduler --simulate]: past its "
+                             f"{KUBEMARK_SIMULATE_S} s deadline; stdout {out[-1000:]!r}, "
+                             f"stderr {err[-2000:]!r}")
+    finally:
+        try:
+            os.killpg(proc.pid, 0)
+            left = proc.returncode is not None
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    seconds = time.perf_counter() - t
+    done = f"simulation complete: {KUBEMARK_REPLICAS} pods bound"
+    if proc.returncode != 0 or done not in out or left:
+        raise AssertionError(f"loop_kubemark [kube-scheduler --simulate]: exit "
+                             f"{proc.returncode}, {'a child left, ' if left else ''}"
+                             f"stdout {out[-1500:]!r}, stderr {err[-3000:]!r}")
+    line = next(x for x in out.splitlines() if x.startswith("scheduler: "))
+    batches = int(line.split()[1])
+    fused = ast.literal_eval(line[line.index("{"):line.index("}") + 1]).get("fused", 0)
+    launches = int(line[line.index("}") + 1:].split()[1])
+    if launches != fused or not fused:
+        raise AssertionError(f"loop_kubemark [kube-scheduler --simulate]: {line}")
+    return {"seconds": seconds, "batches": batches, "launches": launches, "line": line}
+
+
+def loop_kubemark_phase() -> dict:
+    """Run A (the binary's app in front of 5000 hollow kubelets, on the card
+    and then on the CPU) and Run B (the binary's ``--simulate``)."""
+    from kubernetes_tpu_torch.perf.kubemark import check_kubemark_run
+
+    parts, part = _parts()
+    card = _card()
+    gpu = _kubemark_run("cuda")
+    part("run A card")
+    cpu = _kubemark_run("cpu")
+    part("run A cpu")
+    name = f"Kubemark/{KUBEMARK_NODES}Nodes [kubemark, binary]"
+    faults = (check_kubemark_run(f"{name} on the card", gpu, KUBEMARK_REPLICAS)
+              + check_kubemark_run(f"{name} on the CPU", cpu, KUBEMARK_REPLICAS))
+    for key in ("placed", "objects", "reads", "batches", "paths", "batch_pods", "turns",
+                "transitions", "pleg_events", "sandboxes", "devicestate", "cache"):
+        if gpu[key] != cpu[key]:
+            faults.append(f"{name}: {key} differs from the CPU run")
+    fused = sum(p == "fused" for p in gpu["paths"])
+    if gpu["launches"] != fused or not fused or cpu["launches"]:
+        faults.append(f"{name}: {gpu['launches']} fused launches for {fused} fused of "
+                      f"{gpu['batches']} batches; CPU {cpu['launches']}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    sim = _kubemark_simulate()
+    part("run B")
+    for label, run in (("the card", gpu), ("the CPU", cpu)):
+        sec = run["seconds"]
+        print(f"{name} on {label} ({card}): {run['running']} pods Running after "
+              f"{run['turns']} turns, {run['batches']} batches {run['batch_pods']}, "
+              f"{run['launches']} fused launches, reads {run['reads']}; kubelet tick "
+              f"{sec['kubelets'] / (run['kubelet_ticks'] * KUBEMARK_NODES) * 1e3:.4f} ms "
+              f"({sec['kubelets'] / run['kubelet_ticks']:.3f} s per fleet tick over "
+              f"{run['kubelet_ticks']}, "
+              f"{run['transitions']} transitions, {run['sandboxes']} sandboxes, "
+              f"{run['pleg_events']} PLEG events); scheduling turns "
+              f"{sec['scheduler']:.3f} s = {run['bound'] / sec['scheduler']:.1f} pods/s; "
+              f"controllers {sec['controllers']:.3f} s; register {sec['register']:.3f} s; "
+              f"run {sec['wall']:.3f} s wall; endpoints {run['http']}; "
+              + ("== the CPU run" if run is gpu else "the reference"))
+    print(f"Kubemark [kube-scheduler --simulate nodes={KUBEMARK_NODES},"
+          f"pods={KUBEMARK_REPLICAS}] on the card ({card}): {sim['line']}; "
+          f"{sim['seconds']:.3f} s from start to exit (process start, build of the "
+          "cluster, the binary's 1 s poll included)")
+    print("loop_kubemark phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                                     for k, v in parts.items())
+          + f"; total {sum(parts.values()):.1f}")
+    return {name: {"launches": gpu["launches"]},
+            f"Kubemark/{KUBEMARK_NODES}Nodes [kube-scheduler --simulate]":
+                {"launches": sim["launches"]}}
+
+
 def bs_other(prev: dict) -> str:
     return sorted(set(prev["gpu"]["paths"]))[-1]
 
@@ -4202,6 +4340,7 @@ def loop_group(timed, kern: dict) -> dict:
     pre = timed("preempt", preempt_phase)  # here for the groups' balance
     shard_scale = timed("shard_scale", shard_scale_phase)  # likewise
     controllers = timed("loop_controllers", loop_controllers_phase)
+    kubemark = timed("loop_kubemark", loop_kubemark_phase)
     entropy = loop_rebalance.pop("packing_entropy")
     loop.pop(CPU_BASIC)
     loop.pop(CPU_PREEMPT)
@@ -4219,7 +4358,8 @@ def loop_group(timed, kern: dict) -> dict:
                          **{f"wire:{k}": v["launches"] for k, v in loop_wire.items()},
                          **{k: v["launches"] for k, v in pre.items()},
                          **{f"shard:{k}": v["launches"] for k, v in shard_scale.items()},
-                         **{k: v["launches"] for k, v in controllers.items()}}}
+                         **{k: v["launches"] for k, v in controllers.items()},
+                         **{f"kubemark:{k}": v["launches"] for k, v in kubemark.items()}}}
 
 
 GROUPS = {"core": core_group, "batch": batch_group, "loop": loop_group}

@@ -98,6 +98,7 @@ from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 from ..api import validation
+from ..testing import locktrace
 from ..api.types import (CSINode, Event, Lease, LimitRange, Namespace, Node, PersistentVolume,
                          PersistentVolumeClaim, Pod, PodDisruptionBudget, PodGroup,
                          PodSchedulingContext, PriorityClass, ReplicaSet, ReplicationController,
@@ -254,7 +255,7 @@ class Store:
         self.pod_metrics: Dict[str, int] = {}
         # the watch journal: (seq, kind, event, old, new), bounded, and the
         # live watches per kind, under the one lock with the map writes
-        self._lock = threading.RLock()
+        self._lock = locktrace.make_rlock("ClusterStore")
         self._event_seq = 0
         self._journal: List[Tuple[int, str, str, object, object]] = []
         self._journal_capacity = JOURNAL_CAPACITY

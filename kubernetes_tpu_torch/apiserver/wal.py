@@ -35,6 +35,7 @@ import zlib
 from typing import Iterator, Optional
 
 from ..api.codec import from_wire, to_wire
+from ..testing import locktrace
 
 _SNAP_SUFFIX = ".snap"
 
@@ -82,6 +83,8 @@ class WriteAheadLog:
     def _write_line(self, body: str, n_records: int) -> None:
         # under the store's lock by contract: the log's order is the journal's
         line = f"{zlib.crc32(body.encode()):08x} {body}\n"
+        locktrace.note_blocking("wal_append", self.path,
+                                allowed="WAL order must match the store journal order")
         with self._lock:
             self._f.write(line)
             self._f.flush()

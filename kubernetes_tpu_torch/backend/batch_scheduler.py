@@ -130,6 +130,7 @@ from ..ops.quota import QUOTA_OK_BIT, QUOTA_SCREEN_BIT, build_quota_batch_args
 from ..ops.schema import Capacities, ExprTable, PodBatch, TopoBatch
 from ..ops.slice import is_slice_pod
 from ..ops.volume_mask import VolumeMaskBuilder
+from ..utils import relay
 from ..utils.device import DeviceLike
 from .batch import (DEFAULT_WEIGHTS, SLICE_PLAN_OK_BIT, BatchResult, gang_member_index,
                     gang_verdicts, pack_result_block, schedule_batch, spec_decode_eligible,
@@ -390,6 +391,7 @@ def preempt_screen(state: DeviceState, pods: Sequence[Pod], batch: DeviceBatch,
         return np.zeros((n, state.caps.nodes), bool), np.full(n, -1, np.int32)
     with telemetry.dispatch("preempt_screen", bucket=str(batch.pb.capacity)):
         pres = screen_prefix(batch.pb, state.preempt_inputs(), batch.res.static_masks, failed)
+    relay.count_sync("preempt-read")
     best, screen, _, _ = unpack_result_block(
         pack_result_block(pres.best, pres.screen.to(torch.int8)), state.caps.nodes)
     return screen.astype(bool), best
@@ -473,6 +475,7 @@ def judge_gangs(flat: Dict[str, List[int]], slices: Dict[str, List[int]], res: B
                                 bucket=f"{member_idx.shape[0]}x{member_idx.shape[1]}"):
             placed_all, kernel_ok, _assign = gang_verdicts(res.node_idx, res.first_fail,
                                                            member_idx, member_valid)
+        relay.count_sync("gang-read")
         verdicts = torch.stack([placed_all, kernel_ok]).cpu().numpy()  # one read
         for g, gkey in enumerate(flat):
             if not verdicts[0, g]:

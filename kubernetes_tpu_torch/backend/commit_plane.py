@@ -30,6 +30,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from ..testing import locktrace
 from . import telemetry
 from .batch import unpack_result_block
 
@@ -86,7 +87,7 @@ class CommitWorker:
     def __init__(self, commit_fn: Callable[[object], None], name: str = "ktpu-commit"):
         self._commit_fn = commit_fn
         self._name = name
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = threading.Condition(locktrace.make_lock("CommitWorker"))
         self._pending: deque = deque()
         self._busy = False
         self._stopped = False

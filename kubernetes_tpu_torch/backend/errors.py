@@ -141,4 +141,9 @@ class RetryPolicy:
                             max(self.deadline_s - elapsed, 0.0))
                 if self.on_retry is not None:
                     self.on_retry(op)
+                # a retry sleep under a component lock wedges that component
+                # for the whole backoff: the lock tracer flags it
+                from ..testing.locktrace import note_blocking
+
+                note_blocking("sleep", f"retry backoff: {op}")
                 self.sleep_fn(delay)

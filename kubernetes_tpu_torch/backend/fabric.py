@@ -59,6 +59,7 @@ import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+from ..testing import locktrace
 from . import telemetry
 from .circuit import CircuitBreaker
 from .errors import (ConflictError, DeviceServiceError, FailoverError, PermanentDeviceError,
@@ -149,7 +150,7 @@ class DeviceFabric:
         self.supports_dra = getattr(first, "supports_dra", False)
         self.supports_health = getattr(first, "supports_health", False)
         self.supports_sessions = getattr(first, "supports_sessions", False)
-        self._lock = threading.Lock()
+        self._lock = locktrace.make_lock("DeviceFabric")
         # concurrent failers wait here while the first one promotes
         self._failover_cv = threading.Condition(self._lock)
         self._failover_inprogress = False
@@ -164,7 +165,7 @@ class DeviceFabric:
         # flush); a round holds it across its transport calls by design
         self._repl_round_mutex = threading.Lock()
         self._repl_client_id = f"fabric-repl-{os.getpid():x}-{next(_REPL_IDS)}"
-        self._repl_cv = threading.Condition(threading.Lock())
+        self._repl_cv = threading.Condition(locktrace.make_lock("FabricReplicator"))
         self._repl_nodes: Dict[str, dict] = {}   # name -> newest wire entry
         self._repl_namespaces: Dict[str, dict] = {}
         self._repl_seq = 0                        # pushes folded from the active

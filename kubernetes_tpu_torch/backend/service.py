@@ -97,6 +97,7 @@ from ..api.types import Node, Pod
 from ..framework.plugins.noderesources import fits_request
 from ..framework.types import Diagnosis, NodeInfo, QueuedPodInfo, next_generation
 from ..metrics import latency_ledger
+from ..testing import locktrace
 from ..metrics.scheduler_metrics import ERROR, UNSCHEDULABLE
 from ..ops.encode import CapacityError
 from ..ops.preempt import screen_prefix
@@ -258,7 +259,7 @@ class DeviceService:
         self.batch_log: Deque[dict] = deque(maxlen=LOG_DEPTH)
         self._push_seconds = 0.0  # apply_deltas handler seconds since the last batch
         self._push_sync = 0.0     # of which the device sync
-        self._lock = threading.Lock()
+        self._lock = locktrace.make_lock("DeviceService")
 
     def _on_device(self):
         """The service's card as current on the calling (handler) thread."""
@@ -552,6 +553,9 @@ class DeviceService:
         self._ensure_device()
         for _attempt in range(GROW_ATTEMPTS):
             try:
+                # the mirror stays frozen from sync to commit: a deliberate hold
+                locktrace.note_blocking("device_sync", "DeviceService.sync",
+                                        allowed="mirror must stay frozen from sync to commit")
                 with tracing.span("device.sync"):
                     self.state.sync(self.snap)
                 return
@@ -741,6 +745,8 @@ class DeviceService:
             sample_k, sample_start = self._sample_args()
             telemetry.event("dispatch", batchId=batch_id, client=cid, epoch=self.epoch,
                             bucket=bucket, sig=sig, pods=len(pods))
+            locktrace.note_blocking("device_dispatch", "DeviceService.schedule_batch",
+                                    allowed="kernel must judge under the same lock as commit")
             with tracing.span("device.dispatch", batch=len(pods)):
                 with telemetry.dispatch("schedule_batch", bucket=sig):
                     disp = dispatch_device_batch(state, enc, sample_k, sample_start)
@@ -997,6 +1003,8 @@ class WireClient:
         self.fault_plan = fault_plan
 
     def _do_post(self, path: str, data: bytes) -> dict:
+        # socket IO never runs under a traced lock
+        locktrace.note_blocking("http", path)
         conn = self._conn_cls(self._host, self._port, timeout=self.connect_timeout)
         try:
             try:
@@ -1101,7 +1109,7 @@ class WirePipeline:
         self._send = send_fn
         self.depth = max(1, int(depth))
         self.fault_plan = fault_plan
-        self._cv = threading.Condition(threading.Lock())
+        self._cv = threading.Condition(locktrace.make_lock("WirePipeline"))
         self._submitted: Deque[dict] = deque()
         self._completions: Dict[str, tuple] = {}  # batchId -> ("ok", reply) | ("err", exc)
         self._expected: set = set()
@@ -1531,6 +1539,8 @@ class WireScheduler(Scheduler):
         synchronous, ``batch_size`` when pipelined), the host gates, the
         wire batch, and in pop order the sequential path for the pods that
         do not ride it."""
+        if self.informer_factory is not None:
+            self.informer_factory.pump()  # the binary's topology, as TPUScheduler
         self._periodic_housekeeping()
         target = (self.batch_size if self._wire_pipeline is not None
                   else min(self.batch_size, self.wire_sizer.target()))

@@ -177,7 +177,6 @@ import contextlib
 import dataclasses
 import logging
 import os
-import threading
 import time
 from collections import deque
 from typing import Callable, Deque, Dict, List, Optional, Set
@@ -203,9 +202,10 @@ from ..ops.slice import fragmentation_host
 from ..ops.tiebreak import seeds_for
 from ..ops.volume_mask import VolumeMaskBuilder
 from ..scheduler.scheduler import BindItem, Scheduler
+from ..testing import locktrace
 from ..api.wrappers import make_pod
 from ..framework.runtime import sampled_attempt
-from ..utils import tracing
+from ..utils import relay, tracing
 from ..utils.device import DeviceLike, resolve_device
 from . import telemetry
 from .batch_scheduler import (DeviceBatch, DispatchedBatch, EncodedBatch,
@@ -392,7 +392,7 @@ class TPUScheduler(Scheduler):
         self.carry_batches = 0      # batches encoded on the newest batch's carry
         # serializes the scheduling thread's sync, encode and dispatch with
         # a commit's adopt, preemption screen and reconcile
-        self.device_mutex = threading.RLock()
+        self.device_mutex = locktrace.make_rlock("DeviceMutex")
         # the continuous rebalancer, off until enable_rebalancer (:284-287)
         self.rebalancer = None
         self.commit_worker: Optional[CommitWorker] = None
@@ -623,6 +623,12 @@ class TPUScheduler(Scheduler):
         """Schedule up to one batch; returns the pods popped."""
         laps = _Laps(self.stage_seconds)
         t0 = laps.t
+        if self.informer_factory is not None:
+            # the binary's topology (``:502-510``): the informers are pumped
+            # here as ``schedule_one`` pumps them, with one queue-move scan
+            # for a pump that delivers a whole commit's bind confirmations
+            with self.queue.coalesce_moves():
+                self.informer_factory.pump()
         self._periodic_housekeeping()
         qps = self.queue.pop_batch(self.sizer.target())
         if not qps:
@@ -1157,6 +1163,7 @@ class TPUScheduler(Scheduler):
                 with tracing.span("device.commit.wait", batch=len(fl.qps), packed="packed",
                                   worker=worker):
                     t_wait = self.now_fn()
+                    relay.count_sync("commit-read")  # the one blocking read per batch
                     read, rec = materialize_profiled(
                         fl.disp, self.state.caps.nodes, program="schedule_batch",
                         bucket=f"{fl.bucket}/{fl.mode_info[0]}", t_submit=fl.t_submit,
@@ -1530,7 +1537,7 @@ class TPUScheduler(Scheduler):
             pairs = [(item.assumed.key(), item.node_name) for item in batched]
             t_bind = time.perf_counter()
             if per_pod:
-                outcomes = [item.fwk.default_bind(lambda _p=pair: self.store.bind_batch([_p])[0],
+                outcomes = [item.fwk.default_bind(lambda _p=pair: self._bind_pod(*_p),
                                                   item.sampled)
                             for item, pair in zip(batched, pairs)]
             else:

@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
 import time
 from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 from ..api.types import Node, Pod
 from ..framework.types import NodeInfo, next_generation
+from ..testing import locktrace
 from .snapshot import Snapshot
 
 DEFAULT_ASSUME_TTL = 30.0  # durationToExpireAssumedPod (scheduler.go:311)
@@ -56,7 +56,7 @@ class _PodState:
 
 class Cache:
     def __init__(self, ttl: float = DEFAULT_ASSUME_TTL, now_fn=time.monotonic):
-        self._lock = threading.RLock()
+        self._lock = locktrace.make_rlock("Cache")
         self.ttl = ttl
         self.now_fn = now_fn
         self.nodes: Dict[str, NodeInfo] = {}

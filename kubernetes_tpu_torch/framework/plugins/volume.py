@@ -324,11 +324,19 @@ class VolumeBinding:
     Score, and its bind tail: Reserve assumes the chosen node's (PV, PVC)
     pairs for the pod, Unreserve forgets them, PreBind writes each through
     the store's ``bind_pv``. A pod without PreFilter state (a plain pod of
-    a batch) reserves nothing."""
+    a batch) reserves nothing. The Score sits behind the
+    VolumeCapacityPriority feature gate (``volume_capacity_priority``; None
+    reads ``utils/featuregate.DEFAULT_FEATURE_GATE`` at construction, as the
+    JAX plugin does, ``kubernetes_tpu/framework/plugins/volume.py:263-270``)."""
 
-    def __init__(self, client=None):
+    def __init__(self, client=None, volume_capacity_priority: Optional[bool] = None):
         self.client = client
         self._assumed: Dict[str, List[Binding]] = {}
+        if volume_capacity_priority is None:
+            from ...utils.featuregate import DEFAULT_FEATURE_GATE
+
+            volume_capacity_priority = DEFAULT_FEATURE_GATE.enabled("VolumeCapacityPriority")
+        self.volume_capacity_priority = volume_capacity_priority
 
     def name(self) -> str:
         return names.VOLUME_BINDING
@@ -356,9 +364,24 @@ class VolumeBinding:
         return Fail(names.VOLUME_BINDING, reason, reason != ERR_REASON_NO_PV)
 
     def score_node(self, state, pod: Pod, ni: NodeInfo) -> int:
-        """0: the score sits behind the VolumeCapacityPriority feature
-        gate, off in the JAX package (volume_binding.go:296)."""
-        return 0
+        """The line-shaped utilization score over the PVs the Filter chose
+        on this node (scorer.go buildScorerFunction, default shape: 0% -> 0
+        .. 100% -> 100; ``:344-364``): the mean of ``100 * requested /
+        capacity`` over the node's bindings, truncated to an int. 0 with the
+        gate off or without delayed claims (volume_binding.go:296)."""
+        if not self.volume_capacity_priority or state is None:
+            return 0
+        bindings = state.node_bindings.get(ni.node.meta.name, [])
+        if not bindings:
+            return 0
+        total = 0.0
+        for pv_name, pvc_key in bindings:
+            pv = self.client.get_pv(pv_name)
+            pvc = self.client.get_pvc(pvc_key)
+            if pv is None or pvc is None or pv.capacity_bytes == 0:
+                continue
+            total += 100.0 * pvc.requested_bytes / pv.capacity_bytes
+        return int(total / len(bindings))
 
     def reserve(self, state, pod: Pod, node_name: str) -> Optional[str]:
         if state is not None:

@@ -54,10 +54,11 @@ released.
 from __future__ import annotations
 
 import os
-import threading
 import time
 from collections import OrderedDict, deque
 from typing import Callable, Dict, Iterable, List, Optional
+
+from ..testing import locktrace
 
 # the declared segment registry: every segment observed on
 # pod_latency_segment comes from this set
@@ -117,7 +118,7 @@ class PodLatencyLedger:
         # {namespace} label set of the tenant SLO histogram.
         self.tenant_fn = tenant_fn
         self._max_intervals = max_intervals
-        self._lock = threading.Lock()
+        self._lock = locktrace.make_lock("LatencyLedger")
         self._entries: "OrderedDict[str, _Entry]" = OrderedDict()
         self._closed: deque = deque(maxlen=keep_closed)
         self.evicted = 0

@@ -28,6 +28,10 @@ import torch
 
 INT_NONE = np.int32(-(2**31))  # sentinel for "absent" numeric label
 
+# torus geometry: chips per schedulable host (slice sizes quoted in chips are
+# node count * CHIPS_PER_NODE; the /debug/devicestate topology block)
+CHIPS_PER_NODE = 4
+
 # resource columns
 COL_CPU = 0
 COL_MEM = 1

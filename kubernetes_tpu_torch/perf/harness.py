@@ -46,6 +46,7 @@ from typing import Callable, Dict, List, Optional
 from ..api.wrappers import make_node, make_pod
 from ..apiserver.store import Store
 from ..config import load_config, scheduler_from_config
+from ..scheduler.scheduler import settle_sequential
 from ..utils.device import DeviceLike
 
 
@@ -641,15 +642,7 @@ class Runner:
         flush. Returns the cycles run."""
         if self._batched:
             return self.scheduler.run_until_settled()
-        cycles = 0
-        while cycles < 100000:
-            if not self.scheduler.schedule_one():
-                self.scheduler.queue.flush_backoff_completed()
-                if self.scheduler.queue.pending_pods()["active"] > 0:
-                    continue
-                break
-            cycles += 1
-        return cycles
+        return settle_sequential(self.scheduler)
 
     def _cycle(self) -> bool:
         """One cycle: a batch cycle, or one sequential pod on ``oracle``.

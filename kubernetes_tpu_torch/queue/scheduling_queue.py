@@ -49,13 +49,13 @@ import bisect
 import functools
 import heapq
 import itertools
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..api.types import Pod
 from ..framework.types import ClusterEvent, QueuedPodInfo
 from ..metrics import latency_ledger
+from ..testing import locktrace
 from . import events
 
 POD_INITIAL_BACKOFF = 1.0
@@ -96,7 +96,7 @@ class SchedulingQueue:
                  ns_weight_fn: Optional[Callable[[str], Optional[float]]] = None,
                  initial_backoff: float = POD_INITIAL_BACKOFF,
                  max_backoff: float = POD_MAX_BACKOFF):
-        self._lock = threading.RLock()
+        self._lock = locktrace.make_rlock("SchedulingQueue")
         # podInitialBackoffSeconds and podMaxBackoffSeconds
         self.initial_backoff = initial_backoff
         self.max_backoff = max_backoff
@@ -553,6 +553,44 @@ class SchedulingQueue:
         return ([e[2] for e in self._active]
                 + [e[2] for h in self._active_ns.values() for e in h]
                 + [e[2] for e in self._backoff] + list(self._unschedulable.values()))
+
+    @_locked
+    def dump(self) -> Dict[str, object]:
+        """Structured snapshot of the sub-queues, the /debug/queue body
+        (``kubernetes_tpu/queue/scheduling_queue.py:709-752``). Called from
+        the serving thread while the scheduling thread mutates the queue, so
+        it holds the queue's lock, as JAX's does (an RLock: the
+        ``pending_pods`` call inside takes it again)."""
+        now = self.now_fn()
+        active = list(self._active)
+        for h in self._active_ns.values():
+            active += h
+        backoff = list(self._backoff)
+        unschedulable = list(self._unschedulable.values())
+
+        def entry(qp: QueuedPodInfo, **extra):
+            return {"pod": qp.pod.key(), "priority": qp.pod.spec.priority,
+                    "attempts": qp.attempts,
+                    "unschedulablePlugins": sorted(qp.unschedulable_plugins), **extra}
+
+        counts = self.pending_pods()
+        return {
+            "counts": dict(counts),
+            "schedulingCycle": self.scheduling_cycle,
+            "moveRequestCycle": self.move_request_cycle,
+            "fairShare": {
+                "tenants": {ns: len(h) for ns, h in self._active_ns.items()},
+                "deficits": {ns: round(d, 3) for ns, d in self._deficit.items()},
+                "currentTurn": self._drr_cur,
+            },
+            "active": [entry(e[2]) for e in sorted(active)],
+            "backoff": [entry(e[2], backoffRemaining=max(e[0] - now, 0.0))
+                        for e in sorted(backoff)],
+            "unschedulable": [entry(qp, parkedFor=max(now - qp.timestamp, 0.0))
+                              for qp in unschedulable if not qp.gated],
+            "gated": [entry(qp, parkedFor=max(now - qp.timestamp, 0.0))
+                      for qp in unschedulable if qp.gated],
+        }
 
     @_locked
     def __len__(self) -> int:

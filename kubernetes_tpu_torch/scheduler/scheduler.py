@@ -229,8 +229,12 @@ class SyncCounters(dict):
 class Scheduler:
     def __init__(self, store: Store, profiles: Optional[Dict[str, object]] = None,
                  percentage_of_nodes_to_score: int = 0, pod_initial_backoff: float = 1.0,
-                 pod_max_backoff: float = 10.0, now_fn=time.monotonic, extenders=None):
+                 pod_max_backoff: float = 10.0, now_fn=time.monotonic, extenders=None,
+                 informer_factory=None):
         self.store = store
+        # the binary's topology (``cmd/server.py:setup``): pod and node
+        # events through the shared informers, pumped each cycle
+        self.informer_factory = informer_factory
         self.extenders = list(extenders or [])
         self.now_fn = now_fn
         self.percentage_of_nodes_to_score = percentage_of_nodes_to_score
@@ -362,8 +366,22 @@ class Scheduler:
     # ----------------------------------------------------------- event wiring
 
     def _add_all_event_handlers(self) -> None:
-        """eventhandlers.go:249: the store's LIST replayed as ADDs, then its
-        handlers."""
+        """eventhandlers.go:249 (``:284-311``). With an informer factory, pod
+        and node events arrive through the shared informers (reflector,
+        DeltaFIFO, fan-out), which the loop pumps each cycle; the other kinds
+        the plugins asked for have no informer and ride the store's handler
+        bus in both topologies. Without one, the store's LIST is replayed as
+        ADDs, then its handlers."""
+        if self.informer_factory is not None:
+            evmap = {"add": ADDED, "update": MODIFIED, "delete": DELETED}
+            pod_inf = self.informer_factory.informer_for("Pod")
+            node_inf = self.informer_factory.informer_for("Node")
+            pod_inf.add_event_handler(lambda e, old, new: self._on_pod_event(evmap[e], old, new))
+            node_inf.add_event_handler(
+                lambda e, old, new: self._on_node_event(evmap[e], old, new))
+            self.informer_factory.wait_for_cache_sync()
+            self._add_dynamic_event_handlers()
+            return
         for node in list(self.store.nodes.values()):
             self._on_node_event(ADDED, None, node)
         for pod in list(self.store.pods.values()):
@@ -630,6 +648,8 @@ class Scheduler:
         housekeeping, the pop, then ``schedule_one_pod``; a pod deleted or
         bound meanwhile is skipped. Returns False when the active queue is
         empty."""
+        if self.informer_factory is not None:
+            self.informer_factory.pump()
         self._periodic_housekeeping()
         qp = self.queue.pop()
         if qp is None:
@@ -853,6 +873,16 @@ class Scheduler:
     def schedule_batch_cycle(self) -> int:
         raise NotImplementedError
 
+    def _bind_pod(self, key: str, node_name: str) -> Optional[Exception]:
+        """One pod through the store's ``bind``, as the JAX DefaultBinder
+        binds a pod of the sequential path (``framework/plugins/
+        defaultbinder.py``): None, or the error it raised."""
+        try:
+            self.store.bind(key, node_name)
+        except Exception as err:  # noqa: BLE001 - the status's error, as AsStatus(err)
+            return err
+        return None
+
     def _bind_stage(self, items: List[BindItem], pod_cycle: int, t0: float,
                     per_pod: bool = False) -> int:
         """The bind tail's bind, finish and PostBind stage (the subclass's);
@@ -907,3 +937,20 @@ class Scheduler:
         logging.getLogger(__name__).warning(
             "run_until_settled: no progress after bound; %s pods still pending",
             self.queue.pending_pods())
+
+
+def settle_sequential(sched: Scheduler) -> int:
+    """The JAX sequential scheduler's settle loop
+    (``kubernetes_tpu/scheduler/scheduler.py:922-934``): ``schedule_one``
+    until the active queue stays empty after a backoff flush. Returns the
+    cycles run. The binary without batching and the harness's ``oracle``
+    backend drive the loop so."""
+    cycles = 0
+    while cycles < 100000:
+        if not sched.schedule_one():
+            sched.queue.flush_backoff_completed()
+            if sched.queue.pending_pods()["active"] > 0:
+                continue
+            break
+        cycles += 1
+    return cycles

@@ -1,10 +1,11 @@
 """Shared protoc-build availability check (an own copy of
 ``kubernetes_tpu/utils/protoc.py``).
 
-The port's protobuf modules are vendored beside their ``.proto``
-(``native/``) and never run protoc; this is the rule for a module that is
-compiled on demand into a build directory instead (the kubelet's CRI, not
-yet ported), kept in one place so every such ``pb2()`` gate agrees.
+The port's protobuf modules, the kubelet's CRI among them, are vendored
+beside their ``.proto`` (``native/``) and never run protoc, so no ``pb2()``
+gate of the port calls this; it is the JAX package's rule for a module
+compiled on demand into a build directory, kept for a caller that builds
+one that way.
 """
 
 from __future__ import annotations

@@ -1636,3 +1636,32 @@ def test_loop_apiserver_on_card_matches_cpu(cuda, monkeypatch):
         assert runs["cuda"]["placed"] == runs["cpu"]["placed"]
         assert runs["cpu"]["launches"] == 0
         assert runs["cuda"]["launches"] == sum(p == "fused" for p in runs["cuda"]["paths"]) > 0
+
+
+@pytest.mark.cuda
+def test_kubemark_on_card_matches_cpu(cuda, monkeypatch):
+    """kube-scheduler's ``SchedulerApp`` in front of a kubemark cluster
+    (``perf/kubemark.py``): 64 hollow kubelets with their fake runtimes and
+    PLEGs, the controller manager, a Deployment of 150 pods, on the card
+    and on the CPU with full batches: every pod Running in a sandbox that
+    its PLEG reported, every Pod, Node, Lease and Endpoints object, the
+    kubelets' transitions, PLEG events and sandboxes and the
+    /debug/devicestate body equal, one commit read per batch, every
+    endpoint 200, the fused kernel launched once per fused batch on the
+    card and never on the CPU."""
+    from kubernetes_tpu_torch.perf.kubemark import check_kubemark_run, run_kubemark
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        # full batches on both: the card's default, forced on the CPU
+        if device == "cpu":
+            monkeypatch.setenv("KTPU_FULL_BATCH", "1")
+        else:
+            monkeypatch.delenv("KTPU_FULL_BATCH", raising=False)
+        runs[device] = run_kubemark(device, nodes=64, replicas=150, batch_size=32)
+        assert check_kubemark_run(device, runs[device], 150) == []
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    for key in ("placed", "objects", "reads", "batches", "paths", "batch_pods", "turns",
+                "transitions", "pleg_events", "sandboxes", "devicestate", "cache"):
+        assert gpu[key] == cpu[key], key
+    assert cpu["launches"] == 0 and gpu["launches"] == sum(p == "fused" for p in gpu["paths"]) > 0

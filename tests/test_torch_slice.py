@@ -167,11 +167,14 @@ def _imports(path: pathlib.Path):
 
 
 def test_import_closure_has_no_jax():
-    files = sorted((ROOT / "kubernetes_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "kubernetes_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted(ROOT.glob("tools/gen_torch_*.py")))
     assert len(files) > 15
     # every package of the port, the config package and the registry too
     assert {"config", "framework", "plugins", "apiserver", "backend", "controllers",
-            "testing"} <= {p.parent.name for p in files}
+            "testing", "cmd", "kubelet"} <= {p.parent.name for p in files}
+    # the generators of the port's vendored protobuf modules
+    assert ROOT / "tools" / "gen_torch_cri_pb2.py" in files
     assert ROOT / "kubernetes_tpu_torch" / "framework" / "registry.py" in files
     # the wire service's modules (its own copies of the codec and faults)
     for rel in ("backend/service.py", "api/codec.py", "testing/faults.py"):
